@@ -1,0 +1,18 @@
+"""PyTorch + CUDA port of ``distributed_training_guide_tpu`` for one NVIDIA
+H100, built slice by slice beside the JAX package, which stays the
+reference every port module is tested against.
+
+This slice is the serving path: the Llama family (``models/llama.py``),
+the paged KV cache and its continuous-batching engine (``serve/``), and
+the paged-attention kernel hand-written in CUDA for ``sm_90a``
+(``ops/csrc/paged_attend.cu``, built at first use by ``ops/_build.py``).
+Module names follow the JAX package so each module's counterpart is easy
+to find; nothing here imports jax or the JAX package.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``_device.resolve_device``); on the CPU every kernel wrapper runs its
+plain PyTorch version, which is how the tests hold the port against JAX.
+"""
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,49 @@
+"""The weight bridge: the JAX package's params pytree, as numpy, to the
+port's nested dict of torch tensors and back, leaf for leaf.
+
+The port never imports jax: the caller turns the JAX tree into numpy
+first (``jax.tree.map(np.asarray, params)``). Both packages keep every
+per-layer leaf stacked on a leading ``[L]`` axis and weights as
+``[in, out]``, so no leaf is transposed or reshaped. bf16 leaves arrive
+as ml_dtypes' bfloat16 (the dtype numpy gets from jax) and are carried
+bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _to_torch(x, device, dtype) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
+    """Nested dict of numpy arrays -> the same nested dict of torch
+    tensors on ``device`` (cast to ``dtype`` when given)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    return _to_torch(tree, torch.device(device), dtype)
+
+
+def params_to_numpy(tree):
+    """The inverse: nested dict of torch tensors -> numpy arrays (bf16 as
+    ml_dtypes' bfloat16, the dtype jax reads)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -1,0 +1,634 @@
+"""Continuous-batching decode engine over the paged KV cache, in PyTorch.
+
+Counterpart of ``distributed_training_guide_tpu/serve/engine.py`` for one
+device. The programs run eagerly where the JAX package jits them:
+
+- ONE batched decode step over the fixed ``[n_slots]`` slot array. Block
+  tables, lengths and sampling knobs are tensors; idle slots compute into
+  the trash page and are masked at the sample. Every paged attend — the
+  decode step and each prefill chunk — goes through
+  ``ops/paged_decode.py``: the CUDA kernel on the card, its plain version
+  for CPU tensors (``attend_impl="xla"``, the gather path, is accepted
+  only with ``device="cpu"``).
+- One prefill per LENGTH BUCKET (powers of two up to ``max_len``) through
+  the model's plain causal prefill, committed into the slot's pages — or,
+  with ``prefill_chunk=N``, the prompt streams through the paged path N
+  tokens at a time, co-scheduled with resident decodes.
+
+Between scheduler events the decode tensors stay on the device: the step
+returns next-step tokens and lengths, so a steady iteration copies one
+int32 per slot back to the host and nothing up.
+
+Sampling. JAX draws with ``fold_in(key(seed), position)`` (threefry);
+those bits cannot be reproduced here, so the port keeps the contract and
+not the bits: the draw is a pure function of (request seed, absolute
+position), a counter-based integer hash feeding a Gumbel-max over the
+same sorted, top-k and top-p filtered set. A request's tokens therefore
+do not depend on its slot, its co-residents, its admission order or a
+preemption replay. Greedy decoding (temperature 0) is an argmax and is
+token-identical to the JAX engine; an all-greedy batch skips the sort.
+
+Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
+item): speculative decoding, decode horizons, multi-LoRA adapters, the
+host KV tier, sharded plans and pools, weight storage transforms.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models.registry import ModelBundle, family_module
+from ..ops.paged_decode import HEAD_DIMS, paged_decode_eligible
+from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
+                       kv_page_bytes, make_attend, PagePool,
+                       pages_for_tokens, pool_nbytes)
+from .scheduler import Admission, Request, RequestResult, Scheduler
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 tensors holding uint32 values, split in
+    16-bit halves so no intermediate leaves int64's range."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (lowbias32): a bijection on uint32 whose
+    output bits each depend on every input bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                  v: int) -> torch.Tensor:
+    """[S, V] Gumbel noise, a pure function of (seed, position, rank):
+    the counter-based stream that replaces jax's fold_in keys."""
+    key = _mix32(_mix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    ctr = torch.arange(v, device=seeds.device, dtype=torch.int64)
+    bits = _mix32(_mix32(key[:, None] ^ ctr[None, :]) ^ 0x9E3779B9)
+    u = (bits.to(torch.float64) + 0.5) / 2.0 ** 32            # (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def _sample_tokens(logits, seeds, positions, temps, top_ks, top_ps, *,
+                   stochastic: bool) -> torch.Tensor:
+    """Per-slot temperature / top-k / top-p sampling, greedy at temp 0.
+
+    logits [S, V] fp32; the knobs are [S] tensors. The filters run in
+    sorted space (one stable descending sort), the draw is a Gumbel-max
+    over the surviving ranks, and the rank maps back to a vocab id through
+    the sort order. ``stochastic`` (host-known: any slot at temperature
+    > 0) gates the sort; without it the result is the argmax the temp-0
+    lanes would take anyway."""
+    s, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1)
+    if not stochastic:
+        return greedy.to(torch.int32)
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    sorted_desc, order = torch.sort(scaled, dim=-1, descending=True,
+                                    stable=True)
+    neg_inf = torch.finfo(torch.float32).min
+    k_eff = torch.where(top_ks > 0, top_ks, v).clamp(1, v)
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    kept = torch.where(ranks < k_eff[:, None], sorted_desc, neg_inf)
+    # top-p on the k-filtered distribution: the smallest prefix whose
+    # cumulative probability reaches top_p (rank 0 always survives)
+    probs = torch.softmax(kept, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    kept = torch.where(cum - probs < top_ps[:, None], kept, neg_inf)
+    idx = torch.argmax(kept.to(torch.float64)
+                       + _gumbel_noise(seeds, positions, v), dim=-1)
+    sampled = torch.gather(order, 1, idx[:, None])[:, 0]
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+def resolve_context_bounds(config, max_len: Optional[int],
+                           page_size: int) -> tuple:
+    """(capacity max_len, request-validation max_model_len, max_pages):
+    a bounded default (the full position table of a big preset would size
+    the pool for 131k tokens per slot); ``max_len`` is page capacity and
+    requests validate against min(capacity, position table)."""
+    max_pos = getattr(config, "max_position_embeddings", None)
+    if max_len is None:
+        max_len = min(max_pos, 2048) if max_pos else 2048
+    max_model_len = min(max_len, max_pos) if max_pos else max_len
+    return max_len, max_model_len, pages_for_tokens(max_len, page_size)
+
+
+def default_prefill_buckets(max_pages: int, page_size: int) -> tuple:
+    """Power-of-two prompt buckets up to the per-slot page capacity."""
+    cap = max_pages * page_size
+    b, buckets = page_size, []
+    while b < cap:
+        buckets.append(b)
+        b *= 2
+    buckets.append(cap)
+    return tuple(buckets)
+
+
+class LatencyMeter:
+    """Running TTFT / inter-token-latency averages over finished
+    requests (host-side counters feeding stats())."""
+
+    def __init__(self):
+        self.ttft_sum = self.itl_sum = 0.0
+        self.ttft_n = self.itl_n = 0
+
+    def note(self, finished: list) -> None:
+        for res in finished:
+            if res.first_token_at:
+                self.ttft_sum += res.ttft_s
+                self.ttft_n += 1
+                if len(res.generated_ids) > 1:
+                    self.itl_sum += res.itl_s
+                    self.itl_n += 1
+
+    def ttft_avg(self) -> float:
+        return round(self.ttft_sum / self.ttft_n, 4) if self.ttft_n else 0.0
+
+    def itl_avg(self) -> float:
+        return round(self.itl_sum / self.itl_n, 6) if self.itl_n else 0.0
+
+
+def run_fork(programs: "ModelPrograms", pages: dict, adm: Admission) -> None:
+    """Copy-on-write: the partially shared page is copied into the slot's
+    private replacement before the remainder prefill writes into it."""
+    src, dst = adm.fork
+    programs._copy_fn(pages["k"], pages["v"], int(src), int(dst))
+
+
+def run_bucket_prefill(programs: "ModelPrograms", pages: dict,
+                       sched: Scheduler, adm: Admission, buckets: tuple):
+    """Whole-prompt prefill through the bucketed program, then the commit
+    scatter (which skips the shared prefix and the pad tail). Returns the
+    real last token's logits row."""
+    tokens = adm.tokens
+    n = len(tokens)
+    bucket = next((b for b in buckets if b >= n), None)
+    if bucket is None:
+        raise ValueError(f"prompt length {n} exceeds the largest prefill "
+                         f"bucket {buckets[-1]}")
+    ids = np.zeros((1, bucket), np.int32)
+    ids[0, :n] = tokens
+    programs.prefill_calls += 1
+    logit, kd, vd = programs.prefill_for(bucket)(
+        programs.params, programs.to_device(ids), n - 1)
+    programs._commit_fn(pages["k"], pages["v"], kd, vd,
+                        programs.to_device(sched.table_row(adm.slot_idx)),
+                        n, adm.shared_len)
+    sched.commit_tokens(adm.slot_idx, n - adm.shared_len)
+    return logit
+
+
+def advance_prefill_chunks(programs: "ModelPrograms", pages: dict,
+                           sched: Scheduler, pending: dict, chunk: int,
+                           on_complete) -> list:
+    """Run up to ``chunk`` prompt tokens through the chunk program, oldest
+    prefilling slot first; the budget is charged at the padded program
+    cost. ``on_complete(adm, logit)`` fires when a slot's final chunk
+    lands; a non-None return is a finished RequestResult."""
+    finished = []
+    budget = chunk
+    for slot_idx in sched.prefilling_indices():
+        if budget <= 0:
+            break
+        adm = pending.get(slot_idx)
+        if adm is None:
+            continue
+        slot = sched.slots[slot_idx]
+        start = slot.cache_len
+        real = min(chunk, slot.target_len - start)
+        budget -= chunk
+        ids = np.zeros((1, chunk), np.int32)
+        ids[0, :real] = adm.tokens[start:start + real]
+        programs.prefill_calls += 1
+        logit = programs.chunk_for(chunk)(
+            programs.params, pages, programs.to_device(ids),
+            programs.to_device(np.array([start], np.int32)),
+            programs.to_device(sched.table_row(slot_idx)[None]), real - 1,
+            programs.to_device(np.array([real], np.int32)))
+        sched.commit_tokens(slot_idx, real)
+        if not sched.slots[slot_idx].prefilling:   # final chunk landed
+            pending.pop(slot_idx)
+            res = on_complete(adm, logit)
+            if res is not None:
+                finished.append(res)
+    return finished
+
+
+def decode_dev(programs: "ModelPrograms", sched: Scheduler) -> dict:
+    """The device-resident decode tensors, rebuilt after a scheduler
+    event, plus the host-known ``stochastic`` flag that gates the sort."""
+    arr = sched.decode_arrays()
+    dev = {key: programs.to_device(arr[key])
+           for key in ("tokens", "lengths", "tables", "seeds", "temps",
+                       "top_ks", "top_ps", "actives")}
+    dev["stochastic"] = bool((arr["temps"][arr["actives"]] > 0).any())
+    return dev
+
+
+def run_decode_iteration(programs: "ModelPrograms", pages: dict,
+                         sched: Scheduler, dev: Optional[dict]) \
+        -> tuple:
+    """ONE decode step over the active slots with the device-resident
+    tensors. Returns (finished, tokens emitted, dev); the caller drops
+    ``dev`` when a finished slot leaves the batch."""
+    active = sched.active_indices()
+    if dev is None:
+        dev = decode_dev(programs, sched)
+    nxt, new_len = programs._decode(
+        programs.params, pages, dev["tokens"], dev["lengths"],
+        dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
+        dev["top_ps"], dev["actives"], stochastic=dev["stochastic"])
+    dev["tokens"], dev["lengths"] = nxt, new_len
+    nxt_host = nxt.cpu().numpy()
+    finished = []
+    for slot_idx in active:
+        res = sched.record_token(slot_idx, int(nxt_host[slot_idx]),
+                                 from_decode=True)
+        if res is not None:
+            finished.append(res)
+    return finished, len(active), dev
+
+
+def build_kv_report(programs: "ModelPrograms", *, page_size: int,
+                    pool: PagePool, cached_pages: int, n_slots: int,
+                    max_pages: int, pool_bytes: int) -> dict:
+    """The byte table for one engine's pool, priced at its own kv_dtype
+    (scales included under int8) beside the fp32 per-page cost."""
+    kv_dtype = programs.kv_dtype
+    per_page = kv_page_bytes(programs.config, page_size=page_size,
+                             kv_dtype=kv_dtype)
+    per_page_fp32 = kv_page_bytes(programs.config, page_size=page_size,
+                                  kv_dtype="fp32")
+    return {
+        "page_size": page_size,
+        "pool_dtype": kv_dtype,
+        "n_pages": pool.n_pages,
+        "pages_free": pool.n_free,
+        "pages_cached": cached_pages,
+        "bytes_per_page": per_page,
+        "bytes_per_page_fp32": per_page_fp32,
+        "bytes_vs_fp32": round(per_page / per_page_fp32, 4),
+        "pool_bytes": pool_bytes,
+        "dense_equivalent_bytes": kv_page_bytes(
+            programs.config, page_size=page_size,
+            n_pages=n_slots * max_pages, kv_dtype=kv_dtype),
+    }
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet: ROADMAP.md "
+        f"queue 1, {item}")
+
+
+class ModelPrograms:
+    """The engine's programs for one (model, params, device): the batched
+    decode step, the bucketed prefill, the chunk program, the commit and
+    copy scatters and the batch-1 sampler — eager calls where the JAX
+    package compiles programs."""
+
+    def __init__(self, bundle: ModelBundle, params, *, device=None,
+                 attend_impl: str = "auto", kv_dtype=None, weight_dtype=None,
+                 plan=None, shard_kv: bool = False,
+                 max_adapters: Optional[int] = None):
+        if plan is not None or shard_kv:
+            _not_ported("plan= / shard_kv=", "'Serve fleet' (sharding)")
+        if max_adapters is not None:
+            _not_ported("max_adapters=", "'Serve tenants'")
+        if weight_dtype is not None:
+            _not_ported(f"weight_dtype={weight_dtype!r}",
+                        "'int8 serve weights (K7)'")
+        self.device = resolve_device(device)
+        if attend_impl not in ("auto", "flash", "xla"):
+            raise ValueError(f"attend_impl must be 'auto', 'flash' or "
+                             f"'xla', got {attend_impl!r}")
+        if attend_impl == "xla" and self.device.type != "cpu":
+            raise ValueError(
+                "attend_impl='xla' (the gather path) is accepted only with "
+                "device='cpu': on the card every paged attend runs the "
+                "CUDA kernel")
+        self.attend_impl = attend_impl
+        self.bundle = bundle
+        self.config = bundle.config
+        self.mod = family_module(bundle.family)
+        self.kv_dtype = kv_dtype_name(self.config, kv_dtype)
+
+        def place(tree):
+            if isinstance(tree, dict):
+                return {k: place(v) for k, v in tree.items()}
+            return tree.to(self.device)
+
+        self.params = place(params)
+        self._commit_fn = commit_prefill
+        self._copy_fn = copy_pages
+        # prefill FORWARD count: bucketed prefills and chunk forwards
+        self.prefill_calls = 0
+
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def init_device_pages(self, n_pages: int, page_size: int) -> dict:
+        return init_pages(self.config, n_pages, page_size,
+                          kv_dtype=self.kv_dtype, device=self.device)
+
+    def make_attend(self, tables, lengths, *, n_valid=None):
+        return make_attend(tables, lengths, impl=self.attend_impl,
+                           n_valid=n_valid)
+
+    def _decode(self, params, pages, tokens, lengths, tables, seeds, temps,
+                top_ks, top_ps, actives, *, stochastic: bool):
+        """The batched decode step; the pools update in place. Returns the
+        next step's (tokens, lengths)."""
+        attend = self.make_attend(tables, lengths)
+        logits, _ = self.mod.paged_decode_step(
+            self.config, params, tokens[:, None], lengths, pages, attend)
+        nxt = _sample_tokens(logits.float(), seeds, lengths + 1, temps,
+                             top_ks, top_ps, stochastic=stochastic)
+        nxt = torch.where(actives, nxt, 0)
+        return nxt, torch.where(actives, lengths + 1, lengths)
+
+    def prefill_for(self, bucket: int):
+        """The bucketed prefill: ``fn(params, ids [1, bucket], last_pos)``
+        -> (logits [V], k [L, bucket, Hkv, D], v [L, bucket, Hkv, D])."""
+        def fn(params, ids, last_pos):
+            cache = self.mod.init_cache(self.config, 1, bucket,
+                                        device=self.device)
+            logit, cache = self.mod.prefill(self.config, params, ids, cache,
+                                            last_pos=last_pos)
+            return logit[0], cache["k"][:, 0], cache["v"][:, 0]
+
+        return fn
+
+    def chunk_for(self, t: int):
+        """The chunk program: ``fn(params, pages, ids [1, t], start [1],
+        table [1, M], last_index, n_valid [1])`` runs the paged path,
+        writing the chunk's k/v into the slot's pages while attending over
+        the committed history; returns the real last token's logits."""
+        def fn(params, pages, ids, start, table, last_index, n_valid):
+            attend = self.make_attend(table, start, n_valid=n_valid)
+            logits, _ = self.mod.paged_decode_step(
+                self.config, params, ids, start, pages, attend,
+                last_index=last_index)
+            return logits[0]
+
+        return fn
+
+    def sample_one(self, logit, request: Request, position: int) -> int:
+        """Batch-1 sample off prefill logits (the request's first token)."""
+        def one(x, dtype):
+            return torch.tensor([x], dtype=dtype, device=self.device)
+
+        tok = _sample_tokens(
+            logit.float()[None], one(request.seed, torch.int32),
+            one(position, torch.int32), one(request.temperature,
+                                            torch.float32),
+            one(request.top_k, torch.int32), one(request.top_p,
+                                                 torch.float32),
+            stochastic=request.temperature > 0)
+        return int(tok[0])
+
+    def check_prompt(self, request: Request) -> None:
+        """Range-check prompt ids: the embedding lookup would raise on an
+        out-of-range id mid-flight (jax would clamp it)."""
+        v = self.config.vocab_size
+        bad = [t for t in request.prompt_ids if not 0 <= int(t) < v]
+        if bad:
+            raise ValueError(
+                f"prompt ids {bad[:5]} out of range for vocab_size {v}")
+
+
+class ServeEngine:
+    """Multi-request generation over the llama family's paged decode.
+
+    Drive it through ``serve/api.py`` (``generate_many``) or directly:
+    ``submit(Request(...))`` then ``step()`` in a loop — each step is one
+    scheduler iteration (deadline expiry, admission, prefill work, growth
+    with preemption, one batched decode) and returns what finished.
+    ``device`` defaults to ``cuda``; ``device="cpu"`` runs the plain
+    PyTorch path. The other knobs mean what they mean in the JAX engine:
+    ``prefix_cache`` (copy-on-write prefix sharing), ``prefill_chunk``,
+    ``attend_impl``, ``kv_dtype`` ("fp32" | "bf16" | "int8")."""
+
+    def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 max_len: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True, attend_impl: str = "auto",
+                 kv_dtype=None, weight_dtype=None, device=None, plan=None,
+                 shard_kv: bool = False, speculate=None,
+                 max_adapters: Optional[int] = None,
+                 host_tier_bytes: Optional[int] = None,
+                 decode_horizon: int = 1):
+        if speculate not in (None, "off"):
+            _not_ported("speculate=", "'Serve core, the rest' (spec.py)")
+        if decode_horizon != 1:
+            _not_ported("decode_horizon > 1",
+                        "'Serve core, the rest' (horizon_for)")
+        if host_tier_bytes is not None:
+            _not_ported("host_tier_bytes=", "'Serve fleet' (tiering)")
+        self.programs = ModelPrograms(
+            bundle, params, device=device, attend_impl=attend_impl,
+            kv_dtype=kv_dtype, weight_dtype=weight_dtype, plan=plan,
+            shard_kv=shard_kv, max_adapters=max_adapters)
+        self.device = self.programs.device
+        self.bundle = self.programs.bundle
+        self.kv_dtype = self.programs.kv_dtype
+        self.config = self.programs.config
+        self.attend_impl = self.programs.attend_impl
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        _, self.max_model_len, self.max_pages = resolve_context_bounds(
+            self.config, max_len, page_size)
+        if (self.device.type == "cuda" and not paged_decode_eligible(
+                self.config.head_size, page_size)):
+            raise ValueError(
+                f"head_dim {self.config.head_size} / page_size {page_size}: "
+                f"the paged kernel takes head_dim in {HEAD_DIMS} and pages "
+                f"of 8 to 64 positions in steps of 8")
+        self.page_size = page_size
+        self.n_slots = n_slots
+        if n_pages is None:
+            # full residency + the trash page
+            n_pages = 1 + n_slots * self.max_pages
+        pool = PagePool(n_pages, page_size)
+        self.scheduler = Scheduler(
+            n_slots=n_slots, pool=pool, max_len=self.max_model_len,
+            max_pages_per_slot=self.max_pages, prefix_cache=prefix_cache,
+            # mid-page prefix reuse needs the chunked path
+            allow_partial_share=prefill_chunk is not None)
+        self.prefill_buckets = default_prefill_buckets(self.max_pages,
+                                                       page_size)
+        self.pages = self.programs.init_device_pages(n_pages, page_size)
+        self._pending: dict = {}
+        self._dev: Optional[dict] = None
+        self.draining = False
+        self.decode_steps = 0
+        self.decode_tokens = 0
+        self._lat = LatencyMeter()
+
+    @property
+    def params(self):
+        return self.programs.params
+
+    # ---- serving loop ------------------------------------------------------
+    def submit(self, request: Request) -> int:
+        if self.draining:
+            self.scheduler.refuse(
+                "draining",
+                "engine is draining: finishing in-flight work, not "
+                "accepting new requests", http_status=503,
+                retry_after_s=self.scheduler.retry_after_hint())
+        try:
+            self.programs.check_prompt(request)
+        except ValueError as exc:
+            self.scheduler.refuse("bad_prompt", str(exc))
+        return self.scheduler.submit(request)
+
+    def drain(self) -> None:
+        """Stop admitting; in-flight work runs to completion."""
+        self.draining = True
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    def kv_cache_bytes(self) -> int:
+        """Resident KV bytes (scales included): scales with the pool, not
+        with n_slots x max_len."""
+        return pool_nbytes(self.pages)
+
+    def _on_prefill_complete(self, adm: Admission,
+                             logit) -> Optional[RequestResult]:
+        """The slot joins the decode batch with its first token sampled —
+        unless it is a resumed sequence, whose tokens already exist."""
+        self._dev = None
+        if adm.resumed:
+            return None
+        t0 = self.programs.sample_one(logit, adm.request, len(adm.tokens))
+        return self.scheduler.record_token(adm.slot_idx, t0,
+                                           from_decode=False)
+
+    def step(self) -> list:
+        """One scheduler iteration: expire deadlines, admit (sharing cached
+        prefixes), advance prefill work, grow running decodes (preempting
+        on exhaustion), then ONE batched decode step. Returns the requests
+        that finished."""
+        finished = []
+        sched = self.scheduler
+        expired = sched.expire_deadlines()
+        if expired:
+            self._dev = None
+            self._drop_stale_pending()
+            finished.extend(expired)
+        for adm in sched.try_admit():
+            self._dev = None
+            if adm.fork is not None:
+                run_fork(self.programs, self.pages, adm)
+            if self.prefill_chunk is None:
+                logit = run_bucket_prefill(self.programs, self.pages, sched,
+                                           adm, self.prefill_buckets)
+                res = self._on_prefill_complete(adm, logit)
+                if res is not None:
+                    finished.append(res)
+            else:
+                self._pending[adm.slot_idx] = adm
+        if self._pending:
+            finished.extend(advance_prefill_chunks(
+                self.programs, self.pages, sched, self._pending,
+                self.prefill_chunk, self._on_prefill_complete))
+        # growth runs last, so every slot in the batch owns the page its
+        # next write lands in
+        grown, preempted = sched.grow_for_decode()
+        if grown or preempted:
+            self._dev = None
+            if preempted:
+                self._drop_stale_pending()
+        if sched.active_indices():
+            fin, emitted, self._dev = run_decode_iteration(
+                self.programs, self.pages, sched, self._dev)
+            self.decode_steps += 1
+            self.decode_tokens += emitted
+            finished.extend(fin)
+            if fin:
+                self._dev = None          # a slot left the batch
+        self._lat.note(finished)
+        return finished
+
+    def _drop_stale_pending(self) -> None:
+        """A preempted or expired mid-prefill slot takes its chunk state
+        with it (it re-admits from the queue)."""
+        for idx in list(self._pending):
+            slot = self.scheduler.slots[idx]
+            adm = self._pending[idx]
+            if (slot is None
+                    or slot.request.request_id != adm.request.request_id):
+                del self._pending[idx]
+
+    # ---- metrics (host-side only) -------------------------------------------
+    def partial_tokens(self) -> dict:
+        """request_id -> tokens generated so far, for every live sequence
+        (lists only grow: a replay rewrites k/v, not tokens)."""
+        return {slot.request.request_id: list(slot.generated)
+                for slot in self.scheduler.slots
+                if slot is not None and slot.generated}
+
+    def stats(self) -> dict:
+        """Host-side metrics snapshot (no device access)."""
+        sched = self.scheduler
+        pool = sched.pool
+        s = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in sched.stats.items()}
+        held = pool.capacity - pool.n_free
+        cached = sched.cache_pages_held()
+        admitted = s.get("admitted", 0)
+        bytes_per_page = kv_page_bytes(self.config, page_size=self.page_size,
+                                       kv_dtype=self.kv_dtype)
+        return {
+            **s,
+            "draining": self.draining,
+            "max_queue": sched.max_queue,
+            "queued": len(sched.queue),
+            "active_slots": len(sched.active_indices()),
+            "prefilling_slots": len(sched.prefilling_indices()),
+            "prefill_calls": self.programs.prefill_calls,
+            "n_slots": self.n_slots,
+            "pool_dtype": self.kv_dtype,
+            "bytes_per_page": bytes_per_page,
+            "pages_capacity": pool.capacity,
+            "pages_free": pool.n_free,
+            "pages_held": held,
+            "pages_cached": cached,
+            "pages_cached_bytes": cached * bytes_per_page,
+            "pool_occupancy": (round(held / pool.capacity, 3)
+                               if pool.capacity else 0.0),
+            "prefix_hit_rate": (round(s.get("prefix_hits", 0) / admitted, 3)
+                                if admitted else 0.0),
+            "decode_steps": self.decode_steps,
+            "decode_tokens": self.decode_tokens,
+            "decode_occupancy": (round(
+                self.decode_tokens / (self.decode_steps * self.n_slots), 3)
+                if self.decode_steps else 0.0),
+            "ttft_s_avg": self._lat.ttft_avg(),
+            "itl_s_avg": self._lat.itl_avg(),
+        }
+
+    def kv_report(self) -> dict:
+        """The byte table for this engine's pool."""
+        return build_kv_report(
+            self.programs, page_size=self.page_size,
+            pool=self.scheduler.pool,
+            cached_pages=self.scheduler.cache_pages_held(),
+            n_slots=self.n_slots, max_pages=self.max_pages,
+            pool_bytes=self.kv_cache_bytes())

@@ -1,0 +1,52 @@
+"""Block-wise int8 quantization (Dettmers absmax), the part of the JAX
+package's ``train/precision.py`` that the quantized KV pool uses (its
+``sqrt_domain`` variant serves the 8-bit optimizer, not ported here).
+
+``quantize_blockwise`` and ``dequantize_blockwise`` are the same
+arithmetic in the same order as the JAX functions; both frameworks round
+half to even, so the int8 payloads agree bit for bit on equal inputs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+class Quantized(NamedTuple):
+    """Block-quantized tensor: int8 payload ``q`` in the source shape and
+    one fp32 ``scale`` per block of the trailing axis
+    (``q.shape[:-1] + (nblocks,)``)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def block_geometry(d: int, block_size: int) -> tuple:
+    """(nblocks, effective block size) for a trailing axis of length d."""
+    nblocks = -(-d // max(block_size, 1))
+    bs = -(-d // nblocks)
+    return -(-d // bs), bs
+
+
+def quantize_blockwise(x: torch.Tensor, block_size: int = 128) -> Quantized:
+    """Absmax int8 quantization per block of the trailing axis."""
+    x = x.to(torch.float32)
+    d = x.shape[-1]
+    nblocks, bs = block_geometry(d, block_size)
+    pad = nblocks * bs - d
+    xb = F.pad(x, (0, pad)) if pad else x
+    xb = xb.reshape(*x.shape[:-1], nblocks, bs)
+    amax = torch.amax(torch.abs(xb), dim=-1)
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
+    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127)
+    q = q.to(torch.int8).reshape(*x.shape[:-1], nblocks * bs)[..., :d]
+    return Quantized(q=q, scale=scale)
+
+
+def dequantize_blockwise(qt: Quantized, dtype=torch.float32) -> torch.Tensor:
+    d = qt.q.shape[-1]
+    bs = -(-d // qt.scale.shape[-1])
+    scale = torch.repeat_interleave(qt.scale, bs, dim=-1)[..., :d]
+    return (qt.q.to(torch.float32) * scale).to(dtype)
