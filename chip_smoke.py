@@ -11,18 +11,31 @@ phases, each of which raises on failure:
    cuDNN, so fp32 references are full fp32;
 2. build — every kernel under ``distributed_training_guide_tpu_torch/
    ops/csrc`` compiled by ``nvcc`` (one process per source, in parallel);
-3. kernels — the paged-attention kernel against ``paged_attend_reference``
-   at llama-3.1-8b's attention shape, over query tiles, pool dtypes,
-   windows, softcaps and pad tails, each error against a stated bound;
-4. timing — the kernel, its plain version and PyTorch's
+3. kernels — the paged-attention kernel (K4) against
+   ``paged_attend_reference`` at llama-3.1-8b's attention shape, over query
+   tiles, pool dtypes, windows, softcaps and pad tails, each error against
+   a stated bound;
+4. timing — K4, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
    the decode and prefill-chunk shapes, beside the bytes/operations bound;
-5. serve — ``ServeEngine`` on llama-3.1-8b at full width and depth in
+5. flash — the flash-attention forward (K1) and its backward kernels
+   (K2 dq, K3 dk/dv) against their plain versions at llama-3.2-1b's and
+   llama-3.1-8b's attention shapes, head_dim 256 and ragged lengths, fp32
+   and bf16, causal, windowed, softcapped and banded;
+6. flash timing — K1, K2 and K3 at the training path's shape beside their
+   plain versions, their bounds and SDPA forward / backward;
+7. serve — ``ServeEngine`` on llama-3.1-8b at full width and depth in
    bf16 (random weights from a seed), once with bucketed prefill and once
-   with 256-token chunks, checking that the kernel carried both programs,
-   batch invariance of a greedy request, first-token logits against the
-   plain full-context prefill, and a torch.profiler breakdown of a decode
-   step.
+   with 256-token chunks, checking that K4 carried both programs, batch
+   invariance of a greedy request, first-token logits against the plain
+   full-context prefill, and a torch.profiler breakdown of a decode step;
+8. train — chapter 01's ``run_training`` on llama-3.2-1b at full width
+   and depth (bf16 compute, fp32 params and AdamW, synthetic data, 2048
+   tokens x 4 sequences), checking finite falling loss and exactly 16
+   launches of each of K1-K3 per step (32 of K1 under
+   ``--checkpoint-activations``), a torch.profiler breakdown of one step,
+   and the loss and grad norm of a step through the kernels against the
+   einsum attention (fp32 at 2 layers; bf16 loss at full depth).
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -31,6 +44,7 @@ card, or without the repository beside it, it exits non-zero first.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -238,7 +252,7 @@ def phase_timing(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving llama-3.1-8b
+# phase 7: serving llama-3.1-8b
 # ---------------------------------------------------------------------------
 
 def phase_serve(torch, card: str) -> dict:
@@ -467,6 +481,449 @@ def check_fp32_chunk_path(torch, prompt) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the flash kernels (K1-K3) against their plain versions
+# ---------------------------------------------------------------------------
+
+# fp32 max abs error: the same fp32 arithmetic summed in another order over
+# up to 2048 keys (x the GQA group for dk/dv) on O(1)-O(10) values; bf16
+# relative L2 per output: the kernels round p (and ds) to bf16 before the
+# tensor-core products that follow and the outputs to bf16, where the plain
+# version keeps fp32 to the end (ulp 2**-8 relative, about 3e-3 rel L2)
+FLASH_TOL_FP32 = {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4,
+                  "dv": 1e-4}
+FLASH_TOL_BF16_REL_L2 = 1e-2
+# (name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap, scale, band
+# offsets): llama-3.2-1b (the training path's shape first), llama-3.1-8b,
+# head_dim 256 with Gemma-2's scale and cap, ragged lengths
+FLASH_CASES = [
+    ("1b-main", 4, 2048, 2048, 32, 8, 64, "bf16", True, None, None, None,
+     None),
+    ("1b", 1, 2048, 2048, 32, 8, 64, "fp32", True, None, None, None, None),
+    ("1b-window", 1, 2048, 2048, 32, 8, 64, "fp32", True, 1024, None, None,
+     None),
+    ("1b-softcap", 1, 2048, 2048, 32, 8, 64, "bf16", True, None, 50.0, None,
+     None),
+    ("1b-noncausal", 1, 2048, 2048, 32, 8, 64, "fp32", False, None, None,
+     None, None),
+    ("8b", 1, 2048, 2048, 32, 8, 128, "fp32", True, None, None, None, None),
+    ("8b-bf16", 2, 2048, 2048, 32, 8, 128, "bf16", True, None, None, None,
+     None),
+    ("8b-band", 1, 2048, 2048, 32, 8, 128, "fp32", True, 1024, None, None,
+     (512, 0)),
+    ("8b-window-softcap", 1, 2048, 2048, 32, 8, 128, "bf16", True, 1024,
+     50.0, None, None),
+    ("d256", 1, 1024, 1024, 8, 4, 256, "fp32", True, None, 50.0,
+     256 ** -0.5, None),
+    ("d256-window", 1, 1024, 1024, 8, 4, 256, "bf16", True, 512, None, None,
+     None),
+    ("ragged", 1, 1000, 1000, 32, 8, 64, "fp32", True, None, None, None,
+     None),
+    ("ragged-cross", 2, 777, 1000, 16, 4, 128, "bf16", False, None, None,
+     None, None),
+]
+
+
+def flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype):
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    return (rand(b, sq, hq, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d),
+            rand(b, sq, hq, d))
+
+
+def phase_flash(torch) -> dict:
+    """Each case through K1, then K2 and K3 from the plain forward's lse
+    and delta; returns the worst fp32 max abs error per kernel."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    for (name, b, sq, sk, hq, hkv, d, dtype, causal, window, softcap, scale,
+         offs) in FLASH_CASES:
+        q, k, v, do = flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype)
+        kw = dict(causal=causal, softcap=softcap, scale=scale)
+        if offs is None:
+            kw["window"] = window
+        else:
+            kw["band"] = fa.pack_band(window, *offs)
+        before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             ro.float()).contiguous()
+        dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+        torch.cuda.synchronize()
+        check((fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+              == tuple(x + 1 for x in before), f"{name}: a kernel did not "
+              f"launch")
+        rdq = fa.flash_dq_reference(q, k, v, do, rlse, delta, **kw)
+        rdk, rdv = fa.flash_dkv_reference(q, k, v, do, rlse, delta, **kw)
+        pairs = {"o": (o, ro), "lse": (lse, rlse), "dq": (dq, rdq),
+                 "dk": (dk, rdk), "dv": (dv, rdv)}
+        errs = {}
+        for key, (got, want) in pairs.items():
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{name} {key}: {got.shape} {got.dtype} vs "
+                  f"{want.shape} {want.dtype}")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name} {key}: non-finite kernel output")
+            diff = got.float() - want.float()
+            if dtype == "fp32" or key == "lse":
+                err, bound = diff.abs().max().item(), FLASH_TOL_FP32[key]
+            else:
+                err = (diff.norm() / want.float().norm()).item()
+                bound = FLASH_TOL_BF16_REL_L2
+            errs[key] = err
+            check(err <= bound, f"flash {name} {key}: error {err} > {bound}")
+        log(phase="flash", case=name, B=b, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv,
+            D=d, dtype=dtype, causal=causal, window=window, softcap=softcap,
+            band_offsets=offs,
+            metric="max_abs" if dtype == "fp32" else "rel_l2 (lse max_abs)",
+            **errs)
+        if dtype == "fp32":
+            worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"],
+                                     errs["lse"])
+            worst["flash_dq"] = max(worst["flash_dq"], errs["dq"])
+            worst["flash_dkv"] = max(worst["flash_dkv"], errs["dk"],
+                                     errs["dv"])
+        del q, k, v, do, o, lse, ro, rlse, delta, dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    # checking launches are not main-path launches
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    log(phase="flash", cases=len(FLASH_CASES), worst_fp32_max_abs=worst)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6: flash timing at the training path's shape
+# ---------------------------------------------------------------------------
+
+def flash_bounds(b, s, hq, hkv, d, itemsize) -> dict:
+    """(bound_ms, bound_by) per kernel from this shape: 2 * D operations
+    per product per live (query, key) pair of the causal band (K1 two
+    products, K2 three, K3 four); each input read and output written once
+    (lse / delta fp32)."""
+    pairs = b * hq * s * (s + 1) // 2
+    q_bytes = b * s * hq * d * itemsize
+    kv_bytes = b * s * hkv * d * itemsize
+    stat = b * hq * s * 4
+    work = {"flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat),
+            "flash_dq": (6 * d * pairs,
+                         3 * q_bytes + 2 * kv_bytes + 2 * stat),
+            "flash_dkv": (8 * d * pairs,
+                          2 * q_bytes + 4 * kv_bytes + 2 * stat)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", flops=flops, bytes=nbytes)
+    return out
+
+
+def phase_flash_timing(torch) -> dict:
+    import torch.nn.functional as F
+
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = 4, 2048, 32, 8, 64      # llama-3.2-1b, -s 2048 -b 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q, k, v, do = flash_case(torch, gen, b, s, s, hq, hkv, d, "bf16")
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    args = (q, k, v, do, lse, delta)
+    out = {name: {} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    out["flash_fwd"]["ms"] = cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=10)
+    out["flash_dq"]["ms"] = cuda_ms(lambda: fa.flash_bwd_dq(*args), iters=10)
+    out["flash_dkv"]["ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args),
+                                     iters=10)
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    out["flash_fwd"]["plain_ms"] = cuda_ms(
+        lambda: fa.flash_attention_reference(q, k, v), iters=3, warmup=1)
+    out["flash_dq"]["plain_ms"] = cuda_ms(
+        lambda: fa.flash_dq_reference(*args), iters=3, warmup=1)
+    out["flash_dkv"]["plain_ms"] = cuda_ms(
+        lambda: fa.flash_dkv_reference(*args), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    # the library yardstick: SDPA on [B, H, S, D], forward, and forward +
+    # backward minus forward for K2 and K3 together
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(sdpa, iters=10)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                      iters=10)
+    out["flash_fwd"]["library_ms"] = fwd_ms
+    for name in ("flash_dq", "flash_dkv"):
+        out[name]["library_ms"] = both_ms - fwd_ms
+        out[name]["library_note"] = ("SDPA forward+backward minus forward: "
+                                     "dq, dk and dv together")
+    for name, bound in flash_bounds(b, s, hq, hkv, d, 2).items():
+        out[name].update(bound)
+        out[name]["share_of_bound"] = bound["bound_ms"] / out[name]["ms"]
+        log(phase="flash_timing", kernel=name, B=b, S=s, Hq=hq, Hkv=hkv, D=d,
+            dtype="bf16", causal=True, **out[name])
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: chapter 01's training loop on llama-3.2-1b
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8
+REMAT_STEPS = 2
+TRAIN_ARGS = ["-m", "llama-3.2-1b", "-d", "synthetic:400000", "-s", "2048",
+              "-b", "4", "--lr", "3e-4", "--seed", str(SEED)]
+# one fp32 step through the kernels against one through the einsum
+# attention, from the same params and batch: only the summation order
+# differs (2 layers, full width)
+TRAIN_FP32_REL = 1e-4
+# the bf16 loss at full depth, kernels against the einsum attention:
+# bf16 rounds at other places on the two paths, through 16 layers
+TRAIN_BF16_LOSS_REL = 1e-2
+
+
+def flash_counts():
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+            "flash_dkv": fa.DKV_LAUNCHES}
+
+
+def reset_flash_counts() -> None:
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def phase_train(torch, card: str) -> dict:
+    from distributed_training_guide_tpu_torch.train import cli
+
+    layers = 16
+    args = cli.get_parser().parse_args(
+        TRAIN_ARGS + ["--max-steps", str(TRAIN_STEPS), "--log-freq", "2"])
+    reset_flash_counts()                      # the main path starts here
+    t0 = time.perf_counter()
+    out = cli.run_training(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts()                 # ... and ends here
+    want = layers * TRAIN_STEPS
+    check(launches == {k: want for k in launches},
+          f"train: launches {launches}, want {want} of each "
+          f"({layers} per step)")
+    infos = out["infos"]
+    losses = [i["running_loss"] for i in infos]
+    check(len(infos) == TRAIN_STEPS // 2 and all(
+        map(math.isfinite, losses)), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    for info in infos:
+        log(phase="train", model="llama-3.2-1b", card=card,
+            **{k: info[k] for k in ("global_step", "running_loss",
+                                    "grad_norm", "tokens_per_s", "mfu",
+                                    "time/step", "time/data",
+                                    "peak_alloc_gb")})
+    log(phase="train", steps=TRAIN_STEPS, wall_s=wall,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        batch=4, seq=2048, layers=layers)
+    state = out["state"]
+    profile = profile_train_step(torch, state)
+    log(phase="train", profile="one step, llama-3.2-1b, B 4, S 2048",
+        card=card, **profile)
+    check_bf16_loss(torch, state.params)
+    del out, state
+    torch.cuda.empty_cache()
+
+    args = cli.get_parser().parse_args(
+        TRAIN_ARGS + ["--max-steps", str(REMAT_STEPS), "--log-freq", "1",
+                      "--checkpoint-activations"])
+    reset_flash_counts()
+    remat = cli.run_training(args)
+    remat_counts = flash_counts()
+    want_remat = {"flash_fwd": 2 * layers * REMAT_STEPS,
+                  "flash_dq": layers * REMAT_STEPS,
+                  "flash_dkv": layers * REMAT_STEPS}
+    check(remat_counts == want_remat, f"remat: launches {remat_counts}, "
+          f"want {want_remat}")
+    log(phase="train", remat="all", steps=REMAT_STEPS, launches=remat_counts,
+        losses=[i["running_loss"] for i in remat["infos"]],
+        peak_alloc_gb=remat["last_info"]["peak_alloc_gb"],
+        tokens_per_s=remat["last_info"]["tokens_per_s"])
+    del remat
+    torch.cuda.empty_cache()
+    check_fp32_train_step(torch)
+    return {"launches": launches, "per_step": layers, "infos": infos,
+            "profile": profile}
+
+
+def _train_batch(torch, vocab: int, b: int, s: int, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    return {"input_ids": ids, "labels": ids}
+
+
+def profile_train_step(torch, state) -> dict:
+    """Device time of one optimizer step by kernel, from torch.profiler,
+    on the trained state: K1-K3, cuBLAS GEMMs, the device's idle share
+    (host clock, profiler on); "not measured" when the profiler reports no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    trainer = Trainer(bundle=get_model("llama-3.2-1b"),
+                      optimizer=adamw_cosine(3e-4), device="cuda")
+    batch = _train_batch(torch, 259, 4, 2048, SEED + 4)
+    trainer.step_fn(state, batch)             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    if busy == 0:
+        return {"device_ms_per_step": "not measured", "wall_ms": wall * 1e3}
+
+    def ms_of(*words):
+        return sum(dev_us(e) for e in events
+                   if any(w in e.key.lower() for w in words)) / 1e3
+
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    return {"wall_ms": wall * 1e3, "device_ms": busy,
+            "flash_fwd_ms": ms_of("flash_fwd"),
+            "flash_dq_ms": ms_of("flash_dq"),
+            "flash_dkv_ms": ms_of("flash_dkv"),
+            "gemm_ms": ms_of("gemm", "nvjet", "xmma", "cutlass"),
+            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "kernels": sum(e.count for e in events),
+            "top": [(e.key[:60], dev_us(e) / 1e3) for e in top]}
+
+
+def check_bf16_loss(torch, params) -> None:
+    """The full-depth bf16 loss of one batch through the kernels against
+    the einsum attention, from the trained params (forward only)."""
+    from distributed_training_guide_tpu_torch.models import get_model, llama
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+
+    cfg = get_model("llama-3.2-1b").config
+    batch = _train_batch(torch, 259, 4, 2048, SEED + 5)
+    losses = {}
+    with torch.no_grad():
+        for impl in ("flash", "xla"):
+            logits = llama.apply(cfg, params, batch["input_ids"],
+                                 attn_impl=impl)
+            losses[impl] = causal_lm_loss(logits, batch["labels"]).item()
+            del logits
+            torch.cuda.empty_cache()
+    rel = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    log(phase="train", check="loss, kernels vs einsum attention, bf16, "
+        "full depth, trained params", **losses, rel=rel,
+        bound=TRAIN_BF16_LOSS_REL)
+    check(rel <= TRAIN_BF16_LOSS_REL, f"bf16 loss rel {rel} > "
+          f"{TRAIN_BF16_LOSS_REL}")
+
+
+def check_fp32_train_step(torch) -> None:
+    """llama-3.2-1b at full width cut to 2 layers, fp32 compute: one
+    Trainer step through the kernels against one through the einsum
+    attention, same params and batch: loss and global grad norm."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = get_model("llama-3.2-1b", dtype=torch.float32, num_layers=2)
+    params = bundle.init(bundle.config, SEED + 6, device="cuda")
+    batch = _train_batch(torch, bundle.config.vocab_size, 2, 2048, SEED + 7)
+    got, wq_grad = {}, {}
+    for impl in ("flash", "xla"):
+        trainer = Trainer(bundle=bundle, optimizer=adamw_cosine(3e-4),
+                          attn_impl=impl, device="cuda")
+        state = trainer.init_state_from_params(params, SEED)
+        before = flash_counts()["flash_fwd"]
+        _, metrics = trainer.step_fn(state, batch)
+        check((flash_counts()["flash_fwd"] - before)
+              == (2 if impl == "flash" else 0),
+              f"fp32 step ({impl}): K1 launches")
+        got[impl] = {k: v.item() for k, v in metrics.items()}
+        # the q projection's grad reaches the loss only through the
+        # attention backward (K2 on the kernel path)
+        wq_grad[impl] = state.params["layers"]["attn"]["wq"].grad.clone()
+        del trainer, state, metrics
+        torch.cuda.empty_cache()
+    rel = {k: abs(got["flash"][k] - got["xla"][k]) / abs(got["xla"][k])
+           for k in ("loss", "grad_norm")}
+    rel["wq_grad_rel_l2"] = ((wq_grad["flash"] - wq_grad["xla"]).norm()
+                             / wq_grad["xla"].norm()).item()
+    log(phase="train", check="one step, kernels vs einsum attention, fp32, "
+        "full width, 2 layers, B 2, S 2048", flash=got["flash"],
+        xla=got["xla"], rel=rel, bound=TRAIN_FP32_REL)
+    for k, r in rel.items():
+        check(r <= TRAIN_FP32_REL, f"fp32 train step {k} rel {r} > "
+              f"{TRAIN_FP32_REL}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ptxas_summary(build) -> dict:
+    """kernel -> {instantiation: [registers, spill store bytes]} from
+    ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
+    import re
+
+    found = []                      # [mangled, registers, spill bytes]
+    for name in sorted(build.build_logs):
+        for line in build.build_logs[name].splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                found.append([m.group(1), None, None])
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and found:
+                found[-1][2] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and found:
+                found[-1][1] = int(m.group(1))
+    filt = Path(build.nvcc_path()).with_name("cu++filt")
+    names = [f[0] for f in found]
+    if filt.exists() and names:
+        names = subprocess.run([str(filt), *names], capture_output=True,
+                               text=True, check=True,
+                               timeout=60).stdout.split("\n")[:len(found)]
+    out: dict = {}
+    for (mangled, regs, spill), name in zip(found, names):
+        m = re.search(r"\w+_kernel<[^>]*>", name.replace("(int)", ""))
+        short = m.group(0) if m else name.strip()
+        kernel = next((k for k in ("paged_attend", "flash_fwd", "flash_dq",
+                                   "flash_dkv") if k in short), "other")
+        out.setdefault(kernel, {})[short] = [regs, spill]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -498,15 +955,16 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = _build.all_sources()
     _build.build(sources)
-    log(phase="build", sources=sources, seconds=time.perf_counter() - t0)
-    for name in sources:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    ptxas = ptxas_summary(_build)
+    log(phase="build", sources=sources, seconds=time.perf_counter() - t0,
+        ptxas=ptxas)
 
     worst = phase_kernels(torch)
     timing = phase_timing(torch)
+    flash_worst = phase_flash(torch)
+    flash_timing = phase_flash_timing(torch)
     serve = phase_serve(torch, smi)
+    train = phase_train(torch, smi)
 
     dec = timing["decode"]
     kernels = [{
@@ -519,11 +977,33 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "launches_per_decode_step": serve["per_step"],
+        "ptxas_registers_spills": ptxas.get("paged_attend", {}),
         "shapes": {k: {kk: v[kk] for kk in ("S", "T", "context", "dtype",
                                             "ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")}
                    for k, v in timing.items()},
     }]
+    replaces = {"flash_fwd": 112, "flash_dq": 297, "flash_dkv": 341}
+    for name, line in replaces.items():
+        t = flash_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_training_guide_tpu_torch/ops/csrc/"
+                      + ("flash_fwd.cu" if name == "flash_fwd"
+                         else "flash_bwd.cu"),
+            "replaces": f"distributed_training_guide_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": flash_worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "launches_per_train_step": train["per_step"],
+            "ptxas_registers_spills": ptxas.get(name, {}),
+            "shape": "B 4, S 2048, Hq 32, Hkv 8, D 64, bf16, causal",
+            **({"library_note": t["library_note"]}
+               if "library_note" in t else {}),
+        })
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

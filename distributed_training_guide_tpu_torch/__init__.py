@@ -2,10 +2,14 @@
 H100, built slice by slice beside the JAX package, which stays the
 reference every port module is tested against.
 
-This slice is the serving path: the Llama family (``models/llama.py``),
-the paged KV cache and its continuous-batching engine (``serve/``), and
-the paged-attention kernel hand-written in CUDA for ``sm_90a``
-(``ops/csrc/paged_attend.cu``, built at first use by ``ops/_build.py``).
+Ported so far: the serving path (the Llama family in ``models/llama.py``,
+the paged KV cache and its continuous-batching engine in ``serve/``, the
+paged-attention kernel ``ops/csrc/paged_attend.cu``) and chapter 01's
+single-device training loop (``train/``, ``data/``, ``utils/``, the loss
+in ``ops/cross_entropy.py`` and the flash-attention kernels
+``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``). Every kernel is
+hand-written in CUDA for ``sm_90a`` and built at first use by
+``ops/_build.py``.
 Module names follow the JAX package so each module's counterpart is easy
 to find; nothing here imports jax or the JAX package.
 

@@ -6,13 +6,14 @@ stacked on a leading ``[L]`` axis and weights kept 2-D ([in, out], fused
 head dims), so ``models/from_jax.py`` maps the two leaf for leaf. The
 JAX ``lax.scan`` over layers is a Python loop over the layer index here.
 
-This slice carries what serving needs: ``init``, the sublayers, the
+It carries ``init``, the sublayers, the training forward ``apply`` (the
+flash kernels on the card, remat through ``torch.utils.checkpoint``), the
 contiguous-cache ``prefill`` (the engine's bucketed prefill) and the
 paged forward ``paged_decode_step`` (decode steps and prefill chunks).
 The config flags of the Llama variants stay (sliding and per-layer
 windows, QKV biases, q/k norms, post- and sandwich norms, softcaps,
 ``norm_plus_one``, ``scale_embed``, gelu): they are elementwise work
-around the attention, and the paged kernel takes window and softcap.
+around the attention, and the kernels take window and softcap.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import NO_WINDOW, multihead_attention
+from ..ops.matmul import matmul_f32_out
 from ..ops.rope import freeze_rope_scaling, rope_tables, rotate
 
 
@@ -183,10 +186,12 @@ def layer_rope(config, positions: torch.Tensor) -> tuple:
 def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
                        norm_scale, positions: torch.Tensor, attn_impl,
                        rope: tuple, return_kv: bool = False,
-                       window_override=None, attend_override=None):
+                       window_override=None, attend_override=None,
+                       standard_layout: bool = True):
     """norm -> rope'd GQA attention -> output projection (the caller adds
     the residual). ``rope`` is ``layer_rope(config, positions)``.
-    ``return_kv`` also returns the (rope'd) k/v.
+    ``return_kv`` also returns the (rope'd) k/v. ``standard_layout``:
+    positions are ``arange`` (what lets "auto" pick the flash kernels).
     ``attend_override`` (the serving engine's paged-KV hook) is a callable
     ``(q, k, v, *, window, scale, softcap) -> (attn, aux)`` that replaces
     the attend; ``aux`` comes back in place of (k, v) under
@@ -227,6 +232,7 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
         return (out, aux) if return_kv else out
     attn = multihead_attention(q, k, v, causal=True, positions=positions,
                                kv_positions=positions, impl=attn_impl,
+                               standard_layout=standard_layout,
                                window=window, scale=attn_scale,
                                logit_softcap=softcap)
     out = _wmat(attn.reshape(b, s, -1), attn_params["wo"], cdt)
@@ -276,12 +282,11 @@ def final_hidden(config: LlamaConfig, params: dict,
 
 def lm_head_logits(config: LlamaConfig, params: dict,
                    x: torch.Tensor) -> torch.Tensor:
-    """Final norm + output projection, fp32 logits. In fp32 this is the
-    JAX computation; in bf16 the product is rounded to bf16 before the
-    fp32 cast (the JAX package keeps the fp32 accumulator), which avoids
-    an fp32 copy of the [E, V] head on every step."""
-    logits = (final_hidden(config, params, x)
-              @ output_weights(config, params)).to(torch.float32)
+    """Final norm + output projection, fp32 logits from the fp32
+    accumulator of the compute-dtype product (``matmul_f32_out``), as the
+    JAX package computes them, on the serve and training paths alike."""
+    logits = matmul_f32_out(final_hidden(config, params, x),
+                            output_weights(config, params))
     cap = getattr(config, "final_logit_softcap", None)
     if cap:
         logits = torch.tanh(logits / cap) * cap
@@ -314,6 +319,69 @@ def layer_windows(config) -> Optional[list]:
         raise ValueError(f"layer_windows entries must be >= 0 "
                          f"(0 = full attention); got {bad}")
     return [w if w else NO_WINDOW for w in lw]
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """``params["layers"]`` as ``n`` per-layer dicts of views, one
+    ``unbind`` per stacked leaf, so backward stacks each leaf's layer
+    grads once instead of adding n full-size select grads."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
+          positions: Optional[torch.Tensor] = None, *, remat: bool = False,
+          remat_policy=None, attn_impl: str = "auto",
+          activation_sharding=None, return_hidden: bool = False,
+          layer_schedule=None) -> torch.Tensor:
+    """Training forward -> fp32 logits [B, S, V] (or the final-normed
+    hidden states [B, S, E] when ``return_hidden``, for chunked losses).
+
+    The JAX layer ``lax.scan`` is a Python loop; per-layer windows ride
+    ``layer_windows``. ``remat=True`` wraps each layer in
+    ``torch.utils.checkpoint`` (non-reentrant): the "all" policy, nothing
+    saved, so backward reruns the layer's forward (K1 included).
+    ``positions`` given means a non-standard layout: "auto" then takes the
+    einsum attention, as in the JAX package."""
+    if remat and remat_policy not in (None, "all"):
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r}: only 'all' is ported "
+            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
+            f"optimizers')")
+    if activation_sharding is not None or layer_schedule is not None:
+        raise NotImplementedError(
+            "activation_sharding / layer_schedule belong to the distributed "
+            "plans and the overlap schedule (ROADMAP.md queue 1, items 8 "
+            "and 11)")
+    standard_layout = positions is None
+    if positions is None:
+        positions = torch.arange(input_ids.shape[1],
+                                 device=input_ids.device)[None, :]
+    positions = positions.expand(input_ids.shape)
+    x = embed_tokens(config, params, input_ids)
+    wins = layer_windows(config)
+    rope = layer_rope(config, positions)
+    layers = _unbind_layers(params["layers"], config.num_layers)
+
+    def block(x, layer, window):
+        attn = attention_sublayer(
+            config, x, layer["attn"],
+            None if config.post_norm else layer["input_norm"], positions,
+            attn_impl, rope, window_override=window,
+            standard_layout=standard_layout)
+        return _residuals(config, x, layer, attn)
+
+    for i, layer in enumerate(layers):
+        window = None if wins is None else wins[i]
+        if remat:
+            x = checkpoint(block, x, layer, window, use_reentrant=False)
+        else:
+            x = block(x, layer, window)
+    if return_hidden:
+        return final_hidden(config, params, x)
+    return lm_head_logits(config, params, x)
 
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int,

@@ -1,4 +1,4 @@
-"""Model registry: name -> (config, init) bundle.
+"""Model registry: name -> (config, init, apply) bundle.
 
 Counterpart of ``distributed_training_guide_tpu/models/registry.py`` for
 the families this slice ports (the llama family).
@@ -20,10 +20,16 @@ class ModelBundle:
     name: str
     config: Any
     init: Callable          # (config, rng, *, device=None) -> params
+    apply: Callable         # (config, params, input_ids, ...) -> logits
     family: str
 
     def num_params(self) -> int:
         return self.config.num_params()
+
+    def num_active_params(self) -> int:
+        """Per-token active params (MoE: k of E experts) for FLOPs/MFU."""
+        fn = getattr(self.config, "num_active_params", None)
+        return fn() if fn else self.config.num_params()
 
 
 def family_module(family: str):
@@ -46,7 +52,8 @@ def get_model(name: str, **overrides) -> ModelBundle:
         config = llama.PRESETS[key]
         if overrides:
             config = dataclasses.replace(config, **overrides)
-        return ModelBundle(key, config, llama.init, family="llama")
+        return ModelBundle(key, config, llama.init, llama.apply,
+                           family="llama")
     if name.startswith("hf:"):
         raise NotImplementedError(
             "hf: configs (models/auto.py) are not ported yet: ROADMAP.md "

@@ -1,12 +1,12 @@
-"""Attention dispatch: the plain einsum path in PyTorch.
+"""Attention dispatch: the plain einsum path, or the flash kernels.
 
 Counterpart of ``distributed_training_guide_tpu/ops/attention.py``. Shapes
 follow the JAX package: q [B, S, Hq, D], k/v [B, S, Hkv, D], grouped-query
-attention when Hkv < Hq. Scores and the softmax are fp32 whatever the
-input dtype (the JAX path's ``preferred_element_type=float32``); masked
-scores take ``finfo(float32).min``. The flash kernel (the TPU's
-``ops/flash_attention.py``, K1) is not ported in this slice, so
-``impl="flash"`` raises.
+attention when Hkv < Hq. On the einsum path ("xla") scores and the softmax
+are fp32 whatever the input dtype (the JAX path's
+``preferred_element_type=float32``); masked scores take
+``finfo(float32).min``. ``impl="flash"`` goes to ``ops/flash_attention.py``
+(the CUDA kernels K1-K3 on the card, their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -70,9 +70,11 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_softcap: Optional[float] = None
                         ) -> torch.Tensor:
     """Scaled-dot-product attention with GQA. ``impl``: "xla" (the einsum
-    path), "flash" (not in this slice), or "auto" (flash where the JAX
-    package would pick it: a CUDA tensor, causal, tile-aligned, standard
-    layout; the einsum path otherwise)."""
+    path), "flash" (``ops/flash_attention.flash_attention``), or "auto"
+    (flash where the JAX package would pick it, with "on a CUDA tensor" for
+    "on TPU": causal, tile-aligned, standard layout; the einsum path
+    otherwise). The flash path takes the standard layout: positions are
+    ``arange`` and are not read."""
     if window is not None and not causal:
         raise ValueError(
             "window (sliding-window attention) requires causal=True — a "
@@ -84,9 +86,10 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         impl = ("flash" if (q.is_cuda and aligned and causal
                             and standard_layout) else "xla")
     if impl == "flash":
-        raise NotImplementedError(
-            "the flash attention kernel (ops/flash_attention.py, K1) is not "
-            "ported yet: ROADMAP.md queue 2, K1-K3 with training chapter 01")
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, logit_softcap=logit_softcap)
     if impl != "xla":
         raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got "
                          f"{impl!r}")

@@ -1,0 +1,373 @@
+"""Flash attention: the forward kernel and its two backward kernels, joined
+by a ``torch.autograd.Function``.
+
+Counterpart of ``distributed_training_guide_tpu/ops/flash_attention.py``,
+whose Pallas kernels are rewritten here in CUDA for ``sm_90a``:
+``_fwd_kernel`` (K1) as ``csrc/flash_fwd.cu``, ``_dq_kernel`` (K2) and
+``_dkv_kernel`` (K3) as ``csrc/flash_bwd.cu`` (design and bound in their
+headers). Shapes follow the JAX package's public function: q [B, Sq, Hq, D],
+k / v [B, Sk, Hkv, D], grouped-query heads when Hkv < Hq; the kernels read
+that layout through strides, so nothing is transposed.
+
+The band contract is the JAX package's: query row i sits at position
+``i + q_off``, key row j at ``j + k_off``, and under ``causal`` a pair is
+live when ``0 <= qpos - kpos < window``. ``band`` is the packed
+``[window, q_off, k_off]`` int32 triple (``pack_band``; ``2**30`` means no
+window); without it the offsets are 0. ``scale`` defaults to
+``head_dim**-0.5``; ``softcap`` is the tanh cap applied before the mask,
+with its ``(1 - tanh^2)`` factor in backward. A row with no live key gives
+o = 0 and lse = -1e30, and a gradient of 0 (the TPU kernels' backward
+would give exp(0) = 1 on its masked lanes there).
+
+Each wrapper runs the plain PyTorch version (``flash_attention_reference``,
+``flash_bwd_reference``) for CPU tensors, which is the one reason it ever
+takes it, and launches its kernel for CUDA tensors, or raises.
+``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+from .attention import NO_WINDOW, check_static_window
+
+FWD_LAUNCHES = 0    # K1 launches since the caller last reset it
+DQ_LAUNCHES = 0     # K2
+DKV_LAUNCHES = 0    # K3
+NEG_INF = -1e30     # the kernels' mask constant
+HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fns: dict = {}
+
+
+def pack_band(window=None, q_off: int = 0, k_off: int = 0) -> torch.Tensor:
+    """The ``[window, q_off, k_off]`` int32 band operand (CPU), with
+    ``2**30`` for no window: the JAX package's ``_pack_band``."""
+    return torch.tensor([NO_WINDOW if window is None else int(window),
+                         int(q_off), int(k_off)], dtype=torch.int32)
+
+
+def _band_ints(window, band) -> tuple:
+    """(window, q_off, k_off) as host ints. A band on the card costs one
+    host read here."""
+    if band is None:
+        check_static_window(window)
+        return (NO_WINDOW if window is None else int(window)), 0, 0
+    w, q_off, k_off = (int(x) for x in (band.tolist()
+                                        if torch.is_tensor(band) else band))
+    check_static_window(w)
+    return w, q_off, k_off
+
+
+def _live(sq: int, sk: int, causal: bool, band: tuple, device):
+    """[Sq, Sk] bool mask of live pairs, None when every pair is live."""
+    if not causal:
+        return None
+    window, q_off, k_off = band
+    qpos = torch.arange(sq, device=device)[:, None] + q_off
+    kpos = torch.arange(sk, device=device)[None, :] + k_off
+    return (qpos >= kpos) & (qpos - kpos < window)
+
+
+def _scores(q, k, scale, softcap):
+    """fp32 scores [B, Hkv, G, Sq, Sk] and the tanh of the cap (or None)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    t = None
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    return s, t
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True, window=None,
+                              scale: Optional[float] = None,
+                              softcap: Optional[float] = None, band=None):
+    """The plain version of K1, in fp32 inside and masked as the kernel
+    is: (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s, _ = _scores(q, k, scale, softcap)
+    live = _live(sq, sk, causal, _band_ints(window, band), q.device)
+    if live is not None:
+        s = torch.where(live, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if live is not None:
+        p = torch.where(live, p, 0.0)
+    l = p.sum(-1, keepdim=True)
+    safe_l = torch.where(l == 0, 1.0, l)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / safe_l
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    lse = (m + torch.log(safe_l)).reshape(b, hq, sq)
+    return o, lse
+
+
+def _bwd_terms(q, k, v, do, lse, delta, causal, window, scale, softcap,
+               band):
+    """The probabilities and score grads of K2 / K3 ([B, Hkv, G, Sq, Sk]
+    fp32), rebuilt from ``lse`` / ``delta`` [B, Hq, Sq]."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s, t = _scores(q, k, scale, softcap)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
+    live = _live(sq, sk, causal, _band_ints(window, band), q.device)
+    if live is not None:
+        p = torch.where(live, p, 0.0)
+    dog = do.float().reshape(b, sq, hkv, g, d)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta.float().reshape(b, hkv, g, sq, 1))
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds * scale, dog
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, *, causal: bool = True,
+                       window=None, scale: Optional[float] = None,
+                       softcap: Optional[float] = None, band=None):
+    """The plain version of K2: dq in q's dtype."""
+    _, ds, _ = _bwd_terms(q, k, v, do, lse, delta, causal, window, scale,
+                          softcap, band)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, *, causal: bool = True,
+                        window=None, scale: Optional[float] = None,
+                        softcap: Optional[float] = None, band=None):
+    """The plain version of K3: (dk, dv) in k's dtype, summed over each kv
+    head's group."""
+    p, ds, dog = _bwd_terms(q, k, v, do, lse, delta, causal, window, scale,
+                            softcap, band)
+    qg = q.float().reshape(dog.shape)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, do, lse, delta, **kw):
+    """The plain versions of K2 and K3: (dq, dk, dv)."""
+    return (flash_dq_reference(q, k, v, do, lse, delta, **kw),
+            *flash_dkv_reference(q, k, v, do, lse, delta, **kw))
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _kernel(name: str):
+    """The ctypes function of a kernel, its library built on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
+        fn = getattr(lib, name)
+        n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
+        fn.argtypes = ([ptr] * n_ptr + [i32] * 6 + [ptr] + [i32] * 5
+                       + [f32, f32, ptr])
+        fn.restype = i32
+        _fns[name] = fn
+    return fn
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def _check_operands(q, k, v, *extra) -> None:
+    _check(q.is_cuda, f"q lies on {q.device}, not a CUDA device")
+    for x in (k, v, *extra):
+        _check(x.device == q.device, f"operand on {x.device}, q on "
+               f"{q.device}")
+    _check(q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (fp32 or bf16)")
+    for x in (k, v, *extra):
+        _check(x.dtype == q.dtype, f"operands differ in dtype ({x.dtype}, "
+               f"q {q.dtype})")
+    _check(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+           f"q [B, Sq, Hq, D] and k / v [B, Sk, Hkv, D], got "
+           f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    _check(k.shape[0] == b and k.shape[3] == d, f"k {tuple(k.shape)} does "
+           f"not match q {tuple(q.shape)}")
+    _check(d in HEAD_DIMS, f"head_dim {d}; the kernels take {HEAD_DIMS}")
+    hkv = k.shape[2]
+    _check(hkv >= 1 and hq % hkv == 0, f"query heads ({hq}) must be a "
+           f"positive multiple of kv heads ({hkv})")
+    for x in (q, k, v, *extra):
+        _check(x.stride(-1) == 1, "head_dim must be contiguous (stride 1)")
+
+
+def _strides(*xs):
+    vals = [x.stride(i) for x in xs for i in range(3)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_fwd(fn, q, k, v, causal, band, scale, softcap):
+    """(o, lse) from one launch of K1 through ``fn``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    window, q_off, k_off = band
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    stream = (torch.cuda.current_stream(q.device).cuda_stream
+              if q.is_cuda else None)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, sk, hq, hkv, d, _strides(q, k, v),
+            _DTYPE_CODE[q.dtype], int(causal), window, q_off, k_off,
+            float(scale), float(softcap or 0.0), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed (code {rc}) at "
+                           f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return o, lse
+
+
+def _launch_bwd(fn, dkv: bool, q, k, v, do, lse, delta, causal, band,
+                scale, softcap):
+    """dq (K2) or (dk, dv) (K3) from one launch through ``fn``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    window, q_off, k_off = band
+    outs = ([torch.empty(k.shape, dtype=k.dtype, device=k.device)
+             for _ in range(2)] if dkv
+            else [torch.empty(q.shape, dtype=q.dtype, device=q.device)])
+    stream = (torch.cuda.current_stream(q.device).cuda_stream
+              if q.is_cuda else None)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            b, sq, sk, hq, hkv, d, _strides(q, k, v, do),
+            _DTYPE_CODE[q.dtype], int(causal), window, q_off, k_off,
+            float(scale), float(softcap or 0.0), stream)
+    if rc != 0:
+        raise RuntimeError(f"{'flash_bwd_dkv' if dkv else 'flash_bwd_dq'} "
+                           f"kernel launch failed (code {rc}) at q "
+                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return tuple(outs) if dkv else outs[0]
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, window=None,
+              scale: Optional[float] = None, softcap: Optional[float] = None,
+              band=None):
+    """K1: (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)."""
+    global FWD_LAUNCHES
+    if window is not None and not causal:
+        raise ValueError("window (sliding-window attention) requires "
+                         "causal=True")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         window=window, scale=scale,
+                                         softcap=softcap, band=band)
+    _check_operands(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    out = _launch_fwd(_kernel("flash_fwd"), q, k, v, causal,
+                      _band_ints(window, band), scale, softcap)
+    FWD_LAUNCHES += 1
+    return out
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check_operands(q, k, v, do)
+    _check(do.shape == q.shape, f"do {tuple(do.shape)} must match q "
+           f"{tuple(q.shape)}")
+    want = (q.shape[0], q.shape[2], q.shape[1])
+    for name, x in (("lse", lse), ("delta", delta)):
+        _check(x.device == q.device and x.dtype == torch.float32
+               and tuple(x.shape) == want and x.is_contiguous(),
+               f"{name} must be contiguous fp32 {list(want)} on "
+               f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 window=None, scale: Optional[float] = None,
+                 softcap: Optional[float] = None, band=None):
+    """K2: dq [B, Sq, Hq, D] in q's dtype from the forward's ``lse`` and
+    ``delta = rowsum(do * o)`` ([B, Hq, Sq] fp32)."""
+    global DQ_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                  window=window, scale=scale,
+                                  softcap=softcap, band=band)
+    _check_bwd(q, k, v, do, lse, delta)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    dq = _launch_bwd(_kernel("flash_bwd_dq"), False, q, k, v, do, lse, delta,
+                     causal, _band_ints(window, band), scale, softcap)
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  window=None, scale: Optional[float] = None,
+                  softcap: Optional[float] = None, band=None):
+    """K3: (dk, dv) [B, Sk, Hkv, D] in k's dtype, summed over each kv
+    head's group, from ``lse`` / ``delta`` as K2 takes them."""
+    global DKV_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
+                                   window=window, scale=scale,
+                                   softcap=softcap, band=band)
+    _check_bwd(q, k, v, do, lse, delta)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    grads = _launch_bwd(_kernel("flash_bwd_dkv"), True, q, k, v, do, lse,
+                        delta, causal, _band_ints(window, band), scale,
+                        softcap)
+    DKV_LAUNCHES += 1
+    return grads
+
+
+def flash_bwd_with_stats(q, k, v, do, lse, delta, **kw):
+    """K2 and K3 from caller-supplied softmax stats -> (dq, dk, dv).
+
+    ``lse`` / ``delta`` ([B, Hq, Sq] fp32) are normally the forward's
+    logsumexp and ``rowsum(do * o)``; ring attention passes the global
+    (cross-chunk) stats to get each chunk pair's exact contribution.
+    Keywords: ``causal``, ``window``, ``scale``, ``softcap``, ``band``."""
+    return (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+class _Flash(torch.autograd.Function):
+    """Forward K1; backward ``delta`` in torch, then K2 and K3. The band
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, band, scale, softcap):
+        o, lse = flash_fwd(q, k, v, causal=causal, band=band, scale=scale,
+                           softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, band, scale, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, band, scale, softcap = ctx.args
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float())
+        dq, dk, dv = flash_bwd_with_stats(
+            q, k, v, do, lse, delta.contiguous(), causal=causal, band=band,
+            scale=scale, softcap=softcap)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None,
+                    scale: Optional[float] = None,
+                    logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """Blockwise fused attention with the kernels' backward; returns
+    [B, Sq, Hq, D] in q's dtype. ``window``: sliding-window attention
+    (query i attends keys j with 0 <= i - j < window)."""
+    if window is not None and not causal:
+        raise ValueError("window (sliding-window attention) requires "
+                         "causal=True")
+    band = _band_ints(window, None)
+    return _Flash.apply(q, k, v, causal, band, scale, logit_softcap)

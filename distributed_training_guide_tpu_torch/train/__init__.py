@@ -1,1 +1,3 @@
-"""Training-side helpers of the port (this slice: block-wise int8)."""
+"""Training side of the port: chapter 01's single-device loop (``cli``),
+its ``Trainer`` (``step``), optimizer, state, guards and precision
+policies, plus the block-wise int8 helpers the quantized KV pool uses."""

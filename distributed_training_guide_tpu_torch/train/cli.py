@@ -1,0 +1,338 @@
+"""Chapter 01's CLI and training loop, on one card.
+
+Counterpart of ``distributed_training_guide_tpu/train/cli.py``: the same
+flag surface and defaults (plus ``--device``), the same host state,
+fence-every banking of the per-step loss, ``log_freq`` info dict
+(running_loss, grad_norm, tokens_per_s, mfu, time/*, memory),
+``--max-steps``, ``--steps-per-epoch`` and ``--profile-dir`` (a
+``torch.profiler`` trace of steps 10-15). A flag whose feature a later
+slice ports raises ``NotImplementedError`` naming its ROADMAP.md item when
+it is set away from its default.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional
+
+LOGGER = logging.getLogger(__name__)
+
+# flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
+_UNPORTED_FLAGS = {
+    "experiment_name": (None, "'Chapter 01 remainder' (checkpoints)"),
+    "pretrained": (None, "'Chapter 05 recipe and conversion'"),
+    "lora_rank": (0, "'Other dense families' (LoRA)"),
+    "native_loader": (False, "'Runtime robustness and tooling'"),
+    "mmap_data": (None, "'Chapter 01 remainder'"),
+    "wandb": (False, "'Chapter 01 remainder'"),
+    "preflight": (False, "'Chapter 05 recipe and conversion'"),
+    "overlap_schedule": (False,
+                         "'Context parallel, pipeline parallel and overlap'"),
+    "moe_dispatch": (None, "'MoE'"),
+    "param_dtype": ("float32", "'Remat policies, precision and optimizers'"),
+}
+
+
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
+def get_parser() -> argparse.ArgumentParser:
+    """The JAX package's chapter flag surface, plus ``--device``."""
+    parser = argparse.ArgumentParser(
+        prog="python -m distributed_training_guide_tpu_torch.train")
+    parser.add_argument("-e", "--experiment-name", default=None)
+    parser.add_argument("-d", "--dataset-name", default="synthetic",
+                        required=False)
+    parser.add_argument("--dataset-subset", default=None)
+    parser.add_argument("-m", "--model-name", default=None, required=True)
+    parser.add_argument("--save-dir", default="../outputs")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--num-epochs", default=100, type=int)
+    parser.add_argument("--lr", default=3e-5, type=float)
+    parser.add_argument("--optimizer", default="adamw",
+                        choices=["adamw", "adafactor", "lion"])
+    parser.add_argument("-b", "--batch-size", default=1, type=int)
+    parser.add_argument("--log-freq", default=10, type=int)
+    parser.add_argument("--ckpt-freq", default=500, type=int)
+    parser.add_argument("-s", "--seq-length", default=1024, type=int)
+    parser.add_argument("--steps-per-epoch", default=None, type=int,
+                        help="cap steps per epoch (smoke runs)")
+    parser.add_argument("--grad-accum", default=1, type=int)
+    parser.add_argument("--checkpoint-activations", action="store_true",
+                        help="remat decoder layers (torch.utils.checkpoint)")
+    parser.add_argument("--remat-policy", default="all",
+                        choices=["all", "dots", "attn", "attn_mlp"],
+                        help="what survives forward under remat; this slice "
+                             "ports 'all' (recompute everything)")
+    parser.add_argument("--attn-impl", default="auto",
+                        choices=["auto", "xla", "flash"])
+    parser.add_argument("--context-impl", default="ring",
+                        choices=["ring", "ulysses"],
+                        help="cp>1 attention scheme (inert on one device)")
+    parser.add_argument("--cp-hop-loop", default="auto",
+                        choices=["auto", "scan", "unrolled"],
+                        help="ring hop-loop form (inert on one device)")
+    parser.add_argument("--max-steps", default=None, type=int)
+    parser.add_argument("--guard-policy", default="off",
+                        choices=["off", "skip", "abort"],
+                        help="non-finite loss/grad-norm policy "
+                             "(train/guards.py)")
+    parser.add_argument("--guard-max-skips", default=5, type=_positive_int,
+                        metavar="N")
+    parser.add_argument("--pretrained", default=None, metavar="DIR")
+    parser.add_argument("--native-loader", action="store_true")
+    parser.add_argument("--mmap-data", default=None, metavar="DIR")
+    parser.add_argument("--async-checkpoint", action="store_true")
+    parser.add_argument("--keep-checkpoints", default=2, type=_positive_int,
+                        metavar="N")
+    parser.add_argument("--loss-chunks", type=int, default=0,
+                        help=">0: compute the loss in sequence chunks, never "
+                             "holding full [B,S,V] logits")
+    parser.add_argument("--wandb", action="store_true")
+    parser.add_argument("--wandb-project", default=None)
+    parser.add_argument("--wandb-per-host", action="store_true")
+    parser.add_argument("--lora-rank", default=0, type=int, metavar="R")
+    parser.add_argument("--lora-alpha", default=16.0, type=float)
+    parser.add_argument("--lora-targets", default="wq,wv")
+    parser.add_argument("--moe-dispatch", default=None,
+                        choices=["dense", "ragged"])
+    parser.add_argument("--checkpoint-full-crc", action="store_true")
+    parser.add_argument("--sliding-window", default=None, type=int,
+                        metavar="W",
+                        help="sliding-window attention over the previous W "
+                             "tokens (the banded flash kernels)")
+    parser.add_argument("--overlap-schedule", action="store_true")
+    parser.add_argument("--precision-policy", default="fp32",
+                        metavar="POLICY",
+                        help="storage-precision policy (train/precision.py); "
+                             "this slice ports fp32")
+    parser.add_argument("--param-dtype", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--fence-every", type=_positive_int, default=1,
+                        metavar="N",
+                        help="host-read the loss every N steps instead of "
+                             "every step")
+    parser.add_argument("--timer-sync", action="store_true",
+                        help="fence the phase timers with "
+                             "torch.cuda.synchronize")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of steps 10-15 "
+                             "into this dir")
+    parser.add_argument("--preflight", action="store_true")
+    parser.add_argument("--preflight-target", default=None, metavar="KIND")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where training runs (default cuda; cpu runs "
+                             "the plain PyTorch path)")
+    return parser
+
+
+def check_ported_flags(args) -> None:
+    """Refuse, before any work, a flag whose feature is not ported."""
+    for dest, (default, item) in _UNPORTED_FLAGS.items():
+        if getattr(args, dest, default) != default:
+            raise NotImplementedError(
+                f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md "
+                f"queue 1, {item})")
+    if args.optimizer != "adamw":
+        raise NotImplementedError(
+            f"--optimizer {args.optimizer} is not ported yet (ROADMAP.md "
+            f"queue 1, 'Remat policies, precision and optimizers')")
+    from .precision import resolve_policy
+
+    resolve_policy(args.precision_policy)
+    if args.checkpoint_activations and args.remat_policy != "all":
+        raise NotImplementedError(
+            f"--remat-policy {args.remat_policy}: only 'all' is ported "
+            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
+            f"optimizers')")
+
+
+def _profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+def run_training(args, *, device=None, extra_log: Optional[dict] = None
+                 ) -> dict:
+    """The chapter-01 training loop. Returns the host state, the last info
+    dict, the state, and every logged info dict (for tests)."""
+    if getattr(args, "fence_every", 1) < 1:
+        raise SystemExit(f"--fence-every must be >= 1, got "
+                         f"{args.fence_every}")
+    check_ported_flags(args)
+    import torch
+
+    from .._device import resolve_device
+    from ..data import BatchLoader, get_tokenizer, load_and_preprocess_data
+    from ..models import get_model
+    from ..utils import (LocalTimer, compute_mfu, device_sync, get_mem_stats,
+                         init_logging, transformer_flops_per_token)
+    from .guards import GuardMonitor
+    from .optimizer import OPTIMIZERS, lr_at_step
+    from .state import host_state_dict
+    from .step import Trainer
+
+    device = resolve_device(device if device is not None
+                            else getattr(args, "device", None))
+    init_logging()
+    LOGGER.info(vars(args))
+    overrides = {}
+    if getattr(args, "sliding_window", None):
+        overrides["sliding_window"] = args.sliding_window
+    bundle = get_model(args.model_name, **overrides)
+    cfg = bundle.config
+    LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
+                f"{device} strategy=single")
+    seq_length = min(args.seq_length, cfg.max_position_embeddings)
+    trainer = Trainer(
+        bundle=bundle, optimizer=OPTIMIZERS[args.optimizer](args.lr),
+        grad_accum=args.grad_accum, remat=args.checkpoint_activations,
+        remat_policy=args.remat_policy, loss_chunks=args.loss_chunks,
+        attn_impl=args.attn_impl, guard_policy=args.guard_policy,
+        precision=args.precision_policy, device=device)
+    guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
+    global_batch = args.batch_size * args.grad_accum
+
+    tokenizer = get_tokenizer(args.model_name)
+    dataset = load_and_preprocess_data(
+        args.dataset_name, tokenizer, seq_length,
+        max_position_embeddings=cfg.max_position_embeddings, seed=args.seed)
+    LOGGER.info(f"{len(dataset)} training sequences of length {seq_length}")
+    loader = BatchLoader(dataset, global_batch, device=device,
+                         grad_accum=args.grad_accum, seed=args.seed)
+    steps_per_epoch = len(loader)
+    if args.steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+    LOGGER.info(f"{steps_per_epoch} batches per epoch (global batch "
+                f"{global_batch})")
+
+    host_state = host_state_dict()
+    state = trainer.init_state(args.seed)
+    sync_fn = (device_sync if args.timer_sync and device.type == "cuda"
+               else None)
+    timers = {k: LocalTimer(sync_fn=sync_fn) for k in ["data", "step"]}
+    flops_per_token = transformer_flops_per_token(
+        bundle.num_active_params(), cfg.num_layers, cfg.hidden_size,
+        seq_length, vocab_size=cfg.vocab_size)
+    tok_per_step = trainer.tokens_per_step(args.batch_size, seq_length)
+    last_info: dict = {}
+    infos: list = []
+    prof = None
+    profile_done = False
+    profile_start_step = 0
+    done = False
+    pending_losses = []  # (step, loss, notfinite) banked between fences
+
+    def drain_losses():
+        for step_no, loss, flag in pending_losses:
+            if flag is not None and guard.observe(
+                    float(flag), step_no, {"loss": float(loss)}):
+                continue
+            host_state["running_loss"] += float(loss)
+        pending_losses.clear()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        for epoch in range(host_state["epoch"], args.num_epochs):
+            host_state["epoch"] = epoch
+            loader.set_epoch(epoch)
+            LOGGER.info(f"Begin epoch {epoch} at step "
+                        f"{host_state['epoch_step']}")
+            batches = loader.epoch_batches(
+                start_step=host_state["epoch_step"])
+            for i_step in range(host_state["epoch_step"], steps_per_epoch):
+                with timers["data"]:
+                    batch = next(batches)
+                with timers["step"]:
+                    state, metrics = trainer.step_fn(state, batch)
+                    # a log boundary drains inside the step timer, so the
+                    # device work of the whole fence group is timed
+                    pending_losses.append(
+                        (host_state["global_step"] + 1, metrics["loss"],
+                         metrics.get("notfinite") if guard.enabled
+                         else None))
+                    if (len(pending_losses) >= args.fence_every
+                            or (host_state["global_step"] + 1)
+                            % args.log_freq == 0):
+                        drain_losses()
+                host_state["global_step"] += 1
+                host_state["epoch_step"] += 1
+
+                if args.profile_dir:  # trace a ~5-step steady window
+                    if prof is None and host_state["global_step"] >= 10:
+                        prof = _profiler(device)
+                        prof.__enter__()
+                        profile_start_step = host_state["global_step"]
+                    elif (prof is not None and not profile_done
+                          and host_state["global_step"]
+                          >= profile_start_step + 5):
+                        _finish_profile(prof, args.profile_dir)
+                        profile_done = True
+
+                if host_state["global_step"] % args.log_freq == 0:
+                    drain_losses()
+                    ms_per_step = sum(t.avg_elapsed_ms()
+                                      for t in timers.values())
+                    tokens_per_s = 1000 * tok_per_step / max(ms_per_step,
+                                                             1e-9)
+                    info = {
+                        "global_step": host_state["global_step"],
+                        "lr": lr_at_step(host_state["global_step"], args.lr),
+                        "running_loss": (host_state["running_loss"]
+                                         / args.log_freq),
+                        "grad_norm": float(metrics["grad_norm"]),
+                        **{k: float(v) for k, v in metrics.items()
+                           if k not in ("loss", "grad_norm")},
+                        "epoch": epoch,
+                        "epoch_progress": (host_state["epoch_step"]
+                                           / steps_per_epoch),
+                        "num_batches_remaining": steps_per_epoch - i_step,
+                        **get_mem_stats(device),
+                        "tokens_per_s": tokens_per_s,
+                        "mfu": compute_mfu(tokens_per_s, flops_per_token,
+                                           device=device),
+                        "time/total": ms_per_step,
+                        **{f"time/{k}": t.avg_elapsed_ms()
+                           for k, t in timers.items()},
+                        **({"guard_skipped": guard.total_skipped}
+                           if guard.enabled else {}),
+                        **(extra_log or {}),
+                    }
+                    LOGGER.info(info)
+                    last_info = info
+                    infos.append(info)
+                    host_state["running_loss"] = 0.0
+                    for t in timers.values():
+                        t.reset()
+
+                if (args.max_steps
+                        and host_state["global_step"] >= args.max_steps):
+                    done = True
+                    break
+            drain_losses()
+            host_state["epoch_step"] = 0
+            if done:
+                break
+    finally:
+        if prof is not None and not profile_done:
+            _finish_profile(prof, args.profile_dir)
+    return {"host_state": host_state, "last_info": last_info,
+            "state": state, "infos": infos}
+
+
+def _finish_profile(prof, profile_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    LOGGER.info(f"profiler trace written to {path}")

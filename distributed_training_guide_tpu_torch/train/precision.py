@@ -1,13 +1,21 @@
-"""Block-wise int8 quantization (Dettmers absmax), the part of the JAX
-package's ``train/precision.py`` that the quantized KV pool uses (its
-``sqrt_domain`` variant serves the 8-bit optimizer, not ported here).
+"""Precision policies and block-wise int8 quantization.
 
-``quantize_blockwise`` and ``dequantize_blockwise`` are the same
-arithmetic in the same order as the JAX functions; both frameworks round
-half to even, so the int8 payloads agree bit for bit on equal inputs.
+Counterpart of ``distributed_training_guide_tpu/train/precision.py``.
+``resolve_policy`` names what dtype each piece of training state is
+stored in; this slice ports the default ``fp32`` policy (bf16 compute
+from fp32 params, fp32 AdamW moments, fp32 grad accumulation), and
+``bf16-master`` / ``adam8bit`` raise until ROADMAP.md queue 1,
+'Remat policies, precision and optimizers'.
+
+``quantize_blockwise`` and ``dequantize_blockwise`` (Dettmers absmax, as
+the quantized KV pool uses them; the ``sqrt_domain`` variant serves the
+8-bit optimizer, not ported here) are the same arithmetic in the same
+order as the JAX functions; both frameworks round half to even, so the
+int8 payloads agree bit for bit on equal inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -50,3 +58,34 @@ def dequantize_blockwise(qt: Quantized, dtype=torch.float32) -> torch.Tensor:
     bs = -(-d // qt.scale.shape[-1])
     scale = torch.repeat_interleave(qt.scale, bs, dim=-1)[..., :d]
     return (qt.q.to(torch.float32) * scale).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """One storage policy for the whole train state: the fp32 policy
+    stores params, moments and the grad-accumulation buffer in fp32."""
+
+    name: str
+
+
+POLICIES = {"fp32": PrecisionPolicy(name="fp32")}
+_UNPORTED_POLICIES = ("bf16-master", "adam8bit")
+
+
+def resolve_policy(spec) -> PrecisionPolicy:
+    """A policy name (or a PrecisionPolicy, or None for fp32)."""
+    if isinstance(spec, PrecisionPolicy):
+        return spec
+    if spec is None:
+        return POLICIES["fp32"]
+    parts = [p.strip() for p in str(spec).split("+") if p.strip()]
+    if parts == ["fp32"]:
+        return POLICIES["fp32"]
+    if parts and all(p in POLICIES or p in _UNPORTED_POLICIES
+                     for p in parts):
+        raise NotImplementedError(
+            f"precision policy {spec!r} is not ported yet: only 'fp32' "
+            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
+            f"optimizers')")
+    raise ValueError(f"unknown precision policy {spec!r}; use one of "
+                     f"{sorted(POLICIES) + list(_UNPORTED_POLICIES)}")

@@ -1,9 +1,11 @@
-"""The CUDA kernel against its plain version, on the card. Marked ``gpu``:
+"""The CUDA kernels against their plain versions, on the card: the paged
+attend (K4) and the flash forward and backward (K1-K3). Marked ``gpu``:
 the ``cuda`` fixture decides whether a card is present (never at import
 time, so every test worker collects the same tests) and skips without
-one. Run on a machine with the card:
+one. Run on a machine with the card (``--noconftest``: the suite's
+conftest imports jax, which that machine need not have):
 
-    python -m pytest tests/test_torch_gpu.py -q -m gpu
+    python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
 """
 import itertools
 
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from distributed_training_guide_tpu_torch.models import get_model
+from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 from distributed_training_guide_tpu_torch.ops import paged_decode as pd
 from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
                                                         generate_many)
@@ -119,3 +122,131 @@ def test_engine_on_card_matches_cpu_engine_greedy(cuda):
         cpu = generate_many(ServeEngine(bundle, params, device="cpu", **kw),
                             reqs)
         assert [r.token_ids for r in gpu] == [r.token_ids for r in cpu]
+
+
+# flash: fp32 against the fp32 plain version (summation order only): o and
+# lse 2e-5 abs, grads 1e-4 abs; bf16: the kernels round p and ds to bf16
+# for their tensor-core products and the outputs to bf16, where the plain
+# version keeps fp32 (about 3e-3 measured), relative L2 1e-2
+FLASH_FP32 = {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+FLASH_BF16_REL_L2 = 1e-2
+FLASH_GRID = list(itertools.product([64, 128, 256], ["fp32", "bf16"],
+                                    [(8, 2), (4, 4)]))
+# (causal, window, softcap, band offsets)
+FLASH_VARIANTS = ((True, None, None, None), (True, 48, None, None),
+                  (True, None, 5.0, None), (False, None, None, None),
+                  (True, 64, None, (32, 0)))
+
+
+def _flash_inputs(dev, gen, dtype, hq, hkv, d, b=2, sq=200, sk=200):
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    return [torch.randn(*shape, generator=gen, device=dev).to(dt)
+            for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                          (b, sq, hq, d))]
+
+
+@pytest.mark.parametrize("d,dtype,heads", FLASH_GRID,
+                         ids=[f"d{d}-{t}-{hq}x{hkv}"
+                              for d, t, (hq, hkv) in FLASH_GRID])
+def test_flash_kernels_match_plain_versions(cuda, d, dtype, heads):
+    hq, hkv = heads
+    gen = torch.Generator(device=cuda).manual_seed(d + hq)
+    q, k, v, do = _flash_inputs(cuda, gen, dtype, hq, hkv, d)
+    for causal, window, softcap, offs in FLASH_VARIANTS:
+        kw = dict(causal=causal, softcap=softcap)
+        if offs is None:
+            kw["window"] = window
+        else:
+            kw["band"] = fa.pack_band(window, *offs)
+        before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             ro.float()).contiguous()
+        dq, dk, dv = fa.flash_bwd_with_stats(q, k, v, do, rlse, delta, **kw)
+        torch.cuda.synchronize()
+        assert (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == tuple(
+            x + 1 for x in before)
+        rdq, rdk, rdv = fa.flash_bwd_reference(q, k, v, do, rlse, delta,
+                                               **kw)
+        for key, got, want in (("o", o, ro), ("lse", lse, rlse),
+                               ("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            diff = got.float() - want.float()
+            if dtype == "fp32" or key == "lse":
+                err, bound = diff.abs().max().item(), FLASH_FP32[key]
+            else:
+                err = (diff.norm() / want.float().norm()).item()
+                bound = FLASH_BF16_REL_L2
+            assert err <= bound, (causal, window, softcap, offs, key, err)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_autograd_matches_plain_autograd(cuda, d):
+    """K1 + K2 + K3 through ``flash_attention``'s autograd against torch
+    autograd through the plain forward, fp32, GQA with a window and a
+    softcap: grads within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, _ = _flash_inputs(cuda, gen, "fp32", 8, 2, d)
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        torch.sum(o * torch.cos(o)).backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda q, k, v: fa.flash_attention(
+        q, k, v, window=48, logit_softcap=5.0))
+    want = grads(lambda q, k, v: fa.flash_attention_reference(
+        q, k, v, window=48, softcap=5.0)[0])
+    for label, g, w in zip("qkv", got, want):
+        assert (g - w).abs().max().item() <= 1e-4, label
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, _ = _flash_inputs(cuda, gen, "fp32", 4, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_fwd(q.transpose(-1, -2).contiguous().transpose(-1, -2),
+                     k, v)
+    with pytest.raises(ValueError, match="operand on"):
+        fa.flash_fwd(q, k.cpu(), v)
+
+
+def test_trainer_on_card_matches_cpu(cuda):
+    """A head_dim-64 llama-debug variant in fp32: three Trainer steps on
+    the card (attention through K1-K3) against the CPU's (the plain
+    versions), same params and batches: loss and grad norm within 1e-4
+    relative."""
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    params = bundle.init(bundle.config, 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, 512, (2, 128), generator=gen)
+               for _ in range(3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        trainer = Trainer(bundle=bundle, optimizer=adamw_cosine(1e-3),
+                          attn_impl="flash", device=dev)
+        state = trainer.init_state_from_params(params, 0)
+        before = fa.FWD_LAUNCHES
+        metrics = []
+        for ids in batches:
+            ids = ids.to(dev)
+            _, m = trainer.step_fn(state, {"input_ids": ids, "labels": ids})
+            metrics.append({k: v.item() for k, v in m.items()})
+        launched = fa.FWD_LAUNCHES - before
+        assert launched == (6 if dev.type == "cuda" else 0)
+        out[dev.type] = metrics
+    for g, c in zip(out["cuda"], out["cpu"]):
+        for key in ("loss", "grad_norm"):
+            assert abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), (key, g, c)

@@ -74,9 +74,19 @@ def test_xla_attention_matches_jax(kw, hq, hkv):
 
 
 def test_flash_impl_is_not_ported():
-    x = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="K1"):
-        tattn.multihead_attention(x, x, x, impl="flash")
+    """Named when K1 was still to port; it is ported now. ``impl="flash"``
+    on a CPU tensor runs the kernels' plain version and launches nothing;
+    ``auto`` still takes the einsum path there."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention
+
+    x = torch.randn(1, 128, 2, 64, generator=torch.Generator().manual_seed(0))
+    before = flash_attention.FWD_LAUNCHES
+    out = tattn.multihead_attention(x, x, x, impl="flash")
+    ref, _ = flash_attention.flash_attention_reference(x, x, x)
+    assert torch.equal(out, ref)
+    assert flash_attention.FWD_LAUNCHES == before
+    assert torch.equal(tattn.multihead_attention(x, x, x),
+                       tattn._xla_attention(x, x, x, True, None, None))
 
 
 def test_quantize_kv_bitwise():
