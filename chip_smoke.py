@@ -35,7 +35,30 @@ phases, each of which raises on failure:
    launches of each of K1-K3 per step (32 of K1 under
    ``--checkpoint-activations``), a torch.profiler breakdown of one step,
    and the loss and grad norm of a step through the kernels against the
-   einsum attention (fp32 at 2 layers; bf16 loss at full depth).
+   einsum attention (fp32 at 2 layers; bf16 loss at full depth);
+9. grouped — the grouped matmul (K5) and its transposed form (K6) against
+   their plain versions in fp32 and bf16 at qwen3-30b-a3b's decode, chunk
+   and training shapes, moe-1b-8e's and qwen1.5-moe-a2.7b's widths, empty
+   groups, a tail past ``sum(group_sizes)``, one group taking every row
+   and widths off the tiles, and the autograd Function's grads against
+   plain autograd;
+10. grouped timing — K5 at the decode and training shapes (forward and the
+   backward's fp32 d_lhs) and K6 at the training shape beside their plain
+   versions, bounds and ``torch._grouped_mm`` (a yardstick the port never
+   calls);
+11. moe serve — ``ServeEngine`` on qwen3-30b-a3b at full width and depth
+   in bf16 (random weights from a seed) with phase 7's traffic, bucketed
+   and chunked: exactly 144 K5 launches per forward and 48 K4 launches per
+   decode step, batch invariance of a greedy request, first-token logits
+   against a plain prefill through the plain grouped matmul (bf16 full
+   depth; fp32 at 2 layers), a torch.profiler breakdown of a decode step;
+12. moe train — ``run_training`` on qwen3-30b-a3b at full width cut to 4
+   layers with ``--moe-dispatch ragged`` (bf16 compute, fp32 params and
+   AdamW, 2 x 2048 tokens, 6 steps): finite falling loss, no dropped
+   pairs, exactly 6 K5, 3 K6 and 1 each of K1-K3 launches per layer per
+   step, a profiled step, an fp32 2-layer step through the kernels against
+   one through the plain grouped matmul, and 2 dense-dispatch steps that
+   launch no K5.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -424,14 +447,18 @@ def profile_decode(torch, bundle, params, specs) -> dict:
     if busy == 0:
         return {"device_ms_per_step": "not measured"}
     k4 = sum(dev_us(e) for e in events if "paged_attend" in e.key) / 1e3
+    k5 = sum(dev_us(e) for e in events if "gmm_" in e.key) / 1e3
     gemm = sum(dev_us(e) for e in events       # cuBLAS / cuBLASLt GEMMs
                if any(w in e.key.lower() for w in ("gemm", "nvjet", "xmma",
                                                    "cutlass"))) / 1e3
+    dtoh = sum(e.count for e in events if "DtoH" in e.key)
     top = sorted(events, key=dev_us, reverse=True)[:6]
     out = {"wall_ms_per_step": wall * 1e3 / steps,
            "device_ms_per_step": busy / steps,
            "paged_attend_ms_per_step": k4 / steps,
+           "grouped_matmul_ms_per_step": k5 / steps,
            "gemm_ms_per_step": gemm / steps,
+           "device_to_host_copies_per_step": dtoh / steps,
            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
            "kernels_per_step": sum(e.count for e in events) / steps,
            "top": [(e.key[:60], dev_us(e) / 1e3 / steps) for e in top]}
@@ -742,7 +769,10 @@ def phase_train(torch, card: str) -> dict:
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
         batch=4, seq=2048, layers=layers)
     state = out["state"]
-    profile = profile_train_step(torch, state)
+    from distributed_training_guide_tpu_torch.models import get_model
+
+    profile = profile_train_step(torch, state, get_model("llama-3.2-1b"), 4,
+                                 2048)
     log(phase="train", profile="one step, llama-3.2-1b, B 4, S 2048",
         card=card, **profile)
     check_bf16_loss(torch, state.params)
@@ -777,21 +807,20 @@ def _train_batch(torch, vocab: int, b: int, s: int, seed: int) -> dict:
     return {"input_ids": ids, "labels": ids}
 
 
-def profile_train_step(torch, state) -> dict:
+def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
     """Device time of one optimizer step by kernel, from torch.profiler,
-    on the trained state: K1-K3, cuBLAS GEMMs, the device's idle share
-    (host clock, profiler on); "not measured" when the profiler reports no
-    device time."""
+    on the trained state: K1-K3, K5 / K6, cuBLAS GEMMs, the device's idle
+    share (host clock, profiler on); "not measured" when the profiler
+    reports no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_training_guide_tpu_torch.models import get_model
     from distributed_training_guide_tpu_torch.train.optimizer import (
         adamw_cosine)
     from distributed_training_guide_tpu_torch.train.step import Trainer
 
-    trainer = Trainer(bundle=get_model("llama-3.2-1b"),
-                      optimizer=adamw_cosine(3e-4), device="cuda")
-    batch = _train_batch(torch, 259, 4, 2048, SEED + 4)
+    trainer = Trainer(bundle=bundle, optimizer=adamw_cosine(3e-4),
+                      device="cuda")
+    batch = _train_batch(torch, 259, b, s, SEED + 4)
     trainer.step_fn(state, batch)             # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -818,6 +847,8 @@ def profile_train_step(torch, state) -> dict:
             "flash_fwd_ms": ms_of("flash_fwd"),
             "flash_dq_ms": ms_of("flash_dq"),
             "flash_dkv_ms": ms_of("flash_dkv"),
+            "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma"),
+            "tgmm_ms": ms_of("tgmm_kernel"),
             "gemm_ms": ms_of("gemm", "nvjet", "xmma", "cutlass"),
             "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
             "kernels": sum(e.count for e in events),
@@ -891,6 +922,612 @@ def check_fp32_train_step(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the grouped matmul kernels (K5, K6) against their plain versions
+# ---------------------------------------------------------------------------
+
+# relative L2 error against the plain version: in fp32 the same products
+# summed in another order; with bf16 operands both sides sum exact fp32
+# products in fp32 and round the result once to bf16 (half an ulp, 2**-9
+# relative per element, about 2e-3 in L2), so the bound leaves 5x room
+GMM_REL_L2 = {"fp32": 1e-5, "bf16": 1e-2}
+QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F = 128, 8, 2048, 768
+
+
+def routed_sizes(torch, gen, tokens: int, experts: int, topk: int):
+    """group_sizes [experts] int32 of a top-k routing of random scores."""
+    idx = torch.rand(tokens, experts, generator=gen,
+                     device="cuda").topk(topk, dim=-1).indices.flatten()
+    return torch.zeros(experts, dtype=torch.int32, device="cuda").scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def fixed_sizes(torch, sizes):
+    return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def gmm_cases(torch, gen):
+    """(name, M, K, N, group_sizes): qwen3-30b-a3b at decode (8 slots x
+    top-8), a 256-token chunk and training (B 2 x S 2048), gate/up and
+    down widths; moe-1b-8e (K 1024, N 2816, top-2 of 8) and
+    qwen1.5-moe-a2.7b (G 60, N 1408, top-4) with a tail; empty groups,
+    one group taking all rows, widths off every tile."""
+    g, k8, e, f = QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F
+    dec = routed_sizes(torch, gen, 8, g, k8)
+    chunk = routed_sizes(torch, gen, 256, g, k8)
+    train = routed_sizes(torch, gen, 4096, g, k8)
+    q15 = routed_sizes(torch, gen, 512, 60, 4)
+    return [
+        ("qwen3-decode-gate", 64, e, f, dec),
+        ("qwen3-decode-down", 64, f, e, dec),
+        ("qwen3-chunk-gate", 2048, e, f, chunk),
+        ("qwen3-chunk-down", 2048, f, e, chunk),
+        ("qwen3-train-gate", 32768, e, f, train),
+        ("qwen3-train-down", 32768, f, e, train),
+        ("moe-1b-8e", 4096, 1024, 2816, routed_sizes(torch, gen, 2048, 8, 2)),
+        ("qwen1.5-moe-tail", 2048 + 37, 2048, 1408, q15),
+        ("empty-groups-tail", 777, 256, 320,
+         fixed_sizes(torch, [0, 100, 0, 0, 250, 0, 3, 0, 300, 0, 0, 0])),
+        ("one-group", 1000, 256, 192, fixed_sizes(torch, [0, 0, 1000, 0])),
+        ("off-tile", 1000, 100, 72, fixed_sizes(torch, [333, 0, 400, 17])),
+    ]
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_grouped(torch) -> dict:
+    """Every case through K5 in fp32 and bf16 (the forward), the
+    backward's fp32 d_lhs form (fp32 dy against a bf16 rhs^T view) and K6
+    (bf16 or fp32 lhs, fp32 dy); the autograd Function's grads against
+    plain autograd. Returns the worst errors."""
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    counts = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    worst = {"grouped_matmul": 0.0, "tgmm": 0.0}        # fp32 max abs
+    worst_rel = {"fp32": 0.0, "bf16": 0.0}
+    n_checks = 0
+    for name, m, k, n, sizes in gmm_cases(torch, gen):
+        total = int(sizes.sum())
+        g = sizes.shape[0]
+        errs = {}
+        for dtype in ("fp32", "bf16"):
+            dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+            lhs = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+            rhs = torch.randn(g, k, n, generator=gen, device="cuda").to(dt)
+            dy = torch.randn(m, n, generator=gen, device="cuda")
+            before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+            out = gm.gmm(lhs, rhs, sizes)
+            dlhs = gm.gmm(dy, rhs.transpose(1, 2), sizes, dt)
+            drhs = gm.tgmm(lhs, dy, sizes, g, dt)
+            torch.cuda.synchronize()
+            check((gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+                  == (before[0] + 2, before[1] + 1),
+                  f"{name} {dtype}: a kernel did not launch")
+            refs = {"out": gm.gmm_reference(lhs, rhs, sizes, dt),
+                    "dlhs": gm.gmm_reference(dy, rhs.float().transpose(1, 2),
+                                             sizes, dt),
+                    "drhs": gm.tgmm_reference(lhs.float(), dy, sizes, g, dt)}
+            for key, got in (("out", out), ("dlhs", dlhs), ("drhs", drhs)):
+                want = refs[key]
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"{name} {key}: {got.shape} {got.dtype}")
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"{name} {key}: non-finite kernel output")
+                if key != "drhs":
+                    check(not bool(got[total:].any()),
+                          f"{name} {key}: rows past the total not zero")
+                else:
+                    check(not bool(got[sizes == 0].any()),
+                          f"{name} drhs: an empty group's grad not zero")
+                # the backward's two products are fp32 arithmetic whatever
+                # the output dtype; a bf16 output rounds once
+                err = rel_l2(got, want)
+                bound = GMM_REL_L2[dtype]
+                errs[f"{key}_{dtype}"] = err
+                check(err <= bound, f"grouped {name} {key} {dtype}: rel L2 "
+                      f"{err} > {bound}")
+                worst_rel[dtype] = max(worst_rel[dtype], err)
+                if dtype == "fp32":
+                    kern = "tgmm" if key == "drhs" else "grouped_matmul"
+                    worst[kern] = max(worst[kern], (got - want).abs().max()
+                                      .item())
+                n_checks += 1
+            del lhs, rhs, dy, out, dlhs, drhs, refs
+            torch.cuda.empty_cache()
+        log(phase="grouped", case=name, M=m, K=k, N=n, G=g, rows=total,
+            metric="rel_l2", bound=GMM_REL_L2, **errs)
+    # the autograd Function against torch autograd through the plain scan
+    # at moe-1b-8e's widths, fp32
+    sizes = routed_sizes(torch, gen, 1024, 8, 2)
+    lhs = torch.randn(2048 + 5, 1024, generator=gen, device="cuda")
+    rhs = torch.randn(8, 1024, 2816, generator=gen, device="cuda") * 0.03
+    cot = torch.randn(2048 + 5, 2816, generator=gen, device="cuda")
+
+    def run(impl):
+        lv, rv = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        out = gm.grouped_matmul(lv, rv, sizes, impl=impl)
+        torch.sum(out * cot).backward()
+        return out.detach(), lv.grad, rv.grad
+
+    got, want = run("auto"), run("scan")
+    grad_errs = {key: rel_l2(a, b) for key, a, b in
+                 zip(("out", "dlhs", "drhs"), got, want)}
+    log(phase="grouped", check="autograd Function vs plain autograd, fp32, "
+        "M 2053, K 1024, N 2816, G 8", rel_l2=grad_errs,
+        bound=GMM_REL_L2["fp32"])
+    for key, err in grad_errs.items():
+        check(err <= GMM_REL_L2["fp32"], f"Function {key} rel L2 {err}")
+    del lhs, rhs, cot, got, want
+    torch.cuda.empty_cache()
+    gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts   # checks are not main path
+    log(phase="grouped", checks=n_checks, worst_fp32_max_abs=worst,
+        worst_rel_l2=worst_rel)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 10: grouped matmul timing
+# ---------------------------------------------------------------------------
+
+def gmm_bound(m, k, n, sizes, lhs_b, rhs_b, out_b, peak) -> dict:
+    """K5: lhs read once, the rhs slices of the non-empty groups read
+    once, out written once; 2 K N operations per row below the total."""
+    total = int(sizes.sum())
+    live = int((sizes > 0).sum())
+    nbytes = m * k * lhs_b + live * k * n * rhs_b + m * n * out_b
+    return _bound(nbytes, 2 * total * k * n, peak)
+
+
+def tgmm_bound(m, k, n, sizes, lhs_b, dy_b, out_b, peak) -> dict:
+    """K6: lhs and dy read once, every group's [K, N] written once."""
+    total = int(sizes.sum())
+    g = sizes.shape[0]
+    nbytes = m * k * lhs_b + m * n * dy_b + g * k * n * out_b
+    return _bound(nbytes, 2 * total * k * n, peak)
+
+
+def _bound(nbytes, flops, peak) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def library_grouped_mm(torch, lhs, rhs, sizes):
+    """``torch._grouped_mm`` on the same bf16 operands (offsets = the
+    cumsum of the group sizes), as a yardstick: (ms, rel L2 of its rows
+    below the total against K5's), or (None, why) where this torch lacks
+    it or refuses the layout."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is absent from this torch"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    errors = []
+    for b in (rhs, rhs.transpose(1, 2).contiguous().transpose(1, 2)):
+        try:
+            out = fn(lhs, b, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:        # layout refused: try the next
+            errors.append(str(exc).splitlines()[0][:120])
+            continue
+        ms = cuda_ms(lambda: fn(lhs, b, offs=offs), iters=20)
+        return ms, out
+    return None, "; ".join(errors)
+
+
+def phase_grouped_timing(torch) -> dict:
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    counts = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    bf, f32 = torch.bfloat16, torch.float32
+    g, k8, e, f = QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F
+    out = {}
+    for name, tokens in (("decode", 8), ("train", 4096)):
+        m = tokens * k8
+        sizes = routed_sizes(torch, gen, tokens, g, k8)
+        lhs = torch.randn(m, e, generator=gen, device="cuda").to(bf)
+        rhs = (torch.randn(g, e, f, generator=gen, device="cuda") * 0.02
+               ).to(bf)
+        ms = cuda_ms(lambda: gm.gmm(lhs, rhs, sizes), iters=20)
+        plain_ms = cuda_ms(lambda: gm.gmm_reference(lhs, rhs, sizes, bf),
+                           iters=3, warmup=1)
+        lib_ms, lib = library_grouped_mm(torch, lhs, rhs, sizes)
+        row = dict(kernel="grouped_matmul", shape=name, M=m, K=e, N=f, G=g,
+                   rows=int(sizes.sum()),
+                   groups_nonempty=int((sizes > 0).sum()), dtype="bf16",
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **gmm_bound(m, e, f, sizes, 2, 2, 2, "bfloat16"))
+        if lib_ms is None:
+            row["library_note"] = lib
+        else:
+            total = int(sizes.sum())
+            row["library_rel_l2_vs_kernel"] = rel_l2(
+                lib[:total], gm.gmm(lhs, rhs, sizes)[:total])
+        row["share_of_bound"] = row["bound_ms"] / ms
+        out[name] = row
+        log(phase="grouped_timing", **row)
+        if name == "train":
+            # the backward: fp32 d_lhs = dy @ rhs^T (K5, FMA body) and
+            # d_rhs = lhs^T dy (K6), bf16 outputs as on the training path
+            dy = torch.randn(m, f, generator=gen, device="cuda")
+            rt = rhs.transpose(1, 2)
+            ms = cuda_ms(lambda: gm.gmm(dy, rt, sizes, bf), iters=5)
+            plain_ms = cuda_ms(lambda: gm.gmm_reference(
+                dy, rhs.float().transpose(1, 2), sizes, bf), iters=2,
+                warmup=1)
+            row = dict(kernel="grouped_matmul", shape="train-dlhs", M=m, K=f,
+                       N=e, G=g, dtype="fp32 dy, bf16 rhs^T, bf16 out",
+                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       library_note="no PyTorch call takes fp32 dy against "
+                       "a bf16 rhs", **gmm_bound(m, f, e, sizes, 4, 2, 2,
+                                                 "float32"))
+            row["share_of_bound"] = row["bound_ms"] / ms
+            out["train-dlhs"] = row
+            log(phase="grouped_timing", **row)
+            ms = cuda_ms(lambda: gm.tgmm(lhs, dy, sizes, g, bf), iters=5)
+            plain_ms = cuda_ms(lambda: gm.tgmm_reference(
+                lhs.float(), dy, sizes, g, bf), iters=2, warmup=1)
+            row = dict(kernel="tgmm", shape="train", M=m, K=e, N=f, G=g,
+                       dtype="bf16 lhs, fp32 dy, bf16 out", ms=ms,
+                       plain_ms=plain_ms, library_ms=None,
+                       library_note="no PyTorch call takes fp32 dy against "
+                       "bf16 lhs (torch._grouped_mm is bf16 only)",
+                       **tgmm_bound(m, e, f, sizes, 2, 4, 2, "float32"))
+            fn = getattr(torch, "_grouped_mm", None)
+            if fn is not None:      # informative: the all-bf16 variant
+                offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+                dyb = dy.to(bf)
+                try:
+                    row["library_bf16_dy_ms"] = cuda_ms(
+                        lambda: fn(lhs.t(), dyb, offs=offs), iters=5)
+                except RuntimeError as exc:
+                    row["library_bf16_dy_note"] = str(exc).splitlines()[0][
+                        :120]
+            row["share_of_bound"] = row["bound_ms"] / ms
+            out["tgmm-train"] = row
+            log(phase="grouped_timing", **row)
+            del dy, rt
+        del lhs, rhs, lib
+        torch.cuda.empty_cache()
+    gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving qwen3-30b-a3b
+# ---------------------------------------------------------------------------
+
+MOE_LOGIT_REL_L2_BF16 = 1e-1   # as phase 7: bf16 rounding through 48 layers
+
+
+def serve_specs(np, vocab: int) -> list:
+    """Phase 7's traffic: prompts of 17, 2000 and six seeded lengths in
+    [17, 2000], 32 new tokens, 6 greedy and 2 at temperature 0.8 / top-p
+    0.9."""
+    rng = np.random.default_rng(SEED)
+    lens = [17, 2000] + [int(x) for x in rng.integers(17, 2001, 6)]
+    return [dict(prompt_ids=[int(x) for x in rng.integers(0, vocab, n)],
+                 max_new_tokens=32, seed=i,
+                 **({"temperature": 0.8, "top_p": 0.9} if i >= 6 else {}))
+            for i, n in enumerate(lens)]
+
+
+def recording_engine(logits: dict):
+    """A ServeEngine that keeps each request's first-token logits (what
+    the last prefill forward produced) in ``logits``."""
+    from distributed_training_guide_tpu_torch.serve import ServeEngine
+
+    class Recording(ServeEngine):
+        def _on_prefill_complete(self, adm, logit):
+            logits[adm.request.request_id] = logit.float()
+            return super()._on_prefill_complete(adm, logit)
+
+    return Recording
+
+
+def phase_moe_serve(torch, card: str) -> dict:
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many, throughput_stats)
+
+    t0 = time.perf_counter()
+    bundle = get_model("qwen3-30b-a3b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    log(phase="moe_serve", model="qwen3-30b-a3b", params=bundle.num_params(),
+        active_params=bundle.num_active_params(), layers=layers,
+        dtype="bf16", init_s=time.perf_counter() - t0,
+        params_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    specs = serve_specs(np, cfg.vocab_size)
+    common = dict(n_slots=8, page_size=16, max_len=4096)
+    results, first = {}, {}
+    gm.GMM_LAUNCHES = pd.LAUNCHES = 0         # the main path starts here
+    for mode, chunk in (("bucketed", None), ("chunked", 256)):
+        logits: dict = {}
+        eng = recording_engine(logits)(bundle, params, prefill_chunk=chunk,
+                                       **common)
+        torch.cuda.reset_peak_memory_stats()
+        k5, k4 = gm.GMM_LAUNCHES, pd.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = generate_many(eng, [Request(**r) for r in specs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5, k4 = gm.GMM_LAUNCHES - k5, pd.LAUNCHES - k4
+        for r in res:
+            check(r.finish_reason == "length" and len(r.generated_ids) == 32,
+                  f"moe {mode}: request {r.request_id} ended "
+                  f"{r.finish_reason} after {len(r.generated_ids)} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in r.generated_ids),
+                  f"moe {mode}: token id out of range")
+        forwards = eng.decode_steps + eng.programs.prefill_calls
+        check(k5 == 3 * layers * forwards and eng.decode_steps > 0,
+              f"moe {mode}: {k5} K5 launches for {forwards} forwards "
+              f"(want {3 * layers} each)")
+        want_k4 = layers * (eng.decode_steps
+                            + (eng.programs.prefill_calls if chunk else 0))
+        check(k4 == want_k4, f"moe {mode}: {k4} K4 launches, want {want_k4}")
+        stats = throughput_stats(res, wall, eng)
+        results[mode] = dict(res=res, k5=k5, k4=k4)
+        first[mode] = logits[res[1].request_id]
+        log(phase="moe_serve", mode=mode, card=card, wall_s=wall,
+            tokens_per_s=stats["tokens_per_s"],
+            ttft_s_p50=stats["ttft_s_p50"],
+            latency_s_p50=stats["latency_s_p50"],
+            itl_s_avg=eng.stats()["itl_s_avg"],
+            decode_steps=eng.decode_steps,
+            prefill_forwards=eng.programs.prefill_calls,
+            k5_launches=k5, k5_per_forward=k5 / forwards, k4_launches=k4,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del eng
+        torch.cuda.empty_cache()
+    main_path = (gm.GMM_LAUNCHES, pd.LAUNCHES)  # ... and ends here
+
+    alone = generate_many(ServeEngine(bundle, params, **common),
+                          [Request(**specs[0])])[0]
+    check(alone.token_ids == results["bucketed"]["res"][0].token_ids,
+          "moe greedy request 0: alone and co-batched tokens differ")
+    agree = sum(a.token_ids == b.token_ids
+                for a, b in zip(results["bucketed"]["res"],
+                                results["chunked"]["res"]))
+    log(phase="moe_serve", greedy_alone_equals_cobatched=True,
+        requests_identical_bucketed_vs_chunked=agree, of=len(specs))
+    torch.cuda.empty_cache()
+
+    # the 2000-token prompt's first-token logits against a plain prefill
+    # through the plain grouped matmul and the einsum attention
+    ids = torch.tensor([specs[1]["prompt_ids"]], device="cuda")
+    cache = moe.init_cache(cfg, 1, ids.shape[1], device="cuda")
+    before = gm.GMM_LAUNCHES
+    ref = moe.prefill(cfg, params, ids, cache, gmm_impl="scan")[0][0].float()
+    check(gm.GMM_LAUNCHES == before, "the plain prefill launched K5")
+    del cache
+    for mode, got in first.items():
+        check(bool(torch.isfinite(got).all()) and got.shape == (
+            cfg.vocab_size,), f"moe {mode} first-token logits")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        log(phase="moe_serve", check=f"first-token logits, {mode} vs plain "
+            f"prefill (plain grouped matmul), bf16 full depth",
+            prompt_tokens=ids.shape[1], rel_l2=rel,
+            bound=MOE_LOGIT_REL_L2_BF16,
+            max_abs=(got - ref).abs().max().item(),
+            argmax_equal=bool(got.argmax() == ref.argmax()))
+        check(rel <= MOE_LOGIT_REL_L2_BF16, f"moe {mode} first-token logits "
+              f"rel L2 {rel} > {MOE_LOGIT_REL_L2_BF16}")
+    del results, ref, first
+    torch.cuda.empty_cache()
+    profile = profile_decode(torch, bundle, params, specs)
+    log(phase="moe_serve", profile="decode step, bucketed engine, 8 slots",
+        card=card, **profile)
+    del params
+    torch.cuda.empty_cache()
+    check_moe_fp32_chunk_path(torch, specs[1]["prompt_ids"])
+    return dict(launches=main_path[0], k4_launches=main_path[1],
+                per_forward=3 * layers)
+
+
+def check_moe_fp32_chunk_path(torch, prompt) -> None:
+    """qwen3-30b-a3b at full width cut to 2 layers, fp32: the chunked
+    engine's first-token logits (K4 and K5 in every chunk) against the
+    plain prefill through the plain grouped matmul."""
+    from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            generate_many)
+
+    bundle = get_model("qwen3-30b-a3b", dtype=torch.float32,
+                       param_dtype=torch.float32, num_layers=2)
+    params = bundle.init(bundle.config, SEED + 1, device="cuda")
+    logits: dict = {}
+    eng = recording_engine(logits)(bundle, params, n_slots=1, page_size=16,
+                                   max_len=4096, prefill_chunk=256)
+    rid = generate_many(eng, [Request(prompt_ids=prompt,
+                                      max_new_tokens=1)])[0].request_id
+    ids = torch.tensor([prompt], device="cuda")
+    cache = moe.init_cache(bundle.config, 1, ids.shape[1], device="cuda")
+    ref = moe.prefill(bundle.config, params, ids, cache,
+                      gmm_impl="scan")[0][0].float()
+    got = logits[rid]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(phase="moe_serve", check="first-token logits, chunked vs plain "
+        "prefill, fp32, full width, 2 layers", prompt_tokens=len(prompt),
+        rel_l2=rel, bound=LOGIT_REL_L2_FP32,
+        max_abs=(got - ref).abs().max().item(),
+        argmax_equal=bool(got.argmax() == ref.argmax()))
+    check(bool(torch.isfinite(got).all()), "moe fp32 logits not finite")
+    check(rel <= LOGIT_REL_L2_FP32, f"moe fp32 chunked logits rel L2 {rel} "
+          f"> {LOGIT_REL_L2_FP32}")
+    del eng, params, cache
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: chapter 10's training loop on qwen3-30b-a3b, 4 layers
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 6
+MOE_DENSE_STEPS = 2
+MOE_TRAIN_ARGS = ["-m", "qwen3-30b-a3b", "-d", "synthetic:400000", "-s",
+                  "2048", "-b", "2", "--lr", "3e-4", "--seed", str(SEED)]
+# one fp32 step through the kernels against one through the plain grouped
+# matmul, same params and batch: only the summation order differs
+MOE_TRAIN_FP32_REL = 1e-5
+
+
+def moe_counts() -> dict:
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    return {**flash_counts(), "grouped_matmul": gm.GMM_LAUNCHES,
+            "tgmm": gm.TGMM_LAUNCHES}
+
+
+def reset_moe_counts() -> None:
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    reset_flash_counts()
+    gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
+
+
+def phase_moe_train(torch, card: str) -> dict:
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.train import cli
+
+    layers = MOE_TRAIN_LAYERS
+    over = {"num_layers": layers}
+    args = cli.get_parser().parse_args(
+        MOE_TRAIN_ARGS + ["--moe-dispatch", "ragged", "--max-steps",
+                          str(MOE_TRAIN_STEPS), "--log-freq", "2"])
+    reset_moe_counts()                        # the main path starts here
+    t0 = time.perf_counter()
+    out = cli.run_training(args, model_overrides=over)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = moe_counts()                   # ... and ends here
+    per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
+                "grouped_matmul": 6 * layers, "tgmm": 3 * layers}
+    want = {k: v * MOE_TRAIN_STEPS for k, v in per_step.items()}
+    check(launches == want, f"moe train: launches {launches}, want {want}")
+    infos = out["infos"]
+    losses = [i["running_loss"] for i in infos]
+    check(len(infos) == MOE_TRAIN_STEPS // 2 and all(
+        map(math.isfinite, losses)), f"moe train: losses {losses}")
+    check(losses[-1] < losses[0], f"moe train: loss did not fall: {losses}")
+    check(all(i["moe_dropped_frac"] == 0.0 for i in infos),
+          "moe train: ragged dispatch dropped pairs")
+    for info in infos:
+        log(phase="moe_train", model="qwen3-30b-a3b", layers=layers,
+            card=card, **{k: info[k] for k in (
+                "global_step", "running_loss", "grad_norm",
+                "moe_dropped_frac", "tokens_per_s", "mfu", "time/step",
+                "time/data", "peak_alloc_gb")})
+    bundle = get_model("qwen3-30b-a3b", moe_dispatch="ragged", **over)
+    log(phase="moe_train", steps=MOE_TRAIN_STEPS, wall_s=wall,
+        launches_per_step={k: v / MOE_TRAIN_STEPS
+                           for k, v in launches.items()},
+        batch=2, seq=2048, params=bundle.num_params(),
+        active_params=bundle.num_active_params())
+    state = out["state"]
+    profile = profile_train_step(torch, state, bundle, 2, 2048)
+    log(phase="moe_train", profile="one step, qwen3-30b-a3b 4 layers, B 2, "
+        "S 2048", card=card, **profile)
+    del out, state
+    torch.cuda.empty_cache()
+    check_moe_fp32_train_step(torch)
+
+    args = cli.get_parser().parse_args(
+        MOE_TRAIN_ARGS + ["--moe-dispatch", "dense", "--max-steps",
+                          str(MOE_DENSE_STEPS), "--log-freq", "1"])
+    reset_moe_counts()
+    dense = cli.run_training(args, model_overrides=over)
+    dense_counts = moe_counts()
+    check(dense_counts["grouped_matmul"] == 0 and dense_counts["tgmm"] == 0,
+          f"dense dispatch launched K5 / K6: {dense_counts}")
+    dense_losses = [i["running_loss"] for i in dense["infos"]]
+    check(all(map(math.isfinite, dense_losses)),
+          f"dense losses {dense_losses}")
+    log(phase="moe_train", dispatch="dense", steps=MOE_DENSE_STEPS,
+        launches=dense_counts, losses=dense_losses,
+        moe_dropped_frac=[i["moe_dropped_frac"] for i in dense["infos"]],
+        tokens_per_s=dense["last_info"]["tokens_per_s"],
+        peak_alloc_gb=dense["last_info"]["peak_alloc_gb"])
+    del dense
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "infos": infos,
+            "profile": profile}
+
+
+def check_moe_fp32_train_step(torch) -> None:
+    """qwen3-30b-a3b at full width cut to 2 layers, fp32 compute, ragged
+    dispatch: the loss and global grad norm of one batch (B 1, S 512)
+    through K5 / K6 against the same through the plain grouped matmul
+    (whose autograd keeps a masked copy of the rows per expert, hence the
+    short sequence)."""
+    from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+
+    bundle = get_model("qwen3-30b-a3b", dtype=torch.float32, num_layers=2,
+                       moe_dispatch="ragged")
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED + 6, device="cuda")
+    leaves = []
+
+    def collect(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                collect(v)
+            else:
+                v.requires_grad_(True)
+                leaves.append(v)
+
+    collect(params)
+    batch = _train_batch(torch, cfg.vocab_size, 1, 512, SEED + 7)
+    got = {}
+    for impl in ("auto", "scan"):
+        reset_moe_counts()
+        logits, aux = moe.apply_with_aux(cfg, params, batch["input_ids"],
+                                         gmm_impl=impl)
+        loss = (causal_lm_loss(logits, batch["labels"])
+                + cfg.router_aux_coef * aux)
+        del logits
+        loss.backward()
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            [p.grad for p in leaves])))
+        counts = moe_counts()
+        want = (12, 6) if impl == "auto" else (0, 0)
+        check((counts["grouped_matmul"], counts["tgmm"]) == want,
+              f"fp32 step ({impl}): K5 / K6 launches {counts}")
+        got[impl] = {"loss": loss.item(), "grad_norm": norm.item()}
+        for p in leaves:
+            p.grad = None
+        torch.cuda.empty_cache()
+    rel = {k: abs(got["auto"][k] - got["scan"][k]) / abs(got["scan"][k])
+           for k in ("loss", "grad_norm")}
+    log(phase="moe_train", check="one step, kernels vs plain grouped "
+        "matmul, fp32, full width, 2 layers, B 1, S 512",
+        kernels=got["auto"], plain=got["scan"], rel=rel,
+        bound=MOE_TRAIN_FP32_REL)
+    for k, r in rel.items():
+        check(r <= MOE_TRAIN_FP32_REL, f"moe fp32 step {k} rel {r} > "
+              f"{MOE_TRAIN_FP32_REL}")
+    reset_moe_counts()
+    del params, leaves
+    torch.cuda.empty_cache()
+
+
 def ptxas_summary(build) -> dict:
     """kernel -> {instantiation: [registers, spill store bytes]} from
     ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
@@ -918,8 +1555,11 @@ def ptxas_summary(build) -> dict:
     for (mangled, regs, spill), name in zip(found, names):
         m = re.search(r"\w+_kernel<[^>]*>", name.replace("(int)", ""))
         short = m.group(0) if m else name.strip()
-        kernel = next((k for k in ("paged_attend", "flash_fwd", "flash_dq",
-                                   "flash_dkv") if k in short), "other")
+        kernel = next((k for w, k in (
+            ("paged_attend", "paged_attend"), ("flash_fwd", "flash_fwd"),
+            ("flash_dq", "flash_dq"), ("flash_dkv", "flash_dkv"),
+            ("tgmm", "tgmm"), ("gmm_", "grouped_matmul")) if w in short),
+            "other")
         out.setdefault(kernel, {})[short] = [regs, spill]
     return out
 
@@ -965,6 +1605,10 @@ def main() -> int:
     flash_timing = phase_flash_timing(torch)
     serve = phase_serve(torch, smi)
     train = phase_train(torch, smi)
+    gmm_worst = phase_grouped(torch)
+    gmm_timing = phase_grouped_timing(torch)
+    moe_serve = phase_moe_serve(torch, smi)
+    moe_train = phase_moe_train(torch, smi)
 
     dec = timing["decode"]
     kernels = [{
@@ -1004,6 +1648,43 @@ def main() -> int:
             **({"library_note": t["library_note"]}
                if "library_note" in t else {}),
         })
+    keys = ("M", "K", "N", "G", "dtype", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    dec = gmm_timing["decode"]
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "distributed_training_guide_tpu_torch/ops/csrc/"
+                  "grouped_matmul.cu",
+        "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:150",
+        "launches": moe_serve["launches"]
+        + moe_train["launches"]["grouped_matmul"],
+        "launches_serve": moe_serve["launches"],
+        "launches_train": moe_train["launches"]["grouped_matmul"],
+        "launches_per_serve_forward": moe_serve["per_forward"],
+        "launches_per_train_step": moe_train["per_step"]["grouped_matmul"],
+        "max_abs_err": gmm_worst["grouped_matmul"],
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "ptxas_registers_spills": ptxas.get("grouped_matmul", {}),
+        "shapes": {k: {kk: gmm_timing[k].get(kk) for kk in keys}
+                   for k in ("decode", "train", "train-dlhs")},
+    })
+    t = gmm_timing["tgmm-train"]
+    kernels.append({
+        "name": "tgmm", "route": "cuda",
+        "source": "distributed_training_guide_tpu_torch/ops/csrc/"
+                  "grouped_matmul.cu",
+        "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:176",
+        "launches": moe_train["launches"]["tgmm"],
+        "launches_per_train_step": moe_train["per_step"]["tgmm"],
+        "max_abs_err": gmm_worst["tgmm"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "library_note": t["library_note"],
+        "ptxas_registers_spills": ptxas.get("tgmm", {}),
+        "shape": {kk: t.get(kk) for kk in keys},
+    })
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

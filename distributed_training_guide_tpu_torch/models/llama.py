@@ -353,8 +353,9 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     if activation_sharding is not None or layer_schedule is not None:
         raise NotImplementedError(
             "activation_sharding / layer_schedule belong to the distributed "
-            "plans and the overlap schedule (ROADMAP.md queue 1, items 8 "
-            "and 11)")
+            "plans and the overlap schedule (ROADMAP.md queue 1, "
+            "'Distributed plans' and 'Context parallel, pipeline parallel "
+            "and overlap')")
     standard_layout = positions is None
     if positions is None:
         positions = torch.arange(input_ids.shape[1],

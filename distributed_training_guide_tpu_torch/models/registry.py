@@ -1,18 +1,19 @@
 """Model registry: name -> (config, init, apply) bundle.
 
 Counterpart of ``distributed_training_guide_tpu/models/registry.py`` for
-the families this slice ports (the llama family).
+the families ported so far (llama and moe).
 ``get_model(name, **overrides)`` replaces config fields, e.g.
 ``dtype=torch.bfloat16, param_dtype=torch.bfloat16``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
-from . import llama
+from . import llama, moe
 
-PORTED_FAMILIES = ("llama",)
+PORTED_FAMILIES = ("llama", "moe")
+_FAMILIES = {"llama": llama, "moe": moe}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +23,9 @@ class ModelBundle:
     init: Callable          # (config, rng, *, device=None) -> params
     apply: Callable         # (config, params, input_ids, ...) -> logits
     family: str
+    # MoE models: (config, params, ids, ...) -> (logits, aux_loss); the
+    # trainer adds config.router_aux_coef * aux to the loss
+    apply_with_aux: Optional[Callable] = None
 
     def num_params(self) -> int:
         return self.config.num_params()
@@ -34,30 +38,33 @@ class ModelBundle:
 
 def family_module(family: str):
     """The module implementing a model family."""
-    if family == "llama":
-        return llama
+    if family in _FAMILIES:
+        return _FAMILIES[family]
     raise NotImplementedError(
-        f"model family {family!r} is not ported yet (this slice ports "
-        f"{PORTED_FAMILIES}): ROADMAP.md queue 1, 'Other dense families' "
-        f"and 'MoE'")
+        f"model family {family!r} is not ported yet (ported: "
+        f"{PORTED_FAMILIES}): ROADMAP.md queue 1, 'Other dense families'")
 
 
 def list_models() -> list:
-    return sorted(llama.PRESETS)
+    return sorted(llama.PRESETS) + sorted(moe.PRESETS)
 
 
 def get_model(name: str, **overrides) -> ModelBundle:
+    """The preset ``name`` with ``overrides`` replacing config fields; a
+    field the family's config lacks raises ``TypeError``."""
     key = name.lower()
-    if key in llama.PRESETS:
-        config = llama.PRESETS[key]
-        if overrides:
-            config = dataclasses.replace(config, **overrides)
-        return ModelBundle(key, config, llama.init, llama.apply,
-                           family="llama")
+    for family, mod in _FAMILIES.items():
+        if key in mod.PRESETS:
+            config = mod.PRESETS[key]
+            if overrides:
+                config = dataclasses.replace(config, **overrides)
+            return ModelBundle(
+                key, config, mod.init, mod.apply, family=family,
+                apply_with_aux=getattr(mod, "apply_with_aux", None))
     if name.startswith("hf:"):
         raise NotImplementedError(
             "hf: configs (models/auto.py) are not ported yet: ROADMAP.md "
             "queue 1, 'Chapter 05 recipe and conversion'")
     raise NotImplementedError(
         f"model {name!r} is not a ported preset ({', '.join(list_models())}); "
-        f"gpt2, neox and MoE families are ROADMAP.md queue 1 items")
+        f"gpt2 and neox families are ROADMAP.md queue 1 items")

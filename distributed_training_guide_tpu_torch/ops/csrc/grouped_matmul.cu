@@ -1,0 +1,751 @@
+// Grouped (ragged) matmul and its transposed form, hand-written for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernels of distributed_training_guide_tpu/ops/
+// grouped_matmul.py:
+// - `_gmm_kernel` (K5, launched by `_pallas_gmm_raw`) as `gmm`:
+//   out[r] = lhs[r] @ rhs[g(r)] for the rows r < total of the group-sorted
+//   buffer, where group g owns rows offs[g] .. offs[g+1] and
+//   offs = cumsum(group_sizes), total = offs[G]; rows >= total come out 0.
+//   The sum over K is fp32.
+// - `_tgmm_kernel` (K6, launched by `_pallas_tgmm_raw`) as `tgmm`:
+//   d_rhs[g] = lhs_g^T @ dy_g, an fp32 sum over the group's rows; an empty
+//   group gives zeros, rows >= total contribute nothing.
+//
+// Design. On the TPU the grid walks a precomputed (group, row tile) work
+// list in order and carries the fp32 accumulator across consecutive items
+// of one tile in VMEM. Here blocks run in parallel and in no order, so no
+// work list is built and nothing comes from the host: every block computes
+// the group offsets itself (a block-wide scan of group_sizes, G <= 1024,
+// into shared memory).
+// - K5: block (column tile, row tile, z) owns the rows of its row tile that
+//   belong to the groups g_first + z, g_first + z + Z, ... intersecting the
+//   tile (g_first: the group of the tile's first row), and block z = 0 also
+//   owns the rows >= total, which it writes as zeros. Every row has exactly
+//   one owner, so there are no atomics, and a row's sum over K runs in one
+//   fixed order whatever else shares its tile or how Z and the tile sizes
+//   were chosen: the result is deterministic and batch-invariant. For each
+//   of its groups the block loops over K in chunks through shared memory,
+//   with the rows of other groups zeroed, and accumulates in registers (a
+//   zero row adds exact zeros to rows it does not own). Z, the number of
+//   blocks sharing a row tile, is chosen on the host from M and G alone (a
+//   row tile of a small M spans many groups), which keeps the grid static.
+//   rhs is read through three strides, so the same kernel takes rhs^T for
+//   the backward's d_lhs product. Two bodies, by dtype:
+//   * bf16 lhs and rhs (`gmm_tc_kernel`): tiles in shared memory as bf16,
+//     products on the tensor cores (WMMA 16x16x16, bf16 in, fp32
+//     accumulate); a warp skips the fragments that hold no row of the
+//     current group (decode puts 1-2 rows in a group). The fp32 fragments
+//     are staged through shared memory per warp and only owned rows are
+//     written, in the output dtype.
+//   * anything else (`gmm_fma_kernel`): operands converted to fp32 as they
+//     are loaded (bf16 rhs^T is read as it lies, with no fp32 copy), FMA on
+//     the CUDA cores, full fp32: the backward's d_lhs = dy @ rhs^T and fp32
+//     references.
+// - K6 (`tgmm_kernel`): block (column tile, K tile, group) loops over its
+//   group's rows in chunks of 16 through shared memory, so the reduction
+//   over M stays on the chip, in one order, with no atomics. FMA in fp32
+//   (the backward's arithmetic); bf16 lhs is converted as it is loaded.
+//   Blocks of large groups run longer than blocks of small ones: that
+//   imbalance is measured, not fixed.
+//
+// Bound on H100. K5 at decode (64 rows over 128 experts, mostly 0-1 rows
+// each) moves the weight slices of the non-empty groups and little else:
+// bytes over 3.35 TB/s bound it, and the z split gives each non-empty group
+// its own blocks so that many weight streams are in flight. K5 in training
+// (32768 rows, ~256 per group) and K6 are bound by their operations: bf16
+// against the 989 TFLOP/s tensor-core peak, fp32 against the 67 TFLOP/s of
+// the CUDA cores. WMMA staged through shared memory and register-blocked
+// FMA reach a fraction of those peaks; wgmma with TMA (and 3xTF32 for the
+// fp32 products) is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kMaxGroups = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// offs[g] = sum of sizes[0 .. g) for g = 0 .. G (negative sizes count as 0),
+// by all kThreads threads of the block; ends with a barrier
+__device__ void group_offsets(const int* sizes, int G, int* offs) {
+  constexpr int kPer = kMaxGroups / kThreads;
+  __shared__ int warp_total[kThreads / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int v[kPer];
+  int local = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = t * kPer + i;
+    v[i] = idx < G ? max(sizes[idx], 0) : 0;
+    local += v[i];
+  }
+  int x = local;  // inclusive scan of `local` over the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_total[warp] = x;
+  __syncthreads();
+  int run = x - local;
+  for (int w = 0; w < warp; ++w) run += warp_total[w];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = t * kPer + i;
+    run += v[i];
+    if (idx < G) offs[idx + 1] = run;
+  }
+  if (t == 0) offs[0] = 0;
+  __syncthreads();
+}
+
+// the group owning row r: the first g with offs[g + 1] > r (G past them all)
+__device__ __forceinline__ int group_of(const int* offs, int G, int r) {
+  int lo = 0, hi = G;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offs[mid + 1] > r)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+struct GmmParams {
+  const void* lhs;   // [M, K], row stride l_sm, unit column stride
+  const void* rhs;   // [G, K, N] through strides (r_sg, r_sk, r_sn)
+  const int* sizes;  // [G] int32
+  void* out;         // [M, N] contiguous, the output dtype
+  int M, K, N, G, Z;
+  long long l_sm, r_sg, r_sk, r_sn;
+  int vec_a, vec_b;  // 16-byte loads of 8 bf16 are aligned and in bounds
+};
+
+// What one K5 block does: its row tile [m0, m1), the groups g_first ..
+// g_last intersecting it (it takes every Z-th from g_first + z), and
+// whether it also owns the rows >= total.
+struct TilePlan {
+  int m0, m1, total, g_first, g_last;
+  bool tail;
+};
+
+__device__ __forceinline__ TilePlan plan_tile(const GmmParams& p,
+                                              const int* offs, int BM) {
+  TilePlan t;
+  t.m0 = blockIdx.y * BM;
+  t.m1 = min(t.m0 + BM, p.M);
+  t.total = min(offs[p.G], p.M);
+  if (t.m0 < t.total) {
+    t.g_first = group_of(offs, p.G, t.m0);
+    t.g_last = group_of(offs, p.G, min(t.m1, t.total) - 1);
+  } else {
+    t.g_first = p.G;
+    t.g_last = p.G - 1;
+  }
+  t.tail = blockIdx.z == 0 && t.m1 > t.total;
+  return t;
+}
+
+// own[r] for the rows of the tile: this block writes row m0 + r
+__device__ __forceinline__ void mark_owned_rows(const GmmParams& p,
+                                                const int* offs,
+                                                const TilePlan& t, int BM,
+                                                unsigned char* own) {
+  const int z = blockIdx.z;
+  for (int r = threadIdx.x; r < BM; r += kThreads) {
+    const int row = t.m0 + r;
+    bool mine = false;
+    if (row < t.m1) {
+      if (row >= t.total)
+        mine = z == 0;
+      else
+        mine = (group_of(offs, p.G, row) - t.g_first) % p.Z == z;
+    }
+    own[r] = mine;
+  }
+  __syncthreads();
+}
+
+// ---- register blocking shared by the fp32 bodies (K5 FMA, K6)
+
+// Thread lane16 (0..15) of a 16 x 16 grid owns R entries of a tile axis:
+// with R a multiple of 4, four consecutive entries in each 64-wide half
+// (read as one float4), else entries lane16 + 16 a.
+template <int R>
+__device__ __forceinline__ int owned(int lane16, int a) {
+  if constexpr (R % 4 == 0)
+    return (a / 4) * 64 + lane16 * 4 + (a % 4);
+  else
+    return lane16 + 16 * a;
+}
+
+// the R entries thread lane16 owns of one shared-memory row
+template <int R>
+__device__ __forceinline__ void read_owned(const float* row, int lane16,
+                                           float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < R / 4; ++h) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(row + h * 64 + lane16 * 4);
+      v[4 * h] = x.x;
+      v[4 * h + 1] = x.y;
+      v[4 * h + 2] = x.z;
+      v[4 * h + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < R; ++a) v[a] = row[lane16 + 16 * a];
+  }
+}
+
+// ---- K5, the fp32 body (FMA on the CUDA cores)
+
+// One block: a BM x BN tile of out, BK-deep chunks of K. Each thread keeps
+// (BM / 16) x (BN / 16) sums in registers and loads the next chunk into
+// registers while it computes the current one. A row's sum runs over
+// k = 0 .. K-1 in order (one fmaf each), whatever the tile sizes.
+template <int BM, int BN, int BK, typename AT, typename BT, typename OT>
+__global__ void __launch_bounds__(kThreads)
+gmm_fma_kernel(const GmmParams p) {
+  constexpr int RA = BM / 16;  // rows per thread
+  constexpr int RC = BN / 16;  // columns per thread
+  constexpr int LA = BM * BK / kThreads;  // staged lhs values per thread
+  constexpr int LB = BK * BN / kThreads;  // staged rhs values per thread
+  static_assert(LA * kThreads == BM * BK && LB * kThreads == BK * BN, "");
+  __shared__ int offs[kMaxGroups + 1];
+  __shared__ unsigned char own[BM];
+  __shared__ __align__(16) float As[BK][BM + 4];  // k-major, padded
+  __shared__ __align__(16) float Bs[BK][BN + 4];
+  group_offsets(p.sizes, p.G, offs);
+  const TilePlan t = plan_tile(p, offs, BM);
+  const int z = blockIdx.z;
+  if (t.g_first + z > t.g_last && !t.tail) return;
+  mark_owned_rows(p, offs, t, BM, own);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int n0 = blockIdx.x * BN;
+  const AT* lhs = static_cast<const AT*>(p.lhs);
+  const bool rows_of_rhs = p.r_sn == 1;  // else neighbours run along K
+  float acc[RA][RC];
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < RC; ++c) acc[a][c] = 0.f;
+
+  for (int g = t.g_first + z; g <= t.g_last; g += p.Z) {
+    const int ga = max(offs[g], t.m0);
+    const int gb = min(offs[g + 1], t.m1);
+    if (ga >= gb) continue;  // an empty group (the same for every thread)
+    const BT* rg = static_cast<const BT*>(p.rhs) + g * p.r_sg;
+    float ra[LA], rb[LB];
+    // chunk k0 into registers: lhs rows of group g (others 0), rhs[g]
+    auto fetch = [&](int k0) {
+#pragma unroll
+      for (int i = 0; i < LA; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / BK;
+        const int k = idx - r * BK;
+        const int row = t.m0 + r;
+        ra[i] = (row >= ga && row < gb && k0 + k < p.K)
+                    ? to_f32(lhs[row * p.l_sm + k0 + k])
+                    : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        int k, n;
+        if (rows_of_rhs) {
+          k = idx / BN;
+          n = idx - k * BN;
+        } else {
+          n = idx / BK;
+          k = idx - n * BK;
+        }
+        rb[i] = (k0 + k < p.K && n0 + n < p.N)
+                    ? to_f32(rg[(k0 + k) * p.r_sk + (n0 + n) * p.r_sn])
+                    : 0.f;
+      }
+    };
+    fetch(0);
+    for (int k0 = 0; k0 < p.K; k0 += BK) {
+      __syncthreads();  // the previous chunk's reads are done
+#pragma unroll
+      for (int i = 0; i < LA; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / BK;
+        As[idx - r * BK][r] = ra[i];
+      }
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        if (rows_of_rhs)
+          Bs[idx / BN][idx % BN] = rb[i];
+        else
+          Bs[idx % BK][idx / BK] = rb[i];
+      }
+      __syncthreads();
+      if (k0 + BK < p.K) fetch(k0 + BK);
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        float av[RA], bv[RC];
+        read_owned<RA>(As[k], ty, av);
+        read_owned<RC>(Bs[k], tx, bv);
+#pragma unroll
+        for (int a = 0; a < RA; ++a)
+#pragma unroll
+          for (int c = 0; c < RC; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+      }
+    }
+  }
+
+  OT* out = static_cast<OT*>(p.out);
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int r = owned<RA>(ty, a);
+    const int row = t.m0 + r;
+    if (!own[r]) continue;
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const int col = n0 + owned<RC>(tx, c);
+      if (col < p.N)
+        out[static_cast<long long>(row) * p.N + col] =
+            from_f32<OT>(row >= t.total ? 0.f : acc[a][c]);
+    }
+  }
+}
+
+// ---- K5, the bf16 body (WMMA on the tensor cores)
+
+template <int BM, int BN>
+struct TcSmem {
+  static constexpr int kBK = 32;
+  static constexpr int kLda = kBK + 8;  // bf16 A rows
+  static constexpr int kLdb = BN + 8;   // bf16 B rows
+  static constexpr int kLdc = 16 + 4;   // fp32 rows of a warp's staged fragment
+  static constexpr int a = 0;
+  static constexpr int b = a + BM * kLda * 2;
+  static constexpr int tiles = b + kBK * kLdb * 2;
+  static constexpr int stage = (kThreads / 32) * 16 * kLdc * 4;
+  static constexpr int bytes = tiles > stage ? tiles : stage;
+};
+
+template <int BM, int BN, int WM, int WN, typename OT>
+__global__ void __launch_bounds__(kThreads)
+gmm_tc_kernel(const GmmParams p) {
+  using L = TcSmem<BM, BN>;
+  constexpr int BK = L::kBK;
+  constexpr int FM = WM / 16;  // fragments per warp along M
+  constexpr int FN = WN / 16;  // ... along N
+  constexpr int WARPS_N = BN / WN;
+  static_assert((BM / WM) * (BN / WN) == kThreads / 32, "8 warps");
+  __shared__ int offs[kMaxGroups + 1];
+  __shared__ unsigned char own[BM];
+  __shared__ __align__(128) unsigned char smem[L::bytes];
+  bf16* As = reinterpret_cast<bf16*>(smem + L::a);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + L::b);
+
+  group_offsets(p.sizes, p.G, offs);
+  const TilePlan t = plan_tile(p, offs, BM);
+  const int z = blockIdx.z;
+  if (t.g_first + z > t.g_last && !t.tail) return;
+  mark_owned_rows(p, offs, t, BM, own);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wr = warp / WARPS_N;  // this warp's rows: wr * WM .. + WM
+  const int wc = warp % WARPS_N;  // ... columns: wc * WN .. + WN
+  const int n0 = blockIdx.x * BN;
+  const bf16* lhs = static_cast<const bf16*>(p.lhs);
+  const bf16 zero = __float2bfloat16(0.f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0.f);
+
+  for (int g = t.g_first + z; g <= t.g_last; g += p.Z) {
+    const int ga = max(offs[g], t.m0);
+    const int gb = min(offs[g + 1], t.m1);
+    if (ga >= gb) continue;  // an empty group (the same for every thread)
+    // which of this warp's fragment rows hold a row of group g
+    bool live[FM];
+#pragma unroll
+    for (int fm = 0; fm < FM; ++fm) {
+      const int f0 = t.m0 + wr * WM + fm * 16;
+      live[fm] = f0 < gb && f0 + 16 > ga;
+    }
+    const bf16* rg = static_cast<const bf16*>(p.rhs) + g * p.r_sg;
+    for (int k0 = 0; k0 < p.K; k0 += BK) {
+      __syncthreads();  // the previous chunk's fragment loads are done
+      if (p.vec_a) {
+        for (int idx = threadIdx.x; idx < BM * (BK / 8); idx += kThreads) {
+          const int r = idx / (BK / 8);
+          const int c = (idx - r * (BK / 8)) * 8;
+          const int row = t.m0 + r;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (row >= ga && row < gb && k0 + c < p.K)
+            v = *reinterpret_cast<const uint4*>(lhs + row * p.l_sm + k0 + c);
+          *reinterpret_cast<uint4*>(As + r * L::kLda + c) = v;
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < BM * BK; idx += kThreads) {
+          const int r = idx / BK;
+          const int k = idx - r * BK;
+          const int row = t.m0 + r;
+          As[r * L::kLda + k] = (row >= ga && row < gb && k0 + k < p.K)
+                                    ? lhs[row * p.l_sm + k0 + k]
+                                    : zero;
+        }
+      }
+      if (p.vec_b) {
+        for (int idx = threadIdx.x; idx < BK * (BN / 8); idx += kThreads) {
+          const int k = idx / (BN / 8);
+          const int c = (idx - k * (BN / 8)) * 8;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (k0 + k < p.K && n0 + c < p.N)
+            v = *reinterpret_cast<const uint4*>(rg + (k0 + k) * p.r_sk + n0 +
+                                                c);
+          *reinterpret_cast<uint4*>(Bs + k * L::kLdb + c) = v;
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
+          const int k = idx / BN;
+          const int n = idx - k * BN;
+          Bs[k * L::kLdb + n] =
+              (k0 + k < p.K && n0 + n < p.N)
+                  ? rg[(k0 + k) * p.r_sk + (n0 + n) * p.r_sn]
+                  : zero;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            bfrag[FN];
+#pragma unroll
+        for (int fn = 0; fn < FN; ++fn)
+          wmma::load_matrix_sync(bfrag[fn],
+                                 Bs + kk * L::kLdb + wc * WN + fn * 16,
+                                 L::kLdb);
+#pragma unroll
+        for (int fm = 0; fm < FM; ++fm) {
+          if (!live[fm]) continue;
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+              afrag;
+          wmma::load_matrix_sync(
+              afrag, As + (wr * WM + fm * 16) * L::kLda + kk, L::kLda);
+#pragma unroll
+          for (int fn = 0; fn < FN; ++fn)
+            wmma::mma_sync(acc[fm][fn], afrag, bfrag[fn], acc[fm][fn]);
+        }
+      }
+    }
+  }
+
+  // epilogue: each warp stages one fragment at a time in its own corner of
+  // the (now free) tile memory and writes the rows this block owns
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * L::kLdc;
+  OT* out = static_cast<OT*>(p.out);
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm) {
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) {
+      wmma::store_matrix_sync(stage, acc[fm][fn], L::kLdc,
+                              wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int i = e / 16;
+        const int j = e - i * 16;
+        const int r = wr * WM + fm * 16 + i;
+        const int row = t.m0 + r;
+        const int col = n0 + wc * WN + fn * 16 + j;
+        if (r < BM && own[r] && col < p.N)
+          out[static_cast<long long>(row) * p.N + col] =
+              from_f32<OT>(row >= t.total ? 0.f : stage[i * L::kLdc + j]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---- K6 (FMA on the CUDA cores, fp32)
+
+struct TgmmParams {
+  const void* lhs;   // [M, K], row stride l_sm, unit column stride
+  const void* dy;    // [M, N], row stride d_sm, unit column stride
+  const int* sizes;  // [G] int32
+  void* out;         // [G, K, N] contiguous, the output dtype
+  int M, K, N, G;
+  long long l_sm, d_sm;
+};
+
+// One block: a BKT x BN tile of d_rhs[g]; its group's rows in chunks of BR,
+// the next chunk loaded into registers while the current one is summed.
+// Each output sums over the group's rows in order (one fmaf each).
+template <typename AT, typename BT, typename OT>
+__global__ void __launch_bounds__(kThreads)
+tgmm_kernel(const TgmmParams p) {
+  constexpr int BKT = 128;  // rows of d_rhs[g] (the K axis) per block
+  constexpr int BN = 128;   // columns (the N axis) per block
+  constexpr int BR = 8;     // rows of the group per chunk
+  constexpr int R = 8;      // K rows and N columns per thread
+  constexpr int LL = BR * BKT / kThreads;
+  constexpr int LD = BR * BN / kThreads;
+  __shared__ int offs[kMaxGroups + 1];
+  __shared__ __align__(16) float Ls[BR][BKT + 4];
+  __shared__ __align__(16) float Ds[BR][BN + 4];
+  group_offsets(p.sizes, p.G, offs);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * BKT;
+  const int g = blockIdx.z;
+  const int ra = min(offs[g], p.M);
+  const int rb = min(offs[g + 1], p.M);
+  const AT* lhs = static_cast<const AT*>(p.lhs);
+  const BT* dy = static_cast<const BT*>(p.dy);
+  float acc[R][R];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int c = 0; c < R; ++c) acc[a][c] = 0.f;
+
+  float rl[LL], rd[LD];
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int i = 0; i < LL; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / BKT;
+      const int k = idx - r * BKT;
+      const int row = r0 + r;
+      rl[i] = (row < rb && k0 + k < p.K) ? to_f32(lhs[row * p.l_sm + k0 + k])
+                                          : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < LD; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / BN;
+      const int n = idx - r * BN;
+      const int row = r0 + r;
+      rd[i] = (row < rb && n0 + n < p.N) ? to_f32(dy[row * p.d_sm + n0 + n])
+                                          : 0.f;
+    }
+  };
+  if (ra < rb) fetch(ra);
+  for (int r0 = ra; r0 < rb; r0 += BR) {
+    __syncthreads();  // the previous chunk's reads are done
+#pragma unroll
+    for (int i = 0; i < LL; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      Ls[idx / BKT][idx % BKT] = rl[i];
+    }
+#pragma unroll
+    for (int i = 0; i < LD; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      Ds[idx / BN][idx % BN] = rd[i];
+    }
+    __syncthreads();
+    if (r0 + BR < rb) fetch(r0 + BR);
+#pragma unroll
+    for (int r = 0; r < BR; ++r) {
+      float av[R], bv[R];
+      read_owned<R>(Ls[r], ty, av);
+      read_owned<R>(Ds[r], tx, bv);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int c = 0; c < R; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+    }
+  }
+
+  OT* out = static_cast<OT*>(p.out) + static_cast<long long>(g) * p.K * p.N;
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int k = k0 + owned<R>(ty, a);
+    if (k >= p.K) continue;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int n = n0 + owned<R>(tx, c);
+      if (n < p.N)
+        out[static_cast<long long>(k) * p.N + n] = from_f32<OT>(acc[a][c]);
+    }
+  }
+}
+
+// ---- launches
+
+// blocks sharing one row tile: about the number of group indices a tile of
+// BM rows spans when M rows spread over G groups, plus one for a boundary
+int z_split(int BM, int M, int G) {
+  const long long span = (static_cast<long long>(BM) * G + M - 1) / M + 1;
+  return static_cast<int>(span < G ? span : (G > 0 ? G : 1));
+}
+
+template <int BM, int BN, int BK, typename AT, typename BT, typename OT>
+int launch_fma(GmmParams p, cudaStream_t stream) {
+  p.Z = z_split(BM, p.M, p.G);
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.Z);
+  gmm_fma_kernel<BM, BN, BK, AT, BT, OT><<<grid, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN, int BK, typename AT, typename BT>
+int fma_out(const GmmParams& p, int out_dt, cudaStream_t stream) {
+  return out_dt == kBF16 ? launch_fma<BM, BN, BK, AT, BT, bf16>(p, stream)
+                         : launch_fma<BM, BN, BK, AT, BT, float>(p, stream);
+}
+
+template <int BM, int BN, int BK>
+int fma_dispatch(const GmmParams& p, int a_dt, int b_dt, int out_dt,
+                 cudaStream_t stream) {
+  if (a_dt == kF32 && b_dt == kF32)
+    return fma_out<BM, BN, BK, float, float>(p, out_dt, stream);
+  if (a_dt == kF32 && b_dt == kBF16)
+    return fma_out<BM, BN, BK, float, bf16>(p, out_dt, stream);
+  if (a_dt == kBF16 && b_dt == kF32)
+    return fma_out<BM, BN, BK, bf16, float>(p, out_dt, stream);
+  return fma_out<BM, BN, BK, bf16, bf16>(p, out_dt, stream);
+}
+
+template <int BM, int BN, int WM, int WN, typename OT>
+int launch_tc(GmmParams p, cudaStream_t stream) {
+  p.Z = z_split(BM, p.M, p.G);
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.Z);
+  gmm_tc_kernel<BM, BN, WM, WN, OT><<<grid, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN, int WM, int WN>
+int tc_out(const GmmParams& p, int out_dt, cudaStream_t stream) {
+  return out_dt == kBF16 ? launch_tc<BM, BN, WM, WN, bf16>(p, stream)
+                         : launch_tc<BM, BN, WM, WN, float>(p, stream);
+}
+
+template <typename AT, typename BT>
+int tgmm_out(const TgmmParams& p, int out_dt, cudaStream_t stream) {
+  const dim3 grid((p.N + 127) / 128, (p.K + 127) / 128, p.G);
+  if (out_dt == kBF16)
+    tgmm_kernel<AT, BT, bf16><<<grid, kThreads, 0, stream>>>(p);
+  else
+    tgmm_kernel<AT, BT, float><<<grid, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid_dtype(int dt) { return dt == kF32 || dt == kBF16; }
+
+// row tiles of at most this many rows take the small-tile bodies (decode)
+constexpr int kSmallM = 256;
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each returns 0, the cudaError_t of the
+// launch, or -1 for a shape or dtype the kernels do not take. Dtype codes:
+// 0 fp32, 1 bf16.
+//
+// gmm (K5): lhs [M, K] (row stride lhs_row_stride, columns contiguous), rhs
+// [G, K, N] read at g * rhs_strides[0] + k * rhs_strides[1] + n *
+// rhs_strides[2], group_sizes [G] int32, out [M, N] contiguous, all on the
+// device and allocated by the caller.
+extern "C" int gmm(const void* lhs, const void* rhs, const void* group_sizes,
+                   void* out, int M, int K, int N, int G,
+                   long long lhs_row_stride, const long long* rhs_strides,
+                   int lhs_dtype, int rhs_dtype, int out_dtype, void* stream) {
+  if (M < 0 || K < 0 || N < 0 || G < 0 || G > kMaxGroups ||
+      !valid_dtype(lhs_dtype) || !valid_dtype(rhs_dtype) ||
+      !valid_dtype(out_dtype) || (M + 15) / 16 > 65535) {
+    return -1;
+  }
+  if (M == 0 || N == 0) return 0;
+  GmmParams p;
+  p.lhs = lhs;
+  p.rhs = rhs;
+  p.sizes = static_cast<const int*>(group_sizes);
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.G = G;
+  p.Z = 1;
+  p.l_sm = lhs_row_stride;
+  p.r_sg = rhs_strides[0];
+  p.r_sk = rhs_strides[1];
+  p.r_sn = rhs_strides[2];
+  p.vec_a = (reinterpret_cast<uintptr_t>(lhs) % 16) == 0 &&
+            lhs_row_stride % 8 == 0 && K % 8 == 0;
+  p.vec_b = (reinterpret_cast<uintptr_t>(rhs) % 16) == 0 && p.r_sn == 1 &&
+            p.r_sg % 8 == 0 && p.r_sk % 8 == 0 && N % 8 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool small = M <= kSmallM;
+  if (lhs_dtype == kBF16 && rhs_dtype == kBF16) {
+    return small ? tc_out<16, 128, 16, 16>(p, out_dtype, st)
+                 : tc_out<128, 128, 32, 64>(p, out_dtype, st);
+  }
+  return small
+             ? fma_dispatch<16, 64, 16>(p, lhs_dtype, rhs_dtype, out_dtype, st)
+             : fma_dispatch<128, 128, 8>(p, lhs_dtype, rhs_dtype, out_dtype,
+                                         st);
+}
+
+// tgmm (K6): lhs [M, K] and dy [M, N] (row strides given, columns
+// contiguous), group_sizes [G] int32, out [G, K, N] contiguous.
+extern "C" int tgmm(const void* lhs, const void* dy, const void* group_sizes,
+                    void* out, int M, int K, int N, int G,
+                    long long lhs_row_stride, long long dy_row_stride,
+                    int lhs_dtype, int dy_dtype, int out_dtype, void* stream) {
+  if (M < 0 || K < 0 || N < 0 || G < 0 || G > kMaxGroups ||
+      (K + 127) / 128 > 65535 || !valid_dtype(lhs_dtype) ||
+      !valid_dtype(dy_dtype) || !valid_dtype(out_dtype)) {
+    return -1;
+  }
+  if (G == 0 || K == 0 || N == 0) return 0;
+  TgmmParams p;
+  p.lhs = lhs;
+  p.dy = dy;
+  p.sizes = static_cast<const int*>(group_sizes);
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.G = G;
+  p.l_sm = lhs_row_stride;
+  p.d_sm = dy_row_stride;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lhs_dtype == kF32 && dy_dtype == kF32)
+    return tgmm_out<float, float>(p, out_dtype, st);
+  if (lhs_dtype == kF32 && dy_dtype == kBF16)
+    return tgmm_out<float, bf16>(p, out_dtype, st);
+  if (lhs_dtype == kBF16 && dy_dtype == kF32)
+    return tgmm_out<bf16, float>(p, out_dtype, st);
+  return tgmm_out<bf16, bf16>(p, out_dtype, st);
+}

@@ -1,0 +1,285 @@
+"""Grouped (ragged) matmul: the expert-compute primitive of dropless MoE.
+
+Counterpart of ``distributed_training_guide_tpu/ops/grouped_matmul.py``.
+``grouped_matmul(lhs [M, K], rhs [G, K, N], group_sizes [G]) -> [M, N]``
+multiplies row block ``g`` of ``lhs`` (rows ``offs[g]:offs[g+1]``, where
+``offs = cumsum(group_sizes)``) by ``rhs[g]``, summing in fp32. Rows at or
+past ``sum(group_sizes)`` come out 0 and get a zero gradient; an empty
+group gets a zero ``rhs`` gradient.
+
+The JAX package's two Pallas kernels are rewritten here in CUDA for
+``sm_90a`` (``csrc/grouped_matmul.cu``; design and bound in its header):
+``_gmm_kernel`` (K5) as ``gmm`` and ``_tgmm_kernel`` (K6) as ``tgmm``. The
+TPU's (group, row tile) work list, which exists because its grid runs in
+order, has no counterpart: every CUDA block finds its groups itself. Each
+wrapper launches its kernel for CUDA tensors, or raises, and runs its plain
+version (``gmm_reference``, the JAX ``_gmm_scan``; ``tgmm_reference``) for
+CPU tensors, which is the one reason it ever takes it. ``GMM_LAUNCHES`` and
+``TGMM_LAUNCHES`` count launches.
+
+``impl``: "auto" (or the JAX name "pallas") is the autograd Function over
+the two wrappers, whose backward does what the JAX custom_vjp does, in
+fp32: ``d_lhs = gmm(dy, rhs^T)`` and ``d_rhs = tgmm(lhs, dy)``. "scan" and
+"einsum" are the JAX package's plain formulations, differentiated by torch
+autograd. "ragged" (``jax.lax.ragged_dot``, an XLA op) has no
+counterpart.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .matmul import matmul_f32_out
+
+GMM_LAUNCHES = 0    # K5 launches since the caller last reset it
+TGMM_LAUNCHES = 0   # K6
+MAX_GROUPS = 1024   # the kernels' shared-memory offset table
+IMPLS = ("auto", "pallas", "scan", "einsum")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fns: dict = {}
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an fp32 result from the fp32 accumulator (the JAX
+    ``preferred_element_type=float32``)."""
+    if a.dtype == b.dtype:
+        return matmul_f32_out(a, b)
+    return a.float() @ b.float()
+
+
+def _row_masks(group_sizes: torch.Tensor, m: int):
+    """(rows [M], starts [G], ends [G]) on the device, no host read."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(m, device=group_sizes.device)
+    return rows, ends - group_sizes.to(torch.int64), ends
+
+
+def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                  group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The plain version of K5, the JAX ``_gmm_scan``: for each group, mask
+    the rows to its range, one dense product with the fp32 accumulator,
+    accumulate. O(G) more operations than the kernel, O(M (K + N))
+    memory."""
+    rows, starts, ends = _row_masks(group_sizes, lhs.shape[0])
+    acc = torch.zeros(lhs.shape[0], rhs.shape[2], dtype=torch.float32,
+                      device=lhs.device)
+    for g in range(rhs.shape[0]):
+        mask = (rows >= starts[g]) & (rows < ends[g])
+        acc = acc + _mm_f32(torch.where(mask[:, None], lhs, 0), rhs[g])
+    return acc.to(out_dtype)
+
+
+def tgmm_reference(lhs: torch.Tensor, dy: torch.Tensor,
+                   group_sizes: torch.Tensor, num_groups: int,
+                   out_dtype) -> torch.Tensor:
+    """The plain version of K6: ``d_rhs[g] = lhs_g^T @ dy_g`` per group
+    through a row mask, fp32 sums -> [G, K, N] in ``out_dtype``."""
+    rows, starts, ends = _row_masks(group_sizes, lhs.shape[0])
+    out = torch.empty(num_groups, lhs.shape[1], dy.shape[1],
+                      dtype=out_dtype, device=lhs.device)
+    for g in range(num_groups):
+        mask = (rows >= starts[g]) & (rows < ends[g])
+        out[g] = _mm_f32(torch.where(mask[:, None], lhs, 0).T,
+                         dy).to(out_dtype)
+    return out
+
+
+def _segments(group_sizes: torch.Tensor, m: int, g: int) -> torch.Tensor:
+    """[M, G] one-hot of each row's group; tail rows get an all-zero row."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    seg = torch.searchsorted(ends, torch.arange(m, device=ends.device),
+                             right=True)
+    return torch.nn.functional.one_hot(seg, g + 1)[:, :g]
+
+
+def gmm_einsum(lhs, rhs, group_sizes, out_dtype) -> torch.Tensor:
+    """The JAX ``_gmm_einsum``: segment one-hot masked einsum, O(G) more
+    operations than ideal, in fp32."""
+    onehot = _segments(group_sizes, lhs.shape[0], rhs.shape[0]).float()
+    return torch.einsum("mk,mg,gkn->mn", lhs.float(), onehot,
+                        rhs.float()).to(out_dtype)
+
+
+def tgmm_einsum(lhs, dy, group_sizes, num_groups, out_dtype) -> torch.Tensor:
+    """The JAX ``_tgmm_einsum``: ``d_rhs[g] = lhs_g^T @ dy_g`` ->
+    [G, K, N] through the one-hot, in fp32."""
+    onehot = _segments(group_sizes, lhs.shape[0], num_groups).float()
+    return torch.einsum("mg,mk,mn->gkn", onehot, lhs.float(),
+                        dy.float()).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _kernel(name: str):
+    """The ctypes function of ``gmm`` or ``tgmm``, built on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = getattr(_build.load("grouped_matmul"), name)
+        if name == "gmm":
+            fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64, ptr] + [i32] * 3 + [ptr]
+        else:
+            fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 2 + [i32] * 3 + [ptr]
+        fn.restype = i32
+        _fns[name] = fn
+    return fn
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"grouped_matmul: {msg}")
+
+
+def _check_operands(a, b, group_sizes, out_dtype) -> None:
+    _check(a.is_cuda, f"lhs lies on {a.device}, not a CUDA device")
+    for x in (b, group_sizes):
+        _check(x.device == a.device, f"operand on {x.device}, lhs on "
+               f"{a.device}")
+    for x in (a, b):
+        _check(x.dtype in _DTYPE_CODE, f"dtype {x.dtype} (fp32 or bf16)")
+    _check(out_dtype in _DTYPE_CODE, f"output dtype {out_dtype} (fp32 or "
+           f"bf16)")
+    _check(group_sizes.dtype == torch.int32 and group_sizes.ndim == 1,
+           f"group_sizes must be int32 [G], got {group_sizes.dtype} "
+           f"{tuple(group_sizes.shape)}")
+    _check(group_sizes.shape[0] <= MAX_GROUPS, f"{group_sizes.shape[0]} "
+           f"groups; the kernels take at most {MAX_GROUPS}")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_gmm(fn, lhs, rhs, group_sizes, out_dtype) -> torch.Tensor:
+    m, k = lhs.shape
+    g, _, n = rhs.shape
+    out = torch.empty(m, n, dtype=out_dtype, device=lhs.device)
+    strides = (ctypes.c_longlong * 3)(*rhs.stride())
+    rc = fn(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), m, k, n, g, lhs.stride(0), strides,
+            _DTYPE_CODE[lhs.dtype], _DTYPE_CODE[rhs.dtype],
+            _DTYPE_CODE[out_dtype], _stream(lhs))
+    if rc != 0:
+        raise RuntimeError(f"gmm kernel launch failed (code {rc}) at lhs "
+                           f"{tuple(lhs.shape)} {lhs.dtype}, rhs "
+                           f"{tuple(rhs.shape)} {rhs.dtype}")
+    return out
+
+
+def _launch_tgmm(fn, lhs, dy, group_sizes, num_groups,
+                 out_dtype) -> torch.Tensor:
+    m, k = lhs.shape
+    n = dy.shape[1]
+    out = torch.empty(num_groups, k, n, dtype=out_dtype, device=lhs.device)
+    rc = fn(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), m, k, n, num_groups, lhs.stride(0), dy.stride(0),
+            _DTYPE_CODE[lhs.dtype], _DTYPE_CODE[dy.dtype],
+            _DTYPE_CODE[out_dtype], _stream(lhs))
+    if rc != 0:
+        raise RuntimeError(f"tgmm kernel launch failed (code {rc}) at lhs "
+                           f"{tuple(lhs.shape)} {lhs.dtype}, dy "
+                           f"{tuple(dy.shape)} {dy.dtype}")
+    return out
+
+
+def _unit_columns(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+        out_dtype=None) -> torch.Tensor:
+    """K5: ``out [M, N]`` in ``out_dtype`` (default the promoted input
+    dtype), rows past ``sum(group_sizes)`` zero. ``rhs`` may be any strided
+    view of [G, K, N] (the backward passes ``rhs^T``)."""
+    global GMM_LAUNCHES
+    out_dtype = out_dtype or torch.promote_types(lhs.dtype, rhs.dtype)
+    if lhs.device.type == "cpu":
+        return gmm_reference(lhs, rhs, group_sizes, out_dtype)
+    group_sizes = group_sizes.to(torch.int32)
+    _check_operands(lhs, rhs, group_sizes, out_dtype)
+    out = _launch_gmm(_kernel("gmm"), _unit_columns(lhs), rhs,
+                      group_sizes.contiguous(), out_dtype)
+    GMM_LAUNCHES += 1
+    return out
+
+
+def tgmm(lhs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
+         num_groups: int, out_dtype) -> torch.Tensor:
+    """K6: ``d_rhs [G, K, N] = lhs_g^T @ dy_g`` in ``out_dtype``, zeros for
+    empty groups, rows past ``sum(group_sizes)`` ignored."""
+    global TGMM_LAUNCHES
+    if lhs.device.type == "cpu":
+        return tgmm_reference(lhs, dy, group_sizes, num_groups, out_dtype)
+    group_sizes = group_sizes.to(torch.int32)
+    _check_operands(lhs, dy, group_sizes, out_dtype)
+    _check(dy.shape[0] == lhs.shape[0], f"dy {tuple(dy.shape)} and lhs "
+           f"{tuple(lhs.shape)} differ in rows")
+    out = _launch_tgmm(_kernel("tgmm"), _unit_columns(lhs), _unit_columns(dy),
+                       group_sizes.contiguous(), num_groups, out_dtype)
+    TGMM_LAUNCHES += 1
+    return out
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """Forward K5; backward the JAX ``_pallas_gmm_bwd`` in fp32: d_lhs from
+    K5 against ``rhs^T`` (read through strides, converted as the kernel
+    loads it) in lhs's dtype, d_rhs from K6 in rhs's dtype."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return gmm(lhs, rhs, group_sizes, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        dy = dy.float()
+        on_cpu = dy.device.type == "cpu"
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            rt = rhs.transpose(1, 2)
+            dlhs = gmm(dy, rt.float() if on_cpu else rt, group_sizes,
+                       lhs.dtype)
+        if ctx.needs_input_grad[1]:
+            drhs = tgmm(lhs.float() if on_cpu else lhs, dy, group_sizes,
+                        rhs.shape[0], rhs.dtype)
+        return dlhs, drhs, None, None
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: torch.Tensor, *, impl: str = "auto",
+                   preferred_element_type=None) -> torch.Tensor:
+    """Ragged grouped GEMM over a group-sorted row buffer -> [M, N].
+
+    ``impl``: "auto" / "pallas" (K5 and K6 through the autograd Function:
+    the kernels for CUDA tensors, their plain versions for CPU tensors),
+    "scan" (masked group loop) or "einsum" (masked one-hot).
+    Rows at index >= ``sum(group_sizes)`` yield zeros and propagate zero
+    gradient."""
+    if lhs.ndim != 2 or rhs.ndim != 3 or group_sizes.ndim != 1:
+        raise ValueError(f"grouped_matmul expects lhs [M,K], rhs [G,K,N], "
+                         f"group_sizes [G]; got {tuple(lhs.shape)}, "
+                         f"{tuple(rhs.shape)}, {tuple(group_sizes.shape)}")
+    if lhs.shape[1] != rhs.shape[1] or rhs.shape[0] != group_sizes.shape[0]:
+        raise ValueError(f"grouped_matmul shape mismatch: lhs "
+                         f"{tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
+                         f"group_sizes {tuple(group_sizes.shape)}")
+    if impl == "ragged":
+        raise ValueError("impl='ragged' is jax.lax.ragged_dot, an XLA op "
+                         "with no counterpart in the PyTorch package; use "
+                         "'auto' (the CUDA kernels) or 'scan'")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown grouped_matmul impl {impl!r}; use one of "
+                         f"{IMPLS}")
+    out_dtype = preferred_element_type or torch.promote_types(lhs.dtype,
+                                                              rhs.dtype)
+    group_sizes = group_sizes.to(torch.int32)
+    if impl == "scan":
+        return gmm_reference(lhs, rhs, group_sizes, out_dtype)
+    if impl == "einsum":
+        return gmm_einsum(lhs, rhs, group_sizes, out_dtype)
+    return _GroupedMatmul.apply(lhs, rhs, group_sizes, out_dtype)

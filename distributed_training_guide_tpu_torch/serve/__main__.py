@@ -6,9 +6,12 @@ continuous-batching paged-KV engine, on the card by default.
         --steps 16 --n-slots 4                    # cuda
     python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
         --prompt-ids 3,17,42 --device cpu         # the plain CPU path
+    python -m distributed_training_guide_tpu_torch.serve -m qwen3-30b-a3b \\
+        --dtype bfloat16 --prompt-ids 3,17,42     # MoE: K4 and K5
 
-The model is built in fp32 from a random init of ``--seed`` (as the JAX
-package's CLI does).
+The model is built from a random init of ``--seed``, in fp32 by default
+(as the JAX package's CLI does); ``--dtype bfloat16`` keeps params and
+compute in bf16, which a 30B model needs to fit one card.
 """
 from __future__ import annotations
 
@@ -57,6 +60,9 @@ def main(argv=None) -> None:
                         help="paged attend family: the CUDA kernel "
                         "('flash'/'auto') or the gather path ('xla', "
                         "--device cpu only)")
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="params and compute dtype (default float32)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the engine runs (default cuda; cpu runs "
                         "the plain PyTorch path)")
@@ -69,7 +75,8 @@ def main(argv=None) -> None:
     from .engine import ServeEngine
     from .scheduler import Request
 
-    bundle = get_model(args.model_name, dtype=torch.float32)
+    dtype = getattr(torch, args.dtype)
+    bundle = get_model(args.model_name, dtype=dtype, param_dtype=dtype)
     params = bundle.init(bundle.config, args.seed, device=args.device)
     engine = ServeEngine(
         bundle, params, n_slots=args.n_slots, page_size=args.page_size,

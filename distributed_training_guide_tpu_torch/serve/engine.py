@@ -408,7 +408,8 @@ class ModelPrograms:
 
 
 class ServeEngine:
-    """Multi-request generation over the llama family's paged decode.
+    """Multi-request generation over a model family's paged decode (the
+    llama and moe families).
 
     Drive it through ``serve/api.py`` (``generate_many``) or directly:
     ``submit(Request(...))`` then ``step()`` in a loop — each step is one

@@ -3,7 +3,8 @@
 Counterpart of ``distributed_training_guide_tpu/train/cli.py``: the same
 flag surface and defaults (plus ``--device``), the same host state,
 fence-every banking of the per-step loss, ``log_freq`` info dict
-(running_loss, grad_norm, tokens_per_s, mfu, time/*, memory),
+(running_loss, grad_norm, tokens_per_s, mfu, time/*, memory, and
+``moe_dropped_frac`` for MoE models),
 ``--max-steps``, ``--steps-per-epoch`` and ``--profile-dir`` (a
 ``torch.profiler`` trace of steps 10-15). A flag whose feature a later
 slice ports raises ``NotImplementedError`` naming its ROADMAP.md item when
@@ -29,7 +30,6 @@ _UNPORTED_FLAGS = {
     "preflight": (False, "'Chapter 05 recipe and conversion'"),
     "overlap_schedule": (False,
                          "'Context parallel, pipeline parallel and overlap'"),
-    "moe_dispatch": (None, "'MoE'"),
     "param_dtype": ("float32", "'Remat policies, precision and optimizers'"),
 }
 
@@ -100,7 +100,12 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lora-alpha", default=16.0, type=float)
     parser.add_argument("--lora-targets", default="wq,wv")
     parser.add_argument("--moe-dispatch", default=None,
-                        choices=["dense", "ragged"])
+                        choices=["dense", "ragged"],
+                        help="MoE expert dispatch (MoE models only): dense = "
+                             "[E, C, D] capacity buffers, overflow drops to "
+                             "the residual; ragged = dropless sort + grouped "
+                             "GEMMs (the K5/K6 kernels on the card). Default: "
+                             "the config's (dense)")
     parser.add_argument("--checkpoint-full-crc", action="store_true")
     parser.add_argument("--sliding-window", default=None, type=int,
                         metavar="W",
@@ -161,10 +166,12 @@ def _profiler(device):
     return profile(activities=activities)
 
 
-def run_training(args, *, device=None, extra_log: Optional[dict] = None
-                 ) -> dict:
+def run_training(args, *, device=None, extra_log: Optional[dict] = None,
+                 model_overrides: Optional[dict] = None) -> dict:
     """The chapter-01 training loop. Returns the host state, the last info
-    dict, the state, and every logged info dict (for tests)."""
+    dict, the state, and every logged info dict (for tests).
+    ``model_overrides`` replaces config fields of the preset (e.g.
+    ``num_layers`` to cut depth)."""
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
@@ -185,10 +192,19 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None
                             else getattr(args, "device", None))
     init_logging()
     LOGGER.info(vars(args))
-    overrides = {}
+    overrides = dict(model_overrides or {})
     if getattr(args, "sliding_window", None):
         overrides["sliding_window"] = args.sliding_window
-    bundle = get_model(args.model_name, **overrides)
+    if getattr(args, "moe_dispatch", None):
+        overrides["moe_dispatch"] = args.moe_dispatch
+    try:
+        bundle = get_model(args.model_name, **overrides)
+    except TypeError as exc:
+        if "moe_dispatch" in overrides:
+            raise SystemExit(
+                f"--moe-dispatch is only valid for MoE models; "
+                f"{args.model_name!r} rejected it ({exc})")
+        raise
     cfg = bundle.config
     LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
                 f"{device} strategy=single")

@@ -6,7 +6,9 @@ eager PyTorch: forward (bf16 compute from fp32 params; attention through
 the flash kernels on the card), backward, the fp32 grad norm, the guard,
 then AdamW and its schedule, updating the state in place. Gradient
 accumulation sums the microbatch grads into the fp32 ``.grad`` buffers
-and divides by ``grad_accum``, as the JAX scan does.
+and divides by ``grad_accum``, as the JAX scan does. A model with
+``apply_with_aux`` (MoE) trains on ``ce + router_aux_coef * aux`` and
+reports the router's ``moe_dropped_frac``, averaged over microbatches.
 """
 from __future__ import annotations
 
@@ -16,8 +18,7 @@ from typing import Any, Callable
 import torch
 
 from .._device import resolve_device
-from ..models import llama
-from ..models.registry import ModelBundle
+from ..models.registry import ModelBundle, family_module
 from ..ops.cross_entropy import causal_lm_loss, chunked_causal_lm_loss
 from .guards import apply_step_guard, validate_guard_policy
 from .precision import resolve_policy
@@ -117,17 +118,29 @@ class Trainer:
             seed)
 
     # ---- the step ----------------------------------------------------------
-    def _loss(self, params, mb: dict) -> torch.Tensor:
+    def _loss(self, params, mb: dict) -> tuple:
+        """(loss, extra metrics) of one microbatch; the extras are
+        detached fp32 scalars."""
         cfg = self.bundle.config
-        out = self.bundle.apply(
-            cfg, params, mb["input_ids"], positions=mb.get("positions"),
-            remat=self.remat, remat_policy=self.remat_policy,
-            attn_impl=self.attn_impl, return_hidden=self.loss_chunks > 0)
+        kw = dict(positions=mb.get("positions"), remat=self.remat,
+                  remat_policy=self.remat_policy, attn_impl=self.attn_impl,
+                  return_hidden=self.loss_chunks > 0)
+        extras, aux_loss = {}, None
+        if self.bundle.apply_with_aux is not None:
+            out, aux, extras = self.bundle.apply_with_aux(
+                cfg, params, mb["input_ids"], return_metrics=True, **kw)
+            aux_loss = getattr(cfg, "router_aux_coef", 0.0) * aux
+            extras = {k: v.detach() for k, v in extras.items()}
+        else:
+            out = self.bundle.apply(cfg, params, mb["input_ids"], **kw)
         if self.loss_chunks > 0:
-            return chunked_causal_lm_loss(
-                out, llama.output_weights(cfg, params), mb["labels"],
-                num_chunks=self.loss_chunks)
-        return self.loss_fn(out, mb["labels"])
+            w_out = family_module(self.bundle.family).output_weights(cfg,
+                                                                     params)
+            loss = chunked_causal_lm_loss(out, w_out, mb["labels"],
+                                          num_chunks=self.loss_chunks)
+        else:
+            loss = self.loss_fn(out, mb["labels"])
+        return (loss if aux_loss is None else loss + aux_loss), extras
 
     def step_fn(self, state: TrainState, batch: dict) -> tuple:
         """One optimizer step on ``batch`` ({"input_ids", "labels"}
@@ -138,16 +151,19 @@ class Trainer:
         state.opt_state.optimizer.zero_grad(set_to_none=True)
         if self.grad_accum > 1:
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            extras = {}
             for a in range(self.grad_accum):
-                mb_loss = self._loss(state.params,
-                                     {k: v[a] for k, v in batch.items()})
+                mb_loss, mb_extras = self._loss(
+                    state.params, {k: v[a] for k, v in batch.items()})
                 mb_loss.backward()
                 loss = loss + mb_loss.detach()
+                for k, v in mb_extras.items():
+                    extras[k] = extras.get(k, 0.0) + v / self.grad_accum
             loss = loss / self.grad_accum
             grads = [p.grad for p in leaves]
             torch._foreach_div_(grads, float(self.grad_accum))
         else:
-            loss = self._loss(state.params, batch)
+            loss, extras = self._loss(state.params, batch)
             loss.backward()
             loss = loss.detach()
             grads = [p.grad for p in leaves]
@@ -155,6 +171,7 @@ class Trainer:
             "loss": loss.to(torch.float32),
             "grad_norm": torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads))),
+            **{k: v.to(torch.float32) for k, v in extras.items()},
         }
         apply_update = True
         if self.guard_policy != "off":

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the paged
-attend (K4) and the flash forward and backward (K1-K3). Marked ``gpu``:
+attend (K4), the flash forward and backward (K1-K3) and the grouped
+matmul and its transposed form (K5, K6). Marked ``gpu``:
 the ``cuda`` fixture decides whether a card is present (never at import
 time, so every test worker collects the same tests) and skips without
 one. Run on a machine with the card (``--noconftest``: the suite's
@@ -14,6 +15,7 @@ import torch
 
 from distributed_training_guide_tpu_torch.models import get_model
 from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 from distributed_training_guide_tpu_torch.ops import paged_decode as pd
 from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
                                                         generate_many)
@@ -250,3 +252,212 @@ def test_trainer_on_card_matches_cpu(cuda):
     for g, c in zip(out["cuda"], out["cpu"]):
         for key in ("loss", "grad_norm"):
             assert abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), (key, g, c)
+
+
+# grouped matmul: fp32 against the fp32 plain version (summation order
+# only), max abs error within 1e-5 of the output's largest magnitude; bf16
+# operands: both sides sum exact fp32 products in fp32 and round the result
+# once, so the relative L2 error is about half a bf16 ulp (2e-3); bound
+# 1e-2. (m, k, n, sizes): the decode shape of a 128-expert top-8 model at
+# small widths, the large-tile body with widths off the tiles, an empty
+# input, a tail, one group taking all rows
+GMM_CASES = [
+    ("decode", 64, 256, 192, [1 if i % 2 else 0 for i in range(128)]),
+    ("ragged", 300, 100, 72, [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]),
+    ("large", 1000, 128, 256, [100] * 10),
+    ("all-empty", 96, 64, 64, [0, 0, 0, 0]),
+    ("tail", 520, 64, 136, [7, 200, 0, 13]),
+    ("one-group", 260, 48, 40, [260, 0, 0]),
+]
+GMM_GRID = [(c, dt) for c in GMM_CASES for dt in ("fp32", "bf16")]
+
+
+def _gmm_inputs(dev, gen, m, k, n, sizes, dtype):
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    lhs = torch.randn(m, k, generator=gen, device=dev).to(dt)
+    rhs = torch.randn(len(sizes), k, n, generator=gen, device=dev).to(dt)
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def _gmm_err(got, want, dtype):
+    diff = got.float() - want.float()
+    if dtype == "fp32":
+        return (diff.abs().max() / want.abs().max().clamp_min(1e-30)).item(), 1e-5
+    return (diff.norm() / want.float().norm().clamp_min(1e-30)).item(), 1e-2
+
+
+@pytest.mark.parametrize("case,dtype", GMM_GRID,
+                         ids=[f"{c[0]}-{d}" for c, d in GMM_GRID])
+def test_gmm_kernel_matches_plain_version(cuda, case, dtype):
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    lhs, rhs, sz = _gmm_inputs(cuda, gen, m, k, n, sizes, dtype)
+    for out_dtype in (None, torch.float32):
+        before = gm.GMM_LAUNCHES
+        got = gm.gmm(lhs, rhs, sz, out_dtype)
+        torch.cuda.synchronize()
+        assert gm.GMM_LAUNCHES == before + 1
+        want = gm.gmm_reference(lhs, rhs, sz, out_dtype or lhs.dtype)
+        assert got.dtype == want.dtype and got.shape == (m, n)
+        assert not got[sum(sizes):].any()
+        if sum(sizes):
+            err, bound = _gmm_err(got, want, dtype)
+            assert err <= bound, (name, out_dtype, err)
+
+
+@pytest.mark.parametrize("case", GMM_CASES, ids=[c[0] for c in GMM_CASES])
+def test_gmm_kernel_takes_transposed_bf16_rhs_in_fp32(cuda, case):
+    """The backward's form: fp32 dy against rhs^T, a strided view of a
+    bf16 [G, N, K] stack, converted as the kernel loads it."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(7 + m)
+    dy = torch.randn(m, n, generator=gen, device=cuda)
+    rhs = torch.randn(len(sizes), k, n, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    got = gm.gmm(dy, rhs.transpose(1, 2), sz, torch.float32)
+    want = gm.gmm_reference(dy, rhs.float().transpose(1, 2), sz,
+                            torch.float32)
+    if sum(sizes):
+        err, bound = _gmm_err(got, want, "fp32")
+        assert err <= bound, (name, err)
+
+
+@pytest.mark.parametrize("case,dtype", GMM_GRID,
+                         ids=[f"{c[0]}-{d}" for c, d in GMM_GRID])
+def test_tgmm_kernel_matches_plain_version(cuda, case, dtype):
+    """K6 with fp32 dy (the backward's), lhs in fp32 or bf16, output in
+    lhs's dtype; empty groups exactly zero."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(3 * m + n)
+    lhs, _, sz = _gmm_inputs(cuda, gen, m, k, n, sizes, dtype)
+    dy = torch.randn(m, n, generator=gen, device=cuda)
+    before = gm.TGMM_LAUNCHES
+    got = gm.tgmm(lhs, dy, sz, len(sizes), lhs.dtype)
+    torch.cuda.synchronize()
+    assert gm.TGMM_LAUNCHES == before + 1
+    want = gm.tgmm_reference(lhs.float(), dy, sz, len(sizes), lhs.dtype)
+    assert got.dtype == want.dtype and got.shape == (len(sizes), k, n)
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert not got[g].any()
+    if sum(sizes):
+        err, bound = _gmm_err(got, want, "fp32")
+        # a bf16 output rounds once: half an ulp of 2**-8 relative
+        assert err <= (bound if dtype == "fp32" else 4e-3), (name, err)
+
+
+def test_gmm_rows_are_batch_invariant(cuda):
+    """A group's rows come out bitwise the same alone and beside other
+    groups' rows (decode-sized and prefill-sized M take different tile
+    bodies), in bf16 and fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for dtype in ("bf16", "fp32"):
+        lhs, rhs, _ = _gmm_inputs(cuda, gen, 1000, 256, 192, [0] * 8, dtype)
+        crowd = torch.tensor([100, 300, 0, 8, 200, 92, 150, 150],
+                             dtype=torch.int32, device=cuda)
+        full = gm.gmm(lhs, rhs, crowd)
+        start = 408                        # group 4's rows
+        alone = torch.zeros(8, dtype=torch.int32, device=cuda)
+        alone[4] = 8
+        few = gm.gmm(lhs[start:start + 8].contiguous(), rhs, alone)
+        assert torch.equal(few, full[start:start + 8]), dtype
+
+
+def test_grouped_matmul_autograd_matches_plain_autograd(cuda):
+    """The Function (K5 forward; K5 d_lhs and K6 d_rhs in fp32) against
+    torch autograd through the plain scan, fp32: output and grads within
+    1e-5 of their largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lhs, rhs, sz = _gmm_inputs(cuda, gen, 300, 100, 72,
+                               [40, 0, 77, 3, 0, 60, 1, 50, 0, 44], "fp32")
+    cot = torch.randn(300, 72, generator=gen, device=cuda)
+
+    def run(impl):
+        l, r = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        out = gm.grouped_matmul(l, r, sz, impl=impl)
+        torch.sum(out * cot).backward()
+        return out, l.grad, r.grad
+
+    before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    got = run("auto")
+    assert (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES) == (before[0] + 2,
+                                                   before[1] + 1)
+    want = run("scan")
+    for g, w in zip(got, want):
+        err, bound = _gmm_err(g, w, "fp32")
+        assert err <= bound, err
+    assert not got[1][int(sz.sum()):].any()
+
+
+def test_gmm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    lhs, rhs, sz = _gmm_inputs(cuda, gen, 16, 8, 8, [4, 4, 4, 4], "fp32")
+    with pytest.raises(ValueError, match="dtype"):
+        gm.gmm(lhs.half(), rhs.half(), sz)
+    with pytest.raises(ValueError, match="operand on"):
+        gm.gmm(lhs, rhs.cpu(), sz)
+    big = torch.zeros(gm.MAX_GROUPS + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="groups"):
+        gm.gmm(lhs, torch.zeros(gm.MAX_GROUPS + 1, 8, 8, device=cuda), big)
+
+
+def _moe_debug_hd64():
+    return get_model("moe-debug", dtype=torch.float32, hidden_size=256,
+                     num_heads=4, num_kv_heads=2, capacity_factor=4.0,
+                     moe_dispatch="ragged")
+
+
+def test_moe_engine_on_card_matches_cpu_engine_greedy(cuda):
+    """A head_dim-64 moe-debug variant in fp32: the engine on the card
+    (K4 attends, K5 expert products) emits the CPU engine's greedy tokens,
+    bucketed and chunked, with 3 K5 launches per layer per forward."""
+    bundle = _moe_debug_hd64()
+    params = bundle.init(bundle.config, 0, device="cpu")
+    reqs = [Request(prompt_ids=[3 + i, 17, 42, 7, 9][:1 + i % 5],
+                    max_new_tokens=6 + i % 4, seed=i) for i in range(6)]
+    for chunk in (None, 8):
+        kw = dict(n_slots=3, page_size=8, max_len=64, prefill_chunk=chunk)
+        before = gm.GMM_LAUNCHES
+        eng = ServeEngine(bundle, params, device=cuda, **kw)
+        gpu = generate_many(eng, reqs)
+        forwards = eng.decode_steps + eng.programs.prefill_calls
+        assert gm.GMM_LAUNCHES - before == 3 * 2 * forwards
+        cpu = generate_many(ServeEngine(bundle, params, device="cpu", **kw),
+                            reqs)
+        assert [r.token_ids for r in gpu] == [r.token_ids for r in cpu]
+
+
+def test_moe_trainer_on_card_matches_cpu(cuda):
+    """Three fp32 ragged-dispatch Trainer steps on the card (K1-K3, K5,
+    K6) against the CPU's (the plain versions): loss and grad norm within
+    1e-4 relative; per step 6 K5 and 3 K6 launches per layer."""
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = _moe_debug_hd64()
+    params = bundle.init(bundle.config, 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, 512, (2, 128), generator=gen)
+               for _ in range(3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        trainer = Trainer(bundle=bundle, optimizer=adamw_cosine(1e-3),
+                          attn_impl="flash", device=dev)
+        state = trainer.init_state_from_params(params, 0)
+        before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+        metrics = []
+        for ids in batches:
+            ids = ids.to(dev)
+            _, m = trainer.step_fn(state, {"input_ids": ids, "labels": ids})
+            metrics.append({k: v.item() for k, v in m.items()})
+        launched = (gm.GMM_LAUNCHES - before[0], gm.TGMM_LAUNCHES - before[1])
+        layers = bundle.config.num_layers
+        assert launched == ((18 * layers, 9 * layers) if dev.type == "cuda"
+                            else (0, 0))
+        out[dev.type] = metrics
+    for g, c in zip(out["cuda"], out["cpu"]):
+        for key in ("loss", "grad_norm"):
+            assert abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), (key, g, c)
+        assert g["moe_dropped_frac"] == 0.0
