@@ -58,7 +58,23 @@ phases, each of which raises on failure:
    pairs, exactly 6 K5, 3 K6 and 1 each of K1-K3 launches per layer per
    step, a profiled step, an fp32 2-layer step through the kernels against
    one through the plain grouped matmul, and 2 dense-dispatch steps that
-   launch no K5.
+   launch no K5;
+13. qmm — the block-dequant matmul of the int8 serve weights (K7)
+   against ``quantized_matmul_reference`` at llama-3.1-8b's projection and
+   head widths, M from 1 to 2048, block sizes 32, 128 and 24, a short last
+   block, fp32 and bf16 x, fp32 and bf16 outputs, and rows bitwise the
+   same whatever M;
+14. qmm timing — K7 and its plain version at the gate decode, head decode
+   and gate chunk shapes beside their bounds, with the bf16 ``torch.mm``
+   on the unquantized weight as a control the port never calls;
+15. int8 serve — ``ServeEngine(weight_dtype="int8")`` on llama-3.1-8b at
+   full width and depth (bf16 compute) with phase 7's traffic, bucketed
+   and chunked: exactly 225 K7 launches per forward and phase 7's K4
+   counts, batch invariance of a greedy request, the weight report
+   against the resident bytes, first-token logits against the plain
+   prefill over the snapped params (bf16 full depth; fp32 at 2 layers on
+   llama-3.1-8b and on llama-3.2-1b, whose tied head runs the plain
+   transpose form), and a torch.profiler breakdown of a decode step.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -412,7 +428,7 @@ def phase_serve(torch, card: str) -> dict:
                 per_step=bundle.config.num_layers)
 
 
-def profile_decode(torch, bundle, params, specs) -> dict:
+def profile_decode(torch, bundle, params, specs, **engine_kw) -> dict:
     """Device time of steady decode steps, by kernel, from torch.profiler:
     8 slots decoding at prompt lengths of the main run, 4 steps after
     every slot is admitted. Returns per-step device ms, the K4 share, the
@@ -423,7 +439,8 @@ def profile_decode(torch, bundle, params, specs) -> dict:
     from distributed_training_guide_tpu_torch.serve import (Request,
                                                             ServeEngine)
 
-    eng = ServeEngine(bundle, params, n_slots=8, page_size=16, max_len=4096)
+    eng = ServeEngine(bundle, params, n_slots=8, page_size=16, max_len=4096,
+                      **engine_kw)
     for r in specs:
         eng.submit(Request(**{**r, "max_new_tokens": 16}))
     eng.step()                       # admission + every prefill + 1 decode
@@ -448,6 +465,7 @@ def profile_decode(torch, bundle, params, specs) -> dict:
         return {"device_ms_per_step": "not measured"}
     k4 = sum(dev_us(e) for e in events if "paged_attend" in e.key) / 1e3
     k5 = sum(dev_us(e) for e in events if "gmm_" in e.key) / 1e3
+    k7 = sum(dev_us(e) for e in events if "qmm_" in e.key) / 1e3
     gemm = sum(dev_us(e) for e in events       # cuBLAS / cuBLASLt GEMMs
                if any(w in e.key.lower() for w in ("gemm", "nvjet", "xmma",
                                                    "cutlass"))) / 1e3
@@ -457,6 +475,7 @@ def profile_decode(torch, bundle, params, specs) -> dict:
            "device_ms_per_step": busy / steps,
            "paged_attend_ms_per_step": k4 / steps,
            "grouped_matmul_ms_per_step": k5 / steps,
+           "quantized_matmul_ms_per_step": k7 / steps,
            "gemm_ms_per_step": gemm / steps,
            "device_to_host_copies_per_step": dtoh / steps,
            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
@@ -1528,6 +1547,402 @@ def check_moe_fp32_train_step(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the block-dequant matmul (K7) against its plain version
+# ---------------------------------------------------------------------------
+
+# relative L2 error against the plain version: an fp32 output is the same
+# fp32 products summed in another order; a bf16 output rounds that fp32
+# sum once (half an ulp, 2**-9 relative)
+QMM_REL_L2 = {"fp32": 1e-5, "bf16": 1e-2}
+# llama-3.1-8b's widths: wq / wo, wk / wv, gate / up, down, the head
+QMM_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "gate": (4096, 14336),
+              "down": (14336, 4096), "head": (4096, 128256)}
+
+
+def qmm_weight(torch, gen, k, n, bs):
+    from distributed_training_guide_tpu_torch.train.precision import (
+        quantize_blockwise)
+
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+    return quantize_blockwise(w, block_size=bs)
+
+
+def qmm_cases():
+    """(shape name, K, N, bs, M list, x dtypes): every width at the engine's
+    block size over decode and prefill rows (the head only at the rows the
+    engine gives it), bs 128 and 24, a short last block with N % 4 != 0."""
+    rows = (1, 8, 37, 256, 2048)
+    out = [(name, k, n, 32, rows if name != "head" else (1, 8, 37),
+            ("bf16", "fp32") if name in ("wq", "down", "head") else ("bf16",))
+           for name, (k, n) in QMM_SHAPES.items()]
+    out += [("gate-bs128", 4096, 14336, 128, (8, 256), ("bf16",)),
+            ("wq-bs24", 4096, 4096, 24, (8, 37), ("bf16", "fp32")),
+            ("tail", 4096, 4096 + 17, 32, (8, 256), ("bf16", "fp32"))]
+    return out
+
+
+def phase_qmm(torch) -> float:
+    """Every case through K7 in both output dtypes; rows of M = 37 and
+    M = 2048 products against the M = 1 product of the same row, bitwise.
+    Returns the worst fp32-output max abs error."""
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    count = qm.LAUNCHES
+    worst, worst_rel, n_checks = 0.0, {"fp32": 0.0, "bf16": 0.0}, 0
+    for name, k, n, bs, rows, xdts in qmm_cases():
+        qt = qmm_weight(torch, gen, k, n, bs)
+        errs = {}
+        for xdt in xdts:
+            dt = torch.float32 if xdt == "fp32" else torch.bfloat16
+            for m in rows:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+                want = qm.quantized_matmul_reference(x, qt.q, qt.scale)
+                for odt in ("fp32", "bf16"):
+                    out_dtype = (torch.float32 if odt == "fp32"
+                                 else torch.bfloat16)
+                    before = qm.LAUNCHES
+                    got = qm.dequant_matmul(x, qt.q, qt.scale, out_dtype)
+                    torch.cuda.synchronize()
+                    check(qm.LAUNCHES == before + 1, f"qmm {name}: no launch")
+                    check(got.shape == (m, n) and got.dtype == out_dtype,
+                          f"qmm {name}: {got.shape} {got.dtype}")
+                    check(bool(torch.isfinite(got.float()).all()),
+                          f"qmm {name}: non-finite kernel output")
+                    err = rel_l2(got, want)
+                    check(err <= QMM_REL_L2[odt], f"qmm {name} M {m} x {xdt} "
+                          f"out {odt}: rel L2 {err} > {QMM_REL_L2[odt]}")
+                    errs[f"M{m}-x{xdt}-out{odt}"] = err
+                    worst_rel[odt] = max(worst_rel[odt], err)
+                    if odt == "fp32":
+                        worst = max(worst, (got - want).abs().max().item())
+                    n_checks += 1
+                    del got
+                if xdt == "bf16" and m in (37, 2048):
+                    full = qm.dequant_matmul(x, qt.q, qt.scale)
+                    for r in (0, m // 2, m - 1):
+                        one = qm.dequant_matmul(x[r:r + 1].contiguous(), qt.q,
+                                                qt.scale)
+                        check(torch.equal(one[0], full[r]), f"qmm {name}: "
+                              f"row {r} of M {m} differs from its M = 1 "
+                              f"product")
+                    errs[f"M{m}-rows-bitwise-as-M1"] = True
+                    del full, one
+                del x, want
+        log(phase="qmm", case=name, K=k, N=n, bs=bs,
+            splits=qm.kernel_splits(k, n), metric="rel_l2",
+            bound=QMM_REL_L2, **errs)
+        del qt
+        torch.cuda.empty_cache()
+    qm.LAUNCHES = count               # checking launches are not main path
+    log(phase="qmm", checks=n_checks, worst_fp32_max_abs=worst,
+        worst_rel_l2=worst_rel)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 14: K7 timing
+# ---------------------------------------------------------------------------
+
+def qmm_bound(m, k, n, bs, x_b, out_b) -> dict:
+    """q and its fp32 scales read once, x read once, out written once;
+    2 M K N fp32 operations."""
+    nb = -(-n // bs)
+    return _bound(k * n + k * nb * 4 + m * k * x_b + m * n * out_b,
+                  2 * m * k * n, "float32")
+
+
+def phase_qmm_timing(torch) -> dict:
+    """K7 at the main path's shapes: a gate/up projection of a decode step
+    (M 8) and of a 256-token chunk, bf16 x and output; the untied head of
+    a decode step (fp32 logits). Copies of the weight rotate so that the
+    weight comes from device memory, as it does in a forward, where each
+    layer has its own. The control is the bf16 ``torch.mm`` of the same x
+    against the unquantized bf16 weight: a yardstick of the unquantized
+    path, which the port does not call for int8 weights; no PyTorch call
+    computes K7's function (``library_ms`` null)."""
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    count = qm.LAUNCHES
+    out = {}
+    for name, m, (k, n), out_dtype, copies in (
+            ("gate-decode", 8, QMM_SHAPES["gate"], torch.bfloat16, 4),
+            ("head-decode", 8, QMM_SHAPES["head"], torch.float32, 1),
+            ("gate-chunk", 256, QMM_SHAPES["gate"], torch.bfloat16, 4)):
+        ws = [(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+              .to(torch.bfloat16) for _ in range(copies)]
+        qts = [qmm_weight(torch, gen, k, n, 32) for _ in range(copies)]
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        it = {"i": 0}
+
+        def nxt(seq):
+            it["i"] = (it["i"] + 1) % len(seq)
+            return seq[it["i"]]
+
+        def kern():
+            qt = nxt(qts)
+            return qm.dequant_matmul(x, qt.q, qt.scale, out_dtype)
+
+        iters = 50 if m <= 8 else 10
+        ms = cuda_ms(kern, iters=iters)
+        plain_ms = cuda_ms(lambda: qm.quantized_matmul_reference(
+            x, qts[0].q, qts[0].scale).to(out_dtype), iters=3, warmup=1)
+        control_ms = cuda_ms(lambda: x @ nxt(ws), iters=iters)
+        row = dict(kernel="quantized_matmul", shape=name, M=m, K=k, N=n,
+                   bs=32, dtype="bf16 x, " + ("bf16" if out_dtype ==
+                                              torch.bfloat16 else "fp32")
+                   + " out", splits=qm.kernel_splits(k, n), ms=ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   library_note="no PyTorch call computes a block-dequant "
+                   "matmul with per-(row, 32-column block) scales",
+                   control_ms=control_ms,
+                   control_note="bf16 torch.mm on the unquantized weight "
+                   "(cuBLAS), a control the port never calls",
+                   **qmm_bound(m, k, n, 32, 2, out_dtype.itemsize))
+        row["share_of_bound"] = row["bound_ms"] / ms
+        out[name] = row
+        log(phase="qmm_timing", **row)
+        del ws, qts, x
+        torch.cuda.empty_cache()
+    qm.LAUNCHES = count
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serving llama-3.1-8b with int8 weights
+# ---------------------------------------------------------------------------
+
+def snapped(torch, stored, dtype):
+    """Each quantized leaf replaced by its dequantized copy in ``dtype``."""
+    from distributed_training_guide_tpu_torch.train.precision import (
+        Quantized, dequantize_blockwise)
+
+    if isinstance(stored, dict):
+        return {k: snapped(torch, v, dtype) for k, v in stored.items()}
+    if not isinstance(stored, Quantized):
+        return stored
+    if stored.q.ndim < 3:
+        return dequantize_blockwise(stored, dtype)
+    out = torch.empty(stored.q.shape, dtype=dtype, device=stored.q.device)
+    for i in range(out.shape[0]):             # one layer's fp32 transient
+        out[i] = dequantize_blockwise(Quantized(q=stored.q[i],
+                                                scale=stored.scale[i]), dtype)
+    return out
+
+
+def phase_int8_serve(torch, card: str) -> dict:
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model, llama
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+    from distributed_training_guide_tpu_torch.serve import (
+        ModelPrograms, Request, ServeEngine, generate_many, throughput_stats)
+    from distributed_training_guide_tpu_torch.serve.engine import (
+        build_weight_report)
+    from distributed_training_guide_tpu_torch.serve.weights import (
+        params_nbytes)
+
+    t0 = time.perf_counter()
+    bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    cfg = bundle.config
+    layers = cfg.num_layers
+    params = bundle.init(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    per_forward = 7 * layers + 1
+    # the weights the engine keeps: the stored tree's own allocations
+    # (norms are shared with the bf16 params), against the report
+    base = torch.cuda.memory_allocated()
+    programs = ModelPrograms(bundle, params, weight_dtype="int8")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    stored = programs.params
+    leaves = []
+
+    def collect(tree):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            if isinstance(v, (dict, tuple)):
+                collect(v)
+            else:
+                leaves.append(v)
+
+    collect(stored)
+    storage = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+               for t in leaves}
+    shared = sum(t.element_size() * t.numel() for t in leaves
+                 if t.dtype != torch.int8 and t.dtype != torch.float32)
+    report = build_weight_report(programs)
+    wbytes = report["weight_bytes"]
+    check(sum(storage.values()) == wbytes == params_nbytes(stored),
+          f"int8: weight_report {wbytes} B, resident storages "
+          f"{sum(storage.values())} B")
+    # the caching allocator rounds each allocation up to 512 bytes
+    check(abs(grown - (wbytes - shared)) <= 512 * len(leaves) + 2 ** 20,
+          f"int8: the stored weights allocated {grown} B, the report says "
+          f"{wbytes} B ({shared} B of norms shared)")
+    log(phase="int8_serve", model="llama-3.1-8b", layers=layers,
+        init_and_quantize_s=time.perf_counter() - t0, weight_report=report,
+        allocated_by_store=grown, norm_bytes_shared=shared)
+    del programs
+    specs = serve_specs(np, cfg.vocab_size)
+    common = dict(n_slots=8, page_size=16, max_len=4096, weight_dtype="int8")
+    results, first = {}, {}
+    qm.LAUNCHES = pd.LAUNCHES = 0             # the main path starts here
+    for mode, chunk in (("bucketed", None), ("chunked", 256)):
+        logits: dict = {}
+        eng = recording_engine(logits)(bundle, params, prefill_chunk=chunk,
+                                       **common)
+        torch.cuda.reset_peak_memory_stats()
+        k7, k4 = qm.LAUNCHES, pd.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = generate_many(eng, [Request(**r) for r in specs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k7, k4 = qm.LAUNCHES - k7, pd.LAUNCHES - k4
+        for r in res:
+            check(r.finish_reason == "length" and len(r.generated_ids) == 32,
+                  f"int8 {mode}: request {r.request_id} ended "
+                  f"{r.finish_reason} after {len(r.generated_ids)} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in r.generated_ids),
+                  f"int8 {mode}: token id out of range")
+        forwards = eng.decode_steps + eng.programs.prefill_calls
+        check(k7 == per_forward * forwards and eng.decode_steps > 0,
+              f"int8 {mode}: {k7} K7 launches for {forwards} forwards "
+              f"(want {per_forward} each)")
+        want_k4 = layers * (eng.decode_steps
+                            + (eng.programs.prefill_calls if chunk else 0))
+        check(k4 == want_k4, f"int8 {mode}: {k4} K4 launches, want {want_k4}")
+        check(eng.weight_report() == report, f"int8 {mode}: weight report")
+        stats = throughput_stats(res, wall, eng)
+        results[mode] = dict(res=res, k7=k7, k4=k4)
+        first[mode] = logits[res[1].request_id]
+        log(phase="int8_serve", mode=mode, card=card, wall_s=wall,
+            tokens_per_s=stats["tokens_per_s"],
+            ttft_s_p50=stats["ttft_s_p50"],
+            latency_s_p50=stats["latency_s_p50"],
+            itl_s_avg=eng.stats()["itl_s_avg"],
+            decode_steps=eng.decode_steps,
+            prefill_forwards=eng.programs.prefill_calls,
+            k7_launches=k7, k7_per_forward=k7 / forwards, k4_launches=k4,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del eng
+        torch.cuda.empty_cache()
+    main_path = (qm.LAUNCHES, pd.LAUNCHES)    # ... and ends here
+
+    alone = generate_many(ServeEngine(bundle, params, **common),
+                          [Request(**specs[0])])[0]
+    check(alone.token_ids == results["bucketed"]["res"][0].token_ids,
+          "int8 greedy request 0: alone and co-batched tokens differ")
+    agree = sum(a.token_ids == b.token_ids
+                for a, b in zip(results["bucketed"]["res"],
+                                results["chunked"]["res"]))
+    log(phase="int8_serve", greedy_alone_equals_cobatched=True,
+        requests_identical_bucketed_vs_chunked=agree, of=len(specs))
+    del results
+    torch.cuda.empty_cache()
+
+    # the 2000-token prompt's first-token logits against the plain prefill
+    # over the snapped params (no K7), and (ungated) against bf16 weights
+    ids = torch.tensor([specs[1]["prompt_ids"]], device="cuda")
+
+    def plain_prefill(p):
+        cache = llama.init_cache(cfg, 1, ids.shape[1], device="cuda")
+        return llama.prefill(cfg, p, ids, cache)[0][0].float()
+
+    before = qm.LAUNCHES
+    snap = snapped(torch, stored, cfg.dtype)
+    ref = plain_prefill(snap)
+    del snap
+    check(qm.LAUNCHES == before, "the snapped plain prefill launched K7")
+    bf16_ref = plain_prefill(params)
+    for mode, got in first.items():
+        check(bool(torch.isfinite(got).all()) and got.shape == (
+            cfg.vocab_size,), f"int8 {mode} first-token logits")
+        rel = rel_l2(got, ref)
+        log(phase="int8_serve", check=f"first-token logits, {mode} vs plain "
+            f"prefill over the snapped params, bf16 full depth",
+            prompt_tokens=ids.shape[1], rel_l2=rel, bound=LOGIT_REL_L2_BF16,
+            max_abs=(got - ref).abs().max().item(),
+            argmax_equal=bool(got.argmax() == ref.argmax()),
+            int8_vs_bf16_weights_rel_l2=rel_l2(got, bf16_ref),
+            int8_vs_bf16_weights_argmax_equal=bool(
+                got.argmax() == bf16_ref.argmax()))
+        check(rel <= LOGIT_REL_L2_BF16, f"int8 {mode} first-token logits "
+              f"rel L2 {rel} > {LOGIT_REL_L2_BF16}")
+    del ref, bf16_ref, first, stored
+    torch.cuda.empty_cache()
+    profile = profile_decode(torch, bundle, params, specs,
+                             weight_dtype="int8")
+    log(phase="int8_serve", profile="decode step, bucketed engine, 8 slots, "
+        "int8 weights", card=card, **profile)
+    del params
+    torch.cuda.empty_cache()
+    prompt = specs[1]["prompt_ids"]
+    check_int8_fp32_path(torch, "llama-3.1-8b", prompt)
+    check_int8_fp32_path(torch, "llama-3.2-1b", prompt)
+    return dict(launches=main_path[0], k4_launches=main_path[1],
+                per_forward=per_forward, profile=profile)
+
+
+def check_int8_fp32_path(torch, model: str, prompt) -> None:
+    """A model at full width cut to 2 layers, fp32, int8 weights: the
+    engine's first-token logits, bucketed (K7 in every projection) and
+    chunked (K7 and K4), against the plain prefill over the snapped
+    params. In fp32 only the summation order differs. llama-3.1-8b's head
+    is a standard-form product through K7; llama-3.2-1b's tied head runs
+    the plain transpose form on the card."""
+    from distributed_training_guide_tpu_torch.models import get_model, llama
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            generate_many)
+
+    bundle = get_model(model, dtype=torch.float32, param_dtype=torch.float32,
+                       num_layers=2)
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED + 1, device="cuda")
+    per_forward = 7 * 2 + (0 if cfg.tie_word_embeddings else 1)
+    logits: dict = {}
+    errs = {}
+    ref = None
+    for mode, chunk in (("bucketed", None), ("chunked", 256)):
+        eng = recording_engine(logits)(bundle, params, n_slots=1,
+                                       page_size=16, max_len=4096,
+                                       prefill_chunk=chunk,
+                                       weight_dtype="int8")
+        before = qm.LAUNCHES
+        rid = generate_many(eng, [Request(prompt_ids=prompt,
+                                          max_new_tokens=1)])[0].request_id
+        forwards = eng.programs.prefill_calls + eng.decode_steps
+        check(qm.LAUNCHES - before == per_forward * forwards,
+              f"{model} fp32 int8 {mode}: K7 launches")
+        if ref is None:
+            ids = torch.tensor([prompt], device="cuda")
+            cache = llama.init_cache(cfg, 1, ids.shape[1], device="cuda")
+            before = qm.LAUNCHES
+            ref = llama.prefill(cfg, snapped(torch, eng.params, torch.float32),
+                                ids, cache)[0][0].float()
+            check(qm.LAUNCHES == before, "the snapped prefill launched K7")
+            del cache
+        got = logits[rid]
+        check(bool(torch.isfinite(got).all()), f"{model} fp32 int8 logits")
+        errs[mode] = rel_l2(got, ref)
+        del eng
+        torch.cuda.empty_cache()
+    log(phase="int8_serve", check=f"first-token logits vs plain prefill over "
+        f"the snapped params, fp32, {model} full width, 2 layers, "
+        f"{'tied head (plain transpose form)' if cfg.tie_word_embeddings else 'head through K7'}",
+        prompt_tokens=len(prompt), rel_l2=errs, bound=LOGIT_REL_L2_FP32)
+    for mode, rel in errs.items():
+        check(rel <= LOGIT_REL_L2_FP32, f"{model} fp32 int8 {mode} logits "
+              f"rel L2 {rel} > {LOGIT_REL_L2_FP32}")
+    del params, ref
+    torch.cuda.empty_cache()
+
+
 def ptxas_summary(build) -> dict:
     """kernel -> {instantiation: [registers, spill store bytes]} from
     ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
@@ -1558,7 +1973,8 @@ def ptxas_summary(build) -> dict:
         kernel = next((k for w, k in (
             ("paged_attend", "paged_attend"), ("flash_fwd", "flash_fwd"),
             ("flash_dq", "flash_dq"), ("flash_dkv", "flash_dkv"),
-            ("tgmm", "tgmm"), ("gmm_", "grouped_matmul")) if w in short),
+            ("tgmm", "tgmm"), ("gmm_", "grouped_matmul"),
+            ("qmm_", "quantized_matmul")) if w in short),
             "other")
         out.setdefault(kernel, {})[short] = [regs, spill]
     return out
@@ -1609,6 +2025,9 @@ def main() -> int:
     gmm_timing = phase_grouped_timing(torch)
     moe_serve = phase_moe_serve(torch, smi)
     moe_train = phase_moe_train(torch, smi)
+    qmm_worst = phase_qmm(torch)
+    qmm_timing = phase_qmm_timing(torch)
+    int8_serve = phase_int8_serve(torch, smi)
 
     dec = timing["decode"]
     kernels = [{
@@ -1684,6 +2103,26 @@ def main() -> int:
         "library_ms": t["library_ms"], "library_note": t["library_note"],
         "ptxas_registers_spills": ptxas.get("tgmm", {}),
         "shape": {kk: t.get(kk) for kk in keys},
+    })
+    t = qmm_timing["gate-decode"]
+    kernels.append({
+        "name": "quantized_matmul", "route": "cuda",
+        "source": "distributed_training_guide_tpu_torch/ops/csrc/"
+                  "quantized_matmul.cu",
+        "replaces": "distributed_training_guide_tpu/ops/"
+                    "quantized_matmul.py:119",
+        "launches": int8_serve["launches"],
+        "launches_per_serve_forward": int8_serve["per_forward"],
+        "max_abs_err": qmm_worst,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_note": t["library_note"],
+        "control_ms": t["control_ms"], "control_note": t["control_note"],
+        "ptxas_registers_spills": ptxas.get("quantized_matmul", {}),
+        "shapes": {k: {kk: v[kk] for kk in (
+            "M", "K", "N", "bs", "dtype", "splits", "ms", "plain_ms",
+            "control_ms", "bound_ms", "bound_by")}
+            for k, v in qmm_timing.items()},
     })
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

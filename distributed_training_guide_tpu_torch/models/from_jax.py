@@ -6,7 +6,10 @@ first (``jax.tree.map(np.asarray, params)``). Both packages keep every
 per-layer leaf stacked on a leading ``[L]`` axis and weights as
 ``[in, out]``, so no leaf is transposed or reshaped. bf16 leaves arrive
 as ml_dtypes' bfloat16 (the dtype numpy gets from jax) and are carried
-bit for bit.
+bit for bit. A block-quantized leaf (the serve engine's int8 weights, a
+NamedTuple with ``q`` and ``scale`` in either package) crosses as a
+``train/precision.py`` ``Quantized`` of the two arrays, untouched: the
+payload stays int8 and the scales fp32 whatever ``dtype`` asks.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..train.precision import Quantized
 
 
 def _to_torch(x, device, dtype) -> torch.Tensor:
@@ -27,20 +32,33 @@ def _to_torch(x, device, dtype) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
+def _is_quantized(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "q") and hasattr(x, "scale")
+
+
 def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
     """Nested dict of numpy arrays -> the same nested dict of torch
-    tensors on ``device`` (cast to ``dtype`` when given)."""
+    tensors on ``device`` (float leaves cast to ``dtype`` when given;
+    quantized leaves keep their int8 payload and fp32 scales)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device, dtype=dtype)
                 for k, v in tree.items()}
+    if _is_quantized(tree):
+        dev = torch.device(device)
+        return Quantized(q=_to_torch(tree.q, dev, None),
+                         scale=_to_torch(tree.scale, dev, None))
     return _to_torch(tree, torch.device(device), dtype)
 
 
 def params_to_numpy(tree):
     """The inverse: nested dict of torch tensors -> numpy arrays (bf16 as
-    ml_dtypes' bfloat16, the dtype jax reads)."""
+    ml_dtypes' bfloat16, the dtype jax reads); a ``Quantized`` leaf
+    becomes a ``Quantized`` pair of numpy arrays."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, Quantized):
+        return Quantized(q=params_to_numpy(tree.q),
+                         scale=params_to_numpy(tree.scale))
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

@@ -14,6 +14,12 @@ The config flags of the Llama variants stay (sliding and per-layer
 windows, QKV biases, q/k norms, post- and sandwich norms, softcaps,
 ``norm_plus_one``, ``scale_embed``, gelu): they are elementwise work
 around the attention, and the kernels take window and softcap.
+
+The serving forwards also take the engine's int8 weights
+(``serve/weights.py``): a projection, embedding or head leaf may be a
+``Quantized`` container (int8 ``q`` plus fp32 ``scale``), and then goes
+through ``ops/quantized_matmul.py`` (the block-dequant kernel K7 on the
+card) or ``quantized_take``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.attention import NO_WINDOW, multihead_attention
 from ..ops.matmul import matmul_f32_out
+from ..ops.quantized_matmul import quantized_matmul, quantized_take
 from ..ops.rope import freeze_rope_scaling, rope_tables, rotate
 
 
@@ -137,11 +144,22 @@ def init(config: LlamaConfig, rng, *, device=None) -> dict:
     return params
 
 
+def _is_qt(w) -> bool:
+    """Duck-typed ``train/precision.py`` ``Quantized`` check (int8 payload
+    plus per-block fp32 scales: the engine's ``weight_dtype='int8'``)."""
+    return hasattr(w, "q") and hasattr(w, "scale")
+
+
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
+    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views); a
+    quantized leaf slices its payload and scales together (indexing the
+    NamedTuple itself would pick a field)."""
     def take(tree):
-        return ({k: take(v) for k, v in tree.items()} if isinstance(tree, dict)
-                else tree[i])
+        if isinstance(tree, dict):
+            return {k: take(v) for k, v in tree.items()}
+        if _is_qt(tree):
+            return type(tree)(q=tree.q[i], scale=tree.scale[i])
+        return tree[i]
     return take(params["layers"])
 
 
@@ -151,7 +169,11 @@ ACT_FNS = {
 }
 
 
-def _wmat(h: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
+def _wmat(h: torch.Tensor, w, cdt) -> torch.Tensor:
+    """``h @ w`` in compute dtype; for a quantized weight the block-dequant
+    product, summed in fp32 and rounded once to the compute dtype."""
+    if _is_qt(w):
+        return quantized_matmul(h, w, out_dtype=cdt)
     return h @ w.to(cdt)
 
 
@@ -258,9 +280,14 @@ def mlp_sublayer(config, x: torch.Tensor, layer: dict) -> torch.Tensor:
 
 def embed_tokens(config: LlamaConfig, params: dict,
                  input_ids: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup. Out-of-range ids raise here, where jax would
-    clamp them: the engine's ``check_prompt`` refuses them first."""
-    x = params["embed"]["embedding"][input_ids.long()].to(config.dtype)
+    """Embedding lookup (a quantized table dequantizes only the gathered
+    rows). Out-of-range ids raise here, where jax would clamp them: the
+    engine's ``check_prompt`` refuses them first."""
+    table = params["embed"]["embedding"]
+    if _is_qt(table):
+        x = quantized_take(table, input_ids).to(config.dtype)
+    else:
+        x = table[input_ids.long()].to(config.dtype)
     if getattr(config, "scale_embed", False):
         x = x * torch.tensor(config.hidden_size ** 0.5, dtype=config.dtype,
                              device=x.device)
@@ -274,6 +301,15 @@ def output_weights(config: LlamaConfig, params: dict) -> torch.Tensor:
     return params["lm_head"].to(config.dtype)
 
 
+def _output_container(config: LlamaConfig, params: dict) -> tuple:
+    """The raw output-projection leaf (tied table or lm_head) and whether
+    a quantized product runs in transpose form (tied: the blocks tile the
+    contracted embedding axis)."""
+    if config.tie_word_embeddings:
+        return params["embed"]["embedding"], True
+    return params["lm_head"], False
+
+
 def final_hidden(config: LlamaConfig, params: dict,
                  x: torch.Tensor) -> torch.Tensor:
     return _rmsnorm(x, params["final_norm"], config.rms_norm_eps,
@@ -284,9 +320,16 @@ def lm_head_logits(config: LlamaConfig, params: dict,
                    x: torch.Tensor) -> torch.Tensor:
     """Final norm + output projection, fp32 logits from the fp32
     accumulator of the compute-dtype product (``matmul_f32_out``), as the
-    JAX package computes them, on the serve and training paths alike."""
-    logits = matmul_f32_out(final_hidden(config, params, x),
-                            output_weights(config, params))
+    JAX package computes them, on the serve and training paths alike. A
+    quantized head gives fp32 logits from ``quantized_matmul`` in either
+    form."""
+    w, transpose = _output_container(config, params)
+    if _is_qt(w):
+        logits = quantized_matmul(final_hidden(config, params, x), w,
+                                  transpose=transpose)
+    else:
+        logits = matmul_f32_out(final_hidden(config, params, x),
+                                output_weights(config, params))
     cap = getattr(config, "final_logit_softcap", None)
     if cap:
         logits = torch.tanh(logits / cap) * cap
@@ -324,10 +367,14 @@ def layer_windows(config) -> Optional[list]:
 def _unbind_layers(tree, n: int) -> list:
     """``params["layers"]`` as ``n`` per-layer dicts of views, one
     ``unbind`` per stacked leaf, so backward stacks each leaf's layer
-    grads once instead of adding n full-size select grads."""
+    grads once instead of adding n full-size select grads. A quantized
+    leaf unbinds its payload and scales together."""
     if isinstance(tree, dict):
         per = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in per} for i in range(n)]
+    if _is_qt(tree):
+        return [type(tree)(q=q, scale=s) for q, s in
+                zip(torch.unbind(tree.q, 0), torch.unbind(tree.scale, 0))]
     return list(torch.unbind(tree, 0))
 
 

@@ -8,6 +8,8 @@ continuous-batching paged-KV engine, on the card by default.
         --prompt-ids 3,17,42 --device cpu         # the plain CPU path
     python -m distributed_training_guide_tpu_torch.serve -m qwen3-30b-a3b \\
         --dtype bfloat16 --prompt-ids 3,17,42     # MoE: K4 and K5
+    python -m distributed_training_guide_tpu_torch.serve -m llama-3.1-8b \\
+        --dtype bfloat16 --weight-dtype int8 --prompt-ids 3,17,42  # K7
 
 The model is built from a random init of ``--seed``, in fp32 by default
 (as the JAX package's CLI does); ``--dtype bfloat16`` keeps params and
@@ -55,6 +57,14 @@ def main(argv=None) -> None:
                         help="KV page pool storage (default: the model "
                         "dtype); 'int8' stores absmax-quantized payloads "
                         "with per-(position, kv-head) fp32 scales")
+    parser.add_argument("--weight-dtype", default=None,
+                        choices=("fp32", "bf16", "int8"),
+                        help="param storage (default: the model dtype). "
+                        "'int8' stores block-wise absmax-quantized "
+                        "projection weights with per-(row, 32-col-block) "
+                        "fp32 scales, dequantized inside the matmul loop "
+                        "(the K7 kernel on the card; llama family only); "
+                        "a weight_report line prices it")
     parser.add_argument("--attend-impl", default="auto",
                         choices=("auto", "flash", "xla"),
                         help="paged attend family: the CUDA kernel "
@@ -83,8 +93,12 @@ def main(argv=None) -> None:
         n_pages=args.n_pages, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk,
         prefix_cache=not args.no_prefix_cache, attend_impl=args.attend_impl,
-        kv_dtype=args.kv_dtype, device=args.device)
-    print(json.dumps({"kv_report": engine.kv_report()}))
+        kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+        device=args.device)
+    out = {"kv_report": engine.kv_report()}
+    if args.weight_dtype is not None:
+        out["weight_report"] = engine.weight_report()
+    print(json.dumps(out))
     prompts = [[int(t) for t in ids.split(",")] for ids in args.prompt_ids]
     if not prompts:
         raise SystemExit("pass at least one --prompt-ids")

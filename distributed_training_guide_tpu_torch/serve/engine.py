@@ -28,9 +28,15 @@ do not depend on its slot, its co-residents, its admission order or a
 preemption replay. Greedy decoding (temperature 0) is an argmax and is
 token-identical to the JAX engine; an all-greedy batch skips the sort.
 
+Weight storage (``weight_dtype=``, ``serve/weights.py``): None keeps the
+params as given; "fp32" / "bf16" cast them; "int8" (llama family)
+quantizes the projection, embedding and head leaves block-wise, and every
+standard-form product of the forward then runs the block-dequant kernel
+K7 on the card (``ops/quantized_matmul.py``).
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item): speculative decoding, decode horizons, multi-LoRA adapters, the
-host KV tier, sharded plans and pools, weight storage transforms.
+host KV tier, sharded plans and pools.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
                        kv_page_bytes, make_attend, PagePool,
                        pages_for_tokens, pool_nbytes)
 from .scheduler import Admission, Request, RequestResult, Scheduler
+from .weights import (params_nbytes, require_llama, store_weights,
+                      weight_bytes_by_dtype, weight_dtype_name)
 
 _M32 = 0xFFFFFFFF
 
@@ -285,6 +293,34 @@ def build_kv_report(programs: "ModelPrograms", *, page_size: int,
     }
 
 
+def build_weight_report(programs: "ModelPrograms") -> dict:
+    """The byte table for one engine's weights, priced at their storage
+    dtype (int8 scales included) beside the fp32 cost.
+    ``publish_payload_bytes`` is what a stored-layout export moves,
+    ``publish_payload_bytes_fp`` the fp-layout payload a trainer would
+    hand over."""
+    by_dtype = weight_bytes_by_dtype(programs._fp_layout,
+                                     getattr(programs.bundle, "family", None))
+    stored = params_nbytes(programs.params)
+    return {
+        "weight_dtype": programs.weight_dtype,
+        "weight_bytes": stored,
+        "weight_bytes_fp32": by_dtype["fp32"],
+        "bytes_vs_fp32": round(stored / by_dtype["fp32"], 4),
+        "weight_bytes_by_dtype": by_dtype,
+        "publish_payload_bytes": stored,
+        "publish_payload_bytes_fp": params_nbytes(programs._fp_layout),
+    }
+
+
+def fp_layout(params):
+    """The shapes and dtypes of an fp-layout param tree as meta tensors
+    (nothing allocated)."""
+    if isinstance(params, dict):
+        return {k: fp_layout(v) for k, v in params.items()}
+    return torch.empty(params.shape, dtype=params.dtype, device="meta")
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: ROADMAP.md "
@@ -305,9 +341,6 @@ class ModelPrograms:
             _not_ported("plan= / shard_kv=", "'Serve fleet' (sharding)")
         if max_adapters is not None:
             _not_ported("max_adapters=", "'Serve tenants'")
-        if weight_dtype is not None:
-            _not_ported(f"weight_dtype={weight_dtype!r}",
-                        "'int8 serve weights (K7)'")
         self.device = resolve_device(device)
         if attend_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attend_impl must be 'auto', 'flash' or "
@@ -322,13 +355,24 @@ class ModelPrograms:
         self.config = bundle.config
         self.mod = family_module(bundle.family)
         self.kv_dtype = kv_dtype_name(self.config, kv_dtype)
+        # the param storage ("fp32" | "bf16" | "int8"); None inherits the
+        # param dtype and transforms nothing. int8 leaves are Quantized
+        # containers, dequantized inside the products (serve/weights.py)
+        self.weight_dtype = weight_dtype_name(self.config, weight_dtype)
+        if weight_dtype is not None and self.weight_dtype == "int8":
+            require_llama(bundle.family)    # before anything moves
+        self._fp_layout = fp_layout(params)
 
         def place(tree):
             if isinstance(tree, dict):
                 return {k: place(v) for k, v in tree.items()}
             return tree.to(self.device)
 
-        self.params = place(params)
+        params = place(params)
+        if weight_dtype is not None:        # quantize on the device
+            params = store_weights(params, self.weight_dtype,
+                                   family=bundle.family)
+        self.params = params
         self._commit_fn = commit_prefill
         self._copy_fn = copy_pages
         # prefill FORWARD count: bucketed prefills and chunk forwards
@@ -418,7 +462,8 @@ class ServeEngine:
     ``device`` defaults to ``cuda``; ``device="cpu"`` runs the plain
     PyTorch path. The other knobs mean what they mean in the JAX engine:
     ``prefix_cache`` (copy-on-write prefix sharing), ``prefill_chunk``,
-    ``attend_impl``, ``kv_dtype`` ("fp32" | "bf16" | "int8")."""
+    ``attend_impl``, ``kv_dtype`` ("fp32" | "bf16" | "int8"),
+    ``weight_dtype`` ("fp32" | "bf16" | "int8")."""
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
@@ -444,6 +489,7 @@ class ServeEngine:
         self.device = self.programs.device
         self.bundle = self.programs.bundle
         self.kv_dtype = self.programs.kv_dtype
+        self.weight_dtype = self.programs.weight_dtype
         self.config = self.programs.config
         self.attend_impl = self.programs.attend_impl
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -633,3 +679,12 @@ class ServeEngine:
             cached_pages=self.scheduler.cache_pages_held(),
             n_slots=self.n_slots, max_pages=self.max_pages,
             pool_bytes=self.kv_cache_bytes())
+
+    def weight_report(self) -> dict:
+        """The byte table for this engine's weights."""
+        return build_weight_report(self.programs)
+
+    def weight_bytes(self) -> int:
+        """Resident param bytes (int8 payload and scales under
+        weight_dtype='int8')."""
+        return params_nbytes(self.programs.params)

@@ -60,6 +60,14 @@ def dequantize_blockwise(qt: Quantized, dtype=torch.float32) -> torch.Tensor:
     return (qt.q.to(torch.float32) * scale).to(dtype)
 
 
+def cast_floats(tree, dtype):
+    """Cast the floating-point leaves of a nested dict to ``dtype``;
+    integer leaves pass through untouched."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 @dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
     """One storage policy for the whole train state: the fp32 policy

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the paged
-attend (K4), the flash forward and backward (K1-K3) and the grouped
-matmul and its transposed form (K5, K6). Marked ``gpu``:
+attend (K4), the flash forward and backward (K1-K3), the grouped
+matmul and its transposed form (K5, K6) and the block-dequant matmul of
+the int8 serve weights (K7). Marked ``gpu``:
 the ``cuda`` fixture decides whether a card is present (never at import
 time, so every test worker collects the same tests) and skips without
 one. Run on a machine with the card (``--noconftest``: the suite's
@@ -17,8 +18,11 @@ from distributed_training_guide_tpu_torch.models import get_model
 from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
 from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
                                                         generate_many)
+from distributed_training_guide_tpu_torch.train.precision import (
+    quantize_blockwise)
 
 pytestmark = pytest.mark.gpu
 
@@ -461,3 +465,118 @@ def test_moe_trainer_on_card_matches_cpu(cuda):
         for key in ("loss", "grad_norm"):
             assert abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), (key, g, c)
         assert g["moe_dropped_frac"] == 0.0
+
+
+# K7 against its plain version: fp32 sums of the same fp32 products in
+# another order, relative L2 1e-5; a bf16 output rounds the fp32 sum once
+# (half an ulp, 2**-9 relative), relative L2 1e-2. (M, K, N, bs): decode
+# and prefill rows at engine block size, the K split (K 4096), a short
+# last block with N % 4 != 0, block sizes off a multiple of 4, bs 128
+QMM_CASES = [
+    (8, 4096, 1024, 32), (1, 512, 1024, 32), (37, 640, 1000, 24),
+    (300, 96, 33, 32), (64, 4096, 512, 32), (5, 100, 64, 128),
+    (3, 64, 10, 5), (16, 4096, 14336 // 4, 32),
+]
+
+
+def _qmm_inputs(dev, gen, m, k, n, bs, xdt):
+    w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+    qt = quantize_blockwise(w, block_size=bs)
+    x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+    return x, qt
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("case", QMM_CASES,
+                         ids=[f"M{m}-K{k}-N{n}-bs{bs}"
+                              for m, k, n, bs in QMM_CASES])
+def test_qmm_kernel_matches_plain_version(cuda, case):
+    m, k, n, bs = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n + bs)
+    for xdt in (torch.float32, torch.bfloat16):
+        x, qt = _qmm_inputs(cuda, gen, m, k, n, bs, xdt)
+        want = qm.quantized_matmul_reference(x, qt.q, qt.scale)
+        for out_dtype, bound in ((torch.float32, 1e-5),
+                                 (torch.bfloat16, 1e-2)):
+            before = qm.LAUNCHES
+            got = qm.dequant_matmul(x, qt.q, qt.scale, out_dtype)
+            torch.cuda.synchronize()
+            assert qm.LAUNCHES == before + 1
+            assert got.shape == (m, n) and got.dtype == out_dtype
+            assert bool(torch.isfinite(got.float()).all())
+            assert _rel_l2(got, want) <= bound, (xdt, out_dtype)
+            if out_dtype == torch.bfloat16:
+                # one rounding of the kernel's own fp32 sum
+                f32 = qm.dequant_matmul(x, qt.q, qt.scale)
+                assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+def test_qmm_rows_are_bitwise_invariant_in_m(cuda):
+    """Row r of an M = 37 (and M = 300) product equals the M = 1 product
+    of that row bit for bit, split K included."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for k, n in ((4096, 1024), (640, 1000)):
+        x, qt = _qmm_inputs(cuda, gen, 300, k, n, 32, torch.bfloat16)
+        full = qm.dequant_matmul(x, qt.q, qt.scale)
+        part = qm.dequant_matmul(x[:37].contiguous(), qt.q, qt.scale)
+        for r in (0, 5, 36):
+            one = qm.dequant_matmul(x[r:r + 1].contiguous(), qt.q, qt.scale)
+            assert torch.equal(one[0], part[r]) and torch.equal(one[0],
+                                                                full[r])
+
+
+def test_qmm_auto_launches_the_kernel_and_never_the_plain_form(cuda,
+                                                               monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 3, 256, generator=gen, device=cuda)
+    qt = quantize_blockwise(torch.randn(256, 96, generator=gen, device=cuda),
+                            block_size=32)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(qm, "quantized_matmul_reference", refuse)
+    before = qm.LAUNCHES
+    for impl in ("auto", "pallas"):
+        out = qm.quantized_matmul(x, qt, impl=impl)
+        assert out.shape == (2, 3, 96) and out.is_cuda
+    assert qm.LAUNCHES == before + 2
+
+
+def test_qmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, qt = _qmm_inputs(cuda, gen, 4, 64, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        qm.dequant_matmul(x.half(), qt.q, qt.scale)
+    with pytest.raises(ValueError, match="operand on"):
+        qm.dequant_matmul(x, qt.q.cpu(), qt.scale)
+    with pytest.raises(ValueError, match="int8"):
+        qm.dequant_matmul(x, qt.q.float(), qt.scale)
+
+
+def test_int8_engine_on_card_matches_cpu_engine_greedy(cuda):
+    """A head_dim-64 llama-debug variant in fp32 with int8 weights: the
+    engine on the card (every standard-form product through K7, 7 per
+    layer and the head per forward) emits the CPU engine's greedy tokens,
+    bucketed and chunked."""
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    params = bundle.init(bundle.config, 0, device="cpu")
+    reqs = [Request(prompt_ids=[3 + i, 17, 42, 7, 9][:1 + i % 5],
+                    max_new_tokens=6 + i % 4, seed=i) for i in range(6)]
+    per_forward = 7 * bundle.config.num_layers + 1
+    for chunk in (None, 8):
+        kw = dict(n_slots=3, page_size=8, max_len=64, prefill_chunk=chunk,
+                  weight_dtype="int8")
+        before = qm.LAUNCHES
+        eng = ServeEngine(bundle, params, device=cuda, **kw)
+        gpu = generate_many(eng, reqs)
+        forwards = eng.decode_steps + eng.programs.prefill_calls
+        assert qm.LAUNCHES - before == per_forward * forwards
+        cpu = generate_many(ServeEngine(bundle, params, device="cpu", **kw),
+                            reqs)
+        assert [r.token_ids for r in gpu] == [r.token_ids for r in cpu]

@@ -40,6 +40,9 @@ def test_no_jax_and_no_jax_package(path):
 
 def test_scan_sees_the_whole_package_and_catches_a_violation():
     assert len(FILES) >= 15
+    for module in ("ops/quantized_matmul.py", "serve/weights.py",
+                   "models/from_jax.py", "train/precision.py"):
+        assert PORT / module in FILES, module
     assert _banned("jax.numpy") and _banned("distributed_training_guide_tpu")
     assert not _banned("distributed_training_guide_tpu_torch.serve")
     tree = ast.parse("import jax.numpy as jnp\n"
