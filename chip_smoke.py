@@ -11,13 +11,20 @@ phases, each of which raises on failure:
    cuDNN, so fp32 references are full fp32;
 2. build — every kernel under ``distributed_training_guide_tpu_torch/
    ops/csrc`` compiled by ``nvcc`` (one process per source, in parallel);
-3. kernels — the paged-attention kernel (K4) against
-   ``paged_attend_reference`` at llama-3.1-8b's attention shape, over query
-   tiles, pool dtypes, windows, softcaps and pad tails, each error against
-   a stated bound;
-4. timing — K4, its plain version and PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
-   the decode and prefill-chunk shapes, beside the bytes/operations bound;
+3. kernels — the paged-attention kernels (K4: the split-context body, the
+   tensor-core body and the combine) against ``paged_attend_reference``
+   at llama-3.1-8b's and qwen3-30b-a3b's attention shapes, over query
+   tiles 1 to 256, pool dtypes, windows, softcaps, pad tails and contexts
+   on split edges, each body's partials against
+   ``split_partials_reference`` and the combine against
+   ``combine_partials_reference``, each error against a stated bound, and
+   rows bitwise equal between an 8-slot call and 1-slot calls;
+4. timing — K4's kernels (device time from torch.profiler; the whole
+   call with its host wrapper beside it), the plain versions and
+   PyTorch's ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) at the llama-3.1-8b decode (context 4096 and 1024),
+   qwen3-30b-a3b decode and prefill-chunk shapes, beside the
+   bytes/operations bound;
 5. flash — the flash-attention forward (K1) and its backward kernels
    (K2 dq, K3 dk/dv) against their plain versions at llama-3.2-1b's and
    llama-3.1-8b's attention shapes, head_dim 256 and ragged lengths, fp32
@@ -94,6 +101,24 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
               "float32": 67e12}      # fp32 outside the tensor cores (TF32 off)
 TOL = {"fp32": 2e-5, "bf16": 3e-2, "int8": 3e-2}
+# K4's partials against ``split_partials_reference`` at the body's own
+# arithmetic (the split-context body dequantizes int8 in fp32, the
+# tensor-core body rounds it to bf16 as the plain version does): m
+# (absolute) and l (relative) are fp32 sums of the same products in
+# another order; acc / l per row in relative L2, where the split-context
+# body keeps fp32 to the end and the tensor-core body rounds p / l to
+# bf16 for P V (2**-9 relative per probability, up to ~5e-3 per row where
+# a few keys cancel). One key more or less in a split of 256 to 512 keys
+# moves l by ~2e-3 to 4e-3 and acc / l by ~4e-2 to 6e-2.
+PART_M_ABS = 1e-4
+PART_L_REL = 1e-4
+PART_ACC_REL_L2 = {"split": 1e-4, "mma": 2e-2}
+# a bf16 output against the fp32 combine of its partials: rounded once,
+# so within one bf16 ulp, plus the fp32 error of summing the splits'
+# terms in another order (2**-24 of terms up to |v| ~ 5, a few times),
+# which exceeds the ulp where an element cancels to |o| < ~5e-4
+OUT_BF16_ULPS = 1.0
+OUT_FLOOR = 2e-6
 # relative L2 error of first-token logits against the plain prefill:
 # bf16 through 32 random layers (rounding in another order and shape
 # compounds layer by layer), and fp32 through 2 layers (order only)
@@ -141,10 +166,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 HQ, HKV, D, PAGE, S = 32, 8, 128, 16, 8      # llama-3.1-8b attention
+QWEN3_HEADS = (32, 4)                        # qwen3-30b-a3b: Hq, Hkv (D 128)
 MAX_CTX = 4096
 
 
-def paged_case(torch, gen, *, t, pool, lengths, m):
+def paged_case(torch, gen, *, t, pool, lengths, m, hq=HQ, hkv=HKV):
     """Shuffled physical pages per slot, 0-filled (trash) table tails."""
     dev = torch.device("cuda")
     s = len(lengths)
@@ -155,12 +181,12 @@ def paged_case(torch, gen, *, t, pool, lengths, m):
     for i, n in enumerate(lengths):
         own = min(m, (n + t - 1) // PAGE + 1)
         tables[i, :own] = perm[i * m:i * m + own]
-    kf = torch.randn(p, PAGE, HKV, D, generator=gen, device=dev)
-    vf = torch.randn(p, PAGE, HKV, D, generator=gen, device=dev)
+    kf = torch.randn(p, PAGE, hkv, D, generator=gen, device=dev)
+    vf = torch.randn(p, PAGE, hkv, D, generator=gen, device=dev)
     qdt = torch.float32 if pool == "fp32" else torch.bfloat16
-    q = torch.randn(s, t, HQ, D, generator=gen, device=dev).to(qdt)
-    kn = torch.randn(s, t, HKV, D, generator=gen, device=dev).to(qdt)
-    vn = torch.randn(s, t, HKV, D, generator=gen, device=dev).to(qdt)
+    q = torch.randn(s, t, hq, D, generator=gen, device=dev).to(qdt)
+    kn = torch.randn(s, t, hkv, D, generator=gen, device=dev).to(qdt)
+    vn = torch.randn(s, t, hkv, D, generator=gen, device=dev).to(qdt)
     if pool == "int8":
         from distributed_training_guide_tpu_torch.serve.kv_pages import (
             quantize_kv)
@@ -170,55 +196,152 @@ def paged_case(torch, gen, *, t, pool, lengths, m):
     return q, kn, vn, kp, vp, tables, lens
 
 
-def phase_kernels(torch) -> float:
+def partials_err(torch, got, want) -> dict:
+    """A body's partials against the plain ones on the (row, split) pairs
+    with a live key (the pairs' liveness must agree): m absolute, l
+    relative, and each split's normalised output acc / l, max absolute
+    and per row in relative L2."""
+    (m, l, acc), (rm, rl, racc) = got, want
+    live = rl > 0
+    check(torch.equal(live, l > 0), "partials: live splits differ")
+    o, ro = acc[live] / l[live][:, None], racc[live] / rl[live][:, None]
+    return dict(m_abs=(m - rm)[live].abs().max().item(),
+                l_rel=(l / rl - 1)[live].abs().max().item(),
+                acc_abs=(o - ro).abs().max().item(),
+                acc_rel_l2=((o - ro).norm(dim=-1)
+                            / ro.norm(dim=-1)).max().item())
+
+
+def bf16_ulps(torch, got, want, floor=OUT_FLOOR) -> float:
+    """max |got - want| in units of (one bf16 ulp of max(|got|, |want|)
+    plus ``floor``)."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return ((got.float() - want.float()).abs() / (ulp + floor)).max().item()
+
+
+def phase_kernels(torch) -> dict:
+    """Every K4 call against ``paged_attend_reference`` and, in bf16,
+    within an ulp of the fp32 combine of its body's partials; the body
+    alone (its partials) against ``split_partials_reference`` at the
+    body's own arithmetic and the combine alone against
+    ``combine_partials_reference`` on the same partials; and rows bitwise
+    equal between an S = 8 call and S = 1 calls. Returns the worst max
+    abs error of the whole call, of each body (acc / l) and of the
+    combine."""
     from distributed_training_guide_tpu_torch.ops import paged_decode as pd
     from distributed_training_guide_tpu_torch.serve import kv_pages as kv
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     m = MAX_CTX // PAGE + 16
-    worst = 0.0
+    counts = (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+              pd.COMBINE_LAUNCHES)
+    worst = {"call": 0.0, "split": 0.0, "mma": 0.0, "combine": 0.0}
+    tight = {b: {"m_abs": 0.0, "l_rel": 0.0, "acc_rel_l2": 0.0,
+                 "out_ulps": 0.0} for b in ("split", "mma")}
     n_cases = 0
-    for t in (1, 5, 256):
-        # mixed contexts up to 4096, one slot starting empty
-        lengths = [MAX_CTX - t, 0, 17, 1000, 2047, 3000 - t, 63, 4000 - t]
+    # llama-3.1-8b at every tile and variant; qwen3-30b-a3b's attention
+    # shape at every tile without window and softcap
+    cases = [(t, HQ, HKV, w, c) for t in (1, 5, 16, 64, 256)
+             for w in (None, 1024) for c in (None, 50.0)]
+    cases += [(t, *QWEN3_HEADS, None, None) for t in (1, 5, 16, 64, 256)]
+    for t, hq, hkv, window, softcap in cases:
+        # mixed contexts up to 4096, one slot starting empty, and the
+        # newest row on either side of a split edge of each body (256
+        # tokens of the split-context body, 512 of the tensor-core one)
+        lengths = [MAX_CTX - t, 0, 17, max(0, 256 - t), 257, 512 - t, 512,
+                   3000 - t]
         for pool in ("fp32", "bf16", "int8"):
             q, kn, vn, kp, vp, tables, lens = paged_case(
-                torch, gen, t=t, pool=pool, lengths=lengths, m=m)
+                torch, gen, t=t, pool=pool, lengths=lengths, m=m, hq=hq,
+                hkv=hkv)
             # a pad tail on every other slot for T > 1 (its writes go to
             # the trash page; its query rows are computed and ignored)
             n_valid = torch.tensor([t - (i % 2) * (t // 2)
                                     for i in range(S)],
                                    dtype=torch.int32, device="cuda")
-            for window in (None, 1024):
-                for softcap in (None, 50.0):
-                    out, (kp, vp) = kv.paged_attend(
-                        q, kn, vn, kp, vp, tables, lens, window=window,
-                        softcap=softcap, impl="flash",
-                        n_valid=n_valid if t > 1 else None)
-                    torch.cuda.synchronize()
-                    scales = ({} if pool != "int8" else dict(
-                        k_scale=kp.scale[..., 0], v_scale=vp.scale[..., 0]))
-                    ref = pd.paged_attend_reference(
-                        q, kp.q if pool == "int8" else kp,
-                        vp.q if pool == "int8" else vp, tables, lens,
-                        window=window, softcap=softcap, **scales)
-                    check(out.shape == q.shape and out.dtype == q.dtype,
-                          f"kernel output {out.shape} {out.dtype}")
-                    check(bool(torch.isfinite(out.float()).all()),
-                          "non-finite kernel output")
-                    err = (out.float() - ref.float()).abs().max().item()
-                    log(phase="kernels", kernel="paged_attend", T=t,
-                        pool=pool, window=window, softcap=softcap,
-                        max_abs_err=err, bound=TOL[pool],
-                        ok=err <= TOL[pool])
-                    check(err <= TOL[pool],
-                          f"paged_attend T={t} {pool} window={window} "
-                          f"softcap={softcap}: error {err} > {TOL[pool]}")
-                    worst = max(worst, err)
-                    n_cases += 1
-            del q, kn, vn, kp, vp, tables, lens, out, ref
+            out, (kp, vp) = kv.paged_attend(
+                q, kn, vn, kp, vp, tables, lens, window=window,
+                softcap=softcap, impl="flash",
+                n_valid=n_valid if t > 1 else None)
+            torch.cuda.synchronize()
+            scales = ({} if pool != "int8" else dict(
+                k_scale=kp.scale[..., 0], v_scale=vp.scale[..., 0]))
+            pools = ((kp.q, vp.q) if pool == "int8" else (kp, vp))
+            kw = dict(window=window, softcap=softcap, **scales)
+            ref = pd.paged_attend_reference(q, *pools, tables, lens, **kw)
+            check(out.shape == q.shape and out.dtype == q.dtype,
+                  f"kernel output {out.shape} {out.dtype}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  "non-finite kernel output")
+            err = (out.float() - ref.float()).abs().max().item()
+            plan = pd._plan(t, hq // hkv, D, q.dtype, pools[0].dtype, m)
+            parts = pd.split_partials(q, *pools, tables, lens, **kw)
+            perr = partials_err(torch, parts, pd.split_partials_reference(
+                q.float() if plan.body == "split" else q, *pools, tables,
+                lens, pages_per_split=plan.pages_per_split, **kw))
+            # the combine in fp32 out: a bf16 out would differ by an ulp
+            # wherever ~1e-7 of reordering crosses a rounding edge
+            comb = pd.combine_partials(
+                *parts, lens, page=PAGE, table_pages=m,
+                pages_per_split=plan.pages_per_split, window=window)
+            comb_ref = pd.combine_partials_reference(*parts)
+            comb_err = (comb - comb_ref).abs().max().item()
+            # the call is the body and the combine, rounded once to q's
+            # dtype
+            out_ulps = (bf16_ulps(torch, out, comb_ref) if pool != "fp32"
+                        else None)
+            ok = dict(
+                call=err <= TOL[pool],
+                m=perr["m_abs"] <= PART_M_ABS,
+                l=perr["l_rel"] <= PART_L_REL,
+                acc=perr["acc_abs"] <= TOL[pool]
+                and perr["acc_rel_l2"] <= PART_ACC_REL_L2[plan.body],
+                combine=comb_err <= TOL["fp32"],
+                out=out_ulps is None or out_ulps <= OUT_BF16_ULPS)
+            log(phase="kernels", kernel="paged_attend", body=plan.body,
+                T=t, heads=[hq, hkv], pool=pool, window=window,
+                softcap=softcap, max_abs_err=err, bound=TOL[pool],
+                partials=perr, combine_err=comb_err, out_ulps=out_ulps,
+                ok=all(ok.values()))
+            check(all(ok.values()),
+                  f"paged_attend T={t} heads {hq}/{hkv} {pool} "
+                  f"window={window} softcap={softcap}: error {err} (bound "
+                  f"{TOL[pool]}), partials {perr}, combine {comb_err}, "
+                  f"{out_ulps} ulps; failed: "
+                  f"{[k for k, v in ok.items() if not v]}")
+            worst["call"] = max(worst["call"], err)
+            worst[plan.body] = max(worst[plan.body], perr["acc_abs"])
+            worst["combine"] = max(worst["combine"], comb_err)
+            for k, v in dict(perr, out_ulps=out_ulps or 0.0).items():
+                if k in tight[plan.body]:
+                    tight[plan.body][k] = max(tight[plan.body][k], v)
+            n_cases += 1
+            del q, kn, vn, kp, vp, tables, lens, out, ref, parts, comb
+            del comb_ref
+    # the plan reads no batch: each row of an S = 8 call equals the same
+    # slot's row in an S = 1 call, bit for bit, through both bodies
+    for t, pool in ((1, "bf16"), (1, "int8"), (1, "fp32"), (64, "bf16"),
+                    (256, "int8")):
+        q, _, _, kp, vp, tables, lens = paged_case(
+            torch, gen, t=t, pool=pool, lengths=[MAX_CTX - t, 0, 17, 255,
+                                                 257, 511, 513, 2000],
+            m=m)
+        pools, kw = (kp, vp), {}
+        if pool == "int8":
+            pools = (kp.q, vp.q)
+            kw = dict(k_scale=kp.scale[..., 0], v_scale=vp.scale[..., 0])
+        batched = pd.paged_flash_attend(q, *pools, tables, lens, **kw)
+        same = all(torch.equal(batched[i], pd.paged_flash_attend(
+            q[i:i + 1], *pools, tables[i:i + 1], lens[i:i + 1], **kw)[0])
+            for i in range(S))
+        log(phase="kernels", check="rows bitwise equal, S = 8 vs S = 1",
+            T=t, pool=pool, ok=same)
+        check(same, f"T={t} {pool}: a row differs between S = 8 and S = 1")
+    (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+     pd.COMBINE_LAUNCHES) = counts    # checking launches are not main path
     torch.cuda.empty_cache()
-    log(phase="kernels", cases=n_cases, max_abs_err=worst)
+    log(phase="kernels", cases=n_cases, max_abs_err=worst, worst=tight)
     return worst
 
 
@@ -226,67 +349,139 @@ def phase_kernels(torch) -> float:
 # phase 4: timing beside the bound
 # ---------------------------------------------------------------------------
 
-def attend_bound(q, pool, lengths, t, itemsize):
+def attend_bound(q, hkv, lengths, t, itemsize, extra_bytes=0):
     """(bound_ms, bound_by, bytes, flops) from this call's inputs: each
-    live page read once (k and v), q read and out written once; 4 * D
-    operations per (query row, key) pair inside the causal band."""
+    live page read once (k and v), q read and out written once (plus
+    ``extra_bytes``, a body's partials); 4 * D operations per (query row,
+    key) pair inside the causal band."""
     s = len(lengths)
+    hq = q.shape[2]
     pages = sum((n + t - 1) // PAGE + 1 for n in lengths)
-    nbytes = (pages * PAGE * HKV * D * itemsize * 2
-              + 2 * q.numel() * q.element_size() + s * 4)
+    nbytes = (pages * PAGE * hkv * D * itemsize * 2
+              + 2 * q.numel() * q.element_size() + s * 4 + extra_bytes)
     pairs = sum(n * t + t * (t + 1) // 2 for n in lengths)
-    flops = 4 * D * HQ * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype).replace("torch.", "")] * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            ) + (nbytes, flops)
+    flops = 4 * D * hq * pairs
+    return _bound(nbytes, flops, str(q.dtype).replace("torch.", ""))
+
+
+def _live_splits(lengths, t, pages_per_split) -> int:
+    """(slot, split) pairs a body writes partials for: the splits up to
+    the one holding each slot's newest row."""
+    return sum((n + t - 1) // PAGE // pages_per_split + 1 for n in lengths)
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_ms(torch, fn, iters: int, names) -> dict:
+    """Mean device milliseconds per call of ``fn`` spent in the kernels
+    whose name holds each of ``names``, from torch.profiler over ``iters``
+    calls after a warm-up. A call that is host-bound (a ctypes wrapper
+    around a few-microsecond kernel) reads its kernels' own time here,
+    where CUDA events around back-to-back calls would read the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {n: sum(_device_us(e) for e in events if n in e.key) / 1e3 / iters
+           for n in names}
+    check(all(v > 0 for v in out.values()),
+          f"the profiler reports no device time for {names}")
+    return out
 
 
 def phase_timing(torch) -> dict:
+    """K4 at the serve shapes: each kernel's device time in the whole call
+    (body + combine, as the serve path runs it; torch.profiler), the
+    call's time with its host wrapper (CUDA events), the plain versions
+    and SDPA, each beside its bound."""
     import torch.nn.functional as F
 
     from distributed_training_guide_tpu_torch.ops import paged_decode as pd
 
     out = {}
     dev = torch.device("cuda")
-    for name, s, t in (("decode", S, 1), ("chunk", 1, 256)):
-        lengths = [MAX_CTX - t] * s
+    counts = (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+              pd.COMBINE_LAUNCHES)
+    for name, s, t, (hq, hkv), ctx in (
+            ("decode", S, 1, (HQ, HKV), MAX_CTX),
+            ("chunk", 1, 256, (HQ, HKV), MAX_CTX),
+            ("decode-qwen3", S, 1, QWEN3_HEADS, MAX_CTX),
+            ("decode-1k", S, 1, (HQ, HKV), 1024)):
+        lengths = [ctx - t] * s
         m = MAX_CTX // PAGE
         n_pages = s * m + 1
         tables = (torch.arange(s * m, dtype=torch.int32, device=dev)
                   .reshape(s, m) + 1)
         tables = tables[:, torch.randperm(m, device=dev)].contiguous()
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        kp = torch.randn(n_pages, PAGE, HKV, D, device=dev,
+        kp = torch.randn(n_pages, PAGE, hkv, D, device=dev,
                          dtype=torch.bfloat16)
         vp = torch.randn_like(kp)
-        q = torch.randn(s, t, HQ, D, device=dev, dtype=torch.bfloat16)
-        launches = pd.LAUNCHES
-        ms = cuda_ms(lambda: pd.paged_flash_attend(q, kp, vp, tables, lens),
-                     iters=100)
-        pd.LAUNCHES = launches   # timing launches are not main-path launches
+        q = torch.randn(s, t, hq, D, device=dev, dtype=torch.bfloat16)
+        plan = pd._plan(t, hq // hkv, D, q.dtype, kp.dtype, m)
+        body = f"paged_attend_{plan.body}"
+        dev_ms = device_ms(torch, lambda: pd.paged_flash_attend(
+            q, kp, vp, tables, lens), 50, (body, "paged_attend_combine"))
+        body_ms, combine_ms = dev_ms[body], dev_ms["paged_attend_combine"]
+        ms = body_ms + combine_ms
+        call_ms = cuda_ms(lambda: pd.paged_flash_attend(
+            q, kp, vp, tables, lens), iters=100)
         plain_ms = cuda_ms(lambda: pd.paged_attend_reference(
             q, kp, vp, tables, lens), iters=10, warmup=2)
+        body_plain_ms = cuda_ms(lambda: pd.split_partials_reference(
+            q, kp, vp, tables, lens, pages_per_split=plan.pages_per_split),
+            iters=5, warmup=1)
+        parts = pd.split_partials(q, kp, vp, tables, lens)
+        combine_plain_ms = cuda_ms(lambda: pd.combine_partials_reference(
+            *parts), iters=10, warmup=2)
         # the library yardstick: SDPA over an already contiguous cache of
         # the same live length, bottom-right causal for the chunk
-        kc = kp[tables.long()].reshape(s, m * PAGE, HKV, D).transpose(1, 2)
-        vc = vp[tables.long()].reshape(s, m * PAGE, HKV, D).transpose(1, 2)
-        kc, vc = kc.contiguous(), vc.contiguous()
+        kc = kp[tables.long()].reshape(s, m * PAGE, hkv, D)[:, :ctx]
+        vc = vp[tables.long()].reshape(s, m * PAGE, hkv, D)[:, :ctx]
+        kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
         qc = q.transpose(1, 2).contiguous()
         mask = None
         if t > 1:
-            qpos = torch.arange(t, device=dev)[:, None] + (MAX_CTX - t)
-            mask = torch.arange(MAX_CTX, device=dev)[None, :] <= qpos
+            qpos = torch.arange(t, device=dev)[:, None] + (ctx - t)
+            mask = torch.arange(ctx, device=dev)[None, :] <= qpos
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, attn_mask=mask, enable_gqa=True), iters=50)
-        bound_ms, bound_by, nbytes, flops = attend_bound(q, kp, lengths, t, 2)
-        out[name] = dict(S=s, T=t, context=MAX_CTX, dtype="bf16", ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         flops=flops, share_of_bound=bound_ms / ms)
+        bound = attend_bound(q, hkv, lengths, t, 2)
+        # a body writes m, l and acc (fp32) for each live (slot, split)
+        # pair of each row; the combine reads them and writes out
+        part_bytes = (_live_splits(lengths, t, plan.pages_per_split)
+                      * t * hq * (D + 2) * 4)
+        body_bound = attend_bound(q, hkv, lengths, t, 2, part_bytes)
+        body_bound["bytes"] -= q.numel() * q.element_size()  # writes no out
+        body_bound = _bound(body_bound["bytes"], body_bound["flops"],
+                            "bfloat16")
+        combine_bound = _bound(part_bytes + q.numel() * q.element_size()
+                               + s * 4, 0, "float32")
+        out[name] = dict(
+            S=s, T=t, heads=[hq, hkv], context=ctx, dtype="bf16",
+            plan=plan._asdict(), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound["bound_ms"],
+            bound_by=bound["bound_by"], bytes=bound["bytes"],
+            flops=bound["flops"], share_of_bound=bound["bound_ms"] / ms,
+            body_ms=body_ms, body_plain_ms=body_plain_ms,
+            body_bound_ms=body_bound["bound_ms"],
+            body_bound_by=body_bound["bound_by"],
+            combine_ms=combine_ms, combine_plain_ms=combine_plain_ms,
+            combine_bound_ms=combine_bound["bound_ms"])
         log(phase="timing", shape=name, **out[name])
-        del kp, vp, kc, vc, q, qc
+        del kp, vp, kc, vc, q, qc, parts
         torch.cuda.empty_cache()
+    (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+     pd.COMBINE_LAUNCHES) = counts   # timing launches are not main path
     return out
 
 
@@ -331,7 +526,8 @@ def phase_serve(torch, card: str) -> dict:
              for i, n in enumerate(lens)]
     common = dict(n_slots=8, page_size=16, max_len=4096)
     results = {}
-    pd.LAUNCHES = 0                           # the main path starts here
+    (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+     pd.COMBINE_LAUNCHES) = (0, 0, 0, 0)      # the main path starts here
     for mode, chunk in (("bucketed", None), ("chunked", 256)):
         eng = RecordingEngine(bundle, params, prefill_chunk=chunk, **common)
         torch.cuda.reset_peak_memory_stats()
@@ -382,6 +578,12 @@ def phase_serve(torch, card: str) -> dict:
             results[mode].pop("engine")
         torch.cuda.empty_cache()
     main_path_launches = pd.LAUNCHES          # ... and ends here
+    body_launches = {"split": pd.SPLIT_LAUNCHES, "mma": pd.MMA_LAUNCHES,
+                     "combine": pd.COMBINE_LAUNCHES}
+    log(phase="serve", k4_calls=main_path_launches, **{
+        f"{k}_launches": v for k, v in body_launches.items()})
+    for k, v in body_launches.items():
+        check(v > 0, f"serve: the main path launched no {k} kernel")
 
     # one greedy request served alone gives the tokens it got co-batched
     alone = generate_many(ServeEngine(bundle, params, **common),
@@ -424,7 +626,7 @@ def phase_serve(torch, card: str) -> dict:
     del params
     torch.cuda.empty_cache()
     check_fp32_chunk_path(torch, specs[1]["prompt_ids"])
-    return dict(launches=main_path_launches,
+    return dict(launches=main_path_launches, body_launches=body_launches,
                 per_step=bundle.config.num_layers)
 
 
@@ -455,10 +657,7 @@ def profile_decode(torch, bundle, params, specs, **engine_kw) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
+    dev_us = _device_us
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3
     if busy == 0:
@@ -848,10 +1047,7 @@ def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
+    dev_us = _device_us
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3
     if busy == 0:
@@ -1971,7 +2167,10 @@ def ptxas_summary(build) -> dict:
         m = re.search(r"\w+_kernel<[^>]*>", name.replace("(int)", ""))
         short = m.group(0) if m else name.strip()
         kernel = next((k for w, k in (
-            ("paged_attend", "paged_attend"), ("flash_fwd", "flash_fwd"),
+            ("paged_attend_split", "paged_attend_split"),
+            ("paged_attend_mma", "paged_attend_mma"),
+            ("paged_attend_combine", "paged_attend_combine"),
+            ("flash_fwd", "flash_fwd"),
             ("flash_dq", "flash_dq"), ("flash_dkv", "flash_dkv"),
             ("tgmm", "tgmm"), ("gmm_", "grouped_matmul"),
             ("qmm_", "quantized_matmul")) if w in short),
@@ -2029,22 +2228,50 @@ def main() -> int:
     qmm_timing = phase_qmm_timing(torch)
     int8_serve = phase_int8_serve(torch, smi)
 
-    dec = timing["decode"]
+    # K4 is three kernels: each body at the shape it serves (decode, the
+    # prefill chunk) and the combine at decode; "k4_ms" is the whole call
+    k4_shapes = {k: {kk: v[kk] for kk in (
+        "S", "T", "heads", "context", "dtype", "ms", "call_ms", "plain_ms",
+        "library_ms",
+        "bound_ms", "bound_by", "share_of_bound", "body_ms", "body_bound_ms",
+        "combine_ms", "combine_bound_ms")} for k, v in timing.items()}
+    k4 = {"route": "cuda",
+          "source": "distributed_training_guide_tpu_torch/ops/csrc/"
+                    "paged_attend.cu",
+          "replaces": "distributed_training_guide_tpu/ops/paged_decode.py:107"}
+    dec, chunk = timing["decode"], timing["chunk"]
     kernels = [{
-        "name": "paged_attend", "route": "cuda",
-        "source": "distributed_training_guide_tpu_torch/ops/csrc/"
-                  "paged_attend.cu",
-        "replaces": "distributed_training_guide_tpu/ops/paged_decode.py:107",
-        "launches": serve["launches"], "max_abs_err": worst,
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
+        "name": "paged_attend_split", **k4,
+        "launches": serve["body_launches"]["split"],
+        "max_abs_err": worst["split"], "shape": "decode", "ms": dec["body_ms"],
+        "plain_ms": dec["body_plain_ms"], "bound_ms": dec["body_bound_ms"],
+        "bound_by": dec["body_bound_by"], "library_ms": dec["library_ms"],
+        "library_note": "SDPA computes the whole attention, body and combine",
+        "k4_ms": dec["ms"], "k4_call_ms": dec["call_ms"],
+        "k4_plain_ms": dec["plain_ms"], "k4_bound_ms": dec["bound_ms"],
         "launches_per_decode_step": serve["per_step"],
-        "ptxas_registers_spills": ptxas.get("paged_attend", {}),
-        "shapes": {k: {kk: v[kk] for kk in ("S", "T", "context", "dtype",
-                                            "ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by")}
-                   for k, v in timing.items()},
+        "ptxas_registers_spills": ptxas.get("paged_attend_split", {}),
+        "shapes": k4_shapes,
+    }, {
+        "name": "paged_attend_mma", **k4,
+        "launches": serve["body_launches"]["mma"],
+        "max_abs_err": worst["mma"], "shape": "chunk", "ms": chunk["body_ms"],
+        "plain_ms": chunk["body_plain_ms"],
+        "bound_ms": chunk["body_bound_ms"],
+        "bound_by": chunk["body_bound_by"], "library_ms": chunk["library_ms"],
+        "library_note": "SDPA computes the whole attention, body and combine",
+        "k4_ms": chunk["ms"], "k4_call_ms": chunk["call_ms"],
+        "k4_plain_ms": chunk["plain_ms"], "k4_bound_ms": chunk["bound_ms"],
+        "ptxas_registers_spills": ptxas.get("paged_attend_mma", {}),
+    }, {
+        "name": "paged_attend_combine", **k4,
+        "launches": serve["body_launches"]["combine"],
+        "max_abs_err": worst["combine"], "shape": "decode",
+        "ms": dec["combine_ms"], "plain_ms": dec["combine_plain_ms"],
+        "bound_ms": dec["combine_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call merges split softmax partials",
+        "ptxas_registers_spills": ptxas.get("paged_attend_combine", {}),
     }]
     replaces = {"flash_fwd": 112, "flash_dq": 297, "flash_dkv": 341}
     for name, line in replaces.items():

@@ -31,6 +31,15 @@ pytestmark = pytest.mark.gpu
 # probabilities (and an int8 pool's dequantized k/v) to bf16, the kernel
 # keeps them fp32, and the output is rounded to bf16 (ulp 2**-8 at 1).
 TOL = {"fp32": 2e-5, "bf16": 3e-2, "int8": 3e-2}
+# a body's partials against split_partials_reference at the body's own
+# arithmetic (the split-context body keeps fp32 and dequantizes int8 in
+# fp32; the tensor-core body rounds int8 k/v and p / l to bf16, as the
+# plain version does): m and l are fp32 sums of the same products in
+# another order, so m absolute and l relative at 1e-4; acc / l per row
+# in relative L2, fp32 throughout or p rounded to bf16 (2**-9 relative
+# per probability, up to ~5e-3 per row where a few keys cancel)
+PART_M_ABS, PART_L_REL = 1e-4, 1e-4
+PART_ACC_REL_L2 = {"split": 1e-4, "mma": 2e-2}
 
 
 @pytest.fixture
@@ -43,14 +52,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, gen, *, t, pool, d, page, hq=8, hkv=2, s=4, m=12):
+def _case(dev, gen, *, t, pool, d, page, hq=8, hkv=2, s=4, m=70):
     p = s * m + 1
     perm = torch.randperm(p - 1, generator=gen, device=dev).int() + 1
     cap = m * page
     # every query row inside the table's capacity, as in the engine: a
     # row past it with a window can be fully masked, where the kernel
-    # returns 0 (safe_l) and the plain softmax the mean of v
-    lengths = torch.tensor([cap - t, 0, page, (cap - t) // 2][:s],
+    # returns 0 (safe_l) and the plain softmax the mean of v. 70 pages
+    # span 5 splits of the split-context body and 3 of the tensor-core one
+    lengths = torch.tensor([cap - t, 0, page, (cap - t) // 2, 1, page - 1,
+                            2 * page + 1, cap - t - page][:s],
                            dtype=torch.int32, device=dev)
     tables = torch.zeros(s, m, dtype=torch.int32, device=dev)
     for i in range(s):
@@ -71,15 +82,65 @@ def _case(dev, gen, *, t, pool, d, page, hq=8, hkv=2, s=4, m=12):
     return (q, kp, vp, tables, lengths), scales
 
 
-GRID = list(itertools.product([1, 5, 64], ["fp32", "bf16", "int8"],
-                              [64, 128, 256], [8, 16, 64]))
+def _bf16_ulps(got, want, floor=2e-6):
+    """max |got - want| in units of (one bf16 ulp of max(|got|, |want|)
+    plus ``floor``: the fp32 error of summing the splits' terms, up to
+    |v| ~ 5, in another order, which exceeds the ulp where an element
+    cancels to |o| < ~5e-4)."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return ((got.float() - want.float()).abs() / (ulp + floor)).max().item()
 
 
-@pytest.mark.parametrize("t,pool,d,page", GRID,
-                         ids=[f"T{t}-{p}-d{d}-page{g}" for t, p, d, g in GRID])
-def test_kernel_matches_plain_version(cuda, t, pool, d, page):
+def _hold_partials(parts, args, scales, plan, pool, **kw):
+    """A body's partials (m, l, acc) against the plain ones over the same
+    splits, on the (row, split) pairs with a live key."""
+    q = args[0]
+    rm, rl, racc = pd.split_partials_reference(
+        q.float() if plan.body == "split" else q, *args[1:],
+        pages_per_split=plan.pages_per_split, **kw, **scales)
+    m, l, acc = parts
+    live = rl > 0
+    assert torch.equal(live, l > 0)
+    assert (m - rm)[live].abs().max().item() <= PART_M_ABS
+    assert (l / rl - 1)[live].abs().max().item() <= PART_L_REL
+    o, ro = acc[live] / l[live][:, None], racc[live] / rl[live][:, None]
+    assert (o - ro).abs().max().item() <= TOL[pool]
+    assert ((o - ro).norm(dim=-1) / ro.norm(dim=-1)).max().item() <= \
+        PART_ACC_REL_L2[plan.body]
+
+
+def _hold_call(out, parts, pool):
+    """The call is the body and the combine: its output is the fp32
+    combine of the body's partials, rounded once to q's dtype (within an
+    ulp plus the fp32 floor)."""
+    comb = pd.combine_partials_reference(*parts)
+    if pool == "fp32":
+        assert (out - comb).abs().max().item() <= TOL["fp32"]
+    else:
+        assert _bf16_ulps(out, comb) <= 1.0
+
+
+# T 1 and 5 run the split-context body; T 16 and up with bf16 q the
+# tensor-core body (T * groups >= 64), with fp32 q the split-context one;
+# groups 4 (llama-3.1-8b) at every page, groups 8 (qwen3-30b-a3b) at 16
+GRID = (list(itertools.product([1, 5, 16, 64, 256], ["fp32", "bf16", "int8"],
+                               [64, 128, 256], [8, 16, 64], [4]))
+        + list(itertools.product([1, 5, 16, 64, 256],
+                                 ["fp32", "bf16", "int8"], [64, 128, 256],
+                                 [16], [8])))
+
+
+@pytest.mark.parametrize("t,pool,d,page,groups", GRID,
+                         ids=[f"T{t}-{p}-d{d}-page{g}" + ("" if gr == 4
+                                                          else f"-g{gr}")
+                              for t, p, d, g, gr in GRID])
+def test_kernel_matches_plain_version(cuda, t, pool, d, page, groups):
     gen = torch.Generator(device=cuda).manual_seed(t * 1000 + d + page)
-    args, scales = _case(cuda, gen, t=t, pool=pool, d=d, page=page)
+    args, scales = _case(cuda, gen, t=t, pool=pool, d=d, page=page,
+                         hq=2 * groups)
+    q, kp, _, tables, _ = args
+    plan = pd._plan(t, groups, d, q.dtype, kp.dtype, tables.shape[1])
     for window, softcap in ((None, None), (7, None), (None, 5.0)):
         before = pd.LAUNCHES
         out = pd.paged_flash_attend(*args, window=window, softcap=softcap,
@@ -91,6 +152,61 @@ def test_kernel_matches_plain_version(cuda, t, pool, d, page):
         assert out.dtype == args[0].dtype and out.shape == args[0].shape
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= TOL[pool], (window, softcap, err)
+        parts = pd.split_partials(*args, window=window, softcap=softcap,
+                                  **scales)
+        _hold_partials(parts, args, scales, plan, pool, window=window,
+                       softcap=softcap)
+        _hold_call(out, parts, pool)
+
+
+BODY_CASES = list(itertools.product([1, 64], ["fp32", "bf16", "int8"]))
+
+
+@pytest.mark.parametrize("t,pool", BODY_CASES,
+                         ids=[f"T{t}-{p}" for t, p in BODY_CASES])
+def test_body_and_combine_match_their_plain_versions(cuda, t, pool):
+    """Each kernel alone: a body's partials against
+    ``split_partials_reference`` (m, l relative, and acc / l, over the
+    plan's splits, at the body's own arithmetic) and the combine kernel
+    against
+    ``combine_partials_reference`` on the same partials. The combine reads
+    only the splits in each row's band; the rest are neutral here."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + t)
+    args, scales = _case(cuda, gen, t=t, pool=pool, d=128, page=16)
+    q, kp, _, tables, lengths = args
+    plan = pd._plan(t, 4, 128, q.dtype, kp.dtype, tables.shape[1])
+    assert plan.splits > 1
+    body = "MMA_LAUNCHES" if plan.body == "mma" else "SPLIT_LAUNCHES"
+    before = (getattr(pd, body), pd.COMBINE_LAUNCHES)
+    m, l, acc = pd.split_partials(*args, window=300, **scales)
+    out = pd.combine_partials(m, l, acc, lengths, page=16,
+                              table_pages=tables.shape[1],
+                              pages_per_split=plan.pages_per_split,
+                              window=300)       # fp32 out: no bf16 rounding
+    torch.cuda.synchronize()
+    assert (getattr(pd, body), pd.COMBINE_LAUNCHES) == (before[0] + 1,
+                                                        before[1] + 1)
+    _hold_partials((m, l, acc), args, scales, plan, pool, window=300)
+    ref = pd.combine_partials_reference(m, l, acc)
+    assert (out - ref).abs().max().item() <= TOL["fp32"]
+    full = pd.paged_attend_reference(*args, window=300, **scales)
+    assert (out.to(q.dtype).float() - full.float()).abs().max().item() <= \
+        TOL[pool]
+
+
+@pytest.mark.parametrize("t,pool", BODY_CASES,
+                         ids=[f"T{t}-{p}" for t, p in BODY_CASES])
+def test_rows_bitwise_equal_whatever_the_batch(cuda, t, pool):
+    """The plan reads neither S nor the lengths: every row of an S = 8
+    call equals, bit for bit, the same slot's row in an S = 1 call."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + t)
+    args, scales = _case(cuda, gen, t=t, pool=pool, d=128, page=16, s=8)
+    q, kp, vp, tables, lengths = args
+    batched = pd.paged_flash_attend(*args, window=300, **scales)
+    for i in range(q.shape[0]):
+        alone = pd.paged_flash_attend(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                      lengths[i:i + 1], window=300, **scales)
+        assert torch.equal(batched[i], alone[0]), i
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -108,6 +224,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                               vp[..., :32].contiguous(), tables, lengths)
     with pytest.raises(ValueError, match="lies on|operand on"):
         pd.paged_flash_attend(q, kp.cpu(), vp, tables, lengths)
+    # what no body takes: another head_dim, page, q dtype or pool dtype
+    with pytest.raises(ValueError, match="head_dim"):
+        pd.paged_flash_attend(q[..., :48].contiguous(),
+                              kp[..., :48].contiguous(),
+                              vp[..., :48].contiguous(), tables, lengths)
+    with pytest.raises(ValueError, match="page size"):
+        pd.paged_flash_attend(q, kp[:, :4].contiguous(),
+                              vp[:, :4].contiguous(), tables, lengths)
+    with pytest.raises(ValueError, match="q dtype"):
+        pd.paged_flash_attend(q.half(), kp.half(), vp.half(), tables,
+                              lengths)
+    with pytest.raises(ValueError, match="pool dtype"):
+        pd.paged_flash_attend(q, kp.half(), vp.half(), tables, lengths)
 
 
 def test_engine_on_card_matches_cpu_engine_greedy(cuda):
