@@ -26,11 +26,16 @@ phases, each of which raises on failure:
    qwen3-30b-a3b decode and prefill-chunk shapes, beside the
    bytes/operations bound;
 5. flash — the flash-attention forward (K1) and its backward kernels
-   (K2 dq, K3 dk/dv) against their plain versions at llama-3.2-1b's and
-   llama-3.1-8b's attention shapes, head_dim 256 and ragged lengths, fp32
-   and bf16, causal, windowed, softcapped and banded;
-6. flash timing — K1, K2 and K3 at the training path's shape beside their
-   plain versions, their bounds and SDPA forward / backward;
+   (K2 dq, K3 dk/dv) against their plain versions at llama-3.2-1b's,
+   llama-3.1-8b's and qwen3-30b-a3b's attention shapes, head_dim 256 and
+   ragged lengths, fp32 and bf16, causal, windowed, softcapped and banded;
+   every bf16 K2 / K3 also against the plain version at its own
+   arithmetic (p and ds rounded to bf16) and bitwise equal to a second
+   launch;
+6. flash timing — K1, K2 and K3 at both training paths' shapes
+   (llama-3.2-1b and qwen3-30b-a3b) beside their plain versions, their
+   bounds and SDPA forward / backward, and K3's causal tail (its time
+   against its blocks' work at a non-causal launch's rate);
 7. serve — ``ServeEngine`` on llama-3.1-8b at full width and depth in
    bf16 (random weights from a seed), once with bucketed prefill and once
    with 256-token chunks, checking that K4 carried both programs, batch
@@ -38,9 +43,10 @@ phases, each of which raises on failure:
    full-context prefill, and a torch.profiler breakdown of a decode step;
 8. train — chapter 01's ``run_training`` on llama-3.2-1b at full width
    and depth (bf16 compute, fp32 params and AdamW, synthetic data, 2048
-   tokens x 4 sequences), checking finite falling loss and exactly 16
+   tokens x 4 sequences), checking finite falling loss, exactly 16
    launches of each of K1-K3 per step (32 of K1 under
-   ``--checkpoint-activations``), a torch.profiler breakdown of one step,
+   ``--checkpoint-activations``), no operand copied for the backward's
+   tensor maps, a torch.profiler breakdown of one step,
    and the loss and grad norm of a step through the kernels against the
    einsum attention (fp32 at 2 layers; bf16 loss at full depth);
 9. grouped — the grouped matmul (K5) and its transposed form (K6) against
@@ -738,9 +744,17 @@ def check_fp32_chunk_path(torch, prompt) -> None:
 FLASH_TOL_FP32 = {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4,
                   "dv": 1e-4}
 FLASH_TOL_BF16_REL_L2 = 1e-2
+# bf16 K2 / K3 against the plain version at their own arithmetic
+# (``round_p_ds``: p and ds rounded to bf16 before the products): only the
+# fp32 summation order of the scores and products and the exp differ
+# (~1e-6 relative), which flips the bf16 rounding of a few p / ds elements
+# and outputs by one ulp (2**-8), about 1e-4 in relative L2 over a sum of
+# hundreds of terms; 1e-3 leaves 10x room and is 10x below the fp32 bound
+FLASH_TOL_KERNEL_ARITH_REL_L2 = 1e-3
 # (name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap, scale, band
 # offsets): llama-3.2-1b (the training path's shape first), llama-3.1-8b,
-# head_dim 256 with Gemma-2's scale and cap, ragged lengths
+# head_dim 256 with Gemma-2's scale and cap, ragged lengths, qwen3-30b-a3b
+# (the moe-train path's attention)
 FLASH_CASES = [
     ("1b-main", 4, 2048, 2048, 32, 8, 64, "bf16", True, None, None, None,
      None),
@@ -766,6 +780,10 @@ FLASH_CASES = [
      None),
     ("ragged-cross", 2, 777, 1000, 16, 4, 128, "bf16", False, None, None,
      None, None),
+    ("qwen3-moe", 2, 2048, 2048, 32, 4, 128, "bf16", True, None, None, None,
+     None),
+    ("ragged-bf16", 2, 1000, 1000, 32, 8, 64, "bf16", True, None, None, None,
+     None),
 ]
 
 
@@ -779,13 +797,34 @@ def flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype):
             rand(b, sq, hq, d))
 
 
+def check_kernel_arith(torch, fa, name, args, kw, got) -> dict:
+    """bf16 K2 / K3 outputs against the plain version at the kernels' own
+    arithmetic, and a second launch of each bitwise equal to the first;
+    returns the relative L2 errors."""
+    want = (fa.flash_dq_reference(*args, **kw, round_p_ds=True),
+            *fa.flash_dkv_reference(*args, **kw, round_p_ds=True))
+    again = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    errs = {}
+    for key, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        check(torch.equal(g, a), f"flash {name} {key}: two launches differ")
+        errs[key] = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        check(errs[key] <= FLASH_TOL_KERNEL_ARITH_REL_L2,
+              f"flash {name} {key}: {errs[key]} from the plain version at "
+              f"the kernel's arithmetic > {FLASH_TOL_KERNEL_ARITH_REL_L2}")
+    return errs
+
+
 def phase_flash(torch) -> dict:
     """Each case through K1, then K2 and K3 from the plain forward's lse
-    and delta; returns the worst fp32 max abs error per kernel."""
+    and delta; returns the worst fp32 max abs error per kernel and, under
+    "kernel_arith", K2's and K3's worst bf16 relative L2 error against the
+    plain version at their own arithmetic."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    arith = {"flash_dq": 0.0, "flash_dkv": 0.0}   # bf16, rel L2
     counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
     for (name, b, sq, sk, hq, hkv, d, dtype, causal, window, softcap, scale,
          offs) in FLASH_CASES:
@@ -808,6 +847,13 @@ def phase_flash(torch) -> dict:
               f"launch")
         rdq = fa.flash_dq_reference(q, k, v, do, rlse, delta, **kw)
         rdk, rdv = fa.flash_dkv_reference(q, k, v, do, rlse, delta, **kw)
+        if dtype == "bf16":
+            tight = check_kernel_arith(torch, fa, name, (q, k, v, do, rlse,
+                                                         delta), kw,
+                                       (dq, dk, dv))
+            arith["flash_dq"] = max(arith["flash_dq"], tight["dq"])
+            arith["flash_dkv"] = max(arith["flash_dkv"], tight["dk"],
+                                     tight["dv"])
         pairs = {"o": (o, ro), "lse": (lse, rlse), "dq": (dq, rdq),
                  "dk": (dk, rdk), "dv": (dv, rdv)}
         errs = {}
@@ -827,9 +873,10 @@ def phase_flash(torch) -> dict:
             check(err <= bound, f"flash {name} {key}: error {err} > {bound}")
         log(phase="flash", case=name, B=b, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv,
             D=d, dtype=dtype, causal=causal, window=window, softcap=softcap,
-            band_offsets=offs,
+            band_offsets=offs, body=fa._bwd_plan(d, q.dtype),
             metric="max_abs" if dtype == "fp32" else "rel_l2 (lse max_abs)",
-            **errs)
+            **errs, **({"kernel_arith_rel_l2": tight, "bitwise_repeat": True}
+                       if dtype == "bf16" else {}))
         if dtype == "fp32":
             worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"],
                                      errs["lse"])
@@ -840,8 +887,9 @@ def phase_flash(torch) -> dict:
         torch.cuda.empty_cache()
     # checking launches are not main-path launches
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
-    log(phase="flash", cases=len(FLASH_CASES), worst_fp32_max_abs=worst)
-    return worst
+    log(phase="flash", cases=len(FLASH_CASES), worst_fp32_max_abs=worst,
+        worst_bf16_kernel_arith_rel_l2=arith)
+    return {**worst, "kernel_arith": arith}
 
 
 # ---------------------------------------------------------------------------
@@ -872,23 +920,37 @@ def flash_bounds(b, s, hq, hkv, d, itemsize) -> dict:
     return out
 
 
+# (B, S, Hq, Hkv, D) of the two training paths' attention, bf16, causal
+FLASH_TIMING_SHAPES = {"1b-main": (4, 2048, 32, 8, 64),      # llama-3.2-1b
+                       "moe-train": (2, 2048, 32, 4, 128)}   # qwen3-30b-a3b
+
+
 def phase_flash_timing(torch) -> dict:
+    """shape -> kernel -> times at each training path's shape: the
+    kernels' device time from torch.profiler ("ms"), CUDA events around
+    back-to-back wrapper calls ("call_ms"), the plain versions, SDPA, the
+    bound and K3's causal tail."""
+    return {name: flash_timing_at(torch, *shape)
+            for name, shape in FLASH_TIMING_SHAPES.items()}
+
+
+def flash_timing_at(torch, b, s, hq, hkv, d) -> dict:
     import torch.nn.functional as F
 
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
-    b, s, hq, hkv, d = 4, 2048, 32, 8, 64      # llama-3.2-1b, -s 2048 -b 4
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     q, k, v, do = flash_case(torch, gen, b, s, s, hq, hkv, d, "bf16")
     counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
     o, lse = fa.flash_fwd(q, k, v)
     delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
     args = (q, k, v, do, lse, delta)
-    out = {name: {} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
-    out["flash_fwd"]["ms"] = cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=10)
-    out["flash_dq"]["ms"] = cuda_ms(lambda: fa.flash_bwd_dq(*args), iters=10)
-    out["flash_dkv"]["ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args),
-                                     iters=10)
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v),
+             "flash_dq": lambda: fa.flash_bwd_dq(*args),
+             "flash_dkv": lambda: fa.flash_bwd_dkv(*args)}
+    out = {name: {"call_ms": cuda_ms(fn, iters=10),
+                  "ms": device_ms(torch, fn, 10, [name])[name]}
+           for name, fn in calls.items()}
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
     out["flash_fwd"]["plain_ms"] = cuda_ms(
         lambda: fa.flash_attention_reference(q, k, v), iters=3, warmup=1)
@@ -916,14 +978,44 @@ def phase_flash_timing(torch) -> dict:
         out[name]["library_ms"] = both_ms - fwd_ms
         out[name]["library_note"] = ("SDPA forward+backward minus forward: "
                                      "dq, dk and dv together")
+    out["flash_dkv"]["causal_tail"] = k3_tail(
+        torch, fa, q, k, v, do, out["flash_dkv"]["ms"])
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
     for name, bound in flash_bounds(b, s, hq, hkv, d, 2).items():
         out[name].update(bound)
         out[name]["share_of_bound"] = bound["bound_ms"] / out[name]["ms"]
         log(phase="flash_timing", kernel=name, B=b, S=s, Hq=hq, Hkv=hkv, D=d,
-            dtype="bf16", causal=True, **out[name])
+            dtype="bf16", causal=True, body=(fa._bwd_plan(d, q.dtype)
+                                             if name != "flash_fwd"
+                                             else None), **out[name])
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
     return out
+
+
+def k3_tail(torch, fa, q, k, v, do, causal_ms: float) -> dict:
+    """K3's causal tail at this shape (Sq = Sk, a multiple of 64): its
+    device time against the sum of its blocks' work, priced at the rate
+    of a non-causal launch, where every block does the same work (each
+    group head's T = S / 64 q tiles). The causal blocks hold T (T + 1) / 2
+    of the non-causal T^2 tiles; ``tail_share`` is the part of the causal
+    time beyond that sum. ``heaviest_over_mean_slot`` is the heaviest
+    block's tiles over the mean tiles per block slot (2 per SM): above 1,
+    one block outlasts the even share of the card."""
+    b, s, hq, _ = q.shape
+    hkv = k.shape[2]
+    tiles = s // 64
+    o, lse = fa.flash_fwd(q, k, v, causal=False)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    full_ms = device_ms(torch, lambda: fa.flash_bwd_dkv(
+        q, k, v, do, lse, delta, causal=False), 10, ["flash_dkv"])["flash_dkv"]
+    even_ms = full_ms * (tiles + 1) / (2 * tiles)
+    slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    heaviest = (hq // hkv) * tiles
+    mean_slot = b * hq * tiles * (tiles + 1) / 2 / slots
+    return {"noncausal_ms": full_ms, "even_ms": even_ms,
+            "tail_share": 1 - even_ms / causal_ms,
+            "heaviest_over_mean_slot": heaviest / mean_slot}
 
 
 # ---------------------------------------------------------------------------
@@ -962,7 +1054,10 @@ def phase_train(torch, card: str) -> dict:
     layers = 16
     args = cli.get_parser().parse_args(
         TRAIN_ARGS + ["--max-steps", str(TRAIN_STEPS), "--log-freq", "2"])
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
     reset_flash_counts()                      # the main path starts here
+    copies = fa.ALIGN_COPIES
     t0 = time.perf_counter()
     out = cli.run_training(args)
     torch.cuda.synchronize()
@@ -972,6 +1067,8 @@ def phase_train(torch, card: str) -> dict:
     check(launches == {k: want for k in launches},
           f"train: launches {launches}, want {want} of each "
           f"({layers} per step)")
+    check(fa.ALIGN_COPIES == copies, f"train: {fa.ALIGN_COPIES - copies} "
+          f"operands copied for the TMA bodies' 16-byte rule")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
     check(len(infos) == TRAIN_STEPS // 2 and all(
@@ -985,7 +1082,7 @@ def phase_train(torch, card: str) -> dict:
                                     "peak_alloc_gb")})
     log(phase="train", steps=TRAIN_STEPS, wall_s=wall,
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-        batch=4, seq=2048, layers=layers)
+        alignment_copies=0, batch=4, seq=2048, layers=layers)
     state = out["state"]
     from distributed_training_guide_tpu_torch.models import get_model
 
@@ -1625,7 +1722,10 @@ def phase_moe_train(torch, card: str) -> dict:
     args = cli.get_parser().parse_args(
         MOE_TRAIN_ARGS + ["--moe-dispatch", "ragged", "--max-steps",
                           str(MOE_TRAIN_STEPS), "--log-freq", "2"])
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
     reset_moe_counts()                        # the main path starts here
+    copies = fa.ALIGN_COPIES
     t0 = time.perf_counter()
     out = cli.run_training(args, model_overrides=over)
     torch.cuda.synchronize()
@@ -1635,6 +1735,8 @@ def phase_moe_train(torch, card: str) -> dict:
                 "grouped_matmul": 6 * layers, "tgmm": 3 * layers}
     want = {k: v * MOE_TRAIN_STEPS for k, v in per_step.items()}
     check(launches == want, f"moe train: launches {launches}, want {want}")
+    check(fa.ALIGN_COPIES == copies, f"moe train: {fa.ALIGN_COPIES - copies}"
+          f" operands copied for the TMA bodies' 16-byte rule")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
     check(len(infos) == MOE_TRAIN_STEPS // 2 and all(
@@ -2139,6 +2241,15 @@ def check_int8_fp32_path(torch, model: str, prompt) -> None:
     torch.cuda.empty_cache()
 
 
+def fa_plan(d: int) -> str:
+    """The bf16 backward body at head_dim ``d``."""
+    import torch
+
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    return fa._bwd_plan(d, torch.bfloat16)
+
+
 def ptxas_summary(build) -> dict:
     """kernel -> {instantiation: [registers, spill store bytes]} from
     ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
@@ -2274,8 +2385,10 @@ def main() -> int:
         "ptxas_registers_spills": ptxas.get("paged_attend_combine", {}),
     }]
     replaces = {"flash_fwd": 112, "flash_dq": 297, "flash_dkv": 341}
+    shape_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "share_of_bound", "causal_tail")
     for name, line in replaces.items():
-        t = flash_timing[name]
+        t = flash_timing["1b-main"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "distributed_training_guide_tpu_torch/ops/csrc/"
@@ -2293,6 +2406,14 @@ def main() -> int:
             "shape": "B 4, S 2048, Hq 32, Hkv 8, D 64, bf16, causal",
             **({"library_note": t["library_note"]}
                if "library_note" in t else {}),
+            **({"body": fa_plan(64), "bf16_kernel_arith_rel_l2":
+                flash_worst["kernel_arith"][name]}
+               if name != "flash_fwd" else {}),
+            "shapes": {shape: {"B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
+                               **{kk: flash_timing[shape][name][kk]
+                                  for kk in shape_keys
+                                  if kk in flash_timing[shape][name]}}
+                       for shape in FLASH_TIMING_SHAPES},
         })
     keys = ("M", "K", "N", "G", "dtype", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")

@@ -2,9 +2,10 @@
 // and the dk/dv kernel.
 //
 // Replaces the TPU kernels distributed_training_guide_tpu/ops/
-// flash_attention.py `_dq_kernel` (K2) and `_dkv_kernel` (K3), both launched
-// by `flash_bwd_with_stats`. Both rebuild each probability tile from the
-// caller's logsumexp instead of storing the [S, S] attention matrix:
+// flash_attention.py `_dq_kernel` (K2, :297) and `_dkv_kernel` (K3, :341),
+// both launched by `flash_bwd_with_stats`. Both rebuild each probability
+// tile from the caller's logsumexp instead of storing the [S, S] attention
+// matrix:
 //   s = (q . k) * scale [-> t = tanh(s / cap), s = t * cap]
 //   p = exp(s - lse) on live pairs, 0 on masked ones
 //   ds = p * (dO . v - delta) [* (1 - t^2)] * scale
@@ -16,39 +17,65 @@
 // kernel's exp(NEG_INF - lse) would give 1: the kernel's gradient there is
 // 0, the gradient of the constant output.
 //
-// Design. On the TPU the dq grid (batch, head, q-block, kv-block) and the
+// Grid. On the TPU the dq grid (batch, head, q-block, kv-block) and the
 // dk/dv grid (batch, kv-head, kv-block, group member, q-block) carry their
 // accumulators across the inner steps in VMEM. Here K2 gives each block one
-// (q tile of 64 rows, b * Hq + h) and loops over the live kv tiles; K3 gives
-// each block one (kv tile, b * Hkv + kv head) and loops over the group's
-// query heads and, per head, the live q tiles. So dk and dv sum over the
-// group inside one block, in a fixed order: no atomics, deterministic
-// results, and the GQA reduction stays on-chip as in the TPU kernel. The
-// strided [B, S, H, D] reads are those of the forward, and so is the grid:
-// the tile is its slow axis, ordered so that causal blocks launch heaviest
-// first (K2 the last q tile, K3 the first kv tile). Two bodies each:
-// - bf16 inputs (`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`): tiles in
-//   dynamic shared memory as bf16, all products on the tensor cores (WMMA
-//   16x16x16, bf16 in, fp32 accumulate). The 8 warps each take two 16 x 16
-//   blocks of S = Q K^T and dP = dO V^T, staged through shared memory to a
-//   16 x 16 thread grid that forms p and ds; p and ds are rounded to bf16
-//   for the products that follow, as flash attention does on GPUs. The
-//   dq (K2) and dk / dv (K3) accumulators stay in the warps' WMMA
-//   fragments for the whole loop (no rescaling is needed in backward) and
-//   go through shared memory once, at the end.
-// - fp32 inputs (`flash_dq_kernel`, `flash_dkv_kernel`): tiles as fp32 rows
-//   padded by one float, register-blocked FMA on the CUDA cores, the
-//   accumulators in registers: full fp32.
+// (q tile, b * Hq + h) and loops over the live kv tiles; K3 gives each block
+// one (kv tile, b * Hkv + kv head) and loops over the group's query heads
+// and, per head, the live q tiles. So dk and dv sum over the group inside
+// one block, in a fixed order: no atomics, bitwise the same from run to
+// run. The tile is the grid's slow axis, ordered so that causal blocks
+// launch heaviest first (K2 the last q tile, K3 the first kv tile).
 //
-// Bound on H100: the operations (3 products for dq, 4 for dk/dv, each
-// 2 x D per live pair) against the 989 TFLOP/s bf16 tensor-core peak.
-// WMMA (mma.sync) staged through shared memory reaches a fraction of it;
-// wgmma with TMA is later work.
+// Bound on H100: the operations. Per live (query, key) pair K2 does 3
+// products and K3 4, each of 2 x D operations, against 989 TFLOP/s of bf16
+// tensor cores; the bytes (each input read once) are a tenth of that time
+// at S 2048. Which body runs depends on the dtype and D alone (`body_for`,
+// exported as `flash_bwd_body`):
+// - bf16, D 64 and 128 (`flash_dq_hopper_kernel`, `flash_dkv_hopper_kernel`):
+//   a block of one consumer warpgroup (64 rows) and one producer warpgroup
+//   that gives up its registers (`setmaxnreg`), two blocks per SM, whose
+//   wgmma batches and p / ds passes interleave. One producer thread feeds
+//   every operand tile by TMA (4-D tensor maps over [B, S, H, D] with the
+//   caller's strides, 128-byte swizzle, rows past S zero-filled) into a
+//   ring of shared-memory stages, each with a full and an empty
+//   `mbarrier`; in K3 the producer warp's 32 lanes also copy each q tile's
+//   64 lse and delta values into its stage (plain loads: a TMA copy would
+//   need them on 16 bytes, which a ragged Sq breaks). Every product is a
+//   `wgmma` m64n64k16 with fp32 accumulators in registers. K2 holds its Q
+//   and dO rows resident, computes S = Q K^T and dP = dO V^T with both
+//   operands in shared memory, forms p and ds in the accumulators' own
+//   layout (each register's row and column known from its index), rounds
+//   ds to bf16 A-fragments in registers (the m64nNk16 accumulator of
+//   columns 16 kk .. 16 kk + 15 is the A operand of k step kk) and adds
+//   dS K with the same K tile read N-major. K3 holds its K and V rows
+//   resident and computes S^T = K Q^T and dP^T = V dO^T, so that kv rows
+//   are the M dimension: P^T and dS^T come out of the accumulators as the
+//   register A operands of dV += P^T dO and dK += dS^T Q, with lse and
+//   delta indexed by column. The products of one tile are issued in the
+//   same wgmma batch as the next tile's scores, so the tensor cores see
+//   one batch per tile and the warpgroup one wait (K3 at D 128 excepted:
+//   its two 64 x 128 accumulators leave no registers for a second tile's
+//   fragments). Nothing between the loads and the outputs touches shared
+//   memory; dq, dk and dv leave through the warpgroup's own dead operand
+//   rows and 16-byte stores. p and ds are rounded to bf16 before the
+//   products that follow, as flash attention does on GPUs.
+// - bf16, D 256 (`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`): the WMMA
+//   bodies of the first port, S and dP staged through shared memory in
+//   fp32. K3's two 64 x 256 fp32 accumulators would not fit one
+//   warpgroup's registers; redesigning it is later work.
+// - fp32 (`flash_dq_kernel`, `flash_dkv_kernel`): tiles as fp32 rows padded
+//   by one float, register-blocked FMA on the CUDA cores, the accumulators
+//   in registers: full fp32.
+// A barrier that never completes traps after 10 s instead of hanging.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -362,7 +389,7 @@ flash_dkv_kernel(const BwdParams p) {
   }
 }
 
-// ------------------------------------------ tensor-core bodies (bf16 in)
+// ----------------------- WMMA bodies (bf16, D 256: the first port's design)
 
 template <int D>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
@@ -704,15 +731,702 @@ flash_dkv_tc_kernel(const BwdParams p) {
   }
 }
 
+// ------------------------------ Hopper bodies (bf16, D 64 and 128): wgmma
+
+constexpr int kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tensor maps of the operands (dO as `o`), then the scalars.
+struct TmaArgs {
+  CUtensorMap q, k, v, o;
+  BwdParams p;
+};
+
+// A block is one consumer warpgroup of 64 rows and one producer
+// warpgroup, two blocks per SM: 128 registers a thread at launch, then 24
+// for the producer and 232 for the consumer (24 + 232 = 2 x 128). Two
+// blocks interleave their wgmma batches and p / ds passes; two consumer
+// warpgroups of one block run in step and leave the tensor cores idle in
+// each other's p / ds pass.
+constexpr int kThreadsTma = 256;
+constexpr int kConsumerRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = global_ns();
+    } else if (global_ns() - start > 10000000000ull) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Matrix descriptor of a tile in the 128-byte swizzle that TMA writes: rows
+// of 128 bytes, 8-row atoms of 1024 bytes. Read K-major (k step = 32 bytes
+// along a row) the leading offset is unused; read N-major (k step = 16
+// rows) with n = 64 one swizzle atom spans N, so only the stride between
+// 8-row groups is read. Both offsets are 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B^T over one k step of 16, A [64 x 16] and B [64 x 16] both
+// K-major in shared memory. Accumulator of thread t of the warpgroup (warp
+// w, lane l): d[4 j + 2 i + e] is row 16 w + l / 4 + 8 i, column
+// 8 j + 2 (l % 4) + e.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B over one k step of 16: A [64 x 16] bf16 from registers (a[0]:
+// row 16 w + l / 4, columns 2 (l % 4) + {0, 1}; a[1]: row + 8; a[2], a[3]:
+// the same at columns + 8), B [16 x 64] N-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// s = A B^T over D for two 64-row tiles A and B (Q K^T, or K Q^T in K3):
+// D 128 keeps columns 64..127 in a second 64-row half 8 KB on
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, sw128_desc(a + (kk / 4) * 64 * 128 + (kk % 4) * 32),
+             sw128_desc(b + (kk / 4) * 64 * 128 + (kk % 4) * 32), kk > 0);
+}
+
+// every pair of rows [r0, r1] x columns [c0, c1] is live
+__device__ __forceinline__ bool block_live(const BwdParams& p, int r0, int r1,
+                                           int c0, int c1) {
+  if (r1 >= p.Sq || c1 >= p.Sk) return false;
+  if (!p.causal) return true;
+  const long long lo = static_cast<long long>(r0) + p.q_off - c1 - p.k_off;
+  const long long hi = static_cast<long long>(r1) + p.q_off - c0 - p.k_off;
+  return lo >= 0 && hi < p.window;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (p, ds) of one score from q.k and dO.v, with lse given as lse * log2(e);
+// CAP: the tanh softcap, MASK: test the pair (a tile that is live
+// throughout skips it). A masked pair gives exactly 0.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ ProbGrad grad_of(const BwdParams& p, float qk,
+                                            float dov, float lse_l2,
+                                            float delta, int row, int col) {
+  float pr, cap_grad = 1.f;
+  if (CAP) {
+    const float t = tanhf(qk * p.scale * (1.f / p.softcap));
+    pr = ex2(fmaf(t * p.softcap, kLog2e, -lse_l2));
+    cap_grad = 1.f - t * t;
+  } else {
+    pr = ex2(fmaf(qk, p.scale * kLog2e, -lse_l2));
+  }
+  if (MASK && !pair_live(p, row, col)) pr = 0.f;
+  float g = pr * (dov - delta);
+  if (CAP) g *= cap_grad;
+  return {pr, g * p.scale};
+}
+
+// K2's ds of a 64 x 64 score tile in the accumulator layout, rounded to
+// bf16 A-fragments: ds[2 j + i] holds row row_a + 8 i, columns
+// col_a + 8 j + {0, 1}
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dq_grads(const BwdParams& p,
+                                         const float (&s)[32],
+                                         const float (&dp)[32],
+                                         const float (&lse_l2)[2],
+                                         const float (&delta)[2], int row_a,
+                                         int col_a, uint32_t (&ds)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float g[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        g[e] = grad_of<CAP, MASK>(p, s[x], dp[x], lse_l2[i], delta[i],
+                                  row_a + 8 * i, col_a + 8 * j + e).ds;
+      }
+      ds[2 * j + i] = pack_bf16(g[0], g[1]);
+    }
+}
+
+// K3's p^T and ds^T of a 64 x 64 transposed score tile (rows kv, columns
+// q) as bf16 A-fragments, lse * log2(e) and delta of each column from the
+// stage
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dkv_grads(const BwdParams& p,
+                                          const float (&st)[32],
+                                          const float (&dpt)[32],
+                                          const float* ls, const float* dl,
+                                          int kv_a, int q_a, int col_a,
+                                          uint32_t (&pt)[16],
+                                          uint32_t (&dst)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lse2 = *reinterpret_cast<const float2*>(ls + 8 * j + col_a);
+    const float2 dl2 = *reinterpret_cast<const float2*>(dl + 8 * j + col_a);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float pv[2], gv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        const ProbGrad pg = grad_of<CAP, MASK>(
+            p, st[x], dpt[x], e ? lse2.y : lse2.x,
+            e ? dl2.y : dl2.x, q_a + 8 * j + e, kv_a + 8 * i);
+        pv[e] = pg.p;
+        gv[e] = pg.ds;
+      }
+      pt[2 * j + i] = pack_bf16(pv[0], pv[1]);
+      dst[2 * j + i] = pack_bf16(gv[0], gv[1]);
+    }
+  }
+}
+
+// The warpgroup's 64 x D fp32 accumulator, rounded to bf16, into the
+// 64-row swizzled tile it read an operand from (dead by now), then out to
+// `dst` rows [B, S, H, D] with 16-byte stores, rows from `valid` on dropped
+template <int D>
+__device__ __forceinline__ void store_tile(float (&acc)[D / 64][32],
+                                           unsigned char* tile, bf16* dst,
+                                           long long row_stride, int valid) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int nh = 0; nh < D / 64; ++nh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = 16 * warp + lane / 4 + 8 * i;
+        *reinterpret_cast<uint32_t*>(tile + nh * 64 * 128 + r * 128 +
+                                     ((j ^ (r % 8)) * 16) + (lane % 4) * 4) =
+            pack_bf16(acc[nh][4 * j + 2 * i], acc[nh][4 * j + 2 * i + 1]);
+      }
+  asm volatile("bar.sync 1, 128;" ::: "memory");  // the consumers only
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    if (r >= valid) break;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        tile + (c / 8) * 64 * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16));
+    *reinterpret_cast<uint4*>(dst + r * row_stride + c * 8) = val;
+  }
+}
+
+template <int D, int STAGES>
+struct DqHopperSmem {
+  static constexpr int half = 64 * 128;               // bytes per 64 columns
+  static constexpr int q = 0;                         // [D / 64][64][64]
+  static constexpr int o = q + 64 * D * 2;            // dO
+  static constexpr int kv = o + 64 * D * 2;           // stages: K then V
+  static constexpr int stage = 2 * 64 * D * 2;
+  static constexpr int bars = kv + STAGES * stage;    // full, empty, resident
+  static constexpr int bytes = bars + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// dq += dS K over one 64-key tile: dS from registers, K read N-major
+template <int D>
+__device__ __forceinline__ void dq_product(float (&dq)[D / 64][32],
+                                           const uint32_t (&ds)[16],
+                                           uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nh = 0; nh < D / 64; ++nh)
+      wgmma_rs(dq[nh], ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
+               ds[4 * kk + 3], sw128_desc(ka + nh * 64 * 128 + kk * 2048));
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreadsTma, 2)
+    flash_dq_hopper_kernel(const __grid_constant__ TmaArgs a) {
+  using L = DqHopperSmem<D, STAGES>;
+  const BwdParams& p = a.p;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* smem =
+      smem_tma + ((1024 - (smem_u32(smem_tma) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bars;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t resident = empty + 8 * STAGES;
+
+  const int n_qt = (p.Sq + 63) / 64;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * 64;
+  const int b = blockIdx.x / p.Hq;
+  const int h = blockIdx.x % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  long long j_lo = 0, j_hi = p.Sk - 1;
+  if (p.causal) {
+    j_hi = min(j_hi, static_cast<long long>(q0) + 63 + p.q_off - p.k_off);
+    j_lo = max(j_lo, static_cast<long long>(q0) + p.q_off - p.k_off -
+                         p.window + 1);
+  }
+  const int t_lo = static_cast<int>(j_lo / 64);
+  const int t_hi = j_hi < j_lo ? t_lo - 1 : static_cast<int>(j_hi / 64);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(resident, 2 * 64 * D * 2);
+      for (int hf = 0; hf < D / 64; ++hf) {
+        tma_load_4d(base + L::q + hf * L::half, &a.q, resident, hf * 64, h,
+                    q0, b);
+        tma_load_4d(base + L::o + hf * L::half, &a.o, resident, hf * 64, h,
+                    q0, b);
+      }
+      int stage = 0, phase = 0;
+      for (int t = t_lo; t <= t_hi; ++t) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = base + L::kv + stage * L::stage;
+        mbar_expect_tx(full + 8 * stage, L::stage);
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(st + hf * L::half, &a.k, full + 8 * stage, hf * 64,
+                      hk, t * 64, b);
+          tma_load_4d(st + 64 * D * 2 + hf * L::half, &a.v, full + 8 * stage,
+                      hf * 64, hk, t * 64, b);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // the consumer warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int row_a = q0 + 16 * warp + lane / 4;            // + 8 i
+    const int col_a = 2 * (lane % 4);                       // + 8 j + e
+    const long long stat = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+    float lse_l2[2], delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_a + 8 * i;
+      lse_l2[i] = r < p.Sq ? p.lse[stat + r] * kLog2e : 0.f;
+      delta[i] = r < p.Sq ? p.delta[stat + r] : 0.f;
+    }
+    float dq[D / 64][32];
+#pragma unroll
+    for (int nh = 0; nh < D / 64; ++nh)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq[nh][x] = 0.f;
+    mbar_wait(resident, 0);
+    // dS K of tile t is issued with the scores of tile t + 1, so the
+    // tensor cores see one batch per tile; its stage is released after
+    uint32_t ds[16];  // ds[2 j + i]: row + 8 i, columns 8 j + col_a + e
+    int stage = 0, phase = 0, prev = -1;
+    uint32_t prev_ka = 0;
+    for (int t = t_lo; t <= t_hi; ++t) {
+      const int k0 = t * 64;
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t ka = base + L::kv + stage * L::stage;
+      const uint32_t va = ka + 64 * D * 2;
+      float s[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
+      wg_fence();
+      if (prev >= 0) dq_product<D>(dq, ds, prev_ka);
+      scores<D>(s, base + L::q, ka);
+      scores<D>(dp, base + L::o, va);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int nh = 0; nh < D / 64; ++nh) fence_regs(dq[nh]);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      const bool masked = !block_live(p, q0, q0 + 63, k0, k0 + 63);
+      const int col_k = k0 + col_a;
+      if (p.softcap > 0.f) {
+        if (masked)
+          dq_grads<true, true>(p, s, dp, lse_l2, delta, row_a, col_k, ds);
+        else
+          dq_grads<true, false>(p, s, dp, lse_l2, delta, row_a, col_k, ds);
+      } else if (masked) {
+        dq_grads<false, true>(p, s, dp, lse_l2, delta, row_a, col_k, ds);
+      } else {
+        dq_grads<false, false>(p, s, dp, lse_l2, delta, row_a, col_k, ds);
+      }
+      prev = stage;
+      prev_ka = ka;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (prev >= 0) {
+      wg_fence();
+      dq_product<D>(dq, ds, prev_ka);
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int nh = 0; nh < D / 64; ++nh) fence_regs(dq[nh]);
+    }
+    store_tile<D>(dq, smem + L::q,
+                  static_cast<bf16*>(p.dq) +
+                      ((static_cast<long long>(b) * p.Sq + q0) * p.Hq + h) * D,
+                  static_cast<long long>(p.Hq) * D, min(64, p.Sq - q0));
+  }
+}
+
+template <int D, int STAGES>
+struct DkvHopperSmem {
+  static constexpr int half = 64 * 128;                // bytes per 64 columns
+  static constexpr int k = 0;                          // [D / 64][64][64]
+  static constexpr int v = k + 64 * D * 2;
+  static constexpr int qo = v + 64 * D * 2;            // stages: Q then dO
+  static constexpr int stage = 2 * 64 * D * 2;
+  static constexpr int stat = qo + STAGES * stage;     // stages: lse, delta
+  static constexpr int bars = stat + STAGES * 512;
+  static constexpr int bytes = bars + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// dv += P^T dO and dk += dS^T Q over one 64-row q tile: P^T and dS^T from
+// registers, dO and Q read N-major
+template <int D>
+__device__ __forceinline__ void kv_products(float (&dk)[D / 64][32],
+                                            float (&dv)[D / 64][32],
+                                            const uint32_t (&pt)[16],
+                                            const uint32_t (&dst)[16],
+                                            uint32_t qs, uint32_t os) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nh = 0; nh < D / 64; ++nh) {
+      wgmma_rs(dv[nh], pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2],
+               pt[4 * kk + 3], sw128_desc(os + nh * 64 * 128 + kk * 2048));
+      wgmma_rs(dk[nh], dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2],
+               dst[4 * kk + 3], sw128_desc(qs + nh * 64 * 128 + kk * 2048));
+    }
+}
+
+// OVERLAP: the dk / dv products of q tile t go with the scores of tile
+// t + 1, as in K2; without it (D 128, where the two 64 x 128 accumulators
+// leave no registers for a second tile's fragments) each tile's products
+// are issued and waited for in turn.
+template <int D, int STAGES, bool OVERLAP>
+__global__ void __launch_bounds__(kThreadsTma, 2)
+    flash_dkv_hopper_kernel(const __grid_constant__ TmaArgs a) {
+  using L = DkvHopperSmem<D, STAGES>;
+  const BwdParams& p = a.p;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* smem =
+      smem_tma + ((1024 - (smem_u32(smem_tma) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bars;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t resident = empty + 8 * STAGES;
+
+  const int k0 = blockIdx.y * 64;
+  const int b = blockIdx.x / p.Hkv;
+  const int hk = blockIdx.x % p.Hkv;
+  const int groups = p.Hq / p.Hkv;
+  long long i_lo = 0, i_hi = p.Sq - 1;
+  if (p.causal) {
+    i_lo = max(i_lo, static_cast<long long>(k0) + p.k_off - p.q_off);
+    i_hi = min(i_hi, static_cast<long long>(k0) + 63 + p.k_off - p.q_off +
+                         p.window - 1);
+  }
+  const int t_lo = static_cast<int>(i_lo / 64);
+  const int t_hi = i_hi < i_lo ? t_lo - 1 : static_cast<int>(i_hi / 64);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 33);  // the TMA thread's and 32 stat lanes'
+      mbar_init(empty + 8 * s, 4);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    // its first warp: lane 0 issues the TMA copies, the 32 lanes copy the
+    // q tile's lse (times log2(e)) and delta (any Sq: no alignment to meet)
+    if (threadIdx.x < 128 + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(resident, 2 * 64 * D * 2);
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(base + L::k + hf * L::half, &a.k, resident, hf * 64, hk,
+                      k0, b);
+          tma_load_4d(base + L::v + hf * L::half, &a.v, resident, hf * 64, hk,
+                      k0, b);
+        }
+      }
+      int stage = 0, phase = 0;
+      for (int g = 0; g < groups; ++g) {
+        const int h = hk * groups + g;
+        const long long stat = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+        for (int t = t_lo; t <= t_hi; ++t) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          if (lane == 0) {
+            const uint32_t st = base + L::qo + stage * L::stage;
+            mbar_expect_tx(bar, L::stage);
+            for (int hf = 0; hf < D / 64; ++hf) {
+              tma_load_4d(st + hf * L::half, &a.q, bar, hf * 64, h, t * 64,
+                          b);
+              tma_load_4d(st + 64 * D * 2 + hf * L::half, &a.o, bar, hf * 64,
+                          h, t * 64, b);
+            }
+          }
+          float* ls = reinterpret_cast<float*>(smem + L::stat + stage * 512);
+#pragma unroll
+          for (int i = lane; i < 64; i += 32) {
+            const int r = t * 64 + i;
+            ls[i] = r < p.Sq ? p.lse[stat + r] * kLog2e : 0.f;
+            ls[64 + i] = r < p.Sq ? p.delta[stat + r] : 0.f;
+          }
+          mbar_arrive(bar);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // the consumer warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int kv_a = k0 + 16 * warp + lane / 4;            // + 8 i
+    const int col_a = 2 * (lane % 4);                      // + 8 j + e
+    float dk[D / 64][32], dv[D / 64][32];
+#pragma unroll
+    for (int nh = 0; nh < D / 64; ++nh)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dk[nh][x] = dv[nh][x] = 0.f;
+    mbar_wait(resident, 0);
+    uint32_t pt[16], dst[16];  // [2 j + i]: kv row + 8 i, q 8 j + col_a + e
+    int stage = 0, phase = 0, prev = -1;
+    uint32_t prev_qs = 0;
+    for (int g = 0; g < groups; ++g) {
+      for (int t = t_lo; t <= t_hi; ++t) {
+        const int q0 = t * 64;
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t qs = base + L::qo + stage * L::stage;
+        const uint32_t os = qs + 64 * D * 2;
+        const float* ls =
+            reinterpret_cast<const float*>(smem + L::stat + stage * 512);
+        const float* dl = ls + 64;
+        float st[32], dpt[32];  // S^T, dP^T: rows kv, columns q
+#pragma unroll
+        for (int x = 0; x < 32; ++x) st[x] = dpt[x] = 0.f;
+        wg_fence();
+        if (OVERLAP && prev >= 0)
+          kv_products<D>(dk, dv, pt, dst, prev_qs, prev_qs + 64 * D * 2);
+        scores<D>(st, base + L::k, qs);
+        scores<D>(dpt, base + L::v, os);
+        wg_commit();
+        wg_wait0();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (OVERLAP && prev >= 0) {
+#pragma unroll
+          for (int nh = 0; nh < D / 64; ++nh) {
+            fence_regs(dk[nh]);
+            fence_regs(dv[nh]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
+        }
+        const bool masked = !block_live(p, q0, q0 + 63, k0, k0 + 63);
+        const int q_a = q0 + col_a;
+        if (p.softcap > 0.f) {
+          if (masked)
+            dkv_grads<true, true>(p, st, dpt, ls, dl, kv_a, q_a, col_a, pt,
+                                  dst);
+          else
+            dkv_grads<true, false>(p, st, dpt, ls, dl, kv_a, q_a, col_a, pt,
+                                   dst);
+        } else if (masked) {
+          dkv_grads<false, true>(p, st, dpt, ls, dl, kv_a, q_a, col_a, pt,
+                                 dst);
+        } else {
+          dkv_grads<false, false>(p, st, dpt, ls, dl, kv_a, q_a, col_a, pt,
+                                  dst);
+        }
+        if (!OVERLAP) {
+          wg_fence();
+          kv_products<D>(dk, dv, pt, dst, qs, os);
+          wg_commit();
+          wg_wait0();
+#pragma unroll
+          for (int nh = 0; nh < D / 64; ++nh) {
+            fence_regs(dk[nh]);
+            fence_regs(dv[nh]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * stage);
+        }
+        prev = stage;
+        prev_qs = qs;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if (OVERLAP && prev >= 0) {
+      wg_fence();
+      kv_products<D>(dk, dv, pt, dst, prev_qs, prev_qs + 64 * D * 2);
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int nh = 0; nh < D / 64; ++nh) {
+        fence_regs(dk[nh]);
+        fence_regs(dv[nh]);
+      }
+    }
+    const long long out =
+        ((static_cast<long long>(b) * p.Sk + k0) * p.Hkv + hk) * D;
+    const int valid = min(64, p.Sk - k0);
+    store_tile<D>(dk, smem + L::k, static_cast<bf16*>(p.dk) + out,
+                  static_cast<long long>(p.Hkv) * D, valid);
+    store_tile<D>(dv, smem + L::v, static_cast<bf16*>(p.dv) + out,
+                  static_cast<long long>(p.Hkv) * D, valid);
+  }
+}
+
 // ----------------------------------------------------------- launches
 
-template <typename K>
-int launch_kernel(K kernel, int smem, dim3 grid, const BwdParams& p,
+template <typename K, typename A>
+int launch_kernel(K kernel, int smem, dim3 grid, int threads, const A& args,
                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -721,34 +1435,136 @@ int launch_fp32(bool dkv, const BwdParams& p, cudaStream_t stream) {
   if (dkv)
     return launch_kernel(flash_dkv_kernel<D, BQ, BK>,
                          dkv_smem_bytes<D, BQ, BK>(),
-                         dim3(p.B * p.Hkv, (p.Sk + BK - 1) / BK), p, stream);
-  return launch_kernel(flash_dq_kernel<D, BQ, BK>,
-                       dq_smem_bytes<D, BQ, BK>(),
-                       dim3(p.B * p.Hq, (p.Sq + BQ - 1) / BQ), p, stream);
+                         dim3(p.B * p.Hkv, (p.Sk + BK - 1) / BK), kThreads, p,
+                         stream);
+  return launch_kernel(flash_dq_kernel<D, BQ, BK>, dq_smem_bytes<D, BQ, BK>(),
+                       dim3(p.B * p.Hq, (p.Sq + BQ - 1) / BQ), kThreads, p,
+                       stream);
 }
 
 template <int D>
-int launch_bf16(bool dkv, const BwdParams& p, cudaStream_t stream) {
+int launch_wmma(bool dkv, const BwdParams& p, cudaStream_t stream) {
   if (dkv)
     return launch_kernel(flash_dkv_tc_kernel<D>, DkvTcSmem<D>::bytes,
-                         dim3(p.B * p.Hkv, (p.Sk + 63) / 64), p, stream);
+                         dim3(p.B * p.Hkv, (p.Sk + 63) / 64), kThreads, p,
+                         stream);
   return launch_kernel(flash_dq_tc_kernel<D>, DqTcSmem<D>::bytes,
-                       dim3(p.B * p.Hq, (p.Sq + 63) / 64), p, stream);
+                       dim3(p.B * p.Hq, (p.Sq + 63) / 64), kThreads, p,
+                       stream);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that the process already runs on
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// bf16 [B, S, H, D] through element strides (sb, ss, sh), boxes of 64
+// columns x 64 rows of one head, 128-byte swizzle, rows past S read as 0
+bool map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              long long sb, long long ss, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kNoTensorMap = -2;     // the driver refused a tensor map
+constexpr int kFewRegisters = -3;    // setmaxnreg would wait forever
+
+template <typename K>
+int launch_hopper(K kernel, int smem, dim3 grid, const TmaArgs& args,
+                  cudaStream_t stream) {
+  // the block's registers at launch must cover what setmaxnreg hands out
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * kThreadsTma < (kProducerRegs + kConsumerRegs) * 128)
+    return kFewRegisters;
+  return launch_kernel(kernel, smem, grid, kThreadsTma, args, stream);
+}
+
+// The Hopper bodies' ring depth and whether K3 overlaps a tile's products
+// with the next tile's scores, by D. Both keep two blocks per SM (at most
+// 113 KB each). At D 128 a stage holds 32 KB, so the ring has 2; and K3
+// does not overlap: its two 64 x 128 fp32 accumulators leave no registers
+// for a second tile's fragments.
+template <int D>
+struct HopperShape {
+  static constexpr int stages = D == 64 ? 4 : 2;
+  static constexpr bool dkv_overlap = D == 64;
+};
+
+template <int D>
+int launch_wgmma(bool dkv, const BwdParams& p, cudaStream_t stream) {
+  using H = HopperShape<D>;
+  if (encode_tiled() == nullptr) return kNoTensorMap;
+  TmaArgs a;
+  memset(&a, 0, sizeof(a));
+  a.p = p;
+  if (!(map_bshd(&a.q, p.q, p.B, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh) &&
+        map_bshd(&a.o, p.dout, p.B, p.Sq, p.Hq, D, p.o_sb, p.o_ss, p.o_sh) &&
+        map_bshd(&a.k, p.k, p.B, p.Sk, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh) &&
+        map_bshd(&a.v, p.v, p.B, p.Sk, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh)))
+    return kNoTensorMap;
+  if (dkv)
+    return launch_hopper(
+        flash_dkv_hopper_kernel<D, H::stages, H::dkv_overlap>,
+        DkvHopperSmem<D, H::stages>::bytes,
+        dim3(p.B * p.Hkv, (p.Sk + 63) / 64), a, stream);
+  return launch_hopper(flash_dq_hopper_kernel<D, H::stages>,
+                       DqHopperSmem<D, H::stages>::bytes,
+                       dim3(p.B * p.Hq, (p.Sq + 63) / 64), a, stream);
+}
+
+// The body of each (dtype, D), the one table of it: `launch` runs what it
+// names, and ops/flash_attention.py holds its `_bwd_plan` against
+// `flash_bwd_body` when it loads this library.
+enum Body { kFma = 0, kWmma = 1, kWgmma = 2 };
+
+int body_for(bool bf16_in, int D) {
+  if (D != 64 && D != 128 && D != 256) return -1;
+  if (!bf16_in) return kFma;
+  return D == 256 ? kWmma : kWgmma;
 }
 
 int launch(bool bf16_in, bool dkv, int D, const BwdParams& p,
            cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return bf16_in ? launch_bf16<64>(dkv, p, stream)
-                     : launch_fp32<64, 64, 64>(dkv, p, stream);
-    case 128:
-      return bf16_in ? launch_bf16<128>(dkv, p, stream)
-                     : launch_fp32<128, 64, 64>(dkv, p, stream);
-    case 256:
-      return bf16_in ? launch_bf16<256>(dkv, p, stream)
-                     : (dkv ? launch_fp32<256, 32, 32>(true, p, stream)
-                            : launch_fp32<256, 64, 32>(false, p, stream));
+  switch (body_for(bf16_in, D)) {
+    case kWgmma:
+      return D == 64 ? launch_wgmma<64>(dkv, p, stream)
+                     : launch_wgmma<128>(dkv, p, stream);
+    case kWmma:
+      return launch_wmma<256>(dkv, p, stream);
+    case kFma:
+      if (D == 64) return launch_fp32<64, 64, 64>(dkv, p, stream);
+      if (D == 128) return launch_fp32<128, 64, 64>(dkv, p, stream);
+      return dkv ? launch_fp32<256, 32, 32>(true, p, stream)
+                 : launch_fp32<256, 64, 32>(false, p, stream);
     default:
       return -1;
   }
@@ -821,6 +1637,13 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 // inputs' dtype: dq [B, Sq, Hq, D] (flash_bwd_dq); dk, dv [B, Sk, Hkv, D]
 // (flash_bwd_dkv). Each returns 0, the cudaError_t of its launch, or -1
 // for a shape or dtype the kernel does not take.
+// The body that K2 and K3 run for `dtype` (0 fp32, 1 bf16) and head_dim
+// `D`: 0 the FMA body, 1 WMMA, 2 wgmma; -1 for a pair they do not take.
+extern "C" int flash_bwd_body(int dtype, int D) {
+  if (dtype != kF32 && dtype != kBF16) return -1;
+  return body_for(dtype == kBF16, D);
+}
+
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int Sq, int Sk,

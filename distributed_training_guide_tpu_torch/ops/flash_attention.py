@@ -5,7 +5,8 @@ Counterpart of ``distributed_training_guide_tpu/ops/flash_attention.py``,
 whose Pallas kernels are rewritten here in CUDA for ``sm_90a``:
 ``_fwd_kernel`` (K1) as ``csrc/flash_fwd.cu``, ``_dq_kernel`` (K2) and
 ``_dkv_kernel`` (K3) as ``csrc/flash_bwd.cu`` (design and bound in their
-headers). Shapes follow the JAX package's public function: q [B, Sq, Hq, D],
+headers; ``_bwd_plan`` names the backward body of each dtype and D).
+Shapes follow the JAX package's public function: q [B, Sq, Hq, D],
 k / v [B, Sk, Hkv, D], grouped-query heads when Hkv < Hq; the kernels read
 that layout through strides, so nothing is transposed.
 
@@ -22,11 +23,15 @@ would give exp(0) = 1 on its masked lanes there).
 Each wrapper runs the plain PyTorch version (``flash_attention_reference``,
 ``flash_bwd_reference``) for CPU tensors, which is the one reason it ever
 takes it, and launches its kernel for CUDA tensors, or raises.
-``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count launches.
+``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count launches;
+``ALIGN_COPIES`` counts operands that the Hopper backward bodies' tensor
+maps could not read in place (a base or stride off 16 bytes) and that were
+copied before the launch.
 """
 from __future__ import annotations
 
 import ctypes
+import logging
 import math
 from typing import Optional
 
@@ -38,10 +43,13 @@ from .attention import NO_WINDOW, check_static_window
 FWD_LAUNCHES = 0    # K1 launches since the caller last reset it
 DQ_LAUNCHES = 0     # K2
 DKV_LAUNCHES = 0    # K3
+ALIGN_COPIES = 0    # operands copied for the TMA bodies' 16-byte rule
 NEG_INF = -1e30     # the kernels' mask constant
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODIES = ("fma", "wmma", "wgmma")   # the codes of flash_bwd_body
 _fns: dict = {}
+_log = logging.getLogger(__name__)
 
 
 def pack_band(window=None, q_off: int = 0, k_off: int = 0) -> torch.Tensor:
@@ -111,9 +119,11 @@ def flash_attention_reference(q, k, v, *, causal: bool = True, window=None,
 
 
 def _bwd_terms(q, k, v, do, lse, delta, causal, window, scale, softcap,
-               band):
+               band, round_p_ds=False):
     """The probabilities and score grads of K2 / K3 ([B, Hkv, G, Sq, Sk]
-    fp32), rebuilt from ``lse`` / ``delta`` [B, Hq, Sq]."""
+    fp32), rebuilt from ``lse`` / ``delta`` [B, Hq, Sq]; with
+    ``round_p_ds`` each rounded to q's dtype, as the kernels round them
+    before the products that follow (ds from the unrounded p)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -128,26 +138,34 @@ def _bwd_terms(q, k, v, do, lse, delta, causal, window, scale, softcap,
     ds = p * (dp - delta.float().reshape(b, hkv, g, sq, 1))
     if t is not None:
         ds = ds * (1.0 - t * t)
-    return p, ds * scale, dog
+    ds = ds * scale
+    if round_p_ds:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    return p, ds, dog
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal: bool = True,
                        window=None, scale: Optional[float] = None,
-                       softcap: Optional[float] = None, band=None):
-    """The plain version of K2: dq in q's dtype."""
+                       softcap: Optional[float] = None, band=None,
+                       round_p_ds: bool = False):
+    """The plain version of K2: dq in q's dtype. ``round_p_ds`` rounds ds
+    to q's dtype before the product, as the bf16 bodies do (a no-op for
+    fp32)."""
     _, ds, _ = _bwd_terms(q, k, v, do, lse, delta, causal, window, scale,
-                          softcap, band)
+                          softcap, band, round_p_ds)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
     return dq.reshape(q.shape).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal: bool = True,
                         window=None, scale: Optional[float] = None,
-                        softcap: Optional[float] = None, band=None):
+                        softcap: Optional[float] = None, band=None,
+                        round_p_ds: bool = False):
     """The plain version of K3: (dk, dv) in k's dtype, summed over each kv
-    head's group."""
+    head's group. ``round_p_ds`` rounds p and ds to q's dtype before the
+    products, as the bf16 bodies do (a no-op for fp32)."""
     p, ds, dog = _bwd_terms(q, k, v, do, lse, delta, causal, window, scale,
-                            softcap, band)
+                            softcap, band, round_p_ds)
     qg = q.float().reshape(dog.shape)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
@@ -170,6 +188,8 @@ def _kernel(name: str):
     if fn is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
+        if name != "flash_fwd":
+            _check_body_table(lib)
         fn = getattr(lib, name)
         n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
         fn.argtypes = ([ptr] * n_ptr + [i32] * 6 + [ptr] + [i32] * 5
@@ -177,6 +197,22 @@ def _kernel(name: str):
         fn.restype = i32
         _fns[name] = fn
     return fn
+
+
+def _check_body_table(lib) -> None:
+    """Raises unless the library's ``flash_bwd_body`` picks, for every
+    dtype and head_dim, the body that ``_bwd_plan`` names."""
+    body = lib.flash_bwd_body
+    body.argtypes = [ctypes.c_int, ctypes.c_int]
+    body.restype = ctypes.c_int
+    for dtype, code in _DTYPE_CODE.items():
+        for d in HEAD_DIMS:
+            got = body(code, d)
+            got = _BODIES[got] if 0 <= got < len(_BODIES) else got
+            if got != _bwd_plan(d, dtype):
+                raise RuntimeError(
+                    f"flash_bwd.cu runs body {got} at {dtype}, D {d}; "
+                    f"_bwd_plan names {_bwd_plan(d, dtype)}")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -207,6 +243,38 @@ def _check_operands(q, k, v, *extra) -> None:
         _check(x.stride(-1) == 1, "head_dim must be contiguous (stride 1)")
 
 
+def _bwd_plan(d: int, dtype) -> str:
+    """The backward body that ``flash_bwd.cu`` runs for head_dim ``d`` and
+    ``dtype``, from those two alone: "wgmma" (bf16, D 64 / 128: TMA ring,
+    wgmma, scores in registers), "wmma" (bf16, D 256) or "fma" (fp32).
+    ``_check_body_table`` holds it against the library's own table when
+    the library loads."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in (64, 128) else "wmma"
+    return "fma"
+
+
+def _tma_ready(x) -> bool:
+    """A base and (b, s, h) strides on 16 bytes, as a tensor map needs."""
+    return (x.data_ptr() % 16 == 0
+            and all(x.stride(i) * x.element_size() % 16 == 0
+                    for i in range(x.ndim - 1)))
+
+
+def _tma_operands(*xs) -> list:
+    """Each [B, S, H, D] operand as the TMA bodies can read it: itself, or
+    a contiguous copy (counted in ``ALIGN_COPIES``) when its base or
+    strides are off 16 bytes."""
+    global ALIGN_COPIES
+    out = []
+    for x in xs:
+        if not _tma_ready(x):
+            x = x.clone(memory_format=torch.contiguous_format)
+            ALIGN_COPIES += 1
+        out.append(x)
+    return out
+
+
 def _strides(*xs):
     vals = [x.stride(i) for x in xs for i in range(3)]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -231,10 +299,18 @@ def _launch_fwd(fn, q, k, v, causal, band, scale, softcap):
     return o, lse
 
 
+_BWD_ERRORS = {-2: "the driver refused a tensor map",
+               -3: "too few registers at launch for setmaxnreg"}
+
+
 def _launch_bwd(fn, dkv: bool, q, k, v, do, lse, delta, causal, band,
                 scale, softcap):
     """dq (K2) or (dk, dv) (K3) from one launch through ``fn``."""
     b, sq, hq, d = q.shape
+    plan = _bwd_plan(d, q.dtype)
+    _log.debug("flash_bwd_%s: body %s", "dkv" if dkv else "dq", plan)
+    if plan == "wgmma" and q.is_cuda:
+        q, k, v, do = _tma_operands(q, k, v, do)
     sk, hkv = k.shape[1], k.shape[2]
     window, q_off, k_off = band
     outs = ([torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -248,9 +324,11 @@ def _launch_bwd(fn, dkv: bool, q, k, v, do, lse, delta, causal, band,
             _DTYPE_CODE[q.dtype], int(causal), window, q_off, k_off,
             float(scale), float(softcap or 0.0), stream)
     if rc != 0:
+        why = f": {_BWD_ERRORS[rc]}" if rc in _BWD_ERRORS else ""
         raise RuntimeError(f"{'flash_bwd_dkv' if dkv else 'flash_bwd_dq'} "
-                           f"kernel launch failed (code {rc}) at q "
-                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+                           f"kernel launch failed (code {rc}{why}) at q "
+                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, "
+                           f"body {plan}")
     return tuple(outs) if dkv else outs[0]
 
 

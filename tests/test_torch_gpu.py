@@ -353,6 +353,102 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd(q, k.cpu(), v)
 
 
+# the Hopper backward bodies (bf16, D 64 / 128) against the plain version
+# at their own arithmetic (``round_p_ds``: p and ds rounded to bf16 before
+# the products): only the fp32 order of the sums and the exp differ
+# (~1e-6 relative), which moves a few bf16 roundings of p, ds and the
+# outputs by one ulp, ~1e-4 in relative L2; 1e-3 leaves 10x room
+FLASH_KERNEL_ARITH_REL_L2 = 1e-3
+# (B, Sq, Sk, causal, window, softcap, band offsets): lengths off the 64-
+# and 128-row tiles, Sq != Sk, a band, a softcap, a window
+HOPPER_BWD_CASES = {
+    "ragged": (2, 200, 333, False, None, None, None),
+    "ragged-causal": (1, 333, 200, True, None, None, (133, 0)),
+    "cross": (1, 130, 390, True, None, None, (260, 0)),
+    "band": (1, 300, 300, True, 64, None, (32, 8)),
+    "softcap": (2, 257, 257, True, None, 5.0, None),
+    "window": (1, 450, 450, True, 100, None, None),
+}
+HOPPER_GRID = list(itertools.product([64, 128], [4, 8],
+                                     list(HOPPER_BWD_CASES)))
+
+
+@pytest.mark.parametrize("d,groups,name", HOPPER_GRID,
+                         ids=[f"d{d}-g{g}-{n}" for d, g, n in HOPPER_GRID])
+def test_hopper_bwd_bodies_match_plain_versions(cuda, d, groups, name):
+    """bf16 K2 / K3 (the wgmma bodies) against the fp32 plain version at
+    the bf16 bound, against the plain version at their own arithmetic at
+    a tight bound, and bitwise equal from one launch to the next."""
+    assert fa._bwd_plan(d, torch.bfloat16) == "wgmma"
+    b, sq, sk, causal, window, softcap, offs = HOPPER_BWD_CASES[name]
+    hkv = 2
+    gen = torch.Generator(device=cuda).manual_seed(d + groups)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+                   for shape in ((b, sq, hkv * groups, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d), (b, sq, hkv * groups, d)))
+    kw = dict(causal=causal, softcap=softcap)
+    if offs is None:
+        kw["window"] = window
+    else:
+        kw["band"] = fa.pack_band(window, *offs)
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.ALIGN_COPIES)
+    got = fa.flash_bwd_with_stats(*args, **kw)
+    again = fa.flash_bwd_with_stats(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.ALIGN_COPIES) == (
+        before[0] + 2, before[1] + 2, before[2])
+    plain = fa.flash_bwd_reference(*args, **kw)
+    arith = (fa.flash_dq_reference(*args, **kw, round_p_ds=True),
+             *fa.flash_dkv_reference(*args, **kw, round_p_ds=True))
+    for key, g, a, w, wa in zip(("dq", "dk", "dv"), got, again, plain,
+                                arith):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(g, a), key
+        for want, bound in ((w, FLASH_BF16_REL_L2),
+                            (wa, FLASH_KERNEL_ARITH_REL_L2)):
+            err = ((g.float() - want.float()).norm()
+                   / want.float().norm()).item()
+            assert err <= bound, (key, err, bound)
+
+
+def test_hopper_bwd_copies_a_misaligned_operand(cuda):
+    """An operand whose base is off 16 bytes cannot be read by a tensor
+    map: the wrapper copies it (counted in ``ALIGN_COPIES``) and the
+    result is that of the aligned operand, bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, s, hq, hkv, d = 1, 192, 8, 2, 64
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+                   for shape in ((b, s, hq, d), (b, s, hkv, d),
+                                 (b, s, hkv, d), (b, s, hq, d)))
+    ro, lse = fa.flash_attention_reference(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    flat = torch.empty(q.numel() + 4, dtype=q.dtype, device=cuda)
+    q_off = flat[4:].view(q.shape)           # base 8 bytes past 16
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 == 8
+    want = fa.flash_bwd_with_stats(q, k, v, do, lse, delta)
+    before = fa.ALIGN_COPIES
+    got = fa.flash_bwd_with_stats(q_off, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.ALIGN_COPIES - before == 2     # once for K2, once for K3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bwd_library_table_is_bwd_plan(cuda):
+    """The built backward library's own table (``flash_bwd_body``) picks
+    the body that ``_bwd_plan`` names at every dtype and head_dim, so the
+    wrapper's labels and alignment copies follow the body that runs."""
+    lib = fa._build.load("flash_bwd")
+    fa._check_body_table(lib)
+    assert [lib.flash_bwd_body(1, d) for d in fa.HEAD_DIMS] == [2, 2, 1]
+
+
 def test_trainer_on_card_matches_cpu(cuda):
     """A head_dim-64 llama-debug variant in fp32: three Trainer steps on
     the card (attention through K1-K3) against the CPU's (the plain
