@@ -28,48 +28,60 @@ phases, each of which raises on failure:
 5. flash — the flash-attention forward (K1) and its backward kernels
    (K2 dq, K3 dk/dv) against their plain versions at llama-3.2-1b's,
    llama-3.1-8b's and qwen3-30b-a3b's attention shapes, head_dim 256 and
-   ragged lengths, fp32 and bf16, causal, windowed, softcapped and banded;
-   every bf16 K2 / K3 also against the plain version at its own
-   arithmetic (p and ds rounded to bf16) and bitwise equal to a second
-   launch;
+   ragged lengths, fp32 and bf16, causal, windowed, softcapped and banded,
+   and a q whose base lies off 16 bytes; every K1 launch through the body
+   that ``_fwd_plan`` names; every bf16 Hopper-body launch (K1-K3 at
+   head_dim 64 / 128) also against the plain version at its own
+   arithmetic (K1: 64-key tiles with a running max, p rounded to bf16; K2
+   / K3: p and ds rounded to bf16) and bitwise equal to a second launch;
 6. flash timing — K1, K2 and K3 at both training paths' shapes
    (llama-3.2-1b and qwen3-30b-a3b) beside their plain versions, their
-   bounds and SDPA forward / backward, and K3's causal tail (its time
+   bounds and SDPA forward / backward (device times, kernels and SDPA alike,
+   with no host time: the calls queued behind a device-side sleep; the
+   profiler's per-launch time beside them), and K3's causal tail (its time
    against its blocks' work at a non-causal launch's rate);
 7. serve — ``ServeEngine`` on llama-3.1-8b at full width and depth in
    bf16 (random weights from a seed), once with bucketed prefill and once
-   with 256-token chunks, checking that K4 carried both programs, batch
-   invariance of a greedy request, first-token logits against the plain
-   full-context prefill, and a torch.profiler breakdown of a decode step;
+   with 256-token chunks, checking that K4 carried both programs, that
+   every K1 launch of the bucketed prefill ran the Hopper body with no
+   operand copied, batch invariance of a greedy request, first-token
+   logits against the plain full-context prefill, and a torch.profiler
+   breakdown of a decode step;
 8. train — chapter 01's ``run_training`` on llama-3.2-1b at full width
    and depth (bf16 compute, fp32 params and AdamW, synthetic data, 2048
    tokens x 4 sequences), checking finite falling loss, exactly 16
    launches of each of K1-K3 per step (32 of K1 under
-   ``--checkpoint-activations``), no operand copied for the backward's
-   tensor maps, a torch.profiler breakdown of one step,
+   ``--checkpoint-activations``), every K1 launch through the Hopper body,
+   no operand copied for the tensor maps, a torch.profiler breakdown of
+   one step,
    and the loss and grad norm of a step through the kernels against the
    einsum attention (fp32 at 2 layers; bf16 loss at full depth);
 9. grouped — the grouped matmul (K5) and its transposed form (K6) against
    their plain versions in fp32 and bf16 at qwen3-30b-a3b's decode, chunk
    and training shapes, moe-1b-8e's and qwen1.5-moe-a2.7b's widths, empty
    groups, a tail past ``sum(group_sizes)``, one group taking every row
-   and widths off the tiles, and the autograd Function's grads against
-   plain autograd;
+   and widths off the tiles, each K5 launch through the body that
+   ``_gmm_plan`` names (the Hopper body, WMMA and FMA each run), and the
+   autograd Function's grads against plain autograd;
 10. grouped timing — K5 at the decode and training shapes (forward and the
    backward's fp32 d_lhs) and K6 at the training shape beside their plain
    versions, bounds and ``torch._grouped_mm`` (a yardstick the port never
-   calls);
+   calls), device times as in phase 6;
 11. moe serve — ``ServeEngine`` on qwen3-30b-a3b at full width and depth
    in bf16 (random weights from a seed) with phase 7's traffic, bucketed
-   and chunked: exactly 144 K5 launches per forward and 48 K4 launches per
-   decode step, batch invariance of a greedy request, first-token logits
+   and chunked: exactly 144 K5 launches per forward (every one through the
+   Hopper body) and 48 K4 launches per decode step, every K1 launch of the
+   bucketed prefill through the Hopper body with no operand copied,
+   batch invariance of a greedy request, first-token logits
    against a plain prefill through the plain grouped matmul (bf16 full
    depth; fp32 at 2 layers), a torch.profiler breakdown of a decode step;
 12. moe train — ``run_training`` on qwen3-30b-a3b at full width cut to 4
    layers with ``--moe-dispatch ragged`` (bf16 compute, fp32 params and
    AdamW, 2 x 2048 tokens, 6 steps): finite falling loss, no dropped
-   pairs, exactly 6 K5, 3 K6 and 1 each of K1-K3 launches per layer per
-   step, a profiled step, an fp32 2-layer step through the kernels against
+   pairs, exactly 6 K5 (3 forward through the Hopper body, 3 fp32 d_lhs
+   through the FMA body), 3 K6 and 1 each of K1-K3 launches per layer per
+   step (K1 through the Hopper body, no operand copied), a profiled step,
+   an fp32 2-layer step through the kernels against
    one through the plain grouped matmul, and 2 dense-dispatch steps that
    launch no K5;
 13. qmm — the block-dequant matmul of the int8 serve weights (K7)
@@ -381,12 +393,13 @@ def _device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def device_ms(torch, fn, iters: int, names) -> dict:
-    """Mean device milliseconds per call of ``fn`` spent in the kernels
-    whose name holds each of ``names``, from torch.profiler over ``iters``
-    calls after a warm-up. A call that is host-bound (a ctypes wrapper
-    around a few-microsecond kernel) reads its kernels' own time here,
-    where CUDA events around back-to-back calls would read the host's."""
+def _kernel_ms(torch, fn, iters: int) -> dict:
+    """kernel name -> mean device milliseconds per call of ``fn``, from
+    torch.profiler over ``iters`` calls after a warm-up. Each kernel's time
+    is its mean per recorded launch times its launches per call (its
+    recorded count over ``iters``, rounded), since a profile can miss a few
+    launches' records; a kernel whose count is not a whole multiple of
+    ``iters`` is logged."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -396,8 +409,56 @@ def device_ms(torch, fn, iters: int, names) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = {n: sum(_device_us(e) for e in events if n in e.key) / 1e3 / iters
+    out = {}
+    for e in prof.key_averages():
+        if _device_us(e) <= 0 or e.count <= 0:
+            continue
+        per_call = max(1, round(e.count / iters))
+        if e.count != per_call * iters:
+            log(phase="profiler", kernel=e.key[:60], events=e.count,
+                iters=iters, note="launch records missing or extra: the "
+                "time is the mean per recorded launch")
+        out[e.key] = _device_us(e) / e.count * per_call / 1e3
+    check(out, "the profiler reports no device time")
+    return out
+
+
+def queued_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn`` with no host time in
+    it: the calls are queued behind a device-side sleep longer than the
+    host takes to issue them, then timed by CUDA events as they run back
+    to back. Phases 6 and 10 time kernels and library calls (SDPA's
+    backward, ``torch._grouped_mm``: several kernels a call) alike this
+    way; torch.profiler can miss launch records."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * issue_s * 2e9) + 2_000_000)  # cycles at 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    check(start.query() is False, "queued_ms: the device caught up with "
+          "the host before the last call was issued")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, names) -> dict:
+    """Mean device milliseconds per call of ``fn`` spent in the kernels
+    whose name holds each of ``names`` (``_kernel_ms``). A call that is
+    host-bound (a ctypes wrapper around a few-microsecond kernel) reads its
+    kernels' own time here, where CUDA events around back-to-back calls
+    would read the host's."""
+    per_kernel = _kernel_ms(torch, fn, iters)
+    out = {n: sum(ms for key, ms in per_kernel.items() if n in key)
            for n in names}
     check(all(v > 0 for v in out.values()),
           f"the profiler reports no device time for {names}")
@@ -499,6 +560,7 @@ def phase_serve(torch, card: str) -> dict:
     import numpy as np
 
     from distributed_training_guide_tpu_torch.models import get_model, llama
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
     from distributed_training_guide_tpu_torch.ops import paged_decode as pd
     from distributed_training_guide_tpu_torch.serve import (
         Request, ServeEngine, generate_many, throughput_stats)
@@ -534,6 +596,8 @@ def phase_serve(torch, card: str) -> dict:
     results = {}
     (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
      pd.COMBINE_LAUNCHES) = (0, 0, 0, 0)      # the main path starts here
+    reset_moe_counts()
+    copies = fa.ALIGN_COPIES
     for mode, chunk in (("bucketed", None), ("chunked", 256)):
         eng = RecordingEngine(bundle, params, prefill_chunk=chunk, **common)
         torch.cuda.reset_peak_memory_stats()
@@ -586,8 +650,9 @@ def phase_serve(torch, card: str) -> dict:
     main_path_launches = pd.LAUNCHES          # ... and ends here
     body_launches = {"split": pd.SPLIT_LAUNCHES, "mma": pd.MMA_LAUNCHES,
                      "combine": pd.COMBINE_LAUNCHES}
-    log(phase="serve", k4_calls=main_path_launches, **{
-        f"{k}_launches": v for k, v in body_launches.items()})
+    k1 = check_hopper_path("serve", copies)["flash_fwd"]
+    log(phase="serve", k4_calls=main_path_launches, k1_launches_by_body=k1,
+        **{f"{k}_launches": v for k, v in body_launches.items()})
     for k, v in body_launches.items():
         check(v > 0, f"serve: the main path launched no {k} kernel")
 
@@ -744,12 +809,14 @@ def check_fp32_chunk_path(torch, prompt) -> None:
 FLASH_TOL_FP32 = {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4,
                   "dv": 1e-4}
 FLASH_TOL_BF16_REL_L2 = 1e-2
-# bf16 K2 / K3 against the plain version at their own arithmetic
-# (``round_p_ds``: p and ds rounded to bf16 before the products): only the
-# fp32 summation order of the scores and products and the exp differ
-# (~1e-6 relative), which flips the bf16 rounding of a few p / ds elements
-# and outputs by one ulp (2**-8), about 1e-4 in relative L2 over a sum of
-# hundreds of terms; 1e-3 leaves 10x room and is 10x below the fp32 bound
+# the Hopper bodies (bf16, D 64 / 128) against the plain version at their
+# own arithmetic (K1 ``round_p``: 64-key tiles, a running max, p rounded to
+# bf16 before P V; K2 / K3 ``round_p_ds``: p and ds rounded to bf16 before
+# the products): only the fp32 summation order of the scores and products
+# and the exp differ (~1e-6 relative), which flips the bf16 rounding of a
+# few p / ds elements and outputs by one ulp (2**-8), about 1e-4 in
+# relative L2 over a sum of hundreds of terms; 1e-3 leaves 10x room and is
+# 10x below the fp32 bound
 FLASH_TOL_KERNEL_ARITH_REL_L2 = 1e-3
 # (name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap, scale, band
 # offsets): llama-3.2-1b (the training path's shape first), llama-3.1-8b,
@@ -784,7 +851,12 @@ FLASH_CASES = [
      None),
     ("ragged-bf16", 2, 1000, 1000, 32, 8, 64, "bf16", True, None, None, None,
      None),
+    ("ragged-off16", 2, 1000, 1000, 32, 4, 128, "bf16", True, None, None,
+     None, None),
 ]
+# the case whose q lies 8 bytes off 16: the Hopper bodies' wrappers copy it
+# for their tensor maps (counted in ALIGN_COPIES)
+FLASH_OFF16 = "ragged-off16"
 
 
 def flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype):
@@ -795,6 +867,32 @@ def flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype):
 
     return (rand(b, sq, hq, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d),
             rand(b, sq, hq, d))
+
+
+def off16(torch, x):
+    """``x``'s values in a tensor of its shape whose base lies 8 bytes past
+    a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = flat[4:].view(x.shape)
+    out.copy_(x)
+    check(out.data_ptr() % 16 == 8, "off16: base on 16 bytes")
+    return out
+
+
+def check_fwd_arith(torch, fa, name, args, kw, got) -> float:
+    """bf16 K1 (the Hopper body) against the plain version at its own
+    arithmetic, and a second launch bitwise equal to the first; returns
+    the relative L2 error of o."""
+    want, _ = fa.flash_attention_reference(*args, **kw, round_p=True)
+    again = fa.flash_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    for key, g, a in zip(("o", "lse"), got, again):
+        check(torch.equal(g, a), f"flash {name} {key}: two launches differ")
+    err = ((got[0].float() - want.float()).norm() / want.float().norm()).item()
+    check(err <= FLASH_TOL_KERNEL_ARITH_REL_L2, f"flash {name} o: {err} from "
+          f"the plain version at the kernel's arithmetic > "
+          f"{FLASH_TOL_KERNEL_ARITH_REL_L2}")
+    return err
 
 
 def check_kernel_arith(torch, fa, name, args, kw, got) -> dict:
@@ -818,24 +916,36 @@ def check_kernel_arith(torch, fa, name, args, kw, got) -> dict:
 def phase_flash(torch) -> dict:
     """Each case through K1, then K2 and K3 from the plain forward's lse
     and delta; returns the worst fp32 max abs error per kernel and, under
-    "kernel_arith", K2's and K3's worst bf16 relative L2 error against the
-    plain version at their own arithmetic."""
+    "kernel_arith", the Hopper bodies' worst bf16 relative L2 error against
+    the plain version at their own arithmetic. Every K1 launch runs the
+    body that ``_fwd_plan`` names, and copies an operand for its tensor
+    maps only in the case off 16 bytes."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    arith = {"flash_dq": 0.0, "flash_dkv": 0.0}   # bf16, rel L2
+    arith = {"flash_fwd": 0.0, "flash_dq": 0.0,   # bf16, rel L2
+             "flash_dkv": 0.0}
     counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
     for (name, b, sq, sk, hq, hkv, d, dtype, causal, window, softcap, scale,
          offs) in FLASH_CASES:
         q, k, v, do = flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype)
+        if name == FLASH_OFF16:
+            q = off16(torch, q)
         kw = dict(causal=causal, softcap=softcap, scale=scale)
         if offs is None:
             kw["window"] = window
         else:
             kw["band"] = fa.pack_band(window, *offs)
         before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        fwd_plan = fa._fwd_plan(d, q.dtype)
+        bodies, copies = dict(fa.FWD_BODY_LAUNCHES), fa.ALIGN_COPIES
         o, lse = fa.flash_fwd(q, k, v, **kw)
+        check(fa.FWD_BODY_LAUNCHES[fwd_plan] == bodies[fwd_plan] + 1,
+              f"{name}: K1 did not run the {fwd_plan} body")
+        want_copies = int(name == FLASH_OFF16)
+        check(fa.ALIGN_COPIES - copies == want_copies, f"{name}: K1 copied "
+              f"{fa.ALIGN_COPIES - copies} operands, want {want_copies}")
         ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
         delta = torch.einsum("bshd,bshd->bhs", do.float(),
                              ro.float()).contiguous()
@@ -845,6 +955,10 @@ def phase_flash(torch) -> dict:
         check((fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
               == tuple(x + 1 for x in before), f"{name}: a kernel did not "
               f"launch")
+        fwd_arith = (check_fwd_arith(torch, fa, name, (q, k, v), kw, (o, lse))
+                     if fwd_plan == "wgmma" else None)
+        if fwd_arith is not None:
+            arith["flash_fwd"] = max(arith["flash_fwd"], fwd_arith)
         rdq = fa.flash_dq_reference(q, k, v, do, rlse, delta, **kw)
         rdk, rdv = fa.flash_dkv_reference(q, k, v, do, rlse, delta, **kw)
         if dtype == "bf16":
@@ -873,9 +987,11 @@ def phase_flash(torch) -> dict:
             check(err <= bound, f"flash {name} {key}: error {err} > {bound}")
         log(phase="flash", case=name, B=b, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv,
             D=d, dtype=dtype, causal=causal, window=window, softcap=softcap,
-            band_offsets=offs, body=fa._bwd_plan(d, q.dtype),
+            band_offsets=offs, fwd_body=fwd_plan,
+            body=fa._bwd_plan(d, q.dtype), q_base_off16=name == FLASH_OFF16,
             metric="max_abs" if dtype == "fp32" else "rel_l2 (lse max_abs)",
-            **errs, **({"kernel_arith_rel_l2": tight, "bitwise_repeat": True}
+            **errs, **({"kernel_arith_rel_l2": {"o": fwd_arith, **tight},
+                        "bitwise_repeat": True}
                        if dtype == "bf16" else {}))
         if dtype == "fp32":
             worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"],
@@ -927,9 +1043,11 @@ FLASH_TIMING_SHAPES = {"1b-main": (4, 2048, 32, 8, 64),      # llama-3.2-1b
 
 def phase_flash_timing(torch) -> dict:
     """shape -> kernel -> times at each training path's shape: the
-    kernels' device time from torch.profiler ("ms"), CUDA events around
-    back-to-back wrapper calls ("call_ms"), the plain versions, SDPA, the
-    bound and K3's causal tail."""
+    kernels' device time ("ms", by ``queued_ms``, as SDPA's
+    "library_ms"; torch.profiler's mean per launch as "profiler_ms"),
+    CUDA events around back-to-back wrapper calls ("call_ms", SDPA's
+    "library_call_ms"), the plain versions, the bound and K3's causal
+    tail."""
     return {name: flash_timing_at(torch, *shape)
             for name, shape in FLASH_TIMING_SHAPES.items()}
 
@@ -949,7 +1067,8 @@ def flash_timing_at(torch, b, s, hq, hkv, d) -> dict:
              "flash_dq": lambda: fa.flash_bwd_dq(*args),
              "flash_dkv": lambda: fa.flash_bwd_dkv(*args)}
     out = {name: {"call_ms": cuda_ms(fn, iters=10),
-                  "ms": device_ms(torch, fn, 10, [name])[name]}
+                  "ms": queued_ms(torch, fn, 10),
+                  "profiler_ms": device_ms(torch, fn, 10, [name])[name]}
            for name, fn in calls.items()}
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
     out["flash_fwd"]["plain_ms"] = cuda_ms(
@@ -969,25 +1088,32 @@ def flash_timing_at(torch, b, s, hq, hkv, d) -> dict:
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True)
 
+    def both():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
     with torch.no_grad():
-        fwd_ms = cuda_ms(sdpa, iters=10)
-    both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
-                      iters=10)
+        fwd_ms = queued_ms(torch, sdpa, 10)
+        fwd_call_ms = cuda_ms(sdpa, iters=10)
+    both_ms = queued_ms(torch, both, 10)
+    both_call_ms = cuda_ms(both, iters=10)
     out["flash_fwd"]["library_ms"] = fwd_ms
+    out["flash_fwd"]["library_call_ms"] = fwd_call_ms
     for name in ("flash_dq", "flash_dkv"):
         out[name]["library_ms"] = both_ms - fwd_ms
-        out[name]["library_note"] = ("SDPA forward+backward minus forward: "
-                                     "dq, dk and dv together")
+        out[name]["library_call_ms"] = both_call_ms - fwd_call_ms
+        out[name]["library_note"] = ("SDPA forward+backward minus forward "
+                                     "(device time): dq, dk and dv "
+                                     "together")
     out["flash_dkv"]["causal_tail"] = k3_tail(
         torch, fa, q, k, v, do, out["flash_dkv"]["ms"])
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
     for name, bound in flash_bounds(b, s, hq, hkv, d, 2).items():
         out[name].update(bound)
         out[name]["share_of_bound"] = bound["bound_ms"] / out[name]["ms"]
+        out[name]["body"] = (fa._fwd_plan if name == "flash_fwd"
+                             else fa._bwd_plan)(d, q.dtype)
         log(phase="flash_timing", kernel=name, B=b, S=s, Hq=hq, Hkv=hkv, D=d,
-            dtype="bf16", causal=True, body=(fa._bwd_plan(d, q.dtype)
-                                             if name != "flash_fwd"
-                                             else None), **out[name])
+            dtype="bf16", causal=True, **out[name])
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
     return out
@@ -1007,8 +1133,8 @@ def k3_tail(torch, fa, q, k, v, do, causal_ms: float) -> dict:
     tiles = s // 64
     o, lse = fa.flash_fwd(q, k, v, causal=False)
     delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
-    full_ms = device_ms(torch, lambda: fa.flash_bwd_dkv(
-        q, k, v, do, lse, delta, causal=False), 10, ["flash_dkv"])["flash_dkv"]
+    full_ms = queued_ms(torch, lambda: fa.flash_bwd_dkv(
+        q, k, v, do, lse, delta, causal=False), 10)
     even_ms = full_ms * (tiles + 1) / (2 * tiles)
     slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
     heaviest = (hq // hkv) * tiles
@@ -1046,6 +1172,25 @@ def reset_flash_counts() -> None:
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fa.FWD_BODY_LAUNCHES.update({k: 0 for k in fa.FWD_BODY_LAUNCHES})
+
+
+def check_hopper_path(where: str, copies: int) -> dict:
+    """Every K1 launch since the counts were last reset ran the Hopper body
+    and no operand was copied for a tensor map since ``copies`` was read;
+    every bf16 K5 launch ran the Hopper body, the rest the FMA body.
+    Returns the launches by body."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    fwd, gmm = dict(fa.FWD_BODY_LAUNCHES), dict(gm.GMM_BODY_LAUNCHES)
+    check(fwd["wgmma"] == fa.FWD_LAUNCHES, f"{where}: K1 launches by body "
+          f"{fwd}, {fa.FWD_LAUNCHES} in all: not all the Hopper body")
+    check(fa.ALIGN_COPIES == copies, f"{where}: {fa.ALIGN_COPIES - copies} "
+          f"operands copied for the TMA bodies' 16-byte rule")
+    check(gmm["wmma"] == 0 and gmm["wgmma"] + gmm["fma"] == gm.GMM_LAUNCHES,
+          f"{where}: K5 launches by body {gmm}, {gm.GMM_LAUNCHES} in all")
+    return {"flash_fwd": fwd, "grouped_matmul": gmm}
 
 
 def phase_train(torch, card: str) -> dict:
@@ -1056,19 +1201,18 @@ def phase_train(torch, card: str) -> dict:
         TRAIN_ARGS + ["--max-steps", str(TRAIN_STEPS), "--log-freq", "2"])
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
-    reset_flash_counts()                      # the main path starts here
+    reset_moe_counts()                        # the main path starts here
     copies = fa.ALIGN_COPIES
     t0 = time.perf_counter()
     out = cli.run_training(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_counts()                 # ... and ends here
+    bodies = check_hopper_path("train", copies)
     want = layers * TRAIN_STEPS
     check(launches == {k: want for k in launches},
           f"train: launches {launches}, want {want} of each "
           f"({layers} per step)")
-    check(fa.ALIGN_COPIES == copies, f"train: {fa.ALIGN_COPIES - copies} "
-          f"operands copied for the TMA bodies' 16-byte rule")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
     check(len(infos) == TRAIN_STEPS // 2 and all(
@@ -1082,7 +1226,8 @@ def phase_train(torch, card: str) -> dict:
                                     "peak_alloc_gb")})
     log(phase="train", steps=TRAIN_STEPS, wall_s=wall,
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-        alignment_copies=0, batch=4, seq=2048, layers=layers)
+        k1_launches_by_body=bodies["flash_fwd"], alignment_copies=0,
+        batch=4, seq=2048, layers=layers)
     state = out["state"]
     from distributed_training_guide_tpu_torch.models import get_model
 
@@ -1098,8 +1243,10 @@ def phase_train(torch, card: str) -> dict:
         TRAIN_ARGS + ["--max-steps", str(REMAT_STEPS), "--log-freq", "1",
                       "--checkpoint-activations"])
     reset_flash_counts()
+    copies = fa.ALIGN_COPIES
     remat = cli.run_training(args)
     remat_counts = flash_counts()
+    check_hopper_path("remat", copies)
     want_remat = {"flash_fwd": 2 * layers * REMAT_STEPS,
                   "flash_dq": layers * REMAT_STEPS,
                   "flash_dkv": layers * REMAT_STEPS}
@@ -1159,7 +1306,7 @@ def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
             "flash_fwd_ms": ms_of("flash_fwd"),
             "flash_dq_ms": ms_of("flash_dq"),
             "flash_dkv_ms": ms_of("flash_dkv"),
-            "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma"),
+            "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma", "gmm_hopper"),
             "tgmm_ms": ms_of("tgmm_kernel"),
             "gemm_ms": ms_of("gemm", "nvjet", "xmma", "cutlass"),
             "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
@@ -1293,8 +1440,9 @@ def rel_l2(got, want) -> float:
 def phase_grouped(torch) -> dict:
     """Every case through K5 in fp32 and bf16 (the forward), the
     backward's fp32 d_lhs form (fp32 dy against a bf16 rhs^T view) and K6
-    (bf16 or fp32 lhs, fp32 dy); the autograd Function's grads against
-    plain autograd. Returns the worst errors."""
+    (bf16 or fp32 lhs, fp32 dy), each K5 launch through the body that
+    ``_gmm_plan`` names; the autograd Function's grads against plain
+    autograd. Returns the worst errors."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1302,6 +1450,7 @@ def phase_grouped(torch) -> dict:
     worst = {"grouped_matmul": 0.0, "tgmm": 0.0}        # fp32 max abs
     worst_rel = {"fp32": 0.0, "bf16": 0.0}
     n_checks = 0
+    bodies_seen = {"fma"}       # every case's d_lhs (fp32 dy)
     for name, m, k, n, sizes in gmm_cases(torch, gen):
         total = int(sizes.sum())
         g = sizes.shape[0]
@@ -1312,6 +1461,9 @@ def phase_grouped(torch) -> dict:
             rhs = torch.randn(g, k, n, generator=gen, device="cuda").to(dt)
             dy = torch.randn(m, n, generator=gen, device="cuda")
             before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+            plans = (gm._gmm_plan(lhs, rhs),
+                     gm._gmm_plan(dy, rhs.transpose(1, 2)))
+            bodies = dict(gm.GMM_BODY_LAUNCHES)
             out = gm.gmm(lhs, rhs, sizes)
             dlhs = gm.gmm(dy, rhs.transpose(1, 2), sizes, dt)
             drhs = gm.tgmm(lhs, dy, sizes, g, dt)
@@ -1319,6 +1471,11 @@ def phase_grouped(torch) -> dict:
             check((gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
                   == (before[0] + 2, before[1] + 1),
                   f"{name} {dtype}: a kernel did not launch")
+            for body in set(plans):
+                check(gm.GMM_BODY_LAUNCHES[body] - bodies[body]
+                      == plans.count(body), f"{name} {dtype}: K5 did not "
+                      f"run the bodies {plans} that _gmm_plan names")
+            errs[f"body_{dtype}"] = plans[0]
             refs = {"out": gm.gmm_reference(lhs, rhs, sizes, dt),
                     "dlhs": gm.gmm_reference(dy, rhs.float().transpose(1, 2),
                                              sizes, dt),
@@ -1350,8 +1507,12 @@ def phase_grouped(torch) -> dict:
                 n_checks += 1
             del lhs, rhs, dy, out, dlhs, drhs, refs
             torch.cuda.empty_cache()
+        bodies_seen |= {errs["body_fp32"], errs["body_bf16"]}
         log(phase="grouped", case=name, M=m, K=k, N=n, G=g, rows=total,
             metric="rel_l2", bound=GMM_REL_L2, **errs)
+    check(bodies_seen >= {"wgmma", "wmma", "fma"}, f"grouped: the cases ran "
+          f"the bodies {bodies_seen}, not each of the three")
+    invariant = check_gmm_rows_invariant(torch, gm, gen)
     # the autograd Function against torch autograd through the plain scan
     # at moe-1b-8e's widths, fp32
     sizes = routed_sizes(torch, gen, 1024, 8, 2)
@@ -1377,8 +1538,34 @@ def phase_grouped(torch) -> dict:
     torch.cuda.empty_cache()
     gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts   # checks are not main path
     log(phase="grouped", checks=n_checks, worst_fp32_max_abs=worst,
-        worst_rel_l2=worst_rel)
+        worst_rel_l2=worst_rel, rows_bitwise_equal_across_m=invariant)
     return worst
+
+
+def check_gmm_rows_invariant(torch, gm, gen) -> list:
+    """The bf16 Hopper body at qwen3-30b-a3b's training gate shape: the
+    first rows (at most 200) of a few groups, run alone (decode-sized M:
+    64 x 128 tiles), come out bitwise equal to the same rows of the full
+    M = 32768 product (128 x 256 tiles). Returns the row counts."""
+    g, k8, e, f = QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F
+    sizes = routed_sizes(torch, gen, 4096, g, k8)
+    lhs = torch.randn(4096 * k8, e, generator=gen, device="cuda").bfloat16()
+    rhs = (torch.randn(g, e, f, generator=gen, device="cuda") * 0.02
+           ).bfloat16()
+    full = gm.gmm(lhs, rhs, sizes)
+    offs = [0] + torch.cumsum(sizes, 0).tolist()
+    checked = []
+    for grp in (0, g // 2, g - 1):
+        rows = min(int(sizes[grp]), 200)      # a decode-sized M
+        alone = torch.zeros_like(sizes)
+        alone[grp] = rows
+        lo = offs[grp]
+        few = gm.gmm(lhs[lo:lo + rows].contiguous(), rhs, alone)
+        check(torch.equal(few, full[lo:lo + rows]), f"grouped: group "
+              f"{grp}'s first {rows} rows alone differ from the same rows "
+              f"at M {full.shape[0]}")
+        checked.append(rows)
+    return checked
 
 
 # ---------------------------------------------------------------------------
@@ -1412,12 +1599,12 @@ def _bound(nbytes, flops, peak) -> dict:
 
 def library_grouped_mm(torch, lhs, rhs, sizes):
     """``torch._grouped_mm`` on the same bf16 operands (offsets = the
-    cumsum of the group sizes), as a yardstick: (ms, rel L2 of its rows
-    below the total against K5's), or (None, why) where this torch lacks
-    it or refuses the layout."""
+    cumsum of the group sizes), as a yardstick: (device ms, CUDA-event ms,
+    its output), or (None, None, why) where this torch lacks it or refuses
+    the layout."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
-        return None, "torch._grouped_mm is absent from this torch"
+        return None, None, "torch._grouped_mm is absent from this torch"
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
     errors = []
     for b in (rhs, rhs.transpose(1, 2).contiguous().transpose(1, 2)):
@@ -1427,12 +1614,18 @@ def library_grouped_mm(torch, lhs, rhs, sizes):
         except RuntimeError as exc:        # layout refused: try the next
             errors.append(str(exc).splitlines()[0][:120])
             continue
-        ms = cuda_ms(lambda: fn(lhs, b, offs=offs), iters=20)
-        return ms, out
-    return None, "; ".join(errors)
+        call = lambda: fn(lhs, b, offs=offs)      # noqa: E731
+        return (queued_ms(torch, call, 20), cuda_ms(call, iters=20),
+                out)
+    return None, None, "; ".join(errors)
 
 
 def phase_grouped_timing(torch) -> dict:
+    """K5 at the decode and training shapes (forward and the fp32 d_lhs)
+    and K6 at the training shape: each kernel's device time ("ms", by
+    ``queued_ms``, as ``torch._grouped_mm``'s "library_ms";
+    torch.profiler's mean per launch as "profiler_ms"; CUDA events around
+    back-to-back calls as "call_ms"), the plain versions and the bound."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -1446,14 +1639,20 @@ def phase_grouped_timing(torch) -> dict:
         lhs = torch.randn(m, e, generator=gen, device="cuda").to(bf)
         rhs = (torch.randn(g, e, f, generator=gen, device="cuda") * 0.02
                ).to(bf)
-        ms = cuda_ms(lambda: gm.gmm(lhs, rhs, sizes), iters=20)
+        call = lambda: gm.gmm(lhs, rhs, sizes)   # noqa: E731
+        ms = queued_ms(torch, call, 20)
+        profiler_ms = device_ms(torch, call, 20, ["gmm_"])["gmm_"]
+        call_ms = cuda_ms(call, iters=20)
         plain_ms = cuda_ms(lambda: gm.gmm_reference(lhs, rhs, sizes, bf),
                            iters=3, warmup=1)
-        lib_ms, lib = library_grouped_mm(torch, lhs, rhs, sizes)
+        lib_ms, lib_call_ms, lib = library_grouped_mm(torch, lhs, rhs, sizes)
         row = dict(kernel="grouped_matmul", shape=name, M=m, K=e, N=f, G=g,
                    rows=int(sizes.sum()),
                    groups_nonempty=int((sizes > 0).sum()), dtype="bf16",
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   body=gm._gmm_plan(lhs, rhs), ms=ms,
+                   profiler_ms=profiler_ms, call_ms=call_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_call_ms=lib_call_ms,
                    **gmm_bound(m, e, f, sizes, 2, 2, 2, "bfloat16"))
         if lib_ms is None:
             row["library_note"] = lib
@@ -1469,24 +1668,33 @@ def phase_grouped_timing(torch) -> dict:
             # d_rhs = lhs^T dy (K6), bf16 outputs as on the training path
             dy = torch.randn(m, f, generator=gen, device="cuda")
             rt = rhs.transpose(1, 2)
-            ms = cuda_ms(lambda: gm.gmm(dy, rt, sizes, bf), iters=5)
+            call = lambda: gm.gmm(dy, rt, sizes, bf)   # noqa: E731
+            ms = queued_ms(torch, call, 5)
+            profiler_ms = device_ms(torch, call, 5, ["gmm_"])["gmm_"]
+            call_ms = cuda_ms(call, iters=5)
             plain_ms = cuda_ms(lambda: gm.gmm_reference(
                 dy, rhs.float().transpose(1, 2), sizes, bf), iters=2,
                 warmup=1)
             row = dict(kernel="grouped_matmul", shape="train-dlhs", M=m, K=f,
                        N=e, G=g, dtype="fp32 dy, bf16 rhs^T, bf16 out",
-                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       body=gm._gmm_plan(dy, rt), ms=ms,
+                       profiler_ms=profiler_ms, call_ms=call_ms,
+                       plain_ms=plain_ms, library_ms=None,
                        library_note="no PyTorch call takes fp32 dy against "
                        "a bf16 rhs", **gmm_bound(m, f, e, sizes, 4, 2, 2,
                                                  "float32"))
             row["share_of_bound"] = row["bound_ms"] / ms
             out["train-dlhs"] = row
             log(phase="grouped_timing", **row)
-            ms = cuda_ms(lambda: gm.tgmm(lhs, dy, sizes, g, bf), iters=5)
+            call = lambda: gm.tgmm(lhs, dy, sizes, g, bf)   # noqa: E731
+            ms = queued_ms(torch, call, 5)
+            profiler_ms = device_ms(torch, call, 5, ["tgmm"])["tgmm"]
+            call_ms = cuda_ms(call, iters=5)
             plain_ms = cuda_ms(lambda: gm.tgmm_reference(
                 lhs.float(), dy, sizes, g, bf), iters=2, warmup=1)
             row = dict(kernel="tgmm", shape="train", M=m, K=e, N=f, G=g,
                        dtype="bf16 lhs, fp32 dy, bf16 out", ms=ms,
+                       profiler_ms=profiler_ms, call_ms=call_ms,
                        plain_ms=plain_ms, library_ms=None,
                        library_note="no PyTorch call takes fp32 dy against "
                        "bf16 lhs (torch._grouped_mm is bf16 only)",
@@ -1496,8 +1704,8 @@ def phase_grouped_timing(torch) -> dict:
                 offs = torch.cumsum(sizes, 0, dtype=torch.int32)
                 dyb = dy.to(bf)
                 try:
-                    row["library_bf16_dy_ms"] = cuda_ms(
-                        lambda: fn(lhs.t(), dyb, offs=offs), iters=5)
+                    row["library_bf16_dy_ms"] = queued_ms(
+                        torch, lambda: fn(lhs.t(), dyb, offs=offs), 5)
                 except RuntimeError as exc:
                     row["library_bf16_dy_note"] = str(exc).splitlines()[0][
                         :120]
@@ -1547,6 +1755,7 @@ def phase_moe_serve(torch, card: str) -> dict:
     import numpy as np
 
     from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
     from distributed_training_guide_tpu_torch.ops import paged_decode as pd
     from distributed_training_guide_tpu_torch.serve import (
@@ -1567,6 +1776,8 @@ def phase_moe_serve(torch, card: str) -> dict:
     common = dict(n_slots=8, page_size=16, max_len=4096)
     results, first = {}, {}
     gm.GMM_LAUNCHES = pd.LAUNCHES = 0         # the main path starts here
+    reset_moe_counts()
+    copies = fa.ALIGN_COPIES
     for mode, chunk in (("bucketed", None), ("chunked", 256)):
         logits: dict = {}
         eng = recording_engine(logits)(bundle, params, prefill_chunk=chunk,
@@ -1607,6 +1818,10 @@ def phase_moe_serve(torch, card: str) -> dict:
         del eng
         torch.cuda.empty_cache()
     main_path = (gm.GMM_LAUNCHES, pd.LAUNCHES)  # ... and ends here
+    bodies = check_hopper_path("moe serve", copies)
+    check(bodies["grouped_matmul"]["wgmma"] == main_path[0],
+          f"moe serve: K5 launches by body {bodies['grouped_matmul']}")
+    log(phase="moe_serve", launches_by_body=bodies)
 
     alone = generate_many(ServeEngine(bundle, params, **common),
                           [Request(**specs[0])])[0]
@@ -1711,6 +1926,7 @@ def reset_moe_counts() -> None:
 
     reset_flash_counts()
     gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
+    gm.GMM_BODY_LAUNCHES.update({k: 0 for k in gm.GMM_BODY_LAUNCHES})
 
 
 def phase_moe_train(torch, card: str) -> dict:
@@ -1731,12 +1947,17 @@ def phase_moe_train(torch, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = moe_counts()                   # ... and ends here
+    bodies = check_hopper_path("moe train", copies)
     per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
                 "grouped_matmul": 6 * layers, "tgmm": 3 * layers}
     want = {k: v * MOE_TRAIN_STEPS for k, v in per_step.items()}
     check(launches == want, f"moe train: launches {launches}, want {want}")
-    check(fa.ALIGN_COPIES == copies, f"moe train: {fa.ALIGN_COPIES - copies}"
-          f" operands copied for the TMA bodies' 16-byte rule")
+    # the forward's three products per layer run the Hopper body, the
+    # backward's fp32-dy d_lhs the FMA body
+    half = 3 * layers * MOE_TRAIN_STEPS
+    check(bodies["grouped_matmul"] == {"fma": half, "wmma": 0,
+                                       "wgmma": half},
+          f"moe train: K5 launches by body {bodies['grouped_matmul']}")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
     check(len(infos) == MOE_TRAIN_STEPS // 2 and all(
@@ -1754,6 +1975,7 @@ def phase_moe_train(torch, card: str) -> dict:
     log(phase="moe_train", steps=MOE_TRAIN_STEPS, wall_s=wall,
         launches_per_step={k: v / MOE_TRAIN_STEPS
                            for k, v in launches.items()},
+        launches_by_body=bodies,
         batch=2, seq=2048, params=bundle.num_params(),
         active_params=bundle.num_active_params())
     state = out["state"]
@@ -2241,15 +2463,6 @@ def check_int8_fp32_path(torch, model: str, prompt) -> None:
     torch.cuda.empty_cache()
 
 
-def fa_plan(d: int) -> str:
-    """The bf16 backward body at head_dim ``d``."""
-    import torch
-
-    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
-
-    return fa._bwd_plan(d, torch.bfloat16)
-
-
 def ptxas_summary(build) -> dict:
     """kernel -> {instantiation: [registers, spill store bytes]} from
     ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
@@ -2385,8 +2598,9 @@ def main() -> int:
         "ptxas_registers_spills": ptxas.get("paged_attend_combine", {}),
     }]
     replaces = {"flash_fwd": 112, "flash_dq": 297, "flash_dkv": 341}
-    shape_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-                  "bound_by", "share_of_bound", "causal_tail")
+    shape_keys = ("body", "ms", "profiler_ms", "call_ms", "plain_ms",
+                  "library_ms", "library_call_ms", "bound_ms", "bound_by",
+                  "share_of_bound", "causal_tail")
     for name, line in replaces.items():
         t = flash_timing["1b-main"][name]
         kernels.append({
@@ -2406,17 +2620,17 @@ def main() -> int:
             "shape": "B 4, S 2048, Hq 32, Hkv 8, D 64, bf16, causal",
             **({"library_note": t["library_note"]}
                if "library_note" in t else {}),
-            **({"body": fa_plan(64), "bf16_kernel_arith_rel_l2":
-                flash_worst["kernel_arith"][name]}
-               if name != "flash_fwd" else {}),
+            "body": t["body"],
+            "bf16_kernel_arith_rel_l2": flash_worst["kernel_arith"][name],
             "shapes": {shape: {"B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
                                **{kk: flash_timing[shape][name][kk]
                                   for kk in shape_keys
                                   if kk in flash_timing[shape][name]}}
                        for shape in FLASH_TIMING_SHAPES},
         })
-    keys = ("M", "K", "N", "G", "dtype", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")
+    keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
+            "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",
+            "bound_by")
     dec = gmm_timing["decode"]
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
@@ -2429,7 +2643,7 @@ def main() -> int:
         "launches_train": moe_train["launches"]["grouped_matmul"],
         "launches_per_serve_forward": moe_serve["per_forward"],
         "launches_per_train_step": moe_train["per_step"]["grouped_matmul"],
-        "max_abs_err": gmm_worst["grouped_matmul"],
+        "max_abs_err": gmm_worst["grouped_matmul"], "body": dec["body"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],

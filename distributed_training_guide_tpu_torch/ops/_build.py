@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<hash>.so`` at the repository
-root (``.gitignore`` lists ``build/``), keyed by a hash of the source and
-the flags, then loaded with ``ctypes``. Nothing is fetched: the CUDA
+root (``.gitignore`` lists ``build/``), keyed by a hash of the source,
+every shared header ``csrc/*.cuh`` and the flags, then loaded with
+``ctypes``. Nothing is fetched: the CUDA
 toolkit is found from ``CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``. A
 failed build raises; no caller falls back to a plain path on the card.
 """
@@ -35,9 +36,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    of every ``csrc/*.cuh`` (a header edit rebuilds each library that may
+    include it) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

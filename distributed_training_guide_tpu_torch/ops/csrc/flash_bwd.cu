@@ -69,13 +69,13 @@
 //   in registers: full fp32.
 // A barrier that never completes traps after 10 s instead of hanging.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <mma.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"  // barriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -153,14 +153,6 @@ __device__ __forceinline__ ProbGrad prob_grad(const BwdParams& p, float qk,
   }
   const float pr = live ? expf(x - lse) : 0.f;
   return {pr, pr * (dov - delta) * cap_grad * p.scale};
-}
-
-__device__ __forceinline__ bool pair_live(const BwdParams& p, int row,
-                                          int col) {
-  const int qpos = row + p.q_off;
-  const int kpos = col + p.k_off;
-  return row < p.Sq && col < p.Sk &&
-         (!p.causal || (qpos >= kpos && qpos - kpos < p.window));
 }
 
 // ------------------------------------------- K2: dq, the fp32 body (FMA)
@@ -733,189 +725,11 @@ flash_dkv_tc_kernel(const BwdParams p) {
 
 // ------------------------------ Hopper bodies (bf16, D 64 and 128): wgmma
 
-constexpr int kProducerRegs = 24;
-constexpr float kLog2e = 1.4426950408889634f;
-
 // Tensor maps of the operands (dO as `o`), then the scalars.
 struct TmaArgs {
   CUtensorMap q, k, v, o;
   BwdParams p;
 };
-
-// A block is one consumer warpgroup of 64 rows and one producer
-// warpgroup, two blocks per SM: 128 registers a thread at launch, then 24
-// for the producer and 232 for the consumer (24 + 232 = 2 x 128). Two
-// blocks interleave their wgmma batches and p / ds passes; two consumer
-// warpgroups of one block run in step and leave the tensor cores idle in
-// each other's p / ds pass.
-constexpr int kThreadsTma = 256;
-constexpr int kConsumerRegs = 232;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = global_ns();
-    } else if (global_ns() - start > 10000000000ull) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Matrix descriptor of a tile in the 128-byte swizzle that TMA writes: rows
-// of 128 bytes, 8-row atoms of 1024 bytes. Read K-major (k step = 32 bytes
-// along a row) the leading offset is unused; read N-major (k step = 16
-// rows) with n = 64 one swizzle atom spans N, so only the stride between
-// 8-row groups is read. Both offsets are 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= A B^T over one k step of 16, A [64 x 16] and B [64 x 16] both
-// K-major in shared memory. Accumulator of thread t of the warpgroup (warp
-// w, lane l): d[4 j + 2 i + e] is row 16 w + l / 4 + 8 i, column
-// 8 j + 2 (l % 4) + e.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B over one k step of 16: A [64 x 16] bf16 from registers (a[0]:
-// row 16 w + l / 4, columns 2 (l % 4) + {0, 1}; a[1]: row + 8; a[2], a[3]:
-// the same at columns + 8), B [16 x 64] N-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// s = A B^T over D for two 64-row tiles A and B (Q K^T, or K Q^T in K3):
-// D 128 keeps columns 64..127 in a second 64-row half 8 KB on
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(s, sw128_desc(a + (kk / 4) * 64 * 128 + (kk % 4) * 32),
-             sw128_desc(b + (kk / 4) * 64 * 128 + (kk % 4) * 32), kk > 0);
-}
-
-// every pair of rows [r0, r1] x columns [c0, c1] is live
-__device__ __forceinline__ bool block_live(const BwdParams& p, int r0, int r1,
-                                           int c0, int c1) {
-  if (r1 >= p.Sq || c1 >= p.Sk) return false;
-  if (!p.causal) return true;
-  const long long lo = static_cast<long long>(r0) + p.q_off - c1 - p.k_off;
-  const long long hi = static_cast<long long>(r1) + p.q_off - c0 - p.k_off;
-  return lo >= 0 && hi < p.window;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // (p, ds) of one score from q.k and dO.v, with lse given as lse * log2(e);
 // CAP: the tanh softcap, MASK: test the pair (a tile that is live
@@ -996,37 +810,6 @@ __device__ __forceinline__ void dkv_grads(const BwdParams& p,
   }
 }
 
-// The warpgroup's 64 x D fp32 accumulator, rounded to bf16, into the
-// 64-row swizzled tile it read an operand from (dead by now), then out to
-// `dst` rows [B, S, H, D] with 16-byte stores, rows from `valid` on dropped
-template <int D>
-__device__ __forceinline__ void store_tile(float (&acc)[D / 64][32],
-                                           unsigned char* tile, bf16* dst,
-                                           long long row_stride, int valid) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int nh = 0; nh < D / 64; ++nh)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = 16 * warp + lane / 4 + 8 * i;
-        *reinterpret_cast<uint32_t*>(tile + nh * 64 * 128 + r * 128 +
-                                     ((j ^ (r % 8)) * 16) + (lane % 4) * 4) =
-            pack_bf16(acc[nh][4 * j + 2 * i], acc[nh][4 * j + 2 * i + 1]);
-      }
-  asm volatile("bar.sync 1, 128;" ::: "memory");  // the consumers only
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < 64 * kChunks; idx += 128) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    if (r >= valid) break;
-    const uint4 val = *reinterpret_cast<const uint4*>(
-        tile + (c / 8) * 64 * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16));
-    *reinterpret_cast<uint4*>(dst + r * row_stride + c * 8) = val;
-  }
-}
 
 template <int D, int STAGES>
 struct DqHopperSmem {
@@ -1038,19 +821,6 @@ struct DqHopperSmem {
   static constexpr int bars = kv + STAGES * stage;    // full, empty, resident
   static constexpr int bytes = bars + 8 * (2 * STAGES + 1) + 1024;
 };
-
-// dq += dS K over one 64-key tile: dS from registers, K read N-major
-template <int D>
-__device__ __forceinline__ void dq_product(float (&dq)[D / 64][32],
-                                           const uint32_t (&ds)[16],
-                                           uint32_t ka) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int nh = 0; nh < D / 64; ++nh)
-      wgmma_rs(dq[nh], ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
-               ds[4 * kk + 3], sw128_desc(ka + nh * 64 * 128 + kk * 2048));
-}
 
 template <int D, int STAGES>
 __global__ void __launch_bounds__(kThreadsTma, 2)
@@ -1150,7 +920,7 @@ __global__ void __launch_bounds__(kThreadsTma, 2)
 #pragma unroll
       for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
       wg_fence();
-      if (prev >= 0) dq_product<D>(dq, ds, prev_ka);
+      if (prev >= 0) rs_product<D>(dq, ds, prev_ka);
       scores<D>(s, base + L::q, ka);
       scores<D>(dp, base + L::o, va);
       wg_commit();
@@ -1184,7 +954,7 @@ __global__ void __launch_bounds__(kThreadsTma, 2)
     }
     if (prev >= 0) {
       wg_fence();
-      dq_product<D>(dq, ds, prev_ka);
+      rs_product<D>(dq, ds, prev_ka);
       wg_commit();
       wg_wait0();
 #pragma unroll
@@ -1420,15 +1190,6 @@ __global__ void __launch_bounds__(kThreadsTma, 2)
 
 // ----------------------------------------------------------- launches
 
-template <typename K, typename A>
-int launch_kernel(K kernel, int smem, dim3 grid, int threads, const A& args,
-                  cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int D, int BQ, int BK>
 int launch_fp32(bool dkv, const BwdParams& p, cudaStream_t stream) {
@@ -1453,60 +1214,6 @@ int launch_wmma(bool dkv, const BwdParams& p, cudaStream_t stream) {
                        stream);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver that the process already runs on
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// bf16 [B, S, H, D] through element strides (sb, ss, sh), boxes of 64
-// columns x 64 rows of one head, 128-byte swizzle, rows past S read as 0
-bool map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-              long long sb, long long ss, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, one,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kNoTensorMap = -2;     // the driver refused a tensor map
-constexpr int kFewRegisters = -3;    // setmaxnreg would wait forever
-
-template <typename K>
-int launch_hopper(K kernel, int smem, dim3 grid, const TmaArgs& args,
-                  cudaStream_t stream) {
-  // the block's registers at launch must cover what setmaxnreg hands out
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * kThreadsTma < (kProducerRegs + kConsumerRegs) * 128)
-    return kFewRegisters;
-  return launch_kernel(kernel, smem, grid, kThreadsTma, args, stream);
-}
 
 // The Hopper bodies' ring depth and whether K3 overlaps a tile's products
 // with the next tile's scores, by D. Both keep two blocks per SM (at most

@@ -31,17 +31,35 @@
 //   blocks sharing a row tile, is chosen on the host from M and G alone (a
 //   row tile of a small M spans many groups), which keeps the grid static.
 //   rhs is read through three strides, so the same kernel takes rhs^T for
-//   the backward's d_lhs product. Two bodies, by dtype:
-//   * bf16 lhs and rhs (`gmm_tc_kernel`): tiles in shared memory as bf16,
-//     products on the tensor cores (WMMA 16x16x16, bf16 in, fp32
-//     accumulate); a warp skips the fragments that hold no row of the
-//     current group (decode puts 1-2 rows in a group). The fp32 fragments
+//   the backward's d_lhs product. Three bodies, by the operands' dtypes,
+//   strides and alignment alone (`body_for`, exported as `gmm_body`):
+//   * bf16 lhs and rhs that a tensor map can read (rhs N-contiguous, both
+//     bases and the other strides on 16 bytes; `gmm_hopper_kernel`): no
+//     block spans two groups. Every block scans group_sizes into the group
+//     offsets and, a second time, into each group's count of BM-row tiles;
+//     the static grid of ceil(M / BM) + G row slots per 128-column tile
+//     then names each tile (group g, rows offs[g] + i BM on) with no work
+//     list from the host, and the slots past the live tiles zero the rows
+//     from the total up, BM to a slot. No row needs zeroing and no product
+//     multiplies another group's zeros. Persistent blocks (one per SM)
+//     walk the slots; a producer warp streams lhs (2-D map) and rhs (3-D
+//     map over [G, K, N]) tiles by TMA into a ring of 64-deep K chunks,
+//     and one or two consumer warpgroups run wgmma m64n64k16 with both
+//     operands in shared memory and the fp32 accumulators in registers,
+//     writing the tile's rows of g straight from them. Decode (M <= 256)
+//     takes 64-row tiles and a deeper ring, so that each live group's
+//     weights stream through many loads in flight; larger M 128-row tiles.
+//   * other bf16 lhs and rhs (`gmm_tc_kernel`, a transposed rhs or rows off
+//     16 bytes): tiles in shared memory as bf16, products on the tensor
+//     cores (WMMA 16x16x16, bf16 in, fp32 accumulate); a warp skips the
+//     fragments that hold no row of the current group. The fp32 fragments
 //     are staged through shared memory per warp and only owned rows are
 //     written, in the output dtype.
 //   * anything else (`gmm_fma_kernel`): operands converted to fp32 as they
 //     are loaded (bf16 rhs^T is read as it lies, with no fp32 copy), FMA on
 //     the CUDA cores, full fp32: the backward's d_lhs = dy @ rhs^T and fp32
 //     references.
+//   The WMMA and FMA bodies use the z split above.
 // - K6 (`tgmm_kernel`): block (column tile, K tile, group) loops over its
 //   group's rows in chunks of 16 through shared memory, so the reduction
 //   over M stays on the chip, in one order, with no atomics. FMA in fp32
@@ -51,18 +69,20 @@
 //
 // Bound on H100. K5 at decode (64 rows over 128 experts, mostly 0-1 rows
 // each) moves the weight slices of the non-empty groups and little else:
-// bytes over 3.35 TB/s bound it, and the z split gives each non-empty group
-// its own blocks so that many weight streams are in flight. K5 in training
-// (32768 rows, ~256 per group) and K6 are bound by their operations: bf16
-// against the 989 TFLOP/s tensor-core peak, fp32 against the 67 TFLOP/s of
-// the CUDA cores. WMMA staged through shared memory and register-blocked
-// FMA reach a fraction of those peaks; wgmma with TMA (and 3xTF32 for the
-// fp32 products) is later work.
+// bytes over 3.35 TB/s bound it, and each non-empty group gets its own
+// tiles so that many weight streams are in flight. K5 in training (32768
+// rows, ~256 per group) moves lhs once per column tile and is bound by its
+// bytes at these widths, near its operations; K6 and the fp32 d_lhs by
+// their operations against the 67 TFLOP/s of the CUDA cores (3xTF32 on the
+// tensor cores is later work).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"  // barriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -89,11 +109,12 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// offs[g] = sum of sizes[0 .. g) for g = 0 .. G (negative sizes count as 0),
-// by all kThreads threads of the block; ends with a barrier
-__device__ void group_offsets(const int* sizes, int G, int* offs) {
-  constexpr int kPer = kMaxGroups / kThreads;
-  __shared__ int warp_total[kThreads / 32];
+// out[0] = 0 and out[g + 1] = out[g] + value(g) for g = 0 .. n - 1
+// (n <= kMaxGroups), by all NT threads of the block; ends with a barrier
+template <int NT, typename F>
+__device__ void exclusive_scan(F value, int n, int* out) {
+  constexpr int kPer = (kMaxGroups + NT - 1) / NT;
+  __shared__ int warp_total[NT / 32];
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -102,7 +123,7 @@ __device__ void group_offsets(const int* sizes, int G, int* offs) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int idx = t * kPer + i;
-    v[i] = idx < G ? max(sizes[idx], 0) : 0;
+    v[i] = idx < n ? value(idx) : 0;
     local += v[i];
   }
   int x = local;  // inclusive scan of `local` over the warp
@@ -119,10 +140,16 @@ __device__ void group_offsets(const int* sizes, int G, int* offs) {
   for (int i = 0; i < kPer; ++i) {
     const int idx = t * kPer + i;
     run += v[i];
-    if (idx < G) offs[idx + 1] = run;
+    if (idx < n) out[idx + 1] = run;
   }
-  if (t == 0) offs[0] = 0;
+  if (t == 0) out[0] = 0;
   __syncthreads();
+}
+
+// offs[g] = sum of sizes[0 .. g) for g = 0 .. G (negative sizes count as 0),
+// by all kThreads threads of the block; ends with a barrier
+__device__ void group_offsets(const int* sizes, int G, int* offs) {
+  exclusive_scan<kThreads>([&](int g) { return max(sizes[g], 0); }, G, offs);
 }
 
 // the group owning row r: the first g with offs[g + 1] > r (G past them all)
@@ -499,6 +526,235 @@ gmm_tc_kernel(const GmmParams p) {
   }
 }
 
+// ---- K5, the Hopper body (bf16 lhs and rhs, rhs N-contiguous): wgmma
+
+// Tensor maps of lhs [M, K] and rhs [G, K, N], the scalars, and the static
+// tile grid: `n_tiles` column tiles times `row_slots` = ceil(M / BM) + G row
+// slots, which bounds the live row tiles plus the tail's zero tiles.
+struct GmmTmaArgs {
+  CUtensorMap lhs, rhs;
+  GmmParams p;
+  int n_tiles, row_slots;
+};
+
+// CW consumer warpgroups of 64 rows each (BM = 64 CW rows per tile), BN
+// output columns per tile, and a ring of STAGES stages, each one 64-deep
+// chunk of K: the lhs rows [BM][64] and the rhs [64][BN] as BN / 64
+// [64][64] parts, all 128-byte swizzled
+template <int CW, int BN, int STAGES>
+struct GmmHopperSmem {
+  static constexpr int BM = 64 * CW;
+  static constexpr int half = 64 * 128;  // one [64][64] part
+  static constexpr int a = 0;
+  static constexpr int b = BM * 128;
+  static constexpr int stage = b + (BN / 64) * half;
+  static constexpr int bars = STAGES * stage;  // full, then empty
+  static constexpr int bytes = bars + 8 * 2 * STAGES + 1024;
+};
+
+// One tile of the static grid: rows [r0, r1) of group g times columns
+// [n0, n0 + BN), g = -1 for rows at or past the total (written as 0), and
+// r0 >= r1 for a slot past the tiles.
+struct GmmTile {
+  int g, r0, r1, n0;
+};
+
+// Slot s of the grid: column tile s % n_tiles, row slot r = s / n_tiles.
+// The live tiles come first: row slot r < live is tile i = r - toffs[g] of
+// the group g with toffs[g] <= r < toffs[g + 1], rows offs[g] + i BM on
+// (clipped to the group's end and to M). The rows from the total up follow,
+// BM to a slot. toffs[g] = the sum of ceil(rows of group h / BM) over h < g.
+__device__ __forceinline__ GmmTile gmm_tile(const GmmParams& p,
+                                            const int* offs, const int* toffs,
+                                            int n_tiles, int BM, int BN,
+                                            int s) {
+  const int r = s / n_tiles;
+  const int live = toffs[p.G];
+  GmmTile t;
+  t.n0 = (s % n_tiles) * BN;
+  if (r < live) {
+    t.g = group_of(toffs, p.G, r);
+    t.r0 = min(offs[t.g], p.M) + (r - toffs[t.g]) * BM;
+    t.r1 = min(t.r0 + BM, min(offs[t.g + 1], p.M));
+  } else {
+    t.g = -1;
+    t.r0 = min(offs[p.G], p.M) + (r - live) * BM;
+    t.r1 = min(t.r0 + BM, p.M);
+  }
+  return t;
+}
+
+template <typename OT>
+__device__ __forceinline__ void store_pair(OT* dst, float x0, float x1,
+                                           bool two, bool paired) {
+  if (two && paired) {
+    if constexpr (sizeof(OT) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+  } else {
+    dst[0] = from_f32<OT>(x0);
+    if (two) dst[1] = from_f32<OT>(x1);
+  }
+}
+
+// A persistent block walks the slots blockIdx.x, + gridDim.x, ...: it scans
+// group_sizes into offs and toffs once, then its producer warp streams each
+// live tile's K chunks through the ring (lhs by a 2-D map at the tile's
+// first row: rows of the next group are loaded but never stored; rhs by a
+// 3-D map at (n, k, g), only the 64-column parts inside N) while the
+// consumer warpgroups run the products, each its 64 rows: per chunk 4 k
+// steps of one wgmma m64n256k16 (BN 256) or BN / 64 of m64n64k16, both
+// operands in shared memory, fp32 accumulators in registers, one batch
+// left in flight while the previous chunk's stage is released. A tile
+// past N's edge multiplies its unloaded parts too (their columns are
+// never stored): a product under a per-part branch makes ptxas serialize
+// every wgmma. The epilogue writes the tile's rows of g (or zeros) from
+// the registers, in the output dtype. A row's sum over K runs over the
+// same chunks and k steps in the same order wherever the row sits in its
+// tile, so rows are bitwise the same at any M and any CW.
+template <int CW, int BN, int STAGES, typename OT>
+__global__ void __launch_bounds__(CW * 128 + 32, 1)
+    gmm_hopper_kernel(const __grid_constant__ GmmTmaArgs a) {
+  using L = GmmHopperSmem<CW, BN, STAGES>;
+  constexpr int NP = BN / 64;  // 64-column parts of a tile
+  constexpr int NT = CW * 128 + 32;
+  constexpr int BM = L::BM;
+  const GmmParams& p = a.p;
+  __shared__ int offs[kMaxGroups + 1];
+  __shared__ int toffs[kMaxGroups + 1];
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* smem =
+      smem_tma + ((1024 - (smem_u32(smem_tma) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bars;
+  const uint32_t empty = full + 8 * STAGES;
+
+  exclusive_scan<NT>([&](int g) { return max(p.sizes[g], 0); }, p.G, offs);
+  exclusive_scan<NT>(
+      [&](int g) {
+        return (min(offs[g + 1], p.M) - min(offs[g], p.M) + BM - 1) / BM;
+      },
+      p.G, toffs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * CW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int slots = a.n_tiles * a.row_slots;
+  const int chunks = (p.K + 63) / 64;
+  if (threadIdx.x >= CW * 128) {  // the producer warp: one thread issues
+    if (threadIdx.x != CW * 128) return;
+    int stage = 0, phase = 0;
+    for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+      const GmmTile t = gmm_tile(p, offs, toffs, a.n_tiles, BM, BN, s);
+      if (t.g < 0 || t.r0 >= t.r1) continue;
+      const int parts = min(NP, (p.N - t.n0 + 63) / 64);
+      for (int c = 0; c < chunks; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = base + stage * L::stage;
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, BM * 128 + parts * L::half);
+        tma_load_2d(st + L::a, &a.lhs, bar, c * 64, t.r0);
+        for (int hf = 0; hf < parts; ++hf)
+          tma_load_3d(st + L::b + hf * L::half, &a.rhs, bar,
+                      t.n0 + hf * 64, c * 64, t.g);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const bool paired = p.N % 2 == 0;  // a column pair is one aligned store
+  OT* out = static_cast<OT*>(p.out);
+  int stage = 0, phase = 0;
+  for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+    GmmTile t = gmm_tile(p, offs, toffs, a.n_tiles, BM, BN, s);
+    // the same for every thread, but read from shared memory: broadcast
+    // from lane 0, so that the compiler can see that the branches around
+    // the products are uniform
+    t.g = __shfl_sync(kFull, t.g, 0);
+    t.r0 = __shfl_sync(kFull, t.r0, 0);
+    t.r1 = __shfl_sync(kFull, t.r1, 0);
+    if (t.r0 >= t.r1) continue;
+    float acc[NP][32];
+#pragma unroll
+    for (int hf = 0; hf < NP; ++hf)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[hf][x] = 0.f;
+    if (t.g >= 0) {
+      int prev = -1;
+      for (int c = 0; c < chunks; ++c) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t st = base + stage * L::stage;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da =
+              sw128_desc(st + L::a + wg * 64 * 128 + kk * 32);
+          if constexpr (NP == 4) {  // one m64n256k16 over the tile
+            wgmma_ss_n256(acc, da,
+                          sw128_desc_parts(st + L::b + kk * 2048, L::half));
+          } else {
+#pragma unroll
+            for (int hf = 0; hf < NP; ++hf)
+              wgmma_ss_n(acc[hf], da,
+                         sw128_desc(st + L::b + hf * L::half + kk * 2048));
+          }
+        }
+        wg_commit();
+        wg_wait1();  // the previous chunk's products are done
+#pragma unroll
+        for (int hf = 0; hf < NP; ++hf) fence_regs(acc[hf]);
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait0();
+#pragma unroll
+      for (int hf = 0; hf < NP; ++hf) fence_regs(acc[hf]);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+    }
+    // acc[hf][4 j + 2 i + e]: row r0 + 64 wg + 16 warp + lane / 4 + 8 i,
+    // column n0 + 64 hf + 8 j + 2 (lane % 4) + e
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = t.r0 + wg * 64 + 16 * warp + lane / 4 + 8 * i;
+      if (row >= t.r1) continue;
+      OT* dst = out + static_cast<long long>(row) * p.N;
+#pragma unroll
+      for (int hf = 0; hf < NP; ++hf)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = t.n0 + 64 * hf + 8 * j + 2 * (lane % 4);
+          if (col < p.N)
+            store_pair<OT>(dst + col, acc[hf][4 * j + 2 * i],
+                           acc[hf][4 * j + 2 * i + 1], col + 1 < p.N, paired);
+        }
+    }
+  }
+}
+
 // ---- K6 (FMA on the CUDA cores, fp32)
 
 struct TgmmParams {
@@ -667,11 +923,78 @@ bool valid_dtype(int dt) { return dt == kF32 || dt == kBF16; }
 // row tiles of at most this many rows take the small-tile bodies (decode)
 constexpr int kSmallM = 256;
 
+template <int CW, int BN, int STAGES, typename OT>
+int launch_wgmma(const GmmParams& p, cudaStream_t stream) {
+  using L = GmmHopperSmem<CW, BN, STAGES>;
+  GmmTmaArgs a;
+  memset(&a, 0, sizeof(a));
+  a.p = p;
+  a.n_tiles = (p.N + BN - 1) / BN;
+  a.row_slots = (p.M + L::BM - 1) / L::BM + p.G;
+  const long long slots = static_cast<long long>(a.n_tiles) * a.row_slots;
+  if (slots > (1ll << 30)) return -1;
+  if (p.K > 0 && p.G > 0) {  // else no tile loads anything
+    const long long lhs_dims[2] = {p.K, p.M}, rhs_dims[3] = {p.N, p.K, p.G};
+    const long long rhs_strides[2] = {p.r_sk, p.r_sg};
+    const int lhs_box[2] = {64, L::BM}, rhs_box[3] = {64, 64, 1};
+    if (encode_tiled() == nullptr ||
+        !map_bf16(&a.lhs, p.lhs, 2, lhs_dims, &p.l_sm, lhs_box) ||
+        !map_bf16(&a.rhs, p.rhs, 3, rhs_dims, rhs_strides, rhs_box))
+      return kNoTensorMap;
+  }
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  const int grid = static_cast<int>(slots < sms ? slots : sms);
+  return launch_kernel(gmm_hopper_kernel<CW, BN, STAGES, OT>, L::bytes,
+                       dim3(grid), CW * 128 + 32, a, stream);
+}
+
+// The Hopper body's tile. Up to kSmallM rows (decode: a group holds 1-2
+// rows, and every live group's weights stream through its own tiles): one
+// consumer warpgroup, 64 x 128 tiles, a 6-deep ring, so that the tiles
+// spread over the SMs. Above it two, 128 x 256 tiles (each lhs row and
+// each rhs slice crosses from L2 to an SM fewer times), a 4-deep ring.
+template <typename OT>
+int wgmma_rows(const GmmParams& p, cudaStream_t stream) {
+  return p.M <= kSmallM ? launch_wgmma<1, 128, 6, OT>(p, stream)
+                        : launch_wgmma<2, 256, 4, OT>(p, stream);
+}
+
+// The body of each operand set, the one table of it: `gmm` runs what it
+// names, and ops/grouped_matmul.py holds its `_gmm_plan` against `gmm_body`
+// when it loads this library. bf16 x bf16 whose tiles a tensor map can
+// read (rhs N-contiguous; both bases and every other stride on 16 bytes)
+// runs wgmma, other bf16 x bf16 WMMA, anything else FMA.
+enum Body { kFmaBody = 0, kWmmaBody = 1, kWgmmaBody = 2 };
+
+int body_for(int lhs_dt, int rhs_dt, const void* lhs, long long l_sm,
+             const void* rhs, const long long* rs) {
+  if (lhs_dt != kBF16 || rhs_dt != kBF16) return kFmaBody;
+  const bool tma = reinterpret_cast<uintptr_t>(lhs) % 16 == 0 &&
+                   (l_sm * 2) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(rhs) % 16 == 0 && rs[2] == 1 &&
+                   (rs[0] * 2) % 16 == 0 && (rs[1] * 2) % 16 == 0;
+  return tma ? kWgmmaBody : kWmmaBody;
+}
+
 }  // namespace
 
-// Plain C entry points for ctypes. Each returns 0, the cudaError_t of the
-// launch, or -1 for a shape or dtype the kernels do not take. Dtype codes:
-// 0 fp32, 1 bf16.
+// Plain C entry points for ctypes. Each launch returns 0, the cudaError_t
+// of the launch, -2 for a tensor map the driver refused, or -1 for a shape
+// or dtype the kernels do not take. Dtype codes: 0 fp32, 1 bf16.
+//
+// gmm_body: the body that gmm runs for these operands (its arguments as
+// gmm takes them): 0 FMA, 1 WMMA, 2 wgmma.
+extern "C" int gmm_body(int lhs_dtype, int rhs_dtype, const void* lhs,
+                        long long lhs_row_stride, const void* rhs,
+                        const long long* rhs_strides) {
+  return body_for(lhs_dtype, rhs_dtype, lhs, lhs_row_stride, rhs,
+                  rhs_strides);
+}
 //
 // gmm (K5): lhs [M, K] (row stride lhs_row_stride, columns contiguous), rhs
 // [G, K, N] read at g * rhs_strides[0] + k * rhs_strides[1] + n *
@@ -707,14 +1030,20 @@ extern "C" int gmm(const void* lhs, const void* rhs, const void* group_sizes,
             p.r_sg % 8 == 0 && p.r_sk % 8 == 0 && N % 8 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool small = M <= kSmallM;
-  if (lhs_dtype == kBF16 && rhs_dtype == kBF16) {
-    return small ? tc_out<16, 128, 16, 16>(p, out_dtype, st)
-                 : tc_out<128, 128, 32, 64>(p, out_dtype, st);
+  switch (body_for(lhs_dtype, rhs_dtype, lhs, lhs_row_stride, rhs,
+                   rhs_strides)) {
+    case kWgmmaBody:
+      return out_dtype == kBF16 ? wgmma_rows<bf16>(p, st)
+                                : wgmma_rows<float>(p, st);
+    case kWmmaBody:
+      return small ? tc_out<16, 128, 16, 16>(p, out_dtype, st)
+                   : tc_out<128, 128, 32, 64>(p, out_dtype, st);
+    default:
+      return small ? fma_dispatch<16, 64, 16>(p, lhs_dtype, rhs_dtype,
+                                              out_dtype, st)
+                   : fma_dispatch<128, 128, 8>(p, lhs_dtype, rhs_dtype,
+                                               out_dtype, st);
   }
-  return small
-             ? fma_dispatch<16, 64, 16>(p, lhs_dtype, rhs_dtype, out_dtype, st)
-             : fma_dispatch<128, 128, 8>(p, lhs_dtype, rhs_dtype, out_dtype,
-                                         st);
 }
 
 // tgmm (K6): lhs [M, K] and dy [M, N] (row strides given, columns

@@ -5,7 +5,8 @@ Counterpart of ``distributed_training_guide_tpu/ops/flash_attention.py``,
 whose Pallas kernels are rewritten here in CUDA for ``sm_90a``:
 ``_fwd_kernel`` (K1) as ``csrc/flash_fwd.cu``, ``_dq_kernel`` (K2) and
 ``_dkv_kernel`` (K3) as ``csrc/flash_bwd.cu`` (design and bound in their
-headers; ``_bwd_plan`` names the backward body of each dtype and D).
+headers; ``_fwd_plan`` and ``_bwd_plan`` name the body of each dtype and
+D).
 Shapes follow the JAX package's public function: q [B, Sq, Hq, D],
 k / v [B, Sk, Hkv, D], grouped-query heads when Hkv < Hq; the kernels read
 that layout through strides, so nothing is transposed.
@@ -23,10 +24,10 @@ would give exp(0) = 1 on its masked lanes there).
 Each wrapper runs the plain PyTorch version (``flash_attention_reference``,
 ``flash_bwd_reference``) for CPU tensors, which is the one reason it ever
 takes it, and launches its kernel for CUDA tensors, or raises.
-``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count launches;
-``ALIGN_COPIES`` counts operands that the Hopper backward bodies' tensor
-maps could not read in place (a base or stride off 16 bytes) and that were
-copied before the launch.
+``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count launches,
+``FWD_BODY_LAUNCHES`` K1's launches by body; ``ALIGN_COPIES`` counts
+operands that the Hopper bodies' tensor maps could not read in place (a
+base or stride off 16 bytes) and that were copied before the launch.
 """
 from __future__ import annotations
 
@@ -41,13 +42,15 @@ from . import _build
 from .attention import NO_WINDOW, check_static_window
 
 FWD_LAUNCHES = 0    # K1 launches since the caller last reset it
+FWD_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0}   # ... by body
 DQ_LAUNCHES = 0     # K2
 DKV_LAUNCHES = 0    # K3
 ALIGN_COPIES = 0    # operands copied for the TMA bodies' 16-byte rule
 NEG_INF = -1e30     # the kernels' mask constant
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BODIES = ("fma", "wmma", "wgmma")   # the codes of flash_bwd_body
+_BODIES = ("fma", "wmma", "wgmma")   # the codes of flash_{fwd,bwd}_body
+FWD_BLOCK_K = 64    # the keys of one kv tile of the Hopper forward body
 _fns: dict = {}
 _log = logging.getLogger(__name__)
 
@@ -96,9 +99,14 @@ def _scores(q, k, scale, softcap):
 
 def flash_attention_reference(q, k, v, *, causal: bool = True, window=None,
                               scale: Optional[float] = None,
-                              softcap: Optional[float] = None, band=None):
+                              softcap: Optional[float] = None, band=None,
+                              round_p: bool = False):
     """The plain version of K1, in fp32 inside and masked as the kernel
-    is: (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)."""
+    is: (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32). With
+    ``round_p`` it follows the bf16 kernel bodies' arithmetic: it walks the
+    kv tiles of ``FWD_BLOCK_K`` keys with a running max, rescales l and the
+    fp32 accumulator as the max moves, and rounds each tile's p to q's
+    dtype before P V (l sums p unrounded); a no-op rounding for fp32."""
     b, sq, hq, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -106,16 +114,43 @@ def flash_attention_reference(q, k, v, *, causal: bool = True, window=None,
     live = _live(sq, sk, causal, _band_ints(window, band), q.device)
     if live is not None:
         s = torch.where(live, s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    if live is not None:
-        p = torch.where(live, p, 0.0)
-    l = p.sum(-1, keepdim=True)
+    if round_p:
+        o, m, l = _tiled_softmax_pv(s, live, v, q.dtype)
+    else:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        if live is not None:
+            p = torch.where(live, p, 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     safe_l = torch.where(l == 0, 1.0, l)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / safe_l
+    o = o / safe_l
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
     lse = (m + torch.log(safe_l)).reshape(b, hq, sq)
     return o, lse
+
+
+def _tiled_softmax_pv(s, live, v, p_dtype):
+    """(P V unnormalized, m, l) over kv tiles of ``FWD_BLOCK_K`` keys with a
+    running max, each tile's p rounded to ``p_dtype`` for P V: the online
+    softmax of the bf16 kernel bodies. ``s`` [B, Hkv, G, Sq, Sk] holds
+    -1e30 at masked pairs; ``live`` [Sq, Sk] or None."""
+    m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (v.shape[-1],), device=s.device)
+    for k0 in range(0, s.shape[-1], FWD_BLOCK_K):
+        st = s[..., k0:k0 + FWD_BLOCK_K]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        if live is not None:
+            p = torch.where(live[:, k0:k0 + FWD_BLOCK_K], p, 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(p_dtype).float(),
+            v[:, k0:k0 + FWD_BLOCK_K].float())
+        m = m_new
+    return acc, m, l
 
 
 def _bwd_terms(q, k, v, do, lse, delta, causal, window, scale, softcap,
@@ -183,13 +218,14 @@ def flash_bwd_reference(q, k, v, do, lse, delta, **kw):
 # ---------------------------------------------------------------------------
 
 def _kernel(name: str):
-    """The ctypes function of a kernel, its library built on first use."""
+    """The ctypes function of a kernel, its library built on first use and
+    its body table held against the plan."""
     fn = _fns.get(name)
     if fn is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
-        if name != "flash_fwd":
-            _check_body_table(lib)
+        source = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+        lib = _build.load(source)
+        _check_body_table(lib, source)
         fn = getattr(lib, name)
         n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
         fn.argtypes = ([ptr] * n_ptr + [i32] * 6 + [ptr] + [i32] * 5
@@ -199,20 +235,23 @@ def _kernel(name: str):
     return fn
 
 
-def _check_body_table(lib) -> None:
-    """Raises unless the library's ``flash_bwd_body`` picks, for every
-    dtype and head_dim, the body that ``_bwd_plan`` names."""
-    body = lib.flash_bwd_body
+def _check_body_table(lib, source: str = "flash_bwd") -> None:
+    """Raises unless the library's ``<source>_body`` picks, for every
+    dtype and head_dim, the body that its plan (``_fwd_plan`` for
+    flash_fwd, ``_bwd_plan`` for flash_bwd) names."""
+    plan, plan_name = ((_fwd_plan, "_fwd_plan") if source == "flash_fwd"
+                       else (_bwd_plan, "_bwd_plan"))
+    body = getattr(lib, f"{source}_body")
     body.argtypes = [ctypes.c_int, ctypes.c_int]
     body.restype = ctypes.c_int
     for dtype, code in _DTYPE_CODE.items():
         for d in HEAD_DIMS:
             got = body(code, d)
             got = _BODIES[got] if 0 <= got < len(_BODIES) else got
-            if got != _bwd_plan(d, dtype):
+            if got != plan(d, dtype):
                 raise RuntimeError(
-                    f"flash_bwd.cu runs body {got} at {dtype}, D {d}; "
-                    f"_bwd_plan names {_bwd_plan(d, dtype)}")
+                    f"{source}.cu runs body {got} at {dtype}, D {d}; "
+                    f"{plan_name} names {plan(d, dtype)}")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -241,6 +280,17 @@ def _check_operands(q, k, v, *extra) -> None:
            f"positive multiple of kv heads ({hkv})")
     for x in (q, k, v, *extra):
         _check(x.stride(-1) == 1, "head_dim must be contiguous (stride 1)")
+
+
+def _fwd_plan(d: int, dtype) -> str:
+    """The forward body that ``flash_fwd.cu`` runs for head_dim ``d`` and
+    ``dtype``, from those two alone: "wgmma" (bf16, D 64 / 128: Q resident,
+    K / V through a TMA ring, wgmma, scores and O in registers), "wmma"
+    (bf16, D 256) or "fma" (fp32). ``_check_body_table`` holds it against
+    the library's own table when the library loads."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in (64, 128) else "wmma"
+    return "fma"
 
 
 def _bwd_plan(d: int, dtype) -> str:
@@ -280,9 +330,17 @@ def _strides(*xs):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+_HOPPER_ERRORS = {-2: "the driver refused a tensor map",
+                  -3: "too few registers at launch for setmaxnreg"}
+
+
 def _launch_fwd(fn, q, k, v, causal, band, scale, softcap):
-    """(o, lse) from one launch of K1 through ``fn``."""
+    """(o, lse) from one launch of K1 through ``fn``; the body that ran is
+    counted in ``FWD_BODY_LAUNCHES``."""
     b, sq, hq, d = q.shape
+    plan = _fwd_plan(d, q.dtype)
+    if plan == "wgmma" and q.is_cuda:
+        q, k, v = _tma_operands(q, k, v)
     sk, hkv = k.shape[1], k.shape[2]
     window, q_off, k_off = band
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -294,13 +352,12 @@ def _launch_fwd(fn, q, k, v, causal, band, scale, softcap):
             _DTYPE_CODE[q.dtype], int(causal), window, q_off, k_off,
             float(scale), float(softcap or 0.0), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed (code {rc}) at "
-                           f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+        why = f": {_HOPPER_ERRORS[rc]}" if rc in _HOPPER_ERRORS else ""
+        raise RuntimeError(f"flash_fwd kernel launch failed (code {rc}{why}) "
+                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"{q.dtype}, body {plan}")
+    FWD_BODY_LAUNCHES[plan] += 1
     return o, lse
-
-
-_BWD_ERRORS = {-2: "the driver refused a tensor map",
-               -3: "too few registers at launch for setmaxnreg"}
 
 
 def _launch_bwd(fn, dkv: bool, q, k, v, do, lse, delta, causal, band,
@@ -324,7 +381,7 @@ def _launch_bwd(fn, dkv: bool, q, k, v, do, lse, delta, causal, band,
             _DTYPE_CODE[q.dtype], int(causal), window, q_off, k_off,
             float(scale), float(softcap or 0.0), stream)
     if rc != 0:
-        why = f": {_BWD_ERRORS[rc]}" if rc in _BWD_ERRORS else ""
+        why = f": {_HOPPER_ERRORS[rc]}" if rc in _HOPPER_ERRORS else ""
         raise RuntimeError(f"{'flash_bwd_dkv' if dkv else 'flash_bwd_dq'} "
                            f"kernel launch failed (code {rc}{why}) at q "
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, "

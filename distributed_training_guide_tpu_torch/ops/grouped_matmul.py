@@ -15,7 +15,10 @@ order, has no counterpart: every CUDA block finds its groups itself. Each
 wrapper launches its kernel for CUDA tensors, or raises, and runs its plain
 version (``gmm_reference``, the JAX ``_gmm_scan``; ``tgmm_reference``) for
 CPU tensors, which is the one reason it ever takes it. ``GMM_LAUNCHES`` and
-``TGMM_LAUNCHES`` count launches.
+``TGMM_LAUNCHES`` count launches, ``GMM_BODY_LAUNCHES`` K5's launches by
+body. ``_gmm_plan`` names K5's body from the operands' dtypes, strides and
+alignment alone, and ``tile_schedule`` is the tile grid that the Hopper
+body's blocks compute for themselves.
 
 ``impl``: "auto" (or the JAX name "pallas") is the autograd Function over
 the two wrappers, whose backward does what the JAX custom_vjp does, in
@@ -34,10 +37,13 @@ from . import _build
 from .matmul import matmul_f32_out
 
 GMM_LAUNCHES = 0    # K5 launches since the caller last reset it
+GMM_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0}   # ... by body
 TGMM_LAUNCHES = 0   # K6
 MAX_GROUPS = 1024   # the kernels' shared-memory offset table
+SMALL_M = 256       # the Hopper body takes 64-row tiles up to this M, else 128
 IMPLS = ("auto", "pallas", "scan", "einsum")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODIES = ("fma", "wmma", "wgmma")   # the codes of gmm_body
 _fns: dict = {}
 
 
@@ -110,16 +116,44 @@ def tgmm_einsum(lhs, dy, group_sizes, num_groups, out_dtype) -> torch.Tensor:
                         dy.float()).to(out_dtype)
 
 
+def tile_block_rows(m: int) -> int:
+    """The Hopper body's rows per tile at ``m`` rows: 64 (decode) or 128."""
+    return 64 if m <= SMALL_M else 128
+
+
+def tile_schedule(group_sizes, m: int, bm: int) -> list:
+    """The row tiles of the Hopper body's static grid, in slot order, as
+    its blocks compute them from ``group_sizes`` (host ints; negative sizes
+    count as 0) alone: (group, first row, rows) for each group's rows
+    (clipped to ``m``) in tiles of ``bm`` starting at the group's first
+    row, then (-1, first row, rows) for the rows from the total up, which
+    the kernel writes as zeros. The grid has ``ceil(m / bm) + G`` row slots
+    per column tile; the slots past this list do nothing."""
+    offs = [0]
+    for size in group_sizes:
+        offs.append(offs[-1] + max(int(size), 0))
+    tiles = []
+    for g in range(len(group_sizes)):
+        lo, hi = min(offs[g], m), min(offs[g + 1], m)
+        tiles += [(g, r, min(bm, hi - r)) for r in range(lo, hi, bm)]
+    total = min(offs[-1], m)
+    tiles += [(-1, r, min(bm, m - r)) for r in range(total, m, bm)]
+    return tiles
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
 def _kernel(name: str):
-    """The ctypes function of ``gmm`` or ``tgmm``, built on first use."""
+    """The ctypes function of ``gmm`` or ``tgmm``, built on first use; the
+    library's body table is held against ``_gmm_plan`` as it loads."""
     fn = _fns.get(name)
     if fn is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn = getattr(_build.load("grouped_matmul"), name)
+        lib = _build.load("grouped_matmul")
+        _check_body_table(lib)
+        fn = getattr(lib, name)
         if name == "gmm":
             fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64, ptr] + [i32] * 3 + [ptr]
         else:
@@ -127,6 +161,61 @@ def _kernel(name: str):
         fn.restype = i32
         _fns[name] = fn
     return fn
+
+
+def _gmm_plan(lhs: torch.Tensor, rhs: torch.Tensor) -> str:
+    """K5's body for these operands, from their dtypes, strides and
+    16-byte alignment alone: "wgmma" (the Hopper body: bf16 lhs and rhs
+    that tensor maps can read, i.e. rhs N-contiguous and both bases and
+    every other stride on 16 bytes), "wmma" (other bf16 lhs and rhs: a
+    transposed rhs, rows off 16 bytes) or "fma" (anything else).
+    ``_check_body_table`` holds it against the library's ``gmm_body``."""
+    if lhs.dtype != torch.bfloat16 or rhs.dtype != torch.bfloat16:
+        return "fma"
+    on_16 = (lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+             and all(x * 2 % 16 == 0 for x in (lhs.stride(0), rhs.stride(0),
+                                                rhs.stride(1))))
+    return "wgmma" if on_16 and rhs.stride(2) == 1 else "wmma"
+
+
+def _plan_cases() -> list:
+    """(lhs, rhs) pairs on the CPU that take every branch of the plan:
+    each dtype pair, bases on and off 16 bytes, row and group strides on
+    and off 16 bytes, a transposed rhs."""
+    bf = torch.bfloat16
+    lhs, rhs = torch.zeros(16, 64, dtype=bf), torch.zeros(2, 64, 64, dtype=bf)
+    return [(lhs, rhs), (lhs.float(), rhs), (lhs, rhs.float()),
+            (lhs.float(), rhs.float()),
+            (torch.zeros(16 * 64 + 8, dtype=bf)[8:].view(16, 64), rhs),
+            (torch.zeros(16 * 64 + 1, dtype=bf)[1:].view(16, 64), rhs),
+            (lhs, torch.zeros(2 * 64 * 64 + 1, dtype=bf)[1:].view(2, 64, 64)),
+            (torch.zeros(16, 100, dtype=bf), torch.zeros(2, 100, 72, dtype=bf)),
+            (lhs, torch.zeros(2, 64, 68, dtype=bf)[..., :64]),
+            (lhs, torch.zeros(2, 68, 64, dtype=bf)[:, :64]),
+            (lhs, torch.zeros(2 * 64 * 64 + 4, dtype=bf).as_strided(
+                (2, 64, 64), (64 * 64 + 4, 64, 1))),
+            (lhs, torch.zeros(2, 64, 512, dtype=bf)[..., ::8]),
+            (lhs, rhs.transpose(1, 2)), (lhs.float(), rhs.transpose(1, 2))]
+
+
+def _check_body_table(lib) -> None:
+    """Raises unless the library's ``gmm_body`` picks, for every case of
+    ``_plan_cases``, the body that ``_gmm_plan`` names."""
+    body = lib.gmm_body
+    body.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    body.restype = ctypes.c_int
+    for lhs, rhs in _plan_cases():
+        strides = (ctypes.c_longlong * 3)(*rhs.stride())
+        got = body(_DTYPE_CODE[lhs.dtype], _DTYPE_CODE[rhs.dtype],
+                   lhs.data_ptr(), lhs.stride(0), rhs.data_ptr(), strides)
+        got = _BODIES[got] if 0 <= got < len(_BODIES) else got
+        if got != _gmm_plan(lhs, rhs):
+            raise RuntimeError(
+                f"grouped_matmul.cu runs body {got} at lhs {lhs.dtype} "
+                f"{tuple(lhs.stride())}, rhs {rhs.dtype} "
+                f"{tuple(rhs.stride())}; _gmm_plan names "
+                f"{_gmm_plan(lhs, rhs)}")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -155,8 +244,11 @@ def _stream(x: torch.Tensor):
 
 
 def _launch_gmm(fn, lhs, rhs, group_sizes, out_dtype) -> torch.Tensor:
+    """One launch of K5 through ``fn``; the body that ran (``_gmm_plan``)
+    is counted in ``GMM_BODY_LAUNCHES``."""
     m, k = lhs.shape
     g, _, n = rhs.shape
+    plan = _gmm_plan(lhs, rhs)
     out = torch.empty(m, n, dtype=out_dtype, device=lhs.device)
     strides = (ctypes.c_longlong * 3)(*rhs.stride())
     rc = fn(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
@@ -164,9 +256,11 @@ def _launch_gmm(fn, lhs, rhs, group_sizes, out_dtype) -> torch.Tensor:
             _DTYPE_CODE[lhs.dtype], _DTYPE_CODE[rhs.dtype],
             _DTYPE_CODE[out_dtype], _stream(lhs))
     if rc != 0:
-        raise RuntimeError(f"gmm kernel launch failed (code {rc}) at lhs "
-                           f"{tuple(lhs.shape)} {lhs.dtype}, rhs "
-                           f"{tuple(rhs.shape)} {rhs.dtype}")
+        why = ": the driver refused a tensor map" if rc == -2 else ""
+        raise RuntimeError(f"gmm kernel launch failed (code {rc}{why}) at "
+                           f"lhs {tuple(lhs.shape)} {lhs.dtype}, rhs "
+                           f"{tuple(rhs.shape)} {rhs.dtype}, body {plan}")
+    GMM_BODY_LAUNCHES[plan] += 1
     return out
 
 

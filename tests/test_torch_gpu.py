@@ -449,6 +449,88 @@ def test_bwd_library_table_is_bwd_plan(cuda):
     assert [lib.flash_bwd_body(1, d) for d in fa.HEAD_DIMS] == [2, 2, 1]
 
 
+# the Hopper forward body (bf16, D 64 / 128) against the plain version at
+# its own arithmetic (``round_p``: kv tiles of 64 keys, a running max, p
+# rounded to bf16 before P V): the order of the fp32 sums and exp2 against
+# exp move a few bf16 roundings by one ulp, ~1e-4 in relative L2; 1e-3
+# leaves 10x room. lse against the fp32 plain version at FLASH_FP32's
+# 2e-5: the kernel's l and m are fp32, p unrounded in l.
+HOPPER_FWD_CASES = {**HOPPER_BWD_CASES,
+                    "masked-rows": (2, 200, 200, True, None, None, (0, 64))}
+HOPPER_FWD_GRID = list(itertools.product([64, 128], [1, 4, 8],
+                                         list(HOPPER_FWD_CASES)))
+
+
+@pytest.mark.parametrize("d,groups,name", HOPPER_FWD_GRID,
+                         ids=[f"d{d}-g{g}-{n}" for d, g, n in HOPPER_FWD_GRID])
+def test_hopper_fwd_body_matches_plain_version(cuda, d, groups, name):
+    """bf16 K1 (the wgmma body) against the fp32 plain version at the bf16
+    bound, against the plain version at its own arithmetic at a tight
+    bound, lse within 2e-5 (-1e30 and o = 0 on a row with no live key),
+    bitwise equal from one launch to the next, no alignment copy."""
+    assert fa._fwd_plan(d, torch.bfloat16) == "wgmma"
+    b, sq, sk, causal, window, softcap, offs = HOPPER_FWD_CASES[name]
+    hkv = 2
+    gen = torch.Generator(device=cuda).manual_seed(3 * d + groups)
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((b, sq, hkv * groups, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    kw = dict(causal=causal, softcap=softcap)
+    if offs is None:
+        kw["window"] = window
+    else:
+        kw["band"] = fa.pack_band(window, *offs)
+    before = (fa.FWD_BODY_LAUNCHES["wgmma"], fa.ALIGN_COPIES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.FWD_BODY_LAUNCHES["wgmma"], fa.ALIGN_COPIES) == (
+        before[0] + 2, before[1])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+    ao, _ = fa.flash_attention_reference(q, k, v, **kw, round_p=True)
+    assert o.dtype == torch.bfloat16 and o.shape == ro.shape
+    for want, bound in ((ro, FLASH_BF16_REL_L2),
+                        (ao, FLASH_KERNEL_ARITH_REL_L2)):
+        err = ((o.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert err <= bound, (err, bound)
+    assert (lse - rlse).abs().max().item() <= FLASH_FP32["lse"]
+    dead = rlse == fa.NEG_INF
+    if name == "masked-rows":
+        assert dead.any()
+    assert not o.transpose(1, 2)[dead].any()
+
+
+def test_hopper_fwd_copies_a_misaligned_operand(cuda):
+    """An operand whose base is off 16 bytes is copied for the forward's
+    tensor maps (counted), and the result is that of the aligned operand,
+    bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, s, hq, hkv, d = 1, 333, 8, 2, 128
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    flat = torch.empty(v.numel() + 4, dtype=v.dtype, device=cuda)
+    v_off = flat[4:].view(v.shape)           # base 8 bytes past 16
+    v_off.copy_(v)
+    want = fa.flash_fwd(q, k, v)
+    before = fa.ALIGN_COPIES
+    got = fa.flash_fwd(q, k, v_off)
+    torch.cuda.synchronize()
+    assert fa.ALIGN_COPIES - before == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fwd_library_table_is_fwd_plan(cuda):
+    """The built forward library's own table (``flash_fwd_body``) picks
+    the body that ``_fwd_plan`` names at every dtype and head_dim."""
+    lib = fa._build.load("flash_fwd")
+    fa._check_body_table(lib, "flash_fwd")
+    assert [lib.flash_fwd_body(1, d) for d in fa.HEAD_DIMS] == [2, 2, 1]
+    assert [lib.flash_fwd_body(0, d) for d in fa.HEAD_DIMS] == [0, 0, 0]
+
+
 def test_trainer_on_card_matches_cpu(cuda):
     """A head_dim-64 llama-debug variant in fp32: three Trainer steps on
     the card (attention through K1-K3) against the CPU's (the plain
@@ -591,6 +673,92 @@ def test_gmm_rows_are_batch_invariant(cuda):
         alone[4] = 8
         few = gm.gmm(lhs[start:start + 8].contiguous(), rhs, alone)
         assert torch.equal(few, full[start:start + 8]), dtype
+
+
+def _routed(gen, dev, tokens, experts, topk):
+    idx = torch.rand(tokens, experts, generator=gen,
+                     device=dev).topk(topk, dim=-1).indices.flatten()
+    return torch.zeros(experts, dtype=torch.int32, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+# the Hopper body's cases: (name, M, K, N, routed tokens or fixed sizes):
+# qwen3-30b-a3b's decode (8 tokens x top-8 of 128 experts) and training
+# (4096 x top-8) shapes, gate / up and down widths, and the small cases a
+# tensor map can read (K, N off the 64- and 128-wide tiles, empty groups,
+# a tail, one group taking every row)
+GMM_HOPPER_CASES = [
+    ("qwen3-decode-gate", 64, 2048, 768, 8),
+    ("qwen3-decode-down", 64, 768, 2048, 8),
+    ("qwen3-train-gate", 32768, 2048, 768, 4096),
+    ("qwen3-train-down", 32768, 768, 2048, 4096),
+    ("decode", 64, 256, 192, [1 if i % 2 else 0 for i in range(128)]),
+    ("large", 1000, 128, 256, [100] * 10),
+    ("all-empty", 96, 64, 64, [0, 0, 0, 0]),
+    ("tail", 520, 64, 136, [7, 200, 0, 13]),
+    ("one-group", 260, 48, 40, [260, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("case", GMM_HOPPER_CASES,
+                         ids=[c[0] for c in GMM_HOPPER_CASES])
+def test_gmm_hopper_body_matches_plain_version(cuda, case):
+    """bf16 K5 through the wgmma body (``_gmm_plan``, counted per body)
+    against the plain version in bf16 and fp32 out, rows past the total
+    exactly zero, bitwise equal from one launch to the next."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    if isinstance(sizes, int):
+        sz = _routed(gen, cuda, sizes, 128, 8)
+    else:
+        sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    lhs = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    rhs = (torch.randn(sz.shape[0], k, n, generator=gen, device=cuda)
+           * 0.05).bfloat16()
+    assert gm._gmm_plan(lhs, rhs) == "wgmma"
+    total = int(sz.sum())
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = gm.GMM_BODY_LAUNCHES["wgmma"]
+        got = gm.gmm(lhs, rhs, sz, out_dtype)
+        again = gm.gmm(lhs, rhs, sz, out_dtype)
+        torch.cuda.synchronize()
+        assert gm.GMM_BODY_LAUNCHES["wgmma"] == before + 2
+        assert torch.equal(got, again)
+        want = gm.gmm_reference(lhs, rhs, sz, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert not got[total:].any()
+        if total:
+            err = ((got.float() - want.float()).norm()
+                   / want.float().norm()).item()
+            assert err <= 1e-2, (name, out_dtype, err)
+
+
+@pytest.mark.parametrize("n", [768, 256, 320])
+def test_gmm_hopper_rows_are_batch_invariant_at_full_tiles(cuda, n):
+    """A group's rows through the Hopper body alone (decode-sized M: 64 x
+    128 tiles, m64n64k16 products) and beside 1000 other rows (128 x 256
+    tiles, one m64n256k16 product per k step where a tile is full) come out
+    bitwise the same, in bf16 and fp32 out."""
+    gen = torch.Generator(device=cuda).manual_seed(13 + n)
+    lhs = torch.randn(1000, 512, generator=gen, device=cuda).bfloat16()
+    rhs = torch.randn(8, 512, n, generator=gen, device=cuda).bfloat16()
+    crowd = torch.tensor([100, 300, 0, 8, 200, 92, 150, 150],
+                         dtype=torch.int32, device=cuda)
+    alone = torch.zeros(8, dtype=torch.int32, device=cuda)
+    alone[4] = 200
+    start = 408                            # group 4's rows
+    for out_dtype in (torch.bfloat16, torch.float32):
+        full = gm.gmm(lhs, rhs, crowd, out_dtype)
+        few = gm.gmm(lhs[start:start + 200].contiguous(), rhs, alone,
+                     out_dtype)
+        assert torch.equal(few, full[start:start + 200]), out_dtype
+
+
+def test_gmm_library_table_is_gmm_plan(cuda):
+    """The built grouped-matmul library's own table (``gmm_body``) picks
+    the body that ``_gmm_plan`` names for every dtype, alignment and
+    stride case of ``_plan_cases``."""
+    gm._check_body_table(gm._build.load("grouped_matmul"))
 
 
 def test_grouped_matmul_autograd_matches_plain_autograd(cuda):
