@@ -60,13 +60,15 @@ phases, each of which raises on failure:
    their plain versions in fp32 and bf16 at qwen3-30b-a3b's decode, chunk
    and training shapes, moe-1b-8e's and qwen1.5-moe-a2.7b's widths, empty
    groups, a tail past ``sum(group_sizes)``, one group taking every row
-   and widths off the tiles, each K5 launch through the body that
-   ``_gmm_plan`` names (the Hopper body, WMMA and FMA each run), and the
+   and widths off the tiles, the d_lhs form also at fp32 output within
+   the fp32 bound, each K5 launch through the body that ``_gmm_plan``
+   names (the Hopper body, WMMA, the split body and FMA each run), and the
    autograd Function's grads against plain autograd;
 10. grouped timing — K5 at the decode and training shapes (forward and the
-   backward's fp32 d_lhs) and K6 at the training shape beside their plain
-   versions, bounds and ``torch._grouped_mm`` (a yardstick the port never
-   calls), device times as in phase 6;
+   backward's fp32 d_lhs, with the split body's two-pass bound beside the
+   fp32 one) and K6 at the training shape beside their plain versions,
+   bounds and ``torch._grouped_mm`` (a yardstick the port never calls),
+   device times as in phase 6;
 11. moe serve — ``ServeEngine`` on qwen3-30b-a3b at full width and depth
    in bf16 (random weights from a seed) with phase 7's traffic, bucketed
    and chunked: exactly 144 K5 launches per forward (every one through the
@@ -79,7 +81,7 @@ phases, each of which raises on failure:
    layers with ``--moe-dispatch ragged`` (bf16 compute, fp32 params and
    AdamW, 2 x 2048 tokens, 6 steps): finite falling loss, no dropped
    pairs, exactly 6 K5 (3 forward through the Hopper body, 3 fp32 d_lhs
-   through the FMA body), 3 K6 and 1 each of K1-K3 launches per layer per
+   through the split body), 3 K6 and 1 each of K1-K3 launches per layer per
    step (K1 through the Hopper body, no operand copied), a profiled step,
    an fp32 2-layer step through the kernels against
    one through the plain grouped matmul, and 2 dense-dispatch steps that
@@ -87,15 +89,18 @@ phases, each of which raises on failure:
 13. qmm — the block-dequant matmul of the int8 serve weights (K7)
    against ``quantized_matmul_reference`` at llama-3.1-8b's projection and
    head widths, M from 1 to 2048, block sizes 32, 128 and 24, a short last
-   block, fp32 and bf16 x, fp32 and bf16 outputs, and rows bitwise the
-   same whatever M;
+   block, fp32 and bf16 x, fp32 and bf16 outputs, each launch through the
+   body that ``_qmm_plan`` names (the tensor-core body and FMA each run),
+   and rows bitwise the same whatever M;
 14. qmm timing — K7 and its plain version at the gate decode, head decode
-   and gate chunk shapes beside their bounds, with the bf16 ``torch.mm``
-   on the unquantized weight as a control the port never calls;
+   and gate chunk shapes beside their bounds (fp32, and the tensor-core
+   body's two passes), device times as in phase 10, with the bf16
+   ``torch.mm`` on the unquantized weight as a control the port never
+   calls;
 15. int8 serve — ``ServeEngine(weight_dtype="int8")`` on llama-3.1-8b at
    full width and depth (bf16 compute) with phase 7's traffic, bucketed
-   and chunked: exactly 225 K7 launches per forward and phase 7's K4
-   counts, batch invariance of a greedy request, the weight report
+   and chunked: exactly 225 K7 launches per forward, every one through the
+   tensor-core body, and phase 7's K4 counts, batch invariance of a greedy request, the weight report
    against the resident bytes, first-token logits against the plain
    prefill over the snapped params (bf16 full depth; fp32 at 2 layers on
    llama-3.1-8b and on llama-3.2-1b, whose tied head runs the plain
@@ -1178,7 +1183,8 @@ def reset_flash_counts() -> None:
 def check_hopper_path(where: str, copies: int) -> dict:
     """Every K1 launch since the counts were last reset ran the Hopper body
     and no operand was copied for a tensor map since ``copies`` was read;
-    every bf16 K5 launch ran the Hopper body, the rest the FMA body.
+    no K5 launch ran the WMMA body (bf16 forwards run the Hopper body,
+    fp32-dy d_lhs the split body, fp32 operands the FMA body).
     Returns the launches by body."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
@@ -1188,7 +1194,7 @@ def check_hopper_path(where: str, copies: int) -> dict:
           f"{fwd}, {fa.FWD_LAUNCHES} in all: not all the Hopper body")
     check(fa.ALIGN_COPIES == copies, f"{where}: {fa.ALIGN_COPIES - copies} "
           f"operands copied for the TMA bodies' 16-byte rule")
-    check(gmm["wmma"] == 0 and gmm["wgmma"] + gmm["fma"] == gm.GMM_LAUNCHES,
+    check(gmm["wmma"] == 0 and sum(gmm.values()) == gm.GMM_LAUNCHES,
           f"{where}: K5 launches by body {gmm}, {gm.GMM_LAUNCHES} in all")
     return {"flash_fwd": fwd, "grouped_matmul": gmm}
 
@@ -1306,7 +1312,8 @@ def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
             "flash_fwd_ms": ms_of("flash_fwd"),
             "flash_dq_ms": ms_of("flash_dq"),
             "flash_dkv_ms": ms_of("flash_dkv"),
-            "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma", "gmm_hopper"),
+            "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma", "gmm_hopper",
+                                       "gmm_split"),
             "tgmm_ms": ms_of("tgmm_kernel"),
             "gemm_ms": ms_of("gemm", "nvjet", "xmma", "cutlass"),
             "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
@@ -1439,10 +1446,11 @@ def rel_l2(got, want) -> float:
 
 def phase_grouped(torch) -> dict:
     """Every case through K5 in fp32 and bf16 (the forward), the
-    backward's fp32 d_lhs form (fp32 dy against a bf16 rhs^T view) and K6
+    backward's d_lhs form (fp32 dy against an fp32 or bf16 rhs^T view: the
+    FMA and the split body) in the operands' dtype and in fp32, and K6
     (bf16 or fp32 lhs, fp32 dy), each K5 launch through the body that
-    ``_gmm_plan`` names; the autograd Function's grads against plain
-    autograd. Returns the worst errors."""
+    ``_gmm_plan`` names and each of K5's bodies reached; the autograd
+    Function's grads against plain autograd. Returns the worst errors."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1450,7 +1458,7 @@ def phase_grouped(torch) -> dict:
     worst = {"grouped_matmul": 0.0, "tgmm": 0.0}        # fp32 max abs
     worst_rel = {"fp32": 0.0, "bf16": 0.0}
     n_checks = 0
-    bodies_seen = {"fma"}       # every case's d_lhs (fp32 dy)
+    bodies_seen = set()
     for name, m, k, n, sizes in gmm_cases(torch, gen):
         total = int(sizes.sum())
         g = sizes.shape[0]
@@ -1461,26 +1469,36 @@ def phase_grouped(torch) -> dict:
             rhs = torch.randn(g, k, n, generator=gen, device="cuda").to(dt)
             dy = torch.randn(m, n, generator=gen, device="cuda")
             before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
-            plans = (gm._gmm_plan(lhs, rhs),
-                     gm._gmm_plan(dy, rhs.transpose(1, 2)))
+            plans = [gm._gmm_plan(lhs, rhs),
+                     gm._gmm_plan(dy, rhs.transpose(1, 2))]
             bodies = dict(gm.GMM_BODY_LAUNCHES)
             out = gm.gmm(lhs, rhs, sizes)
             dlhs = gm.gmm(dy, rhs.transpose(1, 2), sizes, dt)
+            # the d_lhs form at fp32 output too: the split body (bf16 rhs)
+            # is held to the fp32 bound, not only to bf16's
+            dlhs32 = gm.gmm(dy, rhs.transpose(1, 2), sizes, torch.float32)
+            plans.append(plans[1])
             drhs = gm.tgmm(lhs, dy, sizes, g, dt)
             torch.cuda.synchronize()
             check((gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
-                  == (before[0] + 2, before[1] + 1),
+                  == (before[0] + 3, before[1] + 1),
                   f"{name} {dtype}: a kernel did not launch")
             for body in set(plans):
                 check(gm.GMM_BODY_LAUNCHES[body] - bodies[body]
                       == plans.count(body), f"{name} {dtype}: K5 did not "
                       f"run the bodies {plans} that _gmm_plan names")
+            bodies_seen |= set(plans)
             errs[f"body_{dtype}"] = plans[0]
+            errs[f"dlhs_body_{dtype}"] = plans[1]
             refs = {"out": gm.gmm_reference(lhs, rhs, sizes, dt),
                     "dlhs": gm.gmm_reference(dy, rhs.float().transpose(1, 2),
                                              sizes, dt),
+                    "dlhs32": gm.gmm_reference(
+                        dy, rhs.float().transpose(1, 2), sizes,
+                        torch.float32),
                     "drhs": gm.tgmm_reference(lhs.float(), dy, sizes, g, dt)}
-            for key, got in (("out", out), ("dlhs", dlhs), ("drhs", drhs)):
+            for key, got in (("out", out), ("dlhs", dlhs), ("dlhs32", dlhs32),
+                             ("drhs", drhs)):
                 want = refs[key]
                 check(got.shape == want.shape and got.dtype == want.dtype,
                       f"{name} {key}: {got.shape} {got.dtype}")
@@ -1495,24 +1513,25 @@ def phase_grouped(torch) -> dict:
                 # the backward's two products are fp32 arithmetic whatever
                 # the output dtype; a bf16 output rounds once
                 err = rel_l2(got, want)
-                bound = GMM_REL_L2[dtype]
+                kind = "fp32" if key == "dlhs32" else dtype
+                bound = GMM_REL_L2[kind]
                 errs[f"{key}_{dtype}"] = err
                 check(err <= bound, f"grouped {name} {key} {dtype}: rel L2 "
                       f"{err} > {bound}")
-                worst_rel[dtype] = max(worst_rel[dtype], err)
-                if dtype == "fp32":
+                worst_rel[kind] = max(worst_rel[kind], err)
+                if kind == "fp32":
                     kern = "tgmm" if key == "drhs" else "grouped_matmul"
                     worst[kern] = max(worst[kern], (got - want).abs().max()
                                       .item())
                 n_checks += 1
-            del lhs, rhs, dy, out, dlhs, drhs, refs
+            del lhs, rhs, dy, out, dlhs, dlhs32, drhs, refs
             torch.cuda.empty_cache()
-        bodies_seen |= {errs["body_fp32"], errs["body_bf16"]}
         log(phase="grouped", case=name, M=m, K=k, N=n, G=g, rows=total,
             metric="rel_l2", bound=GMM_REL_L2, **errs)
-    check(bodies_seen >= {"wgmma", "wmma", "fma"}, f"grouped: the cases ran "
-          f"the bodies {bodies_seen}, not each of the three")
+    check(bodies_seen == set(gm.GMM_BODY_LAUNCHES), f"grouped: the cases "
+          f"ran the bodies {bodies_seen}, not each of {set(gm.GMM_BODY_LAUNCHES)}")
     invariant = check_gmm_rows_invariant(torch, gm, gen)
+    drift = tc_sum_drift(torch, gm, gen)
     # the autograd Function against torch autograd through the plain scan
     # at moe-1b-8e's widths, fp32
     sizes = routed_sizes(torch, gen, 1024, 8, 2)
@@ -1539,7 +1558,48 @@ def phase_grouped(torch) -> dict:
     gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts   # checks are not main path
     log(phase="grouped", checks=n_checks, worst_fp32_max_abs=worst,
         worst_rel_l2=worst_rel, rows_bitwise_equal_across_m=invariant)
-    return worst
+    return {**worst, "tc_sum_drift": drift}
+
+
+# the split bodies against their own arithmetic summed in fp64: fp32
+# rounding of a sum whose pieces of 128 k the tensor cores add up
+SPLIT_VS_FP64_REL_L2 = 1e-6
+
+
+def tc_sum_drift(torch, gm, gen) -> dict:
+    """What the tensor cores' own fp32 sum does over a long K, and what the
+    split body's fp32 register sum makes of it: one group of 2048 rows, K
+    8192, N 256. K5's bf16 Hopper body keeps one wgmma accumulator over K
+    (exact bf16 products): its relative L2 error against fp64 and its bias
+    (the mean error in the direction of each output's sign, over the mean
+    magnitude; negative: toward zero) are logged. The split body (fp32 dy
+    against the bf16 rhs^T), whose tensor cores sum 128 k at a time, is
+    held within ``SPLIT_VS_FP64_REL_L2`` of its arithmetic (``split_bf16``
+    dy) summed in fp64."""
+    m, k, n = 2048, 8192, 256
+    sizes = fixed_sizes(torch, [m])
+    lhs = torch.randn(m, k, generator=gen, device="cuda")
+    rhs = (torch.randn(1, k, n, generator=gen, device="cuda") * 0.05
+           ).bfloat16()
+    out = {}
+    for name, a, b in (("wgmma", lhs.bfloat16(), rhs),
+                       ("split", lhs, rhs.transpose(1, 2).contiguous()
+                        .transpose(1, 2))):
+        check(gm._gmm_plan(a, b) == name, f"tc_sum_drift: {name} plan")
+        got = gm.gmm(a, b, sizes, torch.float32).double()
+        exact = (gm.split_bf16(a.float()) if name == "split"
+                 else a.float()).double() @ b[0].double()
+        out[name] = {"rel_l2": rel_l2(got, exact), "bias": (
+            ((got - exact) * exact.sign()).mean() / exact.abs().mean()
+        ).item()}
+    log(phase="grouped", check="tensor-core fp32 sum over K 8192 vs fp64: "
+        "one accumulator (wgmma body) and 128-k pieces (split body)",
+        M=m, K=k, N=n, **out, bound_split=SPLIT_VS_FP64_REL_L2)
+    check(out["split"]["rel_l2"] <= SPLIT_VS_FP64_REL_L2, f"split body vs "
+          f"fp64 rel L2 {out['split']['rel_l2']}")
+    del lhs, rhs
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_gmm_rows_invariant(torch, gm, gen) -> list:
@@ -1597,6 +1657,14 @@ def _bound(nbytes, flops, peak) -> dict:
                 bytes=nbytes, flops=flops)
 
 
+def tc_bound(nbytes, flops) -> float:
+    """The least time of a product whose fp32 operand is split into two
+    bf16 parts: twice its operations against the bf16 tensor-core peak,
+    or its bytes, whichever is larger (ms)."""
+    return max(nbytes / HBM_BYTES_PER_S, 2 * flops / PEAK_FLOPS["bfloat16"]
+               ) * 1e3
+
+
 def library_grouped_mm(torch, lhs, rhs, sizes):
     """``torch._grouped_mm`` on the same bf16 operands (offsets = the
     cumsum of the group sizes), as a yardstick: (device ms, CUDA-event ms,
@@ -1625,7 +1693,8 @@ def phase_grouped_timing(torch) -> dict:
     and K6 at the training shape: each kernel's device time ("ms", by
     ``queued_ms``, as ``torch._grouped_mm``'s "library_ms";
     torch.profiler's mean per launch as "profiler_ms"; CUDA events around
-    back-to-back calls as "call_ms"), the plain versions and the bound."""
+    back-to-back calls as "call_ms"), the plain versions and the bound
+    (for the d_lhs also the split body's two-pass bound, "bound_tc_ms")."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -1664,7 +1733,7 @@ def phase_grouped_timing(torch) -> dict:
         out[name] = row
         log(phase="grouped_timing", **row)
         if name == "train":
-            # the backward: fp32 d_lhs = dy @ rhs^T (K5, FMA body) and
+            # the backward: fp32 d_lhs = dy @ rhs^T (K5, split body) and
             # d_rhs = lhs^T dy (K6), bf16 outputs as on the training path
             dy = torch.randn(m, f, generator=gen, device="cuda")
             rt = rhs.transpose(1, 2)
@@ -1683,7 +1752,11 @@ def phase_grouped_timing(torch) -> dict:
                        library_note="no PyTorch call takes fp32 dy against "
                        "a bf16 rhs", **gmm_bound(m, f, e, sizes, 4, 2, 2,
                                                  "float32"))
+            # the split body's own least time: two bf16 passes on the
+            # tensor cores, the same bytes
+            row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
             row["share_of_bound"] = row["bound_ms"] / ms
+            row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
             out["train-dlhs"] = row
             log(phase="grouped_timing", **row)
             call = lambda: gm.tgmm(lhs, dy, sizes, g, bf)   # noqa: E731
@@ -1953,10 +2026,10 @@ def phase_moe_train(torch, card: str) -> dict:
     want = {k: v * MOE_TRAIN_STEPS for k, v in per_step.items()}
     check(launches == want, f"moe train: launches {launches}, want {want}")
     # the forward's three products per layer run the Hopper body, the
-    # backward's fp32-dy d_lhs the FMA body
+    # backward's fp32-dy d_lhs the split body
     half = 3 * layers * MOE_TRAIN_STEPS
-    check(bodies["grouped_matmul"] == {"fma": half, "wmma": 0,
-                                       "wgmma": half},
+    check(bodies["grouped_matmul"] == {"fma": 0, "wmma": 0, "wgmma": half,
+                                       "split": half},
           f"moe train: K5 launches by body {bodies['grouped_matmul']}")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
@@ -2005,7 +2078,7 @@ def phase_moe_train(torch, card: str) -> dict:
     del dense
     torch.cuda.empty_cache()
     return {"launches": launches, "per_step": per_step, "infos": infos,
-            "profile": profile}
+            "profile": profile, "launches_by_body": bodies["grouped_matmul"]}
 
 
 def check_moe_fp32_train_step(torch) -> None:
@@ -2103,14 +2176,16 @@ def qmm_cases():
 
 
 def phase_qmm(torch) -> float:
-    """Every case through K7 in both output dtypes; rows of M = 37 and
-    M = 2048 products against the M = 1 product of the same row, bitwise.
-    Returns the worst fp32-output max abs error."""
+    """Every case through K7 in both output dtypes, each launch through the
+    body that ``_qmm_plan`` names and both bodies reached; rows of M = 37
+    and M = 2048 products against the M = 1 product of the same row,
+    bitwise. Returns the worst fp32-output max abs error."""
     from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     count = qm.LAUNCHES
     worst, worst_rel, n_checks = 0.0, {"fp32": 0.0, "bf16": 0.0}, 0
+    bodies_seen = set()
     for name, k, n, bs, rows, xdts in qmm_cases():
         qt = qmm_weight(torch, gen, k, n, bs)
         errs = {}
@@ -2119,13 +2194,20 @@ def phase_qmm(torch) -> float:
             for m in rows:
                 x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
                 want = qm.quantized_matmul_reference(x, qt.q, qt.scale)
+                plan = qm._qmm_plan(x, qt.q, qt.scale)
+                bodies_seen.add(plan)
+                errs[f"body-x{xdt}"] = plan
                 for odt in ("fp32", "bf16"):
                     out_dtype = (torch.float32 if odt == "fp32"
                                  else torch.bfloat16)
                     before = qm.LAUNCHES
+                    by_body = dict(qm.BODY_LAUNCHES)
                     got = qm.dequant_matmul(x, qt.q, qt.scale, out_dtype)
                     torch.cuda.synchronize()
                     check(qm.LAUNCHES == before + 1, f"qmm {name}: no launch")
+                    check(qm.BODY_LAUNCHES[plan] == by_body[plan] + 1,
+                          f"qmm {name}: the launch did not run the body "
+                          f"{plan} that _qmm_plan names")
                     check(got.shape == (m, n) and got.dtype == out_dtype,
                           f"qmm {name}: {got.shape} {got.dtype}")
                     check(bool(torch.isfinite(got.float()).all()),
@@ -2151,10 +2233,12 @@ def phase_qmm(torch) -> float:
                     del full, one
                 del x, want
         log(phase="qmm", case=name, K=k, N=n, bs=bs,
-            splits=qm.kernel_splits(k, n), metric="rel_l2",
-            bound=QMM_REL_L2, **errs)
+            splits={b: qm.kernel_splits(k, n, b) for b in qm.BODY_LAUNCHES},
+            metric="rel_l2", bound=QMM_REL_L2, **errs)
         del qt
         torch.cuda.empty_cache()
+    check(bodies_seen == set(qm.BODY_LAUNCHES), f"qmm: the cases ran the "
+          f"bodies {bodies_seen}, not each of {set(qm.BODY_LAUNCHES)}")
     qm.LAUNCHES = count               # checking launches are not main path
     log(phase="qmm", checks=n_checks, worst_fp32_max_abs=worst,
         worst_rel_l2=worst_rel)
@@ -2178,10 +2262,13 @@ def phase_qmm_timing(torch) -> dict:
     (M 8) and of a 256-token chunk, bf16 x and output; the untied head of
     a decode step (fp32 logits). Copies of the weight rotate so that the
     weight comes from device memory, as it does in a forward, where each
-    layer has its own. The control is the bf16 ``torch.mm`` of the same x
-    against the unquantized bf16 weight: a yardstick of the unquantized
-    path, which the port does not call for int8 weights; no PyTorch call
-    computes K7's function (``library_ms`` null)."""
+    layer has its own. Device time ("ms") by ``queued_ms``, CUDA events
+    around back-to-back calls beside it ("call_ms"); the fp32 bound and
+    the tensor-core body's two-pass bound ("bound_tc_ms"). The control is
+    the bf16 ``torch.mm`` of the same x against the unquantized bf16
+    weight, timed alike: a yardstick of the unquantized path, which the
+    port does not call for int8 weights; no PyTorch call computes K7's
+    function (``library_ms`` null)."""
     from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
@@ -2206,21 +2293,28 @@ def phase_qmm_timing(torch) -> dict:
             return qm.dequant_matmul(x, qt.q, qt.scale, out_dtype)
 
         iters = 50 if m <= 8 else 10
-        ms = cuda_ms(kern, iters=iters)
+        ms = queued_ms(torch, kern, iters)
+        call_ms = cuda_ms(kern, iters=iters)
         plain_ms = cuda_ms(lambda: qm.quantized_matmul_reference(
             x, qts[0].q, qts[0].scale).to(out_dtype), iters=3, warmup=1)
-        control_ms = cuda_ms(lambda: x @ nxt(ws), iters=iters)
+        control = lambda: x @ nxt(ws)   # noqa: E731
+        control_ms = queued_ms(torch, control, iters)
+        control_call_ms = cuda_ms(control, iters=iters)
+        body = qm._qmm_plan(x, qts[0].q, qts[0].scale)
         row = dict(kernel="quantized_matmul", shape=name, M=m, K=k, N=n,
                    bs=32, dtype="bf16 x, " + ("bf16" if out_dtype ==
                                               torch.bfloat16 else "fp32")
-                   + " out", splits=qm.kernel_splits(k, n), ms=ms,
-                   plain_ms=plain_ms, library_ms=None,
+                   + " out", body=body, splits=qm.kernel_splits(k, n, body),
+                   ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=None,
                    library_note="no PyTorch call computes a block-dequant "
                    "matmul with per-(row, 32-column block) scales",
-                   control_ms=control_ms,
+                   control_ms=control_ms, control_call_ms=control_call_ms,
                    control_note="bf16 torch.mm on the unquantized weight "
                    "(cuBLAS), a control the port never calls",
                    **qmm_bound(m, k, n, 32, 2, out_dtype.itemsize))
+        row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
+        row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
         row["share_of_bound"] = row["bound_ms"] / ms
         out[name] = row
         log(phase="qmm_timing", **row)
@@ -2311,6 +2405,7 @@ def phase_int8_serve(torch, card: str) -> dict:
     common = dict(n_slots=8, page_size=16, max_len=4096, weight_dtype="int8")
     results, first = {}, {}
     qm.LAUNCHES = pd.LAUNCHES = 0             # the main path starts here
+    qm.BODY_LAUNCHES.update({b: 0 for b in qm.BODY_LAUNCHES})
     for mode, chunk in (("bucketed", None), ("chunked", 256)):
         logits: dict = {}
         eng = recording_engine(logits)(bundle, params, prefill_chunk=chunk,
@@ -2352,6 +2447,12 @@ def phase_int8_serve(torch, card: str) -> dict:
         del eng
         torch.cuda.empty_cache()
     main_path = (qm.LAUNCHES, pd.LAUNCHES)    # ... and ends here
+    k7_bodies = dict(qm.BODY_LAUNCHES)
+    # bf16 x at every product, every operand on 16 bytes: the tensor-core
+    # body carried every K7 launch of the path
+    check(k7_bodies == {"fma": 0, "wgmma": main_path[0]}, f"int8: K7 "
+          f"launches by body {k7_bodies}, {main_path[0]} in all")
+    log(phase="int8_serve", k7_launches_by_body=k7_bodies)
 
     alone = generate_many(ServeEngine(bundle, params, **common),
                           [Request(**specs[0])])[0]
@@ -2405,7 +2506,8 @@ def phase_int8_serve(torch, card: str) -> dict:
     check_int8_fp32_path(torch, "llama-3.1-8b", prompt)
     check_int8_fp32_path(torch, "llama-3.2-1b", prompt)
     return dict(launches=main_path[0], k4_launches=main_path[1],
-                per_forward=per_forward, profile=profile)
+                per_forward=per_forward, profile=profile,
+                launches_by_body=k7_bodies)
 
 
 def check_int8_fp32_path(torch, model: str, prompt) -> None:
@@ -2630,7 +2732,7 @@ def main() -> int:
         })
     keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
             "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "bound_tc_ms")
     dec = gmm_timing["decode"]
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
@@ -2643,7 +2745,9 @@ def main() -> int:
         "launches_train": moe_train["launches"]["grouped_matmul"],
         "launches_per_serve_forward": moe_serve["per_forward"],
         "launches_per_train_step": moe_train["per_step"]["grouped_matmul"],
+        "launches_by_body_train": moe_train["launches_by_body"],
         "max_abs_err": gmm_worst["grouped_matmul"], "body": dec["body"],
+        "tc_sum_drift_k8192": gmm_worst["tc_sum_drift"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
@@ -2674,16 +2778,18 @@ def main() -> int:
         "replaces": "distributed_training_guide_tpu/ops/"
                     "quantized_matmul.py:119",
         "launches": int8_serve["launches"],
+        "launches_by_body": int8_serve["launches_by_body"],
         "launches_per_serve_forward": int8_serve["per_forward"],
-        "max_abs_err": qmm_worst,
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "max_abs_err": qmm_worst, "body": t["body"],
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "bound_tc_ms": t["bound_tc_ms"],
         "library_ms": None, "library_note": t["library_note"],
         "control_ms": t["control_ms"], "control_note": t["control_note"],
         "ptxas_registers_spills": ptxas.get("quantized_matmul", {}),
         "shapes": {k: {kk: v[kk] for kk in (
-            "M", "K", "N", "bs", "dtype", "splits", "ms", "plain_ms",
-            "control_ms", "bound_ms", "bound_by")}
+            "M", "K", "N", "bs", "dtype", "body", "splits", "ms", "call_ms",
+            "plain_ms", "control_ms", "bound_ms", "bound_by", "bound_tc_ms")}
             for k, v in qmm_timing.items()},
     })
     log(phase="done", seconds=time.perf_counter() - t_start)

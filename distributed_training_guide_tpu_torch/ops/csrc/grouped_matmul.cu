@@ -755,6 +755,180 @@ __global__ void __launch_bounds__(CW * 128 + 32, 1)
   }
 }
 
+// ---- K5, the split body (fp32 lhs against K-major bf16 rhs): wgmma
+
+// CW consumer warpgroups of 64 rows each, BN output columns per tile, a
+// ring of STAGES stages, each one 64-deep chunk of K: the fp32 lhs rows
+// [BM][64] as two [BM][32] boxes and the rhs [BN][64] (N rows of K), all
+// 128-byte swizzled
+template <int CW, int BN, int STAGES>
+struct GmmSplitSmem {
+  static constexpr int BM = 64 * CW;
+  static constexpr int a = 0;
+  static constexpr int b = BM * 256;
+  static constexpr int stage = b + BN * 128;
+  static constexpr int bars = STAGES * stage;  // full, then empty
+  static constexpr int bytes = bars + 8 * 2 * STAGES + 1024;
+};
+
+// The backward's d_lhs = dy @ rhs^T with fp32 dy: as gmm_hopper_kernel
+// (persistent blocks over the static grid of group-aligned row tiles, a
+// producer warp feeding a TMA ring), but lhs comes in as fp32 and is split
+// by the consumer into hi = bf16(x) and lo = bf16(x - hi) A fragments in
+// registers, and rhs (K-contiguous: rhs^T, a view of the [G, N, K] stack)
+// is wgmma's K-major B, read by a 3-D map at (k, n, g) with no copy. Per
+// k step of 16 the tile takes two products, hi then lo, m64n{BN}k16, into
+// the chunk's accumulator, which is added to an fp32 register sum at the
+// chunk's end (the tensor cores' own sum truncates:
+// `chip_smoke.py:tc_sum_drift`); the fragments of a step are built while
+// the previous step's products run.
+// The rhs is exact in bf16, so the result misses the fp32 product by the
+// split's 2**-16 |x| a term at most, and by fp32 summation order. Rows sum
+// over the same chunks and k steps in the same order whatever tile holds
+// them.
+template <int CW, int BN, int STAGES, typename OT>
+__global__ void __launch_bounds__(CW * 128 + 32, 1)
+    gmm_split_kernel(const __grid_constant__ GmmTmaArgs a) {
+  using L = GmmSplitSmem<CW, BN, STAGES>;
+  constexpr int NT = CW * 128 + 32;
+  constexpr int BM = L::BM;
+  const GmmParams& p = a.p;
+  __shared__ int offs[kMaxGroups + 1];
+  __shared__ int toffs[kMaxGroups + 1];
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* smem =
+      smem_tma + ((1024 - (smem_u32(smem_tma) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bars;
+  const uint32_t empty = full + 8 * STAGES;
+
+  exclusive_scan<NT>([&](int g) { return max(p.sizes[g], 0); }, p.G, offs);
+  exclusive_scan<NT>(
+      [&](int g) {
+        return (min(offs[g + 1], p.M) - min(offs[g], p.M) + BM - 1) / BM;
+      },
+      p.G, toffs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * CW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int slots = a.n_tiles * a.row_slots;
+  const int chunks = (p.K + 63) / 64;
+  if (threadIdx.x >= CW * 128) {  // the producer warp: one thread issues
+    if (threadIdx.x != CW * 128) return;
+    int stage = 0, phase = 0;
+    for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+      const GmmTile t = gmm_tile(p, offs, toffs, a.n_tiles, BM, BN, s);
+      if (t.g < 0 || t.r0 >= t.r1) continue;
+      for (int c = 0; c < chunks; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = base + stage * L::stage;
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, BM * 256 + BN * 128);
+        tma_load_2d(st + L::a, &a.lhs, bar, c * 64, t.r0);
+        tma_load_2d(st + L::a + BM * 128, &a.lhs, bar, c * 64 + 32, t.r0);
+        tma_load_3d(st + L::b, &a.rhs, bar, c * 64, t.n0, t.g);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int row = 64 * wg + 16 * warp + lane / 4;  // and row + 8, in a tile
+  const bool paired = p.N % 2 == 0;  // a column pair is one aligned store
+  OT* out = static_cast<OT*>(p.out);
+  int stage = 0, phase = 0;
+  for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+    GmmTile t = gmm_tile(p, offs, toffs, a.n_tiles, BM, BN, s);
+    // uniform, but read from shared memory: broadcast from lane 0, so that
+    // the compiler can see that the branches around the products are
+    t.g = __shfl_sync(kFull, t.g, 0);
+    t.r0 = __shfl_sync(kFull, t.r0, 0);
+    t.r1 = __shfl_sync(kFull, t.r1, 0);
+    if (t.r0 >= t.r1) continue;
+    // acc: the fp32 sum over the chunks so far; part: this chunk's, from
+    // the tensor cores, added to acc (rounded to nearest) at its end
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) acc[x] = part[x] = 0.f;
+    if (t.g >= 0) {
+      // A fragments of two k steps: [step % 2][4 part + r], part 0 hi
+      uint32_t frag[2][8];
+      for (int c = 0; c < chunks; ++c) {
+        mbar_wait(full + 8 * stage, phase);
+        const unsigned char* st = smem + stage * L::stage;
+        const uint32_t bt = base + stage * L::stage + L::b;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t(&f)[8] = frag[kk % 2];
+          // the box of k 32 (kk / 2) on; columns 2 (l % 4) + {0, 1} and + 8
+          // of the step, rows `row` and row + 8
+          const unsigned char* box = st + L::a + (kk / 2) * BM * 128;
+          const int col = 4 * (16 * (kk % 2) + 2 * quad);  // bytes
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  box + sw128(row + 8 * i, col + 32 * h));
+              split_bf16(v.x, v.y, f[2 * h + i], f[4 + 2 * h + i]);
+            }
+          wg_fence();
+          const uint64_t db = sw128_desc(bt + kk * 32);
+          wgmma_rs_k(part, f[0], f[1], f[2], f[3], db, kk > 0);
+          wgmma_rs_k(part, f[4], f[5], f[6], f[7], db, 1);
+          wg_commit();
+          if (kk == 1 || kk == 2) {  // step kk - 1 is done: its fragments free
+            wg_wait1();
+            fence_regs(part);
+            fence_regs(frag[(kk + 1) % 2]);
+          }
+        }
+        wg_wait0();
+        fence_regs(part);
+        fence_regs(frag[0]);
+        fence_regs(frag[1]);
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) acc[x] += part[x];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // acc[4 j + 2 i + e]: row r0 + row + 8 i, column n0 + 8 j + 2 (l % 4)
+    // + e
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = t.r0 + row + 8 * i;
+      if (r >= t.r1) continue;
+      OT* dst = out + static_cast<long long>(r) * p.N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = t.n0 + 8 * j + 2 * quad;
+        if (col < p.N)
+          store_pair<OT>(dst + col, acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1],
+                         col + 1 < p.N, paired);
+      }
+    }
+  }
+}
+
 // ---- K6 (FMA on the CUDA cores, fp32)
 
 struct TgmmParams {
@@ -964,20 +1138,69 @@ int wgmma_rows(const GmmParams& p, cudaStream_t stream) {
                         : launch_wgmma<2, 256, 4, OT>(p, stream);
 }
 
+template <int CW, int BN, int STAGES, typename OT>
+int launch_split(const GmmParams& p, cudaStream_t stream) {
+  using L = GmmSplitSmem<CW, BN, STAGES>;
+  GmmTmaArgs a;
+  memset(&a, 0, sizeof(a));
+  a.p = p;
+  a.n_tiles = (p.N + BN - 1) / BN;
+  a.row_slots = (p.M + L::BM - 1) / L::BM + p.G;
+  const long long slots = static_cast<long long>(a.n_tiles) * a.row_slots;
+  if (slots > (1ll << 30)) return -1;
+  if (p.K > 0 && p.G > 0) {  // else no tile loads anything
+    // rhs^T [G, K, N] with K contiguous: the map runs over (k, n, g)
+    const long long lhs_dims[2] = {p.K, p.M}, rhs_dims[3] = {p.K, p.N, p.G};
+    const long long rhs_strides[2] = {p.r_sn, p.r_sg};
+    const int lhs_box[2] = {32, L::BM}, rhs_box[3] = {64, BN, 1};
+    if (encode_tiled() == nullptr ||
+        !map_f32(&a.lhs, p.lhs, 2, lhs_dims, &p.l_sm, lhs_box) ||
+        !map_bf16(&a.rhs, p.rhs, 3, rhs_dims, rhs_strides, rhs_box))
+      return kNoTensorMap;
+  }
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  const int grid = static_cast<int>(slots < sms ? slots : sms);
+  return launch_kernel(gmm_split_kernel<CW, BN, STAGES, OT>, L::bytes,
+                       dim3(grid), CW * 128 + 32, a, stream);
+}
+
+// The split body's tile, as wgmma_rows: up to kSmallM rows one consumer
+// warpgroup, 64 x 128 tiles, a 6-deep ring; above it two, 128 x 128 tiles
+// (128 columns: a chunk's sum and the running sum both sit in registers),
+// a 4-deep ring (48 KB a stage).
+template <typename OT>
+int split_rows(const GmmParams& p, cudaStream_t stream) {
+  return p.M <= kSmallM ? launch_split<1, 128, 6, OT>(p, stream)
+                        : launch_split<2, 128, 4, OT>(p, stream);
+}
+
 // The body of each operand set, the one table of it: `gmm` runs what it
 // names, and ops/grouped_matmul.py holds its `_gmm_plan` against `gmm_body`
 // when it loads this library. bf16 x bf16 whose tiles a tensor map can
 // read (rhs N-contiguous; both bases and every other stride on 16 bytes)
-// runs wgmma, other bf16 x bf16 WMMA, anything else FMA.
-enum Body { kFmaBody = 0, kWmmaBody = 1, kWgmmaBody = 2 };
+// runs wgmma, other bf16 x bf16 WMMA; fp32 lhs against bf16 rhs that tensor
+// maps read as the split body takes them (rhs K-contiguous, as rhs^T is;
+// both bases and every other stride on 16 bytes) runs the split body;
+// anything else FMA.
+enum Body { kFmaBody = 0, kWmmaBody = 1, kWgmmaBody = 2, kSplitBody = 3 };
 
 int body_for(int lhs_dt, int rhs_dt, const void* lhs, long long l_sm,
              const void* rhs, const long long* rs) {
+  if (lhs_dt == kF32 && rhs_dt == kBF16) {
+    const bool tma = on16(lhs) && (l_sm * 4) % 16 == 0 && on16(rhs) &&
+                     rs[1] == 1 && (rs[0] * 2) % 16 == 0 &&
+                     (rs[2] * 2) % 16 == 0;
+    return tma ? kSplitBody : kFmaBody;
+  }
   if (lhs_dt != kBF16 || rhs_dt != kBF16) return kFmaBody;
-  const bool tma = reinterpret_cast<uintptr_t>(lhs) % 16 == 0 &&
-                   (l_sm * 2) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(rhs) % 16 == 0 && rs[2] == 1 &&
-                   (rs[0] * 2) % 16 == 0 && (rs[1] * 2) % 16 == 0;
+  const bool tma = on16(lhs) && (l_sm * 2) % 16 == 0 && on16(rhs) &&
+                   rs[2] == 1 && (rs[0] * 2) % 16 == 0 &&
+                   (rs[1] * 2) % 16 == 0;
   return tma ? kWgmmaBody : kWmmaBody;
 }
 
@@ -988,7 +1211,7 @@ int body_for(int lhs_dt, int rhs_dt, const void* lhs, long long l_sm,
 // or dtype the kernels do not take. Dtype codes: 0 fp32, 1 bf16.
 //
 // gmm_body: the body that gmm runs for these operands (its arguments as
-// gmm takes them): 0 FMA, 1 WMMA, 2 wgmma.
+// gmm takes them): 0 FMA, 1 WMMA, 2 wgmma, 3 the split body.
 extern "C" int gmm_body(int lhs_dtype, int rhs_dtype, const void* lhs,
                         long long lhs_row_stride, const void* rhs,
                         const long long* rhs_strides) {
@@ -1035,6 +1258,9 @@ extern "C" int gmm(const void* lhs, const void* rhs, const void* group_sizes,
     case kWgmmaBody:
       return out_dtype == kBF16 ? wgmma_rows<bf16>(p, st)
                                 : wgmma_rows<float>(p, st);
+    case kSplitBody:
+      return out_dtype == kBF16 ? split_rows<bf16>(p, st)
+                                : split_rows<float>(p, st);
     case kWmmaBody:
       return small ? tc_out<16, 128, 16, 16>(p, out_dtype, st)
                    : tc_out<128, 128, 32, 64>(p, out_dtype, st);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu) and the grouped matmul (grouped_matmul.cu):
+// (flash_fwd.cu, flash_bwd.cu), the grouped matmul (grouped_matmul.cu) and
+// the block-dequant matmul (quantized_matmul.cu):
 // mbarrier rings, TMA tile copies, wgmma on 128-byte swizzled tiles, and
 // the host side of tensor maps.
 //
@@ -11,19 +12,23 @@
 //   a barrier's transaction count.
 // - Products: `wgmma_ss` (A, B both K-major in shared memory), `wgmma_ss_n`
 //   (B N-major), `wgmma_rs` (A from registers, B N-major), m64n64k16 bf16
-//   in, and `wgmma_ss_n256` (m64n256k16, B N-major), fp32 accumulators in
+//   in, `wgmma_ss_n256` (m64n256k16, B N-major) and `wgmma_rs_k` (A from
+//   registers, B K-major, m64nNk16 for N = 8 to 128), fp32 accumulators in
 //   registers, with `wg_fence` / `wg_commit` /
 //   `wg_wait0` / `wg_wait1` around them and `fence_regs` to pin the
 //   accumulators across an asynchronous batch. An m64nNk16 accumulator of
 //   16 columns is the A fragment of the next product's k step: `pack_bf16`
-//   rounds a pair into one register of it.
+//   rounds a pair into one register of it, `split_bf16` splits an fp32 pair
+//   into a hi and a lo register (two products stand for one fp32 operand).
+//   `sw128` addresses an element of a swizzled tile.
 // - Attention tiles: `scores` (S = A B^T over D for two 64-row tiles),
 //   `rs_product` (acc += A B, A from registers: P V, dS K), `pair_live` /
 //   `block_live` (the band), `ex2`, `store_tile` (an fp32 accumulator out
 //   through a dead operand tile and 16-byte stores).
 // - Host: `encode_tiled` looks cuTensorMapEncodeTiled up in the driver the
-//   process already runs on (dlopen, no link flag), `map_bshd` / `map_bf16`
-//   encode bf16 tensor maps, `launch_hopper` launches a producer /
+//   process already runs on (dlopen, no link flag), `map_tiled` encodes a
+//   tensor map (`map_bf16`, `map_i8`, `map_f32`, `map_bshd` for the
+//   128-byte swizzle), `launch_hopper` launches a producer /
 //   consumer block after checking that its registers at launch cover what
 //   `setmaxnreg` hands out.
 #pragma once
@@ -174,6 +179,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // d (+)= A B^T over one k step of 16, A [64 x 16] and B [64 x 16] both
 // K-major in shared memory. Accumulator of thread t of the warpgroup (warp
@@ -300,6 +310,132 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// d += A B over one k step of 16: A [64 x 16] bf16 from registers (as in
+// wgmma_rs), B [16 x N] K-major in shared memory (N rows of 128-byte
+// swizzled k, `sw128_desc`), N = 8, 16, 32, 64 or 128 picked by the size
+// of d (N / 2 accumulators a thread, d[4 j + 2 i + e]: row 16 w + l / 4
+// + 8 i, column 8 j + 2 (l % 4) + e); d = A B when `accumulate` is 0. The
+// tensor cores' fp32 sum over k steps truncates (one accumulator over K
+// 8192 drifts ~1e-5 toward zero: `chip_smoke.py:tc_sum_drift`), so where
+// fp32 accuracy is the point the caller sums a few k steps at a time and
+// adds each piece to an fp32 register sum, rounded to nearest. A's
+// registers are read
+// asynchronously: they must hold until a wait covers the product
+// (`fence_regs` on them after it keeps the compiler from reusing them).
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[8], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[16], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[64], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// An fp32 pair split into two bf16 pairs, hi = bf16(x) and lo = bf16(x -
+// hi), packed as A-fragment registers (the first value in the low half).
+// x - hi is exact in fp32, and hi + lo misses x by at most 2**-16 |x| (each
+// part keeps 8 significant bits; about 2**-18 |x| typically): two products
+// on the tensor cores, summed in fp32, stand for one fp32 product to about
+// that, not exactly.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Byte offset of (row, byte column) in a tile of 128-byte rows in the
+// 128-byte swizzle that TMA writes (the tile 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
 // s = A B^T over D for two 64-row tiles A and B (Q K^T, or K Q^T in K3):
 // D 128 keeps columns 64..127 in a second 64-row half 8 KB on
 template <int D>
@@ -385,6 +521,11 @@ __device__ __forceinline__ void store_tile(float (&acc)[D / 64][32],
   }
 }
 
+// the base of a tensor that a tensor map can read
+inline bool on16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
 template <typename K, typename A>
 int launch_kernel(K kernel, int smem, dim3 grid, int threads, const A& args,
                   cudaStream_t stream) {
@@ -414,26 +555,44 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// bf16 tensor of `rank` dimensions (innermost first, that one contiguous),
-// strides of the others in elements, boxes `box`, 128-byte swizzle, reads
-// past an edge as 0
-bool map_bf16(CUtensorMap* map, const void* ptr, int rank,
-              const long long* dims, const long long* strides,
-              const int* box) {
+// A tensor of `rank` dimensions (innermost first, that one contiguous) of
+// `bytes`-byte elements of type `type`, strides of the others in elements,
+// boxes `box`, the given swizzle, reads past an edge as 0
+bool map_tiled(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+               const void* ptr, int rank, const long long* dims,
+               const long long* strides, const int* box,
+               CUtensorMapSwizzle swizzle) {
   cuuint64_t d[5], s[4];
   cuuint32_t bx[5], one[5];
   for (int i = 0; i < rank; ++i) {
     d[i] = static_cast<cuuint64_t>(dims[i]);
     bx[i] = static_cast<cuuint32_t>(box[i]);
     one[i] = 1;
-    if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * 2;
+    if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * bytes;
   }
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), d, s, bx, one,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode_tiled()(map, type, rank, const_cast<void*>(ptr), d, s, bx,
+                        one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16, int8 and fp32 tensors in the 128-byte swizzle (a box's innermost
+// extent at most 128 bytes)
+bool map_bf16(CUtensorMap* map, const void* ptr, int rank,
+              const long long* dims, const long long* strides,
+              const int* box) {
+  return map_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rank, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+bool map_i8(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+            const long long* strides, const int* box) {
+  return map_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rank, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+bool map_f32(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+             const long long* strides, const int* box) {
+  return map_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rank, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // bf16 [B, S, H, D] through element strides (sb, ss, sh), boxes of 64

@@ -18,7 +18,10 @@ CPU tensors, which is the one reason it ever takes it. ``GMM_LAUNCHES`` and
 ``TGMM_LAUNCHES`` count launches, ``GMM_BODY_LAUNCHES`` K5's launches by
 body. ``_gmm_plan`` names K5's body from the operands' dtypes, strides and
 alignment alone, and ``tile_schedule`` is the tile grid that the Hopper
-body's blocks compute for themselves.
+bodies' blocks compute for themselves. The backward's d_lhs (fp32 dy
+against the bf16 ``rhs^T``) runs the split body: dy split into bf16 hi
+and lo, two tensor-core products; ``gmm_reference(split_lhs=True)`` is the
+plain version of that arithmetic.
 
 ``impl``: "auto" (or the JAX name "pallas") is the autograd Function over
 the two wrappers, whose backward does what the JAX custom_vjp does, in
@@ -34,16 +37,16 @@ import ctypes
 import torch
 
 from . import _build
-from .matmul import matmul_f32_out
+from .matmul import matmul_f32_out, split_bf16
 
 GMM_LAUNCHES = 0    # K5 launches since the caller last reset it
-GMM_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0}   # ... by body
+GMM_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0, "split": 0}  # by body
 TGMM_LAUNCHES = 0   # K6
 MAX_GROUPS = 1024   # the kernels' shared-memory offset table
 SMALL_M = 256       # the Hopper body takes 64-row tiles up to this M, else 128
 IMPLS = ("auto", "pallas", "scan", "einsum")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BODIES = ("fma", "wmma", "wgmma")   # the codes of gmm_body
+_BODIES = ("fma", "wmma", "wgmma", "split")   # the codes of gmm_body
 _fns: dict = {}
 
 
@@ -63,11 +66,15 @@ def _row_masks(group_sizes: torch.Tensor, m: int):
 
 
 def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
-                  group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
+                  group_sizes: torch.Tensor, out_dtype,
+                  split_lhs: bool = False) -> torch.Tensor:
     """The plain version of K5, the JAX ``_gmm_scan``: for each group, mask
     the rows to its range, one dense product with the fp32 accumulator,
     accumulate. O(G) more operations than the kernel, O(M (K + N))
-    memory."""
+    memory. ``split_lhs``: fp32 lhs replaced by its bf16 hi + lo split
+    (``split_bf16``), the arithmetic of the split body."""
+    if split_lhs:
+        lhs = split_bf16(lhs.float())
     rows, starts, ends = _row_masks(group_sizes, lhs.shape[0])
     acc = torch.zeros(lhs.shape[0], rhs.shape[2], dtype=torch.float32,
                       device=lhs.device)
@@ -168,22 +175,30 @@ def _gmm_plan(lhs: torch.Tensor, rhs: torch.Tensor) -> str:
     16-byte alignment alone: "wgmma" (the Hopper body: bf16 lhs and rhs
     that tensor maps can read, i.e. rhs N-contiguous and both bases and
     every other stride on 16 bytes), "wmma" (other bf16 lhs and rhs: a
-    transposed rhs, rows off 16 bytes) or "fma" (anything else).
-    ``_check_body_table`` holds it against the library's ``gmm_body``."""
+    transposed rhs, rows off 16 bytes), "split" (fp32 lhs against a bf16
+    rhs that the split body's tensor maps read: rhs K-contiguous, as the
+    backward's rhs^T is, and both bases and every other stride on 16
+    bytes) or "fma" (anything else). ``_check_body_table`` holds it
+    against the library's ``gmm_body``."""
+    bases = lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+    if lhs.dtype == torch.float32 and rhs.dtype == torch.bfloat16:
+        on_16 = bases and lhs.stride(0) * 4 % 16 == 0 and all(
+            x * 2 % 16 == 0 for x in (rhs.stride(0), rhs.stride(2)))
+        return "split" if on_16 and rhs.stride(1) == 1 else "fma"
     if lhs.dtype != torch.bfloat16 or rhs.dtype != torch.bfloat16:
         return "fma"
-    on_16 = (lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
-             and all(x * 2 % 16 == 0 for x in (lhs.stride(0), rhs.stride(0),
-                                                rhs.stride(1))))
+    on_16 = bases and all(x * 2 % 16 == 0 for x in (
+        lhs.stride(0), rhs.stride(0), rhs.stride(1)))
     return "wgmma" if on_16 and rhs.stride(2) == 1 else "wmma"
 
 
 def _plan_cases() -> list:
     """(lhs, rhs) pairs on the CPU that take every branch of the plan:
     each dtype pair, bases on and off 16 bytes, row and group strides on
-    and off 16 bytes, a transposed rhs."""
-    bf = torch.bfloat16
+    and off 16 bytes, a transposed rhs, each against bf16 and fp32 lhs."""
+    bf, f32 = torch.bfloat16, torch.float32
     lhs, rhs = torch.zeros(16, 64, dtype=bf), torch.zeros(2, 64, 64, dtype=bf)
+    rt = rhs.transpose(1, 2)
     return [(lhs, rhs), (lhs.float(), rhs), (lhs, rhs.float()),
             (lhs.float(), rhs.float()),
             (torch.zeros(16 * 64 + 8, dtype=bf)[8:].view(16, 64), rhs),
@@ -195,7 +210,17 @@ def _plan_cases() -> list:
             (lhs, torch.zeros(2 * 64 * 64 + 4, dtype=bf).as_strided(
                 (2, 64, 64), (64 * 64 + 4, 64, 1))),
             (lhs, torch.zeros(2, 64, 512, dtype=bf)[..., ::8]),
-            (lhs, rhs.transpose(1, 2)), (lhs.float(), rhs.transpose(1, 2))]
+            (lhs, rt), (lhs.float(), rt),
+            (torch.zeros(16 * 64 + 4, dtype=f32)[4:].view(16, 64), rt),
+            (torch.zeros(16 * 64 + 1, dtype=f32)[1:].view(16, 64), rt),
+            (torch.zeros(16, 66, dtype=f32)[:, :64], rt),
+            (lhs.float(), torch.zeros(2 * 64 * 64 + 1, dtype=bf)[1:].view(
+                2, 64, 64).transpose(1, 2)),
+            (lhs.float(), torch.zeros(2 * 64 * 64 + 4, dtype=bf).as_strided(
+                (2, 64, 64), (64 * 64 + 4, 64, 1)).transpose(1, 2)),
+            (lhs.float(), torch.zeros(2, 64, 68, dtype=bf)[..., :64]
+             .transpose(1, 2)),
+            (lhs.float(), torch.zeros(2, 64, 512, dtype=bf)[..., ::8])]
 
 
 def _check_body_table(lib) -> None:
@@ -320,8 +345,9 @@ def tgmm(lhs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
 
 class _GroupedMatmul(torch.autograd.Function):
     """Forward K5; backward the JAX ``_pallas_gmm_bwd`` in fp32: d_lhs from
-    K5 against ``rhs^T`` (read through strides, converted as the kernel
-    loads it) in lhs's dtype, d_rhs from K6 in rhs's dtype."""
+    K5 against ``rhs^T`` (read through strides with no copy: the split
+    body for a bf16 rhs, FMA for fp32) in lhs's dtype, d_rhs from K6 in
+    rhs's dtype."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes, out_dtype):

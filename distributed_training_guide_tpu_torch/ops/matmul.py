@@ -1,9 +1,12 @@
-"""The fp32-accumulator product of 16-bit operands, for the logits.
+"""The fp32-accumulator product of 16-bit operands, for the logits, and
+the bf16 split of an fp32 operand.
 
 The JAX package computes the output head and the chunked loss's logits as
 ``jnp.dot(h, w, preferred_element_type=float32)``: bf16 operands, the fp32
 accumulator as the result. This is that product in PyTorch, with a
 backward (``torch.mm(..., out_dtype=...)`` has no autograd formula).
+``split_bf16`` is the fp32 operand as the split tensor-core bodies of K5
+and K7 take it, for their plain versions.
 """
 from __future__ import annotations
 
@@ -48,3 +51,11 @@ def matmul_f32_out(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead = h.shape[:-1]
     out = _MatmulF32Out.apply(h.reshape(-1, h.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as a split tensor-core body takes it: hi = bf16(x) plus
+    lo = bf16(x - hi), summed in fp32 (exact: each part keeps 8
+    significant bits). It misses x by at most 2**-16 |x|."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()

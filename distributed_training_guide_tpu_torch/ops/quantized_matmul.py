@@ -13,10 +13,17 @@ Two contraction forms:
   ``out[m, n] = sum_k x[m, k] * (q[k, n] * scale[k, n // bs])`` in fp32.
   The JAX package's Pallas ``_dequant_matmul_kernel`` (K7) is rewritten
   here in CUDA for ``sm_90a`` (``csrc/quantized_matmul.cu``; design and
-  bound in its header). ``dequant_matmul`` launches it for CUDA tensors,
+  bound in its header) as two bodies: a tensor-core body for bf16 x
+  (each weight w = q * scale formed in fp32, split into bf16 hi and lo,
+  two wgmma products) and an FMA body for fp32 x and operands no tensor
+  map reads. ``_qmm_plan`` names the body from the operands' dtypes and
+  16-byte alignment alone and is held against the library's own table
+  when it loads. ``dequant_matmul`` launches the kernel for CUDA tensors,
   or raises, and runs ``quantized_matmul_reference`` (the JAX
   ``_matmul_xla``) for CPU tensors, which is the one reason it ever takes
-  the plain version. ``LAUNCHES`` counts kernel launches.
+  the plain version; ``split_w=True`` is the plain version of the
+  tensor-core body's arithmetic. ``LAUNCHES`` counts kernel launches,
+  ``BODY_LAUNCHES`` them by body.
 - **transpose** (``x [.., E] @ w [V, E].T``, blocks tile E, the tied
   output head): the scale factors out of each block's partial product.
   The JAX package has no kernel for it either; ``quantized_matmul_t``
@@ -42,13 +49,16 @@ from typing import Optional
 import torch
 
 from . import _build
+from .matmul import split_bf16
 
 LAUNCHES = 0            # kernel launches since the caller last reset it
+BODY_LAUNCHES = {"fma": 0, "wgmma": 0}   # ... by body
 IMPLS = ("auto", "xla", "pallas")
 # fp32 elements of one dequantized group of column blocks in the plain
 # standard form (64 MiB): bounded, and never the whole weight
 GROUP_ELEMS = 1 << 24
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODIES = ("fma", "wgmma")   # the codes of qmm_body
 _fns: dict = {}
 _split_cache: dict = {}
 
@@ -78,11 +88,14 @@ def _check(w) -> tuple:
 # ---------------------------------------------------------------------------
 
 def quantized_matmul_reference(x2d: torch.Tensor, q: torch.Tensor,
-                               scale: torch.Tensor) -> torch.Tensor:
+                               scale: torch.Tensor,
+                               split_w: bool = False) -> torch.Tensor:
     """The plain standard form, the JAX ``_matmul_xla``: [M, K] @
     dequant([K, N]) -> [M, N] fp32. Dequantizes a bounded group of whole
     column blocks at a time (at most half the blocks, and at most
-    ``GROUP_ELEMS`` fp32 values) before its fp32 product."""
+    ``GROUP_ELEMS`` fp32 values) before its fp32 product. ``split_w``: each
+    dequantized weight replaced by its bf16 hi + lo split
+    (``split_bf16``), the arithmetic of the tensor-core body."""
     k, n = q.shape
     nb, bs = _geometry(q, scale)
     group = max(1, min(-(-nb // 2), GROUP_ELEMS // max(k * bs, 1)))
@@ -92,7 +105,8 @@ def quantized_matmul_reference(x2d: torch.Tensor, q: torch.Tensor,
         b1 = min(b0 + group, nb)
         c0, c1 = b0 * bs, min(b1 * bs, n)
         s = torch.repeat_interleave(scale[:, b0:b1], bs, dim=1)[:, :c1 - c0]
-        out[:, c0:c1] = xf @ (q[:, c0:c1].to(torch.float32) * s)
+        w = q[:, c0:c1].to(torch.float32) * s
+        out[:, c0:c1] = xf @ (split_bf16(w) if split_w else w)
     return out
 
 
@@ -141,27 +155,87 @@ def quantized_matmul_eligible(w, *, transpose: bool = False) -> bool:
 # ---------------------------------------------------------------------------
 
 def _kernel(name: str):
-    """The ctypes function ``qmm`` or ``qmm_splits``, built on first
-    use."""
+    """The ctypes function ``qmm`` or ``qmm_splits``, built on first use;
+    the library's body table is held against ``_qmm_plan`` as it
+    loads."""
     fn = _fns.get(name)
     if fn is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(_build.load("quantized_matmul"), name)
+        lib = _build.load("quantized_matmul")
+        _check_body_table(lib)
+        fn = getattr(lib, name)
         fn.argtypes = ([ptr] * 5 + [i32] * 7 + [ptr] if name == "qmm"
-                       else [i32, i32])
+                       else [i32, i32, i32])
         fn.restype = i32
         _fns[name] = fn
     return fn
 
 
-def kernel_splits(k: int, n: int) -> int:
-    """How many blocks share one output tile's sum over K in the kernel:
-    a function of (K, N) alone, so no output's order of summation depends
-    on M."""
-    key = (k, n)
+def _qmm_plan(x2d: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> str:
+    """K7's body for these (contiguous) operands, from their dtypes and
+    16-byte alignment alone: "wgmma" (the tensor-core body: bf16 x, and
+    every base and every row of x, q and scale on 16 bytes, so that tensor
+    maps read them) or "fma" (anything else: fp32 x, N % 16 != 0, ...).
+    ``_check_body_table`` holds it against the library's ``qmm_body``."""
+    on_16 = all(t.data_ptr() % 16 == 0 for t in (x2d, q, scale))
+    rows = (x2d.stride(0) * 2 % 16 == 0 and q.stride(0) % 16 == 0
+            and scale.stride(0) * 4 % 16 == 0)
+    return ("wgmma" if x2d.dtype == torch.bfloat16 and on_16 and rows
+            else "fma")
+
+
+def _plan_cases() -> list:
+    """(x, q, scale) triples on the CPU that take every branch of the
+    plan: each x dtype, each base on and off 16 bytes, each row length on
+    and off 16 bytes."""
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+
+    def at(n, dtype, off, shape):
+        return torch.zeros(n + off, dtype=dtype)[off:].view(*shape)
+
+    x, q, s = at(512, bf, 0, (8, 64)), at(8192, i8, 0, (64, 128)), \
+        at(256, f32, 0, (64, 4))
+    return [(x, q, s), (x.float(), q, s),
+            (at(512, bf, 8, (8, 64)), q, s), (at(512, bf, 1, (8, 64)), q, s),
+            (at(800, bf, 0, (8, 100)), at(12800, i8, 0, (100, 128)),
+             at(400, f32, 0, (100, 4))),
+            (x, at(8192, i8, 16, (64, 128)), s),
+            (x, at(8192, i8, 1, (64, 128)), s),
+            (x, at(4608, i8, 0, (64, 72)), s),
+            (x, q, at(256, f32, 4, (64, 4))), (x, q, at(256, f32, 1, (64, 4))),
+            (x, q, at(128, f32, 0, (64, 2)))]
+
+
+def _check_body_table(lib) -> None:
+    """Raises unless the library's ``qmm_body`` picks, for every case of
+    ``_plan_cases``, the body that ``_qmm_plan`` names."""
+    body = lib.qmm_body
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    body.argtypes = [i32, ptr, i32, ptr, i32, ptr, i32]
+    body.restype = i32
+    for x, q, scale in _plan_cases():
+        got = body(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0),
+                   q.data_ptr(), q.stride(0), scale.data_ptr(),
+                   scale.stride(0))
+        got = _BODIES[got] if 0 <= got < len(_BODIES) else got
+        if got != _qmm_plan(x, q, scale):
+            raise RuntimeError(
+                f"quantized_matmul.cu runs body {got} at x {x.dtype} "
+                f"{tuple(x.shape)}, q {tuple(q.shape)}, scale "
+                f"{tuple(scale.shape)}; _qmm_plan names "
+                f"{_qmm_plan(x, q, scale)}")
+
+
+def kernel_splits(k: int, n: int, body: str) -> int:
+    """How many blocks share one output tile's sum over K in the kernel's
+    ``body``: a function of (K, N) and the body alone, so no output's order
+    of summation depends on M."""
+    key = (k, n, body)
     g = _split_cache.get(key)
     if g is None:
-        g = _split_cache[key] = int(_kernel("qmm_splits")(k, n))
+        g = _split_cache[key] = int(_kernel("qmm_splits")(
+            k, n, _BODIES.index(body)))
     return g
 
 
@@ -171,11 +245,14 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _launch(x2d, q, scale, out_dtype) -> torch.Tensor:
+    """One launch of K7; the body that ran (``_qmm_plan``) is counted in
+    ``BODY_LAUNCHES``."""
     m, k = x2d.shape
     n = q.shape[1]
     nb, bs = _geometry(q, scale)
+    plan = _qmm_plan(x2d, q, scale)
     out = torch.empty(m, n, dtype=out_dtype, device=x2d.device)
-    g = kernel_splits(k, n)
+    g = kernel_splits(k, n, plan)
     ws = (torch.empty(g, m, n, dtype=torch.float32, device=x2d.device)
           if g > 1 and m * n else out)
     rc = _kernel("qmm")(
@@ -184,9 +261,12 @@ def _launch(x2d, q, scale, out_dtype) -> torch.Tensor:
         _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x2d.device)
         .cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"qmm kernel launch failed (code {rc}) at x "
+        why = ": the driver refused a tensor map" if rc == -2 else ""
+        raise RuntimeError(f"qmm kernel launch failed (code {rc}{why}) at x "
                            f"{tuple(x2d.shape)} {x2d.dtype}, q "
-                           f"{tuple(q.shape)}, {nb} blocks of {bs}")
+                           f"{tuple(q.shape)}, {nb} blocks of {bs}, body "
+                           f"{plan}")
+    BODY_LAUNCHES[plan] += 1
     return out
 
 

@@ -1,11 +1,18 @@
-"""The grouped matmul's choice of body and the Hopper body's tile schedule,
-on the CPU.
+"""The grouped matmul's choice of body, the Hopper bodies' tile schedule and
+the split body's arithmetic, on the CPU.
 
 ``_gmm_plan`` names K5's body from the operands' dtypes, strides and
 16-byte alignment alone; it is pinned here for every dtype pair and every
 alignment and stride case, and the load-time check of the library's own
 table (``gmm_body``) is shown to refuse a table that departs from it in
 any one of its conditions.
+
+The split body (the backward's d_lhs: fp32 dy against the bf16 rhs^T)
+splits dy into bf16 hi and lo and sums two bf16 products in fp32;
+``gmm_reference(split_lhs=True)`` is that arithmetic in plain PyTorch,
+held against the JAX ``_gmm_scan`` on the same fp32 dy and bf16 rhs^T
+within 1e-5 of the output's largest magnitude (hi + lo misses each dy by
+at most 2**-16 of it, and the rest is fp32 summation order).
 
 ``tile_schedule`` is the arithmetic that the Hopper body's blocks do on
 the card: group_sizes -> (group, first row, rows) tiles of BM rows, each
@@ -65,8 +72,26 @@ PLAN_CASES = {
         "wmma"),
     "rhs^T": (_lhs(), _rhs().transpose(1, 2), "wmma"),
     "fp32 dy against rhs^T": (_lhs(dtype=torch.float32),
-                              _rhs().transpose(1, 2), "fma"),
+                              _rhs().transpose(1, 2), "split"),
     "N 72": (_lhs(), _rhs(n=72), "wgmma"),
+    "fp32 dy base +16 bytes": (_lhs(off=4, dtype=torch.float32),
+                               _rhs().transpose(1, 2), "split"),
+    "fp32 dy base +4 bytes": (_lhs(off=1, dtype=torch.float32),
+                              _rhs().transpose(1, 2), "fma"),
+    "fp32 dy row stride 264 bytes": (
+        torch.zeros(16, 66)[:, :64], _rhs().transpose(1, 2), "fma"),
+    "rhs^T base +2 bytes": (_lhs(dtype=torch.float32),
+                            _rhs(off=1).transpose(1, 2), "fma"),
+    "rhs^T row stride 136 bytes": (_lhs(dtype=torch.float32),
+                                   _rhs(pad_n=4).transpose(1, 2), "fma"),
+    "rhs^T group stride on 16": (_lhs(dtype=torch.float32),
+                                 _rhs(pad_k=4).transpose(1, 2), "split"),
+    "rhs^T group stride off 16": (_lhs(dtype=torch.float32), torch.zeros(
+        2 * (64 * 64 + 4), dtype=BF).as_strided(
+            (2, 64, 64), (64 * 64 + 4, 64, 1)).transpose(1, 2), "fma"),
+    "qwen3 d_lhs (K 768, N 2048)": (
+        _lhs(k=768, dtype=torch.float32),
+        _rhs(k=2048, n=768).transpose(1, 2), "split"),
 }
 
 
@@ -80,13 +105,21 @@ def _c_body_for(drop=None):
     """The library's ``body_for`` rule written out in Python, with the
     condition ``drop`` left out (a mutant of the table)."""
     def gmm_body(ldt, rdt, lhs, l_sm, rhs, rs):
-        conds = {"lhs_dtype": ldt == 1, "rhs_dtype": rdt == 1}
-        if drop == "wgmma_to_wmma":
-            return 1 if all(conds.values()) else 0
-        for key in [k for k in conds if k == drop]:
-            conds[key] = True
-        if not all(conds.values()):
+        if rdt != 1 and drop != "rhs_dtype":
             return 0
+        if ldt == 0 and drop != "lhs_dtype":
+            if drop == "split_to_fma":
+                return 0
+            split = {"split_lhs_base": lhs % 16 == 0,
+                     "split_l_sm": l_sm * 4 % 16 == 0,
+                     "split_rhs_base": rhs % 16 == 0,
+                     "split_r_sk": rs[1] == 1,
+                     "split_r_sg": rs[0] * 2 % 16 == 0,
+                     "split_r_sn": rs[2] * 2 % 16 == 0}
+            split.pop(drop, None)
+            return 3 if all(split.values()) else 0
+        if drop == "wgmma_to_wmma":
+            return 1
         tma = {"lhs_base": lhs % 16 == 0, "l_sm": l_sm * 2 % 16 == 0,
                "rhs_base": rhs % 16 == 0, "r_sn": rs[2] == 1,
                "r_sg": rs[0] * 2 % 16 == 0, "r_sk": rs[1] * 2 % 16 == 0}
@@ -101,7 +134,10 @@ def test_body_table_check_passes_the_library_rule():
 
 @pytest.mark.parametrize("drop", ["lhs_dtype", "rhs_dtype", "lhs_base",
                                   "l_sm", "rhs_base", "r_sn", "r_sg", "r_sk",
-                                  "wgmma_to_wmma"])
+                                  "wgmma_to_wmma", "split_lhs_base",
+                                  "split_l_sm", "split_rhs_base",
+                                  "split_r_sk", "split_r_sg", "split_r_sn",
+                                  "split_to_fma"])
 def test_body_table_check_refuses_a_library_that_disagrees(drop):
     """Each condition of the rule matters for some case of
     ``_plan_cases``: a table without it is refused before any launch."""
@@ -215,3 +251,41 @@ def test_plan_cases_cover_every_dtype_pair():
     pairs = {(lhs.dtype, rhs.dtype) for lhs, rhs in tgm._plan_cases()}
     assert pairs == {(a, b) for a in (BF, torch.float32)
                      for b in (BF, torch.float32)}
+
+
+def test_plan_cases_take_every_body():
+    bodies = {tgm._gmm_plan(lhs, rhs) for lhs, rhs in tgm._plan_cases()}
+    assert bodies == {"fma", "wmma", "wgmma", "split"}
+
+
+@pytest.mark.parametrize("name", list(GMM_CASES))
+def test_split_reference_matches_jax_gmm_scan_on_fp32_dy(name):
+    """The backward's d_lhs form: fp32 dy [M, N] against rhs^T, a view of
+    a bf16 [G, K, N] stack, through the split body's arithmetic, against
+    the JAX scan on the same operands; and the split alone moves the
+    result by no more than the same bound."""
+    m, k, n, sizes = GMM_CASES[name]
+    rng = np.random.default_rng(3 * m + n)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    rhs = torch.from_numpy(rng.standard_normal((len(sizes), k, n)).astype(
+        np.float32)).to(BF)
+    rt = rhs.transpose(1, 2)
+    got = tgm.gmm_reference(torch.from_numpy(dy), rt,
+                            torch.tensor(sizes, dtype=torch.int32),
+                            torch.float32, split_lhs=True)
+    want = np.asarray(_gmm_scan(
+        jnp.asarray(dy), jnp.asarray(rt.float().numpy(), jnp.bfloat16),
+        jnp.asarray(sizes, jnp.int32), jnp.float32))
+    plain = tgm.gmm_reference(torch.from_numpy(dy), rt.float(),
+                              torch.tensor(sizes, dtype=torch.int32),
+                              torch.float32)
+    got = got.numpy()
+    total = min(sum(sizes), m)
+    assert got.shape == (m, k) and np.isfinite(got).all()
+    assert not got[total:].any()
+    if total == 0:
+        return
+    scale = np.abs(want).max()
+    for ref in (want, plain.numpy()):
+        err = np.abs(got - ref).max() / scale
+        assert err <= 1e-5, (name, err)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the paged
 attend (K4), the flash forward and backward (K1-K3), the grouped
-matmul and its transposed form (K5, K6) and the block-dequant matmul of
-the int8 serve weights (K7). Marked ``gpu``:
+matmul and its transposed form (K5, K6; K5's split body for fp32 dy) and
+the block-dequant matmul of the int8 serve weights (K7; its tensor-core
+body against the plain version at its arithmetic too). Marked ``gpu``:
 the ``cuda`` fixture decides whether a card is present (never at import
 time, so every test worker collects the same tests) and skips without
 one. Run on a machine with the card (``--noconftest``: the suite's
@@ -22,7 +23,7 @@ from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
 from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
                                                         generate_many)
 from distributed_training_guide_tpu_torch.train.precision import (
-    quantize_blockwise)
+    dequantize_blockwise, quantize_blockwise)
 
 pytestmark = pytest.mark.gpu
 
@@ -626,7 +627,9 @@ def test_gmm_kernel_takes_transposed_bf16_rhs_in_fp32(cuda, case):
     rhs = torch.randn(len(sizes), k, n, generator=gen,
                       device=cuda).to(torch.bfloat16)
     sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    before = gm.GMM_BODY_LAUNCHES["split"]
     got = gm.gmm(dy, rhs.transpose(1, 2), sz, torch.float32)
+    assert gm.GMM_BODY_LAUNCHES["split"] == before + 1   # the split body
     want = gm.gmm_reference(dy, rhs.float().transpose(1, 2), sz,
                             torch.float32)
     if sum(sizes):
@@ -752,6 +755,67 @@ def test_gmm_hopper_rows_are_batch_invariant_at_full_tiles(cuda, n):
         few = gm.gmm(lhs[start:start + 200].contiguous(), rhs, alone,
                      out_dtype)
         assert torch.equal(few, full[start:start + 200]), out_dtype
+
+
+# the split body (d_lhs: fp32 dy against the bf16 rhs^T) at qwen3-30b-a3b's
+# training and decode shapes and small cases: (name, M, K, N, routed tokens
+# or fixed sizes), K the width of dy
+GMM_SPLIT_CASES = [
+    ("qwen3-train-dlhs-gate", 32768, 768, 2048, 4096),
+    ("qwen3-train-dlhs-down", 32768, 2048, 768, 4096),
+    ("qwen3-decode-dlhs", 64, 768, 2048, 8),
+    ("ragged", 300, 72, 104, [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]),
+    ("tail", 520, 136, 64, [7, 200, 0, 13]),
+    ("all-empty", 96, 64, 64, [0, 0, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("case", GMM_SPLIT_CASES,
+                         ids=[c[0] for c in GMM_SPLIT_CASES])
+def test_gmm_split_body_matches_plain_versions(cuda, case):
+    """fp32 dy against rhs^T (a view of a bf16 [G, N, K] stack) through the
+    split body: in fp32 out within 1e-6 relative L2 of its arithmetic
+    (``split_bf16`` dy against rhs^T) summed in fp64, within 2e-6 of the
+    plain version at that arithmetic (``split_lhs``, whose own fp32 sum
+    adds up to ~1e-6) and within the existing 1e-5 of the fp32 plain
+    version (the split misses each dy by at most 2**-16 of it); bf16 out
+    the rounding of the fp32 out and within 1e-2; rows past the total
+    zero."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n + 1)
+    if isinstance(sizes, int):
+        sz = _routed(gen, cuda, sizes, 128, 8)
+    else:
+        sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    dy = torch.randn(m, k, generator=gen, device=cuda)
+    rhs = (torch.randn(sz.shape[0], n, k, generator=gen, device=cuda)
+           * 0.05).bfloat16()
+    rt = rhs.transpose(1, 2)
+    assert gm._gmm_plan(dy, rt) == "split"
+    before = gm.GMM_BODY_LAUNCHES["split"]
+    got = gm.gmm(dy, rt, sz, torch.float32)
+    got16 = gm.gmm(dy, rt, sz, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gm.GMM_BODY_LAUNCHES["split"] == before + 2
+    total = int(sz.sum())
+    assert got.shape == (m, n) and not got[total:].any()
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    if not total:
+        return
+    at_arith = gm.gmm_reference(dy, rt, sz, torch.float32, split_lhs=True)
+    plain = gm.gmm_reference(dy, rt.float(), sz, torch.float32)
+    exact = torch.zeros(m, n, dtype=torch.float64, device=cuda)
+    split = gm.split_bf16(dy).double()
+    lo = 0
+    for g, size in enumerate(sz.tolist()):
+        exact[lo:lo + size] = split[lo:lo + size] @ rt[g].double()
+        lo += size
+    assert _rel_l2(got, exact) <= 1e-6, (name, _rel_l2(got, exact))
+    assert _rel_l2(got, at_arith) <= 2e-6, (name, _rel_l2(got, at_arith))
+    err, bound = _gmm_err(got, plain, "fp32")
+    assert err <= bound, (name, err)
+    assert _rel_l2(got, plain) <= 1e-5
+    assert _rel_l2(got16, plain) <= 1e-2
 
 
 def test_gmm_library_table_is_gmm_plan(cuda):
@@ -920,6 +984,80 @@ def test_qmm_rows_are_bitwise_invariant_in_m(cuda):
             one = qm.dequant_matmul(x[r:r + 1].contiguous(), qt.q, qt.scale)
             assert torch.equal(one[0], part[r]) and torch.equal(one[0],
                                                                 full[r])
+
+
+@pytest.mark.parametrize("m", [1, 8, 37, 256, 2048])
+def test_qmm_wgmma_body_matches_split_and_plain_versions(cuda, m):
+    """bf16 x through the tensor-core body at llama-3.1-8b's K and a
+    quarter of its gate width, bs 32: in fp32 out within 1e-6 relative L2
+    of its arithmetic (x against the ``split_bf16`` weight) summed in fp64,
+    within 2e-6 of the plain version at that arithmetic (``split_w``, whose
+    own fp32 sum over K 4096 adds up to ~1e-6), within the existing 1e-5
+    of the fp32 plain version and 1e-2 in bf16 out, the bf16 output the
+    rounding of the fp32 one."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x, qt = _qmm_inputs(cuda, gen, m, 4096, 3584, 32, torch.bfloat16)
+    assert qm._qmm_plan(x, qt.q, qt.scale) == "wgmma"
+    before = qm.BODY_LAUNCHES["wgmma"]
+    got = qm.dequant_matmul(x, qt.q, qt.scale)
+    got16 = qm.dequant_matmul(x, qt.q, qt.scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert qm.BODY_LAUNCHES["wgmma"] == before + 2
+    assert got.shape == (m, 3584) and bool(torch.isfinite(got).all())
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    at_arith = qm.quantized_matmul_reference(x, qt.q, qt.scale, split_w=True)
+    plain = qm.quantized_matmul_reference(x, qt.q, qt.scale)
+    exact = x.double() @ qm.split_bf16(dequantize_blockwise(qt)).double()
+    assert _rel_l2(got, exact) <= 1e-6, _rel_l2(got, exact)
+    assert _rel_l2(got, at_arith) <= 2e-6, _rel_l2(got, at_arith)
+    assert _rel_l2(got, plain) <= 1e-5, _rel_l2(got, plain)
+    assert _rel_l2(got16, plain) <= 1e-2
+
+
+@pytest.mark.parametrize("bs", [1, 2, 16, 32, 64, 96, 128, 256])
+def test_qmm_wgmma_body_takes_any_block_size(cuda, bs):
+    """The tensor-core body's scale tile holds 8 to 132 blocks of a column
+    tile by the block size (bs 1: a block a column, each column its own
+    scale): each within the fp32 bound of the plain version, at M 8 and
+    200."""
+    gen = torch.Generator(device=cuda).manual_seed(bs)
+    for m in (8, 200):
+        x, qt = _qmm_inputs(cuda, gen, m, 512, 3072, bs, torch.bfloat16)
+        assert qm._qmm_plan(x, qt.q, qt.scale) == "wgmma"
+        got = qm.dequant_matmul(x, qt.q, qt.scale)
+        torch.cuda.synchronize()
+        want = qm.quantized_matmul_reference(x, qt.q, qt.scale)
+        assert _rel_l2(got, want) <= 1e-5, (bs, m, _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
+def test_qmm_wgmma_rows_are_bitwise_invariant_in_m(cuda, k, n):
+    """Through the tensor-core body at llama-3.1-8b's gate, down and wk
+    widths (the K split G of each from (K, N)): rows of M = 2048, 256 and
+    37 products equal the M = 1 and M = 8 products of those rows bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x, qt = _qmm_inputs(cuda, gen, 2048, k, n, 32, torch.bfloat16)
+    assert qm._qmm_plan(x, qt.q, qt.scale) == "wgmma"
+    full = qm.dequant_matmul(x, qt.q, qt.scale, torch.bfloat16)
+    eight = qm.dequant_matmul(x[:8].contiguous(), qt.q, qt.scale,
+                              torch.bfloat16)
+    assert torch.equal(eight, full[:8])
+    for rows in (256, 37):
+        part = qm.dequant_matmul(x[:rows].contiguous(), qt.q, qt.scale,
+                                 torch.bfloat16)
+        assert torch.equal(part, full[:rows]), rows
+    for r in (0, 5, 36, 1000, 2047):
+        one = qm.dequant_matmul(x[r:r + 1].contiguous(), qt.q, qt.scale,
+                                torch.bfloat16)
+        assert torch.equal(one[0], full[r]), r
+
+
+def test_qmm_library_table_is_qmm_plan(cuda):
+    """The built library's own table (``qmm_body``) picks the body that
+    ``_qmm_plan`` names for every dtype, alignment and row case of
+    ``_plan_cases``."""
+    qm._check_body_table(qm._build.load("quantized_matmul"))
 
 
 def test_qmm_auto_launches_the_kernel_and_never_the_plain_form(cuda,
