@@ -1303,9 +1303,10 @@ def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
     if busy == 0:
         return {"device_ms_per_step": "not measured", "wall_ms": wall * 1e3}
 
-    def ms_of(*words):
+    def ms_of(*words, exclude=None):
         return sum(dev_us(e) for e in events
-                   if any(w in e.key.lower() for w in words)) / 1e3
+                   if any(w in e.key.lower() for w in words)
+                   and not (exclude and exclude in e.key.lower())) / 1e3
 
     top = sorted(events, key=dev_us, reverse=True)[:12]
     return {"wall_ms": wall * 1e3, "device_ms": busy,
@@ -1313,8 +1314,8 @@ def profile_train_step(torch, state, bundle, b: int, s: int) -> dict:
             "flash_dq_ms": ms_of("flash_dq"),
             "flash_dkv_ms": ms_of("flash_dkv"),
             "grouped_matmul_ms": ms_of("gmm_tc", "gmm_fma", "gmm_hopper",
-                                       "gmm_split"),
-            "tgmm_ms": ms_of("tgmm_kernel"),
+                                       "gmm_split", exclude="tgmm"),
+            "tgmm_ms": ms_of("tgmm_kernel", "tgmm_split"),
             "gemm_ms": ms_of("gemm", "nvjet", "xmma", "cutlass"),
             "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
             "kernels": sum(e.count for e in events),
@@ -1448,9 +1449,11 @@ def phase_grouped(torch) -> dict:
     """Every case through K5 in fp32 and bf16 (the forward), the
     backward's d_lhs form (fp32 dy against an fp32 or bf16 rhs^T view: the
     FMA and the split body) in the operands' dtype and in fp32, and K6
-    (bf16 or fp32 lhs, fp32 dy), each K5 launch through the body that
-    ``_gmm_plan`` names and each of K5's bodies reached; the autograd
-    Function's grads against plain autograd. Returns the worst errors."""
+    (bf16 or fp32 lhs, fp32 dy: the split and the FMA body) in the
+    operands' dtype and in fp32, each launch through the body that
+    ``_gmm_plan`` / ``_tgmm_plan`` names and each body reached; K6 over a
+    NaN tail and a group moved among others; the autograd Function's
+    grads against plain autograd. Returns the worst errors."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1458,7 +1461,7 @@ def phase_grouped(torch) -> dict:
     worst = {"grouped_matmul": 0.0, "tgmm": 0.0}        # fp32 max abs
     worst_rel = {"fp32": 0.0, "bf16": 0.0}
     n_checks = 0
-    bodies_seen = set()
+    bodies_seen, tgmm_seen = set(), set()
     for name, m, k, n, sizes in gmm_cases(torch, gen):
         total = int(sizes.sum())
         g = sizes.shape[0]
@@ -1472,6 +1475,8 @@ def phase_grouped(torch) -> dict:
             plans = [gm._gmm_plan(lhs, rhs),
                      gm._gmm_plan(dy, rhs.transpose(1, 2))]
             bodies = dict(gm.GMM_BODY_LAUNCHES)
+            tplan = gm._tgmm_plan(lhs, dy)
+            tbodies = dict(gm.TGMM_BODY_LAUNCHES)
             out = gm.gmm(lhs, rhs, sizes)
             dlhs = gm.gmm(dy, rhs.transpose(1, 2), sizes, dt)
             # the d_lhs form at fp32 output too: the split body (bf16 rhs)
@@ -1479,10 +1484,18 @@ def phase_grouped(torch) -> dict:
             dlhs32 = gm.gmm(dy, rhs.transpose(1, 2), sizes, torch.float32)
             plans.append(plans[1])
             drhs = gm.tgmm(lhs, dy, sizes, g, dt)
+            # K6 at fp32 output too: the split body (bf16 lhs) is held to
+            # the fp32 bound, not only to bf16's
+            drhs32 = gm.tgmm(lhs, dy, sizes, g, torch.float32)
             torch.cuda.synchronize()
             check((gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
-                  == (before[0] + 3, before[1] + 1),
+                  == (before[0] + 3, before[1] + 2),
                   f"{name} {dtype}: a kernel did not launch")
+            check(gm.TGMM_BODY_LAUNCHES[tplan] - tbodies[tplan] == 2,
+                  f"{name} {dtype}: K6 did not run the body {tplan} that "
+                  f"_tgmm_plan names")
+            tgmm_seen.add(tplan)
+            errs[f"drhs_body_{dtype}"] = tplan
             for body in set(plans):
                 check(gm.GMM_BODY_LAUNCHES[body] - bodies[body]
                       == plans.count(body), f"{name} {dtype}: K5 did not "
@@ -1496,41 +1509,55 @@ def phase_grouped(torch) -> dict:
                     "dlhs32": gm.gmm_reference(
                         dy, rhs.float().transpose(1, 2), sizes,
                         torch.float32),
-                    "drhs": gm.tgmm_reference(lhs.float(), dy, sizes, g, dt)}
+                    "drhs32": gm.tgmm_reference(lhs.float(), dy, sizes, g,
+                                                torch.float32)}
+            refs["drhs"] = refs["drhs32"].to(dt)
             for key, got in (("out", out), ("dlhs", dlhs), ("dlhs32", dlhs32),
-                             ("drhs", drhs)):
+                             ("drhs", drhs), ("drhs32", drhs32)):
                 want = refs[key]
                 check(got.shape == want.shape and got.dtype == want.dtype,
                       f"{name} {key}: {got.shape} {got.dtype}")
                 check(bool(torch.isfinite(got.float()).all()),
                       f"{name} {key}: non-finite kernel output")
-                if key != "drhs":
+                if not key.startswith("drhs"):
                     check(not bool(got[total:].any()),
                           f"{name} {key}: rows past the total not zero")
                 else:
                     check(not bool(got[sizes == 0].any()),
-                          f"{name} drhs: an empty group's grad not zero")
+                          f"{name} {key}: an empty group's grad not zero")
                 # the backward's two products are fp32 arithmetic whatever
                 # the output dtype; a bf16 output rounds once
                 err = rel_l2(got, want)
-                kind = "fp32" if key == "dlhs32" else dtype
+                kind = "fp32" if key in ("dlhs32", "drhs32") else dtype
                 bound = GMM_REL_L2[kind]
                 errs[f"{key}_{dtype}"] = err
                 check(err <= bound, f"grouped {name} {key} {dtype}: rel L2 "
                       f"{err} > {bound}")
                 worst_rel[kind] = max(worst_rel[kind], err)
                 if kind == "fp32":
-                    kern = "tgmm" if key == "drhs" else "grouped_matmul"
+                    kern = ("tgmm" if key.startswith("drhs")
+                            else "grouped_matmul")
                     worst[kern] = max(worst[kern], (got - want).abs().max()
                                       .item())
                 n_checks += 1
-            del lhs, rhs, dy, out, dlhs, dlhs32, drhs, refs
+            if tplan == "split":      # the split body at its own arithmetic
+                err = rel_l2(drhs32, gm.tgmm_reference(
+                    lhs, dy, sizes, g, torch.float32, split_dy=True))
+                errs["drhs32_vs_split_dy"] = err
+                check(err <= TGMM_VS_SPLIT_REL_L2, f"grouped {name} K6 split "
+                      f"body vs split_dy plain version: rel L2 {err}")
+                n_checks += 1
+            del lhs, rhs, dy, out, dlhs, dlhs32, drhs, drhs32, refs
             torch.cuda.empty_cache()
         log(phase="grouped", case=name, M=m, K=k, N=n, G=g, rows=total,
             metric="rel_l2", bound=GMM_REL_L2, **errs)
     check(bodies_seen == set(gm.GMM_BODY_LAUNCHES), f"grouped: the cases "
           f"ran the bodies {bodies_seen}, not each of {set(gm.GMM_BODY_LAUNCHES)}")
+    check(tgmm_seen == set(gm.TGMM_BODY_LAUNCHES), f"grouped: K6 ran the "
+          f"bodies {tgmm_seen}, not each of {set(gm.TGMM_BODY_LAUNCHES)}")
     invariant = check_gmm_rows_invariant(torch, gm, gen)
+    nan_tail = check_tgmm_nan_tail(torch, gm, gen)
+    moved = check_tgmm_group_invariant(torch, gm, gen)
     drift = tc_sum_drift(torch, gm, gen)
     # the autograd Function against torch autograd through the plain scan
     # at moe-1b-8e's widths, fp32
@@ -1557,13 +1584,80 @@ def phase_grouped(torch) -> dict:
     torch.cuda.empty_cache()
     gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts   # checks are not main path
     log(phase="grouped", checks=n_checks, worst_fp32_max_abs=worst,
-        worst_rel_l2=worst_rel, rows_bitwise_equal_across_m=invariant)
-    return {**worst, "tc_sum_drift": drift}
+        worst_rel_l2=worst_rel, rows_bitwise_equal_across_m=invariant,
+        tgmm_nan_tail=nan_tail, tgmm_groups_bitwise_equal_moved=moved)
+    return {**worst, "tc_sum_drift": drift, "worst_rel_l2": worst_rel}
 
 
 # the split bodies against their own arithmetic summed in fp64: fp32
 # rounding of a sum whose pieces of 128 k the tensor cores add up
 SPLIT_VS_FP64_REL_L2 = 1e-6
+# K6's split body against its plain version at its arithmetic
+# (``split_dy``): the same products, both sums fp32 in other orders
+TGMM_VS_SPLIT_REL_L2 = 2e-6
+
+
+def check_tgmm_nan_tail(torch, gm, gen) -> dict:
+    """K6's split body at qwen1.5-moe-a2.7b's widths (M 2085, K 2048, N
+    1408, G 60 top-4) with the 37 rows past the total NaN in lhs and dy:
+    d_rhs finite, within ``TGMM_VS_SPLIT_REL_L2`` of the plain version at
+    its arithmetic and within the fp32 bound of the fp32 plain version
+    (both mask the rows outside each group)."""
+    m, k, n = 2048 + 37, 2048, 1408
+    sizes = routed_sizes(torch, gen, 512, 60, 4)
+    total = int(sizes.sum())
+    lhs = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(m, n, generator=gen, device="cuda")
+    lhs[total:], dy[total:] = float("nan"), float("nan")
+    check(gm._tgmm_plan(lhs, dy) == "split", "tgmm nan tail: plan")
+    got = gm.tgmm(lhs, dy, sizes, 60, torch.float32)
+    check(bool(torch.isfinite(got).all()), "tgmm nan tail: a non-finite "
+          "d_rhs")
+    out = {"tail_rows": m - total,
+           "rel_l2_vs_split_dy": rel_l2(got, gm.tgmm_reference(
+               lhs, dy, sizes, 60, torch.float32, split_dy=True)),
+           "rel_l2_vs_fp32": rel_l2(got, gm.tgmm_reference(
+               lhs, dy, sizes, 60, torch.float32))}
+    check(out["rel_l2_vs_split_dy"] <= TGMM_VS_SPLIT_REL_L2
+          and out["rel_l2_vs_fp32"] <= GMM_REL_L2["fp32"],
+          f"tgmm nan tail: {out}")
+    del lhs, dy, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tgmm_group_invariant(torch, gm, gen) -> list:
+    """K6's split body at qwen3-30b-a3b's training gate shape: groups 0,
+    64 and 127 of a routed M = 32768 call, each copied into a second call
+    whose other groups have other sizes and rows (so the group starts
+    elsewhere) and whose rows past the total are NaN, come out bitwise
+    equal. Returns the moved groups' (size, old start, new start)."""
+    g, k8, e, f = QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F
+    sizes = routed_sizes(torch, gen, 4096, g, k8)
+    lhs = torch.randn(4096 * k8, e, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(4096 * k8, f, generator=gen, device="cuda")
+    full = gm.tgmm(lhs, dy, sizes, g, torch.bfloat16)
+    offs = [0] + torch.cumsum(sizes, 0).tolist()
+    moved = []
+    for grp in (0, g // 2, g - 1):
+        other = routed_sizes(torch, gen, 3000, g, k8)
+        other[grp] = sizes[grp]
+        starts = [0] + torch.cumsum(other, 0).tolist()
+        m2 = starts[-1] + 100
+        lhs2 = torch.randn(m2, e, generator=gen, device="cuda").bfloat16()
+        dy2 = torch.randn(m2, f, generator=gen, device="cuda")
+        lhs2[starts[-1]:], dy2[starts[-1]:] = float("nan"), float("nan")
+        lo, lo2, rows = offs[grp], starts[grp], int(sizes[grp])
+        lhs2[lo2:lo2 + rows] = lhs[lo:lo + rows]
+        dy2[lo2:lo2 + rows] = dy[lo:lo + rows]
+        again = gm.tgmm(lhs2, dy2, other, g, torch.bfloat16)
+        check(torch.equal(again[grp], full[grp]), f"tgmm: group {grp} "
+              f"({rows} rows) moved from row {lo} to {lo2} differs")
+        moved.append((rows, lo, lo2))
+        del lhs2, dy2, again
+    del lhs, dy, full
+    torch.cuda.empty_cache()
+    return moved
 
 
 def tc_sum_drift(torch, gm, gen) -> dict:
@@ -1690,11 +1784,12 @@ def library_grouped_mm(torch, lhs, rhs, sizes):
 
 def phase_grouped_timing(torch) -> dict:
     """K5 at the decode and training shapes (forward and the fp32 d_lhs)
-    and K6 at the training shape: each kernel's device time ("ms", by
-    ``queued_ms``, as ``torch._grouped_mm``'s "library_ms";
+    and K6 at the training gate / up and down shapes: each kernel's device
+    time ("ms", by ``queued_ms``, as ``torch._grouped_mm``'s "library_ms";
     torch.profiler's mean per launch as "profiler_ms"; CUDA events around
     back-to-back calls as "call_ms"), the plain versions and the bound
-    (for the d_lhs also the split body's two-pass bound, "bound_tc_ms")."""
+    (for the split bodies also their two-pass bound, "bound_tc_ms"; for
+    K6 the FMA body's time on the same values, ``tgmm_timing_at``)."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -1759,37 +1854,96 @@ def phase_grouped_timing(torch) -> dict:
             row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
             out["train-dlhs"] = row
             log(phase="grouped_timing", **row)
-            call = lambda: gm.tgmm(lhs, dy, sizes, g, bf)   # noqa: E731
-            ms = queued_ms(torch, call, 5)
-            profiler_ms = device_ms(torch, call, 5, ["tgmm"])["tgmm"]
-            call_ms = cuda_ms(call, iters=5)
-            plain_ms = cuda_ms(lambda: gm.tgmm_reference(
-                lhs.float(), dy, sizes, g, bf), iters=2, warmup=1)
-            row = dict(kernel="tgmm", shape="train", M=m, K=e, N=f, G=g,
-                       dtype="bf16 lhs, fp32 dy, bf16 out", ms=ms,
-                       profiler_ms=profiler_ms, call_ms=call_ms,
-                       plain_ms=plain_ms, library_ms=None,
-                       library_note="no PyTorch call takes fp32 dy against "
-                       "bf16 lhs (torch._grouped_mm is bf16 only)",
-                       **tgmm_bound(m, e, f, sizes, 2, 4, 2, "float32"))
-            fn = getattr(torch, "_grouped_mm", None)
-            if fn is not None:      # informative: the all-bf16 variant
-                offs = torch.cumsum(sizes, 0, dtype=torch.int32)
-                dyb = dy.to(bf)
-                try:
-                    row["library_bf16_dy_ms"] = queued_ms(
-                        torch, lambda: fn(lhs.t(), dyb, offs=offs), 5)
-                except RuntimeError as exc:
-                    row["library_bf16_dy_note"] = str(exc).splitlines()[0][
-                        :120]
-            row["share_of_bound"] = row["bound_ms"] / ms
-            out["tgmm-train"] = row
-            log(phase="grouped_timing", **row)
+            out["tgmm-train"] = tgmm_timing_at(torch, gm, lhs, dy, sizes,
+                                               "gate")
+            # the down projection's d_rhs: its input [M, F] against its
+            # fp32 dy [M, E]
+            lhs_down = torch.randn(m, f, generator=gen, device="cuda").to(bf)
+            dy_down = torch.randn(m, e, generator=gen, device="cuda")
+            out["tgmm-train-down"] = tgmm_timing_at(torch, gm, lhs_down,
+                                                    dy_down, sizes, "down")
+            del lhs_down, dy_down
             del dy, rt
         del lhs, rhs, lib
         torch.cuda.empty_cache()
     gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts
     return out
+
+
+def tgmm_spread(sizes, k: int, n: int, blocks: int) -> dict:
+    """How K6's split body spreads its work over ``blocks`` persistent
+    blocks: its static grid of G x ceil(K / 128) x ceil(N / 128) tiles,
+    group-major, block b taking tiles b, b + blocks, ...; a tile's cost is
+    its group's 64-row chunks. The largest block's chunks against the
+    mean."""
+    import numpy as np
+
+    chunks = -(-np.maximum(sizes.cpu().numpy().astype(np.int64), 0) // 64)
+    tiles = -(-k // 128) * -(-n // 128)
+    cost = np.repeat(chunks, tiles)
+    per_block = np.bincount(np.arange(cost.size) % blocks, weights=cost,
+                            minlength=blocks)
+    return {"blocks": blocks, "tiles": int(cost.size),
+            "chunks_max": float(per_block.max()),
+            "chunks_mean": float(per_block.mean()),
+            "max_over_mean": float(per_block.max() / per_block.mean())}
+
+
+def tgmm_timing_at(torch, gm, lhs, dy, sizes, shape: str) -> dict:
+    """K6 (bf16 lhs [M, K], fp32 dy [M, N], bf16 out, as the training
+    backward calls it) through the body ``_tgmm_plan`` names: device time
+    by ``queued_ms`` ("ms"), torch.profiler ("profiler_ms"), CUDA events
+    around back-to-back calls ("call_ms"); the plain version; the fp32 and
+    the two-pass bound; the FMA body on the same values ("fma_ms": lhs
+    through a row stride off 16 bytes, which ``_tgmm_plan`` sends to it);
+    the all-bf16 ``torch._grouped_mm`` as a control (it takes no fp32
+    dy); how the tiles spread over the SMs."""
+    bf = torch.bfloat16
+    m, k = lhs.shape
+    n, g = dy.shape[1], sizes.shape[0]
+    call = lambda: gm.tgmm(lhs, dy, sizes, g, bf)   # noqa: E731
+    ms = queued_ms(torch, call, 5)
+    profiler_ms = device_ms(torch, call, 5, ["tgmm"])["tgmm"]
+    call_ms = cuda_ms(call, iters=5)
+    plain_ms = cuda_ms(lambda: gm.tgmm_reference(lhs, dy, sizes, g, bf),
+                       iters=2, warmup=1)
+    fma_lhs = torch.empty(m, k + 1, dtype=bf, device="cuda")[:, :k]
+    fma_lhs.copy_(lhs)
+    check(gm._tgmm_plan(fma_lhs, dy) == "fma", "tgmm timing: FMA plan")
+    fma_ms = queued_ms(
+        torch, lambda: gm.tgmm(fma_lhs, dy, sizes, g, bf), 3)
+    # the two bodies on the same values, fp32 out: the same products
+    # summed in another order, and dy split in one of them
+    bodies_rel_l2 = rel_l2(gm.tgmm(lhs, dy, sizes, g, torch.float32),
+                           gm.tgmm(fma_lhs, dy, sizes, g, torch.float32))
+    check(bodies_rel_l2 <= GMM_REL_L2["fp32"], f"tgmm {shape}: split vs FMA "
+          f"body rel L2 {bodies_rel_l2}")
+    row = dict(kernel="tgmm", shape=f"train-{shape}", M=m, K=k, N=n, G=g,
+               rows=int(sizes.sum()), dtype="bf16 lhs, fp32 dy, bf16 out",
+               body=gm._tgmm_plan(lhs, dy), ms=ms, profiler_ms=profiler_ms,
+               call_ms=call_ms, plain_ms=plain_ms, fma_ms=fma_ms,
+               split_vs_fma_rel_l2=bodies_rel_l2, library_ms=None,
+               library_note="no PyTorch call takes fp32 dy against bf16 "
+               "lhs (torch._grouped_mm is bf16 only)",
+               spread=tgmm_spread(
+                   sizes, k, n,
+                   torch.cuda.get_device_properties(0).multi_processor_count),
+               **tgmm_bound(m, k, n, sizes, 2, 4, 2, "float32"))
+    row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:      # a control: the all-bf16 variant
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        dyb = dy.to(bf)
+        try:
+            row["library_bf16_dy_ms"] = queued_ms(
+                torch, lambda: fn(lhs.t(), dyb, offs=offs), 5)
+        except RuntimeError as exc:
+            row["library_bf16_dy_note"] = str(exc).splitlines()[0][:120]
+    log(phase="grouped_timing", **row)
+    del fma_lhs
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2000,10 +2154,12 @@ def reset_moe_counts() -> None:
     reset_flash_counts()
     gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
     gm.GMM_BODY_LAUNCHES.update({k: 0 for k in gm.GMM_BODY_LAUNCHES})
+    gm.TGMM_BODY_LAUNCHES.update({k: 0 for k in gm.TGMM_BODY_LAUNCHES})
 
 
 def phase_moe_train(torch, card: str) -> dict:
     from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
     from distributed_training_guide_tpu_torch.train import cli
 
     layers = MOE_TRAIN_LAYERS
@@ -2021,6 +2177,7 @@ def phase_moe_train(torch, card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = moe_counts()                   # ... and ends here
     bodies = check_hopper_path("moe train", copies)
+    tgmm_bodies = dict(gm.TGMM_BODY_LAUNCHES)
     per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
                 "grouped_matmul": 6 * layers, "tgmm": 3 * layers}
     want = {k: v * MOE_TRAIN_STEPS for k, v in per_step.items()}
@@ -2031,6 +2188,9 @@ def phase_moe_train(torch, card: str) -> dict:
     check(bodies["grouped_matmul"] == {"fma": 0, "wmma": 0, "wgmma": half,
                                        "split": half},
           f"moe train: K5 launches by body {bodies['grouped_matmul']}")
+    # every d_rhs (bf16 expert inputs against fp32 dy) the split body
+    check(tgmm_bodies == {"fma": 0, "split": half},
+          f"moe train: K6 launches by body {tgmm_bodies}")
     infos = out["infos"]
     losses = [i["running_loss"] for i in infos]
     check(len(infos) == MOE_TRAIN_STEPS // 2 and all(
@@ -2048,7 +2208,7 @@ def phase_moe_train(torch, card: str) -> dict:
     log(phase="moe_train", steps=MOE_TRAIN_STEPS, wall_s=wall,
         launches_per_step={k: v / MOE_TRAIN_STEPS
                            for k, v in launches.items()},
-        launches_by_body=bodies,
+        launches_by_body={**bodies, "tgmm": tgmm_bodies},
         batch=2, seq=2048, params=bundle.num_params(),
         active_params=bundle.num_active_params())
     state = out["state"]
@@ -2078,7 +2238,8 @@ def phase_moe_train(torch, card: str) -> dict:
     del dense
     torch.cuda.empty_cache()
     return {"launches": launches, "per_step": per_step, "infos": infos,
-            "profile": profile, "launches_by_body": bodies["grouped_matmul"]}
+            "profile": profile, "launches_by_body": bodies["grouped_matmul"],
+            "tgmm_launches_by_body": tgmm_bodies}
 
 
 def check_moe_fp32_train_step(torch) -> None:
@@ -2088,6 +2249,7 @@ def check_moe_fp32_train_step(torch) -> None:
     (whose autograd keeps a masked copy of the rows per expert, hence the
     short sequence)."""
     from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
     from distributed_training_guide_tpu_torch.ops.cross_entropy import (
         causal_lm_loss)
 
@@ -2122,6 +2284,8 @@ def check_moe_fp32_train_step(torch) -> None:
         want = (12, 6) if impl == "auto" else (0, 0)
         check((counts["grouped_matmul"], counts["tgmm"]) == want,
               f"fp32 step ({impl}): K5 / K6 launches {counts}")
+        check(gm.TGMM_BODY_LAUNCHES == {"fma": want[1], "split": 0},
+              f"fp32 step ({impl}): K6 by body {gm.TGMM_BODY_LAUNCHES}")
         got[impl] = {"loss": loss.item(), "grad_norm": norm.item()}
         for p in leaves:
             p.grad = None
@@ -2565,6 +2729,20 @@ def check_int8_fp32_path(torch, model: str, prompt) -> None:
     torch.cuda.empty_cache()
 
 
+def ptxas_serialized(build) -> list:
+    """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
+    under a branch it cannot prove warp-uniform), as the warning names
+    them (mangled), from the ``-Xptxas -v`` logs."""
+    import re
+
+    return sorted({m.group(1) for log in build.build_logs.values()
+                   for line in log.splitlines() if "C7520" in line
+                   for m in [re.search(r"function '([^']+)'", line)] if m}
+                  | {line.strip()[:160] for log in build.build_logs.values()
+                     for line in log.splitlines() if "C7520" in line
+                     and "function '" not in line})
+
+
 def ptxas_summary(build) -> dict:
     """kernel -> {instantiation: [registers, spill store bytes]} from
     ``nvcc -Xptxas -v``, names demangled by the toolkit's ``cu++filt``."""
@@ -2637,8 +2815,11 @@ def main() -> int:
     sources = _build.all_sources()
     _build.build(sources)
     ptxas = ptxas_summary(_build)
+    serialized = ptxas_serialized(_build)
     log(phase="build", sources=sources, seconds=time.perf_counter() - t0,
-        ptxas=ptxas)
+        ptxas=ptxas, wgmma_serialized_c7520=serialized)
+    check(not any("tgmm" in name for name in serialized),
+          f"ptxas serialized K6's wgmma (C7520): {serialized}")
 
     worst = phase_kernels(torch)
     timing = phase_timing(torch)
@@ -2756,6 +2937,8 @@ def main() -> int:
                    for k in ("decode", "train", "train-dlhs")},
     })
     t = gmm_timing["tgmm-train"]
+    tkeys = keys + ("fma_ms", "library_bf16_dy_ms", "spread",
+                    "share_of_tc_bound")
     kernels.append({
         "name": "tgmm", "route": "cuda",
         "source": "distributed_training_guide_tpu_torch/ops/csrc/"
@@ -2763,12 +2946,15 @@ def main() -> int:
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:176",
         "launches": moe_train["launches"]["tgmm"],
         "launches_per_train_step": moe_train["per_step"]["tgmm"],
-        "max_abs_err": gmm_worst["tgmm"],
+        "launches_by_body_train": moe_train["tgmm_launches_by_body"],
+        "max_abs_err": gmm_worst["tgmm"], "body": t["body"],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "bound_tc_ms": t["bound_tc_ms"],
         "library_ms": t["library_ms"], "library_note": t["library_note"],
         "ptxas_registers_spills": ptxas.get("tgmm", {}),
-        "shape": {kk: t.get(kk) for kk in keys},
+        "shapes": {k: {kk: gmm_timing[k].get(kk) for kk in tkeys}
+                   for k in ("tgmm-train", "tgmm-train-down")},
     })
     t = qmm_timing["gate-decode"]
     kernels.append({

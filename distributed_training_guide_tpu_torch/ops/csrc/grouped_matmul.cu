@@ -60,21 +60,37 @@
 //     the CUDA cores, full fp32: the backward's d_lhs = dy @ rhs^T and fp32
 //     references.
 //   The WMMA and FMA bodies use the z split above.
-// - K6 (`tgmm_kernel`): block (column tile, K tile, group) loops over its
-//   group's rows in chunks of 16 through shared memory, so the reduction
-//   over M stays on the chip, in one order, with no atomics. FMA in fp32
-//   (the backward's arithmetic); bf16 lhs is converted as it is loaded.
-//   Blocks of large groups run longer than blocks of small ones: that
-//   imbalance is measured, not fixed.
+// - K6: the reduction over a group's rows stays on the chip, in one order
+//   per output, with no atomics. Two bodies, by the operands' dtypes,
+//   strides and alignment alone (`tgmm_body_for`, exported as
+//   `tgmm_body`):
+//   * bf16 lhs against fp32 dy that tensor maps can read (the backward's
+//     d_rhs; `tgmm_split_kernel`): out[g]^T = dy_g^T lhs_g on the tensor
+//     cores, dy split in registers into bf16 hi and lo A fragments, lhs
+//     the N-major B from a TMA ring, 64-row chunks counted from the
+//     group's first row, each chunk's sum added to an fp32 register sum;
+//     persistent blocks over a static grid of G x K / 128 x N / 128
+//     tiles, group-major. Rows outside the group are zeroed in both
+//     operands, so a group's result is bitwise the same whatever the other
+//     groups hold.
+//   * anything else (`tgmm_kernel`: fp32 lhs, rows off 16 bytes): block
+//     (column tile, K tile, group) loops over its group's rows in chunks
+//     of 8 through shared memory, FMA in fp32; bf16 operands are
+//     converted as they are loaded.
 //
 // Bound on H100. K5 at decode (64 rows over 128 experts, mostly 0-1 rows
 // each) moves the weight slices of the non-empty groups and little else:
 // bytes over 3.35 TB/s bound it, and each non-empty group gets its own
 // tiles so that many weight streams are in flight. K5 in training (32768
 // rows, ~256 per group) moves lhs once per column tile and is bound by its
-// bytes at these widths, near its operations; K6 and the fp32 d_lhs by
-// their operations against the 67 TFLOP/s of the CUDA cores (3xTF32 on the
-// tensor cores is later work).
+// bytes at these widths, near its operations. The fp32-dy products (K5's
+// d_lhs, K6's d_rhs) are 1.03e11 operations at qwen3-30b-a3b's training
+// shape: 1.54 ms on the CUDA cores' 67 TFLOP/s, 0.208 ms as two bf16
+// passes at 989 TFLOP/s, so the split bodies run them on the tensor cores.
+// Their tiles re-read the group's rows from L2 once per column tile (K6:
+// 768 bytes a row a tile, ~2.4 GB in all at that shape), which the tensor
+// cores' time does not cover; a cluster sharing tiles by TMA multicast
+// would halve it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1033,6 +1049,357 @@ tgmm_kernel(const TgmmParams p) {
   }
 }
 
+// ---- K6, the split body (bf16 lhs, fp32 dy): wgmma
+
+// Two consumer warpgroups and a producer warpgroup; registers at launch 168
+// a thread (64K / 384), then 24 for the producer and 240 for the consumers
+// (24 + 2 x 240 = 3 x 168)
+constexpr int kTgmmThreads = 384;
+constexpr int kTgmmConsumerRegs = 240;
+
+// Tensor maps of lhs [M, K] and dy [M, N], the scalars, and the static
+// tile grid: G groups x k_tiles x n_tiles tiles of 128 K rows x 128 N
+// columns of d_rhs[g], group-major.
+struct TgmmTmaArgs {
+  CUtensorMap lhs, dy, out;
+  TgmmParams p;
+  int k_tiles, n_tiles;
+  int tma_out;  // out rows on 16 bytes: tiles leave by TMA stores
+};
+
+// A ring of STAGES stages, each one 64-row chunk of a group: dy [64][128 n]
+// fp32 as four [64][32] boxes (the first two warpgroup 0's columns, the
+// last two warpgroup 1's) and lhs [64][128 k] bf16 as two [64][64] parts,
+// all 128-byte swizzled, 48 KB a stage
+template <int STAGES>
+struct TgmmSplitSmem {
+  static constexpr int box = 64 * 128;
+  static constexpr int dy = 0;
+  static constexpr int lhs = 4 * box;
+  static constexpr int stage = 6 * box;
+  static constexpr int bars = STAGES * stage;  // full, then empty
+  static constexpr int bytes = bars + 8 * 2 * STAGES + 1024;
+};
+
+// Tile s of the grid: group g, K rows [k0, k0 + 128), N columns [n0, n0 +
+// 128), over the group's rows [r0, r1) (clipped to M)
+struct TgmmTile {
+  int g, k0, n0, r0, r1;
+};
+
+__device__ __forceinline__ TgmmTile tgmm_tile(const TgmmTmaArgs& a,
+                                              const int* offs, int s) {
+  const int per = a.k_tiles * a.n_tiles;
+  TgmmTile t;
+  t.g = s / per;
+  t.k0 = (s % per) / a.n_tiles * 128;
+  t.n0 = (s % per) % a.n_tiles * 128;
+  t.r0 = min(offs[t.g], a.p.M);
+  t.r1 = min(offs[t.g + 1], a.p.M);
+  return t;
+}
+
+// The backward's d_rhs[g] = lhs_g^T dy_g with bf16 lhs and fp32 dy, as
+// out[g]^T = dy_g^T lhs_g: persistent blocks walk the static grid
+// group-major (a group's rows stay in L2 while its tiles run); one thread
+// of a producer warpgroup streams each tile's 64-row chunks, counted from
+// the group's first row, through a TMA ring (48 KB a stage, four stages),
+// and two consumer warpgroups each compute 64 N
+// columns x 128 K rows. wgmma's A is dy_g^T from registers: each thread
+// reads its fp32 values of the chunk (columns of the swizzled dy boxes,
+// conflict-free: a warp's 8 columns x 4 rows span all 32 banks) and splits
+// them into bf16 hi and lo fragments; B is lhs_g read N-major (k
+// contiguous) from the ring. Per k step of 16 rows two products, hi then
+// lo, m64n128k16, into the chunk's accumulator, added to an fp32 register
+// sum at the chunk's end (the tensor cores' own sum truncates:
+// `chip_smoke.py:tc_sum_drift`). No row outside the group reaches a
+// product: the group's last chunk skips the k steps past its end and
+// zeroes that chunk's rows past it, in both operands, in shared memory (0
+// x NaN is NaN, and the tail past the total may hold anything). So
+// d_rhs[g] depends on the group's own rows alone, summed over the same
+// chunks and k steps whatever the other groups hold and wherever the
+// group starts: bitwise the same, with no atomics. The epilogue stages a
+// warpgroup's tile, transposed by stmatrix (bf16), in its own dy boxes of
+// the last chunk's stage, which it holds until then, and one thread
+// stores it by TMA (clipped at K and N) while the warpgroup goes on to
+// its next tile; the stage goes back once the store has read it. Output
+// rows off 16 bytes take 16-byte stores by every thread, and an empty
+// group's tiles store zeros. Tiles past K or N multiply their unloaded
+// parts too (never stored): a product under a per-part branch makes ptxas
+// serialize every wgmma. The tensor cores' two passes bound it; variants
+// measured on the H100 (PERF.md) put most of the rest into building the A
+// fragments (shared-memory reads and the split) and into each chunk's
+// register sum, while the tile's staging and store overlap the next
+// tile.
+template <int STAGES, typename OT>
+__global__ void __launch_bounds__(kTgmmThreads, 1)
+    tgmm_split_kernel(const __grid_constant__ TgmmTmaArgs a) {
+  using L = TgmmSplitSmem<STAGES>;
+  constexpr int NT = kTgmmThreads;
+  const TgmmParams& p = a.p;
+  __shared__ int offs[kMaxGroups + 1];
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* smem =
+      smem_tma + ((1024 - (smem_u32(smem_tma) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bars;
+  const uint32_t empty = full + 8 * STAGES;
+
+  exclusive_scan<NT>([&](int g) { return max(p.sizes[g], 0); }, p.G, offs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int slots = p.G * a.k_tiles * a.n_tiles;
+  if (threadIdx.x >= 256) {  // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x != 256) return;
+    int stage = 0, phase = 0;
+    for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+      const TgmmTile t = tgmm_tile(a, offs, s);
+      const int dy_boxes = min(4, (p.N - t.n0 + 31) / 32);
+      const int lhs_parts = min(2, (p.K - t.k0 + 63) / 64);
+      for (int r = t.r0; r < t.r1; r += 64) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = base + stage * L::stage;
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, (dy_boxes + lhs_parts) * L::box);
+        for (int b = 0; b < dy_boxes; ++b)
+          tma_load_2d(st + L::dy + b * L::box, &a.dy, bar, t.n0 + 32 * b, r);
+        for (int h = 0; h < lhs_parts; ++h)
+          tma_load_2d(st + L::lhs + h * L::box, &a.lhs, bar, t.k0 + 64 * h,
+                      r);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kTgmmConsumerRegs));
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  // this thread's A rows: N columns 64 wg + 16 warp + lane / 4 (+ 8) of the
+  // tile, in dy box 2 wg + warp / 2 at these bytes (+ 32)
+  const int wg_dy = L::dy + 2 * wg * L::box;  // this warpgroup's dy boxes
+  const int dbox = wg_dy + warp / 2 * L::box;
+  const int dcol = 4 * (16 * (warp % 2) + lane / 4);
+  constexpr int PASSES = sizeof(OT) / 2;  // staged K rows: 128 / PASSES
+  constexpr int KP = 128 / PASSES;
+  constexpr int PER = 16 / sizeof(OT);    // values per 16-byte store
+  const bool vec = (static_cast<long long>(p.N) * sizeof(OT)) % 16 == 0;
+  OT* out = static_cast<OT*>(p.out);
+  int stage = 0, phase = 0;
+  int pending = -1;  // warp 0: a stage that its thread 0's stores still read
+  for (int s = blockIdx.x; s < slots; s += gridDim.x) {
+    TgmmTile t = tgmm_tile(a, offs, s);
+    // uniform, but read from shared memory: broadcast from lane 0, so that
+    // the compiler can see that the branches around the products are
+    t.r0 = __shfl_sync(kFull, t.r0, 0);
+    t.r1 = __shfl_sync(kFull, t.r1, 0);
+    // acc: the fp32 sum over the chunks so far; part: this chunk's, from
+    // the tensor cores, added to acc (rounded to nearest) at its end
+    float acc[64], part[64];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[x] = part[x] = 0.f;
+    int held = -1;  // the stage of the tile's last chunk, kept for staging
+    for (int r = t.r0; r < t.r1; r += 64) {
+      mbar_wait(full + 8 * stage, phase);
+      const int valid = min(64, t.r1 - r);  // rows of the group here
+      const int steps = (valid + 15) / 16;  // k steps that hold any
+      unsigned char* st = smem + stage * L::stage;
+      const unsigned char* dys = st + dbox;
+      const uint32_t lt = base + stage * L::stage + L::lhs;
+      // A fragments of two k steps: [step % 2][4 part + r], part 0 hi
+      uint32_t frag[2][8];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= steps) break;
+        if (kk == steps - 1 && valid < 16 * steps) {
+          // the rows of this last k step past the group's end to 0 (later
+          // steps are skipped), while the earlier steps' products run: in
+          // the lhs parts, for the async proxy to read, and in this
+          // warpgroup's dy boxes. Each warpgroup zeroes all the lhs rows
+          // and waits for its own threads only: the other may be writing
+          // the same zeros, which changes nothing that a product reads.
+          for (int idx = tid; idx < (16 * steps - valid) * 32; idx += 128) {
+            const int box = idx % 32 / 8;  // lhs 0, 1; own dy boxes 2, 3
+            *reinterpret_cast<uint4*>(
+                st + (box < 2 ? L::lhs : wg_dy - 2 * L::box) +
+                box * L::box + (valid + idx / 32) * 128 + idx % 8 * 16) =
+                make_uint4(0, 0, 0, 0);
+          }
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+        }
+        uint32_t(&f)[8] = frag[kk % 2];
+        // rows 16 kk + 2 (l % 4) + {0, 1} and + 8 (h) of columns n, n + 8
+        // (i); f[2 h + i] hi, f[4 + 2 h + i] lo
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = 16 * kk + 2 * quad + 8 * h;
+            const float x0 =
+                *reinterpret_cast<const float*>(dys + sw128(row, dcol + 32 * i));
+            const float x1 = *reinterpret_cast<const float*>(
+                dys + sw128(row + 1, dcol + 32 * i));
+            split_bf16(x0, x1, f[2 * h + i], f[4 + 2 * h + i]);
+          }
+        wg_fence();
+        const uint64_t db = sw128_desc_parts(lt + kk * 2048, L::box);
+        wgmma_rs_n(part, f[0], f[1], f[2], f[3], db, kk > 0);
+        wgmma_rs_n(part, f[4], f[5], f[6], f[7], db, 1);
+        wg_commit();
+        if (kk == 1 || kk == 2) {  // step kk - 1 is done: its fragments free
+          wg_wait1();
+          fence_regs(part);
+          fence_regs(frag[(kk + 1) % 2]);
+        }
+      }
+      wg_wait0();
+      fence_regs(part);
+      fence_regs(frag[0]);
+      fence_regs(frag[1]);
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] += part[x];
+      if (r + 64 < t.r1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+      } else {
+        held = stage;
+      }
+      if (pending >= 0) {  // the previous tile's stores have read it
+        if (tid == 0) {
+          bulk_wait_read();
+          mbar_arrive(empty + 8 * pending);
+        }
+        pending = -1;
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // acc[4 j + 2 i + e]: N column 64 wg + 16 warp + lane / 4 + 8 i, K row
+    // 8 j + 2 (l % 4) + e of the tile. Staged in this warpgroup's two dy
+    // boxes of the held stage (16 KB), KP K rows a pass: row (part, k) of
+    // 128 bytes holds the part's columns of K row k, in the 128-byte
+    // swizzle of TMA's tiles (bf16: one stmatrix per four 8 x 8 blocks;
+    // fp32: a warp's writes of one value span 4 rows x 8 columns, no bank
+    // conflict)
+    const bool staged = held >= 0;
+    unsigned char* stg = smem + (staged ? held : 0) * L::stage + wg_dy;
+    auto stage_pass = [&](int pass) {
+      if constexpr (sizeof(OT) == 2) {
+        // the blocks (i, j), (i + 1, j), (i, j + 1), (i + 1, j + 1):
+        // lane 8 t + c addresses K row 8 (j + t / 2) + c at columns 16
+        // warp + 8 (t % 2)
+        const uint32_t sbase = smem_u32(stg);
+        const int t = lane / 8;
+#pragma unroll
+        for (int j = 0; j < 16; j += 2)
+          stmatrix_x4_trans(
+              sbase + sw128(8 * (j + t / 2) + lane % 8,
+                            32 * warp + 16 * (t % 2)),
+              pack_bf16(acc[4 * j], acc[4 * j + 1]),
+              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+              pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+              pack_bf16(acc[4 * j + 6], acc[4 * j + 7]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (j / 8 != pass) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = 8 * j + 2 * quad + e - pass * KP;
+              const int byte = (16 * warp + lane / 4 + 8 * i) * sizeof(OT);
+              *reinterpret_cast<OT*>(stg + sw128(byte / 128 * KP + k,
+                                                 byte % 128)) =
+                  from_f32<OT>(acc[4 * j + 2 * i + e]);
+            }
+        }
+      }
+    };
+    if (staged && a.tma_out) {
+      // TMA stores of the staged rows (clipped at K and N); warp 0 gives
+      // the stage back once they have read it, after the next chunk
+#pragma unroll
+      for (int pass = 0; pass < PASSES; ++pass) {
+        if (pass > 0) {  // the previous pass's stores have read the staging
+          if (tid == 0) bulk_wait_read();
+          asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+        }
+        stage_pass(pass);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+        if (tid == 0) {
+#pragma unroll
+          for (int part = 0; part < PASSES; ++part)
+            tma_store_3d(&a.out, smem_u32(stg) + part * (2 * L::box / PASSES),
+                         t.n0 + 64 * wg + part * (64 / PASSES),
+                         t.k0 + pass * KP, t.g);
+          bulk_commit();
+        }
+      }
+      if (warp == 0) {
+        pending = held;
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * held);
+      }
+      continue;
+    }
+    // else 16-byte stores by every thread: the staged rows, or zeros for
+    // an empty group's tile
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      if (staged) {
+        if (pass > 0) asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+        stage_pass(pass);
+        asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      }
+      for (int idx = tid; idx < 128 * 8; idx += 128) {
+        const int row = idx / 8, c = idx % 8;
+        const int k = t.k0 + pass * KP + row % KP;
+        const int n = t.n0 + 64 * wg + row / KP * (128 / sizeof(OT)) + c * PER;
+        if (k >= p.K || n >= p.N) continue;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (staged)
+          v = *reinterpret_cast<const uint4*>(stg + row * 128 +
+                                              ((c ^ (row % 8)) * 16));
+        OT* dst = out + (static_cast<long long>(t.g) * p.K + k) * p.N + n;
+        if (vec && n + PER <= p.N) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const OT* val = reinterpret_cast<const OT*>(&v);
+          for (int x = 0; x < PER && n + x < p.N; ++x) dst[x] = val[x];
+        }
+      }
+    }
+    if (staged) {  // the staging reads are done: the stage goes back
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * held);
+    }
+  }
+  if (pending >= 0 && tid == 0) mbar_arrive(empty + 8 * pending);
+  if (tid == 0) bulk_wait();  // the last tiles' stores are written
+}
+
 // ---- launches
 
 // blocks sharing one row tile: about the number of group indices a tile of
@@ -1094,6 +1461,17 @@ int tgmm_out(const TgmmParams& p, int out_dt, cudaStream_t stream) {
 
 bool valid_dtype(int dt) { return dt == kF32 || dt == kBF16; }
 
+// the SMs of the current device: one persistent block each
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
 // row tiles of at most this many rows take the small-tile bodies (decode)
 constexpr int kSmallM = 256;
 
@@ -1116,12 +1494,7 @@ int launch_wgmma(const GmmParams& p, cudaStream_t stream) {
         !map_bf16(&a.rhs, p.rhs, 3, rhs_dims, rhs_strides, rhs_box))
       return kNoTensorMap;
   }
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
+  const int sms = sm_count();
   const int grid = static_cast<int>(slots < sms ? slots : sms);
   return launch_kernel(gmm_hopper_kernel<CW, BN, STAGES, OT>, L::bytes,
                        dim3(grid), CW * 128 + 32, a, stream);
@@ -1158,12 +1531,7 @@ int launch_split(const GmmParams& p, cudaStream_t stream) {
         !map_bf16(&a.rhs, p.rhs, 3, rhs_dims, rhs_strides, rhs_box))
       return kNoTensorMap;
   }
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
+  const int sms = sm_count();
   const int grid = static_cast<int>(slots < sms ? slots : sms);
   return launch_kernel(gmm_split_kernel<CW, BN, STAGES, OT>, L::bytes,
                        dim3(grid), CW * 128 + 32, a, stream);
@@ -1177,6 +1545,53 @@ template <typename OT>
 int split_rows(const GmmParams& p, cudaStream_t stream) {
   return p.M <= kSmallM ? launch_split<1, 128, 6, OT>(p, stream)
                         : launch_split<2, 128, 4, OT>(p, stream);
+}
+
+template <typename OT>
+int launch_tgmm_split(const TgmmParams& p, cudaStream_t stream) {
+  constexpr int kStages = 4;
+  cudaFuncAttributes attr;  // registers at launch cover what setmaxnreg gives
+  cudaError_t err = cudaFuncGetAttributes(&attr, tgmm_split_kernel<kStages, OT>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * kTgmmThreads <
+      (kProducerRegs + 2 * kTgmmConsumerRegs) * 128)
+    return kFewRegisters;
+  using L = TgmmSplitSmem<kStages>;
+  TgmmTmaArgs a;
+  memset(&a, 0, sizeof(a));
+  a.p = p;
+  a.k_tiles = (p.K + 127) / 128;
+  a.n_tiles = (p.N + 127) / 128;
+  const long long slots =
+      static_cast<long long>(p.G) * a.k_tiles * a.n_tiles;
+  if (slots > (1ll << 30)) return -1;
+  if (encode_tiled() == nullptr) return kNoTensorMap;
+  if (p.M > 0) {  // else no tile loads anything
+    const long long lhs_dims[2] = {p.K, p.M}, dy_dims[2] = {p.N, p.M};
+    const int lhs_box[2] = {64, 64}, dy_box[2] = {32, 64};
+    if (!map_bf16(&a.lhs, p.lhs, 2, lhs_dims, &p.l_sm, lhs_box) ||
+        !map_f32(&a.dy, p.dy, 2, dy_dims, &p.d_sm, dy_box))
+      return kNoTensorMap;
+  }
+  // out [G, K, N] by TMA stores of a warpgroup's staged 128 K rows x 64
+  // columns (fp32: two 32-column boxes of 64 rows a pass), where its rows
+  // lie on 16 bytes; else 16-byte stores by every thread
+  a.tma_out = (static_cast<long long>(p.N) * sizeof(OT)) % 16 == 0 &&
+              on16(p.out);
+  if (a.tma_out) {
+    const long long out_dims[3] = {p.N, p.K, p.G};
+    const long long out_strides[2] = {p.N, static_cast<long long>(p.K) * p.N};
+    const int out_box[3] = {128 / static_cast<int>(sizeof(OT)),
+                            sizeof(OT) == 2 ? 128 : 64, 1};
+    if (!(sizeof(OT) == 2
+              ? map_bf16(&a.out, p.out, 3, out_dims, out_strides, out_box)
+              : map_f32(&a.out, p.out, 3, out_dims, out_strides, out_box)))
+      return kNoTensorMap;
+  }
+  const int sms = sm_count();
+  const int grid = static_cast<int>(slots < sms ? slots : sms);
+  return launch_kernel(tgmm_split_kernel<kStages, OT>, L::bytes, dim3(grid),
+                       kTgmmThreads, a, stream);
 }
 
 // The body of each operand set, the one table of it: `gmm` runs what it
@@ -1202,6 +1617,19 @@ int body_for(int lhs_dt, int rhs_dt, const void* lhs, long long l_sm,
                    rs[2] == 1 && (rs[0] * 2) % 16 == 0 &&
                    (rs[1] * 2) % 16 == 0;
   return tma ? kWgmmaBody : kWmmaBody;
+}
+
+// K6's table, as body_for: bf16 lhs against fp32 dy that tensor maps can
+// read (unit column strides, both bases and row strides on 16 bytes) runs
+// the split body, anything else FMA. Strides: {row, column}.
+enum TgmmBody { kTgmmFmaBody = 0, kTgmmSplitBody = 1 };
+
+int tgmm_body_for(int lhs_dt, int dy_dt, const void* lhs, const long long* ls,
+                  const void* dy, const long long* ds) {
+  const bool tma = lhs_dt == kBF16 && dy_dt == kF32 && on16(lhs) &&
+                   on16(dy) && ls[1] == 1 && ds[1] == 1 &&
+                   (ls[0] * 2) % 16 == 0 && (ds[0] * 4) % 16 == 0;
+  return tma ? kTgmmSplitBody : kTgmmFmaBody;
 }
 
 }  // namespace
@@ -1272,6 +1700,15 @@ extern "C" int gmm(const void* lhs, const void* rhs, const void* group_sizes,
   }
 }
 
+// tgmm_body: the body that tgmm runs for these operands, strides {row,
+// column} in elements: 0 FMA, 1 the split body.
+extern "C" int tgmm_body(int lhs_dtype, int dy_dtype, const void* lhs,
+                         const long long* lhs_strides, const void* dy,
+                         const long long* dy_strides) {
+  return tgmm_body_for(lhs_dtype, dy_dtype, lhs, lhs_strides, dy,
+                       dy_strides);
+}
+//
 // tgmm (K6): lhs [M, K] and dy [M, N] (row strides given, columns
 // contiguous), group_sizes [G] int32, out [G, K, N] contiguous.
 extern "C" int tgmm(const void* lhs, const void* dy, const void* group_sizes,
@@ -1296,6 +1733,10 @@ extern "C" int tgmm(const void* lhs, const void* dy, const void* group_sizes,
   p.l_sm = lhs_row_stride;
   p.d_sm = dy_row_stride;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ls[2] = {lhs_row_stride, 1}, ds[2] = {dy_row_stride, 1};
+  if (tgmm_body_for(lhs_dtype, dy_dtype, lhs, ls, dy, ds) == kTgmmSplitBody)
+    return out_dtype == kBF16 ? launch_tgmm_split<bf16>(p, st)
+                              : launch_tgmm_split<float>(p, st);
   if (lhs_dtype == kF32 && dy_dtype == kF32)
     return tgmm_out<float, float>(p, out_dtype, st);
   if (lhs_dtype == kF32 && dy_dtype == kBF16)

@@ -9,18 +9,21 @@
 //   never completes ends the kernel with "illegal instruction" instead of
 //   hanging the card.
 // - Copies: `tma_load_{2,3,4}d` issue one TMA tile copy that completes on
-//   a barrier's transaction count.
+//   a barrier's transaction count; `tma_store_3d` copies a tile out,
+//   tracked by bulk groups.
 // - Products: `wgmma_ss` (A, B both K-major in shared memory), `wgmma_ss_n`
 //   (B N-major), `wgmma_rs` (A from registers, B N-major), m64n64k16 bf16
-//   in, `wgmma_ss_n256` (m64n256k16, B N-major) and `wgmma_rs_k` (A from
-//   registers, B K-major, m64nNk16 for N = 8 to 128), fp32 accumulators in
+//   in, `wgmma_ss_n256` (m64n256k16, B N-major), `wgmma_rs_k` (A from
+//   registers, B K-major, m64nNk16 for N = 8 to 128) and `wgmma_rs_n` (A
+//   from registers, B N-major, m64n128k16), fp32 accumulators in
 //   registers, with `wg_fence` / `wg_commit` /
 //   `wg_wait0` / `wg_wait1` around them and `fence_regs` to pin the
 //   accumulators across an asynchronous batch. An m64nNk16 accumulator of
 //   16 columns is the A fragment of the next product's k step: `pack_bf16`
 //   rounds a pair into one register of it, `split_bf16` splits an fp32 pair
 //   into a hi and a lo register (two products stand for one fp32 operand).
-//   `sw128` addresses an element of a swizzled tile.
+//   `sw128` addresses an element of a swizzled tile; `stmatrix_x4_trans`
+//   stores four 8 x 8 bf16 accumulator blocks transposed.
 // - Attention tiles: `scores` (S = A B^T over D for two 64-row tiles),
 //   `rs_product` (acc += A B, A from registers: P V, dS K), `pair_live` /
 //   `block_live` (the band), `ex2`, `store_tile` (an fp32 accumulator out
@@ -387,10 +390,13 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_rs_k(float (&d)[64], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t db,
-                                           int accumulate) {
+// m64n128k16 with A from registers, B K-major (TRANS_B 0: wgmma_rs_k) or
+// N-major (1: wgmma_rs_n); d = A B when `accumulate` is 0
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db,
+                                             int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -400,7 +406,7 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[64], uint32_t a0,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -414,7 +420,28 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[64], uint32_t a0,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[64], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  wgmma_rs_128<0>(d, a0, a1, a2, a3, db, accumulate);
+}
+
+// d (+)= A B over one k step of 16: A [64 x 16] bf16 from registers (as in
+// wgmma_rs), B [16 x 128] N-major in shared memory: two [16 x 64] parts of
+// the 128-byte swizzle, `sw128_desc_parts(addr, part bytes)`; d[4 j + 2 i +
+// e]: row 16 w + l / 4 + 8 i, column 8 j + 2 (l % 4) + e. As wgmma_rs_k:
+// d = A B when `accumulate` is 0, and A's registers are read
+// asynchronously.
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[64], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  wgmma_rs_128<1>(d, a0, a1, a2, a3, db, accumulate);
 }
 
 // An fp32 pair split into two bf16 pairs, hi = bf16(x) and lo = bf16(x -
@@ -428,6 +455,43 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   hi = pack_bf16(x0, x1);
   lo = pack_bf16(x0 - __uint_as_float(hi << 16),
                  x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Four 8 x 8 bf16 matrices out of registers into shared memory,
+// transposed: r[t] holds matrix t as an m16n8 accumulator pair holds it
+// (row l / 4, columns 2 (l % 4) + {0, 1}, packed by `pack_bf16`), and lane
+// 8 t + c gives the address of the 16 bytes that receive column c of
+// matrix t (its 8 rows).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// One TMA tile store from shared memory (tracked by the issuing thread's
+// bulk groups: `bulk_commit`, then `bulk_wait_read` before the tile's
+// shared memory is written again, `bulk_wait` for the writes themselves)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Byte offset of (row, byte column) in a tile of 128-byte rows in the

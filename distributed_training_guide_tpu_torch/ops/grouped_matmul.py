@@ -15,13 +15,19 @@ order, has no counterpart: every CUDA block finds its groups itself. Each
 wrapper launches its kernel for CUDA tensors, or raises, and runs its plain
 version (``gmm_reference``, the JAX ``_gmm_scan``; ``tgmm_reference``) for
 CPU tensors, which is the one reason it ever takes it. ``GMM_LAUNCHES`` and
-``TGMM_LAUNCHES`` count launches, ``GMM_BODY_LAUNCHES`` K5's launches by
-body. ``_gmm_plan`` names K5's body from the operands' dtypes, strides and
-alignment alone, and ``tile_schedule`` is the tile grid that the Hopper
-bodies' blocks compute for themselves. The backward's d_lhs (fp32 dy
-against the bf16 ``rhs^T``) runs the split body: dy split into bf16 hi
-and lo, two tensor-core products; ``gmm_reference(split_lhs=True)`` is the
-plain version of that arithmetic.
+``TGMM_LAUNCHES`` count launches, ``GMM_BODY_LAUNCHES`` and
+``TGMM_BODY_LAUNCHES`` the launches by body. ``_gmm_plan`` and
+``_tgmm_plan`` name each kernel's body from the operands' dtypes, strides
+and alignment alone, and ``tile_schedule`` is the tile grid that K5's
+Hopper bodies' blocks compute for themselves. The backward's two fp32-dy
+products run split bodies on the tensor cores: dy split into bf16 hi and
+lo, two products, each 64-deep chunk's sum added to an fp32 register sum.
+K5's d_lhs (fp32 dy against the bf16 ``rhs^T``) has
+``gmm_reference(split_lhs=True)`` as the plain version of that
+arithmetic; K6's d_rhs (the bf16 lhs against fp32 dy, summed over
+64-row chunks counted from each group's first row, so that a group's
+result is bitwise the same whatever the other groups hold) has
+``tgmm_reference(split_dy=True)``.
 
 ``impl``: "auto" (or the JAX name "pallas") is the autograd Function over
 the two wrappers, whose backward does what the JAX custom_vjp does, in
@@ -42,11 +48,13 @@ from .matmul import matmul_f32_out, split_bf16
 GMM_LAUNCHES = 0    # K5 launches since the caller last reset it
 GMM_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0, "split": 0}  # by body
 TGMM_LAUNCHES = 0   # K6
+TGMM_BODY_LAUNCHES = {"fma": 0, "split": 0}   # K6's launches by body
 MAX_GROUPS = 1024   # the kernels' shared-memory offset table
 SMALL_M = 256       # the Hopper body takes 64-row tiles up to this M, else 128
 IMPLS = ("auto", "pallas", "scan", "einsum")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BODIES = ("fma", "wmma", "wgmma", "split")   # the codes of gmm_body
+_TGMM_BODIES = ("fma", "split")                # the codes of tgmm_body
 _fns: dict = {}
 
 
@@ -86,16 +94,21 @@ def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
 
 def tgmm_reference(lhs: torch.Tensor, dy: torch.Tensor,
                    group_sizes: torch.Tensor, num_groups: int,
-                   out_dtype) -> torch.Tensor:
+                   out_dtype, split_dy: bool = False) -> torch.Tensor:
     """The plain version of K6: ``d_rhs[g] = lhs_g^T @ dy_g`` per group
-    through a row mask, fp32 sums -> [G, K, N] in ``out_dtype``."""
+    through a row mask on both operands (rows outside the group contribute
+    nothing, whatever they hold), fp32 sums -> [G, K, N] in ``out_dtype``.
+    ``split_dy``: fp32 dy replaced by its bf16 hi + lo split
+    (``split_bf16``), the arithmetic of the split body."""
+    if split_dy:
+        dy = split_bf16(dy.float())
     rows, starts, ends = _row_masks(group_sizes, lhs.shape[0])
     out = torch.empty(num_groups, lhs.shape[1], dy.shape[1],
                       dtype=out_dtype, device=lhs.device)
     for g in range(num_groups):
-        mask = (rows >= starts[g]) & (rows < ends[g])
-        out[g] = _mm_f32(torch.where(mask[:, None], lhs, 0).T,
-                         dy).to(out_dtype)
+        mask = ((rows >= starts[g]) & (rows < ends[g]))[:, None]
+        out[g] = _mm_f32(torch.where(mask, lhs, 0).T,
+                         torch.where(mask, dy, 0)).to(out_dtype)
     return out
 
 
@@ -154,7 +167,8 @@ def tile_schedule(group_sizes, m: int, bm: int) -> list:
 
 def _kernel(name: str):
     """The ctypes function of ``gmm`` or ``tgmm``, built on first use; the
-    library's body table is held against ``_gmm_plan`` as it loads."""
+    library's body tables are held against ``_gmm_plan`` and
+    ``_tgmm_plan`` as it loads."""
     fn = _fns.get(name)
     if fn is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -223,9 +237,46 @@ def _plan_cases() -> list:
             (lhs.float(), torch.zeros(2, 64, 512, dtype=bf)[..., ::8])]
 
 
+def _tgmm_plan(lhs: torch.Tensor, dy: torch.Tensor) -> str:
+    """K6's body for these operands, from their dtypes, strides and
+    16-byte alignment alone: "split" (bf16 lhs against fp32 dy that tensor
+    maps can read: unit column strides, both bases and row strides on 16
+    bytes; the backward's d_rhs) or "fma" (anything else: fp32 lhs, rows
+    off 16 bytes). ``_check_body_table`` holds it against the library's
+    ``tgmm_body``."""
+    if lhs.dtype != torch.bfloat16 or dy.dtype != torch.float32:
+        return "fma"
+    on_16 = (lhs.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+             and lhs.stride(0) * 2 % 16 == 0 and dy.stride(0) * 4 % 16 == 0)
+    return "split" if on_16 and lhs.stride(1) == dy.stride(1) == 1 else "fma"
+
+
+def _tgmm_plan_cases() -> list:
+    """(lhs, dy) pairs on the CPU that take every branch of K6's plan:
+    each dtype pair, bases and row strides on and off 16 bytes, a non-unit
+    column stride of either operand."""
+    bf, f32 = torch.bfloat16, torch.float32
+    lhs, dy = torch.zeros(16, 64, dtype=bf), torch.zeros(16, 32)
+    return [(lhs, dy), (lhs.float(), dy), (lhs, dy.to(bf)),
+            (lhs.float(), dy.to(bf)),
+            (torch.zeros(16 * 64 + 8, dtype=bf)[8:].view(16, 64), dy),
+            (torch.zeros(16 * 64 + 1, dtype=bf)[1:].view(16, 64), dy),
+            (lhs, torch.zeros(16 * 32 + 4)[4:].view(16, 32)),
+            (lhs, torch.zeros(16 * 32 + 1)[1:].view(16, 32)),
+            (torch.zeros(16, 100, dtype=bf), dy),
+            (torch.zeros(16, 72, dtype=bf)[:, :64], dy),
+            (lhs, torch.zeros(16, 34)[:, :32]),
+            (lhs, torch.zeros(16, 36)[:, :32]),
+            (torch.zeros(16, 128, dtype=bf)[:, ::2], dy),
+            (lhs, torch.zeros(16, 64)[:, ::2]),
+            (torch.zeros(16, 64, dtype=f32), torch.zeros(16, 36)[:, :32])]
+
+
 def _check_body_table(lib) -> None:
     """Raises unless the library's ``gmm_body`` picks, for every case of
-    ``_plan_cases``, the body that ``_gmm_plan`` names."""
+    ``_plan_cases``, the body that ``_gmm_plan`` names, and its
+    ``tgmm_body``, for every case of ``_tgmm_plan_cases``, the body that
+    ``_tgmm_plan`` names."""
     body = lib.gmm_body
     body.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
@@ -241,6 +292,20 @@ def _check_body_table(lib) -> None:
                 f"{tuple(lhs.stride())}, rhs {rhs.dtype} "
                 f"{tuple(rhs.stride())}; _gmm_plan names "
                 f"{_gmm_plan(lhs, rhs)}")
+    body = lib.tgmm_body
+    body.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    body.restype = ctypes.c_int
+    for lhs, dy in _tgmm_plan_cases():
+        ls, ds = ((ctypes.c_longlong * 2)(*x.stride()) for x in (lhs, dy))
+        got = body(_DTYPE_CODE[lhs.dtype], _DTYPE_CODE[dy.dtype],
+                   lhs.data_ptr(), ls, dy.data_ptr(), ds)
+        got = _TGMM_BODIES[got] if 0 <= got < len(_TGMM_BODIES) else got
+        if got != _tgmm_plan(lhs, dy):
+            raise RuntimeError(
+                f"grouped_matmul.cu runs K6 body {got} at lhs {lhs.dtype} "
+                f"{tuple(lhs.stride())}, dy {dy.dtype} {tuple(dy.stride())};"
+                f" _tgmm_plan names {_tgmm_plan(lhs, dy)}")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -291,17 +356,22 @@ def _launch_gmm(fn, lhs, rhs, group_sizes, out_dtype) -> torch.Tensor:
 
 def _launch_tgmm(fn, lhs, dy, group_sizes, num_groups,
                  out_dtype) -> torch.Tensor:
+    """One launch of K6 through ``fn``; the body that ran (``_tgmm_plan``)
+    is counted in ``TGMM_BODY_LAUNCHES``."""
     m, k = lhs.shape
     n = dy.shape[1]
+    plan = _tgmm_plan(lhs, dy)
     out = torch.empty(num_groups, k, n, dtype=out_dtype, device=lhs.device)
     rc = fn(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(),
             out.data_ptr(), m, k, n, num_groups, lhs.stride(0), dy.stride(0),
             _DTYPE_CODE[lhs.dtype], _DTYPE_CODE[dy.dtype],
             _DTYPE_CODE[out_dtype], _stream(lhs))
     if rc != 0:
-        raise RuntimeError(f"tgmm kernel launch failed (code {rc}) at lhs "
-                           f"{tuple(lhs.shape)} {lhs.dtype}, dy "
-                           f"{tuple(dy.shape)} {dy.dtype}")
+        why = ": the driver refused a tensor map" if rc == -2 else ""
+        raise RuntimeError(f"tgmm kernel launch failed (code {rc}{why}) at "
+                           f"lhs {tuple(lhs.shape)} {lhs.dtype}, dy "
+                           f"{tuple(dy.shape)} {dy.dtype}, body {plan}")
+    TGMM_BODY_LAUNCHES[plan] += 1
     return out
 
 
@@ -346,8 +416,8 @@ def tgmm(lhs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
 class _GroupedMatmul(torch.autograd.Function):
     """Forward K5; backward the JAX ``_pallas_gmm_bwd`` in fp32: d_lhs from
     K5 against ``rhs^T`` (read through strides with no copy: the split
-    body for a bf16 rhs, FMA for fp32) in lhs's dtype, d_rhs from K6 in
-    rhs's dtype."""
+    body for a bf16 rhs, FMA for fp32) in lhs's dtype, d_rhs from K6 (the
+    split body for a bf16 lhs, FMA for fp32) in rhs's dtype."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes, out_dtype):

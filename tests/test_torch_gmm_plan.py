@@ -1,5 +1,5 @@
 """The grouped matmul's choice of body, the Hopper bodies' tile schedule and
-the split body's arithmetic, on the CPU.
+the split bodies' arithmetic, on the CPU.
 
 ``_gmm_plan`` names K5's body from the operands' dtypes, strides and
 16-byte alignment alone; it is pinned here for every dtype pair and every
@@ -26,7 +26,16 @@ the JAX ``_gmm_scan``: in fp32 within 1e-5 of the output's largest
 magnitude (the same products summed in another order), with bf16
 operands within 1e-2 relative L2 (each side rounds its fp32 sum to bf16
 once: half an ulp, 2**-9, per element). Inputs come from
-``numpy.random.default_rng`` and go to both packages."""
+``numpy.random.default_rng`` and go to both packages.
+
+K6 (the transposed product d_rhs[g] = lhs_g^T dy_g) likewise: ``_tgmm_plan``
+is pinned for every dtype pair, alignment, row and column stride case, the
+library's ``tgmm_body`` is refused if it departs from it in any one
+condition, and ``tgmm_reference(split_dy=True)``, the split body's
+arithmetic (fp32 dy as bf16 hi + lo against the exact bf16 lhs), is held
+against the JAX ``_tgmm_einsum`` within 1e-5 of the output's largest
+magnitude over empty groups, a tail past the total and widths off every
+tile."""
 import types
 
 import jax.numpy as jnp
@@ -36,7 +45,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from distributed_training_guide_tpu.ops.grouped_matmul import _gmm_scan
+from distributed_training_guide_tpu.ops.grouped_matmul import (
+    _gmm_scan, _tgmm_einsum)
 from distributed_training_guide_tpu_torch.ops import grouped_matmul as tgm
 
 BF = torch.bfloat16
@@ -101,9 +111,25 @@ def test_gmm_plan_names_the_body(name):
     assert tgm._gmm_plan(lhs, rhs) == body
 
 
-def _c_body_for(drop=None):
+def _c_tgmm_body_for(drop=None):
+    """The library's ``tgmm_body_for`` rule written out in Python, with the
+    condition ``drop`` left out (a mutant of K6's table)."""
+    def tgmm_body(ldt, ddt, lhs, ls, dy, ds):
+        if drop == "split_to_fma":
+            return 0
+        split = {"lhs_dtype": ldt == 1, "dy_dtype": ddt == 0,
+                 "lhs_base": lhs % 16 == 0, "dy_base": dy % 16 == 0,
+                 "l_sk": ls[1] == 1, "d_sn": ds[1] == 1,
+                 "l_sm": ls[0] * 2 % 16 == 0, "d_sm": ds[0] * 4 % 16 == 0}
+        split.pop(drop, None)
+        return 1 if all(split.values()) else 0
+    return tgmm_body
+
+
+def _c_body_for(drop=None, tgmm_drop=None):
     """The library's ``body_for`` rule written out in Python, with the
-    condition ``drop`` left out (a mutant of the table)."""
+    condition ``drop`` left out (a mutant of the table), beside K6's rule
+    (``tgmm_drop`` left out)."""
     def gmm_body(ldt, rdt, lhs, l_sm, rhs, rs):
         if rdt != 1 and drop != "rhs_dtype":
             return 0
@@ -125,7 +151,8 @@ def _c_body_for(drop=None):
                "r_sg": rs[0] * 2 % 16 == 0, "r_sk": rs[1] * 2 % 16 == 0}
         tma.pop(drop, None)
         return 2 if all(tma.values()) else 1
-    return types.SimpleNamespace(gmm_body=gmm_body)
+    return types.SimpleNamespace(gmm_body=gmm_body,
+                                 tgmm_body=_c_tgmm_body_for(tgmm_drop))
 
 
 def test_body_table_check_passes_the_library_rule():
@@ -289,3 +316,108 @@ def test_split_reference_matches_jax_gmm_scan_on_fp32_dy(name):
     for ref in (want, plain.numpy()):
         err = np.abs(got - ref).max() / scale
         assert err <= 1e-5, (name, err)
+
+
+# K6: (lhs, dy, body) for bf16 lhs against fp32 dy and every other dtype
+# pair, bases, row strides and column strides on and off 16 bytes
+def _dy(n=32, off=0, m=16, dtype=torch.float32):
+    return torch.zeros(m * n + off, dtype=dtype)[off:].view(m, n)
+
+
+TGMM_PLAN_CASES = {
+    "bf16 lhs, fp32 dy": (_lhs(), _dy(), "split"),
+    "fp32 lhs": (_lhs(dtype=torch.float32), _dy(), "fma"),
+    "bf16 dy": (_lhs(), _dy(dtype=BF), "fma"),
+    "fp32 lhs, bf16 dy": (_lhs(dtype=torch.float32), _dy(dtype=BF), "fma"),
+    "lhs base +16 bytes": (_lhs(off=8), _dy(), "split"),
+    "lhs base +2 bytes": (_lhs(off=1), _dy(), "fma"),
+    "dy base +16 bytes": (_lhs(), _dy(off=4), "split"),
+    "dy base +4 bytes": (_lhs(), _dy(off=1), "fma"),
+    "lhs row stride 200 bytes": (_lhs(k=100), _dy(), "fma"),
+    "lhs row stride 144 bytes": (_lhs(k=72)[:, :64], _dy(), "split"),
+    "dy row stride 136 bytes": (_lhs(), _dy(n=34)[:, :32], "fma"),
+    "dy row stride 144 bytes": (_lhs(), _dy(n=36)[:, :32], "split"),
+    "lhs column stride 2": (_lhs(k=128)[:, ::2], _dy(), "fma"),
+    "dy column stride 2": (_lhs(), _dy(n=64)[:, ::2], "fma"),
+    "qwen3 gate (K 2048, N 768)": (_lhs(k=2048), _dy(n=768), "split"),
+    "qwen3 down (K 768, N 2048)": (_lhs(k=768), _dy(n=2048), "split"),
+}
+
+
+@pytest.mark.parametrize("name", list(TGMM_PLAN_CASES))
+def test_tgmm_plan_names_the_body(name):
+    lhs, dy, body = TGMM_PLAN_CASES[name]
+    assert tgm._tgmm_plan(lhs, dy) == body
+
+
+def test_tgmm_plan_cases_take_both_bodies():
+    cases = tgm._tgmm_plan_cases()
+    assert {tgm._tgmm_plan(lhs, dy) for lhs, dy in cases} == {"fma", "split"}
+    assert {(lhs.dtype, dy.dtype) for lhs, dy in cases} == {
+        (a, b) for a in (BF, torch.float32) for b in (BF, torch.float32)}
+
+
+@pytest.mark.parametrize("drop", ["lhs_dtype", "dy_dtype", "lhs_base",
+                                  "dy_base", "l_sk", "d_sn", "l_sm", "d_sm",
+                                  "split_to_fma"])
+def test_tgmm_body_table_check_refuses_a_library_that_disagrees(drop):
+    """Each condition of K6's rule matters for some case of
+    ``_tgmm_plan_cases``: a table without it is refused before any
+    launch."""
+    with pytest.raises(RuntimeError, match="_tgmm_plan names"):
+        tgm._check_body_table(_c_body_for(tgmm_drop=drop))
+
+
+# (m, k, n, sizes): empty groups, a tail past the total, widths off the
+# 128-wide tiles and the 64-row chunks, one group taking every row
+TGMM_CASES = {
+    "ragged": (300, 72, 40, [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]),
+    "tail": (520, 136, 24, [7, 200, 0, 13]),
+    "one-group": (260, 40, 136, [0, 260, 0]),
+    "all-empty": (96, 16, 8, [0, 0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("name", list(TGMM_CASES))
+def test_tgmm_split_reference_matches_jax_tgmm_einsum(name):
+    """bf16 lhs against fp32 dy through the split body's arithmetic
+    (``split_dy``), against the JAX einsum on the same operands (lhs as
+    its exact fp32 values, as the JAX backward casts it); and the split
+    alone moves the result by no more than the same bound. Empty groups
+    come out zero."""
+    m, k, n, sizes = TGMM_CASES[name]
+    rng = np.random.default_rng(5 * m + k)
+    lhs = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(BF)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    sz = torch.tensor(sizes, dtype=torch.int32)
+    got = tgm.tgmm_reference(lhs, torch.from_numpy(dy), sz, len(sizes),
+                             torch.float32, split_dy=True).numpy()
+    plain = tgm.tgmm_reference(lhs, torch.from_numpy(dy), sz, len(sizes),
+                               torch.float32).numpy()
+    want = np.asarray(_tgmm_einsum(
+        jnp.asarray(lhs.float().numpy()), jnp.asarray(dy),
+        jnp.asarray(sizes, jnp.int32), len(sizes), jnp.float32))
+    assert got.shape == (len(sizes), k, n) and np.isfinite(got).all()
+    assert not got[np.asarray(sizes) == 0].any()
+    if not sum(sizes):
+        return
+    scale = np.abs(want).max()
+    for ref in (want, plain):
+        err = np.abs(got - ref).max() / scale
+        assert err <= 1e-5, (name, err)
+
+
+def test_tgmm_reference_ignores_what_lies_outside_the_groups():
+    """Rows past the total hold NaN in both operands: the plain version's
+    d_rhs is finite and equal to the one with zeros there."""
+    rng = np.random.default_rng(9)
+    sizes = torch.tensor([30, 0, 50], dtype=torch.int32)
+    lhs = torch.from_numpy(rng.standard_normal((100, 24)).astype(
+        np.float32)).to(BF)
+    dy = torch.from_numpy(rng.standard_normal((100, 16)).astype(np.float32))
+    want = tgm.tgmm_reference(lhs, dy, sizes, 3, torch.float32,
+                              split_dy=True)
+    lhs[80:], dy[80:] = float("nan"), float("nan")
+    got = tgm.tgmm_reference(lhs, dy, sizes, 3, torch.float32, split_dy=True)
+    assert torch.equal(got, want)

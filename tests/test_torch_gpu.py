@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the paged
 attend (K4), the flash forward and backward (K1-K3), the grouped
-matmul and its transposed form (K5, K6; K5's split body for fp32 dy) and
+matmul and its transposed form (K5, K6; their split bodies for fp32 dy) and
 the block-dequant matmul of the int8 serve weights (K7; its tensor-core
 body against the plain version at its arithmetic too). Marked ``gpu``:
 the ``cuda`` fixture decides whether a card is present (never at import
@@ -823,6 +823,135 @@ def test_gmm_library_table_is_gmm_plan(cuda):
     the body that ``_gmm_plan`` names for every dtype, alignment and
     stride case of ``_plan_cases``."""
     gm._check_body_table(gm._build.load("grouped_matmul"))
+
+
+# K6's split body (bf16 lhs against fp32 dy): GMM_CASES, with lhs and dy
+# rows padded to 16 bytes so that tensor maps read them at any width; an
+# output whose rows lie off 16 bytes (N 70: stored by every thread, not by
+# TMA); qwen3-30b-a3b's training gate / up and down shapes with routed
+# sizes
+TGMM_SPLIT_CASES = GMM_CASES + [
+    ("out-rows-off-16", 300, 72, 70, [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]),
+    ("qwen3-train-gate", 32768, 2048, 768, 4096),
+    ("qwen3-train-down", 32768, 768, 2048, 4096),
+]
+
+
+def _tgmm_split_inputs(dev, gen, m, k, n, sizes):
+    """bf16 lhs [m, k] and fp32 dy [m, n] with row strides on 16 bytes,
+    group_sizes (routed top-8 of 128 for an int)."""
+    if isinstance(sizes, int):
+        sz = _routed(gen, dev, sizes, 128, 8)
+    else:
+        sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    lhs = torch.zeros(m, -(-k // 8) * 8, dtype=torch.bfloat16,
+                      device=dev)[:, :k]
+    lhs.copy_(torch.randn(m, k, generator=gen, device=dev))
+    dy = torch.zeros(m, -(-n // 4) * 4, device=dev)[:, :n]
+    dy.copy_(torch.randn(m, n, generator=gen, device=dev))
+    return lhs, dy, sz
+
+
+@pytest.mark.parametrize("case", TGMM_SPLIT_CASES,
+                         ids=[c[0] for c in TGMM_SPLIT_CASES])
+def test_tgmm_split_body_matches_plain_versions(cuda, case):
+    """bf16 lhs against fp32 dy through K6's split body: in fp32 out within
+    2e-6 relative L2 of the plain version at its arithmetic
+    (``split_dy``: the same products, summed in another order) and within
+    the existing 1e-5 of the fp32 plain version (the split misses each dy
+    by at most 2**-16 of it); bf16 out the rounding of the fp32 out and
+    within 4e-3 of the largest magnitude (half an ulp, 2**-9); empty groups
+    exactly zero."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n + 2)
+    lhs, dy, sz = _tgmm_split_inputs(cuda, gen, m, k, n, sizes)
+    g = sz.shape[0]
+    assert gm._tgmm_plan(lhs, dy) == "split"
+    before = gm.TGMM_BODY_LAUNCHES["split"]
+    got = gm.tgmm(lhs, dy, sz, g, torch.float32)
+    got16 = gm.tgmm(lhs, dy, sz, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gm.TGMM_BODY_LAUNCHES["split"] == before + 2
+    assert got.shape == (g, k, n) and not got[sz == 0].any()
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    if not int(sz.sum()):
+        return
+    at_arith = gm.tgmm_reference(lhs, dy, sz, g, torch.float32,
+                                 split_dy=True)
+    plain = gm.tgmm_reference(lhs, dy, sz, g, torch.float32)
+    assert _rel_l2(got, at_arith) <= 2e-6, (name, _rel_l2(got, at_arith))
+    assert _rel_l2(got, plain) <= 1e-5, (name, _rel_l2(got, plain))
+    err, bound = _gmm_err(got, plain, "fp32")
+    assert err <= bound, (name, err)
+    assert _gmm_err(got16, plain, "fp32")[0] <= 4e-3
+
+
+def test_tgmm_split_body_ignores_rows_outside_the_groups(cuda):
+    """Rows past the total hold NaN in lhs and dy (a caller's garbage
+    tail): K6's split body comes out finite, bitwise equal to the same
+    call with those rows finite, and within 2e-6 of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    lhs, dy, sz = _tgmm_split_inputs(cuda, gen, 520, 136, 136,
+                                     [7, 200, 0, 13])
+    clean = gm.tgmm(lhs, dy, sz, 4, torch.float32)
+    lhs[220:], dy[220:] = float("nan"), float("nan")
+    got = gm.tgmm(lhs, dy, sz, 4, torch.float32)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    want = gm.tgmm_reference(lhs, dy, sz, 4, torch.float32, split_dy=True)
+    assert _rel_l2(got, want) <= 2e-6
+
+
+def test_tgmm_split_rows_are_group_invariant(cuda):
+    """A group's d_rhs through K6's split body is bitwise the same with the
+    other groups' sizes and rows changed and its own rows moved to another
+    start (its chunks count from its first row), in fp32 and bf16 out."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    lhs, dy, crowd = _tgmm_split_inputs(
+        cuda, gen, 1000, 256, 192, [100, 300, 0, 8, 200, 92, 150, 150])
+    other, dy2, moved = _tgmm_split_inputs(
+        cuda, gen, 900, 256, 192, [5, 0, 37, 0, 200, 1, 300, 3])
+    other[42:242], dy2[42:242] = lhs[408:608], dy[408:608]   # group 4
+    for out_dtype in (torch.float32, torch.bfloat16):
+        full = gm.tgmm(lhs, dy, crowd, 8, out_dtype)
+        again = gm.tgmm(other, dy2, moved, 8, out_dtype)
+        assert torch.equal(full[4], again[4]), out_dtype
+
+
+def test_tgmm_library_table_is_tgmm_plan(cuda):
+    """The built library's ``tgmm_body`` picks, for operands on the card,
+    the body that ``_tgmm_plan`` names: bf16 lhs against fp32 dy on and off
+    16 bytes, fp32 lhs, bf16 dy."""
+    import ctypes
+
+    lib = gm._build.load("grouped_matmul")
+    gm._check_body_table(lib)
+    bf = torch.bfloat16
+    lhs = torch.zeros(64, 72, dtype=bf, device=cuda)
+    dy = torch.zeros(64, 36, device=cuda)
+    for a, b in ((lhs, dy), (lhs[:, 1:], dy), (lhs[:, :64], dy[:, 1:]),
+                 (lhs.float(), dy), (lhs, dy.to(bf)),
+                 (lhs[:, :66], dy[:, :33])):
+        ls, ds = ((ctypes.c_longlong * 2)(*x.stride()) for x in (a, b))
+        got = lib.tgmm_body(gm._DTYPE_CODE[a.dtype], gm._DTYPE_CODE[b.dtype],
+                            a.data_ptr(), ls, b.data_ptr(), ds)
+        assert gm._TGMM_BODIES[got] == gm._tgmm_plan(a, b)
+
+
+def test_tgmm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    lhs, dy, sz = _tgmm_split_inputs(cuda, gen, 16, 8, 8, [4, 4, 4, 4])
+    with pytest.raises(ValueError, match="dtype"):
+        gm.tgmm(lhs.half(), dy, sz, 4, torch.float32)
+    with pytest.raises(ValueError, match="output dtype"):
+        gm.tgmm(lhs, dy, sz, 4, torch.float16)
+    with pytest.raises(ValueError, match="operand on"):
+        gm.tgmm(lhs, dy.cpu(), sz, 4, torch.float32)
+    with pytest.raises(ValueError, match="differ in rows"):
+        gm.tgmm(lhs, dy[:8], sz, 4, torch.float32)
+    big = torch.zeros(gm.MAX_GROUPS + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="groups"):
+        gm.tgmm(lhs, dy, big, gm.MAX_GROUPS + 1, torch.float32)
 
 
 def test_grouped_matmul_autograd_matches_plain_autograd(cuda):
