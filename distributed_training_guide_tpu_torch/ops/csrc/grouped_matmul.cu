@@ -64,19 +64,19 @@
 //   per output, with no atomics. Two bodies, by the operands' dtypes,
 //   strides and alignment alone (`tgmm_body_for`, exported as
 //   `tgmm_body`):
-//   * bf16 lhs against fp32 dy that tensor maps can read (the backward's
-//     d_rhs; `tgmm_split_kernel`): out[g]^T = dy_g^T lhs_g on the tensor
-//     cores, dy split in registers into bf16 hi and lo A fragments, lhs
-//     the N-major B from a TMA ring, 64-row chunks counted from the
-//     group's first row, each chunk's sum added to an fp32 register sum;
-//     persistent blocks over a static grid of G x K / 128 x N / 128
-//     tiles, group-major. Rows outside the group are zeroed in both
-//     operands, so a group's result is bitwise the same whatever the other
-//     groups hold.
-//   * anything else (`tgmm_kernel`: fp32 lhs, rows off 16 bytes): block
-//     (column tile, K tile, group) loops over its group's rows in chunks
-//     of 8 through shared memory, FMA in fp32; bf16 operands are
-//     converted as they are loaded.
+//   * bf16 lhs against fp32 dy that tensor maps can read, into output rows
+//     on 16 bytes (the backward's d_rhs; `tgmm_split_kernel`): out[g]^T =
+//     dy_g^T lhs_g on the tensor cores, dy split in registers into bf16 hi
+//     and lo A fragments, lhs the N-major B from a TMA ring, 64-row chunks
+//     counted from the group's first row, each chunk's sum added to an
+//     fp32 register sum; persistent blocks over a static grid of G x K /
+//     128 x N / 128 tiles, group-major; every tile leaves by TMA stores.
+//     Rows outside the group are zeroed in both operands, so a group's
+//     result is bitwise the same whatever the other groups hold.
+//   * anything else (`tgmm_kernel`: fp32 lhs, operand or output rows off
+//     16 bytes): block (column tile, K tile, group) loops over its group's
+//     rows in chunks of 8 through shared memory, FMA in fp32; bf16
+//     operands are converted as they are loaded.
 //
 // Bound on H100. K5 at decode (64 rows over 128 experts, mostly 0-1 rows
 // each) moves the weight slices of the non-empty groups and little else:
@@ -1064,20 +1064,21 @@ struct TgmmTmaArgs {
   CUtensorMap lhs, dy, out;
   TgmmParams p;
   int k_tiles, n_tiles;
-  int tma_out;  // out rows on 16 bytes: tiles leave by TMA stores
 };
 
 // A ring of STAGES stages, each one 64-row chunk of a group: dy [64][128 n]
 // fp32 as four [64][32] boxes (the first two warpgroup 0's columns, the
 // last two warpgroup 1's) and lhs [64][128 k] bf16 as two [64][64] parts,
-// all 128-byte swizzled, 48 KB a stage
+// all 128-byte swizzled, 48 KB a stage; then 16 KB of zeros, which an
+// empty group's tiles store
 template <int STAGES>
 struct TgmmSplitSmem {
   static constexpr int box = 64 * 128;
   static constexpr int dy = 0;
   static constexpr int lhs = 4 * box;
   static constexpr int stage = 6 * box;
-  static constexpr int bars = STAGES * stage;  // full, then empty
+  static constexpr int zero = STAGES * stage;
+  static constexpr int bars = zero + 2 * box;  // full, then empty
   static constexpr int bytes = bars + 8 * 2 * STAGES + 1024;
 };
 
@@ -1122,11 +1123,10 @@ __device__ __forceinline__ TgmmTile tgmm_tile(const TgmmTmaArgs& a,
 // warpgroup's tile, transposed by stmatrix (bf16), in its own dy boxes of
 // the last chunk's stage, which it holds until then, and one thread
 // stores it by TMA (clipped at K and N) while the warpgroup goes on to
-// its next tile; the stage goes back once the store has read it. Output
-// rows off 16 bytes take 16-byte stores by every thread, and an empty
-// group's tiles store zeros. Tiles past K or N multiply their unloaded
-// parts too (never stored): a product under a per-part branch makes ptxas
-// serialize every wgmma. The tensor cores' two passes bound it; variants
+// its next tile; the stage goes back once the store has read it. An empty
+// group's tiles store a zero tile by TMA. Tiles past K or N multiply their
+// unloaded parts too (never stored): a product under a per-part branch
+// makes ptxas serialize every wgmma. The tensor cores' two passes bound it; variants
 // measured on the H100 (PERF.md) put most of the rest into building the A
 // fragments (shared-memory reads and the split) and into each chunk's
 // register sum, while the tile's staging and store overlap the next
@@ -1153,6 +1153,9 @@ __global__ void __launch_bounds__(kTgmmThreads, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  for (int i = threadIdx.x; i < 2 * L::box / 16; i += NT)
+    reinterpret_cast<uint4*>(smem + L::zero)[i] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
 
   const int slots = p.G * a.k_tiles * a.n_tiles;
@@ -1197,9 +1200,6 @@ __global__ void __launch_bounds__(kTgmmThreads, 1)
   const int dcol = 4 * (16 * (warp % 2) + lane / 4);
   constexpr int PASSES = sizeof(OT) / 2;  // staged K rows: 128 / PASSES
   constexpr int KP = 128 / PASSES;
-  constexpr int PER = 16 / sizeof(OT);    // values per 16-byte store
-  const bool vec = (static_cast<long long>(p.N) * sizeof(OT)) % 16 == 0;
-  OT* out = static_cast<OT*>(p.out);
   int stage = 0, phase = 0;
   int pending = -1;  // warp 0: a stage that its thread 0's stores still read
   for (int s = blockIdx.x; s < slots; s += gridDim.x) {
@@ -1292,6 +1292,23 @@ __global__ void __launch_bounds__(kTgmmThreads, 1)
         phase ^= 1;
       }
     }
+    // a warpgroup's tile of out[g] leaves by TMA stores (clipped at K and
+    // N) of KP K rows x 64 columns a pass: one box (bf16) or two 32-column
+    // boxes (fp32)
+    auto store_pass = [&](uint32_t src, int pass) {
+#pragma unroll
+      for (int part = 0; part < PASSES; ++part)
+        tma_store_3d(&a.out, src + part * (2 * L::box / PASSES),
+                     t.n0 + 64 * wg + part * (64 / PASSES), t.k0 + pass * KP,
+                     t.g);
+      bulk_commit();
+    };
+    if (held < 0) {  // an empty group's tile: the zero tile, stored
+      if (tid == 0)
+        for (int pass = 0; pass < PASSES; ++pass)
+          store_pass(base + L::zero, pass);
+      continue;
+    }
     // acc[4 j + 2 i + e]: N column 64 wg + 16 warp + lane / 4 + 8 i, K row
     // 8 j + 2 (l % 4) + e of the tile. Staged in this warpgroup's two dy
     // boxes of the held stage (16 KB), KP K rows a pass: row (part, k) of
@@ -1299,8 +1316,7 @@ __global__ void __launch_bounds__(kTgmmThreads, 1)
     // swizzle of TMA's tiles (bf16: one stmatrix per four 8 x 8 blocks;
     // fp32: a warp's writes of one value span 4 rows x 8 columns, no bank
     // conflict)
-    const bool staged = held >= 0;
-    unsigned char* stg = smem + (staged ? held : 0) * L::stage + wg_dy;
+    unsigned char* stg = smem + held * L::stage + wg_dy;
     auto stage_pass = [&](int pass) {
       if constexpr (sizeof(OT) == 2) {
         // the blocks (i, j), (i + 1, j), (i, j + 1), (i + 1, j + 1):
@@ -1334,64 +1350,22 @@ __global__ void __launch_bounds__(kTgmmThreads, 1)
         }
       }
     };
-    if (staged && a.tma_out) {
-      // TMA stores of the staged rows (clipped at K and N); warp 0 gives
-      // the stage back once they have read it, after the next chunk
-#pragma unroll
-      for (int pass = 0; pass < PASSES; ++pass) {
-        if (pass > 0) {  // the previous pass's stores have read the staging
-          if (tid == 0) bulk_wait_read();
-          asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-        }
-        stage_pass(pass);
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-        if (tid == 0) {
-#pragma unroll
-          for (int part = 0; part < PASSES; ++part)
-            tma_store_3d(&a.out, smem_u32(stg) + part * (2 * L::box / PASSES),
-                         t.n0 + 64 * wg + part * (64 / PASSES),
-                         t.k0 + pass * KP, t.g);
-          bulk_commit();
-        }
-      }
-      if (warp == 0) {
-        pending = held;
-      } else {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty + 8 * held);
-      }
-      continue;
-    }
-    // else 16-byte stores by every thread: the staged rows, or zeros for
-    // an empty group's tile
+    // warp 0 gives the stage back once the stores have read it, after the
+    // next chunk
 #pragma unroll
     for (int pass = 0; pass < PASSES; ++pass) {
-      if (staged) {
-        if (pass > 0) asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-        stage_pass(pass);
+      if (pass > 0) {  // the previous pass's stores have read the staging
+        if (tid == 0) bulk_wait_read();
         asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
       }
-      for (int idx = tid; idx < 128 * 8; idx += 128) {
-        const int row = idx / 8, c = idx % 8;
-        const int k = t.k0 + pass * KP + row % KP;
-        const int n = t.n0 + 64 * wg + row / KP * (128 / sizeof(OT)) + c * PER;
-        if (k >= p.K || n >= p.N) continue;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (staged)
-          v = *reinterpret_cast<const uint4*>(stg + row * 128 +
-                                              ((c ^ (row % 8)) * 16));
-        OT* dst = out + (static_cast<long long>(t.g) * p.K + k) * p.N + n;
-        if (vec && n + PER <= p.N) {
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          const OT* val = reinterpret_cast<const OT*>(&v);
-          for (int x = 0; x < PER && n + x < p.N; ++x) dst[x] = val[x];
-        }
-      }
-    }
-    if (staged) {  // the staging reads are done: the stage goes back
+      stage_pass(pass);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      if (tid == 0) store_pass(smem_u32(stg), pass);
+    }
+    if (warp == 0) {
+      pending = held;
+    } else {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * held);
     }
@@ -1573,21 +1547,17 @@ int launch_tgmm_split(const TgmmParams& p, cudaStream_t stream) {
         !map_f32(&a.dy, p.dy, 2, dy_dims, &p.d_sm, dy_box))
       return kNoTensorMap;
   }
-  // out [G, K, N] by TMA stores of a warpgroup's staged 128 K rows x 64
-  // columns (fp32: two 32-column boxes of 64 rows a pass), where its rows
-  // lie on 16 bytes; else 16-byte stores by every thread
-  a.tma_out = (static_cast<long long>(p.N) * sizeof(OT)) % 16 == 0 &&
-              on16(p.out);
-  if (a.tma_out) {
-    const long long out_dims[3] = {p.N, p.K, p.G};
-    const long long out_strides[2] = {p.N, static_cast<long long>(p.K) * p.N};
-    const int out_box[3] = {128 / static_cast<int>(sizeof(OT)),
-                            sizeof(OT) == 2 ? 128 : 64, 1};
-    if (!(sizeof(OT) == 2
-              ? map_bf16(&a.out, p.out, 3, out_dims, out_strides, out_box)
-              : map_f32(&a.out, p.out, 3, out_dims, out_strides, out_box)))
-      return kNoTensorMap;
-  }
+  // out [G, K, N] (rows on 16 bytes: tgmm_body_for) by TMA stores of a
+  // warpgroup's staged 128 K rows x 64 columns (fp32: two 32-column boxes
+  // of 64 rows a pass)
+  const long long out_dims[3] = {p.N, p.K, p.G};
+  const long long out_strides[2] = {p.N, static_cast<long long>(p.K) * p.N};
+  const int out_box[3] = {128 / static_cast<int>(sizeof(OT)),
+                          sizeof(OT) == 2 ? 128 : 64, 1};
+  if (!(sizeof(OT) == 2
+            ? map_bf16(&a.out, p.out, 3, out_dims, out_strides, out_box)
+            : map_f32(&a.out, p.out, 3, out_dims, out_strides, out_box)))
+    return kNoTensorMap;
   const int sms = sm_count();
   const int grid = static_cast<int>(slots < sms ? slots : sms);
   return launch_kernel(tgmm_split_kernel<kStages, OT>, L::bytes, dim3(grid),
@@ -1620,15 +1590,19 @@ int body_for(int lhs_dt, int rhs_dt, const void* lhs, long long l_sm,
 }
 
 // K6's table, as body_for: bf16 lhs against fp32 dy that tensor maps can
-// read (unit column strides, both bases and row strides on 16 bytes) runs
-// the split body, anything else FMA. Strides: {row, column}.
+// read (unit column strides, both bases and row strides on 16 bytes), into
+// output rows of N values on 16 bytes (the output is allocated contiguous
+// by the caller), runs the split body, anything else FMA. Strides: {row,
+// column}.
 enum TgmmBody { kTgmmFmaBody = 0, kTgmmSplitBody = 1 };
 
-int tgmm_body_for(int lhs_dt, int dy_dt, const void* lhs, const long long* ls,
-                  const void* dy, const long long* ds) {
+int tgmm_body_for(int lhs_dt, int dy_dt, int out_dt, int N, const void* lhs,
+                  const long long* ls, const void* dy, const long long* ds) {
   const bool tma = lhs_dt == kBF16 && dy_dt == kF32 && on16(lhs) &&
                    on16(dy) && ls[1] == 1 && ds[1] == 1 &&
-                   (ls[0] * 2) % 16 == 0 && (ds[0] * 4) % 16 == 0;
+                   (ls[0] * 2) % 16 == 0 && (ds[0] * 4) % 16 == 0 &&
+                   (static_cast<long long>(N) * (out_dt == kBF16 ? 2 : 4)) %
+                           16 == 0;
   return tma ? kTgmmSplitBody : kTgmmFmaBody;
 }
 
@@ -1700,13 +1674,14 @@ extern "C" int gmm(const void* lhs, const void* rhs, const void* group_sizes,
   }
 }
 
-// tgmm_body: the body that tgmm runs for these operands, strides {row,
-// column} in elements: 0 FMA, 1 the split body.
-extern "C" int tgmm_body(int lhs_dtype, int dy_dtype, const void* lhs,
-                         const long long* lhs_strides, const void* dy,
-                         const long long* dy_strides) {
-  return tgmm_body_for(lhs_dtype, dy_dtype, lhs, lhs_strides, dy,
-                       dy_strides);
+// tgmm_body: the body that tgmm runs for these operands and this output
+// (dtype, N columns), strides {row, column} in elements: 0 FMA, 1 the
+// split body.
+extern "C" int tgmm_body(int lhs_dtype, int dy_dtype, int out_dtype, int n,
+                         const void* lhs, const long long* lhs_strides,
+                         const void* dy, const long long* dy_strides) {
+  return tgmm_body_for(lhs_dtype, dy_dtype, out_dtype, n, lhs, lhs_strides,
+                       dy, dy_strides);
 }
 //
 // tgmm (K6): lhs [M, K] and dy [M, N] (row strides given, columns
@@ -1734,7 +1709,8 @@ extern "C" int tgmm(const void* lhs, const void* dy, const void* group_sizes,
   p.d_sm = dy_row_stride;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long ls[2] = {lhs_row_stride, 1}, ds[2] = {dy_row_stride, 1};
-  if (tgmm_body_for(lhs_dtype, dy_dtype, lhs, ls, dy, ds) == kTgmmSplitBody)
+  if (tgmm_body_for(lhs_dtype, dy_dtype, out_dtype, N, lhs, ls, dy, ds) ==
+      kTgmmSplitBody)
     return out_dtype == kBF16 ? launch_tgmm_split<bf16>(p, st)
                               : launch_tgmm_split<float>(p, st);
   if (lhs_dtype == kF32 && dy_dtype == kF32)

@@ -237,39 +237,45 @@ def _plan_cases() -> list:
             (lhs.float(), torch.zeros(2, 64, 512, dtype=bf)[..., ::8])]
 
 
-def _tgmm_plan(lhs: torch.Tensor, dy: torch.Tensor) -> str:
-    """K6's body for these operands, from their dtypes, strides and
-    16-byte alignment alone: "split" (bf16 lhs against fp32 dy that tensor
-    maps can read: unit column strides, both bases and row strides on 16
-    bytes; the backward's d_rhs) or "fma" (anything else: fp32 lhs, rows
-    off 16 bytes). ``_check_body_table`` holds it against the library's
-    ``tgmm_body``."""
+def _tgmm_plan(lhs: torch.Tensor, dy: torch.Tensor, out_dtype) -> str:
+    """K6's body for these operands and this output, from their dtypes,
+    strides and 16-byte alignment alone: "split" (bf16 lhs against fp32 dy
+    that tensor maps can read: unit column strides, both bases and row
+    strides on 16 bytes; output rows of N values on 16 bytes, which the
+    split body's TMA stores need; the backward's d_rhs) or "fma"
+    (anything else: fp32 lhs, operand or output rows off 16 bytes). The
+    output is allocated contiguous by ``_launch_tgmm``.
+    ``_check_body_table`` holds it against the library's ``tgmm_body``."""
     if lhs.dtype != torch.bfloat16 or dy.dtype != torch.float32:
         return "fma"
     on_16 = (lhs.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-             and lhs.stride(0) * 2 % 16 == 0 and dy.stride(0) * 4 % 16 == 0)
+             and lhs.stride(0) * 2 % 16 == 0 and dy.stride(0) * 4 % 16 == 0
+             and dy.shape[1] * out_dtype.itemsize % 16 == 0)
     return "split" if on_16 and lhs.stride(1) == dy.stride(1) == 1 else "fma"
 
 
 def _tgmm_plan_cases() -> list:
-    """(lhs, dy) pairs on the CPU that take every branch of K6's plan:
-    each dtype pair, bases and row strides on and off 16 bytes, a non-unit
-    column stride of either operand."""
+    """(lhs, dy, out dtype) on the CPU that take every branch of K6's
+    plan: each dtype pair, bases and row strides on and off 16 bytes, a
+    non-unit column stride of either operand, output rows on and off 16
+    bytes in either output dtype."""
     bf, f32 = torch.bfloat16, torch.float32
     lhs, dy = torch.zeros(16, 64, dtype=bf), torch.zeros(16, 32)
-    return [(lhs, dy), (lhs.float(), dy), (lhs, dy.to(bf)),
-            (lhs.float(), dy.to(bf)),
-            (torch.zeros(16 * 64 + 8, dtype=bf)[8:].view(16, 64), dy),
-            (torch.zeros(16 * 64 + 1, dtype=bf)[1:].view(16, 64), dy),
-            (lhs, torch.zeros(16 * 32 + 4)[4:].view(16, 32)),
-            (lhs, torch.zeros(16 * 32 + 1)[1:].view(16, 32)),
-            (torch.zeros(16, 100, dtype=bf), dy),
-            (torch.zeros(16, 72, dtype=bf)[:, :64], dy),
-            (lhs, torch.zeros(16, 34)[:, :32]),
-            (lhs, torch.zeros(16, 36)[:, :32]),
-            (torch.zeros(16, 128, dtype=bf)[:, ::2], dy),
-            (lhs, torch.zeros(16, 64)[:, ::2]),
-            (torch.zeros(16, 64, dtype=f32), torch.zeros(16, 36)[:, :32])]
+    dy36 = torch.zeros(16, 36)   # output rows of 72 (bf16) or 144 bytes
+    return [(lhs, dy, bf), (lhs.float(), dy, bf), (lhs, dy.to(bf), bf),
+            (lhs.float(), dy.to(bf), f32),
+            (torch.zeros(16 * 64 + 8, dtype=bf)[8:].view(16, 64), dy, bf),
+            (torch.zeros(16 * 64 + 1, dtype=bf)[1:].view(16, 64), dy, bf),
+            (lhs, torch.zeros(16 * 32 + 4)[4:].view(16, 32), bf),
+            (lhs, torch.zeros(16 * 32 + 1)[1:].view(16, 32), bf),
+            (torch.zeros(16, 100, dtype=bf), dy, bf),
+            (torch.zeros(16, 72, dtype=bf)[:, :64], dy, bf),
+            (lhs, torch.zeros(16, 34)[:, :32], bf),
+            (lhs, torch.zeros(16, 36)[:, :32], bf),
+            (torch.zeros(16, 128, dtype=bf)[:, ::2], dy, bf),
+            (lhs, torch.zeros(16, 64)[:, ::2], bf),
+            (torch.zeros(16, 64, dtype=f32), torch.zeros(16, 36)[:, :32], f32),
+            (lhs, dy36, bf), (lhs, dy36, f32), (lhs, dy, f32)]
 
 
 def _check_body_table(lib) -> None:
@@ -293,19 +299,20 @@ def _check_body_table(lib) -> None:
                 f"{tuple(rhs.stride())}; _gmm_plan names "
                 f"{_gmm_plan(lhs, rhs)}")
     body = lib.tgmm_body
-    body.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    body.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     body.restype = ctypes.c_int
-    for lhs, dy in _tgmm_plan_cases():
+    for lhs, dy, out_dtype in _tgmm_plan_cases():
         ls, ds = ((ctypes.c_longlong * 2)(*x.stride()) for x in (lhs, dy))
         got = body(_DTYPE_CODE[lhs.dtype], _DTYPE_CODE[dy.dtype],
-                   lhs.data_ptr(), ls, dy.data_ptr(), ds)
+                   _DTYPE_CODE[out_dtype], dy.shape[1], lhs.data_ptr(), ls,
+                   dy.data_ptr(), ds)
         got = _TGMM_BODIES[got] if 0 <= got < len(_TGMM_BODIES) else got
-        if got != _tgmm_plan(lhs, dy):
+        plan = _tgmm_plan(lhs, dy, out_dtype)
+        if got != plan:
             raise RuntimeError(
                 f"grouped_matmul.cu runs K6 body {got} at lhs {lhs.dtype} "
-                f"{tuple(lhs.stride())}, dy {dy.dtype} {tuple(dy.stride())};"
-                f" _tgmm_plan names {_tgmm_plan(lhs, dy)}")
+                f"{tuple(lhs.stride())}, dy {dy.dtype} {tuple(dy.stride())},"
+                f" out {out_dtype}; _tgmm_plan names {plan}")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -360,7 +367,7 @@ def _launch_tgmm(fn, lhs, dy, group_sizes, num_groups,
     is counted in ``TGMM_BODY_LAUNCHES``."""
     m, k = lhs.shape
     n = dy.shape[1]
-    plan = _tgmm_plan(lhs, dy)
+    plan = _tgmm_plan(lhs, dy, out_dtype)
     out = torch.empty(num_groups, k, n, dtype=out_dtype, device=lhs.device)
     rc = fn(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(),
             out.data_ptr(), m, k, n, num_groups, lhs.stride(0), dy.stride(0),

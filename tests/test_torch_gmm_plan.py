@@ -29,7 +29,8 @@ once: half an ulp, 2**-9, per element). Inputs come from
 ``numpy.random.default_rng`` and go to both packages.
 
 K6 (the transposed product d_rhs[g] = lhs_g^T dy_g) likewise: ``_tgmm_plan``
-is pinned for every dtype pair, alignment, row and column stride case, the
+is pinned for every dtype pair, alignment, row and column stride case and
+output rows on and off 16 bytes, the
 library's ``tgmm_body`` is refused if it departs from it in any one
 condition, and ``tgmm_reference(split_dy=True)``, the split body's
 arithmetic (fp32 dy as bf16 hi + lo against the exact bf16 lhs), is held
@@ -50,6 +51,7 @@ from distributed_training_guide_tpu.ops.grouped_matmul import (
 from distributed_training_guide_tpu_torch.ops import grouped_matmul as tgm
 
 BF = torch.bfloat16
+F32 = torch.float32
 
 
 def _lhs(k=64, off=0, m=16, dtype=BF):
@@ -114,13 +116,14 @@ def test_gmm_plan_names_the_body(name):
 def _c_tgmm_body_for(drop=None):
     """The library's ``tgmm_body_for`` rule written out in Python, with the
     condition ``drop`` left out (a mutant of K6's table)."""
-    def tgmm_body(ldt, ddt, lhs, ls, dy, ds):
+    def tgmm_body(ldt, ddt, odt, n, lhs, ls, dy, ds):
         if drop == "split_to_fma":
             return 0
         split = {"lhs_dtype": ldt == 1, "dy_dtype": ddt == 0,
                  "lhs_base": lhs % 16 == 0, "dy_base": dy % 16 == 0,
                  "l_sk": ls[1] == 1, "d_sn": ds[1] == 1,
-                 "l_sm": ls[0] * 2 % 16 == 0, "d_sm": ds[0] * 4 % 16 == 0}
+                 "l_sm": ls[0] * 2 % 16 == 0, "d_sm": ds[0] * 4 % 16 == 0,
+                 "out_rows": n * (2 if odt == 1 else 4) % 16 == 0}
         split.pop(drop, None)
         return 1 if all(split.values()) else 0
     return tgmm_body
@@ -318,48 +321,56 @@ def test_split_reference_matches_jax_gmm_scan_on_fp32_dy(name):
         assert err <= 1e-5, (name, err)
 
 
-# K6: (lhs, dy, body) for bf16 lhs against fp32 dy and every other dtype
-# pair, bases, row strides and column strides on and off 16 bytes
+# K6: (lhs, dy, out dtype, body) for bf16 lhs against fp32 dy and every
+# other dtype pair, bases, row strides and column strides on and off 16
+# bytes, output rows (N values) on and off 16 bytes
 def _dy(n=32, off=0, m=16, dtype=torch.float32):
     return torch.zeros(m * n + off, dtype=dtype)[off:].view(m, n)
 
 
 TGMM_PLAN_CASES = {
-    "bf16 lhs, fp32 dy": (_lhs(), _dy(), "split"),
-    "fp32 lhs": (_lhs(dtype=torch.float32), _dy(), "fma"),
-    "bf16 dy": (_lhs(), _dy(dtype=BF), "fma"),
-    "fp32 lhs, bf16 dy": (_lhs(dtype=torch.float32), _dy(dtype=BF), "fma"),
-    "lhs base +16 bytes": (_lhs(off=8), _dy(), "split"),
-    "lhs base +2 bytes": (_lhs(off=1), _dy(), "fma"),
-    "dy base +16 bytes": (_lhs(), _dy(off=4), "split"),
-    "dy base +4 bytes": (_lhs(), _dy(off=1), "fma"),
-    "lhs row stride 200 bytes": (_lhs(k=100), _dy(), "fma"),
-    "lhs row stride 144 bytes": (_lhs(k=72)[:, :64], _dy(), "split"),
-    "dy row stride 136 bytes": (_lhs(), _dy(n=34)[:, :32], "fma"),
-    "dy row stride 144 bytes": (_lhs(), _dy(n=36)[:, :32], "split"),
-    "lhs column stride 2": (_lhs(k=128)[:, ::2], _dy(), "fma"),
-    "dy column stride 2": (_lhs(), _dy(n=64)[:, ::2], "fma"),
-    "qwen3 gate (K 2048, N 768)": (_lhs(k=2048), _dy(n=768), "split"),
-    "qwen3 down (K 768, N 2048)": (_lhs(k=768), _dy(n=2048), "split"),
+    "bf16 lhs, fp32 dy": (_lhs(), _dy(), BF, "split"),
+    "fp32 lhs": (_lhs(dtype=torch.float32), _dy(), BF, "fma"),
+    "bf16 dy": (_lhs(), _dy(dtype=BF), BF, "fma"),
+    "fp32 lhs, bf16 dy": (_lhs(dtype=torch.float32), _dy(dtype=BF), BF, "fma"),
+    "lhs base +16 bytes": (_lhs(off=8), _dy(), BF, "split"),
+    "lhs base +2 bytes": (_lhs(off=1), _dy(), BF, "fma"),
+    "dy base +16 bytes": (_lhs(), _dy(off=4), BF, "split"),
+    "dy base +4 bytes": (_lhs(), _dy(off=1), BF, "fma"),
+    "lhs row stride 200 bytes": (_lhs(k=100), _dy(), BF, "fma"),
+    "lhs row stride 144 bytes": (_lhs(k=72)[:, :64], _dy(), BF, "split"),
+    "dy row stride 136 bytes": (_lhs(), _dy(n=34)[:, :32], BF, "fma"),
+    "dy row stride 144 bytes": (_lhs(), _dy(n=36)[:, :32], BF, "split"),
+    "lhs column stride 2": (_lhs(k=128)[:, ::2], _dy(), BF, "fma"),
+    "dy column stride 2": (_lhs(), _dy(n=64)[:, ::2], BF, "fma"),
+    "qwen3 gate (K 2048, N 768)": (_lhs(k=2048), _dy(n=768), BF, "split"),
+    "qwen3 down (K 768, N 2048)": (_lhs(k=768), _dy(n=2048), BF, "split"),
+    "fp32 out": (_lhs(), _dy(), F32, "split"),
+    "bf16 out rows 72 bytes (N 36)": (_lhs(), _dy(n=36), BF, "fma"),
+    "fp32 out rows 144 bytes (N 36)": (_lhs(), _dy(n=36), F32, "split"),
+    "fp32 out rows 136 bytes (N 34)": (_lhs(), _dy(n=36)[:, :34], F32, "fma"),
+    "bf16 out rows 140 bytes (N 70)": (_lhs(), _dy(n=72)[:, :70], BF, "fma"),
 }
 
 
 @pytest.mark.parametrize("name", list(TGMM_PLAN_CASES))
 def test_tgmm_plan_names_the_body(name):
-    lhs, dy, body = TGMM_PLAN_CASES[name]
-    assert tgm._tgmm_plan(lhs, dy) == body
+    lhs, dy, out_dtype, body = TGMM_PLAN_CASES[name]
+    assert tgm._tgmm_plan(lhs, dy, out_dtype) == body
 
 
 def test_tgmm_plan_cases_take_both_bodies():
     cases = tgm._tgmm_plan_cases()
-    assert {tgm._tgmm_plan(lhs, dy) for lhs, dy in cases} == {"fma", "split"}
-    assert {(lhs.dtype, dy.dtype) for lhs, dy in cases} == {
-        (a, b) for a in (BF, torch.float32) for b in (BF, torch.float32)}
+    assert {tgm._tgmm_plan(*case) for case in cases} == {"fma", "split"}
+    assert {(lhs.dtype, dy.dtype) for lhs, dy, _ in cases} == {
+        (a, b) for a in (BF, F32) for b in (BF, F32)}
+    assert {tgm._tgmm_plan(*case) for case in cases if case[2] == F32} == {
+        "fma", "split"}
 
 
 @pytest.mark.parametrize("drop", ["lhs_dtype", "dy_dtype", "lhs_base",
                                   "dy_base", "l_sk", "d_sn", "l_sm", "d_sm",
-                                  "split_to_fma"])
+                                  "out_rows", "split_to_fma"])
 def test_tgmm_body_table_check_refuses_a_library_that_disagrees(drop):
     """Each condition of K6's rule matters for some case of
     ``_tgmm_plan_cases``: a table without it is refused before any

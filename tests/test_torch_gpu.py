@@ -826,12 +826,9 @@ def test_gmm_library_table_is_gmm_plan(cuda):
 
 
 # K6's split body (bf16 lhs against fp32 dy): GMM_CASES, with lhs and dy
-# rows padded to 16 bytes so that tensor maps read them at any width; an
-# output whose rows lie off 16 bytes (N 70: stored by every thread, not by
-# TMA); qwen3-30b-a3b's training gate / up and down shapes with routed
-# sizes
+# rows padded to 16 bytes so that tensor maps read them at any width;
+# qwen3-30b-a3b's training gate / up and down shapes with routed sizes
 TGMM_SPLIT_CASES = GMM_CASES + [
-    ("out-rows-off-16", 300, 72, 70, [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]),
     ("qwen3-train-gate", 32768, 2048, 768, 4096),
     ("qwen3-train-down", 32768, 768, 2048, 4096),
 ]
@@ -866,7 +863,8 @@ def test_tgmm_split_body_matches_plain_versions(cuda, case):
     gen = torch.Generator(device=cuda).manual_seed(m + k + n + 2)
     lhs, dy, sz = _tgmm_split_inputs(cuda, gen, m, k, n, sizes)
     g = sz.shape[0]
-    assert gm._tgmm_plan(lhs, dy) == "split"
+    assert {gm._tgmm_plan(lhs, dy, dt)
+            for dt in (torch.float32, torch.bfloat16)} == {"split"}
     before = gm.TGMM_BODY_LAUNCHES["split"]
     got = gm.tgmm(lhs, dy, sz, g, torch.float32)
     got16 = gm.tgmm(lhs, dy, sz, g, torch.bfloat16)
@@ -883,6 +881,27 @@ def test_tgmm_split_body_matches_plain_versions(cuda, case):
     assert _rel_l2(got, plain) <= 1e-5, (name, _rel_l2(got, plain))
     err, bound = _gmm_err(got, plain, "fp32")
     assert err <= bound, (name, err)
+    assert _gmm_err(got16, plain, "fp32")[0] <= 4e-3
+
+
+def test_tgmm_out_rows_off_16_bytes_take_the_fma_body(cuda):
+    """bf16 lhs against fp32 dy into output rows off 16 bytes (N 70: 140
+    or 280 bytes, which the split body's TMA stores cannot write): the FMA
+    body runs, as ``_tgmm_plan`` names, within 1e-5 of the fp32 plain
+    version; empty groups exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    sizes = [40, 0, 77, 3, 0, 60, 1, 50, 0, 44]
+    lhs, dy, sz = _tgmm_split_inputs(cuda, gen, 300, 72, 70, sizes)
+    assert {gm._tgmm_plan(lhs, dy, dt)
+            for dt in (torch.float32, torch.bfloat16)} == {"fma"}
+    before = dict(gm.TGMM_BODY_LAUNCHES)
+    got = gm.tgmm(lhs, dy, sz, 10, torch.float32)
+    got16 = gm.tgmm(lhs, dy, sz, 10, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gm.TGMM_BODY_LAUNCHES == {**before, "fma": before["fma"] + 2}
+    assert not got[sz == 0].any() and not got16[sz == 0].any()
+    plain = gm.tgmm_reference(lhs, dy, sz, 10, torch.float32)
+    assert _rel_l2(got, plain) <= 1e-5, _rel_l2(got, plain)
     assert _gmm_err(got16, plain, "fp32")[0] <= 4e-3
 
 
@@ -921,7 +940,7 @@ def test_tgmm_split_rows_are_group_invariant(cuda):
 def test_tgmm_library_table_is_tgmm_plan(cuda):
     """The built library's ``tgmm_body`` picks, for operands on the card,
     the body that ``_tgmm_plan`` names: bf16 lhs against fp32 dy on and off
-    16 bytes, fp32 lhs, bf16 dy."""
+    16 bytes, fp32 lhs, bf16 dy, each into bf16 and fp32 output rows."""
     import ctypes
 
     lib = gm._build.load("grouped_matmul")
@@ -933,9 +952,12 @@ def test_tgmm_library_table_is_tgmm_plan(cuda):
                  (lhs.float(), dy), (lhs, dy.to(bf)),
                  (lhs[:, :66], dy[:, :33])):
         ls, ds = ((ctypes.c_longlong * 2)(*x.stride()) for x in (a, b))
-        got = lib.tgmm_body(gm._DTYPE_CODE[a.dtype], gm._DTYPE_CODE[b.dtype],
-                            a.data_ptr(), ls, b.data_ptr(), ds)
-        assert gm._TGMM_BODIES[got] == gm._tgmm_plan(a, b)
+        for out_dtype in (torch.float32, bf):
+            got = lib.tgmm_body(
+                gm._DTYPE_CODE[a.dtype], gm._DTYPE_CODE[b.dtype],
+                gm._DTYPE_CODE[out_dtype], b.shape[1], a.data_ptr(), ls,
+                b.data_ptr(), ds)
+            assert gm._TGMM_BODIES[got] == gm._tgmm_plan(a, b, out_dtype)
 
 
 def test_tgmm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
