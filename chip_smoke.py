@@ -104,7 +104,27 @@ phases, each of which raises on failure:
    against the resident bytes, first-token logits against the plain
    prefill over the snapped params (bf16 full depth; fp32 at 2 layers on
    llama-3.1-8b and on llama-3.2-1b, whose tied head runs the plain
-   transpose form), and a torch.profiler breakdown of a decode step.
+   transpose form), and a torch.profiler breakdown of a decode step;
+16. chapter 01 — ``run_training`` through the CLI parser on llama-3.2-1b
+   (B 4, S 2048): (a) at full width cut to 2 layers, a straight 6-step run
+   saving every 2 steps (``-e``, keep 2: exactly 2 retained, every manifest
+   verifies), the same with ``--async-checkpoint`` (the same losses, its
+   checkpoints bitwise the synchronous ones, checkpoint-4 written while
+   steps 5 and 6 updated the state in place), the fallback past a
+   corrupted latest checkpoint, and a run crashed at step 4 by the
+   exception drill and resumed to step 6 with steps 5-6's losses bitwise
+   the straight run's; the bytes and seconds of every save; (b) 4 steps at
+   full depth under each precision policy (fp32, bf16-master, adam8bit,
+   bf16-master+adam8bit): finite falling loss, 16 launches of K1-K3 per
+   step, the peak falling by at least 80% of the state bytes the policy
+   saves; (c) 3 steps under each remat policy: K1 32 / 32 / 16 / 16 per
+   step (all / dots / attn / attn_mlp), K2 / K3 16, the step-1 loss
+   bitwise the run's without remat, peak(all) <= peak(attn) <=
+   peak(attn_mlp); (d) adafactor and lion, 4 steps: finite falling loss,
+   their state bytes; (e) the NaN drill under ``--guard-policy skip``
+   (one step skipped); and qwen3-30b-a3b cut to 2 layers (ragged) without
+   remat and under "all" / "attn": K1, K5 and K6 per layer, the loss
+   bitwise the same.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -2510,11 +2530,11 @@ def snapped(torch, stored, dtype):
     if not isinstance(stored, Quantized):
         return stored
     if stored.q.ndim < 3:
-        return dequantize_blockwise(stored, dtype)
+        return dequantize_blockwise(stored, dtype=dtype)
     out = torch.empty(stored.q.shape, dtype=dtype, device=stored.q.device)
     for i in range(out.shape[0]):             # one layer's fp32 transient
-        out[i] = dequantize_blockwise(Quantized(q=stored.q[i],
-                                                scale=stored.scale[i]), dtype)
+        out[i] = dequantize_blockwise(
+            Quantized(q=stored.q[i], scale=stored.scale[i]), dtype=dtype)
     return out
 
 
@@ -2737,6 +2757,361 @@ def check_int8_fp32_path(torch, model: str, prompt) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: chapter 01 — checkpoints and resume, precision policies, remat
+# policies, the other optimizers, the NaN drill
+# ---------------------------------------------------------------------------
+
+CH01_RESUME_LAYERS = 2      # llama-3.2-1b at full width cut to 2 layers
+CH01_PRECISION_STEPS = 4
+CH01_REMAT_STEPS = 3
+CH01_POLICIES = ("fp32", "bf16-master", "adam8bit", "bf16-master+adam8bit")
+# K1 launches per layer per step under each remat policy: the flash forward
+# is one custom op, so "attn" / "attn_mlp" keep its (o, lse)
+CH01_REMAT_K1 = {"all": 2, "dots": 2, "attn": 1, "attn_mlp": 1}
+# the peak must fall by this share of the state bytes a policy saves
+CH01_PEAK_SHARE = 0.8
+CH01_MOE_LAYERS = 2
+CH01_LAUNCHES: dict = {}    # each kernel's launches over phase 16's runs
+
+
+def ch01_run(torch, extra: list, *, layers=None, env=None, base=None,
+             log_freq: int = 1):
+    """``run_training`` through the CLI parser on llama-3.2-1b (B 4, S
+    2048; ``base`` replaces those arguments), with ``env`` set for the
+    run; returns (its output, the K1-K3 launches of the run)."""
+    import os
+
+    from distributed_training_guide_tpu_torch.train import cli
+
+    args = cli.get_parser().parse_args(
+        (base or TRAIN_ARGS) + ["--log-freq", str(log_freq), *extra])
+    reset_moe_counts()                        # each run's path starts here
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        out = cli.run_training(
+            args, model_overrides={"num_layers": layers} if layers else None)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        counts = moe_counts()                 # ... and ends here
+        for k, v in counts.items():
+            CH01_LAUNCHES[k] = CH01_LAUNCHES.get(k, 0) + v
+    return out, counts
+
+
+def ch01_losses(out) -> dict:
+    return {i["global_step"]: i["running_loss"] for i in out["infos"]}
+
+
+def ch01_rates(out) -> dict:
+    """Tokens/s and step ms (host clock), each the mean over the steps
+    after the first (which pays the warm-up), and the run's peak."""
+    later = out["infos"][1:]
+    return {"tokens_per_s": sum(i["tokens_per_s"] for i in later)
+            / len(later),
+            "time_step_ms": sum(i["time/step"] for i in later) / len(later),
+            "peak_alloc_gb": out["last_info"]["peak_alloc_gb"]}
+
+
+def ch01_free(torch, *outs) -> None:
+    import gc
+
+    for out in outs:
+        if isinstance(out, dict):
+            out.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ch01_restored(torch, exp_dir, layers: int) -> tuple:
+    """The newest verifiable checkpoint of ``exp_dir`` read into a fresh
+    fp32 state of llama-3.2-1b at ``layers`` layers: (tensors by name,
+    host_state)."""
+    from distributed_training_guide_tpu_torch.checkpoint import CheckpointIO
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.state import (
+        state_tensors)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    trainer = Trainer(bundle=get_model("llama-3.2-1b", num_layers=layers),
+                      optimizer=adamw_cosine(3e-4), device="cuda")
+    state, host = CheckpointIO(exp_dir).restore(trainer.init_state(SEED + 9))
+    return state_tensors(state), host
+
+
+def ch01_same(torch, a: dict, b: dict) -> list:
+    """Names whose tensors differ (bitwise) between two restored states."""
+    check(a.keys() == b.keys(), "restored states hold other names")
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def ch01_resume(torch, root: Path, card: str) -> dict:
+    """(a): a straight 6-step run saving every 2 steps (keep 2) against an
+    async-saving run and a run killed at step 4 by the crash drill and
+    resumed to step 6, at 2 layers."""
+    import json
+    import shutil
+
+    from distributed_training_guide_tpu_torch.checkpoint import manifest
+    from distributed_training_guide_tpu_torch.utils import faults
+
+    layers = CH01_RESUME_LAYERS
+    exp = ["--save-dir", str(root), "--ckpt-freq", "2", "--max-steps", "6"]
+    straight, counts = ch01_run(torch, ["-e", "A", "--keep-checkpoints",
+                                        "2", *exp], layers=layers)
+    golden = ch01_losses(straight)
+    check(set(golden) == set(range(1, 7)) and all(
+        map(math.isfinite, golden.values())), f"resume: losses {golden}")
+    check(counts["flash_fwd"] == layers * 6, f"resume: launches {counts}")
+    chain = json.loads((root / "A" / "state.json").read_text())["retained"]
+    kept = sorted(p.name for p in (root / "A").iterdir() if p.is_dir())
+    check(chain == ["checkpoint-6", "checkpoint-4"]
+          and kept == ["checkpoint-4", "checkpoint-6"],
+          f"retention: chain {chain}, dirs {kept}")
+    for name in chain:
+        m = manifest.load_manifest(root / "A", name)
+        problems = manifest.verify_manifest(root / "A" / name, m)
+        check(m is not None and not problems,
+              f"manifest of {name}: {problems}")
+    sync_saves = straight["checkpoint_saves"]
+    ch01_free(torch, straight)
+
+    run, _ = ch01_run(torch, ["-e", "C", "--keep-checkpoints", "3",
+                              "--async-checkpoint", *exp], layers=layers)
+    check(ch01_losses(run) == golden,
+          f"async saves moved the losses: {ch01_losses(run)} vs {golden}")
+    async_saves = run["checkpoint_saves"]
+    ch01_free(torch, run)
+    sync6, host = ch01_restored(torch, root / "A", layers)
+    async6, _ = ch01_restored(torch, root / "C", layers)
+    diff = ch01_same(torch, sync6, async6)
+    check(host["global_step"] == 6 and not diff,
+          f"async checkpoint-6 differs from the sync one: {diff[:4]}")
+    del sync6, async6
+    # the fallback past a corrupted latest checkpoint, in both: A's
+    # checkpoint-4 was written synchronously, C's while steps 5 and 6
+    # updated the state in place
+    victim = faults.corrupt_checkpoint_dir(root / "A" / "checkpoint-6")
+    faults.corrupt_checkpoint_dir(root / "C" / "checkpoint-6")
+    fallback, host = ch01_restored(torch, root / "A", layers)
+    async4, host_c = ch01_restored(torch, root / "C", layers)
+    diff = ch01_same(torch, fallback, async4)
+    check(host["global_step"] == 4 and host_c["global_step"] == 4
+          and not diff, f"fallback / async snapshot: step {host} / "
+          f"{host_c}, differing {diff[:4]}")
+    del fallback, async4
+    ch01_free(torch)
+    shutil.rmtree(root / "A")
+    shutil.rmtree(root / "C")
+
+    crash = {faults.ENV_CRASH_STEP: "4", faults.ENV_CRASH_MODE: "exc"}
+    try:
+        ch01_run(torch, ["-e", "B", *exp], layers=layers, env=crash)
+        check(False, "the crash drill did not crash")
+    except RuntimeError as exc:
+        check("injected fault" in str(exc), f"crash drill: {exc}")
+    ch01_free(torch)
+    resumed, _ = ch01_run(torch, ["-e", "B", *exp], layers=layers)
+    got = ch01_losses(resumed)
+    check(resumed["resumed"] and got == {5: golden[5], 6: golden[6]},
+          f"resume: steps 5-6 {got}, straight {golden}")
+    ch01_free(torch, resumed)
+    shutil.rmtree(root / "B")
+    out = {"losses": golden, "resumed_losses": got,
+           "saves_sync": sync_saves, "saves_async": async_saves,
+           "corrupted": victim}
+    log(phase="chapter01", part="resume", layers=layers, card=card, **out)
+    return out
+
+
+def ch01_state_bytes(out) -> int:
+    """Bytes of params, their grads and the optimizer state as stored."""
+    from distributed_training_guide_tpu_torch.train.state import (
+        named_leaves, state_tensors)
+
+    state = out["state"]
+    flat = state_tensors(state)
+    grads = sum(p.numel() * p.element_size()
+                for _, p in named_leaves(state.params))
+    return grads + sum(t.numel() * t.element_size() for k, t in flat.items()
+                       if k.startswith(("params/", "opt_state/")))
+
+
+def ch01_precision(torch, card: str) -> dict:
+    """(b): 4 steps at full depth under each policy: finite falling loss,
+    16 launches of K1-K3 per step, and the peak against the fp32 run."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    layers, steps = 16, CH01_PRECISION_STEPS
+    res = {}
+    for policy in CH01_POLICIES:
+        copies = fa.ALIGN_COPIES
+        out, counts = ch01_run(torch, ["--max-steps", str(steps),
+                                       "--precision-policy", policy])
+        check_hopper_path(f"precision {policy}", copies)
+        want = layers * steps
+        check(counts["flash_fwd"] == counts["flash_dq"] == counts[
+            "flash_dkv"] == want, f"precision {policy}: launches {counts}")
+        losses = ch01_losses(out)
+        vals = [losses[s] for s in sorted(losses)]
+        check(all(map(math.isfinite, vals)) and vals[-1] < vals[0],
+              f"precision {policy}: losses {vals}")
+        res[policy] = {"losses": vals, **ch01_rates(out),
+                       "state_gb": ch01_state_bytes(out) / 1e9,
+                       "launches": counts}
+        log(phase="chapter01", part="precision", policy=policy, card=card,
+            **res[policy])
+        ch01_free(torch, out)
+    base = res["fp32"]
+    for policy in CH01_POLICIES[1:]:
+        saved = base["state_gb"] - res[policy]["state_gb"]
+        drop = base["peak_alloc_gb"] - res[policy]["peak_alloc_gb"]
+        res[policy]["peak_drop_gb"] = drop
+        res[policy]["state_saved_gb"] = saved
+        check(drop >= CH01_PEAK_SHARE * saved,
+              f"precision {policy}: peak fell {drop:.2f} GB, the state "
+              f"saves {saved:.2f} GB")
+    log(phase="chapter01", part="precision peaks", card=card,
+        **{p: {k: res[p].get(k) for k in ("peak_alloc_gb", "state_gb",
+                                          "peak_drop_gb", "state_saved_gb")}
+           for p in CH01_POLICIES})
+    return res
+
+
+def ch01_remat(torch, card: str, no_remat_step1: float) -> dict:
+    """(c): 3 steps at full depth under each remat policy: K1 per step, the
+    step-1 loss bitwise the run's without remat, peaks in order."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    layers, steps = 16, CH01_REMAT_STEPS
+    res = {}
+    for policy, k1 in CH01_REMAT_K1.items():
+        copies = fa.ALIGN_COPIES
+        out, counts = ch01_run(torch, ["--max-steps", str(steps),
+                                       "--checkpoint-activations",
+                                       "--remat-policy", policy])
+        check_hopper_path(f"remat {policy}", copies)
+        per_step = {k: counts[k] / steps for k in ("flash_fwd", "flash_dq",
+                                                    "flash_dkv")}
+        check(per_step == {"flash_fwd": k1 * layers, "flash_dq": layers,
+                           "flash_dkv": layers},
+              f"remat {policy}: launches per step {per_step}")
+        losses = ch01_losses(out)
+        check(losses[1] == no_remat_step1, f"remat {policy}: step-1 loss "
+              f"{losses[1]!r}, without remat {no_remat_step1!r}")
+        res[policy] = {"launches_per_step": per_step,
+                       "losses": [losses[s] for s in sorted(losses)],
+                       **ch01_rates(out)}
+        log(phase="chapter01", part="remat", policy=policy, card=card,
+            **res[policy])
+        ch01_free(torch, out)
+    peaks = [res[p]["peak_alloc_gb"] for p in ("all", "attn", "attn_mlp")]
+    check(peaks[0] <= peaks[1] <= peaks[2],
+          f"remat peaks all / attn / attn_mlp: {peaks}")
+    return res
+
+
+def ch01_optimizers(torch, card: str) -> dict:
+    """(d): adafactor and lion, 4 steps at full depth."""
+    res = {}
+    for name in ("adafactor", "lion"):
+        out, counts = ch01_run(torch, ["--max-steps", "4", "--optimizer",
+                                       name])
+        losses = ch01_losses(out)
+        vals = [losses[s] for s in sorted(losses)]
+        check(all(map(math.isfinite, vals)) and vals[-1] < vals[0],
+              f"{name}: losses {vals}")
+        res[name] = {"losses": vals,
+                     "opt_state_gb": sum(
+                         t.numel() * t.element_size() for slots in
+                         out["state"].opt_state.optimizer.state.values()
+                         for t in slots.values()) / 1e9,
+                     **ch01_rates(out)}
+        log(phase="chapter01", part="optimizer", optimizer=name, card=card,
+            **res[name])
+        ch01_free(torch, out)
+    return res
+
+
+def ch01_nan_drill(torch, card: str) -> dict:
+    """(e): a NaN loss injected at the third step under ``--guard-policy
+    skip``, at 2 layers: the run finishes and skips exactly that step."""
+    from distributed_training_guide_tpu_torch.utils import faults
+
+    out, _ = ch01_run(torch, ["--max-steps", "4", "--guard-policy", "skip"],
+                      layers=CH01_RESUME_LAYERS,
+                      env={faults.ENV_NAN_LOSS_STEP: "2"})
+    flags = {i["global_step"]: i["notfinite"] for i in out["infos"]}
+    skipped = out["last_info"]["guard_skipped"]
+    check(skipped == 1 and flags == {1: 0.0, 2: 0.0, 3: 1.0, 4: 0.0},
+          f"nan drill: skipped {skipped}, notfinite by step {flags}")
+    log(phase="chapter01", part="nan drill", card=card, guard_skipped=skipped,
+        notfinite=flags)
+    ch01_free(torch, out)
+    return {"guard_skipped": skipped}
+
+
+def ch01_moe_remat(torch, card: str) -> dict:
+    """qwen3-30b-a3b at full width cut to 2 layers (ragged dispatch), one
+    step without remat and under "all" / "attn": K1 per layer once, twice,
+    once; K5 6 per layer without remat and 9 with (the forward's three
+    grouped products are recomputed under every policy: their outputs feed
+    the backward), K6 3 per layer; the loss bitwise the same."""
+    layers = CH01_MOE_LAYERS
+    base = MOE_TRAIN_ARGS + ["--moe-dispatch", "ragged", "--max-steps", "1"]
+    res, first = {}, None
+    for policy, (k1, k5) in {None: (1, 6), "all": (2, 9),
+                             "attn": (1, 9)}.items():
+        extra = ([] if policy is None else ["--checkpoint-activations",
+                                            "--remat-policy", policy])
+        out, counts = ch01_run(torch, extra, layers=layers, base=base)
+        want = {"flash_fwd": k1 * layers, "flash_dq": layers,
+                "flash_dkv": layers, "grouped_matmul": k5 * layers,
+                "tgmm": 3 * layers}
+        check(counts == want, f"moe remat {policy}: launches {counts}, "
+              f"want {want}")
+        loss = out["infos"][0]["running_loss"]
+        first = loss if first is None else first
+        check(loss == first, f"moe remat {policy}: loss {loss!r}, without "
+              f"remat {first!r}")
+        res[str(policy)] = {"launches": counts,
+                            "peak_alloc_gb": out["last_info"]["peak_alloc_gb"]}
+        ch01_free(torch, out)
+    log(phase="chapter01", part="moe remat", layers=layers, card=card, **res)
+    return res
+
+
+def phase_chapter01(torch, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chapter01-"))
+    try:
+        resume = ch01_resume(torch, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    precision = ch01_precision(torch, card)
+    remat = ch01_remat(torch, card, precision["fp32"]["losses"][0])
+    optimizers = ch01_optimizers(torch, card)
+    nan = ch01_nan_drill(torch, card)
+    moe_remat = ch01_moe_remat(torch, card)
+    check(all(CH01_LAUNCHES.get(k, 0) > 0 for k in (
+        "flash_fwd", "flash_dq", "flash_dkv", "grouped_matmul", "tgmm")),
+        f"chapter 01: a kernel of the path never launched: {CH01_LAUNCHES}")
+    log(phase="chapter01", launches=CH01_LAUNCHES)
+    return {"launches": dict(CH01_LAUNCHES), "resume": resume,
+            "precision": precision, "remat": remat,
+            "optimizers": optimizers, "nan": nan, "moe_remat": moe_remat}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -2814,10 +3189,16 @@ def main() -> int:
     smi = smi_name_power()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import importlib.util
+
     log(phase="device", name=card, nvidia_smi=smi,
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, matmul_allow_tf32=False,
-        cudnn_allow_tf32=False)
+        cudnn_allow_tf32=False,
+        # present or not: the port imports none of them at module level
+        optional_modules={m: importlib.util.find_spec(m) is not None
+                          for m in ("safetensors", "transformers", "wandb",
+                                    "tqdm", "triton")})
 
     t0 = time.perf_counter()
     sources = _build.all_sources()
@@ -2842,6 +3223,7 @@ def main() -> int:
     qmm_worst = phase_qmm(torch)
     qmm_timing = phase_qmm_timing(torch)
     int8_serve = phase_int8_serve(torch, smi)
+    ch01 = phase_chapter01(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -2913,6 +3295,10 @@ def main() -> int:
                if "library_note" in t else {}),
             "body": t["body"],
             "bf16_kernel_arith_rel_l2": flash_worst["kernel_arith"][name],
+            "launches_chapter01": ch01["launches"][name],
+            "launches_per_step_by_remat_policy": {
+                p: r["launches_per_step"][name]
+                for p, r in ch01["remat"].items()},
             "shapes": {shape: {"B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
                                **{kk: flash_timing[shape][name][kk]
                                   for kk in shape_keys
@@ -2935,6 +3321,7 @@ def main() -> int:
         "launches_per_serve_forward": moe_serve["per_forward"],
         "launches_per_train_step": moe_train["per_step"]["grouped_matmul"],
         "launches_by_body_train": moe_train["launches_by_body"],
+        "launches_chapter01": ch01["launches"]["grouped_matmul"],
         "max_abs_err": gmm_worst["grouped_matmul"], "body": dec["body"],
         "tc_sum_drift_k8192": gmm_worst["tc_sum_drift"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
@@ -2954,6 +3341,7 @@ def main() -> int:
         "launches": moe_train["launches"]["tgmm"],
         "launches_per_train_step": moe_train["per_step"]["tgmm"],
         "launches_by_body_train": moe_train["tgmm_launches_by_body"],
+        "launches_chapter01": ch01["launches"]["tgmm"],
         "max_abs_err": gmm_worst["tgmm"], "body": t["body"],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

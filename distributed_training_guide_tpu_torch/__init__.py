@@ -7,7 +7,12 @@ the paged KV cache and its continuous-batching engine in ``serve/``, the
 paged-attention kernel ``ops/csrc/paged_attend.cu``) and chapter 01's
 single-device training loop (``train/``, ``data/``, ``utils/``, the loss
 in ``ops/cross_entropy.py`` and the flash-attention kernels
-``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``). Every kernel is
+``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``) with all of chapter 01
+(checkpoints and resume in ``checkpoint/``, precision policies, adafactor
+and lion, remat policies in ``ops/remat.py``, fault drills, heartbeat,
+tracking, memmap data), chapter 10's mixture of experts with the grouped
+matmuls, and int8 serve weights with the block-dequant matmul. Every
+kernel is
 hand-written in CUDA for ``sm_90a`` and built at first use by
 ``ops/_build.py``.
 Module names follow the JAX package so each module's counterpart is easy

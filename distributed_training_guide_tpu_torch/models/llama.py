@@ -7,7 +7,7 @@ head dims), so ``models/from_jax.py`` maps the two leaf for leaf. The
 JAX ``lax.scan`` over layers is a Python loop over the layer index here.
 
 It carries ``init``, the sublayers, the training forward ``apply`` (the
-flash kernels on the card, remat through ``torch.utils.checkpoint``), the
+flash kernels on the card, remat policies through ``ops/remat.py``), the
 contiguous-cache ``prefill`` (the engine's bucketed prefill) and the
 paged forward ``paged_decode_step`` (decode steps and prefill chunks).
 The config flags of the Llama variants stay (sliding and per-layer
@@ -28,12 +28,12 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import NO_WINDOW, multihead_attention
 from ..ops.matmul import matmul_f32_out
 from ..ops.quantized_matmul import quantized_matmul, quantized_take
+from ..ops.remat import checkpoint_name, remat as remat_layer
 from ..ops.rope import freeze_rope_scaling, rope_tables, rotate
 
 
@@ -274,7 +274,10 @@ def mlp_sublayer(config, x: torch.Tensor, layer: dict) -> torch.Tensor:
                      getattr(config, "norm_plus_one", False))
     gate = _wmat(h, layer["mlp"]["gate"], cdt)
     up = _wmat(h, layer["mlp"]["up"], cdt)
-    act = ACT_FNS[getattr(config, "act_fn", "silu")](gate) * up
+    gate = ACT_FNS[getattr(config, "act_fn", "silu")](gate)
+    # named for the "attn_mlp" remat policy (ops/remat.py)
+    with checkpoint_name("mlp_act"):
+        act = gate * up
     return _wmat(act, layer["mlp"]["down"], cdt)
 
 
@@ -388,15 +391,11 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
 
     The JAX layer ``lax.scan`` is a Python loop; per-layer windows ride
     ``layer_windows``. ``remat=True`` wraps each layer in
-    ``torch.utils.checkpoint`` (non-reentrant): the "all" policy, nothing
-    saved, so backward reruns the layer's forward (K1 included).
-    ``positions`` given means a non-standard layout: "auto" then takes the
-    einsum attention, as in the JAX package."""
-    if remat and remat_policy not in (None, "all"):
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r}: only 'all' is ported "
-            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
-            f"optimizers')")
+    ``torch.utils.checkpoint`` (non-reentrant) under ``remat_policy``
+    (``ops/remat.py``: "all" / None saves nothing, so backward reruns the
+    layer's forward, K1 included; "dots", "attn" and "attn_mlp" keep what
+    they name). ``positions`` given means a non-standard layout: "auto"
+    then takes the einsum attention, as in the JAX package."""
     if activation_sharding is not None or layer_schedule is not None:
         raise NotImplementedError(
             "activation_sharding / layer_schedule belong to the distributed "
@@ -424,7 +423,7 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     for i, layer in enumerate(layers):
         window = None if wins is None else wins[i]
         if remat:
-            x = checkpoint(block, x, layer, window, use_reentrant=False)
+            x = remat_layer(block, x, layer, window, policy=remat_policy)
         else:
             x = block(x, layer, window)
     if return_hidden:

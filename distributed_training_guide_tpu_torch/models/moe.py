@@ -42,9 +42,9 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.grouped_matmul import grouped_matmul
+from ..ops.remat import checkpoint_name, remat as remat_layer
 from . import llama
 from .llama import _rmsnorm, attention_sublayer
 
@@ -177,7 +177,10 @@ def _ragged_expert_compute(x_rows: torch.Tensor, gate, up, down,
     def gmm(x, w):
         return grouped_matmul(x, w.to(cdt), group_sizes, impl=gmm_impl)
 
-    h = F.silu(gmm(x_rows, gate)) * gmm(x_rows, up)
+    g, u = F.silu(gmm(x_rows, gate)), gmm(x_rows, up)
+    # named for the "attn_mlp" remat policy (the [kT, F] inner activation)
+    with checkpoint_name("mlp_act"):
+        h = g * u
     return gmm(h, down)
 
 
@@ -240,8 +243,10 @@ def _dense_dispatch(config: MoELlamaConfig, xt: torch.Tensor, expert_flat,
                                           torch.arange(m, device=dev))[:-1]
     expert_in = torch.where((inv < m)[:, None], xt[inv % t].to(cdt),
                             0).reshape(ex, capacity, d)
-    h = F.silu(torch.bmm(expert_in, moe["gate"].to(cdt)))
-    h = h * torch.bmm(expert_in, moe["up"].to(cdt))
+    g = F.silu(torch.bmm(expert_in, moe["gate"].to(cdt)))
+    u = torch.bmm(expert_in, moe["up"].to(cdt))
+    with checkpoint_name("mlp_act"):      # the [E, C, F] inner activation
+        h = g * u
     expert_out = torch.bmm(h, moe["down"].to(cdt))
     y_choice = expert_out.reshape(ex * capacity, d)[
         dest.clamp(0, ex * capacity - 1)]
@@ -339,12 +344,7 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
     [, {"moe_dropped_frac"}]). ``return_hidden`` swaps the logits for the
     final-normed hidden states [B, S, E] (the chunked loss, with
     ``output_weights``). ``remat=True`` wraps each layer in
-    ``torch.utils.checkpoint`` (policy "all")."""
-    if remat and remat_policy not in (None, "all"):
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r}: only 'all' is ported "
-            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
-            f"optimizers')")
+    ``torch.utils.checkpoint`` under ``remat_policy`` (``ops/remat.py``)."""
     if moe_ep is not None:
         raise NotImplementedError(f"moe_ep: {_EP_ITEM}")
     if activation_sharding is not None:
@@ -369,7 +369,7 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
         args = (config, x, aux, dropped, layer, positions, attn_impl, rope,
                 standard_layout, None if wins is None else wins[i], gmm_impl)
         if remat:
-            x, aux, dropped = checkpoint(_block, *args, use_reentrant=False)
+            x, aux, dropped = remat_layer(_block, *args, policy=remat_policy)
         else:
             x, aux, dropped = _block(*args)
     out = (final_hidden(config, params, x) if return_hidden

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from .remat import checkpoint_name
+
 NO_WINDOW = 2 ** 30   # the band encoding of "no sliding window"
 
 
@@ -56,8 +58,10 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     del scores
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
-                       v.float())
+    probs, vf = probs.to(v.dtype).float(), v.float()
+    # named so the "attn" remat policies keep the output (ops/remat.py)
+    with checkpoint_name("attn_out"):
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 

@@ -1,5 +1,5 @@
 """Flash attention: the forward kernel and its two backward kernels, joined
-by a ``torch.autograd.Function``.
+as one ``torch.library`` custom op with its autograd formula.
 
 Counterpart of ``distributed_training_guide_tpu/ops/flash_attention.py``,
 whose Pallas kernels are rewritten here in CUDA for ``sm_90a``:
@@ -40,6 +40,7 @@ import torch
 
 from . import _build
 from .attention import NO_WINDOW, check_static_window
+from .remat import checkpoint_name
 
 FWD_LAUNCHES = 0    # K1 launches since the caller last reset it
 FWD_BODY_LAUNCHES = {"fma": 0, "wmma": 0, "wgmma": 0}   # ... by body
@@ -469,29 +470,47 @@ def flash_bwd_with_stats(q, k, v, do, lse, delta, **kw):
             *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
 
 
-class _Flash(torch.autograd.Function):
-    """Forward K1; backward ``delta`` in torch, then K2 and K3. The band
-    gets no gradient."""
+@torch.library.custom_op("dtg_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: int, q_off: int, k_off: int,
+                 scale: Optional[float],
+                 softcap: Optional[float]) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as one dispatcher operation, (o, lse): what a selective
+    checkpoint policy sees and can keep (``ops/remat.py``), where a ctypes
+    launch inside a Python function would be invisible to it. The band is
+    the ``(window, q_off, k_off)`` triple of host ints."""
+    return flash_fwd(q, k, v, causal=causal, band=(window, q_off, k_off),
+                     scale=scale, softcap=softcap)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, band, scale, softcap):
-        o, lse = flash_fwd(q, k, v, causal=causal, band=band, scale=scale,
-                           softcap=softcap)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, band, scale, softcap)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, band, scale, softcap = ctx.args
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float())
-        dq, dk, dv = flash_bwd_with_stats(
-            q, k, v, do, lse, delta.contiguous(), causal=causal, band=band,
-            scale=scale, softcap=softcap)
-        return dq, dk, dv, None, None, None, None
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, window, q_off, k_off, scale, softcap):
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, window, q_off, k_off, scale, softcap = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, (window, q_off, k_off), scale, softcap)
+
+
+def _flash_backward(ctx, do, dlse):
+    """``delta = rowsum(do * o)`` in torch, then K2 and K3; the band, the
+    flags and lse get no gradient."""
+    q, k, v, o, lse = ctx.saved_tensors
+    causal, band, scale, softcap = ctx.args
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float())
+    dq, dk, dv = flash_bwd_with_stats(
+        q, k, v, do, lse, delta.contiguous(), causal=causal, band=band,
+        scale=scale, softcap=softcap)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -505,4 +524,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("window (sliding-window attention) requires "
                          "causal=True")
     band = _band_ints(window, None)
-    return _Flash.apply(q, k, v, causal, band, scale, logit_softcap)
+    with checkpoint_name("flash_out", "flash_lse"):
+        o, _ = flash_fwd_op(q, k, v, causal, *band, scale, logit_softcap)
+    return o

@@ -7,7 +7,9 @@
 
 The counterpart of ``01-single-chip/train_llm.py``: the same flags
 (``train/cli.py``), random init from ``--seed``, bf16 compute from fp32
-params and fp32 AdamW, attention through the flash kernels on the card.
+params and fp32 AdamW by default, attention through the flash kernels on
+the card. ``-e NAME --save-dir DIR`` keeps checkpoints in ``DIR/NAME`` and
+resumes from them when the command is run again.
 """
 from __future__ import annotations
 

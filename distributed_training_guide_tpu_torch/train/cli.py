@@ -4,33 +4,37 @@ Counterpart of ``distributed_training_guide_tpu/train/cli.py``: the same
 flag surface and defaults (plus ``--device``), the same host state,
 fence-every banking of the per-step loss, ``log_freq`` info dict
 (running_loss, grad_norm, tokens_per_s, mfu, time/*, memory, and
-``moe_dropped_frac`` for MoE models),
-``--max-steps``, ``--steps-per-epoch`` and ``--profile-dir`` (a
-``torch.profiler`` trace of steps 10-15). A flag whose feature a later
-slice ports raises ``NotImplementedError`` naming its ROADMAP.md item when
-it is set away from its default.
+``moe_dropped_frac`` for MoE models), ``--max-steps``,
+``--steps-per-epoch`` and ``--profile-dir`` (a ``torch.profiler`` trace of
+steps 10-15). With ``-e NAME`` the run lives in ``<save-dir>/NAME``: it
+resumes from the newest verifiable checkpoint there (or starts fresh),
+saves every ``--ckpt-freq`` steps (``--keep-checkpoints``,
+``--async-checkpoint``, ``--checkpoint-full-crc``), and tracks with wandb
+under ``--wandb``. ``--optimizer``, ``--precision-policy``,
+``--param-dtype``, ``--remat-policy`` and ``--mmap-data`` are the JAX
+package's. The fault drills of ``utils/faults.py`` and the heartbeat of
+``utils/heartbeat.py`` are wired in. A flag whose feature a later slice
+ports raises ``NotImplementedError`` naming its ROADMAP.md item when it is
+set away from its default.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+from pathlib import Path
 from typing import Optional
 
 LOGGER = logging.getLogger(__name__)
 
 # flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
 _UNPORTED_FLAGS = {
-    "experiment_name": (None, "'Chapter 01 remainder' (checkpoints)"),
     "pretrained": (None, "'Chapter 05 recipe and conversion'"),
     "lora_rank": (0, "'Other dense families' (LoRA)"),
     "native_loader": (False, "'Runtime robustness and tooling'"),
-    "mmap_data": (None, "'Chapter 01 remainder'"),
-    "wandb": (False, "'Chapter 01 remainder'"),
     "preflight": (False, "'Chapter 05 recipe and conversion'"),
     "overlap_schedule": (False,
                          "'Context parallel, pipeline parallel and overlap'"),
-    "param_dtype": ("float32", "'Remat policies, precision and optimizers'"),
 }
 
 
@@ -67,8 +71,12 @@ def get_parser() -> argparse.ArgumentParser:
                         help="remat decoder layers (torch.utils.checkpoint)")
     parser.add_argument("--remat-policy", default="all",
                         choices=["all", "dots", "attn", "attn_mlp"],
-                        help="what survives forward under remat; this slice "
-                             "ports 'all' (recompute everything)")
+                        help="what survives forward under remat "
+                             "(ops/remat.py): all = recompute everything, "
+                             "dots = keep the projections' outputs, attn = "
+                             "keep the attention output (the flash kernel's "
+                             "o and lse), attn_mlp = attn + the MLP's inner "
+                             "activation")
     parser.add_argument("--attn-impl", default="auto",
                         choices=["auto", "xla", "flash"])
     parser.add_argument("--context-impl", default="ring",
@@ -114,8 +122,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--overlap-schedule", action="store_true")
     parser.add_argument("--precision-policy", default="fp32",
                         metavar="POLICY",
-                        help="storage-precision policy (train/precision.py); "
-                             "this slice ports fp32")
+                        help="storage-precision policy (train/precision.py): "
+                             "fp32, bf16-master, adam8bit or a '+' "
+                             "composition")
     parser.add_argument("--param-dtype", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--fence-every", type=_positive_int, default=1,
@@ -143,18 +152,9 @@ def check_ported_flags(args) -> None:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md "
                 f"queue 1, {item})")
-    if args.optimizer != "adamw":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} is not ported yet (ROADMAP.md "
-            f"queue 1, 'Remat policies, precision and optimizers')")
     from .precision import resolve_policy
 
     resolve_policy(args.precision_policy)
-    if args.checkpoint_activations and args.remat_policy != "all":
-        raise NotImplementedError(
-            f"--remat-policy {args.remat_policy}: only 'all' is ported "
-            f"(ROADMAP.md queue 1, 'Remat policies, precision and "
-            f"optimizers')")
 
 
 def _profiler(device):
@@ -169,9 +169,10 @@ def _profiler(device):
 def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                  model_overrides: Optional[dict] = None) -> dict:
     """The chapter-01 training loop. Returns the host state, the last info
-    dict, the state, and every logged info dict (for tests).
-    ``model_overrides`` replaces config fields of the preset (e.g.
-    ``num_layers`` to cut depth)."""
+    dict, the state, every logged info dict, whether the run resumed, and
+    each checkpoint save's log (bytes, seconds) for tests and the card's
+    smoke run. ``model_overrides`` replaces config fields of the preset
+    (e.g. ``num_layers`` to cut depth)."""
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
@@ -179,10 +180,15 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
     import torch
 
     from .._device import resolve_device
+    from ..checkpoint import (CheckpointIO, restore_train_state,
+                              stamp_host_state)
     from ..data import BatchLoader, get_tokenizer, load_and_preprocess_data
     from ..models import get_model
     from ..utils import (LocalTimer, compute_mfu, device_sync, get_mem_stats,
                          init_logging, transformer_flops_per_token)
+    from ..utils.faults import maybe_crash
+    from ..utils.heartbeat import HeartbeatWriter
+    from ..utils.tracking import make_tracker
     from .guards import GuardMonitor
     from .optimizer import OPTIMIZERS, lr_at_step
     from .state import host_state_dict
@@ -193,6 +199,8 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
     init_logging()
     LOGGER.info(vars(args))
     overrides = dict(model_overrides or {})
+    if args.param_dtype == "bfloat16":
+        overrides["param_dtype"] = torch.bfloat16
     if getattr(args, "sliding_window", None):
         overrides["sliding_window"] = args.sliding_window
     if getattr(args, "moe_dispatch", None):
@@ -221,7 +229,9 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
     tokenizer = get_tokenizer(args.model_name)
     dataset = load_and_preprocess_data(
         args.dataset_name, tokenizer, seq_length,
-        max_position_embeddings=cfg.max_position_embeddings, seed=args.seed)
+        max_position_embeddings=cfg.max_position_embeddings, seed=args.seed,
+        dataset_subset=args.dataset_subset,
+        mmap_dir=args.mmap_data)
     LOGGER.info(f"{len(dataset)} training sequences of length {seq_length}")
     loader = BatchLoader(dataset, global_batch, device=device,
                          grad_accum=args.grad_accum, seed=args.seed)
@@ -231,8 +241,33 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
     LOGGER.info(f"{steps_per_epoch} batches per epoch (global batch "
                 f"{global_batch})")
 
+    # ---- experiment dir + resume (reference 01:80-110) --------------------
+    exp_dir = Path(args.save_dir)
+    is_experiment = args.experiment_name is not None
+    if is_experiment:
+        exp_dir = exp_dir / args.experiment_name
+    io = (CheckpointIO(exp_dir, async_save=args.async_checkpoint,
+                       keep_n=args.keep_checkpoints,
+                       full_crc=args.checkpoint_full_crc)
+          if is_experiment else None)
     host_state = host_state_dict()
-    state = trainer.init_state(args.seed)
+    resumed = io is not None and io.can_resume()
+    if resumed:
+        # policy-aware: an fp32 checkpoint restored into a precision-policy
+        # run is re-encoded with a logged warning
+        state, host_state = restore_train_state(io, trainer)
+    else:
+        state = trainer.init_state(args.seed)
+    if is_experiment:
+        LOGGER.info(f"Resumed={resumed} | {host_state}")
+        exp_dir.mkdir(parents=True, exist_ok=True)
+    # stamped into every manifest: a restore under another
+    # --precision-policy fails loudly (or re-encodes an fp32 checkpoint)
+    stamp_host_state(host_state, trainer)
+    tracker = make_tracker(
+        args, mode="per-host" if args.wandb_per_host else "process0",
+        exp_dir=exp_dir if is_experiment else None, config=vars(args))
+
     sync_fn = (device_sync if args.timer_sync and device.type == "cuda"
                else None)
     timers = {k: LocalTimer(sync_fn=sync_fn) for k in ["data", "step"]}
@@ -240,6 +275,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
         bundle.num_active_params(), cfg.num_layers, cfg.hidden_size,
         seq_length, vocab_size=cfg.vocab_size)
     tok_per_step = trainer.tokens_per_step(args.batch_size, seq_length)
+    heartbeat = HeartbeatWriter()   # a no-op unless $HEARTBEAT_FILE is set
     last_info: dict = {}
     infos: list = []
     prof = None
@@ -283,6 +319,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                         drain_losses()
                 host_state["global_step"] += 1
                 host_state["epoch_step"] += 1
+                heartbeat.beat(host_state["global_step"])
 
                 if args.profile_dir:  # trace a ~5-step steady window
                     if prof is None and host_state["global_step"] >= 10:
@@ -325,11 +362,22 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                         **(extra_log or {}),
                     }
                     LOGGER.info(info)
+                    tracker.log(info, step=host_state["global_step"])
                     last_info = info
                     infos.append(info)
                     host_state["running_loss"] = 0.0
                     for t in timers.values():
                         t.reset()
+
+                if (io is not None
+                        and host_state["global_step"] % args.ckpt_freq == 0):
+                    drain_losses()    # host_state is about to be persisted
+                    LOGGER.info("Saving checkpoint.")
+                    io.save(state, host_state)
+
+                # after the checkpoint block: an injected crash at step N
+                # leaves the step-N checkpoint (if any) published
+                maybe_crash(host_state["global_step"])
 
                 if (args.max_steps
                         and host_state["global_step"] >= args.max_steps):
@@ -342,8 +390,14 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
     finally:
         if prof is not None and not profile_done:
             _finish_profile(prof, args.profile_dir)
+        try:
+            if io is not None:
+                io.close()     # finalize any in-flight async checkpoint
+        finally:
+            tracker.finish()
     return {"host_state": host_state, "last_info": last_info,
-            "state": state, "infos": infos}
+            "state": state, "infos": infos, "resumed": resumed,
+            "checkpoint_saves": io.save_log if io is not None else []}
 
 
 def _finish_profile(prof, profile_dir: str) -> None:

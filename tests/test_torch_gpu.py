@@ -1262,3 +1262,78 @@ def test_int8_engine_on_card_matches_cpu_engine_greedy(cuda):
         cpu = generate_many(ServeEngine(bundle, params, device="cpu", **kw),
                             reqs)
         assert [r.token_ids for r in gpu] == [r.token_ids for r in cpu]
+
+
+@pytest.mark.parametrize("policy,k1_per_layer", [
+    (None, 1), ("all", 2), ("dots", 2), ("attn", 1), ("attn_mlp", 1)])
+def test_remat_policy_launches_k1_per_layer(cuda, policy, k1_per_layer):
+    """A head_dim-64 llama-debug variant in bf16 through the flash kernels:
+    the flash forward is one custom op, so "attn" / "attn_mlp" keep its
+    (o, lse) and backward launches no K1 again; K2 and K3 once per layer
+    under every policy. Loss and grads bitwise those of the step without
+    remat (recomputation launches the same kernels on the same inputs)."""
+    from distributed_training_guide_tpu_torch.models import llama
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+
+    bundle = get_model("llama-debug", hidden_size=256, num_heads=4,
+                       num_kv_heads=2)
+    cfg = bundle.config
+    base = bundle.init(cfg, 0, device=cuda)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(**kw):
+        leaves = []
+
+        def req(t):
+            if isinstance(t, dict):
+                return {k: req(v) for k, v in t.items()}
+            leaves.append(t.detach().clone().requires_grad_())
+            return leaves[-1]
+
+        params = req(base)
+        counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        loss = causal_lm_loss(llama.apply(cfg, params, ids,
+                                          attn_impl="flash", **kw), ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        used = [now - was for now, was in zip(
+            (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), counts)]
+        return loss.detach(), [x.grad for x in leaves], used
+
+    loss0, grads0, _ = run()
+    loss, grads, used = run(remat=policy is not None, remat_policy=policy)
+    layers = cfg.num_layers
+    assert used == [k1_per_layer * layers, layers, layers]
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(grads, grads0):
+        assert torch.equal(g, g0)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_op_under_selective_checkpoint_equals_the_kernels(cuda, dtype):
+    """The custom op's autograd under the "attn" policy: one K1 launch, and
+    dq, dk, dv bitwise equal to K1 then K2 / K3 called directly (what the
+    autograd Function before the custom op computed)."""
+    from distributed_training_guide_tpu_torch.ops import remat
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = _flash_inputs(cuda, gen, dtype, 8, 2, 64, sq=256, sk=256)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def body(q, k, v):
+        return fa.flash_attention(q * 1, k * 1, v * 1, window=96)
+
+    before = fa.FWD_LAUNCHES
+    o = remat.remat(body, *leaves, policy="attn")
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert fa.FWD_LAUNCHES - before == 1
+    o2, lse = fa.flash_fwd(q, k, v, window=96)
+    assert torch.equal(o.detach(), o2)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o2.float())
+    want = fa.flash_bwd_with_stats(q, k, v, do, lse, delta.contiguous(),
+                                   window=96)
+    for label, x, w in zip("qkv", leaves, want):
+        assert torch.equal(x.grad, w), label

@@ -291,10 +291,13 @@ def test_unported_moe_paths_raise():
         tmoe.make_ragged_ep_dispatch(None, tb.config)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmoe.decode_step(tb.config, tparams, ids, 0, {})
-    for kw in (dict(layer_schedule=object()), dict(moe_ep=object()),
-               dict(remat=True, remat_policy="dots")):
+    for kw in (dict(layer_schedule=object()), dict(moe_ep=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmoe.apply_with_aux(tb.config, tparams, ids, **kw)
+    # the remat policies are ported (tests/test_torch_remat.py)
+    dots, _ = tmoe.apply_with_aux(tb.config, tparams, ids, remat=True,
+                                  remat_policy="dots")
+    assert torch.equal(dots, tmoe.apply_with_aux(tb.config, tparams, ids)[0])
     cfg = dataclasses.replace(tb.config, moe_dispatch="sparse")
     with pytest.raises(ValueError, match="moe_dispatch"):
         tmoe.apply_with_aux(cfg, tparams, ids)
