@@ -124,7 +124,21 @@ phases, each of which raises on failure:
    their state bytes; (e) the NaN drill under ``--guard-policy skip``
    (one step skipped); and qwen3-30b-a3b cut to 2 layers (ragged) without
    remat and under "all" / "attn": K1, K5 and K6 per layer, the loss
-   bitwise the same.
+   bitwise the same;
+17. plans — the distributed plans of chapters 02, 04, 06 and 07 through
+   their entry points (``chapters/c02_ddp.py`` plain, ``--zero1`` and
+   ``--zero2``, ``c04_fsdp.py``, ``c06_tp.py``, ``c07_tp_fsdp.py``) on a
+   one-rank NCCL group from the torchrun env contract (a TCPStore) and a
+   six-axis ``DeviceMesh`` of size 1, on llama-3.2-1b at full width and
+   depth (B 4, S 2048, 3 steps; zero2 as 2 microbatches of 2, with its
+   sharded accumulation buffer): every loss and grad norm within
+   ``PLAN_LOSS_REL`` / ``PLAN_NORM_REL`` of the single plan's on the same
+   weights and batch (each collective is a copy at one rank), exactly 16
+   launches of each of K1-K3 per step (32 for zero2's two microbatches:
+   the einsum attention never ran), the step ms, tokens/s and peak GB of
+   each beside the single plan's; and a run under chapter 04's plan at 2
+   layers saving at step 2 of 3, resumed under chapter 07's plan, whose
+   step-3 loss equals the fsdp run's.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -424,20 +438,26 @@ def _kernel_ms(torch, fn, iters: int) -> dict:
     is its mean per recorded launch times its launches per call (its
     recorded count over ``iters``, rounded), since a profile can miss a few
     launches' records; a kernel whose count is not a whole multiple of
-    ``iters`` is logged."""
+    ``iters`` is logged. A profile that recorded no device time at all
+    (its records can all go missing) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if _device_us(e) > 0 and e.count > 0]
+        if events:
+            break
+        log(phase="profiler", attempt=attempt + 1,
+            note="no device time recorded: profiling again")
     out = {}
-    for e in prof.key_averages():
-        if _device_us(e) <= 0 or e.count <= 0:
-            continue
+    for e in events:
         per_call = max(1, round(e.count / iters))
         if e.count != per_call * iters:
             log(phase="profiler", kernel=e.key[:60], events=e.count,
@@ -3112,6 +3132,198 @@ def phase_chapter01(torch, card: str) -> dict:
             "optimizers": optimizers, "nan": nan, "moe_remat": moe_remat}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the distributed plans of chapters 02, 04, 06 and 07, at world 1
+# ---------------------------------------------------------------------------
+
+PLAN_STEPS = 3
+# (strategy, chapter module, its flags, the run's own arguments); zero2 takes
+# two microbatches of 2 so that its sharded accumulation buffer exists, held
+# to a single-plan run of the same microbatches
+PLAN_RUNS = (("ddp", "c02_ddp", [], []),
+             ("zero1", "c02_ddp", ["--zero1"], []),
+             ("zero2", "c02_ddp", ["--zero2"], ["-b", "2", "--grad-accum", "2"]),
+             ("fsdp", "c04_fsdp", [], []),
+             ("tp", "c06_tp", [], []),
+             ("tp_fsdp", "c07_tp_fsdp", [], []))
+# one rank: every collective is a copy on a one-rank NCCL group, and the
+# vocab-parallel loss of tp and tp_fsdp computes and differentiates the
+# logsumexp as torch.logsumexp does, so every plan runs the single plan's
+# arithmetic: bitwise is expected, and these bounds are what the check allows
+PLAN_LOSS_REL = 1e-5
+PLAN_NORM_REL = 1e-4
+PLAN_RESUME_LAYERS = 2
+PLAN_LAUNCHES: dict = {}    # each kernel's launches over the strategies' runs
+
+
+def plan_env() -> dict:
+    """The torchrun env contract for a world of one: rank 0 of 1 on a
+    TCPStore at a free local port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+
+
+def with_env(env: dict, fn):
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def plan_run(torch, chapter, argv: list) -> tuple:
+    """One run through a chapter's ``main`` (or chapter 01's CLI when
+    ``chapter`` is None) with the K1-K3 launches of the run."""
+    import importlib
+
+    from distributed_training_guide_tpu_torch.train import cli
+
+    reset_flash_counts()                      # the run's path starts here
+    torch.cuda.reset_peak_memory_stats()
+    if chapter is None:
+        out = cli.run_training(cli.get_parser().parse_args(argv))
+    else:
+        mod = importlib.import_module(
+            f"distributed_training_guide_tpu_torch.chapters.{chapter}")
+        out = with_env(plan_env(), lambda: mod.main(argv))
+    torch.cuda.synchronize()
+    counts = flash_counts()                   # ... and ends here
+    return out, counts
+
+
+def plan_summary(out) -> dict:
+    infos = out["infos"]
+    later = infos[1:]
+    return {"losses": [i["running_loss"] for i in infos],
+            "grad_norms": [i["grad_norm"] for i in infos],
+            "time_step_ms": sum(i["time/step"] for i in later) / len(later),
+            "tokens_per_s": sum(i["tokens_per_s"] for i in later)
+            / len(later),
+            "peak_alloc_gb": out["last_info"]["peak_alloc_gb"]}
+
+
+def plan_compare(name: str, got: dict, want: dict) -> dict:
+    """A strategy's losses and grad norms against the single plan's."""
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(got["losses"], want["losses"]))
+    norm_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(got["grad_norms"], want["grad_norms"]))
+    check(len(got["losses"]) == PLAN_STEPS
+          and all(map(math.isfinite, got["losses"])),
+          f"plans {name}: losses {got['losses']}")
+    check(loss_rel <= PLAN_LOSS_REL, f"plans {name}: losses {got['losses']} "
+          f"against the single plan's {want['losses']}: rel {loss_rel}")
+    check(norm_rel <= PLAN_NORM_REL, f"plans {name}: grad norms "
+          f"{got['grad_norms']} against {want['grad_norms']}: rel "
+          f"{norm_rel}")
+    return {"loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+            "losses_bitwise": got["losses"] == want["losses"],
+            "grad_norms_bitwise": got["grad_norms"] == want["grad_norms"]}
+
+
+def plan_resume(torch, root: Path) -> dict:
+    """Chapter 04's plan (fsdp) saves at step 2 of 3 at 2 layers; chapter
+    07's plan (tp_fsdp) resumes from it and takes step 3, whose loss must
+    equal the fsdp run's own step 3."""
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train import cli
+
+    def run(strategy):
+        args = cli.get_parser().parse_args(
+            TRAIN_ARGS + ["--log-freq", "1", "--max-steps", str(PLAN_STEPS),
+                          "-e", "plans", "--save-dir", str(root),
+                          "--ckpt-freq", "2"])
+
+        def go():
+            maybe_initialize_distributed("cuda")
+            try:
+                return cli.run_training(
+                    args, lambda: make_plan(strategy, make_mesh()),
+                    model_overrides={"num_layers": PLAN_RESUME_LAYERS})
+            finally:
+                dist.destroy_process_group()
+        return with_env(plan_env(), go)
+
+    straight = run("fsdp")
+    want = {i["global_step"]: i["running_loss"] for i in straight["infos"]}
+    saves = straight["checkpoint_saves"]
+    ch01_free(torch, straight)
+    resumed = run("tp_fsdp")
+    got = {i["global_step"]: i["running_loss"] for i in resumed["infos"]}
+    check(resumed["resumed"] and list(got) == [PLAN_STEPS],
+          f"plans resume: resumed={resumed['resumed']}, steps {list(got)}")
+    rel = abs(got[PLAN_STEPS] - want[PLAN_STEPS]) / abs(want[PLAN_STEPS])
+    check(rel <= PLAN_LOSS_REL, f"plans resume: step {PLAN_STEPS} loss "
+          f"{got[PLAN_STEPS]} under tp_fsdp, {want[PLAN_STEPS]} under fsdp")
+    ch01_free(torch, resumed)
+    return {"fsdp_losses": want, "tp_fsdp_loss": got[PLAN_STEPS],
+            "rel": rel, "bitwise": got[PLAN_STEPS] == want[PLAN_STEPS],
+            "layers": PLAN_RESUME_LAYERS,
+            "saves": [{k: v for k, v in s.items()
+                       if k in ("step", "bytes", "write_s")} for s in saves]}
+
+
+def phase_plans(torch, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    layers = 16
+    base = TRAIN_ARGS + ["--max-steps", str(PLAN_STEPS), "--log-freq", "1"]
+    refs, results, per_step = {}, {}, {}
+    for extra in ([], ["-b", "2", "--grad-accum", "2"]):
+        out, counts = plan_run(torch, None, base + extra)
+        refs[tuple(extra)] = plan_summary(out)
+        ch01_free(torch, out)
+        log(phase="plans", strategy="single", extra=extra, card=card,
+            launches=counts, **refs[tuple(extra)])
+    for strategy, chapter, flags, extra in PLAN_RUNS:
+        out, counts = plan_run(torch, chapter, base + extra + flags)
+        summary = plan_summary(out)
+        ch01_free(torch, out)
+        accum = 2 if "--grad-accum" in extra else 1
+        want = {k: layers * accum * PLAN_STEPS for k in counts}
+        check(counts == want, f"plans {strategy}: launches {counts}, want "
+              f"{want} ({layers * accum} of each per step: the einsum "
+              f"attention ran)")
+        for k, v in counts.items():
+            PLAN_LAUNCHES[k] = PLAN_LAUNCHES.get(k, 0) + v
+        per_step[strategy] = {k: v // PLAN_STEPS for k, v in counts.items()}
+        ref = refs[tuple(extra)]
+        results[strategy] = {**summary, **plan_compare(strategy, summary,
+                                                       ref),
+                             "single_time_step_ms": ref["time_step_ms"],
+                             "single_tokens_per_s": ref["tokens_per_s"],
+                             "single_peak_alloc_gb": ref["peak_alloc_gb"]}
+        log(phase="plans", strategy=strategy, chapter=chapter, flags=flags,
+            extra=extra, card=card, launches_per_step=per_step[strategy],
+            **results[strategy])
+    root = Path(tempfile.mkdtemp(prefix="plans-"))
+    try:
+        resume = plan_resume(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(phase="plans", resume=resume, card=card)
+    return {"launches": dict(PLAN_LAUNCHES), "per_step": per_step,
+            "results": results, "single": refs[()], "resume": resume}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -3224,6 +3436,7 @@ def main() -> int:
     qmm_timing = phase_qmm_timing(torch)
     int8_serve = phase_int8_serve(torch, smi)
     ch01 = phase_chapter01(torch, smi)
+    plans = phase_plans(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -3296,6 +3509,9 @@ def main() -> int:
             "body": t["body"],
             "bf16_kernel_arith_rel_l2": flash_worst["kernel_arith"][name],
             "launches_chapter01": ch01["launches"][name],
+            "launches_plans": plans["launches"][name],
+            "launches_per_step_by_plan": {
+                k: v[name] for k, v in plans["per_step"].items()},
             "launches_per_step_by_remat_policy": {
                 p: r["launches_per_step"][name]
                 for p, r in ch01["remat"].items()},

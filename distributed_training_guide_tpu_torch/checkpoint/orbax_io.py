@@ -4,9 +4,13 @@ Counterpart of ``distributed_training_guide_tpu/checkpoint/orbax_io.py``
 (the name is kept so the two are found together; nothing here uses Orbax).
 A checkpoint is the train state as a flat dict of named tensors
 (``train/state.py:state_tensors``: parameter paths, never optimizer
-indices), written by ``torch.distributed.checkpoint`` (DCP, one process,
-no process group) into ``<exp_dir>/checkpoint-<step>``, the format of the
-reference guide's chapters 04 and 06. The resume trigger is the
+indices), written by ``torch.distributed.checkpoint`` (DCP) into
+``<exp_dir>/checkpoint-<step>``, the format of the reference guide's
+chapters 04 and 06: with no process group by the one process; under a
+sharding plan by every rank, each writing its shards of the ``DTensor``
+entries, so a read into another plan's layout reshards
+(``checkpoint/reshard.py`` checks the two layouts first). Only process 0
+writes the manifest and ``state.json``. The resume trigger is the
 reference's ``state.json`` contract: resumable iff ``<exp_dir>/state.json``
 exists.
 
@@ -28,8 +32,13 @@ The fault-tolerance layer is the JAX module's:
   at its first ``save()`` and at every publish; a restore-only reader
   never deletes anything.
 
+With more than one process, restore follows the JAX module: process 0
+verifies the chain and broadcasts the one candidate every rank reads, and
+a read error fails the gang instead of falling back on one rank.
+
 The port's optimizer updates params and moments in place, so
-``async_save`` first copies the state to host memory (pinned buffers,
+``async_save`` (one process, no sharding plan) first copies the state to
+host memory (pinned buffers,
 reused across saves, then a device sync) before ``save()`` returns; only
 the file write overlaps the following steps, on one background thread. A
 write that fails raises at the next ``save()``, ``flush()`` or
@@ -82,6 +91,13 @@ def _dcp():
     import torch.distributed.checkpoint as dcp
 
     return dcp
+
+
+def _no_dist() -> bool:
+    """DCP without collectives: no process group is up."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized())
 
 
 class CheckpointIO:
@@ -208,20 +224,25 @@ class CheckpointIO:
         from torch.distributed.checkpoint import FileSystemWriter
 
         tmp = path.with_name(path.name + ".tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
+        if is_process0():
+            shutil.rmtree(tmp, ignore_errors=True)
+        sync_processes("ckpt_tmp_clear")
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
                 _dcp().save(flat, storage_writer=FileSystemWriter(
-                    tmp, thread_count=_WRITE_THREADS), no_dist=True)
+                    tmp, thread_count=_WRITE_THREADS), no_dist=_no_dist())
         except Exception as exc:  # noqa: BLE001 — OSErrors become OSError
             cause = _oserror_in(exc)
             if cause is not None and cause is not exc:
                 raise OSError(cause.errno, f"checkpoint write failed: "
                               f"{cause}") from exc
             raise
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
+        sync_processes("ckpt_written")
+        if is_process0():
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        sync_processes("ckpt_committed")
 
     def _write_with_retry(self, path: Path, flat: dict) -> None:
         """Bounded-backoff retry around a synchronous write for transient
@@ -322,6 +343,10 @@ class CheckpointIO:
                "bytes": sum(t.numel() * t.element_size()
                             for t in flat.values())}
         if self.async_save:
+            if process_count() > 1 or train_state.sharding is not None:
+                raise NotImplementedError(
+                    "async checkpoints of a sharded state: ROADMAP.md "
+                    "queue 1, 'Distributed plans, the rest'")
             staged = self._stage(flat)
             if self._executor is None:
                 self._executor = ThreadPoolExecutor(max_workers=1)
@@ -402,7 +427,7 @@ class CheckpointIO:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             _dcp().load(flat, storage_reader=FileSystemReader(path),
-                        no_dist=True)
+                        no_dist=_no_dist())
 
     def restore(self, target_state: Any) -> tuple:
         """Read the newest verifiable checkpoint into ``target_state`` (a
@@ -416,13 +441,12 @@ class CheckpointIO:
         from ..train.state import load_state_tensors, state_tensors
 
         self.flush()
-        if process_count() > 1:
-            raise NotImplementedError(
-                "multi-process restore (one agreed candidate broadcast by "
-                "process 0): ROADMAP.md queue 1, 'Distributed plans'")
-        if not self._retained_names():
+        names = self._retained_names()
+        if not names:
             raise FileNotFoundError(
                 f"no resumable checkpoint in {self.exp_dir}")
+        if process_count() > 1:
+            return self._agreed_restore(target_state, names)
         chain = self._retention_chain()
         if not chain:
             raise FileNotFoundError(
@@ -451,6 +475,36 @@ class CheckpointIO:
                                "%s", path.name, "; ".join(failures))
             return (load_state_tensors(target_state, flat),
                     self._host_state_for(path, manifest))
+
+
+    def _agreed_restore(self, target_state: Any, names: list) -> tuple:
+        """Multi-process: process 0 verifies the manifests and broadcasts
+        the chosen candidate, so ranks can never restore different
+        checkpoints. The index space is the state.json name list itself,
+        not each rank's view of the filesystem. A read error then fails
+        the gang (the restart layer retries the same candidate)."""
+        import torch.distributed as dist
+
+        from ..train.state import load_state_tensors, state_tensors
+
+        chain = [(self.exp_dir / n).absolute() for n in names]
+        failures: list = []
+        idx = [self._verified_candidate(chain, failures)
+               if is_process0() else 0]
+        dist.broadcast_object_list(idx, src=0)
+        if idx[0] < 0:
+            raise CheckpointCorruptionError(
+                f"no checkpoint in {self.exp_dir} survived verification: "
+                + "; ".join(failures))
+        path = chain[idx[0]]
+        if idx[0] > 0:
+            LOGGER.warning("process 0 chose fallback checkpoint %s",
+                           path.name)
+        flat = state_tensors(target_state)
+        self._read(path, flat)
+        manifest = manifest_mod.load_manifest(self.exp_dir, path.name)
+        return (load_state_tensors(target_state, flat),
+                self._host_state_for(path, manifest))
 
 
 def abstract_train_state(trainer, *, fp32_reference: bool = False):

@@ -16,11 +16,12 @@ naming both layouts:
   payloads + one fp32 scale per block of the trailing axis
   (``train/precision.py``); the scale shapes encode the block size.
 
-The port trains on one device only (the single-device plan), so its own
-descriptor is always ``{"axes": {}, "device_count": 1, "strategy":
-"single", "pp_stages": 1, ...}``: the cross-mesh paths stay inert until
-ROADMAP.md queue 1, 'Distributed plans'. The descriptor equals the JAX
-package's on one device, so a checkpoint's stamp reads the same in both.
+A trainer without a plan stamps ``{"axes": {}, "device_count": 1,
+"strategy": "single", "pp_stages": 1, ...}``; under a sharding plan the
+stamp carries the plan's non-trivial axes, the ranks and the strategy, as
+the JAX package's does, so a stamp reads the same in both. DCP reshards
+the stored shards into the restoring plan's layout (a checkpoint saved
+under fsdp 4 restores under tp 2 x fsdp 2).
 """
 from __future__ import annotations
 
@@ -42,15 +43,15 @@ def mesh_descriptor(trainer) -> dict:
     """The layout stamp for one trainer: the mesh's non-trivial axes, the
     device count, the sharding strategy, the pipeline stage split, and the
     quantized-moment block size (None for unquantized policies). Small,
-    JSON-safe, and sufficient for :func:`check_reshard_compatibility`.
-    The port's trainer runs the single-device plan: no non-trivial axis,
-    one device, one stage."""
+    JSON-safe, and sufficient for :func:`check_reshard_compatibility`."""
     policy = trainer.precision
+    plan = trainer.plan
+    sizes = {} if plan is None else plan.sizes
     return {
-        "axes": {},
-        "device_count": 1,
-        "strategy": "single",
-        "pp_stages": 1,
+        "axes": {k: int(v) for k, v in sizes.items() if int(v) > 1},
+        "device_count": 1 if plan is None else plan.size(),
+        "strategy": "single" if plan is None else plan.strategy,
+        "pp_stages": int(sizes.get("pp", 1)),
         "quant_block": (int(policy.block_size)
                         if policy.quantize_moments else None),
     }

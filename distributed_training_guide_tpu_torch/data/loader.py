@@ -1,11 +1,15 @@
-"""Single-device batch loader.
+"""Batch loader.
 
 Counterpart of ``distributed_training_guide_tpu/data/loader.py``'s
-``ShardedBatchLoader`` on one device: the same per-epoch shuffle
-(``RandomState(seed + 1000003 * epoch)``), ``drop_last`` batches, the same
-ascending order inside a batch, and ``start_step`` fast-forward, so the
-batches equal the JAX loader's. Yields ``{"input_ids", "labels"}`` int64
-tensors on the device, [B, S], or [A, B / A, S] under grad accumulation.
+``ShardedBatchLoader``: the same per-epoch shuffle
+(``RandomState(seed + 1000003 * epoch)``), ``drop_last`` global batches,
+the same ascending order inside a batch, and ``start_step`` fast-forward,
+so the batches equal the JAX loader's. Yields ``{"input_ids", "labels"}``
+int64 tensors on the device, [B, S], or [A, B / A, S] under grad
+accumulation. Under a sharding plan each rank materializes only the rows
+of its data coordinate (``data_rank`` of ``data_size``): the JAX loader's
+shard of the batch dim, each microbatch's rows split alike; the ranks of
+one tp group share a coordinate and read the same rows.
 """
 from __future__ import annotations
 
@@ -17,9 +21,17 @@ import torch
 
 class BatchLoader:
     def __init__(self, dataset: np.ndarray, batch_size: int, *, device,
-                 grad_accum: int = 1, seed: int = 0):
+                 grad_accum: int = 1, seed: int = 0, data_rank: int = 0,
+                 data_size: int = 1):
+        """``batch_size`` is the global batch (every rank's rows, every
+        microbatch)."""
         if batch_size % max(grad_accum, 1) != 0:
             raise ValueError("batch_size must be divisible by grad_accum")
+        if (batch_size // max(grad_accum, 1)) % data_size != 0:
+            raise ValueError(f"a microbatch of {batch_size // max(grad_accum, 1)} "
+                             f"rows does not split over {data_size} data ranks")
+        self.data_rank = data_rank
+        self.data_size = data_size
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -49,7 +61,10 @@ class BatchLoader:
         for step in range(start_step, len(self)):
             idx = np.sort(order[step * self.batch_size:
                                 (step + 1) * self.batch_size])
-            rows = np.asarray(self.dataset[idx], dtype=np.int64)
+            idx = idx.reshape(self._leading_shape())
+            n = idx.shape[-1] // self.data_size
+            idx = idx[..., self.data_rank * n:(self.data_rank + 1) * n]
+            rows = np.asarray(self.dataset[idx.ravel()], dtype=np.int64)
             ids = torch.from_numpy(rows.reshape(
-                self._leading_shape() + rows.shape[-1:])).to(self.device)
+                idx.shape + rows.shape[-1:])).to(self.device)
             yield {"input_ids": ids, "labels": ids}

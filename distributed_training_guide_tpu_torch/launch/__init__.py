@@ -1,1 +1,5 @@
-"""Launch helpers of the port (this slice: the error file)."""
+"""Launch helpers: process-group init, the local gang launcher, error
+files."""
+from .distributed import maybe_initialize_distributed
+
+__all__ = ["maybe_initialize_distributed"]

@@ -102,7 +102,22 @@ def init(config: LlamaConfig, rng, *, device=None) -> dict:
     cuda). Leaves are drawn in the JAX package's order, so one seed gives
     one set of params on a given device; the bits differ from jax's."""
     gen = _generator(rng, device)
-    dev = gen.device
+    return _init_on(config, gen, gen.device)
+
+
+def param_shapes(config: LlamaConfig) -> dict:
+    """Every leaf's shape, as ``init`` makes it (drawn on the meta device:
+    nothing is allocated)."""
+    tree = _init_on(config, torch.Generator(), torch.device("meta"))
+
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        return tuple(t.shape)
+    return shapes(tree)
+
+
+def _init_on(config: LlamaConfig, gen: torch.Generator, dev) -> dict:
     e, f, v, l = (config.hidden_size, config.intermediate_size,
                   config.vocab_size, config.num_layers)
     d = config.head_size
@@ -142,6 +157,56 @@ def init(config: LlamaConfig, rng, *, device=None) -> dict:
     if not config.tie_word_embeddings:
         params["lm_head"] = dense((e, v))
     return params
+
+
+def param_logical_axes(config: LlamaConfig) -> dict:
+    """Logical axis names for every leaf, mirroring ``init``'s structure
+    (the JAX package's, leaf for leaf): vocab, embed, heads (fused q-heads
+    x head_dim), kv (fused kv-heads), mlp, layers (the stacked axis);
+    ``*_vector`` names a 1-d scale or bias. ``parallel/plans.py`` maps them
+    to mesh axes."""
+    attn_axes = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv"),
+        "wv": ("layers", "embed", "kv"),
+        "wo": ("layers", "heads", "embed"),
+    }
+    if config.attn_bias:  # biases shard with the head dim they add onto
+        attn_axes.update(bq=("layers", "heads"), bk=("layers", "kv"),
+                         bv=("layers", "kv"))
+    if config.qk_norm == "flat":  # full-width scales shard with their heads
+        attn_axes.update(q_norm=("layers", "heads_vector"),
+                         k_norm=("layers", "kv_vector"))
+    elif config.qk_norm:  # one [head_dim] scale shared by every head: never
+        attn_axes.update(q_norm=("layers", "head_dim_vector"),  # sharded
+                         k_norm=("layers", "head_dim_vector"))
+    layer_axes = {
+        "attn": attn_axes,
+        "mlp": {
+            "gate": ("layers", "embed", "mlp"),
+            "up": ("layers", "embed", "mlp"),
+            "down": ("layers", "mlp", "embed"),
+        },
+    }
+    if config.post_norm:
+        layer_axes.update(attn_out_norm=("layers", "embed_vector"),
+                          mlp_out_norm=("layers", "embed_vector"))
+    elif config.sandwich_norm:
+        layer_axes.update(input_norm=("layers", "embed_vector"),
+                          attn_out_norm=("layers", "embed_vector"),
+                          post_attn_norm=("layers", "embed_vector"),
+                          mlp_out_norm=("layers", "embed_vector"))
+    else:
+        layer_axes.update(input_norm=("layers", "embed_vector"),
+                          post_attn_norm=("layers", "embed_vector"))
+    axes = {
+        "embed": {"embedding": ("vocab", "embed")},
+        "layers": layer_axes,
+        "final_norm": ("embed_vector",),
+    }
+    if not config.tie_word_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def _is_qt(w) -> bool:
@@ -209,9 +274,12 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
                        norm_scale, positions: torch.Tensor, attn_impl,
                        rope: tuple, return_kv: bool = False,
                        window_override=None, attend_override=None,
-                       standard_layout: bool = True):
+                       standard_layout: bool = True, kv_hook=None):
     """norm -> rope'd GQA attention -> output projection (the caller adds
     the residual). ``rope`` is ``layer_rope(config, positions)``.
+    ``kv_hook`` (tensor parallelism, ``parallel/plans.py``) maps the k and
+    v projections, fused heads last, to the kv heads this rank's q heads
+    read.
     ``return_kv`` also returns the (rope'd) k/v. ``standard_layout``:
     positions are ``arange`` (what lets "auto" pick the flash kernels).
     ``attend_override`` (the serving engine's paged-KV hook) is a callable
@@ -231,6 +299,8 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
         q = q + attn_params["bq"].to(cdt)
         k = k + attn_params["bk"].to(cdt)
         v = v + attn_params["bv"].to(cdt)
+    if kv_hook is not None:
+        k, v = kv_hook(k), kv_hook(v)
     qk_mode = getattr(config, "qk_norm", False)
     if qk_mode == "flat":       # OLMo-2: full-width norm before the reshape
         q = _rmsnorm(q, attn_params["q_norm"], config.rms_norm_eps)
@@ -261,24 +331,17 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
     return (out, (k, v)) if return_kv else out
 
 
-def mlp_sublayer(config, x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """post-attn norm -> gated MLP (the caller adds the residual). Without
-    a ``post_attn_norm`` leaf (post-norm wiring) the raw stream feeds the
-    MLP and the caller norms the output."""
+def mlp_sublayer(config, h: torch.Tensor, mlp: dict) -> torch.Tensor:
+    """Gated MLP on the normed stream ``h`` (``_residuals`` norms it and
+    adds the residual)."""
     cdt = config.dtype
-    scale = layer.get("post_attn_norm")
-    if scale is None:
-        h = x
-    else:
-        h = _rmsnorm(x, scale, config.rms_norm_eps,
-                     getattr(config, "norm_plus_one", False))
-    gate = _wmat(h, layer["mlp"]["gate"], cdt)
-    up = _wmat(h, layer["mlp"]["up"], cdt)
+    gate = _wmat(h, mlp["gate"], cdt)
+    up = _wmat(h, mlp["up"], cdt)
     gate = ACT_FNS[getattr(config, "act_fn", "silu")](gate)
     # named for the "attn_mlp" remat policy (ops/remat.py)
     with checkpoint_name("mlp_act"):
         act = gate * up
-    return _wmat(act, layer["mlp"]["down"], cdt)
+    return _wmat(act, mlp["down"], cdt)
 
 
 def embed_tokens(config: LlamaConfig, params: dict,
@@ -326,32 +389,70 @@ def lm_head_logits(config: LlamaConfig, params: dict,
     JAX package computes them, on the serve and training paths alike. A
     quantized head gives fp32 logits from ``quantized_matmul`` in either
     form."""
+    return _project_head(config, params, final_hidden(config, params, x))
+
+
+def _project_head(config: LlamaConfig, params: dict,
+                  h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of final-normed hidden states ``h``."""
     w, transpose = _output_container(config, params)
     if _is_qt(w):
-        logits = quantized_matmul(final_hidden(config, params, x), w,
-                                  transpose=transpose)
+        logits = quantized_matmul(h, w, transpose=transpose)
     else:
-        logits = matmul_f32_out(final_hidden(config, params, x),
-                                output_weights(config, params))
+        logits = matmul_f32_out(h, output_weights(config, params))
     cap = getattr(config, "final_logit_softcap", None)
     if cap:
         logits = torch.tanh(logits / cap) * cap
     return logits
 
 
-def _residuals(config, x, layer, attn):
-    """Residual wiring shared by the prefill and paged bodies (pre-,
-    post- and sandwich-norm variants)."""
+class _Whole:
+    """``apply``'s layout without a sharding plan, the identity of
+    ``parallel/plans.py:LocalLayout``: whole params and the whole sequence
+    on one device, no collective."""
+
+    def gather_leaf(self, path, local, layer=False):
+        return local
+
+    def gather_layer(self, layer):
+        return layer
+
+    def enter(self, h):
+        return h
+
+    def leave(self, out):
+        return out
+
+    def kv_hook(self, config):
+        return None
+
+    def embed(self, config, params, input_ids):
+        return embed_tokens(config, params, input_ids)
+
+    def logits(self, config, params, hidden):
+        return _project_head(config, params, hidden)
+
+
+_WHOLE = _Whole()
+
+
+def _residuals(config, x, layer, attn, layout=_WHOLE):
+    """Residual wiring shared by the training, prefill and paged bodies
+    (pre-, post- and sandwich-norm variants). ``attn`` is the attention
+    sublayer's output as ``layout`` holds the residual stream; the MLP's
+    normed input is brought to the full sequence by ``layout.enter`` and
+    its row-parallel output summed back by ``layout.leave``."""
+    eps = config.rms_norm_eps
     plus_one = getattr(config, "norm_plus_one", False)
-    if (getattr(config, "post_norm", False)
-            or getattr(config, "sandwich_norm", False)):
-        x = x + _rmsnorm(attn, layer["attn_out_norm"], config.rms_norm_eps,
-                         plus_one)
-        return x + _rmsnorm(mlp_sublayer(config, x, layer),
-                            layer["mlp_out_norm"], config.rms_norm_eps,
-                            plus_one)
-    x = x + attn
-    return x + mlp_sublayer(config, x, layer)
+    out_norms = (getattr(config, "post_norm", False)
+                 or getattr(config, "sandwich_norm", False))
+    x = x + (_rmsnorm(attn, layer["attn_out_norm"], eps, plus_one)
+             if out_norms else attn)
+    scale = layer.get("post_attn_norm")      # None: post-norm wiring
+    h = x if scale is None else _rmsnorm(x, scale, eps, plus_one)
+    mlp = layout.leave(mlp_sublayer(config, layout.enter(h), layer["mlp"]))
+    return x + (_rmsnorm(mlp, layer["mlp_out_norm"], eps, plus_one)
+                if out_norms else mlp)
 
 
 def layer_windows(config) -> Optional[list]:
@@ -395,30 +496,45 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     (``ops/remat.py``: "all" / None saves nothing, so backward reruns the
     layer's forward, K1 included; "dots", "attn" and "attn_mlp" keep what
     they name). ``positions`` given means a non-standard layout: "auto"
-    then takes the einsum attention, as in the JAX package."""
-    if activation_sharding is not None or layer_schedule is not None:
+    then takes the einsum attention, as in the JAX package.
+
+    ``activation_sharding`` is a sharding plan's ``LocalLayout``
+    (``parallel/plans.py``), where the JAX package takes a NamedSharding:
+    ``params`` are then this rank's shards and ``input_ids`` its rows of
+    the batch. The layout gathers each layer's fsdp shards just before the
+    layer (inside the remat scope, so the recompute gathers again), brings
+    each sublayer's normed input to the full sequence and sums its
+    row-parallel output back onto the residual as it holds it (its
+    sequence shard under sequence parallelism), and runs the embedding and
+    head on the vocab shards; attention (K1-K3 on the card) runs on the
+    rank's own heads. Without a plan the layout is the identity."""
+    if layer_schedule is not None:
         raise NotImplementedError(
-            "activation_sharding / layer_schedule belong to the distributed "
-            "plans and the overlap schedule (ROADMAP.md queue 1, "
-            "'Distributed plans' and 'Context parallel, pipeline parallel "
-            "and overlap')")
+            "layer_schedule belongs to the overlap schedule (ROADMAP.md "
+            "queue 1, 'Context parallel, pipeline parallel and overlap')")
+    layout = _WHOLE if activation_sharding is None else activation_sharding
     standard_layout = positions is None
     if positions is None:
         positions = torch.arange(input_ids.shape[1],
                                  device=input_ids.device)[None, :]
     positions = positions.expand(input_ids.shape)
-    x = embed_tokens(config, params, input_ids)
+    x = layout.embed(config, params, input_ids)
     wins = layer_windows(config)
     rope = layer_rope(config, positions)
+    kv_hook = layout.kv_hook(config)
     layers = _unbind_layers(params["layers"], config.num_layers)
+    eps = config.rms_norm_eps
+    plus_one = getattr(config, "norm_plus_one", False)
 
     def block(x, layer, window):
-        attn = attention_sublayer(
-            config, x, layer["attn"],
-            None if config.post_norm else layer["input_norm"], positions,
+        layer = layout.gather_layer(layer)
+        h = (x if config.post_norm
+             else _rmsnorm(x, layer["input_norm"], eps, plus_one))
+        attn = layout.leave(attention_sublayer(
+            config, layout.enter(h), layer["attn"], None, positions,
             attn_impl, rope, window_override=window,
-            standard_layout=standard_layout)
-        return _residuals(config, x, layer, attn)
+            standard_layout=standard_layout, kv_hook=kv_hook))
+        return _residuals(config, x, layer, attn, layout)
 
     for i, layer in enumerate(layers):
         window = None if wins is None else wins[i]
@@ -426,9 +542,11 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
             x = remat_layer(block, x, layer, window, policy=remat_policy)
         else:
             x = block(x, layer, window)
+    x = final_hidden(config, {"final_norm": layout.gather_leaf(
+        "final_norm", params["final_norm"])}, x)
     if return_hidden:
-        return final_hidden(config, params, x)
-    return lm_head_logits(config, params, x)
+        return x
+    return layout.logits(config, params, x)
 
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int,

@@ -49,7 +49,7 @@ from . import llama
 from .llama import _rmsnorm, attention_sublayer
 
 MOE_DISPATCH_MODES = ("dense", "ragged")
-_EP_ITEM = "ROADMAP.md queue 1, 'Distributed plans' (expert parallelism)"
+_EP_ITEM = "ROADMAP.md queue 1, 'Expert parallelism'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,8 +348,7 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
     if moe_ep is not None:
         raise NotImplementedError(f"moe_ep: {_EP_ITEM}")
     if activation_sharding is not None:
-        raise NotImplementedError(
-            "activation_sharding: ROADMAP.md queue 1, 'Distributed plans'")
+        raise NotImplementedError(f"activation_sharding: {_EP_ITEM}")
     if layer_schedule is not None:
         raise NotImplementedError(
             "layer_schedule: ROADMAP.md queue 1, 'Context parallel, "

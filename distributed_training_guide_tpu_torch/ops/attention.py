@@ -59,10 +59,12 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     del scores
     probs, vf = probs.to(v.dtype).float(), v.float()
-    # named so the "attn" remat policies keep the output (ops/remat.py)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf).reshape(b, sq, hq, d)
+    # named so the "attn" remat policies keep the output (ops/remat.py):
+    # the one operation that makes the [B, S, H, D] output in q's dtype (a
+    # copy even in fp32, where a same-dtype .to would dispatch nothing)
     with checkpoint_name("attn_out"):
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+        return out.to(q.dtype, copy=True)
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

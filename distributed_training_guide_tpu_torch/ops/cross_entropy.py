@@ -5,6 +5,11 @@ the shift lives in the loss (labels are the input ids), log-softmax is
 fp32, and ``label == -100`` masks a position out of the mean (the HF
 convention). ``fused_linear_cross_entropy`` waits with ``ops/overlap.py``
 (ROADMAP.md queue 1, 'Context parallel, pipeline parallel and overlap').
+
+Under a sharding plan the loss is ``global_mean_loss``: the global NLL sum
+over the global valid count, the ``(sum, count)`` pair summed over the
+ranks that hold different tokens, never a mean of per-rank means (the two
+differ whenever ``-100`` labels fall unevenly across ranks).
 """
 from __future__ import annotations
 
@@ -23,6 +28,27 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> tuple:
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     return ((logz - picked) * valid).sum(), valid.sum()
+
+
+def nll_and_count(logits: torch.Tensor, targets: torch.Tensor) -> tuple:
+    """(NLL sum, valid count) of fp32 ``logits`` [..., V] against already
+    shifted ``targets`` [...]."""
+    return _nll(logits.float(), targets)
+
+
+def global_mean_loss(nll_sum: torch.Tensor, count: torch.Tensor,
+                     groups: list) -> torch.Tensor:
+    """``sum over ranks of nll_sum / sum over ranks of count``, summed over
+    each process group of ``groups`` in turn. The count is a constant; the
+    sum's backward is the identity, so each rank's gradient is its own
+    tokens' share of the global mean's."""
+    from .collectives import all_reduce, all_reduce_
+
+    count = count.detach().to(torch.float32)
+    for g in groups:
+        nll_sum = all_reduce(nll_sum, g)
+        count = all_reduce_(count, g)
+    return nll_sum / count.clamp_min(1)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Chapter 01's CLI and training loop, on one card.
+"""The chapters' CLI and training loop, on one card or under a plan.
 
 Counterpart of ``distributed_training_guide_tpu/train/cli.py``: the same
 flag surface and defaults (plus ``--device``), the same host state,
@@ -16,6 +16,14 @@ package's. The fault drills of ``utils/faults.py`` and the heartbeat of
 ``utils/heartbeat.py`` are wired in. A flag whose feature a later slice
 ports raises ``NotImplementedError`` naming its ROADMAP.md item when it is
 set away from its default.
+
+``run_training(args, plan_factory)`` is what a chapter calls: the factory
+builds the sharding plan (``parallel/plans.py:make_plan``) once the
+process group is up (``launch/distributed.py``); without one the run is
+chapter 01's single-device loop. Under a plan each rank loads its rows of
+a global batch of ``batch_size x data ranks x grad_accum``, tokens/s counts
+every rank's tokens and MFU divides by the mesh's devices, and only
+process 0 logs, tracks, beats the heartbeat and writes the profile.
 """
 from __future__ import annotations
 
@@ -166,13 +174,15 @@ def _profiler(device):
     return profile(activities=activities)
 
 
-def run_training(args, *, device=None, extra_log: Optional[dict] = None,
+def run_training(args, plan_factory=None, *, device=None,
+                 extra_log: Optional[dict] = None,
                  model_overrides: Optional[dict] = None) -> dict:
-    """The chapter-01 training loop. Returns the host state, the last info
-    dict, the state, every logged info dict, whether the run resumed, and
-    each checkpoint save's log (bytes, seconds) for tests and the card's
-    smoke run. ``model_overrides`` replaces config fields of the preset
-    (e.g. ``num_layers`` to cut depth)."""
+    """The training loop. ``plan_factory() -> ShardingPlan`` is the one
+    thing chapters customize (None: one device). Returns the host state,
+    the last info dict, the state, every logged info dict, whether the run
+    resumed, and each checkpoint save's log (bytes, seconds) for tests and
+    the card's smoke run. ``model_overrides`` replaces config fields of the
+    preset (e.g. ``num_layers`` to cut depth)."""
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
@@ -188,6 +198,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                          init_logging, transformer_flops_per_token)
     from ..utils.faults import maybe_crash
     from ..utils.heartbeat import HeartbeatWriter
+    from ..utils.procguards import is_process0, process_count, process_index
     from ..utils.tracking import make_tracker
     from .guards import GuardMonitor
     from .optimizer import OPTIMIZERS, lr_at_step
@@ -196,7 +207,10 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
 
     device = resolve_device(device if device is not None
                             else getattr(args, "device", None))
-    init_logging()
+    init_logging(process_index(), process_count())
+    if not is_process0():
+        logging.getLogger().setLevel(logging.WARNING)
+    plan = plan_factory() if plan_factory is not None else None
     LOGGER.info(vars(args))
     overrides = dict(model_overrides or {})
     if args.param_dtype == "bfloat16":
@@ -214,17 +228,22 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                 f"{args.model_name!r} rejected it ({exc})")
         raise
     cfg = bundle.config
-    LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
-                f"{device} strategy=single")
+    if plan is None:
+        LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
+                    f"{device} strategy=single")
+    else:
+        LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
+                    f"mesh {plan.sizes} strategy={plan.strategy} ({device})")
     seq_length = min(args.seq_length, cfg.max_position_embeddings)
     trainer = Trainer(
         bundle=bundle, optimizer=OPTIMIZERS[args.optimizer](args.lr),
         grad_accum=args.grad_accum, remat=args.checkpoint_activations,
         remat_policy=args.remat_policy, loss_chunks=args.loss_chunks,
         attn_impl=args.attn_impl, guard_policy=args.guard_policy,
-        precision=args.precision_policy, device=device)
+        precision=args.precision_policy, device=device, plan=plan)
     guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
-    global_batch = args.batch_size * args.grad_accum
+    data_ranks = 1 if plan is None else plan.data_parallel_size
+    global_batch = args.batch_size * data_ranks * args.grad_accum
 
     tokenizer = get_tokenizer(args.model_name)
     dataset = load_and_preprocess_data(
@@ -234,7 +253,9 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
         mmap_dir=args.mmap_data)
     LOGGER.info(f"{len(dataset)} training sequences of length {seq_length}")
     loader = BatchLoader(dataset, global_batch, device=device,
-                         grad_accum=args.grad_accum, seed=args.seed)
+                         grad_accum=args.grad_accum, seed=args.seed,
+                         data_rank=0 if plan is None else plan.data_rank,
+                         data_size=data_ranks)
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
@@ -275,7 +296,12 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
         bundle.num_active_params(), cfg.num_layers, cfg.hidden_size,
         seq_length, vocab_size=cfg.vocab_size)
     tok_per_step = trainer.tokens_per_step(args.batch_size, seq_length)
-    heartbeat = HeartbeatWriter()   # a no-op unless $HEARTBEAT_FILE is set
+    n_chips = 1 if plan is None else plan.size()
+    # a no-op unless $HEARTBEAT_FILE is set; process 0 beats for the gang
+    heartbeat = HeartbeatWriter()
+    if not is_process0():
+        heartbeat.path = None
+    profile_dir = args.profile_dir if is_process0() else None
     last_info: dict = {}
     infos: list = []
     prof = None
@@ -321,7 +347,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                 host_state["epoch_step"] += 1
                 heartbeat.beat(host_state["global_step"])
 
-                if args.profile_dir:  # trace a ~5-step steady window
+                if profile_dir:  # trace a ~5-step steady window
                     if prof is None and host_state["global_step"] >= 10:
                         prof = _profiler(device)
                         prof.__enter__()
@@ -329,7 +355,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                     elif (prof is not None and not profile_done
                           and host_state["global_step"]
                           >= profile_start_step + 5):
-                        _finish_profile(prof, args.profile_dir)
+                        _finish_profile(prof, profile_dir)
                         profile_done = True
 
                 if host_state["global_step"] % args.log_freq == 0:
@@ -353,7 +379,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                         **get_mem_stats(device),
                         "tokens_per_s": tokens_per_s,
                         "mfu": compute_mfu(tokens_per_s, flops_per_token,
-                                           device=device),
+                                           n_chips, device=device),
                         "time/total": ms_per_step,
                         **{f"time/{k}": t.avg_elapsed_ms()
                            for k, t in timers.items()},
@@ -389,7 +415,7 @@ def run_training(args, *, device=None, extra_log: Optional[dict] = None,
                 break
     finally:
         if prof is not None and not profile_done:
-            _finish_profile(prof, args.profile_dir)
+            _finish_profile(prof, profile_dir)
         try:
             if io is not None:
                 io.close()     # finalize any in-flight async checkpoint

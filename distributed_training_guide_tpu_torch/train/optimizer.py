@@ -26,7 +26,16 @@ state in a precision policy's storage (``train/precision.py``) and compute
 each update in fp32, leaf by leaf: a leaf's param, grad and state slots are
 upcast, the optax arithmetic runs in optax's order, and the results are
 rounded back to storage, so the fp32 transient is one leaf's and not the
-model's. ``count`` is the shared update count (optax's ``count``).
+model's. Under the no-op ``fp32`` policy they are optax itself: every slot
+is kept in its param's dtype and the update is computed in that dtype, the
+scalars rounded to it first as jax's weak types are (a bf16 leaf of
+``--param-dtype bfloat16`` keeps bf16 moments and bf16 arithmetic).
+``count`` is the shared update count (optax's ``count``).
+
+Under a sharding plan (``parallel/plans.py``) each leaf may be a shard:
+``layouts`` maps a leaf to its ``LeafLayout``, whose global shape decides
+adafactor's factoring and whose groups make its means (and the clip's
+global norm, passed in by the Trainer) global.
 """
 from __future__ import annotations
 
@@ -76,13 +85,17 @@ def lr_at_step(step: int, lr: float, t_max: int = 1000,
     return cosine_schedule(lr, t_max, eta_min_ratio, warmup_steps)(step)
 
 
-def _clip_denominator(grads: list, max_norm: float) -> tuple:
+def _clip_denominator(grads: list, max_norm: float,
+                      norm: Optional[torch.Tensor] = None) -> tuple:
     """optax ``clip_by_global_norm``'s factors as device scalars, with no
     host read: (divisor, multiplier) = (1, 1) when the global norm is below
     ``max_norm``, else (norm, max_norm), so ``g / d * m`` is optax's
-    ``select(norm < max_norm, g, (g / norm) * max_norm)``."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    ``select(norm < max_norm, g, (g / norm) * max_norm)``. ``norm`` (the
+    global norm of sharded grads) replaces the norm of ``grads``."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g in grads]))
     keep = norm < max_norm
     one = torch.ones_like(norm)
     return (torch.where(keep, one, norm),
@@ -100,19 +113,22 @@ class OptState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     grad_clip: Optional[float] = None
 
-    def step(self, grads: Optional[list] = None) -> None:
+    def step(self, grads: Optional[list] = None,
+             norm: Optional[torch.Tensor] = None) -> None:
         """One update and one schedule step. ``grads`` (the port's own
         optimizers only) replaces the leaves' ``.grad``, in their order:
         the Trainer's accumulation buffers when their dtype is not the
-        params'."""
-        if grads is not None:
-            self.optimizer.step(grads=grads)
+        params'. ``norm``: the global grad norm of sharded leaves, for the
+        clip."""
+        if grads is not None or not isinstance(self.optimizer,
+                                               torch.optim.AdamW):
+            self.optimizer.step(grads=grads, norm=norm)
             self.scheduler.step()
             return
         if self.grad_clip:
             grads = [p.grad for g in self.optimizer.param_groups
                      for p in g["params"] if p.grad is not None]
-            div, mul = _clip_denominator(grads, self.grad_clip)
+            div, mul = _clip_denominator(grads, self.grad_clip, norm)
             torch._foreach_div_(grads, div)
             torch._foreach_mul_(grads, mul)
         self.optimizer.step()
@@ -144,24 +160,58 @@ def _scheduler(opt, lr: float, schedule) -> torch.optim.lr_scheduler.LambdaLR:
 class _Fp32Update(torch.optim.Optimizer):
     """Base of the port's own optimizers. ``SLOTS`` maps each per-leaf
     state slot to its kind (``precision.ADAM_MU`` / ``ADAM_NU`` /
-    ``OTHER``); every slot is created at init in the policy's storage, so
-    a fresh state is also the restore target. ``step`` upcasts one leaf at
-    a time, calls ``_leaf(group, g32, p32, slots32)`` -> (update, new
+    ``OTHER``); every slot is created at init in its storage form, so a
+    fresh state is also the restore target. ``step`` takes one leaf at a
+    time in its compute dtype (fp32, or the leaf's own dtype under the
+    no-op policy), calls ``_leaf(group, g, p, slots)`` -> (update, new
     slots), stores the slots and writes ``p + update`` rounded to the
     param's dtype."""
 
     SLOTS: dict = {}
 
     def __init__(self, params, defaults: dict, policy: PrecisionPolicy,
-                 grad_clip: Optional[float]):
+                 grad_clip: Optional[float], layouts: Optional[dict] = None):
         super().__init__(params, defaults)
         self.policy = policy
+        self.native = policy.is_noop    # optax's own dtypes (see module)
         self.grad_clip = grad_clip
+        self.layouts = layouts or {}
         self.count = 0
         for group in self.param_groups:
             for p in group["params"]:
-                self.state[p] = {k: policy.store_moment(v, self.SLOTS[k])
+                self.state[p] = {k: self._store(v, k, p)
                                  for k, v in self._init_leaf(p).items()}
+
+    def _store(self, x: torch.Tensor, slot: str, p):
+        if self.native:
+            return x.to(p.dtype)
+        return self.policy.store_moment(x, self.SLOTS[slot])
+
+    def _load(self, stored, slot: str, cdt) -> torch.Tensor:
+        if self.native:
+            return stored.to(cdt)
+        return self.policy.load_moment(stored, self.SLOTS[slot])
+
+    @staticmethod
+    def _scalar(cdt, device):
+        """A constant in the compute dtype: a Python float for fp32 (the
+        fp32 arithmetic of torch and optax alike), else a 0-d tensor of
+        ``cdt``, rounded first as a jax weak-typed scalar is."""
+        if cdt == torch.float32:
+            return float
+        return lambda x: torch.tensor(x, dtype=cdt, device=device)
+
+    def _shape(self, p) -> tuple:
+        layout = self.layouts.get(p)
+        return tuple(p.shape) if layout is None else layout.global_shape
+
+    def _mean(self, x, dim: int, p, keepdim: bool = False):
+        """``x.mean(dim)`` over the global leaf: a sum all-reduced over
+        the axes that shard ``dim`` of ``p`` (``x`` keeps ``p``'s dims)."""
+        layout = self.layouts.get(p)
+        if layout is None:
+            return x.mean(dim, keepdim=keepdim)
+        return layout.mean(x, dim, keepdim=keepdim)
 
     def _init_leaf(self, p) -> dict:
         """fp32 zeros of ``p``'s shape for every slot."""
@@ -172,15 +222,17 @@ class _Fp32Update(torch.optim.Optimizer):
         raise NotImplementedError
 
     @torch.no_grad()
-    def step(self, closure=None, grads: Optional[list] = None):
+    def step(self, closure=None, grads: Optional[list] = None,
+             norm: Optional[torch.Tensor] = None):
         """One update of every leaf with a gradient: ``grads`` (in the
-        leaves' order) or each leaf's ``.grad``."""
+        leaves' order) or each leaf's ``.grad``; ``norm`` is the global
+        norm for the clip (default: the norm of these grads)."""
         if closure is not None:
             raise ValueError("closures are not supported")
         leaves = [p for g in self.param_groups for p in g["params"]]
         grads = [p.grad for p in leaves] if grads is None else list(grads)
         live = [g for g in grads if g is not None]
-        clip = (_clip_denominator(live, self.grad_clip)
+        clip = (_clip_denominator(live, self.grad_clip, norm)
                 if self.grad_clip and live else None)
         it = iter(grads)
         for group in self.param_groups:
@@ -188,17 +240,18 @@ class _Fp32Update(torch.optim.Optimizer):
                 g = next(it)
                 if g is None:
                     continue
-                g = g.float()
+                cdt = p.dtype if self.native else torch.float32
+                g = g.to(cdt)
                 if clip is not None:
-                    g = (g / clip[0]) * clip[1]
-                slots = {k: self.policy.load_moment(v, self.SLOTS[k])
+                    g = ((g.float() / clip[0]) * clip[1]).to(cdt)
+                slots = {k: self._load(v, k, cdt)
                          for k, v in self.state[p].items()}
-                p32 = p.float()
-                u, slots = self._leaf(group, g, p32, slots)
-                self.state[p] = {k: self.policy.store_moment(v, self.SLOTS[k])
+                pc = p.to(cdt)
+                u, slots = self._leaf(group, g, pc, slots)
+                self.state[p] = {k: self._store(v, k, p)
                                  for k, v in slots.items()}
-                p.copy_(p32 + u)
-                del g, p32, u, slots
+                p.copy_(pc + u)
+                del g, pc, u, slots
         self.count += 1
         return None
 
@@ -214,23 +267,25 @@ class AdamW(_Fp32Update):
 
     def __init__(self, params, lr: float, *, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.01,
-                 policy: PrecisionPolicy, grad_clip: Optional[float] = None):
+                 policy: PrecisionPolicy, grad_clip: Optional[float] = None,
+                 layouts: Optional[dict] = None):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay),
-                         policy, grad_clip)
+                         policy, grad_clip, layouts)
 
     def _leaf(self, group, g, p, slots) -> tuple:
         b1, b2 = group["betas"]
+        c = self._scalar(g.dtype, g.device)
         n = np.float32(self.count + 1)
-        m = (1 - b1) * g + b1 * slots["exp_avg"]
-        v = (1 - b2) * (g * g) + b2 * slots["exp_avg_sq"]
-        m_hat = m / float(np.float32(1) - np.float32(b1) ** n)
-        v_hat = v / float(np.float32(1) - np.float32(b2) ** n)
-        u = m_hat / (torch.sqrt(v_hat) + group["eps"])
+        m = c(1 - b1) * g + c(b1) * slots["exp_avg"]
+        v = c(1 - b2) * (g * g) + c(b2) * slots["exp_avg_sq"]
+        m_hat = m / c(float(np.float32(1) - np.float32(b1) ** n))
+        v_hat = v / c(float(np.float32(1) - np.float32(b2) ** n))
+        u = m_hat / (torch.sqrt(v_hat) + c(group["eps"]))
         del m_hat, v_hat
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        return u * -group["lr"], {"exp_avg": m, "exp_avg_sq": v}
+            u = u + c(group["weight_decay"]) * p
+        return u * c(-group["lr"]), {"exp_avg": m, "exp_avg_sq": v}
 
 
 class Lion(_Fp32Update):
@@ -242,18 +297,20 @@ class Lion(_Fp32Update):
 
     def __init__(self, params, lr: float, *, betas=(0.9, 0.99),
                  weight_decay: float = 0.01, policy: PrecisionPolicy,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None,
+                 layouts: Optional[dict] = None):
         super().__init__(params, dict(lr=lr, betas=betas,
                                       weight_decay=weight_decay),
-                         policy, grad_clip)
+                         policy, grad_clip, layouts)
 
     def _leaf(self, group, g, p, slots) -> tuple:
         b1, b2 = group["betas"]
+        c = self._scalar(g.dtype, g.device)
         mu = slots["mu"]
-        u = torch.sign((1.0 - b1) * g + b1 * mu)
+        u = torch.sign(c(1.0 - b1) * g + c(b1) * mu)
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        return u * -group["lr"], {"mu": (1 - b2) * g + b2 * mu}
+            u = u + c(group["weight_decay"]) * p
+        return u * c(-group["lr"]), {"mu": c(1 - b2) * g + c(b2) * mu}
 
 
 def factored_dims(shape, min_dim_size_to_factor: int) -> Optional[tuple]:
@@ -282,13 +339,14 @@ class Adafactor(_Fp32Update):
 
     def __init__(self, params, lr: float, *, weight_decay: float = 0.01,
                  min_dim_size_to_factor: int = 128,
-                 policy: PrecisionPolicy, grad_clip: Optional[float] = None):
+                 policy: PrecisionPolicy, grad_clip: Optional[float] = None,
+                 layouts: Optional[dict] = None):
         self.min_dim = min_dim_size_to_factor
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay),
-                         policy, grad_clip)
+                         policy, grad_clip, layouts)
 
     def _init_leaf(self, p) -> dict:
-        dims = factored_dims(tuple(p.shape), self.min_dim)
+        dims = factored_dims(self._shape(p), self.min_dim)
         kw = dict(dtype=torch.float32, device=p.device)
         if dims is None:
             return {"v": torch.zeros(p.shape, **kw)}
@@ -298,29 +356,43 @@ class Adafactor(_Fp32Update):
                 "v_col": torch.zeros(shape[:d1] + shape[d1 + 1:], **kw)}
 
     def _leaf(self, group, g, p, slots) -> tuple:
+        # optax keeps the decay an fp32 array: its products with the slots
+        # are fp32 whatever the leaf's dtype, rounded once into the slot
+        c = self._scalar(g.dtype, g.device)
         t = np.float32(self.count + 1)
         decay = float(np.float32(1.0) - t ** np.float32(-self.DECAY))
-        g2 = g * g + self.EPS
-        dims = factored_dims(tuple(p.shape), self.min_dim)
+        g2 = g * g + c(self.EPS)
+        dims = factored_dims(self._shape(p), self.min_dim)
         if dims is None:
-            v = decay * slots["v"] + (1.0 - decay) * g2
+            v = (decay * slots["v"].float()
+                 + (1.0 - decay) * g2.float()).to(g.dtype)
             u = g * v ** -0.5
             new = {"v": v}
         else:
             d1, d0 = dims
-            v_row = decay * slots["v_row"] + (1.0 - decay) * g2.mean(d0)
-            v_col = decay * slots["v_col"] + (1.0 - decay) * g2.mean(d1)
-            reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+            v_row = (decay * slots["v_row"].float() + (1.0 - decay)
+                     * self._mean(g2, d0, p).float()).to(g.dtype)
+            v_col = (decay * slots["v_col"].float() + (1.0 - decay)
+                     * self._mean(g2, d1, p).float()).to(g.dtype)
+            layout = self.layouts.get(p)
+            if layout is None:
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+            else:       # v_row keeps p's dims but d0
+                row_col_mean = layout.mean(v_row.unsqueeze(d0), d1,
+                                           keepdim=True).squeeze(d0)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             new = {"v_row": v_row, "v_col": v_col}
         del g2
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)), min=1.0)
+        layout = self.layouts.get(p)
+        ms = (torch.mean(u * u) if layout is None
+              else layout.mean_all(u * u))
+        u = u / torch.clamp(torch.sqrt(ms), min=1.0)
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        return u * -group["lr"], new
+            u = u + c(group["weight_decay"]) * p
+        return u * c(-group["lr"]), new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,7 +413,9 @@ class OptimizerSpec:
         return dict(self.hyper)
 
     def init(self, params: list,
-             policy: Optional[PrecisionPolicy] = None) -> OptState:
+             policy: Optional[PrecisionPolicy] = None,
+             layouts: Optional[dict] = None) -> OptState:
+        """``layouts`` (sharded leaves only): leaf -> ``LeafLayout``."""
         from .precision import resolve_policy
 
         policy = resolve_policy(policy)
@@ -362,7 +436,7 @@ class OptimizerSpec:
                 f"but --optimizer {self.name} has none (use adamw, or drop "
                 f"the adam8bit policy)")
         common = dict(weight_decay=self.weight_decay, policy=policy,
-                      grad_clip=self.grad_clip)
+                      grad_clip=self.grad_clip, layouts=layouts)
         if self.name == "adamw":
             opt = AdamW(params, self.lr, betas=(kw["b1"], kw["b2"]),
                         eps=kw["eps"], **common)

@@ -21,7 +21,11 @@ into whatever optimizer holds the same leaves:
 
 The param and slot entries are views of the live tensors, so a
 checkpoint read fills them in place; ``load_state_tensors`` then applies
-the host-side counters.
+the host-side counters. Under a sharding plan (``TrainState.sharding``)
+each param and slot entry is a ``DTensor`` over this rank's shard, laid
+out by the plan's rules (DCP writes the shards and reshards on a read
+into another plan), and a param whose optimizer state is sharded where
+the param is not (ZeRO) keys its slots by its update shard.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ class TrainState:
     params: Any                # nested dict of leaf tensors
     opt_state: Any             # train.optimizer.OptState
     rng: torch.Generator
+    sharding: Any = None       # under a plan: train.step's PlanState
 
 
 def host_state_dict(epoch: int = 0, epoch_step: int = 0,
@@ -64,11 +69,18 @@ def state_tensors(state: TrainState) -> dict:
     from .optimizer import state_slots
 
     opt = state.opt_state.optimizer
+    sh = state.sharding
     flat = {}
     for path, p in named_leaves(state.params):
-        flat[f"params/{path}"] = p.detach()
-        for slot, t in state_slots(opt, p).items():
-            flat[f"opt_state/{path}/{slot}"] = t
+        if sh is None:
+            flat[f"params/{path}"] = p.detach()
+            for slot, t in state_slots(opt, p).items():
+                flat[f"opt_state/{path}/{slot}"] = t
+            continue
+        flat[f"params/{path}"] = sh.param_dtensor(path, p.detach())
+        for slot, t in state_slots(opt, sh.update_leaf(path, p)).items():
+            flat[f"opt_state/{path}/{slot}"] = sh.slot_dtensor(path, slot, t,
+                                                               opt)
     flat["opt_state/count"] = torch.tensor(state.opt_state.count,
                                            dtype=torch.int64)
     flat["step"] = torch.tensor(state.step, dtype=torch.int64)
@@ -87,4 +99,6 @@ def load_state_tensors(state: TrainState, flat: dict) -> TrainState:
         opt.count = count
     state.step = int(flat["step"])
     state.rng.set_state(flat["rng"])
+    if state.sharding is not None:
+        state.sharding.reshard_update_leaves(state)
     return state

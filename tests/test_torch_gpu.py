@@ -1337,3 +1337,83 @@ def test_flash_op_under_selective_checkpoint_equals_the_kernels(cuda, dtype):
                                    window=96)
     for label, x, w in zip("qkv", leaves, want):
         assert torch.equal(x.grad, w), label
+
+
+@pytest.fixture(scope="module")
+def nccl_world_of_one():
+    """A one-rank NCCL group from the torchrun env contract (a TCPStore on
+    a free local port), taken down after the module's plan tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        maybe_initialize_distributed("cuda")
+        yield
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@pytest.mark.parametrize("strategy,mesh_kw,accum", [
+    ("ddp", {}, 1), ("zero1", {}, 1), ("zero2", {}, 2), ("fsdp", {"fsdp": 1},
+                                                         1),
+    ("tp", {"tp": 1}, 1), ("tp_fsdp", {"tp": 1, "fsdp": 1}, 1)])
+def test_plan_at_world_one_is_the_single_plan(cuda, nccl_world_of_one,
+                                              strategy, mesh_kw, accum):
+    """Every plan on a one-rank NCCL mesh (each collective a copy), bf16
+    compute through K1-K3 at head_dim 64: two steps' losses and grad norms
+    within 1e-5 / 1e-4 relative of the single plan's on the same weights
+    and batch (ddp, zero and fsdp run its arithmetic; tp takes the loss
+    through the vocab-parallel logsumexp), and one launch of each of K1-K3
+    per layer per microbatch."""
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train import optimizer as topt
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = get_model("llama-debug", hidden_size=256, num_heads=4,
+                       num_kv_heads=2)
+    cfg = bundle.config
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (accum, 2, 256) if accum > 1 else (2, 256)
+    ids = torch.randint(0, cfg.vocab_size, shape, device=cuda, generator=gen)
+    batch = {"input_ids": ids, "labels": ids}
+
+    def run(plan):
+        t = Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
+                    grad_accum=accum, plan=plan, device=cuda)
+        state = t.init_state(0)
+        out = []
+        before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        used = [now - was for now, was in zip(
+            (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)]
+        return out, used
+
+    single, used1 = run(None)
+    sharded, used = run(make_plan(strategy, make_mesh(**mesh_kw)))
+    assert used == used1 == [2 * accum * cfg.num_layers] * 3
+    for (loss, norm), (loss1, norm1) in zip(sharded, single):
+        assert abs(loss - loss1) <= 1e-5 * abs(loss1)
+        assert abs(norm - norm1) <= 1e-4 * abs(norm1)

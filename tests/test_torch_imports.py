@@ -65,7 +65,9 @@ def test_no_optional_package_at_module_level(path):
 def test_scan_sees_the_whole_package_and_catches_a_violation():
     assert len(FILES) >= 15
     for module in ("ops/quantized_matmul.py", "serve/weights.py",
-                   "models/from_jax.py", "train/precision.py"):
+                   "models/from_jax.py", "train/precision.py",
+                   "parallel/plans.py", "chapters/c06_tp.py",
+                   "launch/distributed.py", "ops/vocab_parallel.py"):
         assert PORT / module in FILES, module
     assert _banned("jax.numpy") and _banned("distributed_training_guide_tpu")
     assert not _banned("distributed_training_guide_tpu_torch.serve")

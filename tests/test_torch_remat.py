@@ -6,6 +6,7 @@ within 1e-4 of the JAX package's under the same policy; the plain flash
 forward runs once per layer without remat and under "attn" / "attn_mlp"
 (its (o, lse) are kept), twice under "all" and "dots". Weights cross by
 the weight bridge; inputs are made with numpy from a seed."""
+import dataclasses
 import functools
 
 import jax
@@ -146,3 +147,39 @@ def test_named_scope_marks_only_its_operations():
             assert tremat.active_names() == {"a", "b"}
         assert tremat.active_names() == {"a"}
     assert tremat.active_names() == frozenset()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attn_policy_saves_only_the_einsum_output(monkeypatch, dtype):
+    """Under "attn" the einsum path saves exactly one tensor per layer:
+    the [B, S, H, D] attention output in q's dtype (the JAX package tags
+    that tensor alone), never the fp32 probabilities or products."""
+    saved = []
+    real = tremat._policy_fn
+
+    def recording(policy):
+        decide = real(policy)
+
+        def record(ctx, op, *args, **kwargs):
+            out = decide(ctx, op, *args, **kwargs)
+            if (out == tremat.CheckpointPolicy.MUST_SAVE
+                    and not ctx.is_recompute):
+                saved.append((str(op), tuple(args[0].shape),
+                              kwargs.get("dtype")))
+            return out
+        return record
+
+    monkeypatch.setattr(tremat, "_policy_fn", recording)
+    _, _, tb, tparams = _bridged("llama-debug")
+    cfg = dataclasses.replace(tb.config, dtype=dtype)
+    params = jax.tree.map(
+        lambda t: t.detach().to(dtype).requires_grad_(True), tparams)
+    ids = torch.from_numpy(_ids(cfg.vocab_size)).long()
+    out = tb.apply(cfg, params, ids, remat=True, remat_policy="attn",
+                   attn_impl="xla")
+    tce.causal_lm_loss(out, ids).backward()
+    b, s = ids.shape
+    one = ("aten._to_copy.default", (b, s, cfg.num_heads, cfg.head_size),
+           dtype)
+    assert saved == [one] * cfg.num_layers, saved
