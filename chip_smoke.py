@@ -138,7 +138,31 @@ phases, each of which raises on failure:
    the einsum attention never ran), the step ms, tokens/s and peak GB of
    each beside the single plan's; and a run under chapter 04's plan at 2
    layers saving at step 2 of 3, resumed under chapter 07's plan, whose
-   step-3 loss equals the fsdp run's.
+   step-3 loss equals the fsdp run's;
+18. chapter 05 — through the chapter's entry points
+   (``chapters/c05_convert_llama.py``, ``c05_llama405b.py``,
+   ``engine_llm.py``, ``models/hf_export.py``'s CLI) on one-rank NCCL
+   groups: (a) llama-3.2-1b built by ``transformers`` from its public
+   card's shapes with random bf16 weights, saved in 3+ safetensors shards,
+   converted (anonymous-RSS peak, GB/s), loaded with ``--pretrained``
+   under fsdp (its step-1 loss within ``CH05_HF_LOSS_REL`` of transformers'
+   on the same batch), trained 3 steps to a checkpoint, exported by the
+   CLI and reloaded by transformers (fp32 logits within
+   ``CH05_EXPORT_LOGIT_REL`` of the port's); (b) the preflight in a
+   process of its own (a fake process group, the meta device):
+   llama-3.1-405b at 64 GPUs as fsdp 8 x tp 8 (B 1 a rank, S 4096) under
+   fp32 AdamW, bf16-master + adam8bit and bf16 params + adafactor, and at
+   one layer on one card, each within 2% of the recipe's bytes a
+   parameter, one layer of fp32 AdamW not fitting; (c) one full-width
+   405B layer trained 4 steps (bf16 params, adafactor, remat): finite
+   losses, exactly 2 / 1 / 1 launches of K1 / K2 / K3 a step, the peak
+   beside the preflight's prediction, and K1-K3 at its attention shape
+   (a GQA group of 16) against their plain versions and timed beside
+   their bounds and SDPA; (d) llama-3.2-1b 3 steps without offload,
+   with the optimizer state and with both offloaded: bitwise losses and
+   grad norms, the card holding less by exactly the offloaded bytes
+   between steps; (e) the JSON engine at stage 3, bitwise phase 17's
+   fsdp run.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -3324,6 +3348,491 @@ def phase_plans(torch, card: str) -> dict:
             "results": results, "single": refs[()], "resume": resume}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: chapter 05 — weight logistics, preflight, one 405B layer,
+# offload, the JSON engine
+# ---------------------------------------------------------------------------
+
+# llama-3.2-1b's public model card, as a transformers config: the train
+# model, here with random bf16 weights from SEED, saved and converted
+CH05_HF_CONFIG = dict(
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=131072, rope_theta=500000.0, rms_norm_eps=1e-5,
+    tie_word_embeddings=True, attention_bias=False, mlp_bias=False,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192})
+CH05_STEPS = 3
+CH05_ARGS = ["-d", "synthetic:400000", "-s", "2048", "-b", "2", "--lr",
+             "3e-4", "--seed", str(SEED), "--log-freq", "1",
+             "--no-checkpoint-activations"]
+# the port's step-1 loss (bf16 compute through K1-K3, fp32 logits) against
+# transformers' bf16 model on the same batch: bf16 rounds at other places
+# through 16 layers, as TRAIN_BF16_LOSS_REL allows kernels against einsum
+CH05_HF_LOSS_REL = 1e-2
+# the exported checkpoint reloaded by transformers in fp32 against the
+# port's fp32 forward on the trained params (TF32 off): the same fp32
+# math through 16 layers, summed in another order
+CH05_EXPORT_LOGIT_REL = 1e-4
+# the preflight's byte counts against the arithmetic of the chapter's
+# recipe (16 B a parameter for fp32 AdamW, ~6 for bf16-master + adam8bit,
+# ~4 for bf16 params + adafactor)
+CH05_PREFLIGHT_REL = 0.02
+CH05_405B = ["-m", "llama-3.1-405b", "-s", "4096", "-b", "1"]
+CH05_405B_TRAIN = CH05_405B + ["-d", "synthetic:100000", "--param-dtype",
+                               "bfloat16", "--optimizer", "adafactor",
+                               "--log-freq", "1", "--seed", str(SEED)]
+CH05_405B_STEPS = 4
+CH05_405B_SHAPE = (1, 4096, 128, 8, 128)    # B, S, Hq, Hkv, D (a group of 16)
+# the preflight runs: (name, flags, model overrides, B/param of the recipe)
+CH05_PREFLIGHTS = (
+    ("64gpu-fp32-adamw", ["--tensor-parallel", "8", "--preflight-world",
+                          "64"], None, 16),
+    ("64gpu-bf16-master+adam8bit",
+     ["--tensor-parallel", "8", "--preflight-world", "64",
+      "--precision-policy", "bf16-master+adam8bit"], None, 6),
+    ("64gpu-bf16-adafactor",
+     ["--tensor-parallel", "8", "--preflight-world", "64", "--param-dtype",
+      "bfloat16", "--optimizer", "adafactor"], None, 4),
+    ("1gpu-1layer-bf16-adafactor",
+     ["--param-dtype", "bfloat16", "--optimizer", "adafactor"], 1, 4),
+    ("1gpu-1layer-fp32-adamw", [], 1, 16))
+
+_PREFLIGHT_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from distributed_training_guide_tpu_torch.chapters import c05_llama405b
+runs = json.loads(sys.argv[2])
+out = {}
+for name, flags, layers, _ in runs:
+    kw = {"model_overrides": {"num_layers": layers}} if layers else {}
+    out[name] = c05_llama405b.main(json.loads(sys.argv[3]) + flags
+                                   + ["--preflight"], **kw)
+print("PREFLIGHT:" + json.dumps(out))
+"""
+
+
+def ch05_preflight_start():
+    """The preflight in a process of its own (its fake process group must
+    be the only one of its process), started first so its CPU work runs
+    beside the card's."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _PREFLIGHT_SCRIPT, str(ROOT),
+         json.dumps(CH05_PREFLIGHTS), json.dumps(CH05_405B)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ch05_preflight_finish(proc, card: str) -> dict:
+    from distributed_training_guide_tpu_torch.models import get_model
+
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"preflight: exit {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    line = next(x for x in stdout.splitlines() if x.startswith("PREFLIGHT:"))
+    reports = json.loads(line[len("PREFLIGHT:"):])
+    out = {}
+    for name, _, layers, per_param in CH05_PREFLIGHTS:
+        r = reports[name]
+        n = get_model("llama-3.1-405b",
+                      **({"num_layers": layers} if layers else {})
+                      ).num_params()
+        want = per_param * n / r["n_devices"]
+        rel = abs(r["per_device_total_bytes"] - want) / want
+        check(r["lowered"], f"preflight {name}: the step did not run")
+        check(rel <= CH05_PREFLIGHT_REL, f"preflight {name}: "
+              f"{r['per_device_total_bytes']} bytes a GPU, the recipe's "
+              f"{per_param} B a parameter gives {want:.0f}: rel {rel}")
+        out[name] = {
+            "n_devices": r["n_devices"], "mesh": r["mesh"],
+            "params_gb": r["per_device_param_bytes"] / 1e9,
+            "opt_state_gb": r["per_device_opt_state_bytes"] / 1e9,
+            "grads_gb": r["per_device_grad_bytes_transient"] / 1e9,
+            "total_gb": r["per_device_total_bytes"] / 1e9,
+            "recipe_gb": want / 1e9, "rel_to_recipe": rel,
+            "limit_gb": r["device_bytes_limit"] / 1e9,
+            "limit_source": r["device_bytes_limit_source"],
+            "fits": r["fits"], "optimizer_on_meta": r["optimizer_on_meta"],
+            "largest_leaf_fp32_gb": r["largest_leaf_fp32_bytes"] / 1e9,
+            "comm": {k: r["comm"][k] for k in (
+                "per_collective_bytes_per_chip", "t_compute_s", "t_comm_s",
+                "mfu_ceiling_overlapped", "mfu_ceiling_serial", "target",
+                "figures")}}
+        log(phase="chapter05", part="preflight", run=name, card=card,
+            **out[name])
+    check(not out["1gpu-1layer-fp32-adamw"]["fits"]
+          and out["1gpu-1layer-bf16-adafactor"]["fits"],
+          f"preflight: one 405B layer should not fit under fp32 AdamW and "
+          f"should under bf16 + adafactor: {out}")
+    return out
+
+
+def _rss_anon() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def ch05_convert(hf_dir: Path, conv: Path, name: str) -> dict:
+    """``c05_convert_llama`` with this process's anonymous RSS sampled
+    every 5 ms: the peak over the baseline, seconds, GB/s."""
+    import threading
+
+    from distributed_training_guide_tpu_torch.chapters import (
+        c05_convert_llama)
+
+    baseline = _rss_anon()
+    peak = [baseline]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _rss_anon())
+            time.sleep(0.005)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    t0 = time.perf_counter()
+    try:
+        c05_convert_llama.main([str(hf_dir), str(conv), name])
+    finally:
+        stop.set()
+        t.join()
+    seconds = time.perf_counter() - t0
+    read = sum(p.stat().st_size for p in hf_dir.glob("*.safetensors"))
+    written = sum(p.stat().st_size for p in conv.glob("*.npy"))
+    return {"seconds": seconds, "read_gb": read / 1e9,
+            "written_gb": written / 1e9, "read_gb_per_s": read / 1e9 / seconds,
+            "written_gb_per_s": written / 1e9 / seconds,
+            "rss_anon_peak_delta_gb": (peak[0] - baseline) / 1e9}
+
+
+def ch05_first_batch(torch, name: str) -> dict:
+    """The first batch ``run_training`` gives ``CH05_ARGS`` (its loader's,
+    rebuilt)."""
+    from distributed_training_guide_tpu_torch.data import (
+        BatchLoader, get_tokenizer, load_and_preprocess_data)
+
+    data = load_and_preprocess_data(
+        "synthetic:400000", get_tokenizer(name), 2048,
+        max_position_embeddings=CH05_HF_CONFIG["max_position_embeddings"],
+        seed=SEED)
+    loader = BatchLoader(data, 2, device="cuda", seed=SEED)
+    return next(loader.epoch_batches())
+
+
+def ch05_weights(torch, root: Path, card: str) -> dict:
+    """(a): llama-3.2-1b as an HF checkpoint in 3+ shards -> converted ->
+    loaded with ``--pretrained`` under fsdp -> 3 steps -> a checkpoint ->
+    the export CLI -> reloaded by transformers."""
+    import transformers
+
+    from distributed_training_guide_tpu_torch.chapters import c05_llama405b
+    from distributed_training_guide_tpu_torch.models import (get_model,
+                                                             hf_export)
+    from distributed_training_guide_tpu_torch.models.auto import (
+        config_from_hf)
+    from distributed_training_guide_tpu_torch.models.llama import PRESETS
+
+    hf_dir, conv, exported = root / "hf", root / "conv", root / "exported"
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        model = transformers.LlamaForCausalLM(
+            transformers.LlamaConfig(**CH05_HF_CONFIG))
+    model = model.to(torch.bfloat16).eval()
+    t0 = time.perf_counter()
+    model.save_pretrained(hf_dir, safe_serialization=True,
+                          max_shard_size="1GB")
+    save_s = time.perf_counter() - t0
+    shards = sorted(p.name for p in hf_dir.glob("*.safetensors"))
+    check(len(shards) >= 3, f"chapter05: {len(shards)} safetensors shards")
+    name = f"hf:{hf_dir}"
+    _, cfg = config_from_hf(hf_dir)
+    preset = PRESETS["llama-3.2-1b"]
+    check(all(getattr(cfg, f) == getattr(preset, f) for f in (
+        "vocab_size", "hidden_size", "intermediate_size", "num_layers",
+        "num_heads", "num_kv_heads", "rope_theta", "rope_scaling",
+        "tie_word_embeddings", "rms_norm_eps")),
+        f"chapter05: hf: config {cfg} differs from llama-3.2-1b's")
+    batch = ch05_first_batch(torch, name)
+    with torch.no_grad():
+        hf_loss = float(model(batch["input_ids"],
+                              labels=batch["labels"]).loss)
+    del model
+    torch.cuda.empty_cache()
+
+    convert = ch05_convert(hf_dir, conv, name)
+    log(phase="chapter05", part="convert", card=card, shards=len(shards),
+        hf_save_s=save_s, **convert)
+
+    reset_flash_counts()                      # this path starts here
+    out = with_env(plan_env(), lambda: c05_llama405b.main(
+        ["-m", name, "--pretrained", str(conv), "--max-steps",
+         str(CH05_STEPS), "-e", "ch05", "--save-dir", str(root),
+         "--ckpt-freq", str(CH05_STEPS), "--optimizer", "adafactor"]
+        + CH05_ARGS))
+    torch.cuda.synchronize()
+    launches = flash_counts()                 # ... and ends here
+    losses = [i["running_loss"] for i in out["infos"]]
+    rel = abs(losses[0] - hf_loss) / abs(hf_loss)
+    check(len(losses) == CH05_STEPS and all(map(math.isfinite, losses)),
+          f"chapter05: losses {losses}")
+    check(rel <= CH05_HF_LOSS_REL, f"chapter05: the step-1 loss "
+          f"{losses[0]} after --pretrained, transformers' {hf_loss} on the "
+          f"same batch: rel {rel}")
+    check(launches == {k: 16 * CH05_STEPS for k in launches},
+          f"chapter05: launches {launches}")
+    params = out["state"].params
+    load_s = out["pretrained_load_s"]
+    saves = out["checkpoint_saves"]
+    ch01_free(torch, out)
+
+    t0 = time.perf_counter()
+    hf_export.main(["-m", name, "-e", str(root / "ch05"), "-o",
+                    str(exported), "--optimizer", "adafactor"])
+    export_s = time.perf_counter() - t0
+    back = transformers.AutoModelForCausalLM.from_pretrained(
+        exported, dtype=torch.float32).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    ids = torch.randint(0, 259, (1, 512), device="cuda", generator=gen)
+    bundle = get_model(name, dtype=torch.float32)
+    with torch.no_grad():
+        theirs = back(ids).logits.float()
+        ours = bundle.apply(bundle.config, params, ids)
+    scale = float(theirs.abs().max())
+    err = float((ours - theirs).abs().max())
+    check(err <= CH05_EXPORT_LOGIT_REL * scale, f"chapter05: exported "
+          f"logits {err} off the port's (max logit {scale})")
+    del back, params, theirs, ours
+    torch.cuda.empty_cache()
+    result = {"hf_loss": hf_loss, "losses": losses, "loss_rel": rel,
+              "export_logit_max_abs_err": err, "export_max_logit": scale,
+              "convert_s": convert["seconds"], "load_s": load_s,
+              "export_s": export_s, "save_s": [s.get("write_s")
+                                               for s in saves],
+              "launches": launches, "shards": len(shards)}
+    log(phase="chapter05", part="weights", card=card, **result)
+    return result
+
+
+def ch05_layer(torch, card: str, predicted: dict) -> dict:
+    """(c): one full-width llama-3.1-405b layer trained on the card, and
+    K1-K3 at its attention shape."""
+    from distributed_training_guide_tpu_torch.chapters import c05_llama405b
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()                      # this path starts here
+    copies = fa.ALIGN_COPIES
+    out = with_env(plan_env(), lambda: c05_llama405b.main(
+        CH05_405B_TRAIN + ["--max-steps", str(CH05_405B_STEPS)],
+        model_overrides={"num_layers": 1}))
+    torch.cuda.synchronize()
+    launches = flash_counts()                 # ... and ends here
+    check_hopper_path("chapter05 405b layer", copies)
+    want = {"flash_fwd": 2 * CH05_405B_STEPS, "flash_dq": CH05_405B_STEPS,
+            "flash_dkv": CH05_405B_STEPS}
+    check(launches == want, f"chapter05 405b layer: launches {launches}, "
+          f"want {want} (remat all: K1 twice a layer)")
+    infos = out["infos"]
+    losses = [i["running_loss"] for i in infos]
+    check(len(losses) == CH05_405B_STEPS and all(map(math.isfinite,
+                                                     losses)),
+          f"chapter05 405b layer: losses {losses}")
+    later = infos[1:]
+    pred = predicted["1gpu-1layer-bf16-adafactor"]
+    result = {"losses": losses, "launches": launches,
+              "launches_per_step": {k: v // CH05_405B_STEPS
+                                    for k, v in launches.items()},
+              "tokens_per_s": sum(i["tokens_per_s"] for i in later)
+              / len(later),
+              "mfu": sum(i["mfu"] for i in later) / len(later),
+              "step_ms": sum(i["time/step"] for i in later) / len(later),
+              "peak_alloc_gb": out["last_info"]["peak_alloc_gb"],
+              "predicted_state_gb": pred["total_gb"],
+              "predicted_largest_leaf_fp32_gb":
+                  pred["largest_leaf_fp32_gb"]}
+    ch01_free(torch, out)
+    log(phase="chapter05", part="405b-layer", card=card, batch=1, seq=4096,
+        **result)
+    result["kernels"] = ch05_flash(torch, card)
+    return result
+
+
+def ch05_flash(torch, card: str) -> dict:
+    """K1-K3 at the 405B attention shape against their plain versions
+    (bf16 bound and the kernels' own arithmetic), then timed beside their
+    bounds and SDPA (``flash_timing_at``, K3's causal tail with it)."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = CH05_405B_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v, do = flash_case(torch, gen, b, s, s, hq, hkv, d, "bf16")
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    got = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_with_stats(*args)))
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    errs = {"o": rel_l2(o, ro)}
+    ao, _ = fa.flash_attention_reference(q, k, v, round_p=True)
+    arith = {"o": rel_l2(o, ao)}
+    del ao, ro
+    torch.cuda.empty_cache()
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_reference(*args)))
+    errs.update({key: rel_l2(got[key], plain[key]) for key in plain})
+    del plain
+    torch.cuda.empty_cache()
+    arith["dq"] = rel_l2(got["dq"], fa.flash_dq_reference(
+        *args, round_p_ds=True))
+    dk, dv = fa.flash_dkv_reference(*args, round_p_ds=True)
+    arith.update(dk=rel_l2(got["dk"], dk), dv=rel_l2(got["dv"], dv))
+    check(max(errs.values()) <= FLASH_TOL_BF16_REL_L2
+          and max(arith.values()) <= FLASH_TOL_KERNEL_ARITH_REL_L2,
+          f"chapter05: K1-K3 at the 405B shape: rel L2 {errs}, at their "
+          f"arithmetic {arith}")
+    del q, k, v, do, o, lse, delta, got, dk, dv, args
+    torch.cuda.empty_cache()
+    timing = flash_timing_at(torch, *CH05_405B_SHAPE)
+    log(phase="chapter05", part="flash-405b", card=card,
+        B_S_Hq_Hkv_D=CH05_405B_SHAPE, rel_l2=errs, kernel_arith_rel_l2=arith)
+    return {"rel_l2": errs, "kernel_arith_rel_l2": arith, "timing": timing}
+
+
+def ch05_offload(torch, card: str) -> dict:
+    """(d): llama-3.2-1b, 3 steps without offload, with the optimizer
+    state offloaded and with both, through chapter 05's flags."""
+    from distributed_training_guide_tpu_torch.chapters import c05_llama405b
+
+    runs = {}
+    for name, flags in (("none", []), ("opt", ["--offload-opt-state"]),
+                        ("both", ["--offload-opt-state",
+                                  "--offload-params"])):
+        reset_flash_counts()                  # this path starts here
+        out = with_env(plan_env(), lambda: c05_llama405b.main(
+            ["-m", "llama-3.2-1b", "--max-steps", str(CH05_STEPS)]
+            + CH05_ARGS + flags))
+        torch.cuda.synchronize()
+        launches = flash_counts()             # ... and ends here
+        check(launches == {k: 16 * CH05_STEPS for k in launches},
+              f"chapter05 offload {name}: launches {launches}")
+        state = out["state"]
+        infos = out["infos"]
+        if state.offload is not None:
+            state.offload.wait()
+        torch.cuda.synchronize()
+        runs[name] = {
+            "losses": [i["running_loss"] for i in infos],
+            "grad_norms": [i["grad_norm"] for i in infos],
+            # after the last step, the state alive: between steps
+            "between_steps_gb": torch.cuda.memory_allocated() / 1e9,
+            "info_curr_alloc_gb": [i["curr_alloc_gb"] for i in infos],
+            "step_ms": [i["time/step"] for i in infos],
+            "peak_alloc_gb": out["last_info"]["peak_alloc_gb"],
+            "host_gb": (0.0 if state.offload is None
+                        else state.offload.host_bytes(state) / 1e9),
+            "on_host": (state.offload is None
+                        or state.offload.on_host(state)),
+            "launches": launches}
+        ch01_free(torch, out)
+        del state
+        log(phase="chapter05", part="offload", run=name, card=card,
+            **runs[name])
+    base = runs["none"]
+    for name in ("opt", "both"):
+        r = runs[name]
+        check(r["losses"] == base["losses"]
+              and r["grad_norms"] == base["grad_norms"],
+              f"chapter05 offload {name}: losses {r['losses']} / grad norms "
+              f"{r['grad_norms']} against {base['losses']} / "
+              f"{base['grad_norms']}: not bitwise")
+        check(r["on_host"], f"chapter05 offload {name}: a tensor off the "
+              f"pinned host buffers between steps")
+        fell = base["between_steps_gb"] - r["between_steps_gb"]
+        # the allocator rounds each tensor up to 512 bytes: < 1 MB here
+        check(abs(fell - r["host_gb"]) <= 1e-3, f"chapter05 offload "
+              f"{name}: between steps the card holds {fell} GB less, "
+              f"{r['host_gb']} GB were offloaded")
+        r["fell_gb"] = fell
+    return runs
+
+
+def ch05_engine(torch, root: Path, card: str, fsdp: dict) -> dict:
+    """(e): the JSON engine at stage 3 on llama-3.2-1b against phase 17's
+    fsdp run (chapter 04) on the same batches: bitwise."""
+    from distributed_training_guide_tpu_torch.chapters import engine_llm
+
+    config = {"model": "llama-3.2-1b", "zero_optimization": {"stage": 3},
+              "train_micro_batch_size_per_gpu": 4,
+              "optimizer": {"type": "AdamW", "params": {"lr": 3e-4}},
+              "bf16": {"enabled": True}, "seed": SEED}
+    path = root / "engine.json"
+    path.write_text(json.dumps(config))
+    reset_flash_counts()                      # this path starts here
+    out = with_env(plan_env(), lambda: engine_llm.main(
+        ["--config", str(path), "-d", "synthetic:400000", "-s", "2048",
+         "--max-steps", str(PLAN_STEPS), "--log-freq", "1"]))
+    torch.cuda.synchronize()
+    launches = flash_counts()                 # ... and ends here
+    check(launches == {k: 16 * PLAN_STEPS for k in launches},
+          f"chapter05 engine: launches {launches}")
+    bitwise = (out["losses"] == fsdp["losses"]
+               and out["grad_norms"] == fsdp["grad_norms"])
+    check(bitwise, f"chapter05 engine: losses {out['losses']} / grad norms "
+          f"{out['grad_norms']}, chapter 04's fsdp {fsdp['losses']} / "
+          f"{fsdp['grad_norms']}")
+    result = {"strategy": out["strategy"], "losses": out["losses"],
+              "grad_norms": out["grad_norms"], "bitwise_fsdp": bitwise,
+              "step_ms": [i["step_ms"] for i in out["infos"]],
+              "launches": launches}
+    log(phase="chapter05", part="engine", card=card, **result)
+    return result
+
+
+def phase_chapter05(torch, card: str, plans: dict) -> dict:
+    import shutil
+    import tempfile
+
+    proc = ch05_preflight_start()
+    root = Path(tempfile.mkdtemp(prefix="ch05-"))
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+    def count(result):
+        for k, v in result["launches"].items():
+            launches[k] += v
+    try:
+        try:
+            weights = ch05_weights(torch, root, card)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        count(weights)
+        preflight = ch05_preflight_finish(proc, card)
+        layer = ch05_layer(torch, card, preflight)
+        count(layer)
+        offload = ch05_offload(torch, card)
+        for r in offload.values():
+            count(r)
+        root.mkdir()
+        engine = ch05_engine(torch, root, card, plans["results"]["fsdp"])
+        count(engine)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"weights": weights, "preflight": preflight, "layer": layer,
+            "offload": offload, "engine": engine, "launches": launches}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -3437,6 +3946,7 @@ def main() -> int:
     int8_serve = phase_int8_serve(torch, smi)
     ch01 = phase_chapter01(torch, smi)
     plans = phase_plans(torch, smi)
+    ch05 = phase_chapter05(torch, smi, plans)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -3510,16 +4020,24 @@ def main() -> int:
             "bf16_kernel_arith_rel_l2": flash_worst["kernel_arith"][name],
             "launches_chapter01": ch01["launches"][name],
             "launches_plans": plans["launches"][name],
+            "launches_chapter05": ch05["launches"][name],
+            "launches_per_step_405b_layer":
+                ch05["layer"]["launches_per_step"][name],
             "launches_per_step_by_plan": {
                 k: v[name] for k, v in plans["per_step"].items()},
             "launches_per_step_by_remat_policy": {
                 p: r["launches_per_step"][name]
                 for p, r in ch01["remat"].items()},
-            "shapes": {shape: {"B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
-                               **{kk: flash_timing[shape][name][kk]
-                                  for kk in shape_keys
-                                  if kk in flash_timing[shape][name]}}
-                       for shape in FLASH_TIMING_SHAPES},
+            "shapes": {**{shape: {
+                "B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
+                **{kk: flash_timing[shape][name][kk] for kk in shape_keys
+                   if kk in flash_timing[shape][name]}}
+                for shape in FLASH_TIMING_SHAPES},
+                "405b-layer": {
+                    "B_S_Hq_Hkv_D": CH05_405B_SHAPE,
+                    **{kk: v for kk, v in
+                       ch05["layer"]["kernels"]["timing"][name].items()
+                       if kk in shape_keys}}},
         })
     keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
             "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",

@@ -25,14 +25,11 @@ def main(argv=None) -> dict:
     parser.prog = "python -m distributed_training_guide_tpu_torch.chapters.c04_fsdp"
     parser.add_argument("--cpu-offload", action="store_true",
                         help="keep params AND optimizer state in host memory "
-                             "between steps (not ported)")
+                             "between steps (train/offload.py)")
     args = parser.parse_args(argv)
-    if args.cpu_offload:
-        raise NotImplementedError(
-            "--cpu-offload is not ported yet (ROADMAP.md queue 1, "
-            "'Chapter 05 recipe and conversion')")
     return run_chapter(args, lambda n, device: make_plan(
-        "fsdp", make_mesh(fsdp=n, device=device)))
+        "fsdp", make_mesh(fsdp=n, device=device)),
+        offload_opt_state=args.cpu_offload, offload_params=args.cpu_offload)
 
 
 if __name__ == "__main__":

@@ -324,7 +324,7 @@ class CheckpointIO:
         as ``checkpoint-<global_step>``; then the manifest, the state.json
         swing and pruning beyond ``keep_n``. A crash at any point leaves
         the previous chain referenced by a valid state.json."""
-        from ..train.state import state_tensors
+        from ..train.state import resident
 
         self.flush()
         self.exp_dir.mkdir(parents=True, exist_ok=True)
@@ -338,6 +338,16 @@ class CheckpointIO:
         step = int(host_state.get("global_step", 0))
         path = self._ckpt_dir(step)
         retained_before = self._retained_names()
+        # an offloaded state is written from the device, where its plan's
+        # DTensors live (train/offload.py)
+        with resident(train_state):
+            self._save(train_state, host_state, path, retained_before, t0)
+
+    def _save(self, train_state: Any, host_state: dict, path: Path,
+              retained_before: list, t0: float) -> None:
+        from ..train.state import state_tensors
+
+        step = int(host_state.get("global_step", 0))
         flat = state_tensors(train_state)
         log = {"step": step, "async": self.async_save,
                "bytes": sum(t.numel() * t.element_size()
@@ -438,15 +448,21 @@ class CheckpointIO:
         host_state); raises ``CheckpointCorruptionError`` when candidates
         existed but none survived, ``FileNotFoundError`` when there was
         nothing to resume."""
-        from ..train.state import load_state_tensors, state_tensors
+        from ..train.state import resident
 
         self.flush()
         names = self._retained_names()
         if not names:
             raise FileNotFoundError(
                 f"no resumable checkpoint in {self.exp_dir}")
-        if process_count() > 1:
-            return self._agreed_restore(target_state, names)
+        with resident(target_state):   # read on the device (offload)
+            if process_count() > 1:
+                return self._agreed_restore(target_state, names)
+            return self._restore_chain(target_state)
+
+    def _restore_chain(self, target_state: Any) -> tuple:
+        from ..train.state import load_state_tensors, state_tensors
+
         chain = self._retention_chain()
         if not chain:
             raise FileNotFoundError(

@@ -96,19 +96,29 @@ def _generator(rng, device) -> torch.Generator:
     return gen
 
 
+def init_target(rng, device) -> tuple:
+    """(generator, device) an init draws with: on ``device="meta"``
+    (shapes only, nothing drawn) a CPU generator the meta draws ignore."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.Generator(), torch.device("meta")
+    gen = _generator(rng, device)
+    return gen, gen.device
+
+
 def init(config: LlamaConfig, rng, *, device=None) -> dict:
     """Random init, normal(0.02) (HF from_config scale), from ``rng`` — a
     ``torch.Generator`` or an int seed for one on ``device`` (default
-    cuda). Leaves are drawn in the JAX package's order, so one seed gives
-    one set of params on a given device; the bits differ from jax's."""
-    gen = _generator(rng, device)
-    return _init_on(config, gen, gen.device)
+    cuda; ``"meta"`` gives the leaves' shapes and dtypes, nothing
+    allocated). Leaves are drawn in the JAX package's order, so one seed
+    gives one set of params on a given device; the bits differ from
+    jax's."""
+    return _init_on(config, *init_target(rng, device))
 
 
 def param_shapes(config: LlamaConfig) -> dict:
     """Every leaf's shape, as ``init`` makes it (drawn on the meta device:
     nothing is allocated)."""
-    tree = _init_on(config, torch.Generator(), torch.device("meta"))
+    tree = init(config, 0, device="meta")
 
     def shapes(t):
         if isinstance(t, dict):

@@ -118,8 +118,7 @@ def init(config: MoELlamaConfig, rng, *, device=None) -> dict:
     time in fp32 and cast into a ``param_dtype`` buffer, so the largest
     fp32 temporary is one layer's expert stack (805 MB for qwen3-30b-a3b)
     rather than all 48."""
-    gen = llama._generator(rng, device)
-    dev = gen.device
+    gen, dev = llama.init_target(rng, device)
     e, f, v, l = (config.hidden_size, config.intermediate_size,
                   config.vocab_size, config.num_layers)
     ex = config.num_experts

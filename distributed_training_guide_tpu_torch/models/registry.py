@@ -3,7 +3,8 @@
 Counterpart of ``distributed_training_guide_tpu/models/registry.py`` for
 the families ported so far (llama and moe).
 ``get_model(name, **overrides)`` replaces config fields, e.g.
-``dtype=torch.bfloat16, param_dtype=torch.bfloat16``.
+``dtype=torch.bfloat16, param_dtype=torch.bfloat16``; ``hf:<dir>`` names
+a model by its HF ``config.json`` (``models/auto.py``).
 """
 from __future__ import annotations
 
@@ -62,9 +63,16 @@ def get_model(name: str, **overrides) -> ModelBundle:
                 key, config, mod.init, mod.apply, family=family,
                 apply_with_aux=getattr(mod, "apply_with_aux", None))
     if name.startswith("hf:"):
-        raise NotImplementedError(
-            "hf: configs (models/auto.py) are not ported yet: ROADMAP.md "
-            "queue 1, 'Chapter 05 recipe and conversion'")
+        # the checkpoint's own config.json (models/auto.py)
+        from .auto import config_from_hf
+
+        family, config = config_from_hf(name[3:])
+        if overrides:
+            config = dataclasses.replace(config, **overrides)
+        mod = family_module(family)
+        return ModelBundle(name, config, mod.init, mod.apply, family=family,
+                           apply_with_aux=getattr(mod, "apply_with_aux",
+                                                  None))
     raise NotImplementedError(
         f"model {name!r} is not a ported preset ({', '.join(list_models())}); "
         f"gpt2 and neox families are ROADMAP.md queue 1 items")

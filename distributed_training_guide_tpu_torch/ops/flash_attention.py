@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from .._device import runs_plain
 from . import _build
 from .attention import NO_WINDOW, check_static_window
 from .remat import checkpoint_name
@@ -398,7 +399,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, window=None,
     if window is not None and not causal:
         raise ValueError("window (sliding-window attention) requires "
                          "causal=True")
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window, scale=scale,
                                          softcap=softcap, band=band)
@@ -428,7 +429,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     """K2: dq [B, Sq, Hq, D] in q's dtype from the forward's ``lse`` and
     ``delta = rowsum(do * o)`` ([B, Hq, Sq] fp32)."""
     global DQ_LAUNCHES
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, scale=scale,
                                   softcap=softcap, band=band)
@@ -446,7 +447,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     """K3: (dk, dv) [B, Sk, Hkv, D] in k's dtype, summed over each kv
     head's group, from ``lse`` / ``delta`` as K2 takes them."""
     global DKV_LAUNCHES
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, scale=scale,
                                    softcap=softcap, band=band)

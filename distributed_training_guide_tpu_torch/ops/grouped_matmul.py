@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from .._device import runs_plain
 from . import _build
 from .matmul import matmul_f32_out, split_bf16
 
@@ -393,7 +394,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     view of [G, K, N] (the backward passes ``rhs^T``)."""
     global GMM_LAUNCHES
     out_dtype = out_dtype or torch.promote_types(lhs.dtype, rhs.dtype)
-    if lhs.device.type == "cpu":
+    if runs_plain(lhs):
         return gmm_reference(lhs, rhs, group_sizes, out_dtype)
     group_sizes = group_sizes.to(torch.int32)
     _check_operands(lhs, rhs, group_sizes, out_dtype)
@@ -408,7 +409,7 @@ def tgmm(lhs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     """K6: ``d_rhs [G, K, N] = lhs_g^T @ dy_g`` in ``out_dtype``, zeros for
     empty groups, rows past ``sum(group_sizes)`` ignored."""
     global TGMM_LAUNCHES
-    if lhs.device.type == "cpu":
+    if runs_plain(lhs):
         return tgmm_reference(lhs, dy, group_sizes, num_groups, out_dtype)
     group_sizes = group_sizes.to(torch.int32)
     _check_operands(lhs, dy, group_sizes, out_dtype)
@@ -435,7 +436,7 @@ class _GroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         lhs, rhs, group_sizes = ctx.saved_tensors
         dy = dy.float()
-        on_cpu = dy.device.type == "cpu"
+        on_cpu = runs_plain(dy)
         dlhs = drhs = None
         if ctx.needs_input_grad[0]:
             rt = rhs.transpose(1, 2)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import runs_plain
+
 
 class _MatmulF32Out(torch.autograd.Function):
     """[N, E] @ [E, V] of 16-bit operands with the fp32 accumulator as the
@@ -46,7 +48,7 @@ def matmul_f32_out(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     so that is the same computation). No fp32 copy of ``w`` is kept."""
     if h.dtype == torch.float32 and w.dtype == torch.float32:
         return h @ w
-    if h.device.type == "cpu":
+    if runs_plain(h):
         return h.float() @ w.float()
     lead = h.shape[:-1]
     out = _MatmulF32Out.apply(h.reshape(-1, h.shape[-1]), w)

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._device import runs_plain
 from . import _build
 from .attention import NO_WINDOW, check_static_window, multihead_attention
 
@@ -332,7 +333,7 @@ def paged_flash_attend(q: torch.Tensor, k_pages: torch.Tensor,
     if quantized and (k_scale is None or v_scale is None):
         raise ValueError("pass both k_scale and v_scale (or neither) — a "
                          "half-quantized pool cannot exist")
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return paged_attend_reference(
             q, k_pages, v_pages, tables, lengths, k_scale=k_scale,
             v_scale=v_scale, window=window, scale=scale, softcap=softcap)
@@ -361,7 +362,7 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor,
     neutral state so the rest compare too."""
     if q.ndim == 3:
         q = q[:, None]
-    if q.device.type == "cpu":
+    if runs_plain(q):
         plan = _plan(q.shape[1], q.shape[2] // k_pages.shape[2], q.shape[3],
                      q.dtype, k_pages.dtype, tables.shape[1])
         return split_partials_reference(
@@ -384,7 +385,7 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     tensors. The kernel reads, per row, only the splits that hold a key of
     its band (``lengths``, ``page``, ``table_pages`` = M, ``window``)."""
     global COMBINE_LAUNCHES
-    if m.device.type == "cpu":
+    if runs_plain(m):
         return combine_partials_reference(m, l, acc)
     check_static_window(window)
     splits, s, t, hq, d = acc.shape

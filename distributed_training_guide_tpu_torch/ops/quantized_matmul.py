@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from .._device import runs_plain
 from . import _build
 from .matmul import split_bf16
 
@@ -276,7 +277,7 @@ def dequant_matmul(x2d: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     fp32, rounded once to ``out_dtype`` (fp32 or bf16). CPU tensors take
     ``quantized_matmul_reference``; CUDA tensors launch the kernel."""
     global LAUNCHES
-    if x2d.device.type == "cpu":
+    if runs_plain(x2d):
         return quantized_matmul_reference(x2d, q, scale).to(out_dtype)
     _require(x2d.is_cuda, f"x lies on {x2d.device}, not a CUDA device")
     for t in (q, scale):

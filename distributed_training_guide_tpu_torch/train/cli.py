@@ -11,11 +11,12 @@ resumes from the newest verifiable checkpoint there (or starts fresh),
 saves every ``--ckpt-freq`` steps (``--keep-checkpoints``,
 ``--async-checkpoint``, ``--checkpoint-full-crc``), and tracks with wandb
 under ``--wandb``. ``--optimizer``, ``--precision-policy``,
-``--param-dtype``, ``--remat-policy`` and ``--mmap-data`` are the JAX
-package's. The fault drills of ``utils/faults.py`` and the heartbeat of
-``utils/heartbeat.py`` are wired in. A flag whose feature a later slice
-ports raises ``NotImplementedError`` naming its ROADMAP.md item when it is
-set away from its default.
+``--param-dtype``, ``--remat-policy``, ``--mmap-data``, ``--pretrained``
+and ``--preflight`` are the JAX package's. The fault drills of
+``utils/faults.py`` and the heartbeat of ``utils/heartbeat.py`` are wired
+in. A flag whose feature a later slice ports raises
+``NotImplementedError`` naming its ROADMAP.md item when it is set away
+from its default.
 
 ``run_training(args, plan_factory)`` is what a chapter calls: the factory
 builds the sharding plan (``parallel/plans.py:make_plan``) once the
@@ -30,6 +31,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -37,10 +39,8 @@ LOGGER = logging.getLogger(__name__)
 
 # flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
 _UNPORTED_FLAGS = {
-    "pretrained": (None, "'Chapter 05 recipe and conversion'"),
     "lora_rank": (0, "'Other dense families' (LoRA)"),
     "native_loader": (False, "'Runtime robustness and tooling'"),
-    "preflight": (False, "'Chapter 05 recipe and conversion'"),
     "overlap_schedule": (False,
                          "'Context parallel, pipeline parallel and overlap'"),
 }
@@ -145,8 +145,19 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of steps 10-15 "
                              "into this dir")
-    parser.add_argument("--preflight", action="store_true")
-    parser.add_argument("--preflight-target", default=None, metavar="KIND")
+    parser.add_argument("--preflight", action="store_true",
+                        help="don't train: build the state on the meta "
+                             "device, run one step on a meta batch, and "
+                             "print the per-device memory budget and the "
+                             "comm roofline (train/preflight.py)")
+    parser.add_argument("--preflight-target", default=None, metavar="KIND",
+                        help="card the budget and roofline price (h100, "
+                             "the default)")
+    parser.add_argument("--preflight-world", default=None,
+                        type=_positive_int, metavar="N",
+                        help="ranks the preflight plans for (a chapter's "
+                             "64-GPU shape from one host; default: the "
+                             "launcher's WORLD_SIZE, else 1)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where training runs (default cuda; cpu runs "
                              "the plain PyTorch path)")
@@ -176,13 +187,21 @@ def _profiler(device):
 
 def run_training(args, plan_factory=None, *, device=None,
                  extra_log: Optional[dict] = None,
-                 model_overrides: Optional[dict] = None) -> dict:
+                 model_overrides: Optional[dict] = None,
+                 offload_opt_state: bool = False,
+                 offload_params: bool = False) -> dict:
     """The training loop. ``plan_factory() -> ShardingPlan`` is the one
     thing chapters customize (None: one device). Returns the host state,
     the last info dict, the state, every logged info dict, whether the run
-    resumed, and each checkpoint save's log (bytes, seconds) for tests and
-    the card's smoke run. ``model_overrides`` replaces config fields of the
-    preset (e.g. ``num_layers`` to cut depth)."""
+    resumed, each checkpoint save's log (bytes, seconds) and the seconds
+    the ``--pretrained`` load took, for tests and the card's smoke run. ``model_overrides`` replaces config fields of the
+    preset (e.g. ``num_layers`` to cut depth). ``offload_*``: the
+    optimizer state / params in host memory between steps
+    (``train/offload.py``). ``--pretrained DIR`` starts from a converted
+    checkpoint (``models/hf_convert.py``; each rank reads its own shards);
+    ``--preflight`` trains nothing and returns the budget report of
+    ``train/preflight.py`` for this model, plan and flags (the trainer on
+    the meta device)."""
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
@@ -205,7 +224,9 @@ def run_training(args, plan_factory=None, *, device=None,
     from .state import host_state_dict
     from .step import Trainer
 
-    device = resolve_device(device if device is not None
+    preflight = getattr(args, "preflight", False)
+    device = resolve_device("meta" if preflight else
+                            device if device is not None
                             else getattr(args, "device", None))
     init_logging(process_index(), process_count())
     if not is_process0():
@@ -240,10 +261,17 @@ def run_training(args, plan_factory=None, *, device=None,
         grad_accum=args.grad_accum, remat=args.checkpoint_activations,
         remat_policy=args.remat_policy, loss_chunks=args.loss_chunks,
         attn_impl=args.attn_impl, guard_policy=args.guard_policy,
-        precision=args.precision_policy, device=device, plan=plan)
+        precision=args.precision_policy, device=device, plan=plan,
+        offload_opt_state=offload_opt_state, offload_params=offload_params)
     guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
     data_ranks = 1 if plan is None else plan.data_parallel_size
     global_batch = args.batch_size * data_ranks * args.grad_accum
+    if preflight:
+        from .preflight import run_preflight
+
+        return run_preflight(trainer, global_batch=global_batch,
+                             seq_length=seq_length,
+                             target_device=args.preflight_target)
 
     tokenizer = get_tokenizer(args.model_name)
     dataset = load_and_preprocess_data(
@@ -272,11 +300,24 @@ def run_training(args, plan_factory=None, *, device=None,
                        full_crc=args.checkpoint_full_crc)
           if is_experiment else None)
     host_state = host_state_dict()
+    load_s = None       # seconds to load --pretrained weights
     resumed = io is not None and io.can_resume()
     if resumed:
         # policy-aware: an fp32 checkpoint restored into a precision-policy
         # run is re-encoded with a logged warning
         state, host_state = restore_train_state(io, trainer)
+    elif args.pretrained:
+        from ..models.hf_convert import load_pretrained
+
+        t0 = time.perf_counter()
+        state = trainer.init_state_from_params(
+            load_pretrained(bundle, plan, args.pretrained, device=device),
+            args.seed, sharded=plan is not None)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        load_s = time.perf_counter() - t0
+        LOGGER.info(f"Loaded pretrained weights from {args.pretrained} in "
+                    f"{load_s:.2f} s")
     else:
         state = trainer.init_state(args.seed)
     if is_experiment:
@@ -423,7 +464,8 @@ def run_training(args, plan_factory=None, *, device=None,
             tracker.finish()
     return {"host_state": host_state, "last_info": last_info,
             "state": state, "infos": infos, "resumed": resumed,
-            "checkpoint_saves": io.save_log if io is not None else []}
+            "checkpoint_saves": io.save_log if io is not None else [],
+            "pretrained_load_s": load_s}
 
 
 def _finish_profile(prof, profile_dir: str) -> None:

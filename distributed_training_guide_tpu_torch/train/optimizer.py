@@ -185,12 +185,14 @@ class _Fp32Update(torch.optim.Optimizer):
     def _store(self, x: torch.Tensor, slot: str, p):
         if self.native:
             return x.to(p.dtype)
-        return self.policy.store_moment(x, self.SLOTS[slot])
+        return self.policy.store_moment(x, self.SLOTS[slot],
+                                        self.layouts.get(p))
 
-    def _load(self, stored, slot: str, cdt) -> torch.Tensor:
+    def _load(self, stored, slot: str, cdt, p) -> torch.Tensor:
         if self.native:
             return stored.to(cdt)
-        return self.policy.load_moment(stored, self.SLOTS[slot])
+        return self.policy.load_moment(stored, self.SLOTS[slot],
+                                       self.layouts.get(p))
 
     @staticmethod
     def _scalar(cdt, device):
@@ -244,7 +246,7 @@ class _Fp32Update(torch.optim.Optimizer):
                 g = g.to(cdt)
                 if clip is not None:
                     g = ((g.float() / clip[0]) * clip[1]).to(cdt)
-                slots = {k: self._load(v, k, cdt)
+                slots = {k: self._load(v, k, cdt, p)
                          for k, v in self.state[p].items()}
                 pc = p.to(cdt)
                 u, slots = self._leaf(group, g, pc, slots)

@@ -83,6 +83,71 @@ def quantize_blockwise(x: torch.Tensor, block_size: int = 128,
     return Quantized(q=q, scale=scale)
 
 
+def straddles_shards(layout, block_size: int) -> bool:
+    """True when a sharded leaf's shards do not tile its trailing axis's
+    global blocks (``layout``: ``parallel/plans.py:LeafLayout``): a shard
+    boundary falls inside a block, so quantizing each shard on its own
+    would tile it otherwise, and ``quantize_sharded`` keeps the global
+    tiling."""
+    if layout is None or not layout.axes_of(len(layout.global_shape) - 1):
+        return False
+    bs = block_geometry(layout.global_shape[-1], block_size)[1]
+    local = layout.plan.local_shape(layout.spec, layout.global_shape)[-1]
+    return bool(local % bs or block_geometry(local, block_size)[1] != bs)
+
+
+def _shard_blocks(layout, w: int, block_size: int) -> tuple:
+    """(nblocks, bs, first block, blocks touched, left pad, right pad) of
+    this rank's ``w`` columns within the global block tiling."""
+    d = layout.global_shape[-1]
+    nblocks, bs = block_geometry(d, block_size)
+    lo = layout.plan.rank_over(layout.axes_of(len(layout.global_shape) - 1)
+                               ) * w
+    b0, b1 = lo // bs, (lo + w - 1) // bs
+    return nblocks, bs, b0, b1 - b0 + 1, lo - b0 * bs, (b1 + 1) * bs - lo - w
+
+
+def quantize_sharded(x: torch.Tensor, block_size: int, sqrt_domain: bool,
+                     layout) -> Quantized:
+    """``quantize_blockwise`` of the global leaf, from this rank's shard
+    ``x`` of a trailing axis its shards split mid-block: each block's
+    absmax is the max of its parts over the ranks that hold one (an
+    all-reduce MAX over the trailing axis's mesh axes), so ``q`` is this
+    rank's columns of the global ``q`` and ``scale`` the global scales
+    ``[..., nblocks]``, whole on every rank (the JAX layout: the block
+    axis replicated where the tiling does not align with the shards)."""
+    import torch.distributed as dist
+
+    x = x.to(torch.float32)
+    if sqrt_domain:
+        x = torch.sqrt(x)
+    w = x.shape[-1]
+    nblocks, bs, b0, nb, left, right = _shard_blocks(layout, w, block_size)
+    xb = F.pad(x, (left, right)).reshape(*x.shape[:-1], nb, bs)
+    amax = torch.zeros(*x.shape[:-1], nblocks, dtype=torch.float32,
+                       device=x.device)
+    amax[..., b0:b0 + nb] = torch.amax(torch.abs(xb), dim=-1)
+    for a in layout.axes_of(x.ndim - 1):
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                        group=layout.plan.group(a))
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
+    q = torch.clamp(torch.round(xb / scale[..., b0:b0 + nb, None]),
+                    -127, 127)
+    q = q.to(torch.int8).reshape(*x.shape[:-1], nb * bs)[..., left:left + w]
+    return Quantized(q=q, scale=scale)
+
+
+def dequantize_sharded(qt: Quantized, sqrt_domain: bool, layout,
+                       block_size: int) -> torch.Tensor:
+    """The inverse of ``quantize_sharded`` on this rank's columns."""
+    w = qt.q.shape[-1]
+    _, bs, b0, nb, left, _ = _shard_blocks(layout, w, block_size)
+    scale = torch.repeat_interleave(qt.scale[..., b0:b0 + nb], bs,
+                                    dim=-1)[..., left:left + w]
+    x = qt.q.to(torch.float32) * scale
+    return x * x if sqrt_domain else x
+
+
 def dequantize_blockwise(qt: Quantized, sqrt_domain: bool = False,
                          dtype=torch.float32) -> torch.Tensor:
     d = qt.q.shape[-1]
@@ -132,18 +197,26 @@ class PrecisionPolicy:
             return params
         return cast_floats(params, self.param_dtype)
 
-    def store_moment(self, x: torch.Tensor, kind: str):
+    def store_moment(self, x: torch.Tensor, kind: str, layout=None):
         """fp32 optimizer-state slot -> its storage form: a ``Quantized``
         for Adam's moments under a quantizing policy (``nu`` in the sqrt
-        domain), else the tensor in ``moment_dtype``."""
+        domain), else the tensor in ``moment_dtype``. ``layout``: the
+        ``LeafLayout`` of a sharded leaf, whose blocks are the global
+        leaf's where its shards split them (``quantize_sharded``)."""
         if self.quantize_moments and kind in (ADAM_MU, ADAM_NU):
+            if straddles_shards(layout, self.block_size):
+                return quantize_sharded(x, self.block_size, kind == ADAM_NU,
+                                        layout)
             return quantize_blockwise(x, self.block_size,
                                       sqrt_domain=kind == ADAM_NU)
         return x.to(self.moment_dtype)
 
-    def load_moment(self, stored, kind: str) -> torch.Tensor:
+    def load_moment(self, stored, kind: str, layout=None) -> torch.Tensor:
         """Storage form -> the fp32 slot the update computes on."""
         if isinstance(stored, Quantized):
+            if straddles_shards(layout, self.block_size):
+                return dequantize_sharded(stored, kind == ADAM_NU, layout,
+                                          self.block_size)
             return dequantize_blockwise(stored, sqrt_domain=kind == ADAM_NU)
         return stored.to(torch.float32)
 

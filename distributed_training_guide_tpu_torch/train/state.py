@@ -29,6 +29,7 @@ the param is not (ZeRO) keys its slots by its update shard.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -42,6 +43,7 @@ class TrainState:
     opt_state: Any             # train.optimizer.OptState
     rng: torch.Generator
     sharding: Any = None       # under a plan: train.step's PlanState
+    offload: Any = None        # train.offload.HostOffload, or None
 
 
 def host_state_dict(epoch: int = 0, epoch_step: int = 0,
@@ -53,6 +55,13 @@ def host_state_dict(epoch: int = 0, epoch_step: int = 0,
         "epoch_step": epoch_step,
         "running_loss": running_loss,
     }
+
+
+def resident(state: TrainState):
+    """Context manager: the state's offloaded tensors on its device for
+    the block (``train/offload.py``); a no-op without offload."""
+    off = getattr(state, "offload", None)
+    return contextlib.nullcontext() if off is None else off.resident(state)
 
 
 def named_leaves(tree, prefix: str = "") -> list:

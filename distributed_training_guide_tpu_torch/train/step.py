@@ -22,6 +22,12 @@ column-parallel wq / wk / wv / gate / up, row-parallel wo / down, the
 residual's sequence on tp, the vocab-parallel embedding and loss. tp_fsdp:
 both, on orthogonal axes.
 
+``offload_opt_state`` / ``offload_params`` keep the optimizer state /
+params in host memory between steps (``train/offload.py``: fetched to the
+device before each step and copied back after, the update unchanged); a
+meta-device trainer (``device="meta"``) builds and steps a state that
+allocates nothing, the preflight's (``train/preflight.py``).
+
 ``precision`` (``train/precision.py``) sets the storage: params in the
 policy's dtype (or the model's, ``--param-dtype``), the optimizer state in
 its form, and the gradient-accumulation buffer in ``accum_dtype``; the
@@ -51,6 +57,7 @@ from ..models.registry import ModelBundle, family_module
 from ..ops.cross_entropy import causal_lm_loss, chunked_causal_lm_loss
 from ..ops.remat import REMAT_POLICIES, resolve_remat_policy
 from .guards import apply_step_guard, validate_guard_policy
+from .offload import make_offload
 from .precision import cast_floats, resolve_policy
 from .state import TrainState, named_leaves
 
@@ -62,8 +69,6 @@ _PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
 # Trainer fields of the JAX package that later slices port, and where
 _UNPORTED = {
     "context_impl": "'Context parallel, pipeline parallel and overlap'",
-    "offload_opt_state": "'Chapter 05 recipe and conversion'",
-    "offload_params": "'Chapter 05 recipe and conversion'",
     "lora_only": "'Other dense families' (LoRA)",
     "overlap_schedule": "'Context parallel, pipeline parallel and overlap'",
     "pp_microbatches": "'Context parallel, pipeline parallel and overlap'",
@@ -149,19 +154,28 @@ class Trainer:
 
     # ---- init --------------------------------------------------------------
     def _fresh_state(self, params, seed: int, policy=None,
-                     optimizer=None) -> TrainState:
+                     optimizer=None, sharded: bool = False) -> TrainState:
         policy = self.precision if policy is None else policy
         params = policy.cast_params(params)
-        rng = torch.Generator(device=self.device)
+        # a meta trainer (the preflight) keeps a CPU generator: meta has none
+        rng = torch.Generator(device="cpu" if self.device.type == "meta"
+                              else self.device)
         rng.manual_seed(int(seed))
         if self.plan_state is not None:
-            return self.plan_state.fresh_state(
-                params, policy, optimizer or self.optimizer, rng)
-        params = _map(params, lambda t: t.requires_grad_(True))
-        opt_state = (optimizer or self.optimizer).init(_leaves(params),
-                                                       policy)
-        return TrainState(step=0, params=params, opt_state=opt_state,
-                          rng=rng)
+            state = self.plan_state.fresh_state(
+                params, policy, optimizer or self.optimizer, rng, sharded)
+        else:
+            params = _map(params, lambda t: t.requires_grad_(True))
+            opt_state = (optimizer or self.optimizer).init(_leaves(params),
+                                                           policy)
+            state = TrainState(step=0, params=params, opt_state=opt_state,
+                               rng=rng)
+        state.offload = make_offload(self.device,
+                                     params=self.offload_params,
+                                     opt_state=self.offload_opt_state)
+        if state.offload is not None:
+            state.offload.release(state)     # to the host until a step
+        return state
 
     def init_state(self, seed: int) -> TrainState:
         """Random init from ``seed``, on the trainer's device, stored under
@@ -170,12 +184,16 @@ class Trainer:
         return self._fresh_state(
             self.bundle.init(cfg, seed, device=self.device), seed)
 
-    def init_state_from_params(self, params, seed: int = 0) -> TrainState:
+    def init_state_from_params(self, params, seed: int = 0, *,
+                               sharded: bool = False) -> TrainState:
         """Fresh optimizer state around given params (copied to the
-        trainer's device, so the caller's tensors are never updated)."""
+        trainer's device, so the caller's tensors are never updated).
+        ``sharded``: under a plan, ``params`` are already this rank's
+        shards (``models/hf_convert.py:load_pretrained(bundle, plan,
+        ...)``), not whole leaves."""
         return self._fresh_state(
             _map(params, lambda t: t.detach().to(self.device, copy=True)),
-            seed)
+            seed, sharded=sharded)
 
     def fp32_reference_state(self, seed: int = 0) -> TrainState:
         """A state in the layout before any policy: fp32 params and the
@@ -248,7 +266,21 @@ class Trainer:
         [B, S], or [A, B, S] under grad accumulation). Updates ``state`` in
         place and returns (state, {"loss", "grad_norm"[, "notfinite"]}),
         the metrics as fp32 device scalars. Under a plan ``batch`` holds
-        this rank's rows (``data/loader.py``)."""
+        this rank's rows (``data/loader.py``). An offloaded state
+        (``offload_params`` / ``offload_opt_state``) is fetched to the
+        device first and copied back to the host after (``train/
+        offload.py``); read it on the host only after
+        ``state.offload.wait()``."""
+        off = state.offload
+        if off is None:
+            return self._step(state, batch)
+        off.fetch(state)
+        try:
+            return self._step(state, batch)
+        finally:
+            off.release(state)
+
+    def _step(self, state: TrainState, batch: dict) -> tuple:
         if self.plan_state is not None:
             return self.plan_state.step(state, batch)
         leaves = _leaves(state.params)
@@ -346,6 +378,7 @@ class StateShards:
         moment's block scales (one per block of the trailing axis)."""
         from ..parallel.plans import entry_axes
         from .optimizer import factored_dims
+        from .precision import straddles_shards
 
         if t.ndim == 0:
             return t
@@ -360,8 +393,14 @@ class StateShards:
             spec = spec[:drop] + spec[drop + 1:]
             shape = shape[:drop] + shape[drop + 1:]
         elif slot.endswith(".scale"):
-            n = math.prod(ps.plan.sizes[a] for a in entry_axes(spec[-1]))
-            shape = shape[:-1] + (t.shape[-1] * n,)
+            if straddles_shards(ps.leaf_layouts[path], opt.policy.block_size):
+                # quantize_sharded's global scales: whole on every rank
+                spec = spec[:-1] + (None,)
+                shape = shape[:-1] + (t.shape[-1],)
+            else:
+                n = math.prod(ps.plan.sizes[a]
+                              for a in entry_axes(spec[-1]))
+                shape = shape[:-1] + (t.shape[-1] * n,)
         while spec and spec[-1] is None:
             spec = spec[:-1]
         return ps.plan.dtensor(t, spec, shape)
@@ -420,7 +459,8 @@ class PlanState:
                 f"a chunked or custom loss under a sharding plan: "
                 f"{_PLAN_REST}")
         mesh_type = plan.mesh.device_type
-        if mesh_type != trainer.device.type:
+        # a meta trainer runs on any mesh (the preflight's fake group)
+        if mesh_type != trainer.device.type and trainer.device.type != "meta":
             raise ValueError(f"the plan's mesh is on {mesh_type}, the "
                              f"trainer on {trainer.device}")
         mod = family_module(bundle.family)
@@ -433,17 +473,26 @@ class PlanState:
 
     # ---- the state ---------------------------------------------------------
     def fresh_state(self, params: dict, policy, optimizer,
-                    rng: torch.Generator) -> TrainState:
+                    rng: torch.Generator,
+                    sharded: bool = False) -> TrainState:
         """This rank's shards of full ``params`` (already in the policy's
-        storage) and a fresh optimizer state around them."""
+        storage; ``sharded``: already this rank's shards) and a fresh
+        optimizer state around them."""
         plan = self.plan
-        if policy.quantize_moments:
-            self._check_blocks(policy.block_size)
         local = {}
         for path, full in named_leaves(params):
+            if sharded:
+                want = plan.local_shape(self.specs[path], self.shapes[path])
+                if tuple(full.shape) != want:
+                    raise ValueError(f"{path}: shard {tuple(full.shape)}, "
+                                     f"the plan's {want}")
+                local[path] = full.detach().requires_grad_(True)
+                continue
             t = plan.shard(self.specs[path], full.detach()).contiguous()
             if t.numel() != full.numel():
                 t = t.clone()
+            else:   # the whole leaf, not a view of it: a view's base
+                t = full.detach()   # would keep the storage an offload moves
             local[path] = t.requires_grad_(True)
         update = {p: plan.shard(self.opt_specs[p], local[p].detach()).clone()
                   for p in self.zero_paths}
@@ -454,19 +503,6 @@ class PlanState:
         return TrainState(step=0, params=_unflatten(local),
                           opt_state=opt_state, rng=rng,
                           sharding=StateShards(self, update))
-
-    def _check_blocks(self, block: int) -> None:
-        """adam8bit's blocks tile the trailing axis: a shard of it must
-        hold whole blocks of the global tiling."""
-        for path, spec in self.opt_specs.items():
-            shape = self.shapes[path]
-            if len(spec) < len(shape) or spec[-1] is None:
-                continue
-            local = self.plan.local_shape(spec, shape)[-1]
-            if shape[-1] % block or local % block:
-                raise NotImplementedError(
-                    f"{path}: adam8bit blocks of {block} across a trailing "
-                    f"axis of {shape[-1]} sharded to {local}: {_PLAN_REST}")
 
     # ---- the step ----------------------------------------------------------
     def _loss(self, params: dict, mb: dict) -> torch.Tensor:

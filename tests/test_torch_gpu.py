@@ -1417,3 +1417,86 @@ def test_plan_at_world_one_is_the_single_plan(cuda, nccl_world_of_one,
     for (loss, norm), (loss1, norm1) in zip(sharded, single):
         assert abs(loss - loss1) <= 1e-5 * abs(loss1)
         assert abs(norm - norm1) <= 1e-4 * abs(norm1)
+
+
+@pytest.mark.parametrize("s", [512, 4096])
+def test_flash_kernels_at_the_405b_head_layout(cuda, s):
+    """K1-K3 at llama-3.1-405b's attention (B 1, Hq 128, Hkv 8: a GQA
+    group of 16, D 128, bf16, causal) against the fp32 plain versions at
+    the bf16 bound and against the plain versions at their own arithmetic
+    at the tight bound, each launch through the Hopper body."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+                   for shape in ((1, s, 128, 128), (1, s, 8, 128),
+                                 (1, s, 8, 128), (1, s, 128, 128)))
+    before = (fa.FWD_BODY_LAUNCHES["wgmma"], fa.ALIGN_COPIES)
+    o, lse = fa.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.FWD_BODY_LAUNCHES["wgmma"], fa.ALIGN_COPIES) == (
+        before[0] + 1, before[1])
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    ao, _ = fa.flash_attention_reference(q, k, v, round_p=True)
+
+    def rel(got, want):
+        return ((got.float() - want.float()).norm()
+                / want.float().norm()).item()
+    assert rel(o, ro) <= FLASH_BF16_REL_L2
+    assert rel(o, ao) <= FLASH_KERNEL_ARITH_REL_L2
+    assert (lse - rlse).abs().max().item() <= FLASH_FP32["lse"]
+    del ao
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    got = fa.flash_bwd_with_stats(*args)
+    plain = fa.flash_bwd_reference(*args)
+    for key, g, w in zip(("dq", "dk", "dv"), got, plain):
+        assert rel(g, w) <= FLASH_BF16_REL_L2, key
+    del plain
+    arith = (fa.flash_dq_reference(*args, round_p_ds=True),
+             *fa.flash_dkv_reference(*args, round_p_ds=True))
+    for key, g, w in zip(("dq", "dk", "dv"), got, arith):
+        assert rel(g, w) <= FLASH_KERNEL_ARITH_REL_L2, key
+
+
+def test_offload_on_the_card_is_bitwise_and_frees_the_card(cuda):
+    """Params and optimizer state offloaded to pinned host memory between
+    steps: the same losses, grad norms and params as without offload,
+    bitwise, every offloaded tensor a pinned host buffer between steps,
+    and the card's allocated bytes lower by the offloaded bytes."""
+    from distributed_training_guide_tpu_torch.train import optimizer as topt
+    from distributed_training_guide_tpu_torch.train.state import named_leaves
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = get_model("llama-debug", hidden_size=256, num_heads=4,
+                       num_kv_heads=2, num_layers=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.randint(0, 512, (3, 2, 256), device=cuda, generator=gen)
+
+    def run(**off):
+        t = Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
+                    device=cuda, **off)
+        state = t.init_state(0)
+        out, alloc = [], []
+        for b in ids:
+            state, m = t.step_fn(state, {"input_ids": b, "labels": b})
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+            torch.cuda.synchronize()
+            alloc.append(torch.cuda.memory_allocated())
+            if state.offload is not None:
+                assert state.offload.on_host(state)
+        params = {p: x.detach().cpu() for p, x in named_leaves(state.params)}
+        host = 0 if state.offload is None else state.offload.host_bytes(state)
+        del state, t
+        return out, params, alloc[-1], host
+
+    want, wparams, walloc, _ = run()
+    base = torch.cuda.memory_allocated()    # after the library workspaces
+    for off in ({"offload_opt_state": True},
+                {"offload_opt_state": True, "offload_params": True}):
+        got, params, alloc, host = run(**off)
+        assert got == want, off
+        assert all(torch.equal(params[p], wparams[p]) for p in wparams)
+        # the allocator rounds each tensor up to 512 bytes
+        assert abs((walloc - alloc) - host) <= 512 * 4 * len(wparams), off
+        # no device copy outlives its state
+        assert torch.cuda.memory_allocated() == base, off

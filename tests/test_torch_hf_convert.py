@@ -1,0 +1,443 @@
+"""HF checkpoints into the port: ``models/auto.py`` (``hf:<dir>``) and
+``models/hf_convert.py`` (stream-convert, sharded load), on the CPU.
+
+For each llama- and moe-family architecture: a ``transformers`` model built
+from an in-code config with a few layers and narrow widths (nothing
+downloaded), random weights from a seed, ``save_pretrained``, the port's
+convert and load, and the port's fp32 logits against ``transformers``'
+within 1e-4 of the largest logit (as ``test_torch_hf_parity.py``: the same
+fp32 math summed in another order). Also: a checkpoint in many safetensors
+shards, the converted directory byte-equal to the JAX converter's, the
+``hf:`` config equal field by field to the JAX ``config_from_hf``, gpt2 and
+neox refused naming their item, the converter's streaming memory bound,
+and the sharded load on 4 gloo ranks (``tests/torch_dist_worker.py``)."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+transformers = pytest.importorskip("transformers")
+pytest.importorskip("safetensors")
+
+from distributed_training_guide_tpu.models import auto as jax_auto  # noqa: E402
+from distributed_training_guide_tpu.models.hf_convert import (  # noqa: E402
+    convert_hf_checkpoint as jax_convert)
+from distributed_training_guide_tpu.models.registry import (  # noqa: E402
+    get_model as jax_get_model)
+from distributed_training_guide_tpu_torch.models import get_model  # noqa: E402
+from distributed_training_guide_tpu_torch.models.auto import (  # noqa: E402
+    config_from_hf)
+from distributed_training_guide_tpu_torch.models.hf_convert import (  # noqa: E402
+    convert_hf_checkpoint, load_pretrained)
+
+LOGIT_TOL = 1e-4     # fp32 through 2 layers, sums in another order
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=2, num_attention_heads=4,
+             num_key_value_heads=2, max_position_embeddings=256,
+             rope_theta=10000.0, rms_norm_eps=1e-5)
+
+
+def _randomize(model, names) -> None:
+    """Move weights HF inits to constants (norm scales, biases) off them,
+    so the variant's path is exercised."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if any(n in name for n in names):
+                p.normal_(1.0 if "norm" in name else 0.0, 0.3)
+
+
+def _llama():
+    return transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        **SMALL, tie_word_embeddings=False)), 24
+
+
+def _llama3_tied():
+    cfg = transformers.LlamaConfig(
+        **{**SMALL, "rope_theta": 500000.0}, tie_word_embeddings=True,
+        rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 64})
+    return transformers.LlamaForCausalLM(cfg), 96
+
+
+def _mistral():
+    return transformers.MistralForCausalLM(transformers.MistralConfig(
+        **SMALL, sliding_window=16, attn_implementation="eager",
+        tie_word_embeddings=False)), 48
+
+
+def _qwen2():
+    m = transformers.Qwen2ForCausalLM(transformers.Qwen2Config(
+        **SMALL, sliding_window=16, use_sliding_window=True,
+        max_window_layers=1, attn_implementation="eager",
+        tie_word_embeddings=False))
+    _randomize(m, ("q_proj.bias", "k_proj.bias", "v_proj.bias"))
+    return m, 48
+
+
+def _qwen3():
+    m = transformers.Qwen3ForCausalLM(transformers.Qwen3Config(
+        **SMALL, head_dim=32, tie_word_embeddings=False))
+    _randomize(m, ("q_norm", "k_norm"))
+    return m, 24
+
+
+def _gemma():
+    return transformers.GemmaForCausalLM(transformers.GemmaConfig(
+        **{**SMALL, "num_key_value_heads": 1, "rms_norm_eps": 1e-6},
+        head_dim=32, hidden_act="gelu_pytorch_tanh",
+        tie_word_embeddings=True)), 24
+
+
+def _gemma2():
+    m = transformers.Gemma2ForCausalLM(transformers.Gemma2Config(
+        **{**SMALL, "rms_norm_eps": 1e-6}, head_dim=32,
+        query_pre_attn_scalar=24.0, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, sliding_window=16,
+        attn_implementation="eager", hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True))
+    _randomize(m, ("post_attention_layernorm", "pre_feedforward_layernorm",
+                   "post_feedforward_layernorm"))
+    return m, 48
+
+
+def _phi3():
+    return transformers.Phi3ForCausalLM(transformers.Phi3Config(
+        **SMALL, sliding_window=None, tie_word_embeddings=False,
+        pad_token_id=0, bos_token_id=1, eos_token_id=2)), 24
+
+
+def _olmo2():
+    m = transformers.Olmo2ForCausalLM(transformers.Olmo2Config(
+        **SMALL, tie_word_embeddings=False))
+    _randomize(m, ("q_norm", "k_norm", "post_attention_layernorm",
+                   "post_feedforward_layernorm"))
+    return m, 24
+
+
+def _mixtral():
+    return transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        **SMALL, num_local_experts=4, num_experts_per_tok=2,
+        sliding_window=None, tie_word_embeddings=False)), 24
+
+
+def _qwen2_moe():
+    m = transformers.Qwen2MoeForCausalLM(transformers.Qwen2MoeConfig(
+        **SMALL, moe_intermediate_size=96,
+        shared_expert_intermediate_size=112, num_experts=4,
+        num_experts_per_tok=2, norm_topk_prob=False, decoder_sparse_step=1,
+        mlp_only_layers=[], tie_word_embeddings=False))
+    _randomize(m, ("q_proj.bias", "k_proj.bias", "v_proj.bias",
+                   "shared_expert_gate"))
+    return m, 24
+
+
+def _qwen3_moe():
+    m = transformers.Qwen3MoeForCausalLM(transformers.Qwen3MoeConfig(
+        **SMALL, moe_intermediate_size=96, head_dim=32, num_experts=4,
+        num_experts_per_tok=2, norm_topk_prob=False, decoder_sparse_step=1,
+        mlp_only_layers=[], tie_word_embeddings=False))
+    _randomize(m, ("q_norm", "k_norm"))
+    return m, 24
+
+
+# architecture -> (HF model maker, family)
+ARCHS = {"llama": (_llama, "llama"), "llama3-tied": (_llama3_tied, "llama"),
+         "mistral": (_mistral, "llama"), "qwen2": (_qwen2, "llama"),
+         "qwen3": (_qwen3, "llama"), "gemma": (_gemma, "llama"),
+         "gemma2": (_gemma2, "llama"), "phi3": (_phi3, "llama"),
+         "olmo2": (_olmo2, "llama"), "mixtral": (_mixtral, "moe"),
+         "qwen2_moe": (_qwen2_moe, "moe"), "qwen3_moe": (_qwen3_moe, "moe")}
+
+
+def _saved(tmp_path, arch: str, **save_kw):
+    torch.manual_seed(0)
+    model, seq = ARCHS[arch][0]()
+    model = model.eval()
+    model.save_pretrained(tmp_path / "hf", safe_serialization=True,
+                          **save_kw)
+    return model, seq
+
+
+def _bundle(tmp_path):
+    """The port's bundle of the saved checkpoint, fp32 compute; the moe
+    family with dropless (ragged) dispatch, as HF's."""
+    family, _ = config_from_hf(tmp_path / "hf")
+    kw = {"moe_dispatch": "ragged"} if family == "moe" else {}
+    return get_model(f"hf:{tmp_path / 'hf'}", dtype=torch.float32, **kw)
+
+
+def _assert_logits(model, bundle, params, seq: int) -> None:
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 128,
+                                                             (2, seq)))
+    with torch.no_grad():
+        theirs = model(ids).logits.float()
+        ours = bundle.apply(bundle.config, params, ids)
+    scale = float(theirs.abs().max())
+    assert ours.shape == theirs.shape
+    err = float((ours - theirs).abs().max())
+    assert err <= LOGIT_TOL * scale, f"max err {err} over max logit {scale}"
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_convert_load_matches_transformers(tmp_path, arch):
+    model, seq = _saved(tmp_path, arch)
+    bundle = _bundle(tmp_path)
+    assert bundle.family == ARCHS[arch][1]
+    convert_hf_checkpoint(tmp_path / "hf", tmp_path / "conv", bundle=bundle)
+    params = load_pretrained(bundle, None, tmp_path / "conv", device="cpu")
+    _assert_logits(model, bundle, params, seq)
+
+
+def test_multi_shard_checkpoint(tmp_path):
+    """A checkpoint in many safetensors files (each layer's tensors spread
+    over several) converts to the same directory as one file."""
+    model, seq = _saved(tmp_path, "llama", max_shard_size="40KB")
+    files = sorted(p.name for p in (tmp_path / "hf").glob("*.safetensors"))
+    assert len(files) >= 3, files
+    bundle = _bundle(tmp_path)
+    convert_hf_checkpoint(tmp_path / "hf", tmp_path / "conv", bundle=bundle)
+    params = load_pretrained(bundle, None, tmp_path / "conv", device="cpu")
+    _assert_logits(model, bundle, params, seq)
+    model.save_pretrained(tmp_path / "one", safe_serialization=True)
+    convert_hf_checkpoint(tmp_path / "one", tmp_path / "conv1",
+                          bundle=bundle)
+    for leaf in json.loads((tmp_path / "conv" / "manifest.json")
+                           .read_text())["leaves"]:
+        assert ((tmp_path / "conv" / f"{leaf}.npy").read_bytes()
+                == (tmp_path / "conv1" / f"{leaf}.npy").read_bytes()), leaf
+
+
+@pytest.mark.parametrize("arch", ["llama3-tied", "mixtral"])
+def test_converted_dir_is_byte_equal_to_jax(tmp_path, arch):
+    """One conversion serves both packages: every file the port writes is
+    byte for byte the JAX converter's, manifest included."""
+    _saved(tmp_path, arch)
+    name = f"hf:{tmp_path / 'hf'}"
+    convert_hf_checkpoint(tmp_path / "hf", tmp_path / "port", name)
+    jax_convert(tmp_path / "hf", tmp_path / "jax", bundle=jax_get_model(name))
+    port = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert port == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert len(port) > 5
+    for f in port:
+        assert ((tmp_path / "port" / f).read_bytes()
+                == (tmp_path / "jax" / f).read_bytes()), f
+
+
+def _fields(config) -> dict:
+    out = {}
+    for f in dataclasses.fields(config):
+        v = getattr(config, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            v = str(v).rsplit(".", 1)[-1].rstrip("'>")
+        out[f.name] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_hf_config_equals_jax_config_from_hf(tmp_path, arch):
+    _saved(tmp_path, arch)
+    fam, ours = config_from_hf(tmp_path / "hf")
+    jfam, theirs = jax_auto.config_from_hf(tmp_path / "hf")
+    assert fam == jfam
+    ours, theirs = _fields(ours), _fields(theirs)
+    # the JAX moe config has fields of its own (expert parallelism,
+    # dispatch internals) that the port's does not carry
+    assert set(ours) <= set(theirs)
+    assert ours == {k: theirs[k] for k in ours}
+
+
+@pytest.mark.parametrize("cfg,item", [
+    (transformers.GPT2Config(vocab_size=64, n_embd=32, n_layer=2,
+                             n_head=2), "gpt2"),
+    (transformers.GPTNeoXConfig(vocab_size=64, hidden_size=32,
+                                intermediate_size=64, num_hidden_layers=2,
+                                num_attention_heads=2), "neox")],
+    ids=["gpt2", "neox"])
+def test_unported_families_name_their_item(tmp_path, cfg, item):
+    cfg.save_pretrained(tmp_path)
+    with pytest.raises(NotImplementedError,
+                       match=f"{item}.*'Other dense families'"):
+        get_model(f"hf:{tmp_path}")
+
+
+_RSS_SCRIPT = """
+import gc, json, os, sys, threading, time
+
+import torch
+import transformers
+
+sys.path.insert(0, os.environ["REPO_ROOT"])
+from distributed_training_guide_tpu_torch.models import get_model
+from distributed_training_guide_tpu_torch.models.hf_convert import (
+    convert_hf_checkpoint)
+
+OUT = os.environ["RSS_TMP"]
+
+# ~190 MB of fp32 weights; largest single tensor ~12.6 MB (embed/lm_head)
+kw = dict(vocab_size=4096, hidden_size=768, intermediate_size=2048,
+          num_layers=6, num_heads=8, num_kv_heads=4,
+          max_position_embeddings=256)
+hf_cfg = transformers.LlamaConfig(
+    num_hidden_layers=kw["num_layers"], num_attention_heads=kw["num_heads"],
+    num_key_value_heads=kw["num_kv_heads"], tie_word_embeddings=False,
+    **{k: kw[k] for k in ("vocab_size", "hidden_size", "intermediate_size",
+                          "max_position_embeddings")})
+torch.manual_seed(0)
+model = transformers.LlamaForCausalLM(hf_cfg)
+model.save_pretrained(os.path.join(OUT, "hf"), safe_serialization=True)
+total_bytes = sum(p.numel() * 4 for p in model.parameters())
+del model
+gc.collect()
+
+
+def rss_anon() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+baseline = rss_anon()
+peak = [baseline]
+stop = threading.Event()
+
+
+def sampler():
+    while not stop.is_set():
+        peak[0] = max(peak[0], rss_anon())
+        time.sleep(0.005)
+
+
+t = threading.Thread(target=sampler, daemon=True)
+t.start()
+bundle = get_model("llama-debug", **kw)
+convert_hf_checkpoint(os.path.join(OUT, "hf"), os.path.join(OUT, "conv"),
+                      bundle=bundle)
+stop.set()
+t.join()
+print("RSS:" + json.dumps({"total_bytes": total_bytes, "baseline": baseline,
+                           "peak_delta": peak[0] - baseline}))
+"""
+
+
+def test_conversion_streams_one_tensor_at_a_time(tmp_path):
+    """``tests/test_405b_recipe.py``'s bound on the port's converter: over
+    a ~190 MB model, peak anonymous RSS during the conversion grows by
+    less than 60 MB (a few tensors), never the model (the output memmaps'
+    dirty pages are file-backed)."""
+    env = dict(os.environ, RSS_TMP=str(tmp_path), REPO_ROOT=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _RSS_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = next(l for l in proc.stdout.splitlines() if l.startswith("RSS:"))
+    rss = json.loads(line[len("RSS:"):])
+    assert rss["total_bytes"] > 150e6
+    assert rss["baseline"] > 0
+    assert rss["peak_delta"] < 60e6, (
+        f"conversion peaked {rss['peak_delta'] / 1e6:.0f} MB anon over "
+        f"baseline for a {rss['total_bytes'] / 1e6:.0f} MB model")
+
+
+def test_sharded_load_on_four_gloo_ranks_equals_the_whole_loads_shards(
+        tmp_path):
+    """Each rank reads only its slices of the converted memmaps under
+    fsdp 4, tp 4 and tp_fsdp 2 x 2 (``tests/torch_dist_worker.py
+    --scenario sharded_load``): every leaf equals the plan's shard of the
+    whole load, and a step from the sharded load gives the loss of a step
+    from the whole params."""
+    cfg = transformers.LlamaConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, tie_word_embeddings=False)
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(cfg).save_pretrained(
+        tmp_path / "hf", safe_serialization=True)
+    convert_hf_checkpoint(tmp_path / "hf", tmp_path / "conv", "llama-debug")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_training_guide_tpu_torch.launch."
+         "local", "--nproc", "4", "--log-dir", str(tmp_path / "logs"), "--",
+         sys.executable, os.path.join(ROOT, "tests", "torch_dist_worker.py"),
+         "--dir", str(tmp_path), "--scenario", "sharded_load"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    logs = "\n".join(p.read_text()[-3000:]
+                     for p in sorted((tmp_path / "logs").glob("*.err")))
+    assert out.returncode == 0, out.stderr[-3000:] + logs
+    got = json.loads((tmp_path / "sharded_load.json").read_text())
+    assert set(got) == {"fsdp", "tp", "tp_fsdp"}
+    for plan, r in got.items():
+        assert r["equal"] and r["step_equal"], (plan, r)
+        assert r["sharded_leaves"] >= 8, (plan, r)
+
+
+def test_chapter05_pretrained_starts_from_the_converted_weights(tmp_path):
+    """``c05_llama405b --pretrained`` (fsdp at world 1, through the CLI's
+    load) starts from exactly the converted weights: with ``--lr 0`` one
+    step leaves them as loaded, and its loss is HF's on the same batch
+    within 1e-4 relative (fp32 compute here)."""
+    from distributed_training_guide_tpu_torch.chapters import c05_llama405b
+    from distributed_training_guide_tpu_torch.data import (
+        BatchLoader, get_tokenizer, load_and_preprocess_data)
+    from distributed_training_guide_tpu_torch.train.state import (
+        named_leaves)
+
+    cfg = transformers.LlamaConfig(**{**SMALL, "vocab_size": 512},
+                                   tie_word_embeddings=False)
+    torch.manual_seed(0)
+    model = transformers.LlamaForCausalLM(cfg).eval()
+    model.save_pretrained(tmp_path / "hf", safe_serialization=True)
+    name = f"hf:{tmp_path / 'hf'}"
+    from distributed_training_guide_tpu_torch.chapters import (
+        c05_convert_llama)
+
+    c05_convert_llama.main([str(tmp_path / "hf"), str(tmp_path / "conv"),
+                            name])
+    out = c05_llama405b.main(
+        ["-m", name, "--pretrained", str(tmp_path / "conv"), "-d",
+         "synthetic:20000", "-s", "64", "-b", "2", "--lr", "0",
+         "--max-steps", "1", "--log-freq", "1", "--device", "cpu",
+         "--no-checkpoint-activations"],
+        model_overrides={"dtype": torch.float32})
+    bundle = get_model(name)
+    want = load_pretrained(bundle, None, tmp_path / "conv", device="cpu")
+    got = dict(named_leaves(out["state"].params))
+    for path, t in named_leaves(want):
+        assert torch.equal(got[path], t), path
+    data = load_and_preprocess_data("synthetic:20000", get_tokenizer(name),
+                                    64, max_position_embeddings=256, seed=0)
+    ids = next(BatchLoader(data, 2, device="cpu").epoch_batches())
+    with torch.no_grad():
+        ref = float(model(ids["input_ids"], labels=ids["labels"]).loss)
+    assert out["infos"][0]["running_loss"] == pytest.approx(ref, rel=1e-4)
+
+
+def test_transformers_5_rope_parameters_read_as_rope_theta_and_scaling(
+        tmp_path):
+    """transformers 5 writes ``rope_theta`` and the scaling into one
+    ``rope_parameters`` dict (the card's machine has 5.x); the config is
+    the one the 4.x spelling gives, and a default rope_type adds no
+    scaling."""
+    _saved(tmp_path, "llama3-tied")
+    v4 = json.loads((tmp_path / "hf" / "config.json").read_text())
+    v5 = {k: v for k, v in v4.items() if k not in ("rope_theta",
+                                                   "rope_scaling")}
+    v5["rope_parameters"] = {**v4["rope_scaling"],
+                             "rope_theta": v4["rope_theta"]}
+    (tmp_path / "v5").mkdir()
+    (tmp_path / "v5" / "config.json").write_text(json.dumps(v5))
+    assert config_from_hf(tmp_path / "v5") == config_from_hf(tmp_path / "hf")
+    v5["rope_parameters"] = {"full_attention": {"rope_type": "default",
+                                                "rope_theta": 1e6}}
+    (tmp_path / "v5" / "config.json").write_text(json.dumps(v5))
+    _, cfg = config_from_hf(tmp_path / "v5")
+    assert cfg.rope_theta == 1e6 and cfg.rope_scaling is None

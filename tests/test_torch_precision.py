@@ -181,3 +181,46 @@ def test_bf16_master_keeps_every_store_bf16():
     assert params["w"].dtype == torch.bfloat16
     assert all(v.dtype == torch.bfloat16
                for v in ost.optimizer.state[params["w"]].values())
+
+
+def _gang(tmp_path, nproc: int, scenario: str) -> dict:
+    """Run one scenario of ``tests/torch_dist_worker.py`` on ``nproc``
+    gloo ranks and return rank 0's JSON result."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_training_guide_tpu_torch.launch."
+         "local", "--nproc", str(nproc), "--log-dir", str(tmp_path / "logs"),
+         "--", sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+         "--dir", str(tmp_path), "--scenario", scenario], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300)
+    logs = "\n".join(p.read_text()[-3000:]
+                     for p in sorted((tmp_path / "logs").glob("*.err")))
+    assert out.returncode == 0, out.stderr[-3000:] + logs
+    return json.loads((tmp_path / f"{scenario}.json").read_text())
+
+
+def test_adam8bit_blocks_split_by_tp_shards_match_one_device(tmp_path):
+    """adam8bit's blocks where tp 4 cuts the trailing axis mid-block (520
+    columns: 5 blocks of 104, shards of 130): the sharded quantizer gives
+    each rank its columns of the one-device ``q``, the one-device scales
+    whole, and its columns of the dequantized moment, bitwise; 500 columns
+    (4 blocks of 125, one a shard) stay on the local path. A tp 4 adam8bit
+    run over a 520-token vocab trains, and restores from its checkpoint
+    (the replicated scales) to the same next losses."""
+    got = _gang(tmp_path, 4, "quantize")
+    for d, straddles in (("520", True), ("500", False)):
+        for kind in ("mu", "nu"):
+            r = got[f"{d}-{kind}"]
+            assert r["straddles"] == straddles
+            assert r["q"] and r["scale"] and r["dequant"], (d, kind, r)
+    train = got["train"]
+    assert all(np.isfinite(train["losses"]))
+    assert train["resumed"] == train["losses"][1:]

@@ -17,6 +17,20 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   2 x 2, take the next step; beside it the next step of the fsdp run;
 - ``refusal``: a ``Trainer`` under the ``single`` plan on the 4-rank
   mesh, which must raise rather than train each rank alone.
+
+``--scenario`` runs one other scenario alone instead, for its own test file:
+- ``sharded_load`` (4 ranks, ``tests/test_torch_hf_convert.py``): a
+  converted checkpoint in ``--dir/conv`` loaded under fsdp 4, tp 4 and
+  tp_fsdp 2 x 2, each rank reading its own slices, against the whole load's
+  shards, and one step from each against one from the whole params;
+- ``quantize`` (4 ranks, ``tests/test_torch_precision.py``): adam8bit's
+  block quantization of a leaf whose tp shards split its blocks, against
+  the single-device quantizer, and a tp 4 adam8bit run over such a leaf
+  through a save and restore;
+- ``offload`` (2 ranks, ``tests/test_torch_offload.py``): fsdp 2 with the
+  params and optimizer state offloaded, under fp32 and adam8bit, against
+  the same runs without, also through a save and restore and under the
+  guard's skip.
 """
 import argparse
 import json
@@ -193,14 +207,189 @@ def refusal(out_dir, rank):
         (out_dir / "refusal.json").write_text(json.dumps({"error": msg}))
 
 
+def _all(flag: bool) -> bool:
+    """True when ``flag`` holds on every rank."""
+    t = torch.tensor([int(flag)])
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def sharded_load(out_dir, rank):
+    from distributed_training_guide_tpu_torch.models.hf_convert import (
+        load_pretrained)
+
+    conv = out_dir / "conv"
+    gen = np.random.RandomState(0)
+    ids = gen.randint(0, 512, (8, 32))
+    result = {}
+    for name, strategy, mesh_kw in (("fsdp", "fsdp", {"fsdp": 4}),
+                                    ("tp", "tp", {"tp": 4}),
+                                    ("tp_fsdp", "tp_fsdp",
+                                     {"fsdp": 2, "tp": 2})):
+        t = _trainer(strategy, mesh_kw)
+        ps = t.plan_state
+        mine = load_pretrained(t.bundle, t.plan, conv, device="cpu")
+        whole = load_pretrained(t.bundle, None, conv, device="cpu")
+        whole_flat = dict(named_leaves(whole))
+        equal = all(torch.equal(local, t.plan.shard(ps.specs[path],
+                                                     whole_flat[path]))
+                    for path, local in named_leaves(mine))
+        sharded_leaves = sum(
+            tuple(local.shape) != tuple(whole_flat[path].shape)
+            for path, local in named_leaves(mine))
+        batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+        _, m1 = t.step_fn(t.init_state_from_params(mine, sharded=True),
+                          batch)
+        _, m2 = t.step_fn(t.init_state_from_params(whole), batch)
+        result[name] = {"equal": _all(equal),
+                        "sharded_leaves": sharded_leaves,
+                        "step_equal": _all(float(m1["loss"])
+                                           == float(m2["loss"]))}
+    if rank == 0:
+        (out_dir / "sharded_load.json").write_text(json.dumps(result))
+
+
+def quantize(out_dir, rank):
+    from distributed_training_guide_tpu_torch.parallel.plans import (
+        LeafLayout)
+    from distributed_training_guide_tpu_torch.train.precision import (
+        dequantize_blockwise, dequantize_sharded, quantize_blockwise,
+        quantize_sharded, straddles_shards)
+
+    plan = make_plan("tp", make_mesh(device="cpu", tp=4))
+    gen = np.random.RandomState(1)
+    result = {}
+    for d in (520, 500):
+        x = torch.from_numpy(gen.standard_normal((6, d)).astype(np.float32))
+        spec = (None, "tp")
+        layout = LeafLayout(plan, spec, (6, d))
+        cols = plan.shard(spec, torch.arange(d)[None, :])[0]
+        for sqrt in (False, True):
+            v = x.abs() if sqrt else x
+            want = quantize_blockwise(v, 128, sqrt_domain=sqrt)
+            got = quantize_sharded(plan.shard(spec, v), 128, sqrt, layout)
+            back = dequantize_sharded(got, sqrt, layout, 128)
+            result[f"{d}-{'nu' if sqrt else 'mu'}"] = {
+                "straddles": straddles_shards(layout, 128),
+                "q": _all(torch.equal(got.q, want.q[:, cols])),
+                "scale": _all(torch.equal(got.scale, want.scale)),
+                "dequant": _all(torch.equal(back, dequantize_blockwise(
+                    want, sqrt_domain=sqrt)[:, cols]))}
+    # a tp 4 adam8bit run whose vocab shards (130 of 520) split the blocks,
+    # saved after step 1 and restored into a fresh trainer
+    exp = out_dir / "ckpt8"
+
+    def trainer():
+        return Trainer(bundle=get_model("llama-debug", dtype=torch.float32,
+                                        vocab_size=520),
+                       optimizer=topt.adamw_cosine(1e-3),
+                       plan=make_plan("tp", make_mesh(device="cpu", tp=4)),
+                       precision="adam8bit", device="cpu")
+    ids = gen.randint(0, 520, (2, 32))
+    t = trainer()
+    state = t.init_state(0)
+    batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+    losses = []
+    for step in range(3):
+        state, m = t.step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        if step == 0:
+            io = CheckpointIO(exp)
+            host = stamp_host_state(host_state_dict(), t)
+            host["global_step"] = 1
+            io.save(state, host)
+            io.close()
+    t2 = trainer()
+    state2, _ = restore_train_state(CheckpointIO(exp), t2)
+    resumed = []
+    for _ in range(2):
+        state2, m = t2.step_fn(state2, batch)
+        resumed.append(float(m["loss"]))
+    result["train"] = {"losses": losses, "resumed": resumed}
+    if rank == 0:
+        (out_dir / "quantize.json").write_text(json.dumps(result))
+
+
+def offload(out_dir, rank):
+    gen = np.random.RandomState(2)
+    ids = gen.randint(0, 512, (4, 32))
+    exp = out_dir / "ckpt_off"
+
+    def trainer(precision, off, guard="off"):
+        return Trainer(bundle=get_model("llama-debug", dtype=torch.float32),
+                       optimizer=topt.adamw_cosine(1e-3),
+                       plan=make_plan("fsdp", make_mesh(device="cpu",
+                                                        fsdp=2)),
+                       precision=precision, device="cpu", guard_policy=guard,
+                       offload_opt_state=off, offload_params=off)
+
+    def run(t, steps, state=None, save_at=None):
+        state = t.init_state(0) if state is None else state
+        batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+        out = []
+        for step in range(1, steps + 1):
+            state, m = t.step_fn(state, batch)
+            out.append([float(m["loss"]), float(m["grad_norm"])])
+            if step == save_at:
+                io = CheckpointIO(exp)
+                host = stamp_host_state(host_state_dict(), t)
+                host["global_step"] = step
+                io.save(state, host)
+                io.close()
+        full = {p: v.tolist() for p, v in _full_params(t, state).items()}
+        return out, full, state
+
+    result = {}
+    for precision in ("fp32", "adam8bit"):
+        plain, pfull, _ = run(trainer(precision, False), 3)
+        t = trainer(precision, True)
+        off, ofull, state = run(t, 3, save_at=1)
+        on_host = _all(state.offload.on_host(state))
+        t2 = trainer(precision, True)
+        restored, _ = restore_train_state(CheckpointIO(exp), t2)
+        resumed, rfull, _ = run(t2, 2, state=restored)
+        result[precision] = {
+            "plain": plain, "offload": off, "resumed": resumed,
+            "params_equal": pfull == ofull, "resumed_params_equal":
+                rfull == pfull, "on_host": on_host,
+            "bytes_on_host": state.offload.host_bytes(state)}
+        import shutil
+
+        torch.distributed.barrier()
+        if rank == 0:
+            shutil.rmtree(exp, ignore_errors=True)
+        torch.distributed.barrier()
+    os.environ["DTG_FAULT_NAN_LOSS_STEP"] = "1"
+    try:
+        plain, pfull, _ = run(trainer("fp32", False, "skip"), 3)
+        off, ofull, _ = run(trainer("fp32", True, "skip"), 3)
+    finally:
+        del os.environ["DTG_FAULT_NAN_LOSS_STEP"]
+    result["guard_skip"] = {"plain": plain, "offload": off,
+                            "params_equal": pfull == ofull}
+    if rank == 0:
+        (out_dir / "offload.json").write_text(json.dumps(result))
+
+
+SCENARIOS = {"sharded_load": sharded_load, "quantize": quantize,
+             "offload": offload}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", required=True)
+    ap.add_argument("--scenario", default=None, choices=sorted(SCENARIOS))
     args = ap.parse_args()
     out_dir = Path(args.dir)
     torch.set_num_threads(1)
     maybe_initialize_distributed("cpu")
     rank = int(os.environ["RANK"])
+    if args.scenario is not None:
+        SCENARIOS[args.scenario](out_dir, rank)
+        torch.distributed.destroy_process_group()
+        if rank == 0:
+            (out_dir / "done").write_text("ok")
+        return
     init = dict(np.load(out_dir / "init.npz"))
     params = from_jax.params_from_numpy(_unflatten(init), device="cpu")
     batches = dict(np.load(out_dir / "batches.npz"))
