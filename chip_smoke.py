@@ -162,7 +162,34 @@ phases, each of which raises on failure:
    with the optimizer state and with both offloaded: bitwise losses and
    grad norms, the card holding less by exactly the offloaded bytes
    between steps; (e) the JSON engine at stage 3, bitwise phase 17's
-   fsdp run.
+   fsdp run;
+19. dense families — (a) K1-K3 on q, k and v sliced from one fused
+   [B, S, 3, H, D] projection at gpt2's training shape, bitwise the same
+   launches on contiguous copies, no operand copied; (b) ``ServeEngine``
+   at full width and depth in bf16 on gpt2 (prompts of 17-900 tokens) and
+   pythia-1.4b (17-2000), phase 7's traffic shape, bucketed and chunked:
+   one K4 launch a layer per decode step and per chunk, first-token
+   logits against the plain prefill, batch invariance, TTFT / ITL; (c)
+   ``run_training`` on gpt2 (B 8, S 1024, 8 steps) and pythia-1.4b (B 4, S
+   2048, 6 steps) at full width and depth: one launch of each of K1-K3 per
+   layer per step through the Hopper bodies, no operand copied, falling
+   loss, tokens/s, MFU and the peak; (d) the sampler on gpt2 in fp32: the
+   kv_cache mode's greedy tokens equal the recompute mode's for two
+   prompts of 32 steps; (e) ``transformers``' GPT2LMHeadModel (gpt2's
+   card) and GPTNeoXForCausalLM (pythia-160m's) with random weights,
+   saved, converted, loaded (fp32 loss within ``DENSE_HF_LOSS_REL`` of
+   transformers'), exported and reloaded (logits within
+   ``CH05_EXPORT_LOGIT_REL``); (f) ``--lora-rank 8 --lora-targets wq,wv``
+   on llama-3.2-1b with phase 8's batch, 4 steps: the step-1 loss bitwise
+   phase 16's fp32 run's, only the adapters in the optimizer, the peak;
+   (g) gemma2-2b served at full depth in bf16 (chunked, phase 7's traffic
+   plus a 6000-token prompt, so that the 4096 window binds inside K4 at
+   head_dim 256) and trained at full width cut to 4 layers (2 windowed,
+   2 global; B 1, S 8192, 3 steps: K1-K3's WMMA bodies with softcap and
+   window); (h) K1-K3 timed at the gpt2 and pythia-1.4b training shapes,
+   and at gemma2-2b's against their plain versions, and K4 at gpt2's
+   decode (one live row of four) and gemma2-2b's, each beside its plain
+   version, its bound and SDPA.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -463,7 +490,9 @@ def _kernel_ms(torch, fn, iters: int) -> dict:
     recorded count over ``iters``, rounded), since a profile can miss a few
     launches' records; a kernel whose count is not a whole multiple of
     ``iters`` is logged. A profile that recorded no device time at all
-    (its records can all go missing) is taken again, up to three times."""
+    (its records can all go missing) is taken again, up to three times;
+    after that the result is empty and ``device_ms`` times by CUDA
+    events instead."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -488,7 +517,6 @@ def _kernel_ms(torch, fn, iters: int) -> dict:
                 iters=iters, note="launch records missing or extra: the "
                 "time is the mean per recorded launch")
         out[e.key] = _device_us(e) / e.count * per_call / 1e3
-    check(out, "the profiler reports no device time")
     return out
 
 
@@ -509,7 +537,9 @@ def queued_ms(torch, fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4 * issue_s * 2e9) + 2_000_000)  # cycles at 2 GHz
+    # cycles at 2 GHz: 8x the issue time plus 10 ms, as the host's second
+    # pass can issue slower than its first (a tiny kernel's queue is short)
+    torch.cuda._sleep(int(8 * issue_s * 2e9) + 20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -520,18 +550,51 @@ def queued_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, names) -> dict:
+def device_ms(torch, fn, iters: int, names, parts=None) -> dict:
     """Mean device milliseconds per call of ``fn`` spent in the kernels
     whose name holds each of ``names`` (``_kernel_ms``). A call that is
     host-bound (a ctypes wrapper around a few-microsecond kernel) reads its
     kernels' own time here, where CUDA events around back-to-back calls
-    would read the host's."""
+    would read the host's. Where the profiler records no device time at
+    all, each name is timed by ``queued_ms`` instead: the whole call for a
+    single name, or ``parts[name]``, a call that launches that kernel
+    alone. The result's "timed_by" says which: "profiler" or
+    "cuda_events"."""
     per_kernel = _kernel_ms(torch, fn, iters)
+    if not per_kernel:
+        log(phase="profiler", names=list(names), note="no device time "
+            "recorded in three profiles: timed by CUDA events (queued_ms)")
+        check(len(names) == 1 or parts is not None,
+              f"the profiler reports no device time for {names}")
+        return {**{n: queued_ms(torch, fn if parts is None else parts[n],
+                                iters) for n in names},
+                "timed_by": "cuda_events"}
     out = {n: sum(ms for key, ms in per_kernel.items() if n in key)
            for n in names}
     check(all(v > 0 for v in out.values()),
           f"the profiler reports no device time for {names}")
-    return out
+    return {**out, "timed_by": "profiler"}
+
+
+def profiler_ms(torch, fn, iters: int, name: str):
+    """torch.profiler's device milliseconds per call of ``fn`` in the
+    kernels named ``name``, or None where the profiler recorded no device
+    time: ``device_ms`` would then time the whole call by CUDA events,
+    which the callers already log as "ms"."""
+    dm = device_ms(torch, fn, iters, [name])
+    return dm[name] if dm["timed_by"] == "profiler" else None
+
+
+def k4_parts(torch, pd, plan, body, q, kp, vp, tables, lens, **kw) -> dict:
+    """K4's two kernels launched alone, for ``device_ms``'s CUDA-event
+    fallback: the body (``split_partials``, which also fills its scratch
+    with the neutral partials) and the combine over its partials."""
+    parts = pd.split_partials(q, kp, vp, tables, lens, **kw)
+    window = kw.get("window")
+    return {body: lambda: pd.split_partials(q, kp, vp, tables, lens, **kw),
+            "paged_attend_combine": lambda: pd.combine_partials(
+                *parts, lens, page=kp.shape[1], table_pages=tables.shape[1],
+                pages_per_split=plan.pages_per_split, window=window)}
 
 
 def phase_timing(torch) -> dict:
@@ -566,7 +629,8 @@ def phase_timing(torch) -> dict:
         plan = pd._plan(t, hq // hkv, D, q.dtype, kp.dtype, m)
         body = f"paged_attend_{plan.body}"
         dev_ms = device_ms(torch, lambda: pd.paged_flash_attend(
-            q, kp, vp, tables, lens), 50, (body, "paged_attend_combine"))
+            q, kp, vp, tables, lens), 50, (body, "paged_attend_combine"),
+            parts=k4_parts(torch, pd, plan, body, q, kp, vp, tables, lens))
         body_ms, combine_ms = dev_ms[body], dev_ms["paged_attend_combine"]
         ms = body_ms + combine_ms
         call_ms = cuda_ms(lambda: pd.paged_flash_attend(
@@ -612,7 +676,8 @@ def phase_timing(torch) -> dict:
             body_bound_ms=body_bound["bound_ms"],
             body_bound_by=body_bound["bound_by"],
             combine_ms=combine_ms, combine_plain_ms=combine_plain_ms,
-            combine_bound_ms=combine_bound["bound_ms"])
+            combine_bound_ms=combine_bound["bound_ms"],
+            timed_by=dev_ms["timed_by"])
         log(phase="timing", shape=name, **out[name])
         del kp, vp, kc, vc, q, qc, parts
         torch.cuda.empty_cache()
@@ -1113,7 +1178,8 @@ FLASH_TIMING_SHAPES = {"1b-main": (4, 2048, 32, 8, 64),      # llama-3.2-1b
 def phase_flash_timing(torch) -> dict:
     """shape -> kernel -> times at each training path's shape: the
     kernels' device time ("ms", by ``queued_ms``, as SDPA's
-    "library_ms"; torch.profiler's mean per launch as "profiler_ms"),
+    "library_ms"; torch.profiler's mean per launch as "profiler_ms", None
+    where the profiler recorded nothing),
     CUDA events around back-to-back wrapper calls ("call_ms", SDPA's
     "library_call_ms"), the plain versions, the bound and K3's causal
     tail."""
@@ -1137,7 +1203,7 @@ def flash_timing_at(torch, b, s, hq, hkv, d) -> dict:
              "flash_dkv": lambda: fa.flash_bwd_dkv(*args)}
     out = {name: {"call_ms": cuda_ms(fn, iters=10),
                   "ms": queued_ms(torch, fn, 10),
-                  "profiler_ms": device_ms(torch, fn, 10, [name])[name]}
+                  "profiler_ms": profiler_ms(torch, fn, 10, name)}
            for name, fn in calls.items()}
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
     out["flash_fwd"]["plain_ms"] = cuda_ms(
@@ -1856,7 +1922,8 @@ def phase_grouped_timing(torch) -> dict:
     """K5 at the decode and training shapes (forward and the fp32 d_lhs)
     and K6 at the training gate / up and down shapes: each kernel's device
     time ("ms", by ``queued_ms``, as ``torch._grouped_mm``'s "library_ms";
-    torch.profiler's mean per launch as "profiler_ms"; CUDA events around
+    torch.profiler's mean per launch as "profiler_ms", None where it
+    recorded nothing; CUDA events around
     back-to-back calls as "call_ms"), the plain versions and the bound
     (for the split bodies also their two-pass bound, "bound_tc_ms"; for
     K6 the FMA body's time on the same values, ``tgmm_timing_at``)."""
@@ -1875,7 +1942,7 @@ def phase_grouped_timing(torch) -> dict:
                ).to(bf)
         call = lambda: gm.gmm(lhs, rhs, sizes)   # noqa: E731
         ms = queued_ms(torch, call, 20)
-        profiler_ms = device_ms(torch, call, 20, ["gmm_"])["gmm_"]
+        prof_ms = profiler_ms(torch, call, 20, "gmm_")
         call_ms = cuda_ms(call, iters=20)
         plain_ms = cuda_ms(lambda: gm.gmm_reference(lhs, rhs, sizes, bf),
                            iters=3, warmup=1)
@@ -1884,7 +1951,7 @@ def phase_grouped_timing(torch) -> dict:
                    rows=int(sizes.sum()),
                    groups_nonempty=int((sizes > 0).sum()), dtype="bf16",
                    body=gm._gmm_plan(lhs, rhs), ms=ms,
-                   profiler_ms=profiler_ms, call_ms=call_ms,
+                   profiler_ms=prof_ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
                    library_call_ms=lib_call_ms,
                    **gmm_bound(m, e, f, sizes, 2, 2, 2, "bfloat16"))
@@ -1904,7 +1971,7 @@ def phase_grouped_timing(torch) -> dict:
             rt = rhs.transpose(1, 2)
             call = lambda: gm.gmm(dy, rt, sizes, bf)   # noqa: E731
             ms = queued_ms(torch, call, 5)
-            profiler_ms = device_ms(torch, call, 5, ["gmm_"])["gmm_"]
+            prof_ms = profiler_ms(torch, call, 5, "gmm_")
             call_ms = cuda_ms(call, iters=5)
             plain_ms = cuda_ms(lambda: gm.gmm_reference(
                 dy, rhs.float().transpose(1, 2), sizes, bf), iters=2,
@@ -1912,7 +1979,7 @@ def phase_grouped_timing(torch) -> dict:
             row = dict(kernel="grouped_matmul", shape="train-dlhs", M=m, K=f,
                        N=e, G=g, dtype="fp32 dy, bf16 rhs^T, bf16 out",
                        body=gm._gmm_plan(dy, rt), ms=ms,
-                       profiler_ms=profiler_ms, call_ms=call_ms,
+                       profiler_ms=prof_ms, call_ms=call_ms,
                        plain_ms=plain_ms, library_ms=None,
                        library_note="no PyTorch call takes fp32 dy against "
                        "a bf16 rhs", **gmm_bound(m, f, e, sizes, 4, 2, 2,
@@ -1975,7 +2042,7 @@ def tgmm_timing_at(torch, gm, lhs, dy, sizes, shape: str) -> dict:
     n, g = dy.shape[1], sizes.shape[0]
     call = lambda: gm.tgmm(lhs, dy, sizes, g, bf)   # noqa: E731
     ms = queued_ms(torch, call, 5)
-    profiler_ms = device_ms(torch, call, 5, ["tgmm"])["tgmm"]
+    prof_ms = profiler_ms(torch, call, 5, "tgmm")
     call_ms = cuda_ms(call, iters=5)
     plain_ms = cuda_ms(lambda: gm.tgmm_reference(lhs, dy, sizes, g, bf),
                        iters=2, warmup=1)
@@ -1992,7 +2059,7 @@ def tgmm_timing_at(torch, gm, lhs, dy, sizes, shape: str) -> dict:
           f"body rel L2 {bodies_rel_l2}")
     row = dict(kernel="tgmm", shape=f"train-{shape}", M=m, K=k, N=n, G=g,
                rows=int(sizes.sum()), dtype="bf16 lhs, fp32 dy, bf16 out",
-               body=gm._tgmm_plan(lhs, dy, bf), ms=ms, profiler_ms=profiler_ms,
+               body=gm._tgmm_plan(lhs, dy, bf), ms=ms, profiler_ms=prof_ms,
                call_ms=call_ms, plain_ms=plain_ms, fma_ms=fma_ms,
                split_vs_fma_rel_l2=bodies_rel_l2, library_ms=None,
                library_note="no PyTorch call takes fp32 dy against bf16 "
@@ -3833,6 +3900,814 @@ def phase_chapter05(torch, card: str, plans: dict) -> dict:
             "offload": offload, "engine": engine, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dense families, the sampler, HF round trips, LoRA and
+# Gemma-2's head_dim 256
+# ---------------------------------------------------------------------------
+
+# (model, longest prompt) served with phase 7's traffic shape; (model, B, S,
+# steps) trained through the CLI, full width and depth
+DENSE_SERVE = (("gpt2", 900), ("pythia-1.4b", 2000))
+DENSE_TRAIN = (("gpt2", 8, 1024, 8), ("pythia-1.4b", 4, 2048, 6))
+DENSE_TRAIN_ARGS = ["-d", "synthetic:400000", "--lr", "3e-4", "--seed",
+                    str(SEED), "--log-freq", "1"]
+# K1-K3 / K4 timing shapes of the new paths: (B, S, Hq, Hkv, D), bf16
+DENSE_FLASH_SHAPES = {"gpt2-train": (8, 1024, 12, 12, 64),
+                      "pythia-1.4b-train": (4, 2048, 16, 16, 128)}
+# gemma2-2b's attention: Hq 8, Hkv 4, D 256, softcap 50, the
+# query_pre_attn_scalar scale, the 4096 window of its sliding layers
+GEMMA2 = dict(hq=8, hkv=4, d=256, softcap=50.0, scale=256.0 ** -0.5,
+              window=4096)
+# q scaled by this in a second check of K1-K4 at gemma2-2b's shape: the
+# scores' std goes from 1 to 12 and a band's largest reach ~45, where the
+# cap 50 * tanh(s / 50) takes ~10 off them (an unscaled score of std 1
+# never comes near the cap, so a kernel that skipped it would pass; scaled,
+# the plain output without the cap lies ~0.2-0.3 in relative L2 from the
+# one with it)
+GEMMA2_Q_CAP_SCALE = 12.0
+GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_STEPS, GEMMA2_SEQ = 4, 3, 8192
+GEMMA2_LONG_PROMPT = 6000
+SAMPLER_PROMPTS, SAMPLER_STEPS = (20, 101), 32
+LORA_STEPS = 4
+LORA_ARGS = ["--lora-rank", "8", "--lora-targets", "wq,wv"]
+# JAX's num_trainable_params for llama-3.2-1b at rank 8 on wq, wv (16
+# layers: wq's A [2048, 8] and B [8, 2048], wv's A [2048, 8] and B [8, 512]);
+# tests/test_torch_lora.py holds the port's count to JAX's
+LORA_TRAINABLE = 16 * (2048 * 8 + 8 * 2048 + 2048 * 8 + 8 * 512)
+# the port's fp32 loss through K1 (its FMA body) and converted weights
+# against transformers' fp32 loss on the same batch: the same fp32 math,
+# summed in another order
+DENSE_HF_LOSS_REL = 1e-4
+
+
+def dense_counts() -> dict:
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+
+    return {**flash_counts(), "paged_attend": pd.LAUNCHES,
+            "paged_attend_split": pd.SPLIT_LAUNCHES,
+            "paged_attend_mma": pd.MMA_LAUNCHES,
+            "paged_attend_combine": pd.COMBINE_LAUNCHES}
+
+
+def reset_dense_counts() -> None:
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+
+    reset_flash_counts()
+    (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+     pd.COMBINE_LAUNCHES) = (0, 0, 0, 0)
+
+
+def dense_serve_specs(np, vocab: int, longest: int, extra=()) -> list:
+    """Phase 7's traffic shape: 8 requests, prompts of 17 to ``longest``
+    tokens, 32 new tokens each (the last two sampled); ``extra`` adds
+    prompts of those lengths."""
+    rng = np.random.default_rng(SEED)
+    lens = [17, longest] + [int(x) for x in rng.integers(17, longest + 1, 6)]
+    lens += list(extra)
+    return [dict(prompt_ids=[int(x) for x in rng.integers(0, vocab, n)],
+                 max_new_tokens=32, seed=i,
+                 **({"temperature": 0.8, "top_p": 0.9} if i in (6, 7)
+                    else {}))
+            for i, n in enumerate(lens)]
+
+
+def dense_serve(torch, name: str, card: str, specs, modes, *,
+                max_len: int, check_prompt: int,
+                gate_logits: bool = True) -> dict:
+    """``ServeEngine`` on ``name`` at full width and depth in bf16 (random
+    weights from the seed) with ``specs``, in each of ``modes`` (bucketed:
+    chunk None, or chunked): every request ends by length, K4 carries every
+    decode step (one launch a layer) and every chunk, a greedy request
+    alone equal to co-batched, TTFT / ITL / tokens/s, and the first-token
+    logits of request ``check_prompt`` against the plain prefill, within
+    ``LOGIT_REL_L2_BF16`` where ``gate_logits`` (gemma2-2b's random layers
+    amplify bf16 rounding far past it: it is logged there, and
+    ``gemma2_fp32_chunk_check`` holds the path in fp32)."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.registry import (
+        family_module)
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many, throughput_stats)
+
+    class Recording(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_logits = {}
+
+        def _on_prefill_complete(self, adm, logit):
+            self.first_logits[adm.request.request_id] = logit.float()
+            return super()._on_prefill_complete(adm, logit)
+
+    bundle = get_model(name, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED, device="cuda")
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    common = dict(n_slots=8, page_size=16, max_len=max_len)
+    out, first = {}, {}
+    for mode, chunk in modes:
+        eng = Recording(bundle, params, prefill_chunk=chunk, **common)
+        torch.cuda.reset_peak_memory_stats()
+        before = pd.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = generate_many(eng, [Request(**r) for r in specs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pd.LAUNCHES - before
+        for r in res:
+            check(r.finish_reason == "length" and len(r.generated_ids) == 32
+                  and all(0 <= x < vocab for x in r.generated_ids),
+                  f"{name} {mode}: request {r.request_id} ended "
+                  f"{r.finish_reason} after {len(r.generated_ids)} tokens")
+        decode = layers * eng.decode_steps
+        prefill = launches - decode
+        want_prefill = 0 if chunk is None else layers * eng.programs.prefill_calls
+        check(eng.decode_steps > 0 and prefill == want_prefill,
+              f"{name} {mode}: {launches} K4 launches, {eng.decode_steps} "
+              f"decode steps, {eng.programs.prefill_calls} prefill forwards")
+        stats = throughput_stats(res, wall, eng)
+        out[mode] = dict(
+            wall_s=wall, tokens_per_s=stats["tokens_per_s"],
+            ttft_s_p50=stats["ttft_s_p50"],
+            latency_s_p50=stats["latency_s_p50"],
+            itl_s_avg=eng.stats()["itl_s_avg"],
+            decode_steps=eng.decode_steps,
+            prefill_forwards=eng.programs.prefill_calls,
+            k4_launches=launches, k4_launches_per_decode_step=decode
+            / eng.decode_steps,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(phase="dense", model=name, serve=mode, card=card, **out[mode])
+        first[mode] = eng.first_logits[res[check_prompt].request_id]
+        out[mode]["tokens"] = [r.token_ids for r in res]
+        del eng
+        torch.cuda.empty_cache()
+    # the plain full-context prefill of the checked prompt
+    mod = family_module(bundle.family)
+    ids = torch.tensor([specs[check_prompt]["prompt_ids"]], device="cuda")
+    cache = mod.init_cache(cfg, 1, ids.shape[1], device="cuda")
+    ref = mod.prefill(cfg, params, ids, cache)[0][0].float()
+    del cache
+    for mode, got in first.items():
+        check(bool(torch.isfinite(got).all()) and got.shape == (vocab,),
+              f"{name} {mode}: first-token logits not finite / wrong shape")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        out[mode]["first_logits_rel_l2"] = rel
+        log(phase="dense", model=name, check=f"first-token logits, {mode} "
+            f"vs plain prefill, bf16 full depth", prompt_tokens=ids.shape[1],
+            rel_l2=rel, bound=LOGIT_REL_L2_BF16,
+            argmax_equal=bool(got.argmax() == ref.argmax()))
+        check(rel <= LOGIT_REL_L2_BF16 or not gate_logits,
+              f"{name} {mode} first-token logits rel L2 {rel} > "
+              f"{LOGIT_REL_L2_BF16}")
+    mode0 = modes[0][0]
+    alone = generate_many(ServeEngine(bundle, params, prefill_chunk=modes[0][1],
+                                      **common), [Request(**specs[0])])[0]
+    check(alone.token_ids == out[mode0]["tokens"][0],
+          f"{name}: greedy request 0 alone and co-batched differ")
+    for mode in out:
+        out[mode].pop("tokens")
+    del params, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma2_fp32_chunk_check(torch, prompt, card: str) -> dict:
+    """gemma2-2b at full width cut to 2 layers (one windowed, one global)
+    in fp32: the chunked engine's first-token logits for ``prompt`` (past
+    the 4096 window, every chunk through K4 at head_dim 256) and the
+    bucketed engine's against the plain full-context prefill, within
+    ``LOGIT_REL_L2_FP32`` (only the summation order differs). At full
+    depth in bf16 the comparison is only logged (``dense_serve``): the
+    random layers amplify bf16 rounding far past ``LOGIT_REL_L2_BF16``."""
+    from distributed_training_guide_tpu_torch.models import get_model, llama
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+
+    class First(ServeEngine):
+        def _on_prefill_complete(self, adm, logit):
+            self.first = logit.float()
+            return super()._on_prefill_complete(adm, logit)
+
+    bundle = get_model("gemma2-2b", dtype=torch.float32, num_layers=2)
+    params = bundle.init(bundle.config, SEED, device="cuda")
+    ids = torch.tensor([prompt], device="cuda")
+    ref = llama.prefill(bundle.config, params, ids, llama.init_cache(
+        bundle.config, 1, len(prompt), device="cuda"))[0][0].float()
+    out = {}
+    for mode, chunk in (("chunked", 256), ("bucketed", None)):
+        eng = First(bundle, params, n_slots=1, page_size=16, max_len=8192,
+                    prefill_chunk=chunk)
+        generate_many(eng, [Request(prompt_ids=list(prompt),
+                                    max_new_tokens=2)])
+        out[mode] = ((eng.first - ref).norm() / ref.norm()).item()
+        check(out[mode] <= LOGIT_REL_L2_FP32, f"gemma2 fp32 {mode}: "
+              f"first-token logits rel L2 {out[mode]}")
+        del eng
+    log(phase="dense", check="gemma2-2b fp32, 2 layers: first-token logits "
+        "vs plain prefill", prompt_tokens=len(prompt), card=card,
+        bound=LOGIT_REL_L2_FP32, **out)
+    del params, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_train(torch, name: str, card: str, b: int, s: int, steps: int,
+                *, extra=(), overrides=None, fwd_body="wgmma") -> dict:
+    """``run_training`` through the CLI parser at full width (``overrides``
+    may cut depth): finite falling loss, one launch of each of K1-K3 per
+    layer per step, every K1 launch through ``fwd_body`` and, for the
+    Hopper bodies, no operand copied (q, k and v are read in place from
+    the fused QKV projection); tokens/s, MFU and the peak."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.train import cli
+
+    args = cli.get_parser().parse_args(
+        ["-m", name, "-s", str(s), "-b", str(b), "--max-steps", str(steps),
+         *DENSE_TRAIN_ARGS, *extra])
+    before, bodies0 = flash_counts(), dict(fa.FWD_BODY_LAUNCHES)
+    copies = fa.ALIGN_COPIES
+    t0 = time.perf_counter()
+    out = cli.run_training(args, model_overrides=overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in flash_counts().items()}
+    layers = (overrides or {}).get("num_layers") or get_model(
+        name).config.num_layers
+    want = layers * steps
+    check(launches == {k: want for k in launches},
+          f"{name} train: launches {launches}, want {want} of each")
+    bodies = {k: v - bodies0[k] for k, v in fa.FWD_BODY_LAUNCHES.items()}
+    check(bodies[fwd_body] == want, f"{name} train: K1 bodies {bodies}")
+    if fwd_body == "wgmma":
+        check(fa.ALIGN_COPIES == copies, f"{name} train: "
+              f"{fa.ALIGN_COPIES - copies} operands copied for the tensor "
+              f"maps")
+    losses = [i["running_loss"] for i in out["infos"]]
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"{name} train: losses {losses}")
+    later = out["infos"][1:]
+    res = dict(model=name, B=b, S=s, layers=layers, steps=steps,
+               losses=losses, wall_s=wall,
+               tokens_per_s=sum(i["tokens_per_s"] for i in later)
+               / len(later),
+               mfu=sum(i["mfu"] for i in later) / len(later),
+               time_step_ms=sum(i["time/step"] for i in later) / len(later),
+               peak_alloc_gb=out["last_info"]["peak_alloc_gb"],
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               k1_launches_by_body=bodies, launches=launches)
+    log(phase="dense", train=name, card=card, **res)
+    ch01_free(torch, out)
+    return res
+
+
+def fused_qkv_check(torch, card: str) -> dict:
+    """K1-K3 at the training shapes of gpt2 and pythia-1.4b (causal MHA,
+    bf16) on q, k and v sliced from one fused [B, S, 3, H * D] projection,
+    the layout the gpt2 and neox forwards hand them: against their plain
+    versions (relative L2 within ``FLASH_TOL_BF16_REL_L2``, lse within
+    ``FLASH_TOL_FP32``) and at the kernels' own arithmetic
+    (``FLASH_TOL_KERNEL_ARITH_REL_L2``, with a second launch bitwise
+    equal), and bitwise equal to the same launches on contiguous copies,
+    with no operand copied for the tensor maps."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    for i, (name, (b, s, h, _, d)) in enumerate(DENSE_FLASH_SHAPES.items()):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 19 + i)
+        qkv = torch.randn(b, s, 3, h * d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = (qkv[:, :, j].reshape(b, s, h, d) for j in range(3))
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        copies = fa.ALIGN_COPIES
+        o, lse = fa.flash_fwd(q, k, v)
+        ro, rlse = fa.flash_attention_reference(q, k, v)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             ro.float()).contiguous()
+        dq, dk, dv = fa.flash_bwd_with_stats(q, k, v, do, rlse, delta)
+        strided_copies = fa.ALIGN_COPIES - copies
+        errs = {}
+        for key, got, want in (
+                ("o", o, ro),
+                ("dq", dq, fa.flash_dq_reference(q, k, v, do, rlse, delta)),
+                *zip(("dk", "dv"), (dk, dv), fa.flash_dkv_reference(
+                    q, k, v, do, rlse, delta))):
+            check(got.shape == want.shape and got.dtype == want.dtype
+                  and bool(torch.isfinite(got.float()).all()),
+                  f"{name} {key}: {got.shape} {got.dtype} vs {want.shape} "
+                  f"{want.dtype}, or non-finite")
+            errs[key] = ((got.float() - want.float()).norm()
+                         / want.float().norm()).item()
+            check(errs[key] <= FLASH_TOL_BF16_REL_L2, f"{name} flash {key}: "
+                  f"{errs[key]} from the plain version > "
+                  f"{FLASH_TOL_BF16_REL_L2}")
+        errs["lse_max_abs"] = (lse - rlse).abs().max().item()
+        check(errs["lse_max_abs"] <= FLASH_TOL_FP32["lse"],
+              f"{name} flash lse: {errs['lse_max_abs']}")
+        del ro
+        arith = check_kernel_arith(torch, fa, name,
+                                   (q, k, v, do, rlse, delta), {},
+                                   (dq, dk, dv))
+        if fa._fwd_plan(d, q.dtype) == "wgmma":
+            arith["o"] = check_fwd_arith(torch, fa, name, (q, k, v), {},
+                                         (o, lse))
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        want = (*fa.flash_fwd(qc, kc, vc),
+                *fa.flash_bwd_with_stats(qc, kc, vc, do, rlse, delta))
+        torch.cuda.synchronize()
+        equal = {key: torch.equal(g, w) for key, g, w in zip(
+            ("o", "lse", "dq", "dk", "dv"), (o, lse, dq, dk, dv), want)}
+        log(phase="dense", check="K1-K3 on fused-QKV slices vs plain and "
+            "vs contiguous copies", shape=name, B=b, S=s, Hq=h, Hkv=h, D=d,
+            dtype="bf16", card=card, strides=list(q.stride()),
+            rel_l2=errs, bound=FLASH_TOL_BF16_REL_L2,
+            kernel_arith_rel_l2=arith,
+            kernel_arith_bound=FLASH_TOL_KERNEL_ARITH_REL_L2,
+            bitwise_contiguous=equal, alignment_copies=strided_copies)
+        check(all(equal.values()) and strided_copies == 0,
+              f"{name} fused QKV slices: bitwise {equal}, copies "
+              f"{strided_copies}")
+        out[name] = dict(rel_l2=errs, kernel_arith_rel_l2=arith,
+                         bitwise_contiguous=equal)
+        del qkv, q, k, v, do, qc, kc, vc, o, lse, rlse, delta, dq, dk, dv
+        del want
+        torch.cuda.empty_cache()
+    # checking launches are not main-path launches
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    return out
+
+
+def banded_pairs(b: int, hq: int, sq: int, window) -> int:
+    """Live (query, key) pairs of a causal self-attention over ``sq``
+    tokens whose keys lie within ``window`` of the query."""
+    w = sq if window is None else min(window, sq)
+    return b * hq * (w * (w + 1) // 2 + (sq - w) * w)
+
+
+def gemma2_flash_errors(torch, fa, q, k, v, do, kw, lse_bound) -> dict:
+    """K1-K3 at gemma2-2b's shape against their plain versions: o, dq, dk
+    and dv in relative L2 (``FLASH_TOL_BF16_REL_L2``), lse within
+    ``lse_bound``, and dq, dk and dv at the kernels' own arithmetic
+    (``FLASH_TOL_KERNEL_ARITH_REL_L2``). Returns the errors, the kernel's
+    lse and the plain forward's delta."""
+    bodies = dict(fa.FWD_BODY_LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    check(fa.FWD_BODY_LAUNCHES["wmma"] == bodies["wmma"] + 1,
+          "gemma2: K1 did not run the WMMA body")
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), ro.float()).contiguous()
+    dq, dk, dv = fa.flash_bwd_with_stats(q, k, v, do, rlse, delta, **kw)
+    rdq = fa.flash_dq_reference(q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = fa.flash_dkv_reference(q, k, v, do, rlse, delta, **kw)
+    errs = {}
+    for key, got, want in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        check(bool(torch.isfinite(got.float()).all()), f"gemma2 {key}: "
+              f"non-finite")
+        errs[key] = rel_l2(got, want)
+        check(errs[key] <= FLASH_TOL_BF16_REL_L2, f"gemma2 flash {key}: "
+              f"{errs[key]} > {FLASH_TOL_BF16_REL_L2}")
+    errs["lse_max_abs"] = (lse - rlse).abs().max().item()
+    check(errs["lse_max_abs"] <= lse_bound,
+          f"gemma2 flash lse: {errs['lse_max_abs']} > {lse_bound}")
+    del ro, rdq, rdk, rdv
+    errs["kernel_arith_rel_l2"] = check_kernel_arith(
+        torch, fa, "gemma2", (q, k, v, do, rlse, delta), kw, (dq, dk, dv))
+    del o, dq, dk, dv, rlse
+    torch.cuda.empty_cache()
+    return errs, lse, delta
+
+
+def gemma2_flash(torch, card: str) -> dict:
+    """K1, K2 and K3 at gemma2-2b's training shape (B 1, S 8192, Hq 8, Hkv
+    4, D 256, bf16, causal, softcap 50, scale 256**-0.5, window 4096: the
+    WMMA bodies) against their plain versions (``gemma2_flash_errors``)
+    on q as drawn and on q scaled by ``GEMMA2_Q_CAP_SCALE``, where the
+    softcap moves the output (its plain version without the cap is logged
+    and checked to lie far outside the bound), then timed beside their
+    plain versions, their bounds (the banded pairs only) and SDPA with the
+    band as a mask and no softcap (SDPA has none)."""
+    import torch.nn.functional as F
+
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    g = GEMMA2
+    b, s = 1, GEMMA2_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    q, k, v, do = flash_case(torch, gen, b, s, s, g["hq"], g["hkv"], g["d"],
+                             "bf16")
+    kw = dict(window=g["window"], softcap=g["softcap"], scale=g["scale"])
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    qcap = (q.float() * GEMMA2_Q_CAP_SCALE).to(q.dtype)
+    # the fp32 rounding of a score grows with its size: the scaled case's
+    # lse bound scales with q
+    errs_cap, _, _ = gemma2_flash_errors(
+        torch, fa, qcap, k, v, do, kw,
+        FLASH_TOL_FP32["lse"] * GEMMA2_Q_CAP_SCALE)
+    no_cap = {**kw, "softcap": None}
+    errs_cap["plain_without_softcap_rel_l2"] = rel_l2(
+        fa.flash_attention_reference(qcap, k, v, **no_cap)[0],
+        fa.flash_attention_reference(qcap, k, v, **kw)[0])
+    check(errs_cap["plain_without_softcap_rel_l2"]
+          > 10 * FLASH_TOL_BF16_REL_L2, f"gemma2 flash: the softcap moves "
+          f"the scaled case's output by only "
+          f"{errs_cap['plain_without_softcap_rel_l2']}")
+    del qcap
+    torch.cuda.empty_cache()
+    errs, lse, delta = gemma2_flash_errors(torch, fa, q, k, v, do, kw,
+                                           FLASH_TOL_FP32["lse"])
+    errs["q_scaled"] = errs_cap
+    args = (q, k, v, do, lse, delta)
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+             "flash_dq": lambda: fa.flash_bwd_dq(*args, **kw),
+             "flash_dkv": lambda: fa.flash_bwd_dkv(*args, **kw)}
+    plains = {"flash_fwd": lambda: fa.flash_attention_reference(q, k, v, **kw),
+              "flash_dq": lambda: fa.flash_dq_reference(*args, **kw),
+              "flash_dkv": lambda: fa.flash_dkv_reference(*args, **kw)}
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {"ms": queued_ms(torch, fn, 5),
+                     "plain_ms": cuda_ms(plains[name], iters=2, warmup=1)}
+        torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    pos = torch.arange(s, device="cuda")
+    band = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < g["window"]))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, scale=g["scale"], enable_gqa=True)
+
+    with torch.no_grad():
+        fwd_ms = queued_ms(torch, sdpa, 5)
+    both_ms = queued_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), 5)
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    pairs = banded_pairs(b, g["hq"], s, g["window"])
+    qb = b * s * g["hq"] * g["d"] * 2
+    kvb = b * s * g["hkv"] * g["d"] * 2
+    stat = b * g["hq"] * s * 4
+    work = {"flash_fwd": (4 * g["d"] * pairs, 2 * qb + 2 * kvb + stat),
+            "flash_dq": (6 * g["d"] * pairs, 3 * qb + 2 * kvb + 2 * stat),
+            "flash_dkv": (8 * g["d"] * pairs, 2 * qb + 4 * kvb + 2 * stat)}
+    for name, (flops, nbytes) in work.items():
+        out[name].update(_bound(nbytes, flops, "bfloat16"))
+        out[name]["share_of_bound"] = out[name]["bound_ms"] / out[name]["ms"]
+        out[name]["library_ms"] = (fwd_ms if name == "flash_fwd"
+                                   else both_ms - fwd_ms)
+        out[name]["library_note"] = (
+            "SDPA with the band as a boolean mask and no softcap"
+            + ("" if name == "flash_fwd" else "; forward+backward minus "
+               "forward: dq, dk and dv together"))
+        out[name]["body"] = "wmma"
+        log(phase="dense", gemma2_flash=name, B=b, S=s, Hq=g["hq"],
+            Hkv=g["hkv"], D=g["d"], window=g["window"], softcap=g["softcap"],
+            dtype="bf16", card=card, **out[name])
+    log(phase="dense", check="gemma2 K1-K3 vs plain (bf16 rel L2)",
+        bound=FLASH_TOL_BF16_REL_L2,
+        kernel_arith_bound=FLASH_TOL_KERNEL_ARITH_REL_L2,
+        q_cap_scale=GEMMA2_Q_CAP_SCALE, **errs)
+    del q, k, v, do, lse, delta, qt, kt, vt, dot, band
+    torch.cuda.empty_cache()
+    return {"timing": out, "errors": errs}
+
+
+def k4_check(torch, pd, plan, q, kp, vp, tables, lens, kw) -> dict:
+    """K4 on one input held as phase 1 holds it, at the body's own
+    arithmetic: its partials against ``split_partials_reference`` (m, l
+    and acc / l within ``PART_M_ABS``, ``PART_L_REL`` and
+    ``PART_ACC_REL_L2``), the bf16 output within ``OUT_BF16_ULPS`` of the
+    fp32 combine of those partials; and the whole call against
+    ``paged_attend_reference`` in relative L2 (``FLASH_TOL_BF16_REL_L2``:
+    the tensor-core body rounds p / l to bf16 for P V, ~5e-3 per row at
+    worst, and both round the output to bf16). Returns the errors."""
+    got = pd.paged_flash_attend(q, kp, vp, tables, lens, **kw)
+    want = pd.paged_attend_reference(q, kp, vp, tables, lens, **kw)
+    check(got.shape == q.shape and got.dtype == q.dtype
+          and bool(torch.isfinite(got.float()).all()),
+          f"K4 output {got.shape} {got.dtype}, or non-finite")
+    parts = pd.split_partials(q, kp, vp, tables, lens, **kw)
+    perr = partials_err(torch, parts, pd.split_partials_reference(
+        q.float() if plan.body == "split" else q, kp, vp, tables, lens,
+        pages_per_split=plan.pages_per_split, **kw))
+    errs = dict(rel_l2=rel_l2(got, want),
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                partials=perr, out_ulps=bf16_ulps(
+                    torch, got, pd.combine_partials_reference(*parts)))
+    ok = dict(call=errs["rel_l2"] <= FLASH_TOL_BF16_REL_L2,
+              m=perr["m_abs"] <= PART_M_ABS, l=perr["l_rel"] <= PART_L_REL,
+              acc=perr["acc_rel_l2"] <= PART_ACC_REL_L2[plan.body],
+              out=errs["out_ulps"] <= OUT_BF16_ULPS)
+    check(all(ok.values()), f"K4 {errs}; failed: "
+          f"{[key for key, v in ok.items() if not v]}")
+    return errs
+
+
+def dense_k4_timing(torch, card: str) -> dict:
+    """K4 at gpt2's decode (8 slots at context 1024, Hq = Hkv = 12, D 64:
+    one live row in the split body's four), pythia-1.4b's (8 slots at
+    context 2048, Hq = Hkv = 16, D 128) and gemma2-2b's (8 slots at
+    context 6000, Hq 8, Hkv 4, D 256, softcap 50, window 4096), bf16 pools
+    of page 16: each held to its plain version by ``k4_check`` (gemma2's
+    also on q scaled by ``GEMMA2_Q_CAP_SCALE``, where the softcap bites),
+    timed beside the plain version, SDPA over a contiguous cache and the
+    bound (the pages inside each row's band read once)."""
+    import torch.nn.functional as F
+
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+
+    dev = torch.device("cuda")
+    counts = (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+              pd.COMBINE_LAUNCHES)
+    out = {}
+    for name, s, ctx, hq, hkv, d, kw in (
+            ("gpt2-decode", 8, 1024, 12, 12, 64, {}),
+            ("pythia-1.4b-decode", 8, 2048, 16, 16, 128, {}),
+            ("gemma2-decode", 8, GEMMA2_LONG_PROMPT, GEMMA2["hq"],
+             GEMMA2["hkv"], GEMMA2["d"],
+             dict(window=GEMMA2["window"], softcap=GEMMA2["softcap"],
+                  scale=GEMMA2["scale"]))):
+        m = -(-ctx // PAGE)
+        tables = (torch.arange(s * m, dtype=torch.int32, device=dev)
+                  .reshape(s, m) + 1)
+        tables = tables[:, torch.randperm(m, device=dev)].contiguous()
+        lengths = [ctx - 1] * s
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kp = torch.randn(s * m + 1, PAGE, hkv, d, device=dev,
+                         dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        q = torch.randn(s, 1, hq, d, device=dev, dtype=torch.bfloat16)
+        plan = pd._plan(1, hq // hkv, d, q.dtype, kp.dtype, m)
+        errs = k4_check(torch, pd, plan, q, kp, vp, tables, lens, kw)
+        if "softcap" in kw:
+            qcap = (q.float() * GEMMA2_Q_CAP_SCALE).to(q.dtype)
+            errs["q_scaled"] = k4_check(torch, pd, plan, qcap, kp, vp,
+                                        tables, lens, kw)
+            errs["q_scaled"]["plain_without_softcap_rel_l2"] = rel_l2(
+                pd.paged_attend_reference(qcap, kp, vp, tables, lens,
+                                          **{**kw, "softcap": None}),
+                pd.paged_attend_reference(qcap, kp, vp, tables, lens, **kw))
+            check(errs["q_scaled"]["plain_without_softcap_rel_l2"]
+                  > 10 * FLASH_TOL_BF16_REL_L2, f"{name}: the softcap moves "
+                  f"the scaled case's output by only {errs['q_scaled']}")
+            del qcap
+        body = f"paged_attend_{plan.body}"
+        dev_ms = device_ms(torch, lambda: pd.paged_flash_attend(
+            q, kp, vp, tables, lens, **kw), 50,
+            (body, "paged_attend_combine"),
+            parts=k4_parts(torch, pd, plan, body, q, kp, vp, tables, lens,
+                           **kw))
+        ms = dev_ms[body] + dev_ms["paged_attend_combine"]
+        plain_ms = cuda_ms(lambda: pd.paged_attend_reference(
+            q, kp, vp, tables, lens, **kw), iters=5, warmup=1)
+        kc = kp[tables.long()].reshape(s, m * PAGE, hkv, d)[:, :ctx]
+        vc = vp[tables.long()].reshape(s, m * PAGE, hkv, d)[:, :ctx]
+        kc, vc = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        qc = q.transpose(1, 2).contiguous()
+        mask = None
+        if "window" in kw:     # [1, ctx]: the decode row's band
+            mask = (torch.arange(ctx, device=dev)
+                    > ctx - 1 - kw["window"])[None, :]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, scale=kw.get("scale"),
+            enable_gqa=True), iters=50)
+        band = min(ctx, kw.get("window", ctx))
+        pages = s * (-(-band // PAGE) + 1)
+        nbytes = pages * PAGE * hkv * d * 2 * 2 + 2 * q.numel() * 2 + s * 4
+        bound = _bound(nbytes, 4 * d * hq * s * band, "bfloat16")
+        out[name] = dict(S=s, T=1, heads=[hq, hkv], D=d, context=ctx,
+                         dtype="bf16", plan=plan._asdict(),
+                         live_rows=hq // hkv, rows=plan.rows, ms=ms,
+                         body_ms=dev_ms[body],
+                         combine_ms=dev_ms["paged_attend_combine"],
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_note="SDPA over a contiguous cache"
+                         + (" with the window as a mask, no softcap"
+                            if "window" in kw else ""),
+                         max_abs_err=errs["max_abs_err"], errors=errs,
+                         error_bounds=dict(
+                             rel_l2=FLASH_TOL_BF16_REL_L2, m_abs=PART_M_ABS,
+                             l_rel=PART_L_REL,
+                             acc_rel_l2=PART_ACC_REL_L2[plan.body],
+                             out_ulps=OUT_BF16_ULPS),
+                         timed_by=dev_ms["timed_by"], **bound,
+                         share_of_bound=bound["bound_ms"] / ms, **kw)
+        log(phase="dense", k4=name, card=card, **out[name])
+        del kp, vp, kc, vc, q, qc
+        torch.cuda.empty_cache()
+    (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
+     pd.COMBINE_LAUNCHES) = counts    # timing launches are not main path
+    return out
+
+
+def dense_sampler(torch, card: str) -> dict:
+    """``models/sample.py`` on gpt2 in fp32 (random weights from the seed):
+    for two prompts of 32 steps, the greedy tokens of the kv_cache mode
+    (the engine, K4 on every step) equal the recompute mode's."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models import sample
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+
+    bundle = get_model("gpt2", dtype=torch.float32)
+    params = bundle.init(bundle.config, SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 21)
+    res = []
+    for n in SAMPLER_PROMPTS:
+        prompt = [int(x) for x in rng.integers(0, bundle.config.vocab_size, n)]
+        before = pd.LAUNCHES
+        t0 = time.perf_counter()
+        cached = sample.make_sampler(bundle, kv_cache=True)(
+            params, prompt, SAMPLER_STEPS)
+        cached_s = time.perf_counter() - t0
+        k4 = pd.LAUNCHES - before
+        t0 = time.perf_counter()
+        full = sample.make_sampler(bundle)(params, prompt, SAMPLER_STEPS)
+        full_s = time.perf_counter() - t0
+        check(cached == full and len(full) == n + SAMPLER_STEPS,
+              f"sampler: prompt {n}: kv_cache and recompute tokens differ")
+        check(k4 >= bundle.config.num_layers * (SAMPLER_STEPS - 1),
+              f"sampler: {k4} K4 launches")
+        res.append(dict(prompt=n, steps=SAMPLER_STEPS, equal=True,
+                        k4_launches=k4, kv_cache_s=cached_s,
+                        recompute_s=full_s))
+        log(phase="dense", sampler="gpt2 fp32 greedy", card=card, **res[-1])
+    del params
+    torch.cuda.empty_cache()
+    return {"prompts": res}
+
+
+def dense_hf(torch, root: Path, card: str) -> dict:
+    """``transformers`` builds GPT2LMHeadModel (gpt2's card) and a
+    GPTNeoXForCausalLM (pythia-160m's card) in process with random weights;
+    each is saved, converted (``models/hf_convert.py``), loaded on the card,
+    its fp32 loss on a batch held to transformers' within
+    ``DENSE_HF_LOSS_REL``, exported (``models/hf_export.py``) and reloaded
+    by transformers, whose fp32 logits are held to the port's within
+    ``CH05_EXPORT_LOGIT_REL`` of the largest (phase 18's bound)."""
+    import transformers
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.hf_convert import (
+        convert_hf_checkpoint, load_pretrained)
+    from distributed_training_guide_tpu_torch.models.hf_export import (
+        export_hf_checkpoint)
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        models = {
+            "gpt2": transformers.GPT2LMHeadModel(transformers.GPT2Config()),
+            "pythia-160m": transformers.GPTNeoXForCausalLM(
+                transformers.GPTNeoXConfig(
+                    vocab_size=50304, hidden_size=768,
+                    intermediate_size=3072, num_hidden_layers=12,
+                    num_attention_heads=12, max_position_embeddings=2048,
+                    tie_word_embeddings=False))}
+    out = {}
+    for name, model in models.items():
+        model = model.float().eval()
+        hf, conv, exp = (root / f"{name}-{x}" for x in ("hf", "conv", "out"))
+        model.save_pretrained(hf, safe_serialization=True)
+        bundle = get_model(f"hf:{hf}", dtype=torch.float32)
+        same_config = bundle.config == get_model(
+            name, dtype=torch.float32).config
+        convert_hf_checkpoint(hf, conv, bundle=bundle)
+        params = load_pretrained(bundle, None, conv, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+        ids = torch.randint(0, bundle.config.vocab_size, (2, 256),
+                            generator=gen, device="cuda")
+        with torch.no_grad():
+            theirs = float(model(ids, labels=ids).loss)
+            ours = float(causal_lm_loss(
+                bundle.apply(bundle.config, params, ids), ids))
+        loss_rel = abs(ours - theirs) / abs(theirs)
+        check(loss_rel <= DENSE_HF_LOSS_REL, f"{name}: port loss {ours} vs "
+              f"transformers {theirs}")
+        export_hf_checkpoint(bundle, params, exp)
+        back = transformers.AutoModelForCausalLM.from_pretrained(
+            exp, dtype=torch.float32).cuda().eval()
+        check(type(back) is type(model), f"{name}: reloaded as {type(back)}")
+        with torch.no_grad():
+            got = back(ids).logits.float()
+            want = bundle.apply(bundle.config, params, ids)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= CH05_EXPORT_LOGIT_REL * scale, f"{name}: exported "
+              f"logits {err} off the port's (max logit {scale})")
+        out[name] = dict(loss_port=ours, loss_transformers=theirs,
+                         loss_rel=loss_rel, export_logit_max_abs_err=err,
+                         export_max_logit=scale, params=bundle.num_params(),
+                         hf_config_equals_preset=same_config)
+        log(phase="dense", hf_round_trip=name, card=card,
+            transformers=transformers.__version__, **out[name])
+        del model, back, params, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_lora(torch, card: str, ch01: dict) -> dict:
+    """``--lora-rank 8 --lora-targets wq,wv`` on llama-3.2-1b with phase
+    8's batch, 4 steps: the step-1 loss bitwise phase 16's fp32 run's
+    (B starts at zero), the optimizer holding only the adapters (JAX's
+    ``num_trainable_params``), 16 launches of K1-K3 a step, the peak and
+    the optimizer-state bytes beside the full run's."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        state_slots)
+
+    copies = fa.ALIGN_COPIES
+    before = flash_counts()                   # ch01_run resets the counts
+    out, counts = ch01_run(torch, ["--max-steps", str(LORA_STEPS),
+                                   *LORA_ARGS])
+    check_hopper_path("lora", copies)
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = (
+        before[k] + counts[k] for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv"))
+    check(all(counts[k] == 16 * LORA_STEPS for k in (
+        "flash_fwd", "flash_dq", "flash_dkv")), f"lora: launches {counts}")
+    losses = ch01_losses(out)
+    vals = [losses[s] for s in sorted(losses)]
+    base_step1 = ch01["precision"]["fp32"]["losses"][0]
+    check(vals[0] == base_step1, f"lora: step-1 loss {vals[0]}, the base "
+          f"run's {base_step1}")
+    check(all(map(math.isfinite, vals)), f"lora: losses {vals}")
+    state = out["state"]
+    opt = state.opt_state.optimizer
+    held = [p for g in opt.param_groups for p in g["params"]]
+    trainable = sum(p.numel() for p in held)
+    check(trainable == LORA_TRAINABLE, f"lora: {trainable} trainable, "
+          f"want {LORA_TRAINABLE}")
+    opt_bytes = sum(t.numel() * t.element_size() for p in held
+                    for t in state_slots(opt, p).values())
+    res = dict(losses=vals, trainable_params=trainable,
+               optimizer_state_gb=opt_bytes / 1e9, **ch01_rates(out),
+               full_run_peak_gb=ch01["precision"]["fp32"]["peak_alloc_gb"],
+               launches=counts)
+    log(phase="dense", lora="llama-3.2-1b r8 wq,wv", card=card, **res)
+    ch01_free(torch, out)
+    return res
+
+
+def phase_dense(torch, card: str, ch01: dict) -> dict:
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    res = {"fused_qkv": fused_qkv_check(torch, card)}
+    reset_dense_counts()                      # the main paths start here
+    serve = {}
+    for name, longest in DENSE_SERVE:
+        from distributed_training_guide_tpu_torch.models import get_model
+
+        vocab = get_model(name).config.vocab_size
+        serve[name] = dense_serve(
+            torch, name, card, dense_serve_specs(np, vocab, longest),
+            (("bucketed", None), ("chunked", 256)),
+            max_len=min(2048, get_model(name).config.max_position_embeddings),
+            check_prompt=1)
+    train = {name: dense_train(torch, name, card, b, s, steps)
+             for name, b, s, steps in DENSE_TRAIN}
+    res["sampler"] = dense_sampler(torch, card)
+    root = Path(tempfile.mkdtemp(prefix="dense-hf-"))
+    try:
+        res["hf"] = dense_hf(torch, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["lora"] = dense_lora(torch, card, ch01)
+    gemma_vocab = 256000
+    gemma_specs = dense_serve_specs(np, gemma_vocab, 2000,
+                                    extra=(GEMMA2_LONG_PROMPT,))
+    serve["gemma2-2b"] = dense_serve(
+        torch, "gemma2-2b", card, gemma_specs, (("chunked", 256),),
+        max_len=8192, check_prompt=8, gate_logits=False)
+    serve["gemma2-2b"]["fp32_2_layers"] = gemma2_fp32_chunk_check(
+        torch, gemma_specs[8]["prompt_ids"], card)
+    train["gemma2-2b"] = dense_train(
+        torch, "gemma2-2b", card, 1, GEMMA2_SEQ, GEMMA2_TRAIN_STEPS,
+        overrides={"num_layers": GEMMA2_TRAIN_LAYERS}, fwd_body="wmma")
+    launches = dense_counts()                 # ... and end here
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "paged_attend",
+              "paged_attend_split", "paged_attend_combine"):
+        check(launches[k] > 0, f"dense families: {k} never launched: "
+              f"{launches}")
+    res.update(serve=serve, train=train, launches=launches,
+               flash_timing={name: flash_timing_at(torch, *shape)
+                             for name, shape in DENSE_FLASH_SHAPES.items()},
+               gemma2_flash=gemma2_flash(torch, card),
+               k4_timing=dense_k4_timing(torch, card))
+    log(phase="dense", launches=launches)
+    return res
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -3947,6 +4822,7 @@ def main() -> int:
     ch01 = phase_chapter01(torch, smi)
     plans = phase_plans(torch, smi)
     ch05 = phase_chapter05(torch, smi, plans)
+    dense = phase_dense(torch, smi, ch01)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -3970,11 +4846,13 @@ def main() -> int:
         "k4_ms": dec["ms"], "k4_call_ms": dec["call_ms"],
         "k4_plain_ms": dec["plain_ms"], "k4_bound_ms": dec["bound_ms"],
         "launches_per_decode_step": serve["per_step"],
+        "launches_dense_families": dense["launches"]["paged_attend_split"],
         "ptxas_registers_spills": ptxas.get("paged_attend_split", {}),
-        "shapes": k4_shapes,
+        "shapes": {**k4_shapes, **dense["k4_timing"]},
     }, {
         "name": "paged_attend_mma", **k4,
         "launches": serve["body_launches"]["mma"],
+        "launches_dense_families": dense["launches"]["paged_attend_mma"],
         "max_abs_err": worst["mma"], "shape": "chunk", "ms": chunk["body_ms"],
         "plain_ms": chunk["body_plain_ms"],
         "bound_ms": chunk["body_bound_ms"],
@@ -3986,6 +4864,7 @@ def main() -> int:
     }, {
         "name": "paged_attend_combine", **k4,
         "launches": serve["body_launches"]["combine"],
+        "launches_dense_families": dense["launches"]["paged_attend_combine"],
         "max_abs_err": worst["combine"], "shape": "decode",
         "ms": dec["combine_ms"], "plain_ms": dec["combine_plain_ms"],
         "bound_ms": dec["combine_bound_ms"], "bound_by": "bytes",
@@ -4021,6 +4900,10 @@ def main() -> int:
             "launches_chapter01": ch01["launches"][name],
             "launches_plans": plans["launches"][name],
             "launches_chapter05": ch05["launches"][name],
+            "launches_dense_families": dense["launches"][name],
+            "launches_per_step_dense": {
+                k: v["launches_per_step"][name]
+                for k, v in dense["train"].items()},
             "launches_per_step_405b_layer":
                 ch05["layer"]["launches_per_step"][name],
             "launches_per_step_by_plan": {
@@ -4037,7 +4920,19 @@ def main() -> int:
                     "B_S_Hq_Hkv_D": CH05_405B_SHAPE,
                     **{kk: v for kk, v in
                        ch05["layer"]["kernels"]["timing"][name].items()
-                       if kk in shape_keys}}},
+                       if kk in shape_keys}},
+                **{shape: {"B_S_Hq_Hkv_D": DENSE_FLASH_SHAPES[shape],
+                           **{kk: dense["flash_timing"][shape][name][kk]
+                              for kk in shape_keys
+                              if kk in dense["flash_timing"][shape][name]}}
+                   for shape in DENSE_FLASH_SHAPES},
+                "gemma2-2b-train": {
+                    "B_S_Hq_Hkv_D": (1, GEMMA2_SEQ, GEMMA2["hq"],
+                                     GEMMA2["hkv"], GEMMA2["d"]),
+                    "window": GEMMA2["window"], "softcap": GEMMA2["softcap"],
+                    **{kk: v for kk, v in
+                       dense["gemma2_flash"]["timing"][name].items()
+                       if kk in shape_keys + ("library_note",)}}},
         })
     keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
             "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",

@@ -1,21 +1,20 @@
 """AutoModel-style config ingestion: HF ``config.json`` -> a native bundle.
 
-Counterpart of ``distributed_training_guide_tpu/models/auto.py`` for the
-families the port has (llama and moe). ``-m hf:<dir>`` (or
+Counterpart of ``distributed_training_guide_tpu/models/auto.py``, for the
+four families (gpt2, llama, moe, neox). ``-m hf:<dir>`` (or
 ``get_model("hf:<dir>")``) reads the checkpoint's own ``config.json``,
 recognizes the architecture, and builds the family config, field for field
 the JAX function's, so any Llama / Mistral / Qwen2 / Qwen3 / Gemma /
-Gemma-2 / Phi-3 / OLMo-2 / Mixtral / Qwen2-MoE / Qwen3-MoE checkpoint
-trains (and converts, ``models/hf_convert.py``) without a registry preset:
+Gemma-2 / Phi-3 / OLMo-2 / GPT-2 / Mixtral / Qwen2-MoE / Qwen3-MoE /
+GPT-NeoX checkpoint trains (and converts, ``models/hf_convert.py``)
+without a registry preset:
 
     python -m distributed_training_guide_tpu_torch.chapters.c05_convert_llama \
         <hf-dir> <conv> hf:<hf-dir>
     python -m distributed_training_guide_tpu_torch.chapters.c05_llama405b \
         -m hf:<hf-dir> --pretrained <conv> ...
 
-GPT-2 and GPT-NeoX checkpoints raise ``NotImplementedError`` naming
-ROADMAP.md's 'Other dense families'; any other architecture fails with the
-supported list.
+Any other architecture fails with the supported list.
 """
 from __future__ import annotations
 
@@ -169,13 +168,58 @@ def _build_llama(cfg: dict, arch: str):
     return LlamaConfig(**kw)
 
 
-_OTHER_DENSE = "ROADMAP.md queue 1, 'Other dense families'"
+def _build_gpt2(cfg: dict, arch: str):
+    from .gpt2 import GPT2Config
+
+    return GPT2Config(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["n_embd"],
+        num_layers=cfg["n_layer"],
+        num_heads=cfg["n_head"],
+        max_position_embeddings=cfg.get("n_positions", 1024),
+        layer_norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+    )
 
 
-def _unported_family(cfg: dict, arch: str):
-    raise NotImplementedError(
-        f"{arch}: the {'gpt2' if arch.startswith('GPT2') else 'neox'} family "
-        f"is not ported yet ({_OTHER_DENSE})")
+def _build_neox(cfg: dict, arch: str):
+    from .neox import NeoXConfig
+
+    if cfg.get("tie_word_embeddings"):
+        # the family keeps embed_in / embed_out untied (every public
+        # NeoX / Pythia card unties them)
+        raise ValueError(
+            f"{arch}: tie_word_embeddings=true is not supported by the "
+            f"NeoX family (embed_out is a separate tensor here); untie the "
+            f"checkpoint or export embed_out explicitly")
+    act = cfg.get("hidden_act", "gelu")
+    acts = {"gelu": "gelu", "gelu_new": "gelu_tanh",
+            "gelu_pytorch_tanh": "gelu_tanh"}
+    if act not in acts:
+        raise ValueError(f"{arch}: unsupported hidden_act {act!r} "
+                         f"(supported: {sorted(acts)})")
+    rp = _rope_parameters(cfg)
+    # transformers 5 spells rotary_pct / rotary_emb_base as
+    # partial_rotary_factor / rope_theta (top level or rope_parameters)
+    pct = cfg.get("rotary_pct", cfg.get("partial_rotary_factor",
+                                        rp.get("partial_rotary_factor",
+                                               0.25)))
+    theta = cfg.get("rotary_emb_base", cfg.get("rope_theta",
+                                               rp.get("rope_theta",
+                                                      10000.0)))
+    return NeoXConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        max_position_embeddings=cfg.get("max_position_embeddings", 2048),
+        rotary_pct=pct,
+        rope_theta=theta,
+        layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+        use_parallel_residual=cfg.get("use_parallel_residual", True),
+        act_fn=acts[act],
+        **_rope_scaling_kw(cfg, arch),
+    )
 
 
 def _build_mixtral(cfg: dict, arch: str):
@@ -266,11 +310,11 @@ _ARCH_BUILDERS = {
     "Olmo2ForCausalLM": ("llama", _build_llama),
     "GemmaForCausalLM": ("llama", _build_llama),
     "Gemma2ForCausalLM": ("llama", _build_llama),
-    "GPT2LMHeadModel": ("gpt2", _unported_family),
+    "GPT2LMHeadModel": ("gpt2", _build_gpt2),
     "MixtralForCausalLM": ("moe", _build_mixtral),
     "Qwen2MoeForCausalLM": ("moe", _build_qwen2_moe),
     "Qwen3MoeForCausalLM": ("moe", _build_qwen3_moe),
-    "GPTNeoXForCausalLM": ("neox", _unported_family),
+    "GPTNeoXForCausalLM": ("neox", _build_neox),
     # Phi-3 is llama-math with fused checkpoint tensors (qkv_proj,
     # gate_up_proj) — the conversion splits them (hf_convert._make_map_llama);
     # its longrope rope_scaling and sliding_window both map onto the native

@@ -18,11 +18,13 @@ here neither happens:
 
 The name maps are the JAX module's, for the llama family (Llama, Mistral,
 Qwen2, Qwen3, Gemma, Gemma-2, OLMo-2 and Phi-3, whose fused ``qkv_proj``
-and ``gate_up_proj`` split into several leaves) and the moe family
-(Mixtral, Qwen2-MoE with its shared expert, Qwen3-MoE). torch's ``Linear``
-stores ``[out, in]``, so the weights transpose into the port's ``[in,
-out]`` leaves. GPT-2 and GPT-NeoX raise ``NotImplementedError`` naming
-ROADMAP.md's 'Other dense families'.
+and ``gate_up_proj`` split into several leaves), the moe family
+(Mixtral, Qwen2-MoE with its shared expert, Qwen3-MoE), GPT-2 and
+GPT-NeoX. torch's ``Linear`` stores ``[out, in]``, so the weights
+transpose into the port's ``[in, out]`` leaves; GPT-2's ``Conv1D`` is
+already ``[in, out]`` (its fused ``c_attn`` ``[E, 3E]`` re-factors into
+the ``[E, 3, E]`` leaf, ``_write_leaf``), and GPT-NeoX's per-head
+interleaved ``query_key_value`` is de-interleaved here, at conversion.
 """
 from __future__ import annotations
 
@@ -38,7 +40,6 @@ import torch
 LOGGER = logging.getLogger(__name__)
 
 LEAF_SEP = "."
-_OTHER_DENSE = "ROADMAP.md queue 1, 'Other dense families'"
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +82,81 @@ def _map_llama(name: str):
         leaf, t = table[name]
         return leaf, None, t
     return None
+
+
+def _map_gpt2(name: str):
+    """HF ``GPT2LMHeadModel`` -> the gpt2 layout (``models/gpt2.py``):
+    ``Conv1D`` stores ``[in, out]``, so nothing transposes; the tied
+    ``lm_head`` maps to nothing."""
+    name = name.removeprefix("transformer.")
+    m = re.match(r"h\.(\d+)\.(.+)", name)
+    if m:
+        idx, rest = int(m.group(1)), m.group(2)
+        table = {
+            "ln_1.weight": "layers.ln1.scale", "ln_1.bias": "layers.ln1.bias",
+            "attn.c_attn.weight": "layers.attn.wqkv",
+            "attn.c_attn.bias": "layers.attn.bqkv",
+            "attn.c_proj.weight": "layers.attn.wo",
+            "attn.c_proj.bias": "layers.attn.bo",
+            "ln_2.weight": "layers.ln2.scale", "ln_2.bias": "layers.ln2.bias",
+            "mlp.c_fc.weight": "layers.mlp.wi", "mlp.c_fc.bias": "layers.mlp.bi",
+            "mlp.c_proj.weight": "layers.mlp.wo",
+            "mlp.c_proj.bias": "layers.mlp.bo",
+        }
+        return (table[rest], idx, False) if rest in table else None
+    table = {"wte.weight": "wte", "wpe.weight": "wpe",
+             "ln_f.weight": "lnf.scale", "ln_f.bias": "lnf.bias"}
+    return (table[name], None, False) if name in table else None
+
+
+def _make_map_neox(config):
+    """HF ``GPTNeoXForCausalLM`` -> the neox layout (``models/neox.py``).
+    The fused ``query_key_value`` Linear interleaves PER HEAD on its out
+    dim (``[heads, 3, head_dim]`` flattened), the port's leaf is ``[E, 3,
+    heads*head_dim]``: its transform de-interleaves (needing the head
+    shape, hence the factory)."""
+    h, d = config.num_heads, config.head_size
+
+    def deinterleave_qkv_w(w):   # [3e, e] Linear [out, in], out = (h, 3, d)
+        e = w.shape[1]
+        return w.reshape(h, 3, d, e).transpose(3, 1, 0, 2).reshape(e, 3, h * d)
+
+    def deinterleave_qkv_b(b):   # [3e] = (h, 3, d)
+        return b.reshape(h, 3, d).transpose(1, 0, 2).reshape(3, h * d)
+
+    def mapper(name: str):
+        if name == "embed_out.weight":   # untied head, outside gpt_neox.*
+            return "embed_out", None, True
+        name = name.removeprefix("gpt_neox.")
+        m = re.match(r"layers\.(\d+)\.(.+)", name)
+        if m:
+            idx, rest = int(m.group(1)), m.group(2)
+            table = {
+                "input_layernorm.weight": ("layers.ln1.scale", False),
+                "input_layernorm.bias": ("layers.ln1.bias", False),
+                "post_attention_layernorm.weight": ("layers.ln2.scale", False),
+                "post_attention_layernorm.bias": ("layers.ln2.bias", False),
+                "attention.query_key_value.weight":
+                    ("layers.attn.wqkv", deinterleave_qkv_w),
+                "attention.query_key_value.bias":
+                    ("layers.attn.bqkv", deinterleave_qkv_b),
+                "attention.dense.weight": ("layers.attn.wo", True),
+                "attention.dense.bias": ("layers.attn.bo", False),
+                "mlp.dense_h_to_4h.weight": ("layers.mlp.wi", True),
+                "mlp.dense_h_to_4h.bias": ("layers.mlp.bi", False),
+                "mlp.dense_4h_to_h.weight": ("layers.mlp.wo", True),
+                "mlp.dense_4h_to_h.bias": ("layers.mlp.bo", False),
+            }
+            if rest in table:
+                leaf, t = table[rest]
+                return leaf, idx, t
+            return None   # attention.bias mask buffers, rotary inv_freq
+        table = {"embed_in.weight": "embed_in",
+                 "final_layer_norm.weight": "lnf.scale",
+                 "final_layer_norm.bias": "lnf.bias"}
+        return (table[name], None, False) if name in table else None
+
+    return mapper
 
 
 def _map_mixtral(name: str):
@@ -166,14 +242,16 @@ def _make_map_llama(config):
 
 
 def family_mapper(family: str, config) -> Callable:
-    """The HF-name mapper of a ported family."""
+    """The HF-name mapper of a family."""
     if family == "llama":
         return _make_map_llama(config)
     if family == "moe":
         return _map_mixtral
-    raise NotImplementedError(
-        f"HF conversion of the {family!r} family is not ported yet "
-        f"({_OTHER_DENSE})")
+    if family == "gpt2":
+        return _map_gpt2
+    if family == "neox":
+        return _make_map_neox(config)
+    raise KeyError(f"no HF name map for the {family!r} family")
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +388,6 @@ def load_pretrained(bundle, plan, out_dir: str | Path, *,
     memmap as that slice only; with ``plan`` None the whole leaves. Leaves
     are cast to ``param_dtype`` (default: the config's)."""
     from .._device import resolve_device
-    from .registry import family_module
     from ..train.state import named_leaves
 
     device = resolve_device(device)
@@ -324,11 +401,9 @@ def load_pretrained(bundle, plan, out_dir: str | Path, *,
             f"a sharded load of the moe family needs expert parallelism "
             f"({_EP_ITEM}); load it with plan=None")
     if plan is not None:
-        mod = family_module(bundle.family)
-        cfg = bundle.config
         specs = {path.replace("/", LEAF_SEP): spec for path, spec in
-                 named_leaves(plan.param_specs(mod.param_logical_axes(cfg),
-                                               mod.param_shapes(cfg)))}
+                 named_leaves(plan.param_specs(bundle.logical_axes(),
+                                               bundle.shapes()))}
     leaves = {}
     for leaf, (shape, dt) in shapes.items():
         path = out_dir / f"{leaf}.npy"

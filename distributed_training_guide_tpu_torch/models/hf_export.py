@@ -11,7 +11,10 @@ in]``, so 2-D weights transpose; stacked ``[L, ...]`` leaves unstack into
 per-layer tensors; the Qwen2 QKV bias rows and Qwen3 q / k norms export when
 present; a tied head omits ``lm_head``; the moe family's ``[L, E, ...]``
 expert stacks unstack into Mixtral's ``w1 / w2 / w3`` (or the Qwen
-spellings). GPT-2 and GPT-NeoX raise naming 'Other dense families'.
+spellings); GPT-2's ``Conv1D`` tensors keep ``[in, out]`` (the ``[E, 3,
+E]`` QKV flattens back to ``[E, 3E]``, and the tied ``lm_head`` is
+written out so ``from_pretrained`` finds it); GPT-NeoX's ``[E, 3, H*D]``
+QKV re-interleaves per head into HF's ``query_key_value``.
 
 Export gathers the whole model to host memory (~2x the param bytes at the
 peak: the gathered leaves and the per-tensor copies) and writes one
@@ -30,8 +33,6 @@ import json
 from pathlib import Path
 
 import torch
-
-_OTHER_DENSE = "ROADMAP.md queue 1, 'Other dense families'"
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +130,84 @@ def _emit_moe(config, leaves: dict) -> dict:
     return out
 
 
-_EMITTERS = {"llama": _emit_llama, "moe": _emit_moe}
+def _emit_gpt2(config, leaves: dict) -> dict:
+    e = config.hidden_size
+    out = {"transformer.wte.weight": leaves["wte"],
+           "transformer.wpe.weight": leaves["wpe"],
+           "transformer.ln_f.weight": leaves["lnf.scale"],
+           "transformer.ln_f.bias": leaves["lnf.bias"],
+           # HF ties lm_head to wte; written out (a copy: safetensors
+           # refuses two names on one storage) so from_pretrained never
+           # reports it missing
+           "lm_head.weight": leaves["wte"].clone()}
+    per_layer = {   # Conv1D stores [in, out]: no transposes anywhere
+        "layers.ln1.scale": "ln_1.weight", "layers.ln1.bias": "ln_1.bias",
+        "layers.attn.wqkv": "attn.c_attn.weight",
+        "layers.attn.bqkv": "attn.c_attn.bias",
+        "layers.attn.wo": "attn.c_proj.weight",
+        "layers.attn.bo": "attn.c_proj.bias",
+        "layers.ln2.scale": "ln_2.weight", "layers.ln2.bias": "ln_2.bias",
+        "layers.mlp.wi": "mlp.c_fc.weight", "layers.mlp.bi": "mlp.c_fc.bias",
+        "layers.mlp.wo": "mlp.c_proj.weight",
+        "layers.mlp.bo": "mlp.c_proj.bias",
+    }
+    for leaf, hf in per_layer.items():
+        for i in range(config.num_layers):
+            t = leaves[leaf][i]
+            if leaf == "layers.attn.wqkv":     # [e, 3, e] -> Conv1D [e, 3e]
+                t = t.reshape(e, 3 * e)
+            elif leaf == "layers.attn.bqkv":   # [3, e] -> [3e]
+                t = t.reshape(3 * e)
+            out[f"transformer.h.{i}.{hf}"] = t
+    return out
+
+
+def _emit_neox(config, leaves: dict) -> dict:
+    h, d = config.num_heads, config.head_size
+    out = {"gpt_neox.embed_in.weight": leaves["embed_in"],
+           "gpt_neox.final_layer_norm.weight": leaves["lnf.scale"],
+           "gpt_neox.final_layer_norm.bias": leaves["lnf.bias"],
+           "embed_out.weight": leaves["embed_out"].T}
+    per_layer = {
+        "layers.ln1.scale": "input_layernorm.weight",
+        "layers.ln1.bias": "input_layernorm.bias",
+        "layers.ln2.scale": "post_attention_layernorm.weight",
+        "layers.ln2.bias": "post_attention_layernorm.bias",
+        "layers.attn.wo": "attention.dense.weight",
+        "layers.attn.bo": "attention.dense.bias",
+        "layers.mlp.wi": "mlp.dense_h_to_4h.weight",
+        "layers.mlp.bi": "mlp.dense_h_to_4h.bias",
+        "layers.mlp.wo": "mlp.dense_4h_to_h.weight",
+        "layers.mlp.bo": "mlp.dense_4h_to_h.bias",
+    }
+    transposed = {"layers.attn.wo", "layers.mlp.wi", "layers.mlp.wo"}
+    for leaf, hf in per_layer.items():
+        for i in range(config.num_layers):
+            t = leaves[leaf][i]
+            out[f"gpt_neox.layers.{i}.{hf}"] = (t.T if leaf in transposed
+                                                else t)
+    for i in range(config.num_layers):
+        # the inverse of the converter's de-interleave: [e, 3, h*d] -> HF's
+        # per-head-interleaved Linear [3e (out = (h, 3, d)), e]
+        w = leaves["layers.attn.wqkv"][i]
+        e = w.shape[0]
+        w = w.reshape(e, 3, h, d).permute(2, 1, 3, 0).reshape(3 * h * d, e)
+        b = leaves["layers.attn.bqkv"][i]
+        b = b.reshape(3, h, d).permute(1, 0, 2).reshape(3 * h * d)
+        out[f"gpt_neox.layers.{i}.attention.query_key_value.weight"] = w
+        out[f"gpt_neox.layers.{i}.attention.query_key_value.bias"] = b
+    return out
+
+
+_EMITTERS = {"llama": _emit_llama, "gpt2": _emit_gpt2, "neox": _emit_neox,
+             "moe": _emit_moe}
+
+
+def _emitter(family: str):
+    if family not in _EMITTERS:
+        raise KeyError(f"no HF export for the {family!r} family (families: "
+                       f"{sorted(_EMITTERS)})")
+    return _EMITTERS[family]
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +260,29 @@ def _rope_scaling_out(c) -> dict:
 
 def _hf_config(bundle) -> dict:
     c = bundle.config
-    if bundle.family not in _EMITTERS:
-        raise NotImplementedError(
-            f"HF export of the {bundle.family!r} family is not ported yet "
-            f"({_OTHER_DENSE})")
+    _emitter(bundle.family)
+    if bundle.family == "gpt2":
+        return {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+                "vocab_size": c.vocab_size, "n_embd": c.hidden_size,
+                "n_layer": c.num_layers, "n_head": c.num_heads,
+                "n_positions": c.max_position_embeddings,
+                "n_ctx": c.max_position_embeddings,
+                "layer_norm_epsilon": c.layer_norm_eps}
+    if bundle.family == "neox":
+        return {"architectures": ["GPTNeoXForCausalLM"],
+                "model_type": "gpt_neox",
+                "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                "intermediate_size": c.intermediate_size,
+                "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads,
+                "max_position_embeddings": c.max_position_embeddings,
+                "rotary_pct": c.rotary_pct, "rotary_emb_base": c.rope_theta,
+                "layer_norm_eps": c.layer_norm_eps,
+                "use_parallel_residual": c.use_parallel_residual,
+                "hidden_act": {"gelu": "gelu",
+                               "gelu_tanh": "gelu_new"}[c.act_fn],
+                "tie_word_embeddings": False,
+                **_rope_scaling_out(c)}
     base = {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
             "intermediate_size": c.intermediate_size,
             "num_hidden_layers": c.num_layers,
@@ -289,16 +386,13 @@ def export_hf_checkpoint(bundle, params, out_dir: str | Path,
 
     from ..train.state import named_leaves
 
-    if bundle.family not in _EMITTERS:
-        raise NotImplementedError(
-            f"HF export of the {bundle.family!r} family is not ported yet "
-            f"({_OTHER_DENSE})")
+    emit = _emitter(bundle.family)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     tdtype = getattr(torch, dtype)
     leaves = {path.replace("/", "."): t.detach().to("cpu", tdtype)
               for path, t in named_leaves(params)}
-    tensors = _EMITTERS[bundle.family](bundle.config, leaves)
+    tensors = emit(bundle.config, leaves)
     # views from transposes / slices must be contiguous for safetensors
     tensors = {k: v.contiguous() for k, v in tensors.items()}
     save_file(tensors, str(out_dir / "model.safetensors"),

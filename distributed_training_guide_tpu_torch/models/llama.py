@@ -8,8 +8,9 @@ JAX ``lax.scan`` over layers is a Python loop over the layer index here.
 
 It carries ``init``, the sublayers, the training forward ``apply`` (the
 flash kernels on the card, remat policies through ``ops/remat.py``), the
-contiguous-cache ``prefill`` (the engine's bucketed prefill) and the
-paged forward ``paged_decode_step`` (decode steps and prefill chunks).
+contiguous-cache ``prefill`` (the engine's bucketed prefill) and
+``decode_step`` (the sampler's), and the paged forward
+``paged_decode_step`` (decode steps and prefill chunks).
 The config flags of the Llama variants stay (sliding and per-layer
 windows, QKV biases, q/k norms, post- and sandwich norms, softcaps,
 ``norm_plus_one``, ``scale_embed``, gelu): they are elementwise work
@@ -219,6 +220,13 @@ def param_logical_axes(config: LlamaConfig) -> dict:
     return axes
 
 
+# the param paths a sharding plan's ``LocalLayout`` reads: the token table,
+# the untied head (absent where it is tied to the table) and the MLP's
+# input projection
+LAYOUT_PATHS = {"table": "embed/embedding", "head": "lm_head",
+                "mlp_in": "layers/mlp/gate"}
+
+
 def _is_qt(w) -> bool:
     """Duck-typed ``train/precision.py`` ``Quantized`` check (int8 payload
     plus per-block fp32 scales: the engine's ``weight_dtype='int8'``)."""
@@ -419,7 +427,7 @@ def _project_head(config: LlamaConfig, params: dict,
 class _Whole:
     """``apply``'s layout without a sharding plan, the identity of
     ``parallel/plans.py:LocalLayout``: whole params and the whole sequence
-    on one device, no collective."""
+    on one device, no collective (every family's ``apply`` takes it)."""
 
     def gather_leaf(self, path, local, layer=False):
         return local
@@ -438,6 +446,12 @@ class _Whole:
 
     def embed(self, config, params, input_ids):
         return embed_tokens(config, params, input_ids)
+
+    def embed_rows(self, path, table, input_ids):
+        return table[input_ids.long()]
+
+    def seq_local(self, x):
+        return x
 
     def logits(self, config, params, hidden):
         return _project_head(config, params, hidden)
@@ -594,6 +608,57 @@ def prefill(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     # slice BEFORE the head: one row through the [E, V] projection
     x_last = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
     return lm_head_logits(config, params, x_last)[:, 0], cache
+
+
+def cache_attend(cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                 positions: torch.Tensor):
+    """The contiguous-cache attend of every family's ``decode_step``, as an
+    ``attend_override``: the step's k/v go into one layer's cache
+    ``[B, max_len, Hkv, D]`` at ``pos`` (in place), then q attends over the
+    whole cache through the einsum path; causality masks the positions
+    past ``pos``. Returns (attn, None)."""
+    def attend(q, k, v, *, window=None, scale=None, softcap=None):
+        t = k.shape[1]
+        cache_k[:, pos:pos + t] = k.to(cache_k.dtype)
+        cache_v[:, pos:pos + t] = v.to(cache_v.dtype)
+        kv_pos = torch.arange(cache_k.shape[1], device=q.device)[None, :]
+        attn = multihead_attention(
+            q, cache_k, cache_v, causal=True, positions=positions,
+            kv_positions=kv_pos.expand(q.shape[0], -1), impl="xla",
+            standard_layout=False, window=window, scale=scale,
+            logit_softcap=softcap)
+        return attn, None
+
+    return attend
+
+
+def step_positions(token_ids: torch.Tensor, pos: int) -> torch.Tensor:
+    """[B, 1] positions of a contiguous-cache decode step at ``pos``."""
+    return torch.full((token_ids.shape[0], 1), int(pos), dtype=torch.long,
+                      device=token_ids.device)
+
+
+@torch.no_grad()
+def decode_step(config: LlamaConfig, params: dict, token_ids: torch.Tensor,
+                pos: int, cache: dict):
+    """One contiguous-cache decode step (``models/sample.py``):
+    ``token_ids`` [B, 1] at position ``pos``, each layer's rope'd k/v
+    written into ``cache`` (``init_cache``) in place. Returns (logits
+    [B, V], the cache)."""
+    positions = step_positions(token_ids, pos)
+    x = embed_tokens(config, params, token_ids)
+    wins = layer_windows(config)
+    rope = layer_rope(config, positions)
+    for i in range(config.num_layers):
+        layer = layer_params(params, i)
+        attn = attention_sublayer(
+            config, x, layer["attn"],
+            None if config.post_norm else layer["input_norm"], positions,
+            "xla", rope, window_override=None if wins is None else wins[i],
+            attend_override=cache_attend(cache["k"][i], cache["v"][i], pos,
+                                         positions))
+        x = _residuals(config, x, layer, attn)
+    return lm_head_logits(config, params, x)[:, -1], cache
 
 
 def paged_positions(token_ids: torch.Tensor,

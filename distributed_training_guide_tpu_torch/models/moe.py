@@ -31,8 +31,7 @@ loss is returned beside the logits; the Trainer adds
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the expert-parallel dispatch (``make_ragged_ep_dispatch``,
-``moe_ep``, ``tp_axis``), the overlap ``layer_schedule`` and the
-contiguous-cache ``decode_step``.
+``moe_ep``, ``tp_axis``) and the overlap ``layer_schedule``.
 """
 from __future__ import annotations
 
@@ -420,11 +419,29 @@ def prefill(config: MoELlamaConfig, params: dict, input_ids: torch.Tensor,
     return lm_head_logits(config, params, x_last)[:, 0], cache
 
 
-def decode_step(*args, **kwargs):
-    raise NotImplementedError(
-        "moe.decode_step (the contiguous-cache sampler): ROADMAP.md queue "
-        "1, 'Other dense families' (models/sample.py); the serving engine "
-        "decodes through paged_decode_step")
+@torch.no_grad()
+def decode_step(config: MoELlamaConfig, params: dict,
+                token_ids: torch.Tensor, pos: int, cache: dict, *,
+                gmm_impl: str = "auto"):
+    """One contiguous-cache decode step (``models/sample.py``): attention
+    over the whole cache (``llama.cache_attend``), the routed FFN drop-free
+    on the one token. Returns (logits [B, V], the cache)."""
+    positions = llama.step_positions(token_ids, pos)
+    x = embed_tokens(config, params, token_ids)
+    wins = llama.layer_windows(config)
+    rope = llama.layer_rope(config, positions)
+    for i in range(config.num_layers):
+        layer = llama.layer_params(params, i)
+        attn = attention_sublayer(
+            config, x, layer["attn"], layer["input_norm"], positions, "xla",
+            rope, window_override=None if wins is None else wins[i],
+            attend_override=llama.cache_attend(cache["k"][i], cache["v"][i],
+                                               pos, positions))
+        x = x + attn
+        h = _rmsnorm(x, layer["post_attn_norm"], config.rms_norm_eps)
+        x = x + _moe_ffn(config, h, layer["moe"], no_drop=True,
+                         gmm_impl=gmm_impl)[0]
+    return lm_head_logits(config, params, x)[:, -1], cache
 
 
 @torch.no_grad()

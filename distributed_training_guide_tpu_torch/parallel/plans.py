@@ -422,12 +422,31 @@ def global_norm(grads: list, layouts: list) -> torch.Tensor:
 _PARTIAL_ON_TP = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
 
 
-class LocalLayout:
-    """What the llama forward and the loss need on one rank under a plan:
-    the specs of the param shards it holds, and the tp context. It is what
-    ``models/llama.apply`` takes as ``activation_sharding``."""
+def _under(specs: dict, prefix: str) -> dict:
+    """The entries of ``specs`` under ``prefix``, the prefix dropped."""
+    if not prefix:
+        return specs
+    cut = len(prefix) + 1
+    return {p[cut:]: s for p, s in specs.items()
+            if p.startswith(prefix + "/")}
 
-    def __init__(self, plan: ShardingPlan, specs: dict, config):
+
+def _leaf(params: dict, path: str) -> torch.Tensor:
+    for k in path.split("/"):
+        params = params[k]
+    return params
+
+
+class LocalLayout:
+    """What a family's forward and the loss need on one rank under a plan:
+    the specs of the param shards it holds, and the tp context. It is what
+    every family's ``apply`` takes as ``activation_sharding`` (gpt2 and
+    neox: the fused QKV shards its trailing heads axis, so each rank's q,
+    k and v are its own heads and no kv hook is needed). ``paths`` is the
+    family module's ``LAYOUT_PATHS``."""
+
+    def __init__(self, plan: ShardingPlan, specs: dict, config, paths: dict,
+                 model: str = "", partners: Optional[dict] = None):
         self.plan = plan
         self.specs = specs                  # path -> spec of the param
         self.tp_on = plan.tensor_parallel
@@ -435,10 +454,28 @@ class LocalLayout:
         self.sp = self.tp_on and plan.sequence_sharded
         self.tp_group = plan.group("tp") if self.tp_on else None
         self.tp_rank = plan.mesh.get_local_rank("tp") if self.tp_on else 0
+        # ``model``: the subtree of the params the family's forward reads
+        # (a LoRA bundle's "base"); ``partners``: {adapter path: the leaf
+        # it adapts}
+        self.partners = partners or {}
+        model_specs = _under(specs, model)
+        # the family's token table, and its head (None: tied to the table)
+        self.table_path = paths["table"]
+        self.head_path = (paths["head"] if paths["head"] in model_specs
+                          else None)
         self.vocab_parallel = "tp" in entry_axes(
-            (specs["embed/embedding"] + (None,))[0])
+            (model_specs[self.table_path] + (None,))[0])
         if self.tp_on:
-            _check_tp(config, self.tp, specs)
+            _check_tp(config, self.tp, model_specs, paths["mlp_in"])
+
+    def scoped(self, prefix: str) -> "LocalLayout":
+        """This layout over the subtree ``prefix`` of the params (a LoRA
+        bundle's ``base``): the same plan and tp context, the specs of the
+        leaves under ``prefix`` with the prefix dropped."""
+        out = object.__new__(LocalLayout)
+        out.__dict__.update(self.__dict__)
+        out.specs = _under(self.specs, prefix)
+        return out
 
     # ---- params ------------------------------------------------------------
     def gather_leaf(self, path: str, local: torch.Tensor,
@@ -500,32 +537,43 @@ class LocalLayout:
         return hook
 
     # ---- embedding, head and loss -----------------------------------------
-    def embed(self, config, params: dict, input_ids: torch.Tensor):
+    def embed_rows(self, path: str, table: torch.Tensor,
+                   input_ids: torch.Tensor) -> torch.Tensor:
+        """The rows of the token table at ``path`` for ``input_ids``, in
+        the table's dtype: vocab-parallel when tp shards the vocab, and
+        this rank's sequence shard under sequence parallelism."""
         from ..ops.vocab_parallel import vocab_parallel_embed
 
-        table = self.gather_leaf("embed/embedding",
-                                 params["embed"]["embedding"])
+        table = self.gather_leaf(path, table)
         if self.vocab_parallel:
-            x = vocab_parallel_embed(table, input_ids, self.tp_group,
-                                     self.tp_rank,
-                                     scatter_dim=1 if self.sp else None)
-        else:
-            x = table[input_ids.long()]
-            if self.sp:
-                x = self._seq_shard(x)
-        x = x.to(config.dtype)
+            return vocab_parallel_embed(table, input_ids, self.tp_group,
+                                        self.tp_rank,
+                                        scatter_dim=1 if self.sp else None)
+        return self.seq_local(table[input_ids.long()])
+
+    def seq_local(self, x: torch.Tensor) -> torch.Tensor:
+        """Rows over the full sequence as the residual holds them: this
+        rank's sequence shard under sequence parallelism."""
+        return self._seq_shard(x) if self.sp else x
+
+    def embed(self, config, params: dict, input_ids: torch.Tensor):
+        """The llama family's embedding (scaled for Gemma)."""
+        x = self.embed_rows(self.table_path, params["embed"]["embedding"],
+                            input_ids).to(config.dtype)
         if getattr(config, "scale_embed", False):
             x = x * torch.tensor(config.hidden_size ** 0.5,
                                  dtype=config.dtype, device=x.device)
         return x
 
     def head_weights(self, config, params: dict) -> torch.Tensor:
-        """[E, V or V/tp] output projection in compute dtype."""
-        if config.tie_word_embeddings:
-            return self.gather_leaf("embed/embedding",
-                                    params["embed"]["embedding"]
-                                    ).T.to(config.dtype)
-        return self.gather_leaf("lm_head", params["lm_head"]).to(config.dtype)
+        """[E, V or V/tp] output projection in compute dtype (the token
+        table's transpose where the head is tied)."""
+        if self.head_path is None:
+            table = _leaf(params, self.table_path)
+            return self.gather_leaf(self.table_path, table).T.to(
+                config.dtype)
+        return self.gather_leaf(self.head_path, _leaf(
+            params, self.head_path)).to(config.dtype)
 
     def logits(self, config, params: dict, hidden: torch.Tensor):
         """This rank's fp32 logits: [B, S, V/tp] under vocab parallelism,
@@ -573,12 +621,21 @@ class LocalLayout:
         sharded = {a for e in self.specs[path] for a in entry_axes(e)}
         axes = [a for a in self.plan.data_axes if a not in sharded]
         if (self.tp_on and "tp" not in sharded
-                and (self.sp or path.rsplit("/", 1)[-1] in _PARTIAL_ON_TP)):
+                and (self.sp or path.rsplit("/", 1)[-1] in _PARTIAL_ON_TP
+                     or self._adapts_tp_leaf(path))):
             axes.append("tp")
         return tuple(axes)
 
+    def _adapts_tp_leaf(self, path: str) -> bool:
+        """A LoRA adapter whole on every tp rank whose base leaf tp shards:
+        each rank's grad sums over its own block of the base's dims
+        only."""
+        base = self.partners.get(path)
+        return base is not None and any(
+            "tp" in entry_axes(e) for e in self.specs[base])
 
-def _check_tp(config, tp: int, specs: dict) -> None:
+
+def _check_tp(config, tp: int, specs: dict, mlp_in: str) -> None:
     """What the local tp forward needs of the model's widths."""
     problems = []
     if config.num_heads % tp:
@@ -586,8 +643,9 @@ def _check_tp(config, tp: int, specs: dict) -> None:
     if (config.num_kv_heads % tp and tp % config.num_kv_heads):
         problems.append(f"num_kv_heads {config.num_kv_heads} and tp {tp} "
                         f"(neither divides the other)")
-    if "tp" not in entry_axes((specs["layers/mlp/gate"] + (None,) * 3)[2]):
-        problems.append(f"intermediate_size {config.intermediate_size} % "
+    if "tp" not in entry_axes((specs[mlp_in] + (None,) * 3)[2]):
+        problems.append(f"intermediate_size "
+                        f"{getattr(config, 'intermediate_size', None)} % "
                         f"tp {tp}")
     if getattr(config, "qk_norm", False) == "flat":
         problems.append("qk_norm='flat' (a norm across every head)")

@@ -452,8 +452,8 @@ class ModelPrograms:
 
 
 class ServeEngine:
-    """Multi-request generation over a model family's paged decode (the
-    llama and moe families).
+    """Multi-request generation over a model family's paged decode (every
+    family: gpt2, llama, moe, neox).
 
     Drive it through ``serve/api.py`` (``generate_many``) or directly:
     ``submit(Request(...))`` then ``step()`` in a loop — each step is one
@@ -500,10 +500,13 @@ class ServeEngine:
             self.config, max_len, page_size)
         if (self.device.type == "cuda" and not paged_decode_eligible(
                 self.config.head_size, page_size)):
+            # the JAX engine would take the gather path here (gpt-neox-20b's
+            # head_dim 96); on the card every paged attend is the kernel
             raise ValueError(
                 f"head_dim {self.config.head_size} / page_size {page_size}: "
                 f"the paged kernel takes head_dim in {HEAD_DIMS} and pages "
-                f"of 8 to 64 positions in steps of 8")
+                f"of 8 to 64 positions in steps of 8 (other head_dims: "
+                f"ROADMAP.md queue 2, 'K4 at head_dim 96')")
         self.page_size = page_size
         self.n_slots = n_slots
         if n_pages is None:

@@ -271,6 +271,9 @@ def paged_attend(q, k_new, v_new, k_pages, v_pages, tables, lengths, *,
         k_pages[phys, off] = k_new.to(k_pages.dtype)
         v_pages[phys, off] = v_new.to(v_pages.dtype)
 
+    # K4 reads q rows contiguous; a fused-QKV family's q (gpt2) is a
+    # strided slice of its projection: one copy here (a no-op otherwise)
+    q = q.contiguous()
     if impl in ("auto", "flash"):
         attend = paged_flash_attend
     elif impl == "xla":

@@ -11,8 +11,9 @@ resumes from the newest verifiable checkpoint there (or starts fresh),
 saves every ``--ckpt-freq`` steps (``--keep-checkpoints``,
 ``--async-checkpoint``, ``--checkpoint-full-crc``), and tracks with wandb
 under ``--wandb``. ``--optimizer``, ``--precision-policy``,
-``--param-dtype``, ``--remat-policy``, ``--mmap-data``, ``--pretrained``
-and ``--preflight`` are the JAX package's. The fault drills of
+``--param-dtype``, ``--remat-policy``, ``--mmap-data``, ``--pretrained``,
+``--preflight`` and ``--lora-rank`` (``--lora-alpha``, ``--lora-targets``:
+adapters on a frozen base, ``models/lora.py``) are the JAX package's. The fault drills of
 ``utils/faults.py`` and the heartbeat of ``utils/heartbeat.py`` are wired
 in. A flag whose feature a later slice ports raises
 ``NotImplementedError`` naming its ROADMAP.md item when it is set away
@@ -39,7 +40,6 @@ LOGGER = logging.getLogger(__name__)
 
 # flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
 _UNPORTED_FLAGS = {
-    "lora_rank": (0, "'Other dense families' (LoRA)"),
     "native_loader": (False, "'Runtime robustness and tooling'"),
     "overlap_schedule": (False,
                          "'Context parallel, pipeline parallel and overlap'"),
@@ -112,9 +112,16 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--wandb-project", default=None)
     parser.add_argument("--wandb-per-host", action="store_true")
-    parser.add_argument("--lora-rank", default=0, type=int, metavar="R")
-    parser.add_argument("--lora-alpha", default=16.0, type=float)
-    parser.add_argument("--lora-targets", default="wq,wv")
+    parser.add_argument("--lora-rank", default=0, type=int, metavar="R",
+                        help="train LoRA adapters of rank R on a FROZEN "
+                             "base model instead of full parameters "
+                             "(llama family; composes with --pretrained "
+                             "and every plan). 0 = off")
+    parser.add_argument("--lora-alpha", default=16.0, type=float,
+                        help="LoRA scale numerator (delta = alpha/R * A@B)")
+    parser.add_argument("--lora-targets", default="wq,wv",
+                        help="comma list of adapted projections "
+                             "(wq,wk,wv,wo,gate,up,down)")
     parser.add_argument("--moe-dispatch", default=None,
                         choices=["dense", "ragged"],
                         help="MoE expert dispatch (MoE models only): dense = "
@@ -249,6 +256,17 @@ def run_training(args, plan_factory=None, *, device=None,
                 f"{args.model_name!r} rejected it ({exc})")
         raise
     cfg = bundle.config
+    lora_rank = getattr(args, "lora_rank", 0)
+    if lora_rank:
+        from ..models.lora import lora_bundle, num_trainable_params
+
+        bundle = lora_bundle(bundle, rank=lora_rank,
+                             alpha=getattr(args, "lora_alpha", 16.0),
+                             targets=tuple(getattr(
+                                 args, "lora_targets", "wq,wv").split(",")))
+        LOGGER.info(f"LoRA: rank {lora_rank}, "
+                    f"{num_trainable_params(bundle):,} trainable adapter "
+                    f"params over a frozen {bundle.num_params():,}-param base")
     if plan is None:
         LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
                     f"{device} strategy=single")
@@ -262,7 +280,8 @@ def run_training(args, plan_factory=None, *, device=None,
         remat_policy=args.remat_policy, loss_chunks=args.loss_chunks,
         attn_impl=args.attn_impl, guard_policy=args.guard_policy,
         precision=args.precision_policy, device=device, plan=plan,
-        offload_opt_state=offload_opt_state, offload_params=offload_params)
+        offload_opt_state=offload_opt_state, offload_params=offload_params,
+        lora_only=bool(lora_rank))
     guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
     data_ranks = 1 if plan is None else plan.data_parallel_size
     global_batch = args.batch_size * data_ranks * args.grad_accum
@@ -308,11 +327,16 @@ def run_training(args, plan_factory=None, *, device=None,
         state, host_state = restore_train_state(io, trainer)
     elif args.pretrained:
         from ..models.hf_convert import load_pretrained
+        from ..models.lora import load_pretrained_lora
 
         t0 = time.perf_counter()
-        state = trainer.init_state_from_params(
-            load_pretrained(bundle, plan, args.pretrained, device=device),
-            args.seed, sharded=plan is not None)
+        params = (load_pretrained_lora(bundle, plan, args.pretrained,
+                                       seed=args.seed, device=device)
+                  if lora_rank else
+                  load_pretrained(bundle, plan, args.pretrained,
+                                  device=device))
+        state = trainer.init_state_from_params(params, args.seed,
+                                               sharded=plan is not None)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         load_s = time.perf_counter() - t0

@@ -21,12 +21,14 @@ DeepSpeed's ``WarmupCosineLR`` / ``WarmupDecayLR``), ``precision`` (or
 ``optimizer.params.precision``), ``bf16.enabled`` (the compute dtype),
 ``gradient_clipping``, ``activation_checkpointing`` (a bool or ``{"enabled",
 "policy"}``), ``step_guards``, ``attn_impl``, ``loss_chunks``,
-``moe_dispatch``, ``seed``, and the offloads, ``offload_optimizer`` /
+``moe_dispatch``, ``seed``, ``lora`` (``{"rank", "alpha", "targets"}``:
+LoRA adapters on a frozen base, ``models/lora.py``), and the offloads,
+``offload_optimizer`` /
 ``offload_params`` or DeepSpeed's ``zero_optimization.offload_optimizer``
 / ``offload_param`` (a bool or ``{"device": "cpu"}``; ``"none"``
 disables). ``pipeline_parallel``, ``context_parallel``, ``expert_parallel``
-> 1, ``overlap_schedule`` and ``lora`` raise ``NotImplementedError``
-naming their ROADMAP.md items.
+> 1 and ``overlap_schedule`` raise ``NotImplementedError`` naming their
+ROADMAP.md items.
 
 The engine starts the process group it needs
 (``launch.maybe_initialize_distributed``: the torchrun env contract, or a
@@ -44,7 +46,6 @@ from typing import Any, Optional
 _STAGE_TO_STRATEGY = {0: "ddp", 1: "zero1", 2: "zero2", 3: "fsdp"}
 _CP_PP = "ROADMAP.md queue 1, 'Context parallel, pipeline parallel and overlap'"
 _EP = "ROADMAP.md queue 1, 'Expert parallelism'"
-_LORA = "ROADMAP.md queue 1, 'Other dense families' (LoRA)"
 
 
 def _ds_offload_enabled(v) -> bool:
@@ -60,7 +61,7 @@ def _refuse_unported(config: dict) -> None:
                                                     _CP_PP),
                ("context_parallel", 1, _CP_PP), ("context_impl", None, _CP_PP),
                ("cp_hop_loop", None, _CP_PP), ("expert_parallel", 1, _EP),
-               ("overlap_schedule", False, _CP_PP), ("lora", None, _LORA))
+               ("overlap_schedule", False, _CP_PP))
     for key, default, item in refused:
         if config.get(key, default) not in (default, None):
             raise NotImplementedError(
@@ -193,6 +194,16 @@ class TrainingEngine:
             raise ValueError(
                 f"moe_dispatch={config['moe_dispatch']!r} is only valid for "
                 f"MoE models; {config['model']!r} rejected it ({exc})")
+        # {"rank": 8, "alpha": 16, "targets": ["wq", "wv"]}: adapters on a
+        # frozen base, the optimizer restricted to them (lora_only)
+        lora_cfg = config.get("lora")
+        if lora_cfg:
+            from ..models.lora import DEFAULT_TARGETS, lora_bundle
+
+            bundle = lora_bundle(
+                bundle, rank=lora_cfg.get("rank", 8),
+                alpha=lora_cfg.get("alpha", 16.0),
+                targets=tuple(lora_cfg.get("targets", DEFAULT_TARGETS)))
 
         stage = config.get("zero_optimization", {}).get("stage", 0)
         tp = config.get("tensor_parallel", 1)
@@ -250,7 +261,8 @@ class TrainingEngine:
                 or _ds_offload_enabled(zero.get("offload_optimizer", False))),
             offload_params=bool(
                 config.get("offload_params", False)
-                or _ds_offload_enabled(zero.get("offload_param", False))))
+                or _ds_offload_enabled(zero.get("offload_param", False))),
+            lora_only=bool(config.get("lora")))
         self.state = self.trainer.init_state(config.get("seed", 0))
         self._step = 0       # host mirror of state.step
 

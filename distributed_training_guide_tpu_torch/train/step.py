@@ -38,7 +38,9 @@ checkpoint written before a run adopted a policy (``encode_fp32_state``).
 Gradient accumulation sums the microbatch grads into the ``.grad``
 buffers (or, where the policy's ``accum_dtype`` differs from the params',
 into buffers of that dtype) and divides by ``grad_accum``, as the JAX scan
-does. A model with ``apply_with_aux`` (MoE) trains on ``ce +
+does. ``lora_only`` (a ``models/lora.py`` bundle) trains the adapters alone:
+the optimizer holds only them, and the base leaves take no gradient. A
+model with ``apply_with_aux`` (MoE) trains on ``ce +
 router_aux_coef * aux`` and reports the router's ``moe_dropped_frac``,
 averaged over microbatches. ``DTG_FAULT_NAN_LOSS_STEP=N`` (read when the
 Trainer is built) makes the loss of the step taken at ``state.step == N``
@@ -69,16 +71,9 @@ _PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
 # Trainer fields of the JAX package that later slices port, and where
 _UNPORTED = {
     "context_impl": "'Context parallel, pipeline parallel and overlap'",
-    "lora_only": "'Other dense families' (LoRA)",
     "overlap_schedule": "'Context parallel, pipeline parallel and overlap'",
     "pp_microbatches": "'Context parallel, pipeline parallel and overlap'",
 }
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
 
 
 def _global_norm(grads: list) -> torch.Tensor:
@@ -141,6 +136,14 @@ class Trainer:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet (ROADMAP.md "
                     f"queue 1, {item})")
+        from ..models.lora import is_lora
+
+        self.lora = is_lora(self.bundle)
+        if self.lora_only and not self.lora:
+            raise ValueError(
+                "lora_only=True needs a lora_bundle-wrapped bundle "
+                "(models/lora.py): this bundle has no adapters to restrict "
+                "the optimizer to")
         if self.loss_chunks > 0 and self.loss_fn is not causal_lm_loss:
             raise NotImplementedError(
                 "loss_chunks hardwires the causal-LM loss; drop the custom "
@@ -165,9 +168,12 @@ class Trainer:
             state = self.plan_state.fresh_state(
                 params, policy, optimizer or self.optimizer, rng, sharded)
         else:
-            params = _map(params, lambda t: t.requires_grad_(True))
-            opt_state = (optimizer or self.optimizer).init(_leaves(params),
-                                                           policy)
+            leaves = []
+            for path, t in named_leaves(params):
+                t.requires_grad_(self.trains(path))
+                if self.trains(path):
+                    leaves.append(t)
+            opt_state = (optimizer or self.optimizer).init(leaves, policy)
             state = TrainState(step=0, params=params, opt_state=opt_state,
                                rng=rng)
         state.offload = make_offload(self.device,
@@ -236,6 +242,11 @@ class Trainer:
         state.rng.set_state(state32.rng.get_state())
         return state
 
+    def trains(self, path: str) -> bool:
+        """Whether the optimizer holds the leaf at ``path``: every leaf, or
+        under ``lora_only`` the adapters alone (the base takes no grad)."""
+        return not self.lora_only or path.startswith("lora/")
+
     # ---- the step ----------------------------------------------------------
     def _loss(self, params, mb: dict) -> tuple:
         """(loss, extra metrics) of one microbatch; the extras are
@@ -253,8 +264,8 @@ class Trainer:
         else:
             out = self.bundle.apply(cfg, params, mb["input_ids"], **kw)
         if self.loss_chunks > 0:
-            w_out = family_module(self.bundle.family).output_weights(cfg,
-                                                                     params)
+            w_out = family_module(self.bundle.family).output_weights(
+                cfg, params["base"] if self.lora else params)
             loss = chunked_causal_lm_loss(out, w_out, mb["labels"],
                                           num_chunks=self.loss_chunks)
         else:
@@ -283,7 +294,8 @@ class Trainer:
     def _step(self, state: TrainState, batch: dict) -> tuple:
         if self.plan_state is not None:
             return self.plan_state.step(state, batch)
-        leaves = _leaves(state.params)
+        leaves = [t for path, t in named_leaves(state.params)
+                  if self.trains(path)]
         state.opt_state.optimizer.zero_grad(set_to_none=True)
         buffers = None      # the accumulation buffers, where not .grad
         if self.grad_accum > 1:
@@ -434,10 +446,24 @@ class PlanState:
         self.trainer = trainer
         self.plan = trainer.plan
         self.specs, self.opt_specs, self.shapes = specs, opt_specs, shapes
-        self.layout = LocalLayout(self.plan, specs, trainer.bundle.config)
+        # a LoRA bundle's model is its "base" subtree; its adapters sum
+        # over tp the grads a rank holds partially (parallel/plans.py)
+        partners = None
+        if trainer.lora:
+            from ..models.lora import lora_partners
+
+            partners = lora_partners(trainer.bundle)
+        self.layout = LocalLayout(self.plan, specs, trainer.bundle.config,
+                                  family_module(
+                                      trainer.bundle.family).LAYOUT_PATHS,
+                                  model="base" if trainer.lora else "",
+                                  partners=partners)
+        self.model_layout = (self.layout.scoped("base") if trainer.lora
+                             else self.layout)
         self.leaf_layouts = {p: LeafLayout(self.plan, opt_specs[p], shapes[p])
                              for p in specs}
-        self.zero_paths = [p for p in specs if opt_specs[p] != specs[p]]
+        self.zero_paths = [p for p in specs if opt_specs[p] != specs[p]
+                           and trainer.trains(p)]
         for p in self.zero_paths:
             if any(specs[p]):
                 raise NotImplementedError(
@@ -463,9 +489,7 @@ class PlanState:
         if mesh_type != trainer.device.type and trainer.device.type != "meta":
             raise ValueError(f"the plan's mesh is on {mesh_type}, the "
                              f"trainer on {trainer.device}")
-        mod = family_module(bundle.family)
-        cfg = bundle.config
-        axes, shapes = mod.param_logical_axes(cfg), mod.param_shapes(cfg)
+        axes, shapes = bundle.logical_axes(), bundle.shapes()
         flat = lambda tree: dict(named_leaves(tree))   # noqa: E731
         return cls(trainer, flat(plan.param_specs(axes, shapes)),
                    flat(plan.optimizer_state_specs(axes, shapes)),
@@ -479,6 +503,7 @@ class PlanState:
         storage; ``sharded``: already this rank's shards) and a fresh
         optimizer state around them."""
         plan = self.plan
+        trains = self.trainer.trains
         local = {}
         for path, full in named_leaves(params):
             if sharded:
@@ -486,19 +511,19 @@ class PlanState:
                 if tuple(full.shape) != want:
                     raise ValueError(f"{path}: shard {tuple(full.shape)}, "
                                      f"the plan's {want}")
-                local[path] = full.detach().requires_grad_(True)
+                local[path] = full.detach().requires_grad_(trains(path))
                 continue
             t = plan.shard(self.specs[path], full.detach()).contiguous()
             if t.numel() != full.numel():
                 t = t.clone()
             else:   # the whole leaf, not a view of it: a view's base
                 t = full.detach()   # would keep the storage an offload moves
-            local[path] = t.requires_grad_(True)
+            local[path] = t.requires_grad_(trains(path))
         update = {p: plan.shard(self.opt_specs[p], local[p].detach()).clone()
                   for p in self.zero_paths}
-        leaves = [update.get(p, t) for p, t in local.items()]
+        leaves = [update.get(p, t) for p, t in local.items() if trains(p)]
         layouts = {update.get(p, t): self.leaf_layouts[p]
-                   for p, t in local.items()}
+                   for p, t in local.items() if trains(p)}
         opt_state = optimizer.init(leaves, policy, layouts)
         return TrainState(step=0, params=_unflatten(local),
                           opt_state=opt_state, rng=rng,
@@ -518,7 +543,8 @@ class PlanState:
                                 attn_impl=t.attn_impl,
                                 activation_sharding=self.layout,
                                 return_hidden=True)
-        return self.layout.loss(cfg, params, hidden, mb["labels"])
+        return self.model_layout.loss(
+            cfg, params["base"] if t.lora else params, hidden, mb["labels"])
 
     @torch.no_grad()
     def _scatter(self, path: str, g: torch.Tensor) -> torch.Tensor:
@@ -545,7 +571,8 @@ class PlanState:
 
         t = self.trainer
         sh = state.sharding
-        leaves = dict(named_leaves(state.params))
+        leaves = {path: p for path, p in named_leaves(state.params)
+                  if t.trains(path)}
         for p in list(leaves.values()) + list(sh.update.values()):
             p.grad = None
         accum, n_acc = t.precision.accum_dtype, t.grad_accum

@@ -10,9 +10,13 @@ run on the same weights (carried across by ``models/from_jax.py``) and
 batch, at JAX's own tolerances: losses rtol 1e-4, params rtol 1e-2 / atol
 1e-4. The gang also checks what each rank holds, the global mean loss
 under uneven ``-100`` labels, and a restore across plans (fsdp 4 into
-tp_fsdp 2 x 2), and that the ``single`` plan is refused on 4 ranks. Two
-more gangs: chapter 02 through ``launch.local``, and a
-rank that dies taking the gang down."""
+tp_fsdp 2 x 2), and that the ``single`` plan is refused on 4 ranks. The
+same gang runs gpt2-debug under tp 4 (the fused QKV sharded on its heads),
+neox-debug under tp 2 x fsdp 2 and LoRA-only llama-debug under tp 4
+without sequence parallelism, each held to its JAX single-device run at
+the same tolerances. Two more gangs:
+chapter 02 through ``launch.local``, and a rank that dies taking the gang
+down."""
 import json
 import os
 import subprocess
@@ -112,6 +116,21 @@ def gang(tmp_path_factory):
     _, m = t.step_fn(t.init_state(0), {"input_ids": put(t, ids[1]),
                                        "labels": put(t, uneven)})
     refs["uneven"] = float(m["loss"])
+    for name, fam_bundle, lora_only in _family_bundles():
+        t = Trainer(bundle=fam_bundle, optimizer=adamw_cosine(1e-3),
+                    plan=make_plan("single", make_mesh(
+                        devices=jax.devices()[:1])), donate=False,
+                    lora_only=lora_only)
+        state = t.init_state(0)
+        np.savez(tmp / f"{name}_init.npz",
+                 **_flatten(jax.tree.map(np.asarray, state.params)))
+        batch = {"input_ids": put(t, ids[1]), "labels": put(t, ids[1])}
+        losses = []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        refs[name] = (losses, _flatten(jax.tree.map(np.asarray,
+                                                    state.params)))
 
     np.savez(tmp / "init.npz", **init)
     np.savez(tmp / "batches.npz", accum1=ids[1], accum2=ids[2],
@@ -126,15 +145,36 @@ def gang(tmp_path_factory):
     return tmp, refs
 
 
-@pytest.mark.parametrize("strategy,accum", STRATEGIES,
-                         ids=[s for s, _ in STRATEGIES])
+def _family_bundles():
+    """(name, JAX bundle, lora_only) of the gang's family runs."""
+    import jax.numpy as jnp
+
+    from distributed_training_guide_tpu.models import get_model
+    from distributed_training_guide_tpu.models.lora import lora_bundle
+
+    return [("gpt2_tp", get_model("gpt2-debug", dtype=jnp.float32), False),
+            ("neox_tp_fsdp", get_model("neox-debug", dtype=jnp.float32),
+             False),
+            ("lora_tp", lora_bundle(get_model("llama-debug",
+                                              dtype=jnp.float32), rank=4,
+                                    targets=("wq", "wv", "wo", "down")),
+             True)]
+
+
+FAMILY_RUNS = ["gpt2_tp", "neox_tp_fsdp", "lora_tp"]
+
+
+@pytest.mark.parametrize("strategy,accum",
+                         STRATEGIES + [(n, None) for n in FAMILY_RUNS],
+                         ids=[s for s, _ in STRATEGIES] + FAMILY_RUNS)
 def test_strategy_holds_the_jax_single_device_trajectory(gang, strategy,
                                                         accum):
     tmp, refs = gang
     got = np.load(tmp / f"traj_{strategy}.npz")
-    jlosses, jparams = refs[accum]
+    jlosses, jparams = refs[strategy if accum is None else accum]
     np.testing.assert_allclose(got["losses"], jlosses, rtol=LOSS_RTOL)
-    assert np.all(np.isfinite(got["norms"]))
+    if accum is not None:
+        assert np.all(np.isfinite(got["norms"]))
     assert set(jparams) == {k[2:] for k in got.files if k.startswith("p/")}
     for path, want in jparams.items():
         np.testing.assert_allclose(got[f"p/{path}"], want, rtol=PARAM_RTOL,

@@ -88,8 +88,7 @@ def test_stage_zero_losses_equal_the_jax_engine():
     ("pipeline_parallel", 2, "Context parallel, pipeline parallel"),
     ("context_parallel", 2, "Context parallel, pipeline parallel"),
     ("expert_parallel", 2, "Expert parallelism"),
-    ("overlap_schedule", True, "Context parallel, pipeline parallel"),
-    ("lora", {"rank": 4}, "Other dense families")])
+    ("overlap_schedule", True, "Context parallel, pipeline parallel")])
 def test_refused_keys_name_their_items(key, value, item):
     import torch.distributed as dist
 

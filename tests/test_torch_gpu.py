@@ -1500,3 +1500,127 @@ def test_offload_on_the_card_is_bitwise_and_frees_the_card(cuda):
         assert abs((walloc - alloc) - host) <= 512 * 4 * len(wparams), off
         # no device copy outlives its state
         assert torch.cuda.memory_allocated() == base, off
+
+
+@pytest.mark.parametrize("d,heads", [(64, 12), (128, 16)],
+                         ids=["gpt2-d64", "pythia-d128"])
+def test_flash_kernels_read_fused_qkv_slices_in_place(cuda, d, heads):
+    """The gpt2 / neox forwards hand K1-K3 q, k and v sliced from one fused
+    [B, S, 3, H, D] bf16 projection (a sequence stride of 3HD): every
+    output bitwise the same launch's on contiguous copies, and no operand
+    copied for the Hopper bodies' tensor maps."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, s = 2, 384
+    qkv = torch.randn(b, s, 3, heads * d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(b, s, heads, d) for i in range(3))
+    assert not q.is_contiguous()
+    do = torch.randn(b, s, heads, d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    copies = fa.ALIGN_COPIES
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    grads = fa.flash_bwd_with_stats(q, k, v, do, lse, delta)
+    assert fa.ALIGN_COPIES == copies
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    want = (*fa.flash_fwd(qc, kc, vc),
+            *fa.flash_bwd_with_stats(qc, kc, vc, do, lse, delta))
+    for key, got, w in zip(("o", "lse", "dq", "dk", "dv"),
+                           (o, lse, *grads), want):
+        assert torch.equal(got, w), key
+
+
+def test_paged_attend_at_group_one_through_the_pool_commit(cuda):
+    """gpt2's decode: Hq = Hkv = 12 (one live row of the split body's 4),
+    D 64, q / k / v sliced from one fused [S, 1, 3, 12 * 64] projection
+    and committed into the pages by ``kv_pages.paged_attend``: the same
+    output and pages as contiguous copies (bitwise), and the output within
+    ``TOL["bf16"]`` of the plain path on the committed pages."""
+    from distributed_training_guide_tpu_torch.serve import kv_pages as kvp
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    s, h, d, page, m = 4, 12, 64, 16, 64
+    lengths = torch.tensor([0, 17, 500, 1000], dtype=torch.int32,
+                           device=cuda)
+    tables = (torch.randperm(s * m, generator=gen, device=cuda).int()
+              .reshape(s, m) + 1)
+    qkv = torch.randn(s, 1, 3, h * d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(s, 1, h, d) for i in range(3))
+    pools = torch.randn(2, s * m + 1, page, h, d, generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    outs = []
+    for args in ((q, k, v), tuple(x.contiguous() for x in (q, k, v))):
+        kp, vp = pools[0].clone(), pools[1].clone()
+        before = pd.LAUNCHES
+        attn, _ = kvp.paged_attend(*args, kp, vp, tables, lengths)
+        assert pd.LAUNCHES == before + 1
+        outs.append((attn, kp, vp))
+    (a1, k1, v1), (a2, k2, v2) = outs
+    assert torch.equal(a1, a2) and torch.equal(k1, k2) and torch.equal(v1, v2)
+    want = pd.paged_attend_reference(q.contiguous(), k1, v1, tables, lengths)
+    assert (a1.float() - want.float()).abs().max().item() <= TOL["bf16"]
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+# q scaled by this in the softcap checks: the scores' std goes from 1 to 12
+# and their largest reach ~45, where 50 * tanh(s / 50) takes ~10 off them
+# (scores of std 1 never come near the cap)
+CAP_Q_SCALE = 12.0
+
+
+def test_gemma2_shape_kernels_match_plain_versions(cuda):
+    """gemma2-2b's attention (Hq 8, Hkv 4, D 256, softcap 50, the scale
+    256**-0.5, a 4096 window) at S 4608 so that the window binds: K1-K3
+    (the WMMA bodies) within ``FLASH_BF16_REL_L2`` of their plain versions
+    (lse within the fp32 bound, scaled with q), and K4 at decode over 8
+    slots of 6000 tokens within ``FLASH_BF16_REL_L2`` (and, on q as drawn,
+    ``TOL["bf16"]``): on q as drawn and on q scaled by ``CAP_Q_SCALE``,
+    where the plain output without the cap lies far outside the bound."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    kw = dict(window=4096, softcap=50.0, scale=256.0 ** -0.5)
+    no_cap = dict(kw, softcap=None)
+    q0, k, v, do = _flash_inputs(cuda, gen, "bf16", 8, 4, 256, b=1, sq=4608,
+                                 sk=4608)
+    for c in (1.0, CAP_Q_SCALE):
+        q = (q0.float() * c).to(q0.dtype)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             ro.float()).contiguous()
+        got = fa.flash_bwd_with_stats(q, k, v, do, rlse, delta, **kw)
+        want = fa.flash_bwd_reference(q, k, v, do, rlse, delta, **kw)
+        assert (lse - rlse).abs().max().item() <= FLASH_FP32["lse"] * c
+        for key, g, w in zip(("o", "dq", "dk", "dv"), (o, *got),
+                             (ro, *want)):
+            err = _rel_l2(g, w)
+            assert err <= FLASH_BF16_REL_L2, (c, key, err)
+        if c > 1:
+            moved = _rel_l2(fa.flash_attention_reference(q, k, v, **no_cap)[0],
+                            ro)
+            assert moved > 10 * FLASH_BF16_REL_L2, moved
+    s, ctx, page = 8, 6000, 16
+    m = -(-ctx // page)
+    tables = (torch.randperm(s * m, generator=gen, device=cuda).int()
+              .reshape(s, m) + 1)
+    lengths = torch.full((s,), ctx - 1, dtype=torch.int32, device=cuda)
+    kp = torch.randn(s * m + 1, page, 4, 256, generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    qd0 = torch.randn(s, 1, 8, 256, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    for c in (1.0, CAP_Q_SCALE):
+        qd = (qd0.float() * c).to(qd0.dtype)
+        out = pd.paged_flash_attend(qd, kp, vp, tables, lengths, **kw)
+        ref = pd.paged_attend_reference(qd, kp, vp, tables, lengths, **kw)
+        assert _rel_l2(out, ref) <= FLASH_BF16_REL_L2, (c, _rel_l2(out, ref))
+        if c == 1.0:
+            assert (out.float() - ref.float()).abs().max().item() <= TOL[
+                "bf16"]
+        else:
+            moved = _rel_l2(pd.paged_attend_reference(
+                qd, kp, vp, tables, lengths, **no_cap), ref)
+            assert moved > 10 * FLASH_BF16_REL_L2, moved

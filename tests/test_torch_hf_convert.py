@@ -1,15 +1,17 @@
 """HF checkpoints into the port: ``models/auto.py`` (``hf:<dir>``) and
 ``models/hf_convert.py`` (stream-convert, sharded load), on the CPU.
 
-For each llama- and moe-family architecture: a ``transformers`` model built
+For each llama-, moe-, gpt2- and neox-family architecture: a
+``transformers`` model built
 from an in-code config with a few layers and narrow widths (nothing
 downloaded), random weights from a seed, ``save_pretrained``, the port's
 convert and load, and the port's fp32 logits against ``transformers``'
 within 1e-4 of the largest logit (as ``test_torch_hf_parity.py``: the same
 fp32 math summed in another order). Also: a checkpoint in many safetensors
 shards, the converted directory byte-equal to the JAX converter's, the
-``hf:`` config equal field by field to the JAX ``config_from_hf``, gpt2 and
-neox refused naming their item, the converter's streaming memory bound,
+``hf:`` config equal field by field to the JAX ``config_from_hf``, the
+classification heads of gpt2 and neox refused with the supported list,
+the converter's streaming memory bound,
 and the sharded load on 4 gloo ranks (``tests/torch_dist_worker.py``)."""
 import dataclasses
 import json
@@ -147,13 +149,33 @@ def _qwen3_moe():
     return m, 24
 
 
+def _gpt2():
+    m = transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=128, n_embd=64, n_layer=2, n_head=4, n_positions=256,
+        attn_implementation="eager"))
+    _randomize(m, ("ln_", "c_attn.bias", "c_proj.bias", "c_fc.bias"))
+    return m, 24
+
+
+def _gpt_neox():
+    m = transformers.GPTNeoXForCausalLM(transformers.GPTNeoXConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4,
+        max_position_embeddings=256, attn_implementation="eager",
+        tie_word_embeddings=False))
+    _randomize(m, ("layernorm", "query_key_value.bias", "dense.bias",
+                   "dense_h_to_4h.bias", "dense_4h_to_h.bias"))
+    return m, 24
+
+
 # architecture -> (HF model maker, family)
 ARCHS = {"llama": (_llama, "llama"), "llama3-tied": (_llama3_tied, "llama"),
          "mistral": (_mistral, "llama"), "qwen2": (_qwen2, "llama"),
          "qwen3": (_qwen3, "llama"), "gemma": (_gemma, "llama"),
          "gemma2": (_gemma2, "llama"), "phi3": (_phi3, "llama"),
          "olmo2": (_olmo2, "llama"), "mixtral": (_mixtral, "moe"),
-         "qwen2_moe": (_qwen2_moe, "moe"), "qwen3_moe": (_qwen3_moe, "moe")}
+         "qwen2_moe": (_qwen2_moe, "moe"), "qwen3_moe": (_qwen3_moe, "moe"),
+         "gpt2": (_gpt2, "gpt2"), "gpt_neox": (_gpt_neox, "neox")}
 
 
 def _saved(tmp_path, arch: str, **save_kw):
@@ -214,7 +236,8 @@ def test_multi_shard_checkpoint(tmp_path):
                 == (tmp_path / "conv1" / f"{leaf}.npy").read_bytes()), leaf
 
 
-@pytest.mark.parametrize("arch", ["llama3-tied", "mixtral"])
+@pytest.mark.parametrize("arch", ["llama3-tied", "mixtral", "gpt2",
+                                  "gpt_neox"])
 def test_converted_dir_is_byte_equal_to_jax(tmp_path, arch):
     """One conversion serves both packages: every file the port writes is
     byte for byte the JAX converter's, manifest included."""
@@ -255,15 +278,18 @@ def test_hf_config_equals_jax_config_from_hf(tmp_path, arch):
 
 @pytest.mark.parametrize("cfg,item", [
     (transformers.GPT2Config(vocab_size=64, n_embd=32, n_layer=2,
-                             n_head=2), "gpt2"),
+                             n_head=2), "GPT2ForSequenceClassification"),
     (transformers.GPTNeoXConfig(vocab_size=64, hidden_size=32,
                                 intermediate_size=64, num_hidden_layers=2,
-                                num_attention_heads=2), "neox")],
+                                num_attention_heads=2),
+     "GPTNeoXForSequenceClassification")],
     ids=["gpt2", "neox"])
 def test_unported_families_name_their_item(tmp_path, cfg, item):
+    """Both families are ported; a head of theirs that is not a causal LM
+    is refused naming the architecture and the supported list."""
+    cfg.architectures = [item]
     cfg.save_pretrained(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=f"{item}.*'Other dense families'"):
+    with pytest.raises(ValueError, match=f"{item}.*GPT2LMHeadModel"):
         get_model(f"hf:{tmp_path}")
 
 

@@ -35,7 +35,8 @@ from test_torch_hf_convert import _bundle, _saved  # noqa: E402
 ROUNDTRIP_TOL = 1e-5
 LOGIT_TOL = 1e-4
 ROUNDTRIP = ["llama", "llama3-tied", "mistral", "qwen2", "qwen3", "gemma",
-             "gemma2", "olmo2", "mixtral", "qwen2_moe", "qwen3_moe"]
+             "gemma2", "olmo2", "mixtral", "qwen2_moe", "qwen3_moe", "gpt2",
+             "gpt_neox"]
 
 
 def _loaded(tmp_path, arch):
@@ -64,7 +65,8 @@ def test_hf_port_hf_round_trip(tmp_path, arch):
 
 
 @pytest.mark.parametrize("arch", ["llama", "llama3-tied", "gemma2",
-                                  "mixtral", "qwen2_moe", "qwen3_moe"])
+                                  "mixtral", "qwen2_moe", "qwen3_moe", "gpt2",
+                                  "gpt_neox"])
 def test_export_equals_the_jax_exporter(tmp_path, arch):
     """Same params in both packages (carried across as numpy): the same
     tensor names, bytes and config."""
@@ -116,9 +118,11 @@ def test_export_cli_from_a_checkpoint_of_a_cpu_run(tmp_path):
 
 
 def test_unported_family_export_names_its_item():
+    """Every family exports; a bundle of no family is refused naming the
+    families there are."""
     bundle = get_model("llama-debug")
     fake = type(bundle)(bundle.name, bundle.config, bundle.init,
-                        bundle.apply, family="gpt2")
-    with pytest.raises(NotImplementedError, match="'Other dense families'"):
+                        bundle.apply, family="bert")
+    with pytest.raises(KeyError, match="'bert'.*gpt2"):
         hf_export.export_hf_checkpoint(fake, {}, "/nonexistent")
 

@@ -289,8 +289,6 @@ def test_unported_moe_paths_raise():
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmoe.make_ragged_ep_dispatch(None, tb.config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.decode_step(tb.config, tparams, ids, 0, {})
     for kw in (dict(layer_schedule=object()), dict(moe_ep=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmoe.apply_with_aux(tb.config, tparams, ids, **kw)

@@ -202,7 +202,7 @@ def test_unported_features_and_bad_input_refused(models):
     eng = ServeEngine(tb, tparams, device="cpu", max_len=16, n_slots=1)
     with pytest.raises(tsched.RefusalError, match="out of range"):
         eng.submit(Request(prompt_ids=[3, 512]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("gpt2-debug")
+    with pytest.raises(ValueError, match="Unknown model"):
+        get_model("no-such-model")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(tb, tparams, max_len=16)        # default device: cuda

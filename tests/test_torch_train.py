@@ -304,7 +304,7 @@ def test_cli_runs_on_cpu_with_finite_losses():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lora-rank", "4"], ["--native-loader"], ["--overlap-schedule"]],
+    ["--native-loader"], ["--overlap-schedule"]],
     ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

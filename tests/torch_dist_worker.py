@@ -16,7 +16,17 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
 - ``restore``: save under fsdp 4 after one step, restore under tp_fsdp
   2 x 2, take the next step; beside it the next step of the fsdp run;
 - ``refusal``: a ``Trainer`` under the ``single`` plan on the 4-rank
-  mesh, which must raise rather than train each rank alone.
+  mesh, which must raise rather than train each rank alone;
+- ``traj_gpt2_tp``: two steps of gpt2-debug under tp 4 (one head a rank,
+  the fused QKV sharded on its trailing heads axis, the vocab-parallel
+  tied head) from its own weights;
+- ``traj_neox_tp_fsdp``: two steps of neox-debug under tp 2 x fsdp 2 (the
+  parallel residual's two partial sums reduced once, the fused QKV
+  gathered on fsdp and sharded on tp);
+- ``traj_lora_tp``: two LoRA-only steps of llama-debug under tp 4 without
+  sequence parallelism (the adapters of wq / wv / wo / down, whole on
+  every rank where their base leaf is tp-sharded: their grads summed over
+  tp).
 
 ``--scenario`` runs one other scenario alone instead, for its own test file:
 - ``sharded_load`` (4 ranks, ``tests/test_torch_hf_convert.py``): a
@@ -80,12 +90,22 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def _trainer(strategy, mesh_kw, accum=1, remat=None):
-    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
-    return Trainer(bundle=get_model("llama-debug", dtype=torch.float32),
-                   optimizer=topt.adamw_cosine(1e-3), plan=plan,
-                   grad_accum=accum, device="cpu", remat=remat is not None,
-                   remat_policy=remat or "all")
+LORA_TARGETS = ("wq", "wv", "wo", "down")
+
+
+def _trainer(strategy, mesh_kw, accum=1, remat=None, model="llama-debug",
+             lora=False, sp=None):
+    from distributed_training_guide_tpu_torch.models.lora import lora_bundle
+
+    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw),
+                     sequence_sharded=sp)
+    bundle = get_model(model, dtype=torch.float32)
+    if lora:
+        bundle = lora_bundle(bundle, rank=4, targets=LORA_TARGETS)
+    return Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
+                   plan=plan, grad_accum=accum, device="cpu",
+                   remat=remat is not None, remat_policy=remat or "all",
+                   lora_only=lora)
 
 
 def _rows(trainer, ids: np.ndarray) -> dict:
@@ -135,6 +155,35 @@ def _held(trainer, state, grad_shapes) -> dict:
                            placements(trainer.plan_state.specs[path])],
         }
     return out
+
+
+def _two_steps(t, params, ids, out_dir, name, rank):
+    state = t.init_state_from_params(params)
+    batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+    losses = []
+    for _ in range(2):
+        state, m = t.step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    full = _full_params(t, state)
+    if rank == 0:
+        np.savez(out_dir / f"traj_{name}.npz", losses=losses,
+                 **{f"p/{k}": v for k, v in full.items()})
+
+
+def families(batches, out_dir, rank):
+    """gpt2-debug under tp 4, neox-debug under tp 2 x fsdp 2, and LoRA on
+    llama-debug under tp 4 without sequence parallelism, each from its
+    own JAX init."""
+    ids = batches["accum1"]
+    for name, strategy, mesh_kw, kw in (
+            ("gpt2_tp", "tp", {"tp": 4}, dict(model="gpt2-debug")),
+            ("neox_tp_fsdp", "tp_fsdp", {"fsdp": 2, "tp": 2},
+             dict(model="neox-debug")),
+            ("lora_tp", "tp", {"tp": 4}, dict(lora=True, sp=False))):
+        init = dict(np.load(out_dir / f"{name}_init.npz"))
+        params = from_jax.params_from_numpy(_unflatten(init), device="cpu")
+        _two_steps(_trainer(strategy, mesh_kw, **kw), params, ids, out_dir,
+                   name, rank)
 
 
 def trajectories(params, batches, out_dir, rank):
@@ -397,6 +446,7 @@ def main():
     uneven(params, batches, out_dir, rank)
     restore(params, batches, out_dir, rank)
     refusal(out_dir, rank)
+    families(batches, out_dir, rank)
     torch.distributed.destroy_process_group()
     if rank == 0:
         (out_dir / "done").write_text("ok")
