@@ -189,7 +189,30 @@ phases, each of which raises on failure:
    window); (h) K1-K3 timed at the gpt2 and pythia-1.4b training shapes,
    and at gemma2-2b's against their plain versions, and K4 at gpt2's
    decode (one live row of four) and gemma2-2b's, each beside its plain
-   version, its bound and SDPA.
+   version, its bound and SDPA;
+20. context and pipeline (chapters 08, 09) — phase 5's cases also hold
+   K1-K3's bf16 bodies at the ring's calls (``causal=False`` at S 512 and
+   2048; an 8B chunk pair and gemma2-2b's cp-4 chunk pair whose keys lie
+   partly below the 4096 band, global offsets on the band, q as drawn and
+   x 12); (b) the zigzag ring over 4 virtual members on one card
+   (``LocalExchange``) on llama-3.2-1b's attention, forward and backward
+   through its autograd op: at S 4096 against the plain version, at S
+   32768 against whole-sequence K1-K3, exactly cp (2 cp + 1) = 36
+   launches of each kernel; gemma2-2b's banded ring at S 16384 (softcap,
+   scale, q as drawn and x 12) against whole-sequence K1-K3, its launches
+   the ``_pair_live`` count; (c) Ulysses over 4 virtual members at S
+   32768, one K1 launch a member, against whole-sequence K1 (bitwise or
+   not, logged), and where cp does not divide the kv heads (llama-3.1-8b
+   on a tp-4 rank: q, k, v gathered, K1-K3 once a member on the whole
+   sequence) forward and backward against whole-sequence K1-K3; (d) the 1F1B pipeline over 2 and 4 virtual stages on
+   llama-3.2-1b at full width and depth (B 8, S 2048, M = 2 pp) against
+   the single device's forward and backward of each microbatch: the loss,
+   every grad, K1 2 L M and K2 / K3 L M launches, the step time and the
+   memory each held beyond the params beside the single device's; (e)
+   chapters 08 and 09 through their
+   ``main`` at world 1 against phase 17's single plan; (f) K1-K3 timed at
+   the ring's chunk-pair shapes (past, diagonal, banded) and the
+   pipeline's microbatch beside their plain versions, bounds and SDPA.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -987,7 +1010,24 @@ FLASH_CASES = [
      None),
     ("ragged-off16", 2, 1000, 1000, 32, 4, 128, "bf16", True, None, None,
      None, None),
+    # the bf16 bodies at the calls the ring makes (phase 20): llama-3.2-1b's
+    # past chunk pairs (non-causal), llama-3.1-8b's chunk pair whose keys
+    # lie partly below the 4096 band (global offsets on the band), and
+    # gemma2-2b's cp-4 chunk pair at S 16384 (chunks 5 and 3: WMMA, scale
+    # 1/16, softcap 50), on q as drawn and on q x GEMMA2_Q_CAP_SCALE
+    ("ring-past-512", 1, 512, 512, 32, 8, 64, "bf16", False, None, None,
+     None, None),
+    ("ring-past-2048", 1, 2048, 2048, 32, 8, 64, "bf16", False, None, None,
+     None, None),
+    ("ring-8b-band", 1, 2048, 2048, 32, 8, 128, "bf16", True, 4096, None,
+     None, (6144, 2048)),
+    ("ring-gemma2-band", 1, 2048, 2048, 8, 4, 256, "bf16", True, 4096, 50.0,
+     1 / 16, (10240, 6144)),
+    ("ring-gemma2-band-x12", 1, 2048, 2048, 8, 4, 256, "bf16", True, 4096,
+     50.0, 1 / 16, (10240, 6144)),
 ]
+# cases whose q is scaled by GEMMA2_Q_CAP_SCALE (the softcap then bites)
+FLASH_Q_CAP_SCALED = ("ring-gemma2-band-x12",)
 # the case whose q lies 8 bytes off 16: the Hopper bodies' wrappers copy it
 # for their tensor maps (counted in ALIGN_COPIES)
 FLASH_OFF16 = "ragged-off16"
@@ -1066,6 +1106,9 @@ def phase_flash(torch) -> dict:
         q, k, v, do = flash_case(torch, gen, b, sq, sk, hq, hkv, d, dtype)
         if name == FLASH_OFF16:
             q = off16(torch, q)
+        q_scale = GEMMA2_Q_CAP_SCALE if name in FLASH_Q_CAP_SCALED else 1.0
+        if q_scale != 1.0:
+            q = (q.float() * q_scale).to(q.dtype)
         kw = dict(causal=causal, softcap=softcap, scale=scale)
         if offs is None:
             kw["window"] = window
@@ -1113,7 +1156,10 @@ def phase_flash(torch) -> dict:
                   f"{name} {key}: non-finite kernel output")
             diff = got.float() - want.float()
             if dtype == "fp32" or key == "lse":
-                err, bound = diff.abs().max().item(), FLASH_TOL_FP32[key]
+                # lse grows with the scores: q scaled by c scales its bound
+                err = diff.abs().max().item()
+                bound = FLASH_TOL_FP32[key] * (q_scale if key == "lse"
+                                               else 1.0)
             else:
                 err = (diff.norm() / want.float().norm()).item()
                 bound = FLASH_TOL_BF16_REL_L2
@@ -1121,7 +1167,7 @@ def phase_flash(torch) -> dict:
             check(err <= bound, f"flash {name} {key}: error {err} > {bound}")
         log(phase="flash", case=name, B=b, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv,
             D=d, dtype=dtype, causal=causal, window=window, softcap=softcap,
-            band_offsets=offs, fwd_body=fwd_plan,
+            band_offsets=offs, q_scale=q_scale, fwd_body=fwd_plan,
             body=fa._bwd_plan(d, q.dtype), q_base_off16=name == FLASH_OFF16,
             metric="max_abs" if dtype == "fp32" else "rel_l2 (lse max_abs)",
             **errs, **({"kernel_arith_rel_l2": {"o": fwd_arith, **tight},
@@ -1147,14 +1193,20 @@ def phase_flash(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def flash_bounds(b, s, hq, hkv, d, itemsize) -> dict:
-    """(bound_ms, bound_by) per kernel from this shape: 2 * D operations
-    per product per live (query, key) pair of the causal band (K1 two
-    products, K2 three, K3 four); each input read and output written once
-    (lse / delta fp32)."""
-    pairs = b * hq * s * (s + 1) // 2
-    q_bytes = b * s * hq * d * itemsize
-    kv_bytes = b * s * hkv * d * itemsize
-    stat = b * hq * s * 4
+    """(bound_ms, bound_by) per kernel from this shape, causal: the live
+    (query, key) pairs of the causal band (``pair_bounds``)."""
+    return pair_bounds(b, s, s, hq, hkv, d, itemsize,
+                       b * hq * s * (s + 1) // 2)
+
+
+def pair_bounds(b, sq, sk, hq, hkv, d, itemsize, pairs: int) -> dict:
+    """(bound_ms, bound_by) per kernel for ``pairs`` live (query, key)
+    pairs: 2 * D operations per product per live pair (K1 two products,
+    K2 three, K3 four); each input read and output written once (lse /
+    delta fp32)."""
+    q_bytes = b * sq * hq * d * itemsize
+    kv_bytes = b * sk * hkv * d * itemsize
+    stat = b * hq * sq * 4
     work = {"flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat),
             "flash_dq": (6 * d * pairs,
                          3 * q_bytes + 2 * kv_bytes + 2 * stat),
@@ -4708,6 +4760,581 @@ def phase_dense(torch, card: str, ch01: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: context and pipeline parallelism (chapters 08 and 09)
+# ---------------------------------------------------------------------------
+
+CP = 4                               # virtual ring / Ulysses members
+NEG_INF_KERNELS = -1e30              # K1's lse of a row with no live key
+RING_HEADS = (32, 8, 64)             # llama-3.2-1b's attention: Hq, Hkv, D
+RING_CHECK_SEQ = 4096                # held against the plain version
+RING_LONG_SEQ = 32768                # chapter 08's long context
+RING_BAND_SEQ = 16384                # gemma2-2b's banded ring
+# llama-3.1-8b's attention on a rank of tp 4: cp 4 does not divide its kv
+# heads, so Ulysses gathers q, k and v and runs the whole sequence
+ULYSSES_GATHERED_HEADS = (8, 2, 128)
+# the ring's merged lse against the plain version's fp32 lse at S 4096 (the
+# bf16 rows' bound), and against whole-sequence K1's at S 32768, where lse
+# reaches ~11 and both sides carry a bf16 kernel's rounding (~40 ulps)
+RING_LSE_ABS = {RING_CHECK_SEQ: FLASH_TOL_FP32["lse"], RING_LONG_SEQ: 5e-5,
+                RING_BAND_SEQ: 5e-5}
+PP_MODEL = "llama-3.2-1b"
+PP_STAGES = (2, 4)
+PP_BATCH = 8
+PP_SEQ = 2048
+# the pipeline's loss and grads against the single-device forward and
+# backward on each microbatch, averaged: the same kernels on the same
+# microbatches, the forward recomputed bitwise, the head's 1/M a power of
+# two; only the fp32 order of the grad sums over ticks differs (the tied
+# embedding's head and embed parts). Read on an H100: the loss bitwise,
+# the grads within 5.6e-9; a bf16 accumulation over microbatches would
+# miss these by orders of magnitude
+PP_LOSS_REL = 1e-6
+PP_GRAD_REL_L2 = 1e-6
+# the timed K1-K3 calls of this phase's paths: (B, Sq, Sk, Hq, Hkv, D,
+# causal, band (window, q_off, k_off) or None, scale, softcap)
+CP_PP_TIMING_SHAPES = {
+    # chunks of S 32768 at cp 4: 4096 rows each
+    "ring-past": (1, 4096, 4096, 32, 8, 64, False, None, None, None),
+    "ring-diagonal": (1, 4096, 4096, 32, 8, 64, True, None, None, None),
+    "ring-band": (1, 2048, 2048, 8, 4, 256, True, (4096, 10240, 6144),
+                  1 / 16, 50.0),
+    "pp-microbatch": (2, PP_SEQ, PP_SEQ, 32, 8, 64, True, None, None, None),
+}
+
+
+def ring_members(torch, fn, *xs) -> list:
+    """Each whole-sequence tensor [B, S, ...] as CP sequence shards, and a
+    ``LocalExchange`` of CP members: ``fn(ex, *shards)``."""
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    return fn(LocalExchange(CP), *(list(torch.chunk(x, CP, dim=1))
+                                  for x in xs))
+
+
+def ring_run(torch, q, k, v, do, **kw) -> dict:
+    """The ring over CP virtual members, forward and backward through the
+    autograd op (the training path), with the K1-K3 launches of the run;
+    then its sequence-layout lse (a second forward, not counted)."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import ring_attention as ra
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    copies = fa.ALIGN_COPIES
+    reset_flash_counts()                      # the ring's path starts here
+    outs = ring_members(torch, lambda ex, *sh: ra.ring_attention(
+        ex, *sh, **kw), *leaves)
+    o = torch.cat(outs, dim=1)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    counts = flash_counts()                   # ... and ends here
+    check(fa.ALIGN_COPIES == copies, f"ring: {fa.ALIGN_COPIES - copies} "
+          f"operands copied for the tensor maps")
+    with torch.no_grad():
+        lse = torch.cat(ring_members(torch, lambda ex, *sh: ra.ring_forward(
+            ex, *sh, **kw)[1], q, k, v), dim=1)
+    return {"o": o.detach(), "grads": grads, "lse": lse, "counts": counts}
+
+
+def ring_errors(torch, got: dict, want: tuple, lse_bound: float) -> dict:
+    """o / dq / dk / dv in relative L2 and lse in max abs against ``want``
+    (o, lse [B, H, S], dq, dk, dv)."""
+    o, lse, dq, dk, dv = want
+    errs = {key: rel_l2(g, w) for key, g, w in
+            zip(("o", "dq", "dk", "dv"), (got["o"], *got["grads"]),
+                (o, dq, dk, dv))}
+    for key, err in errs.items():
+        check(err <= FLASH_TOL_BF16_REL_L2, f"ring {key}: {err} > "
+              f"{FLASH_TOL_BF16_REL_L2}")
+    live = lse > NEG_INF_KERNELS / 2
+    errs["lse"] = (got["lse"].transpose(1, 2) - lse).abs()[live].max().item()
+    check(errs["lse"] <= lse_bound, f"ring lse: {errs['lse']} > "
+          f"{lse_bound}")
+    return errs
+
+
+def whole_sequence(torch, q, k, v, do, plain: bool, **kw) -> tuple:
+    """(o, lse, dq, dk, dv) over the whole sequence: the plain versions, or
+    K1-K3 (their launches not counted: a comparison, not a path)."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    if plain:
+        o, lse = fa.flash_attention_reference(q, k, v, **kw)
+    else:
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    grads = (fa.flash_bwd_reference if plain else fa.flash_bwd_with_stats)(
+        q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    return (o, lse, *grads)
+
+
+def wall_and_device_ms(torch, fn, iters: int) -> dict:
+    """A call's wall milliseconds (CUDA events around calls issued back to
+    back: the host's issue time where it is the longer), its device
+    milliseconds (the sum over its kernels of ``_kernel_ms``: each
+    kernel's mean per recorded launch times its launches per call; a call
+    of ~1000 launches fills the launch queue, so ``queued_ms`` cannot run
+    ahead of it) and the device's idle share of the wall time; "not
+    measured" where the profiler recorded nothing. The K1-K3 launches of
+    the timing runs are not counted."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    counts = flash_counts()
+    wall = cuda_ms(fn, iters=iters, warmup=1)
+    kernels = _kernel_ms(torch, fn, iters)
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = (
+        counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"])
+    if not kernels:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    dev = sum(kernels.values())
+    return {"wall_ms": wall, "device_ms": dev,
+            "idle_share": max(0.0, 1 - dev / wall),
+            "distinct_kernels": len(kernels)}
+
+
+def ring_times(torch, q, k, v, do) -> dict:
+    """The ring's forward and backward over CP members (through the
+    autograd op) beside one whole-sequence attention's (K1-K3 through
+    ``flash_attention``): the same live pairs, so the difference is the
+    ring's merges, relayouts and launches."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import ring_attention as ra
+
+    def ring_step():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = torch.cat(ring_members(torch, lambda ex, *sh: ra.ring_attention(
+            ex, *sh), *leaves), dim=1)
+        torch.autograd.grad(o, leaves, do)
+
+    def whole_step():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        torch.autograd.grad(fa.flash_attention(*leaves), leaves, do)
+
+    ring = wall_and_device_ms(torch, ring_step, 3)
+    whole = wall_and_device_ms(torch, whole_step, 3)
+    return {"ring_fwd_bwd": ring, "whole_sequence_fwd_bwd": whole}
+
+
+def cp_ring(torch, card: str) -> dict:
+    """The ring at CP virtual members on llama-3.2-1b's attention (bf16,
+    causal): at S 4096 against the plain version, at S 32768 against
+    whole-sequence K1-K3, cp (2 cp + 1) launches of each kernel; and
+    gemma2-2b's banded ring at S 16384 (q as drawn and x 12), whose pairs
+    below the band issue no launch."""
+    from distributed_training_guide_tpu_torch.ops import ring_attention as ra
+
+    hq, hkv, d = RING_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    want_launches = ra.live_pairs(CP)
+    out = {"launches": {k: 0 for k in ("flash_fwd", "flash_dq",
+                                       "flash_dkv")}}
+    for s in (RING_CHECK_SEQ, RING_LONG_SEQ):
+        q, k, v, do = flash_case(torch, gen, 1, s, s, hq, hkv, d, "bf16")
+        got = ring_run(torch, q, k, v, do)
+        check(got["counts"] == {n: want_launches for n in got["counts"]},
+              f"ring S {s}: launches {got['counts']}, want {want_launches} "
+              f"of each (cp (2cp + 1))")
+        want = whole_sequence(torch, q, k, v, do, plain=s == RING_CHECK_SEQ)
+        errs = ring_errors(torch, got, want, RING_LSE_ABS[s])
+        out[f"S{s}"] = {"against": "plain" if s == RING_CHECK_SEQ
+                        else "whole-sequence K1-K3",
+                        "launches": got["counts"], **errs}
+        if s == RING_LONG_SEQ:
+            for n, c in got["counts"].items():
+                out["launches"][n] += c
+            out[f"S{s}"].update(ring_times(torch, q, k, v, do))
+        log(phase="cp_pp", part="ring", S=s, cp=CP, Hq=hq, Hkv=hkv, D=d,
+            card=card, **out[f"S{s}"])
+        del q, k, v, do, got, want
+        torch.cuda.empty_cache()
+    g = GEMMA2
+    s = RING_BAND_SEQ
+    s_c = s // (2 * CP)
+    kw = dict(window=g["window"], scale=g["scale"], softcap=g["softcap"])
+    band_launches = ra.live_pairs(CP, True, g["window"], s_c)
+    check(band_launches < want_launches, "ring band: no pair below the band")
+    q0, k, v, do = flash_case(torch, gen, 1, s, s, g["hq"], g["hkv"], g["d"],
+                              "bf16")
+    for c in (1.0, GEMMA2_Q_CAP_SCALE):
+        q = (q0.float() * c).to(q0.dtype)
+        got = ring_run(torch, q, k, v, do, **kw)
+        check(got["counts"] == {n: band_launches for n in got["counts"]},
+              f"ring band: launches {got['counts']}, want {band_launches} "
+              f"of each (_pair_live)")
+        for n, cnt in got["counts"].items():
+            out["launches"][n] += cnt
+        want = whole_sequence(torch, q, k, v, do, plain=False, causal=True,
+                              **kw)
+        errs = ring_errors(torch, got, want, RING_LSE_ABS[s] * c)
+        out[f"band-x{c:g}"] = {"launches": got["counts"],
+                               "dead_pairs_skipped":
+                                   want_launches - band_launches, **errs}
+        log(phase="cp_pp", part="ring-band", S=s, cp=CP, q_scale=c,
+            window=g["window"], softcap=g["softcap"], card=card,
+            against="whole-sequence K1-K3", **out[f"band-x{c:g}"])
+        del got, want
+    del q0, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_ulysses(torch, card: str) -> dict:
+    """Ulysses at CP virtual members on llama-3.2-1b's attention at S 32768
+    (8 kv heads: 2 a member): one K1 launch a member, on the full sequence
+    of its heads, against whole-sequence K1."""
+    from distributed_training_guide_tpu_torch.ops import ulysses_attention as ul
+
+    hq, hkv, d = RING_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    q, k, v, _ = flash_case(torch, gen, 1, RING_LONG_SEQ, RING_LONG_SEQ, hq,
+                            hkv, d, "bf16")
+    reset_flash_counts()                      # Ulysses' path starts here
+    with torch.no_grad():
+        outs = ring_members(torch, lambda ex, *sh: ul.ulysses_members(
+            ex, *sh, impl="flash"), q, k, v)
+    torch.cuda.synchronize()
+    counts = flash_counts()                   # ... and ends here
+    check(counts["flash_fwd"] == CP, f"ulysses: {counts['flash_fwd']} K1 "
+          f"launches, want {CP} (one a member)")
+    o = torch.cat(outs, dim=1)
+    whole = whole_sequence(torch, q, k, v, torch.zeros_like(q),
+                           plain=False)[0]
+    res = {"launches": counts, "bitwise": bool(torch.equal(o, whole)),
+           "rel_l2": rel_l2(o, whole),
+           "max_abs": (o.float() - whole.float()).abs().max().item()}
+    check(res["rel_l2"] <= FLASH_TOL_BF16_REL_L2, f"ulysses: {res}")
+    log(phase="cp_pp", part="ulysses", S=RING_LONG_SEQ, cp=CP, card=card,
+        against="whole-sequence K1 on the same heads", **res)
+    del q, k, v, outs, o, whole
+    torch.cuda.empty_cache()
+    res["gathered"] = cp_ulysses_gathered(torch, card, gen)
+    res["launches"] = {n: c + res["gathered"]["launches"][n]
+                       for n, c in counts.items()}
+    return res
+
+
+def cp_ulysses_gathered(torch, card: str, gen) -> dict:
+    """Ulysses where cp does not divide the kv heads: llama-3.1-8b's
+    attention on a tp-4 rank (ULYSSES_GATHERED_HEADS) at S 32768 over CP
+    virtual members under impl 'auto' (the Trainer's). q, k and v are
+    gathered, each member runs K1-K3 on the whole sequence and keeps its
+    rows, forward and backward, against whole-sequence K1-K3; then its
+    wall and device times beside one whole-sequence K1-K3 pass."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import ulysses_attention as ul
+
+    hq, hkv, d = ULYSSES_GATHERED_HEADS
+    check(hkv % CP != 0, "ulysses gathered: cp divides the kv heads")
+    q, k, v, do = flash_case(torch, gen, 1, RING_LONG_SEQ, RING_LONG_SEQ, hq,
+                             hkv, d, "bf16")
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    reset_flash_counts()                      # the gathered path starts here
+    o = torch.cat(ring_members(torch, lambda ex, *sh: ul.ulysses_members(
+        ex, *sh, impl="auto"), *leaves), dim=1)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    counts = flash_counts()                   # ... and ends here
+    check(counts == {n: CP for n in counts}, f"ulysses gathered: launches "
+          f"{counts}, want {CP} of each (one whole sequence a member)")
+    o_w, _, *grads_w = whole_sequence(torch, q, k, v, do, plain=False)
+    res = {"launches": counts, "o_bitwise": bool(torch.equal(o, o_w)),
+           **{key: rel_l2(g, w) for key, g, w in zip(
+               ("o", "dq", "dk", "dv"), (o, *grads), (o_w, *grads_w))}}
+    for key in ("o", "dq", "dk", "dv"):
+        check(res[key] <= FLASH_TOL_BF16_REL_L2, f"ulysses gathered {key}: "
+              f"{res[key]} > {FLASH_TOL_BF16_REL_L2}")
+    del leaves, o, grads, o_w, grads_w
+
+    def gathered_step():
+        lv = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = torch.cat(ring_members(torch, lambda ex, *sh: ul.ulysses_members(
+            ex, *sh, impl="auto"), *lv), dim=1)
+        torch.autograd.grad(o, lv, do)
+
+    def whole_step():
+        lv = [x.detach().requires_grad_() for x in (q, k, v)]
+        torch.autograd.grad(fa.flash_attention(*lv), lv, do)
+
+    res["times"] = {
+        "gathered_fwd_bwd": wall_and_device_ms(torch, gathered_step, 3),
+        "whole_sequence_fwd_bwd": wall_and_device_ms(torch, whole_step, 3)}
+    log(phase="cp_pp", part="ulysses-gathered", S=RING_LONG_SEQ, cp=CP,
+        Hq=hq, Hkv=hkv, D=d, card=card, against="whole-sequence K1-K3",
+        **res)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return res
+
+
+def cp_pipeline(torch, card: str) -> dict:
+    """The 1F1B pipeline over pp 2 and pp 4 virtual stages on llama-3.2-1b
+    at full width and depth (bf16 compute, fp32 params; B 8, S 2048, M =
+    2 pp) against the single-device forward and backward of each
+    microbatch, averaged: the loss, every grad, the K1-K3 launches (K1
+    twice per layer and microbatch: the stage's forward recomputed), the
+    step time and the memory held beyond what was allocated before (the
+    grads and activations) beside the single device's."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+    from distributed_training_guide_tpu_torch.parallel.pipeline import (
+        make_pipeline_value_and_grad)
+    from distributed_training_guide_tpu_torch.train.state import named_leaves
+
+    bundle = get_model(PP_MODEL)
+    cfg = bundle.config
+    layers = cfg.num_layers
+    params = bundle.init(cfg, SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    ids = torch.randint(0, cfg.vocab_size, (PP_BATCH, PP_SEQ), generator=gen,
+                        device="cuda")
+    leaves = dict(named_leaves(params))
+    out = {"launches": {k: 0 for k in ("flash_fwd", "flash_dq",
+                                       "flash_dkv")}}
+
+    def extra_peak_gb(base: int) -> float:
+        """The memory a run held beyond what was allocated before it."""
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    for pp in PP_STAGES:
+        m_count = 2 * pp
+        mb = PP_BATCH // m_count
+        vag = make_pipeline_value_and_grad(bundle, pp=pp, attn_impl="flash")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_flash_counts()                  # the pipeline's path starts
+        t0 = time.perf_counter()
+        loss, grads = vag(params, {"input_ids": ids, "labels": ids})
+        torch.cuda.synchronize()
+        pp_ms = (time.perf_counter() - t0) * 1e3
+        counts = flash_counts()               # ... and ends here
+        pp_peak = extra_peak_gb(base)
+        want = {"flash_fwd": 2 * layers * m_count,
+                "flash_dq": layers * m_count, "flash_dkv": layers * m_count}
+        check(counts == want, f"pipeline pp {pp}: launches {counts}, want "
+              f"{want}")
+        for n, c in counts.items():
+            out["launches"][n] += c
+        # the single device: each microbatch's forward and backward, its
+        # loss / M, the grads summed in fp32 .grad
+        for t in leaves.values():
+            t.requires_grad_(True)
+            t.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ref_loss = torch.zeros((), device="cuda")
+        for m in range(m_count):
+            rows = ids[m * mb:(m + 1) * mb]
+            mb_loss = causal_lm_loss(bundle.apply(cfg, params, rows,
+                                                  attn_impl="flash"),
+                                     rows) / m_count
+            mb_loss.backward()
+            ref_loss += mb_loss.detach()
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        ref_peak = extra_peak_gb(base)
+        ref = {p: t.grad for p, t in leaves.items()}
+        for t in leaves.values():
+            t.grad = None
+            t.requires_grad_(False)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        got = dict(named_leaves(grads))
+        grad_rel = {p: rel_l2(got[p], ref[p]) for p in ref}
+        worst = max(grad_rel, key=grad_rel.get)
+        check(loss_rel <= PP_LOSS_REL, f"pipeline pp {pp}: loss "
+              f"{float(loss)} against {float(ref_loss)}: rel {loss_rel}")
+        check(grad_rel[worst] <= PP_GRAD_REL_L2, f"pipeline pp {pp}: "
+              f"{worst} grad {grad_rel[worst]} from the single device's")
+        batch = {"input_ids": ids, "labels": ids}
+
+        def single_step():
+            for t in leaves.values():
+                t.grad = None
+            for m in range(m_count):
+                rows = ids[m * mb:(m + 1) * mb]
+                (causal_lm_loss(bundle.apply(cfg, params, rows,
+                                             attn_impl="flash"), rows)
+                 / m_count).backward()
+
+        times = {"pipeline": wall_and_device_ms(
+            torch, lambda: vag(params, batch), 2)}
+        for t in leaves.values():
+            t.requires_grad_(True)
+        times["single_device"] = wall_and_device_ms(torch, single_step, 2)
+        for t in leaves.values():
+            t.grad = None
+            t.requires_grad_(False)
+        res = {"M": m_count, "microbatch": mb, "launches": counts,
+               "times": times,
+               "loss": float(loss), "single_loss": float(ref_loss),
+               "loss_rel": loss_rel,
+               "loss_bitwise": float(loss) == float(ref_loss),
+               "grad_max_rel_l2": grad_rel[worst], "grad_worst": worst,
+               "grads_bitwise": all(torch.equal(got[p], ref[p].float())
+                                    for p in ref),
+               "step_ms": pp_ms, "single_ms": ref_ms,
+               "extra_peak_gb": pp_peak, "single_extra_peak_gb": ref_peak,
+               "params_gb": sum(t.numel() * t.element_size()
+                                for t in leaves.values()) / 1e9}
+        out[f"pp{pp}"] = res
+        log(phase="cp_pp", part="pipeline", pp=pp, B=PP_BATCH, S=PP_SEQ,
+            layers=layers, card=card, **res)
+        del grads, got, ref, loss, ref_loss
+        torch.cuda.empty_cache()
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_pp_chapters(torch, card: str, plans: dict) -> dict:
+    """Chapters 08 and 09 through their ``main`` at world 1 (cp 1, pp 1)
+    on phase 17's model and batch, against phase 17's single plan."""
+    base = TRAIN_ARGS + ["--max-steps", str(PLAN_STEPS), "--log-freq", "1"]
+    out = {"launches": {}}
+    for name, chapter, flags in (
+            ("c08", "c08_context_parallel", []),
+            ("c09", "c09_pipeline_parallel", ["--pipeline-parallel", "1"])):
+        run, counts = plan_run(torch, chapter, base + flags)
+        summary = plan_summary(run)
+        ch01_free(torch, run)
+        want = {k: 16 * PLAN_STEPS for k in counts}
+        check(counts == want, f"chapter {name}: launches {counts}, want "
+              f"{want}")
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out[name] = {**summary, **plan_compare(name, summary,
+                                               plans["single"])}
+        log(phase="cp_pp", part="chapter", chapter=chapter, card=card,
+            launches=counts, **out[name])
+    return out
+
+
+def cp_pp_timing(torch, card: str) -> dict:
+    """K1-K3 at the ring's chunk-pair shapes (a past pair non-causal, a
+    diagonal pair, gemma2-2b's banded pair) and the pipeline's microbatch,
+    each beside its plain version, its bound and SDPA on the same pair
+    (non-causal, causal, the band as a boolean mask: SDPA has no softcap)."""
+    import torch.nn.functional as F
+
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    out = {}
+    counts = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    for shape, (b, sq, sk, hq, hkv, d, causal, band, scale,
+                cap) in CP_PP_TIMING_SHAPES.items():
+        q, k, v, do = flash_case(torch, gen, b, sq, sk, hq, hkv, d, "bf16")
+        kw = dict(causal=causal, scale=scale, softcap=cap)
+        if band is not None:
+            kw["band"] = band
+        live = fa._live(sq, sk, causal, band or (fa.NO_WINDOW, 0, 0),
+                        q.device)
+        pairs = b * hq * (sq * sk if live is None else int(live.sum()))
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             o.float()).contiguous()
+        args = (q, k, v, do, lse, delta)
+        calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+                 "flash_dq": lambda: fa.flash_bwd_dq(*args, **kw),
+                 "flash_dkv": lambda: fa.flash_bwd_dkv(*args, **kw)}
+        plain = {"flash_fwd": lambda: fa.flash_attention_reference(q, k, v,
+                                                                   **kw),
+                 "flash_dq": lambda: fa.flash_dq_reference(*args, **kw),
+                 "flash_dkv": lambda: fa.flash_dkv_reference(*args, **kw)}
+        res = {name: {"ms": queued_ms(torch, fn, 10),
+                      "plain_ms": cuda_ms(plain[name], iters=3, warmup=1)}
+               for name, fn in calls.items()}
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        mask = live if band is not None else None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, scale=scale,
+                enable_gqa=True)
+
+        def both():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            fwd_ms = queued_ms(torch, sdpa, 10)
+        both_ms = queued_ms(torch, both, 10)
+        res["flash_fwd"]["library_ms"] = fwd_ms
+        for name in ("flash_dq", "flash_dkv"):
+            res[name]["library_ms"] = both_ms - fwd_ms
+            res[name]["library_note"] = ("SDPA forward+backward minus "
+                                         "forward: dq, dk and dv together")
+        if cap:
+            for r in res.values():
+                r["library_note"] = (r.get("library_note", "SDPA forward")
+                                     + "; the band as a boolean mask and no "
+                                     "softcap (SDPA has none)")
+        for name, bound in pair_bounds(b, sq, sk, hq, hkv, d, 2,
+                                       pairs).items():
+            res[name].update(bound)
+            res[name]["share_of_bound"] = bound["bound_ms"] / res[name]["ms"]
+            res[name]["body"] = (fa._fwd_plan if name == "flash_fwd"
+                                 else fa._bwd_plan)(d, q.dtype)
+            log(phase="cp_pp_timing", shape=shape, kernel=name, B=b, Sq=sq,
+                Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=causal, band=band,
+                live_pairs=pairs, card=card, **res[name])
+        out[shape] = {"B_Sq_Sk_Hq_Hkv_D": (b, sq, sk, hq, hkv, d),
+                      "causal": causal, "band": band, "live_pairs": pairs,
+                      **res}
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, mask, live
+        torch.cuda.empty_cache()
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = counts
+    return out
+
+
+def ring_pair_kinds(cp: int) -> dict:
+    """Per layer and step, the ring's K1 (= K2 = K3) launches by pair
+    kind: past (non-causal) and diagonal (causal)."""
+    from distributed_training_guide_tpu_torch.ops import ring_attention as ra
+
+    kinds = {"past": 0, "diagonal": 0}
+    for m in range(cp):
+        for hop in range(cp):
+            for _, _, kw in ra._pairs(cp, m, hop, True, None, 1):
+                kinds["diagonal" if kw["causal"] else "past"] += 1
+    return kinds
+
+
+def phase_cp_pp(torch, card: str, plans: dict) -> dict:
+    """Phase 20: the ring, Ulysses, the pipeline, chapters 08 and 09 at
+    world 1, and K1-K3 timed at this phase's shapes."""
+    t0 = time.perf_counter()
+    ring = cp_ring(torch, card)
+    ulysses = cp_ulysses(torch, card)
+    pipeline = cp_pipeline(torch, card)
+    chapters = cp_pp_chapters(torch, card, plans)
+    timing = cp_pp_timing(torch, card)
+    kinds = ring_pair_kinds(CP)
+    launches = {k: ring["launches"][k] + ulysses["launches"][k]
+                + pipeline["launches"][k] for k in ring["launches"]}
+    per_step = {
+        "ring-past": {"per_layer": kinds["past"],
+                      "llama-3.2-1b_step": kinds["past"] * 16},
+        "ring-diagonal": {"per_layer": kinds["diagonal"],
+                          "llama-3.2-1b_step": kinds["diagonal"] * 16},
+        "ring-band": {"per_sliding_layer": ring["band-x1"]["launches"][
+            "flash_fwd"]},
+        "pp-microbatch": {"pp2_step": pipeline["pp2"]["launches"]}}
+    log(phase="cp_pp", seconds=time.perf_counter() - t0, launches=launches,
+        launches_per_step=per_step, card=card)
+    return {"ring": ring, "ulysses": ulysses, "pipeline": pipeline,
+            "chapters": chapters, "timing": timing, "launches": launches,
+            "per_step": per_step}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -4823,6 +5450,7 @@ def main() -> int:
     plans = phase_plans(torch, smi)
     ch05 = phase_chapter05(torch, smi, plans)
     dense = phase_dense(torch, smi, ch01)
+    cp_pp = phase_cp_pp(torch, smi, plans)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -4911,6 +5539,17 @@ def main() -> int:
             "launches_per_step_by_remat_policy": {
                 p: r["launches_per_step"][name]
                 for p, r in ch01["remat"].items()},
+            "launches_context_pipeline": cp_pp["launches"][name],
+            "launches_by_run_context_pipeline": {
+                "ring_S32768": cp_pp["ring"][f"S{RING_LONG_SEQ}"][
+                    "launches"][name],
+                "ring_band": (cp_pp["ring"]["band-x1"]["launches"][name]
+                              + cp_pp["ring"]["band-x12"]["launches"][name]),
+                "ulysses": cp_pp["ulysses"]["launches"][name],
+                **{f"pipeline_pp{pp}": cp_pp["pipeline"][f"pp{pp}"][
+                    "launches"][name] for pp in PP_STAGES},
+                "chapters_08_09": cp_pp["chapters"]["launches"][name]},
+            "launches_per_step_context_pipeline": cp_pp["per_step"],
             "shapes": {**{shape: {
                 "B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
                 **{kk: flash_timing[shape][name][kk] for kk in shape_keys
@@ -4932,7 +5571,13 @@ def main() -> int:
                     "window": GEMMA2["window"], "softcap": GEMMA2["softcap"],
                     **{kk: v for kk, v in
                        dense["gemma2_flash"]["timing"][name].items()
-                       if kk in shape_keys + ("library_note",)}}},
+                       if kk in shape_keys + ("library_note",)}},
+                **{shape: {
+                    **{kk: t[kk] for kk in ("B_Sq_Sk_Hq_Hkv_D", "causal",
+                                             "band", "live_pairs")},
+                    **{kk: t[name][kk] for kk in shape_keys
+                       + ("library_note",) if kk in t[name]}}
+                   for shape, t in cp_pp["timing"].items()}},
         })
     keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
             "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",

@@ -5,16 +5,20 @@ needs only the standard library), with ``mesh_descriptor`` reading the
 port's trainer. Every save stamps a small **mesh descriptor** into the manifest's
 host_state (next to the precision-policy stamp), and
 ``restore_train_state`` compares it against the restoring trainer's:
-benign refactorizations (dp/fsdp/tp factor changes, fewer or more devices)
-log a loud "resharding A -> B" line and proceed; the two layout families
-that break across a mesh change raise :class:`ReshardIncompatibleError`
-naming both layouts:
+benign refactorizations (dp/fsdp/tp/cp factor changes, fewer or more
+devices) log a loud "resharding A -> B" line and proceed; the layout
+family that breaks across a mesh change raises
+:class:`ReshardIncompatibleError` naming both layouts:
 
-- **pipeline stage splits** (the stage-owned layer ranges are a function of
-  ``pp``);
 - **quantized opt-state block tilings**: adam8bit moments are int8
   payloads + one fp32 scale per block of the trailing axis
   (``train/precision.py``); the scale shapes encode the block size.
+
+Unlike the JAX package, a **pipeline stage split** is not refused: DCP
+stores each stacked ``[L]`` leaf whole (its pp shards are the stages'
+layer ranges of one global tensor), so a state saved under pp 2 x fsdp 2
+restores under fsdp 4 or another split (``tests/test_torch_cp_pp.py``
+holds the restored step to the straight run's).
 
 A trainer without a plan stamps ``{"axes": {}, "device_count": 1,
 "strategy": "single", "pp_stages": 1, ...}``; under a sharding plan the
@@ -30,8 +34,8 @@ from typing import Optional
 
 class ReshardIncompatibleError(ValueError):
     """The checkpoint's recorded layout cannot restore into the target
-    trainer's layout by resharding alone (pp stage split or quantized
-    block tiling changed). Carries both descriptors."""
+    trainer's layout by resharding alone (the quantized block tiling
+    changed). Carries both descriptors."""
 
     def __init__(self, message: str, *, saved: dict, target: dict):
         super().__init__(message)
@@ -75,22 +79,12 @@ def check_reshard_compatibility(saved: Optional[dict], target: dict) -> bool:
     """True when restoring ``saved`` -> ``target`` is a mesh CHANGE that
     plain resharding covers (the caller logs it); False when the layouts
     match (nothing to say). Raises :class:`ReshardIncompatibleError` for
-    the two known-breaking families, naming both layouts.
+    a changed quantized block tiling, naming both layouts.
 
     ``saved=None`` (pre-stamp checkpoint) is treated as unknown-but-
     allowed — exactly the old behavior."""
     if not saved:
         return False
-    saved_pp = int(saved.get("pp_stages", 1))
-    target_pp = int(target.get("pp_stages", 1))
-    if saved_pp != target_pp:
-        raise ReshardIncompatibleError(
-            f"checkpoint was saved under a {saved_pp}-stage pipeline split "
-            f"({describe_layout(saved)}) but this run uses {target_pp} "
-            f"stage(s) ({describe_layout(target)}); pipeline stage splits "
-            f"are not reshard-compatible — restore with the matching "
-            f"pipeline_parallel, or export through the fp32/HF path and "
-            f"re-import", saved=saved, target=target)
     saved_block = saved.get("quant_block")
     target_block = target.get("quant_block")
     if (saved_block is not None and target_block is not None

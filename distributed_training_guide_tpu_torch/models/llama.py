@@ -280,12 +280,15 @@ def attention_extras(config) -> tuple:
             getattr(config, "attn_logit_softcap", None))
 
 
-def layer_rope(config, positions: torch.Tensor) -> tuple:
+def layer_rope(config, positions: torch.Tensor,
+               seq_len: Optional[int] = None) -> tuple:
     """The (cos, sin) RoPE tables for ``positions``, computed once per
-    forward and shared by every layer (``ops/rope.rope_tables``)."""
+    forward and shared by every layer (``ops/rope.rope_tables``;
+    ``seq_len``: the whole sequence's length where ``positions`` are one
+    context-parallel shard)."""
     return rope_tables(config.head_size, positions, config.rope_theta,
                        getattr(config, "rope_scaling", None),
-                       config.max_position_embeddings)
+                       config.max_position_embeddings, seq_len)
 
 
 def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
@@ -453,6 +456,11 @@ class _Whole:
     def seq_local(self, x):
         return x
 
+    def positions(self, seq: int, device) -> tuple:
+        """(positions [1, seq] of the residual's rows, the whole sequence's
+        length for a sequence-dependent rope or None)."""
+        return torch.arange(seq, device=device)[None, :], None
+
     def logits(self, config, params, hidden):
         return _project_head(config, params, hidden)
 
@@ -506,13 +514,101 @@ def _unbind_layers(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _num_layers(tree) -> int:
+    """The leading [L] size of a stacked layers tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return (tree.q if _is_qt(tree) else tree).shape[0]
+
+
+def model_positions(input_ids: torch.Tensor, positions, layout) -> tuple:
+    """(positions [B, S], the rope's sequence length or None, whether the
+    layout is standard) of a training forward: the caller's positions, or
+    the layout's (``arange``, offset to the rank's shard under context
+    parallelism)."""
+    standard_layout = positions is None
+    seq_len = None
+    if positions is None:
+        positions, seq_len = layout.positions(input_ids.shape[1],
+                                              input_ids.device)
+    return positions.expand(input_ids.shape), seq_len, standard_layout
+
+
+def embed_input(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
+                positions: torch.Tensor, layout=_WHOLE) -> torch.Tensor:
+    """The residual stream's input (a pipeline's first stage)."""
+    return layout.embed(config, params, input_ids)
+
+
+def block(config: LlamaConfig, x: torch.Tensor, layer: dict, *,
+          positions: torch.Tensor, rope: tuple, attn_impl, window=None,
+          standard_layout: bool = True, layout=_WHOLE,
+          kv_hook=None) -> torch.Tensor:
+    """One decoder layer (the JAX package's ``_block``): ``layout`` gathers
+    the layer's fsdp shards, brings each sublayer's normed input to the
+    full sequence and sums its row-parallel output back."""
+    eps = config.rms_norm_eps
+    plus_one = getattr(config, "norm_plus_one", False)
+    layer = layout.gather_layer(layer)
+    h = (x if config.post_norm
+         else _rmsnorm(x, layer["input_norm"], eps, plus_one))
+    attn = layout.leave(attention_sublayer(
+        config, layout.enter(h), layer["attn"], None, positions,
+        attn_impl, rope, window_override=window,
+        standard_layout=standard_layout, kv_hook=kv_hook))
+    return _residuals(config, x, layer, attn, layout)
+
+
+def run_blocks(config: LlamaConfig, layers: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, attn_impl="auto", layout=_WHOLE,
+               remat: bool = False, remat_policy=None,
+               standard_layout: bool = True, first_layer: int = 0,
+               seq_len: Optional[int] = None) -> torch.Tensor:
+    """The layers of the stacked ``layers`` in order, from global layer
+    ``first_layer`` (a pipeline stage runs its slice; ``apply`` all of
+    them); each under ``torch.utils.checkpoint`` with ``remat``."""
+    wins = layer_windows(config)
+    rope = layer_rope(config, positions, seq_len)
+    kv_hook = layout.kv_hook(config)
+
+    def one(x, layer, window):
+        return block(config, x, layer, positions=positions, rope=rope,
+                     attn_impl=attn_impl, window=window,
+                     standard_layout=standard_layout, layout=layout,
+                     kv_hook=kv_hook)
+
+    for i, layer in enumerate(_unbind_layers(layers, _num_layers(layers))):
+        window = None if wins is None else wins[first_layer + i]
+        if remat:
+            x = remat_layer(one, x, layer, window, policy=remat_policy)
+        else:
+            x = one(x, layer, window)
+    return x
+
+
+def final_layer(config: LlamaConfig, params: dict, x: torch.Tensor,
+                layout=_WHOLE) -> torch.Tensor:
+    """The final norm (a pipeline's last stage, before the head)."""
+    return final_hidden(config, {"final_norm": layout.gather_leaf(
+        "final_norm", params["final_norm"])}, x)
+
+
+def logits_of_hidden(config: LlamaConfig, params: dict, hidden: torch.Tensor,
+                     layout=_WHOLE) -> torch.Tensor:
+    """fp32 logits of final-normed hidden states, as ``layout`` holds
+    them."""
+    return layout.logits(config, params, hidden)
+
+
 def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
           positions: Optional[torch.Tensor] = None, *, remat: bool = False,
-          remat_policy=None, attn_impl: str = "auto",
+          remat_policy=None, attn_impl="auto",
           activation_sharding=None, return_hidden: bool = False,
           layer_schedule=None) -> torch.Tensor:
     """Training forward -> fp32 logits [B, S, V] (or the final-normed
-    hidden states [B, S, E] when ``return_hidden``, for chunked losses).
+    hidden states [B, S, E] when ``return_hidden``, for chunked losses):
+    ``embed_input``, ``run_blocks`` over every layer, ``final_layer`` and
+    the head.
 
     The JAX layer ``lax.scan`` is a Python loop; per-layer windows ride
     ``layer_windows``. ``remat=True`` wraps each layer in
@@ -520,57 +616,38 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     (``ops/remat.py``: "all" / None saves nothing, so backward reruns the
     layer's forward, K1 included; "dots", "attn" and "attn_mlp" keep what
     they name). ``positions`` given means a non-standard layout: "auto"
-    then takes the einsum attention, as in the JAX package.
+    then takes the einsum attention, as in the JAX package. ``attn_impl``
+    may be a callable (``ops/attention.multihead_attention``): the ring or
+    Ulysses attention of context parallelism.
 
     ``activation_sharding`` is a sharding plan's ``LocalLayout``
     (``parallel/plans.py``), where the JAX package takes a NamedSharding:
     ``params`` are then this rank's shards and ``input_ids`` its rows of
-    the batch. The layout gathers each layer's fsdp shards just before the
-    layer (inside the remat scope, so the recompute gathers again), brings
-    each sublayer's normed input to the full sequence and sums its
-    row-parallel output back onto the residual as it holds it (its
-    sequence shard under sequence parallelism), and runs the embedding and
-    head on the vocab shards; attention (K1-K3 on the card) runs on the
-    rank's own heads. Without a plan the layout is the identity."""
+    the batch (its sequence shard under context parallelism, whose global
+    positions the layout gives). The layout gathers each layer's fsdp
+    shards just before the layer (inside the remat scope, so the recompute
+    gathers again), brings each sublayer's normed input to the full
+    sequence and sums its row-parallel output back onto the residual as it
+    holds it (its sequence shard under sequence parallelism), and runs the
+    embedding and head on the vocab shards; attention (K1-K3 on the card)
+    runs on the rank's own heads. Without a plan the layout is the
+    identity."""
     if layer_schedule is not None:
         raise NotImplementedError(
             "layer_schedule belongs to the overlap schedule (ROADMAP.md "
-            "queue 1, 'Context parallel, pipeline parallel and overlap')")
+            "queue 1, 'Overlap schedule and the fused loss')")
     layout = _WHOLE if activation_sharding is None else activation_sharding
-    standard_layout = positions is None
-    if positions is None:
-        positions = torch.arange(input_ids.shape[1],
-                                 device=input_ids.device)[None, :]
-    positions = positions.expand(input_ids.shape)
-    x = layout.embed(config, params, input_ids)
-    wins = layer_windows(config)
-    rope = layer_rope(config, positions)
-    kv_hook = layout.kv_hook(config)
-    layers = _unbind_layers(params["layers"], config.num_layers)
-    eps = config.rms_norm_eps
-    plus_one = getattr(config, "norm_plus_one", False)
-
-    def block(x, layer, window):
-        layer = layout.gather_layer(layer)
-        h = (x if config.post_norm
-             else _rmsnorm(x, layer["input_norm"], eps, plus_one))
-        attn = layout.leave(attention_sublayer(
-            config, layout.enter(h), layer["attn"], None, positions,
-            attn_impl, rope, window_override=window,
-            standard_layout=standard_layout, kv_hook=kv_hook))
-        return _residuals(config, x, layer, attn, layout)
-
-    for i, layer in enumerate(layers):
-        window = None if wins is None else wins[i]
-        if remat:
-            x = remat_layer(block, x, layer, window, policy=remat_policy)
-        else:
-            x = block(x, layer, window)
-    x = final_hidden(config, {"final_norm": layout.gather_leaf(
-        "final_norm", params["final_norm"])}, x)
+    positions, seq_len, standard_layout = model_positions(input_ids,
+                                                          positions, layout)
+    x = embed_input(config, params, input_ids, positions, layout)
+    x = run_blocks(config, params["layers"], x, positions,
+                   attn_impl=attn_impl, layout=layout, remat=remat,
+                   remat_policy=remat_policy,
+                   standard_layout=standard_layout, seq_len=seq_len)
+    x = final_layer(config, params, x, layout)
     if return_hidden:
         return x
-    return layout.logits(config, params, x)
+    return logits_of_hidden(config, params, x, layout)
 
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int,

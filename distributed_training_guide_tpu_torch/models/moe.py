@@ -349,8 +349,8 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
         raise NotImplementedError(f"activation_sharding: {_EP_ITEM}")
     if layer_schedule is not None:
         raise NotImplementedError(
-            "layer_schedule: ROADMAP.md queue 1, 'Context parallel, "
-            "pipeline parallel and overlap'")
+            "layer_schedule: ROADMAP.md queue 1, 'Overlap schedule and "
+            "the fused loss'")
     standard_layout = positions is None
     if positions is None:
         positions = torch.arange(input_ids.shape[1],

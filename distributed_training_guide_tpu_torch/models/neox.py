@@ -35,7 +35,8 @@ from ..ops.matmul import matmul_f32_out
 from ..ops.remat import checkpoint_name, remat as remat_layer
 from ..ops.rope import rope_tables, rotate
 from .gpt2 import attend_or_override, fused_qkv, layernorm
-from .llama import (_WHOLE, _layer_pools, _unbind_layers, cache_attend,
+from .llama import (_WHOLE, _layer_pools, _num_layers, _unbind_layers,
+                    cache_attend, model_positions,
                     init_cache, init_target, layer_params, paged_logits_at,
                     paged_positions, step_positions)
 
@@ -165,12 +166,15 @@ ACT_FNS = {
 }
 
 
-def layer_rope(config: NeoXConfig, positions: torch.Tensor) -> tuple:
+def layer_rope(config: NeoXConfig, positions: torch.Tensor,
+               seq_len: Optional[int] = None) -> tuple:
     """The partial rope's (cos, sin) tables, over ``rotary_ndims`` (any
     rope_scaling computed at that width, HF's partial_rotary_factor),
-    once per forward."""
+    once per forward (``seq_len``: the whole sequence's length where
+    ``positions`` are one context-parallel shard)."""
     return rope_tables(config.rotary_ndims, positions, config.rope_theta,
-                       config.rope_scaling, config.max_position_embeddings)
+                       config.rope_scaling, config.max_position_embeddings,
+                       seq_len)
 
 
 def rope_partial(x: torch.Tensor, rope: tuple, rotary_dim: int):
@@ -268,9 +272,52 @@ def lm_head_logits(config: NeoXConfig, params: dict,
                           output_weights(config, params))
 
 
+def embed_input(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
+                positions: torch.Tensor, layout=_WHOLE) -> torch.Tensor:
+    """The residual stream's input (a pipeline's first stage)."""
+    return tp_embed(config, params, input_ids, layout)
+
+
+def run_blocks(config: NeoXConfig, layers: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, attn_impl="auto", layout=_WHOLE,
+               remat: bool = False, remat_policy=None,
+               standard_layout: bool = True, first_layer: int = 0,
+               seq_len: Optional[int] = None) -> torch.Tensor:
+    """``_block`` over each layer of the stacked ``layers`` (a pipeline
+    stage's slice, or every layer), the partial rope's tables computed
+    once, under ``torch.utils.checkpoint`` with ``remat``."""
+    rope = layer_rope(config, positions, seq_len)
+
+    def one(x, layer):
+        return _block(config, x, layout.gather_layer(layer), positions, rope,
+                      attn_impl, standard_layout, layout)[0]
+
+    for layer in _unbind_layers(layers, _num_layers(layers)):
+        x = (remat_layer(one, x, layer, policy=remat_policy) if remat
+             else one(x, layer))
+    return x
+
+
+def final_layer(config: NeoXConfig, params: dict, x: torch.Tensor,
+                layout=_WHOLE) -> torch.Tensor:
+    """The final LayerNorm (a pipeline's last stage, before the head)."""
+    lnf = {k: layout.gather_leaf(f"lnf/{k}", v)
+           for k, v in params["lnf"].items()}
+    return final_hidden(config, {"lnf": lnf}, x)
+
+
+def logits_of_hidden(config: NeoXConfig, params: dict, hidden: torch.Tensor,
+                     layout=_WHOLE) -> torch.Tensor:
+    """fp32 logits of final-normed hidden states: the untied head, or the
+    plan's (vocab-parallel under tp)."""
+    if layout is _WHOLE:
+        return matmul_f32_out(hidden, output_weights(config, params))
+    return layout.logits(config, params, hidden)
+
+
 def apply(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
           positions: Optional[torch.Tensor] = None, *, remat: bool = False,
-          remat_policy=None, attn_impl: str = "auto",
+          remat_policy=None, attn_impl="auto",
           activation_sharding=None, return_hidden: bool = False,
           layer_schedule=None) -> torch.Tensor:
     """Training forward -> fp32 logits [B, S, V] (or the final-normed
@@ -278,31 +325,19 @@ def apply(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
     if layer_schedule is not None:
         raise NotImplementedError(
             "layer_schedule belongs to the overlap schedule (ROADMAP.md "
-            "queue 1, 'Context parallel, pipeline parallel and overlap')")
+            "queue 1, 'Overlap schedule and the fused loss')")
     layout = _WHOLE if activation_sharding is None else activation_sharding
-    standard_layout = positions is None
-    if positions is None:
-        positions = torch.arange(input_ids.shape[1],
-                                 device=input_ids.device)[None, :]
-    positions = positions.expand(input_ids.shape)
-    x = tp_embed(config, params, input_ids, layout)
-    rope = layer_rope(config, positions)
-
-    def block(x, layer):
-        return _block(config, x, layout.gather_layer(layer), positions, rope,
-                      attn_impl, standard_layout, layout)[0]
-
-    for layer in _unbind_layers(params["layers"], config.num_layers):
-        x = (remat_layer(block, x, layer, policy=remat_policy) if remat
-             else block(x, layer))
-    lnf = {k: layout.gather_leaf(f"lnf/{k}", v)
-           for k, v in params["lnf"].items()}
-    x = final_hidden(config, {"lnf": lnf}, x)
+    positions, seq_len, standard_layout = model_positions(input_ids,
+                                                          positions, layout)
+    x = embed_input(config, params, input_ids, positions, layout)
+    x = run_blocks(config, params["layers"], x, positions,
+                   attn_impl=attn_impl, layout=layout, remat=remat,
+                   remat_policy=remat_policy,
+                   standard_layout=standard_layout, seq_len=seq_len)
+    x = final_layer(config, params, x, layout)
     if return_hidden:
         return x
-    if activation_sharding is None:
-        return matmul_f32_out(x, output_weights(config, params))
-    return layout.logits(config, params, x)
+    return logits_of_hidden(config, params, x, layout)
 
 
 # ---------------------------------------------------------------------------

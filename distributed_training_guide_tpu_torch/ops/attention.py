@@ -76,11 +76,19 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_softcap: Optional[float] = None
                         ) -> torch.Tensor:
     """Scaled-dot-product attention with GQA. ``impl``: "xla" (the einsum
-    path), "flash" (``ops/flash_attention.flash_attention``), or "auto"
+    path), "flash" (``ops/flash_attention.flash_attention``), "auto"
     (flash where the JAX package would pick it, with "on a CUDA tensor" for
     "on TPU": causal, tile-aligned, standard layout; the einsum path
-    otherwise). The flash path takes the standard layout: positions are
-    ``arange`` and are not read."""
+    otherwise), or a callable (the ring or Ulysses attention of context
+    parallelism): ``impl(q, k, v, standard_layout=..., window=...)`` where
+    it declares ``accepts_window``, else without the window; its scale and
+    softcap are its own. The flash path takes the standard layout:
+    positions are ``arange`` and are not read."""
+    if callable(impl):
+        if getattr(impl, "accepts_window", False):
+            return impl(q, k, v, standard_layout=standard_layout,
+                        window=window)
+        return impl(q, k, v, standard_layout=standard_layout)
     if window is not None and not causal:
         raise ValueError(
             "window (sliding-window attention) requires causal=True — a "

@@ -22,6 +22,16 @@ of one global loss (Megatron's conjugate operators):
 
 A ``group`` of ``None`` means no group: each op is then the identity (the
 plain single-device form).
+
+Context and pipeline parallelism exchange tensors between the members of
+one mesh axis (``MemberExchange``): a permutation (the ring's rotations
+and zigzag relayout, the pipeline's hops), an all-to-all (Ulysses) and an
+all-gather (Ulysses where cp does not divide the heads).
+``GroupExchange`` holds this rank's one member of a process group and
+sends through ``dist.batch_isend_irecv`` / ``all_to_all_single``;
+``LocalExchange`` holds every member in one process, so the ring and the
+pipeline run over virtual members on one device (the card check, and the
+CPU tests against the JAX package on one process).
 """
 from __future__ import annotations
 
@@ -124,3 +134,167 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(x, op=op, group=group)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Exchanges between the members of one mesh axis (context and pipeline
+# parallelism): a permutation of tensors (ring rotations, the zigzag
+# relayout, pipeline hops) and an all-to-all (Ulysses)
+# ---------------------------------------------------------------------------
+
+class _Done:
+    """A permutation whose tensors are already in place."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def wait(self) -> list:
+        return self.out
+
+
+class _Posted:
+    """A permutation posted through ``batch_isend_irecv``: ``wait`` ends
+    every send and receive and returns what arrived. The posted ops (and
+    the buffers they send) live until then."""
+
+    def __init__(self, works: list, ops: list, out: list):
+        self.works, self.ops, self.out = works, ops, out
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        self.works, self.ops = [], []
+        return self.out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over dim 0 (one chunk per member); the same
+    exchange carries the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if not x.is_meta:                       # meta: shapes only
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def _split_cat(xs: list, split_dim: int, cat_dim: int) -> list:
+    """Member j receives chunk j of every member's tensor, concatenated
+    along ``cat_dim`` in member order."""
+    n = len(xs)
+    chunks = [torch.chunk(x, n, dim=split_dim) for x in xs]
+    return [torch.cat([chunks[i][j] for i in range(n)], dim=cat_dim)
+            for j in range(n)]
+
+
+class MemberExchange:
+    """The members ``0 .. size-1`` of one mesh axis (cp's ring positions,
+    pp's stages), of which this process holds ``local``. Every exchange
+    takes one item per local member, in ``local``'s order:
+
+    - ``permute(items, perm)``: ``perm`` is a list of (source, destination)
+      member pairs (``jax.lax.ppermute``'s); each item is a list of
+      tensors, and member d receives the item of the s with (s, d) in
+      ``perm``, or zeros where no pair names d. Returns a handle whose
+      ``wait()`` gives the received items: the sends are posted at once,
+      so work queued before ``wait`` overlaps them.
+    - ``all_to_all(xs, split_dim, cat_dim)``: member j receives chunk j
+      (along ``split_dim``) of every member's tensor, concatenated along
+      ``cat_dim`` in member order; autograd-aware.
+    - ``all_gather(xs, dim)``: every member receives every member's tensor,
+      concatenated along ``dim`` in member order; autograd-aware (each
+      member's gradient share is summed back onto its tensor)."""
+
+    size: int
+    local: tuple
+
+    def permute(self, items: list, perm: list):
+        raise NotImplementedError
+
+    def all_to_all(self, xs: list, split_dim: int, cat_dim: int) -> list:
+        raise NotImplementedError
+
+    def all_gather(self, xs: list, dim: int) -> list:
+        raise NotImplementedError
+
+
+class LocalExchange(MemberExchange):
+    """Every member in this process, on one device: a permutation is a
+    list rotation and the all-to-all a reshuffle of chunks. It runs the
+    ring or the pipeline over ``size`` virtual members on one card, and
+    holds them against the JAX package on one CPU process."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+        self.local = tuple(range(self.size))
+
+    def permute(self, items: list, perm: list):
+        src_of = {d: s for s, d in perm}
+        return _Done([list(items[src_of[m]]) if m in src_of
+                      else [torch.zeros_like(t) for t in items[m]]
+                      for m in self.local])
+
+    def all_to_all(self, xs: list, split_dim: int, cat_dim: int) -> list:
+        return _split_cat(xs, split_dim, cat_dim)
+
+    def all_gather(self, xs: list, dim: int) -> list:
+        whole = torch.cat(xs, dim=dim)
+        return [whole] * self.size
+
+
+class GroupExchange(MemberExchange):
+    """One member per process: this rank of ``group``. A permutation is
+    neighbour send / receive through ``dist.batch_isend_irecv`` (gloo on
+    the CPU, NCCL on the card), posted in the same order on every rank;
+    the all-to-all is ``all_to_all_single``, the all-gather ``all_gather``
+    above."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.local = (dist.get_rank(group),)
+        self.ranks = [dist.get_global_rank(group, i)
+                      for i in range(self.size)]
+
+    def permute(self, items: list, perm: list):
+        (me,), (item,) = self.local, items
+        dst = {s: d for s, d in perm}.get(me)
+        src = {d: s for s, d in perm}.get(me)
+        if dst == me:                       # stays here
+            return _Done([list(item)])
+        if any(t.is_meta for t in item):    # shapes only (the preflight)
+            return _Done([[torch.empty_like(t) for t in item]])
+        ops, out = [], []
+        for t in item:
+            if dst is not None:
+                ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                      self.ranks[dst], self.group))
+            buf = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                   if src is not None else torch.zeros_like(t))
+            if src is not None:
+                ops.append(dist.P2POp(dist.irecv, buf, self.ranks[src],
+                                      self.group))
+            out.append(buf)
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return _Posted(works, ops, [out])
+
+    def all_to_all(self, xs: list, split_dim: int, cat_dim: int) -> list:
+        (x,) = xs
+        n = self.size
+        stacked = torch.stack(torch.chunk(x, n, dim=split_dim), 0)
+        got = _AllToAll.apply(stacked, self.group)
+        return [torch.cat(torch.unbind(got, 0), dim=cat_dim)]
+
+    def all_gather(self, xs: list, dim: int) -> list:
+        (x,) = xs
+        return [all_gather(x, self.group, dim)]

@@ -4,7 +4,7 @@ Counterpart of ``distributed_training_guide_tpu/ops/cross_entropy.py``:
 the shift lives in the loss (labels are the input ids), log-softmax is
 fp32, and ``label == -100`` masks a position out of the mean (the HF
 convention). ``fused_linear_cross_entropy`` waits with ``ops/overlap.py``
-(ROADMAP.md queue 1, 'Context parallel, pipeline parallel and overlap').
+(ROADMAP.md queue 1, 'Overlap schedule and the fused loss').
 
 Under a sharding plan the loss is ``global_mean_loss``: the global NLL sum
 over the global valid count, the ``(sum, count)`` pair summed over the

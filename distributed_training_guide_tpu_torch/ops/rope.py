@@ -184,17 +184,22 @@ def scaled_rope_frequencies(head_dim: int, theta: float, scaling: Any = None,
 
 def rope_tables(head_dim: int, positions: torch.Tensor,
                 theta: float = 10000.0, scaling: Any = None,
-                max_position: Optional[int] = None) -> tuple:
+                max_position: Optional[int] = None,
+                seq_len: Optional[int] = None) -> tuple:
     """(cos, sin), each [..., seq, 1, head_dim // 2] fp32, for ``positions``
     [..., seq] (int): the angles ``rotate`` turns by. A forward computes
     them once and every layer's q and k reuse them. ``scaling`` /
-    ``max_position`` select an HF rope_scaling type (None = plain RoPE)."""
+    ``max_position`` select an HF rope_scaling type (None = plain RoPE).
+    ``seq_len``: the sequence length a sequence-dependent type (dynamic
+    NTK, longrope) reads, where ``positions`` are one shard of a longer
+    sequence (context parallelism); default ``max(positions) + 1``."""
     if scaling is None:
         inv_freq, attn_factor = rope_frequencies(head_dim, theta,
                                                  positions.device), 1.0
     else:
-        seq_len = None
-        if rope_type_of(scaling) in SEQ_DEPENDENT_ROPE_TYPES:
+        if rope_type_of(scaling) not in SEQ_DEPENDENT_ROPE_TYPES:
+            seq_len = None
+        elif seq_len is None:
             seq_len = positions.max() + 1
         inv_freq, attn_factor = scaled_rope_frequencies(
             head_dim, theta, scaling, max_position, seq_len, positions.device)

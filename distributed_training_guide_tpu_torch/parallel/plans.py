@@ -27,11 +27,22 @@ itself (``ops/collectives.py``), on local tensors:
   shards, and maps the kv projection to the kv heads of the rank's q heads;
 - ``LeafLayout`` says which collectives a leaf's grads and statistics need:
   the Trainer sums every grad over the data axes (each rank's loss is its
-  share of the global mean), over tp where ranks hold partial sums, and
+  share of the global mean), over tp where ranks hold partial sums, over
+  cp (each rank holds a sequence shard) and over pp for a leaf every stage
+  keeps (the embedding on the first stage, the head on the last), and
   takes global norms and means over the axes that shard it.
 
-``pp*`` and ``ep*`` strategies and cp > 1 raise ``NotImplementedError``
-naming their ROADMAP.md items.
+Context parallelism (cp > 1) shards the residual's sequence contiguously
+over cp: ``LocalLayout.positions`` gives the shard's global positions,
+the loss reads targets shifted before the sequence was sharded, and the
+attention is the ring or Ulysses (``ops/ring_attention.py``,
+``ops/ulysses_attention.py``), built by the Trainer over the cp group.
+The ``pp*`` strategies place the stacked ``[L]`` axis on pp; the step is
+the 1F1B schedule of ``parallel/pipeline.py``. Under cp or pp the
+residual is not sequence-sharded on tp (the JAX package's layout: cp
+holds the sequence dim, and the pipeline's blocks carry no sequence
+parallelism). ``ep*`` strategies raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -115,8 +126,7 @@ STRATEGIES: dict[str, dict[str, Any]] = {
 # logical axes that shard the optimizer state only (ZeRO-1, reference C3):
 ZERO1_RULES = {"embed": ("dp", "fsdp"), "vocab": ("dp", "fsdp")}
 
-# the ROADMAP.md items that port what a plan here refuses
-_PP_ITEM = "ROADMAP.md queue 1, 'Context parallel, pipeline parallel and overlap'"
+# the ROADMAP.md item that ports what a plan here refuses
 _EP_ITEM = "ROADMAP.md queue 1, 'Expert parallelism'"
 
 
@@ -202,6 +212,22 @@ class ShardingPlan:
         return idx
 
     @property
+    def sequence_parallel(self) -> bool:
+        """The residual's sequence sharded on tp: the plan asks for it, tp
+        > 1, and neither cp (which holds the sequence dim) nor pp (whose
+        blocks carry none) is on."""
+        sz = self.sizes
+        return (self.sequence_sharded and sz["tp"] > 1 and sz["cp"] == 1
+                and sz["pp"] == 1)
+
+    def exchange(self, axis: str):
+        """The ``ops/collectives.GroupExchange`` of this rank's line along
+        ``axis`` (cp's ring, pp's stages)."""
+        from ..ops.collectives import GroupExchange
+
+        return GroupExchange(self.group(axis))
+
+    @property
     def tensor_parallel(self) -> bool:
         """True when the rules put a model axis on tp."""
         return any("tp" in entry_axes(v) for v in self.rules.values())
@@ -235,6 +261,8 @@ class ShardingPlan:
         """The residual stream's spec [B, S, E] between blocks: the seq dim
         on tp under sequence parallelism (norms run on 1/tp of the tokens,
         an all-gather before attention / MLP and a reduce-scatter after)."""
+        if self.sizes["cp"] > 1:
+            return (self.data_axes, "cp", None)
         if self.sequence_sharded and self.sizes["tp"] > 1:
             return (self.data_axes, "tp", None)
         if self.strategy == "single":
@@ -245,7 +273,8 @@ class ShardingPlan:
         """Loss-parallel layout [B, S, V]: the vocab dim stays tp-sharded
         through the cross-entropy (``ops/vocab_parallel.py``)."""
         if self.rules.get("vocab") == "tp" and self.sizes["tp"] > 1:
-            return (self.data_axes, None, "tp")
+            seq = "cp" if self.sizes["cp"] > 1 else None
+            return (self.data_axes, seq, "tp")
         return None
 
     # ---- params / optimizer state -----------------------------------------
@@ -329,16 +358,10 @@ def make_plan(strategy: str, mesh, *, sequence_sharded: Optional[bool] = None,
               zero2: Optional[bool] = None) -> ShardingPlan:
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; choose from {sorted(STRATEGIES)}")
-    if strategy.startswith("pp"):
-        raise NotImplementedError(f"strategy {strategy!r}: {_PP_ITEM}")
     if strategy.startswith("ep"):
         raise NotImplementedError(f"strategy {strategy!r}: {_EP_ITEM}")
-    sizes = axis_sizes(mesh)
-    if sizes["cp"] > 1:
-        raise NotImplementedError(f"context parallelism (cp > 1): {_PP_ITEM}")
-    if sizes["pp"] > 1 or sizes["ep"] > 1:
-        raise NotImplementedError(
-            f"a mesh with pp or ep > 1: {_PP_ITEM}; {_EP_ITEM}")
+    if axis_sizes(mesh)["ep"] > 1:
+        raise NotImplementedError(f"a mesh with ep > 1: {_EP_ITEM}")
     if sequence_sharded is None:
         sequence_sharded = strategy in ("tp", "tp_fsdp")
     if zero2 is None:
@@ -451,7 +474,11 @@ class LocalLayout:
         self.specs = specs                  # path -> spec of the param
         self.tp_on = plan.tensor_parallel
         self.tp = plan.sizes["tp"]
-        self.sp = self.tp_on and plan.sequence_sharded
+        self.sp = self.tp_on and plan.sequence_parallel
+        self.cp = plan.sizes["cp"]
+        self.pp = plan.sizes["pp"]
+        self.cp_group = plan.group("cp") if self.cp > 1 else None
+        self.cp_rank = plan.mesh.get_local_rank("cp") if self.cp > 1 else 0
         self.tp_group = plan.group("tp") if self.tp_on else None
         self.tp_rank = plan.mesh.get_local_rank("tp") if self.tp_on else 0
         # ``model``: the subtree of the params the family's forward reads
@@ -556,6 +583,16 @@ class LocalLayout:
         rank's sequence shard under sequence parallelism."""
         return self._seq_shard(x) if self.sp else x
 
+    def positions(self, seq: int, device) -> tuple:
+        """(the global positions [1, seq] of this rank's rows, the whole
+        sequence's length for a sequence-dependent rope, or None): under
+        context parallelism the rank's contiguous shard of cp x ``seq``
+        positions."""
+        pos = torch.arange(seq, device=device)[None, :]
+        if self.cp == 1:
+            return pos, None
+        return pos + self.cp_rank * seq, seq * self.cp
+
     def embed(self, config, params: dict, input_ids: torch.Tensor):
         """The llama family's embedding (scaled for Gemma)."""
         x = self.embed_rows(self.table_path, params["embed"]["embedding"],
@@ -591,15 +628,24 @@ class LocalLayout:
              labels: torch.Tensor) -> torch.Tensor:
         """The global mean next-token NLL: every rank's (sum, count) pair
         summed over the ranks that hold different tokens (the data axes,
-        and tp where each rank has its own sequence shard), never a mean of
-        per-rank means. Its backward gives each rank its share of the one
-        global loss's gradient."""
+        tp where each rank has its own sequence shard, and cp), never a
+        mean of per-rank means. Its backward gives each rank its share of
+        the one global loss's gradient. Under context parallelism
+        ``labels`` are the rank's targets, shifted before the sequence was
+        sharded (``data/loader.py:shift_targets``)."""
         from ..ops.cross_entropy import global_mean_loss, nll_and_count
         from ..ops.vocab_parallel import vocab_parallel_nll
 
         logits = self.logits(config, params, hidden)
         groups = [self.plan.group(a) for a in self.plan.data_axes]
-        if self.vocab_parallel:
+        if self.cp > 1:
+            groups.append(self.cp_group)
+            if self.vocab_parallel:
+                nll, count = vocab_parallel_nll(logits, labels, self.tp_group,
+                                                self.tp_rank)
+            else:
+                nll, count = nll_and_count(logits, labels)
+        elif self.vocab_parallel:
             nll, count = vocab_parallel_nll(logits[:, :-1], labels[:, 1:],
                                             self.tp_group, self.tp_rank)
         elif self.sp:       # this rank's sequence shard: targets shifted first
@@ -617,13 +663,20 @@ class LocalLayout:
         axes its gather did not already reduce-scatter, and tp where the
         tp ranks hold partial sums of a leaf they all keep (a norm scale
         on sequence shards, a per-head scale or an unsharded kv projection
-        on their own heads)."""
+        on their own heads), cp (each rank's grad is its sequence shard's
+        share), and pp for a leaf every stage keeps (the embedding, the
+        norms and head: partial on the stages that use them, zero on the
+        rest)."""
         sharded = {a for e in self.specs[path] for a in entry_axes(e)}
         axes = [a for a in self.plan.data_axes if a not in sharded]
         if (self.tp_on and "tp" not in sharded
                 and (self.sp or path.rsplit("/", 1)[-1] in _PARTIAL_ON_TP
                      or self._adapts_tp_leaf(path))):
             axes.append("tp")
+        if self.cp > 1:
+            axes.append("cp")
+        if self.pp > 1 and "pp" not in sharded:
+            axes.append("pp")
         return tuple(axes)
 
     def _adapts_tp_leaf(self, path: str) -> bool:

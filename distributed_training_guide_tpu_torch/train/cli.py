@@ -12,8 +12,11 @@ saves every ``--ckpt-freq`` steps (``--keep-checkpoints``,
 ``--async-checkpoint``, ``--checkpoint-full-crc``), and tracks with wandb
 under ``--wandb``. ``--optimizer``, ``--precision-policy``,
 ``--param-dtype``, ``--remat-policy``, ``--mmap-data``, ``--pretrained``,
-``--preflight`` and ``--lora-rank`` (``--lora-alpha``, ``--lora-targets``:
-adapters on a frozen base, ``models/lora.py``) are the JAX package's. The fault drills of
+``--preflight``, ``--lora-rank`` (``--lora-alpha``, ``--lora-targets``:
+adapters on a frozen base, ``models/lora.py``), ``--context-impl`` and
+``--cp-hop-loop`` (context parallelism's ring or Ulysses, chapter 08) are
+the JAX package's, and ``run_training(..., pp_microbatches=)`` sets the
+pipeline's microbatches (chapter 09). The fault drills of
 ``utils/faults.py`` and the heartbeat of ``utils/heartbeat.py`` are wired
 in. A flag whose feature a later slice ports raises
 ``NotImplementedError`` naming its ROADMAP.md item when it is set away
@@ -23,9 +26,11 @@ from its default.
 builds the sharding plan (``parallel/plans.py:make_plan``) once the
 process group is up (``launch/distributed.py``); without one the run is
 chapter 01's single-device loop. Under a plan each rank loads its rows of
-a global batch of ``batch_size x data ranks x grad_accum``, tokens/s counts
-every rank's tokens and MFU divides by the mesh's devices, and only
-process 0 logs, tracks, beats the heartbeat and writes the profile.
+a global batch of ``batch_size x data ranks x grad_accum`` (under pp each
+of the M microbatches split over the data ranks; under cp its sequence
+shard and the shifted targets), tokens/s counts every rank's tokens and
+MFU divides by the mesh's devices, and only process 0 logs, tracks, beats
+the heartbeat and writes the profile.
 """
 from __future__ import annotations
 
@@ -41,8 +46,7 @@ LOGGER = logging.getLogger(__name__)
 # flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
 _UNPORTED_FLAGS = {
     "native_loader": (False, "'Runtime robustness and tooling'"),
-    "overlap_schedule": (False,
-                         "'Context parallel, pipeline parallel and overlap'"),
+    "overlap_schedule": (False, "'Overlap schedule and the fused loss'"),
 }
 
 
@@ -89,10 +93,15 @@ def get_parser() -> argparse.ArgumentParser:
                         choices=["auto", "xla", "flash"])
     parser.add_argument("--context-impl", default="ring",
                         choices=["ring", "ulysses"],
-                        help="cp>1 attention scheme (inert on one device)")
+                        help="cp>1 attention: the zigzag ring "
+                             "(ops/ring_attention.py) or Ulysses' "
+                             "all-to-all (ops/ulysses_attention.py); inert "
+                             "at cp 1")
     parser.add_argument("--cp-hop-loop", default="auto",
                         choices=["auto", "scan", "unrolled"],
-                        help="ring hop-loop form (inert on one device)")
+                        help="the JAX ring's hop-loop form; the port has "
+                             "one loop (op-for-op the same per hop), so "
+                             "the value is validated and logged only")
     parser.add_argument("--max-steps", default=None, type=int)
     parser.add_argument("--guard-policy", default="off",
                         choices=["off", "skip", "abort"],
@@ -196,7 +205,8 @@ def run_training(args, plan_factory=None, *, device=None,
                  extra_log: Optional[dict] = None,
                  model_overrides: Optional[dict] = None,
                  offload_opt_state: bool = False,
-                 offload_params: bool = False) -> dict:
+                 offload_params: bool = False,
+                 pp_microbatches: Optional[int] = None) -> dict:
     """The training loop. ``plan_factory() -> ShardingPlan`` is the one
     thing chapters customize (None: one device). Returns the host state,
     the last info dict, the state, every logged info dict, whether the run
@@ -208,7 +218,8 @@ def run_training(args, plan_factory=None, *, device=None,
     checkpoint (``models/hf_convert.py``; each rank reads its own shards);
     ``--preflight`` trains nothing and returns the budget report of
     ``train/preflight.py`` for this model, plan and flags (the trainer on
-    the meta device)."""
+    the meta device). ``pp_microbatches``: the pipeline's M under a pp
+    plan (2 pp by default)."""
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
@@ -273,6 +284,10 @@ def run_training(args, plan_factory=None, *, device=None,
     else:
         LOGGER.info(f"Training {bundle.num_params():,} model parameters on "
                     f"mesh {plan.sizes} strategy={plan.strategy} ({device})")
+    from ..ops.ring_attention import accept_hop_loop
+
+    accept_hop_loop(getattr(args, "cp_hop_loop", "auto"),
+                    1 if plan is None else plan.sizes.get("cp", 1))
     seq_length = min(args.seq_length, cfg.max_position_embeddings)
     trainer = Trainer(
         bundle=bundle, optimizer=OPTIMIZERS[args.optimizer](args.lr),
@@ -281,7 +296,9 @@ def run_training(args, plan_factory=None, *, device=None,
         attn_impl=args.attn_impl, guard_policy=args.guard_policy,
         precision=args.precision_policy, device=device, plan=plan,
         offload_opt_state=offload_opt_state, offload_params=offload_params,
-        lora_only=bool(lora_rank))
+        lora_only=bool(lora_rank),
+        context_impl=getattr(args, "context_impl", "ring"),
+        pp_microbatches=pp_microbatches)
     guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
     data_ranks = 1 if plan is None else plan.data_parallel_size
     global_batch = args.batch_size * data_ranks * args.grad_accum
@@ -299,10 +316,16 @@ def run_training(args, plan_factory=None, *, device=None,
         dataset_subset=args.dataset_subset,
         mmap_dir=args.mmap_data)
     LOGGER.info(f"{len(dataset)} training sequences of length {seq_length}")
+    sizes = {} if plan is None else plan.sizes
+    pipe = getattr(trainer.plan_state, "pipeline", None)
     loader = BatchLoader(dataset, global_batch, device=device,
                          grad_accum=args.grad_accum, seed=args.seed,
                          data_rank=0 if plan is None else plan.data_rank,
-                         data_size=data_ranks)
+                         data_size=data_ranks,
+                         microbatches=1 if pipe is None else pipe.M,
+                         seq_rank=(plan.mesh.get_local_rank("cp")
+                                   if sizes.get("cp", 1) > 1 else 0),
+                         seq_size=sizes.get("cp", 1))
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)

@@ -12,8 +12,12 @@ the step and the checkpoints. Stages map to the port's sharding plans
     stage 3 -> fsdp (params sharded too)
 
 and ``tensor_parallel`` > 1 to ``tp`` (``tp_fsdp`` at stage 3; ZeRO-1 / 2
-keep their optimizer-state sharding under tp). The keys are the JAX
-engine's: ``model``, ``zero_optimization.stage``, ``tensor_parallel``,
+keep their optimizer-state sharding under tp); ``pipeline_parallel`` > 1
+to ``pp`` / ``pp_tp`` / ``pp_fsdp`` / ``pp_tp_fsdp`` (``pp_microbatches``)
+and ``context_parallel`` > 1 adds a cp axis (``context_impl``: "ring" or
+"ulysses"; ``cp_hop_loop`` is validated and logged), as the JAX engine
+builds them. The keys are the JAX engine's: ``model``,
+``zero_optimization.stage``, ``tensor_parallel``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``,
 ``optimizer`` (``AdamW`` / ``Adafactor`` / ``Lion`` and their params),
 ``scheduler`` (the flat ``{t_max, eta_min_ratio, warmup_steps, decay}`` or
@@ -26,9 +30,8 @@ LoRA adapters on a frozen base, ``models/lora.py``), and the offloads,
 ``offload_optimizer`` /
 ``offload_params`` or DeepSpeed's ``zero_optimization.offload_optimizer``
 / ``offload_param`` (a bool or ``{"device": "cpu"}``; ``"none"``
-disables). ``pipeline_parallel``, ``context_parallel``, ``expert_parallel``
-> 1 and ``overlap_schedule`` raise ``NotImplementedError`` naming their
-ROADMAP.md items.
+disables). ``expert_parallel`` > 1 and ``overlap_schedule`` raise
+``NotImplementedError`` naming their ROADMAP.md items.
 
 The engine starts the process group it needs
 (``launch.maybe_initialize_distributed``: the torchrun env contract, or a
@@ -44,7 +47,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 _STAGE_TO_STRATEGY = {0: "ddp", 1: "zero1", 2: "zero2", 3: "fsdp"}
-_CP_PP = "ROADMAP.md queue 1, 'Context parallel, pipeline parallel and overlap'"
+_OVERLAP = "ROADMAP.md queue 1, 'Overlap schedule and the fused loss'"
 _EP = "ROADMAP.md queue 1, 'Expert parallelism'"
 
 
@@ -57,11 +60,8 @@ def _ds_offload_enabled(v) -> bool:
 
 
 def _refuse_unported(config: dict) -> None:
-    refused = (("pipeline_parallel", 1, _CP_PP), ("pp_microbatches", None,
-                                                    _CP_PP),
-               ("context_parallel", 1, _CP_PP), ("context_impl", None, _CP_PP),
-               ("cp_hop_loop", None, _CP_PP), ("expert_parallel", 1, _EP),
-               ("overlap_schedule", False, _CP_PP))
+    refused = (("expert_parallel", 1, _EP),
+               ("overlap_schedule", False, _OVERLAP))
     for key, default, item in refused:
         if config.get(key, default) not in (default, None):
             raise NotImplementedError(
@@ -146,14 +146,23 @@ def _optimizer(config: dict):
     return spec, precision, sched
 
 
-def plan_for_stage(stage: int, tp: int) -> tuple:
-    """(strategy, zero1, zero2) of a ZeRO stage and tensor-parallel size:
-    the ``make_plan`` arguments (ZeRO-1 / 2 stay sharded when
-    tensor_parallel rewrites the strategy; None lets the strategy say)."""
+def plan_for_stage(stage: int, tp: int, pp: int = 1) -> tuple:
+    """(strategy, zero1, zero2) of a ZeRO stage, tensor- and
+    pipeline-parallel sizes: the ``make_plan`` arguments (ZeRO-1 / 2 stay
+    sharded when tensor_parallel rewrites the strategy; None lets the
+    strategy say)."""
     if stage not in _STAGE_TO_STRATEGY:
         raise ValueError(f"zero_optimization.stage must be 0-3, got "
                          f"{stage!r}")
-    if tp > 1:
+    if stage in (1, 2) and pp > 1:
+        raise ValueError(
+            "ZeRO stage 1/2 shards optimizer/grad state over the data "
+            "axes of ddp/tp plans; with pipeline_parallel use stage 0 or 3")
+    if pp > 1:
+        strategy = ("pp_tp_fsdp" if tp > 1 and stage == 3
+                    else "pp_tp" if tp > 1
+                    else "pp_fsdp" if stage == 3 else "pp")
+    elif tp > 1:
         strategy = "tp_fsdp" if stage == 3 else "tp"
     else:
         strategy = _STAGE_TO_STRATEGY[stage]
@@ -207,34 +216,42 @@ class TrainingEngine:
 
         stage = config.get("zero_optimization", {}).get("stage", 0)
         tp = config.get("tensor_parallel", 1)
-        plan_args = plan_for_stage(stage, tp)   # fails before the group
+        pp = config.get("pipeline_parallel", 1)
+        cp = config.get("context_parallel", 1)
+        plan_args = plan_for_stage(stage, tp, pp)   # fails before the group
         self._owns_group = not dist.is_initialized()
         self._ios: dict[str, Any] = {}
         maybe_initialize_distributed(device)
         try:
-            self._build(config, bundle, stage == 3, tp, plan_args, device)
+            self._build(config, bundle, stage == 3, (tp, pp, cp), plan_args,
+                        device)
         except BaseException:
             self.close()
             raise
 
-    def _build(self, config: dict, bundle, fsdp: bool, tp: int,
+    def _build(self, config: dict, bundle, fsdp: bool, sizes: tuple,
                plan_args: tuple, device) -> None:
         import torch.distributed as dist
 
+        from ..ops.ring_attention import accept_hop_loop
         from ..parallel import make_mesh, make_plan
         from .guards import GuardMonitor
         from .step import Trainer
 
         n = dist.get_world_size()
-        if n % tp:
-            raise ValueError(f"{n} ranks not divisible by tensor_parallel "
-                             f"{tp}")
-        mesh_kw = {"tp": tp} if tp > 1 else {}
+        tp, pp, cp = sizes
+        denom = tp * pp * cp
+        if n % denom:
+            raise ValueError(f"{n} ranks not divisible by tensor x "
+                             f"pipeline x context = {denom}")
+        mesh_kw = {k: v for k, v in dict(tp=tp, pp=pp, cp=cp).items()
+                   if v > 1}
         if fsdp:
-            mesh_kw["fsdp"] = n // tp
+            mesh_kw["fsdp"] = n // denom
         strategy, zero1, zero2 = plan_args
         plan = make_plan(strategy, make_mesh(device=device, **mesh_kw),
                          zero1=zero1, zero2=zero2)
+        accept_hop_loop(config.get("cp_hop_loop", "auto"), cp)
 
         optimizer, precision, self.scheduler_config = _optimizer(config)
         ac = config.get("activation_checkpointing", False)
@@ -262,7 +279,9 @@ class TrainingEngine:
             offload_params=bool(
                 config.get("offload_params", False)
                 or _ds_offload_enabled(zero.get("offload_param", False))),
-            lora_only=bool(config.get("lora")))
+            lora_only=bool(config.get("lora")),
+            pp_microbatches=config.get("pp_microbatches"),
+            context_impl=config.get("context_impl", "ring"))
         self.state = self.trainer.init_state(config.get("seed", 0))
         self._step = 0       # host mirror of state.step
 

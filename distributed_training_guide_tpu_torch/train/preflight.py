@@ -161,7 +161,7 @@ def comm_roofline(trainer, *, global_batch: int, seq_length: int,
     t_comp = (flops_per_token * global_batch * seq_length) / (peak * n_chips)
     t_comm = comm_bytes / link
     # the port has no latency-hiding schedule (--overlap-schedule is
-    # ROADMAP queue 1's 'Context parallel, pipeline parallel and overlap'),
+    # ROADMAP queue 1's 'Overlap schedule and the fused loss'),
     # so the whole comm budget is priced exposed
     schedulable = (table["fsdp_allgather_weights"]
                    + table["fsdp_reducescatter_grads"]
@@ -199,17 +199,23 @@ def price_post_colocation(*args, **kwargs):
 
 
 def _meta_batch(trainer, global_batch: int, seq_length: int) -> dict:
-    """This rank's rows of a global batch, as meta int64 ids."""
+    """This rank's rows of a global batch, as meta int64 ids (under cp its
+    sequence shard and targets)."""
     data = 1 if trainer.plan is None else trainer.plan.data_parallel_size
+    cp = 1 if trainer.plan is None else trainer.plan.sizes["cp"]
     if global_batch % (data * trainer.grad_accum):
         raise ValueError(
             f"global batch {global_batch} is not divisible by data ranks "
             f"({data}) x gradient accumulation ({trainer.grad_accum})")
+    if seq_length % cp:
+        raise ValueError(f"sequence {seq_length} is not divisible by cp "
+                         f"({cp})")
     rows = global_batch // (data * trainer.grad_accum)
-    shape = ((trainer.grad_accum, rows, seq_length) if trainer.grad_accum > 1
-             else (rows, seq_length))
+    seq = seq_length // cp
+    shape = ((trainer.grad_accum, rows, seq) if trainer.grad_accum > 1
+             else (rows, seq))
     ids = torch.empty(shape, dtype=torch.int64, device="meta")
-    return {"input_ids": ids, "labels": ids}
+    return {"input_ids": ids, ("targets" if cp > 1 else "labels"): ids}
 
 
 def _device_limit(target_device: str) -> tuple:

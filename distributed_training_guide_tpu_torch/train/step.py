@@ -20,7 +20,13 @@ buffer. fsdp: params sharded on embed / vocab, each layer all-gathered just
 before it (again in the remat recompute), grads reduce-scattered. tp:
 column-parallel wq / wk / wv / gate / up, row-parallel wo / down, the
 residual's sequence on tp, the vocab-parallel embedding and loss. tp_fsdp:
-both, on orthogonal axes.
+both, on orthogonal axes. cp > 1 (chapter 08): each rank holds a sequence
+shard (the loader's shifted ``targets`` beside it) and attention is the
+ring or Ulysses over the cp group (``context_impl``; window, Gemma-2's
+scale and softcap built in from the config), every grad summed over cp.
+pp > 1 (chapter 09): the 1F1B schedule of ``parallel/pipeline.py``
+(``pp_microbatches``, 2 pp by default) is the value-and-grad, each stage
+holding its slice of the layers.
 
 ``offload_opt_state`` / ``offload_params`` keep the optimizer state /
 params in host memory between steps (``train/offload.py``: fetched to the
@@ -70,10 +76,9 @@ _PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
 
 # Trainer fields of the JAX package that later slices port, and where
 _UNPORTED = {
-    "context_impl": "'Context parallel, pipeline parallel and overlap'",
-    "overlap_schedule": "'Context parallel, pipeline parallel and overlap'",
-    "pp_microbatches": "'Context parallel, pipeline parallel and overlap'",
+    "overlap_schedule": "'Overlap schedule and the fused loss'",
 }
+CONTEXT_IMPLS = ("ring", "ulysses")
 
 
 def _global_norm(grads: list) -> torch.Tensor:
@@ -110,7 +115,7 @@ class Trainer:
     precision: Any = "fp32"
     device: Any = None
     plan: Any = None            # a ShardingPlan; None or "single": one device
-    context_impl: Any = None
+    context_impl: str = "ring"  # cp > 1 attention: "ring" or "ulysses"
     offload_opt_state: bool = False
     offload_params: bool = False
     lora_only: bool = False
@@ -136,6 +141,27 @@ class Trainer:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet (ROADMAP.md "
                     f"queue 1, {item})")
+        if self.context_impl not in CONTEXT_IMPLS:
+            raise ValueError(f"unknown context_impl {self.context_impl!r}; "
+                             f"use 'ring' or 'ulysses'")
+        cfg = self.bundle.config
+        if callable(self.attn_impl) and (
+                getattr(cfg, "attn_logit_softcap", None) is not None
+                or getattr(cfg, "query_pre_attn_scalar", None)
+                or ((getattr(cfg, "layer_windows", None)
+                     or getattr(cfg, "sliding_window", None))
+                    and not getattr(self.attn_impl, "accepts_window",
+                                    False))):
+            # a user-supplied callable's contract carries no softcap or
+            # scale (the Trainer-built ring and Ulysses bake them in from
+            # the config), so Gemma-2's extras would be dropped silently
+            raise ValueError(
+                "a user-supplied attn_impl callable cannot receive the "
+                "configured attention extras (attn_logit_softcap / "
+                "query_pre_attn_scalar / sliding_window / layer_windows): "
+                "they would be silently dropped; use attn_impl='auto' or "
+                "'xla', or set accepts_window=True on a callable that "
+                "takes the per-call window")
         from ..models.lora import is_lora
 
         self.lora = is_lora(self.bundle)
@@ -469,6 +495,53 @@ class PlanState:
                 raise NotImplementedError(
                     f"{p}: optimizer state sharded further than its sharded "
                     f"param ({specs[p]} -> {opt_specs[p]}): {_PLAN_REST}")
+        self.cp, self.pp = self.plan.sizes["cp"], self.plan.sizes["pp"]
+        self.attn_impl = self._attention(trainer)
+        self.pipeline = None
+        if self.pp > 1:
+            from ..parallel.pipeline import Pipeline
+
+            # under cp every tick runs on every member, masked (JAX's
+            # run_all)
+            self.pipeline = Pipeline(
+                trainer.bundle, self.plan.exchange("pp"),
+                microbatches=trainer.pp_microbatches, layout=self.layout,
+                attn_impl=self.attn_impl, remat=trainer.remat,
+                remat_policy=trainer.remat_policy, run_all=self.cp > 1,
+                data_size=self.plan.data_parallel_size)
+
+    def _attention(self, trainer):
+        """The attention the forward runs: the trainer's, or under cp > 1
+        the ring or Ulysses over this rank's cp group, with the config's
+        window, Gemma-2 score scale and softcap built in (the JAX
+        Trainer's ``step_fn``)."""
+        if self.cp == 1 or callable(trainer.attn_impl):
+            return trainer.attn_impl
+        from ..models.llama import attention_extras
+
+        cfg = trainer.bundle.config
+        scale, softcap = attention_extras(cfg)
+        window = getattr(cfg, "sliding_window", None)
+        exchange = self.plan.exchange("cp")
+        if trainer.context_impl == "ulysses":
+            from ..ops.ulysses_attention import make_ulysses_attention
+
+            impl = trainer.attn_impl
+            if self.pp > 1:
+                # the JAX pipeline nests only Ulysses' flash path
+                if impl == "xla":
+                    raise ValueError(
+                        "attn_impl='xla' cannot run Ulysses inside the "
+                        "pipeline (the JAX package's refusal: its xla path "
+                        "names the concrete mesh); drop --attn-impl, or use "
+                        "--context-impl ring")
+                impl = "flash"
+            return make_ulysses_attention(exchange, window=window, impl=impl,
+                                          scale=scale, logit_softcap=softcap)
+        from ..ops.ring_attention import make_ring_attention
+
+        return make_ring_attention(exchange, window=window, scale=scale,
+                                   logit_softcap=softcap)
 
     @classmethod
     def build(cls, trainer) -> "PlanState":
@@ -478,8 +551,8 @@ class PlanState:
 
             raise NotImplementedError(
                 f"{bundle.name} under plan {plan.strategy!r}: a mixture of "
-                f"experts under a sharding plan needs expert parallelism "
-                f"({_EP_ITEM})")
+                f"experts under a sharding plan (dp, fsdp, tp, pp or cp) "
+                f"needs expert parallelism ({_EP_ITEM})")
         if trainer.loss_chunks > 0 or trainer.loss_fn is not causal_lm_loss:
             raise NotImplementedError(
                 f"a chunked or custom loss under a sharding plan: "
@@ -530,6 +603,18 @@ class PlanState:
                           sharding=StateShards(self, update))
 
     # ---- the step ----------------------------------------------------------
+    def _labels(self, mb: dict) -> torch.Tensor:
+        """The microbatch's labels, or under cp its shifted targets."""
+        if self.cp == 1:
+            return mb["labels"]
+        if "targets" not in mb:
+            raise ValueError(
+                "under context parallelism the batch holds each rank's "
+                "sequence shard and its targets, shifted before the "
+                "sequence was sharded ({'input_ids', 'targets'}: "
+                "data/loader.py:local_batch, or the loader's seq_size)")
+        return mb["targets"]
+
     def _loss(self, params: dict, mb: dict) -> torch.Tensor:
         t = self.trainer
         cfg = t.bundle.config
@@ -540,11 +625,30 @@ class PlanState:
                              f"({self.layout.tp})")
         hidden = t.bundle.apply(cfg, params, ids, remat=t.remat,
                                 remat_policy=t.remat_policy,
-                                attn_impl=t.attn_impl,
+                                attn_impl=self.attn_impl,
                                 activation_sharding=self.layout,
                                 return_hidden=True)
         return self.model_layout.loss(
-            cfg, params["base"] if t.lora else params, hidden, mb["labels"])
+            cfg, params["base"] if t.lora else params, hidden,
+            self._labels(mb))
+
+    def _pipeline_backward(self, params: dict, leaves: dict,
+                           mb: dict) -> torch.Tensor:
+        """The pipeline's value-and-grad on one (accumulation) microbatch:
+        its grads added into each leaf's ``.grad`` (as ``backward`` would),
+        its loss summed over the stages (the last stage's)."""
+        from ..ops import collectives as C
+
+        loss, (grads,) = self.pipeline.value_and_grad(
+            [params], mb["input_ids"], self._labels(mb))
+        for path, p in leaves.items():
+            g = grads.get(path)
+            if g is None:
+                g = torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
+            g = g.to(p.dtype)
+            p.grad = g if p.grad is None else p.grad + g
+        return C.all_reduce_(loss, self.plan.group("pp"))
 
     @torch.no_grad()
     def _scatter(self, path: str, g: torch.Tensor) -> torch.Tensor:
@@ -581,8 +685,11 @@ class PlanState:
         loss = torch.zeros((), dtype=torch.float32, device=t.device)
         for a in range(n_acc):
             mb = batch if n_acc == 1 else {k: v[a] for k, v in batch.items()}
-            mb_loss = self._loss(state.params, mb)
-            mb_loss.backward()
+            if self.pipeline is not None:
+                mb_loss = self._pipeline_backward(state.params, leaves, mb)
+            else:
+                mb_loss = self._loss(state.params, mb)
+                mb_loss.backward()
             loss = loss + mb_loss.detach()
             if n_acc == 1:
                 continue

@@ -5,7 +5,7 @@ tensor_parallel -> tp / tp_fsdp); three steps at stage 0 on llama-debug in
 fp32 against the JAX ``TrainingEngine`` on the same weights (carried across
 as numpy) and batches, losses within 1e-4 relative (fp32 math in two
 frameworks, the sums in another order); refused keys naming their ROADMAP
-items; DeepSpeed's offload and scheduler spellings; a save and a load; and
+items, and pipeline / context parallelism building the JAX engine's plan; DeepSpeed's offload and scheduler spellings; a save and a load; and
 the engine chapter (``chapters/engine_llm.py``) on the JAX package's own
 ``alternative-frameworks/engine/config.json``."""
 import json
@@ -85,15 +85,48 @@ def test_stage_zero_losses_equal_the_jax_engine():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("pipeline_parallel", 2, "Context parallel, pipeline parallel"),
-    ("context_parallel", 2, "Context parallel, pipeline parallel"),
+    ("pipeline_parallel", 2, None),
+    ("context_parallel", 2, None),
     ("expert_parallel", 2, "Expert parallelism"),
-    ("overlap_schedule", True, "Context parallel, pipeline parallel")])
+    ("overlap_schedule", True, "Overlap schedule and the fused loss")])
 def test_refused_keys_name_their_items(key, value, item):
+    """expert_parallel and overlap_schedule refuse, naming their ROADMAP
+    items; pipeline_parallel and context_parallel (item None: ported)
+    build the plan the JAX engine builds on its 8 CPU devices, here on a
+    fake process group of 8 ranks."""
     import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match=item):
-        TrainingEngine({**BASE, key: value}, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            TrainingEngine({**BASE, key: value}, device="cpu")
+        assert not dist.is_initialized()
+        return
+    from distributed_training_guide_tpu_torch.train.preflight import (
+        fake_group)
+
+    jplan = JEngine({**BASE, key: value}).trainer.plan
+    with fake_group(len(jax.devices())):
+        engine = TrainingEngine({**BASE, key: value}, device="cpu")
+        try:
+            plan = engine.trainer.plan
+            assert plan.strategy == jplan.strategy
+            assert plan.sizes == {a: int(n) for a, n in
+                                  jplan.mesh.shape.items()}
+            assert (plan.zero1, plan.zero2) == (jplan.zero1, jplan.zero2)
+            pipe = engine.trainer.plan_state.pipeline
+            assert (pipe is not None) == (key == "pipeline_parallel")
+        finally:
+            engine.close()
+    assert not dist.is_initialized()
+
+
+def test_cp_hop_loop_is_validated_where_the_config_enters():
+    """The JAX hop-loop forms are accepted (the port runs one loop); any
+    other ``cp_hop_loop`` refuses at the engine, which closes its group."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="hop_loop"):
+        TrainingEngine({**BASE, "cp_hop_loop": "spiral"}, device="cpu")
     assert not dist.is_initialized()
 
 

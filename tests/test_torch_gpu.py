@@ -1624,3 +1624,189 @@ def test_gemma2_shape_kernels_match_plain_versions(cuda):
             moved = _rel_l2(pd.paged_attend_reference(
                 qd, kp, vp, tables, lengths, **no_cap), ref)
             assert moved > 10 * FLASH_BF16_REL_L2, moved
+
+
+# the bf16 bodies at the calls the ring makes: (B, S, Hq, Hkv, D, causal,
+# window, band offsets, scale, softcap, q scale): llama-3.2-1b's past
+# chunk pairs (non-causal), llama-3.1-8b's chunk pair whose keys lie
+# partly below the 4096 band, gemma2-2b's cp-4 chunk pair at S 16384 (the
+# WMMA body) on q as drawn and on q x CAP_Q_SCALE
+RING_PAIR_CASES = {
+    "past-512": (1, 512, 32, 8, 64, False, None, None, None, None, 1.0),
+    "past-2048": (1, 2048, 32, 8, 64, False, None, None, None, None, 1.0),
+    "8b-band": (1, 2048, 32, 8, 128, True, 4096, (6144, 2048), None, None,
+                1.0),
+    "gemma2-band": (1, 2048, 8, 4, 256, True, 4096, (10240, 6144), 1 / 16,
+                    50.0, 1.0),
+    "gemma2-band-x12": (1, 2048, 8, 4, 256, True, 4096, (10240, 6144),
+                        1 / 16, 50.0, CAP_Q_SCALE)}
+
+
+@pytest.mark.parametrize("name", list(RING_PAIR_CASES))
+def test_flash_bodies_at_the_ring_pair_shapes(cuda, name):
+    """K1-K3's bf16 bodies at ``causal=False`` and at bands with nonzero
+    (q_off, k_off): within ``FLASH_BF16_REL_L2`` of their plain versions
+    (lse within the fp32 bound, scaled with q; -1e30 and o = 0 on rows with
+    no live key), and at the kernels' own arithmetic within
+    ``FLASH_KERNEL_ARITH_REL_L2`` (K1 on the wgmma body; K2 / K3 on
+    both)."""
+    b, s, hq, hkv, d, causal, window, offs, scale, cap, c = \
+        RING_PAIR_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(14 + d)
+    q, k, v, do = _flash_inputs(cuda, gen, "bf16", hq, hkv, d, b=b, sq=s,
+                                sk=s)
+    q = (q.float() * c).to(q.dtype)
+    kw = dict(causal=causal, scale=scale, softcap=cap)
+    if offs is not None:
+        kw["band"] = fa.pack_band(window, *offs)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+    assert _rel_l2(o, ro) <= FLASH_BF16_REL_L2
+    assert (lse - rlse).abs().max().item() <= FLASH_FP32["lse"] * c
+    dead = rlse == fa.NEG_INF
+    assert not o.transpose(1, 2)[dead].any()
+    if fa._fwd_plan(d, q.dtype) == "wgmma":
+        ao, _ = fa.flash_attention_reference(q, k, v, **kw, round_p=True)
+        assert _rel_l2(o, ao) <= FLASH_KERNEL_ARITH_REL_L2
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    got = fa.flash_bwd_with_stats(*args, **kw)
+    want = fa.flash_bwd_reference(*args, **kw)
+    arith = fa.flash_bwd_reference(*args, **kw, round_p_ds=True)
+    for key, g, w, a in zip(("dq", "dk", "dv"), got, want, arith):
+        assert _rel_l2(g, w) <= FLASH_BF16_REL_L2, key
+        assert _rel_l2(g, a) <= FLASH_KERNEL_ARITH_REL_L2, key
+
+
+def _members(x, cp=4):
+    return list(torch.chunk(x, cp, dim=1))
+
+
+def test_ring_on_the_card_matches_the_plain_version(cuda):
+    """The zigzag ring over 4 virtual members (llama-3.2-1b's attention,
+    bf16, S 1024): 36 launches of each of K1-K3 (cp (2cp + 1)), o and its
+    grads within ``FLASH_BF16_REL_L2`` of the plain whole-sequence
+    attention."""
+    from distributed_training_guide_tpu_torch.ops import ring_attention as ra
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v, do = _flash_inputs(cuda, gen, "bf16", 32, 8, 64, b=1, sq=1024,
+                                sk=1024)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    o = torch.cat(ra.ring_attention(LocalExchange(4), *(
+        _members(x) for x in leaves)), dim=1)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(
+        (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)) == (
+        36, 36, 36)
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    want = fa.flash_bwd_reference(q, k, v, do, rlse, delta)
+    for g, w in zip((o, *grads), (ro, *want)):
+        assert _rel_l2(g, w) <= FLASH_BF16_REL_L2
+
+
+def test_ulysses_on_the_card_equals_whole_sequence_k1(cuda):
+    """Ulysses over 4 virtual members: one K1 launch a member on the full
+    sequence of its heads, within ``FLASH_BF16_REL_L2`` of whole-sequence
+    K1 (attention is independent per head)."""
+    from distributed_training_guide_tpu_torch.ops import ulysses_attention
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, _ = _flash_inputs(cuda, gen, "bf16", 32, 8, 64, b=1, sq=2048,
+                               sk=2048)
+    before = fa.FWD_LAUNCHES
+    with torch.no_grad():
+        outs = ulysses_attention.ulysses_members(
+            LocalExchange(4), _members(q), _members(k), _members(v),
+            impl="flash")
+    torch.cuda.synchronize()
+    assert fa.FWD_LAUNCHES - before == 4
+    whole, _ = fa.flash_fwd(q, k, v)
+    assert _rel_l2(torch.cat(outs, dim=1), whole) <= FLASH_BF16_REL_L2
+
+
+def test_ulysses_on_the_card_gathers_where_cp_does_not_divide_kv_heads(
+        cuda):
+    """Ulysses over 4 virtual members on llama-3.1-8b's attention on a tp-4
+    rank (Hq 8, Hkv 2, D 128: cp 4 does not divide the kv heads) under
+    impl 'auto': q, k, v gathered and K1-K3 once a member on the whole
+    sequence, forward and backward within ``FLASH_BF16_REL_L2`` of
+    whole-sequence K1-K3."""
+    from distributed_training_guide_tpu_torch.ops import ulysses_attention
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, do = _flash_inputs(cuda, gen, "bf16", 8, 2, 128, b=1, sq=2048,
+                                sk=2048)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    o = torch.cat(ulysses_attention.ulysses_members(
+        LocalExchange(4), *(_members(x) for x in leaves), impl="auto"),
+        dim=1)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(
+        (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)) == (
+        4, 4, 4)
+    ro, rlse = fa.flash_fwd(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         ro.float()).contiguous()
+    want = fa.flash_bwd_with_stats(q, k, v, do, rlse, delta)
+    for g, w in zip((o, *grads), (ro, *want)):
+        assert _rel_l2(g, w) <= FLASH_BF16_REL_L2
+
+
+def test_pipeline_on_the_card_equals_the_single_device(cuda):
+    """The 1F1B pipeline over 2 virtual stages (llama-3.2-1b cut to 4
+    layers, bf16 compute, B 4, S 512, M 4) against the single device's
+    forward and backward of each microbatch, averaged: the loss and every
+    grad within 1e-6 in relative L2 (only the fp32 order of the grad sums
+    differs); K1 twice per layer and microbatch (the stage's forward
+    recomputed), K2 / K3 once."""
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss)
+    from distributed_training_guide_tpu_torch.parallel.pipeline import (
+        make_pipeline_value_and_grad)
+    from distributed_training_guide_tpu_torch.train.state import named_leaves
+
+    bundle = get_model("llama-3.2-1b", num_layers=4)
+    cfg = bundle.config
+    params = bundle.init(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    ids = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
+                        device=cuda)
+    leaves = dict(named_leaves(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    want_loss = 0.0
+    for m in range(4):
+        rows = ids[m:m + 1]
+        loss = causal_lm_loss(bundle.apply(cfg, params, rows,
+                                           attn_impl="flash"), rows) / 4
+        loss.backward()
+        want_loss += float(loss.detach())
+    ref = {p: t.grad for p, t in leaves.items()}
+    for t in leaves.values():
+        t.grad = None
+        t.requires_grad_(False)
+    before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    loss, grads = make_pipeline_value_and_grad(bundle, pp=2,
+                                               attn_impl="flash")(
+        params, {"input_ids": ids, "labels": ids})
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(
+        (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)) == (
+        32, 16, 16)
+    assert abs(float(loss) - want_loss) <= 1e-6 * abs(want_loss)
+    for path, g in named_leaves(grads):
+        assert _rel_l2(g, ref[path]) <= 1e-6, path

@@ -1,12 +1,13 @@
 """The port's rules table against the JAX package's, in one process.
 
-For every strategy of ``STRATEGIES`` but the pipeline and expert ones, on
-mesh shapes that divide the model's dims and on ones that do not (where a
-dim falls back to replication), and for llama-debug and llama-3.2-1b's
-config (shapes only, nothing allocated): the port's ``spec_for_leaf``
-equals JAX's, leaf for leaf, for the params and for the ZeRO optimizer
-state. Also: the logical-axes trees and the param shapes equal JAX's, the
-refusals name their ROADMAP items, each rank's loader rows are its slice
+For every strategy of ``STRATEGIES`` but the expert ones, on mesh shapes
+that divide the model's dims and on ones that do not (where a dim falls
+back to replication), with pp and cp axes too, and for llama-debug and
+llama-3.2-1b's config (shapes only, nothing allocated): the port's
+``spec_for_leaf`` equals JAX's, leaf for leaf, for the params and for the
+ZeRO optimizer state. Also: the logical-axes trees and the param shapes
+equal JAX's, the pipeline and context-parallel plans lay out as JAX's
+``make_plan`` does, the expert refusals name their ROADMAP item, each rank's loader rows are its slice
 of the JAX loader's global batch, and the vocab-parallel loss with no
 group is the plain loss, its value and gradient bit for bit."""
 import types
@@ -30,13 +31,13 @@ from distributed_training_guide_tpu_torch.parallel import mesh as tmesh
 from distributed_training_guide_tpu_torch.parallel import plans as tplans
 from distributed_training_guide_tpu_torch.train.state import named_leaves
 
-LAYOUT_STRATEGIES = [s for s in jplans.STRATEGIES
-                     if not s.startswith(("pp", "ep"))]
+LAYOUT_STRATEGIES = [s for s in jplans.STRATEGIES if not s.startswith("ep")]
 # mesh axis sizes; 3, 6 and 12 divide none of llama-debug's 64 / 128 / 512
 # widths, 5 none of llama-3.2-1b's
 MESHES = [{"fsdp": 8}, {"tp": 4}, {"fsdp": 2, "tp": 2}, {"dp": 2, "fsdp": 4},
           {"tp": 8}, {"fsdp": 3}, {"tp": 3}, {"dp": 2, "fsdp": 3, "tp": 2},
-          {"fsdp": 6, "tp": 2}, {"tp": 12}, {"fsdp": 5, "tp": 2}]
+          {"fsdp": 6, "tp": 2}, {"tp": 12}, {"fsdp": 5, "tp": 2},
+          {"pp": 2, "fsdp": 2}, {"pp": 2, "tp": 2, "cp": 2}]
 MODELS = ["llama-debug", "llama-3.2-1b"]
 
 
@@ -134,20 +135,50 @@ def test_batch_and_grad_layouts_equal_jax(strategy):
 
 
 @pytest.mark.parametrize("strategy,item", [
-    ("pp", "Context parallel, pipeline parallel and overlap"),
-    ("pp_tp_fsdp", "Context parallel, pipeline parallel and overlap"),
+    ("pp", None), ("pp_tp_fsdp", None),
     ("ep", "Expert parallelism"), ("ep_fsdp", "Expert parallelism")])
 def test_make_plan_refuses_pipeline_and_expert_strategies(strategy, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tplans.make_plan(strategy, _sizes({}))
+    """The expert strategies refuse, naming their ROADMAP item; the
+    pipeline ones (item None: ported) lay llama-3.2-1b out as JAX's
+    ``make_plan`` does on the same mesh: the stacked [L] axis on pp."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            tplans.make_plan(strategy, _sizes({}))
+        return
+    sizes = _sizes({"pp": 2, "fsdp": 2, "tp": 2})
+    jmesh = types.SimpleNamespace(shape=sizes)
+    jplan = jplans.make_plan(strategy, jmesh)
+    tplan = tplans.make_plan(strategy, sizes)
+    assert tplan.rules == jplan.rules
+    assert tplan.sequence_sharded == jplan.sequence_sharded
+    assert not tplan.sequence_parallel   # the pipeline's blocks carry none
+    jshapes, jcfg = _jax_shapes("llama-3.2-1b")
+    axes, shapes = _flat(jllama.param_logical_axes(jcfg)), _flat(jshapes)
+    cfg = tllama.PRESETS["llama-3.2-1b"]
+    specs = _flat(tplan.param_specs(tllama.param_logical_axes(cfg),
+                                    tllama.param_shapes(cfg)))
+    for path, ax in axes.items():
+        assert specs[path] == tuple(jplans.spec_for_leaf(
+            jmesh, ax, shapes[path], jplan.rules)), path
+    assert specs["layers/attn/wq"][0] == "pp"
+    assert tplan.batch_spec(2) == tuple(jplan.batch_spec(2))
 
 
 def test_make_plan_refuses_context_parallelism():
-    with pytest.raises(NotImplementedError, match="Context parallel"):
-        tplans.make_plan("tp", _sizes({"cp": 2}))
+    """cp > 1 (ported): the sequence dim of the batch and of the residual
+    on cp, as JAX lays it out, and no sequence parallelism on tp."""
+    sizes = _sizes({"cp": 2, "tp": 2})
+    jplan = jplans.make_plan("tp", types.SimpleNamespace(shape=sizes))
+    tplan = tplans.make_plan("tp", sizes)
+    assert tplan.batch_spec(2) == tuple(jplan.batch_spec(2)) == (
+        ("dp", "fsdp", "ep"), "cp")
+    assert tplan.activation_sharding() == (("dp", "fsdp", "ep"), "cp", None)
+    assert tplan.logits_sharding() == (("dp", "fsdp", "ep"), "cp", "tp")
+    assert tplan.sequence_sharded and not tplan.sequence_parallel
     plan = tplans.make_plan("zero2", _sizes({"dp": 4}))
     assert plan.zero1 and plan.zero2 and not plan.sequence_sharded
     assert tplans.make_plan("tp", _sizes({"tp": 2})).sequence_sharded
+    assert tplans.make_plan("tp", _sizes({"tp": 2})).sequence_parallel
 
 
 def test_mesh_shape_for_equals_jax():

@@ -156,3 +156,34 @@ def test_one_405b_layer_of_fp32_adamw_does_not_fit_one_card():
                                        "--optimizer", "adafactor"], **kw)
     assert small["fits"]
     assert small["per_device_total_bytes"] == pytest.approx(4 * n, rel=1e-2)
+
+
+@pytest.mark.parametrize("strategy,mesh", [
+    ("pp_fsdp", {"pp": 2, "fsdp": 2, "cp": 2}),
+    ("fsdp", {"fsdp": 2, "cp": 4}),
+    ("pp_tp", {"pp": 2, "tp": 2, "cp": 2})])
+def test_cp_and_pp_priced_as_far_as_jax_prices_them(strategy, mesh):
+    """Under context and pipeline parallelism the preflight runs the step
+    on meta (the ring's exchanges and the pipeline's hops move nothing
+    there), the per-device param and optimizer bytes equal JAX's
+    ``shard_shape`` bytes (the [L] axis on pp), and ``comm_roofline``'s
+    rows equal JAX's: its table prices no cp or pp traffic, and neither
+    does the port's."""
+    jt = JTrainer(bundle=jget_model("llama-debug"), optimizer=jadamw(1e-3),
+                  plan=jmake_plan(strategy, jmake_mesh(**mesh)),
+                  donate=False)
+    want = _jax_shard_bytes(jt)
+    want_comm = jpre.comm_roofline(jt, global_batch=GLOBAL_BATCH,
+                                   seq_length=SEQ, device_kind="v5p")
+    with fake_group(8):
+        plan = make_plan(strategy, make_mesh(device="cpu", **mesh))
+        t = Trainer(bundle=get_model("llama-debug"),
+                    optimizer=topt.adamw_cosine(1e-3), plan=plan,
+                    device="meta")
+        got = run_preflight(t, global_batch=GLOBAL_BATCH, seq_length=SEQ)
+        counters = _port_counter_bytes(t)
+        comm = comm_roofline(t, global_batch=GLOBAL_BATCH, seq_length=SEQ)
+    assert got["lowered"] and got["per_device_param_bytes"] == want["params"]
+    assert got["per_device_opt_state_bytes"] - counters == want["opt"]
+    assert comm["per_collective_bytes_per_chip"] == (
+        want_comm["per_collective_bytes_per_chip"])

@@ -40,7 +40,15 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
 - ``offload`` (2 ranks, ``tests/test_torch_offload.py``): fsdp 2 with the
   params and optimizer state offloaded, under fp32 and adam8bit, against
   the same runs without, also through a save and restore and under the
-  guard's skip.
+  guard's skip;
+- ``cp_pp`` (4 ranks, ``tests/test_torch_cp_pp.py``): two steps of each
+  context- and pipeline-parallel plan of ``CP_PP_RUNS`` (the ring at cp 4,
+  cp 2 x fsdp 2 and cp 2 x tp 2, Ulysses at cp 2 and at cp 4 (kv heads
+  not divisible), neox-debug's ring at cp 4, pp 2 x dp 2, pp 4 on llama-debug cut to 4 layers, pp 2 x fsdp 2,
+  pp 2 x tp 2, pp 2 x cp 2 under the ring and Ulysses), each rank fed
+  ``data/loader.py:local_batch`` of the global batch; one ring step at cp
+  4 on labels with -100 at shard edges; and a pp 2 x fsdp 2 state saved
+  after a step and restored under fsdp 4.
 """
 import argparse
 import json
@@ -420,8 +428,99 @@ def offload(out_dir, rank):
         (out_dir / "offload.json").write_text(json.dumps(result))
 
 
+# (name, init file, strategy, mesh axes, context_impl)
+CP_PP_RUNS = [
+    ("ring_cp4", "init", "ddp", {"cp": 4}, "ring"),
+    ("ring_cp2_fsdp2", "init", "fsdp", {"cp": 2, "fsdp": 2}, "ring"),
+    ("ring_cp2_tp2", "init", "tp", {"cp": 2, "tp": 2}, "ring"),
+    ("ulysses_cp2", "init", "ddp", {"cp": 2}, "ulysses"),
+    # cp 4 does not divide llama-debug's 2 kv heads: the gathered path
+    ("ulysses_cp4", "init", "ddp", {"cp": 4}, "ulysses"),
+    ("neox_ring_cp4", "neox_init", "ddp", {"cp": 4}, "ring"),
+    ("pp2_dp2", "init", "pp", {"pp": 2}, "ring"),
+    ("pp4", "l4_init", "pp", {"pp": 4}, "ring"),
+    ("pp2_fsdp2", "init", "pp_fsdp", {"pp": 2, "fsdp": 2}, "ring"),
+    ("pp2_tp2", "init", "pp_tp", {"pp": 2, "tp": 2}, "ring"),
+    ("pp2_cp2_ring", "init", "pp", {"pp": 2, "cp": 2}, "ring"),
+    ("pp2_cp2_ulysses", "init", "pp", {"pp": 2, "cp": 2}, "ulysses"),
+]
+_CP_PP_MODELS = {"init": ("llama-debug", {}),
+                 "l4_init": ("llama-debug", {"num_layers": 4}),
+                 "neox_init": ("neox-debug", {})}
+
+
+def _cp_pp_trainer(init, strategy, mesh_kw, context_impl):
+    model, over = _CP_PP_MODELS[init]
+    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
+    return Trainer(bundle=get_model(model, dtype=torch.float32, **over),
+                   optimizer=topt.adamw_cosine(1e-3), plan=plan,
+                   device="cpu", context_impl=context_impl)
+
+
+def _cp_pp_batch(t, ids, labels=None):
+    """This rank's share of the global batch: its rows (M microbatches
+    under pp), its sequence shard and shifted targets under cp."""
+    from distributed_training_guide_tpu_torch.data.loader import local_batch
+
+    plan, ps = t.plan, t.plan_state
+    cp = plan.sizes["cp"]
+    return local_batch(
+        ids, ids if labels is None else labels, data_rank=plan.data_rank,
+        data_size=plan.data_parallel_size,
+        microbatches=1 if ps.pipeline is None else ps.pipeline.M,
+        seq_rank=plan.mesh.get_local_rank("cp") if cp > 1 else 0,
+        seq_size=cp)
+
+
+def cp_pp(out_dir, rank):
+    batches = dict(np.load(out_dir / "batches.npz"))
+    ids = batches["ids"]
+    params = {k: from_jax.params_from_numpy(
+        _unflatten(dict(np.load(out_dir / f"{k}.npz"))), device="cpu")
+        for k in _CP_PP_MODELS}
+    result = {}
+    for name, init, strategy, mesh_kw, impl in CP_PP_RUNS:
+        t = _cp_pp_trainer(init, strategy, mesh_kw, impl)
+        state = t.init_state_from_params(params[init])
+        batch = _cp_pp_batch(t, ids)
+        losses = []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        full = _full_params(t, state)
+        if rank == 0:
+            np.savez(out_dir / f"cp_pp_{name}.npz", losses=losses,
+                     **{f"p/{k}": v for k, v in full.items()})
+    # -100 labels at shard edges: the target of a shard's last row is the
+    # next shard's first label
+    t = _cp_pp_trainer("init", "ddp", {"cp": 4}, "ring")
+    _, m = t.step_fn(t.init_state_from_params(params["init"]),
+                     _cp_pp_batch(t, ids, batches["uneven_labels"]))
+    result["uneven_loss"] = float(m["loss"])
+    # pp 2 x fsdp 2 saved after one step, restored under fsdp 4
+    exp = out_dir / "ckpt_pp"
+    t = _cp_pp_trainer("init", "pp_fsdp", {"pp": 2, "fsdp": 2}, "ring")
+    state = t.init_state_from_params(params["init"])
+    batch = _cp_pp_batch(t, ids)
+    state, _ = t.step_fn(state, batch)
+    io = CheckpointIO(exp)
+    host = stamp_host_state(host_state_dict(), t)
+    host["global_step"] = 1
+    io.save(state, host)
+    io.close()
+    state, m = t.step_fn(state, batch)
+    result["straight"] = float(m["loss"])
+    t2 = _cp_pp_trainer("init", "fsdp", {"fsdp": 4}, "ring")
+    state2, host2 = restore_train_state(CheckpointIO(exp), t2)
+    state2, m2 = t2.step_fn(state2, _cp_pp_batch(t2, ids))
+    result.update(resumed=float(m2["loss"]), step=int(state2.step),
+                  global_step=int(host2["global_step"]))
+    if rank == 0:
+        (out_dir / "cp_pp.json").write_text(json.dumps(result))
+
+
 SCENARIOS = {"sharded_load": sharded_load, "quantize": quantize,
-             "offload": offload}
+             "offload": offload, "cp_pp": cp_pp}
 
 
 def main():
