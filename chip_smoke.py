@@ -212,7 +212,25 @@ phases, each of which raises on failure:
    chapters 08 and 09 through their
    ``main`` at world 1 against phase 17's single plan; (f) K1-K3 timed at
    the ring's chunk-pair shapes (past, diagonal, banded) and the
-   pipeline's microbatch beside their plain versions, bounds and SDPA.
+   pipeline's microbatch beside their plain versions, bounds and SDPA;
+21. chapter 10 under a plan — (a) ``chapters/c10_moe.py`` through its
+   ``main`` at world 1 (the ep plan on a one-rank NCCL group) on
+   qwen3-30b-a3b at full width cut to 4 layers, ragged and dense: the
+   first step bitwise the single plan's, a finite loss (falling under
+   ragged), exactly 6 K5 and 3 K6 launches a layer a ragged step; (b)
+   ``make_ragged_ep_dispatch`` over 4 virtual members (4 x 4096 tokens,
+   E 128, top-8, D 2048, F 768, bf16, one layer) against the single
+   device's ragged dispatch on the 16384 tokens, both through K5 / K6:
+   the output and the grads of x, the router and the three expert stacks
+   within 1e-2 relative L2, every member's launches through the bodies
+   the plans name (12 K5 Hopper, 12 K5 split, 12 K6 split), the peak
+   memory of each; (c) the dense dispatch over the 4 members at capacity
+   factor 0.75 against the single device's on the global batch: the same
+   dropped fraction (at least 10%), the same tokens with no kept pair, y
+   within 1e-2; (d) K5 (forward, fp32-dy d_lhs) and K6 on a member's
+   ep-local window (M 131072, about a quarter live) against their plain
+   versions, NaN past the local total ignored in both operands, and timed
+   beside the live rows alone, their bounds and ``torch._grouped_mm``.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -1947,6 +1965,19 @@ def tc_bound(nbytes, flops) -> float:
                ) * 1e3
 
 
+def split_body_bound(row: dict) -> None:
+    """K5's and K6's split bodies and K7's tensor-core body run their fp32
+    operand as two bf16 passes on the tensor cores, so their bound is
+    ``tc_bound``; the bound of the same
+    work at the fp32 rate outside the tensor cores (which the split body
+    beats) stays beside it as "bound_fma_ms". Sets "share_of_bound"."""
+    t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["bound_fma_ms"] = row["bound_ms"]
+    row["bound_ms"] = tc_bound(row["bytes"], row["flops"])
+    row["bound_by"] = "bytes" if t_bytes >= row["bound_ms"] else "operations"
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+
+
 def library_grouped_mm(torch, lhs, rhs, sizes):
     """``torch._grouped_mm`` on the same bf16 operands (offsets = the
     cumsum of the group sizes), as a yardstick: (device ms, CUDA-event ms,
@@ -1977,7 +2008,7 @@ def phase_grouped_timing(torch) -> dict:
     torch.profiler's mean per launch as "profiler_ms", None where it
     recorded nothing; CUDA events around
     back-to-back calls as "call_ms"), the plain versions and the bound
-    (for the split bodies also their two-pass bound, "bound_tc_ms"; for
+    (for the split bodies their two-pass bound, ``split_body_bound``; for
     K6 the FMA body's time on the same values, ``tgmm_timing_at``)."""
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
@@ -2036,11 +2067,8 @@ def phase_grouped_timing(torch) -> dict:
                        library_note="no PyTorch call takes fp32 dy against "
                        "a bf16 rhs", **gmm_bound(m, f, e, sizes, 4, 2, 2,
                                                  "float32"))
-            # the split body's own least time: two bf16 passes on the
-            # tensor cores, the same bytes
-            row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
-            row["share_of_bound"] = row["bound_ms"] / ms
-            row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
+            check(row["body"] == "split", f"train d_lhs: {row['body']}")
+            split_body_bound(row)
             out["train-dlhs"] = row
             log(phase="grouped_timing", **row)
             out["tgmm-train"] = tgmm_timing_at(torch, gm, lhs, dy, sizes,
@@ -2120,9 +2148,8 @@ def tgmm_timing_at(torch, gm, lhs, dy, sizes, shape: str) -> dict:
                    sizes, k, n,
                    torch.cuda.get_device_properties(0).multi_processor_count),
                **tgmm_bound(m, k, n, sizes, 2, 4, 2, "float32"))
-    row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
-    row["share_of_bound"] = row["bound_ms"] / ms
-    row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
+    check(row["body"] == "split", f"tgmm {shape}: {row['body']}")
+    split_body_bound(row)
     fn = getattr(torch, "_grouped_mm", None)
     if fn is not None:      # a control: the all-bf16 variant
         offs = torch.cumsum(sizes, 0, dtype=torch.int32)
@@ -2618,12 +2645,12 @@ def phase_qmm_timing(torch) -> dict:
     a decode step (fp32 logits). Copies of the weight rotate so that the
     weight comes from device memory, as it does in a forward, where each
     layer has its own. Device time ("ms") by ``queued_ms``, CUDA events
-    around back-to-back calls beside it ("call_ms"); the fp32 bound and
-    the tensor-core body's two-pass bound ("bound_tc_ms"). The control is
-    the bf16 ``torch.mm`` of the same x against the unquantized bf16
-    weight, timed alike: a yardstick of the unquantized path, which the
-    port does not call for int8 weights; no PyTorch call computes K7's
-    function (``library_ms`` null)."""
+    around back-to-back calls beside it ("call_ms"); the tensor-core
+    body's two-pass bound (``split_body_bound``, the fp32 one beside it).
+    The control is the bf16 ``torch.mm`` of the same x against the
+    unquantized bf16 weight, timed alike: a yardstick of the unquantized
+    path, which the port does not call for int8 weights; no PyTorch call
+    computes K7's function (``library_ms`` null)."""
     from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
@@ -2668,9 +2695,8 @@ def phase_qmm_timing(torch) -> dict:
                    control_note="bf16 torch.mm on the unquantized weight "
                    "(cuBLAS), a control the port never calls",
                    **qmm_bound(m, k, n, 32, 2, out_dtype.itemsize))
-        row["bound_tc_ms"] = tc_bound(row["bytes"], row["flops"])
-        row["share_of_tc_bound"] = row["bound_tc_ms"] / ms
-        row["share_of_bound"] = row["bound_ms"] / ms
+        check(body == "wgmma", f"qmm {name}: {body}")
+        split_body_bound(row)
         out[name] = row
         log(phase="qmm_timing", **row)
         del ws, qts, x
@@ -5335,6 +5361,446 @@ def phase_cp_pp(torch, card: str, plans: dict) -> dict:
             "per_step": per_step}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: chapter 10 under a plan — c10_moe at world 1, the ragged
+# expert exchange over 4 virtual members at qwen3-30b-a3b's full width,
+# the dense dispatch over 4 members at a dropping capacity, K5 / K6 on the
+# ep-local window
+# ---------------------------------------------------------------------------
+
+EP_MEMBERS = 4
+EP_TOKENS = 4096          # a member's tokens (B 2 x S 2048)
+EP_CHAPTER_STEPS = 3
+# bf16: the exchange sums each token's members' partial combines (bf16) in
+# another order than the single device's one sum over its k choices, and
+# d_x sums the same products' grads in another order
+EP_REL_L2 = 1e-2
+# d_router (fp32) sums the same products in another order: 1.1e-7 read
+EP_ROUTER_REL_L2 = 1e-6
+# the expert stacks' grads are held bitwise: each member's window holds
+# exactly its experts' rows, and K6 counts its chunks from each group's
+# first row, so a group's d_rhs does not depend on where it starts
+EP_EXACT = ("dgate", "dup", "ddown")
+# the dense dispatch: capacity factor 0.75 over 16384 tokens x top-8 of
+# 128 (C 768 a slot against ~1024 pairs an expert): about a quarter drop
+EP_DENSE_CF = 0.75
+EP_DENSE_MIN_DROP = 0.1
+# K5 / K6 on the window against their plain versions: K5's forward at bf16
+# (GMM_REL_L2), the split bodies at their own arithmetic
+EP_SPLIT_REL_L2 = 2e-6
+
+
+def ep_chapter(torch, card: str) -> dict:
+    """Chapter 10's ``main`` at world 1 (a one-rank NCCL group, the ep
+    plan: every collective a copy) on qwen3-30b-a3b at full width cut to
+    4 layers, under the ragged and the dense dispatch: the first step
+    bitwise the single plan's, the loss finite (falling under ragged),
+    and exactly 6 K5 and 3 K6 a layer a ragged step, none dense."""
+    from distributed_training_guide_tpu_torch.chapters import c10_moe
+    from distributed_training_guide_tpu_torch.train import cli
+
+    layers = MOE_TRAIN_LAYERS
+    over = {"num_layers": layers}
+    out = {"launches": {}}
+    for dispatch in ("ragged", "dense"):
+        argv = MOE_TRAIN_ARGS + ["--moe-dispatch", dispatch, "--log-freq",
+                                 "1"]
+        single = cli.run_training(cli.get_parser().parse_args(
+            argv + ["--max-steps", "1"]), model_overrides=over)
+        first = single["infos"][0]
+        ch01_free(torch, single)
+        reset_moe_counts()                    # the main path starts here
+        run = with_env(plan_env(), lambda: c10_moe.main(
+            argv + ["--max-steps", str(EP_CHAPTER_STEPS)],
+            model_overrides=over))
+        torch.cuda.synchronize()
+        counts = moe_counts()                 # ... and ends here
+        plan = run["state"].sharding.plan_state.plan
+        check(plan.strategy == "ep" and plan.size() == 1,
+              f"chapter 10: plan {plan.strategy} of {plan.size()}")
+        infos = run["infos"]
+        losses = [i["running_loss"] for i in infos]
+        check(len(losses) == EP_CHAPTER_STEPS
+              and all(map(math.isfinite, losses)),
+              f"chapter 10 {dispatch}: losses {losses}")
+        bitwise = (infos[0]["running_loss"] == first["running_loss"]
+                   and infos[0]["grad_norm"] == first["grad_norm"])
+        check(bitwise, f"chapter 10 {dispatch}: first step "
+              f"{infos[0]['running_loss']} / {infos[0]['grad_norm']}, the "
+              f"single plan's {first['running_loss']} / "
+              f"{first['grad_norm']}")
+        per_step = {"flash_fwd": layers, "flash_dq": layers,
+                    "flash_dkv": layers,
+                    "grouped_matmul": 6 * layers if dispatch == "ragged"
+                    else 0, "tgmm": 3 * layers if dispatch == "ragged"
+                    else 0}
+        want = {k: v * EP_CHAPTER_STEPS for k, v in per_step.items()}
+        check(counts == want, f"chapter 10 {dispatch}: launches {counts}, "
+              f"want {want}")
+        if dispatch == "ragged":
+            check(losses[-1] < losses[0], f"chapter 10: loss did not fall: "
+                  f"{losses}")
+            check(all(i["moe_dropped_frac"] == 0.0 for i in infos),
+                  "chapter 10: the ragged dispatch dropped pairs")
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        later = infos[1:]
+        out[dispatch] = {
+            "losses": losses, "first_step_bitwise_single": bitwise,
+            "launches": counts, "launches_per_step": per_step,
+            "moe_dropped_frac": [i["moe_dropped_frac"] for i in infos],
+            "time_step_ms": sum(i["time/step"] for i in later)
+            / len(later),
+            "tokens_per_s": sum(i["tokens_per_s"] for i in later)
+            / len(later),
+            "peak_alloc_gb": run["last_info"]["peak_alloc_gb"]}
+        log(phase="chapter10", part="world 1", model="qwen3-30b-a3b",
+            layers=layers, dispatch=dispatch, card=card, **out[dispatch])
+        ch01_free(torch, run)
+    return out
+
+
+def ep_inputs(torch, gen, cfg):
+    """One layer at qwen3-30b-a3b's widths, bf16: the rows of 4 members x
+    4096 tokens, an fp32 router, bf16 expert stacks and a cotangent."""
+    bf = torch.bfloat16
+    e, f, g = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    n = EP_MEMBERS * EP_TOKENS
+    x = torch.randn(n, e, generator=gen, device="cuda").to(bf)
+    router = torch.randn(e, g, generator=gen, device="cuda") * 0.02
+    w = [(torch.randn(g, *shape, generator=gen, device="cuda") * 0.02
+          ).to(bf) for shape in ((e, f), (e, f), (f, e))]
+    cot = torch.randn(n, e, generator=gen, device="cuda").to(bf)
+    return x, router, w, cot
+
+
+def ep_route(torch, cfg, x, router):
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    tp, ti = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    return ti, tp / tp.sum(-1, keepdim=True)
+
+
+def ep_exchange(torch, card: str, gen) -> dict:
+    """``make_ragged_ep_dispatch`` over ``LocalExchange(4)`` against the
+    single device's ragged dispatch on the 16384 tokens, both through the
+    kernels: the output and the grad of x within ``EP_REL_L2``, the
+    router's within ``EP_ROUTER_REL_L2``, the three expert stacks' grads
+    bitwise (``EP_EXACT``); every member's K5 / K6 launch
+    through the body ``_gmm_plan`` / ``_tgmm_plan`` names, the exact
+    counts; the peak memory of each."""
+    from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    cfg = get_model("qwen3-30b-a3b", dtype=torch.bfloat16,
+                    moe_dispatch="ragged").config
+    x, router, w, cot = ep_inputs(torch, gen, cfg)
+    g, n = cfg.num_experts, EP_MEMBERS
+    e_loc = g // n
+
+    def run(ep: bool):
+        leaves = [t.clone().requires_grad_() for t in (x, router, *w)]
+        xv, rv, gate, up, down = leaves
+        ti, tp = ep_route(torch, cfg, xv, rv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if ep:
+            disp = moe.make_ragged_ep_dispatch(LocalExchange(n), cfg)
+            ws = [[t[m * e_loc:(m + 1) * e_loc] for m in range(n)]
+                  for t in (gate, up, down)]
+            y = torch.cat(disp(list(torch.chunk(xv, n)),
+                               list(torch.chunk(ti, n)),
+                               list(torch.chunk(tp, n)), *ws))
+        else:
+            ef = ti.T.reshape(-1)
+            y = moe._ragged_dispatch(
+                cfg, xv, ef, tp.T.reshape(-1),
+                moe._group_sizes(ef, g),
+                {"gate": gate, "up": up, "down": down}, torch.bfloat16)
+        grads = torch.autograd.grad(y, leaves, cot)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return [y.detach(), *grads], peak
+
+    want, single_peak = run(False)
+    gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
+    gm.GMM_BODY_LAUNCHES.update({k: 0 for k in gm.GMM_BODY_LAUNCHES})
+    gm.TGMM_BODY_LAUNCHES.update({k: 0 for k in gm.TGMM_BODY_LAUNCHES})
+    got, ep_peak = run(True)
+    launches = {"grouped_matmul": gm.GMM_LAUNCHES, "tgmm": gm.TGMM_LAUNCHES,
+                "by_body": {"grouped_matmul": dict(gm.GMM_BODY_LAUNCHES),
+                            "tgmm": dict(gm.TGMM_BODY_LAUNCHES)}}
+    # each member: 3 forward products (bf16: the Hopper body), 3 fp32-dy
+    # d_lhs (the split body) and 3 d_rhs (K6's split body)
+    want_k5 = {b: 0 for b in gm.GMM_BODY_LAUNCHES}
+    want_k5.update(wgmma=3 * n, split=3 * n)
+    want_k6 = {b: 0 for b in gm.TGMM_BODY_LAUNCHES}
+    want_k6.update(split=3 * n)
+    check(launches["by_body"]["grouped_matmul"] == want_k5
+          and launches["by_body"]["tgmm"] == want_k6,
+          f"ep exchange: launches by body {launches['by_body']}, want "
+          f"{want_k5} / {want_k6}")
+    errs = {}
+    for key, a, b in zip(("y", "dx", "drouter", "dgate", "dup", "ddown"),
+                         got, want):
+        check(bool(torch.isfinite(a.float()).all()), f"ep exchange {key}: "
+              f"non-finite")
+        errs[key] = {"rel_l2": rel_l2(a, b),
+                     "max_abs": (a.float() - b.float()).abs().max().item()}
+        if key in EP_EXACT:
+            check(torch.equal(a, b), f"ep exchange {key}: not bitwise the "
+                  f"single device's (rel L2 {errs[key]['rel_l2']})")
+        else:
+            bound = EP_ROUTER_REL_L2 if key == "drouter" else EP_REL_L2
+            check(errs[key]["rel_l2"] <= bound, f"ep exchange {key}: rel L2 "
+                  f"{errs[key]['rel_l2']} > {bound}")
+    out = {"members": n, "tokens_per_member": EP_TOKENS, "E": g,
+           "k": cfg.experts_per_token, "D": cfg.hidden_size,
+           "F": cfg.intermediate_size, "errors": errs,
+           "bound": {"y": EP_REL_L2, "dx": EP_REL_L2,
+                     "drouter": EP_ROUTER_REL_L2,
+                     **{k: "bitwise" for k in EP_EXACT}},
+           "launches": launches, "peak_gb_exchange": ep_peak,
+           "peak_gb_single": single_peak}
+    log(phase="chapter10", part="ragged exchange over 4 members vs the "
+        "single device, bf16", card=card, **out)
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_dense(torch, card: str, gen) -> dict:
+    """The dense dispatch over 4 members (ep 4, the routing gathered over
+    the 4) against the single device's on the 16384 tokens at capacity
+    factor 0.75: the same dropped fraction (at least 10%), the same tokens
+    with no kept pair, y within ``EP_REL_L2``."""
+    import dataclasses
+
+    from distributed_training_guide_tpu_torch.models import get_model, moe
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    cfg = dataclasses.replace(get_model("qwen3-30b-a3b",
+                                        dtype=torch.bfloat16).config,
+                              capacity_factor=EP_DENSE_CF)
+    x, router, w, _ = ep_inputs(torch, gen, cfg)
+    n, g = EP_MEMBERS, cfg.num_experts
+    e_loc = g // n
+    with torch.no_grad():
+        ti, tp = ep_route(torch, cfg, x, router)
+        whole = dict(zip(("gate", "up", "down"), w))
+        (want,), want_drop = moe.dense_ep_dispatch(cfg, [x], [ti], [tp],
+                                                   [whole])
+        ex = LocalExchange(n)
+        ys, drop = moe.dense_ep_dispatch(
+            cfg, list(torch.chunk(x, n)), list(torch.chunk(ti, n)),
+            list(torch.chunk(tp, n)),
+            [{k: v[m * e_loc:(m + 1) * e_loc] for k, v in whole.items()}
+             for m in range(n)], route=ex, ep=ex)
+        got = torch.cat(ys)
+    drop, want_drop = float(drop), float(want_drop)
+    zero_same = bool(torch.equal(got.norm(dim=-1) == 0,
+                                 want.norm(dim=-1) == 0))
+    err = rel_l2(got, want)
+    check(want_drop >= EP_DENSE_MIN_DROP, f"ep dense: only {want_drop} "
+          f"dropped")
+    check(drop == want_drop, f"ep dense: dropped {drop}, single {want_drop}")
+    check(zero_same, "ep dense: the tokens with no kept pair differ")
+    check(err <= EP_REL_L2, f"ep dense: y rel L2 {err} > {EP_REL_L2}")
+    out = {"capacity_factor": EP_DENSE_CF, "capacity": max(int(math.ceil(
+        EP_DENSE_CF * cfg.experts_per_token * n * EP_TOKENS / g)), 1),
+        "dropped_frac": drop, "single_dropped_frac": want_drop,
+        "zero_rows_same": zero_same, "y_rel_l2": err, "bound": EP_REL_L2}
+    log(phase="chapter10", part="dense dispatch over 4 members vs the "
+        "single device", card=card, **out)
+    return out
+
+
+def ep_window_operands(torch, gen, cfg, member: int) -> dict:
+    """Member ``member``'s window at qwen3-30b-a3b's widths: the sorted
+    rows of 4 x 4096 tokens x top-8 (M 131072) from its experts' offset,
+    its 32 experts' sizes, its stacks, an fp32 dy [M, F]; and the same
+    live rows alone (M = their count)."""
+    from distributed_training_guide_tpu_torch.models import moe
+
+    x, router, w, _ = ep_inputs(torch, gen, cfg)
+    g, k = cfg.num_experts, cfg.experts_per_token
+    e_loc = g // EP_MEMBERS
+    e0 = member * e_loc
+    with torch.no_grad():
+        ti, _ = ep_route(torch, cfg, x, router)
+        ef = ti.T.reshape(-1)
+        sizes = moe._group_sizes(ef, g)
+        _, x_sorted = moe._ragged_sort(x, ef, torch.bfloat16)
+    m = x_sorted.shape[0]
+    start = int(sizes[:e0].sum())
+    local = sizes[e0:e0 + e_loc].contiguous()
+    live = int(local.sum())
+    window = torch.zeros_like(x_sorted)
+    window[:m - start] = x_sorted[start:]
+    dy = torch.randn(m, cfg.intermediate_size, generator=gen, device="cuda")
+    return {"m": m, "live": live, "start": start, "sizes": local,
+            "x": window, "x_live": window[:live].contiguous(),
+            "rhs": w[0][e0:e0 + e_loc].contiguous(), "dy": dy,
+            "dy_live": dy[:live].contiguous()}
+
+
+def ep_window(torch, card: str, gen) -> dict:
+    """K5 (forward; the fp32-dy d_lhs) and K6 on member 1's ep-local
+    window (other experts' rows past the local total, as
+    ``_local_groups_compute`` hands them over), each through the body its
+    plan names: held to their plain versions, rows past the total zero,
+    NaN past the total in both operands ignored; then timed (device time,
+    ``queued_ms``) beside the same live rows alone, their bounds (the
+    window's outputs written whole, only live rows read) and
+    ``torch._grouped_mm`` on the live rows (a yardstick the port never
+    calls), with the window's bytes."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    bf, f32 = torch.bfloat16, torch.float32
+    counts = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    cfg = get_model("qwen3-30b-a3b", dtype=bf, moe_dispatch="ragged").config
+    op = ep_window_operands(torch, gen, cfg, 1)
+    m, live, sz, g = op["m"], op["live"], op["sizes"], op["sizes"].shape[0]
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    rt = op["rhs"].transpose(1, 2)
+    plans = {"fwd": gm._gmm_plan(op["x"], op["rhs"]),
+             "dlhs": gm._gmm_plan(op["dy"], rt),
+             "drhs": gm._tgmm_plan(op["x"], op["dy"], bf)}
+    check(plans == {"fwd": "wgmma", "dlhs": "split", "drhs": "split"},
+          f"ep window: plans {plans}")
+    before = (dict(gm.GMM_BODY_LAUNCHES), dict(gm.TGMM_BODY_LAUNCHES))
+    fwd = gm.gmm(op["x"], op["rhs"], sz)
+    dlhs = gm.gmm(op["dy"], rt, sz, f32)
+    drhs = gm.tgmm(op["x"], op["dy"], sz, g, f32)
+    torch.cuda.synchronize()
+    ran = (gm.GMM_BODY_LAUNCHES["wgmma"] - before[0]["wgmma"],
+           gm.GMM_BODY_LAUNCHES["split"] - before[0]["split"],
+           gm.TGMM_BODY_LAUNCHES["split"] - before[1]["split"])
+    check(ran == (1, 1, 1), f"ep window: bodies launched {ran}")
+    errs = {
+        "fwd_rel_l2": rel_l2(fwd, gm.gmm_reference(op["x"], op["rhs"], sz,
+                                                   bf)),
+        "dlhs_rel_l2_at_arith": rel_l2(dlhs, gm.gmm_reference(
+            op["dy"], rt, sz, f32, split_lhs=True)),
+        "drhs_rel_l2_at_arith": rel_l2(drhs, gm.tgmm_reference(
+            op["x"], op["dy"], sz, g, f32, split_dy=True))}
+    check(errs["fwd_rel_l2"] <= GMM_REL_L2["bf16"], f"ep window K5: {errs}")
+    check(errs["dlhs_rel_l2_at_arith"] <= EP_SPLIT_REL_L2
+          and errs["drhs_rel_l2_at_arith"] <= EP_SPLIT_REL_L2,
+          f"ep window split bodies: {errs}")
+    check(not fwd[live:].any() and not dlhs[live:].any(),
+          "ep window: rows past the local total not zero")
+    # the rows past the total hold NaN in both operands: nothing changes
+    xn, dyn = op["x"].clone(), op["dy"].clone()
+    xn[live:], dyn[live:] = float("nan"), float("nan")
+    nan_same = (torch.equal(gm.gmm(xn, op["rhs"], sz), fwd)
+                and torch.equal(gm.gmm(dyn, rt, sz, f32), dlhs)
+                and torch.equal(gm.tgmm(xn, dyn, sz, g, f32), drhs))
+    check(nan_same, "ep window: NaN past the local total reached an output")
+    del xn, dyn, fwd, dlhs, drhs
+
+    def time_pair(call_window, call_live, plain):
+        return {"ms": queued_ms(torch, call_window, 10),
+                "live_ms": queued_ms(torch, call_live, 10),
+                "plain_ms": cuda_ms(plain, iters=2, warmup=1)}
+
+    live_sz = sz
+    rows = {}
+    t = time_pair(lambda: gm.gmm(op["x"], op["rhs"], sz),
+                  lambda: gm.gmm(op["x_live"], op["rhs"], live_sz),
+                  lambda: gm.gmm_reference(op["x"], op["rhs"], sz, bf))
+    lib_ms, _, lib = library_grouped_mm(torch, op["x_live"], op["rhs"],
+                                        live_sz)
+    rows["fwd"] = dict(kernel="grouped_matmul", M=m, live_rows=live, K=e,
+                       N=f, G=g, body=plans["fwd"], **t, library_ms=lib_ms,
+                       **window_bound(m, live, e, f, sz, 2, 2, 2,
+                                      "bfloat16"))
+    if lib_ms is None:
+        rows["fwd"]["library_note"] = lib
+    t = time_pair(lambda: gm.gmm(op["dy"], rt, sz, bf),
+                  lambda: gm.gmm(op["dy_live"], rt, live_sz, bf),
+                  lambda: gm.gmm_reference(op["dy"], rt.float(), sz, bf))
+    rows["dlhs"] = dict(kernel="grouped_matmul", M=m, live_rows=live, K=f,
+                        N=e, G=g, body=plans["dlhs"], **t, library_ms=None,
+                        library_note="no PyTorch call takes fp32 dy against "
+                        "a bf16 rhs", **window_bound(m, live, f, e, sz, 4, 2,
+                                                     2, "float32"))
+    t = time_pair(lambda: gm.tgmm(op["x"], op["dy"], sz, g, bf),
+                  lambda: gm.tgmm(op["x_live"], op["dy_live"], live_sz, g,
+                                  bf),
+                  lambda: gm.tgmm_reference(op["x"], op["dy"], sz, g, bf))
+    rows["drhs"] = dict(kernel="tgmm", M=m, live_rows=live, K=e, N=f, G=g,
+                        body=plans["drhs"], **t, library_ms=None,
+                        library_note="no PyTorch call takes fp32 dy against "
+                        "bf16 lhs", **tgmm_window_bound(m, live, e, f, sz, 2,
+                                                        4, 2, "float32"))
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:      # the all-bf16 yardstick of d_rhs, live rows
+        offs = torch.cumsum(live_sz, 0, dtype=torch.int32)
+        dyb = op["dy_live"].to(bf)
+        try:
+            rows["drhs"]["library_bf16_dy_ms"] = queued_ms(
+                torch, lambda: fn(op["x_live"].t(), dyb, offs=offs), 5)
+        except RuntimeError as exc:
+            rows["drhs"]["library_bf16_dy_note"] = str(
+                exc).splitlines()[0][:120]
+    split_body_bound(rows["dlhs"])
+    split_body_bound(rows["drhs"])
+    for key, row in rows.items():
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["window_over_live"] = row["ms"] / row["live_ms"]
+        log(phase="chapter10", part=f"ep window timing {key}", card=card,
+            **row)
+    out = {"errors": errs, "nan_past_total_ignored": nan_same,
+           "window_bytes": {"x_window_bf16": m * e * 2,
+                            "x_padded_copy_bf16": 2 * m * e * 2,
+                            "dy_fp32": m * f * 4},
+           "rows": rows}
+    log(phase="chapter10", part="ep window", card=card, member=1,
+        start_row=op["start"], errors=errs, nan_past_total_ignored=nan_same,
+        window_bytes=out["window_bytes"])
+    del op, lib
+    torch.cuda.empty_cache()
+    gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts   # checks are not main path
+    return out
+
+
+def window_bound(m, live, k, n, sizes, lhs_b, rhs_b, out_b, peak) -> dict:
+    """K5 on a window: the live rows of lhs read once, the rhs slices of
+    the non-empty groups read once, the whole [M, N] out written once."""
+    groups = int((sizes > 0).sum())
+    nbytes = live * k * lhs_b + groups * k * n * rhs_b + m * n * out_b
+    return _bound(nbytes, 2 * live * k * n, peak)
+
+
+def tgmm_window_bound(m, live, k, n, sizes, lhs_b, dy_b, out_b,
+                      peak) -> dict:
+    """K6 on a window: the live rows of lhs and dy read once, every
+    group's [K, N] written once."""
+    g = sizes.shape[0]
+    nbytes = live * (k * lhs_b + n * dy_b) + g * k * n * out_b
+    return _bound(nbytes, 2 * live * k * n, peak)
+
+
+def phase_chapter10(torch, card: str) -> dict:
+    """Phase 21: chapter 10 at world 1, the ragged exchange over 4 members,
+    the dense dispatch over 4 members, K5 / K6 on the ep window."""
+    t0 = time.perf_counter()
+    chapter = ep_chapter(torch, card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    exchange = ep_exchange(torch, card, gen)
+    dense = ep_dense(torch, card, gen)
+    window = ep_window(torch, card, gen)
+    log(phase="chapter10", seconds=time.perf_counter() - t0, card=card,
+        launches=chapter["launches"])
+    return {"chapter": chapter, "exchange": exchange, "dense": dense,
+            "window": window, "launches": chapter["launches"]}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -5451,6 +5917,7 @@ def main() -> int:
     ch05 = phase_chapter05(torch, smi, plans)
     dense = phase_dense(torch, smi, ch01)
     cp_pp = phase_cp_pp(torch, smi, plans)
+    ch10 = phase_chapter10(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -5550,6 +6017,7 @@ def main() -> int:
                     "launches"][name] for pp in PP_STAGES},
                 "chapters_08_09": cp_pp["chapters"]["launches"][name]},
             "launches_per_step_context_pipeline": cp_pp["per_step"],
+            "launches_chapter10": ch10["launches"][name],
             "shapes": {**{shape: {
                 "B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
                 **{kk: flash_timing[shape][name][kk] for kk in shape_keys
@@ -5581,7 +6049,7 @@ def main() -> int:
         })
     keys = ("M", "K", "N", "G", "dtype", "body", "ms", "profiler_ms",
             "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms",
-            "bound_by", "bound_tc_ms")
+            "bound_by", "bound_fma_ms", "share_of_bound")
     dec = gmm_timing["decode"]
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
@@ -5589,9 +6057,15 @@ def main() -> int:
                   "grouped_matmul.cu",
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:150",
         "launches": moe_serve["launches"]
-        + moe_train["launches"]["grouped_matmul"],
+        + moe_train["launches"]["grouped_matmul"]
+        + ch10["launches"]["grouped_matmul"],
         "launches_serve": moe_serve["launches"],
         "launches_train": moe_train["launches"]["grouped_matmul"],
+        "launches_chapter10": ch10["launches"]["grouped_matmul"],
+        "launches_per_step_chapter10": ch10["chapter"]["ragged"][
+            "launches_per_step"]["grouped_matmul"],
+        "launches_ep_exchange_by_body": ch10["exchange"]["launches"][
+            "by_body"]["grouped_matmul"],
         "launches_per_serve_forward": moe_serve["per_forward"],
         "launches_per_train_step": moe_train["per_step"]["grouped_matmul"],
         "launches_by_body_train": moe_train["launches_by_body"],
@@ -5602,28 +6076,37 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "ptxas_registers_spills": ptxas.get("grouped_matmul", {}),
-        "shapes": {k: {kk: gmm_timing[k].get(kk) for kk in keys}
-                   for k in ("decode", "train", "train-dlhs")},
+        "shapes": {**{k: {kk: gmm_timing[k].get(kk) for kk in keys}
+                      for k in ("decode", "train", "train-dlhs")},
+                   "ep-window": ch10["window"]["rows"]["fwd"],
+                   "ep-window-dlhs": ch10["window"]["rows"]["dlhs"]},
     })
     t = gmm_timing["tgmm-train"]
-    tkeys = keys + ("fma_ms", "library_bf16_dy_ms", "share_of_tc_bound")
+    tkeys = keys + ("fma_ms", "library_bf16_dy_ms")
     kernels.append({
         "name": "tgmm", "route": "cuda",
         "source": "distributed_training_guide_tpu_torch/ops/csrc/"
                   "grouped_matmul.cu",
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:176",
-        "launches": moe_train["launches"]["tgmm"],
+        "launches": moe_train["launches"]["tgmm"]
+        + ch10["launches"]["tgmm"],
         "launches_per_train_step": moe_train["per_step"]["tgmm"],
+        "launches_chapter10": ch10["launches"]["tgmm"],
+        "launches_per_step_chapter10": ch10["chapter"]["ragged"][
+            "launches_per_step"]["tgmm"],
+        "launches_ep_exchange_by_body": ch10["exchange"]["launches"][
+            "by_body"]["tgmm"],
         "launches_by_body_train": moe_train["tgmm_launches_by_body"],
         "launches_chapter01": ch01["launches"]["tgmm"],
         "max_abs_err": gmm_worst["tgmm"], "body": t["body"],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "bound_tc_ms": t["bound_tc_ms"],
+        "bound_fma_ms": t["bound_fma_ms"],
         "library_ms": t["library_ms"], "library_note": t["library_note"],
         "ptxas_registers_spills": ptxas.get("tgmm", {}),
-        "shapes": {k: {kk: gmm_timing[k].get(kk) for kk in tkeys}
-                   for k in ("tgmm-train", "tgmm-train-down")},
+        "shapes": {**{k: {kk: gmm_timing[k].get(kk) for kk in tkeys}
+                      for k in ("tgmm-train", "tgmm-train-down")},
+                   "ep-window": ch10["window"]["rows"]["drhs"]},
     })
     t = qmm_timing["gate-decode"]
     kernels.append({
@@ -5638,13 +6121,14 @@ def main() -> int:
         "max_abs_err": qmm_worst, "body": t["body"],
         "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "bound_tc_ms": t["bound_tc_ms"],
+        "bound_fma_ms": t["bound_fma_ms"],
         "library_ms": None, "library_note": t["library_note"],
         "control_ms": t["control_ms"], "control_note": t["control_note"],
         "ptxas_registers_spills": ptxas.get("quantized_matmul", {}),
         "shapes": {k: {kk: v[kk] for kk in (
             "M", "K", "N", "bs", "dtype", "body", "splits", "ms", "call_ms",
-            "plain_ms", "control_ms", "bound_ms", "bound_by", "bound_tc_ms")}
+            "plain_ms", "control_ms", "bound_ms", "bound_by", "bound_fma_ms",
+            "share_of_bound")}
             for k, v in qmm_timing.items()},
     })
     log(phase="done", seconds=time.perf_counter() - t_start)

@@ -394,12 +394,6 @@ def load_pretrained(bundle, plan, out_dir: str | Path, *,
     out_dir = Path(out_dir)
     shapes = leaf_shapes(bundle)
     specs = {}
-    if plan is not None and bundle.apply_with_aux is not None:
-        from .moe import _EP_ITEM
-
-        raise NotImplementedError(
-            f"a sharded load of the moe family needs expert parallelism "
-            f"({_EP_ITEM}); load it with plan=None")
     if plan is not None:
         specs = {path.replace("/", LEAF_SEP): spec for path, spec in
                  named_leaves(plan.param_specs(bundle.logical_axes(),

@@ -447,6 +447,10 @@ class _Whole:
     def kv_hook(self, config):
         return None
 
+    def token_split(self, h):
+        """Every token on this device (``models/moe.py``'s dispatch)."""
+        return None
+
     def embed(self, config, params, input_ids):
         return embed_tokens(config, params, input_ids)
 

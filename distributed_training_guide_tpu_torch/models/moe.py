@@ -1,4 +1,5 @@
-"""Mixture-of-Experts Llama variant in PyTorch (chapter 10), on one device.
+"""Mixture-of-Experts Llama variant in PyTorch (chapter 10), on one device
+or under any sharding plan.
 
 Counterpart of ``distributed_training_guide_tpu/models/moe.py``. Every
 layer's FFN is a router plus E experts whose weights are stacked on an
@@ -29,9 +30,16 @@ the card; "scan": the plain version, a reference). The Switch load-balance
 loss is returned beside the logits; the Trainer adds
 ``router_aux_coef * aux`` to the loss.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the expert-parallel dispatch (``make_ragged_ep_dispatch``,
-``moe_ep``, ``tp_axis``) and the overlap ``layer_schedule``.
+Under a sharding plan (chapter 10: ``ep`` / ``ep_fsdp``; and every other
+plan of the port) the forward runs on this rank's shards and rows through
+the plan's ``LocalLayout``, as llama's does, and the collectives GSPMD
+derives in the JAX package are written out over ``ops/collectives.py``'s
+exchanges: ``make_ragged_ep_dispatch`` (the ragged bulk exchange: gather
+the ep group's rows, each member's experts on their window of the sorted
+buffer, reduce-scatter home) and ``dense_ep_dispatch`` (the capacity
+dispatch of the global program: the slot map over every rank's routing).
+The overlap schedule (``layer_schedule``, ``overlap=True``) raises,
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -42,13 +50,14 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import collectives as C
 from ..ops.grouped_matmul import grouped_matmul
 from ..ops.remat import checkpoint_name, remat as remat_layer
 from . import llama
 from .llama import _rmsnorm, attention_sublayer
 
 MOE_DISPATCH_MODES = ("dense", "ragged")
-_EP_ITEM = "ROADMAP.md queue 1, 'Expert parallelism'"
+_OVERLAP_ITEM = "ROADMAP.md queue 1, 'Overlap schedule and the fused loss'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +173,60 @@ def init(config: MoELlamaConfig, rng, *, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# layout of the params under a sharding plan
+# ---------------------------------------------------------------------------
+
+def param_logical_axes(config: MoELlamaConfig) -> dict:
+    """The logical axes of every leaf (the JAX package's table): the
+    routed experts' stacks carry ``experts``, which the ``ep*`` rules put
+    on ep; their ``mlp`` dim, and the shared expert's, shard on tp; the
+    router and the shared expert's scalar gate are never sharded."""
+    attn = {"wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv"),
+            "wv": ("layers", "embed", "kv"),
+            "wo": ("layers", "heads", "embed")}
+    if config.qk_norm:
+        attn.update(q_norm=("layers", "head_dim_vector"),
+                    k_norm=("layers", "head_dim_vector"))
+    if config.attn_bias:
+        attn.update(bq=("layers", "heads"), bk=("layers", "kv"),
+                    bv=("layers", "kv"))
+    moe = {"router": ("layers", "embed", "experts_vector"),
+           "gate": ("layers", "experts", "embed", "mlp"),
+           "up": ("layers", "experts", "embed", "mlp"),
+           "down": ("layers", "experts", "mlp", "embed")}
+    if config.shared_expert_intermediate:
+        moe.update(shared_gate_proj=("layers", "embed", "mlp"),
+                   shared_up=("layers", "embed", "mlp"),
+                   shared_down=("layers", "mlp", "embed"),
+                   shared_gate=("layers", "embed_vector"))
+    axes = {"embed": {"embedding": ("vocab", "embed")},
+            "layers": {"attn": attn, "moe": moe,
+                       "input_norm": ("layers", "embed_vector"),
+                       "post_attn_norm": ("layers", "embed_vector")},
+            "final_norm": ("embed_vector",)}
+    if not config.tie_word_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def param_shapes(config: MoELlamaConfig) -> dict:
+    """Every leaf's shape, as ``init`` makes it (on the meta device)."""
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        return tuple(t.shape)
+    return shapes(init(config, 0, device="meta"))
+
+
+# the param paths a plan's ``LocalLayout`` reads (llama's, with the routed
+# experts' gate as the MLP input projection)
+LAYOUT_PATHS = {**llama.LAYOUT_PATHS, "mlp_in": "layers/moe/gate"}
+# the routed experts' stacks, whose ``experts`` axis the ep rules shard
+EXPERT_LEAVES = ("gate", "up", "down")
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -180,6 +243,13 @@ def _ragged_expert_compute(x_rows: torch.Tensor, gate, up, down,
     with checkpoint_name("mlp_act"):
         h = g * u
     return gmm(h, down)
+
+
+def _group_sizes(expert_flat: torch.Tensor, ex: int) -> torch.Tensor:
+    """The pairs per expert, int32 [E], with no host read."""
+    return torch.zeros(ex, dtype=torch.int32,
+                       device=expert_flat.device).scatter_add_(
+        0, expert_flat, torch.ones_like(expert_flat, dtype=torch.int32))
 
 
 def _ragged_sort(xt: torch.Tensor, expert_flat, cdt):
@@ -216,50 +286,258 @@ def _ragged_dispatch(config: MoELlamaConfig, xt: torch.Tensor, expert_flat,
                            cdt)
 
 
-def _dense_dispatch(config: MoELlamaConfig, xt: torch.Tensor, expert_flat,
-                    weight_flat, moe: dict, cdt):
-    """Capacity-buffer dispatch: each pair's slot is its rank among the
-    pairs of its expert (stable sort: greedy by choice rank, then token);
-    pairs past the capacity drop. Rows move by gather only. Returns
-    (y [t, D], dropped_frac)."""
-    t, d = xt.shape
+def _local_groups_compute(x_sorted: torch.Tensor, sizes: torch.Tensor,
+                          gate, up, down, e0: int, e_local: int, cdt,
+                          gmm_impl: str = "auto") -> torch.Tensor:
+    """Grouped-GEMM the ``e_local`` experts from expert ``e0`` over their
+    contiguous run of a group-sorted row buffer; rows outside those
+    groups come back zero. The run starts at the sum of the earlier
+    groups' sizes, a device scalar: the worst-case-static ``[m, D]``
+    window is an index gather (``arange(m) + start``) from a zero-padded
+    copy, so nothing is read back to the host. Past the local groups the
+    window holds other experts' rows, which K5's contract (rows at or past
+    ``sum(group_sizes)`` come out 0) and K6's (they add nothing) ignore."""
+    m = x_sorted.shape[0]
+    start = sizes[:e0].sum()
+    rows = torch.arange(m, device=x_sorted.device)
+    x_pad = torch.cat([x_sorted, torch.zeros_like(x_sorted)])
+    out_local = _ragged_expert_compute(x_pad[rows + start], gate, up, down,
+                                       sizes[e0:e0 + e_local], cdt, gmm_impl)
+    back = rows - start
+    return torch.where((back >= 0)[:, None], out_local[back.clamp(min=0)],
+                       0)
+
+
+def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
+                            overlap: bool = False, gmm_impl: str = "auto"):
+    """The dropless dispatch with the experts spread over the members of
+    ``ep`` (a ``MemberExchange``; None: every member owns every expert),
+    the JAX package's ``make_ragged_ep_dispatch`` in its bulk form: each
+    member all-gathers the rows, ``topk_idx`` and ``topk_probs`` of its ep
+    group, sorts the pairs once, runs its ``E / ep`` experts on their
+    window of the sorted buffer (``_local_groups_compute``: about 1/ep of
+    the rows live) and reduce-scatters the partial combine back to each
+    token's home member. The float rows and probs carry grads through the
+    gather / reduce-scatter pair; the int routing is gathered without.
+
+    ``embed``: an exchange over the axis that shards the experts' embed
+    dim (fsdp under ``ep_fsdp``, one member per process), all-gathered
+    before compute; its backward reduce-scatters the weight grads. With
+    ep == 1 the body does no collective but that gather; where neither is
+    wider than one member this returns None (the local dispatch is the
+    program).
+
+    Returns ``dispatch(xts, topk_idxs, topk_probs, gates, ups, downs)``
+    over one item per local member of ``ep`` (rows [t, D], routing
+    [t, k], the member's expert stacks [E / ep, ...]) -> the combined
+    outputs [t, D] per member. ``overlap=True`` (the double-buffered
+    ring) raises, naming its ROADMAP item."""
+    if overlap:
+        raise NotImplementedError(f"make_ragged_ep_dispatch(overlap=True): "
+                                  f"{_OVERLAP_ITEM}")
     ex, k = config.num_experts, config.experts_per_token
-    m = k * t
-    capacity = max(int(math.ceil(config.capacity_factor * k * t / ex)), 1)
-    dev = xt.device
+    n_ep = 1 if ep is None else ep.size
+    if n_ep > 1 and ex % n_ep:
+        raise ValueError(
+            f"moe_dispatch='ragged' under expert parallelism needs "
+            f"num_experts divisible by the ep axis; got E={ex}, ep={n_ep} — "
+            f"change the mesh or use moe_dispatch='dense'")
+    if embed is not None and embed.size <= 1:
+        embed = None
+    if embed is not None and len(embed.local) != 1:
+        raise ValueError("embed: an exchange with one member per process")
+    if n_ep == 1 and embed is None:
+        return None
+    e_local, cdt = ex // n_ep, config.dtype
+
+    def member(xt, idx, probs, gate, up, down, e0):
+        t = xt.shape[0]
+        expert_flat = idx.T.reshape(k * t)
+        order, x_sorted = _ragged_sort(xt, expert_flat, cdt)
+        sizes = _group_sizes(expert_flat, ex)
+        if n_ep == 1:           # every expert here: the whole buffer
+            out = _ragged_expert_compute(x_sorted, gate, up, down, sizes,
+                                         cdt, gmm_impl)
+        else:
+            out = _local_groups_compute(x_sorted, sizes, gate, up, down, e0,
+                                        e_local, cdt, gmm_impl)
+        return _ragged_combine(out, order, probs.T.reshape(k * t), k, t,
+                               cdt)
+
+    def dispatch(xts, topk_idxs, topk_probs, gates, ups, downs):
+        if embed is not None:
+            gates, ups = ([embed.all_gather([w], 1)[0] for w in ws]
+                          for ws in (gates, ups))
+            downs = [embed.all_gather([w], 2)[0] for w in downs]
+        if n_ep == 1:
+            return [member(*a, 0) for a in zip(xts, topk_idxs, topk_probs,
+                                                gates, ups, downs)]
+        rows = zip(ep.all_gather(xts, 0), ep.all_gather(topk_idxs, 0),
+                   ep.all_gather(topk_probs, 0), gates, ups, downs, ep.local)
+        ys = [member(*a[:6], a[6] * e_local) for a in rows]
+        return ep.reduce_scatter(ys, 0)
+
+    dispatch.ep, dispatch.embed = ep, embed
+    return dispatch
+
+
+def _slots(expert_flat: torch.Tensor) -> torch.Tensor:
+    """Each pair's rank among the pairs of its expert, in pair order (the
+    stable sort keeps the choice-rank-major priority within a group)."""
+    m = expert_flat.shape[0]
     order = torch.argsort(expert_flat, stable=True)
     sorted_e = expert_flat[order]
     group_start = torch.searchsorted(sorted_e, sorted_e)
-    pos_flat = torch.empty_like(order).scatter_(
-        0, order, torch.arange(m, device=dev) - group_start)
-    keep = pos_flat < capacity
-    dropped_frac = 1.0 - keep.float().mean()
-    # overflow pairs target a sacrificial slot that is sliced off
-    dest = torch.where(keep, expert_flat * capacity + pos_flat, ex * capacity)
-    inv = torch.full((ex * capacity + 1,), m, dtype=torch.int64,
+    return torch.empty_like(order).scatter_(
+        0, order, torch.arange(m, device=order.device) - group_start)
+
+
+def _capacity_compute(xt, e_rel, pos, mine, weight_flat, w: dict,
+                      n_exp: int, capacity: int, k: int, cdt):
+    """The pairs ``mine`` (expert ``e_rel`` of this member's ``n_exp``,
+    slot ``pos``) through ``[n_exp, C, D]`` capacity buffers, weighted and
+    combined per token -> [t, D] (zero where no pair of a token is
+    ``mine``). Rows move by gather only: the one scatter inverts the int
+    slot map."""
+    t, d = xt.shape
+    m, dev = k * t, xt.device
+    # other pairs target a sacrificial slot that is sliced off
+    dest = torch.where(mine, e_rel * capacity + pos, n_exp * capacity)
+    inv = torch.full((n_exp * capacity + 1,), m, dtype=torch.int64,
                      device=dev).scatter_(0, dest,
                                           torch.arange(m, device=dev))[:-1]
     expert_in = torch.where((inv < m)[:, None], xt[inv % t].to(cdt),
-                            0).reshape(ex, capacity, d)
-    g = F.silu(torch.bmm(expert_in, moe["gate"].to(cdt)))
-    u = torch.bmm(expert_in, moe["up"].to(cdt))
+                            0).reshape(n_exp, capacity, d)
+    g = F.silu(torch.bmm(expert_in, w["gate"].to(cdt)))
+    u = torch.bmm(expert_in, w["up"].to(cdt))
     with checkpoint_name("mlp_act"):      # the [E, C, F] inner activation
         h = g * u
-    expert_out = torch.bmm(h, moe["down"].to(cdt))
-    y_choice = expert_out.reshape(ex * capacity, d)[
-        dest.clamp(0, ex * capacity - 1)]
-    y_choice = torch.where(keep[:, None], y_choice, 0)
-    y = (y_choice * weight_flat[:, None].to(cdt)).reshape(k, t, d).sum(0)
-    return y, dropped_frac
+    expert_out = torch.bmm(h, w["down"].to(cdt))
+    y_choice = expert_out.reshape(n_exp * capacity, d)[
+        dest.clamp(0, n_exp * capacity - 1)]
+    y_choice = torch.where(mine[:, None], y_choice, 0)
+    return (y_choice * weight_flat[:, None].to(cdt)).reshape(k, t, d).sum(0)
+
+
+def dense_ep_dispatch(config: MoELlamaConfig, xts: list, topk_idxs: list,
+                      topk_probs: list, weights: list, *, route=None,
+                      ep=None, token_index: Optional[list] = None) -> tuple:
+    """The capacity dispatch of tokens spread over members, computing what
+    the single device computes on all of them (the JAX package's dense
+    path is one GSPMD program): the capacity is ``C = ceil(cf k T / E)``
+    over the global token count T, and the slots go by priority in the
+    global choice-rank-major order, so which pairs drop depends on every
+    member's tokens.
+
+    ``route`` (a ``MemberExchange``; None: these are all the tokens)
+    gathers the int routing of every member that holds other tokens (the
+    data axes and cp), and each token's global index (``token_index``, one
+    [t] tensor per local member; default the members' tokens in member
+    order); every member builds the global slot map from them. ``ep``
+    (within ``route``; None: each member runs every expert on its own
+    tokens) gathers the rows and weights of the expert-parallel group;
+    each member fills and computes only its ``[E / ep, C, D]`` buffers,
+    and the partial combine is reduce-scattered home. ``weights``: per
+    local member {"gate", "up", "down"}, its experts' stacks.
+
+    Returns (the outputs [t, D] per local member, the global fraction of
+    dropped pairs)."""
+    ex, k = config.num_experts, config.experts_per_token
+    n_ep = 1 if ep is None else ep.size
+    if ex % n_ep:
+        raise ValueError(f"num_experts {ex} not divisible by ep {n_ep}")
+    e_local, cdt = ex // n_ep, config.dtype
+    if token_index is None:
+        members = (0,) if route is None else route.local
+        token_index = [torch.arange(x.shape[0], device=x.device)
+                       + m * x.shape[0] for m, x in zip(members, xts)]
+    idx_all, tok_all = topk_idxs, token_index
+    if route is not None:
+        idx_all = route.all_gather(topk_idxs, 0)
+        tok_all = route.all_gather(token_index, 0)
+    xs, ps, toks, owners = xts, topk_probs, token_index, (0,) * len(xts)
+    if ep is not None:
+        xs, ps, toks = (ep.all_gather(v, 0)
+                        for v in (xts, topk_probs, token_index))
+        owners = ep.local
+    ys, dropped = [], None
+    for x, p, tok, w, owner, idx, tg in zip(xs, ps, toks, weights, owners,
+                                           idx_all, tok_all):
+        n_tok, t = idx.shape[0], x.shape[0]
+        capacity = max(int(math.ceil(config.capacity_factor * k * n_tok
+                                     / ex)), 1)
+        table = torch.empty((k, n_tok), dtype=idx.dtype, device=x.device)
+        table[:, tg] = idx.T                  # global choice-rank-major
+        expert_g = table.reshape(k * n_tok)
+        pos_g = _slots(expert_g)
+        keep_g = pos_g < capacity
+        dropped = 1.0 - keep_g.float().mean()
+        pair = (torch.arange(k, device=x.device)[:, None] * n_tok
+                + tok[None, :]).reshape(k * t)
+        e_rel = expert_g[pair] - owner * e_local
+        mine = keep_g[pair] & (e_rel >= 0) & (e_rel < e_local)
+        ys.append(_capacity_compute(x, e_rel, pos_g[pair], mine,
+                                    p.T.reshape(k * t), w, e_local,
+                                    capacity, k, cdt))
+    if ep is not None:
+        ys = ep.reduce_scatter(ys, 0)
+    return ys, dropped
+
+
+@dataclasses.dataclass
+class TokenSplit:
+    """How the tokens of one routed FFN call lie over the ranks of a plan
+    (``parallel/plans.py:LocalLayout.token_split``): ``route`` gathers from
+    every rank that holds other tokens (the data axes and cp: an
+    ``ops/collectives.AxesExchange``), ``ep`` is the expert-parallel
+    group's exchange (None at ep 1), ``token_index`` [t] the global index
+    of each local token (b-major, the single device's order),
+    and ``replicas`` the tp ranks that route the same tokens (the aux
+    loss's gradient is shared among them)."""
+    route: Any
+    ep: Any
+    token_index: torch.Tensor
+    replicas: int = 1
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``route``; the backward is the
+        identity (each rank differentiates the one global value for its
+        own tokens)."""
+        for g in (() if self.route is None else self.route.groups):
+            x = C.all_reduce(x, g)
+        return x
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity whose backward scales by ``share``: a value every one of
+    ``1 / share`` ranks computes from the same tokens, whose grads are
+    then summed over those ranks."""
+
+    @staticmethod
+    def forward(ctx, x, share):
+        ctx.share = share
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None
 
 
 def _moe_ffn(config: MoELlamaConfig, x: torch.Tensor, moe: dict,
-             tp_axis=None, no_drop: bool = False, moe_ep=None,
-             gmm_impl: str = "auto"):
+             no_drop: bool = False, moe_ep=None, gmm_impl: str = "auto",
+             split: Optional[TokenSplit] = None):
     """Top-k routed FFN. x: [B, S, D]. Returns (y, aux_loss,
-    dropped_frac). ``no_drop`` (the serve paths) always runs ragged."""
-    if tp_axis is not None or moe_ep is not None:
-        raise NotImplementedError(f"tp_axis / moe_ep: {_EP_ITEM}")
+    dropped_frac). ``no_drop`` (the serve paths) always runs ragged.
+
+    Under a plan (``split``: how the tokens lie over the ranks) the dense
+    dispatch computes the global program (``dense_ep_dispatch``), the
+    ragged one runs ``moe_ep`` (``make_ragged_ep_dispatch``, threaded in
+    by the Trainer) where the plan has one, and the load-balance loss
+    ``E * sum_e token_frac_e * prob_frac_e`` is a product of global means
+    (both summed over the ranks of ``split.route`` first). Under tp the
+    experts' and the shared expert's mlp dims are sharded and ``y`` is a
+    partial sum: the caller's ``layout.leave`` sums it once, routed and
+    shared outputs together (the JAX package's ``tp_axis``)."""
     b, s, d = x.shape
     t = b * s
     ex, k = config.num_experts, config.experts_per_token
@@ -280,17 +558,27 @@ def _moe_ffn(config: MoELlamaConfig, x: torch.Tensor, moe: dict,
     # (token, choice) pairs choice-rank-major: pair i is token i mod t
     expert_flat = topk_idx.T.reshape(k * t)
     weight_flat = topk_probs.T.reshape(k * t)
-    # the pairs per expert, with no host read
-    counts = torch.zeros(ex, dtype=torch.int32, device=x.device).scatter_add_(
-        0, expert_flat, torch.ones_like(expert_flat, dtype=torch.int32))
+    counts = _group_sizes(expert_flat, ex)
+    ep = None if split is None else split.ep
 
     if dispatch == "ragged":
-        y = _ragged_dispatch(config, xt, expert_flat, weight_flat, counts,
-                             moe, cdt, gmm_impl)
+        if moe_ep is not None:
+            y = moe_ep([xt], [topk_idx], [topk_probs], [moe["gate"]],
+                       [moe["up"]], [moe["down"]])[0]
+        elif ep is not None:
+            raise ValueError("moe_dispatch='ragged' under expert "
+                             "parallelism needs moe_ep "
+                             "(make_ragged_ep_dispatch over the ep group)")
+        else:
+            y = _ragged_dispatch(config, xt, expert_flat, weight_flat,
+                                 counts, moe, cdt, gmm_impl)
         dropped_frac = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        y, dropped_frac = _dense_dispatch(config, xt, expert_flat,
-                                          weight_flat, moe, cdt)
+        ys, dropped_frac = dense_ep_dispatch(
+            config, [xt], [topk_idx], [topk_probs], [moe],
+            route=None if split is None else split.route, ep=ep,
+            token_index=None if split is None else [split.token_index])
+        y = ys[0]
     if "shared_gate" in moe:   # Qwen2-MoE shared expert, added to the combine
         xs = xt.to(cdt)
         hs = F.silu(xs @ moe["shared_gate_proj"].to(cdt))
@@ -300,35 +588,75 @@ def _moe_ffn(config: MoELlamaConfig, x: torch.Tensor, moe: dict,
         y = y + sgate.to(cdt) * shared_out
 
     # Switch load-balance loss over all k choices: E * sum_e (choice
-    # fraction)_e * (mean router prob)_e
-    token_frac = counts.float() / (t * k)
-    aux = ex * torch.sum(token_frac * probs.mean(0))
+    # fraction)_e * (mean router prob)_e, both over every token
+    counts, prob_sum, n_tok = counts.float(), probs.sum(0), t
+    if split is not None:
+        counts, prob_sum = split.reduce(counts), split.reduce(prob_sum)
+        n_tok = t * (1 if split.route is None else split.route.size)
+    aux = ex * torch.sum((counts / (n_tok * k)) * (prob_sum / n_tok))
+    if split is not None and split.replicas > 1:
+        aux = _ShareGrad.apply(aux, 1.0 / split.replicas)
     return y.reshape(b, s, d), aux, dropped_frac
-
-
-def _local_groups_compute(*args, **kwargs):
-    raise NotImplementedError(f"_local_groups_compute: {_EP_ITEM}")
-
-
-def make_ragged_ep_dispatch(*args, **kwargs):
-    raise NotImplementedError(f"make_ragged_ep_dispatch: {_EP_ITEM}")
 
 
 # ---------------------------------------------------------------------------
 # forwards
 # ---------------------------------------------------------------------------
 
-def _block(config: MoELlamaConfig, x, aux_acc, dropped_acc, layer: dict,
-           positions, attn_impl, rope, standard_layout=True, window=None,
-           gmm_impl: str = "auto"):
-    attn = attention_sublayer(config, x, layer["attn"], layer["input_norm"],
-                              positions, attn_impl, rope,
-                              window_override=window,
-                              standard_layout=standard_layout)
+def block(config: MoELlamaConfig, x: torch.Tensor, layer: dict, *,
+          positions: torch.Tensor, rope: tuple, attn_impl, window=None,
+          standard_layout: bool = True, layout=llama._WHOLE, kv_hook=None,
+          moe_ep=None, gmm_impl: str = "auto") -> tuple:
+    """One decoder layer -> (x, aux, dropped_frac): ``layout`` gathers the
+    layer's fsdp shards (the experts keep their ep shards), brings each
+    sublayer's normed input to the full sequence and sums its
+    row-parallel output back, and says how the tokens lie over the ranks
+    (``layout.token_split``)."""
+    eps = config.rms_norm_eps
+    layer = layout.gather_layer(layer)
+    attn = layout.leave(attention_sublayer(
+        config, layout.enter(_rmsnorm(x, layer["input_norm"], eps)),
+        layer["attn"], None, positions, attn_impl, rope,
+        window_override=window, standard_layout=standard_layout,
+        kv_hook=kv_hook))
     x = x + attn
-    h = _rmsnorm(x, layer["post_attn_norm"], config.rms_norm_eps)
-    y, aux, dropped = _moe_ffn(config, h, layer["moe"], gmm_impl=gmm_impl)
-    return x + y, aux_acc + aux, dropped_acc + dropped
+    h = layout.enter(_rmsnorm(x, layer["post_attn_norm"], eps))
+    y, aux, dropped = _moe_ffn(config, h, layer["moe"], moe_ep=moe_ep,
+                               gmm_impl=gmm_impl,
+                               split=layout.token_split(h))
+    return x + layout.leave(y), aux, dropped
+
+
+def run_blocks(config: MoELlamaConfig, layers: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, attn_impl="auto",
+               layout=llama._WHOLE, remat: bool = False, remat_policy=None,
+               standard_layout: bool = True, first_layer: int = 0,
+               seq_len: Optional[int] = None, moe_ep=None,
+               gmm_impl: str = "auto") -> tuple:
+    """The layers of the stacked ``layers`` in order (a pipeline stage's
+    slice from global layer ``first_layer``, or all of them) -> (x, the
+    sum of their aux losses, the sum of their dropped fractions); each
+    layer under ``torch.utils.checkpoint`` with ``remat``."""
+    wins = llama.layer_windows(config)
+    rope = llama.layer_rope(config, positions, seq_len)
+    kv_hook = layout.kv_hook(config)
+
+    def one(x, layer, window):
+        return block(config, x, layer, positions=positions, rope=rope,
+                     attn_impl=attn_impl, window=window,
+                     standard_layout=standard_layout, layout=layout,
+                     kv_hook=kv_hook, moe_ep=moe_ep, gmm_impl=gmm_impl)
+
+    aux = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(llama._unbind_layers(
+            layers, llama._num_layers(layers))):
+        window = None if wins is None else wins[first_layer + i]
+        if remat:
+            x, a, dr = remat_layer(one, x, layer, window, policy=remat_policy)
+        else:
+            x, a, dr = one(x, layer, window)
+        aux, dropped = aux + a, dropped + dr
+    return x, aux, dropped
 
 
 def apply_with_aux(config: MoELlamaConfig, params: dict,
@@ -342,35 +670,25 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
     [, {"moe_dropped_frac"}]). ``return_hidden`` swaps the logits for the
     final-normed hidden states [B, S, E] (the chunked loss, with
     ``output_weights``). ``remat=True`` wraps each layer in
-    ``torch.utils.checkpoint`` under ``remat_policy`` (``ops/remat.py``)."""
-    if moe_ep is not None:
-        raise NotImplementedError(f"moe_ep: {_EP_ITEM}")
-    if activation_sharding is not None:
-        raise NotImplementedError(f"activation_sharding: {_EP_ITEM}")
+    ``torch.utils.checkpoint`` under ``remat_policy`` (``ops/remat.py``).
+    ``activation_sharding``: a plan's ``LocalLayout``, as
+    ``models/llama.apply`` takes it (this rank's shards and rows);
+    ``moe_ep``: the expert-parallel ragged dispatch
+    (``make_ragged_ep_dispatch``), threaded to every layer."""
     if layer_schedule is not None:
-        raise NotImplementedError(
-            "layer_schedule: ROADMAP.md queue 1, 'Overlap schedule and "
-            "the fused loss'")
-    standard_layout = positions is None
-    if positions is None:
-        positions = torch.arange(input_ids.shape[1],
-                                 device=input_ids.device)[None, :]
-    positions = positions.expand(input_ids.shape)
-    x = embed_tokens(config, params, input_ids)
-    wins = llama.layer_windows(config)
-    rope = llama.layer_rope(config, positions)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux, dropped = zero, zero
-    for i, layer in enumerate(llama._unbind_layers(params["layers"],
-                                                   config.num_layers)):
-        args = (config, x, aux, dropped, layer, positions, attn_impl, rope,
-                standard_layout, None if wins is None else wins[i], gmm_impl)
-        if remat:
-            x, aux, dropped = remat_layer(_block, *args, policy=remat_policy)
-        else:
-            x, aux, dropped = _block(*args)
-    out = (final_hidden(config, params, x) if return_hidden
-           else lm_head_logits(config, params, x))
+        raise NotImplementedError(f"layer_schedule: {_OVERLAP_ITEM}")
+    layout = (llama._WHOLE if activation_sharding is None
+              else activation_sharding)
+    positions, seq_len, standard_layout = llama.model_positions(
+        input_ids, positions, layout)
+    x = embed_input(config, params, input_ids, positions, layout)
+    x, aux, dropped = run_blocks(
+        config, params["layers"], x, positions, attn_impl=attn_impl,
+        layout=layout, remat=remat, remat_policy=remat_policy,
+        standard_layout=standard_layout, seq_len=seq_len, moe_ep=moe_ep,
+        gmm_impl=gmm_impl)
+    x = final_layer(config, params, x, layout)
+    out = x if return_hidden else logits_of_hidden(config, params, x, layout)
     aux = aux / config.num_layers
     if return_metrics:
         return out, aux, {"moe_dropped_frac": dropped / config.num_layers}
@@ -388,6 +706,9 @@ output_weights = llama.output_weights
 final_hidden = llama.final_hidden
 lm_head_logits = llama.lm_head_logits
 init_cache = llama.init_cache
+embed_input = llama.embed_input
+final_layer = llama.final_layer
+logits_of_hidden = llama.logits_of_hidden
 
 
 @torch.no_grad()

@@ -23,10 +23,14 @@ of one global loss (Megatron's conjugate operators):
 A ``group`` of ``None`` means no group: each op is then the identity (the
 plain single-device form).
 
-Context and pipeline parallelism exchange tensors between the members of
-one mesh axis (``MemberExchange``): a permutation (the ring's rotations
-and zigzag relayout, the pipeline's hops), an all-to-all (Ulysses) and an
-all-gather (Ulysses where cp does not divide the heads).
+Context, pipeline and expert parallelism exchange tensors between the
+members of one mesh axis (``MemberExchange``): a permutation (the ring's
+rotations and zigzag relayout, the pipeline's hops), an all-to-all
+(Ulysses), an all-gather (Ulysses where cp does not divide the heads; the
+expert exchange's rows and routing) and a reduce-scatter (the expert
+exchange's partial combine going home). ``AxesExchange`` gathers over
+several mesh axes at once (the MoE routing of every rank that holds other
+tokens).
 ``GroupExchange`` holds this rank's one member of a process group and
 sends through ``dist.batch_isend_irecv`` / ``all_to_all_single``;
 ``LocalExchange`` holds every member in one process, so the ring and the
@@ -213,7 +217,10 @@ class MemberExchange:
       ``cat_dim`` in member order; autograd-aware.
     - ``all_gather(xs, dim)``: every member receives every member's tensor,
       concatenated along ``dim`` in member order; autograd-aware (each
-      member's gradient share is summed back onto its tensor)."""
+      member's gradient share is summed back onto its tensor).
+    - ``reduce_scatter(xs, dim)``: the sum of every member's tensor, of
+      which member j receives chunk j along ``dim``; autograd-aware (the
+      backward all-gathers)."""
 
     size: int
     local: tuple
@@ -225,6 +232,9 @@ class MemberExchange:
         raise NotImplementedError
 
     def all_gather(self, xs: list, dim: int) -> list:
+        raise NotImplementedError
+
+    def reduce_scatter(self, xs: list, dim: int) -> list:
         raise NotImplementedError
 
 
@@ -250,6 +260,12 @@ class LocalExchange(MemberExchange):
     def all_gather(self, xs: list, dim: int) -> list:
         whole = torch.cat(xs, dim=dim)
         return [whole] * self.size
+
+    def reduce_scatter(self, xs: list, dim: int) -> list:
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        return list(torch.chunk(total, self.size, dim=dim))
 
 
 class GroupExchange(MemberExchange):
@@ -298,3 +314,28 @@ class GroupExchange(MemberExchange):
     def all_gather(self, xs: list, dim: int) -> list:
         (x,) = xs
         return [all_gather(x, self.group, dim)]
+
+    def reduce_scatter(self, xs: list, dim: int) -> list:
+        (x,) = xs
+        return [reduce_scatter(x, self.group, dim)]
+
+
+class AxesExchange(MemberExchange):
+    """One member per process over the product of several process groups
+    (mesh axes): ``all_gather`` runs over each group in turn, so the
+    members' order is not rank order; the MoE routing gathers each
+    token's global index beside it. An empty list of groups is one
+    member."""
+
+    def __init__(self, groups: list):
+        self.groups = list(groups)
+        self.size = 1
+        for g in self.groups:
+            self.size *= dist.get_world_size(g)
+        self.local = (0,)
+
+    def all_gather(self, xs: list, dim: int) -> list:
+        (x,) = xs
+        for g in self.groups:
+            x = all_gather(x, g, dim)
+        return [x]

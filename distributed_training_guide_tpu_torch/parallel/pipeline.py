@@ -25,7 +25,13 @@ schedule for schedule:
   global token mean, as in the JAX package;
 - bubble ticks issue no work, except under cp > 1 (``run_all``): there
   every tick runs the stage on every member and the outputs / cotangents
-  are masked, as the JAX schedule does.
+  are masked, as the JAX schedule does;
+- a mixture of experts carries its router aux loss through the schedule
+  with the JAX package's scaling: each stage adds ``aux_coef / n_layers``
+  times its layers' aux for each microbatch to the loss, and seeds the aux
+  cotangent of its recompute with ``aux_coef / (M n_layers)`` (the 1/tp
+  of the JAX seed is the MoE layer's own: ``models/moe.py:_ShareGrad``).
+  Dense stages carry none.
 
 The stages run over a ``MemberExchange`` (``ops/collectives.py``): under
 a process group one stage per rank, the hops neighbour send / receive on
@@ -60,13 +66,6 @@ def _leaves(tree: dict, prefix: str = "") -> list:
 def _refuse(bundle, pp: int) -> None:
     """The JAX package's refusals of a model under pp."""
     cfg = bundle.config
-    if getattr(bundle, "apply_with_aux", None) is not None:
-        from ..models.moe import _EP_ITEM
-
-        raise NotImplementedError(
-            f"{bundle.name} under pipeline parallelism: a mixture of "
-            f"experts under a sharding plan needs expert parallelism "
-            f"({_EP_ITEM})")
     if getattr(bundle, "lora_base", None) is not None:
         raise NotImplementedError(
             "LoRA under pipeline parallelism: the stages run the family's "
@@ -108,17 +107,23 @@ class Pipeline:
         self.run_all = run_all
         self.data_size = data_size
         self.layers_per_stage = self.cfg.num_layers // self.pp
+        # MoE stages return (y, aux summed over their layers)
+        self.moe = getattr(bundle, "apply_with_aux", None) is not None
+        self.aux_coef = (getattr(self.cfg, "router_aux_coef", 0.0)
+                         if self.moe else 0.0)
 
     # ---- the stage's pieces ------------------------------------------------
     def _kw(self):
         return {} if self.layout is None else {"layout": self.layout}
 
     def _stage(self, s: int, layers: dict, x, positions, seq_len):
-        return self.fam.run_blocks(
+        """(the stage's output, its layers' summed router aux or None)."""
+        out = self.fam.run_blocks(
             self.cfg, layers, x, positions, attn_impl=self.attn_impl,
             remat=self.remat, remat_policy=self.remat_policy,
             first_layer=s * self.layers_per_stage, seq_len=seq_len,
             **self._kw())
+        return (out[0], out[1]) if self.moe else (out, None)
 
     def _embed(self, nl: dict, ids, positions):
         return self.fam.embed_input(self.cfg, nl, ids, positions,
@@ -198,9 +203,14 @@ class Pipeline:
             valid = 0 <= t - s < M
             if valid or self.run_all:
                 with torch.no_grad():
-                    y = self._stage(s, d["layers"], x_in, positions, seq_len)
+                    y, aux = self._stage(s, d["layers"], x_in, positions,
+                                         seq_len)
                 if not valid:       # run_all: the bubble's output masked
                     y = torch.zeros_like(y)
+                elif aux is not None:
+                    # this stage's router aux for its resident microbatch
+                    d["loss"] = d["loss"] + aux.float() * (
+                        self.aux_coef / self.cfg.num_layers)
             else:
                 y = torch.zeros(shape, **act)
             o = t - (pp - 1)
@@ -228,9 +238,16 @@ class Pipeline:
                 leaves = [t_ for _, t_ in d["layer_leaves"]]
                 with torch.enable_grad():
                     x = x_saved.detach().requires_grad_()
-                    y = self._stage(s, d["layers"], x, positions, seq_len)
+                    y, aux = self._stage(s, d["layers"], x, positions,
+                                         seq_len)
                     cot = dy if valid else torch.zeros_like(dy)
-                    g = torch.autograd.grad(y, leaves + [x], cot,
+                    outs, cots = [y], [cot]
+                    if aux is not None:     # the aux loss's cotangent
+                        outs.append(aux)
+                        cots.append(torch.full_like(
+                            aux, self.aux_coef / (M * self.cfg.num_layers)
+                            if valid else 0.0))
+                    g = torch.autograd.grad(outs, leaves + [x], cots,
                                             allow_unused=True)
                 add(d["grads"], zip(d["layer_leaves"], g[:-1]))
                 dx = g[-1]

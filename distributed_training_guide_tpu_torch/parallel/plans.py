@@ -41,8 +41,21 @@ The ``pp*`` strategies place the stacked ``[L]`` axis on pp; the step is
 the 1F1B schedule of ``parallel/pipeline.py``. Under cp or pp the
 residual is not sequence-sharded on tp (the JAX package's layout: cp
 holds the sequence dim, and the pipeline's blocks carry no sequence
-parallelism). ``ep*`` strategies raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+parallelism).
+
+The ``ep*`` strategies (chapter 10) put the routed experts' ``experts``
+axis on ep, a data axis: each ep rank holds other tokens and ``E / ep``
+experts. ``LocalLayout`` gathers a layer's other shards but keeps the
+experts' ep shard, and says how the tokens lie over the ranks
+(``token_split``) for the MoE dispatch (``models/moe.py``): the ragged
+exchange over the ep group, the dense dispatch's global slot map and the
+load-balance loss's global means over every axis that splits tokens (the
+data axes and cp). An expert leaf's grad is summed over the data axes but
+ep (each rank owns its experts, and its exchange already brought every
+ep rank's tokens to them); every other leaf's over all of them, as
+before. A mixture of experts runs under every plan: the router (and the
+shared expert's scalar gate) are whole on the tp ranks, whose grads of
+them are partial sums.
 """
 from __future__ import annotations
 
@@ -125,10 +138,6 @@ STRATEGIES: dict[str, dict[str, Any]] = {
 
 # logical axes that shard the optimizer state only (ZeRO-1, reference C3):
 ZERO1_RULES = {"embed": ("dp", "fsdp"), "vocab": ("dp", "fsdp")}
-
-# the ROADMAP.md item that ports what a plan here refuses
-_EP_ITEM = "ROADMAP.md queue 1, 'Expert parallelism'"
-
 
 def axis_sizes(mesh) -> dict:
     """{axis name: size} of a ``DeviceMesh`` (or of a mapping given as
@@ -358,10 +367,6 @@ def make_plan(strategy: str, mesh, *, sequence_sharded: Optional[bool] = None,
               zero2: Optional[bool] = None) -> ShardingPlan:
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; choose from {sorted(STRATEGIES)}")
-    if strategy.startswith("ep"):
-        raise NotImplementedError(f"strategy {strategy!r}: {_EP_ITEM}")
-    if axis_sizes(mesh)["ep"] > 1:
-        raise NotImplementedError(f"a mesh with ep > 1: {_EP_ITEM}")
     if sequence_sharded is None:
         sequence_sharded = strategy in ("tp", "tp_fsdp")
     if zero2 is None:
@@ -439,10 +444,12 @@ def global_norm(grads: list, layouts: list) -> torch.Tensor:
 # The forward on a rank (models/llama.py:apply)
 # ---------------------------------------------------------------------------
 
-# leaves every tp rank keeps whole but uses on its own heads only: their
-# grads are partial sums over tp (the kv projection where it is not
-# sharded, the per-head q / k norm scales)
-_PARTIAL_ON_TP = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
+# leaves every tp rank keeps whole but uses on its own heads or MLP columns
+# only: their grads are partial sums over tp (the kv projection where it is
+# not sharded, the per-head q / k norm scales; the MoE router and shared
+# expert gate, whose outputs weight the rank's partial expert outputs)
+_PARTIAL_ON_TP = ("wk", "wv", "bk", "bv", "q_norm", "k_norm", "router",
+                  "shared_gate")
 
 
 def _under(specs: dict, prefix: str) -> dict:
@@ -481,6 +488,20 @@ class LocalLayout:
         self.cp_rank = plan.mesh.get_local_rank("cp") if self.cp > 1 else 0
         self.tp_group = plan.group("tp") if self.tp_on else None
         self.tp_rank = plan.mesh.get_local_rank("tp") if self.tp_on else 0
+        # the MoE dispatch: the ranks that hold other tokens, the ep group
+        sizes = plan.sizes
+        self.route_groups = tuple(plan.group(a) for a in (*plan.data_axes,
+                                                          "cp")
+                                  if sizes[a] > 1)
+        # (where ep does not divide the experts, spec_for_leaf replicates
+        # them, as JAX does, and each rank runs every expert)
+        on_ep = "ep" in {a for e in _under(specs, model).get(
+            paths["mlp_in"], ()) for a in entry_axes(e)}
+        self.ep_exchange = (plan.exchange("ep") if on_ep and sizes["ep"] > 1
+                            else None)
+        # leaves whose fsdp gather the MoE dispatch runs itself (the
+        # experts under a ragged ep_fsdp exchange: ``embed``)
+        self.gathered_by_dispatch: frozenset = frozenset()
         # ``model``: the subtree of the params the family's forward reads
         # (a LoRA bundle's "base"); ``partners``: {adapter path: the leaf
         # it adapts}
@@ -508,10 +529,12 @@ class LocalLayout:
     def gather_leaf(self, path: str, local: torch.Tensor,
                     layer: bool = False) -> torch.Tensor:
         """A param's compute form: its shards over the data axes (fsdp)
-        all-gathered, its tp shard kept. ``layer``: one layer's slice of a
-        stacked leaf (the spec's layer dim dropped)."""
+        all-gathered, its tp and ep shards kept. ``layer``: one layer's
+        slice of a stacked leaf (the spec's layer dim dropped)."""
+        if path in self.gathered_by_dispatch:
+            return local
         spec = self.specs[path][1:] if layer else self.specs[path]
-        return self.plan.unshard(spec, local, skip=("tp",))
+        return self.plan.unshard(spec, local, skip=("tp", "ep"))
 
     def gather_layer(self, layer: dict, prefix: str = "layers") -> dict:
         return {k: (self.gather_layer(v, f"{prefix}/{k}")
@@ -540,6 +563,28 @@ class LocalLayout:
     def _seq_shard(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[1] // self.tp
         return x.narrow(1, self.tp_rank * n, n)
+
+    # ---- the MoE dispatch ----------------------------------------------------
+    def token_split(self, h: torch.Tensor):
+        """How the tokens of ``h`` [b, s, E] (a routed FFN's input, the full
+        sequence of the rank's rows, or its cp shard) lie over the ranks:
+        ``models/moe.py:TokenSplit``, or None where this rank holds every
+        token alone (the single device's program)."""
+        from ..models.moe import TokenSplit
+        from ..ops.collectives import AxesExchange
+
+        replicas = self.tp if self.tp_on else 1
+        if not self.route_groups and self.ep_exchange is None \
+                and replicas == 1:
+            return None
+        b, s = h.shape[:2]
+        rows = self.plan.data_rank * b + torch.arange(b, device=h.device)
+        cols = self.cp_rank * s + torch.arange(s, device=h.device)
+        index = (rows[:, None] * (s * self.cp) + cols[None, :]).reshape(-1)
+        route = (AxesExchange(list(self.route_groups))
+                 if self.route_groups else None)
+        return TokenSplit(route=route, ep=self.ep_exchange,
+                          token_index=index, replicas=replicas)
 
     # ---- attention ---------------------------------------------------------
     def kv_hook(self, config):
@@ -696,10 +741,13 @@ def _check_tp(config, tp: int, specs: dict, mlp_in: str) -> None:
     if (config.num_kv_heads % tp and tp % config.num_kv_heads):
         problems.append(f"num_kv_heads {config.num_kv_heads} and tp {tp} "
                         f"(neither divides the other)")
-    if "tp" not in entry_axes((specs[mlp_in] + (None,) * 3)[2]):
+    if not any("tp" in entry_axes(e) for e in specs[mlp_in]):
         problems.append(f"intermediate_size "
                         f"{getattr(config, 'intermediate_size', None)} % "
                         f"tp {tp}")
+    shared = getattr(config, "shared_expert_intermediate", None)
+    if shared and shared % tp:
+        problems.append(f"shared_expert_intermediate {shared} % tp {tp}")
     if getattr(config, "qk_norm", False) == "flat":
         problems.append("qk_norm='flat' (a norm across every head)")
     if problems:

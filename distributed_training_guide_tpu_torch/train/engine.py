@@ -30,8 +30,10 @@ LoRA adapters on a frozen base, ``models/lora.py``), and the offloads,
 ``offload_optimizer`` /
 ``offload_params`` or DeepSpeed's ``zero_optimization.offload_optimizer``
 / ``offload_param`` (a bool or ``{"device": "cpu"}``; ``"none"``
-disables). ``expert_parallel`` > 1 and ``overlap_schedule`` raise
-``NotImplementedError`` naming their ROADMAP.md items.
+disables). ``expert_parallel`` > 1 builds ``ep`` (``ep_fsdp`` at stage
+3), refusing tp, pp and ZeRO-1 / 2 beside it as the JAX engine does.
+``overlap_schedule`` raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 
 The engine starts the process group it needs
 (``launch.maybe_initialize_distributed``: the torchrun env contract, or a
@@ -48,7 +50,6 @@ from typing import Any, Optional
 
 _STAGE_TO_STRATEGY = {0: "ddp", 1: "zero1", 2: "zero2", 3: "fsdp"}
 _OVERLAP = "ROADMAP.md queue 1, 'Overlap schedule and the fused loss'"
-_EP = "ROADMAP.md queue 1, 'Expert parallelism'"
 
 
 def _ds_offload_enabled(v) -> bool:
@@ -60,13 +61,11 @@ def _ds_offload_enabled(v) -> bool:
 
 
 def _refuse_unported(config: dict) -> None:
-    refused = (("expert_parallel", 1, _EP),
-               ("overlap_schedule", False, _OVERLAP))
-    for key, default, item in refused:
-        if config.get(key, default) not in (default, None):
-            raise NotImplementedError(
-                f"engine config {key}={config[key]!r} is not ported yet "
-                f"({item})")
+    if config.get("overlap_schedule", False) not in (False, None):
+        raise NotImplementedError(
+            f"engine config overlap_schedule="
+            f"{config['overlap_schedule']!r} is not ported yet "
+            f"({_OVERLAP})")
 
 
 def _scheduler_config(sched: dict) -> dict:
@@ -146,19 +145,27 @@ def _optimizer(config: dict):
     return spec, precision, sched
 
 
-def plan_for_stage(stage: int, tp: int, pp: int = 1) -> tuple:
-    """(strategy, zero1, zero2) of a ZeRO stage, tensor- and
-    pipeline-parallel sizes: the ``make_plan`` arguments (ZeRO-1 / 2 stay
+def plan_for_stage(stage: int, tp: int, pp: int = 1, ep: int = 1) -> tuple:
+    """(strategy, zero1, zero2) of a ZeRO stage, tensor-, pipeline- and
+    expert-parallel sizes: the ``make_plan`` arguments (ZeRO-1 / 2 stay
     sharded when tensor_parallel rewrites the strategy; None lets the
-    strategy say)."""
+    strategy say). The JAX engine's refusals: ep beside tp or pp, and
+    ZeRO-1 / 2 with pp or ep."""
     if stage not in _STAGE_TO_STRATEGY:
         raise ValueError(f"zero_optimization.stage must be 0-3, got "
                          f"{stage!r}")
-    if stage in (1, 2) and pp > 1:
+    if ep > 1 and (tp > 1 or pp > 1):
+        raise ValueError(
+            "expert_parallel composes with data/fsdp axes only (the ep "
+            "plans); drop tensor_parallel/pipeline_parallel or ep")
+    if stage in (1, 2) and (pp > 1 or ep > 1):
         raise ValueError(
             "ZeRO stage 1/2 shards optimizer/grad state over the data "
-            "axes of ddp/tp plans; with pipeline_parallel use stage 0 or 3")
-    if pp > 1:
+            "axes of ddp/tp plans; with pipeline_parallel or "
+            "expert_parallel use stage 0 or 3")
+    if ep > 1:
+        strategy = "ep_fsdp" if stage == 3 else "ep"
+    elif pp > 1:
         strategy = ("pp_tp_fsdp" if tp > 1 and stage == 3
                     else "pp_tp" if tp > 1
                     else "pp_fsdp" if stage == 3 else "pp")
@@ -218,13 +225,14 @@ class TrainingEngine:
         tp = config.get("tensor_parallel", 1)
         pp = config.get("pipeline_parallel", 1)
         cp = config.get("context_parallel", 1)
-        plan_args = plan_for_stage(stage, tp, pp)   # fails before the group
+        ep = config.get("expert_parallel", 1)
+        plan_args = plan_for_stage(stage, tp, pp, ep)  # fails before the group
         self._owns_group = not dist.is_initialized()
         self._ios: dict[str, Any] = {}
         maybe_initialize_distributed(device)
         try:
-            self._build(config, bundle, stage == 3, (tp, pp, cp), plan_args,
-                        device)
+            self._build(config, bundle, stage == 3, (tp, pp, cp, ep),
+                        plan_args, device)
         except BaseException:
             self.close()
             raise
@@ -239,12 +247,12 @@ class TrainingEngine:
         from .step import Trainer
 
         n = dist.get_world_size()
-        tp, pp, cp = sizes
-        denom = tp * pp * cp
+        tp, pp, cp, ep = sizes
+        denom = tp * pp * cp * ep
         if n % denom:
             raise ValueError(f"{n} ranks not divisible by tensor x "
-                             f"pipeline x context = {denom}")
-        mesh_kw = {k: v for k, v in dict(tp=tp, pp=pp, cp=cp).items()
+                             f"pipeline x context x expert = {denom}")
+        mesh_kw = {k: v for k, v in dict(tp=tp, pp=pp, cp=cp, ep=ep).items()
                    if v > 1}
         if fsdp:
             mesh_kw["fsdp"] = n // denom

@@ -26,7 +26,13 @@ ring or Ulysses over the cp group (``context_impl``; window, Gemma-2's
 scale and softcap built in from the config), every grad summed over cp.
 pp > 1 (chapter 09): the 1F1B schedule of ``parallel/pipeline.py``
 (``pp_microbatches``, 2 pp by default) is the value-and-grad, each stage
-holding its slice of the layers.
+holding its slice of the layers. A mixture of experts (chapter 10) trains
+under every plan: ep / ep_fsdp put the experts on ep; the dense dispatch
+runs the global program over the ranks (``models/moe.py:
+dense_ep_dispatch``), the ragged one the expert exchange
+(``make_ragged_ep_dispatch``, built once here where the JAX Trainer builds
+it: pp 1, the experts' embed dim gathered inside it under ep_fsdp), which,
+as in the JAX package, runs under neither cp, pp nor tp.
 
 ``offload_opt_state`` / ``offload_params`` keep the optimizer state /
 params in host memory between steps (``train/offload.py``: fetched to the
@@ -89,6 +95,30 @@ def _global_norm(grads: list) -> torch.Tensor:
         norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
                  for g in grads]
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _check_moe_dispatch(cfg, plan) -> None:
+    """The JAX Trainer's refusals of an MoE dispatch under a plan: an
+    unknown mode, and the ragged exchange under cp, pp or tp (its sorted
+    groups are manual over the data axes only)."""
+    mode = getattr(cfg, "moe_dispatch", None)
+    if mode is None:
+        return
+    from ..models.moe import MOE_DISPATCH_MODES
+
+    if mode not in MOE_DISPATCH_MODES:
+        raise ValueError(f"unknown moe_dispatch {mode!r}; choose from "
+                         f"{MOE_DISPATCH_MODES}")
+    if mode != "ragged" or plan is None:
+        return
+    for axis, what in (("cp", "context"), ("pp", "pipeline"),
+                       ("tp", "tensor")):
+        if plan.sizes[axis] > 1:
+            raise ValueError(
+                f"moe_dispatch='ragged' under {what} parallelism is not "
+                f"implemented (the sorted-group exchange runs over the "
+                f"data axes only, as in the JAX package); use "
+                f"moe_dispatch='dense' or {axis}=1")
 
 
 def _map(tree, fn):
@@ -174,6 +204,7 @@ class Trainer:
             raise NotImplementedError(
                 "loss_chunks hardwires the causal-LM loss; drop the custom "
                 "loss_fn or the chunking")
+        _check_moe_dispatch(cfg, self.plan)
         self.device = resolve_device(self.device)
         from ..utils.faults import active_faults
 
@@ -497,6 +528,7 @@ class PlanState:
                     f"param ({specs[p]} -> {opt_specs[p]}): {_PLAN_REST}")
         self.cp, self.pp = self.plan.sizes["cp"], self.plan.sizes["pp"]
         self.attn_impl = self._attention(trainer)
+        self.moe_ep = self._moe_ep(trainer)
         self.pipeline = None
         if self.pp > 1:
             from ..parallel.pipeline import Pipeline
@@ -543,16 +575,32 @@ class PlanState:
         return make_ring_attention(exchange, window=window, scale=scale,
                                    logit_softcap=softcap)
 
+    def _moe_ep(self, trainer):
+        """The ragged expert exchange the forward threads to every MoE
+        layer (the JAX Trainer's ``moe_ep``): over this rank's ep group,
+        gathering the experts' embed dim over fsdp when fsdp shards it;
+        None for the dense dispatch, under pp, and where no axis is wider
+        than one rank."""
+        cfg = trainer.bundle.config
+        if (trainer.bundle.apply_with_aux is None or self.pp > 1
+                or getattr(cfg, "moe_dispatch", "dense") != "ragged"):
+            return None
+        from ..models.moe import EXPERT_LEAVES, make_ragged_ep_dispatch
+
+        sizes = self.plan.sizes
+        embed = (self.plan.exchange("fsdp")
+                 if sizes["fsdp"] > 1 and self.plan.rules.get("embed")
+                 == "fsdp" else None)
+        ep = self.plan.exchange("ep") if sizes["ep"] > 1 else None
+        moe_ep = make_ragged_ep_dispatch(ep, cfg, embed=embed)
+        if moe_ep is not None and moe_ep.embed is not None:
+            self.layout.gathered_by_dispatch = frozenset(
+                f"layers/moe/{k}" for k in EXPERT_LEAVES)
+        return moe_ep
+
     @classmethod
     def build(cls, trainer) -> "PlanState":
         plan, bundle = trainer.plan, trainer.bundle
-        if bundle.apply_with_aux is not None:
-            from ..models.moe import _EP_ITEM
-
-            raise NotImplementedError(
-                f"{bundle.name} under plan {plan.strategy!r}: a mixture of "
-                f"experts under a sharding plan (dp, fsdp, tp, pp or cp) "
-                f"needs expert parallelism ({_EP_ITEM})")
         if trainer.loss_chunks > 0 or trainer.loss_fn is not causal_lm_loss:
             raise NotImplementedError(
                 f"a chunked or custom loss under a sharding plan: "
@@ -615,7 +663,10 @@ class PlanState:
                 "data/loader.py:local_batch, or the loader's seq_size)")
         return mb["targets"]
 
-    def _loss(self, params: dict, mb: dict) -> torch.Tensor:
+    def _loss(self, params: dict, mb: dict) -> tuple:
+        """(the global loss, extra metrics) of one microbatch; an MoE
+        model's loss is ``ce + router_aux_coef * aux``, its aux and
+        ``moe_dropped_frac`` global over the ranks."""
         t = self.trainer
         cfg = t.bundle.config
         ids = mb["input_ids"]
@@ -623,14 +674,22 @@ class PlanState:
             raise ValueError(f"sequence parallelism needs the sequence "
                              f"({ids.shape[1]}) divisible by tp "
                              f"({self.layout.tp})")
-        hidden = t.bundle.apply(cfg, params, ids, remat=t.remat,
-                                remat_policy=t.remat_policy,
-                                attn_impl=self.attn_impl,
-                                activation_sharding=self.layout,
-                                return_hidden=True)
-        return self.model_layout.loss(
+        kw = dict(remat=t.remat, remat_policy=t.remat_policy,
+                  attn_impl=self.attn_impl, activation_sharding=self.layout,
+                  return_hidden=True)
+        extras, aux_loss = {}, None
+        if t.bundle.apply_with_aux is not None:
+            hidden, aux, extras = t.bundle.apply_with_aux(
+                cfg, params, ids, return_metrics=True, moe_ep=self.moe_ep,
+                **kw)
+            aux_loss = getattr(cfg, "router_aux_coef", 0.0) * aux
+            extras = {k: v.detach() for k, v in extras.items()}
+        else:
+            hidden = t.bundle.apply(cfg, params, ids, **kw)
+        loss = self.model_layout.loss(
             cfg, params["base"] if t.lora else params, hidden,
             self._labels(mb))
+        return (loss if aux_loss is None else loss + aux_loss), extras
 
     def _pipeline_backward(self, params: dict, leaves: dict,
                            mb: dict) -> torch.Tensor:
@@ -682,14 +741,17 @@ class PlanState:
         accum, n_acc = t.precision.accum_dtype, t.grad_accum
         zero2 = self.plan.zero2 and n_acc > 1
         bufs: dict = {}
+        extras: dict = {}
         loss = torch.zeros((), dtype=torch.float32, device=t.device)
         for a in range(n_acc):
             mb = batch if n_acc == 1 else {k: v[a] for k, v in batch.items()}
             if self.pipeline is not None:
                 mb_loss = self._pipeline_backward(state.params, leaves, mb)
             else:
-                mb_loss = self._loss(state.params, mb)
+                mb_loss, mb_extras = self._loss(state.params, mb)
                 mb_loss.backward()
+                for k, v in mb_extras.items():
+                    extras[k] = extras.get(k, 0.0) + v / n_acc
             loss = loss + mb_loss.detach()
             if n_acc == 1:
                 continue
@@ -721,7 +783,8 @@ class PlanState:
             loss = torch.full_like(loss, float("nan"))
         metrics = {"loss": loss,
                    "grad_norm": global_norm(
-                       grads, [self.leaf_layouts[p] for p in paths])}
+                       grads, [self.leaf_layouts[p] for p in paths]),
+                   **{k: v.to(torch.float32) for k, v in extras.items()}}
         apply_update = True
         if t.guard_policy != "off":
             metrics, apply_update = apply_step_guard(t.guard_policy, metrics)

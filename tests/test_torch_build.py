@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 from distributed_training_guide_tpu_torch.ops import _build
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture

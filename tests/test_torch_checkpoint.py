@@ -31,6 +31,7 @@ from distributed_training_guide_tpu_torch.train.state import (
     host_state_dict, state_tensors)
 from distributed_training_guide_tpu_torch.train.step import Trainer
 from distributed_training_guide_tpu_torch.utils import faults
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGS = ["-m", "llama-debug", "-d", "synthetic:20000", "-s", "64", "-b", "2",
@@ -290,7 +291,8 @@ def test_a_transient_write_error_is_retried(tmp_path, monkeypatch, caplog):
 # ---- the SIGKILL drill -------------------------------------------------------
 
 def _run(args, env_extra=None, timeout=240):
-    env = dict(os.environ, **(env_extra or {}))
+    # one torch thread, as the test process (tests/torch_threads.py)
+    env = dict(os.environ, OMP_NUM_THREADS="1", **(env_extra or {}))
     proc = subprocess.run(
         [sys.executable, "-m", "distributed_training_guide_tpu_torch.train",
          *FLAGS, *args], capture_output=True, text=True, timeout=timeout,

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from test_torch_dist import _flatten, _gang, _logs
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, GLOBAL_BATCH = 32, 8

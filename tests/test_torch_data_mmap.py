@@ -22,6 +22,7 @@ from distributed_training_guide_tpu_torch.data import BatchLoader
 from distributed_training_guide_tpu_torch.data import pipeline as tpipeline
 from distributed_training_guide_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_training_guide_tpu_torch.train import cli as tcli
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _text_file(tmp_path):

@@ -14,9 +14,19 @@ tp_fsdp 2 x 2), and that the ``single`` plan is refused on 4 ranks. The
 same gang runs gpt2-debug under tp 4 (the fused QKV sharded on its heads),
 neox-debug under tp 2 x fsdp 2 and LoRA-only llama-debug under tp 4
 without sequence parallelism, each held to its JAX single-device run at
-the same tolerances. Two more gangs:
-chapter 02 through ``launch.local``, and a rank that dies taking the gang
+the same tolerances. It also trains moe-debug (chapter 10) under ep 4,
+ep 2 x fsdp 2, ddp 4 and fsdp 4 with the dense and the ragged dispatch,
+pp 2 and ep 2 x cp 2 dense, and tp 2 dense on qwen1.5-moe's wiring (a
+shared expert), each held to JAX's single-device trajectory at JAX's MoE
+tolerances (losses rtol 2e-4 dense, 2e-5 ragged: ``tests/test_moe.py``)
+with the same ``moe_dropped_frac``; the first step's MoE grads (the
+router's aux-loss gradient among them, at ``router_aux_coef`` 1) under
+ddp 4 and tp 2 against ``jax.grad`` on one device; expert leaves sharded
+on ep in params, grads and optimizer state; and an ep 4 checkpoint
+restored under ep 2 x fsdp 2 and under fsdp 4. Two more gangs: chapter
+02 through ``launch.local``, and a rank that dies taking the gang
 down."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,6 +36,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, GLOBAL_BATCH = 32, 8
@@ -132,6 +143,7 @@ def gang(tmp_path_factory):
         refs[name] = (losses, _flatten(jax.tree.map(np.asarray,
                                                     state.params)))
 
+    refs.update(_moe_refs(tmp, ids[1], put))
     np.savez(tmp / "init.npz", **init)
     np.savez(tmp / "batches.npz", accum1=ids[1], accum2=ids[2],
              uneven_labels=uneven)
@@ -143,6 +155,59 @@ def gang(tmp_path_factory):
         out.stdout[-3000:] + out.stderr[-3000:] + _logs(tmp))
     refs["gang_s"] = time.perf_counter() - t0
     return tmp, refs
+
+
+# moe-debug with qwen1.5-moe's wiring (QKV biases, un-normalized top-k, a
+# shared expert), as tests/torch_dist_worker.py:MOE_SHARED
+MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
+                  shared_expert_intermediate=32)
+
+
+def _moe_refs(tmp, ids, put):
+    """JAX's single-device runs the gang's MoE plans are held to: two
+    steps of each (model, dispatch) from the init written for the gang,
+    and the first step's MoE grads at router_aux_coef 1."""
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_training_guide_tpu.models import get_model
+    from distributed_training_guide_tpu.models import moe as jmoe
+    from distributed_training_guide_tpu.ops.cross_entropy import (
+        causal_lm_loss)
+    from distributed_training_guide_tpu.parallel import make_mesh, make_plan
+    from distributed_training_guide_tpu.train import Trainer, adamw_cosine
+
+    refs = {}
+    for init, over in (("moe", {}), ("moe_shared", MOE_SHARED)):
+        bundle = get_model("moe-debug", dtype=jnp.float32, **over)
+        params = bundle.init(bundle.config, jax.random.key(0))
+        np.savez(tmp / f"{init}_init.npz",
+                 **_flatten(jax.tree.map(np.asarray, params)))
+        for dispatch in (("dense", "ragged") if init == "moe"
+                         else ("dense",)):
+            b = get_model("moe-debug", dtype=jnp.float32,
+                          moe_dispatch=dispatch, **over)
+            t = Trainer(bundle=b, optimizer=adamw_cosine(1e-3),
+                        plan=make_plan("single", make_mesh(
+                            devices=jax.devices()[:1])), donate=False)
+            state = t.init_state_from_params(params, 0)
+            batch = {"input_ids": put(t, ids), "labels": put(t, ids)}
+            losses, dropped = [], []
+            for _ in range(2):
+                state, m = t.step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                dropped.append(float(m["moe_dropped_frac"]))
+            refs[f"{init}/{dispatch}"] = (
+                losses, _flatten(jax.tree.map(np.asarray, state.params)),
+                dropped)
+        cfg = dataclasses.replace(bundle.config, router_aux_coef=1.0)
+
+        def loss(p, cfg=cfg):
+            logits, aux = jmoe.apply_with_aux(cfg, p, jnp.asarray(ids))
+            return causal_lm_loss(logits, jnp.asarray(ids)) + aux
+        grads = jax.jit(jax.grad(loss))(params)["layers"]["moe"]
+        refs[f"{init}/grads"] = {k: np.asarray(v) for k, v in grads.items()}
+    return refs
 
 
 def _family_bundles():
@@ -289,3 +354,115 @@ def test_a_dead_rank_takes_the_gang_down(tmp_path):
                 tmp_path, timeout=120)
     assert out.returncode == 7, out.stderr[-2000:]
     assert time.perf_counter() - t0 < 60
+
+
+# (name, init, dispatch): tests/torch_dist_worker.py:MOE_RUNS
+MOE_RUNS = [("ep4", "moe", "dense"), ("ep4_ragged", "moe", "ragged"),
+            ("ep2_fsdp2", "moe", "dense"),
+            ("ep2_fsdp2_ragged", "moe", "ragged"),
+            ("ddp4", "moe", "dense"), ("ddp4_ragged", "moe", "ragged"),
+            ("fsdp4", "moe", "dense"), ("fsdp4_ragged", "moe", "ragged"),
+            ("tp2_shared", "moe_shared", "dense"), ("pp2", "moe", "dense"),
+            ("ep2_cp2", "moe", "dense")]
+MOE_LOSS_RTOL = {"dense": 2e-4, "ragged": 2e-5}
+
+
+# The MoE cases are loops inside four tests, not parametrized cases: the
+# file's test count sets its place in pytest-xdist's loadfile queue, and
+# at 24 tests or fewer it runs after the JAX package's tests/
+# test_pipeline.py, whose start bounds the tier-1 run (CHANGES.md, PR 15).
+
+def test_moe_plans_hold_the_jax_single_device_trajectory(gang):
+    """Two steps of moe-debug under each plan of ``MOE_RUNS`` against
+    JAX's single device from the same weights and batch: losses at JAX's
+    MoE tolerances, the final params at the gang's, and
+    ``moe_dropped_frac`` (the global fraction) equal to JAX's within 1e-6
+    (identically 0 under ragged). The pipeline's dense dispatch routes
+    each microbatch alone (its capacity and aux over the microbatch's
+    tokens, as JAX's pipeline does, which reports no dropped fraction):
+    its losses are held to the single device as JAX's
+    ``tests/test_pipeline.py`` holds its own, and its grads to the single
+    device's mean of microbatch means in ``tests/test_torch_pipeline.py``
+    (a pair flipping between kept and dropped turns a tiny embedding-row
+    grad, which Adam's normalized step makes a 2e-3 parameter move)."""
+    tmp, refs = gang
+    for name, init, dispatch in MOE_RUNS:
+        got = np.load(tmp / f"moe_{name}.npz")
+        jlosses, jparams, jdropped = refs[f"{init}/{dispatch}"]
+        np.testing.assert_allclose(got["losses"], jlosses,
+                                   rtol=MOE_LOSS_RTOL[dispatch], err_msg=name)
+        if name == "pp2":
+            assert list(got["dropped"]) == [-1.0, -1.0]   # not reported
+            continue
+        np.testing.assert_allclose(got["dropped"], jdropped, atol=1e-6,
+                                   err_msg=name)
+        assert set(jparams) == {k[2:] for k in got.files
+                                if k.startswith("p/")}, name
+        for path, want in jparams.items():
+            np.testing.assert_allclose(got[f"p/{path}"], want,
+                                       rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                       err_msg=f"{name}: {path}")
+
+
+def _moe_held(gang):
+    tmp, _ = gang
+    return json.loads((tmp / "moe.json").read_text())
+
+
+# (name, local expert stack [L, E / ep, D (/ fsdp), F], local router)
+MOE_HELD = [("ep4", [2, 1, 64, 128], [2, 64, 4]),
+            ("ep4_ragged", [2, 1, 64, 128], [2, 64, 4]),
+            ("ep2_fsdp2", [2, 2, 32, 128], [2, 32, 4]),
+            ("ep2_fsdp2_ragged", [2, 2, 32, 128], [2, 32, 4])]
+
+
+def test_moe_expert_leaves_stay_sharded_on_ep(gang):
+    """Under ep 4 and ep 2 x fsdp 2, both dispatches, the routed experts'
+    stacks [L, E, D, F] hold E / ep experts on each rank (and D / fsdp
+    under ep_fsdp) in the param, the grad the optimizer steps and its
+    state; the router is never sharded on ep (on its embed dim under
+    ep_fsdp, as every embed dim)."""
+    for name, local, router in MOE_HELD:
+        held = _moe_held(gang)[name]
+        for leaf in ("gate", "up"):
+            h = held[f"layers/moe/{leaf}"]
+            assert h["param"] == h["grad"] == h["exp_avg"] == local, (
+                name, leaf)
+            assert h["placements"][3] == "Shard(1)", name   # ep: experts
+        assert held["layers/moe/down"]["param"][:2] == local[:2], name
+        r = held["layers/moe/router"]
+        assert r["param"] == r["grad"] == router, name
+        assert r["placements"][3] == "Replicate", name
+
+
+def test_moe_grads_match_jax_with_the_aux_loss(gang):
+    """The first step's grads of every MoE leaf (router, experts and the
+    shared expert) at router_aux_coef 1 under ddp 4 and under tp 2 (the
+    shared-expert variant), summed over the ranks, against ``jax.grad``
+    of ce + aux on one device, within 1e-4 of each leaf's largest: the
+    aux loss's router gradient is the global one, not a 1/dp (or under tp
+    a tp-fold) share."""
+    tmp, refs = gang
+    got = np.load(tmp / "moe_grads.npz")
+    for name, init in (("ddp4", "moe"), ("tp2_shared", "moe_shared")):
+        want = refs[f"{init}/grads"]
+        assert {k.split("/", 1)[1] for k in got.files
+                if k.startswith(name + "/")} == {f"layers/moe/{k}"
+                                                 for k in want}, name
+        for leaf, w in want.items():
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(got[f"{name}/layers/moe/{leaf}"], w,
+                                       rtol=0, atol=1e-4 * scale,
+                                       err_msg=f"{name}: {leaf}")
+
+
+def test_moe_checkpoint_saved_under_ep_restores_under_ep_fsdp(gang):
+    """An ep 4 state saved after one ragged step, restored under ep 2 x
+    fsdp 2 and under fsdp 4 at the same world (DCP reshards the expert
+    stacks), takes the straight run's next step (two fp32 plans: rtol
+    1e-5)."""
+    got = _moe_held(gang)["restore"]
+    for plan in ("ep_fsdp", "fsdp"):
+        np.testing.assert_allclose(got[plan]["resumed"], got["straight"],
+                                   rtol=1e-5, err_msg=plan)
+        assert got[plan]["step"] == 2 and got[plan]["global_step"] == 1

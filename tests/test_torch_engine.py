@@ -5,7 +5,8 @@ tensor_parallel -> tp / tp_fsdp); three steps at stage 0 on llama-debug in
 fp32 against the JAX ``TrainingEngine`` on the same weights (carried across
 as numpy) and batches, losses within 1e-4 relative (fp32 math in two
 frameworks, the sums in another order); refused keys naming their ROADMAP
-items, and pipeline / context parallelism building the JAX engine's plan; DeepSpeed's offload and scheduler spellings; a save and a load; and
+items, and pipeline / context / expert parallelism building the JAX
+engine's plan (and refusing what it refuses beside ep); DeepSpeed's offload and scheduler spellings; a save and a load; and
 the engine chapter (``chapters/engine_llm.py``) on the JAX package's own
 ``alternative-frameworks/engine/config.json``."""
 import json
@@ -21,6 +22,7 @@ from distributed_training_guide_tpu.train.engine import (
 from distributed_training_guide_tpu_torch.models import from_jax
 from distributed_training_guide_tpu_torch.train.engine import (
     TrainingEngine, initialize, plan_for_stage)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-4
@@ -87,15 +89,36 @@ def test_stage_zero_losses_equal_the_jax_engine():
 @pytest.mark.parametrize("key,value,item", [
     ("pipeline_parallel", 2, None),
     ("context_parallel", 2, None),
-    ("expert_parallel", 2, "Expert parallelism"),
-    ("overlap_schedule", True, "Overlap schedule and the fused loss")])
+    ("expert_parallel", 2, None),
+    ("overlap_schedule", True, "Overlap schedule and the fused loss")],
+    ids=["pipeline_parallel-2-None", "context_parallel-2-None",
+         "expert_parallel-2-Expert parallelism",
+         "overlap_schedule-True-Overlap schedule and the fused loss"])
 def test_refused_keys_name_their_items(key, value, item):
-    """expert_parallel and overlap_schedule refuse, naming their ROADMAP
-    items; pipeline_parallel and context_parallel (item None: ported)
-    build the plan the JAX engine builds on its 8 CPU devices, here on a
-    fake process group of 8 ranks."""
+    """overlap_schedule refuses, naming its ROADMAP item;
+    pipeline_parallel, context_parallel and expert_parallel (item None:
+    ported) build the plan the JAX engine builds on its 8 CPU devices,
+    here on a fake process group of 8 ranks. expert_parallel also refuses
+    what the JAX engine refuses beside it (tp or pp; ZeRO-1 / 2), before
+    any process group starts, and takes ep_fsdp at stage 3."""
     import torch.distributed as dist
 
+    if key == "expert_parallel":
+        for extra, match in (({"tensor_parallel": 2}, "data/fsdp axes only"),
+                             ({"pipeline_parallel": 2},
+                              "data/fsdp axes only"),
+                             ({"zero_optimization": {"stage": 1}},
+                              "use stage 0 or 3"),
+                             ({"zero_optimization": {"stage": 2}},
+                              "use stage 0 or 3")):
+            config = {**BASE, key: value, **extra}
+            with pytest.raises(ValueError, match=match):
+                JEngine(config)
+            with pytest.raises(ValueError, match=match):
+                TrainingEngine(config, device="cpu")
+            assert not dist.is_initialized()
+        assert plan_for_stage(3, 1, ep=2) == ("ep_fsdp", None, None)
+        assert plan_for_stage(0, 1, ep=2) == ("ep", None, None)
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             TrainingEngine({**BASE, key: value}, device="cpu")

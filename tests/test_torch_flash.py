@@ -21,6 +21,7 @@ import torch
 from distributed_training_guide_tpu.ops import flash_attention as jfa
 from distributed_training_guide_tpu_torch.ops import attention as tattn
 from distributed_training_guide_tpu_torch.ops import flash_attention as tfa
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FWD_TOL = 1e-5
 BWD_TOL = 1e-4

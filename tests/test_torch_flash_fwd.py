@@ -30,6 +30,7 @@ import torch
 
 from distributed_training_guide_tpu.ops import flash_attention as jfa
 from distributed_training_guide_tpu_torch.ops import flash_attention as tfa
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FP32_MAX_ABS = 1e-5
 BF16_REL_L2 = 1e-2

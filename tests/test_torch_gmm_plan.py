@@ -49,6 +49,7 @@ from hypothesis import strategies as st
 from distributed_training_guide_tpu.ops.grouped_matmul import (
     _gmm_scan, _tgmm_einsum)
 from distributed_training_guide_tpu_torch.ops import grouped_matmul as tgm
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 BF = torch.bfloat16
 F32 = torch.float32

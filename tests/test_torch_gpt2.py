@@ -29,6 +29,7 @@ from distributed_training_guide_tpu_torch.models.registry import \
 from distributed_training_guide_tpu_torch.ops import flash_attention as tfa
 from distributed_training_guide_tpu_torch.serve import kv_pages as tkv
 from distributed_training_guide_tpu_torch.train import cli as tcli
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 LOGIT_TOL = 1e-4
 KV_TOL = 1e-5

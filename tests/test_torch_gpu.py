@@ -1810,3 +1810,122 @@ def test_pipeline_on_the_card_equals_the_single_device(cuda):
     assert abs(float(loss) - want_loss) <= 1e-6 * abs(want_loss)
     for path, g in named_leaves(grads):
         assert _rel_l2(g, ref[path]) <= 1e-6, path
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 on the ep-local window (models/moe.py:_local_groups_compute): a
+# member's run of the group-sorted [M, D] buffer of 4 members' tokens from
+# its experts' offset, about a quarter of the rows live, the rest other
+# experts' rows (here NaN) that both kernels must ignore
+# ---------------------------------------------------------------------------
+
+EP_G, EP_K, EP_D, EP_F, EP_TOKENS = 128, 8, 2048, 768, 4 * 512
+
+
+def _ep_window(dev, gen, member):
+    sizes = _routed(gen, dev, EP_TOKENS, EP_G, EP_K)
+    m, e_loc = EP_TOKENS * EP_K, EP_G // 4
+    e0 = member * e_loc
+    local = sizes[e0:e0 + e_loc].contiguous()
+    live = int(local.sum())
+    x = torch.full((m, EP_D), float("nan"), device=dev).bfloat16()
+    x[:live] = torch.randn(live, EP_D, generator=gen, device=dev).bfloat16()
+    dy = torch.full((m, EP_F), float("nan"), device=dev)
+    dy[:live] = torch.randn(live, EP_F, generator=gen, device=dev)
+    rhs = (torch.randn(e_loc, EP_D, EP_F, generator=gen, device=dev)
+           * 0.02).bfloat16()
+    return x, dy, rhs, local, live
+
+
+@pytest.mark.parametrize("member", [0, 1, 3])
+def test_k5_k6_on_the_ep_window_match_plain_versions(cuda, member):
+    """At qwen3-30b-a3b's widths (E 128, top-8, D 2048, F 768), member
+    ``member`` of 4's window (M 16384): K5's forward through the Hopper
+    body within 1e-2 relative L2 of the plain version, the fp32-dy d_lhs
+    and K6 through their split bodies within 2e-6 of their plain versions
+    at their arithmetic; the rows past the local total NaN in both
+    operands reach no output (rows past the total zero)."""
+    gen = torch.Generator(device=cuda).manual_seed(151 + member)
+    x, dy, rhs, sz, live = _ep_window(cuda, gen, member)
+    rt = rhs.transpose(1, 2)
+    g = sz.shape[0]
+    assert (gm._gmm_plan(x, rhs), gm._gmm_plan(dy, rt),
+            gm._tgmm_plan(x, dy, torch.float32)) == ("wgmma", "split",
+                                                     "split")
+    fwd = gm.gmm(x, rhs, sz)
+    dlhs = gm.gmm(dy, rt, sz, torch.float32)
+    drhs = gm.tgmm(x, dy, sz, g, torch.float32)
+    torch.cuda.synchronize()
+    for out in (fwd, dlhs, drhs):
+        assert torch.isfinite(out.float()).all()
+    assert not fwd[live:].any() and not dlhs[live:].any()
+    xl, dyl = x[:live], dy[:live]
+    assert _rel_l2(fwd[:live], gm.gmm_reference(xl, rhs, sz,
+                                                torch.bfloat16)) <= 1e-2
+    assert _rel_l2(dlhs[:live], gm.gmm_reference(
+        dyl, rt, sz, torch.float32, split_lhs=True)) <= 2e-6
+    assert _rel_l2(drhs, gm.tgmm_reference(xl, dyl, sz, g, torch.float32,
+                                           split_dy=True)) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 1e-2)])
+def test_ep_exchange_autograd_matches_the_single_device(cuda, dtype, bound):
+    """``make_ragged_ep_dispatch`` over 4 virtual members on the card (K5
+    on each member's window, K5 / K6 in its backward) against the single
+    device's ragged dispatch through the same kernels, E 32, top-4, D 256,
+    F 128, 4 x 256 tokens: the output and the grads of the rows, the
+    routing weights and the three expert stacks within ``bound`` relative
+    L2 (fp32: the members' partials summed in another order; bf16: also
+    rounded), in bf16 the expert stacks' grads bitwise (the split bodies
+    sum each group from its own first row, wherever the window puts it),
+    3 forward and 6 backward launches a member."""
+    import dataclasses
+
+    from distributed_training_guide_tpu_torch.models import moe
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    cfg = dataclasses.replace(
+        get_model("moe-debug", dtype=dtype, moe_dispatch="ragged").config,
+        num_experts=32, experts_per_token=4, hidden_size=256,
+        intermediate_size=128)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    n, t = 4, 256
+    x = torch.randn(n * t, 256, generator=gen, device=cuda).to(dtype)
+    idx = torch.rand(n * t, 32, generator=gen,
+                     device=cuda).topk(4, dim=-1).indices
+    probs = torch.rand(n * t, 4, generator=gen, device=cuda) + 0.1
+    probs = probs / probs.sum(-1, keepdim=True)
+    w = [(torch.randn(32, *s, generator=gen, device=cuda) * 0.05).to(dtype)
+         for s in ((256, 128), (256, 128), (128, 256))]
+    cot = torch.randn(n * t, 256, generator=gen, device=cuda).to(dtype)
+
+    def run(ep):
+        leaves = [a.clone().requires_grad_() for a in (x, probs, *w)]
+        xv, pv, gate, up, down = leaves
+        if ep:
+            disp = moe.make_ragged_ep_dispatch(LocalExchange(n), cfg)
+            ws = [list(torch.chunk(a, n)) for a in (gate, up, down)]
+            y = torch.cat(disp(list(torch.chunk(xv, n)),
+                               list(torch.chunk(idx, n)),
+                               list(torch.chunk(pv, n)), *ws))
+        else:
+            ef = idx.T.reshape(-1)
+            y = moe._ragged_dispatch(cfg, xv, ef, pv.T.reshape(-1),
+                                     moe._group_sizes(ef, 32),
+                                     {"gate": gate, "up": up, "down": down},
+                                     dtype)
+        return [y.detach(), *torch.autograd.grad(y, leaves, cot)]
+
+    want = run(False)
+    before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    got = run(True)
+    torch.cuda.synchronize()
+    assert (gm.GMM_LAUNCHES - before[0], gm.TGMM_LAUNCHES - before[1]) == (
+        6 * n, 3 * n)
+    for key, a, b in zip(("y", "dx", "dprobs", "dgate", "dup", "ddown"),
+                         got, want):
+        assert _rel_l2(a, b) <= bound, (key, _rel_l2(a, b))
+        if dtype == torch.bfloat16 and key in ("dgate", "dup", "ddown"):
+            assert torch.equal(a, b), (key, _rel_l2(a, b))

@@ -23,6 +23,7 @@ from distributed_training_guide_tpu.ops.grouped_matmul import (
 from distributed_training_guide_tpu.ops.grouped_matmul import (
     grouped_matmul as jgrouped_matmul)
 from distributed_training_guide_tpu_torch.ops import grouped_matmul as tgm
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FP32_TOL = 1e-5
 BF16_REL = 8e-3

@@ -15,6 +15,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 transformers = pytest.importorskip("transformers")
 safetensors_numpy = pytest.importorskip("safetensors.numpy")

@@ -8,6 +8,7 @@ is needed here only; the port never imports it."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 transformers = pytest.importorskip("transformers")
 

@@ -24,6 +24,7 @@ from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.step import Trainer
 from distributed_training_guide_tpu_torch.utils import (faults, heartbeat,
                                                         procguards, tracking)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ENVS = {
     "train": {faults.ENV_CRASH_STEP: "4", faults.ENV_CRASH_MODE: "exc",

@@ -20,6 +20,7 @@ from distributed_training_guide_tpu_torch.models import from_jax
 from distributed_training_guide_tpu_torch.models import get_model
 from distributed_training_guide_tpu_torch.models import llama as tllama
 from distributed_training_guide_tpu_torch.serve import kv_pages as tkv
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 LOGIT_TOL = 1e-4
 KV_TOL = 1e-5

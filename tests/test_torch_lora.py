@@ -34,6 +34,7 @@ from distributed_training_guide_tpu_torch.train import cli as tcli
 from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.state import named_leaves
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TARGETS = ("wq", "wv", "down")
 GRAD_TOL = 1e-5

@@ -34,6 +34,7 @@ from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
 from distributed_training_guide_tpu_torch.train import cli as tcli
 from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FFN_TOL = 1e-5      # one routed FFN in fp32: sums in another order
 LOGIT_TOL = 1e-4    # two fp32 layers, norms and softmaxes in another order
@@ -285,13 +286,30 @@ def test_cli_moe_dispatch_accepted_for_moe_refused_for_llama():
 
 
 def test_unported_moe_paths_raise():
+    """The overlap schedule's ``layer_schedule`` still raises, naming its
+    ROADMAP item; the expert-parallel paths are ported: a dispatch with no
+    axis wider than one member is None (the local path is the program),
+    and a ``moe_ep`` threaded through ``apply_with_aux`` runs every
+    layer's ragged dispatch, here the local one, bitwise."""
     _, _, tb, tparams = _bridged("moe-debug")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.make_ragged_ep_dispatch(None, tb.config)
-    for kw in (dict(layer_schedule=object()), dict(moe_ep=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmoe.apply_with_aux(tb.config, tparams, ids, **kw)
+    assert tmoe.make_ragged_ep_dispatch(None, tb.config) is None
+    with pytest.raises(NotImplementedError,
+                       match="Overlap schedule and the fused loss"):
+        tmoe.apply_with_aux(tb.config, tparams, ids, layer_schedule=object())
+    cfg = dataclasses.replace(tb.config, moe_dispatch="ragged")
+    calls = []
+
+    def moe_ep(xts, idxs, probs, gates, ups, downs):
+        calls.append(len(xts))
+        ef = idxs[0].T.reshape(-1)
+        return [tmoe._ragged_dispatch(
+            cfg, xts[0], ef, probs[0].T.reshape(-1),
+            tmoe._group_sizes(ef, cfg.num_experts),
+            {"gate": gates[0], "up": ups[0], "down": downs[0]}, cfg.dtype)]
+    got = tmoe.apply_with_aux(cfg, tparams, ids, moe_ep=moe_ep)[0]
+    assert calls == [1] * cfg.num_layers
+    assert torch.equal(got, tmoe.apply_with_aux(cfg, tparams, ids)[0])
     # the remat policies are ported (tests/test_torch_remat.py)
     dots, _ = tmoe.apply_with_aux(tb.config, tparams, ids, remat=True,
                                   remat_policy="dots")

@@ -20,6 +20,7 @@ from test_torch_gpt2 import (  # noqa: F401  (fixtures and shared checks)
     test_init_layout_and_axes_match_jax, test_paged_decode_step_matches_jax,
     test_prefill_logits_and_cache_match_jax,
     test_prefill_pad_rows_stay_inside_the_table)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.state import (
     host_state_dict, named_leaves)
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 OFFLOADS = {"none": {}, "opt": {"offload_opt_state": True},

@@ -20,6 +20,7 @@ from distributed_training_guide_tpu_torch.ops import paged_decode as tpd
 from distributed_training_guide_tpu_torch.ops import rope as trope
 from distributed_training_guide_tpu_torch.serve import kv_pages as tkv
 from distributed_training_guide_tpu_torch.train.precision import Quantized
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROPE_CASES = {
     "default": None,
@@ -139,16 +140,19 @@ def _leaves(pool):
     return list(pool) if isinstance(pool, (Quantized, JQ)) else [pool]
 
 
-PAGED_GRID = list(itertools.product([1, 3, 8], [1, 2], [None, 6],
-                                    [None, 5.0], [False, True]))
+def paged_grid(groups: int) -> list:
+    """(t, groups, window, softcap, quantized) of the paged-attend grid at
+    ``groups`` q heads a kv head (1: ``tests/test_torch_ops_paged.py``)."""
+    return list(itertools.product([1, 3, 8], [groups], [None, 6],
+                                  [None, 5.0], [False, True]))
 
 
-@pytest.mark.parametrize(
-    "t,groups,window,softcap,quantized", PAGED_GRID,
-    ids=[f"T{t}-g{g}-w{w}-c{c}-{'int8' if qz else 'fp32'}"
-         for t, g, w, c, qz in PAGED_GRID])
-def test_paged_attend_matches_jax_kernel_and_gather(t, groups, window,
-                                                    softcap, quantized):
+def paged_ids(grid: list) -> list:
+    return [f"T{t}-g{g}-w{w}-c{c}-{'int8' if qz else 'fp32'}"
+            for t, g, w, c, qz in grid]
+
+
+def check_paged_attend(t, groups, window, softcap, quantized):
     """The port's paged_attend on CPU tensors (scatter, then the plain
     version of the CUDA kernel) against the JAX Pallas kernel in
     interpret mode and the JAX gather path. Bound 1e-5 for fp32 AND int8
@@ -177,6 +181,18 @@ def test_paged_attend_matches_jax_kernel_and_gather(t, groups, window,
         for got, want in zip(_leaves(tk) + _leaves(tv),
                              _leaves(jk) + _leaves(jv)):
             assert np.array_equal(got.numpy()[1:], np.asarray(want)[1:]), impl
+
+
+
+
+PAGED_GRID = paged_grid(2)
+
+
+@pytest.mark.parametrize("t,groups,window,softcap,quantized", PAGED_GRID,
+                         ids=paged_ids(PAGED_GRID))
+def test_paged_attend_matches_jax_kernel_and_gather(t, groups, window,
+                                                    softcap, quantized):
+    check_paged_attend(t, groups, window, softcap, quantized)
 
 
 def test_reference_fully_masked_rows_are_zero_and_wrapper_validates():

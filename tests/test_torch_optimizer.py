@@ -15,6 +15,7 @@ from distributed_training_guide_tpu.train import optimizer as jopt
 from distributed_training_guide_tpu.train import precision as jprec
 from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train import precision as tprec
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 SHAPES = {"wide": (130, 256), "stacked": (2, 128, 160), "narrow": (64, 300),
           "vec": (300,)}

@@ -17,6 +17,7 @@ import torch
 from distributed_training_guide_tpu.ops import paged_decode as jpd
 from distributed_training_guide_tpu.serve import kv_pages as jkv
 from distributed_training_guide_tpu_torch.ops import paged_decode as tpd
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 PAGE, D = 4, 8
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8

@@ -6,8 +6,8 @@ back to replication), with pp and cp axes too, and for llama-debug and
 llama-3.2-1b's config (shapes only, nothing allocated): the port's
 ``spec_for_leaf`` equals JAX's, leaf for leaf, for the params and for the
 ZeRO optimizer state. Also: the logical-axes trees and the param shapes
-equal JAX's, the pipeline and context-parallel plans lay out as JAX's
-``make_plan`` does, the expert refusals name their ROADMAP item, each rank's loader rows are its slice
+equal JAX's, the pipeline, context- and expert-parallel plans lay out as
+JAX's ``make_plan`` does, each rank's loader rows are its slice
 of the JAX loader's global batch, and the vocab-parallel loss with no
 group is the plain loss, its value and gradient bit for bit."""
 import types
@@ -30,6 +30,7 @@ from distributed_training_guide_tpu_torch.ops import vocab_parallel as tvp
 from distributed_training_guide_tpu_torch.parallel import mesh as tmesh
 from distributed_training_guide_tpu_torch.parallel import plans as tplans
 from distributed_training_guide_tpu_torch.train.state import named_leaves
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 LAYOUT_STRATEGIES = [s for s in jplans.STRATEGIES if not s.startswith("ep")]
 # mesh axis sizes; 3, 6 and 12 divide none of llama-debug's 64 / 128 / 512
@@ -134,33 +135,53 @@ def test_batch_and_grad_layouts_equal_jax(strategy):
     assert tplan.grad_shardings(axes, shapes) == want
 
 
-@pytest.mark.parametrize("strategy,item", [
-    ("pp", None), ("pp_tp_fsdp", None),
-    ("ep", "Expert parallelism"), ("ep_fsdp", "Expert parallelism")])
-def test_make_plan_refuses_pipeline_and_expert_strategies(strategy, item):
-    """The expert strategies refuse, naming their ROADMAP item; the
-    pipeline ones (item None: ported) lay llama-3.2-1b out as JAX's
-    ``make_plan`` does on the same mesh: the stacked [L] axis on pp."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            tplans.make_plan(strategy, _sizes({}))
-        return
-    sizes = _sizes({"pp": 2, "fsdp": 2, "tp": 2})
+# (strategy, mesh axes, model); the ids are those of the cases when the
+# expert strategies were refused
+PLAN_CASES = [("pp", {"pp": 2, "fsdp": 2, "tp": 2}, "llama-3.2-1b"),
+              ("pp_tp_fsdp", {"pp": 2, "fsdp": 2, "tp": 2}, "llama-3.2-1b"),
+              ("ep", {"ep": 4, "dp": 2}, "qwen3-30b-a3b"),
+              ("ep_fsdp", {"ep": 4, "fsdp": 2}, "qwen3-30b-a3b")]
+
+
+@pytest.mark.parametrize("strategy,mesh_kw,model", PLAN_CASES, ids=[
+    "pp-None", "pp_tp_fsdp-None", "ep-Expert parallelism",
+    "ep_fsdp-Expert parallelism"])
+def test_make_plan_refuses_pipeline_and_expert_strategies(strategy, mesh_kw,
+                                                          model):
+    """The pipeline and expert strategies (both ported) lay their model
+    out as JAX's ``make_plan`` does on the same mesh: the stacked [L] axis
+    on pp; the experts of qwen3-30b-a3b's stacks on ep (128 of them, 32 a
+    rank at ep 4), the router never on ep, and ep a data axis."""
+    from distributed_training_guide_tpu.models import moe as jmoe
+    from distributed_training_guide_tpu_torch.models import moe as tmoe
+
+    sizes = _sizes(mesh_kw)
     jmesh = types.SimpleNamespace(shape=sizes)
     jplan = jplans.make_plan(strategy, jmesh)
     tplan = tplans.make_plan(strategy, sizes)
     assert tplan.rules == jplan.rules
     assert tplan.sequence_sharded == jplan.sequence_sharded
-    assert not tplan.sequence_parallel   # the pipeline's blocks carry none
-    jshapes, jcfg = _jax_shapes("llama-3.2-1b")
-    axes, shapes = _flat(jllama.param_logical_axes(jcfg)), _flat(jshapes)
-    cfg = tllama.PRESETS["llama-3.2-1b"]
-    specs = _flat(tplan.param_specs(tllama.param_logical_axes(cfg),
-                                    tllama.param_shapes(cfg)))
+    assert not tplan.sequence_parallel   # neither carries any
+    jfam, tfam = ((jmoe, tmoe) if strategy.startswith("ep")
+                  else (jllama, tllama))
+    jshapes, jcfg = _jax_shapes(model)
+    axes, shapes = _flat(jfam.param_logical_axes(jcfg)), _flat(jshapes)
+    cfg = tfam.PRESETS[model]
+    assert _flat(tfam.param_shapes(cfg)) == shapes
+    specs = _flat(tplan.param_specs(tfam.param_logical_axes(cfg),
+                                    tfam.param_shapes(cfg)))
+    assert set(specs) == set(axes)
     for path, ax in axes.items():
         assert specs[path] == tuple(jplans.spec_for_leaf(
             jmesh, ax, shapes[path], jplan.rules)), path
-    assert specs["layers/attn/wq"][0] == "pp"
+    if strategy.startswith("ep"):
+        assert specs["layers/moe/gate"][1] == "ep"
+        assert "ep" not in specs["layers/moe/router"]
+        assert tplan.data_parallel_size == jplan.data_parallel_size == 8
+        assert tplan.local_shape(specs["layers/moe/down"],
+                                 shapes["layers/moe/down"])[1] == 32
+    else:
+        assert specs["layers/attn/wq"][0] == "pp"
     assert tplan.batch_spec(2) == tuple(jplan.batch_spec(2))
 
 

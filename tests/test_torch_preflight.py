@@ -29,6 +29,7 @@ from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.preflight import (
     comm_roofline, fake_group, run_preflight)
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 POLICIES = ["fp32", "bf16-master", "adam8bit"]
 MESH = {"fsdp": 2, "tp": 4}

@@ -28,6 +28,7 @@ from distributed_training_guide_tpu.train.precision import \
     quantize_blockwise as jquantize
 from distributed_training_guide_tpu_torch.ops import quantized_matmul as tqm
 from distributed_training_guide_tpu_torch.train.precision import Quantized
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 BF, I8, F32 = torch.bfloat16, torch.int8, torch.float32
 

@@ -23,6 +23,7 @@ from distributed_training_guide_tpu.train.precision import \
 from distributed_training_guide_tpu_torch.ops import quantized_matmul as tqm
 from distributed_training_guide_tpu_torch.train.precision import (
     Quantized, dequantize_blockwise)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # (K, N, bs): engine-sized blocks, a short last block (33 = 32 + 1), a
 # block size off every power of two, and the TPU kernel's bs = 128

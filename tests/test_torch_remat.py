@@ -1,7 +1,7 @@
 """The port's remat policies (``ops/remat.py``) on the CPU: under each
-policy the loss and grads of llama-debug (einsum and flash attention) and
-of moe-debug (dense and ragged dispatch) are bitwise equal to the port's
-step without remat (recomputation replays the same CPU arithmetic), and
+policy the loss and grads of llama-debug (einsum and flash attention;
+moe-debug's dense and ragged dispatch in ``tests/test_torch_remat_moe.py``)
+are bitwise equal to the port's step without remat (recomputation replays the same CPU arithmetic), and
 within 1e-4 of the JAX package's under the same policy; the plain flash
 forward runs once per layer without remat and under "attn" / "attn_mlp"
 (its (o, lse) are kept), twice under "all" and "dots". Weights cross by
@@ -26,6 +26,7 @@ from distributed_training_guide_tpu_torch.ops import remat as tremat
 from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.state import named_leaves
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 GRAD_TOL = 1e-4   # of each leaf's largest gradient: two fp32 layers
 POLICIES = ["all", "dots", "attn", "attn_mlp"]
@@ -83,15 +84,9 @@ def _jax_loss_grads(model, dispatch, policy):
     return float(loss), dict(flat)
 
 
-MODELS = [("llama-debug", None, "xla"), ("llama-debug", None, "flash"),
-          ("moe-debug", "dense", "xla"), ("moe-debug", "ragged", "flash")]
-
-
-@pytest.mark.parametrize("policy", POLICIES)
-@pytest.mark.parametrize("model,dispatch,attn_impl", MODELS,
-                         ids=lambda x: str(x))
-def test_policy_is_bitwise_the_remat_free_step_and_near_jax(
-        model, dispatch, attn_impl, policy):
+def check_policy(model, dispatch, attn_impl, policy):
+    """The port's loss and grads under ``policy``: bitwise the step without
+    remat, and within GRAD_TOL of JAX's under the same policy."""
     _, _, tb, tparams = _bridged(model, dispatch)
     ids = _ids(tb.config.vocab_size)
     loss0, grads0 = _torch_loss_grads(tb, tparams, ids, attn_impl=attn_impl)
@@ -108,6 +103,18 @@ def test_policy_is_bitwise_the_remat_free_step_and_near_jax(
         scale = max(float(np.abs(want).max()), 1e-30)
         np.testing.assert_allclose(g.numpy(), want, rtol=0,
                                    atol=GRAD_TOL * scale, err_msg=k)
+
+
+# moe-debug's cases are in tests/test_torch_remat_moe.py
+MODELS = [("llama-debug", None, "xla"), ("llama-debug", None, "flash")]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("model,dispatch,attn_impl", MODELS,
+                         ids=lambda x: str(x))
+def test_policy_is_bitwise_the_remat_free_step_and_near_jax(
+        model, dispatch, attn_impl, policy):
+    check_policy(model, dispatch, attn_impl, policy)
 
 
 @pytest.mark.parametrize("policy,per_layer", [

@@ -3,9 +3,16 @@ process.
 
 The port runs every cp member in this process (``LocalExchange``: the
 ring's rotations are list rotations, Ulysses' all-to-all a reshuffle of
-chunks); the JAX reference is ``make_ring_attention`` /
-``make_ulysses_attention`` on the 8-device CPU mesh (Pallas in interpret
-mode), built once per module. Inputs: B 1, S 64, Hq 4, Hkv 2, D 16, fp32,
+chunks). The ring cases are held to the JAX package's whole-sequence
+attention (``ops/attention.py:multihead_attention``, ``impl="xla"``), the
+function its ``make_ring_attention`` computes: the JAX package's
+``tests/test_context_parallel.py`` and ``tests/test_swa.py`` hold its ring
+to it (the two agreed within 1.2e-6 on these inputs), and an
+interpret-mode ring compile cost the tier-1 run a minute of CPU a case.
+The ring's pieces are held to JAX's own below (``_merge``, the zigzag
+permutations, the pair predicates). Ulysses is held to
+``make_ulysses_attention`` on the 8-device CPU mesh, jitted and built once
+per module. Inputs: B 1, S 64, Hq 4, Hkv 2, D 16, fp32,
 from a numpy seed. Causal, the non-causal zigzag, banded with softcap and
 scale, Ulysses where cp divides the kv heads and where it does not
 (JAX's "auto" gives way to its einsum path; the port computes the same
@@ -18,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_training_guide_tpu.ops import attention as jattention
 from distributed_training_guide_tpu.ops import ring_attention as jring
 from distributed_training_guide_tpu.ops.ulysses_attention import (
     make_ulysses_attention as jmake_ulysses)
@@ -27,6 +35,7 @@ from distributed_training_guide_tpu_torch.ops import ring_attention as tring
 from distributed_training_guide_tpu_torch.ops import ulysses_attention as tul
 from distributed_training_guide_tpu_torch.ops.collectives import (
     LocalExchange)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 B, S, HQ, HKV, D = 1, 64, 4, 2, 16
 O_TOL, G_TOL = 1e-5, 1e-4
@@ -48,8 +57,13 @@ def _inputs():
 
 
 def _jax_value_and_vjp(fn, q, k, v, do):
-    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    """The output and the vjp of ``fn`` at ``do``, jitted as one program."""
+    def value_and_vjp(q, k, v, do):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return out, vjp(do)
+
+    out, grads = jax.jit(value_and_vjp)(*map(jnp.asarray, (q, k, v, do)))
+    return [np.asarray(out)] + [np.asarray(g) for g in grads]
 
 
 @pytest.fixture(scope="module")
@@ -57,15 +71,15 @@ def jax_refs():
     q, k, v, do = _inputs()
     refs = {}
     for name, cp, causal, window, scale, cap in RING_CASES:
-        mesh = jmake_mesh(devices=jax.devices()[:cp], cp=cp)
-        ring = jring.make_ring_attention(mesh, causal=causal, window=window,
-                                         scale=scale, logit_softcap=cap)
-        refs[f"ring-{name}"] = _jax_value_and_vjp(ring, q, k, v, do)
+        def fn(q, k, v, causal=causal, window=window, scale=scale, cap=cap):
+            return jattention.multihead_attention(
+                q, k, v, causal=causal, impl="xla", window=window,
+                scale=scale, logit_softcap=cap)
+        refs[f"ring-{name}"] = _jax_value_and_vjp(fn, q, k, v, do)
     for name, cp in ULYSSES_CASES:
         mesh = jmake_mesh(devices=jax.devices()[:cp], cp=cp)
         ul = jmake_ulysses(mesh, impl="auto")
-        refs[f"ulysses-{name}"] = _jax_value_and_vjp(
-            jax.jit(ul), q, k, v, do)
+        refs[f"ulysses-{name}"] = _jax_value_and_vjp(ul, q, k, v, do)
     return refs
 
 

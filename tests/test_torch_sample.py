@@ -26,6 +26,7 @@ from distributed_training_guide_tpu_torch.models import from_jax, get_model
 from distributed_training_guide_tpu_torch.models import sample as tsample
 from distributed_training_guide_tpu_torch.models.registry import \
     family_module
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 LOGIT_TOL = 1e-4
 KV_TOL = 1e-5

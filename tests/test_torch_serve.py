@@ -26,6 +26,7 @@ from distributed_training_guide_tpu_torch.serve import (Request, ServeEngine,
                                                         generate_many)
 from distributed_training_guide_tpu_torch.serve import kv_pages as tkv
 from distributed_training_guide_tpu_torch.serve import scheduler as tsched
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from distributed_training_guide_tpu_torch.train import optimizer as topt
 from distributed_training_guide_tpu_torch.train.guards import (
     GuardMonitor, NonFiniteLossError)
 from distributed_training_guide_tpu_torch.train.step import Trainer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 LOGIT_TOL = 1e-4   # two fp32 layers, norms and softmax in another order
 LOSS_TOL = 1e-5

@@ -34,6 +34,7 @@ from distributed_training_guide_tpu_torch.serve.engine import fp_layout
 from distributed_training_guide_tpu_torch.serve.__main__ import main as cli
 from distributed_training_guide_tpu_torch.train.precision import (
     Quantized, dequantize_blockwise, quantize_blockwise)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 PARITY_TOL = 1e-5
 MECHANISM_ATOL = 1e-4

@@ -26,13 +26,23 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
 - ``traj_lora_tp``: two LoRA-only steps of llama-debug under tp 4 without
   sequence parallelism (the adapters of wq / wv / wo / down, whole on
   every rank where their base leaf is tp-sharded: their grads summed over
-  tp).
+  tp);
+- ``moe_<name>``: two steps of moe-debug under each plan of ``MOE_RUNS``
+  (ep 4, ep 2 x fsdp 2, ddp 4 and fsdp 4 under the dense and the ragged
+  dispatch; pp 2 x dp 2 and ep 2 x cp 2 dense; tp 2 x dp 2 dense on a
+  variant with qwen1.5-moe's wiring, its shared expert among them), each
+  rank fed ``data/loader.py:local_batch``: losses, ``moe_dropped_frac``,
+  final params and what each rank holds; the grads of the first step
+  under ddp 4 and tp 2 x dp 2 at ``router_aux_coef`` 1 (``moe_grads``);
+  and an ep 4 state saved after a step, restored under ep 2 x fsdp 2 and
+  under fsdp 4 (``moe.json``).
 
 ``--scenario`` runs one other scenario alone instead, for its own test file:
-- ``sharded_load`` (4 ranks, ``tests/test_torch_hf_convert.py``): a
+- ``sharded_load`` (4 ranks, ``tests/test_torch_hf_convert_runs.py``): a
   converted checkpoint in ``--dir/conv`` loaded under fsdp 4, tp 4 and
-  tp_fsdp 2 x 2, each rank reading its own slices, against the whole load's
-  shards, and one step from each against one from the whole params;
+  tp_fsdp 2 x 2, and a converted Qwen3-MoE in ``--dir/conv_moe`` under
+  ep_fsdp 2 x 2, each rank reading its own slices, against the whole
+  load's shards, and one step from each against one from the whole params;
 - ``quantize`` (4 ranks, ``tests/test_torch_precision.py``): adam8bit's
   block quantization of a leaf whose tp shards split its blocks, against
   the single-device quantizer, and a tp 4 adam8bit run over such a leaf
@@ -302,6 +312,32 @@ def sharded_load(out_dir, rank):
                         "sharded_leaves": sharded_leaves,
                         "step_equal": _all(float(m1["loss"])
                                            == float(m2["loss"]))}
+    # a converted Qwen3-MoE checkpoint under ep 2 x fsdp 2: the expert
+    # stacks' experts axis on ep, their embed axis on fsdp
+    bundle = get_model(f"hf:{out_dir / 'hf_moe'}", dtype=torch.float32,
+                       moe_dispatch="ragged")
+    t = Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
+                plan=make_plan("ep_fsdp", make_mesh(device="cpu", ep=2,
+                                                    fsdp=2)), device="cpu")
+    mine = load_pretrained(bundle, t.plan, out_dir / "conv_moe",
+                           device="cpu")
+    whole_params = load_pretrained(bundle, None, out_dir / "conv_moe",
+                                   device="cpu")
+    whole = dict(named_leaves(whole_params))
+    local = dict(named_leaves(mine))
+    r = {"equal": _all(all(torch.equal(v, t.plan.shard(
+             t.plan_state.specs[path], whole[path]))
+                           for path, v in local.items())),
+         "sharded_leaves": sum(tuple(v.shape) != tuple(whole[path].shape)
+                               for path, v in local.items()),
+         "expert_shapes": {leaf: [list(whole[f"layers/moe/{leaf}"].shape),
+                                  list(local[f"layers/moe/{leaf}"].shape)]
+                           for leaf in ("gate", "up", "down")}}
+    batch = {"input_ids": _rows(t, ids % 128), "labels": _rows(t, ids % 128)}
+    _, m1 = t.step_fn(t.init_state_from_params(mine, sharded=True), batch)
+    _, m2 = t.step_fn(t.init_state_from_params(whole_params), batch)
+    r["step_equal"] = _all(float(m1["loss"]) == float(m2["loss"]))
+    result["moe_ep_fsdp"] = r
     if rank == 0:
         (out_dir / "sharded_load.json").write_text(json.dumps(result))
 
@@ -472,6 +508,116 @@ def _cp_pp_batch(t, ids, labels=None):
         seq_size=cp)
 
 
+# (name, init, strategy, mesh axes, dispatch)
+MOE_RUNS = [
+    ("ep4", "moe", "ep", {"ep": 4}, "dense"),
+    ("ep4_ragged", "moe", "ep", {"ep": 4}, "ragged"),
+    ("ep2_fsdp2", "moe", "ep_fsdp", {"ep": 2, "fsdp": 2}, "dense"),
+    ("ep2_fsdp2_ragged", "moe", "ep_fsdp", {"ep": 2, "fsdp": 2}, "ragged"),
+    ("ddp4", "moe", "ddp", {}, "dense"),
+    ("ddp4_ragged", "moe", "ddp", {}, "ragged"),
+    ("fsdp4", "moe", "fsdp", {"fsdp": 4}, "dense"),
+    ("fsdp4_ragged", "moe", "fsdp", {"fsdp": 4}, "ragged"),
+    ("tp2_shared", "moe_shared", "tp", {"tp": 2}, "dense"),
+    ("pp2", "moe", "pp", {"pp": 2}, "dense"),
+    ("ep2_cp2", "moe", "ep", {"ep": 2, "cp": 2}, "dense"),
+]
+# moe-debug with qwen1.5-moe's wiring (QKV biases, un-normalized top-k,
+# a shared expert) at widths tp 2 divides
+MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
+                  shared_expert_intermediate=32)
+
+
+def _moe_trainer(init, strategy, mesh_kw, dispatch, **over):
+    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
+    if init == "moe_shared":
+        over = {**MOE_SHARED, **over}
+    return Trainer(bundle=get_model("moe-debug", dtype=torch.float32,
+                                    moe_dispatch=dispatch, **over),
+                   optimizer=topt.adamw_cosine(1e-3), plan=plan,
+                   device="cpu", pp_microbatches=2)
+
+
+def _first_grads(t, state, batch, paths) -> dict:
+    """The summed grads of ``paths`` the optimizer is handed at the first
+    step (gathered whole)."""
+    ps = t.plan_state
+    leaves = dict(named_leaves(state.params))
+    seen = {}
+
+    def hook(opt, args, kwargs):
+        for path in paths:
+            g = leaves[path].grad
+            seen[path] = ps.plan.dtensor(g.detach().clone(), ps.specs[path],
+                                         ps.shapes[path]).full_tensor()
+    handle = state.opt_state.optimizer.register_step_pre_hook(hook)
+    t.step_fn(state, batch)
+    handle.remove()
+    return {p: g.numpy() for p, g in seen.items()}
+
+
+def moe(out_dir, rank):
+    batches = dict(np.load(out_dir / "batches.npz"))
+    ids = batches["accum1"]
+    params = {k: from_jax.params_from_numpy(
+        _unflatten(dict(np.load(out_dir / f"{k}_init.npz"))), device="cpu")
+        for k in ("moe", "moe_shared")}
+    facts = {}
+    for name, init, strategy, mesh_kw, dispatch in MOE_RUNS:
+        t = _moe_trainer(init, strategy, mesh_kw, dispatch)
+        state = t.init_state_from_params(params[init])
+        grad_shapes = _record_grad_shapes(state)
+        batch = _cp_pp_batch(t, ids)
+        losses, dropped = [], []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            dropped.append(float(m.get("moe_dropped_frac", -1.0)))
+        full = _full_params(t, state)
+        facts[name] = _held(t, state, grad_shapes)
+        if rank == 0:
+            np.savez(out_dir / f"moe_{name}.npz", losses=losses,
+                     dropped=dropped,
+                     **{f"p/{k}": v for k, v in full.items()})
+    grads = {}
+    for name, init, strategy, mesh_kw in (
+            ("ddp4", "moe", "ddp", {}),
+            ("tp2_shared", "moe_shared", "tp", {"tp": 2})):
+        t = _moe_trainer(init, strategy, mesh_kw, "dense",
+                         router_aux_coef=1.0)
+        state = t.init_state_from_params(params[init])
+        paths = [p for p, _ in named_leaves(state.params)
+                 if p.startswith("layers/moe/")]
+        got = _first_grads(t, state, _cp_pp_batch(t, ids), paths)
+        grads.update({f"{name}/{p}": g for p, g in got.items()})
+    if rank == 0:
+        np.savez(out_dir / "moe_grads.npz", **grads)
+    # ep 4 saved after one step, restored under ep 2 x fsdp 2
+    exp = out_dir / "ckpt_moe"
+    t = _moe_trainer("moe", "ep", {"ep": 4}, "ragged")
+    state = t.init_state_from_params(params["moe"])
+    batch = _cp_pp_batch(t, ids)
+    state, _ = t.step_fn(state, batch)
+    io = CheckpointIO(exp)
+    host = stamp_host_state(host_state_dict(), t)
+    host["global_step"] = 1
+    io.save(state, host)
+    io.close()
+    state, m = t.step_fn(state, batch)
+    facts["restore"] = {"straight": float(m["loss"])}
+    for key, strategy, mesh_kw in (("ep_fsdp", "ep_fsdp",
+                                    {"ep": 2, "fsdp": 2}),
+                                   ("fsdp", "fsdp", {"fsdp": 4})):
+        t2 = _moe_trainer("moe", strategy, mesh_kw, "ragged")
+        state2, host2 = restore_train_state(CheckpointIO(exp), t2)
+        state2, m2 = t2.step_fn(state2, _cp_pp_batch(t2, ids))
+        facts["restore"][key] = {"resumed": float(m2["loss"]),
+                                 "step": int(state2.step),
+                                 "global_step": int(host2["global_step"])}
+    if rank == 0:
+        (out_dir / "moe.json").write_text(json.dumps(facts))
+
+
 def cp_pp(out_dir, rank):
     batches = dict(np.load(out_dir / "batches.npz"))
     ids = batches["ids"]
@@ -546,6 +692,7 @@ def main():
     restore(params, batches, out_dir, rank)
     refusal(out_dir, rank)
     families(batches, out_dir, rank)
+    moe(out_dir, rank)
     torch.distributed.destroy_process_group()
     if rank == 0:
         (out_dir / "done").write_text("ok")
