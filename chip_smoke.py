@@ -238,6 +238,7 @@ card, or without the repository beside it, it exits non-zero first.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -5801,6 +5802,454 @@ def phase_chapter10(torch, card: str) -> dict:
             "window": window, "launches": chapter["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the overlap schedule and the fused hidden->loss
+# (ops/overlap.py) — chapter 04 at world 1 with and without
+# --overlap-schedule, the fused loss alone on the single plan,
+# --loss-chunks under tp and tp_fsdp, the double-buffered expert ring, and
+# chapter 10 scheduled
+# ---------------------------------------------------------------------------
+
+OVL_STEPS = 4
+OVL_CHUNKS = 8
+# the fused loss against the whole-tensor loss: the first step's loss is
+# the forward alone (the same bf16 products, their fp32 logz and pick
+# summed per chunk, then over chunks); later steps' params moved by grads
+# whose fp32 sums of dh and dW run in another order before their rounding
+OVL_FIRST_LOSS_REL = 1e-5
+OVL_LOSS_REL = 1e-3
+OVL_PLAN_LAYERS = 4        # (c): the loss does not depend on the depth
+OVL_PLAN_STEPS = 3
+# the ring against the bulk exchange, bf16: per row the same products, the
+# owner's partials summed in member order (y); dx and the expert stacks'
+# grads are sums over the hops of bf16 partials, each rounded, and of the
+# running sums, each rounded again (the bulk rounds once): half-ulp
+# roundings of 2^-9 make ~2.3e-3 rel L2 for 4 hops, 3.53e-3 / 2.66e-3 read
+# (expert grads / dx, PR 16 call 2); the router's an fp32 sum in another
+# order. The same bounds hold the ring against the single device (the bulk
+# exchange's expert grads equal it bitwise; its dx is held at EP_REL_L2)
+OVL_RING_Y_REL_L2 = 1e-6
+OVL_RING_GRAD_REL_L2 = 5e-3
+OVL_RING_ROUTER_REL_L2 = 1e-5
+# the ring against the bulk exchange and the single device in fp32, the
+# same layer: only fp32 sums run in another order (~1e-7), where losing or
+# doubling one row of a hop's window moves an expert grad by ~5e-3
+OVL_RING_FP32_REL_L2 = 1e-5
+# (a) and (d) timed by wall_and_device_ms over this many warmed calls
+OVL_TIME_ITERS = 4
+
+
+def ovl_run(torch, argv: list, plan=None, layers=None,
+            timed=None) -> tuple:
+    """One ``run_training`` through the CLI parser (``plan``: (strategy,
+    mesh kwargs) on a one-rank NCCL group from the env contract; None:
+    chapter 01's single device), with the kernels' launches of the run.
+    ``timed(out)``, called after the launches are read and before the
+    group goes, goes into ``out["timing"]``."""
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train import cli
+
+    args = cli.get_parser().parse_args(argv)
+    over = {"num_layers": layers} if layers else None
+
+    def run(make_plan_fn=None):
+        reset_moe_counts()                    # the run's path starts here
+        torch.cuda.reset_peak_memory_stats()
+        out = (cli.run_training(args, model_overrides=over)
+               if make_plan_fn is None else
+               cli.run_training(args, make_plan_fn, model_overrides=over))
+        torch.cuda.synchronize()
+        counts = moe_counts()                 # ... and ends here
+        if timed is not None:
+            out["timing"] = timed(out)
+        return out, counts
+
+    if plan is None:
+        return run()
+    strategy, mesh_kw = plan
+
+    def go():
+        maybe_initialize_distributed("cuda")
+        try:
+            return run(lambda: make_plan(strategy, make_mesh(**mesh_kw)))
+        finally:
+            dist.destroy_process_group()
+    return with_env(plan_env(), go)
+
+
+def ovl_step_timing(torch, out) -> list:
+    """Two readings of the wall and device milliseconds of the run's
+    optimizer step on its trained state (``wall_and_device_ms`` over
+    ``OVL_TIME_ITERS`` warmed steps on a fresh batch of *train*'s shape);
+    the schedule's gather counts are left as the run made them."""
+    state = out["state"]
+    ps = state.sharding.plan_state
+    trainer, sched = ps.trainer, ps.layer_schedule
+    counts = None if sched is None else dict(sched.counts)
+    vocab = trainer.bundle.config.vocab_size
+    batch = _train_batch(torch, vocab, 4, 2048, SEED + 22)
+    got = [wall_and_device_ms(torch, lambda: trainer.step_fn(state, batch),
+                              OVL_TIME_ITERS) for _ in range(2)]
+    if sched is not None:
+        sched.counts.update(counts)
+    return got
+
+
+def ovl_summary(out, counts) -> dict:
+    infos = out["infos"]
+    later = infos[1:] or infos
+    state = out["state"]
+    ps = getattr(state.sharding, "plan_state", None) if state.sharding \
+        else None
+    sched = None if ps is None else ps.layer_schedule
+    return {"losses": [i["running_loss"] for i in infos],
+            "grad_norms": [i["grad_norm"] for i in infos],
+            "time_step_ms": sum(i["time/step"] for i in later) / len(later),
+            "peak_alloc_gb": out["last_info"]["peak_alloc_gb"],
+            "launches": counts,
+            "gathers": None if sched is None else dict(sched.counts),
+            "gathered_leaves": None if sched is None else sched.n_gathered,
+            "timing": out.get("timing")}
+
+
+def ovl_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def ovl_fused_vs_whole(name: str, fused: dict, whole: dict) -> dict:
+    """The fused loss's losses against the whole-tensor loss's: the first
+    within ``OVL_FIRST_LOSS_REL``, all within ``OVL_LOSS_REL``."""
+    first = abs(fused["losses"][0] - whole["losses"][0]) / abs(
+        whole["losses"][0])
+    worst = ovl_rel(fused["losses"], whole["losses"])
+    check(first <= OVL_FIRST_LOSS_REL, f"overlap {name}: first loss "
+          f"{fused['losses'][0]} against the whole-tensor loss's "
+          f"{whole['losses'][0]}: rel {first}")
+    check(worst <= OVL_LOSS_REL, f"overlap {name}: losses {fused['losses']} "
+          f"against {whole['losses']}: rel {worst}")
+    return {"first_loss_rel": first, "loss_max_rel": worst,
+            "grad_norm_max_rel": ovl_rel(fused["grad_norms"],
+                                         whole["grad_norms"]),
+            "peak_drop_gb": whole["peak_alloc_gb"] - fused["peak_alloc_gb"]}
+
+
+def ovl_chapter04(torch, card: str) -> dict:
+    """(a) *train*'s model at full width and depth through chapter 04's
+    plan (fsdp) at world 1: unscheduled with the whole-tensor loss,
+    unscheduled with ``--loss-chunks 8`` (the fused loss), and
+    ``--overlap-schedule`` (the fused loss in 8 chunks, each layer's 7
+    fsdp leaves gathered a layer ahead and again in the backward). The
+    schedule is bitwise the unscheduled fused run (fp32 params: the fp32
+    reduce-scatter is the unscheduled one), and within the fused-loss
+    bounds of the whole-tensor run; K1-K3 the same in all three."""
+    base = TRAIN_ARGS + ["--max-steps", str(OVL_STEPS), "--log-freq", "1"]
+    fsdp = ("fsdp", {})
+    runs = {}
+    for name, extra in (("whole", []),
+                        ("fused", ["--loss-chunks", str(OVL_CHUNKS)]),
+                        ("scheduled", ["--overlap-schedule"])):
+        out, counts = ovl_run(torch, base + extra, plan=fsdp,
+                              timed=lambda o: ovl_step_timing(torch, o))
+        runs[name] = ovl_summary(out, counts)
+        ch01_free(torch, out)
+        log(phase="overlap", part="(a) chapter 04 at world 1", run=name,
+            card=card, **runs[name])
+    layers = 16
+    want = {k: layers * OVL_STEPS for k in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")}
+    for name, r in runs.items():
+        got = {k: r["launches"][k] for k in want}
+        check(got == want, f"overlap (a) {name}: K1-K3 launches {got}, "
+              f"want {want}")
+    sched = runs["scheduled"]
+    gathers = layers * 7 * OVL_STEPS      # each, forward and recompute
+    check(sched["gathered_leaves"] == 7 and sched["gathers"] == {
+        "gather": gathers, "regather": gathers},
+        f"overlap (a): gathers {sched['gathers']} of "
+        f"{sched['gathered_leaves']} leaves, want {gathers} each")
+    bitwise = (sched["losses"] == runs["fused"]["losses"]
+               and sched["grad_norms"] == runs["fused"]["grad_norms"])
+    check(bitwise, f"overlap (a): scheduled {sched['losses']} / "
+          f"{sched['grad_norms']} against the unscheduled fused run's "
+          f"{runs['fused']['losses']} / {runs['fused']['grad_norms']}")
+    timing = {k: runs[k]["timing"] for k in runs}
+
+    def mean(run, k):
+        vals = [r.get(k) for r in timing[run]]
+        return (sum(vals) / len(vals)
+                if all(isinstance(v, float) for v in vals) else None)
+    ratio = {k: (mean("scheduled", k) / mean("fused", k)
+                 if mean("fused", k) and mean("scheduled", k) else None)
+             for k in ("wall_ms", "device_ms")}
+    log(phase="overlap", part="(a) step timing", card=card, timing=timing,
+        scheduled_over_fused=ratio)
+    return {"runs": runs, "scheduled_bitwise_fused": bitwise,
+            "scheduled_over_fused": ratio,
+            "fused_vs_whole": ovl_fused_vs_whole("(a)", sched,
+                                                 runs["whole"])}
+
+
+def ovl_single(torch, card: str) -> dict:
+    """(b) The fused loss alone on the single plan (chapter 01, no plan):
+    ``--overlap-schedule`` there gathers nothing and replaces the [B, S, V]
+    fp32 logits by the fused loss in 8 chunks. The peak against the
+    whole-tensor loss's, 2 steps each."""
+    base = TRAIN_ARGS + ["--max-steps", "2", "--log-freq", "1"]
+    runs = {}
+    for name, extra in (("whole", []), ("fused", ["--overlap-schedule"])):
+        out, counts = ovl_run(torch, base + extra)
+        runs[name] = ovl_summary(out, counts)
+        ch01_free(torch, out)
+        log(phase="overlap", part="(b) the single plan", run=name, card=card,
+            **runs[name])
+    cmp = ovl_fused_vs_whole("(b)", runs["fused"], runs["whole"])
+    check(cmp["peak_drop_gb"] > 0, f"overlap (b): the fused loss's peak "
+          f"{runs['fused']['peak_alloc_gb']} GB, the whole-tensor loss's "
+          f"{runs['whole']['peak_alloc_gb']}")
+    return {"runs": runs, "fused_vs_whole": cmp}
+
+
+def ovl_loss_chunks(torch, card: str) -> dict:
+    """(c) ``--loss-chunks 8`` under the tp and tp_fsdp plans at world 1
+    (the vocab-parallel fused loss, the sequence all-gathered first)
+    against the same plans' whole-tensor (vocab-parallel) loss, *train*'s
+    width cut to 4 layers, 3 steps."""
+    base = TRAIN_ARGS + ["--max-steps", str(OVL_PLAN_STEPS), "--log-freq",
+                         "1"]
+    out_all = {}
+    for strategy in ("tp", "tp_fsdp"):
+        runs = {}
+        for name, extra in (("whole", []),
+                            ("fused", ["--loss-chunks", str(OVL_CHUNKS)])):
+            out, counts = ovl_run(torch, base + extra, plan=(strategy, {}),
+                                  layers=OVL_PLAN_LAYERS)
+            runs[name] = ovl_summary(out, counts)
+            ch01_free(torch, out)
+            check(runs[name]["launches"]["flash_fwd"]
+                  == OVL_PLAN_LAYERS * OVL_PLAN_STEPS,
+                  f"overlap (c) {strategy} {name}: K1 launches "
+                  f"{runs[name]['launches']}")
+        out_all[strategy] = {"runs": runs, "fused_vs_whole":
+                             ovl_fused_vs_whole(f"(c) {strategy}",
+                                                runs["fused"], runs["whole"])}
+        log(phase="overlap", part="(c) --loss-chunks under a plan",
+            strategy=strategy, layers=OVL_PLAN_LAYERS, card=card,
+            **out_all[strategy])
+    return out_all
+
+
+def ovl_ring_fns(torch, cfg, x, router, w, cot, dtype):
+    """(fresh, {mode: fwd_bwd(inputs)}) for the layer's ragged dispatch on
+    ``cfg`` in ``dtype``: ``fresh()`` makes the inputs (the leaves cloned,
+    the routing), "single" (one device), "bulk" (the 4-member exchange)
+    and "ring" (``make_ragged_ep_dispatch(overlap=True)``) each return
+    [y, dx, drouter, dgate, dup, ddown]."""
+    from distributed_training_guide_tpu_torch.models import moe
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    g, n = cfg.num_experts, EP_MEMBERS
+    e_loc = g // n
+    disps = {mode: moe.make_ragged_ep_dispatch(LocalExchange(n), cfg,
+                                               overlap=mode == "ring")
+             for mode in ("bulk", "ring")}
+
+    def fresh():
+        leaves = [t.clone().requires_grad_() for t in (x, router, *w)]
+        return (leaves, *ep_route(torch, cfg, leaves[0], leaves[1]))
+
+    def make(mode):
+        def fwd_bwd(inputs):
+            leaves, ti, tp = inputs
+            xv, rv, gate, up, down = leaves
+            if mode == "single":
+                ef = ti.T.reshape(-1)
+                y = moe._ragged_dispatch(
+                    cfg, xv, ef, tp.T.reshape(-1), moe._group_sizes(ef, g),
+                    {"gate": gate, "up": up, "down": down}, dtype)
+            else:
+                ws = [[t[m * e_loc:(m + 1) * e_loc] for m in range(n)]
+                      for t in (gate, up, down)]
+                y = torch.cat(disps[mode](list(torch.chunk(xv, n)),
+                                          list(torch.chunk(ti, n)),
+                                          list(torch.chunk(tp, n)), *ws))
+            return [y.detach(), *torch.autograd.grad(y, leaves, cot)]
+        return fwd_bwd
+
+    return fresh, {mode: make(mode) for mode in ("single", "bulk", "ring")}
+
+
+def ovl_ring(torch, card: str, gen) -> dict:
+    """(d) ``make_ragged_ep_dispatch(overlap=True)`` over 4 virtual members
+    on phase 21 (b)'s full-width qwen3-30b-a3b layer (4 x 4096 tokens,
+    bf16) against the bulk exchange and the single device: agreement, the
+    peak memory of each, K5 / K6 launches by body (each member runs the
+    window on each of the 4 hops), fwd + bwd timed by
+    ``wall_and_device_ms`` (bulk, ring, bulk, ring); then the same layer
+    in fp32 (the kernels' fp32 bodies), where the ring holds the bulk
+    exchange and the single device within ``OVL_RING_FP32_REL_L2``."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    cfg = get_model("qwen3-30b-a3b", dtype=torch.bfloat16,
+                    moe_dispatch="ragged").config
+    x, router, w, cot = ep_inputs(torch, gen, cfg)
+    n = EP_MEMBERS
+    fresh, fns = ovl_ring_fns(torch, cfg, x, router, w, cot, torch.bfloat16)
+
+    def run(mode: str):
+        inputs = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = fns[mode](inputs)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return got, peak
+
+    single, single_peak = run("single")
+    fns["ring"](fresh())                      # warm-up
+    bulk, bulk_peak = run("bulk")
+    reset_moe_counts()                        # the ring's path starts here
+    ring, ring_peak = run("ring")
+    launches = {"grouped_matmul": gm.GMM_LAUNCHES, "tgmm": gm.TGMM_LAUNCHES,
+                "by_body": {"grouped_matmul": dict(gm.GMM_BODY_LAUNCHES),
+                            "tgmm": dict(gm.TGMM_BODY_LAUNCHES)}}
+    hops = n * n
+    want_k5 = {b: 0 for b in gm.GMM_BODY_LAUNCHES}
+    want_k5.update(wgmma=3 * hops, split=3 * hops)
+    want_k6 = {b: 0 for b in gm.TGMM_BODY_LAUNCHES}
+    want_k6.update(split=3 * hops)
+    check(launches["by_body"]["grouped_matmul"] == want_k5
+          and launches["by_body"]["tgmm"] == want_k6,
+          f"overlap (d): the ring's launches by body {launches['by_body']}, "
+          f"want {want_k5} / {want_k6}")
+    errs = {}
+    for key, a, b, s in zip(("y", "dx", "drouter", "dgate", "dup", "ddown"),
+                            ring, bulk, single):
+        check(bool(torch.isfinite(a.float()).all()), f"overlap (d) {key}: "
+              f"non-finite")
+        bound = (OVL_RING_Y_REL_L2 if key == "y" else OVL_RING_ROUTER_REL_L2
+                 if key == "drouter" else OVL_RING_GRAD_REL_L2)
+        bound_single = (EP_ROUTER_REL_L2 * 10 if key == "drouter"
+                        else OVL_RING_GRAD_REL_L2 if key in EP_EXACT
+                        else EP_REL_L2)
+        errs[key] = {"rel_l2_bulk": rel_l2(a, b),
+                     "bitwise_bulk": bool(torch.equal(a, b)),
+                     "rel_l2_single": rel_l2(a, s), "bound_bulk": bound,
+                     "bound_single": bound_single}
+        check(errs[key]["rel_l2_bulk"] <= bound, f"overlap (d) {key}: rel "
+              f"L2 {errs[key]['rel_l2_bulk']} from the bulk exchange > "
+              f"{bound}")
+        check(errs[key]["rel_l2_single"] <= bound_single,
+              f"overlap (d) {key}: rel L2 {errs[key]['rel_l2_single']} from "
+              f"the single device > {bound_single}")
+    del single, bulk, ring
+    # each call on fresh inputs: the routing's graph is freed by its
+    # backward (the clones and the routing are timed with the call)
+    timing = {f"{mode}_{i}": wall_and_device_ms(
+        torch, lambda mode=mode: fns[mode](fresh()), OVL_TIME_ITERS)
+        for i in (1, 2) for mode in ("bulk", "ring")}
+    del fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"members": n, "tokens_per_member": EP_TOKENS, "errors": errs,
+           "launches": launches, "peak_gb_ring": ring_peak,
+           "peak_gb_bulk": bulk_peak, "peak_gb_single": single_peak,
+           "timing": timing, "fp32": ovl_ring_fp32(torch, x, router, w, cot)}
+    log(phase="overlap", part="(d) the ragged ring over 4 members vs the "
+        "bulk exchange and the single device, bf16 (fp32 beside)", card=card,
+        **out)
+    return out
+
+
+def ovl_ring_fp32(torch, x, router, w, cot) -> dict:
+    """(d) in fp32: the ring against the bulk exchange and the single
+    device, every output within ``OVL_RING_FP32_REL_L2``."""
+    from distributed_training_guide_tpu_torch.models import get_model
+
+    f32 = torch.float32
+    cfg = get_model("qwen3-30b-a3b", dtype=f32, moe_dispatch="ragged").config
+    fresh, fns = ovl_ring_fns(torch, cfg, x.to(f32), router,
+                              [t.to(f32) for t in w], cot.to(f32), f32)
+    got = {mode: fns[mode](fresh())
+           for mode in ("single", "bulk", "ring")}
+    torch.cuda.synchronize()
+    errs = {}
+    for i, key in enumerate(("y", "dx", "drouter", "dgate", "dup", "ddown")):
+        errs[key] = {"rel_l2_bulk": rel_l2(got["ring"][i], got["bulk"][i]),
+                     "rel_l2_single": rel_l2(got["ring"][i],
+                                             got["single"][i])}
+        for ref in ("bulk", "single"):
+            check(errs[key][f"rel_l2_{ref}"] <= OVL_RING_FP32_REL_L2,
+                  f"overlap (d) fp32 {key}: rel L2 "
+                  f"{errs[key][f'rel_l2_{ref}']} from the {ref} > "
+                  f"{OVL_RING_FP32_REL_L2}")
+    del got, fns, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"errors": errs, "bound": OVL_RING_FP32_REL_L2}
+
+
+def ovl_chapter10(torch, card: str) -> dict:
+    """(e) ``c10_moe`` at world 1 (ep plan, ragged; qwen3-30b-a3b at full
+    width, 4 layers) with ``--overlap-schedule`` against the unscheduled
+    run: one step each, the fused loss against the whole-tensor loss,
+    K5 / K6 6 and 3 a layer in both."""
+    from distributed_training_guide_tpu_torch.chapters import c10_moe
+
+    over = {"num_layers": MOE_TRAIN_LAYERS}
+    argv = MOE_TRAIN_ARGS + ["--moe-dispatch", "ragged", "--log-freq", "1",
+                             "--max-steps", "1"]
+    runs = {}
+    for name, extra in (("whole", []), ("scheduled", ["--overlap-schedule"])):
+        reset_moe_counts()                    # the run's path starts here
+        torch.cuda.reset_peak_memory_stats()
+        out = with_env(plan_env(), lambda: c10_moe.main(
+            argv + extra, model_overrides=over))
+        torch.cuda.synchronize()
+        counts = moe_counts()                 # ... and ends here
+        runs[name] = ovl_summary(out, counts)
+        ch01_free(torch, out)
+        want = {"grouped_matmul": 6 * MOE_TRAIN_LAYERS,
+                "tgmm": 3 * MOE_TRAIN_LAYERS}
+        check({k: counts[k] for k in want} == want, f"overlap (e) {name}: "
+              f"launches {counts}, want {want}")
+        log(phase="overlap", part="(e) chapter 10 at world 1", run=name,
+            card=card, **runs[name])
+    first = abs(runs["scheduled"]["losses"][0] - runs["whole"]["losses"][0]
+                ) / abs(runs["whole"]["losses"][0])
+    check(first <= OVL_FIRST_LOSS_REL, f"overlap (e): scheduled loss "
+          f"{runs['scheduled']['losses']} against {runs['whole']['losses']}")
+    return {"runs": runs, "first_loss_rel": first}
+
+
+def phase_overlap(torch, card: str) -> dict:
+    """Phase 22: the overlap schedule and the fused loss on the card."""
+    t0 = time.perf_counter()
+    ch04 = ovl_chapter04(torch, card)
+    single = ovl_single(torch, card)
+    chunks = ovl_loss_chunks(torch, card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    ring = ovl_ring(torch, card, gen)
+    ch10 = ovl_chapter10(torch, card)
+    runs = [r for part in (ch04, single, *chunks.values(), ch10)
+            for r in part["runs"].values()]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    for k in ("grouped_matmul", "tgmm"):
+        launches[k] += ring["launches"][k]
+    log(phase="overlap", seconds=time.perf_counter() - t0, card=card,
+        launches=launches)
+    return {"chapter04": ch04, "single": single, "loss_chunks": chunks,
+            "ring": ring, "chapter10": ch10, "launches": launches}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -5918,6 +6367,7 @@ def main() -> int:
     dense = phase_dense(torch, smi, ch01)
     cp_pp = phase_cp_pp(torch, smi, plans)
     ch10 = phase_chapter10(torch, smi)
+    ovl = phase_overlap(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -6018,6 +6468,7 @@ def main() -> int:
                 "chapters_08_09": cp_pp["chapters"]["launches"][name]},
             "launches_per_step_context_pipeline": cp_pp["per_step"],
             "launches_chapter10": ch10["launches"][name],
+            "launches_overlap": ovl["launches"][name],
             "shapes": {**{shape: {
                 "B_S_Hq_Hkv_D": FLASH_TIMING_SHAPES[shape],
                 **{kk: flash_timing[shape][name][kk] for kk in shape_keys
@@ -6058,7 +6509,11 @@ def main() -> int:
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:150",
         "launches": moe_serve["launches"]
         + moe_train["launches"]["grouped_matmul"]
-        + ch10["launches"]["grouped_matmul"],
+        + ch10["launches"]["grouped_matmul"]
+        + ovl["launches"]["grouped_matmul"],
+        "launches_overlap": ovl["launches"]["grouped_matmul"],
+        "launches_ep_ring_by_body": ovl["ring"]["launches"]["by_body"][
+            "grouped_matmul"],
         "launches_serve": moe_serve["launches"],
         "launches_train": moe_train["launches"]["grouped_matmul"],
         "launches_chapter10": ch10["launches"]["grouped_matmul"],
@@ -6089,7 +6544,10 @@ def main() -> int:
                   "grouped_matmul.cu",
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:176",
         "launches": moe_train["launches"]["tgmm"]
-        + ch10["launches"]["tgmm"],
+        + ch10["launches"]["tgmm"] + ovl["launches"]["tgmm"],
+        "launches_overlap": ovl["launches"]["tgmm"],
+        "launches_ep_ring_by_body": ovl["ring"]["launches"]["by_body"][
+            "tgmm"],
         "launches_per_train_step": moe_train["per_step"]["tgmm"],
         "launches_chapter10": ch10["launches"]["tgmm"],
         "launches_per_step_chapter10": ch10["chapter"]["ragged"][

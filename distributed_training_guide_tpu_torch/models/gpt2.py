@@ -290,14 +290,19 @@ def run_blocks(config: GPT2Config, layers: dict, x: torch.Tensor,
                positions: torch.Tensor, *, attn_impl="auto", layout=_WHOLE,
                remat: bool = False, remat_policy=None,
                standard_layout: bool = True, first_layer: int = 0,
-               seq_len=None) -> torch.Tensor:
+               seq_len=None, layer_schedule=None) -> torch.Tensor:
     """``_block`` over each layer of the stacked ``layers`` (a pipeline
     stage's slice, or every layer), under ``torch.utils.checkpoint`` with
-    ``remat``."""
-    def one(x, layer):
-        return _block(config, x, layout.gather_layer(layer), positions,
-                      attn_impl, standard_layout, layout)[0]
+    ``remat``, or run by ``layer_schedule`` (``ops/overlap.py``)."""
+    lay = (layout if layer_schedule is None
+           else layer_schedule.layout_for(layout))
 
+    def one(x, layer, window=None):
+        return _block(config, x, lay.gather_layer(layer), positions,
+                      attn_impl, standard_layout, lay)[0]
+
+    if layer_schedule is not None:
+        return layer_schedule(one, x, layers)
     for layer in _unbind_layers(layers, _num_layers(layers)):
         x = (remat_layer(one, x, layer, policy=remat_policy) if remat
              else one(x, layer))
@@ -331,10 +336,6 @@ def apply(config: GPT2Config, params: dict, input_ids: torch.Tensor,
     remat policies (``ops/remat.py``), "auto" attention (the flash
     kernels on the card for the standard layout) or a context-parallel
     callable, and a plan's ``LocalLayout`` as ``activation_sharding``."""
-    if layer_schedule is not None:
-        raise NotImplementedError(
-            "layer_schedule belongs to the overlap schedule (ROADMAP.md "
-            "queue 1, 'Overlap schedule and the fused loss')")
     layout = _WHOLE if activation_sharding is None else activation_sharding
     positions, seq_len, standard_layout = model_positions(input_ids,
                                                           positions, layout)
@@ -348,7 +349,8 @@ def apply(config: GPT2Config, params: dict, input_ids: torch.Tensor,
     x = run_blocks(config, params["layers"], x, positions,
                    attn_impl=attn_impl, layout=layout, remat=remat,
                    remat_policy=remat_policy,
-                   standard_layout=standard_layout)
+                   standard_layout=standard_layout,
+                   layer_schedule=layer_schedule)
     x = final_layer(config, params, x, layout)
     if return_hidden:
         return x

@@ -567,20 +567,29 @@ def run_blocks(config: LlamaConfig, layers: dict, x: torch.Tensor,
                positions: torch.Tensor, *, attn_impl="auto", layout=_WHOLE,
                remat: bool = False, remat_policy=None,
                standard_layout: bool = True, first_layer: int = 0,
-               seq_len: Optional[int] = None) -> torch.Tensor:
+               seq_len: Optional[int] = None,
+               layer_schedule=None) -> torch.Tensor:
     """The layers of the stacked ``layers`` in order, from global layer
     ``first_layer`` (a pipeline stage runs its slice; ``apply`` all of
-    them); each under ``torch.utils.checkpoint`` with ``remat``."""
+    them); each under ``torch.utils.checkpoint`` with ``remat``, or run by
+    ``layer_schedule`` (``ops/overlap.py``: it gathers each layer's fsdp
+    shards ahead of the layer and owns the remat)."""
     wins = layer_windows(config)
     rope = layer_rope(config, positions, seq_len)
     kv_hook = layout.kv_hook(config)
+    lay = (layout if layer_schedule is None
+           else layer_schedule.layout_for(layout))
 
     def one(x, layer, window):
         return block(config, x, layer, positions=positions, rope=rope,
                      attn_impl=attn_impl, window=window,
-                     standard_layout=standard_layout, layout=layout,
+                     standard_layout=standard_layout, layout=lay,
                      kv_hook=kv_hook)
 
+    if layer_schedule is not None:
+        n = _num_layers(layers)
+        return layer_schedule(one, x, layers, None if wins is None
+                              else wins[first_layer:first_layer + n])
     for i, layer in enumerate(_unbind_layers(layers, _num_layers(layers))):
         window = None if wins is None else wins[first_layer + i]
         if remat:
@@ -622,7 +631,11 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     they name). ``positions`` given means a non-standard layout: "auto"
     then takes the einsum attention, as in the JAX package. ``attn_impl``
     may be a callable (``ops/attention.multihead_attention``): the ring or
-    Ulysses attention of context parallelism.
+    Ulysses attention of context parallelism. ``layer_schedule``
+    (``ops/overlap.py:LayerSchedule``) runs the layers in place of the
+    loop, with the next layer's fsdp gathers issued ahead of each layer
+    and its own remat per layer (``remat`` / ``remat_policy`` are then
+    its).
 
     ``activation_sharding`` is a sharding plan's ``LocalLayout``
     (``parallel/plans.py``), where the JAX package takes a NamedSharding:
@@ -636,10 +649,6 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     embedding and head on the vocab shards; attention (K1-K3 on the card)
     runs on the rank's own heads. Without a plan the layout is the
     identity."""
-    if layer_schedule is not None:
-        raise NotImplementedError(
-            "layer_schedule belongs to the overlap schedule (ROADMAP.md "
-            "queue 1, 'Overlap schedule and the fused loss')")
     layout = _WHOLE if activation_sharding is None else activation_sharding
     positions, seq_len, standard_layout = model_positions(input_ids,
                                                           positions, layout)
@@ -647,7 +656,8 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     x = run_blocks(config, params["layers"], x, positions,
                    attn_impl=attn_impl, layout=layout, remat=remat,
                    remat_policy=remat_policy,
-                   standard_layout=standard_layout, seq_len=seq_len)
+                   standard_layout=standard_layout, seq_len=seq_len,
+                   layer_schedule=layer_schedule)
     x = final_layer(config, params, x, layout)
     if return_hidden:
         return x

@@ -38,8 +38,11 @@ exchanges: ``make_ragged_ep_dispatch`` (the ragged bulk exchange: gather
 the ep group's rows, each member's experts on their window of the sorted
 buffer, reduce-scatter home) and ``dense_ep_dispatch`` (the capacity
 dispatch of the global program: the slot map over every rank's routing).
-The overlap schedule (``layer_schedule``, ``overlap=True``) raises,
-naming its ROADMAP.md item.
+Under the overlap schedule (``ops/overlap.py``) ``apply_with_aux`` takes
+``layer_schedule`` over its ``(x, aux, dropped)`` carry, and
+``make_ragged_ep_dispatch(overlap=True)`` is the double-buffered ring:
+token blocks hop around the ep group while each member's experts compute
+the block at hand.
 """
 from __future__ import annotations
 
@@ -57,7 +60,6 @@ from . import llama
 from .llama import _rmsnorm, attention_sublayer
 
 MOE_DISPATCH_MODES = ("dense", "ragged")
-_OVERLAP_ITEM = "ROADMAP.md queue 1, 'Overlap schedule and the fused loss'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +226,9 @@ def param_shapes(config: MoELlamaConfig) -> dict:
 LAYOUT_PATHS = {**llama.LAYOUT_PATHS, "mlp_in": "layers/moe/gate"}
 # the routed experts' stacks, whose ``experts`` axis the ep rules shard
 EXPERT_LEAVES = ("gate", "up", "down")
+# layer weights the block reads in fp32 (the router's logits and the shared
+# expert's gate): the overlap schedule hands them over uncast
+FP32_LAYER_LEAVES = frozenset({"moe/router", "moe/shared_gate"})
 
 
 # ---------------------------------------------------------------------------
@@ -330,11 +335,21 @@ def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
     Returns ``dispatch(xts, topk_idxs, topk_probs, gates, ups, downs)``
     over one item per local member of ``ep`` (rows [t, D], routing
     [t, k], the member's expert stacks [E / ep, ...]) -> the combined
-    outputs [t, D] per member. ``overlap=True`` (the double-buffered
-    ring) raises, naming its ROADMAP item."""
-    if overlap:
-        raise NotImplementedError(f"make_ragged_ep_dispatch(overlap=True): "
-                                  f"{_OVERLAP_ITEM}")
+    outputs [t, D] per member.
+
+    ``overlap=True`` (the overlap schedule, ``ops/overlap.py``) is the
+    double-buffered ring in place of the bulk gather: each member's block
+    of rows and routing hops one member along the ring a step
+    (``ops/collectives.py:post_permute`` over ``ep.permute``, posted
+    before the step's compute and waited after it), each visiting block
+    runs through ``_local_groups_compute`` on this member's experts, and
+    each partial goes straight back to its owner (posted at once, waited
+    after the last step). The owner sums the ep partials in member order,
+    the order ``ep.reduce_scatter`` sums them in on one device. Per row
+    the products are the bulk form's; each hop sorts ``t`` rows, not
+    ``ep * t``, and an expert's weight gradient is summed over the hops.
+    The gradients of the rows and probs travel the inverse permutations in
+    the backward."""
     ex, k = config.num_experts, config.experts_per_token
     n_ep = 1 if ep is None else ep.size
     if n_ep > 1 and ex % n_ep:
@@ -372,12 +387,44 @@ def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
         if n_ep == 1:
             return [member(*a, 0) for a in zip(xts, topk_idxs, topk_probs,
                                                 gates, ups, downs)]
+        if overlap:
+            return ring(xts, topk_idxs, topk_probs, gates, ups, downs)
         rows = zip(ep.all_gather(xts, 0), ep.all_gather(topk_idxs, 0),
                    ep.all_gather(topk_probs, 0), gates, ups, downs, ep.local)
         ys = [member(*a[:6], a[6] * e_local) for a in rows]
         return ep.reduce_scatter(ys, 0)
 
-    dispatch.ep, dispatch.embed = ep, embed
+    def ring(xts, topk_idxs, topk_probs, gates, ups, downs):
+        step = [(i, (i + 1) % n_ep) for i in range(n_ep)]
+        blocks = [list(b) for b in zip(xts, topk_idxs, topk_probs)]
+        parts = [{} for _ in ep.local]   # each owner's partials by member
+        back = []
+        for j in range(n_ep):
+            nxt = (C.post_permute(ep, blocks, step) if j + 1 < n_ep
+                   else None)
+            ys = [member(*blk, g, u, d, m * e_local) for blk, g, u, d, m
+                  in zip(blocks, gates, ups, downs, ep.local)]
+            if j == 0:
+                for got, m, y in zip(parts, ep.local, ys):
+                    got[m] = y
+            else:   # home to the block's owner, member m - j
+                back.append((j, C.post_permute(
+                    ep, [[y] for y in ys],
+                    [(i, (i - j) % n_ep) for i in range(n_ep)])))
+            if nxt is not None:
+                blocks = nxt.wait()
+        for j, hop in back:
+            for got, m, (y,) in zip(parts, ep.local, hop.wait()):
+                got[(m + j) % n_ep] = y
+        out = []
+        for got in parts:
+            total = got[0]
+            for q in range(1, n_ep):
+                total = total + got[q]
+            out.append(total)
+        return out
+
+    dispatch.ep, dispatch.embed, dispatch.overlap = ep, embed, overlap
     return dispatch
 
 
@@ -632,22 +679,36 @@ def run_blocks(config: MoELlamaConfig, layers: dict, x: torch.Tensor,
                layout=llama._WHOLE, remat: bool = False, remat_policy=None,
                standard_layout: bool = True, first_layer: int = 0,
                seq_len: Optional[int] = None, moe_ep=None,
-               gmm_impl: str = "auto") -> tuple:
+               gmm_impl: str = "auto", layer_schedule=None) -> tuple:
     """The layers of the stacked ``layers`` in order (a pipeline stage's
     slice from global layer ``first_layer``, or all of them) -> (x, the
     sum of their aux losses, the sum of their dropped fractions); each
-    layer under ``torch.utils.checkpoint`` with ``remat``."""
+    layer under ``torch.utils.checkpoint`` with ``remat``, or run by
+    ``layer_schedule`` (``ops/overlap.py``) over the ``(x, aux,
+    dropped)`` carry."""
     wins = llama.layer_windows(config)
     rope = llama.layer_rope(config, positions, seq_len)
     kv_hook = layout.kv_hook(config)
+    lay = (layout if layer_schedule is None
+           else layer_schedule.layout_for(layout))
 
     def one(x, layer, window):
         return block(config, x, layer, positions=positions, rope=rope,
                      attn_impl=attn_impl, window=window,
-                     standard_layout=standard_layout, layout=layout,
+                     standard_layout=standard_layout, layout=lay,
                      kv_hook=kv_hook, moe_ep=moe_ep, gmm_impl=gmm_impl)
 
     aux = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    if layer_schedule is not None:
+        def carried(carry, layer, window):
+            x, a, dr = carry
+            x, a2, dr2 = one(x, layer, window)
+            return x, a + a2, dr + dr2
+
+        n = llama._num_layers(layers)
+        return layer_schedule(carried, (x, aux, dropped), layers,
+                              None if wins is None
+                              else wins[first_layer:first_layer + n])
     for i, layer in enumerate(llama._unbind_layers(
             layers, llama._num_layers(layers))):
         window = None if wins is None else wins[first_layer + i]
@@ -674,9 +735,9 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
     ``activation_sharding``: a plan's ``LocalLayout``, as
     ``models/llama.apply`` takes it (this rank's shards and rows);
     ``moe_ep``: the expert-parallel ragged dispatch
-    (``make_ragged_ep_dispatch``), threaded to every layer."""
-    if layer_schedule is not None:
-        raise NotImplementedError(f"layer_schedule: {_OVERLAP_ITEM}")
+    (``make_ragged_ep_dispatch``), threaded to every layer;
+    ``layer_schedule`` (``ops/overlap.py``) runs the layers over the
+    ``(x, aux, dropped)`` carry with its own remat per layer."""
     layout = (llama._WHOLE if activation_sharding is None
               else activation_sharding)
     positions, seq_len, standard_layout = llama.model_positions(
@@ -686,7 +747,7 @@ def apply_with_aux(config: MoELlamaConfig, params: dict,
         config, params["layers"], x, positions, attn_impl=attn_impl,
         layout=layout, remat=remat, remat_policy=remat_policy,
         standard_layout=standard_layout, seq_len=seq_len, moe_ep=moe_ep,
-        gmm_impl=gmm_impl)
+        gmm_impl=gmm_impl, layer_schedule=layer_schedule)
     x = final_layer(config, params, x, layout)
     out = x if return_hidden else logits_of_hidden(config, params, x, layout)
     aux = aux / config.num_layers

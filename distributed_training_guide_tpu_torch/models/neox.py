@@ -282,16 +282,22 @@ def run_blocks(config: NeoXConfig, layers: dict, x: torch.Tensor,
                positions: torch.Tensor, *, attn_impl="auto", layout=_WHOLE,
                remat: bool = False, remat_policy=None,
                standard_layout: bool = True, first_layer: int = 0,
-               seq_len: Optional[int] = None) -> torch.Tensor:
+               seq_len: Optional[int] = None,
+               layer_schedule=None) -> torch.Tensor:
     """``_block`` over each layer of the stacked ``layers`` (a pipeline
     stage's slice, or every layer), the partial rope's tables computed
-    once, under ``torch.utils.checkpoint`` with ``remat``."""
+    once, under ``torch.utils.checkpoint`` with ``remat``, or run by
+    ``layer_schedule`` (``ops/overlap.py``)."""
     rope = layer_rope(config, positions, seq_len)
+    lay = (layout if layer_schedule is None
+           else layer_schedule.layout_for(layout))
 
-    def one(x, layer):
-        return _block(config, x, layout.gather_layer(layer), positions, rope,
-                      attn_impl, standard_layout, layout)[0]
+    def one(x, layer, window=None):
+        return _block(config, x, lay.gather_layer(layer), positions, rope,
+                      attn_impl, standard_layout, lay)[0]
 
+    if layer_schedule is not None:
+        return layer_schedule(one, x, layers)
     for layer in _unbind_layers(layers, _num_layers(layers)):
         x = (remat_layer(one, x, layer, policy=remat_policy) if remat
              else one(x, layer))
@@ -322,10 +328,6 @@ def apply(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
           layer_schedule=None) -> torch.Tensor:
     """Training forward -> fp32 logits [B, S, V] (or the final-normed
     hidden states), the ``llama.apply`` contract."""
-    if layer_schedule is not None:
-        raise NotImplementedError(
-            "layer_schedule belongs to the overlap schedule (ROADMAP.md "
-            "queue 1, 'Overlap schedule and the fused loss')")
     layout = _WHOLE if activation_sharding is None else activation_sharding
     positions, seq_len, standard_layout = model_positions(input_ids,
                                                           positions, layout)
@@ -333,7 +335,8 @@ def apply(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
     x = run_blocks(config, params["layers"], x, positions,
                    attn_impl=attn_impl, layout=layout, remat=remat,
                    remat_policy=remat_policy,
-                   standard_layout=standard_layout, seq_len=seq_len)
+                   standard_layout=standard_layout, seq_len=seq_len,
+                   layer_schedule=layer_schedule)
     x = final_layer(config, params, x, layout)
     if return_hidden:
         return x

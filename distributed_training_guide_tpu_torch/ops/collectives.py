@@ -31,6 +31,10 @@ expert exchange's rows and routing) and a reduce-scatter (the expert
 exchange's partial combine going home). ``AxesExchange`` gathers over
 several mesh axes at once (the MoE routing of every rank that holds other
 tokens).
+``post_permute`` is an autograd-aware permutation posted at once and
+waited later (the expert ring of ``models/moe.py``: the gradients travel
+the inverse permutation, posted in the backward of the wait and waited in
+the backward of the post).
 ``GroupExchange`` holds this rank's one member of a process group and
 sends through ``dist.batch_isend_irecv`` / ``all_to_all_single``;
 ``LocalExchange`` holds every member in one process, so the ring and the
@@ -266,6 +270,86 @@ class LocalExchange(MemberExchange):
         for x in xs[1:]:
             total = total + x
         return list(torch.chunk(total, self.size, dim=dim))
+
+
+class _PostedPermute:
+    """One permutation of each local member's tensors (``post_permute``):
+    the forward's handle, the structure of the items, and the backward's
+    inverse permutation once posted."""
+
+    def __init__(self, exchange, perm: list, items: list):
+        self.exchange, self.perm = exchange, perm
+        self.widths = [len(item) for item in items]
+        self.floats = [t.is_floating_point() for item in items for t in item]
+        self.handle = self.back = None
+
+    def pack(self, flat) -> list:
+        out, i = [], 0
+        for w in self.widths:
+            out.append(list(flat[i:i + w]))
+            i += w
+        return out
+
+    def wait(self) -> list:
+        return self.pack(_PermuteWait.apply(self, self.token))
+
+
+class _PermutePost(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hop, *flat):
+        from .remat import uncached
+
+        ctx.hop = hop
+        with uncached():     # runs again in a remat's recompute
+            hop.handle = hop.exchange.permute(hop.pack(flat), hop.perm)
+        # the token that orders the wait after the post (a float: its
+        # gradient is what runs this backward)
+        return next(t for t in flat if t.is_floating_point()).new_empty(0)
+
+    @staticmethod
+    def backward(ctx, g_token):
+        hop = ctx.hop
+        got = [t for item in hop.back.wait() for t in item]
+        return (None, *[g if f else None for g, f in zip(got, hop.floats)])
+
+
+class _PermuteWait(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hop, token):
+        from .remat import uncached
+
+        ctx.hop, ctx.token = hop, (token.shape, token.dtype, token.device)
+        with uncached():
+            got = [t.detach() for item in hop.handle.wait() for t in item]
+        hop.handle = None
+        ctx.like = [(t.shape, t.dtype, t.device) for t in got]
+        ctx.mark_non_differentiable(*[t for t, f in zip(got, hop.floats)
+                                      if not f])
+        return tuple(got)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        hop = ctx.hop
+        grads = [torch.zeros(shape, dtype=dtype, device=device)
+                 if g is None else g
+                 for g, (shape, dtype, device) in zip(grads, ctx.like)]
+        hop.back = hop.exchange.permute(hop.pack(grads),
+                                        [(d, s) for s, d in hop.perm])
+        shape, dtype, device = ctx.token
+        return None, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def post_permute(exchange: "MemberExchange", items: list,
+                 perm: list) -> _PostedPermute:
+    """``exchange.permute(items, perm)`` posted now, autograd-aware: its
+    ``wait()`` gives the received items, and the gradients of the float
+    tensors travel back over the inverse permutation (posted in the
+    backward of the wait, waited in the backward of the post, so the
+    backward between the two overlaps it). Integer tensors travel without
+    a gradient."""
+    hop = _PostedPermute(exchange, perm, items)
+    hop.token = _PermutePost.apply(hop, *[t for item in items for t in item])
+    return hop
 
 
 class GroupExchange(MemberExchange):

@@ -15,13 +15,28 @@ operations whose outputs are saved instead of recomputed in backward:
   "flash_lse", as ``save_only_these_names``: the einsum attention's output
   and the flash forward's (o, lse), so backward never reruns the flash
   forward kernel (K1);
-- "attn_mlp": "attn" and "mlp_act", the gated MLP's inner activation.
+- "attn_mlp": "attn" and "mlp_act", the gated MLP's inner activation;
+- ``save_anything_except(*names)``: everything the backward needs but the
+  tensors made under ``names``, as ``save_anything_except_these_names``
+  (the overlap schedule's cells, ``ops/overlap.py``, under
+  "fsdp_gather"). Nothing is recomputed but those tensors: the layer runs
+  once, autograd saves what it always saves, and a saved tensor that an
+  operation under the names made (``remade_by`` registers it with the
+  closure that makes it again), or a view of one, is dropped and made
+  again when the backward unpacks it
+  (``torch.autograd.graph.saved_tensors_hooks``). A selective checkpoint
+  would cache every operation's output instead, which JAX's policy does
+  not: it saves residuals.
 
 A name is a scope, not a tensor label: ``with checkpoint_name("mlp_act"):``
 around the one operation that makes the tagged tensor. The flash forward
 is a ``torch.library`` custom op (``ops/flash_attention.py``), so the policy
 sees it as one operation and can keep its outputs; a kernel launched
 through ctypes inside an ordinary function would be invisible to it.
+Operations run under ``uncached()`` are invisible to the policy's cache
+too: they run again in the recompute, and the cache (which matches
+operations by their order) neither holds their outputs nor expects them
+in the same order in both passes.
 """
 from __future__ import annotations
 
@@ -29,6 +44,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
+import weakref
 from typing import Optional
 
 import torch
@@ -62,6 +78,88 @@ class SavePolicy:
 
     names: frozenset = frozenset()
     dots: bool = False
+    # not empty: save what the backward needs but the tensors made under
+    # these names (``names`` and ``dots`` then unused; no recompute)
+    except_names: frozenset = frozenset()
+
+
+def save_anything_except(*names: str) -> SavePolicy:
+    """Save what the backward needs but the tensors made under ``names``
+    (``jax.checkpoint_policies.save_anything_except_these_names``)."""
+    return SavePolicy(except_names=frozenset(names))
+
+
+class _Remake:
+    """A dropped saved tensor: the closure that makes its base again, and
+    the view of that base it was."""
+
+    def __init__(self, remake, t: torch.Tensor):
+        self.remake = remake
+        self.view = (t.shape, t.stride(), t.storage_offset())
+
+    def __call__(self) -> torch.Tensor:
+        return self.remake().as_strided(*self.view)
+
+
+class _Dropped:
+    """One ``save_anything_except`` scope: the tensors made under its
+    names, by storage (a weak reference each: a dead tensor's storage may
+    be reused), each with its remake."""
+
+    def __init__(self, names: frozenset):
+        self.names = names
+        self.table: dict = {}
+
+    def add(self, t: torch.Tensor, remake) -> None:
+        if not t.is_meta:          # every meta storage sits at address 0
+            self.table[t.untyped_storage().data_ptr()] = (weakref.ref(t),
+                                                          remake)
+
+    def pack(self, t: torch.Tensor):
+        hit = (None if t.is_meta
+               else self.table.get(t.untyped_storage().data_ptr()))
+        if hit is None or hit[0]() is None:
+            return t
+        return _Remake(hit[1], t)
+
+    @staticmethod
+    def unpack(x):
+        return x() if isinstance(x, _Remake) else x
+
+
+def remade_by(t: torch.Tensor, remake) -> torch.Tensor:
+    """Register ``t``, made under the active names, as made again by
+    ``remake()`` with the innermost ``save_anything_except`` scope that
+    drops one of those names; outside such a scope nothing happens."""
+    for scope in reversed(getattr(_ACTIVE, "dropping", ())):
+        if scope.names & active_names():
+            scope.add(t, remake)
+            break
+    return t
+
+
+def _save_anything_except(fn, args, names: frozenset):
+    scope = _Dropped(names)
+    prev = getattr(_ACTIVE, "dropping", ())
+    _ACTIVE.dropping = prev + (scope,)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(scope.pack,
+                                                      scope.unpack):
+            return fn(*args)
+    finally:
+        _ACTIVE.dropping = prev
+
+
+@contextlib.contextmanager
+def uncached():
+    """Run the operations of this scope with the dispatch modes suspended:
+    a selective checkpoint's cache neither sees nor keeps them, and the
+    recompute runs them again (a collective whose forward and recompute
+    differ: a prefetched gather that the forward only waits for)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
 
 
 # matrix products with no batch dimensions (x @ W reaches aten.mm through
@@ -100,10 +198,14 @@ def _policy_fn(policy: SavePolicy):
 def remat(fn, *args, policy=None):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant),
     saving what ``policy`` names (a name of ``REMAT_POLICIES`` or a
-    SavePolicy; None or "all" saves nothing)."""
+    SavePolicy; None or "all" saves nothing); a ``save_anything_except``
+    policy runs ``fn`` once and drops only the tensors made under its
+    names."""
     policy = resolve_remat_policy(policy)
     if policy is None:
         return checkpoint(fn, *args, use_reentrant=False)
+    if policy.except_names:
+        return _save_anything_except(fn, args, policy.except_names)
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=functools.partial(
                           create_selective_checkpoint_contexts,

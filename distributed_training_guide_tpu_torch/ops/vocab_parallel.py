@@ -41,25 +41,55 @@ def vocab_parallel_embed(table_local: torch.Tensor, input_ids: torch.Tensor,
     return all_reduce(rows, group)
 
 
+def shard_local_targets(targets: torch.Tensor, valid: torch.Tensor,
+                        v_local: int, rank: int) -> tuple:
+    """Global target ids -> (ids clipped into this rank's vocab slice,
+    in-shard mask); an invalid target reads id 0. Shared by
+    ``sharded_pick`` and the fused loss's backward (the one-hot against
+    the local slice, ``ops/cross_entropy.py``)."""
+    return _shard_local(torch.where(valid, targets, 0), v_local, rank)
+
+
+def sharded_logsumexp(logits: torch.Tensor, group) -> torch.Tensor:
+    """logsumexp over a vocab-sharded last dim: the max and the sum of
+    exponentials, each reduced over the group. Values only: the gradient
+    is ``_ShardedLogZPicked``'s (or the fused loss's own backward).
+    logits: [..., V/tp] fp32 -> [...]."""
+    m = all_reduce_(logits.amax(-1), group,
+                    op=torch.distributed.ReduceOp.MAX)
+    m = m.masked_fill(m.abs() == float("inf"), 0)
+    sumexp = all_reduce_((logits - m[..., None]).exp().sum(-1), group)
+    return sumexp.log().add(m)
+
+
+def _pick(logits, safe, in_shard, group) -> torch.Tensor:
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return all_reduce_(torch.where(in_shard, picked, 0.0), group)
+
+
+def sharded_pick(logits: torch.Tensor, targets: torch.Tensor,
+                 valid: torch.Tensor, group, rank: int) -> torch.Tensor:
+    """The target's logit out of a vocab-sharded last dim: the masked local
+    gather summed over the group (values only, as ``sharded_logsumexp``).
+    logits [..., V/tp], targets / valid [...] -> [...]."""
+    safe, in_shard = shard_local_targets(targets, valid, logits.shape[-1],
+                                         rank)
+    return _pick(logits, safe, in_shard, group)
+
+
 class _ShardedLogZPicked(torch.autograd.Function):
     """(logsumexp, target logit) of each row of vocab-sharded logits, the
-    same on every rank of the group. Forward: the max, the sum of
-    exponentials and the in-shard target logit summed over the group.
-    Backward, per rank and with no collective (every rank holds the same
-    two outputs and their cotangents): ``g_logz * exp(l - logz)`` plus
-    ``g_picked`` at the in-shard target, torch's own ``logsumexp`` and
-    ``gather`` backward, so one rank's result is the plain loss's bit for
-    bit."""
+    same on every rank of the group. Forward: ``sharded_logsumexp`` and
+    the in-shard target logit summed over the group. Backward, per rank
+    and with no collective (every rank holds the same two outputs and
+    their cotangents): ``g_logz * exp(l - logz)`` plus ``g_picked`` at the
+    in-shard target, torch's own ``logsumexp`` and ``gather`` backward, so
+    one rank's result is the plain loss's bit for bit."""
 
     @staticmethod
     def forward(ctx, logits, safe, in_shard, group):
-        m = all_reduce_(logits.amax(-1), group,
-                        op=torch.distributed.ReduceOp.MAX)
-        m = m.masked_fill(m.abs() == float("inf"), 0)
-        sumexp = all_reduce_((logits - m[..., None]).exp().sum(-1), group)
-        logz = sumexp.log().add(m)
-        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
-        picked = all_reduce_(torch.where(in_shard, picked, 0.0), group)
+        logz = sharded_logsumexp(logits, group)
+        picked = _pick(logits, safe, in_shard, group)
         ctx.save_for_backward(logits, logz, safe, in_shard)
         return logz, picked
 
@@ -85,8 +115,8 @@ def vocab_parallel_nll(logits_local: torch.Tensor, targets: torch.Tensor,
     for its own vocab shard (``_ShardedLogZPicked``)."""
     logits = logits_local.float()
     valid = targets != IGNORE_INDEX
-    safe, in_shard = _shard_local(torch.where(valid, targets, 0),
-                                  logits.shape[-1], rank)
+    safe, in_shard = shard_local_targets(targets, valid, logits.shape[-1],
+                                         rank)
     logz, picked = _ShardedLogZPicked.apply(logits, safe, in_shard, group)
     return ((logz - picked) * valid).sum(), valid.sum()
 

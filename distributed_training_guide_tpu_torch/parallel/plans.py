@@ -502,6 +502,9 @@ class LocalLayout:
         # leaves whose fsdp gather the MoE dispatch runs itself (the
         # experts under a ragged ep_fsdp exchange: ``embed``)
         self.gathered_by_dispatch: frozenset = frozenset()
+        # leaves a layer schedule hands the blocks already gathered
+        # (``ops/overlap.py``; ``pregathered``)
+        self.handed_gathered: frozenset = frozenset()
         # ``model``: the subtree of the params the family's forward reads
         # (a LoRA bundle's "base"); ``partners``: {adapter path: the leaf
         # it adapts}
@@ -525,13 +528,23 @@ class LocalLayout:
         out.specs = _under(self.specs, prefix)
         return out
 
+    def pregathered(self, paths) -> "LocalLayout":
+        """This layout for blocks whose layer leaves at ``paths`` a
+        schedule has already gathered (``ops/overlap.py:LayerSchedule``):
+        ``gather_leaf`` passes them through, so nothing is gathered
+        twice."""
+        out = object.__new__(LocalLayout)
+        out.__dict__.update(self.__dict__)
+        out.handed_gathered = self.handed_gathered | frozenset(paths)
+        return out
+
     # ---- params ------------------------------------------------------------
     def gather_leaf(self, path: str, local: torch.Tensor,
                     layer: bool = False) -> torch.Tensor:
         """A param's compute form: its shards over the data axes (fsdp)
         all-gathered, its tp and ep shards kept. ``layer``: one layer's
         slice of a stacked leaf (the spec's layer dim dropped)."""
-        if path in self.gathered_by_dispatch:
+        if path in self.gathered_by_dispatch or path in self.handed_gathered:
             return local
         spec = self.specs[path][1:] if layer else self.specs[path]
         return self.plan.unshard(spec, local, skip=("tp", "ep"))

@@ -14,7 +14,10 @@ under ``--wandb``. ``--optimizer``, ``--precision-policy``,
 ``--param-dtype``, ``--remat-policy``, ``--mmap-data``, ``--pretrained``,
 ``--preflight``, ``--lora-rank`` (``--lora-alpha``, ``--lora-targets``:
 adapters on a frozen base, ``models/lora.py``), ``--context-impl`` and
-``--cp-hop-loop`` (context parallelism's ring or Ulysses, chapter 08) are
+``--cp-hop-loop`` (context parallelism's ring or Ulysses, chapter 08),
+``--overlap-schedule`` (``ops/overlap.py``: the fsdp gathers issued a
+layer ahead, the fused hidden->loss, the expert ring) and ``--loss-chunks``
+(under a plan, the fused loss of ``ops/overlap.py:make_fused_loss``) are
 the JAX package's, and ``run_training(..., pp_microbatches=)`` sets the
 pipeline's microbatches (chapter 09). The fault drills of
 ``utils/faults.py`` and the heartbeat of ``utils/heartbeat.py`` are wired
@@ -46,7 +49,6 @@ LOGGER = logging.getLogger(__name__)
 # flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
 _UNPORTED_FLAGS = {
     "native_loader": (False, "'Runtime robustness and tooling'"),
-    "overlap_schedule": (False, "'Overlap schedule and the fused loss'"),
 }
 
 
@@ -143,7 +145,11 @@ def get_parser() -> argparse.ArgumentParser:
                         metavar="W",
                         help="sliding-window attention over the previous W "
                              "tokens (the banded flash kernels)")
-    parser.add_argument("--overlap-schedule", action="store_true")
+    parser.add_argument("--overlap-schedule", action="store_true",
+                        help="the overlap schedule (ops/overlap.py): each "
+                             "layer's fsdp gathers issued a layer ahead and "
+                             "again in its backward, the fused "
+                             "hidden->loss, the ragged expert ring")
     parser.add_argument("--precision-policy", default="fp32",
                         metavar="POLICY",
                         help="storage-precision policy (train/precision.py): "
@@ -298,6 +304,7 @@ def run_training(args, plan_factory=None, *, device=None,
         offload_opt_state=offload_opt_state, offload_params=offload_params,
         lora_only=bool(lora_rank),
         context_impl=getattr(args, "context_impl", "ring"),
+        overlap_schedule=getattr(args, "overlap_schedule", False),
         pp_microbatches=pp_microbatches)
     guard = GuardMonitor(args.guard_policy, args.guard_max_skips)
     data_ranks = 1 if plan is None else plan.data_parallel_size

@@ -32,8 +32,7 @@ LoRA adapters on a frozen base, ``models/lora.py``), and the offloads,
 / ``offload_param`` (a bool or ``{"device": "cpu"}``; ``"none"``
 disables). ``expert_parallel`` > 1 builds ``ep`` (``ep_fsdp`` at stage
 3), refusing tp, pp and ZeRO-1 / 2 beside it as the JAX engine does.
-``overlap_schedule`` raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``overlap_schedule`` turns on the overlap schedule (``ops/overlap.py``).
 
 The engine starts the process group it needs
 (``launch.maybe_initialize_distributed``: the torchrun env contract, or a
@@ -49,7 +48,6 @@ from pathlib import Path
 from typing import Any, Optional
 
 _STAGE_TO_STRATEGY = {0: "ddp", 1: "zero1", 2: "zero2", 3: "fsdp"}
-_OVERLAP = "ROADMAP.md queue 1, 'Overlap schedule and the fused loss'"
 
 
 def _ds_offload_enabled(v) -> bool:
@@ -58,14 +56,6 @@ def _ds_offload_enabled(v) -> bool:
     if isinstance(v, dict):
         return v.get("device", "none") not in ("none", None)
     return bool(v)
-
-
-def _refuse_unported(config: dict) -> None:
-    if config.get("overlap_schedule", False) not in (False, None):
-        raise NotImplementedError(
-            f"engine config overlap_schedule="
-            f"{config['overlap_schedule']!r} is not ported yet "
-            f"({_OVERLAP})")
 
 
 def _scheduler_config(sched: dict) -> dict:
@@ -194,7 +184,6 @@ class TrainingEngine:
             with open(config) as fp:
                 config = json.load(fp)
         self.config = config
-        _refuse_unported(config)
         device = resolve_device(device)
 
         bf16 = config.get("bf16", {}).get("enabled", True)
@@ -288,6 +277,7 @@ class TrainingEngine:
                 config.get("offload_params", False)
                 or _ds_offload_enabled(zero.get("offload_param", False))),
             lora_only=bool(config.get("lora")),
+            overlap_schedule=bool(config.get("overlap_schedule", False)),
             pp_microbatches=config.get("pp_microbatches"),
             context_impl=config.get("context_impl", "ring"))
         self.state = self.trainer.init_state(config.get("seed", 0))

@@ -160,12 +160,24 @@ def comm_roofline(trainer, *, global_batch: int, seq_length: int,
         vocab_size=cfg.vocab_size, attn_kv_len=attn_kv)
     t_comp = (flops_per_token * global_batch * seq_length) / (peak * n_chips)
     t_comm = comm_bytes / link
-    # the port has no latency-hiding schedule (--overlap-schedule is
-    # ROADMAP queue 1's 'Overlap schedule and the fused loss'),
-    # so the whole comm budget is priced exposed
+    # exposed-vs-overlapped pricing (ops/overlap.py): under
+    # --overlap-schedule the per-layer weight gathers / reduce-scatters
+    # and the expert exchange have layer compute to hide behind, so only
+    # their overflow past t_compute is exposed; the rest (tp all-reduces
+    # between products, the loss sums, the bulk dp reduce) stays serial.
+    # Without the schedule the whole comm budget is priced exposed
+    overlap_on = bool(getattr(trainer, "overlap_schedule", False))
     schedulable = (table["fsdp_allgather_weights"]
                    + table["fsdp_reducescatter_grads"]
                    + table["ep_exchange"])
+    if overlap_on:
+        exposed_bytes = comm_bytes - schedulable
+        t_exposed = exposed_bytes / link + max(0.0,
+                                               schedulable / link - t_comp)
+        overlapped_bytes = comm_bytes - exposed_bytes
+    else:
+        exposed_bytes, overlapped_bytes = comm_bytes, 0.0
+        t_exposed = t_comm
     report = {
         "target": device_kind,
         "figures": "data sheet",
@@ -180,12 +192,12 @@ def comm_roofline(trainer, *, global_batch: int, seq_length: int,
         "mfu_ceiling_overlapped": (t_comp / max(t_comp, t_comm)
                                    if t_comp else 0.0),
         "mfu_ceiling_serial": t_comp / (t_comp + t_comm) if t_comp else 0.0,
-        "overlap_schedule": False,
+        "overlap_schedule": overlap_on,
         "overlappable_bytes_per_chip": int(schedulable),
-        "exposed_bytes_per_chip": int(comm_bytes),
-        "overlapped_bytes_per_chip": 0,
-        "t_exposed_s": t_comm,
-        "mfu_ceiling_scheduled": (t_comp / (t_comp + t_comm)
+        "exposed_bytes_per_chip": int(exposed_bytes),
+        "overlapped_bytes_per_chip": int(overlapped_bytes),
+        "t_exposed_s": t_exposed,
+        "mfu_ceiling_scheduled": (t_comp / (t_comp + t_exposed)
                                   if t_comp else 0.0),
     }
     if not assume_overlap:

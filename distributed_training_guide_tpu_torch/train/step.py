@@ -33,6 +33,12 @@ dense_ep_dispatch``), the ragged one the expert exchange
 (``make_ragged_ep_dispatch``, built once here where the JAX Trainer builds
 it: pp 1, the experts' embed dim gathered inside it under ep_fsdp), which,
 as in the JAX package, runs under neither cp, pp nor tp.
+``overlap_schedule`` (``ops/overlap.py``; not under pp or cp) runs the
+layers through a ``LayerSchedule`` (each layer's fsdp leaves gathered a
+layer ahead and again for the backward), the loss through the fused
+hidden->loss where ``fused_loss_supported`` allows it, and the ragged
+exchange as the double-buffered ring; ``loss_chunks`` runs that fused
+loss too, on one device and under a plan.
 
 ``offload_opt_state`` / ``offload_params`` keep the optimizer state /
 params in host memory between steps (``train/offload.py``: fetched to the
@@ -68,7 +74,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.registry import ModelBundle, family_module
-from ..ops.cross_entropy import causal_lm_loss, chunked_causal_lm_loss
+from ..ops.cross_entropy import causal_lm_loss, validate_chunked_loss_support
 from ..ops.remat import REMAT_POLICIES, resolve_remat_policy
 from .guards import apply_step_guard, validate_guard_policy
 from .offload import make_offload
@@ -80,10 +86,6 @@ __all__ = ["REMAT_POLICIES", "PlanState", "Trainer"]
 # what the sharded paths leave for later, by ROADMAP.md item
 _PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
 
-# Trainer fields of the JAX package that later slices port, and where
-_UNPORTED = {
-    "overlap_schedule": "'Overlap schedule and the fused loss'",
-}
 CONTEXT_IMPLS = ("ring", "ulysses")
 
 
@@ -119,6 +121,40 @@ def _check_moe_dispatch(cfg, plan) -> None:
                 f"implemented (the sorted-group exchange runs over the "
                 f"data axes only, as in the JAX package); use "
                 f"moe_dispatch='dense' or {axis}=1")
+
+
+def _overlap_parts(trainer, layout=None, model_layout=None) -> tuple:
+    """(the layer schedule, the fused loss) of the overlap schedule and of
+    ``loss_chunks`` (``ops/overlap.py``): the schedule over ``layout``'s
+    fsdp leaves (None: one device, nothing gathered); the fused
+    hidden->loss in ``loss_chunks`` chunks (8 by default) where
+    ``fused_loss_supported`` allows it. Else the overlap schedule keeps
+    the standard loss, as in the JAX Trainer, and ``loss_chunks`` is
+    refused: the chunked loss cannot run there."""
+    from ..ops.overlap import (fused_loss_supported, make_fused_loss,
+                               make_layer_schedule)
+
+    chunks = trainer.loss_chunks
+    cfg = trainer.bundle.config
+    family = family_module(trainer.bundle.family)
+    schedule = fused = None
+    if trainer.overlap_schedule:
+        axes = dict(named_leaves(trainer.bundle.logical_axes()))
+        schedule = make_layer_schedule(
+            layout, axes, remat=trainer.remat,
+            remat_policy=trainer.remat_policy, compute_dtype=cfg.dtype,
+            fp32_leaves=getattr(family, "FP32_LAYER_LEAVES", frozenset()))
+    if trainer.overlap_schedule or chunks > 0:
+        why = fused_loss_supported(trainer.plan, cfg, family,
+                                   trainer.loss_fn)
+        if why is None:
+            fused = make_fused_loss(model_layout, num_chunks=chunks or 8,
+                                    family_mod=family)
+        elif chunks > 0:
+            raise NotImplementedError(
+                f"loss_chunks: {why}" if trainer.plan is None else
+                f"loss_chunks under this plan: {why} ({_PLAN_REST})")
+    return schedule, fused
 
 
 def _map(tree, fn):
@@ -166,11 +202,6 @@ class Trainer:
             self.plan = None
         elif self.plan == "single":
             self.plan = None
-        for name, item in _UNPORTED.items():
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet (ROADMAP.md "
-                    f"queue 1, {item})")
         if self.context_impl not in CONTEXT_IMPLS:
             raise ValueError(f"unknown context_impl {self.context_impl!r}; "
                              f"use 'ring' or 'ulysses'")
@@ -200,17 +231,52 @@ class Trainer:
                 "lora_only=True needs a lora_bundle-wrapped bundle "
                 "(models/lora.py): this bundle has no adapters to restrict "
                 "the optimizer to")
-        if self.loss_chunks > 0 and self.loss_fn is not causal_lm_loss:
-            raise NotImplementedError(
-                "loss_chunks hardwires the causal-LM loss; drop the custom "
-                "loss_fn or the chunking")
+        if self.loss_chunks > 0:
+            validate_chunked_loss_support(family_module(self.bundle.family),
+                                          self.bundle.family, self.loss_fn)
         _check_moe_dispatch(cfg, self.plan)
+        if self.overlap_schedule:
+            self._check_overlap()
         self.device = resolve_device(self.device)
         from ..utils.faults import active_faults
 
         self._nan_fault_step = active_faults().nan_loss_step
+        self.layer_schedule = self.fused_loss = None
+        if self.plan is None:
+            self.layer_schedule, self.fused_loss = _overlap_parts(self)
         self.plan_state = (None if self.plan is None
                            else PlanState.build(self))
+
+    def _check_overlap(self) -> None:
+        """The JAX Trainer's refusals of the overlap schedule: under pp and
+        cp, for a family whose apply takes no ``layer_schedule``, and for a
+        bundle without the stacked ``params["layers"]`` (LoRA)."""
+        import inspect
+
+        if self.plan is not None and self.plan.sizes["pp"] > 1:
+            raise ValueError(
+                "--overlap-schedule cannot run under pipeline parallelism: "
+                "the pipeline runs its own 1F1B schedule of the stages' "
+                "layers; use dp/fsdp/tp/ep plans")
+        if self.plan is not None and self.plan.sizes["cp"] > 1:
+            raise ValueError(
+                "--overlap-schedule under context parallelism is not "
+                "implemented (the ring / Ulysses attention is its own "
+                "exchange schedule, and the fused loss has no cp-sharded "
+                "sequence form); use cp=1")
+        apply = self.bundle.apply_with_aux or self.bundle.apply
+        sig = inspect.signature(apply).parameters
+        if not ("layer_schedule" in sig
+                or any(p.kind is inspect.Parameter.VAR_KEYWORD
+                       for p in sig.values())):
+            raise ValueError(
+                f"--overlap-schedule: family {self.bundle.family!r} apply "
+                f"does not take a layer_schedule")
+        if "layers" not in self.bundle.shapes():
+            raise ValueError(
+                "--overlap-schedule needs the family's stacked "
+                "params['layers'] layout; wrapped bundles (LoRA) are not "
+                "supported")
 
     # ---- init --------------------------------------------------------------
     def _fresh_state(self, params, seed: int, policy=None,
@@ -309,9 +375,12 @@ class Trainer:
         """(loss, extra metrics) of one microbatch; the extras are
         detached fp32 scalars."""
         cfg = self.bundle.config
+        fused = self.fused_loss
         kw = dict(positions=mb.get("positions"), remat=self.remat,
                   remat_policy=self.remat_policy, attn_impl=self.attn_impl,
-                  return_hidden=self.loss_chunks > 0)
+                  return_hidden=fused is not None)
+        if self.layer_schedule is not None:
+            kw["layer_schedule"] = self.layer_schedule
         extras, aux_loss = {}, None
         if self.bundle.apply_with_aux is not None:
             out, aux, extras = self.bundle.apply_with_aux(
@@ -320,11 +389,9 @@ class Trainer:
             extras = {k: v.detach() for k, v in extras.items()}
         else:
             out = self.bundle.apply(cfg, params, mb["input_ids"], **kw)
-        if self.loss_chunks > 0:
-            w_out = family_module(self.bundle.family).output_weights(
-                cfg, params["base"] if self.lora else params)
-            loss = chunked_causal_lm_loss(out, w_out, mb["labels"],
-                                          num_chunks=self.loss_chunks)
+        if fused is not None:
+            loss = fused(cfg, params["base"] if self.lora else params, out,
+                         mb["labels"])
         else:
             loss = self.loss_fn(out, mb["labels"])
         return (loss if aux_loss is None else loss + aux_loss), extras
@@ -529,6 +596,8 @@ class PlanState:
         self.cp, self.pp = self.plan.sizes["cp"], self.plan.sizes["pp"]
         self.attn_impl = self._attention(trainer)
         self.moe_ep = self._moe_ep(trainer)
+        self.layer_schedule, self.fused_loss = _overlap_parts(
+            trainer, self.layout, self.model_layout)
         self.pipeline = None
         if self.pp > 1:
             from ..parallel.pipeline import Pipeline
@@ -592,7 +661,8 @@ class PlanState:
                  if sizes["fsdp"] > 1 and self.plan.rules.get("embed")
                  == "fsdp" else None)
         ep = self.plan.exchange("ep") if sizes["ep"] > 1 else None
-        moe_ep = make_ragged_ep_dispatch(ep, cfg, embed=embed)
+        moe_ep = make_ragged_ep_dispatch(ep, cfg, embed=embed,
+                                         overlap=trainer.overlap_schedule)
         if moe_ep is not None and moe_ep.embed is not None:
             self.layout.gathered_by_dispatch = frozenset(
                 f"layers/moe/{k}" for k in EXPERT_LEAVES)
@@ -601,9 +671,13 @@ class PlanState:
     @classmethod
     def build(cls, trainer) -> "PlanState":
         plan, bundle = trainer.plan, trainer.bundle
-        if trainer.loss_chunks > 0 or trainer.loss_fn is not causal_lm_loss:
+        if trainer.loss_fn is not causal_lm_loss:
             raise NotImplementedError(
-                f"a chunked or custom loss under a sharding plan: "
+                f"a custom loss under a sharding plan: {_PLAN_REST}")
+        if trainer.loss_chunks > 0 and (plan.sizes["pp"] > 1
+                                        or plan.sizes["cp"] > 1):
+            raise NotImplementedError(
+                f"loss_chunks under pipeline or context parallelism: "
                 f"{_PLAN_REST}")
         mesh_type = plan.mesh.device_type
         # a meta trainer runs on any mesh (the preflight's fake group)
@@ -677,6 +751,8 @@ class PlanState:
         kw = dict(remat=t.remat, remat_policy=t.remat_policy,
                   attn_impl=self.attn_impl, activation_sharding=self.layout,
                   return_hidden=True)
+        if self.layer_schedule is not None:
+            kw["layer_schedule"] = self.layer_schedule
         extras, aux_loss = {}, None
         if t.bundle.apply_with_aux is not None:
             hidden, aux, extras = t.bundle.apply_with_aux(
@@ -686,9 +762,12 @@ class PlanState:
             extras = {k: v.detach() for k, v in extras.items()}
         else:
             hidden = t.bundle.apply(cfg, params, ids, **kw)
-        loss = self.model_layout.loss(
-            cfg, params["base"] if t.lora else params, hidden,
-            self._labels(mb))
+        model = params["base"] if t.lora else params
+        if self.fused_loss is not None:
+            loss = self.fused_loss(cfg, model, hidden, mb["labels"])
+        else:
+            loss = self.model_layout.loss(cfg, model, hidden,
+                                          self._labels(mb))
         return (loss if aux_loss is None else loss + aux_loss), extras
 
     def _pipeline_backward(self, params: dict, leaves: dict,

@@ -23,9 +23,19 @@ with the same ``moe_dropped_frac``; the first step's MoE grads (the
 router's aux-loss gradient among them, at ``router_aux_coef`` 1) under
 ddp 4 and tp 2 against ``jax.grad`` on one device; expert leaves sharded
 on ep in params, grads and optimizer state; and an ep 4 checkpoint
-restored under ep 2 x fsdp 2 and under fsdp 4. Two more gangs: chapter
-02 through ``launch.local``, and a rank that dies taking the gang
-down."""
+restored under ep 2 x fsdp 2 and under fsdp 4. The dense dispatch is
+also held at capacity factor 0.5 under ddp 4 and ep 2 x cp 2, where pairs
+drop, to JAX's ``moe_dropped_frac`` and trajectory. The overlap schedule
+(``ops/overlap.py``) runs in the same gang: under fsdp 4, zero1, tp_fsdp
+2 x 2 and zero2 (grad_accum 2) its trajectory is bitwise the unscheduled
+one's on the same fused loss, its gather counter counts 2 x L x 7 leaf
+gathers a step under fsdp (the port's stand-in for the JAX package's HLO
+count), ``loss_chunks`` 4 under each of those plans (both runs) and under
+tp 4 holds JAX's single-device chunked trajectory at the same grad_accum,
+the vocab-parallel fused loss under tp
+4 holds the dense loss at grad level, and the ep 4 and ep 2 x fsdp 2
+ragged ring holds the bulk exchange. Two more gangs: chapter 02 through
+``launch.local``, and a rank that dies taking the gang down."""
 import dataclasses
 import json
 import os
@@ -112,6 +122,20 @@ def gang(tmp_path_factory):
         return jax.device_put(jnp.asarray(a), t.batch_shardings()["input_ids"])
 
     for accum in (1, 2):
+        t = Trainer(bundle=bundle, optimizer=adamw_cosine(1e-3),
+                    plan=make_plan("single", make_mesh(
+                        devices=jax.devices()[:1])),
+                    loss_chunks=4, grad_accum=accum, donate=False)
+        state = t.init_state(0)
+        batch = {"input_ids": put(t, ids[accum]),
+                 "labels": put(t, ids[accum])}
+        losses = []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        refs[("chunked", accum)] = (
+            losses, _flatten(jax.tree.map(np.asarray, state.params)))
+    for accum in (1, 2):
         t = trainer(accum)
         state = t.init_state(0)
         if accum == 1:
@@ -150,7 +174,7 @@ def gang(tmp_path_factory):
     t0 = time.perf_counter()
     out = _gang(4, [sys.executable, str(ROOT / "tests" /
                                         "torch_dist_worker.py"),
-                    "--dir", str(tmp)], tmp, timeout=300)
+                    "--dir", str(tmp)], tmp, timeout=600)
     assert out.returncode == 0 and (tmp / "done").exists(), (
         out.stdout[-3000:] + out.stderr[-3000:] + _logs(tmp))
     refs["gang_s"] = time.perf_counter() - t0
@@ -161,6 +185,8 @@ def gang(tmp_path_factory):
 # shared expert), as tests/torch_dist_worker.py:MOE_SHARED
 MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
                   shared_expert_intermediate=32)
+# tests/torch_dist_worker.py:MOE_CF05: the dense dispatch drops pairs
+MOE_CF05 = dict(capacity_factor=0.5)
 
 
 def _moe_refs(tmp, ids, put):
@@ -178,11 +204,13 @@ def _moe_refs(tmp, ids, put):
     from distributed_training_guide_tpu.train import Trainer, adamw_cosine
 
     refs = {}
-    for init, over in (("moe", {}), ("moe_shared", MOE_SHARED)):
+    for init, over in (("moe", {}), ("moe_shared", MOE_SHARED),
+                       ("moe_cf05", MOE_CF05)):
         bundle = get_model("moe-debug", dtype=jnp.float32, **over)
         params = bundle.init(bundle.config, jax.random.key(0))
-        np.savez(tmp / f"{init}_init.npz",
-                 **_flatten(jax.tree.map(np.asarray, params)))
+        if init != "moe_cf05":        # moe's weights: init does not read cf
+            np.savez(tmp / f"{init}_init.npz",
+                     **_flatten(jax.tree.map(np.asarray, params)))
         for dispatch in (("dense", "ragged") if init == "moe"
                          else ("dense",)):
             b = get_model("moe-debug", dtype=jnp.float32,
@@ -200,6 +228,8 @@ def _moe_refs(tmp, ids, put):
             refs[f"{init}/{dispatch}"] = (
                 losses, _flatten(jax.tree.map(np.asarray, state.params)),
                 dropped)
+        if init == "moe_cf05":
+            continue
         cfg = dataclasses.replace(bundle.config, router_aux_coef=1.0)
 
         def loss(p, cfg=cfg):
@@ -234,6 +264,9 @@ FAMILY_RUNS = ["gpt2_tp", "neox_tp_fsdp", "lora_tp"]
                          ids=[s for s, _ in STRATEGIES] + FAMILY_RUNS)
 def test_strategy_holds_the_jax_single_device_trajectory(gang, strategy,
                                                         accum):
+    """Each plan's two steps against JAX's single device; under fsdp,
+    zero1, tp_fsdp, zero2 and tp also the overlap schedule's and the
+    fused loss's cases (``_holds_overlap``)."""
     tmp, refs = gang
     got = np.load(tmp / f"traj_{strategy}.npz")
     jlosses, jparams = refs[strategy if accum is None else accum]
@@ -244,6 +277,63 @@ def test_strategy_holds_the_jax_single_device_trajectory(gang, strategy,
     for path, want in jparams.items():
         np.testing.assert_allclose(got[f"p/{path}"], want, rtol=PARAM_RTOL,
                                    atol=PARAM_ATOL, err_msg=path)
+    _holds_overlap(tmp, refs, strategy)
+
+
+# the overlap-schedule runs of tests/torch_dist_worker.py:OVERLAP_RUNS, and
+# the schedule's gathers in two steps of llama-debug (L 2; 7 leaves on
+# fsdp: wq, wk, wv, wo, gate, up, down), forward and recompute
+OVERLAP_GATHERS = {"fsdp": 2 * 2 * 7, "tp_fsdp": 2 * 2 * 7, "zero1": 0,
+                   "zero2": 0}
+
+
+def _holds_chunked(got, key, ref):
+    """The run ``key`` of ``overlap.npz`` against JAX's single-device
+    trajectory with ``loss_chunks`` 4 (``ref``: losses, params)."""
+    jlosses, jparams = ref
+    np.testing.assert_allclose(got[f"{key}/losses"], jlosses, rtol=LOSS_RTOL)
+    for path, want in jparams.items():
+        np.testing.assert_allclose(got[f"{key}/p/{path}"], want,
+                                   rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                   err_msg=f"{key}: {path}")
+
+
+def _holds_overlap(tmp, refs, strategy):
+    """The overlap schedule's cases of ``strategy`` (see the module
+    docstring): scheduled against unscheduled bitwise, on the same fused
+    loss, and the unscheduled run (tp's ``loss_chunks`` 4 run) against
+    JAX's chunked single device at the same grad_accum; tp's fused
+    vocab-parallel grads against the dense loss's at grad level."""
+    got = np.load(tmp / "overlap.npz")
+    if strategy in OVERLAP_GATHERS:
+        counts = json.loads((tmp / "overlap.json").read_text())[strategy]
+        want = OVERLAP_GATHERS[strategy]
+        assert counts == {"gather": want, "regather": want}, counts
+        keys = [k[len(strategy) + 7:] for k in got.files
+                if k.startswith(f"{strategy}/sched/")]
+        assert {"losses", "norms"} < set(keys)
+        for k in keys:
+            assert np.array_equal(got[f"{strategy}/sched/{k}"],
+                                  got[f"{strategy}/unsched/{k}"]), k
+        accum = 2 if strategy == "zero2" else 1
+        _holds_chunked(got, f"{strategy}/unsched", refs[("chunked", accum)])
+    if strategy == "tp":
+        _holds_chunked(got, "chunks_tp", refs[("chunked", 1)])
+    if strategy == "tp":
+        # the scale pin: each tp rank seeds its backward with the loss's
+        # own cotangent, so a 1/tp or tp-fold factor on the head's grad
+        # would show here and nowhere in a trajectory (Adam is invariant
+        # to it)
+        paths = [k[len("grads_dense/"):] for k in got.files
+                 if k.startswith("grads_dense/")]
+        for path in paths:
+            fused, dense = got[f"grads_fused/{path}"], got[
+                f"grads_dense/{path}"]
+            scale = float(np.abs(dense).max())
+            np.testing.assert_allclose(fused, dense, rtol=0,
+                                       atol=1e-5 * scale, err_msg=path)
+            ratio = float((fused * dense).sum() / (dense * dense).sum())
+            assert abs(ratio - 1) < 1e-5, (path, ratio)
 
 
 def _held(gang):
@@ -363,8 +453,17 @@ MOE_RUNS = [("ep4", "moe", "dense"), ("ep4_ragged", "moe", "ragged"),
             ("ddp4", "moe", "dense"), ("ddp4_ragged", "moe", "ragged"),
             ("fsdp4", "moe", "dense"), ("fsdp4_ragged", "moe", "ragged"),
             ("tp2_shared", "moe_shared", "dense"), ("pp2", "moe", "dense"),
-            ("ep2_cp2", "moe", "dense")]
+            ("ep2_cp2", "moe", "dense"), ("ddp4_cf05", "moe_cf05", "dense"),
+            ("ep2_cp2_cf05", "moe_cf05", "dense"),
+            ("ep4_ragged_ring", "moe", "ragged"),
+            ("ep2_fsdp2_ragged_ring", "moe", "ragged")]
 MOE_LOSS_RTOL = {"dense": 2e-4, "ragged": 2e-5}
+# the ragged ring against the bulk exchange (tests/torch_dist_worker.py
+# ``*_ring`` runs): the same products per row, the owner's partials summed
+# in member order, an expert's weight gradient summed over the hops; Adam's
+# normalized step turns a grad's last-bit difference where the grad is
+# near zero into a move of up to ~2e-6 (measured 1.8e-6 on one wq element)
+RING_LOSS_RTOL, RING_PARAM_RTOL, RING_PARAM_ATOL = 1e-6, 1e-5, 1e-5
 
 
 # The MoE cases are loops inside four tests, not parametrized cases: the
@@ -377,7 +476,10 @@ def test_moe_plans_hold_the_jax_single_device_trajectory(gang):
     JAX's single device from the same weights and batch: losses at JAX's
     MoE tolerances, the final params at the gang's, and
     ``moe_dropped_frac`` (the global fraction) equal to JAX's within 1e-6
-    (identically 0 under ragged). The pipeline's dense dispatch routes
+    (identically 0 under ragged; above 5% at capacity factor 0.5, the
+    ``*_cf05`` runs). The ``*_ring`` runs (the overlap schedule's
+    double-buffered ring) are also held to their bulk exchange's run at
+    ``RING_*``. The pipeline's dense dispatch routes
     each microbatch alone (its capacity and aux over the microbatch's
     tokens, as JAX's pipeline does, which reports no dropped fraction):
     its losses are held to the single device as JAX's
@@ -396,6 +498,17 @@ def test_moe_plans_hold_the_jax_single_device_trajectory(gang):
             continue
         np.testing.assert_allclose(got["dropped"], jdropped, atol=1e-6,
                                    err_msg=name)
+        if init == "moe_cf05":     # the capacity drops pairs here
+            assert min(jdropped) > 0.05, (name, jdropped)
+        if name.endswith("_ring"):
+            bulk = np.load(tmp / f"moe_{name[:-len('_ring')]}.npz")
+            np.testing.assert_allclose(got["losses"], bulk["losses"],
+                                       rtol=RING_LOSS_RTOL, err_msg=name)
+            for k in bulk.files:
+                if k.startswith("p/"):
+                    np.testing.assert_allclose(
+                        got[k], bulk[k], rtol=RING_PARAM_RTOL,
+                        atol=RING_PARAM_ATOL, err_msg=f"{name}: {k}")
         assert set(jparams) == {k[2:] for k in got.files
                                 if k.startswith("p/")}, name
         for path, want in jparams.items():

@@ -90,15 +90,16 @@ def test_stage_zero_losses_equal_the_jax_engine():
     ("pipeline_parallel", 2, None),
     ("context_parallel", 2, None),
     ("expert_parallel", 2, None),
-    ("overlap_schedule", True, "Overlap schedule and the fused loss")],
+    ("overlap_schedule", True, None)],
     ids=["pipeline_parallel-2-None", "context_parallel-2-None",
          "expert_parallel-2-Expert parallelism",
          "overlap_schedule-True-Overlap schedule and the fused loss"])
 def test_refused_keys_name_their_items(key, value, item):
-    """overlap_schedule refuses, naming its ROADMAP item;
-    pipeline_parallel, context_parallel and expert_parallel (item None:
-    ported) build the plan the JAX engine builds on its 8 CPU devices,
-    here on a fake process group of 8 ranks. expert_parallel also refuses
+    """pipeline_parallel, context_parallel, expert_parallel and
+    overlap_schedule (item None: ported; no key refuses now) build the
+    plan the JAX engine builds on its 8 CPU devices, here on a fake
+    process group of 8 ranks, and overlap_schedule turns on the trainer's
+    layer schedule as it does the JAX engine's. expert_parallel also refuses
     what the JAX engine refuses beside it (tp or pp; ZeRO-1 / 2), before
     any process group starts, and takes ep_fsdp at stage 3."""
     import torch.distributed as dist
@@ -138,6 +139,12 @@ def test_refused_keys_name_their_items(key, value, item):
             assert (plan.zero1, plan.zero2) == (jplan.zero1, jplan.zero2)
             pipe = engine.trainer.plan_state.pipeline
             assert (pipe is not None) == (key == "pipeline_parallel")
+            scheduled = key == "overlap_schedule"
+            assert engine.trainer.overlap_schedule == scheduled
+            assert JEngine({**BASE, key: value}).trainer.overlap_schedule \
+                == scheduled
+            assert (engine.trainer.plan_state.layer_schedule
+                    is not None) == scheduled
         finally:
             engine.close()
     assert not dist.is_initialized()

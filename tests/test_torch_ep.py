@@ -253,15 +253,18 @@ def test_dense_dispatch_over_members_drops_the_global_set(k, cf, ep):
 
 def test_ragged_ep_dispatch_refusals_and_single_member():
     """None where no axis is wider than one member (the local dispatch is
-    the program); ``overlap=True`` names its ROADMAP item; E must divide
-    over ep."""
+    the program); ``overlap=True`` builds the double-buffered ring (held
+    against the bulk exchange in ``tests/test_torch_overlap.py``) and
+    refuses what the bulk form refuses; E must divide over ep."""
     _, tcfg = _config()
     assert tmoe.make_ragged_ep_dispatch(None, tcfg) is None
     assert tmoe.make_ragged_ep_dispatch(LocalExchange(1), tcfg) is None
-    with pytest.raises(NotImplementedError,
-                       match="Overlap schedule and the fused loss"):
-        tmoe.make_ragged_ep_dispatch(LocalExchange(4), tcfg, overlap=True)
+    with pytest.raises(ValueError, match="divisible by the ep axis"):
+        tmoe.make_ragged_ep_dispatch(LocalExchange(3), tcfg, overlap=True)
+    assert tmoe.make_ragged_ep_dispatch(None, tcfg, overlap=True) is None
     with pytest.raises(ValueError, match="divisible by the ep axis"):
         tmoe.make_ragged_ep_dispatch(LocalExchange(3), tcfg)
     cfg = dataclasses.replace(tcfg, num_experts=8)
     assert tmoe.make_ragged_ep_dispatch(LocalExchange(4), cfg).ep.size == 4
+    assert tmoe.make_ragged_ep_dispatch(LocalExchange(4), cfg,
+                                        overlap=True).overlap

@@ -1929,3 +1929,143 @@ def test_ep_exchange_autograd_matches_the_single_device(cuda, dtype, bound):
         assert _rel_l2(a, b) <= bound, (key, _rel_l2(a, b))
         if dtype == torch.bfloat16 and key in ("dgate", "dup", "ddown"):
             assert torch.equal(a, b), (key, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-6),
+                                         (torch.bfloat16, 5e-3)])
+def test_ring_on_the_card_holds_the_bulk_exchange(cuda, dtype, bound):
+    """``make_ragged_ep_dispatch(overlap=True)`` over 4 virtual members on
+    the card against the bulk exchange, through K5 / K6 (E 32, top-4, D
+    256, F 128, 4 x 256 tokens): the output within 1e-6 relative L2 (the
+    same products per row, the partials summed in member order) and the
+    grads of the rows, the routing weights and the expert stacks within
+    ``bound`` (fp32: sums over the hops in another order; bf16: each hop's
+    expert grad rounded before the sum, ~2.3e-3 rel L2 for 4 hops:
+    ``chip_smoke.py:OVL_RING_GRAD_REL_L2``); each member runs its window on
+    each hop: 3 K5 forward, 3 K5 and 3 K6 backward launches a hop."""
+    import dataclasses
+
+    from distributed_training_guide_tpu_torch.models import moe
+    from distributed_training_guide_tpu_torch.ops.collectives import (
+        LocalExchange)
+
+    cfg = dataclasses.replace(
+        get_model("moe-debug", dtype=dtype, moe_dispatch="ragged").config,
+        num_experts=32, experts_per_token=4, hidden_size=256,
+        intermediate_size=128)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    n, t = 4, 256
+    x = torch.randn(n * t, 256, generator=gen, device=cuda).to(dtype)
+    idx = torch.rand(n * t, 32, generator=gen,
+                     device=cuda).topk(4, dim=-1).indices
+    probs = torch.rand(n * t, 4, generator=gen, device=cuda) + 0.1
+    probs = probs / probs.sum(-1, keepdim=True)
+    w = [(torch.randn(32, *s, generator=gen, device=cuda) * 0.05).to(dtype)
+         for s in ((256, 128), (256, 128), (128, 256))]
+    cot = torch.randn(n * t, 256, generator=gen, device=cuda).to(dtype)
+
+    def run(overlap):
+        leaves = [a.clone().requires_grad_() for a in (x, probs, *w)]
+        xv, pv, gate, up, down = leaves
+        disp = moe.make_ragged_ep_dispatch(LocalExchange(n), cfg,
+                                           overlap=overlap)
+        ws = [list(torch.chunk(a, n)) for a in (gate, up, down)]
+        y = torch.cat(disp(list(torch.chunk(xv, n)),
+                           list(torch.chunk(idx, n)),
+                           list(torch.chunk(pv, n)), *ws))
+        return [y.detach(), *torch.autograd.grad(y, leaves, cot)]
+
+    bulk = run(False)
+    before = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
+    ring = run(True)
+    torch.cuda.synchronize()
+    assert (gm.GMM_LAUNCHES - before[0], gm.TGMM_LAUNCHES - before[1]) == (
+        6 * n * n, 3 * n * n)
+    assert _rel_l2(ring[0], bulk[0]) <= 1e-6
+    for key, a, b in zip(("dx", "dprobs", "dgate", "dup", "ddown"),
+                         ring[1:], bulk[1:]):
+        assert _rel_l2(a, b) <= bound, (key, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loss_on_the_card_matches_the_whole_tensor_loss(cuda, dtype):
+    """The fused hidden->loss through ``torch.mm(..., out_dtype=float32)``
+    on the card against ``causal_lm_loss`` of ``matmul_f32_out``'s logits
+    (the head the unscheduled path runs), at a head of 8192 x 1024 with
+    -100 labels and 7 chunks over rows they do not divide: the value
+    within 1e-5 relative (fp32 sums in another order), dh and dW within
+    1e-5 of their largest element in fp32 and within 1e-2 relative L2 in
+    bf16 (the products' fp32 sums in another order, then rounded)."""
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss, fused_linear_cross_entropy)
+    from distributed_training_guide_tpu_torch.ops.matmul import (
+        matmul_f32_out)
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = torch.randn(2, 333, 1024, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(1024, 8192, generator=gen, device=cuda) * 0.03
+         ).to(dtype)
+    labels = torch.randint(0, 8192, (2, 333), generator=gen, device=cuda)
+    labels[0, 10:40] = -100
+
+    def run(fused):
+        hv, wv = h.clone().requires_grad_(), w.clone().requires_grad_()
+        if fused:
+            nll, cnt = fused_linear_cross_entropy(hv, wv, labels,
+                                                  num_chunks=7)
+            loss = nll / cnt.clamp_min(1)
+        else:
+            loss = causal_lm_loss(matmul_f32_out(hv, wv), labels)
+        loss.backward()
+        return float(loss.detach()), hv.grad, wv.grad
+
+    v, gh, gw = run(True)
+    v0, gh0, gw0 = run(False)
+    assert abs(v - v0) <= 1e-5 * abs(v0)
+    for a, b in ((gh, gh0), (gw, gw0)):
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        else:
+            assert _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "tp_fsdp"])
+def test_schedule_at_world_one_on_the_card(cuda, nccl_world_of_one,
+                                           strategy):
+    """The overlap schedule on a one-rank NCCL mesh, bf16 compute through
+    K1-K3: two steps bitwise the unscheduled run on the same fused loss
+    (``loss_chunks`` 4), the same K1-K3 launches, and every layer's 7 fsdp
+    leaves gathered in the forward and again in the backward."""
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train import optimizer as topt
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    bundle = get_model("llama-debug", hidden_size=256, num_heads=4,
+                       num_kv_heads=2)
+    cfg = bundle.config
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=gen)
+    batch = {"input_ids": ids, "labels": ids}
+
+    def run(sched):
+        t = Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
+                    plan=make_plan(strategy, make_mesh()), device=cuda,
+                    overlap_schedule=sched, loss_chunks=4)
+        state = t.init_state(0)
+        before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        out = []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        used = [now - was for now, was in zip(
+            (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)]
+        return out, used, t.plan_state.layer_schedule
+
+    got, used, sched = run(True)
+    want, used0, _ = run(False)
+    assert got == want
+    assert used == used0 == [2 * cfg.num_layers] * 3
+    n = 2 * cfg.num_layers * 7
+    assert sched.counts == {"gather": n, "regather": n}

@@ -286,17 +286,25 @@ def test_cli_moe_dispatch_accepted_for_moe_refused_for_llama():
 
 
 def test_unported_moe_paths_raise():
-    """The overlap schedule's ``layer_schedule`` still raises, naming its
-    ROADMAP item; the expert-parallel paths are ported: a dispatch with no
+    """Every MoE path is ported now: the overlap schedule's
+    ``layer_schedule`` (one device: nothing gathered) runs the layers over
+    the ``(x, aux, dropped)`` carry, bitwise the loop; a dispatch with no
     axis wider than one member is None (the local path is the program),
     and a ``moe_ep`` threaded through ``apply_with_aux`` runs every
     layer's ragged dispatch, here the local one, bitwise."""
+    from distributed_training_guide_tpu_torch.ops.overlap import (
+        make_layer_schedule)
+
     _, _, tb, tparams = _bridged("moe-debug")
     ids = torch.zeros(1, 4, dtype=torch.long)
     assert tmoe.make_ragged_ep_dispatch(None, tb.config) is None
-    with pytest.raises(NotImplementedError,
-                       match="Overlap schedule and the fused loss"):
-        tmoe.apply_with_aux(tb.config, tparams, ids, layer_schedule=object())
+    plain = tmoe.apply_with_aux(tb.config, tparams, ids, return_metrics=True)
+    sched = tmoe.apply_with_aux(
+        tb.config, tparams, ids, return_metrics=True,
+        layer_schedule=make_layer_schedule(remat=False, remat_policy=None))
+    for a, b in zip(plain[:2], sched[:2]):
+        assert torch.equal(a, b)
+    assert plain[2] == sched[2]
     cfg = dataclasses.replace(tb.config, moe_dispatch="ragged")
     calls = []
 

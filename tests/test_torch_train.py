@@ -120,8 +120,10 @@ def test_losses_and_grads_match_jax(chunks):
             argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(w))
         th = torch.from_numpy(hidden).requires_grad_()
         tw = torch.from_numpy(w).requires_grad_()
-        tl = tce.chunked_causal_lm_loss(th, tw, torch.from_numpy(labels),
-                                        num_chunks=chunks)
+        # the port's chunked loss is the fused hidden->loss
+        nll, count = tce.fused_linear_cross_entropy(
+            th, tw, torch.from_numpy(labels), num_chunks=chunks)
+        tl = nll / count
         tl.backward()
         pairs = [(th.grad, jgh), (tw.grad, jgw)]
     np.testing.assert_allclose(tl.item(), float(jl), rtol=LOSS_TOL)
@@ -308,6 +310,14 @@ def test_cli_runs_on_cpu_with_finite_losses():
     ["--native-loader"], ["--overlap-schedule"]],
     ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(flag):
+    """``--native-loader`` refuses, naming its ROADMAP item;
+    ``--overlap-schedule`` is ported and trains (the layer schedule and
+    the fused hidden->loss on one device)."""
+    if flag == ["--overlap-schedule"]:
+        out = tcli.run_training(_args(*flag))
+        assert out["state"].step > 0
+        assert all(np.isfinite(i["running_loss"]) for i in out["infos"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcli.run_training(_args(*flag))
 

@@ -11,7 +11,14 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   2 x 2 on this rank's rows of the batch, and fsdp under remat "all" and
   tp_fsdp under "attn" (the per-layer gathers rerun in the recompute);
   the losses, grad norms, final params (gathered) and what each rank
-  holds;
+  holds; and ``overlap.npz`` / ``overlap.json``: fsdp 4, zero1, tp_fsdp
+  2 x 2 and zero2 (grad_accum 2) under the overlap schedule against the
+  same plans unscheduled, both with ``loss_chunks`` 4 (the same fused
+  loss), their losses, norms and params, and the schedule's gather
+  counts; ``loss_chunks`` 4 under tp 4 (the fused loss, vocab-parallel);
+  and the first step's grads of tp 4 (sequence
+  parallelism) under the fused vocab-parallel loss and under the dense
+  loss;
 - ``uneven``: one ddp step where the -100 labels fall unevenly on ranks;
 - ``restore``: save under fsdp 4 after one step, restore under tp_fsdp
   2 x 2, take the next step; beside it the next step of the fsdp run;
@@ -29,8 +36,11 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   tp);
 - ``moe_<name>``: two steps of moe-debug under each plan of ``MOE_RUNS``
   (ep 4, ep 2 x fsdp 2, ddp 4 and fsdp 4 under the dense and the ragged
-  dispatch; pp 2 x dp 2 and ep 2 x cp 2 dense; tp 2 x dp 2 dense on a
-  variant with qwen1.5-moe's wiring, its shared expert among them), each
+  dispatch; pp 2 x dp 2 and ep 2 x cp 2 dense, and both again at capacity
+  factor 0.5, where pairs drop; tp 2 x dp 2 dense on a variant with
+  qwen1.5-moe's wiring, its shared expert among them; ep 4 and ep 2 x
+  fsdp 2 ragged under the overlap schedule: the double-buffered ring),
+  each
   rank fed ``data/loader.py:local_batch``: losses, ``moe_dropped_frac``,
   final params and what each rank holds; the grads of the first step
   under ddp 4 and tp 2 x dp 2 at ``router_aux_coef`` 1 (``moe_grads``);
@@ -112,7 +122,7 @@ LORA_TARGETS = ("wq", "wv", "wo", "down")
 
 
 def _trainer(strategy, mesh_kw, accum=1, remat=None, model="llama-debug",
-             lora=False, sp=None):
+             lora=False, sp=None, overlap=False, loss_chunks=0):
     from distributed_training_guide_tpu_torch.models.lora import lora_bundle
 
     plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw),
@@ -123,7 +133,8 @@ def _trainer(strategy, mesh_kw, accum=1, remat=None, model="llama-debug",
     return Trainer(bundle=bundle, optimizer=topt.adamw_cosine(1e-3),
                    plan=plan, grad_accum=accum, device="cpu",
                    remat=remat is not None, remat_policy=remat or "all",
-                   lora_only=lora)
+                   lora_only=lora, overlap_schedule=overlap,
+                   loss_chunks=loss_chunks)
 
 
 def _rows(trainer, ids: np.ndarray) -> dict:
@@ -224,6 +235,59 @@ def trajectories(params, batches, out_dir, rank):
                      norms=norms, **{f"p/{k}": v for k, v in full.items()})
     if rank == 0:
         (out_dir / "held.json").write_text(json.dumps(facts))
+
+
+# (name, strategy, mesh axes, grad_accum): scheduled against unscheduled
+OVERLAP_RUNS = [("fsdp", "fsdp", {"fsdp": 4}, 1), ("zero1", "zero1", {}, 1),
+                ("tp_fsdp", "tp_fsdp", {"fsdp": 2, "tp": 2}, 1),
+                ("zero2", "zero2", {}, 2)]
+
+
+def _run(t, params, batch, steps=2) -> tuple:
+    state = t.init_state_from_params(params)
+    losses, norms = [], []
+    for _ in range(steps):
+        state, m = t.step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, _full_params(t, state)
+
+
+def overlap(params, batches, out_dir, rank):
+    """The overlap schedule and the fused loss under the plans: each run's
+    losses, norms and gathered params in ``overlap.npz``, keyed by run."""
+    out, facts = {}, {}
+    for name, strategy, mesh_kw, accum in OVERLAP_RUNS:
+        ids = batches[f"accum{accum}"]
+        for sched in (False, True):
+            t = _trainer(strategy, mesh_kw, accum, overlap=sched,
+                         loss_chunks=4)
+            batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+            losses, norms, full = _run(t, params, batch)
+            key = f"{name}/{'sched' if sched else 'unsched'}"
+            out.update({f"{key}/losses": losses, f"{key}/norms": norms,
+                        **{f"{key}/p/{k}": v for k, v in full.items()}})
+            if sched:
+                facts[name] = dict(t.plan_state.layer_schedule.counts)
+    # (fsdp's loss_chunks run is the unscheduled one above)
+    ids = batches["accum1"]
+    t = _trainer("tp", {"tp": 4}, loss_chunks=4)
+    batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+    losses, _, full = _run(t, params, batch)
+    out.update({"chunks_tp/losses": losses,
+                **{f"chunks_tp/p/{k}": v for k, v in full.items()}})
+    # the grad-level pin of the vocab-parallel fused loss (tp 4 with
+    # sequence parallelism) against the dense loss
+    for name, chunks in (("fused", 4), ("dense", 0)):
+        t = _trainer("tp", {"tp": 4}, loss_chunks=chunks)
+        state = t.init_state_from_params(params)
+        batch = {"input_ids": _rows(t, ids), "labels": _rows(t, ids)}
+        paths = [p for p, _ in named_leaves(state.params)]
+        got = _first_grads(t, state, batch, paths)
+        out.update({f"grads_{name}/{p}": g for p, g in got.items()})
+    if rank == 0:
+        np.savez(out_dir / "overlap.npz", **out)
+        (out_dir / "overlap.json").write_text(json.dumps(facts))
 
 
 def uneven(params, batches, out_dir, rank):
@@ -521,21 +585,29 @@ MOE_RUNS = [
     ("tp2_shared", "moe_shared", "tp", {"tp": 2}, "dense"),
     ("pp2", "moe", "pp", {"pp": 2}, "dense"),
     ("ep2_cp2", "moe", "ep", {"ep": 2, "cp": 2}, "dense"),
+    ("ddp4_cf05", "moe_cf05", "ddp", {}, "dense"),
+    ("ep2_cp2_cf05", "moe_cf05", "ep", {"ep": 2, "cp": 2}, "dense"),
+    ("ep4_ragged_ring", "moe", "ep", {"ep": 4}, "ragged"),
+    ("ep2_fsdp2_ragged_ring", "moe", "ep_fsdp", {"ep": 2, "fsdp": 2},
+     "ragged"),
 ]
 # moe-debug with qwen1.5-moe's wiring (QKV biases, un-normalized top-k,
 # a shared expert) at widths tp 2 divides
 MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
                   shared_expert_intermediate=32)
+# moe-debug's weights at a capacity factor where the dense dispatch drops
+MOE_CF05 = dict(capacity_factor=0.5)
 
 
-def _moe_trainer(init, strategy, mesh_kw, dispatch, **over):
+def _moe_trainer(init, strategy, mesh_kw, dispatch, overlap=False, **over):
     plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
-    if init == "moe_shared":
-        over = {**MOE_SHARED, **over}
+    over = {**{"moe_shared": MOE_SHARED, "moe_cf05": MOE_CF05}.get(init, {}),
+            **over}
     return Trainer(bundle=get_model("moe-debug", dtype=torch.float32,
                                     moe_dispatch=dispatch, **over),
                    optimizer=topt.adamw_cosine(1e-3), plan=plan,
-                   device="cpu", pp_microbatches=2)
+                   device="cpu", pp_microbatches=2,
+                   overlap_schedule=overlap)
 
 
 def _first_grads(t, state, batch, paths) -> dict:
@@ -562,9 +634,11 @@ def moe(out_dir, rank):
     params = {k: from_jax.params_from_numpy(
         _unflatten(dict(np.load(out_dir / f"{k}_init.npz"))), device="cpu")
         for k in ("moe", "moe_shared")}
+    params["moe_cf05"] = params["moe"]
     facts = {}
     for name, init, strategy, mesh_kw, dispatch in MOE_RUNS:
-        t = _moe_trainer(init, strategy, mesh_kw, dispatch)
+        t = _moe_trainer(init, strategy, mesh_kw, dispatch,
+                         overlap=name.endswith("_ring"))
         state = t.init_state_from_params(params[init])
         grad_shapes = _record_grad_shapes(state)
         batch = _cp_pp_batch(t, ids)
@@ -688,6 +762,7 @@ def main():
     params = from_jax.params_from_numpy(_unflatten(init), device="cpu")
     batches = dict(np.load(out_dir / "batches.npz"))
     trajectories(params, batches, out_dir, rank)
+    overlap(params, batches, out_dir, rank)
     uneven(params, batches, out_dir, rank)
     restore(params, batches, out_dir, rank)
     refusal(out_dir, rank)
