@@ -17,8 +17,11 @@ phases, each of which raises on failure:
    tiles 1 to 256, pool dtypes, windows, softcaps, pad tails and contexts
    on split edges, each body's partials against
    ``split_partials_reference`` and the combine against
-   ``combine_partials_reference``, each error against a stated bound, and
-   rows bitwise equal between an 8-slot call and 1-slot calls;
+   ``combine_partials_reference``, each error against a stated bound,
+   rows bitwise equal between an 8-slot call and 1-slot calls, and
+   (logged, not gated) whether each row of a T = k + 1 call equals a
+   T = 1 call at its length on the same pages (k 4, 7, 15; llama-3.1-8b's
+   and qwen3-30b-a3b's heads; fp32, bf16 and int8 pools);
 4. timing — K4's kernels (device time from torch.profiler; the whole
    call with its host wrapper beside it), the plain versions and
    PyTorch's ``scaled_dot_product_attention`` (a yardstick the port never
@@ -105,6 +108,8 @@ phases, each of which raises on failure:
    prefill over the snapped params (bf16 full depth; fp32 at 2 layers on
    llama-3.1-8b and on llama-3.2-1b, whose tied head runs the plain
    transpose form), and a torch.profiler breakdown of a decode step;
+   the bf16 params are dropped once the engines' shared int8 programs
+   hold the stored tree, as the serve CLI does;
 16. chapter 01 — ``run_training`` through the CLI parser on llama-3.2-1b
    (B 4, S 2048): (a) at full width cut to 2 layers, a straight 6-step run
    saving every 2 steps (``-e``, keep 2: exactly 2 retained, every manifest
@@ -230,7 +235,32 @@ phases, each of which raises on failure:
    within 1e-2; (d) K5 (forward, fp32-dy d_lhs) and K6 on a member's
    ep-local window (M 131072, about a quarter live) against their plain
    versions, NaN past the local total ignored in both operands, and timed
-   beside the live rows alone, their bounds and ``torch._grouped_mm``.
+   beside the live rows alone, their bounds and ``torch._grouped_mm``;
+22. overlap — the overlap schedule and the fused hidden->loss: (a)
+   chapter 04 at world 1 with and without ``--overlap-schedule``, (b) the
+   fused loss on the single plan, (c) ``--loss-chunks`` under tp and
+   tp_fsdp, (d) the double-buffered expert ring over 4 virtual members
+   against the bulk exchange and the single device, and K5 / K6 on the
+   ring's hop window (one member's 4096 tokens x top-8, M 32768) held and
+   timed as phase 21 (d) times the ep window, (e) chapter 10 scheduled;
+23. spec / horizon — (a) llama-3.1-8b at full depth, bf16: the verify
+   forward's logits at every position of T = k + 1 (k 4, 7, 15) against
+   k + 1 sequential decode steps on cloned pools (bitwise or max abs
+   error, logged), and a verify forward's time beside a decode step's;
+   (b) *serve*'s 8 requests plus two repetitive prompts with speculation
+   off, ``ngram`` at k 4, a self-draft ``DraftModelDrafter`` and a
+   random-weight llama-3.2-1b drafter: tokens/s, ITL, acceptance,
+   tokens per verify, K4 launches by body and by T, and every stream
+   against spec off (identical, or its first divergence at a position
+   whose spec-off decision margin is within twice the measured logit
+   error); (c) the same with int8 weights (K7) and ``ngram``, with its
+   peak; (d) qwen3-30b-a3b at full width cut to ``SPEC_MOE_LAYERS``
+   layers (K5 in the verify), ``ngram`` against spec off; (e)
+   ``decode_horizon`` 1, 4 and 8, greedy: tokens bitwise K 1's, wall ms
+   and host reads per decode token, the device's idle share, the pools'
+   storage kept; (f) ``serve_http`` on 127.0.0.1 (an OS-chosen port):
+   three requests, one streamed, each equal to ``generate_many``'s,
+   ``/healthz`` and ``/readyz``.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -238,6 +268,7 @@ card, or without the repository beside it, it exits non-zero first.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -245,6 +276,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
@@ -488,11 +520,57 @@ def phase_kernels(torch) -> dict:
         log(phase="kernels", check="rows bitwise equal, S = 8 vs S = 1",
             T=t, pool=pool, ok=same)
         check(same, f"T={t} {pool}: a row differs between S = 8 and S = 1")
+    worst["verify_rows"] = verify_rows_check(torch, pd, kv, gen, m)
     (pd.LAUNCHES, pd.SPLIT_LAUNCHES, pd.MMA_LAUNCHES,
      pd.COMBINE_LAUNCHES) = counts    # checking launches are not main path
     torch.cuda.empty_cache()
     log(phase="kernels", cases=n_cases, max_abs_err=worst, worst=tight)
     return worst
+
+
+SPEC_KS = (4, 7, 15)        # speculation depths: verify tiles T = k + 1
+
+
+def verify_rows_check(torch, pd, kv, gen, m: int) -> dict:
+    """Row j of a T = k + 1 call (a speculative verify: the k + 1 new
+    tokens written at lengths .. lengths + k, then attended) against a
+    T = 1 call at ``lengths + j`` on the same pages, which hold the k/v
+    of every row before j: bitwise equal or not, and the max abs error,
+    for each k of ``SPEC_KS``, both models' heads and every pool dtype.
+    Logged, not gated: the two calls may run different bodies (``_plan``
+    folds T x groups rows). Returns, per case, the bodies, bitwise and
+    the error."""
+    out = {}
+    for hq, hkv in ((HQ, HKV), QWEN3_HEADS):
+        for k in SPEC_KS:
+            t = k + 1
+            for pool in ("bf16", "int8", "fp32"):
+                q, kn, vn, kp, vp, tables, lens = paged_case(
+                    torch, gen, t=t, pool=pool,
+                    lengths=[MAX_CTX - t, 0, 17, 255, 257, 511, 513, 2000],
+                    m=m, hq=hq, hkv=hkv)
+                verify, (kp, vp) = kv.paged_attend(
+                    q, kn, vn, kp, vp, tables, lens, impl="flash")
+                pools, kw = (kp, vp), {}
+                if pool == "int8":
+                    pools = (kp.q, vp.q)
+                    kw = dict(k_scale=kp.scale[..., 0],
+                              v_scale=vp.scale[..., 0])
+                single = torch.cat([pd.paged_flash_attend(
+                    q[:, j:j + 1].contiguous(), *pools, tables, lens + j,
+                    **kw) for j in range(t)], dim=1)
+                torch.cuda.synchronize()
+                bodies = [pd._plan(n, hq // hkv, D, q.dtype, pools[0].dtype,
+                                   m).body for n in (t, 1)]
+                row = {"bodies_T_k1_T_1": bodies,
+                       "bitwise": bool(torch.equal(verify, single)),
+                       "max_abs_err": (verify.float() - single.float()
+                                       ).abs().max().item()}
+                out[f"{hq}/{hkv} k{k} {pool}"] = row
+                log(phase="kernels", check="verify rows T = k + 1 vs T = 1",
+                    heads=[hq, hkv], k=k, pool=pool, **row)
+                del q, kn, vn, kp, vp, tables, lens, verify, single
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2749,12 +2827,27 @@ def phase_int8_serve(torch, card: str) -> dict:
     params = bundle.init(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     per_forward = 7 * layers + 1
+    specs = serve_specs(np, cfg.vocab_size)
+    # the 2000-token prompt's first-token logits under the bf16 weights,
+    # before they go (ungated, beside the gated check below)
+    ids = torch.tensor([specs[1]["prompt_ids"]], device="cuda")
+
+    def plain_prefill(p):
+        cache = llama.init_cache(cfg, 1, ids.shape[1], device="cuda")
+        return llama.prefill(cfg, p, ids, cache)[0][0].float()
+
+    bf16_ref = plain_prefill(params)
     # the weights the engine keeps: the stored tree's own allocations
     # (norms are shared with the bf16 params), against the report
     base = torch.cuda.memory_allocated()
     programs = ModelPrograms(bundle, params, weight_dtype="int8")
     torch.cuda.synchronize()
     grown = torch.cuda.memory_allocated() - base
+    # the bf16 tree goes as the serve CLI drops it: every engine below
+    # shares these programs, so only the int8 weights stay resident
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     stored = programs.params
     leaves = []
 
@@ -2781,37 +2874,37 @@ def phase_int8_serve(torch, card: str) -> dict:
           f"{wbytes} B ({shared} B of norms shared)")
     log(phase="int8_serve", model="llama-3.1-8b", layers=layers,
         init_and_quantize_s=time.perf_counter() - t0, weight_report=report,
-        allocated_by_store=grown, norm_bytes_shared=shared)
-    del programs
-    specs = serve_specs(np, cfg.vocab_size)
-    common = dict(n_slots=8, page_size=16, max_len=4096, weight_dtype="int8")
+        allocated_by_store=grown, norm_bytes_shared=shared,
+        resident_after_drop_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    common = dict(n_slots=8, page_size=16, max_len=4096, programs=programs)
     results, first = {}, {}
     qm.LAUNCHES = pd.LAUNCHES = 0             # the main path starts here
     qm.BODY_LAUNCHES.update({b: 0 for b in qm.BODY_LAUNCHES})
     for mode, chunk in (("bucketed", None), ("chunked", 256)):
         logits: dict = {}
-        eng = recording_engine(logits)(bundle, params, prefill_chunk=chunk,
+        eng = recording_engine(logits)(bundle, None, prefill_chunk=chunk,
                                        **common)
         torch.cuda.reset_peak_memory_stats()
-        k7, k4 = qm.LAUNCHES, pd.LAUNCHES
+        # the programs are shared: their prefill count runs on
+        k7, k4, pc = qm.LAUNCHES, pd.LAUNCHES, programs.prefill_calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = generate_many(eng, [Request(**r) for r in specs])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k7, k4 = qm.LAUNCHES - k7, pd.LAUNCHES - k4
+        prefills = programs.prefill_calls - pc
         for r in res:
             check(r.finish_reason == "length" and len(r.generated_ids) == 32,
                   f"int8 {mode}: request {r.request_id} ended "
                   f"{r.finish_reason} after {len(r.generated_ids)} tokens")
             check(all(0 <= x < cfg.vocab_size for x in r.generated_ids),
                   f"int8 {mode}: token id out of range")
-        forwards = eng.decode_steps + eng.programs.prefill_calls
+        forwards = eng.decode_steps + prefills
         check(k7 == per_forward * forwards and eng.decode_steps > 0,
               f"int8 {mode}: {k7} K7 launches for {forwards} forwards "
               f"(want {per_forward} each)")
-        want_k4 = layers * (eng.decode_steps
-                            + (eng.programs.prefill_calls if chunk else 0))
+        want_k4 = layers * (eng.decode_steps + (prefills if chunk else 0))
         check(k4 == want_k4, f"int8 {mode}: {k4} K4 launches, want {want_k4}")
         check(eng.weight_report() == report, f"int8 {mode}: weight report")
         stats = throughput_stats(res, wall, eng)
@@ -2822,8 +2915,7 @@ def phase_int8_serve(torch, card: str) -> dict:
             ttft_s_p50=stats["ttft_s_p50"],
             latency_s_p50=stats["latency_s_p50"],
             itl_s_avg=eng.stats()["itl_s_avg"],
-            decode_steps=eng.decode_steps,
-            prefill_forwards=eng.programs.prefill_calls,
+            decode_steps=eng.decode_steps, prefill_forwards=prefills,
             k7_launches=k7, k7_per_forward=k7 / forwards, k4_launches=k4,
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del eng
@@ -2836,7 +2928,7 @@ def phase_int8_serve(torch, card: str) -> dict:
           f"launches by body {k7_bodies}, {main_path[0]} in all")
     log(phase="int8_serve", k7_launches_by_body=k7_bodies)
 
-    alone = generate_many(ServeEngine(bundle, params, **common),
+    alone = generate_many(ServeEngine(bundle, None, **common),
                           [Request(**specs[0])])[0]
     check(alone.token_ids == results["bucketed"]["res"][0].token_ids,
           "int8 greedy request 0: alone and co-batched tokens differ")
@@ -2850,18 +2942,11 @@ def phase_int8_serve(torch, card: str) -> dict:
 
     # the 2000-token prompt's first-token logits against the plain prefill
     # over the snapped params (no K7), and (ungated) against bf16 weights
-    ids = torch.tensor([specs[1]["prompt_ids"]], device="cuda")
-
-    def plain_prefill(p):
-        cache = llama.init_cache(cfg, 1, ids.shape[1], device="cuda")
-        return llama.prefill(cfg, p, ids, cache)[0][0].float()
-
     before = qm.LAUNCHES
     snap = snapped(torch, stored, cfg.dtype)
     ref = plain_prefill(snap)
     del snap
     check(qm.LAUNCHES == before, "the snapped plain prefill launched K7")
-    bf16_ref = plain_prefill(params)
     for mode, got in first.items():
         check(bool(torch.isfinite(got).all()) and got.shape == (
             cfg.vocab_size,), f"int8 {mode} first-token logits")
@@ -2878,11 +2963,10 @@ def phase_int8_serve(torch, card: str) -> dict:
               f"rel L2 {rel} > {LOGIT_REL_L2_BF16}")
     del ref, bf16_ref, first, stored
     torch.cuda.empty_cache()
-    profile = profile_decode(torch, bundle, params, specs,
-                             weight_dtype="int8")
+    profile = profile_decode(torch, bundle, None, specs, programs=programs)
     log(phase="int8_serve", profile="decode step, bucketed engine, 8 slots, "
         "int8 weights", card=card, **profile)
-    del params
+    del programs
     torch.cuda.empty_cache()
     prompt = specs[1]["prompt_ids"]
     check_int8_fp32_path(torch, "llama-3.1-8b", prompt)
@@ -5619,14 +5703,19 @@ def ep_dense(torch, card: str, gen) -> dict:
     return out
 
 
-def ep_window_operands(torch, gen, cfg, member: int) -> dict:
+def ep_window_operands(torch, gen, cfg, member: int,
+                       tokens: Optional[int] = None) -> dict:
     """Member ``member``'s window at qwen3-30b-a3b's widths: the sorted
     rows of 4 x 4096 tokens x top-8 (M 131072) from its experts' offset,
     its 32 experts' sizes, its stacks, an fp32 dy [M, F]; and the same
-    live rows alone (M = their count)."""
+    live rows alone (M = their count). ``tokens``: route only the first
+    ``tokens`` rows, one member's block on a hop of the expert ring
+    (4096 x top-8: M 32768)."""
     from distributed_training_guide_tpu_torch.models import moe
 
     x, router, w, _ = ep_inputs(torch, gen, cfg)
+    if tokens is not None:
+        x = x[:tokens]
     g, k = cfg.num_experts, cfg.experts_per_token
     e_loc = g // EP_MEMBERS
     e0 = member * e_loc
@@ -5648,7 +5737,8 @@ def ep_window_operands(torch, gen, cfg, member: int) -> dict:
             "dy_live": dy[:live].contiguous()}
 
 
-def ep_window(torch, card: str, gen) -> dict:
+def ep_window(torch, card: str, gen, tokens: Optional[int] = None,
+              phase: str = "chapter10", what: str = "ep window") -> dict:
     """K5 (forward; the fp32-dy d_lhs) and K6 on member 1's ep-local
     window (other experts' rows past the local total, as
     ``_local_groups_compute`` hands them over), each through the body its
@@ -5657,14 +5747,15 @@ def ep_window(torch, card: str, gen) -> dict:
     ``queued_ms``) beside the same live rows alone, their bounds (the
     window's outputs written whole, only live rows read) and
     ``torch._grouped_mm`` on the live rows (a yardstick the port never
-    calls), with the window's bytes."""
+    calls), with the window's bytes. ``tokens`` (see
+    ``ep_window_operands``) gives the expert ring's hop window."""
     from distributed_training_guide_tpu_torch.models import get_model
     from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
 
     bf, f32 = torch.bfloat16, torch.float32
     counts = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES)
     cfg = get_model("qwen3-30b-a3b", dtype=bf, moe_dispatch="ragged").config
-    op = ep_window_operands(torch, gen, cfg, 1)
+    op = ep_window_operands(torch, gen, cfg, 1, tokens)
     m, live, sz, g = op["m"], op["live"], op["sizes"], op["sizes"].shape[0]
     e, f = cfg.hidden_size, cfg.intermediate_size
     rt = op["rhs"].transpose(1, 2)
@@ -5754,14 +5845,13 @@ def ep_window(torch, card: str, gen) -> dict:
     for key, row in rows.items():
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["window_over_live"] = row["ms"] / row["live_ms"]
-        log(phase="chapter10", part=f"ep window timing {key}", card=card,
-            **row)
+        log(phase=phase, part=f"{what} timing {key}", card=card, **row)
     out = {"errors": errs, "nan_past_total_ignored": nan_same,
            "window_bytes": {"x_window_bf16": m * e * 2,
                             "x_padded_copy_bf16": 2 * m * e * 2,
                             "dy_fp32": m * f * 4},
            "rows": rows}
-    log(phase="chapter10", part="ep window", card=card, member=1,
+    log(phase=phase, part=what, card=card, member=1, M=m,
         start_row=op["start"], errors=errs, nan_past_total_ignored=nan_same,
         window_bytes=out["window_bytes"])
     del op, lib
@@ -6237,6 +6327,10 @@ def phase_overlap(torch, card: str) -> dict:
     chunks = ovl_loss_chunks(torch, card)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     ring = ovl_ring(torch, card, gen)
+    # K5 / K6 timed at the window each member runs on a hop of the ring:
+    # one member's 4096 tokens x top-8 (M 32768), ~1/4 of them live
+    hop = ep_window(torch, card, gen, tokens=EP_TOKENS, phase="overlap",
+                    what="(d) the ring's hop window")
     ch10 = ovl_chapter10(torch, card)
     runs = [r for part in (ch04, single, *chunks.values(), ch10)
             for r in part["runs"].values()]
@@ -6247,7 +6341,815 @@ def phase_overlap(torch, card: str) -> dict:
     log(phase="overlap", seconds=time.perf_counter() - t0, card=card,
         launches=launches)
     return {"chapter04": ch04, "single": single, "loss_chunks": chunks,
-            "ring": ring, "chapter10": ch10, "launches": launches}
+            "ring": ring, "hop_window": hop, "chapter10": ch10,
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: speculative decoding, decode horizons and the HTTP endpoint
+# (serve/spec.py, ModelPrograms.verify_for / horizon_for, serve/api.py)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                 # the depth the serve runs speculate at
+SPEC_REPEAT = (37, 600)    # a repetitive prompt: 37 tokens repeated to 600
+SPEC_MOE_LAYERS = 8        # qwen3-30b-a3b cut to 8 layers for (d)
+SPEC_DRAFT_CHUNK = 256     # the drafters' catch-up chunk (prompts to 2000)
+HORIZONS = (1, 4, 8)
+HORIZON_PEAK_SLACK = 16 * 2 ** 20   # allocator rounding, not a pool copy
+HTTP_TIMEOUT_S = 120
+
+
+def spec_specs(np, vocab: int) -> list:
+    """*serve*'s 8 requests and two repetitive prompts (one greedy, one at
+    temperature 0.8 / top-p 0.9), 32 new tokens each."""
+    rng = np.random.default_rng(SEED + 23)
+    unit, n = SPEC_REPEAT
+    reps = []
+    for i in range(2):
+        block = [int(x) for x in rng.integers(0, vocab, unit)]
+        reps.append(dict(prompt_ids=(block * (n // unit + 1))[:n],
+                         max_new_tokens=32, seed=8 + i,
+                         **({"temperature": 0.8, "top_p": 0.9} if i else {})))
+    return serve_specs(np, vocab) + reps
+
+
+def decision_gap(torch, logits, seeds, positions, temps, top_ks, top_ps):
+    """[S] margin of each row's draw in logit units, and [S] the size of
+    the sampler's kept set (1 for a greedy row). The margin is the top-2
+    logit gap of a greedy row; for a sampled row the gap between the two
+    best Gumbel-perturbed scores of the kept set, times the temperature
+    (a logit error e moves a score by e / temperature), and 0 where the
+    draw sits at the kept set's top-k / top-p edge. A draw can flip where
+    its margin is within twice the logits' error, or where the kept set
+    itself moves."""
+    from distributed_training_guide_tpu_torch.serve.engine import (
+        _gumbel_noise)
+
+    top2 = torch.topk(logits, 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).double()
+    ones = torch.ones_like(top2[:, 0], dtype=torch.int64)
+    if not bool((temps > 0).any()):
+        return gap, ones
+    v = logits.shape[-1]
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    sorted_desc, _ = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    neg_inf = torch.finfo(torch.float32).min
+    k_eff = torch.where(top_ks > 0, top_ks, v).clamp(1, v)
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    kept = torch.where(ranks < k_eff[:, None], sorted_desc, neg_inf)
+    probs = torch.softmax(kept, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    kept = torch.where(cum - probs < top_ps[:, None], kept, neg_inf)
+    # the noise is a function of (seed, position, rank), as the sampler's
+    noise = _gumbel_noise(seeds, positions, v)
+    score = kept.double() + noise
+    s2 = torch.topk(score, 2, dim=-1)
+    margin = (s2.values[:, 0] - s2.values[:, 1]) * temps.double()
+    # at the kept set's edge (the winner is its last rank, or the first
+    # rank left out would win if let in) any logit's error can move the
+    # edge: margin 0
+    last = (kept > neg_inf).sum(-1) - 1
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    out_rank = torch.clamp(last + 1, max=v - 1)
+    edge = (s2.indices[:, 0] == last) | (
+        (last + 1 < v) & (sorted_desc[rows, out_rank].double()
+                          + noise[rows, out_rank] > s2.values[:, 0]))
+    margin = torch.where(edge, torch.zeros_like(margin), margin)
+    return (torch.where(temps > 0, margin, gap),
+            torch.where(temps > 0, last + 1, ones))
+
+
+SPEC_TOPK = 8              # logits kept per row to compare two runs
+SPEC_LOCAL_CAP = 10        # x (a)'s stream error: past it, not rounding
+
+
+def gap_programs():
+    """A ``ModelPrograms`` that, while ``sink`` is a list, keeps on the
+    device, for every active row its forwards draw a token from (decode
+    steps and verify rows alike), the (seed, position, decision margin,
+    top ``SPEC_TOPK`` logits and ids), and counts its verify forwards'
+    active slots and accepted drafts."""
+    from distributed_training_guide_tpu_torch.serve.engine import (
+        ModelPrograms, _sample_tokens)
+
+    class Tap:
+        """The family module, keeping the last all-position logits."""
+
+        def __init__(self, mod):
+            self.mod, self.logits = mod, None
+
+        def __getattr__(self, name):
+            return getattr(self.mod, name)
+
+        def paged_decode_step(self, *args, **kw):
+            logits, cache = self.mod.paged_decode_step(*args, **kw)
+            if kw.get("all_logits"):
+                self.logits = logits
+            return logits, cache
+
+    class GapPrograms(ModelPrograms):
+        sink = None
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.verify_slots, self.verify_accepted = [], []
+            self.mod = Tap(self.mod)
+
+        def keep(self, logits, seeds, positions, temps, top_ks, top_ps,
+                 rows):
+            import torch
+
+            top = torch.topk(logits, SPEC_TOPK, dim=-1)
+            gap, kept = decision_gap(torch, logits, seeds, positions, temps,
+                                     top_ks, top_ps)
+            self.sink.append(tuple(x[rows] for x in (
+                seeds, positions, gap, kept, top.values, top.indices)))
+
+        def _decode(self, params, pages, tokens, lengths, tables, seeds,
+                    temps, top_ks, top_ps, actives, *, stochastic: bool):
+            import torch
+
+            attend = self.make_attend(tables, lengths)
+            logits, _ = self.mod.paged_decode_step(
+                self.config, params, tokens[:, None], lengths, pages, attend)
+            logits = logits.float()
+            if self.sink is not None:
+                self.keep(logits, seeds, lengths + 1, temps, top_ks, top_ps,
+                          actives)
+            nxt = _sample_tokens(logits, seeds, lengths + 1, temps, top_ks,
+                                 top_ps, stochastic=stochastic)
+            nxt = torch.where(actives, nxt, 0)
+            return nxt, torch.where(actives, lengths + 1, lengths)
+
+        def verify_for(self, t, greedy=False):
+            import torch
+
+            fn = super().verify_for(t, greedy)
+
+            def counted(*args):
+                targets, n_acc, new_lengths = fn(*args)
+                (lengths, seeds, temps, top_ks, top_ps, actives,
+                 n_valid) = args[3], *args[5:11]
+                self.verify_slots.append(actives.sum())
+                self.verify_accepted.append(n_acc[actives].sum())
+                if self.sink is not None:
+                    s = lengths.shape[0]
+                    steps = torch.arange(t, device=lengths.device)
+
+                    def rows(x):
+                        return x[:, None].expand(s, t).reshape(s * t)
+
+                    pos = (lengths[:, None] + 1 + steps).reshape(s * t)
+                    live = (actives[:, None] & (steps < n_valid[:, None])
+                            ).reshape(s * t)
+                    self.keep(self.mod.logits.float().reshape(s * t, -1),
+                              rows(seeds), pos, rows(temps), rows(top_ks),
+                              rows(top_ps), live)
+                return targets, n_acc, new_lengths
+
+            return counted
+
+    return GapPrograms
+
+
+def gaps_by_position(sink) -> dict:
+    """(seed, position) -> (decision margin, {token id: logit} of the
+    row's top ``SPEC_TOPK``, the kept set's size)."""
+    out = {}
+    for seeds, pos, gap, kept, vals, ids in sink:
+        for s, p, g, n, v, i in zip(seeds.tolist(), pos.tolist(),
+                                    gap.tolist(), kept.tolist(),
+                                    vals.tolist(), ids.tolist()):
+            out[(s, p)] = (g, dict(zip(i, v)), n)
+    return out
+
+
+def local_error(a: dict, b: dict):
+    """The max abs difference of two rows' logits over the ids in both
+    top lists (None when they share none)."""
+    shared = set(a) & set(b)
+    return max(abs(a[i] - b[i]) for i in shared) if shared else None
+
+
+SPEC_STREAM = 32           # positions each stream of (a) covers
+
+
+def verify_logits_check(torch, programs, specs, ks=SPEC_KS) -> dict:
+    """(a) on the whole model: 8 slots prefilled with ``specs``' prompts;
+    for each k, a stream of ``SPEC_STREAM`` (rounded up to whole verifies)
+    random tokens fed as successive [8, k + 1] verify forwards
+    (all_logits) on one clone of the pools, and as T = 1 decode steps on
+    another, so that each side reads the k/v it wrote itself, as spec on
+    and spec off do: bitwise equal or the max abs error of the fp32
+    logits over the stream and over its first window alone, their rel L2
+    and the largest logit, and whether every argmax agrees. At
+    ``SPEC_K`` also a verify forward's ms beside a decode step's (CUDA
+    events, 5 calls each, on scratch clones)."""
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            ServeEngine)
+
+    eng = ServeEngine(programs.bundle, None, programs=programs, n_slots=8,
+                      page_size=16, max_len=4096)
+    for r in specs[:8]:
+        eng.submit(Request(**{**r, "max_new_tokens": 64}))
+    eng.step()                       # admission + every prefill + 1 decode
+    sched = eng.scheduler
+    check(len(sched.active_indices()) == 8, "verify check: 8 decoding")
+    for i in sched.active_indices():     # room for the whole stream
+        sched.ensure_lookahead(i, SPEC_STREAM + max(ks) + 1)
+    arr = sched.decode_arrays()
+    dev = {k: programs.to_device(arr[k]) for k in ("tokens", "lengths",
+                                                     "tables")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 230)
+    cfg, mod = programs.config, programs.mod
+
+    def clone(pages):
+        return {k: (type(v)(q=v.q.clone(), scale=v.scale.clone())
+                    if hasattr(v, "scale") else v.clone())
+                for k, v in pages.items()}
+
+    def forward(pages, ids, lens, all_logits):
+        return mod.paged_decode_step(
+            cfg, programs.params, ids, lens, pages,
+            programs.make_attend(dev["tables"], lens),
+            all_logits=all_logits)[0].float()
+
+    out = {}
+    for k in ks:
+        t = k + 1
+        n = -(-SPEC_STREAM // t) * t
+        ids = torch.randint(0, cfg.vocab_size, (8, n), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        ids[:, 0] = dev["tokens"]
+        pv, p1 = clone(eng.pages), clone(eng.pages)
+        got = torch.cat([forward(pv, ids[:, w:w + t], dev["lengths"] + w,
+                                 True) for w in range(0, n, t)], dim=1)
+        want = torch.stack([forward(p1, ids[:, j:j + 1], dev["lengths"] + j,
+                                    False) for j in range(n)], dim=1)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        row = {"positions": n, "bitwise": bool(torch.equal(got, want)),
+               "max_abs_err": err.max().item(),
+               "max_abs_err_first_window": err[:, :t].max().item(),
+               "rel_l2": rel_l2(got, want),
+               "max_abs_logit": want.abs().max().item(),
+               "argmax_equal_share": (got.argmax(-1) == want.argmax(-1)
+                                      ).float().mean().item(),
+               "finite": bool(torch.isfinite(got).all())}
+        check(row["finite"] and got.shape == (8, n, cfg.vocab_size),
+              f"verify logits k={k}: {got.shape}, finite {row['finite']}")
+        del got, want, err
+        if k == SPEC_K:
+            first = ids[:, :t]
+            row["verify_ms"] = cuda_ms(
+                lambda: forward(pv, first, dev["lengths"], True), iters=5,
+                warmup=1)
+            row["decode_step_ms"] = cuda_ms(
+                lambda: forward(p1, first[:, :1], dev["lengths"], False),
+                iters=5, warmup=1)
+        out[f"k{k}"] = row
+        del pv, p1
+        torch.cuda.empty_cache()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_run(torch, specs, *, programs, speculate=None, sink=None) -> dict:
+    """One ``generate_many`` over ``specs`` on a fresh engine sharing
+    ``programs`` (a ``gap_programs()``): tokens, wall, the speculation
+    counters, and the K4 / K5 / K7 launches of the run (each count set to
+    0 before it and read after it). With a ``sink`` the run keeps its
+    rows' margins, kept-set sizes and top logits (a sort a row: such a
+    run is not the one timed)."""
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many, throughput_stats)
+
+    eng = ServeEngine(programs.bundle, None, programs=programs, n_slots=8,
+                      page_size=16, max_len=4096, speculate=speculate,
+                      spec_k=SPEC_K)
+    programs.sink = sink
+    programs.verify_slots, programs.verify_accepted = [], []
+    verify0, prefill0 = programs.verify_calls, programs.prefill_calls
+    pd.LAUNCHES = pd.SPLIT_LAUNCHES = pd.MMA_LAUNCHES = 0
+    pd.COMBINE_LAUNCHES = gm.GMM_LAUNCHES = qm.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = generate_many(eng, [Request(**r) for r in specs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    programs.sink = None
+    launches = {"paged_attend": pd.LAUNCHES,
+                "paged_attend_split": pd.SPLIT_LAUNCHES,
+                "paged_attend_mma": pd.MMA_LAUNCHES,
+                "paged_attend_combine": pd.COMBINE_LAUNCHES,
+                "grouped_matmul": gm.GMM_LAUNCHES,
+                "quantized_matmul": qm.LAUNCHES}
+    for r in res:
+        check(r.finish_reason == "length" and len(r.generated_ids) == 32,
+              f"spec run: request {r.request_id} ended {r.finish_reason} "
+              f"after {len(r.generated_ids)} tokens")
+        check(all(0 <= x < programs.config.vocab_size
+                  for x in r.generated_ids), "spec run: token out of range")
+    st = eng.stats()
+    tp = throughput_stats(res, wall, eng)
+    out = {"tokens": [r.generated_ids for r in res], "wall_s": wall,
+           "launches": launches,
+           "verify_forwards": programs.verify_calls - verify0,
+           "prefill_forwards": programs.prefill_calls - prefill0,
+           "plain_decode_steps": st["host_dispatches"] - st["spec_steps"],
+           "tokens_per_s": tp["tokens_per_s"], "ttft_s_p50":
+           tp["ttft_s_p50"], "itl_s_avg": st["itl_s_avg"],
+           "decode_steps": st["decode_steps"],
+           "decode_tokens_per_step": st["decode_tokens_per_step"],
+           "spec_steps": st["spec_steps"],
+           "drafted": st["spec_tokens_drafted"],
+           "accepted": st["spec_tokens_accepted"],
+           "rejected": st["spec_tokens_rejected"],
+           "acceptance_rate": st.get("spec_acceptance_rate"),
+           "drafter": {k: st[k] for k in ("draft_model_steps",
+                                          "catchup_tokens",
+                                          "catchup_chunks", "resyncs")
+                       if k in st}}
+    if programs.verify_slots:
+        slots = int(sum(x.item() for x in programs.verify_slots))
+        acc = int(sum(x.item() for x in programs.verify_accepted))
+        # every slot of a verify emits its accepted drafts and one target
+        # draw (less where the request ended inside the run)
+        out["tokens_per_verify"] = (acc + slots) / out["verify_forwards"]
+        out["tokens_per_verify_slot"] = (acc + slots) / slots
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def k4_by_t(run: dict, layers: int, draft_layers: int = 0) -> dict:
+    """K4 launches of a run by query tile T, from its forward counts: one
+    a layer per forward (T 1 the decode steps and the drafter's steps,
+    T k + 1 the verifies, ``SPEC_DRAFT_CHUNK`` the drafter's catch-up
+    chunks; the bucketed prefill launches none), checked against the
+    count."""
+    d = run["drafter"]
+    by_t = {"T1": layers * run["plain_decode_steps"]
+            + draft_layers * d.get("draft_model_steps", 0),
+            f"T{SPEC_K + 1}": layers * run["verify_forwards"],
+            f"T{SPEC_DRAFT_CHUNK}": draft_layers * d.get("catchup_chunks",
+                                                          0)}
+    check(sum(by_t.values()) == run["launches"]["paged_attend"],
+          f"K4 launches {run['launches']['paged_attend']} against the "
+          f"forwards' {by_t}")
+    return by_t
+
+
+def divergences(specs, off: list, on: list, gaps: dict, on_rows: dict,
+                bound: float) -> dict:
+    """Each stream of ``on`` against spec off's: identical, or its first
+    divergence at generated index g (position len(prompt) + g, drawn by a
+    spec-off decode step for g >= 1) with spec off's decision margin
+    there, the two runs' logit error at that position (``local_err``, on
+    the ids both top lists hold), the most of it over the stream's shared
+    prefix, and the sampler's kept-set size in each run. ``explained``:
+    the margin is within twice ``bound``, the verify-vs-decode logit
+    error (a) measured; ``explained_locally``: the error the two runs
+    show at that very position is under ``SPEC_LOCAL_CAP`` x ``bound``
+    and either the margin is within twice it or the kept set moved (a
+    top-p edge among many near-equal probabilities moves with errors far
+    below any one margin)."""
+    rows = []
+    for spec, a, b in zip(specs, off, on):
+        if a == b:
+            continue
+        g = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        p0 = len(spec["prompt_ids"])
+        key = (spec["seed"], p0 + g)
+        margin = gaps[key][0] if g and key in gaps else None
+        errs = [local_error(gaps[(spec["seed"], p0 + j)][1],
+                            on_rows[(spec["seed"], p0 + j)][1])
+                for j in range(1, g + 1)
+                if (spec["seed"], p0 + j) in gaps
+                and (spec["seed"], p0 + j) in on_rows]
+        errs = [e for e in errs if e is not None]
+        local = (local_error(gaps[key][1], on_rows[key][1])
+                 if key in gaps and key in on_rows else None)
+        kept = ((gaps[key][2], on_rows[key][2])
+                if key in gaps and key in on_rows else None)
+        edge = kept is not None and kept[0] != kept[1]
+        rows.append({
+            "seed": spec["seed"], "index": g, "margin": margin,
+            "local_err": local, "prefix_max_err": max(errs, default=None),
+            "kept_off_on": kept, "kept_set_moved": edge,
+            "explained": margin is not None and margin <= 2 * bound,
+            "explained_locally": (
+                margin is not None and local is not None
+                and local <= SPEC_LOCAL_CAP * bound
+                and (margin <= 2 * local or edge))})
+    return {"identical": len(off) - len(rows), "of": len(off),
+            "divergent": rows,
+            "all_explained": all(r["explained"] for r in rows),
+            "all_explained_locally": all(
+                r["explained"] or r["explained_locally"] for r in rows)}
+
+
+def judge(name: str, specs, off: dict, run: dict, gaps: dict,
+          on_rows: dict, logits: dict) -> dict:
+    """Which identity held for ``run`` against spec off: every stream
+    identical (required where (a) found the verify logits bitwise the
+    decode step's); else every divergence within (a)'s bound; else every
+    one within the rounding error the two runs show at its position.
+    Fails otherwise: a divergence the logits' error cannot explain."""
+    bitwise = logits[f"k{SPEC_K}"]["bitwise"]
+    bound = logits[f"k{SPEC_K}"]["max_abs_err"]
+    div = divergences(specs, off["tokens"], run["tokens"], gaps, on_rows,
+                      bound)
+    held = ("identical" if div["identical"] == div["of"]
+            else "divergences within the bound (a) measured"
+            if div["all_explained"]
+            else "divergences within the runs' own logit error"
+            if div["all_explained_locally"] else "broken")
+    check(held == "identical" if bitwise else held != "broken",
+          f"{name}: spec on against spec off: {div} (verify logits bitwise "
+          f"{bitwise}, error {bound})")
+    return {"identity": held, "bound_logit_err": bound, **div}
+
+
+def spec_serve(torch, card: str, programs, logits: dict) -> dict:
+    """(b) *serve* with speculation off, ``ngram``, a self-draft and a
+    random-weight llama-3.2-1b drafter (k 4 each), every stream judged
+    against spec off."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.serve import DraftModelDrafter
+
+    cfg = programs.config
+    specs = spec_specs(np, cfg.vocab_size)
+    spec_run(torch, specs[:2], programs=programs)          # warm-up
+    off = spec_run(torch, specs, programs=programs)
+    sink: list = []
+    ref = spec_run(torch, specs, programs=programs, sink=sink)
+    check(ref["tokens"] == off["tokens"], "spec off: the recorded run's "
+          "tokens differ from the timed run's")
+    gaps = gaps_by_position(sink)
+    del sink
+    small = get_model("llama-3.2-1b", dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    check(small.config.vocab_size == cfg.vocab_size, "draft vocab")
+    drafters = {
+        "ngram": lambda: "ngram",
+        "self-draft": lambda: DraftModelDrafter(
+            programs.bundle, programs.params, n_slots=8, max_len=4096,
+            k=SPEC_K, chunk=SPEC_DRAFT_CHUNK),
+        "draft-1b": lambda: DraftModelDrafter(
+            small, small.init(small.config, SEED + 1, device="cuda"),
+            n_slots=8, max_len=4096, k=SPEC_K, chunk=SPEC_DRAFT_CHUNK)}
+    out = {"off": {k: v for k, v in off.items() if k != "tokens"}}
+    out["off"]["k4_by_T"] = k4_by_t(off, cfg.num_layers)
+    log(phase="spec_horizon", part="(b) serve, spec off", card=card,
+        **out["off"])
+    for name, make in drafters.items():
+        drafter = make()
+        draft_layers = (drafter.config.num_layers
+                        if not isinstance(drafter, str) else 0)
+        run = spec_run(torch, specs, programs=programs, speculate=drafter)
+        on_sink: list = []
+        if not isinstance(drafter, str):    # a drafter's state starts anew
+            drafter = make()
+        rec = spec_run(torch, specs, programs=programs, speculate=drafter,
+                       sink=on_sink)
+        check(rec["tokens"] == run["tokens"], f"{name}: the recorded run's "
+              f"tokens differ from the timed run's")
+        del drafter, rec
+        check(run["drafted"] > 0 and run["verify_forwards"] > 0,
+              f"{name}: the run never speculated")
+        row = {k: v for k, v in run.items() if k != "tokens"}
+        row["k4_by_T"] = k4_by_t(run, cfg.num_layers, draft_layers)
+        row["tokens_per_s_vs_off"] = run["tokens_per_s"] / off[
+            "tokens_per_s"]
+        row["judged"] = judge(name, specs, off, run, gaps,
+                              gaps_by_position(on_sink), logits)
+        del on_sink
+        out[name] = row
+        log(phase="spec_horizon", part=f"(b) serve, {name}", card=card,
+            **row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(out["draft-1b"]["rejected"] > 0, "the 1b drafter had nothing "
+          "rejected")
+    return out
+
+
+def spec_int8(torch, card: str, programs, specs) -> dict:
+    """(c) int8 weights (K7 in every product of the verify): the verify
+    logits against the decode steps' at k 4, ``ngram`` against spec off,
+    the peak with only the int8 tree resident."""
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+
+    torch.cuda.reset_peak_memory_stats()
+    logits = verify_logits_check(torch, programs, specs, ks=(SPEC_K,))
+    off = spec_run(torch, specs, programs=programs)
+    sink: list = []
+    ref = spec_run(torch, specs, programs=programs, sink=sink)
+    check(ref["tokens"] == off["tokens"], "int8 spec off: recorded run")
+    fma = qm.BODY_LAUNCHES["fma"]
+    run = spec_run(torch, specs, programs=programs, speculate="ngram")
+    check(run["drafted"] > 0, "int8: the ngram run never speculated")
+    on_sink: list = []
+    rec = spec_run(torch, specs, programs=programs, speculate="ngram",
+                   sink=on_sink)
+    check(rec["tokens"] == run["tokens"], "int8: recorded ngram run")
+    per_forward = 7 * programs.config.num_layers + 1
+    forwards = (run["plain_decode_steps"] + run["verify_forwards"]
+                + run["prefill_forwards"])
+    check(run["launches"]["quantized_matmul"] == per_forward * forwards,
+          f"int8: {run['launches']['quantized_matmul']} K7 launches for "
+          f"{forwards} forwards")
+    check(qm.BODY_LAUNCHES["fma"] == fma, "int8: a K7 launch took the "
+          "FMA body")
+    out = {"verify_logits": logits,
+           "off": {k: v for k, v in off.items() if k != "tokens"},
+           "ngram": {k: v for k, v in run.items() if k != "tokens"},
+           "judged": judge("int8 ngram", specs, off, run,
+                           gaps_by_position(sink), gaps_by_position(on_sink),
+                           logits),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["ngram"]["k4_by_T"] = k4_by_t(run, programs.config.num_layers)
+    log(phase="spec_horizon", part="(c) int8 weights, ngram vs off",
+        card=card, **out)
+    return out
+
+
+def spec_moe(torch, card: str) -> dict:
+    """(d) qwen3-30b-a3b at full width cut to ``SPEC_MOE_LAYERS`` layers,
+    bf16: the verify logits against the decode steps' at k 4 and
+    ``ngram`` against spec off, K5 launched by the verify."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+
+    bundle = get_model("qwen3-30b-a3b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16,
+                       num_layers=SPEC_MOE_LAYERS)
+    params = bundle.init(bundle.config, SEED, device="cuda")
+    programs = gap_programs()(bundle, params)
+    del params
+    specs = spec_specs(np, bundle.config.vocab_size)
+    logits = verify_logits_check(torch, programs, specs, ks=(SPEC_K,))
+    off = spec_run(torch, specs, programs=programs)
+    sink: list = []
+    ref = spec_run(torch, specs, programs=programs, sink=sink)
+    check(ref["tokens"] == off["tokens"], "moe spec off: recorded run")
+    run = spec_run(torch, specs, programs=programs, speculate="ngram")
+    check(run["drafted"] > 0, "moe: the ngram run never speculated")
+    on_sink: list = []
+    rec = spec_run(torch, specs, programs=programs, speculate="ngram",
+                   sink=on_sink)
+    check(rec["tokens"] == run["tokens"], "moe: recorded ngram run")
+    per_forward = 3 * SPEC_MOE_LAYERS       # gate, up, down a layer
+    forwards = (run["plain_decode_steps"] + run["verify_forwards"]
+                + run["prefill_forwards"])
+    check(run["launches"]["grouped_matmul"] == per_forward * forwards,
+          f"moe: {run['launches']['grouped_matmul']} K5 launches for "
+          f"{forwards} forwards")
+    out = {"layers": SPEC_MOE_LAYERS, "verify_logits": logits,
+           "off": {k: v for k, v in off.items() if k != "tokens"},
+           "ngram": {k: v for k, v in run.items() if k != "tokens"},
+           "judged": judge("moe ngram", specs, off, run,
+                           gaps_by_position(sink), gaps_by_position(on_sink),
+                           logits)}
+    out["ngram"]["k4_by_T"] = k4_by_t(run, SPEC_MOE_LAYERS)
+    log(phase="spec_horizon", part="(d) qwen3-30b-a3b, ngram vs off",
+        card=card, **out)
+    del programs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def horizon_run(torch, programs, specs, k: int, profiled: bool) -> dict:
+    """One decode run at ``decode_horizon`` k: every request admitted and
+    prefilled by the first step, then the decode steps timed on the host
+    clock (and, ``profiled``, under torch.profiler for the device's busy
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            ServeEngine)
+
+    eng = ServeEngine(programs.bundle, None, programs=programs, n_slots=8,
+                      page_size=16, max_len=4096, decode_horizon=k)
+    ptrs = {n: eng.pages[n].data_ptr() for n in ("k", "v")}
+    ids = [eng.submit(Request(**r)) for r in specs]
+    done = {}
+    for res in eng.step():
+        done[res.request_id] = res
+    check(len(eng.scheduler.active_indices()) == len(specs),
+          f"horizon {k}: every request decoding after the first step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tokens0 = eng.decode_tokens
+    launches0 = pd.LAUNCHES
+    ctx = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+           else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        while eng.has_work:
+            for res in eng.step():
+                done[res.request_id] = res
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tokens = eng.decode_tokens - tokens0
+    out = {"tokens": [done[i].generated_ids for i in ids],
+           "decode_tokens": tokens, "wall_ms": wall * 1e3,
+           "wall_ms_per_decode_token": wall * 1e3 / tokens,
+           # over the whole run: one read per dispatch
+           "host_reads_per_decode_token": (eng.host_dispatches
+                                           / eng.decode_tokens),
+           "horizon_effective": eng.stats()["horizon_effective"],
+           "k4_launches": pd.LAUNCHES - launches0,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "pools_kept": all(eng.pages[n].data_ptr() == ptrs[n]
+                             for n in ("k", "v"))}
+    if profiled:
+        busy = sum(_device_us(e) for e in prof.key_averages()
+                   if _device_us(e) > 0) / 1e3
+        out["device_busy_ms"] = busy if busy else "not measured"
+        out["device_idle_share"] = (max(0.0, 1 - busy / (wall * 1e3))
+                                    if busy else "not measured")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def horizons(torch, card: str, programs) -> dict:
+    """(e) *serve*'s 8 requests, all greedy, at ``HORIZONS``: tokens
+    bitwise K 1's, host reads and wall ms per decode token, the device's
+    idle share (a profiled run beside the timed one), the pools' storage
+    kept and no peak beyond K 1's."""
+    import numpy as np
+
+    specs = [{**r, "temperature": 0.0, "top_p": 1.0}
+             for r in serve_specs(np, programs.config.vocab_size)]
+    horizon_run(torch, programs, specs[:2], HORIZONS[-1], False)  # warm-up
+    out = {}
+    for k in HORIZONS:
+        timed = horizon_run(torch, programs, specs, k, False)
+        prof = horizon_run(torch, programs, specs, k, True)
+        check(prof["tokens"] == timed["tokens"], f"horizon {k}: profiled")
+        row = {key: v for key, v in timed.items() if key != "tokens"}
+        row.update(device_idle_share=prof["device_idle_share"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   wall_ms_profiled=prof["wall_ms"])
+        out[f"K{k}"] = row
+        out[f"K{k}"]["tokens_bitwise_k1"] = (
+            timed["tokens"] == out.get("_k1", timed["tokens"]))
+        out.setdefault("_k1", timed["tokens"])
+        check(row["pools_kept"], f"horizon {k}: the pools moved")
+        check(out[f"K{k}"]["tokens_bitwise_k1"], f"horizon {k}: tokens "
+              f"differ from K 1's")
+        check(row["peak_bytes"] <= out["K1"]["peak_bytes"]
+              + HORIZON_PEAK_SLACK, f"horizon {k}: peak {row['peak_bytes']} "
+              f"over K 1's {out['K1']['peak_bytes']}")
+        log(phase="spec_horizon", part=f"(e) decode horizon {k}", card=card,
+            **row)
+    del out["_k1"]
+    return out
+
+
+def http_call(url: str, body: Optional[dict] = None) -> tuple:
+    """(status, parsed JSON body) of one call, with a timeout."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def http_stream(host: str, port: int, body: dict) -> tuple:
+    """A streamed /generate: the token events in order and the done
+    event."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("POST", "/generate", json.dumps({**body,
+                                                      "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"stream status {resp.status}")
+        tokens, done = [], None
+        for line in resp.read().decode().splitlines():
+            if line.startswith("data: "):
+                ev = json.loads(line[6:])
+                if "token_id" in ev:
+                    tokens.append(ev["token_id"])
+                elif ev.get("done"):
+                    done = ev
+        return tokens, done
+    finally:
+        conn.close()
+
+
+def http_serve(torch, card: str, programs) -> dict:
+    """(f) ``serve_http`` on 127.0.0.1 at an OS-chosen port, serving
+    *serve*'s engine: three requests (one streamed) each equal to
+    ``generate_many``'s tokens, /healthz and /readyz answered; the server
+    shut down in ``finally``."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many, serve_http)
+
+    specs = serve_specs(np, programs.config.vocab_size)
+    reqs = [{**specs[i], "max_new_tokens": 16} for i in (0, 2, 6)]
+    want = [r.generated_ids for r in generate_many(
+        ServeEngine(programs.bundle, None, programs=programs, n_slots=8,
+                    page_size=16, max_len=4096),
+        [Request(**r) for r in reqs])]
+    eng = ServeEngine(programs.bundle, None, programs=programs, n_slots=8,
+                      page_size=16, max_len=4096)
+    server, worker = serve_http(eng, host="127.0.0.1", port=0)
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    try:
+        t0 = time.perf_counter()
+        health = http_call(url + "/healthz")
+        ready = http_call(url + "/readyz")
+        got = [http_call(url + "/generate", reqs[i]) for i in (0, 1)]
+        streamed, done = http_stream(host, port, reqs[2])
+        wall = time.perf_counter() - t0
+    finally:
+        worker.stop(drain=True, timeout_s=30)
+        server.shutdown()
+        server.server_close()
+        worker.join(timeout=30)
+    check(health[0] == 200 and health[1]["ok"], f"/healthz {health}")
+    check(ready[0] == 200 and ready[1]["ready"], f"/readyz {ready}")
+    for i, (status, body) in enumerate(got):
+        check(status == 200 and body["generated_ids"] == want[i],
+              f"/generate {i}: {status} {body.get('generated_ids')} "
+              f"against {want[i]}")
+    check(streamed == want[2] and done is not None
+          and done["generated_ids"] == want[2],
+          f"streamed /generate: {streamed} against {want[2]}")
+    check(not worker.is_alive(), "the worker thread outlived stop()")
+    out = {"port": port, "healthz": health[0], "readyz": ready[0],
+           "requests": 3, "streamed_tokens": len(streamed), "wall_s": wall,
+           "tokens_equal_generate_many": True}
+    log(phase="spec_horizon", part="(f) serve_http", card=card, **out)
+    return out
+
+
+def phase_spec_horizon(torch, card: str) -> dict:
+    """Phase 23: (a) verify against decode logits, (b) speculation on
+    *serve*, (c) under int8 weights, (d) on qwen3-30b-a3b cut in depth,
+    (e) decode horizons, (f) the HTTP endpoint."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    params = bundle.init(bundle.config, SEED, device="cuda")
+    programs = gap_programs()(bundle, params)
+    specs = spec_specs(np, bundle.config.vocab_size)
+    logits = verify_logits_check(torch, programs, specs)
+    log(phase="spec_horizon", part="(a) verify logits vs decode steps, "
+        "llama-3.1-8b bf16 full depth", card=card, **logits)
+    serve = spec_serve(torch, card, programs, logits)
+    horizon = horizons(torch, card, programs)
+    http = http_serve(torch, card, programs)
+    del programs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int8: the bf16 tree goes once the programs hold the int8 one
+    programs = gap_programs()(bundle, params, weight_dtype="int8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = spec_int8(torch, card, programs, specs)
+    del programs
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = spec_moe(torch, card)
+    runs = [serve[n] for n in ("ngram", "self-draft", "draft-1b")] + [
+        int8["ngram"], moe["ngram"]]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    log(phase="spec_horizon", seconds=time.perf_counter() - t0, card=card,
+        launches=launches)
+    return {"logits": logits, "serve": serve, "int8": int8, "moe": moe,
+            "horizon": horizon, "http": http, "launches": launches}
 
 
 def ptxas_serialized(build) -> list:
@@ -6368,6 +7270,7 @@ def main() -> int:
     cp_pp = phase_cp_pp(torch, smi, plans)
     ch10 = phase_chapter10(torch, smi)
     ovl = phase_overlap(torch, smi)
+    spec = phase_spec_horizon(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -6383,7 +7286,9 @@ def main() -> int:
     dec, chunk = timing["decode"], timing["chunk"]
     kernels = [{
         "name": "paged_attend_split", **k4,
-        "launches": serve["body_launches"]["split"],
+        "launches": serve["body_launches"]["split"]
+        + spec["launches"]["paged_attend_split"],
+        "launches_spec_horizon": spec["launches"]["paged_attend_split"],
         "max_abs_err": worst["split"], "shape": "decode", "ms": dec["body_ms"],
         "plain_ms": dec["body_plain_ms"], "bound_ms": dec["body_bound_ms"],
         "bound_by": dec["body_bound_by"], "library_ms": dec["library_ms"],
@@ -6396,7 +7301,9 @@ def main() -> int:
         "shapes": {**k4_shapes, **dense["k4_timing"]},
     }, {
         "name": "paged_attend_mma", **k4,
-        "launches": serve["body_launches"]["mma"],
+        "launches": serve["body_launches"]["mma"]
+        + spec["launches"]["paged_attend_mma"],
+        "launches_spec_horizon": spec["launches"]["paged_attend_mma"],
         "launches_dense_families": dense["launches"]["paged_attend_mma"],
         "max_abs_err": worst["mma"], "shape": "chunk", "ms": chunk["body_ms"],
         "plain_ms": chunk["body_plain_ms"],
@@ -6408,7 +7315,9 @@ def main() -> int:
         "ptxas_registers_spills": ptxas.get("paged_attend_mma", {}),
     }, {
         "name": "paged_attend_combine", **k4,
-        "launches": serve["body_launches"]["combine"],
+        "launches": serve["body_launches"]["combine"]
+        + spec["launches"]["paged_attend_combine"],
+        "launches_spec_horizon": spec["launches"]["paged_attend_combine"],
         "launches_dense_families": dense["launches"]["paged_attend_combine"],
         "max_abs_err": worst["combine"], "shape": "decode",
         "ms": dec["combine_ms"], "plain_ms": dec["combine_plain_ms"],
@@ -6510,7 +7419,9 @@ def main() -> int:
         "launches": moe_serve["launches"]
         + moe_train["launches"]["grouped_matmul"]
         + ch10["launches"]["grouped_matmul"]
-        + ovl["launches"]["grouped_matmul"],
+        + ovl["launches"]["grouped_matmul"]
+        + spec["launches"]["grouped_matmul"],
+        "launches_spec_horizon": spec["launches"]["grouped_matmul"],
         "launches_overlap": ovl["launches"]["grouped_matmul"],
         "launches_ep_ring_by_body": ovl["ring"]["launches"]["by_body"][
             "grouped_matmul"],
@@ -6534,7 +7445,10 @@ def main() -> int:
         "shapes": {**{k: {kk: gmm_timing[k].get(kk) for kk in keys}
                       for k in ("decode", "train", "train-dlhs")},
                    "ep-window": ch10["window"]["rows"]["fwd"],
-                   "ep-window-dlhs": ch10["window"]["rows"]["dlhs"]},
+                   "ep-window-dlhs": ch10["window"]["rows"]["dlhs"],
+                   "ring-hop-window": ovl["hop_window"]["rows"]["fwd"],
+                   "ring-hop-window-dlhs": ovl["hop_window"]["rows"][
+                       "dlhs"]},
     })
     t = gmm_timing["tgmm-train"]
     tkeys = keys + ("fma_ms", "library_bf16_dy_ms")
@@ -6564,7 +7478,8 @@ def main() -> int:
         "ptxas_registers_spills": ptxas.get("tgmm", {}),
         "shapes": {**{k: {kk: gmm_timing[k].get(kk) for kk in tkeys}
                       for k in ("tgmm-train", "tgmm-train-down")},
-                   "ep-window": ch10["window"]["rows"]["drhs"]},
+                   "ep-window": ch10["window"]["rows"]["drhs"],
+                   "ring-hop-window": ovl["hop_window"]["rows"]["drhs"]},
     })
     t = qmm_timing["gate-decode"]
     kernels.append({
@@ -6573,7 +7488,9 @@ def main() -> int:
                   "quantized_matmul.cu",
         "replaces": "distributed_training_guide_tpu/ops/"
                     "quantized_matmul.py:119",
-        "launches": int8_serve["launches"],
+        "launches": int8_serve["launches"]
+        + spec["launches"]["quantized_matmul"],
+        "launches_spec_horizon": spec["launches"]["quantized_matmul"],
         "launches_by_body": int8_serve["launches_by_body"],
         "launches_per_serve_forward": int8_serve["per_forward"],
         "max_abs_err": qmm_worst, "body": t["body"],

@@ -398,12 +398,14 @@ def decode_step(config: GPT2Config, params: dict, token_ids: torch.Tensor,
 @torch.no_grad()
 def paged_decode_step(config: GPT2Config, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
-                      cache: dict, attend, last_index=None):
+                      cache: dict, attend, last_index=None,
+                      all_logits=False):
     """One step over the paged multi-request cache, the
     ``llama.paged_decode_step`` contract: ``token_ids`` [S, T] from
     per-slot ``positions`` [S] (the learned rows read at embed time),
     ``attend`` scatters each layer's k/v into its pages and attends over
-    the block tables (K4 on the card). Returns (logits [S, V], cache)."""
+    the block tables (K4 on the card). Returns (logits [S, V], or [S, T, V] under
+    ``all_logits``, and the cache)."""
     pos2d = paged_positions(token_ids, positions)
     x = embed_tokens(config, params, token_ids, _in_table(config, pos2d))
     for i in range(config.num_layers):
@@ -415,8 +417,8 @@ def paged_decode_step(config: GPT2Config, params: dict,
 
         x, _ = _block(config, x, layer_params(params, i), pos2d, "xla",
                       False, attend_override=override)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index),
-            cache)
+    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
+                            all_logits), cache)
 
 
 PRESETS = {

@@ -761,9 +761,14 @@ def paged_positions(token_ids: torch.Tensor,
         t, dtype=positions.dtype, device=positions.device)[None, :]
 
 
-def paged_logits_at(lm_head, config, params, x, last_index):
+def paged_logits_at(lm_head, config, params, x, last_index,
+                    all_logits=False):
     """The logits the caller wants, sliced BEFORE the head: the last
-    position (``last_index`` None) or one given index."""
+    position (``last_index`` None) or one given index; ``all_logits``
+    keeps every position ([S, T, V]), one target distribution per drafted
+    token of a speculative verify forward (T = k + 1 there)."""
+    if all_logits:
+        return lm_head(config, params, x)
     if last_index is None:
         x_last = x[:, -1:]
     else:
@@ -782,11 +787,13 @@ def _layer_pools(pool, i):
 @torch.no_grad()
 def paged_decode_step(config: LlamaConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
-                      cache: dict, attend, last_index=None):
+                      cache: dict, attend, last_index=None,
+                      all_logits=False):
     """One step over a PAGED multi-request cache: ``token_ids`` [S, T] are
     each slot's next T tokens starting at per-slot ``positions`` [S]
     (T == 1 the batched decode step, T > 1 a prefill chunk, where
-    ``last_index`` picks the real last token's logits). ``cache`` holds
+    ``last_index`` picks the real last token's logits, or a speculative
+    verify forward, where ``all_logits`` keeps [S, T, V]). ``cache`` holds
     the page pools ``{"k", "v"}: [L, n_pages, page, kvh, hd]`` and
     ``attend(q, k, v, kp, vp, *, window, scale, softcap)`` (built by
     ``serve/kv_pages.make_attend``) writes the new k/v into one layer's
@@ -810,8 +817,8 @@ def paged_decode_step(config: LlamaConfig, params: dict,
             rope, window_override=None if wins is None else wins[i],
             attend_override=override)
         x = _residuals(config, x, layer, attn)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index),
-            cache)
+    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
+                            all_logits), cache)
 
 
 # ---------------------------------------------------------------------------

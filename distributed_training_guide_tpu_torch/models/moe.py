@@ -829,12 +829,13 @@ def decode_step(config: MoELlamaConfig, params: dict,
 @torch.no_grad()
 def paged_decode_step(config: MoELlamaConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
-                      cache: dict, attend, last_index=None, *,
-                      gmm_impl: str = "auto"):
+                      cache: dict, attend, last_index=None,
+                      all_logits=False, *, gmm_impl: str = "auto"):
     """One step over a PAGED multi-request cache, the
     ``llama.paged_decode_step`` contract (decode steps at T = 1, prefill
     chunks at T > 1), with the routed FFN drop-free: per-token routing does
-    not depend on the co-resident slots. Returns (logits [S, V], cache)."""
+    not depend on the co-resident slots. Returns (logits [S, V], or
+    [S, T, V] under ``all_logits``, and the cache)."""
     pos2d = llama.paged_positions(token_ids, positions)
     x = embed_tokens(config, params, token_ids)
     wins = llama.layer_windows(config)
@@ -857,7 +858,7 @@ def paged_decode_step(config: MoELlamaConfig, params: dict,
         x = x + _moe_ffn(config, h, layer["moe"], no_drop=True,
                          gmm_impl=gmm_impl)[0]
     return (llama.paged_logits_at(lm_head_logits, config, params, x,
-                                  last_index), cache)
+                                  last_index, all_logits), cache)
 
 
 # ---------------------------------------------------------------------------

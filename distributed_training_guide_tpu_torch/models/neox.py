@@ -385,10 +385,12 @@ def decode_step(config: NeoXConfig, params: dict, token_ids: torch.Tensor,
 @torch.no_grad()
 def paged_decode_step(config: NeoXConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
-                      cache: dict, attend, last_index=None):
+                      cache: dict, attend, last_index=None,
+                      all_logits=False):
     """One step over the paged multi-request cache, the
     ``llama.paged_decode_step`` contract, through the parallel-residual
-    block. Returns (logits [S, V], cache)."""
+    block. Returns (logits [S, V], or [S, T, V] under
+    ``all_logits``, and the cache)."""
     pos2d = paged_positions(token_ids, positions)
     x = embed_tokens(config, params, token_ids)
     rope = layer_rope(config, pos2d)
@@ -401,8 +403,8 @@ def paged_decode_step(config: NeoXConfig, params: dict,
 
         x, _ = _block(config, x, layer_params(params, i), pos2d, rope, "xla",
                       False, attend_override=override)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index),
-            cache)
+    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
+                            all_logits), cache)
 
 
 # ---------------------------------------------------------------------------

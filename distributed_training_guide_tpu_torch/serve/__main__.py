@@ -1,5 +1,6 @@
-"""Serve a model of the zoo: offline batch generation through the
-continuous-batching paged-KV engine, on the card by default.
+"""Serve a model of the zoo: offline batch generation or an HTTP
+endpoint, both through the continuous-batching paged-KV engine, on the
+card by default.
 
     python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
         --prompt-ids 3,17,42 --prompt-ids 5,6 --prompt-ids 9 \\
@@ -10,16 +11,38 @@ continuous-batching paged-KV engine, on the card by default.
         --dtype bfloat16 --prompt-ids 3,17,42     # MoE: K4 and K5
     python -m distributed_training_guide_tpu_torch.serve -m llama-3.1-8b \\
         --dtype bfloat16 --weight-dtype int8 --prompt-ids 3,17,42  # K7
+    python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
+        --prompt-ids 1,2,3,1,2,3,1,2 --speculate ngram --spec-k 4 \\
+        --device cpu                              # speculative decoding
+    python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
+        --http-port 8000 --device cpu             # POST /generate, GET
+                                                  # /healthz, /readyz
 
 The model is built from a random init of ``--seed``, in fp32 by default
 (as the JAX package's CLI does); ``--dtype bfloat16`` keeps params and
-compute in bf16, which a 30B model needs to fit one card.
+compute in bf16, which a 30B model needs to fit one card. ``--pretrained
+DIR`` loads a converted checkpoint (``models/hf_convert.py``) instead.
+Under ``--weight-dtype int8`` the full-precision tree is dropped once the
+engine has stored the int8 one, so only the int8 weights stay resident.
+
+Not in this package yet (each refused naming ROADMAP.md queue 1, 'Serve
+fleet'): ``--disagg``, ``--prefill-slots``, ``--transport``,
+``--replicas``, ``--tp`` and ``--shard-kv``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import threading
 import time
+
+# the JAX CLI's flags of the serve fleet, refused here
+_FLEET_FLAGS = (("--disagg", {"action": "store_true"}),
+                ("--prefill-slots", {"type": int, "default": None}),
+                ("--transport", {"default": None}),
+                ("--replicas", {"type": int, "default": None}),
+                ("--tp", {"type": int, "default": None}),
+                ("--shard-kv", {"action": "store_true"}))
 
 
 def main(argv=None) -> None:
@@ -30,6 +53,10 @@ def main(argv=None) -> None:
     parser.add_argument("--prompt-ids", action="append", default=[],
                         metavar="IDS", help="comma-separated token ids; "
                         "repeat for several requests")
+    parser.add_argument("--prompt", action="append", default=[],
+                        help="text prompt through the model's tokenizer "
+                        "when it is in the local cache, else the byte "
+                        "tokenizer (nothing is downloaded); repeatable")
     parser.add_argument("--steps", type=int, default=32,
                         help="max new tokens per request")
     parser.add_argument("--temperature", type=float, default=0.0)
@@ -76,36 +103,143 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the engine runs (default cuda; cpu runs "
                         "the plain PyTorch path)")
+    parser.add_argument("--speculate", default="off",
+                        choices=("off", "ngram", "draft"),
+                        help="speculative decoding: 'ngram' is the "
+                        "prompt-lookup drafter, 'draft' a co-resident "
+                        "--draft-model; the verify draws the decode step's "
+                        "own tokens")
+    parser.add_argument("--spec-k", type=int, default=4,
+                        help="candidate tokens drafted per slot per "
+                        "iteration")
+    parser.add_argument("--draft-model", default=None, metavar="NAME",
+                        help="model zoo name for --speculate draft (loads "
+                        "--draft-pretrained or a random init of --seed + 1)")
+    parser.add_argument("--draft-pretrained", default=None, metavar="DIR",
+                        help="converted checkpoint dir for the draft model")
+    parser.add_argument("--decode-horizon", type=int, default=1,
+                        help="decode steps per host read (not with "
+                        "--speculate)")
+    parser.add_argument("--max-queue", type=int, default=None,
+                        help="admission queue bound; submits past it are "
+                        "refused with 429")
+    parser.add_argument("--priority", type=int, default=0,
+                        help="priority of the offline requests (higher "
+                        "admits first)")
+    parser.add_argument("--deadline-s", type=float, default=None,
+                        help="per-request deadline in seconds from submit "
+                        "(an expired request is evicted)")
+    parser.add_argument("--pretrained", default=None, metavar="DIR",
+                        help="converted checkpoint dir (models/hf_convert); "
+                        "random init otherwise")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="serve the HTTP endpoint on this port until "
+                        "SIGTERM (then drain) instead of the offline batch")
+    for flag, kw in _FLEET_FLAGS:
+        parser.add_argument(flag, **kw, help="not in this package yet "
+                            "(ROADMAP.md queue 1, 'Serve fleet')")
     args = parser.parse_args(argv)
+    used = [flag for flag, _ in _FLEET_FLAGS
+            if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
+    if used:
+        raise SystemExit(f"{', '.join(used)}: not ported to the PyTorch "
+                         f"package yet (ROADMAP.md queue 1, 'Serve fleet')")
 
     import torch
 
     from ..models.registry import get_model
-    from .api import generate_many, throughput_stats
+    from .api import generate_many, serve_http, throughput_stats
     from .engine import ServeEngine
     from .scheduler import Request
 
     dtype = getattr(torch, args.dtype)
-    bundle = get_model(args.model_name, dtype=dtype, param_dtype=dtype)
-    params = bundle.init(bundle.config, args.seed, device=args.device)
+
+    def load(name: str, pretrained, seed: int):
+        bundle = get_model(name, dtype=dtype, param_dtype=dtype)
+        if pretrained:
+            from ..models.hf_convert import load_pretrained
+
+            return bundle, load_pretrained(bundle, None, pretrained,
+                                           param_dtype=dtype,
+                                           device=args.device)
+        return bundle, bundle.init(bundle.config, args.seed + seed,
+                                   device=args.device)
+
+    tokenizer = None
+    if args.prompt or args.http_port is not None:
+        from ..data import get_tokenizer
+
+        tokenizer = get_tokenizer(args.model_name)
+    speculate = None if args.speculate == "off" else args.speculate
+    if args.speculate == "draft":
+        from .engine import resolve_context_bounds
+        from .spec import DraftModelDrafter
+
+        if args.draft_model is None:
+            raise SystemExit("--speculate draft needs --draft-model NAME")
+        draft_bundle, draft_params = load(args.draft_model,
+                                          args.draft_pretrained, 1)
+        target_len = resolve_context_bounds(
+            get_model(args.model_name).config, args.max_len,
+            args.page_size)[0]
+        speculate = DraftModelDrafter(
+            draft_bundle, draft_params, n_slots=args.n_slots,
+            max_len=target_len, k=args.spec_k, page_size=args.page_size,
+            attend_impl=args.attend_impl, device=args.device)
+        del draft_params
+    # the engine holds the params it serves; under --weight-dtype int8
+    # that is the int8 tree alone, the full-precision one dies with load
     engine = ServeEngine(
-        bundle, params, n_slots=args.n_slots, page_size=args.page_size,
-        n_pages=args.n_pages, max_len=args.max_len,
+        *load(args.model_name, args.pretrained, 0), n_slots=args.n_slots,
+        page_size=args.page_size, n_pages=args.n_pages, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk,
         prefix_cache=not args.no_prefix_cache, attend_impl=args.attend_impl,
         kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
-        device=args.device)
+        device=args.device, max_queue=args.max_queue, speculate=speculate,
+        spec_k=args.spec_k, decode_horizon=args.decode_horizon)
     out = {"kv_report": engine.kv_report()}
     if args.weight_dtype is not None:
         out["weight_report"] = engine.weight_report()
     print(json.dumps(out))
+
+    if args.http_port is not None:
+        import signal
+
+        server, worker = serve_http(engine, port=args.http_port,
+                                    tokenizer=tokenizer)
+        print(json.dumps({
+            "serving": f"http://127.0.0.1:{server.server_address[1]}",
+            "endpoints": ["/generate", "/healthz", "/readyz"]}), flush=True)
+        stop = threading.Event()
+        signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+        try:
+            while not stop.wait(timeout=1.0):
+                pass
+            # refuse new work (503 + Retry-After), finish what is in
+            # flight, then exit: a SIGTERM loses no accepted request
+            print(json.dumps({"draining": True}), flush=True)
+            worker.stop(drain=True)
+        except KeyboardInterrupt:
+            worker.stop()
+        server.shutdown()
+        server.server_close()
+        worker.join(timeout=5.0)
+        return
+
     prompts = [[int(t) for t in ids.split(",")] for ids in args.prompt_ids]
+    for text in args.prompt:
+        ids = tokenizer(text)["input_ids"]
+        if ids and isinstance(ids[0], list):
+            ids = ids[0]
+        prompts.append(ids)
     if not prompts:
-        raise SystemExit("pass at least one --prompt-ids")
+        raise SystemExit("pass at least one --prompt-ids / --prompt (or "
+                         "--http-port for the online endpoint)")
     requests = [Request(prompt_ids=p, max_new_tokens=args.steps,
                         temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed + i,
-                        eos_id=args.eos_id)
+                        eos_id=args.eos_id, priority=args.priority,
+                        deadline_s=args.deadline_s)
                 for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
     results = generate_many(engine, requests)
@@ -113,10 +247,13 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(engine.device)
     wall = time.perf_counter() - t0
     for res in results:
-        print(json.dumps({"request_id": res.request_id,
-                          "finish_reason": res.finish_reason,
-                          "latency_s": round(res.latency_s, 4),
-                          "token_ids": res.token_ids}))
+        line = {"request_id": res.request_id,
+                "finish_reason": res.finish_reason,
+                "latency_s": round(res.latency_s, 4),
+                "token_ids": res.token_ids}
+        if tokenizer is not None:
+            line["text"] = tokenizer.decode(res.token_ids)
+        print(json.dumps(line))
     print(json.dumps({"stats": {**throughput_stats(results, wall, engine),
                                 "device": str(engine.device)}}))
 

@@ -34,9 +34,20 @@ quantizes the projection, embedding and head leaves block-wise, and every
 standard-form product of the forward then runs the block-dequant kernel
 K7 on the card (``ops/quantized_matmul.py``).
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative decoding, decode horizons, multi-LoRA adapters, the
-host KV tier, sharded plans and pools.
+Speculative decoding (``speculate=``, ``serve/spec.py``): a drafter
+proposes up to k tokens per slot and ONE ``[S, k+1]`` verify forward
+(``ModelPrograms.verify_for``: K4 at T = k + 1 on the card) draws the
+target token at every position from the decode step's (seed, position)
+stream; a draft is accepted when it equals that draw, so the emitted
+tokens are always the target sampler's own.
+
+Decode horizons (``decode_horizon=K``): K decode steps per host dispatch
+(``ModelPrograms.horizon_for``), with the live, budget and EOS masks kept
+on the device and ONE ``[n_slots, K]`` read per horizon, double-buffered
+in ``step()``: horizon h is launched before h - 1 is booked. Eager torch
+still launches every kernel from the host, so a horizon saves the
+per-step read-back and the host's booking between steps, not the
+launches.
 """
 from __future__ import annotations
 
@@ -50,8 +61,9 @@ from ..models.registry import ModelBundle, family_module
 from ..ops.paged_decode import HEAD_DIMS, paged_decode_eligible
 from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
                        kv_page_bytes, make_attend, PagePool,
-                       pages_for_tokens, pool_nbytes)
+                       pages_for_tokens, pool_nbytes, TRASH_PAGE)
 from .scheduler import Admission, Request, RequestResult, Scheduler
+from .spec import Drafter, NgramDrafter, new_spec_counters
 from .weights import (params_nbytes, require_llama, store_weights,
                       weight_bytes_by_dtype, weight_dtype_name)
 
@@ -140,6 +152,124 @@ def default_prefill_buckets(max_pages: int, page_size: int) -> tuple:
         b *= 2
     buckets.append(cap)
     return tuple(buckets)
+
+
+def validate_prefill_buckets(buckets: tuple, *, max_pages: int,
+                             page_size: int, max_model_len: int) -> tuple:
+    """Buckets must cover every admissible prompt and stay inside the
+    page capacity (``commit_prefill`` indexes the table row by page), so
+    an unservable bucket set fails at construction, not after a request
+    holds a slot and pages."""
+    buckets = tuple(sorted(buckets))
+    cap = max_pages * page_size
+    if buckets[-1] < min(max_model_len - 1, cap):
+        raise ValueError(
+            f"prefill_buckets {buckets} cannot cover the largest "
+            f"admissible prompt ({min(max_model_len - 1, cap)} tokens)")
+    if buckets[-1] > cap:
+        raise ValueError(
+            f"prefill bucket {buckets[-1]} exceeds the per-slot page "
+            f"capacity {cap}")
+    return buckets
+
+
+def derived_pool_metrics(*, pool: PagePool, cached_pages: int, n_slots: int,
+                         decode_steps: int, decode_tokens: int,
+                         admitted: int, prefix_hits: int,
+                         lat: "LatencyMeter", bytes_per_page: int,
+                         pool_dtype: str, host_dispatches: int,
+                         horizon_ksum: int) -> dict:
+    """The derived tail of stats(): pool gauges, the prefix hit rate,
+    decode occupancy, the dispatch amortization of a decode horizon
+    (``host_dispatches``, the raw ``horizon_ksum`` and their means) and
+    latency. The host-tier gauges are present as zeros, so the schema is
+    the JAX engine's whether or not a tier exists (the port has none)."""
+    held = pool.capacity - pool.n_free
+    return {
+        "host_tier_bytes": 0, "host_tier_budget_bytes": 0,
+        "host_tier_records": 0, "spilled_pages": 0,
+        "restore_hits": 0, "restore_misses": 0,
+        "n_slots": n_slots,
+        "pool_dtype": pool_dtype,
+        "bytes_per_page": bytes_per_page,
+        "pages_capacity": pool.capacity,
+        "pages_free": pool.n_free,
+        "pages_held": held,
+        "pages_cached": cached_pages,
+        "pages_cached_bytes": cached_pages * bytes_per_page,
+        "pool_occupancy": (round(held / pool.capacity, 3)
+                           if pool.capacity else 0.0),
+        "prefix_hit_rate": (round(prefix_hits / admitted, 3)
+                            if admitted else 0.0),
+        "decode_steps": decode_steps,
+        "decode_tokens": decode_tokens,
+        "decode_occupancy": (round(
+            decode_tokens / (decode_steps * n_slots), 3)
+            if decode_steps else 0.0),
+        "host_dispatches": host_dispatches,
+        "horizon_ksum": horizon_ksum,
+        "tokens_per_dispatch": (round(decode_tokens / host_dispatches, 3)
+                                if host_dispatches else 0.0),
+        "horizon_effective": (round(horizon_ksum / host_dispatches, 3)
+                              if host_dispatches else 0.0),
+        "ttft_s_avg": lat.ttft_avg(),
+        "itl_s_avg": lat.itl_avg(),
+    }
+
+
+def spec_metrics(spec: dict, *, decode_steps: int, decode_tokens: int,
+                 drafter: Optional[Drafter]) -> dict:
+    """The speculation tail of stats(): drafted / accepted / rejected
+    counts, the acceptance rate and tokens per decode iteration.
+    ``spec_acceptance_rate`` is left out until something was drafted: a
+    0.0 would read as "0% acceptance" where nothing has run yet."""
+    drafted = spec["tokens_drafted"]
+    out = {
+        "spec_steps": spec["spec_steps"],
+        "spec_tokens_drafted": drafted,
+        "spec_tokens_accepted": spec["tokens_accepted"],
+        "spec_tokens_rejected": spec["tokens_rejected"],
+        "decode_tokens_per_step": (round(decode_tokens / decode_steps, 3)
+                                   if decode_steps else 0.0),
+    }
+    if drafted:
+        out["spec_acceptance_rate"] = round(
+            spec["tokens_accepted"] / drafted, 3)
+    if drafter is not None:
+        out.update(drafter.stats())
+    return out
+
+
+def resolve_drafter(speculate, *, spec_k: int,
+                    n_slots: Optional[int] = None,
+                    device: Optional[torch.device] = None
+                    ) -> Optional[Drafter]:
+    """The engine's ``speculate=``: None / "off" disables, "ngram" is the
+    prompt-lookup drafter at depth ``spec_k``, and a
+    :class:`~.spec.Drafter` instance rides as it is (its own ``k``
+    wins). A drafter with per-slot state must cover the engine's slots,
+    and one with a device must be on the engine's."""
+    if speculate is None or speculate == "off":
+        return None
+    if speculate == "ngram":
+        return NgramDrafter(k=spec_k)
+    if isinstance(speculate, Drafter):
+        drafter_slots = getattr(speculate, "n_slots", None)
+        if (n_slots is not None and drafter_slots is not None
+                and drafter_slots < n_slots):
+            raise ValueError(
+                f"drafter covers {drafter_slots} slots but the engine "
+                f"decodes {n_slots}: build the drafter with n_slots >= "
+                f"the engine's")
+        drafter_dev = getattr(speculate, "device", None)
+        if (device is not None and drafter_dev is not None
+                and drafter_dev.type != device.type):
+            raise ValueError(
+                f"drafter runs on {drafter_dev} but the engine on "
+                f"{device}: build the drafter with the engine's device")
+        return speculate
+    raise ValueError(f"speculate must be None, 'off', 'ngram', or a "
+                     f"Drafter instance, got {speculate!r}")
 
 
 class LatencyMeter:
@@ -232,25 +362,124 @@ def advance_prefill_chunks(programs: "ModelPrograms", pages: dict,
     return finished
 
 
-def decode_dev(programs: "ModelPrograms", sched: Scheduler) -> dict:
-    """The device-resident decode tensors, rebuilt after a scheduler
-    event, plus the host-known ``stochastic`` flag that gates the sort."""
+_DEV_KEYS = ("tokens", "lengths", "tables", "seeds", "temps", "top_ks",
+             "top_ps", "actives")
+
+
+def decode_dev(programs: "ModelPrograms", sched: Scheduler,
+               kind: str = "plain", keys=_DEV_KEYS) -> dict:
+    """The device-resident decode tensors of one ``kind`` ("plain",
+    "spec" or "horizon"), rebuilt after a scheduler event, plus the
+    host-known ``stochastic`` flag that gates the sort."""
     arr = sched.decode_arrays()
-    dev = {key: programs.to_device(arr[key])
-           for key in ("tokens", "lengths", "tables", "seeds", "temps",
-                       "top_ks", "top_ps", "actives")}
+    dev = {key: programs.to_device(arr[key]) for key in keys}
+    dev["kind"] = kind
     dev["stochastic"] = bool((arr["temps"][arr["actives"]] > 0).any())
     return dev
 
 
-def run_decode_iteration(programs: "ModelPrograms", pages: dict,
-                         sched: Scheduler, dev: Optional[dict]) \
-        -> tuple:
-    """ONE decode step over the active slots with the device-resident
-    tensors. Returns (finished, tokens emitted, dev); the caller drops
-    ``dev`` when a finished slot leaves the batch."""
+def run_spec_decode(programs: "ModelPrograms", pages: dict,
+                    sched: Scheduler, drafter: Drafter, spec: dict,
+                    dev: Optional[dict]):
+    """One SPECULATIVE decode iteration over the decoding slots:
+
+    1. drafting on the host, each slot's candidates clipped to its
+       remaining token budget and the position table;
+    2. lookahead page growth (``ensure_lookahead``: a slot that cannot
+       get its speculated positions' pages drafts less, it never
+       preempts);
+    3. ONE ``[S, k+1]`` verify forward (``verify_for``), which writes
+       every candidate's k/v and draws the target token at every
+       position from the decode step's (seed, position) stream;
+    4. acceptance: a draft is accepted iff it equals the target's draw;
+       the emitted run is the accepted prefix plus the first
+       disagreeing draw. Lengths roll back on the device (the verify
+       returns ``lengths + n_acc + 1``); the dead k/v past them is
+       overwritten by the next write.
+
+    ``dev`` is the engine's device cache (kind "spec"): a steady
+    iteration uploads the candidate ids and their count and reads back
+    (targets, n_acc). Returns (finished, tokens emitted, dev), or None
+    when no slot drafted anything: the caller then runs the plain step,
+    which costs a (k+1)-th of the padded verify."""
     active = sched.active_indices()
-    if dev is None:
+    k = int(drafter.k)
+    t = k + 1
+    contexts, budgets = {}, {}
+    for i in active:
+        slot = sched.slots[i]
+        contexts[i] = list(slot.request.prompt_ids) + list(slot.generated)
+        budgets[i] = max(0, min(
+            k,
+            # a draft past the request's own budget is never emitted
+            slot.request.max_new_tokens - len(slot.generated) - 1,
+            # the verify writes positions up to cache_len + drafts
+            sched.max_len - 1 - slot.cache_len))
+    proposals = drafter.propose_many(contexts, budgets)
+    if not any(proposals.get(i) and budgets[i] > 0 for i in active):
+        return None
+    ids = np.zeros((sched.n_slots, t), np.int32)
+    n_valid = np.ones(sched.n_slots, np.int32)
+    grew = False
+    for i in active:
+        slot = sched.slots[i]
+        ids[i, 0] = slot.generated[slot.replay_pos]
+        props = [int(x) for x in (proposals.get(i) or [])][:budgets[i]]
+        n_pages_before = len(slot.pages)
+        granted = sched.ensure_lookahead(i, len(props))
+        grew = grew or len(slot.pages) != n_pages_before
+        props = props[:granted]
+        ids[i, 1:1 + len(props)] = props
+        n_valid[i] = 1 + len(props)
+    if dev is None or dev.get("kind") != "spec":
+        dev = decode_dev(programs, sched, "spec")
+    elif grew:      # lookahead growth extended a block table mid-flight
+        dev["tables"] = programs.to_device(sched.decode_arrays()["tables"])
+    # every active slot at temperature 0: the target draw is the argmax
+    # and the verify skips the t-position sorted-space sampler
+    greedy = all(sched.slots[i].request.temperature == 0.0 for i in active)
+    programs.verify_calls += 1
+    targets, n_acc, dev["lengths"] = programs.verify_for(t, greedy=greedy)(
+        programs.params, pages, programs.to_device(ids), dev["lengths"],
+        dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
+        dev["top_ps"], dev["actives"], programs.to_device(n_valid))
+    targets = targets.cpu().numpy()
+    n_acc = n_acc.cpu().numpy()
+    finished, emitted_total = [], 0
+    for i in active:
+        n_d = int(n_valid[i]) - 1
+        acc = int(n_acc[i])
+        spec["tokens_drafted"] += n_d
+        spec["tokens_accepted"] += acc
+        spec["tokens_rejected"] += n_d - acc
+        for j in range(acc + 1):
+            emitted_total += 1
+            res = sched.record_token(i, int(targets[i, j]),
+                                     from_decode=True)
+            if res is not None:     # eos / length mid-run: the rest of the
+                finished.append(res)   # accepted run goes with the slot
+                break
+    spec["spec_steps"] += 1
+    return finished, emitted_total, dev
+
+
+def run_decode_iteration(programs: "ModelPrograms", pages: dict,
+                         sched: Scheduler, drafter: Optional[Drafter],
+                         spec: dict, dev: Optional[dict]) -> tuple:
+    """ONE decode iteration over the active slots: speculative when a
+    drafter is configured, no active slot is replaying (a replay rewrites
+    k/v through the single-token step that wrote it) and some slot
+    drafted; otherwise the plain step with its device-resident tensors.
+    The two keep separate device caches keyed by ``kind``. Returns
+    (finished, tokens emitted, dev); the caller drops ``dev`` when a
+    finished slot leaves the batch."""
+    active = sched.active_indices()
+    if drafter is not None and not any(sched.slots[i].replaying
+                                       for i in active):
+        out = run_spec_decode(programs, pages, sched, drafter, spec, dev)
+        if out is not None:
+            return out
+    if dev is None or dev.get("kind") != "plain":
         dev = decode_dev(programs, sched)
     nxt, new_len = programs._decode(
         programs.params, pages, dev["tokens"], dev["lengths"],
@@ -267,11 +496,85 @@ def run_decode_iteration(programs: "ModelPrograms", pages: dict,
     return finished, len(active), dev
 
 
+def horizon_dev(programs: "ModelPrograms", sched: Scheduler) -> dict:
+    """The device-resident tensors of a decode horizon (kind "horizon"):
+    the plain set plus the per-slot budget and EOS lanes the in-device
+    masks read. Built at a horizon boundary, where host and device agree;
+    between boundaries each horizon's outputs feed the next one's inputs
+    without a read-back."""
+    return decode_dev(programs, sched, "horizon",
+                      _DEV_KEYS + ("budgets", "eos_ids"))
+
+
+def dispatch_horizon(programs: "ModelPrograms", pages: dict,
+                     sched: Scheduler, dev: dict, k: int) -> dict:
+    """Launch ONE K-step horizon without waiting for it. The block tables
+    upload every dispatch (they are host-owned and may have grown through
+    ``reserve_horizon``); tokens, lengths, live lanes and budgets stay on
+    the device. A slot that finished inside a block not yet booked is
+    dead on the device, so its stale table row is masked to the trash
+    page there and its freed pages may go to a later admission.
+
+    On the card the ``[n_slots, k]`` block is copied to pinned host
+    memory behind an event right after its kernels, so booking it waits
+    for this horizon alone and not for one launched after it. Returns
+    the in-flight record :func:`process_horizon_block` books."""
+    tables = np.zeros((sched.n_slots, sched.max_pages), np.int32)
+    active = []
+    for i in sched.active_indices():
+        tables[i] = sched.table_row(i)
+        active.append((i, sched.slots[i].request.request_id))
+    dev["tables"] = programs.to_device(tables)
+    (block, dev["tokens"], dev["lengths"], dev["actives"],
+     dev["budgets"]) = programs.horizon_for(k)(
+        programs.params, pages, dev["tokens"], dev["lengths"],
+        dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
+        dev["top_ps"], dev["actives"], dev["budgets"], dev["eos_ids"],
+        stochastic=dev["stochastic"])
+    done = None
+    if block.is_cuda:
+        host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+        host.copy_(block, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        block = host
+    return {"block": block, "done": done, "k": k, "active": active}
+
+
+def process_horizon_block(sched: Scheduler, inflight: dict) -> tuple:
+    """Book one horizon's ``[n_slots, k]`` token block: the ONE blocking
+    read of a horizon. Each slot's tokens record in order through the
+    same ``record_token`` the K = 1 path uses and stop at the first
+    finish (its eos-then-budget rule is the device's live-mask update, so
+    the host stops where the lane died). A slot that finished in an
+    earlier block, or was evicted at a boundary, is skipped by request
+    id. Returns (finished, tokens emitted)."""
+    if inflight["done"] is not None:
+        inflight["done"].synchronize()
+    block = inflight["block"].numpy()
+    finished, emitted = [], 0
+    for slot_idx, rid in inflight["active"]:
+        slot = sched.slots[slot_idx]
+        if slot is None or slot.request.request_id != rid:
+            continue
+        for j in range(inflight["k"]):
+            res = sched.record_token(slot_idx, int(block[slot_idx, j]),
+                                     from_decode=True)
+            emitted += 1
+            if res is not None:
+                finished.append(res)
+                break
+    return finished, emitted
+
+
 def build_kv_report(programs: "ModelPrograms", *, page_size: int,
                     pool: PagePool, cached_pages: int, n_slots: int,
-                    max_pages: int, pool_bytes: int) -> dict:
+                    max_pages: int, pool_bytes: int,
+                    decode_horizon: int = 1) -> dict:
     """The byte table for one engine's pool, priced at its own kv_dtype
-    (scales included under int8) beside the fp32 per-page cost."""
+    (scales included under int8) beside the fp32 per-page cost, and the
+    horizon's price: one host read of ``[n_slots, K]`` int32 per K
+    steps."""
     kv_dtype = programs.kv_dtype
     per_page = kv_page_bytes(programs.config, page_size=page_size,
                              kv_dtype=kv_dtype)
@@ -290,6 +593,9 @@ def build_kv_report(programs: "ModelPrograms", *, page_size: int,
         "dense_equivalent_bytes": kv_page_bytes(
             programs.config, page_size=page_size,
             n_pages=n_slots * max_pages, kv_dtype=kv_dtype),
+        "decode_horizon": decode_horizon,
+        "horizon_block_bytes": n_slots * decode_horizon * 4,
+        "dispatches_per_step": round(1 / decode_horizon, 4),
     }
 
 
@@ -377,6 +683,8 @@ class ModelPrograms:
         self._copy_fn = copy_pages
         # prefill FORWARD count: bucketed prefills and chunk forwards
         self.prefill_calls = 0
+        # speculative verify forwards
+        self.verify_calls = 0
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -400,6 +708,91 @@ class ModelPrograms:
                              top_ks, top_ps, stochastic=stochastic)
         nxt = torch.where(actives, nxt, 0)
         return nxt, torch.where(actives, lengths + 1, lengths)
+
+    def horizon_for(self, k: int):
+        """The K-step decode horizon: ``fn(params, pages, tokens, lengths,
+        tables, seeds, temps, top_ks, top_ps, live, budgets, eos_ids, *,
+        stochastic)`` runs K decode steps with no host read between them.
+        Each step is ``_decode`` with the live mask threaded through: a
+        lane dies where the host's ``record_token`` would finish it (EOS
+        first, ``eos_ids >= 0`` guarding the no-EOS case, then the
+        budget), after which its table is the trash page (writes and
+        reads), its tokens 0 and its length and budget frozen. The draw
+        is position-keyed, so the K steps give the tokens K single steps
+        give. The pools update in place.
+
+        Returns ``(block [n_slots, K], tokens, lengths, live, budgets)``;
+        all but the block are the next horizon's device-resident
+        inputs."""
+        if k < 1:
+            raise ValueError(f"decode horizon must be >= 1, got {k}")
+
+        def fn(params, pages, tokens, lengths, tables, seeds, temps, top_ks,
+               top_ps, live, budgets, eos_ids, *, stochastic: bool):
+            block = []
+            for _ in range(k):
+                eff_tables = torch.where(live[:, None], tables, TRASH_PAGE)
+                attend = self.make_attend(eff_tables, lengths)
+                logits, _ = self.mod.paged_decode_step(
+                    self.config, params, tokens[:, None], lengths, pages,
+                    attend)
+                nxt = _sample_tokens(logits.float(), seeds, lengths + 1,
+                                     temps, top_ks, top_ps,
+                                     stochastic=stochastic)
+                nxt = torch.where(live, nxt, 0)
+                budgets = torch.where(live, budgets - 1, budgets)
+                hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
+                lengths = torch.where(live, lengths + 1, lengths)
+                live = live & ~hit_eos & (budgets > 0)
+                tokens = nxt
+                block.append(nxt)
+            return torch.stack(block, dim=1), tokens, lengths, live, budgets
+
+        return fn
+
+    def verify_for(self, t: int, greedy: bool = False):
+        """The speculative verify forward: ``fn(params, pages, ids [S, t],
+        lengths, tables, seeds, temps, top_ks, top_ps, actives, n_valid)``.
+        Row 0 of each slot is its newest sampled token, rows 1.. the
+        drafter's candidates, zero-padded; ``n_valid`` [S] sends each pad
+        tail's writes to the trash page, as ``chunk_for`` does. ONE
+        forward through the paged path (K4 at T = t on the card) with the
+        logits of every position, and the position-keyed target draw at
+        every row: ``targets[s, j]`` is what the decode step would sample
+        at position ``lengths[s] + 1 + j`` (the argmax under ``greedy``,
+        which the engine picks when every active slot is at temperature
+        0). ``n_acc`` counts the leading drafts equal to their target, and
+        ``new_lengths`` is ``lengths + n_acc + 1`` on the active slots,
+        computed on the device. Returns (targets [S, t], n_acc [S],
+        new_lengths [S]); the pools update in place."""
+        def fn(params, pages, ids, lengths, tables, seeds, temps, top_ks,
+               top_ps, actives, n_valid):
+            attend = self.make_attend(tables, lengths, n_valid=n_valid)
+            logits, _ = self.mod.paged_decode_step(
+                self.config, params, ids, lengths, pages, attend,
+                all_logits=True)
+            logits = logits.float()
+            s = ids.shape[0]
+            steps = torch.arange(t, device=ids.device)
+            if greedy:
+                targets = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                def rows(x):
+                    return x[:, None].expand(s, t).reshape(s * t)
+
+                pos = (lengths[:, None] + 1 + steps[None, :]).reshape(s * t)
+                targets = _sample_tokens(
+                    logits.reshape(s * t, -1), rows(seeds), pos, rows(temps),
+                    rows(top_ks), rows(top_ps), stochastic=True).reshape(s, t)
+            targets = torch.where(actives[:, None], targets, 0)
+            matches = ((ids[:, 1:] == targets[:, :-1])
+                       & (steps[None, :-1] < (n_valid - 1)[:, None]))
+            n_acc = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
+            new_lengths = torch.where(actives, lengths + n_acc + 1, lengths)
+            return targets, n_acc.to(torch.int32), new_lengths.to(
+                lengths.dtype)
+
+        return fn
 
     def prefill_for(self, bucket: int):
         """The bucketed prefill: ``fn(params, ids [1, bucket], last_pos)``
@@ -455,38 +848,54 @@ class ServeEngine:
     """Multi-request generation over a model family's paged decode (every
     family: gpt2, llama, moe, neox).
 
-    Drive it through ``serve/api.py`` (``generate_many``) or directly:
-    ``submit(Request(...))`` then ``step()`` in a loop — each step is one
-    scheduler iteration (deadline expiry, admission, prefill work, growth
-    with preemption, one batched decode) and returns what finished.
-    ``device`` defaults to ``cuda``; ``device="cpu"`` runs the plain
-    PyTorch path. The other knobs mean what they mean in the JAX engine:
-    ``prefix_cache`` (copy-on-write prefix sharing), ``prefill_chunk``,
+    Drive it through ``serve/api.py`` (``generate_many`` / ``serve_http``)
+    or directly: ``submit(Request(...))`` then ``step()`` in a loop — each
+    step is one scheduler iteration (deadline expiry, admission, prefill
+    work, growth with preemption, one batched decode or one decode
+    horizon) and returns what finished. ``device`` defaults to ``cuda``;
+    ``device="cpu"`` runs the plain PyTorch path. The other knobs mean
+    what they mean in the JAX engine: ``prefix_cache`` (copy-on-write
+    prefix sharing), ``prefill_chunk``, ``prefill_buckets``,
     ``attend_impl``, ``kv_dtype`` ("fp32" | "bf16" | "int8"),
-    ``weight_dtype`` ("fp32" | "bf16" | "int8")."""
+    ``weight_dtype`` ("fp32" | "bf16" | "int8"), ``max_queue`` (submits
+    past it are refused with a 429-class ``RefusalError``), ``programs``
+    (a shared :class:`ModelPrograms`, whose device and dtypes then win),
+    ``speculate`` ("ngram" at depth ``spec_k``, or a ``serve/spec.py``
+    Drafter) and ``decode_horizon`` (K fused decode steps per host read;
+    not together with speculation)."""
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  max_len: Optional[int] = None,
+                 prefill_buckets: Optional[tuple] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = True, attend_impl: str = "auto",
                  kv_dtype=None, weight_dtype=None, device=None, plan=None,
-                 shard_kv: bool = False, speculate=None,
-                 max_adapters: Optional[int] = None,
+                 shard_kv: bool = False, max_queue: Optional[int] = None,
+                 programs: Optional[ModelPrograms] = None, speculate=None,
+                 spec_k: int = 4, max_adapters: Optional[int] = None,
                  host_tier_bytes: Optional[int] = None,
                  decode_horizon: int = 1):
-        if speculate not in (None, "off"):
-            _not_ported("speculate=", "'Serve core, the rest' (spec.py)")
-        if decode_horizon != 1:
-            _not_ported("decode_horizon > 1",
-                        "'Serve core, the rest' (horizon_for)")
         if host_tier_bytes is not None:
             _not_ported("host_tier_bytes=", "'Serve fleet' (tiering)")
-        self.programs = ModelPrograms(
+        if decode_horizon < 1:
+            raise ValueError(f"decode_horizon must be >= 1, got "
+                             f"{decode_horizon}")
+        if decode_horizon > 1 and speculate is not None:
+            raise ValueError(
+                f"speculate={speculate!r} with decode_horizon="
+                f"{decode_horizon}: speculative decoding requires K=1 — "
+                f"the verify forward is already multi-token. Drop one of "
+                f"the two knobs.")
+        self.programs = programs if programs is not None else ModelPrograms(
             bundle, params, device=device, attend_impl=attend_impl,
             kv_dtype=kv_dtype, weight_dtype=weight_dtype, plan=plan,
             shard_kv=shard_kv, max_adapters=max_adapters)
         self.device = self.programs.device
+        self.decode_horizon = decode_horizon
+        self.drafter = resolve_drafter(speculate, spec_k=spec_k,
+                                       n_slots=n_slots, device=self.device)
+        self.spec = new_spec_counters()
         self.bundle = self.programs.bundle
         self.kv_dtype = self.programs.kv_dtype
         self.weight_dtype = self.programs.weight_dtype
@@ -516,17 +925,34 @@ class ServeEngine:
         self.scheduler = Scheduler(
             n_slots=n_slots, pool=pool, max_len=self.max_model_len,
             max_pages_per_slot=self.max_pages, prefix_cache=prefix_cache,
+            max_queue=max_queue,
             # mid-page prefix reuse needs the chunked path
-            allow_partial_share=prefill_chunk is not None)
-        self.prefill_buckets = default_prefill_buckets(self.max_pages,
-                                                       page_size)
+            allow_partial_share=prefill_chunk is not None,
+            # admission headroom for the k speculated tokens a verify
+            # writes per running decode
+            spec_lookahead=self.drafter.k if self.drafter else 0,
+            decode_horizon=decode_horizon)
+        if prefill_buckets is None:
+            prefill_buckets = default_prefill_buckets(self.max_pages,
+                                                      page_size)
+        self.prefill_buckets = validate_prefill_buckets(
+            prefill_buckets, max_pages=self.max_pages, page_size=page_size,
+            max_model_len=self.max_model_len)
         self.pages = self.programs.init_device_pages(n_pages, page_size)
         self._pending: dict = {}
         self._dev: Optional[dict] = None
+        # the launched-but-unbooked horizon: the double buffer's slot
+        self._inflight: Optional[dict] = None
         self.draining = False
         self.decode_steps = 0
         self.decode_tokens = 0
+        self.host_dispatches = 0
+        self.horizon_ksum = 0
+        self.stats_seq = 0
         self._lat = LatencyMeter()
+        # set_speculation(False) parks the drafter here, so that
+        # set_speculation(True) restores the same one
+        self._parked_drafter = None
 
     @property
     def params(self):
@@ -550,6 +976,46 @@ class ServeEngine:
         """Stop admitting; in-flight work runs to completion."""
         self.draining = True
 
+    def set_speculation(self, on: bool) -> bool:
+        """Turn speculation on or off at an iteration boundary. Legal
+        mid-stream because spec-on emits the target sampler's own draws:
+        in-flight sequences go on as they would have. No-op (False) on an
+        engine built without a drafter; the admission margin stays at the
+        drafter's k while it is parked. Returns whether speculation is on
+        after the call."""
+        if on and self.decode_horizon > 1:
+            raise ValueError(
+                f"set_speculation(True) with decode_horizon="
+                f"{self.decode_horizon}: speculative decoding requires "
+                f"K=1 — set_decode_horizon(1) first")
+        if on and self.drafter is None and self._parked_drafter is not None:
+            self.drafter = self._parked_drafter
+            self._parked_drafter = None
+            self._dev = None
+        elif not on and self.drafter is not None:
+            self._parked_drafter = self.drafter
+            self.drafter = None
+            self._dev = None
+        return self.drafter is not None
+
+    def set_decode_horizon(self, k: int) -> int:
+        """Set the decode horizon at an iteration boundary. Legal
+        mid-stream because the horizon changes when the host sees tokens,
+        not which tokens exist. A launched block books under its own K;
+        admission margins follow the new K at once. Returns the horizon
+        now in force."""
+        if k < 1:
+            raise ValueError(f"decode_horizon must be >= 1, got {k}")
+        if k > 1 and (self.drafter is not None
+                      or self._parked_drafter is not None):
+            raise ValueError(
+                f"set_decode_horizon({k}) on an engine built with a "
+                f"drafter: speculative decoding requires K=1 — the verify "
+                f"forward is already multi-token")
+        self.decode_horizon = k
+        self.scheduler.decode_horizon = k
+        return self.decode_horizon
+
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
@@ -570,13 +1036,71 @@ class ServeEngine:
         return self.scheduler.record_token(adm.slot_idx, t0,
                                            from_decode=False)
 
+    def _horizon_ready(self) -> bool:
+        """The active batch may run a K-step horizon: the knob is up, no
+        drafter, and no slot is replaying (a replay rewrites k/v through
+        the single-token step that wrote it)."""
+        sched = self.scheduler
+        return (self.decode_horizon > 1 and self.drafter is None
+                and not any(sched.slots[i].replaying
+                            for i in sched.active_indices()))
+
+    def _pipeline_steady(self) -> bool:
+        """The next horizon may launch before the pending one is booked:
+        nothing queued, no prefill in flight, no deadline due. Finishes in
+        the pending block are fine: their lanes are already dead on the
+        device."""
+        sched = self.scheduler
+        return (not sched.queue and not self._pending
+                and not sched.prefilling_indices()
+                and not sched.deadline_due())
+
+    def _note_dispatch(self, k: int) -> None:
+        self.host_dispatches += 1
+        self.horizon_ksum += k
+        self.decode_steps += k
+
     def step(self) -> list:
         """One scheduler iteration: expire deadlines, admit (sharing cached
         prefixes), advance prefill work, grow running decodes (preempting
-        on exhaustion), then ONE batched decode step. Returns the requests
-        that finished."""
+        on exhaustion), then ONE batched decode step, or one K-step
+        horizon. Returns the requests that finished.
+
+        With a horizon the dispatch is double-buffered: in the steady
+        state this launches horizon h and only then books h - 1, so the
+        device computes h while the host books h - 1. Any scheduler event
+        drains the pipeline first (the block books at once and the
+        boundary runs on the host's state), so a finished result surfaces
+        at most one step after its tokens were computed."""
+        self.stats_seq += 1
         finished = []
         sched = self.scheduler
+        if self._inflight is not None:
+            if (self._horizon_ready() and self._pipeline_steady()
+                    and self._dev is not None and sched.active_indices()):
+                pending_k = self._inflight["k"]
+                cov = sched.reserve_horizon(pending_k + self.decode_horizon)
+                # less than one step left once the pending block's steps
+                # are counted: drain instead of launching a dead horizon
+                k_new = min(cov - pending_k, self.decode_horizon,
+                            sched.max_remaining_budget() - pending_k)
+                if k_new >= 1:
+                    nxt = dispatch_horizon(self.programs, self.pages, sched,
+                                           self._dev, k_new)
+                    self._note_dispatch(k_new)
+                    fin, emitted = process_horizon_block(sched,
+                                                         self._inflight)
+                    self._inflight = nxt
+                    self.decode_tokens += emitted
+                    self._lat.note(fin)
+                    return fin
+            # drain: book the pending block now, rebuild the device
+            # tensors after the boundary
+            fin, emitted = process_horizon_block(sched, self._inflight)
+            self._inflight = None
+            self._dev = None
+            self.decode_tokens += emitted
+            finished.extend(fin)
         expired = sched.expire_deadlines()
         if expired:
             self._dev = None
@@ -606,13 +1130,28 @@ class ServeEngine:
             if preempted:
                 self._drop_stale_pending()
         if sched.active_indices():
-            fin, emitted, self._dev = run_decode_iteration(
-                self.programs, self.pages, sched, self._dev)
-            self.decode_steps += 1
-            self.decode_tokens += emitted
-            finished.extend(fin)
-            if fin:
-                self._dev = None          # a slot left the batch
+            if self._horizon_ready():
+                # growth guaranteed every slot's next write, so the
+                # reservation only decides how much of K the pool grants;
+                # the budget clamp keeps the last horizon from running
+                # past every slot's max_new_tokens
+                k0 = max(1, min(sched.reserve_horizon(self.decode_horizon),
+                                self.decode_horizon,
+                                sched.max_remaining_budget()))
+                if self._dev is None or self._dev.get("kind") != "horizon":
+                    self._dev = horizon_dev(self.programs, sched)
+                self._inflight = dispatch_horizon(self.programs, self.pages,
+                                                  sched, self._dev, k0)
+                self._note_dispatch(k0)
+            else:
+                fin, emitted, self._dev = run_decode_iteration(
+                    self.programs, self.pages, sched, self.drafter,
+                    self.spec, self._dev)
+                self._note_dispatch(1)
+                self.decode_tokens += emitted
+                finished.extend(fin)
+                if fin:
+                    self._dev = None          # a slot left the batch
         self._lat.note(finished)
         return finished
 
@@ -635,43 +1174,40 @@ class ServeEngine:
                 if slot is not None and slot.generated}
 
     def stats(self) -> dict:
-        """Host-side metrics snapshot (no device access)."""
+        """Host-side metrics snapshot (no device access, so it answers
+        while the worker thread is mid-iteration). The keys are the JAX
+        engine's but ``prefix_keys`` (the fleet router's directory, 'Serve
+        fleet') and the adapter pool's."""
         sched = self.scheduler
-        pool = sched.pool
         s = {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in sched.stats.items()}
-        held = pool.capacity - pool.n_free
-        cached = sched.cache_pages_held()
-        admitted = s.get("admitted", 0)
-        bytes_per_page = kv_page_bytes(self.config, page_size=self.page_size,
-                                       kv_dtype=self.kv_dtype)
         return {
             **s,
+            "stats_seq": self.stats_seq,
+            "preemptions": s.get("preempted", 0),
+            "decode_horizon": self.decode_horizon,
             "draining": self.draining,
             "max_queue": sched.max_queue,
             "queued": len(sched.queue),
+            "queue_depth_by_priority": sched.queue_depth_by_priority(),
             "active_slots": len(sched.active_indices()),
             "prefilling_slots": len(sched.prefilling_indices()),
             "prefill_calls": self.programs.prefill_calls,
-            "n_slots": self.n_slots,
-            "pool_dtype": self.kv_dtype,
-            "bytes_per_page": bytes_per_page,
-            "pages_capacity": pool.capacity,
-            "pages_free": pool.n_free,
-            "pages_held": held,
-            "pages_cached": cached,
-            "pages_cached_bytes": cached * bytes_per_page,
-            "pool_occupancy": (round(held / pool.capacity, 3)
-                               if pool.capacity else 0.0),
-            "prefix_hit_rate": (round(s.get("prefix_hits", 0) / admitted, 3)
-                                if admitted else 0.0),
-            "decode_steps": self.decode_steps,
-            "decode_tokens": self.decode_tokens,
-            "decode_occupancy": (round(
-                self.decode_tokens / (self.decode_steps * self.n_slots), 3)
-                if self.decode_steps else 0.0),
-            "ttft_s_avg": self._lat.ttft_avg(),
-            "itl_s_avg": self._lat.itl_avg(),
+            **derived_pool_metrics(
+                pool=sched.pool, cached_pages=sched.cache_pages_held(),
+                n_slots=self.n_slots, decode_steps=self.decode_steps,
+                decode_tokens=self.decode_tokens,
+                host_dispatches=self.host_dispatches,
+                horizon_ksum=self.horizon_ksum,
+                admitted=s.get("admitted", 0),
+                prefix_hits=s.get("prefix_hits", 0), lat=self._lat,
+                bytes_per_page=kv_page_bytes(self.config,
+                                             page_size=self.page_size,
+                                             kv_dtype=self.kv_dtype),
+                pool_dtype=self.kv_dtype),
+            **spec_metrics(self.spec, decode_steps=self.decode_steps,
+                           decode_tokens=self.decode_tokens,
+                           drafter=self.drafter),
         }
 
     def kv_report(self) -> dict:
@@ -681,7 +1217,8 @@ class ServeEngine:
             pool=self.scheduler.pool,
             cached_pages=self.scheduler.cache_pages_held(),
             n_slots=self.n_slots, max_pages=self.max_pages,
-            pool_bytes=self.kv_cache_bytes())
+            pool_bytes=self.kv_cache_bytes(),
+            decode_horizon=self.decode_horizon)
 
     def weight_report(self) -> dict:
         """The byte table for this engine's weights."""

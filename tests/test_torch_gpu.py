@@ -2069,3 +2069,94 @@ def test_schedule_at_world_one_on_the_card(cuda, nccl_world_of_one,
     assert used == used0 == [2 * cfg.num_layers] * 3
     n = 2 * cfg.num_layers * 7
     assert sched.counts == {"gather": n, "regather": n}
+
+
+# speculative verify and decode horizons on the card: K4's rows at
+# T = k + 1 against T = 1, the verify forward's logits against the decode
+# steps', and a horizon keeping the pools' storage
+
+
+@pytest.mark.parametrize("k,heads,pool", [
+    (k, heads, pool) for k in (4, 7, 15) for heads in ((8, 2), (16, 2))
+    for pool in ("fp32", "bf16", "int8")])
+def test_verify_rows_against_single_rows(cuda, k, heads, pool):
+    """Row j of a T = k + 1 call against a T = 1 call at ``lengths + j``
+    on the same pages: bitwise where both calls run the same body with
+    the same rows per block (the split body's sums do not depend on the
+    tile otherwise), within the kernel's tolerance where they do not."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    hq, hkv = heads
+    t = k + 1
+    (q, kp, vp, tables, lengths), scales = _case(
+        cuda, gen, t=t, pool=pool, d=128, page=16, hq=hq, hkv=hkv)
+    whole = pd.paged_flash_attend(q, kp, vp, tables, lengths, **scales)
+    rows = torch.cat([pd.paged_flash_attend(
+        q[:, j:j + 1].contiguous(), kp, vp, tables, lengths + j, **scales)
+        for j in range(t)], dim=1)
+    plans = [pd._plan(n, hq // hkv, 128, q.dtype, kp.dtype, tables.shape[1])
+             for n in (t, 1)]
+    if plans[0][:2] == plans[1][:2]:
+        assert torch.equal(whole, rows)
+    else:
+        err = (whole.float() - rows.float()).abs().max().item()
+        assert err <= TOL[pool], (plans, err)
+
+
+def test_verify_logits_against_decode_steps_on_card(cuda):
+    """llama-debug at head_dim 64 in fp32 on the card: one [3, 5] verify
+    forward (all_logits) against five T = 1 decode steps fed the same
+    tokens on a clone of the pools, within 1e-4 of the largest logit, and
+    the engine's speculation emitting the spec-off tokens."""
+    from distributed_training_guide_tpu_torch.models import llama
+    from distributed_training_guide_tpu_torch.serve.kv_pages import (
+        init_pages, make_attend)
+
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    cfg = bundle.config
+    params = bundle.init(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tables = (torch.randperm(3 * 4, generator=gen, device=cuda).int() + 1
+              ).reshape(3, 4)
+    pages = init_pages(cfg, 13, 8, device=cuda)
+    prompt = torch.randint(3, 500, (3, 7), generator=gen, device=cuda)
+    zero = torch.zeros(3, dtype=torch.int32, device=cuda)
+    llama.paged_decode_step(cfg, params, prompt, zero, pages,
+                            make_attend(tables, zero))
+    lens = zero + 7
+    ids = torch.randint(3, 500, (3, 5), generator=gen, device=cuda)
+    other = {n: v.clone() for n, v in pages.items()}
+    got = llama.paged_decode_step(cfg, params, ids, lens, pages,
+                                  make_attend(tables, lens),
+                                  all_logits=True)[0]
+    want = torch.stack([llama.paged_decode_step(
+        cfg, params, ids[:, j:j + 1], lens + j, other,
+        make_attend(tables, lens + j))[0] for j in range(5)], dim=1)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    reqs = [Request(prompt_ids=[9, 8, 7, 9, 8, 7, 9][:3 + i], seed=i,
+                    max_new_tokens=16) for i in range(3)]
+    kw = dict(n_slots=3, page_size=8, max_len=64, device=cuda)
+    off = generate_many(ServeEngine(bundle, params, **kw), reqs)
+    eng = ServeEngine(bundle, params, speculate="ngram", spec_k=4, **kw)
+    on = generate_many(eng, reqs)
+    assert [r.token_ids for r in on] == [r.token_ids for r in off]
+    assert eng.spec["tokens_drafted"] > 0
+
+
+def test_horizon_keeps_the_pools_on_card(cuda):
+    """decode_horizon 4 on the card: the tokens of decode_horizon 1, the
+    same pool storage before and after, fewer host reads than steps."""
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    params = bundle.init(bundle.config, 0, device=cuda)
+    reqs = [Request(prompt_ids=[3 + i, 17, 42][:1 + i % 3], seed=i,
+                    max_new_tokens=9 + i, temperature=0.7 * (i % 2))
+            for i in range(4)]
+    kw = dict(n_slots=3, page_size=8, max_len=64, device=cuda)
+    k1 = generate_many(ServeEngine(bundle, params, **kw), reqs)
+    eng = ServeEngine(bundle, params, decode_horizon=4, **kw)
+    ptrs = {n: eng.pages[n].data_ptr() for n in ("k", "v")}
+    k4 = generate_many(eng, reqs)
+    assert [r.token_ids for r in k4] == [r.token_ids for r in k1]
+    assert all(eng.pages[n].data_ptr() == ptrs[n] for n in ("k", "v"))
+    assert eng.host_dispatches < eng.decode_steps
