@@ -260,7 +260,31 @@ phases, each of which raises on failure:
    and host reads per decode token, the device's idle share, the pools'
    storage kept; (f) ``serve_http`` on 127.0.0.1 (an OS-chosen port):
    three requests, one streamed, each equal to ``generate_many``'s,
-   ``/healthz`` and ``/readyz``.
+   ``/healthz`` and ``/readyz``;
+24. tenants and post-training — (a) K5 (fp32 operands, the FMA body) at
+   the multi-LoRA shapes (llama-3.1-8b's wq / wv a and b products at
+   decode, M 8 over 5 adapter slots, and at a 256-token chunk) and the
+   post objective's (M 8 x 127, K = N = 1, empty groups) and its d_lhs,
+   against ``gmm_reference`` within ``GMM_FP32_REL`` of its largest
+   value, timed beside the plain version, the bound and
+   ``torch._grouped_mm`` on bf16 copies; (b) *serve*'s 8 requests on
+   llama-3.1-8b bf16 at full depth with a pool of 4 seeded random tenants
+   (r 8, wq / wv): adapter 0 gives the adapter-free engine's tokens and
+   logits bit for bit, alone and co-batched with tenants; each tenant's
+   stream co-batched is bitwise its solo stream; 128 K5 launches a
+   forward, all the FMA body; two tenants against engines on their merged
+   weights (a divergence only at a margin within twice the logit error
+   measured on the shared positions); tokens/s, TTFT and ITL beside the
+   adapter-free run; a republish mid-stream keeps the stacks' storage;
+   the int8 base (K7 and K5); (c) the post-training loop on llama-3.2-1b
+   at full width and depth (LoRA r 8, 8 rollouts of 64 new tokens after
+   prompts of 16-64, 3 iterations): REINFORCE with merged publishing (decode
+   after the publishes bitwise a fresh engine on the final policy), with
+   adapter publishing, distillation KL against a seed-1 teacher, a NaN
+   step gating the publish; per iteration the reward, loss, rollout
+   tokens/s, update and publish ms and K1-K6 launches (K6 none), the peak
+   beside ``price_post_colocation``'s bytes, and the llama-3.1-8b
+   colocation priced.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -733,6 +757,9 @@ def phase_timing(torch) -> dict:
     for name, s, t, (hq, hkv), ctx in (
             ("decode", S, 1, (HQ, HKV), MAX_CTX),
             ("chunk", 1, 256, (HQ, HKV), MAX_CTX),
+            # the speculative verify at k 4 (T 5: 8 rows a block at a
+            # group of 4, where decode runs 4)
+            ("verify", S, SPEC_K + 1, (HQ, HKV), MAX_CTX),
             ("decode-qwen3", S, 1, QWEN3_HEADS, MAX_CTX),
             ("decode-1k", S, 1, (HQ, HKV), 1024)):
         lengths = [ctx - t] * s
@@ -2096,7 +2123,10 @@ def phase_grouped_timing(torch) -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     g, k8, e, f = QWEN3_G, QWEN3_TOPK, QWEN3_E, QWEN3_F
     out = {}
-    for name, tokens in (("decode", 8), ("train", 4096)):
+    # "verify": the qwen3 verify forward at k 4 (8 slots x 5 rows = 40
+    # tokens, each routed to its top-8 experts)
+    for name, tokens in (("decode", 8), ("verify", S * (SPEC_K + 1)),
+                         ("train", 4096)):
         m = tokens * k8
         sizes = routed_sizes(torch, gen, tokens, g, k8)
         lhs = torch.randn(m, e, generator=gen, device="cuda").to(bf)
@@ -2737,6 +2767,9 @@ def phase_qmm_timing(torch) -> dict:
     out = {}
     for name, m, (k, n), out_dtype, copies in (
             ("gate-decode", 8, QMM_SHAPES["gate"], torch.bfloat16, 4),
+            # the int8 verify forward at k 4: 8 slots x 5 rows
+            ("gate-verify", S * (SPEC_K + 1), QMM_SHAPES["gate"],
+             torch.bfloat16, 4),
             ("head-decode", 8, QMM_SHAPES["head"], torch.float32, 1),
             ("gate-chunk", 256, QMM_SHAPES["gate"], torch.bfloat16, 4)):
         ws = [(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
@@ -7152,6 +7185,597 @@ def phase_spec_horizon(torch, card: str) -> dict:
             "horizon": horizon, "http": http, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: serve tenants (multi-LoRA through K5) and the post-training loop
+# ---------------------------------------------------------------------------
+
+TENANT_POOL = dict(max_adapters=5, adapter_rank=8, adapter_alpha=16.0)
+TENANT_A_STD, TENANT_B_STD = 0.02, 0.1   # deltas that move greedy tokens
+GMM_FP32_REL = 1e-5        # K5's FMA body against gmm_reference, fp32
+POST_MODEL = "llama-3.2-1b"
+POST_BATCH, POST_NEW, POST_ITERS = 8, 64, 3
+POST_PROMPTS = (16, 64)    # prompt lengths drawn in this range
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch counter (K4 by body)."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+            "flash_dkv": fa.DKV_LAUNCHES,
+            "paged_attend_split": pd.SPLIT_LAUNCHES,
+            "paged_attend_mma": pd.MMA_LAUNCHES,
+            "paged_attend_combine": pd.COMBINE_LAUNCHES,
+            "grouped_matmul": gm.GMM_LAUNCHES, "tgmm": gm.TGMM_LAUNCHES,
+            "quantized_matmul": qm.LAUNCHES}
+
+
+def counts_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def tenant_gmm(torch) -> dict:
+    """(a) K5 at the shapes multi-LoRA serving and the post objective give
+    it (fp32 operands: the FMA body) against ``gmm_reference`` on the
+    card, timed by ``queued_ms`` beside the plain version, the bound (bytes
+    or fp32 operations) and ``torch._grouped_mm`` on bf16 copies where it
+    takes the shape. These launches are checks, not the main path."""
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    counts = (gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES, dict(gm.GMM_BODY_LAUNCHES))
+    dev = torch.device("cuda")
+
+    def sz(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    r = TENANT_POOL["adapter_rank"]
+    # (b)'s decode mix: request i on adapter i % 5; a chunk on adapter 1;
+    # the post batch's continuation lengths, two rollouts empty
+    dec, chunk = sz([2, 2, 2, 1, 1]), sz([0, 256, 0, 0, 0])
+    post = sz([64, 0, 64, 37, 0, 64, 12, 64])
+    m_post = POST_BATCH * (2 * POST_NEW - 1)
+    cases = (("lora-a-decode", 8, 4096, r, dec),
+             ("lora-b-wq-decode", 8, r, 4096, dec),
+             ("lora-b-wv-decode", 8, r, 1024, dec),
+             ("lora-a-chunk", 256, 4096, r, chunk),
+             ("lora-b-wq-chunk", 256, r, 4096, chunk),
+             ("post-objective", m_post, 1, 1, post),
+             ("post-objective-dlhs", m_post, 1, 1, post))
+    out = {}
+    for name, m, k, n, sizes in cases:
+        lhs = torch.randn(m, k, generator=gen, device=dev)
+        std = (TENANT_A_STD if k > r else TENANT_B_STD) if n > 1 else 1.0
+        rhs = torch.randn(sizes.shape[0], k, n, generator=gen,
+                          device=dev) * std
+        if name.endswith("dlhs"):
+            rhs = rhs.transpose(1, 2)          # the backward's rhs^T
+        body = gm._gmm_plan(lhs, rhs)
+        check(body == "fma", f"tenant gmm {name}: body {body}")
+        got = gm.gmm(lhs, rhs, sizes)
+        want = gm.gmm_reference(lhs, rhs, sizes, torch.float32)
+        total = int(sizes.sum())
+        err = (got - want).abs().max().item()
+        bound = GMM_FP32_REL * max(want.abs().max().item(), 1e-30)
+        check(err <= bound and not got[total:].any(),
+              f"tenant gmm {name}: max abs {err} > {bound}")
+        call = lambda: gm.gmm(lhs, rhs, sizes)     # noqa: E731
+        ms = queued_ms(torch, call, 50)
+        plain_ms = cuda_ms(lambda: gm.gmm_reference(lhs, rhs, sizes,
+                                                    torch.float32),
+                           iters=5, warmup=1)
+        lib_ms, lib_call_ms, lib = library_grouped_mm(
+            torch, lhs.to(torch.bfloat16),
+            rhs.to(torch.bfloat16).contiguous(), sizes)
+        row = dict(kernel="grouped_matmul", shape=name, M=m, K=k, N=n,
+                   G=int(sizes.shape[0]), rows=total,
+                   groups_nonempty=int((sizes > 0).sum()), dtype="fp32",
+                   body=body, max_abs_err=err, err_bound=bound, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_call_ms=lib_call_ms,
+                   **gmm_bound(m, k, n, sizes, 4, 4, 4, "float32"))
+        if lib_ms is None:
+            row["library_note"] = ("torch._grouped_mm on bf16 copies: "
+                                   + lib)
+        else:
+            row["library_note"] = ("torch._grouped_mm on bf16 copies of "
+                                   "the operands (not the fp32 function)")
+        row["share_of_bound"] = row["bound_ms"] / ms
+        out[name] = row
+        log(phase="tenants_post", part="(a) K5 at the tenant and post "
+            "shapes", **row)
+        del lhs, rhs, lib
+    gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts[:2]
+    gm.GMM_BODY_LAUNCHES.update(counts[2])
+    return out
+
+
+def tap_programs():
+    """A ``ModelPrograms`` that, while ``rows`` is a dict, keeps every
+    logits row it draws a token from, keyed by (request seed, position):
+    the first token's off the prefill, and each active slot's of each
+    decode step."""
+    from distributed_training_guide_tpu_torch.serve.engine import (
+        ModelPrograms, _sample_tokens)
+
+    class TapPrograms(ModelPrograms):
+        rows = None
+
+        def sample_one(self, logit, request, position):
+            if self.rows is not None:
+                self.rows[(request.seed, position)] = logit.float().clone()
+            return super().sample_one(logit, request, position)
+
+        def _decode(self, params, pages, tokens, lengths, tables, seeds,
+                    temps, top_ks, top_ps, actives, *lora_args,
+                    stochastic: bool):
+            import torch
+
+            attend = self.make_attend(tables, lengths)
+            logits, _ = self.mod.paged_decode_step(
+                self.config, params, tokens[:, None], lengths, pages, attend,
+                **self._lora_kw(lora_args))
+            logits = logits.float()
+            if self.rows is not None:
+                for i in actives.nonzero()[:, 0].tolist():
+                    self.rows[(int(seeds[i]), int(lengths[i]) + 1)] = \
+                        logits[i].clone()
+            nxt = _sample_tokens(logits, seeds, lengths + 1, temps, top_ks,
+                                 top_ps, stochastic=stochastic)
+            nxt = torch.where(actives, nxt, 0)
+            return nxt, torch.where(actives, lengths + 1, lengths)
+
+    return TapPrograms
+
+
+def tenant_payloads(torch, shapes: dict, n: int, seed: int) -> list:
+    """n seeded random adapters on the card (the params['lora'] layout)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [{t: {"a": torch.randn(p["a"], generator=gen, device="cuda")
+                 * TENANT_A_STD,
+                 "b": torch.randn(p["b"], generator=gen, device="cuda")
+                 * TENANT_B_STD} for t, p in shapes.items()}
+            for _ in range(n)]
+
+
+def rows_equal(a: dict, b: dict, seeds) -> int:
+    """The (seed, position) rows of ``seeds`` in ``a``, each bitwise its
+    row in ``b``; returns how many were compared."""
+    keys = [key for key in a if key[0] in seeds]
+    check(keys and all(key in b for key in keys), f"rows of {seeds} "
+          f"missing: {len(keys)} recorded")
+    for key in keys:
+        check(bool((a[key] == b[key]).all()), f"logits row {key} differs")
+    return len(keys)
+
+
+def tenant_run(torch, bundle, programs, specs, common, *, rows=None,
+               timed=False) -> tuple:
+    """``specs`` through a fresh engine on ``programs``; (results, stats
+    or None, the launches of the run, the engine's decode steps and
+    forwards)."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many, throughput_stats)
+
+    programs.rows = rows
+    programs.prefill_calls = 0
+    eng = ServeEngine(bundle, None, programs=programs, **common)
+    before = kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = generate_many(eng, [Request(**s) for s in specs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    programs.rows = None
+    stats = None
+    if timed:
+        stats = throughput_stats(res, wall, eng)
+        stats["itl_s_avg"] = eng.stats()["itl_s_avg"]
+    return (res, stats, counts_since(before),
+            eng.decode_steps + programs.prefill_calls)
+
+
+def tenant_merged(torch, params, pool, payload) -> dict:
+    """The base params with the tenant's deltas merged into wq / wv:
+    ``(W + scale * A @ B)`` summed in fp32, stored bf16 (the other leaves
+    shared)."""
+    layers = dict(params["layers"])
+    attn = dict(layers["attn"])
+    for t, pair in payload.items():
+        w = attn[t]
+        attn[t] = (w.float() + pool.scale * torch.bmm(pair["a"], pair["b"])
+                   ).to(w.dtype)
+    layers["attn"] = attn
+    return {**params, "layers": layers}
+
+
+def first_divergence(a: list, b: list):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def tenant_serve(torch, card: str) -> dict:
+    """(b) tenants on *serve*: llama-3.1-8b at full depth in bf16, 8 slots,
+    page 16, *serve*'s 8 requests, a pool of 5 slots (4 tenants, r 8, wq /
+    wv, seeded random adapters), bucketed."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            ServeEngine)
+    from distributed_training_guide_tpu_torch.serve.adapters import \
+        adapter_shapes
+
+    t0 = time.perf_counter()
+    bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED, device="cuda")
+    specs = serve_specs(np, cfg.vocab_size)
+    common = dict(n_slots=8, page_size=16, max_len=4096)
+    shapes = adapter_shapes(cfg, rank=TENANT_POOL["adapter_rank"])
+    payloads = tenant_payloads(torch, shapes, 4, SEED + 240)
+    Tap = tap_programs()
+    base = Tap(bundle, params)
+    ten = Tap(bundle, params, **TENANT_POOL)
+    slots = [ten.publish_adapter(p, name=f"tenant{i}")
+             for i, p in enumerate(payloads)]
+    check(slots == [1, 2, 3, 4], f"tenant slots {slots}")
+    on0 = [dict(s, adapter_id=0) for s in specs]
+    mixed = [dict(s, adapter_id=i % TENANT_POOL["max_adapters"])
+             for i, s in enumerate(specs)]
+    launches = {k: 0 for k in kernel_counts()}
+
+    def add(run):
+        for k, v in run.items():
+            launches[k] += v
+
+    rows_base = {}
+    res_base, _, run, _ = tenant_run(torch, bundle, base, on0, common,
+                                     rows=rows_base)
+    add(run)
+    # adapter 0 on the pooled engine: the base's tokens and logits
+    rows0 = {}
+    res0, _, run, _ = tenant_run(torch, bundle, ten, on0, common,
+                                 rows=rows0)
+    add(run)
+    check([r.token_ids for r in res0] == [r.token_ids for r in res_base],
+          "adapter-0 tokens differ from the adapter-free engine's")
+    n0 = rows_equal(rows0, rows_base, set(range(len(specs))))
+    # the mix: tenants co-batched with adapter-0 requests
+    rows_mix = {}
+    body0 = dict(gm.GMM_BODY_LAUNCHES)
+    res_mix, _, run, forwards = tenant_run(torch, bundle, ten, mixed, common,
+                                           rows=rows_mix)
+    add(run)
+    per_forward = 4 * cfg.num_layers      # 2 targets x 2 products a layer
+    check(run["grouped_matmul"] == per_forward * forwards,
+          f"K5 launches {run['grouped_matmul']} for {forwards} forwards "
+          f"(expected {per_forward} a forward)")
+    by_body = {k: v - body0[k] for k, v in gm.GMM_BODY_LAUNCHES.items()}
+    check(by_body["fma"] == run["grouped_matmul"], f"K5 bodies {by_body}")
+    zero_ids = [i for i, s in enumerate(mixed) if s["adapter_id"] == 0]
+    for i in zero_ids:
+        check(res_mix[i].token_ids == res_base[i].token_ids,
+              f"adapter-0 request {i} co-batched with tenants differs")
+    n_mix0 = rows_equal(rows_mix, rows_base, set(zero_ids))
+    moved = sum(res_mix[i].token_ids != res_base[i].token_ids
+                for i in range(len(specs)) if i not in zero_ids)
+    check(moved > 0, "no tenant's adapter moved its tokens")
+    # each tenant alone: its co-batched stream, bit for bit
+    solo = {}
+    for i in (1, 2, 3, 4):
+        rows_solo = {}
+        res, _, run, _ = tenant_run(torch, bundle, ten, [mixed[i]], common,
+                                    rows=rows_solo)
+        add(run)
+        check(res[0].token_ids == res_mix[i].token_ids,
+              f"tenant request {i}: solo and co-batched tokens differ")
+        solo[i] = rows_equal(rows_solo, rows_mix, {mixed[i]["seed"]})
+    log(phase="tenants_post", part="(b) adapter 0 and co-residence",
+        card=card, adapter0_tokens_identical=True,
+        adapter0_rows_bitwise=n0 + n_mix0, solo_rows_bitwise=solo,
+        tenants_moved=moved, k5_per_forward=per_forward,
+        k5_launches_by_body=by_body)
+    # against an engine on the merged weights: the first divergence of a
+    # greedy stream must sit at a margin within twice the logit error
+    # measured over the positions both runs reached with the same tokens
+    merged = {}
+    for i in (1, 2):
+        mp = tenant_merged(torch, params, ten.adapter_pool, payloads[i - 1])
+        rows_m = {}
+        res_m, _, run, _ = tenant_run(torch, bundle, Tap(bundle, mp),
+                                      [dict(mixed[i], adapter_id=0)], common,
+                                      rows=rows_m)
+        add(run)
+        del mp
+        seed, n_prompt = mixed[i]["seed"], len(mixed[i]["prompt_ids"])
+        a, b = res_mix[i].generated_ids, res_m[0].generated_ids
+        div = first_divergence(a, b)
+        upto = len(a) if div is None else div + 1
+        errs = [(rows_mix[(seed, n_prompt + j)]
+                 - rows_m[(seed, n_prompt + j)]).abs().max().item()
+                for j in range(upto)]
+        merged[i] = dict(identical=div is None, first_divergence=div,
+                         logit_err_max=max(errs))
+        if div is not None:
+            top2 = torch.topk(rows_m[(seed, n_prompt + div)], 2).values
+            merged[i]["margin"] = (top2[0] - top2[1]).item()
+    err_bound = max(v["logit_err_max"] for v in merged.values())
+    for i, v in merged.items():
+        if not v["identical"]:
+            check(v["margin"] <= 2 * err_bound,
+                  f"tenant {i} vs merged weights: divergence at margin "
+                  f"{v['margin']} > 2 x {err_bound}")
+    log(phase="tenants_post", part="(b) adapted vs merged weights",
+        card=card, streams=merged, logit_err_bound=err_bound)
+    del rows_base, rows0, rows_mix
+    torch.cuda.empty_cache()
+    # throughput beside the adapter-free run, untapped
+    _, st_base, run, _ = tenant_run(torch, bundle, base, on0, common,
+                                    timed=True)
+    add(run)
+    _, st_mix, run, forwards = tenant_run(torch, bundle, ten, mixed, common,
+                                          timed=True)
+    add(run)
+    timing = {name: {k: st[k] for k in ("tokens_per_s", "ttft_s_p50",
+                                        "itl_s_avg", "wall_s",
+                                        "decode_steps")}
+              for name, st in (("adapter_free", st_base),
+                               ("tenants", st_mix))}
+    log(phase="tenants_post", part="(b) throughput", card=card, **timing,
+        k5_launches=run["grouped_matmul"], forwards=forwards)
+    # a republish into a live slot mid-stream keeps the stacks' storage
+    eng = ServeEngine(bundle, None, programs=ten, **common)
+    for s in mixed:
+        eng.submit(Request(**s))
+    before = kernel_counts()
+    for _ in range(6):
+        eng.step()
+    ptrs = {(t, x): v.data_ptr() for t, p in ten.adapter_stacks.items()
+            for x, v in p.items()}
+    new = tenant_payloads(torch, shapes, 1, SEED + 241)[0]
+    eng.publish_adapter(new, slot=1, force=True)
+    while eng.has_work:
+        eng.step()
+    add(counts_since(before))
+    check(ptrs == {(t, x): v.data_ptr()
+                   for t, p in ten.adapter_stacks.items()
+                   for x, v in p.items()}, "a republish moved the stacks")
+    check(all(torch.equal(ten.adapter_stacks[t][x][:, 1], new[t][x])
+              for t in new for x in ("a", "b")),
+          "the republished slot does not hold the new adapter")
+    del base, ten, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the int8 base: K7 under the base products, K5 under the deltas
+    from distributed_training_guide_tpu_torch.serve.engine import \
+        ModelPrograms
+    i8_base = ModelPrograms(bundle, params, weight_dtype="int8")
+    i8 = ModelPrograms(bundle, params, weight_dtype="int8", **TENANT_POOL)
+    for p in payloads:
+        i8.publish_adapter(p)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_i8_base, _, run, _ = tenant_run(torch, bundle, i8_base, on0, common)
+    add(run)
+    res_i8_0, _, run, _ = tenant_run(torch, bundle, i8, on0, common)
+    add(run)
+    check([r.token_ids for r in res_i8_0]
+          == [r.token_ids for r in res_i8_base],
+          "int8: adapter-0 tokens differ from the adapter-free engine's")
+    res_i8, _, run, forwards = tenant_run(torch, bundle, i8, mixed, common)
+    add(run)
+    check(run["quantized_matmul"] > 0 and run["grouped_matmul"]
+          == per_forward * forwards, f"int8 tenants: launches {run}")
+    check(all(len(r.generated_ids) == 32 and all(
+        0 <= x < cfg.vocab_size for x in r.generated_ids) for r in res_i8),
+        "int8 tenants: a stream ended early or left the vocabulary")
+    log(phase="tenants_post", part="(b) int8 base", card=card,
+        adapter0_tokens_identical=True, launches=run,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        seconds=time.perf_counter() - t0)
+    del i8, i8_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"timing": timing, "merged": merged, "launches": launches,
+            "k5_per_forward": per_forward, "k5_by_body": by_body}
+
+
+def post_prompts(np, vocab: int) -> list:
+    rng = np.random.default_rng(SEED + 24)
+    lo, hi = POST_PROMPTS
+    lens = [lo, hi] + [int(x) for x in rng.integers(lo, hi + 1,
+                                                    POST_BATCH - 2)]
+    return [[int(x) for x in rng.integers(3, vocab, n)] for n in lens]
+
+
+def post_loop_run(torch, card: str, name: str, *, objective="reinforce",
+                  mode="merged", nan_step=None) -> dict:
+    """(c) one post-training loop on llama-3.2-1b at full width and depth
+    (bf16 compute, fp32 params; LoRA r 8 on wq / wv; 8 rollouts of 64 new
+    tokens at temperature 1.0; ``POST_ITERS`` iterations): per iteration
+    the loop's metrics and every kernel's launches; the peak beside
+    ``price_post_colocation``."""
+    import os
+
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.lora import lora_bundle
+    from distributed_training_guide_tpu_torch.post import (
+        PostTrainingLoop, ProgrammaticScorer, TeacherScorer, band_reward,
+        merged_params)
+    from distributed_training_guide_tpu_torch.serve import ServeEngine
+    from distributed_training_guide_tpu_torch.train.optimizer import \
+        adamw_cosine
+    from distributed_training_guide_tpu_torch.train.preflight import \
+        price_post_colocation
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    base = get_model(POST_MODEL, dtype=torch.bfloat16)
+    cfg = base.config
+    bundle = lora_bundle(base, rank=8, alpha=16.0)
+    env = os.environ.get("DTG_FAULT_NAN_LOSS_STEP")
+    if nan_step is not None:
+        os.environ["DTG_FAULT_NAN_LOSS_STEP"] = str(nan_step)
+    try:
+        trainer = Trainer(bundle=bundle, optimizer=adamw_cosine(1e-2),
+                          lora_only=True, guard_policy="skip",
+                          device="cuda")
+    finally:
+        if env is None:
+            os.environ.pop("DTG_FAULT_NAN_LOSS_STEP", None)
+        else:
+            os.environ["DTG_FAULT_NAN_LOSS_STEP"] = env
+    prompts = post_prompts(np, cfg.vocab_size)
+    max_len = POST_PROMPTS[1] + POST_NEW + 16
+    teacher = base if objective == "distill_kl" else None
+    colo = price_post_colocation(trainer, n_slots=POST_BATCH, page_size=16,
+                                 max_len=max_len, teacher_bundle=teacher)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(SEED)
+    engine = ServeEngine(
+        base, merged_params(trainer, state), n_slots=POST_BATCH,
+        page_size=16, max_len=max_len,
+        **({"max_adapters": 2, "adapter_rank": 8} if mode == "adapter"
+           else {}))
+    scorer = (TeacherScorer(base, base.init(cfg, SEED + 1, device="cuda"))
+              if teacher is not None
+              else ProgrammaticScorer(band_reward(cfg.vocab_size // 2)))
+    loop = PostTrainingLoop(
+        trainer, engine, scorer, prompts, state=state, objective=objective,
+        max_new_tokens=POST_NEW, temperature=1.0, base_seed=SEED,
+        publish_mode=mode)
+    iters, launches = [], {k: 0 for k in kernel_counts()}
+    for _ in range(POST_ITERS):
+        before = kernel_counts()
+        m = loop.run_iteration()
+        torch.cuda.synchronize()
+        run = counts_since(before)
+        for k, v in run.items():
+            launches[k] += v
+        check(run["tgmm"] == 0, f"post {name}: K6 launched {run['tgmm']}")
+        check(run["grouped_matmul"] >= 2 and run["flash_dq"] == run[
+            "flash_dkv"] == cfg.num_layers and run["flash_fwd"]
+            == cfg.num_layers * (2 if teacher is not None else 1)
+            and run["paged_attend_split"] > 0,
+            f"post {name}: launches {run}")
+        iters.append({"reward_mean": m["reward_mean"], "loss": m["loss"],
+                      "rollout_tokens_per_s": m["rollout_tokens_per_s"],
+                      "update_ms": 1e3 * m["step_s"],
+                      "publish_ms": m["publish_ms"],
+                      "published": m["published"],
+                      "publish_skipped_nonfinite":
+                          m["publish_skipped_nonfinite"],
+                      "launches": run})
+    peak = torch.cuda.max_memory_allocated()
+    out = {"iterations": iters, "launches": launches,
+           "colocation_bytes": colo["total_bytes"], "peak_bytes": peak}
+    if nan_step is not None:
+        check(iters[nan_step]["publish_skipped_nonfinite"]
+              and not iters[nan_step]["published"]
+              and iters[nan_step + 1]["published"],
+              f"post {name}: the NaN step did not gate the publish")
+    else:
+        check(all(i["published"] for i in iters)
+              and all(math.isfinite(i["loss"]) for i in iters),
+              f"post {name}: {iters}")
+    if mode == "merged" and nan_step is None:
+        # decode after the publishes: a fresh engine on the final policy
+        from distributed_training_guide_tpu_torch.serve import (
+            Request, generate_many)
+
+        fresh = ServeEngine(base, merged_params(trainer, loop.state),
+                            n_slots=POST_BATCH, page_size=16,
+                            max_len=max_len)
+        before = kernel_counts()
+        reqs = [Request(prompt_ids=p, max_new_tokens=16) for p in prompts]
+        got = generate_many(engine, reqs)
+        want = generate_many(fresh, reqs)
+        for k, v in counts_since(before).items():
+            launches[k] += v
+        check([r.token_ids for r in got] == [r.token_ids for r in want],
+              f"post {name}: decode after the publish differs from a "
+              f"fresh engine")
+        from distributed_training_guide_tpu_torch.post.rollout import \
+            pad_bucket
+
+        n = len(prompts[1])
+        ids = torch.zeros(1, pad_bucket(n), dtype=torch.int64, device="cuda")
+        ids[0, :n] = torch.tensor(prompts[1])
+        a = engine.programs.prefill_for(ids.shape[1])(engine.params, ids,
+                                                      n - 1)[0]
+        b = fresh.programs.prefill_for(ids.shape[1])(fresh.params, ids,
+                                                     n - 1)[0]
+        check(torch.equal(a, b), f"post {name}: logits after the publish "
+              f"differ from a fresh engine's")
+        out["publish_bitwise_fresh_engine"] = True
+        del fresh
+    log(phase="tenants_post", part=f"(c) post loop: {name}", card=card,
+        objective=objective, publish_mode=mode, nan_step=nan_step,
+        iterations=iters, colocation_gib=colo["total_bytes"] / 2 ** 30,
+        colocation=colo, peak_gib=peak / 2 ** 30,
+        publish_bitwise_fresh_engine=out.get(
+            "publish_bitwise_fresh_engine"))
+    del loop, engine, scorer, state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def post_colocation_8b(torch) -> dict:
+    """The 8B colocation, priced on the meta device and not run: a LoRA
+    policy of llama-3.1-8b, an int8 engine copy and an 8B teacher."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.lora import lora_bundle
+    from distributed_training_guide_tpu_torch.train.optimizer import \
+        adamw_cosine
+    from distributed_training_guide_tpu_torch.train.preflight import \
+        price_post_colocation
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    base = get_model("llama-3.1-8b", dtype=torch.bfloat16)
+    trainer = Trainer(bundle=lora_bundle(base, rank=8),
+                      optimizer=adamw_cosine(1e-3), lora_only=True,
+                      device="meta")
+    return price_post_colocation(trainer, n_slots=8, page_size=16,
+                                 max_len=4096, weight_dtype="int8",
+                                 teacher_bundle=base)
+
+
+def phase_tenants_post(torch, card: str) -> dict:
+    """Phase 24: (a) K5 at the tenant and post shapes, (b) tenants on
+    *serve*, (c) the post-training loop."""
+    t0 = time.perf_counter()
+    gmm_rows = tenant_gmm(torch)
+    serve = tenant_serve(torch, card)
+    post = {name: post_loop_run(torch, card, name, **kw) for name, kw in (
+        ("reinforce-merged", {}),
+        ("reinforce-adapter", {"mode": "adapter"}),
+        ("distill_kl", {"objective": "distill_kl"}),
+        ("nan-gated", {"nan_step": 1}))}
+    colo8b = post_colocation_8b(torch)
+    log(phase="tenants_post", part="(c) llama-3.1-8b colocation, priced",
+        card=card, gib=colo8b["total_bytes"] / 2 ** 30, **colo8b)
+    launches = dict(serve["launches"])
+    for run in post.values():
+        for k, v in run["launches"].items():
+            launches[k] += v
+    log(phase="tenants_post", seconds=time.perf_counter() - t0, card=card,
+        launches=launches)
+    return {"gmm": gmm_rows, "serve": serve, "post": post,
+            "launches": launches,
+            "post_launches": {k: sum(r["launches"][k] for r in post.values())
+                              for k in launches}}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -7271,6 +7895,7 @@ def main() -> int:
     ch10 = phase_chapter10(torch, smi)
     ovl = phase_overlap(torch, smi)
     spec = phase_spec_horizon(torch, smi)
+    tp = phase_tenants_post(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -7287,7 +7912,9 @@ def main() -> int:
     kernels = [{
         "name": "paged_attend_split", **k4,
         "launches": serve["body_launches"]["split"]
-        + spec["launches"]["paged_attend_split"],
+        + spec["launches"]["paged_attend_split"]
+        + tp["launches"]["paged_attend_split"],
+        "launches_tenants_post": tp["launches"]["paged_attend_split"],
         "launches_spec_horizon": spec["launches"]["paged_attend_split"],
         "max_abs_err": worst["split"], "shape": "decode", "ms": dec["body_ms"],
         "plain_ms": dec["body_plain_ms"], "bound_ms": dec["body_bound_ms"],
@@ -7302,7 +7929,9 @@ def main() -> int:
     }, {
         "name": "paged_attend_mma", **k4,
         "launches": serve["body_launches"]["mma"]
-        + spec["launches"]["paged_attend_mma"],
+        + spec["launches"]["paged_attend_mma"]
+        + tp["launches"]["paged_attend_mma"],
+        "launches_tenants_post": tp["launches"]["paged_attend_mma"],
         "launches_spec_horizon": spec["launches"]["paged_attend_mma"],
         "launches_dense_families": dense["launches"]["paged_attend_mma"],
         "max_abs_err": worst["mma"], "shape": "chunk", "ms": chunk["body_ms"],
@@ -7316,7 +7945,9 @@ def main() -> int:
     }, {
         "name": "paged_attend_combine", **k4,
         "launches": serve["body_launches"]["combine"]
-        + spec["launches"]["paged_attend_combine"],
+        + spec["launches"]["paged_attend_combine"]
+        + tp["launches"]["paged_attend_combine"],
+        "launches_tenants_post": tp["launches"]["paged_attend_combine"],
         "launches_spec_horizon": spec["launches"]["paged_attend_combine"],
         "launches_dense_families": dense["launches"]["paged_attend_combine"],
         "max_abs_err": worst["combine"], "shape": "decode",
@@ -7339,7 +7970,11 @@ def main() -> int:
                          else "flash_bwd.cu"),
             "replaces": f"distributed_training_guide_tpu/ops/"
                         f"flash_attention.py:{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + tp["launches"][name],
+            "launches_tenants_post": tp["launches"][name],
+            "launches_per_post_iteration": {
+                run: [i["launches"][name] for i in r["iterations"]]
+                for run, r in tp["post"].items()},
             "max_abs_err": flash_worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7420,8 +8055,15 @@ def main() -> int:
         + moe_train["launches"]["grouped_matmul"]
         + ch10["launches"]["grouped_matmul"]
         + ovl["launches"]["grouped_matmul"]
-        + spec["launches"]["grouped_matmul"],
+        + spec["launches"]["grouped_matmul"]
+        + tp["launches"]["grouped_matmul"],
         "launches_spec_horizon": spec["launches"]["grouped_matmul"],
+        "launches_tenants_post": tp["launches"]["grouped_matmul"],
+        "launches_per_tenant_forward": tp["serve"]["k5_per_forward"],
+        "launches_by_body_tenants": tp["serve"]["k5_by_body"],
+        "launches_per_post_iteration": {
+            run: [i["launches"]["grouped_matmul"] for i in r["iterations"]]
+            for run, r in tp["post"].items()},
         "launches_overlap": ovl["launches"]["grouped_matmul"],
         "launches_ep_ring_by_body": ovl["ring"]["launches"]["by_body"][
             "grouped_matmul"],
@@ -7443,12 +8085,15 @@ def main() -> int:
         "library_ms": dec["library_ms"],
         "ptxas_registers_spills": ptxas.get("grouped_matmul", {}),
         "shapes": {**{k: {kk: gmm_timing[k].get(kk) for kk in keys}
-                      for k in ("decode", "train", "train-dlhs")},
+                      for k in ("decode", "verify", "train", "train-dlhs")},
                    "ep-window": ch10["window"]["rows"]["fwd"],
                    "ep-window-dlhs": ch10["window"]["rows"]["dlhs"],
                    "ring-hop-window": ovl["hop_window"]["rows"]["fwd"],
                    "ring-hop-window-dlhs": ovl["hop_window"]["rows"][
-                       "dlhs"]},
+                       "dlhs"],
+                   **{k: {kk: v.get(kk) for kk in keys + (
+                       "max_abs_err", "library_note")}
+                      for k, v in tp["gmm"].items()}},
     })
     t = gmm_timing["tgmm-train"]
     tkeys = keys + ("fma_ms", "library_bf16_dy_ms")
@@ -7458,7 +8103,10 @@ def main() -> int:
                   "grouped_matmul.cu",
         "replaces": "distributed_training_guide_tpu/ops/grouped_matmul.py:176",
         "launches": moe_train["launches"]["tgmm"]
-        + ch10["launches"]["tgmm"] + ovl["launches"]["tgmm"],
+        + ch10["launches"]["tgmm"] + ovl["launches"]["tgmm"]
+        + tp["launches"]["tgmm"],
+        "launches_tenants_post": tp["launches"]["tgmm"],
+        "launches_post_path": tp["post_launches"]["tgmm"],
         "launches_overlap": ovl["launches"]["tgmm"],
         "launches_ep_ring_by_body": ovl["ring"]["launches"]["by_body"][
             "tgmm"],
@@ -7489,7 +8137,9 @@ def main() -> int:
         "replaces": "distributed_training_guide_tpu/ops/"
                     "quantized_matmul.py:119",
         "launches": int8_serve["launches"]
-        + spec["launches"]["quantized_matmul"],
+        + spec["launches"]["quantized_matmul"]
+        + tp["launches"]["quantized_matmul"],
+        "launches_tenants_post": tp["launches"]["quantized_matmul"],
         "launches_spec_horizon": spec["launches"]["quantized_matmul"],
         "launches_by_body": int8_serve["launches_by_body"],
         "launches_per_serve_forward": int8_serve["per_forward"],

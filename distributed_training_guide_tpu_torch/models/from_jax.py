@@ -65,3 +65,28 @@ def params_to_numpy(tree):
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def lora_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
+    """The JAX package's LoRA trees, as numpy, to the port's: a LoRA
+    trainer's params (``{"base": ..., "lora": {t: {"a", "b"}}}``), an
+    adapter payload (``{t: {"a" [L, in, r], "b" [L, r, out]}}``, the
+    ``params["lora"]`` subtree ``publish_adapter`` takes) or the engine's
+    adapter stacks (``{t: {"a" [L, G, in, r], "b" [L, G, r, out]}}``).
+    Both packages keep the same keys and shapes, so every leaf crosses as
+    it is (cast to ``dtype`` when given); a tree of another layout is
+    refused, naming what it holds."""
+    def adapters(sub, where):
+        for t, pair in sub.items():
+            if not isinstance(pair, dict) or sorted(pair) != ["a", "b"]:
+                raise ValueError(
+                    f"{where}{t!r} must hold leaves {{'a', 'b'}}, got "
+                    f"{sorted(pair) if isinstance(pair, dict) else pair!r}")
+
+    if not isinstance(tree, dict):
+        raise ValueError(f"a LoRA tree is a dict, got {type(tree).__name__}")
+    if sorted(tree) == ["base", "lora"]:
+        adapters(tree["lora"], "params['lora']")
+    else:
+        adapters(tree, "adapter target ")
+    return params_from_numpy(tree, device=device, dtype=dtype)

@@ -295,12 +295,15 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
                        norm_scale, positions: torch.Tensor, attn_impl,
                        rope: tuple, return_kv: bool = False,
                        window_override=None, attend_override=None,
-                       standard_layout: bool = True, kv_hook=None):
+                       standard_layout: bool = True, kv_hook=None,
+                       wmat=None):
     """norm -> rope'd GQA attention -> output projection (the caller adds
     the residual). ``rope`` is ``layer_rope(config, positions)``.
     ``kv_hook`` (tensor parallelism, ``parallel/plans.py``) maps the k and
     v projections, fused heads last, to the kv heads this rank's q heads
     read.
+    ``wmat`` (the multi-LoRA serving hook, ``_lora_wmat``) is a callable
+    ``(name, h, w) -> out`` replacing each projection's ``_wmat``.
     ``return_kv`` also returns the (rope'd) k/v. ``standard_layout``:
     positions are ``arange`` (what lets "auto" pick the flash kernels).
     ``attend_override`` (the serving engine's paged-KV hook) is a callable
@@ -310,12 +313,15 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
     b, s, _ = x.shape
     d = config.head_size
     cdt = config.dtype
+    if wmat is None:
+        def wmat(name, hh, ww):
+            return _wmat(hh, ww, cdt)
     if norm_scale is None:      # post-norm wiring (OLMo-2)
         h = x
     else:
         h = _rmsnorm(x, norm_scale, config.rms_norm_eps,
                      getattr(config, "norm_plus_one", False))
-    q, k, v = (_wmat(h, attn_params[w], cdt) for w in ("wq", "wk", "wv"))
+    q, k, v = (wmat(w, h, attn_params[w]) for w in ("wq", "wk", "wv"))
     if "bq" in attn_params:
         q = q + attn_params["bq"].to(cdt)
         k = k + attn_params["bk"].to(cdt)
@@ -341,28 +347,32 @@ def attention_sublayer(config, x: torch.Tensor, attn_params: dict,
     if attend_override is not None:
         attn, aux = attend_override(q, k, v, window=window, scale=attn_scale,
                                     softcap=softcap)
-        out = _wmat(attn.reshape(b, s, -1), attn_params["wo"], cdt)
+        out = wmat("wo", attn.reshape(b, s, -1), attn_params["wo"])
         return (out, aux) if return_kv else out
     attn = multihead_attention(q, k, v, causal=True, positions=positions,
                                kv_positions=positions, impl=attn_impl,
                                standard_layout=standard_layout,
                                window=window, scale=attn_scale,
                                logit_softcap=softcap)
-    out = _wmat(attn.reshape(b, s, -1), attn_params["wo"], cdt)
+    out = wmat("wo", attn.reshape(b, s, -1), attn_params["wo"])
     return (out, (k, v)) if return_kv else out
 
 
-def mlp_sublayer(config, h: torch.Tensor, mlp: dict) -> torch.Tensor:
+def mlp_sublayer(config, h: torch.Tensor, mlp: dict,
+                 wmat=None) -> torch.Tensor:
     """Gated MLP on the normed stream ``h`` (``_residuals`` norms it and
-    adds the residual)."""
+    adds the residual); ``wmat`` as in ``attention_sublayer``."""
     cdt = config.dtype
-    gate = _wmat(h, mlp["gate"], cdt)
-    up = _wmat(h, mlp["up"], cdt)
+    if wmat is None:
+        def wmat(name, hh, ww):
+            return _wmat(hh, ww, cdt)
+    gate = wmat("gate", h, mlp["gate"])
+    up = wmat("up", h, mlp["up"])
     gate = ACT_FNS[getattr(config, "act_fn", "silu")](gate)
     # named for the "attn_mlp" remat policy (ops/remat.py)
     with checkpoint_name("mlp_act"):
         act = gate * up
-    return _wmat(act, mlp["down"], cdt)
+    return wmat("down", act, mlp["down"])
 
 
 def embed_tokens(config: LlamaConfig, params: dict,
@@ -472,7 +482,7 @@ class _Whole:
 _WHOLE = _Whole()
 
 
-def _residuals(config, x, layer, attn, layout=_WHOLE):
+def _residuals(config, x, layer, attn, layout=_WHOLE, wmat=None):
     """Residual wiring shared by the training, prefill and paged bodies
     (pre-, post- and sandwich-norm variants). ``attn`` is the attention
     sublayer's output as ``layout`` holds the residual stream; the MLP's
@@ -486,7 +496,8 @@ def _residuals(config, x, layer, attn, layout=_WHOLE):
              if out_norms else attn)
     scale = layer.get("post_attn_norm")      # None: post-norm wiring
     h = x if scale is None else _rmsnorm(x, scale, eps, plus_one)
-    mlp = layout.leave(mlp_sublayer(config, layout.enter(h), layer["mlp"]))
+    mlp = layout.leave(mlp_sublayer(config, layout.enter(h), layer["mlp"],
+                                    wmat))
     return x + (_rmsnorm(mlp, layer["mlp_out_norm"], eps, plus_one)
                 if out_norms else mlp)
 
@@ -664,6 +675,59 @@ def apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     return logits_of_hidden(config, params, x, layout)
 
 
+# ---------------------------------------------------------------------------
+# Batched multi-LoRA (serve/adapters.py): the low-rank delta
+# ``scale * (x @ A_g) @ B_g`` added per target projection as a RAGGED
+# GROUPED GEMM (K5) over rows sorted by adapter (S-LoRA arXiv:2311.03285 /
+# Punica arXiv:2310.18547: the MoE dispatch applied to the serving batch).
+# The base projection is never merged with the delta: over an int8 base
+# the base runs through K7 and the delta through K5, and a per-adapter
+# merge would materialize [G, in, out] copies of every target.
+# ---------------------------------------------------------------------------
+
+def _lora_sort(lora: dict, t: int) -> tuple:
+    """The dispatch triplet for the ``[S]`` per-slot adapter vector: the
+    stable sort order (``jnp.argsort`` is stable), its inverse, and the
+    per-group sorted-row counts (slots per adapter x the T tokens each
+    slot contributes) as int32."""
+    ids = lora["adapters"].to(torch.int64)
+    g = next(iter(lora["stacks"].values()))["a"].shape[1]
+    order = torch.argsort(ids, stable=True)
+    inv = torch.argsort(order)
+    sizes = torch.bincount(ids, minlength=g).to(torch.int32) * t
+    return order, inv, sizes
+
+
+def _lora_wmat(config, lora: dict, i: int, sort: tuple):
+    """Layer ``i``'s projection hook: the base ``_wmat`` plus the
+    grouped-GEMM adapter delta for the targets in ``lora["stacks"]``
+    (their layer-``i`` slices, ``a [G, in, r]`` / ``b [G, r, out]``). Slot
+    0's rows are zeros, so base-only requests add an exact +0: the cast
+    order ``base + (scale * d).to(base.dtype)`` keeps the adapter-0 ==
+    base-engine bitwise identity."""
+    from ..ops.grouped_matmul import grouped_matmul
+
+    order, inv, sizes = sort
+    cdt = config.dtype
+    scale = float(lora["scale"])
+    impl = lora.get("impl", "auto")
+    stacks = lora["stacks"]
+
+    def wmat(name, h, w):
+        base = _wmat(h, w, cdt)
+        pair = stacks.get(name)
+        if pair is None:
+            return base
+        s, t, k = h.shape
+        hs = h[order].reshape(s * t, k).to(torch.float32)
+        d = grouped_matmul(hs, pair["a"][i], sizes, impl=impl)
+        d = grouped_matmul(d, pair["b"][i], sizes, impl=impl)
+        d = d.reshape(s, t, -1)[inv]
+        return base + (scale * d).to(base.dtype)
+
+    return wmat
+
+
 def init_cache(config: LlamaConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Zeroed per-layer KV cache, [L, B, max_len, kv_heads, head_dim]."""
@@ -676,24 +740,32 @@ def init_cache(config: LlamaConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def prefill(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
-            cache: dict, last_pos: Optional[int] = None):
+            cache: dict, last_pos: Optional[int] = None, lora=None):
     """Causal forward over the prompt through the plain einsum attention,
     writing each layer's rope'd k/v into ``cache[:, :, :prompt_len]`` in
     place. Returns (logits [B, V] at ``last_pos`` — default the final
-    position — and the cache)."""
+    position — and the cache).
+
+    ``lora`` (multi-LoRA serving): ``{"scale", "adapters" [B] int,
+    "stacks" {t: {"a" [L, G, in, r], "b" [L, G, r, out]}}, "impl"}``:
+    each example's adapter delta is added per target projection through
+    the grouped GEMM, as in ``paged_decode_step`` (rows = B x P, each
+    example's P rows contiguous after the sort)."""
     b, p = input_ids.shape
     positions = torch.arange(p, device=input_ids.device)[None, :].expand(b, -1)
     x = embed_tokens(config, params, input_ids)
     wins = layer_windows(config)
     rope = layer_rope(config, positions)
+    sort = None if lora is None else _lora_sort(lora, p)
     for i in range(config.num_layers):
         layer = layer_params(params, i)
+        wmat = None if lora is None else _lora_wmat(config, lora, i, sort)
         attn, (k, v) = attention_sublayer(
             config, x, layer["attn"],
             None if config.post_norm else layer["input_norm"], positions,
             "xla", rope, return_kv=True,
-            window_override=None if wins is None else wins[i])
-        x = _residuals(config, x, layer, attn)
+            window_override=None if wins is None else wins[i], wmat=wmat)
+        x = _residuals(config, x, layer, attn, wmat=wmat)
         cache["k"][i, :, :p] = k.to(cache["k"].dtype)
         cache["v"][i, :, :p] = v.to(cache["v"].dtype)
     # slice BEFORE the head: one row through the [E, V] projection
@@ -788,12 +860,15 @@ def _layer_pools(pool, i):
 def paged_decode_step(config: LlamaConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
                       cache: dict, attend, last_index=None,
-                      all_logits=False):
+                      all_logits=False, lora=None):
     """One step over a PAGED multi-request cache: ``token_ids`` [S, T] are
     each slot's next T tokens starting at per-slot ``positions`` [S]
     (T == 1 the batched decode step, T > 1 a prefill chunk, where
     ``last_index`` picks the real last token's logits, or a speculative
-    verify forward, where ``all_logits`` keeps [S, T, V]). ``cache`` holds
+    verify forward, where ``all_logits`` keeps [S, T, V]). ``lora``
+    (multi-LoRA serving, as in ``prefill``, ``adapters`` [S]): per-slot
+    adapter deltas as one ragged grouped GEMM per target product per layer,
+    the slots sorted by adapter and unsorted after. ``cache`` holds
     the page pools ``{"k", "v"}: [L, n_pages, page, kvh, hd]`` and
     ``attend(q, k, v, kp, vp, *, window, scale, softcap)`` (built by
     ``serve/kv_pages.make_attend``) writes the new k/v into one layer's
@@ -803,8 +878,10 @@ def paged_decode_step(config: LlamaConfig, params: dict,
     x = embed_tokens(config, params, token_ids)
     wins = layer_windows(config)
     rope = layer_rope(config, pos2d)
+    sort = None if lora is None else _lora_sort(lora, token_ids.shape[1])
     for i in range(config.num_layers):
         layer = layer_params(params, i)
+        wmat = None if lora is None else _lora_wmat(config, lora, i, sort)
         kp, vp = _layer_pools(cache["k"], i), _layer_pools(cache["v"], i)
 
         def override(q, k, v, *, window, scale, softcap, kp=kp, vp=vp):
@@ -815,8 +892,8 @@ def paged_decode_step(config: LlamaConfig, params: dict,
             config, x, layer["attn"],
             None if config.post_norm else layer["input_norm"], pos2d, "xla",
             rope, window_override=None if wins is None else wins[i],
-            attend_override=override)
-        x = _residuals(config, x, layer, attn)
+            attend_override=override, wmat=wmat)
+        x = _residuals(config, x, layer, attn, wmat=wmat)
     return (paged_logits_at(lm_head_logits, config, params, x, last_index,
                             all_logits), cache)
 

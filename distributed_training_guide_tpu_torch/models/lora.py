@@ -201,6 +201,25 @@ def num_trainable_params(bundle: ModelBundle) -> int:
     return sum(math.prod(s) for pair in shapes.values() for s in pair.values())
 
 
+def jit_merge(bundle: ModelBundle):
+    """ONE merge function ``{"base", "lora"} -> base-layout params``, built
+    once and reused at every publish (``post/loop.py``), where the JAX
+    package compiles one program. The output matches the base bundle's
+    layout leaf for leaf (each target ``W + scale * A @ B`` in ``W``'s
+    dtype, the other leaves the base's own), which is what
+    ``ModelPrograms.publish_params`` validates and copies."""
+    merge = getattr(bundle, "lora_merge", None)
+    if merge is None:
+        raise ValueError("jit_merge needs a bundle built by lora_bundle")
+    cfg = bundle.config
+
+    @torch.no_grad()
+    def merged(params: dict) -> dict:
+        return merge(cfg, params)
+
+    return merged
+
+
 def merge_lora(bundle: ModelBundle, params: dict) -> dict:
     """Fold the trained deltas into base-layout params (for ``hf_export``,
     sampling through the base bundle, or a plain checkpoint)."""

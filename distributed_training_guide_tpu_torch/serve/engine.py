@@ -51,14 +51,19 @@ launches.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.from_jax import _to_torch
 from ..models.registry import ModelBundle, family_module
 from ..ops.paged_decode import HEAD_DIMS, paged_decode_eligible
+from .adapters import (AdapterPool, DEFAULT_TARGETS, ZERO_ADAPTER,
+                       adapter_nbytes, adapter_shapes, init_adapter_stacks,
+                       validate_adapter_params)
 from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
                        kv_page_bytes, make_attend, PagePool,
                        pages_for_tokens, pool_nbytes, TRASH_PAGE)
@@ -217,6 +222,30 @@ def derived_pool_metrics(*, pool: PagePool, cached_pages: int, n_slots: int,
     }
 
 
+def adapter_metrics(pool: Optional[AdapterPool], *,
+                    publishes: int = 0) -> dict:
+    """The multi-tenant tail of stats(): pool occupancy gauges and the
+    insert / update / evict counters (LRU evictions apart). Empty without
+    a pool, so an adapter-free engine's stats() keys are the pre-adapter
+    set. The per-adapter request counts are the scheduler's
+    ``adapter_requests``."""
+    if pool is None:
+        return {}
+    return {
+        "adapter_slots": pool.max_adapters,
+        "adapter_capacity": pool.capacity,
+        "adapters_live": pool.n_live,
+        "adapters_free": pool.n_free,
+        "adapter_occupancy": (round(pool.n_live / pool.capacity, 3)
+                              if pool.capacity else 0.0),
+        "adapter_inserts": pool.stats["inserts"],
+        "adapter_updates": pool.stats["updates"],
+        "adapter_evictions": pool.stats["evictions"],
+        "adapter_lru_evictions": pool.stats["lru_evictions"],
+        "adapter_publishes": publishes,
+    }
+
+
 def spec_metrics(spec: dict, *, decode_steps: int, decode_tokens: int,
                  drafter: Optional[Drafter]) -> dict:
     """The speculation tail of stats(): drafted / accepted / rejected
@@ -318,7 +347,8 @@ def run_bucket_prefill(programs: "ModelPrograms", pages: dict,
     ids[0, :n] = tokens
     programs.prefill_calls += 1
     logit, kd, vd = programs.prefill_for(bucket)(
-        programs.params, programs.to_device(ids), n - 1)
+        programs.params, programs.to_device(ids), n - 1,
+        *programs.lora_call_args([adm.request.adapter_id]))
     programs._commit_fn(pages["k"], pages["v"], kd, vd,
                         programs.to_device(sched.table_row(adm.slot_idx)),
                         n, adm.shared_len)
@@ -352,7 +382,8 @@ def advance_prefill_chunks(programs: "ModelPrograms", pages: dict,
             programs.params, pages, programs.to_device(ids),
             programs.to_device(np.array([start], np.int32)),
             programs.to_device(sched.table_row(slot_idx)[None]), real - 1,
-            programs.to_device(np.array([real], np.int32)))
+            programs.to_device(np.array([real], np.int32)),
+            *programs.lora_call_args([adm.request.adapter_id]))
         sched.commit_tokens(slot_idx, real)
         if not sched.slots[slot_idx].prefilling:   # final chunk landed
             pending.pop(slot_idx)
@@ -370,7 +401,10 @@ def decode_dev(programs: "ModelPrograms", sched: Scheduler,
                kind: str = "plain", keys=_DEV_KEYS) -> dict:
     """The device-resident decode tensors of one ``kind`` ("plain",
     "spec" or "horizon"), rebuilt after a scheduler event, plus the
-    host-known ``stochastic`` flag that gates the sort."""
+    host-known ``stochastic`` flag that gates the sort. With an adapter
+    pool the per-slot adapter vector rides along."""
+    if programs.adapter_pool is not None:
+        keys = keys + ("adapters",)
     arr = sched.decode_arrays()
     dev = {key: programs.to_device(arr[key]) for key in keys}
     dev["kind"] = kind
@@ -442,7 +476,8 @@ def run_spec_decode(programs: "ModelPrograms", pages: dict,
     targets, n_acc, dev["lengths"] = programs.verify_for(t, greedy=greedy)(
         programs.params, pages, programs.to_device(ids), dev["lengths"],
         dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
-        dev["top_ps"], dev["actives"], programs.to_device(n_valid))
+        dev["top_ps"], dev["actives"], programs.to_device(n_valid),
+        *programs.lora_call_args(dev.get("adapters")))
     targets = targets.cpu().numpy()
     n_acc = n_acc.cpu().numpy()
     finished, emitted_total = [], 0
@@ -484,7 +519,9 @@ def run_decode_iteration(programs: "ModelPrograms", pages: dict,
     nxt, new_len = programs._decode(
         programs.params, pages, dev["tokens"], dev["lengths"],
         dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
-        dev["top_ps"], dev["actives"], stochastic=dev["stochastic"])
+        dev["top_ps"], dev["actives"],
+        *programs.lora_call_args(dev.get("adapters")),
+        stochastic=dev["stochastic"])
     dev["tokens"], dev["lengths"] = nxt, new_len
     nxt_host = nxt.cpu().numpy()
     finished = []
@@ -530,6 +567,7 @@ def dispatch_horizon(programs: "ModelPrograms", pages: dict,
         programs.params, pages, dev["tokens"], dev["lengths"],
         dev["tables"], dev["seeds"], dev["temps"], dev["top_ks"],
         dev["top_ps"], dev["actives"], dev["budgets"], dev["eos_ids"],
+        *programs.lora_call_args(dev.get("adapters")),
         stochastic=dev["stochastic"])
     done = None
     if block.is_cuda:
@@ -619,6 +657,86 @@ def build_weight_report(programs: "ModelPrograms") -> dict:
     }
 
 
+def build_adapter_report(programs: "ModelPrograms") -> dict:
+    """The byte table for one engine's adapter pool (empty without one).
+    ``bytes_per_adapter`` is also the payload of one adapter publish: it
+    moves one slot's leaves, never the base weights."""
+    pool = programs.adapter_pool
+    if pool is None:
+        return {}
+    per = adapter_nbytes(programs.config, rank=pool.rank,
+                         targets=pool.targets, bundle=programs.bundle)
+    return {
+        "max_adapters": pool.max_adapters,
+        "rank": pool.rank,
+        "targets": list(pool.targets),
+        "bytes_per_adapter": per,
+        "pool_bytes": pool.max_adapters * per,
+        "publish_payload_bytes": per,
+        "adapters_live": pool.n_live,
+        "adapters_free": pool.n_free,
+    }
+
+
+def _leaf_items(tree, prefix: str = ""):
+    """(path, tensor) of every leaf, a ``Quantized`` leaf as its payload
+    and its scales (``<path>.q`` / ``<path>.scale``): the layout that a
+    publish must match."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaf_items(tree[k], f"{prefix}/{k}" if prefix
+                                   else str(k))
+    elif hasattr(tree, "q") and hasattr(tree, "scale"):
+        yield f"{prefix}.q", tree.q
+        yield f"{prefix}.scale", tree.scale
+    else:
+        yield prefix, tree
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """A torch tensor's dtype, or the torch dtype of a numpy array's
+    (ml_dtypes' bfloat16 included)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _check_layout(new_params, layout, what: str) -> None:
+    """Every leaf of ``new_params`` against ``layout``'s, by path, shape
+    and dtype, naming the first leaf that differs."""
+    want = dict(_leaf_items(layout))
+    got = dict(_leaf_items(new_params))
+    if list(want) != list(got):
+        missing = sorted(set(want) - set(got))[:3]
+        extra = sorted(set(got) - set(want))[:3]
+        raise ValueError(
+            f"published params tree does not match the {what}: missing "
+            f"{missing}, unexpected {extra} — a stale-layout publish would "
+            f"produce garbage tokens, not an error, so it is refused here")
+    for name, leaf in got.items():
+        ref = want[name]
+        if tuple(leaf.shape) != tuple(ref.shape):
+            raise ValueError(
+                f"published leaf {name} has shape {tuple(leaf.shape)} but "
+                f"the {what} expects {tuple(ref.shape)}")
+        dtype = _torch_dtype(leaf)
+        if dtype != ref.dtype:
+            raise ValueError(
+                f"published leaf {name} has dtype {dtype} but the {what} "
+                f"expects {ref.dtype}")
+
+
+def _fits(new_params, layout) -> bool:
+    try:
+        _check_layout(new_params, layout, "layout")
+    except ValueError:
+        return False
+    return True
+
+
 def fp_layout(params):
     """The shapes and dtypes of an fp-layout param tree as meta tensors
     (nothing allocated)."""
@@ -642,11 +760,17 @@ class ModelPrograms:
     def __init__(self, bundle: ModelBundle, params, *, device=None,
                  attend_impl: str = "auto", kv_dtype=None, weight_dtype=None,
                  plan=None, shard_kv: bool = False,
-                 max_adapters: Optional[int] = None):
+                 max_adapters: Optional[int] = None, adapter_rank: int = 8,
+                 adapter_alpha: float = 16.0,
+                 adapter_targets=DEFAULT_TARGETS):
         if plan is not None or shard_kv:
             _not_ported("plan= / shard_kv=", "'Serve fleet' (sharding)")
-        if max_adapters is not None:
-            _not_ported("max_adapters=", "'Serve tenants'")
+        self.mod = family_module(bundle.family)
+        if max_adapters is not None and not hasattr(self.mod, "_lora_sort"):
+            raise ValueError(
+                f"family {bundle.family!r} has no batched multi-LoRA "
+                f"decode path — max_adapters needs the grouped-GEMM lora "
+                f"hooks in models/llama.py")
         self.device = resolve_device(device)
         if attend_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attend_impl must be 'auto', 'flash' or "
@@ -659,7 +783,6 @@ class ModelPrograms:
         self.attend_impl = attend_impl
         self.bundle = bundle
         self.config = bundle.config
-        self.mod = family_module(bundle.family)
         self.kv_dtype = kv_dtype_name(self.config, kv_dtype)
         # the param storage ("fp32" | "bf16" | "int8"); None inherits the
         # param dtype and transforms nothing. int8 leaves are Quantized
@@ -675,10 +798,33 @@ class ModelPrograms:
             return tree.to(self.device)
 
         params = place(params)
-        if weight_dtype is not None:        # quantize on the device
+        self._transforms = weight_dtype is not None
+        if self._transforms:                # quantize on the device
             params = store_weights(params, self.weight_dtype,
                                    family=bundle.family)
         self.params = params
+        # publish bookkeeping (post-training, post/loop.py): a publish
+        # rebinds self.params to copies of the published leaves; every
+        # program takes params as an argument, so nothing else changes
+        self.publish_count = 0
+        self._swap_in_flight = False
+
+        # pooled multi-LoRA adapters (serve/adapters.py): the stacks are
+        # program arguments; an insert writes one slot's rows in place
+        self.adapter_pool: Optional[AdapterPool] = None
+        self.adapter_stacks = None
+        self._adapter_shapes = None
+        self.adapter_publish_count = 0
+        if max_adapters is not None:
+            self.adapter_pool = AdapterPool(
+                max_adapters, rank=adapter_rank, alpha=adapter_alpha,
+                targets=adapter_targets)
+            self._adapter_shapes = adapter_shapes(
+                self.config, rank=adapter_rank, targets=adapter_targets,
+                bundle=bundle)
+            self.adapter_stacks = init_adapter_stacks(
+                self.config, max_adapters=max_adapters, rank=adapter_rank,
+                targets=adapter_targets, bundle=bundle, device=self.device)
         self._commit_fn = commit_prefill
         self._copy_fn = copy_pages
         # prefill FORWARD count: bucketed prefills and chunk forwards
@@ -689,6 +835,159 @@ class ModelPrograms:
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    # ---- weight publishing (the post-training seam) ------------------------
+    @contextlib.contextmanager
+    def swap_guard(self):
+        """Marks an engine-generation swap in flight on these programs.
+        ``publish_params`` and ``publish_adapter`` refuse while it is held:
+        a swap replays preempted sequences bitwise through these programs,
+        and weights changed mid-swap would make the replayed tokens diverge
+        from the recorded ones."""
+        if self._swap_in_flight:
+            raise RuntimeError("an engine generation swap is already in "
+                               "flight on this ModelPrograms")
+        self._swap_in_flight = True
+        try:
+            yield self
+        finally:
+            self._swap_in_flight = False
+
+    def _refuse_mid_swap(self, what: str) -> None:
+        if self._swap_in_flight:
+            raise RuntimeError(
+                f"cannot publish {what} while an engine generation swap is "
+                f"in flight: the swap replays in-flight sequences bitwise "
+                f"through these programs, and new weights mid-swap would "
+                f"corrupt every replayed stream — publish before the swap "
+                f"or after it completes")
+
+    def _copy_tree(self, tree):
+        """Copies of every leaf on the engine's device (never an alias:
+        the trainer goes on updating its own tensors in place)."""
+        if isinstance(tree, dict):
+            return {k: self._copy_tree(v) for k, v in tree.items()}
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            return type(tree)(q=self._copy_tree(tree.q),
+                              scale=self._copy_tree(tree.scale))
+        if not isinstance(tree, torch.Tensor):
+            return _to_torch(tree, self.device, None)    # a fresh copy
+        return tree.detach().to(self.device, copy=True)
+
+    def publish_params(self, new_params) -> int:
+        """Swap refreshed parameters into every program: the trainer ->
+        engine seam of the post-training loop (``post/loop.py``). The
+        programs take params as an argument, so a publish is a rebind of
+        ``self.params`` to copies of the published leaves.
+
+        The incoming tree must match the engine's layout leaf by leaf
+        (path, shape, dtype); a mismatch fails naming the leaf. An engine
+        that transforms its weights (``weight_dtype=``) also takes the fp
+        layout a trainer produces and stores it again through
+        ``serve/weights.py:store_weights`` (int8: re-quantized). Refused
+        while a generation swap is in flight (``swap_guard``). Returns the
+        new publish count."""
+        self._refuse_mid_swap("params")
+        with torch.no_grad():
+            try:
+                _check_layout(new_params, self.params, "engine's layout")
+            except ValueError:
+                if not (self._transforms
+                        and _fits(new_params, self._fp_layout)):
+                    raise
+                stored = store_weights(self._copy_tree(new_params),
+                                       self.weight_dtype,
+                                       family=self.bundle.family)
+            else:
+                stored = self._copy_tree(new_params)
+            self.params = stored
+        self.publish_count += 1
+        return self.publish_count
+
+    # ---- adapter publishing (the multi-tenant seam) ------------------------
+    def _adapter_insert(self, payload: dict, slot: int) -> None:
+        """One adapter's leaves into the stacked pool at ``slot``, in place
+        (the stacks keep their storage), cast to the stacks' fp32. Copies:
+        the caller keeps its tree."""
+        with torch.no_grad():
+            for t, pair in self.adapter_stacks.items():
+                for leaf in ("a", "b"):
+                    src = payload[t][leaf]
+                    if not isinstance(src, torch.Tensor):
+                        src = _to_torch(src, self.device, torch.float32)
+                    pair[leaf][:, slot].copy_(src.detach())
+
+    def publish_adapter(self, adapter_params, *, name: Optional[str] = None,
+                        slot: Optional[int] = None) -> int:
+        """Insert (or republish) ONE tenant adapter into the stacked pool:
+        validated per leaf against the pool's (rank, targets) geometry and
+        refused while a generation swap is in flight. ``slot=None`` claims
+        a slot (LRU-evicting an idle adapter under pressure); a live
+        ``slot`` republishes that tenant in place. The payload is
+        ``models/lora.py``'s ``params['lora']`` layout. Returns the slot id
+        requests carry as ``adapter_id``."""
+        if self.adapter_pool is None:
+            raise ValueError(
+                "this engine serves no adapter pool (built with "
+                "max_adapters=None) — adapters cannot be published into "
+                "it; rebuild with max_adapters=")
+        self._refuse_mid_swap("an adapter")
+        validate_adapter_params(self._adapter_shapes, adapter_params)
+        pool = self.adapter_pool
+        if slot is None:
+            slot = pool.alloc(name)
+            if slot is None:
+                raise RuntimeError(
+                    f"adapter pool exhausted: all {pool.capacity} tenant "
+                    f"slots are live with in-flight requests — drain a "
+                    f"tenant or build the engine with a larger "
+                    f"max_adapters")
+        else:
+            if slot == ZERO_ADAPTER:
+                raise ValueError("adapter slot 0 is the zero adapter and "
+                                 "is never published into")
+            if not pool.is_live(int(slot)):
+                raise ValueError(
+                    f"adapter slot {slot} is not live — omit slot= to "
+                    f"allocate one, or publish into a live slot "
+                    f"({pool.live_slots()}) to refresh that tenant")
+            slot = int(slot)
+            pool.mark_update(slot)
+        self._adapter_insert(adapter_params, slot)
+        self.adapter_publish_count += 1
+        return slot
+
+    def attach_host_tier(self, tier) -> None:
+        _not_ported("attach_host_tier (adapter spills to the host tier)",
+                    "'Serve fleet' (serve/tiering.py)")
+
+    def restore_adapter(self, name) -> Optional[int]:
+        _not_ported("restore_adapter (adapter spills to the host tier)",
+                    "'Serve fleet' (serve/tiering.py)")
+
+    def _lora_kw(self, lora_args) -> dict:
+        """The ``lora=`` keyword of the family forwards from the optional
+        trailing ``(stacks, adapters)`` program arguments: none without a
+        pool, so an adapter-free engine runs exactly the pre-adapter
+        forward."""
+        if not lora_args:
+            return {}
+        stacks, adapters = lora_args
+        return {"lora": {"scale": self.adapter_pool.scale,
+                         "adapters": adapters, "stacks": stacks,
+                         "impl": "auto"}}
+
+    def lora_call_args(self, adapters) -> tuple:
+        """Trailing program arguments for one forward: ``()`` without a
+        pool, else ``(stacks, adapters)`` with the adapter vector on the
+        device (a tensor already there is passed as it is)."""
+        if self.adapter_pool is None:
+            return ()
+        if isinstance(adapters, torch.Tensor):
+            adapters = adapters.to(self.device)     # a no-op where it is
+        else:
+            adapters = self.to_device(np.asarray(adapters, np.int32))
+        return (self.adapter_stacks, adapters)
+
     def init_device_pages(self, n_pages: int, page_size: int) -> dict:
         return init_pages(self.config, n_pages, page_size,
                           kv_dtype=self.kv_dtype, device=self.device)
@@ -698,12 +997,13 @@ class ModelPrograms:
                            n_valid=n_valid)
 
     def _decode(self, params, pages, tokens, lengths, tables, seeds, temps,
-                top_ks, top_ps, actives, *, stochastic: bool):
+                top_ks, top_ps, actives, *lora_args, stochastic: bool):
         """The batched decode step; the pools update in place. Returns the
         next step's (tokens, lengths)."""
         attend = self.make_attend(tables, lengths)
         logits, _ = self.mod.paged_decode_step(
-            self.config, params, tokens[:, None], lengths, pages, attend)
+            self.config, params, tokens[:, None], lengths, pages, attend,
+            **self._lora_kw(lora_args))
         nxt = _sample_tokens(logits.float(), seeds, lengths + 1, temps,
                              top_ks, top_ps, stochastic=stochastic)
         nxt = torch.where(actives, nxt, 0)
@@ -728,14 +1028,15 @@ class ModelPrograms:
             raise ValueError(f"decode horizon must be >= 1, got {k}")
 
         def fn(params, pages, tokens, lengths, tables, seeds, temps, top_ks,
-               top_ps, live, budgets, eos_ids, *, stochastic: bool):
+               top_ps, live, budgets, eos_ids, *lora_args, stochastic: bool):
             block = []
+            lora = self._lora_kw(lora_args)
             for _ in range(k):
                 eff_tables = torch.where(live[:, None], tables, TRASH_PAGE)
                 attend = self.make_attend(eff_tables, lengths)
                 logits, _ = self.mod.paged_decode_step(
                     self.config, params, tokens[:, None], lengths, pages,
-                    attend)
+                    attend, **lora)
                 nxt = _sample_tokens(logits.float(), seeds, lengths + 1,
                                      temps, top_ks, top_ps,
                                      stochastic=stochastic)
@@ -766,11 +1067,11 @@ class ModelPrograms:
         computed on the device. Returns (targets [S, t], n_acc [S],
         new_lengths [S]); the pools update in place."""
         def fn(params, pages, ids, lengths, tables, seeds, temps, top_ks,
-               top_ps, actives, n_valid):
+               top_ps, actives, n_valid, *lora_args):
             attend = self.make_attend(tables, lengths, n_valid=n_valid)
             logits, _ = self.mod.paged_decode_step(
                 self.config, params, ids, lengths, pages, attend,
-                all_logits=True)
+                all_logits=True, **self._lora_kw(lora_args))
             logits = logits.float()
             s = ids.shape[0]
             steps = torch.arange(t, device=ids.device)
@@ -795,27 +1096,31 @@ class ModelPrograms:
         return fn
 
     def prefill_for(self, bucket: int):
-        """The bucketed prefill: ``fn(params, ids [1, bucket], last_pos)``
-        -> (logits [V], k [L, bucket, Hkv, D], v [L, bucket, Hkv, D])."""
-        def fn(params, ids, last_pos):
+        """The bucketed prefill: ``fn(params, ids [1, bucket], last_pos,
+        *lora_args)`` -> (logits [V], k [L, bucket, Hkv, D], v [L, bucket,
+        Hkv, D])."""
+        def fn(params, ids, last_pos, *lora_args):
             cache = self.mod.init_cache(self.config, 1, bucket,
                                         device=self.device)
             logit, cache = self.mod.prefill(self.config, params, ids, cache,
-                                            last_pos=last_pos)
+                                            last_pos=last_pos,
+                                            **self._lora_kw(lora_args))
             return logit[0], cache["k"][:, 0], cache["v"][:, 0]
 
         return fn
 
     def chunk_for(self, t: int):
         """The chunk program: ``fn(params, pages, ids [1, t], start [1],
-        table [1, M], last_index, n_valid [1])`` runs the paged path,
-        writing the chunk's k/v into the slot's pages while attending over
-        the committed history; returns the real last token's logits."""
-        def fn(params, pages, ids, start, table, last_index, n_valid):
+        table [1, M], last_index, n_valid [1], *lora_args)`` runs the paged
+        path, writing the chunk's k/v into the slot's pages while attending
+        over the committed history; returns the real last token's
+        logits."""
+        def fn(params, pages, ids, start, table, last_index, n_valid,
+               *lora_args):
             attend = self.make_attend(table, start, n_valid=n_valid)
             logits, _ = self.mod.paged_decode_step(
                 self.config, params, ids, start, pages, attend,
-                last_index=last_index)
+                last_index=last_index, **self._lora_kw(lora_args))
             return logits[0]
 
         return fn
@@ -861,8 +1166,12 @@ class ServeEngine:
     past it are refused with a 429-class ``RefusalError``), ``programs``
     (a shared :class:`ModelPrograms`, whose device and dtypes then win),
     ``speculate`` ("ngram" at depth ``spec_k``, or a ``serve/spec.py``
-    Drafter) and ``decode_horizon`` (K fused decode steps per host read;
-    not together with speculation)."""
+    Drafter), ``decode_horizon`` (K fused decode steps per host read;
+    not together with speculation) and ``max_adapters`` (a pool of LoRA
+    tenants of rank ``adapter_rank`` on ``adapter_targets``, scale
+    ``adapter_alpha / adapter_rank``, llama family: ``publish_adapter``,
+    then ``Request(adapter_id=...)``). ``publish_params`` swaps the
+    weights between rollout batches (``post/loop.py``)."""
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
@@ -874,6 +1183,8 @@ class ServeEngine:
                  shard_kv: bool = False, max_queue: Optional[int] = None,
                  programs: Optional[ModelPrograms] = None, speculate=None,
                  spec_k: int = 4, max_adapters: Optional[int] = None,
+                 adapter_rank: int = 8, adapter_alpha: float = 16.0,
+                 adapter_targets=DEFAULT_TARGETS,
                  host_tier_bytes: Optional[int] = None,
                  decode_horizon: int = 1):
         if host_tier_bytes is not None:
@@ -890,8 +1201,12 @@ class ServeEngine:
         self.programs = programs if programs is not None else ModelPrograms(
             bundle, params, device=device, attend_impl=attend_impl,
             kv_dtype=kv_dtype, weight_dtype=weight_dtype, plan=plan,
-            shard_kv=shard_kv, max_adapters=max_adapters)
+            shard_kv=shard_kv, max_adapters=max_adapters,
+            adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
+            adapter_targets=adapter_targets)
         self.device = self.programs.device
+        # shared programs carry their pool, as they carry their dtypes
+        self.adapter_pool = self.programs.adapter_pool
         self.decode_horizon = decode_horizon
         self.drafter = resolve_drafter(speculate, spec_k=spec_k,
                                        n_slots=n_slots, device=self.device)
@@ -931,6 +1246,7 @@ class ServeEngine:
             # admission headroom for the k speculated tokens a verify
             # writes per running decode
             spec_lookahead=self.drafter.k if self.drafter else 0,
+            adapter_pool=self.adapter_pool,
             decode_horizon=decode_horizon)
         if prefill_buckets is None:
             prefill_buckets = default_prefill_buckets(self.max_pages,
@@ -1015,6 +1331,66 @@ class ServeEngine:
         self.decode_horizon = k
         self.scheduler.decode_horizon = k
         return self.decode_horizon
+
+    def _refuse_busy(self, what: str, force: bool) -> None:
+        if not force and self.has_work:
+            sched = self.scheduler
+            resident = (len(sched.active_indices())
+                        + len(sched.prefilling_indices()))
+            raise RuntimeError(
+                f"{what} with {len(sched.queue)} queued + {resident} "
+                f"resident sequences in flight: a mid-stream weight swap "
+                f"breaks bitwise replay for them (preemption / resubmit "
+                f"would rewrite history under new weights) — finish or "
+                f"drain first, or pass force=True to accept that")
+
+    def publish_params(self, new_params, *, force: bool = False) -> int:
+        """Publish refreshed weights (``ModelPrograms.publish_params``:
+        layout-validated, copied). Refused while the engine holds work in
+        flight unless ``force``: preemption replay and resubmission assume
+        one set of weights per token stream. The on-policy loop publishes
+        between rollout batches, when the engine is drained. The prefix
+        cache is emptied: its pages hold k/v of the old weights."""
+        self._refuse_busy("publish_params", force)
+        count = self.programs.publish_params(new_params)
+        if self.scheduler.cache is not None:
+            # k/v cached under the old weights must never serve a prompt
+            # under the new ones (the JAX engine keeps them: a prompt that
+            # hits the cache after a publish decodes from stale k/v)
+            self.scheduler.cache.drop_all()
+        return count
+
+    def publish_adapter(self, adapter_params, *,
+                        name: Optional[str] = None,
+                        slot: Optional[int] = None,
+                        force: bool = False) -> int:
+        """Publish ONE tenant adapter into the pool
+        (``ModelPrograms.publish_adapter``). Returns the slot id requests
+        carry as ``adapter_id``. Refused while work is in flight unless
+        ``force``, as ``publish_params``. The slot's prefix-cache namespace
+        is dropped: k/v cached under its previous tenant must never serve
+        the new one."""
+        self._refuse_busy("publish_adapter", force)
+        slot_id = self.programs.publish_adapter(adapter_params, name=name,
+                                                slot=slot)
+        if self.scheduler.cache is not None:
+            self.scheduler.cache.drop_namespace(slot_id)
+        return slot_id
+
+    def evict_adapter(self, slot: int) -> None:
+        """Retire a tenant adapter (refused while its requests are in
+        flight: ``AdapterPool.evict``) and drop its prefix-cache
+        namespace."""
+        if self.adapter_pool is None:
+            raise ValueError("this engine serves no adapter pool (built "
+                             "with max_adapters=None)")
+        self.adapter_pool.evict(slot)
+        if self.scheduler.cache is not None:
+            self.scheduler.cache.drop_namespace(slot)
+
+    def restore_adapter(self, name: str):
+        _not_ported("restore_adapter (adapter spills to the host tier)",
+                    "'Serve fleet' (serve/tiering.py)")
 
     @property
     def has_work(self) -> bool:
@@ -1177,7 +1553,7 @@ class ServeEngine:
         """Host-side metrics snapshot (no device access, so it answers
         while the worker thread is mid-iteration). The keys are the JAX
         engine's but ``prefix_keys`` (the fleet router's directory, 'Serve
-        fleet') and the adapter pool's."""
+        fleet'); the adapter pool's appear with a pool."""
         sched = self.scheduler
         s = {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in sched.stats.items()}
@@ -1208,6 +1584,9 @@ class ServeEngine:
             **spec_metrics(self.spec, decode_steps=self.decode_steps,
                            decode_tokens=self.decode_tokens,
                            drafter=self.drafter),
+            **adapter_metrics(
+                self.adapter_pool,
+                publishes=self.programs.adapter_publish_count),
         }
 
     def kv_report(self) -> dict:
@@ -1223,6 +1602,11 @@ class ServeEngine:
     def weight_report(self) -> dict:
         """The byte table for this engine's weights."""
         return build_weight_report(self.programs)
+
+    def adapter_report(self) -> dict:
+        """The byte table for this engine's adapter pool (empty without
+        one)."""
+        return build_adapter_report(self.programs)
 
     def weight_bytes(self) -> int:
         """Resident param bytes (int8 payload and scales under

@@ -2,8 +2,10 @@
 
 The port keeps its own copy of the JAX package's
 ``serve/scheduler.py`` (which imports the JAX ``serve/kv_pages.py``):
-the same code, reading this package's ``kv_pages``. The optional
-host-tier and adapter-pool hooks stay None in this slice.
+the same code, reading this package's ``kv_pages``, plus
+``PrefixCache.drop_all`` for a params publish. The engine hands it
+its adapter pool (``serve/adapters.py``); the host-tier hooks stay None
+(ROADMAP.md queue 1, 'Serve fleet').
 
 The unit of scheduling is one ITERATION, not one request (Yu et al., OSDI
 2022): after every batched decode step the engine asks the scheduler again
@@ -285,6 +287,12 @@ class PrefixCache:
         if ns != 0:
             del self._roots[ns]
         return dropped
+
+    def drop_all(self) -> int:
+        """Free every registered page of every namespace: called when the
+        weights that computed them are replaced (a params publish).
+        Returns the number of pages dropped."""
+        return sum(self.drop_namespace(ns) for ns in list(self._roots))
 
     def match(self, tokens: list, allow_partial: bool, ns: int = 0):
         """Longest chain of registered pages covering a PROPER prefix of

@@ -37,7 +37,6 @@ import torch
 LOGGER = logging.getLogger(__name__)
 
 DEFAULT_TARGET = "h100"     # the card of the reference's 64-GPU recipe
-_POST = "ROADMAP.md queue 1, 'Post-training'"
 
 
 @contextlib.contextmanager
@@ -205,9 +204,92 @@ def comm_roofline(trainer, *, global_batch: int, seq_length: int,
     return report
 
 
-def price_post_colocation(*args, **kwargs):
-    raise NotImplementedError(
-        f"post-training colocation pricing is not ported yet ({_POST})")
+def price_post_colocation(trainer, *, n_slots: int, page_size: int = 16,
+                          max_len: int = 2048, kv_dtype=None,
+                          weight_dtype=None, teacher_bundle=None,
+                          budget_bytes: int | None = None) -> dict:
+    """Price the post-training loop's CO-RESIDENT memory: everything that
+    lives on the card at once for rollout -> score -> update -> publish
+    (``post/loop.py``): the trainer's policy state (params and optimizer
+    state, the adapters' alone under ``lora_only``, and the transient
+    grads), the serve engine's merged policy copy at its ``weight_dtype``
+    and its page pool, and an optional teacher / reward model's params.
+    The state is built on the meta device, so nothing is allocated; with
+    ``budget_bytes`` an impossible colocation refuses here, before the
+    first allocation. The grads are priced as the JAX function prices
+    them, at the params' bytes (under ``lora_only`` the port's backward
+    holds the adapters' grads alone, so this bounds them from above);
+    the optimizer's 0-d step counters are the port's own."""
+    import dataclasses
+
+    from ..serve.kv_pages import (kv_dtype_name, kv_page_bytes,
+                                  pages_for_tokens)
+    from ..serve.weights import weight_dtype_name, weight_tree_bytes
+
+    if trainer.plan is not None:
+        raise NotImplementedError(
+            f"post-training colocation under a sharding plan: ROADMAP.md "
+            f"queue 1, 'Distributed plans, the rest'")
+    cfg = trainer.bundle.config
+    meta = dataclasses.replace(trainer, device="meta",
+                               optimizer=trainer.base_optimizer,
+                               offload_opt_state=False,
+                               offload_params=False)
+    b = _state_bytes(meta.init_state(0))
+    params_b, opt_b = b["params"], b["opt_state"]
+    grad_b = params_b          # transient, resident at the update boundary
+    # the engine serves the MERGED policy (the base layout for a LoRA
+    # bundle) at its weight_dtype: the QLoRA colocation is an int8 base
+    # copy beside fp adapters in the trainer and the teacher
+    base_bundle = getattr(trainer.bundle, "lora_base", None) or trainer.bundle
+    engine_shapes = base_bundle.init(cfg, 0, device="meta")
+    if weight_dtype is None:
+        wname = "model"
+        engine_params_b = _tree_bytes(engine_shapes)
+    else:
+        wname = weight_dtype_name(cfg, weight_dtype)
+        engine_params_b = weight_tree_bytes(engine_shapes, wname,
+                                            base_bundle.family)
+    n_pages = 1 + n_slots * pages_for_tokens(max_len, page_size)
+    pool_b = kv_page_bytes(cfg, page_size=page_size, n_pages=n_pages,
+                           kv_dtype=kv_dtype_name(cfg, kv_dtype))
+    teacher_b = 0
+    if teacher_bundle is not None:
+        teacher_b = _tree_bytes(teacher_bundle.init(
+            teacher_bundle.config, 0, device="meta"))
+    total = params_b + opt_b + grad_b + engine_params_b + pool_b + teacher_b
+    report = {
+        "policy_param_bytes": params_b,
+        "policy_opt_state_bytes": opt_b,
+        "policy_grad_bytes_transient": grad_b,
+        "engine_param_bytes": engine_params_b,
+        "engine_weight_dtype": wname,
+        "engine_pool_bytes": pool_b,
+        "engine_pool_pages": n_pages,
+        "teacher_param_bytes": teacher_b,
+        "total_bytes": total,
+        "lora_only": bool(trainer.lora_only),
+    }
+    gib = 1 / 2**30
+    LOGGER.info(
+        f"post colocation: policy {params_b * gib:.3f} GiB params + "
+        f"{opt_b * gib:.3f} GiB opt + {grad_b * gib:.3f} GiB grads, "
+        f"engine {engine_params_b * gib:.3f} GiB merged copy + "
+        f"{pool_b * gib:.3f} GiB pool ({n_pages} pages), teacher "
+        f"{teacher_b * gib:.3f} GiB -> total {total * gib:.3f} GiB"
+        + (f" vs budget {budget_bytes * gib:.3f} GiB"
+           if budget_bytes else ""))
+    if budget_bytes is not None and total > budget_bytes:
+        raise ValueError(
+            f"post-training colocation needs {total} bytes "
+            f"({total * gib:.2f} GiB: policy state "
+            f"{(params_b + opt_b + grad_b) * gib:.2f} + engine "
+            f"{(engine_params_b + pool_b) * gib:.2f} + teacher "
+            f"{teacher_b * gib:.2f}) but the budget is {budget_bytes} "
+            f"({budget_bytes * gib:.2f} GiB) — shrink the pool "
+            f"(n_slots/max_len/kv_dtype), use LoRA adapters "
+            f"(lora_only), or drop the co-resident teacher")
+    return report
 
 
 def _meta_batch(trainer, global_batch: int, seq_length: int) -> dict:

@@ -81,7 +81,8 @@ from .offload import make_offload
 from .precision import cast_floats, resolve_policy
 from .state import TrainState, named_leaves
 
-__all__ = ["REMAT_POLICIES", "PlanState", "Trainer"]
+__all__ = ["POST_BASELINES", "POST_OBJECTIVES", "REMAT_POLICIES",
+           "PlanState", "Trainer", "make_post_step", "post_loss"]
 
 # what the sharded paths leave for later, by ROADMAP.md item
 _PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
@@ -880,3 +881,221 @@ class PlanState:
             sh.gather_updates(state.params)
         state.step += 1
         return state, metrics
+
+
+# ---------------------------------------------------------------------------
+# Post-training: masked ragged rollout objectives (post/loop.py's update)
+# ---------------------------------------------------------------------------
+
+POST_OBJECTIVES = ("reinforce", "distill_kl")
+POST_BASELINES = ("batch", "group", "none")
+
+
+def _pack_ragged(values: torch.Tensor, prompt_lens: torch.Tensor,
+                 group_sizes: torch.Tensor, s: int) -> tuple:
+    """Pack per-token values of B ragged continuations into ONE [M, 1]
+    buffer in group order, the ``ops/grouped_matmul.py`` row layout.
+
+    ``values`` is [B, S] (a value per SOURCE position: the logits row that
+    predicts the next token); continuation g occupies packed rows
+    ``offs[g-1]:offs[g]``, reading source positions ``prompt_lens[g]-1 ..
+    prompt_lens[g]-1+group_sizes[g]-1``. Rows past ``sum(group_sizes)`` are
+    zero, the tail K5 gives zeros (and zero grads) for, so the static
+    packed width B * (S - 1) carries no pad into the objective. Returns
+    (packed [M, 1], group index per row [M], valid mask [M])."""
+    b = values.shape[0]
+    m_pad = b * (s - 1)
+    sizes = group_sizes.to(torch.int64)
+    offs = torch.cumsum(sizes, 0)
+    starts = offs - sizes
+    rows = torch.arange(m_pad, device=values.device)
+    g = torch.searchsorted(offs, rows, right=True).clamp(0, b - 1)
+    j = rows - starts[g]
+    valid = rows < offs[-1]
+    src = (prompt_lens.to(torch.int64)[g] - 1 + j).clamp(0, s - 2)
+    packed = torch.where(valid, values.reshape(-1)[g * s + src], 0.0)
+    return packed[:, None], g, valid
+
+
+def post_loss(logits: torch.Tensor, tokens: torch.Tensor,
+              prompt_lens: torch.Tensor, total_lens: torch.Tensor, *,
+              objective: str = "reinforce", advantages=None,
+              teacher_logprobs=None, gmm_impl: str = "auto") -> tuple:
+    """The one post-training loss: REINFORCE with a baseline and
+    distillation KL over RAGGED variable-length rollouts.
+
+    ``tokens`` is [B, S] (prompt + sampled continuation, zero-padded);
+    source position p carries gradient iff it predicts a SAMPLED token,
+    ``prompt_lens[b]-1 <= p < total_lens[b]-1``, so prompt tokens and the
+    pad tail give exactly zero loss and zero gradient. The per-token values
+    pack into one [M, 1] buffer with ``group_sizes`` = the continuation
+    lengths, and the per-sequence scalar (the advantage, or the KL's
+    1 / length) rides ``rhs`` [B, 1, 1]: one grouped GEMM (K5 at K = N = 1
+    on the card) broadcasts it onto its ragged block, and its backward is
+    K5's d_lhs against ``rhs^T``. The scalars take no gradient, so K6 never
+    runs here.
+
+    - ``reinforce``: loss = -(1/B) sum_b adv_b * sum_t log pi(y_t | ...).
+    - ``distill_kl``: loss = (1/B) sum_b (1/|y_b|) sum_t
+      KL(teacher_t || student_t), the teacher's full-vocab log-probs
+      aligned at source positions (``teacher_logprobs`` [B, S, V]).
+
+    Returns (loss, extras): ``post_tokens`` and ``post_logprob_mean``,
+    detached fp32 scalars."""
+    from ..ops.grouped_matmul import grouped_matmul
+
+    if objective not in POST_OBJECTIVES:
+        raise ValueError(f"unknown post objective {objective!r}; choose "
+                         f"from {POST_OBJECTIVES}")
+    b, s, _ = logits.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    group_sizes = (total_lens - prompt_lens).to(torch.int32)
+    # token logprob at source position p (predicting tokens[:, p+1]); the
+    # last column has no next token: zero, never packed
+    tok_lp = torch.gather(logp[:, :-1], 2,
+                          tokens[:, 1:, None].to(torch.int64))[..., 0]
+    tok_lp = torch.nn.functional.pad(tok_lp, (0, 1))
+    packed_lp, _, _ = _pack_ragged(tok_lp, prompt_lens, group_sizes, s)
+    n_tok = group_sizes.sum().clamp(min=1)
+    extras = {
+        "post_tokens": group_sizes.sum().to(torch.float32),
+        "post_logprob_mean": (packed_lp.detach().sum() / n_tok).to(
+            torch.float32),
+    }
+    if objective == "reinforce":
+        if advantages is None:
+            raise ValueError("objective='reinforce' needs advantages")
+        adv = advantages.detach().to(torch.float32)
+        out = grouped_matmul(packed_lp, adv[:, None, None], group_sizes,
+                             impl=gmm_impl)
+        return -out.sum() / b, extras
+    if teacher_logprobs is None:
+        raise ValueError("objective='distill_kl' needs teacher_logprobs "
+                         "[B, S, V] aligned at source positions")
+    t_lp = teacher_logprobs.detach().to(torch.float32)
+    kl_tok = torch.sum(torch.exp(t_lp) * (t_lp - logp), dim=-1)   # [B, S]
+    packed_kl, _, _ = _pack_ragged(kl_tok, prompt_lens, group_sizes, s)
+    inv_len = 1.0 / group_sizes.to(torch.float32).clamp(min=1.0)
+    out = grouped_matmul(packed_kl, inv_len[:, None, None], group_sizes,
+                         impl=gmm_impl)
+    return out.sum() / b, extras
+
+
+def _advantages(rewards: torch.Tensor, group_ids: torch.Tensor,
+                baseline: str) -> torch.Tensor:
+    """The per-rollout advantage under ``baseline``: "batch" subtracts the
+    batch-mean reward; "group" is GRPO's (arXiv:2402.03300)
+    (r - mean_g) / (std_g + 1e-4) over rollouts sharing a prompt; "none"
+    the raw reward."""
+    if baseline == "batch":
+        return rewards - rewards.mean()
+    if baseline == "group":
+        b = rewards.shape[0]
+        gids = group_ids.to(torch.int64)
+        onehot = (gids[:, None] == torch.arange(
+            b, device=rewards.device)[None, :]).to(torch.float32)
+        cnt = onehot.sum(dim=0).clamp(min=1.0)
+        mean_g = (rewards @ onehot) / cnt
+        var_g = ((rewards ** 2) @ onehot) / cnt - mean_g ** 2
+        return ((rewards - mean_g[gids])
+                / (torch.sqrt(var_g[gids].clamp(min=0.0)) + 1e-4))
+    return rewards
+
+
+def make_post_step(trainer: Trainer, *, objective: str = "reinforce",
+                   baseline: str = "batch", gmm_impl: str = "auto"):
+    """The post-training step for a Trainer: ``post_step(state, batch)``
+    consumes a packed rollout batch
+
+        {"tokens" [B, S] int, "prompt_lens" [B], "total_lens" [B],
+         "rewards" [B] fp32, "group_ids" [B] (baseline="group"),
+         "teacher_logprobs" [B, S, V] fp32 (objective="distill_kl")}
+
+    (numpy or tensors) and returns ``(state, metrics)`` like
+    ``Trainer.step_fn``: the same optimizer (the adapters alone under
+    ``lora_only``), precision policy, offload and guard (``notfinite``;
+    under ``guard_policy="skip"`` a non-finite update is not applied, and
+    ``post/loop.py`` gates the publish on the flag), and the
+    ``DTG_FAULT_NAN_LOSS_STEP`` drill. ``baseline`` is one of
+    ``POST_BASELINES`` (``_advantages``). Under pipeline parallelism or
+    with a callable ``attn_impl`` it refuses, as the JAX package does; the
+    port runs it on one device (a plan raises, naming its item)."""
+    if objective not in POST_OBJECTIVES:
+        raise ValueError(f"unknown post objective {objective!r}; choose "
+                         f"from {POST_OBJECTIVES}")
+    if baseline not in POST_BASELINES:
+        raise ValueError(f"unknown post baseline {baseline!r}; choose "
+                         f"from {POST_BASELINES}")
+    if trainer.plan is not None and trainer.plan.sizes["pp"] > 1:
+        raise ValueError(
+            "post-training steps are not implemented under pipeline "
+            "parallelism (the hand-differentiated 1F1B schedule has no "
+            "ragged-objective form); use dp/fsdp/tp plans")
+    if callable(trainer.attn_impl):
+        raise ValueError(
+            "post-training steps do not support a user-supplied callable "
+            "attn_impl — silently substituting 'auto' would optimize a "
+            "different model function than the one generating the "
+            "rollouts; use a named attn_impl on the Trainer")
+    if trainer.plan is not None:
+        raise NotImplementedError(
+            f"post-training steps under a sharding plan: {_PLAN_REST}")
+    cfg = trainer.bundle.config
+    apply = trainer.bundle.apply
+    dev = trainer.device
+
+    def as_tensor(x, dtype):
+        return torch.as_tensor(x).to(device=dev, dtype=dtype)
+
+    def step(state: TrainState, batch: dict) -> tuple:
+        tokens = as_tensor(batch["tokens"], torch.int64)
+        prompt_lens = as_tensor(batch["prompt_lens"], torch.int64)
+        total_lens = as_tensor(batch["total_lens"], torch.int64)
+        rewards = as_tensor(batch["rewards"], torch.float32)
+        gids = batch.get("group_ids")
+        adv = _advantages(rewards, None if gids is None
+                          else as_tensor(gids, torch.int64), baseline)
+        teacher = batch.get("teacher_logprobs")
+        if teacher is not None:
+            teacher = as_tensor(teacher, torch.float32)
+        leaves = [t for path, t in named_leaves(state.params)
+                  if trainer.trains(path)]
+        state.opt_state.optimizer.zero_grad(set_to_none=True)
+        logits = apply(cfg, state.params, tokens, remat=trainer.remat,
+                       remat_policy=trainer.remat_policy,
+                       attn_impl=trainer.attn_impl)
+        loss, extras = post_loss(
+            logits, tokens, prompt_lens, total_lens, objective=objective,
+            advantages=adv, teacher_logprobs=teacher, gmm_impl=gmm_impl)
+        loss.backward()
+        loss = loss.detach()
+        if (trainer._nan_fault_step is not None
+                and state.step == trainer._nan_fault_step):
+            loss = torch.full_like(loss, float("nan"))
+        metrics = {
+            "loss": loss.to(torch.float32),
+            "grad_norm": _global_norm([p.grad for p in leaves]),
+            "reward_mean": rewards.mean(),
+            "advantage_std": adv.std(correction=0),
+            **extras,
+        }
+        apply_update = True
+        if trainer.guard_policy != "off":
+            metrics, apply_update = apply_step_guard(trainer.guard_policy,
+                                                     metrics)
+        if apply_update:
+            state.opt_state.step(None)
+        state.step += 1
+        return state, metrics
+
+    def post_step(state: TrainState, batch: dict) -> tuple:
+        off = state.offload
+        if off is None:
+            return step(state, batch)
+        off.fetch(state)
+        try:
+            return step(state, batch)
+        finally:
+            off.release(state)
+
+    return post_step

@@ -2160,3 +2160,80 @@ def test_horizon_keeps_the_pools_on_card(cuda):
     assert [r.token_ids for r in k4] == [r.token_ids for r in k1]
     assert all(eng.pages[n].data_ptr() == ptrs[n] for n in ("k", "v"))
     assert eng.host_dispatches < eng.decode_steps
+
+
+# the new roads of K5 (multi-LoRA serving and the post objective): fp32
+# lhs and rhs run the FMA body. (name, M, K, N, group sizes)
+GMM_LORA_CASES = [
+    ("lora-a-decode", 8, 4096, 8, [3, 0, 2, 0, 3]),
+    ("lora-b-decode", 8, 8, 4096, [3, 0, 2, 0, 3]),
+    ("lora-b-wv", 8, 8, 1024, [1, 4, 0, 3, 0]),
+    ("lora-a-chunk", 256, 4096, 8, [0, 256, 0, 0, 0]),
+    ("post-objective", 8 * 127, 1, 1, [40, 0, 64, 127, 0, 3, 90, 0]),
+]
+
+
+@pytest.mark.parametrize("case", GMM_LORA_CASES,
+                         ids=[c[0] for c in GMM_LORA_CASES])
+def test_gmm_lora_and_post_shapes_match_plain_version(cuda, case):
+    """fp32 within 1e-5 of the plain version's largest value, rows past
+    the groups zero, the FMA body, and the post objective's d_lhs (K5
+    against rhs^T) with no K6 launch: the scalars take no gradient."""
+    name, m, k, n, sizes = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    lhs, rhs, sz = _gmm_inputs(cuda, gen, m, k, n, sizes, "fp32")
+    fma = gm.GMM_BODY_LAUNCHES["fma"]
+    got = gm.gmm(lhs, rhs, sz)
+    torch.cuda.synchronize()
+    assert gm.GMM_BODY_LAUNCHES["fma"] == fma + 1, name
+    want = gm.gmm_reference(lhs, rhs, sz, torch.float32)
+    err, bound = _gmm_err(got, want, "fp32")
+    assert err <= bound and not got[sum(sizes):].any(), (name, err)
+    x = lhs.clone().requires_grad_()
+    tgmm = gm.TGMM_LAUNCHES
+    gm.grouped_matmul(x, rhs, sz).sum().backward()
+    torch.cuda.synchronize()
+    assert gm.TGMM_LAUNCHES == tgmm
+    xc = lhs.cpu().requires_grad_()
+    gm.grouped_matmul(xc, rhs.cpu(), sz.cpu()).sum().backward()
+    err, bound = _gmm_err(x.grad.cpu(), xc.grad, "fp32")
+    assert err <= bound, (name, "d_lhs", err)
+
+
+def _tenant_engine(bundle, params, dev, payloads, **kw):
+    eng = ServeEngine(bundle, params, device=dev, n_slots=4, page_size=8,
+                      max_len=64, max_adapters=4, adapter_rank=4, **kw)
+    return eng, [eng.publish_adapter(p) for p in payloads]
+
+
+def test_tenants_on_card(cuda):
+    """A head_dim-64 llama-debug variant in fp32 with three tenants: adapter
+    0 gives the adapter-free engine's tokens, each tenant's stream
+    co-batched gives its solo stream, K5 carried the deltas, and the card's
+    tokens equal the CPU engine's."""
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    params = bundle.init(bundle.config, 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    payloads = [{t: {"a": torch.randn(2, 256, 4, generator=gen) * 0.3,
+                     "b": torch.randn(2, 4, n, generator=gen) * 0.3}
+                 for t, n in (("wq", 256), ("wv", 128))} for _ in range(3)]
+    reqs = [Request(prompt_ids=[3 + i, 17, 42, 7][:2 + i % 3], seed=i,
+                    max_new_tokens=8, adapter_id=i % 4) for i in range(6)]
+    base = generate_many(ServeEngine(bundle, params, device=cuda, n_slots=4,
+                                     page_size=8, max_len=64),
+                         [Request(prompt_ids=r.prompt_ids, seed=r.seed,
+                                  max_new_tokens=8) for r in reqs])
+    eng, slots = _tenant_engine(bundle, params, cuda, payloads)
+    assert slots == [1, 2, 3]
+    before = gm.GMM_LAUNCHES
+    together = generate_many(eng, reqs)
+    assert gm.GMM_LAUNCHES > before
+    for r, b, t in zip(reqs, base, together):
+        if r.adapter_id == 0:
+            assert t.token_ids == b.token_ids
+        solo, _ = _tenant_engine(bundle, params, cuda, payloads)
+        assert generate_many(solo, [r])[0].token_ids == t.token_ids
+    cpu, _ = _tenant_engine(bundle, params, "cpu", payloads)
+    assert [r.token_ids for r in generate_many(cpu, reqs)] == \
+        [r.token_ids for r in together]

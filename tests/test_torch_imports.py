@@ -73,7 +73,9 @@ def test_scan_sees_the_whole_package_and_catches_a_violation():
                    "train/preflight.py", "train/engine.py",
                    "chapters/c05_llama405b.py",
                    "chapters/c05_convert_llama.py",
-                   "chapters/engine_llm.py"):
+                   "chapters/engine_llm.py", "serve/adapters.py",
+                   "post/__init__.py", "post/__main__.py", "post/cli.py",
+                   "post/loop.py", "post/rollout.py", "post/score.py"):
         assert PORT / module in FILES, module
     assert _banned("jax.numpy") and _banned("distributed_training_guide_tpu")
     assert not _banned("distributed_training_guide_tpu_torch.serve")
