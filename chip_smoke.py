@@ -243,7 +243,8 @@ phases, each of which raises on failure:
    against the bulk exchange and the single device, and K5 / K6 on the
    ring's hop window (one member's 4096 tokens x top-8, M 32768) held and
    timed as phase 21 (d) times the ep window, (e) chapter 10 scheduled;
-23. spec / horizon — (a) llama-3.1-8b at full depth, bf16: the verify
+23. spec / horizon — (a) llama-3.1-8b at full width cut to
+   ``SPEC_LAYERS`` layers (the script's time limit), bf16: the verify
    forward's logits at every position of T = k + 1 (k 4, 7, 15) against
    k + 1 sequential decode steps on cloned pools (bitwise or max abs
    error, logged), and a verify forward's time beside a decode step's;
@@ -268,11 +269,12 @@ phases, each of which raises on failure:
    against ``gmm_reference`` within ``GMM_FP32_REL`` of its largest
    value, timed beside the plain version, the bound and
    ``torch._grouped_mm`` on bf16 copies; (b) *serve*'s 8 requests on
-   llama-3.1-8b bf16 at full depth with a pool of 4 seeded random tenants
+   llama-3.1-8b bf16 at full width cut to ``TENANT_LAYERS`` layers (the
+   script's time limit) with a pool of 4 seeded random tenants
    (r 8, wq / wv): adapter 0 gives the adapter-free engine's tokens and
    logits bit for bit, alone and co-batched with tenants; each tenant's
-   stream co-batched is bitwise its solo stream; 128 K5 launches a
-   forward, all the FMA body; two tenants against engines on their merged
+   stream co-batched is bitwise its solo stream; 4 K5 launches a layer
+   in a forward, all the FMA body; two tenants against engines on their merged
    weights (a divergence only at a margin within twice the logit error
    measured on the shared positions); tokens/s, TTFT and ITL beside the
    adapter-free run; a republish mid-stream keeps the stacks' storage;
@@ -284,7 +286,37 @@ phases, each of which raises on failure:
    step gating the publish; per iteration the reward, loss, rollout
    tokens/s, update and publish ms and K1-K6 launches (K6 none), the peak
    beside ``price_post_colocation``'s bytes, and the llama-3.1-8b
-   colocation priced.
+   colocation priced; (a) also times one PyTorch call on the fp32
+   operands (``torch._grouped_mm`` where this torch takes fp32, else an
+   fp32 ``torch.bmm`` over each row's gathered adapter matrix, the gather
+   timed inside);
+25. fleet — llama-3.1-8b in bf16 at full width and depth on *serve*'s 8
+   requests (page 16, 8 slots), one ``ModelPrograms`` shared by every
+   engine: (a) the KV-page wire: a served sequence's cached pages, from
+   a bf16 pool and from an int8 pool, gathered to pinned host memory,
+   framed, sent over ``loopback_channel`` (a socketpair: "cross host" on
+   one card is a loopback socket on one host) and scattered into a second
+   pool arrive bitwise; D2H, wire and H2D GB/s (warm: each leg's second
+   pass, the first's ms beside it); (b) ``DisaggEngine``
+   same-host and cross-host against the monolith at the same geometry:
+   tokens, and every logits row bitwise (same programs, same shapes);
+   bytes moved, handoff ms, TTFT p50, ITL; one injected handoff crash
+   (requeued, the same tokens); (c) ``local_fleet(2)`` on the 8 requests
+   plus 4 prompts sharing a 512-token prefix (affinity hits), and a
+   replica killed at a router step: fenced, its requests replayed to the
+   uninterrupted tokens, the ms from the fence to the first replayed
+   token; (d) a host tier under a pool too small for the batch: preempted
+   sequences and an evicted prefix spill and restore to the tier-free
+   tokens, spill and restore ms; a 5-slot adapter pool spills and
+   restores one tenant bitwise and serves it (K5); (e) a pool-capacity
+   generation swap at the same n_slots seats its residents bitwise; an
+   n_slots 8 -> 16 swap (the decode GEMMs' M changes): its streams
+   against the monolith's, a divergence only at a margin within twice the
+   measured logit error; the SLO controller over ``run_open_loop`` at a
+   Poisson rate that overloads one replica, as a check: exactly one
+   scale-up and every submitted request completed (the short window's
+   goodput and tails are logged as the check's, not a workload's; the
+   spawn's ms excludes weight load and kernel build).
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -6386,6 +6418,7 @@ def phase_overlap(torch, card: str) -> dict:
 SPEC_K = 4                 # the depth the serve runs speculate at
 SPEC_REPEAT = (37, 600)    # a repetitive prompt: 37 tokens repeated to 600
 SPEC_MOE_LAYERS = 8        # qwen3-30b-a3b cut to 8 layers for (d)
+SPEC_LAYERS = 8            # llama-3.1-8b cut to 8 layers (the time limit)
 SPEC_DRAFT_CHUNK = 256     # the drafters' catch-up chunk (prompts to 2000)
 HORIZONS = (1, 4, 8)
 HORIZON_PEAK_SLACK = 16 * 2 ** 20   # allocator rounding, not a pool copy
@@ -6667,8 +6700,7 @@ def spec_run(torch, specs, *, programs, speculate=None, sink=None) -> dict:
     programs.sink = sink
     programs.verify_slots, programs.verify_accepted = [], []
     verify0, prefill0 = programs.verify_calls, programs.prefill_calls
-    pd.LAUNCHES = pd.SPLIT_LAUNCHES = pd.MMA_LAUNCHES = 0
-    pd.COMBINE_LAUNCHES = gm.GMM_LAUNCHES = qm.LAUNCHES = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = generate_many(eng, [Request(**r) for r in specs])
@@ -7152,13 +7184,13 @@ def phase_spec_horizon(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
-                       param_dtype=torch.bfloat16)
+                       param_dtype=torch.bfloat16, num_layers=SPEC_LAYERS)
     params = bundle.init(bundle.config, SEED, device="cuda")
     programs = gap_programs()(bundle, params)
     specs = spec_specs(np, bundle.config.vocab_size)
     logits = verify_logits_check(torch, programs, specs)
     log(phase="spec_horizon", part="(a) verify logits vs decode steps, "
-        "llama-3.1-8b bf16 full depth", card=card, **logits)
+        f"llama-3.1-8b bf16 at {SPEC_LAYERS} layers", card=card, **logits)
     serve = spec_serve(torch, card, programs, logits)
     horizon = horizons(torch, card, programs)
     http = http_serve(torch, card, programs)
@@ -7192,6 +7224,7 @@ def phase_spec_horizon(torch, card: str) -> dict:
 TENANT_POOL = dict(max_adapters=5, adapter_rank=8, adapter_alpha=16.0)
 TENANT_A_STD, TENANT_B_STD = 0.02, 0.1   # deltas that move greedy tokens
 GMM_FP32_REL = 1e-5        # K5's FMA body against gmm_reference, fp32
+TENANT_LAYERS = 8          # llama-3.1-8b cut to 8 layers (the time limit)
 POST_MODEL = "llama-3.2-1b"
 POST_BATCH, POST_NEW, POST_ITERS = 8, 64, 3
 POST_PROMPTS = (16, 64)    # prompt lengths drawn in this range
@@ -7211,6 +7244,20 @@ def kernel_counts() -> dict:
             "paged_attend_combine": pd.COMBINE_LAUNCHES,
             "grouped_matmul": gm.GMM_LAUNCHES, "tgmm": gm.TGMM_LAUNCHES,
             "quantized_matmul": qm.LAUNCHES}
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counter that ``kernel_counts`` reads
+    to 0 (the counts by body run on: phases compare them across runs)."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.ops import grouped_matmul as gm
+    from distributed_training_guide_tpu_torch.ops import paged_decode as pd
+    from distributed_training_guide_tpu_torch.ops import quantized_matmul as qm
+
+    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    pd.LAUNCHES = pd.SPLIT_LAUNCHES = pd.MMA_LAUNCHES = 0
+    pd.COMBINE_LAUNCHES = 0
+    gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = qm.LAUNCHES = 0
 
 
 def counts_since(before: dict) -> dict:
@@ -7270,12 +7317,16 @@ def tenant_gmm(torch) -> dict:
         lib_ms, lib_call_ms, lib = library_grouped_mm(
             torch, lhs.to(torch.bfloat16),
             rhs.to(torch.bfloat16).contiguous(), sizes)
+        fp32_ms, fp32_err, fp32_note = library_fp32_grouped(
+            torch, lhs, rhs, sizes, want)
         row = dict(kernel="grouped_matmul", shape=name, M=m, K=k, N=n,
                    G=int(sizes.shape[0]), rows=total,
                    groups_nonempty=int((sizes > 0).sum()), dtype="fp32",
                    body=body, max_abs_err=err, err_bound=bound, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
-                   library_call_ms=lib_call_ms,
+                   library_call_ms=lib_call_ms, library_fp32_ms=fp32_ms,
+                   library_fp32_max_abs_err=fp32_err,
+                   library_fp32_note=fp32_note,
                    **gmm_bound(m, k, n, sizes, 4, 4, 4, "float32"))
         if lib_ms is None:
             row["library_note"] = ("torch._grouped_mm on bf16 copies: "
@@ -7291,6 +7342,40 @@ def tenant_gmm(torch) -> dict:
     gm.GMM_LAUNCHES, gm.TGMM_LAUNCHES = counts[:2]
     gm.GMM_BODY_LAUNCHES.update(counts[2])
     return out
+
+
+def library_fp32_grouped(torch, lhs, rhs, sizes, want) -> tuple:
+    """One PyTorch call computing the fp32 grouped product on the fp32
+    operands, as a yardstick: ``torch._grouped_mm`` where this torch takes
+    fp32, else ``torch.bmm`` of each row against its group's matrix
+    gathered per row (the gather inside the timed call). Returns (device
+    ms by ``queued_ms``, max abs error against the plain version, what
+    ran)."""
+    total = int(sizes.sum())
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        try:
+            out = fn(lhs, rhs, offs=offs)
+            torch.cuda.synchronize()
+            err = (out[:total] - want[:total]).abs().max().item() \
+                if total else 0.0
+            return (queued_ms(torch, lambda: fn(lhs, rhs, offs=offs), 20),
+                    err, "torch._grouped_mm on the fp32 operands")
+        except RuntimeError as exc:
+            why = str(exc).splitlines()[0][:100]
+    else:
+        why = "torch._grouped_mm is absent"
+    group = torch.repeat_interleave(
+        torch.arange(sizes.shape[0], device=lhs.device), sizes.long())
+
+    def call():
+        return torch.bmm(lhs[:total, None, :], rhs[group])[:, 0]
+
+    err = (call() - want[:total]).abs().max().item() if total else 0.0
+    return (queued_ms(torch, call, 20), err,
+            f"fp32 torch.bmm of each row against its gathered adapter "
+            f"matrix, the gather timed inside ({why})")
 
 
 def tap_programs():
@@ -7397,9 +7482,10 @@ def first_divergence(a: list, b: list):
 
 
 def tenant_serve(torch, card: str) -> dict:
-    """(b) tenants on *serve*: llama-3.1-8b at full depth in bf16, 8 slots,
-    page 16, *serve*'s 8 requests, a pool of 5 slots (4 tenants, r 8, wq /
-    wv, seeded random adapters), bucketed."""
+    """(b) tenants on *serve*: llama-3.1-8b at full width cut to
+    ``TENANT_LAYERS`` layers in bf16, 8 slots, page 16, *serve*'s 8
+    requests, a pool of 5 slots (4 tenants, r 8, wq / wv, seeded random
+    adapters), bucketed."""
     import numpy as np
 
     from distributed_training_guide_tpu_torch.models import get_model
@@ -7411,7 +7497,7 @@ def tenant_serve(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
-                       param_dtype=torch.bfloat16)
+                       param_dtype=torch.bfloat16, num_layers=TENANT_LAYERS)
     cfg = bundle.config
     params = bundle.init(cfg, SEED, device="cuda")
     specs = serve_specs(np, cfg.vocab_size)
@@ -7776,6 +7862,611 @@ def phase_tenants_post(torch, card: str) -> dict:
                               for k in launches}}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the serve fleet on one card
+# ---------------------------------------------------------------------------
+
+FLEET_COMMON = dict(n_slots=8, page_size=16, max_len=4096)
+FLEET_SHARED_PREFIX = 512       # tokens the 4 shared-prefix prompts share
+FLEET_KILL_STEP = 6             # the router step the killed replica dies at
+FLEET_TIER_BYTES = 1 << 30      # the host tier's budget in (d)
+FLEET_POOL_SHARE = 0.5          # (d)'s pool against the batch's pages
+FLEET_LOADGEN = dict(rate=40.0, seconds=1.5, max_len=256)
+
+
+
+
+def fleet_specs(np, vocab: int) -> tuple:
+    """*serve*'s 8 requests, and 4 prompts sharing a 512-token prefix
+    (32 new tokens, greedy, seeds 8-11)."""
+    specs = serve_specs(np, vocab)
+    rng = np.random.default_rng(SEED + 25)
+    prefix = [int(x) for x in rng.integers(0, vocab, FLEET_SHARED_PREFIX)]
+    shared = [dict(prompt_ids=prefix + [int(x) for x in rng.integers(
+        0, vocab, 16 + 8 * i)], max_new_tokens=32, seed=8 + i)
+        for i in range(4)]
+    return specs, shared
+
+
+def by_seed(results, specs) -> dict:
+    return {s["seed"]: list(r.token_ids) for r, s in zip(results, specs)}
+
+
+def fleet_run(torch, engine, specs) -> tuple:
+    """``specs`` through any engine-shaped target, synced on the card:
+    (results in submit order, throughput stats with the ITL, wall s)."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, generate_many, throughput_stats)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = generate_many(engine, [Request(**s) for s in specs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = throughput_stats(res, wall, engine)
+    stats["itl_s_avg"] = itl_avg(res)
+    return res, stats, wall
+
+
+def itl_avg(results) -> float:
+    """Mean over requests of each one's mean inter-token seconds (the
+    engines' ``itl_s_avg``, for any target)."""
+    itls = [r.itl_s for r in results if len(r.generated_ids) > 1]
+    return sum(itls) / len(itls) if itls else 0.0
+
+
+def timed_calls(obj, name: str, sink: list, torch=None,
+                skip_none: bool = False):
+    """Wrap ``obj.name`` so each call's wall ms lands in ``sink`` (synced
+    on the card when ``torch`` is given), but a call returning None with
+    ``skip_none``."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        if torch is not None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        if torch is not None:
+            torch.cuda.synchronize()
+        if out is not None or not skip_none:
+            sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def mean_ms(xs) -> Optional[float]:
+    return sum(xs) / len(xs) if xs else None
+
+
+def fleet_wire(torch, card: str, programs, bundle, params, prompt) -> dict:
+    """(a) The wire: the 2000-token prompt's cached pages (124 full
+    pages) out of a bf16 pool and out of an int8 pool (one request served
+    through an int8-KV engine on the same params), framed, sent over a
+    loopback socketpair and scattered into a second pool: bitwise."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+    from distributed_training_guide_tpu_torch.serve import transport as tw
+    from distributed_training_guide_tpu_torch.serve.engine import \
+        ModelPrograms
+
+    out = {}
+    for pool in ("bf16", "int8"):
+        progs = programs if pool == "bf16" else ModelPrograms(
+            bundle, params, kv_dtype="int8")
+        eng = ServeEngine(bundle, None, programs=progs, **FLEET_COMMON)
+        generate_many(eng, [Request(prompt_ids=prompt, max_new_tokens=2)])
+        ids = eng.scheduler.cache.chain_pages(prompt)
+        check(len(ids) == (len(prompt) - 1) // 16, f"wire {pool}: "
+              f"{len(ids)} cached pages")
+        # each leg twice: the first pays the pinned buffers' allocation
+        # (the caching host allocator keeps them), the second is warm
+        d2h_s, wire_s = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = eng.gather_pages(ids)
+            d2h_s.append(time.perf_counter() - t0)
+        nbytes = tw.payload_nbytes(payload)
+        check(all(v.is_pinned() for v in payload.values()),
+              f"wire {pool}: the gather did not land in pinned memory")
+        sender, receiver = tw.loopback_channel(pin=True)
+        try:
+            for xfer in range(2):
+                got = None
+                t0 = time.perf_counter()
+                frame = tw.encode_frame(xfer, {"pool": pool}, payload)
+                outcome = sender.send(frame, xfer)
+                _, header, got = receiver.inbox.get(timeout=60.0)
+                wire_s.append(time.perf_counter() - t0)
+                check(outcome == "delivered", f"wire {pool}: {outcome}")
+        finally:
+            sender.sock.close()
+            receiver.sock.close()
+        d2h, wire = d2h_s[1], wire_s[1]
+        dst = progs.init_device_pages(len(ids) + 1, 16)
+        dst_ids = list(range(1, len(ids) + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tw.scatter_payload(dst, dst_ids, got)
+        torch.cuda.synchronize()
+        h2d = time.perf_counter() - t0
+        idx_src = torch.tensor(ids, device="cuda")
+        idx_dst = torch.tensor(dst_ids, device="cuda")
+        for leaf in tw.pool_leaf_names(eng.pages):
+            a = tw._leaf(eng.pages, leaf).index_select(1, idx_src)
+            b = tw._leaf(dst, leaf).index_select(1, idx_dst)
+            check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f"wire {pool}: leaf {leaf} differs after the wire")
+        out[pool] = dict(pages=len(ids), payload_bytes=nbytes,
+                         frame_bytes=len(frame), leaves=header["leaves"],
+                         d2h_gb_s=nbytes / d2h / 1e9,
+                         wire_gb_s=len(frame) / wire / 1e9,
+                         h2d_gb_s=nbytes / h2d / 1e9, d2h_ms=d2h * 1e3,
+                         wire_ms=wire * 1e3, h2d_ms=h2d * 1e3,
+                         d2h_first_ms=d2h_s[0] * 1e3,
+                         wire_first_ms=wire_s[0] * 1e3)
+        log(phase="fleet", part="(a) the KV-page wire", card=card,
+            pool=pool, bitwise=True, note="cross host on one card: a "
+            "loopback socketpair on one host",
+            **{k: v for k, v in out[pool].items() if k != "leaves"})
+        del eng, dst, payload, got, frame
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_disagg(torch, card: str, bundle, programs, specs, mono) -> dict:
+    """(b) ``DisaggEngine`` same-host and cross-host at the monolith's
+    geometry on the shared (tapped) programs: tokens and logits rows
+    bitwise the monolith's; bytes moved, handoff ms, TTFT, ITL; then a
+    cross-host run with transfer 1 torn (``DTG_FAULT_HANDOFF_CRASH_XFER``)."""
+    import os
+
+    from distributed_training_guide_tpu_torch.serve.disagg import \
+        DisaggEngine
+    from distributed_training_guide_tpu_torch.utils import faults
+
+    out = {}
+    for transport in ("same_host", "cross_host"):
+        pair = DisaggEngine(bundle, None, programs=programs,
+                            transport=transport, **FLEET_COMMON)
+        sends, takes = [], []
+        timed_calls(pair.handoff, "transfer", sends, torch)
+        timed_calls(pair.handoff, "take", takes, torch, skip_none=True)
+        rows = {}
+        programs.rows = rows
+        res, st, wall = fleet_run(torch, pair, specs)
+        programs.rows = None
+        check(by_seed(res, specs) == mono["tokens"],
+              f"disagg {transport}: tokens differ from the monolith's")
+        n_rows = rows_equal(rows, mono["rows"], {s["seed"] for s in specs})
+        hs = pair.stats()
+        moved = hs["handoff_bytes_copied"]
+        check((moved > 0) == (transport == "cross_host")
+              and hs["handoff_delivered"] == len(specs),
+              f"disagg {transport}: handoff stats {hs}")
+        out[transport] = dict(
+            tokens_per_s=st["tokens_per_s"], ttft_s_p50=st["ttft_s_p50"],
+            itl_s_avg=st["itl_s_avg"], wall_s=wall, bytes_moved=moved,
+            pages_moved=hs["handoff_pages_transferred"],
+            handoff_transfer_ms=mean_ms(sends),
+            handoff_take_ms=mean_ms(takes),
+            rows_bitwise=n_rows)
+        log(phase="fleet", part="(b) disaggregated", card=card,
+            transport=transport, tokens_identical=True, **out[transport],
+            monolith=mono["stats"])
+        pair.close()
+        del pair
+        torch.cuda.empty_cache()
+    os.environ[faults.ENV_HANDOFF_CRASH_XFER] = "1"
+    try:
+        pair = DisaggEngine(bundle, None, programs=programs,
+                            transport="cross_host",
+                            handoff_ack_timeout_s=5.0, **FLEET_COMMON)
+        few = [s for s in specs if len(s["prompt_ids"]) < 1000][:3]
+        res, _, _ = fleet_run(torch, pair, few)
+        hs = pair.stats()
+        pair.close()
+    finally:
+        del os.environ[faults.ENV_HANDOFF_CRASH_XFER]
+    check(by_seed(res, few) == {s["seed"]: mono["tokens"][s["seed"]]
+                                for s in few}
+          and hs["handoff_dropped_nak"] == 1
+          and hs["handoff_requeued"] == 1,
+          f"disagg crash drill: stats {hs}")
+    out["crash"] = {k: hs[k] for k in ("handoff_transfers",
+                                       "handoff_delivered",
+                                       "handoff_dropped_nak",
+                                       "handoff_requeued")}
+    log(phase="fleet", part="(b) handoff crash (transfer 1 torn)",
+        card=card, tokens_identical=True, **out["crash"])
+    del pair
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_router(torch, card: str, bundle, programs, specs, shared,
+                 want) -> dict:
+    """(c) ``local_fleet``-shaped: two replicas sharing the programs on
+    the 8 requests plus the shared-prefix prompts; then the same traffic
+    with replica r0 killed at router step ``FLEET_KILL_STEP``: fenced,
+    every request decodes the uninterrupted tokens; the ms from the fence
+    to the first token a resubmitted request adds."""
+    import os
+
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, throughput_stats)
+    from distributed_training_guide_tpu_torch.serve.router import (Replica,
+                                                                   Router)
+    from distributed_training_guide_tpu_torch.utils import faults
+
+
+    def fleet():
+        return Router([Replica(f"r{i}", ServeEngine(
+            bundle, None, programs=programs, **FLEET_COMMON))
+            for i in range(2)], heartbeat_timeout_s=600.0)
+
+    def drive(router, on_step=None):
+        """The 8 requests and the first shared prompt, then the other 3
+        after 2 router steps (the first one's prefix is committed by
+        then, so they can share it). Returns ({seed: tokens}, wall s)."""
+        ids = {router.submit(Request(**s)): s["seed"]
+               for s in specs + shared[:1]}
+        done, it = {}, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while router.has_work:
+            if it == 2:
+                ids.update({router.submit(Request(**s)): s["seed"]
+                            for s in shared[1:]})
+            for r in router.step():
+                done[r.request_id] = r
+            it += 1
+            if on_step is not None:
+                on_step(router, done)
+        torch.cuda.synchronize()
+        return ({seed: list(done[rid].token_ids)
+                 for rid, seed in ids.items()},
+                time.perf_counter() - t0, [done[i] for i in ids])
+
+    router = fleet()
+    got, wall, res = drive(router)
+    check(got == want, "fleet: tokens differ from the single engine's")
+    st = throughput_stats(res, wall, router)
+    st["itl_s_avg"] = itl_avg(res)
+    rs = router.stats()
+    hits = {n: r.engine.stats()["prefix_hits"]
+            for n, r in router.replicas.items()}
+    out = {"uninterrupted": dict(
+        tokens_per_s=st["tokens_per_s"], ttft_s_p50=st["ttft_s_p50"],
+        itl_s_avg=st["itl_s_avg"], wall_s=wall,
+        affinity_routed=rs["affinity_routed"], routed=rs["routed"],
+        prefix_hits_by_replica=hits)}
+    check(rs["affinity_routed"] >= len(shared) and sum(hits.values()) > 0,
+          f"fleet: affinity {rs['affinity_routed']}, prefix hits {hits}")
+    log(phase="fleet", part="(c) router, uninterrupted", card=card,
+        tokens_identical=True, **out["uninterrupted"])
+    del router
+    torch.cuda.empty_cache()
+    mark = {"fence": None, "first": None, "seen": {}}
+
+    def watch(router, done):
+        """The fence's time and the moved requests' token counts; then
+        the time a moved request first adds a token past them."""
+        if mark["fence"] is None and router.counters["fenced"]:
+            torch.cuda.synchronize()
+            mark["fence"] = time.perf_counter()
+            mark["seen"] = {rid: len(rec.generated)
+                            for rid, rec in router._records.items()
+                            if rec.resubmits}
+        elif mark["fence"] is not None and mark["first"] is None:
+            now = router.partial_tokens()
+            if any(len(now.get(rid, [])) > n
+                   or (rid in done and len(done[rid].generated_ids) > n)
+                   for rid, n in mark["seen"].items()):
+                torch.cuda.synchronize()
+                mark["first"] = time.perf_counter()
+
+    os.environ[faults.ENV_REPLICA_KILL] = f"r0@{FLEET_KILL_STEP}"
+    try:
+        router = fleet()
+        got, _, _ = drive(router, watch)
+        rs = router.stats()
+    finally:
+        del os.environ[faults.ENV_REPLICA_KILL]
+    t_fence, t_first, seen = mark["fence"], mark["first"], mark["seen"]
+    check(router.replicas["r0"].state == "fenced" and rs["fenced"] == 1
+          and seen, f"fleet kill: stats {rs}")
+    check(got == want, "fleet kill: replayed tokens differ from the "
+          "uninterrupted run")
+    out["kill"] = dict(fenced_at_step=FLEET_KILL_STEP,
+                       resubmitted=rs["resubmitted"],
+                       in_flight_on_victim=len(seen),
+                       fence_to_first_replayed_token_ms=(
+                           (t_first - t_fence) * 1e3 if t_first else None))
+    log(phase="fleet", part="(c) replica killed", card=card,
+        tokens_identical=True, **out["kill"])
+    del router
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_tier(torch, card: str, bundle, params, programs, specs, shared,
+               want) -> dict:
+    """(d) A host tier under a pool of ``FLEET_POOL_SHARE`` of the batch's
+    pages: shared[0], then the 8 requests (their growth evicts its prefix
+    into the tier and preempts sequences, which spill), then shared[1:]
+    (the prefix restored from the tier): every stream the tier-free
+    tokens; spill and restore ms. Then a 5-slot adapter pool: a fifth
+    tenant evicts the first into the tier, ``restore_adapter`` brings its
+    rows back bitwise, and a request on it runs K5."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+    from distributed_training_guide_tpu_torch.serve.adapters import \
+        adapter_shapes
+    from distributed_training_guide_tpu_torch.serve.kv_pages import \
+        pages_for_tokens
+
+    need = sum(pages_for_tokens(len(s["prompt_ids"]) + 32, 16)
+               for s in specs)
+    n_pages = 1 + int(need * FLEET_POOL_SHARE)
+    eng = ServeEngine(bundle, None, programs=programs, n_pages=n_pages,
+                      host_tier_bytes=FLEET_TIER_BYTES, **FLEET_COMMON)
+    spills, restores = [], []
+    timed_calls(eng.scheduler, "_tier_gather", spills, torch)
+    timed_calls(eng.scheduler.cache, "_gather", spills, torch)
+    timed_calls(eng, "scatter_pages", restores, torch)
+    got = {}
+    t0 = time.perf_counter()
+    for batch in ([shared[0]], specs, shared[1:]):
+        res, _, _ = fleet_run(torch, eng, batch)
+        got.update(by_seed(res, batch))
+        eng.host_tier.audit()
+    wall = time.perf_counter() - t0
+    check(got == {k: want[k] for k in got},
+          "tier: restored streams differ from the tier-free run")
+    ts = eng.stats()
+    check(ts["preempted"] > 0 and ts["restore_hits"] > 0
+          and ts["tier_spills"] > 0, f"tier: no spill or restore ({ts})")
+    check(eng.scheduler.pool.n_free + eng.scheduler.cache_pages_held()
+          == eng.scheduler.pool.capacity, "tier: the pool did not balance")
+    out = {"kv": dict(n_pages=n_pages, batch_pages=need,
+                      tier_budget_bytes=FLEET_TIER_BYTES, wall_s=wall,
+                      **{k: ts[k] for k in (
+                          "preempted", "tier_spills", "restore_hits",
+                          "restore_misses", "tier_evictions", "prefix_hits",
+                          "tier_bytes_spilled", "tier_bytes_restored")},
+                      spill_ms=mean_ms(spills), spills_timed=len(spills),
+                      restore_ms=mean_ms(restores),
+                      restores_timed=len(restores))}
+    log(phase="fleet", part="(d) host tier", card=card,
+        tokens_identical=True, **out["kv"])
+    del eng
+    torch.cuda.empty_cache()
+
+    from distributed_training_guide_tpu_torch.serve.engine import \
+        ModelPrograms
+    from distributed_training_guide_tpu_torch.serve.tiering import HostTier
+
+    ten = ModelPrograms(bundle, params, **TENANT_POOL)
+    tier = HostTier(FLEET_TIER_BYTES)
+    ten.attach_host_tier(tier)
+    shapes = adapter_shapes(bundle.config, rank=TENANT_POOL["adapter_rank"])
+    payloads = tenant_payloads(torch, shapes, 5, SEED + 250)
+    slots = [ten.publish_adapter(p, name=f"t{i}")
+             for i, p in enumerate(payloads)]
+    check(slots[4] == slots[0] and ten.adapter_pool.stats[
+        "spill_evictions"] == 1 and ("adapter", "t0") in tier,
+        f"adapters: slots {slots}, tier {tier.keys()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot = ten.restore_adapter("t0")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(slot is not None and all(
+        torch.equal(ten.adapter_stacks[t][x][:, slot], payloads[0][t][x])
+        for t in payloads[0] for x in ("a", "b")),
+        "adapters: the restored rows are not the spilled tenant's")
+    eng = ServeEngine(bundle, None, programs=ten, **FLEET_COMMON)
+    before = kernel_counts()
+    res = generate_many(eng, [Request(**dict(specs[0], adapter_id=slot))])
+    k5 = counts_since(before)["grouped_matmul"]
+    check(k5 > 0 and len(res[0].generated_ids) == 32,
+          f"adapters: the restored tenant ran {k5} K5 launches")
+    out["adapter"] = dict(spilled="t0", restored_slot=slot,
+                          restore_ms=restore_ms,
+                          record_bytes=tier.counters["bytes_restored"],
+                          k5_launches=k5)
+    log(phase="fleet", part="(d) adapter spill and restore", card=card,
+        rows_bitwise=True, **out["adapter"])
+    del eng, ten
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_elastic(torch, card: str, bundle, programs, specs, mono) -> dict:
+    """(e) Generation swaps on the shared (tapped) programs after 6
+    iterations of the 8 requests: a pool-capacity swap at n_slots 8 seats
+    every resident, tokens and rows bitwise the monolith's; n_slots 8 ->
+    16 changes the decode GEMMs' M: each stream against the monolith's,
+    a divergence only where the monolith's top-2 margin is within twice
+    the largest logit error measured on the positions before it."""
+    from distributed_training_guide_tpu_torch.serve import (Request,
+                                                            ServeEngine)
+    from distributed_training_guide_tpu_torch.serve.elastic import \
+        swap_engine
+
+    out = {}
+    for name, over in (("pool", dict(n_pages=1 + 8 * 256 + 512)),
+                       ("slots16", dict(n_slots=16))):
+        old = ServeEngine(bundle, None, programs=programs, **FLEET_COMMON)
+        rows = {}
+        programs.rows = rows
+        ids = [old.submit(Request(**s)) for s in specs]
+        done = {}
+        for _ in range(6):
+            done.update({r.request_id: r for r in old.step()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, evicted, st = swap_engine(old, **over)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        check(not evicted, f"swap {name}: evicted {evicted}")
+        while new.has_work:
+            done.update({r.request_id: r for r in new.step()})
+        programs.rows = None
+        got = {s["seed"]: list(done[i].token_ids)
+               for i, s in zip(ids, specs)}
+        row = dict(swap_ms=swap_ms, **{k: st[k] for k in (
+            "seated", "requeued", "pages_moved", "bytes_moved")})
+        if name == "pool":
+            check(st["seated"] == len(specs) and got == mono["tokens"],
+                  f"swap pool: seated {st['seated']}, tokens differ")
+            row["rows_bitwise"] = rows_equal(rows, mono["rows"],
+                                             set(got))
+        else:
+            streams = {}
+            for s in specs:
+                seed, n_prompt = s["seed"], len(s["prompt_ids"])
+                a, b = got[seed][n_prompt:], mono["tokens"][seed][n_prompt:]
+                div = first_divergence(a, b)
+                upto = len(a) if div is None else div + 1
+                errs = [(rows[(seed, n_prompt + j)]
+                         - mono["rows"][(seed, n_prompt + j)]
+                         ).abs().max().item() for j in range(upto)]
+                streams[seed] = dict(first_divergence=div,
+                                     logit_err_max=max(errs))
+                if div is not None:
+                    top2 = torch.topk(mono["rows"][(seed, n_prompt + div)],
+                                      2).values
+                    streams[seed]["margin"] = (top2[0] - top2[1]).item()
+            bound = max(v["logit_err_max"] for v in streams.values())
+            for seed, v in streams.items():
+                if v["first_divergence"] is not None:
+                    check(v["margin"] <= 2 * bound,
+                          f"swap slots16: stream {seed} diverged at margin "
+                          f"{v['margin']} > 2 x {bound}")
+            row.update(streams=streams, logit_err_bound=bound,
+                       identical=sum(v["first_divergence"] is None
+                                     for v in streams.values()))
+        out[name] = row
+        log(phase="fleet", part="(e) generation swap", card=card,
+            swap=name, **row)
+        del old, new
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_controller(torch, card: str, bundle, programs) -> dict:
+    """(e) The SLO controller over ``run_open_loop``, as a check: one
+    replica (8 slots, max_len 256) under a Poisson rate past its service
+    gives exactly one scale-up, and every request submitted completes.
+    The window is short and its traffic one invented scenario, so its
+    goodput and tails are logged under ``check_window`` and are no
+    workload's figures. The scale-up's ``spawn_like`` shares the built
+    programs and the weights on the card: its time (``spawn_ms``) is a
+    Python object and a fresh pool, no weight load and no kernel build."""
+    from distributed_training_guide_tpu_torch.serve import ServeEngine
+    from distributed_training_guide_tpu_torch.serve import loadgen
+    from distributed_training_guide_tpu_torch.serve.controller import (
+        SLO, Controller)
+    from distributed_training_guide_tpu_torch.serve.router import (Replica,
+                                                                   Router)
+
+    cfg = FLEET_LOADGEN
+    router = Router([Replica("r0", ServeEngine(
+        bundle, None, programs=programs, n_slots=8, page_size=16,
+        max_len=cfg["max_len"]))])
+    ctl = Controller(router, slo=SLO(queue_high=4.0), hold_up=2,
+                     cooldown_s=0.0, max_replicas=2)
+    scen = [loadgen.Scenario("chat", prompt_len=(16, 96),
+                             max_new_tokens=(8, 24))]
+    sched = loadgen.build_schedule(
+        loadgen.poisson_arrivals(cfg["rate"], cfg["seconds"], seed=SEED),
+        scen, vocab=bundle.config.vocab_size, seed=SEED)
+    rep = loadgen.run_open_loop(router, sched, controller=ctl,
+                                max_wall_s=120.0)
+    torch.cuda.synchronize()
+    check(ctl.counters["scale_up"] == 1
+          and not rep.timed_out and rep.completed == rep.submitted,
+          f"controller: scale_up {ctl.counters['scale_up']}, report "
+          f"{rep.as_dict()}")
+    out = dict(rate_rps=cfg["rate"], window_s=cfg["seconds"],
+               offered=rep.offered, submitted=rep.submitted,
+               completed=rep.completed, scale_ups=1,
+               scale_downs=ctl.counters["scale_down"],
+               actions=[a["kind"] for a in ctl.actions],
+               spawn_ms=ctl.cold_starts[0] * 1e3,
+               check_window=dict(goodput_rps=rep.goodput_rps,
+                                 ttft_p50_s=rep.ttft_p50_s,
+                                 ttft_p99_s=rep.ttft_p99_s,
+                                 itl_p50_s=rep.itl_p50_s,
+                                 itl_p99_s=rep.itl_p99_s))
+    log(phase="fleet", part="(e) controller over the open loop", card=card,
+        **out)
+    del router, ctl
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fleet(torch, card: str) -> dict:
+    """Phase 25: the serve fleet on llama-3.1-8b (bf16, 32 layers), one
+    tapped ``ModelPrograms`` shared by every engine: (a) the wire, (b)
+    disaggregated serving, (c) the router, (d) the host tier, (e) elastic
+    generations and the controller. Every count is 0 before and read
+    after; no launch here is a check against a plain version."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    params = bundle.init(bundle.config, SEED, device="cuda")
+    specs, shared = fleet_specs(np, bundle.config.vocab_size)
+    programs = tap_programs()(bundle, params)
+    zero_counts()                       # the fleet's paths start here
+    mono_rows = {}
+    programs.rows = mono_rows
+    res, st, wall = fleet_run(
+        torch, ServeEngine(bundle, None, programs=programs, **FLEET_COMMON),
+        specs + shared)
+    programs.rows = None
+    want = by_seed(res, specs + shared)
+    mono = {"tokens": {s["seed"]: want[s["seed"]] for s in specs},
+            "rows": mono_rows,
+            "stats": {k: st[k] for k in ("tokens_per_s", "ttft_s_p50",
+                                         "itl_s_avg")}}
+    log(phase="fleet", part="monolith", card=card, wall_s=wall,
+        requests=len(res), **mono["stats"])
+    torch.cuda.empty_cache()
+    wire = fleet_wire(torch, card, programs, bundle, params,
+                      specs[1]["prompt_ids"])
+    disagg = fleet_disagg(torch, card, bundle, programs, specs, mono)
+    router = fleet_router(torch, card, bundle, programs, specs, shared,
+                          want)
+    tier = fleet_tier(torch, card, bundle, params, programs, specs, shared,
+                      want)
+    elastic = fleet_elastic(torch, card, bundle, programs, specs, mono)
+    controller = fleet_controller(torch, card, bundle, programs)
+    launches = kernel_counts()          # ... and end here
+    for k in ("paged_attend_split", "paged_attend_combine",
+              "grouped_matmul"):
+        check(launches[k] > 0, f"fleet: no {k} launch on the fleet's paths")
+    del programs, params, mono_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="fleet", seconds=time.perf_counter() - t0, card=card,
+        launches=launches)
+    return {"wire": wire, "disagg": disagg, "router": router, "tier": tier,
+            "elastic": elastic, "controller": controller,
+            "launches": launches}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -7896,6 +8587,7 @@ def main() -> int:
     ovl = phase_overlap(torch, smi)
     spec = phase_spec_horizon(torch, smi)
     tp = phase_tenants_post(torch, smi)
+    fleet = phase_fleet(torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -7913,7 +8605,9 @@ def main() -> int:
         "name": "paged_attend_split", **k4,
         "launches": serve["body_launches"]["split"]
         + spec["launches"]["paged_attend_split"]
-        + tp["launches"]["paged_attend_split"],
+        + tp["launches"]["paged_attend_split"]
+        + fleet["launches"]["paged_attend_split"],
+        "launches_fleet": fleet["launches"]["paged_attend_split"],
         "launches_tenants_post": tp["launches"]["paged_attend_split"],
         "launches_spec_horizon": spec["launches"]["paged_attend_split"],
         "max_abs_err": worst["split"], "shape": "decode", "ms": dec["body_ms"],
@@ -7930,7 +8624,9 @@ def main() -> int:
         "name": "paged_attend_mma", **k4,
         "launches": serve["body_launches"]["mma"]
         + spec["launches"]["paged_attend_mma"]
-        + tp["launches"]["paged_attend_mma"],
+        + tp["launches"]["paged_attend_mma"]
+        + fleet["launches"]["paged_attend_mma"],
+        "launches_fleet": fleet["launches"]["paged_attend_mma"],
         "launches_tenants_post": tp["launches"]["paged_attend_mma"],
         "launches_spec_horizon": spec["launches"]["paged_attend_mma"],
         "launches_dense_families": dense["launches"]["paged_attend_mma"],
@@ -7946,7 +8642,9 @@ def main() -> int:
         "name": "paged_attend_combine", **k4,
         "launches": serve["body_launches"]["combine"]
         + spec["launches"]["paged_attend_combine"]
-        + tp["launches"]["paged_attend_combine"],
+        + tp["launches"]["paged_attend_combine"]
+        + fleet["launches"]["paged_attend_combine"],
+        "launches_fleet": fleet["launches"]["paged_attend_combine"],
         "launches_tenants_post": tp["launches"]["paged_attend_combine"],
         "launches_spec_horizon": spec["launches"]["paged_attend_combine"],
         "launches_dense_families": dense["launches"]["paged_attend_combine"],
@@ -8056,7 +8754,9 @@ def main() -> int:
         + ch10["launches"]["grouped_matmul"]
         + ovl["launches"]["grouped_matmul"]
         + spec["launches"]["grouped_matmul"]
-        + tp["launches"]["grouped_matmul"],
+        + tp["launches"]["grouped_matmul"]
+        + fleet["launches"]["grouped_matmul"],
+        "launches_fleet": fleet["launches"]["grouped_matmul"],
         "launches_spec_horizon": spec["launches"]["grouped_matmul"],
         "launches_tenants_post": tp["launches"]["grouped_matmul"],
         "launches_per_tenant_forward": tp["serve"]["k5_per_forward"],
@@ -8092,7 +8792,8 @@ def main() -> int:
                    "ring-hop-window-dlhs": ovl["hop_window"]["rows"][
                        "dlhs"],
                    **{k: {kk: v.get(kk) for kk in keys + (
-                       "max_abs_err", "library_note")}
+                       "max_abs_err", "library_note", "library_fp32_ms",
+                       "library_fp32_note")}
                       for k, v in tp["gmm"].items()}},
     })
     t = gmm_timing["tgmm-train"]
@@ -8138,7 +8839,9 @@ def main() -> int:
                     "quantized_matmul.py:119",
         "launches": int8_serve["launches"]
         + spec["launches"]["quantized_matmul"]
-        + tp["launches"]["quantized_matmul"],
+        + tp["launches"]["quantized_matmul"]
+        + fleet["launches"]["quantized_matmul"],
+        "launches_fleet": fleet["launches"]["quantized_matmul"],
         "launches_tenants_post": tp["launches"]["quantized_matmul"],
         "launches_spec_horizon": spec["launches"]["quantized_matmul"],
         "launches_by_body": int8_serve["launches_by_body"],

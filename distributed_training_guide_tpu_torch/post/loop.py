@@ -35,8 +35,6 @@ import torch
 from .rollout import RolloutLedger, generate_rollouts, pad_bucket
 from .score import Scorer
 
-# what the loop leaves to the fleet, by ROADMAP.md item
-_FLEET = "ROADMAP.md queue 1, 'Serve fleet'"
 
 
 def pack_rollouts(rollouts, scores, *, pad_to: int,
@@ -274,17 +272,12 @@ def adapter_payload(params) -> dict:
 
 def publish_trained_adapter(target, state, *, name=None, slot=None,
                             force: bool = False) -> int:
-    """Publish a trainer state's LoRA adapter into a ``ServeEngine``'s
-    adapter pool (one slot's leaves, never the base). Returns the slot the
-    tenant landed in (pass it back as ``slot=`` to republish in place). A
-    fleet target (a router or a disaggregated pair) raises, naming its
-    ROADMAP item."""
-    from ..serve.engine import ServeEngine
-
-    if not isinstance(target, ServeEngine):
-        raise NotImplementedError(
-            f"publishing an adapter into a {type(target).__name__} (a "
-            f"router or disaggregated fleet) is not ported yet: {_FLEET}")
+    """Publish a trainer state's LoRA adapter into a serving target's
+    adapter pool (one slot's leaves, never the base). ``target`` is a
+    ``ServeEngine``, a ``DisaggEngine`` or a fleet ``Router`` (the same
+    ``publish_adapter`` on all three; the router's is fleet-wide and
+    all-or-nothing). Returns the slot the tenant landed in (pass it back
+    as ``slot=`` to republish in place)."""
     return target.publish_adapter(adapter_payload(state.params),
                                   name=name, slot=slot, force=force)
 

@@ -17,6 +17,11 @@ card by default.
     python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
         --http-port 8000 --device cpu             # POST /generate, GET
                                                   # /healthz, /readyz
+    python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
+        --prompt-ids 3,17,42 --device cpu --disagg --transport cross_host
+                                                  # prefill / decode pair
+    python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
+        --prompt-ids 3,17,42 --device cpu --replicas 2    # a routed fleet
 
 The model is built from a random init of ``--seed``, in fp32 by default
 (as the JAX package's CLI does); ``--dtype bfloat16`` keeps params and
@@ -25,9 +30,13 @@ DIR`` loads a converted checkpoint (``models/hf_convert.py``) instead.
 Under ``--weight-dtype int8`` the full-precision tree is dropped once the
 engine has stored the int8 one, so only the int8 weights stay resident.
 
-Not in this package yet (each refused naming ROADMAP.md queue 1, 'Serve
-fleet'): ``--disagg``, ``--prefill-slots``, ``--transport``,
-``--replicas``, ``--tp`` and ``--shard-kv``.
+``--disagg`` serves through the disaggregated prefill / decode pair
+(``--prefill-slots`` concurrent prefills; ``--transport cross_host`` moves
+every handoff's pages over the CRC-framed wire between two pools), and
+``--replicas N`` fronts N engines sharing one set of programs with the
+fleet router; the two do not combine. Not in this package yet (refused
+naming ROADMAP.md queue 1, 'Serve fleet, sharded pool'): ``--tp`` and
+``--shard-kv``.
 """
 from __future__ import annotations
 
@@ -36,13 +45,10 @@ import json
 import threading
 import time
 
-# the JAX CLI's flags of the serve fleet, refused here
-_FLEET_FLAGS = (("--disagg", {"action": "store_true"}),
-                ("--prefill-slots", {"type": int, "default": None}),
-                ("--transport", {"default": None}),
-                ("--replicas", {"type": int, "default": None}),
-                ("--tp", {"type": int, "default": None}),
+# the JAX CLI's flags of the tp-sharded page pool, refused here
+_SHARD_FLAGS = (("--tp", {"type": int, "default": None}),
                 ("--shard-kv", {"action": "store_true"}))
+_SHARD_ITEM = "ROADMAP.md queue 1, 'Serve fleet, sharded pool'"
 
 
 def main(argv=None) -> None:
@@ -135,15 +141,35 @@ def main(argv=None) -> None:
     parser.add_argument("--http-port", type=int, default=None,
                         help="serve the HTTP endpoint on this port until "
                         "SIGTERM (then drain) instead of the offline batch")
-    for flag, kw in _FLEET_FLAGS:
-        parser.add_argument(flag, **kw, help="not in this package yet "
-                            "(ROADMAP.md queue 1, 'Serve fleet')")
+    parser.add_argument("--disagg", action="store_true",
+                        help="disaggregated serving: separate prefill and "
+                        "decode engines joined by a KV-page handoff")
+    parser.add_argument("--prefill-slots", type=int, default=1,
+                        help="concurrent prefill slots of the --disagg "
+                        "prefill engine")
+    parser.add_argument("--transport", default="same_host",
+                        choices=("same_host", "cross_host"),
+                        help="--disagg handoff: 'same_host' moves page "
+                        "refcounts over one pool; 'cross_host' moves the "
+                        "pages' bytes between two pools over the "
+                        "crash-safe serve/transport.py wire")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="front N engine replicas with the fleet "
+                        "router (prefix affinity, spillover, heartbeat "
+                        "fencing, resubmission replay); replicas share "
+                        "one set of programs")
+    for flag, kw in _SHARD_FLAGS:
+        parser.add_argument(flag, **kw, help=f"not in this package yet "
+                            f"({_SHARD_ITEM})")
     args = parser.parse_args(argv)
-    used = [flag for flag, _ in _FLEET_FLAGS
+    used = [flag for flag, _ in _SHARD_FLAGS
             if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
     if used:
         raise SystemExit(f"{', '.join(used)}: not ported to the PyTorch "
-                         f"package yet (ROADMAP.md queue 1, 'Serve fleet')")
+                         f"package yet ({_SHARD_ITEM})")
+    if args.replicas > 1 and args.disagg:
+        raise SystemExit("--replicas fronts ServeEngine replicas; combining "
+                         "it with --disagg per replica is not supported")
 
     import torch
 
@@ -187,19 +213,40 @@ def main(argv=None) -> None:
             max_len=target_len, k=args.spec_k, page_size=args.page_size,
             attend_impl=args.attend_impl, device=args.device)
         del draft_params
+    common = dict(n_slots=args.n_slots, page_size=args.page_size,
+                  n_pages=args.n_pages, max_len=args.max_len,
+                  prefill_chunk=args.prefill_chunk,
+                  prefix_cache=not args.no_prefix_cache,
+                  attend_impl=args.attend_impl, kv_dtype=args.kv_dtype,
+                  weight_dtype=args.weight_dtype, device=args.device,
+                  max_queue=args.max_queue, speculate=speculate,
+                  spec_k=args.spec_k, decode_horizon=args.decode_horizon)
     # the engine holds the params it serves; under --weight-dtype int8
     # that is the int8 tree alone, the full-precision one dies with load
-    engine = ServeEngine(
-        *load(args.model_name, args.pretrained, 0), n_slots=args.n_slots,
-        page_size=args.page_size, n_pages=args.n_pages, max_len=args.max_len,
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=not args.no_prefix_cache, attend_impl=args.attend_impl,
-        kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
-        device=args.device, max_queue=args.max_queue, speculate=speculate,
-        spec_k=args.spec_k, decode_horizon=args.decode_horizon)
-    out = {"kv_report": engine.kv_report()}
+    if args.replicas > 1:
+        from .router import local_fleet
+
+        engine = local_fleet(*load(args.model_name, args.pretrained, 0),
+                             args.replicas, **common)
+        first = engine.replicas["r0"].engine
+        report = {"replicas": args.replicas, **first.kv_report()}
+        programs = first.programs
+    elif args.disagg:
+        from .disagg import DisaggEngine
+
+        engine = DisaggEngine(*load(args.model_name, args.pretrained, 0),
+                              n_prefill_slots=args.prefill_slots,
+                              transport=args.transport, **common)
+        report, programs = engine.kv_report(), engine.programs
+    else:
+        engine = ServeEngine(*load(args.model_name, args.pretrained, 0),
+                             **common)
+        report, programs = engine.kv_report(), engine.programs
+    out = {"kv_report": report}
     if args.weight_dtype is not None:
-        out["weight_report"] = engine.weight_report()
+        from .engine import build_weight_report
+
+        out["weight_report"] = build_weight_report(programs)
     print(json.dumps(out))
 
     if args.http_port is not None:
@@ -243,8 +290,8 @@ def main(argv=None) -> None:
                 for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
     results = generate_many(engine, requests)
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+    if programs.device.type == "cuda":
+        torch.cuda.synchronize(programs.device)
     wall = time.perf_counter() - t0
     for res in results:
         line = {"request_id": res.request_id,
@@ -255,7 +302,10 @@ def main(argv=None) -> None:
             line["text"] = tokenizer.decode(res.token_ids)
         print(json.dumps(line))
     print(json.dumps({"stats": {**throughput_stats(results, wall, engine),
-                                "device": str(engine.device)}}))
+                                "device": str(programs.device)}}))
+    close = getattr(engine, "close", None)
+    if close is not None:
+        close()
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ Refusals keep their structure: the scheduler's ``RefusalError`` maps to
 its HTTP status (429 backpressure, 503 draining, 400 never runnable)
 with its ``reason`` and a ``Retry-After`` header where it has a hint.
 ``/healthz`` reads the engine's lock-free ``stats()``; ``/readyz`` runs
-that snapshot through :func:`readiness`.
+that snapshot through ``serve/router.py:readiness`` (re-exported here).
+Any engine-shaped target serves: a ``ServeEngine``, a ``DisaggEngine``
+or a fleet ``Router``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from .router import readiness  # noqa: F401  (re-exported: /readyz)
 from .scheduler import RefusalError, Request, RequestResult
 
 LOGGER = logging.getLogger(__name__)
@@ -94,37 +97,6 @@ def throughput_stats(results: list, wall_s: float, engine) -> dict:
         "tokens_per_dispatch": es.get("tokens_per_dispatch", 0.0),
         "horizon_effective": es.get("horizon_effective", 0.0),
     }
-
-
-def readiness(stats: dict, *, loop_age_s: Optional[float] = None,
-              heartbeat_timeout_s: float = 5.0,
-              queue_watermark: Optional[int] = None,
-              min_free_pages: Optional[int] = None) -> tuple:
-    """The /readyz predicate over an engine's ``stats()`` snapshot (the
-    JAX package keeps it in ``serve/router.py``): liveness says the
-    process is up, readiness says a router should send traffic here.
-    Returns (ready, reasons), every failing gate named: the worker
-    thread alive; not draining; the queue below its watermark
-    (``max_queue``, else 8 x slots); one free page per decode slot; and,
-    where the caller knows it, the worker loop's heartbeat younger than
-    ``heartbeat_timeout_s``."""
-    reasons = []
-    if not stats.get("ok", True):
-        reasons.append("engine_dead")
-    if stats.get("draining"):
-        reasons.append("draining")
-    n_slots = max(1, stats.get("n_slots", 1))
-    watermark = queue_watermark
-    if watermark is None:
-        watermark = stats.get("max_queue") or 8 * n_slots
-    if stats.get("queued", 0) >= watermark:
-        reasons.append("queue_depth")
-    need = n_slots if min_free_pages is None else min_free_pages
-    if stats.get("pages_free", need) < need:
-        reasons.append("pool_headroom")
-    if loop_age_s is not None and loop_age_s > heartbeat_timeout_s:
-        reasons.append("heartbeat_stale")
-    return (not reasons, reasons)
 
 
 class _EngineWorker(threading.Thread):

@@ -52,6 +52,7 @@ launches.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -69,6 +70,9 @@ from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
                        pages_for_tokens, pool_nbytes, TRASH_PAGE)
 from .scheduler import Admission, Request, RequestResult, Scheduler
 from .spec import Drafter, NgramDrafter, new_spec_counters
+from .tiering import (HostTier, cache_prefix_keys, make_gather,
+                      restore_prefixes, restore_queued)
+from .transport import gather_payload, scatter_payload
 from .weights import (params_nbytes, require_llama, store_weights,
                       weight_bytes_by_dtype, weight_dtype_name)
 
@@ -183,17 +187,20 @@ def derived_pool_metrics(*, pool: PagePool, cached_pages: int, n_slots: int,
                          admitted: int, prefix_hits: int,
                          lat: "LatencyMeter", bytes_per_page: int,
                          pool_dtype: str, host_dispatches: int,
-                         horizon_ksum: int) -> dict:
+                         horizon_ksum: int,
+                         tier: Optional[HostTier] = None) -> dict:
     """The derived tail of stats(): pool gauges, the prefix hit rate,
     decode occupancy, the dispatch amortization of a decode horizon
     (``host_dispatches``, the raw ``horizon_ksum`` and their means) and
-    latency. The host-tier gauges are present as zeros, so the schema is
-    the JAX engine's whether or not a tier exists (the port has none)."""
+    latency. The host-tier gauges are always present (zeros without a
+    tier), so the router's fleet aggregation sees one schema."""
     held = pool.capacity - pool.n_free
-    return {
+    tier_tail = tier.gauges() if tier is not None else {
         "host_tier_bytes": 0, "host_tier_budget_bytes": 0,
         "host_tier_records": 0, "spilled_pages": 0,
-        "restore_hits": 0, "restore_misses": 0,
+        "restore_hits": 0, "restore_misses": 0}
+    return {
+        **tier_tail,
         "n_slots": n_slots,
         "pool_dtype": pool_dtype,
         "bytes_per_page": bytes_per_page,
@@ -299,6 +306,33 @@ def resolve_drafter(speculate, *, spec_k: int,
         return speculate
     raise ValueError(f"speculate must be None, 'off', 'ngram', or a "
                      f"Drafter instance, got {speculate!r}")
+
+
+def collect_partial_tokens(scheds, handoffs=()) -> dict:
+    """request_id -> tokens generated so far, for every live sequence of
+    ``scheds`` and every in-transit handoff: the streaming tap of the
+    monolith and the disaggregated pair. Lists only grow (a replay
+    rewrites k/v, not tokens)."""
+    out = {}
+    for sched in scheds:
+        for slot in sched.slots:
+            if slot is not None and slot.generated:
+                out[slot.request.request_id] = list(slot.generated)
+    for h in handoffs:
+        if h.generated:
+            out[h.request.request_id] = list(h.generated)
+    return out
+
+
+def drop_stale_pending(sched: Scheduler, pending: dict) -> None:
+    """A preempted or expired mid-prefill slot takes its chunk state
+    with it (it re-admits from the queue)."""
+    for idx in list(pending):
+        slot = sched.slots[idx]
+        adm = pending[idx]
+        if (slot is None
+                or slot.request.request_id != adm.request.request_id):
+            del pending[idx]
 
 
 class LatencyMeter:
@@ -608,17 +642,27 @@ def process_horizon_block(sched: Scheduler, inflight: dict) -> tuple:
 def build_kv_report(programs: "ModelPrograms", *, page_size: int,
                     pool: PagePool, cached_pages: int, n_slots: int,
                     max_pages: int, pool_bytes: int,
+                    tier: Optional[HostTier] = None,
                     decode_horizon: int = 1) -> dict:
     """The byte table for one engine's pool, priced at its own kv_dtype
     (scales included under int8) beside the fp32 per-page cost, and the
     horizon's price: one host read of ``[n_slots, K]`` int32 per K
-    steps."""
+    steps. With a host tier: its budget, occupancy, spilled pages and the
+    pages its budget buys at this pool's per-page cost."""
     kv_dtype = programs.kv_dtype
     per_page = kv_page_bytes(programs.config, page_size=page_size,
                              kv_dtype=kv_dtype)
     per_page_fp32 = kv_page_bytes(programs.config, page_size=page_size,
                                   kv_dtype="fp32")
+    tier_rows = {} if tier is None else {
+        "host_tier_budget_bytes": tier.budget_bytes,
+        "host_tier_bytes": tier.bytes_used,
+        "host_tier_spilled_pages": tier.spilled_pages,
+        "host_tier_page_capacity": (tier.budget_bytes // per_page
+                                    if per_page else 0),
+    }
     return {
+        **tier_rows,
         "page_size": page_size,
         "pool_dtype": kv_dtype,
         "n_pages": pool.n_pages,
@@ -745,6 +789,43 @@ def fp_layout(params):
     return torch.empty(params.shape, dtype=params.dtype, device="meta")
 
 
+def check_page_geometry(programs: "ModelPrograms", page_size: int) -> None:
+    """On the card every paged attend is the kernel, so the model's
+    head_dim and the page size must be ones K4 takes (the JAX engine would
+    take the gather path for others, e.g. gpt-neox-20b's head_dim 96)."""
+    head = programs.config.head_size
+    if (programs.device.type == "cuda"
+            and not paged_decode_eligible(head, page_size)):
+        raise ValueError(
+            f"head_dim {head} / page_size {page_size}: the paged kernel "
+            f"takes head_dim in {HEAD_DIMS} and pages of 8 to 64 positions "
+            f"in steps of 8 (other head_dims: ROADMAP.md queue 2, 'K4 at "
+            f"head_dim 96')")
+
+
+def drop_stale_kv(scheds, tier: Optional[HostTier],
+                  ns: Optional[int] = None) -> int:
+    """Free the prefix-cache pages of ``scheds`` (a shared cache object
+    once) and drop the host tier's spilled prefix records: every
+    namespace after a params publish (``ns=None``), one adapter slot's
+    when a new tenant takes it. All of it holds k/v computed under the
+    weights just replaced (the JAX engine keeps the cache across a params
+    publish, and the tier's records across both: a prompt that hits them
+    decodes from stale k/v). Returns the pages and records dropped."""
+    dropped, seen = 0, set()
+    for sched in scheds:
+        cache = sched.cache
+        if cache is not None and id(cache) not in seen:
+            seen.add(id(cache))
+            dropped += (cache.drop_all() if ns is None
+                        else cache.drop_namespace(ns))
+    if tier is not None:
+        for key in tier.keys():
+            if key[0] == "prefix" and (ns is None or key[1] == ns):
+                dropped += tier.drop(key)
+    return dropped
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: ROADMAP.md "
@@ -764,7 +845,8 @@ class ModelPrograms:
                  adapter_alpha: float = 16.0,
                  adapter_targets=DEFAULT_TARGETS):
         if plan is not None or shard_kv:
-            _not_ported("plan= / shard_kv=", "'Serve fleet' (sharding)")
+            _not_ported("plan= / shard_kv= (the tp-sharded page pool)",
+                        "'Serve fleet, sharded pool'")
         self.mod = family_module(bundle.family)
         if max_adapters is not None and not hasattr(self.mod, "_lora_sort"):
             raise ValueError(
@@ -815,6 +897,12 @@ class ModelPrograms:
         self.adapter_stacks = None
         self._adapter_shapes = None
         self.adapter_publish_count = 0
+        # the host tier an LRU-evicted adapter spills into
+        # (``attach_host_tier``); None drops a victim's rows
+        self._host_tier: Optional[HostTier] = None
+        # the engines serving through these programs (a fleet's replicas
+        # share one): a weights change drops every one's stale k/v
+        self.kv_holders = weakref.WeakSet()
         if max_adapters is not None:
             self.adapter_pool = AdapterPool(
                 max_adapters, rank=adapter_rank, alpha=adapter_alpha,
@@ -834,6 +922,15 @@ class ModelPrograms:
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def drop_shared_kv(self, ns: Optional[int] = None) -> int:
+        """``drop_cached_kv(ns)`` on every engine serving through these
+        programs: a publish, an eviction or a restore through one replica
+        changes the weights (or a slot's tenant) under its siblings too,
+        whose prefix caches and tier records would otherwise serve k/v
+        computed under the old ones. Returns the pages and records
+        dropped."""
+        return sum(e.drop_cached_kv(ns) for e in list(self.kv_holders))
 
     # ---- weight publishing (the post-training seam) ------------------------
     @contextlib.contextmanager
@@ -957,12 +1054,47 @@ class ModelPrograms:
         return slot
 
     def attach_host_tier(self, tier) -> None:
-        _not_ported("attach_host_tier (adapter spills to the host tier)",
-                    "'Serve fleet' (serve/tiering.py)")
+        """Install the host tier on the adapter eviction path: an LRU
+        eviction (an insert past ``max_adapters`` recycling an idle
+        tenant's slot) copies the victim's A / B rows into the tier, and
+        ``restore_adapter`` re-inserts them on the next reference."""
+        self._host_tier = tier
+        if self.adapter_pool is not None:
+            self.adapter_pool.on_evict = self._spill_adapter
+
+    def _spill_adapter(self, slot: int, name) -> None:
+        """``AdapterPool.on_evict``: the victim slot's fp32 rows to the
+        host, bitwise, before the incoming insert overwrites them."""
+        if self._host_tier is None or self.adapter_stacks is None:
+            return
+        payload = {f"{t}.{leaf}": pair[leaf][:, slot].to("cpu", copy=True)
+                   for t, pair in self.adapter_stacks.items()
+                   for leaf in ("a", "b")}
+        self._host_tier.put(("adapter", name), payload, pages=0,
+                            meta={"slot": int(slot)})
 
     def restore_adapter(self, name) -> Optional[int]:
-        _not_ported("restore_adapter (adapter spills to the host tier)",
-                    "'Serve fleet' (serve/tiering.py)")
+        """Re-insert a spilled tenant from the host tier into a (possibly
+        LRU-recycled) slot through the publish's own insert: the stack
+        rows land bitwise what the spill copied. Returns the new slot, or
+        None when the tier holds no record for ``name`` or every slot is
+        live with requests in flight."""
+        if self.adapter_pool is None or self._host_tier is None:
+            return None
+        # hold the record BEFORE the alloc: the alloc may LRU-evict
+        # another tenant, whose spill could push this record out of the
+        # byte budget
+        rec = self._host_tier.get(("adapter", name))
+        if rec is None:
+            return None
+        slot = self.adapter_pool.alloc(name)
+        if slot is None:
+            return None
+        self._host_tier.take(("adapter", name))
+        self._adapter_insert(
+            {t: {leaf: rec.payload[f"{t}.{leaf}"] for leaf in ("a", "b")}
+             for t in self.adapter_stacks}, slot)
+        return slot
 
     def _lora_kw(self, lora_args) -> dict:
         """The ``lora=`` keyword of the family forwards from the optional
@@ -1170,8 +1302,13 @@ class ServeEngine:
     not together with speculation) and ``max_adapters`` (a pool of LoRA
     tenants of rank ``adapter_rank`` on ``adapter_targets``, scale
     ``adapter_alpha / adapter_rank``, llama family: ``publish_adapter``,
-    then ``Request(adapter_id=...)``). ``publish_params`` swaps the
-    weights between rollout batches (``post/loop.py``)."""
+    then ``Request(adapter_id=...)``), ``host_tier_bytes`` (a host-RAM
+    tier of that budget, ``serve/tiering.py``: evicted prefix pages,
+    preempted sequences and LRU-evicted adapters spill there and are
+    restored bitwise ahead of admission). ``publish_params`` swaps the
+    weights between rollout batches (``post/loop.py``); ``resubmit``,
+    ``gather_pages`` and ``scatter_pages`` are the fleet's seams
+    (``serve/router.py``, ``serve/disagg.py``, ``serve/elastic.py``)."""
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
@@ -1187,8 +1324,6 @@ class ServeEngine:
                  adapter_targets=DEFAULT_TARGETS,
                  host_tier_bytes: Optional[int] = None,
                  decode_horizon: int = 1):
-        if host_tier_bytes is not None:
-            _not_ported("host_tier_bytes=", "'Serve fleet' (tiering)")
         if decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got "
                              f"{decode_horizon}")
@@ -1205,6 +1340,7 @@ class ServeEngine:
             adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
             adapter_targets=adapter_targets)
         self.device = self.programs.device
+        self.programs.kv_holders.add(self)
         # shared programs carry their pool, as they carry their dtypes
         self.adapter_pool = self.programs.adapter_pool
         self.decode_horizon = decode_horizon
@@ -1222,15 +1358,7 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         _, self.max_model_len, self.max_pages = resolve_context_bounds(
             self.config, max_len, page_size)
-        if (self.device.type == "cuda" and not paged_decode_eligible(
-                self.config.head_size, page_size)):
-            # the JAX engine would take the gather path here (gpt-neox-20b's
-            # head_dim 96); on the card every paged attend is the kernel
-            raise ValueError(
-                f"head_dim {self.config.head_size} / page_size {page_size}: "
-                f"the paged kernel takes head_dim in {HEAD_DIMS} and pages "
-                f"of 8 to 64 positions in steps of 8 (other head_dims: "
-                f"ROADMAP.md queue 2, 'K4 at head_dim 96')")
+        check_page_geometry(self.programs, page_size)
         self.page_size = page_size
         self.n_slots = n_slots
         if n_pages is None:
@@ -1255,6 +1383,18 @@ class ServeEngine:
             prefill_buckets, max_pages=self.max_pages, page_size=page_size,
             max_model_len=self.max_model_len)
         self.pages = self.programs.init_device_pages(n_pages, page_size)
+        # host-RAM KV tier (serve/tiering.py): spilled prefix pages and
+        # preempted sequences park here instead of being recomputed. A
+        # spilled page frees its slot, so the pool identity holds as it
+        # is; the tier audits its own byte ledger
+        self.host_tier: Optional[HostTier] = None
+        if host_tier_bytes is not None:
+            self.host_tier = HostTier(host_tier_bytes)
+            gather = make_gather(self)
+            self.scheduler.attach_tier(self.host_tier, gather)
+            if self.scheduler.cache is not None:
+                self.scheduler.cache.attach_tier(self.host_tier, gather)
+            self.programs.attach_host_tier(self.host_tier)
         self._pending: dict = {}
         self._dev: Optional[dict] = None
         # the launched-but-unbooked horizon: the double buffer's slot
@@ -1287,6 +1427,24 @@ class ServeEngine:
         except ValueError as exc:
             self.scheduler.refuse("bad_prompt", str(exc))
         return self.scheduler.submit(request)
+
+    def resubmit(self, request: Request, generated=(), *,
+                 first_token_at: float = 0.0,
+                 submitted_at: Optional[float] = None) -> int:
+        """Fence recovery (``serve/router.py``): re-admit a request that
+        already ran on a dead or wedged replica. The prompt re-prefills
+        and the recorded ``generated`` tokens replay through the decode
+        step; replicas share params, so the continuation is
+        token-identical to the uninterrupted run. ``submitted_at`` is the
+        first client submit time, so TTFT and deadlines do not restart at
+        each hop."""
+        if self.draining:
+            self.scheduler.refuse(
+                "draining", "engine is draining: not accepting resubmits",
+                http_status=503)
+        return self.scheduler.requeue(request, generated,
+                                      first_token_at=first_token_at,
+                                      submitted_at=submitted_at)
 
     def drain(self) -> None:
         """Stop admitting; in-flight work runs to completion."""
@@ -1350,14 +1508,11 @@ class ServeEngine:
         flight unless ``force``: preemption replay and resubmission assume
         one set of weights per token stream. The on-policy loop publishes
         between rollout batches, when the engine is drained. The prefix
-        cache is emptied: its pages hold k/v of the old weights."""
+        cache is emptied: its pages hold k/v of the old weights (so are
+        those of every engine sharing the programs)."""
         self._refuse_busy("publish_params", force)
         count = self.programs.publish_params(new_params)
-        if self.scheduler.cache is not None:
-            # k/v cached under the old weights must never serve a prompt
-            # under the new ones (the JAX engine keeps them: a prompt that
-            # hits the cache after a publish decodes from stale k/v)
-            self.scheduler.cache.drop_all()
+        self.programs.drop_shared_kv()
         return count
 
     def publish_adapter(self, adapter_params, *,
@@ -1368,14 +1523,20 @@ class ServeEngine:
         (``ModelPrograms.publish_adapter``). Returns the slot id requests
         carry as ``adapter_id``. Refused while work is in flight unless
         ``force``, as ``publish_params``. The slot's prefix-cache namespace
-        is dropped: k/v cached under its previous tenant must never serve
-        the new one."""
+        is dropped, on every engine sharing the programs: k/v cached under
+        its previous tenant must never serve the new one."""
         self._refuse_busy("publish_adapter", force)
         slot_id = self.programs.publish_adapter(adapter_params, name=name,
                                                 slot=slot)
-        if self.scheduler.cache is not None:
-            self.scheduler.cache.drop_namespace(slot_id)
+        self.programs.drop_shared_kv(slot_id)
         return slot_id
+
+    def drop_cached_kv(self, ns: Optional[int] = None) -> int:
+        """Drop the cached k/v that weights just replaced made stale: the
+        prefix cache and the host tier's prefix records, of every
+        namespace (``ns=None``, a params publish) or of one adapter slot
+        (``drop_stale_kv``). Returns the pages and records dropped."""
+        return drop_stale_kv([self.scheduler], self.host_tier, ns=ns)
 
     def evict_adapter(self, slot: int) -> None:
         """Retire a tenant adapter (refused while its requests are in
@@ -1385,12 +1546,18 @@ class ServeEngine:
             raise ValueError("this engine serves no adapter pool (built "
                              "with max_adapters=None)")
         self.adapter_pool.evict(slot)
-        if self.scheduler.cache is not None:
-            self.scheduler.cache.drop_namespace(slot)
+        self.programs.drop_shared_kv(slot)
 
     def restore_adapter(self, name: str):
-        _not_ported("restore_adapter (adapter spills to the host tier)",
-                    "'Serve fleet' (serve/tiering.py)")
+        """Re-seat a host-spilled adapter's rows into the stacks
+        (``ModelPrograms.restore_adapter``). Legal while serving: the
+        alloc recycles only idle slots, and the recycled slot's prefix
+        namespace is dropped as a publish drops it, on every engine
+        sharing the programs."""
+        slot_id = self.programs.restore_adapter(name)
+        if slot_id is not None:
+            self.programs.drop_shared_kv(slot_id)
+        return slot_id
 
     @property
     def has_work(self) -> bool:
@@ -1448,6 +1615,13 @@ class ServeEngine:
         drains the pipeline first (the block books at once and the
         boundary runs on the host's state), so a finished result surfaces
         at most one step after its tokens were computed."""
+        if getattr(self, "_publish_pending_swap", False):
+            raise RuntimeError(
+                "new_generation(params=...) already published the next "
+                "policy into this engine's shared programs: stepping it "
+                "before swap_generation would decode old-policy k/v under "
+                "the new weights; run the swap (or build the new "
+                "generation without params=)")
         self.stats_seq += 1
         finished = []
         sched = self.scheduler
@@ -1480,8 +1654,23 @@ class ServeEngine:
         expired = sched.expire_deadlines()
         if expired:
             self._dev = None
-            self._drop_stale_pending()
+            drop_stale_pending(sched, self._pending)
             finished.extend(expired)
+        if self.host_tier is not None:
+            # restore ahead of admission: a queued request whose pages
+            # sit in the tier seats by scatter (bitwise, replay_pos
+            # intact), and the queue head's spilled prefix chain is
+            # re-seated in the cache for the admission below to share
+            if restore_queued(sched, self.host_tier, self.scatter_pages,
+                              self._tier_alloc):
+                self._dev = None
+            if sched.queue and sched.cache is not None:
+                head = sched.queue[0].request
+                restore_prefixes(
+                    sched.cache, self.host_tier, list(head.prompt_ids),
+                    ns=int(getattr(head, "adapter_id", 0) or 0),
+                    alloc=self._tier_alloc, scatter=self.scatter_pages,
+                    free=sched.pool.free)
         for adm in sched.try_admit():
             self._dev = None
             if adm.fork is not None:
@@ -1504,7 +1693,7 @@ class ServeEngine:
         if grown or preempted:
             self._dev = None
             if preempted:
-                self._drop_stale_pending()
+                drop_stale_pending(sched, self._pending)
         if sched.active_indices():
             if self._horizon_ready():
                 # growth guaranteed every slot's next write, so the
@@ -1531,29 +1720,42 @@ class ServeEngine:
         self._lat.note(finished)
         return finished
 
-    def _drop_stale_pending(self) -> None:
-        """A preempted or expired mid-prefill slot takes its chunk state
-        with it (it re-admits from the queue)."""
-        for idx in list(self._pending):
-            slot = self.scheduler.slots[idx]
-            adm = self._pending[idx]
-            if (slot is None
-                    or slot.request.request_id != adm.request.request_id):
-                del self._pending[idx]
+    # ---- host tier plumbing ------------------------------------------------
+    def gather_pages(self, page_ids) -> dict:
+        """Bitwise host copy of the given pages, every pool leaf (int8
+        payload AND scale rows): the tier's and the wire's unit."""
+        return gather_payload(self.pages, list(page_ids))
+
+    def scatter_pages(self, page_ids, payload) -> None:
+        """Seat a gathered payload into this engine's pool at the given
+        (freshly allocated) page ids, in place on the pool's stream: it
+        lands after any horizon block already queued there. Called on the
+        engine's own thread only (a receiver thread never touches a
+        pool). The device decode tensors rebuild."""
+        scatter_payload(self.pages, list(page_ids), payload)
+        self._dev = None
+
+    def _tier_alloc(self, n: int):
+        """Allocate ``n`` pages for a restore, refusing unless the free
+        list keeps one page of growth headroom per active decode slot: a
+        restore never forces a preemption of the running batch."""
+        sched = self.scheduler
+        headroom = len(sched.active_indices())
+        if sched.pool.n_free < n + headroom:
+            return None
+        return sched.pool.alloc(n)
 
     # ---- metrics (host-side only) -------------------------------------------
     def partial_tokens(self) -> dict:
         """request_id -> tokens generated so far, for every live sequence
         (lists only grow: a replay rewrites k/v, not tokens)."""
-        return {slot.request.request_id: list(slot.generated)
-                for slot in self.scheduler.slots
-                if slot is not None and slot.generated}
+        return collect_partial_tokens([self.scheduler])
 
     def stats(self) -> dict:
         """Host-side metrics snapshot (no device access, so it answers
         while the worker thread is mid-iteration). The keys are the JAX
-        engine's but ``prefix_keys`` (the fleet router's directory, 'Serve
-        fleet'); the adapter pool's appear with a pool."""
+        engine's; ``prefix_keys`` feeds the fleet router's directory and
+        the adapter pool's keys appear with a pool."""
         sched = self.scheduler
         s = {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in sched.stats.items()}
@@ -1569,7 +1771,11 @@ class ServeEngine:
             "active_slots": len(sched.active_indices()),
             "prefilling_slots": len(sched.prefilling_indices()),
             "prefill_calls": self.programs.prefill_calls,
+            # committed prefix keys for the router's fleet directory
+            "prefix_keys": (cache_prefix_keys(sched.cache)
+                            if sched.cache is not None else []),
             **derived_pool_metrics(
+                tier=self.host_tier,
                 pool=sched.pool, cached_pages=sched.cache_pages_held(),
                 n_slots=self.n_slots, decode_steps=self.decode_steps,
                 decode_tokens=self.decode_tokens,
@@ -1596,7 +1802,7 @@ class ServeEngine:
             pool=self.scheduler.pool,
             cached_pages=self.scheduler.cache_pages_held(),
             n_slots=self.n_slots, max_pages=self.max_pages,
-            pool_bytes=self.kv_cache_bytes(),
+            pool_bytes=self.kv_cache_bytes(), tier=self.host_tier,
             decode_horizon=self.decode_horizon)
 
     def weight_report(self) -> dict:

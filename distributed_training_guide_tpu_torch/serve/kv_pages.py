@@ -204,10 +204,12 @@ class PagePool:
                 self._free_set.add(p)
 
 
-def pool_audit(pool: PagePool, holder_maps) -> None:
+def pool_audit(pool: PagePool, holder_maps, *, tier=None) -> None:
     """The capacity identity: each page's refcount equals its holder count
     over ``holder_maps`` (iterables of ``{page: n_refs}``), no held page is
-    free-listed, and free + distinct held pages == capacity."""
+    free-listed, and free + distinct held pages == capacity. A spilled
+    page freed its slot at spill time, so a host tier leaves this as it
+    is; with ``tier`` its own byte ledger is audited too."""
     held: dict = {}
     for m in holder_maps:
         for p, n in m.items():
@@ -223,6 +225,8 @@ def pool_audit(pool: PagePool, holder_maps) -> None:
         raise AssertionError(
             f"capacity audit failed: free={pool.n_free} + "
             f"held={len(held)} != capacity={pool.capacity}")
+    if tier is not None:
+        tier.audit()
 
 
 def write_index(tables, lengths, t: int, page: int, n_valid=None) -> tuple:

@@ -4,8 +4,8 @@ The port keeps its own copy of the JAX package's
 ``serve/scheduler.py`` (which imports the JAX ``serve/kv_pages.py``):
 the same code, reading this package's ``kv_pages``, plus
 ``PrefixCache.drop_all`` for a params publish. The engine hands it
-its adapter pool (``serve/adapters.py``); the host-tier hooks stay None
-(ROADMAP.md queue 1, 'Serve fleet').
+its adapter pool (``serve/adapters.py``) and, with ``host_tier_bytes=``,
+its host tier (``serve/tiering.py``) through ``attach_tier``.
 
 The unit of scheduling is one ITERATION, not one request (Yu et al., OSDI
 2022): after every batched decode step the engine asks the scheduler again

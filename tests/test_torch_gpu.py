@@ -2237,3 +2237,105 @@ def test_tenants_on_card(cuda):
     cpu, _ = _tenant_engine(bundle, params, "cpu", payloads)
     assert [r.token_ids for r in generate_many(cpu, reqs)] == \
         [r.token_ids for r in together]
+
+
+# ---- the serve fleet on the card --------------------------------------------
+
+def _fleet_model(dev):
+    bundle = get_model("llama-debug", dtype=torch.float32, hidden_size=256,
+                       num_heads=4, num_kv_heads=2)
+    return bundle, bundle.init(bundle.config, 0, device=dev)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_wire_moves_card_pages_bitwise(cuda, pool):
+    """Pages of a card pool gathered to pinned host memory, framed, sent
+    over the loopback channel and scattered into a second card pool
+    arrive bitwise (bf16 as raw 2-byte words; int8 with its scale rows)."""
+    from distributed_training_guide_tpu_torch.serve import kv_pages as kvp
+    from distributed_training_guide_tpu_torch.serve import transport as tw
+
+    bundle, _ = _fleet_model(cuda)
+    src = kvp.init_pages(bundle.config, 12, 8, kv_dtype=pool, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for leaf in tw.pool_leaf_names(src):
+        t = tw._leaf(src, leaf)
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=cuda, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+    payload = tw.gather_payload(src, [3, 7, 1])
+    assert all(v.is_pinned() for v in payload.values())
+    sender, receiver = tw.loopback_channel(pin=True)
+    try:
+        assert sender.send(tw.encode_frame(0, {}, payload), 0) == "delivered"
+        _, _, got = receiver.inbox.get(timeout=10.0)
+    finally:
+        sender.sock.close()
+        receiver.sock.close()
+    dst = kvp.init_pages(bundle.config, 12, 8, kv_dtype=pool, device=cuda)
+    tw.scatter_payload(dst, [2, 4, 9], got)
+    for leaf in tw.pool_leaf_names(src):
+        a = tw._leaf(src, leaf)[:, [3, 7, 1]]
+        b = tw._leaf(dst, leaf)[:, [2, 4, 9]]
+        assert torch.equal(a.view(torch.uint8) if a.dtype != torch.int8
+                           else a, b.view(torch.uint8)
+                           if b.dtype != torch.int8 else b), leaf
+
+
+@pytest.mark.parametrize("transport", ["same_host", "cross_host"])
+def test_disagg_pair_on_card_equals_monolith(cuda, transport):
+    """The disaggregated pair on the card: the monolith's tokens, K4 on
+    both halves' paths, and cross-host the pages' bytes over the wire."""
+    from distributed_training_guide_tpu_torch.serve.disagg import \
+        DisaggEngine
+
+    bundle, params = _fleet_model(cuda)
+    reqs = [Request(prompt_ids=[3 + i, 17, 42, 9][:2 + i % 3], seed=i,
+                    max_new_tokens=8) for i in range(5)]
+    kw = dict(n_slots=2, page_size=8, max_len=64, device=cuda)
+    mono = generate_many(ServeEngine(bundle, params, **kw), reqs)
+    before = pd.LAUNCHES
+    pair = DisaggEngine(bundle, params, transport=transport, **kw)
+    got = generate_many(pair, reqs)
+    assert [r.token_ids for r in got] == [r.token_ids for r in mono]
+    assert pd.LAUNCHES > before
+    moved = pair.stats()["handoff_bytes_copied"]
+    assert (moved > 0) == (transport == "cross_host")
+    pair.close()
+
+
+def test_fleet_kill_replay_and_tier_on_card(cuda):
+    """A two-replica fleet on the card, one replica killed mid-decode:
+    every request decodes its uninterrupted tokens; a host tier under a
+    small pool spills and restores to the tier-free tokens."""
+    from distributed_training_guide_tpu_torch.serve.router import \
+        local_fleet
+
+    bundle, params = _fleet_model(cuda)
+    reqs = [Request(prompt_ids=[3 + i, 17, 42], seed=i, max_new_tokens=12,
+                    temperature=0.7 * (i % 2)) for i in range(6)]
+    kw = dict(n_slots=2, page_size=8, max_len=64, device=cuda)
+    want = generate_many(ServeEngine(bundle, params, **kw), reqs)
+    fleet = local_fleet(bundle, params, 2,
+                        router_kw=dict(heartbeat_timeout_s=60.0), **kw)
+    ids = [fleet.submit(r) for r in reqs]
+    done, it = {}, 0
+    while fleet.has_work:
+        if it == 3:
+            fleet.replicas["r0"].kill()
+        done.update({r.request_id: r for r in fleet.step()})
+        it += 1
+    assert [done[i].token_ids for i in ids] == [r.token_ids for r in want]
+    tier = ServeEngine(bundle, params, n_slots=4, page_size=8, max_len=32,
+                       n_pages=7, host_tier_bytes=1 << 24, device=cuda)
+    free = ServeEngine(bundle, params, n_slots=1, page_size=8, max_len=32,
+                       device=cuda)
+    small = [Request(prompt_ids=[3 + i, 17], seed=i, max_new_tokens=14)
+             for i in range(6)]
+    got = generate_many(tier, small)
+    assert tier.stats()["preempted"] > 0
+    assert tier.stats()["restore_hits"] > 0
+    assert [r.token_ids for r in got] == \
+        [generate_many(free, [r])[0].token_ids for r in small]

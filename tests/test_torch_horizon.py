@@ -256,8 +256,8 @@ def test_knobs_change_mid_stream_without_changing_a_token():
 
 
 def test_gauges_and_kv_report_match_jax():
-    """The same trace at K = 4 through both engines: stats() keys (but the
-    fleet's ``prefix_keys``), the horizon gauges, the kv report's horizon
+    """The same trace at K = 4 through both engines: stats() keys, the
+    horizon gauges, the kv report's horizon
     rows; the acceptance rate left out where nothing was drafted; the
     pools keep their storage."""
     jb, jparams, tb, tparams = bridged("llama-debug")
@@ -269,7 +269,7 @@ def test_gauges_and_kv_report_match_jax():
     tres = generate_many(teng, [Request(**s) for s in specs])
     assert tres[0].token_ids == jres[0].token_ids
     js, ts = jeng.stats(), teng.stats()
-    assert set(ts) == set(js) - {"prefix_keys"}
+    assert set(ts) == set(js)
     for key in ("decode_horizon", "host_dispatches", "horizon_ksum",
                 "decode_steps", "decode_tokens", "tokens_per_dispatch",
                 "horizon_effective", "decode_tokens_per_step"):

@@ -1,6 +1,9 @@
 """The port stands alone: no module of ``distributed_training_guide_tpu_torch``
-and not ``chip_smoke.py`` imports jax (or anything under it) or the JAX
-package, and none imports an optional package (``safetensors``,
+and not ``chip_smoke.py`` imports jax (or anything under it), the JAX
+package, nor ``ml_dtypes`` but in the weight bridge ``models/from_jax.py``
+(which hands bf16 leaves to JAX, beside it in the tests: the card's
+machine has none of them, and a bf16 KV payload crosses the wire as raw
+2-byte words), and none imports an optional package (``safetensors``,
 ``transformers``, ``wandb``, ``tqdm``) at module level: the port runs
 without them, importing one only inside the function that uses it.
 Checked on the source with ``ast``, because this environment imports jax
@@ -14,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_training_guide_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "distributed_training_guide_tpu")
+BRIDGE = PORT / "models" / "from_jax.py"
 OPTIONAL = ("safetensors", "transformers", "wandb", "tqdm")
 
 
@@ -39,6 +43,15 @@ def _banned(name: str) -> bool:
 def test_no_jax_and_no_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imported_modules(tree) if _banned(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", [f for f in FILES if f != BRIDGE],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_ml_dtypes(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] == "ml_dtypes"]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -75,9 +88,14 @@ def test_scan_sees_the_whole_package_and_catches_a_violation():
                    "chapters/c05_convert_llama.py",
                    "chapters/engine_llm.py", "serve/adapters.py",
                    "post/__init__.py", "post/__main__.py", "post/cli.py",
-                   "post/loop.py", "post/rollout.py", "post/score.py"):
+                   "post/loop.py", "post/rollout.py", "post/score.py",
+                   "serve/transport.py", "serve/tiering.py",
+                   "serve/disagg.py", "serve/router.py", "serve/elastic.py",
+                   "serve/controller.py", "serve/loadgen.py"):
         assert PORT / module in FILES, module
     assert _banned("jax.numpy") and _banned("distributed_training_guide_tpu")
+    assert "ml_dtypes" in set(_imported_modules(ast.parse(
+        BRIDGE.read_text())))
     assert not _banned("distributed_training_guide_tpu_torch.serve")
     tree = ast.parse("import jax.numpy as jnp\n"
                      "from distributed_training_guide_tpu.ops import rope\n")

@@ -282,8 +282,18 @@ def test_adapter_publish_rolls_out_what_the_merged_publish_does(models):
                          [[3]], state=state, publish_mode="adapter")
     slot = publish_trained_adapter(loop.engine, loop.state, slot=1)
     assert slot == 1
-    with pytest.raises(NotImplementedError, match="Serve fleet"):
-        publish_trained_adapter(object(), loop.state)
+    # a fleet target: a router over two replicas sharing the programs
+    # (one pool takes the insert once), and a disaggregated pair
+    from distributed_training_guide_tpu_torch.serve.disagg import \
+        DisaggEngine
+    from distributed_training_guide_tpu_torch.serve.router import (Replica,
+                                                                   Router)
+    twin = ServeEngine(tb, None, programs=loop.engine.programs, **ENGINE)
+    fleet = Router([Replica("r0", loop.engine), Replica("r1", twin)])
+    assert publish_trained_adapter(fleet, loop.state, slot=1) == 1
+    pair = DisaggEngine(tb, None, programs=loop.engine.programs, **ENGINE)
+    assert publish_trained_adapter(pair, loop.state, slot=1) == 1
+    assert loop.engine.stats()["adapter_publishes"] == 6
 
 
 def test_distill_lora_loop_descends_with_the_base_frozen(models):

@@ -195,8 +195,9 @@ def test_sampling_is_batch_and_order_invariant(models, chunk):
 
 def test_unported_features_and_bad_input_refused(models):
     _, _, tb, tparams = models
-    for kw in (dict(host_tier_bytes=1 << 20), dict(shard_kv=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(shard_kv=True), dict(plan="tp")):
+        with pytest.raises(NotImplementedError,
+                           match="Serve fleet, sharded pool"):
             ServeEngine(tb, tparams, device="cpu", max_len=16, **kw)
     eng = ServeEngine(tb, tparams, device="cpu", max_len=16, n_slots=1)
     with pytest.raises(tsched.RefusalError, match="out of range"):

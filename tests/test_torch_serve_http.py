@@ -315,11 +315,17 @@ def test_cli_speculate_queue_priority_deadline():
     assert [line["token_ids"] for line in horizon
             if "token_ids" in line] == tokens
     assert horizon[0]["kv_report"]["decode_horizon"] == 4
-    for flag in (["--tp", "2"], ["--disagg"], ["--replicas", "2"],
-                 ["--shard-kv"], ["--transport", "cross_host"],
-                 ["--prefill-slots", "2"]):
-        with pytest.raises(SystemExit, match="Serve fleet"):
+    for flag in (["--disagg"], ["--replicas", "2"],
+                 ["--disagg", "--transport", "cross_host",
+                  "--prefill-slots", "2"]):
+        fleet = cli(base + flag)
+        assert [line["token_ids"] for line in fleet
+                if "token_ids" in line] == tokens, flag
+    for flag in (["--tp", "2"], ["--shard-kv"]):
+        with pytest.raises(SystemExit, match="Serve fleet, sharded pool"):
             cli(base + flag)
+    with pytest.raises(SystemExit, match="--replicas"):
+        cli(base + ["--replicas", "2", "--disagg"])
     with pytest.raises(SystemExit, match="draft-model"):
         cli(base + ["--speculate", "draft"])
 

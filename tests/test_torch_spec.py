@@ -338,7 +338,7 @@ def test_spec_under_int8_weights():
 
 def test_stats_keys_and_spec_counters_match_jax():
     """The same greedy trace through both engines with ``ngram``: the same
-    stats() keys (but the fleet's ``prefix_keys``), the same speculation
+    stats() keys, the same speculation
     counters, and the acceptance rate left out before any draft."""
     jb, jparams, tb, tparams = bridged("llama-debug")
     specs = [{**s, "temperature": 0.0}
@@ -352,7 +352,7 @@ def test_stats_keys_and_spec_counters_match_jax():
     tres = generate_many(teng, [Request(**s) for s in specs])
     assert [r.token_ids for r in tres] == [r.token_ids for r in jres]
     js, ts = jeng.stats(), teng.stats()
-    assert set(ts) == set(js) - {"prefix_keys"}
+    assert set(ts) == set(js)
     for key in ("spec_steps", "spec_tokens_drafted", "spec_tokens_accepted",
                 "spec_tokens_rejected", "spec_acceptance_rate",
                 "decode_steps", "decode_tokens", "host_dispatches",
