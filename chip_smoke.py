@@ -4955,6 +4955,7 @@ ULYSSES_GATHERED_HEADS = (8, 2, 128)
 RING_LSE_ABS = {RING_CHECK_SEQ: FLASH_TOL_FP32["lse"], RING_LONG_SEQ: 5e-5,
                 RING_BAND_SEQ: 5e-5}
 PP_MODEL = "llama-3.2-1b"
+PP_LAYERS = 4              # full width cut to 4 layers (the time limit)
 PP_STAGES = (2, 4)
 PP_BATCH = 8
 PP_SEQ = 2048
@@ -5248,7 +5249,8 @@ def cp_ulysses_gathered(torch, card: str, gen) -> dict:
 
 def cp_pipeline(torch, card: str) -> dict:
     """The 1F1B pipeline over pp 2 and pp 4 virtual stages on llama-3.2-1b
-    at full width and depth (bf16 compute, fp32 params; B 8, S 2048, M =
+    at full width cut to ``PP_LAYERS`` (bf16 compute, fp32 params; B 8, S
+    2048, M =
     2 pp) against the single-device forward and backward of each
     microbatch, averaged: the loss, every grad, the K1-K3 launches (K1
     twice per layer and microbatch: the stage's forward recomputed), the
@@ -5261,7 +5263,7 @@ def cp_pipeline(torch, card: str) -> dict:
         make_pipeline_value_and_grad)
     from distributed_training_guide_tpu_torch.train.state import named_leaves
 
-    bundle = get_model(PP_MODEL)
+    bundle = get_model(PP_MODEL, num_layers=PP_LAYERS)
     cfg = bundle.config
     layers = cfg.num_layers
     params = bundle.init(cfg, SEED, device="cuda")
@@ -5974,6 +5976,7 @@ OVL_CHUNKS = 8
 OVL_FIRST_LOSS_REL = 1e-5
 OVL_LOSS_REL = 1e-3
 OVL_PLAN_LAYERS = 4        # (c): the loss does not depend on the depth
+OVL_LAYERS = 4             # (a), (b): full width cut to 4 layers (time)
 OVL_PLAN_STEPS = 3
 # the ring against the bulk exchange, bf16: per row the same products, the
 # owner's partials summed in member order (y); dx and the expert stacks'
@@ -6094,8 +6097,9 @@ def ovl_fused_vs_whole(name: str, fused: dict, whole: dict) -> dict:
 
 
 def ovl_chapter04(torch, card: str) -> dict:
-    """(a) *train*'s model at full width and depth through chapter 04's
-    plan (fsdp) at world 1: unscheduled with the whole-tensor loss,
+    """(a) *train*'s model at full width cut to ``OVL_LAYERS`` through
+    chapter 04's plan (fsdp) at world 1: unscheduled with the whole-tensor
+    loss,
     unscheduled with ``--loss-chunks 8`` (the fused loss), and
     ``--overlap-schedule`` (the fused loss in 8 chunks, each layer's 7
     fsdp leaves gathered a layer ahead and again in the backward). The
@@ -6109,12 +6113,13 @@ def ovl_chapter04(torch, card: str) -> dict:
                         ("fused", ["--loss-chunks", str(OVL_CHUNKS)]),
                         ("scheduled", ["--overlap-schedule"])):
         out, counts = ovl_run(torch, base + extra, plan=fsdp,
+                              layers=OVL_LAYERS,
                               timed=lambda o: ovl_step_timing(torch, o))
         runs[name] = ovl_summary(out, counts)
         ch01_free(torch, out)
         log(phase="overlap", part="(a) chapter 04 at world 1", run=name,
-            card=card, **runs[name])
-    layers = 16
+            layers=OVL_LAYERS, card=card, **runs[name])
+    layers = OVL_LAYERS
     want = {k: layers * OVL_STEPS for k in ("flash_fwd", "flash_dq",
                                             "flash_dkv")}
     for name, r in runs.items():
@@ -6153,15 +6158,15 @@ def ovl_single(torch, card: str) -> dict:
     """(b) The fused loss alone on the single plan (chapter 01, no plan):
     ``--overlap-schedule`` there gathers nothing and replaces the [B, S, V]
     fp32 logits by the fused loss in 8 chunks. The peak against the
-    whole-tensor loss's, 2 steps each."""
+    whole-tensor loss's, 2 steps each, at ``OVL_LAYERS``."""
     base = TRAIN_ARGS + ["--max-steps", "2", "--log-freq", "1"]
     runs = {}
     for name, extra in (("whole", []), ("fused", ["--overlap-schedule"])):
-        out, counts = ovl_run(torch, base + extra)
+        out, counts = ovl_run(torch, base + extra, layers=OVL_LAYERS)
         runs[name] = ovl_summary(out, counts)
         ch01_free(torch, out)
-        log(phase="overlap", part="(b) the single plan", run=name, card=card,
-            **runs[name])
+        log(phase="overlap", part="(b) the single plan", run=name,
+            layers=OVL_LAYERS, card=card, **runs[name])
     cmp = ovl_fused_vs_whole("(b)", runs["fused"], runs["whole"])
     check(cmp["peak_drop_gb"] > 0, f"overlap (b): the fused loss's peak "
           f"{runs['fused']['peak_alloc_gb']} GB, the whole-tensor loss's "
@@ -8467,6 +8472,551 @@ def phase_fleet(torch, card: str) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: runtime robustness and tooling on the card: chapter 01 trained
+# under the restart supervisor (a crash, a poison pill, a hang the
+# heartbeat kills while the monitor watches the card's power), the elastic
+# launch at one slice, and the native token loader
+# ---------------------------------------------------------------------------
+
+ROBUST_LAYERS = 2          # llama-3.2-1b at full width, phase 16's depth
+ROBUST_STEPS = 6
+ROBUST_ARGS = ["-d", "synthetic:400000", "-s", "2048", "--lr", "3e-4",
+               "--seed", str(SEED), "--native-loader", "--log-freq", "1"]
+# the hang drill: attempt 0 trains HANG_TRAIN_S (by (a)'s step time) and
+# saves once, the resumed attempt 1 trains as long without a save (so the
+# monitor sees each train without a save's pause); the heartbeat timeout
+# is past the longest quiet stretch of a healthy worker (its start, a
+# 2-layer save of 4.61 GB: ~6 s)
+HANG_TRAIN_S = 8.0
+HANG_TIMEOUT_S = 15.0
+MONITOR_ALERT_AFTER = 3
+MONITOR_POLL_S = 1.5       # over the heartbeat's 1 s throttle: a poll
+                           # while training always sees a new beat
+LOADER_BATCHES = 250       # timed batches of each loader (B 4, S 2048)
+
+
+def robust_model(root: Path) -> str:
+    """An ``hf:`` config of the in-code llama-3.2-1b preset cut to
+    ``ROBUST_LAYERS`` (the worker is a process of its own: no
+    ``model_overrides``); nothing is downloaded."""
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.hf_export import (
+        _hf_config)
+
+    cfg = _hf_config(get_model("llama-3.2-1b", num_layers=ROBUST_LAYERS))
+    d = root / "llama-3.2-1b-2l"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(cfg))
+    return f"hf:{d}"
+
+
+def robust_env(**extra) -> dict:
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ERROR_FILE", "TORCHELASTIC_ERROR_FILE",
+                        "HEARTBEAT_FILE") and not k.startswith("DTG_")}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("PYTHONDONTWRITEBYTECODE", None)      # main's bytecode cache
+    env["PYTHONPYCACHEPREFIX"] = str(ROOT / "build" / "pycache")
+    env.update(extra)
+    return env
+
+
+def robust_module(name: str) -> list:
+    return [sys.executable, "-m",
+            f"distributed_training_guide_tpu_torch.{name}"]
+
+
+class Supervised:
+    """``launch.supervisor`` in a process of its own, each line of its
+    stdout stamped with the host clock as it arrives."""
+
+    def __init__(self, sup_args: list, worker: list, env: dict):
+        import atexit
+        import threading
+
+        self.lines: list = []
+        # its own process group: ``stop`` takes the worker down with it
+        self.proc = subprocess.Popen(
+            [*robust_module("launch.supervisor"), *sup_args, "--",
+             *worker], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        atexit.register(self.stop)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def stop(self) -> None:
+        """Kill the supervisor and its worker if they still run (a failed
+        check leaves nothing running behind the script)."""
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip("\n")))
+
+    def wait(self, timeout: float) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            self.proc.wait()
+            raise RuntimeError(f"chip_smoke: the supervisor ran past "
+                               f"{timeout} s: {self.text()[-2000:]}")
+        self._reader.join(timeout=10)
+        log_dir = Path(self.proc.args[self.proc.args.index("--log-dir") + 1])
+        log_dir.mkdir(parents=True, exist_ok=True)
+        (log_dir / "supervisor.log").write_text("".join(
+            f"{t:.3f} {line}\n" for t, line in self.lines))
+        return rc
+
+    def text(self) -> str:
+        return "\n".join(line for _, line in self.lines)
+
+    def first(self, needle: str) -> Optional[float]:
+        return next((t for t, line in self.lines if needle in line), None)
+
+
+def attempt_log(log_dir: Path, n: int) -> str:
+    d = log_dir / f"attempt_{n}"
+    return "".join((d / f).read_text() for f in ("stdout.log", "stderr.log")
+                   if (d / f).exists())
+
+
+def logged_infos(text: str) -> list:
+    """(host time, info dict) of each logged step of a worker's log."""
+    import ast
+    import datetime
+
+    out = []
+    for line in text.splitlines():
+        at = line.find("INFO:{")
+        if at < 0 or not line.startswith("["):
+            continue
+        try:
+            info = ast.literal_eval(line[at + 5:])
+        except (ValueError, SyntaxError):
+            continue
+        if isinstance(info, dict) and "global_step" in info:
+            stamp = datetime.datetime.strptime(
+                line[1:line.index("]")], "%Y-%m-%d %H:%M:%S,%f")
+            out.append((stamp.timestamp(), info))
+    return out
+
+
+def attempt_summary(log_dir: Path, n: int) -> dict:
+    """An attempt's losses by step, its kernel launches (the last info's
+    ``launches/*``: the worker's counts since its run began), whether it
+    resumed and which loader it ran."""
+    text = attempt_log(log_dir, n)
+    infos = logged_infos(text)
+    last = infos[-1][1] if infos else {}
+    return {"losses": {i["global_step"]: i["running_loss"]
+                       for _, i in infos},
+            "times": {i["global_step"]: t for t, i in infos},
+            "launches": {k.split("/", 1)[1]: v for k, v in last.items()
+                         if k.startswith("launches/")},
+            "resumed": "Resumed=True" in text,
+            "loader": ("native" if "by the native loader" in text else
+                       "python" if "by the python loader" in text else None)}
+
+
+def robust_golden(torch, model: str, card: str) -> dict:
+    """(a) In-process ``run_training`` with ``--native-loader``, 6 steps
+    (no saves: ``--ckpt-freq`` only acts under ``-e``): the losses every
+    supervised run is held to bitwise, the K1-K3 launches by body."""
+    from distributed_training_guide_tpu_torch.ops import flash_attention as fa
+    from distributed_training_guide_tpu_torch.train import cli
+
+    args = cli.get_parser().parse_args(
+        ["-m", model, *ROBUST_ARGS, "-b", "4", "--max-steps",
+         str(ROBUST_STEPS), "--ckpt-freq", "2"])
+    reset_moe_counts()                        # the run's path starts here
+    copies = fa.ALIGN_COPIES
+    out = cli.run_training(args)
+    torch.cuda.synchronize()
+    counts = moe_counts()                     # ... and ends here
+    bodies = check_hopper_path("robustness (a)", copies)
+    losses = ch01_losses(out)
+    want = {k: ROBUST_LAYERS * ROBUST_STEPS for k in ("flash_fwd",
+                                                      "flash_dq", "flash_dkv")}
+    check({k: counts[k] for k in want} == want,
+          f"robustness (a): K1-K3 launches {counts}, want {want}")
+    check(out["loader"] == "native", f"robustness (a): the {out['loader']} "
+          f"loader ran, not the native one")
+    check(set(losses) == set(range(1, ROBUST_STEPS + 1)) and all(
+        map(math.isfinite, losses.values())), f"robustness (a): {losses}")
+    res = {"losses": losses, "launches": counts,
+           "launches_by_body": bodies["flash_fwd"], "loader": out["loader"],
+           **ch01_rates(out)}
+    ch01_free(torch, out)
+    log(phase="robustness", part="(a) golden run", layers=ROBUST_LAYERS,
+        card=card, **res)
+    return res
+
+
+def robust_crash(model: str, root: Path, golden: dict, card: str) -> dict:
+    """(b) The crash drill under the supervisor: SIGKILL after step 4's
+    checkpoint, a restart that resumes, the stitched losses bitwise (a)'s;
+    the time to recover is the ms from the supervisor seeing the death to
+    the resumed worker logging its first step."""
+    from distributed_training_guide_tpu_torch.utils import faults
+
+    logs = root / "sup-crash"
+    sup = Supervised(
+        ["--max-restarts", "2", "--restart-backoff", "0.05", "--log-dir",
+         str(logs)],
+        [*robust_module("train"), "-m", model, *ROBUST_ARGS, "-b", "4",
+         "--max-steps", str(ROBUST_STEPS), "-e", "drill", "--ckpt-freq", "2",
+         "--save-dir", str(root / "work")],
+        robust_env(**{faults.ENV_CRASH_STEP: "4"}))
+    rc = sup.wait(600)
+    out = sup.text()
+    a0, a1 = attempt_summary(logs, 0), attempt_summary(logs, 1)
+    check(rc == 0 and "attempt 0 failed rc=-9" in out
+          and "attempt 1 exited cleanly" in out,
+          f"robustness (b): rc {rc}: {out[-2000:]}")
+    check(set(a0["losses"]) == {1, 2, 3, 4} and set(a1["losses"]) == {5, 6}
+          and a1["resumed"], f"robustness (b): attempt 0 steps "
+          f"{sorted(a0['losses'])}, attempt 1 {sorted(a1['losses'])}, "
+          f"resumed {a1['resumed']}")
+    stitched = {**a0["losses"], **a1["losses"]}
+    check(stitched == golden["losses"], f"robustness (b): stitched "
+          f"{stitched} against (a)'s {golden['losses']}")
+    check(a0["loader"] == a1["loader"] == "native",
+          f"robustness (b): loaders {a0['loader']} / {a1['loader']}")
+    hb = json.loads((logs / "attempt_1" / "heartbeat.json").read_text())
+    check(hb["step"] >= 5, f"robustness (b): heartbeat {hb}")
+    died = sup.first("attempt 0 failed rc=-9")
+    recover_ms = (a1["times"][5] - died) * 1e3
+    launches = {k: a0["launches"][k] + a1["launches"][k]
+                for k in a0["launches"]}
+    want = {k: ROBUST_LAYERS * ROBUST_STEPS for k in ("flash_fwd",
+                                                      "flash_dq", "flash_dkv")}
+    check({k: launches[k] for k in want} == want,
+          f"robustness (b): K1-K3 launches {launches}, want {want}")
+    res = {"rc": rc, "stitched_bitwise": True, "heartbeat_step": hb["step"],
+           "time_to_recover_ms": recover_ms, "launches": launches,
+           "loader": a1["loader"]}
+    log(phase="robustness", part="(b) crash drill", card=card, **res)
+    return res
+
+
+def robust_poison(model: str, root: Path, card: str):
+    """(c) A NaN loss at step 2 under ``--guard-policy abort``: the error
+    file classifies as non-finite, the supervisor stops after attempt 0
+    (no ``attempt_1``) and exits nonzero. Starts the supervisor and
+    returns the function that waits for it and checks it (the drill runs
+    beside (e))."""
+    from distributed_training_guide_tpu_torch.utils import faults
+
+    logs = root / "sup-poison"
+    sup = Supervised(
+        ["--max-restarts", "2", "--restart-backoff", "0.05", "--log-dir",
+         str(logs)],
+        [*robust_module("train"), "-m", model, *ROBUST_ARGS, "-b", "4",
+         "--max-steps", str(ROBUST_STEPS), "--guard-policy", "abort"],
+        robust_env(**{faults.ENV_NAN_LOSS_STEP: "2"}))
+
+    def finish() -> dict:
+        return poison_checks(sup, logs, card)
+    return finish
+
+
+def poison_checks(sup, logs: Path, card: str) -> dict:
+    from distributed_training_guide_tpu_torch.launch.errors import (
+        classify_error)
+
+    rc = sup.wait(300)
+    out = sup.text()
+    payload = json.loads((logs / "attempt_0" / "error.json").read_text())
+    reason = classify_error(payload)
+    check(rc != 0 and reason == "non-finite"
+          and "non-retryable failure (non-finite:" in out
+          and not (logs / "attempt_1").exists(),
+          f"robustness (c): rc {rc}, reason {reason}: {out[-2000:]}")
+    res = {"rc": rc, "reason": reason, "attempts": 1,
+           "error": payload["message"]["error"][:120],
+           "launches": attempt_summary(logs, 0)["launches"]}
+    log(phase="robustness", part="(c) poison drill", card=card, **res)
+    return res
+
+
+def monitor_poll() -> dict:
+    """One ``top_cluster --local`` poll, as its own process (the ssh
+    payload's shape)."""
+    out = subprocess.run(robust_module("monitor.top_cluster") + ["--local"],
+                         cwd=ROOT, env=robust_env(), capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"top_cluster --local: {out.stderr[-500:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def robust_hang(model: str, root: Path, card: str, step_ms: float) -> dict:
+    """(d) The hang drill: once attempt 0's heartbeat is past its
+    checkpoint (and the monitor has seen it train), the phase SIGSTOPs the
+    worker; the supervisor's heartbeat timeout kills it and restarts it,
+    and the restart resumes and finishes. ``top_cluster --local`` is
+    polled every ``MONITOR_POLL_S`` into ``ClusterWatch(alert_after=3)``: ok
+    while training (a poll whose heartbeat advanced over it and the 3
+    before it: no save or start in the window), stalled while the worker
+    is stopped (memory resident, power down), ok again after the
+    restart."""
+    import os
+    import signal
+
+    from distributed_training_guide_tpu_torch.monitor.top_cluster import (
+        ClusterWatch)
+    from distributed_training_guide_tpu_torch.utils.heartbeat import (
+        read_heartbeat)
+
+    logs = root / "sup-hang"
+    exp = root / "work" / "hang"
+    ckpt = max(20, math.ceil(HANG_TRAIN_S * 1e3 / step_ms))
+    steps = 2 * ckpt - 1
+    sup = Supervised(
+        ["--max-restarts", "1", "--restart-backoff", "0.05", "--log-dir",
+         str(logs), "--heartbeat-timeout", str(HANG_TIMEOUT_S)],
+        [*robust_module("train"), "-m", model, *ROBUST_ARGS, "-b", "4",
+         "--max-steps", str(steps), "-e", "hang", "--ckpt-freq", str(ckpt),
+         "--save-dir", str(root / "work")],
+        robust_env())
+    watch = ClusterWatch(alert_after=MONITOR_ALERT_AFTER)
+    polls = []
+    stage = "start"           # start -> training -> stopped -> restarted
+    stopped_pid = None
+    last_step = {}
+    deadline = time.time() + 400
+    while sup.proc.poll() is None and time.time() < deadline:
+        t0 = time.time()
+        attempt = 1 if (logs / "attempt_1").exists() else 0
+        hb = read_heartbeat(logs / f"attempt_{attempt}" / "heartbeat.json")
+        step = hb["step"] if hb else None
+        advanced = (step is not None
+                    and step > last_step.get(attempt, -1) >= 0)
+        if step is not None:
+            last_step[attempt] = step
+        row = watch.update(monitor_poll())
+        dev = {"power_w": row.get("power_w"),
+               "power_limit_w": row.get("power_limit_w"),
+               "hbm_gb": row.get("hbm_gb")}
+        if attempt == 1 and stage == "stopped":
+            stage = "restarted"
+        polls.append({"t": t0, "stage": stage, "attempt": attempt,
+                      "step": step, "advanced": advanced,
+                      "status": row["status"], **dev})
+        if (stage in ("start", "training") and attempt == 0
+                and step is not None):
+            stage = "training"
+            trained = sum(p["advanced"] and p["stage"] == "training"
+                          for p in polls)
+            published = (exp / "state.json").exists() and json.loads(
+                (exp / "state.json").read_text()).get("checkpoint")
+            if (step > ckpt and published
+                    and trained > MONITOR_ALERT_AFTER):
+                stopped_pid = hb["pid"]
+                os.kill(stopped_pid, signal.SIGSTOP)
+                stage = "stopped"
+        time.sleep(max(0.0, MONITOR_POLL_S - (time.time() - t0)))
+    rc = sup.wait(300)
+    out = sup.text()
+    a0, a1 = attempt_summary(logs, 0), attempt_summary(logs, 1)
+    for i, p in enumerate(polls):
+        window = polls[max(0, i - MONITOR_ALERT_AFTER):i + 1]
+        p["steady"] = (len(window) == MONITOR_ALERT_AFTER + 1 and all(
+            q["advanced"] and q["attempt"] == p["attempt"] for q in window))
+    by_stage = {k: [p for p in polls if p["stage"] == k]
+                for k in ("training", "stopped", "restarted")}
+    check(stopped_pid is not None, f"robustness (d): never stopped the "
+          f"worker: {polls[-5:]}")
+    check(rc == 0 and f"no heartbeat progress for {HANG_TIMEOUT_S}s -> "
+          f"SIGKILL (hang)" in out and "attempt 0 failed rc=-9" in out
+          and "attempt 1 exited cleanly" in out and a1["resumed"],
+          f"robustness (d): rc {rc}: {out[-2000:]}")
+    check(set(a1["losses"]) and max(a1["losses"]) == steps,
+          f"robustness (d): attempt 1 steps {sorted(a1['losses'])}")
+    training_ok = [p["status"] for p in by_stage["training"]
+                   if p["steady"]]
+    check(training_ok and set(training_ok) == {"ok"},
+          f"robustness (d): while training {by_stage['training']}")
+    check("stalled" in {p["status"] for p in by_stage["stopped"]},
+          f"robustness (d): while stopped {by_stage['stopped']}")
+    after = [p["status"] for p in by_stage["restarted"] if p["steady"]]
+    check(after and set(after) == {"ok"},
+          f"robustness (d): after the restart {by_stage['restarted']}")
+    stalled_at = next(p["t"] for p in by_stage["stopped"]
+                      if p["status"] == "stalled")
+    killed = sup.first("SIGKILL (hang)")
+    launches = {k: a0["launches"].get(k, 0) + a1["launches"].get(k, 0)
+                for k in a1["launches"]}
+    res = {"rc": rc, "steps": steps, "ckpt_freq": ckpt,
+           "stopped_at_step": last_step.get(0),
+           "resumed_steps": [min(a1["losses"]), max(a1["losses"])],
+           "stalled_after_s": stalled_at - by_stage["stopped"][0]["t"],
+           "killed_after_stop_s": (killed - by_stage["stopped"][0]["t"]
+                                   if killed else None),
+           # each poll: stage, heartbeat step, steady, status, W, GB
+           "polls": [[p["stage"][:2], p["step"], int(p["steady"]),
+                      p["status"], p["power_w"], round(p["hbm_gb"], 2)]
+                     for p in polls],
+           "power_limit_w": polls[-1]["power_limit_w"],
+           "power_w_training": [p["power_w"] for p in by_stage["training"]
+                                if p["steady"]],
+           "power_w_stopped": [p["power_w"] for p in by_stage["stopped"]],
+           "launches": launches, "loader": a1["loader"]}
+    log(phase="robustness", part="(d) hang drill", card=card,
+        heartbeat_timeout_s=HANG_TIMEOUT_S, **res)
+    return res
+
+
+def robust_elastic(model: str, root: Path, golden: dict, card: str):
+    """(e) The elastic launch at one slice: one member of one device at
+    global batch 4 (``-b {world_batch}``); ``world.json`` names it,
+    ``elastic.jsonl`` has its "start" line, the losses are (a)'s bitwise.
+    A world change needs a second card (NCCL takes one rank a GPU): the
+    2 -> 1 drill runs on the CPU (``tests/test_torch_elastic_launch.py``).
+    Starts the supervisor and returns the function that waits for it and
+    checks it (the run goes beside (c))."""
+    logs, coord = root / "sup-elastic", root / "coord"
+    sup = Supervised(
+        ["--max-restarts", "0", "--log-dir", str(logs), "--elastic-dir",
+         str(coord), "--slice-name", "slice0", "--devices-per-slice", "1",
+         "--elastic-global-batch", "4"],
+        [*robust_module("train"), "-m", model, *ROBUST_ARGS, "-b",
+         "{world_batch}", "--max-steps", str(ROBUST_STEPS)],
+        robust_env())
+
+    def finish() -> dict:
+        return elastic_checks(sup, logs, coord, golden, card)
+    return finish
+
+
+def elastic_checks(sup, logs: Path, coord: Path, golden: dict,
+                   card: str) -> dict:
+    from distributed_training_guide_tpu_torch.launch import elastic
+
+    rc = sup.wait(300)
+    a0 = attempt_summary(logs, 0)
+    world = json.loads((coord / elastic.WORLD_FILE).read_text())
+    events = elastic.read_events(coord)
+    check(rc == 0 and world["members"] == ["slice0"] and len(events) == 1
+          and events[0]["trigger"] == "start"
+          and events[0]["new_world"]["members"] == ["slice0"],
+          f"robustness (e): rc {rc}, world {world}, events {events}: "
+          f"{sup.text()[-1500:]}")
+    check(a0["losses"] == golden["losses"], f"robustness (e): losses "
+          f"{a0['losses']} against (a)'s {golden['losses']}")
+    res = {"rc": rc, "world": world["members"],
+           "events": [e["trigger"] for e in events], "bitwise": True,
+           "launches": a0["launches"], "loader": a0["loader"]}
+    log(phase="robustness", part="(e) elastic at one slice", card=card,
+        **res)
+    return res
+
+
+def robust_loader(card: str) -> dict:
+    """(f) Host ms per batch of the C++ loader and the Python loader at B
+    4, S 2048 over ``LOADER_BATCHES`` batches each (host tensors: the
+    assembly, not the copy to the card); an epoch covers each sequence
+    once, two loaders of one seed agree, and ``start_step`` equals
+    skipping that many batches."""
+    import numpy as np
+
+    from distributed_training_guide_tpu_torch.data import BatchLoader
+    from distributed_training_guide_tpu_torch.data.native_loader import (
+        NativeTokenLoader, write_token_file)
+    from distributed_training_guide_tpu_torch.data.pipeline import (
+        synthetic_dataset)
+    import tempfile
+
+    b, s = 4, 2048
+    data = synthetic_dataset(b * s * LOADER_BATCHES, 128256, s, SEED)
+    times = {}
+    for backend in ("native", "python"):
+        loader = BatchLoader(data, b, device="cpu", seed=SEED,
+                             native=backend == "native")
+        check(loader.backend == backend, f"robustness (f): {backend} "
+              f"loader ran as {loader.backend}")
+        it = loader.epoch_batches()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in it)
+        times[backend] = (time.perf_counter() - t0) * 1e3 / n
+        loader.close()
+        check(n == LOADER_BATCHES, f"robustness (f): {n} batches")
+    with tempfile.TemporaryDirectory() as d:
+        path = write_token_file(data, Path(d) / "tokens.bin")
+        one = NativeTokenLoader(path, s, b, seed=SEED)
+        two = NativeTokenLoader(path, s, b, seed=SEED)
+        whole = np.concatenate(list(one.epoch_batches(0)))
+        rows = {r.tobytes() for r in whole}
+        check(len(rows) == len(whole) == len(data)
+              and rows == {r.tobytes() for r in data},
+              "robustness (f): an epoch does not cover each sequence once")
+        check(np.array_equal(np.concatenate(list(two.epoch_batches(0))),
+                             whole), "robustness (f): two loaders of one "
+              "seed disagree")
+        check(np.array_equal(np.concatenate(list(two.epoch_batches(
+            0, start_step=7))), whole[7 * b:]),
+            "robustness (f): start_step is not a skip")
+        one.close()
+        two.close()
+    res = {"B": b, "S": s, "batches": LOADER_BATCHES,
+           "native_ms_per_batch": times["native"],
+           "python_ms_per_batch": times["python"]}
+    log(phase="robustness", part="(f) native loader", card=card, **res)
+    return res
+
+
+def phase_robustness(torch, card: str) -> dict:
+    """Phase 26: chapter 01 (llama-3.2-1b at full width, 2 layers, B 4, S
+    2048, ``--native-loader``) driven in-process and under the restart
+    supervisor through K1-K3; every count is 0 before each run and read
+    after (the workers' from their own info dicts)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t
+        return out
+
+    root = Path(tempfile.mkdtemp(prefix="robustness-"))
+    try:
+        model = robust_model(root)
+        golden = timed("a", robust_golden, torch, model, card)
+        crash = timed("b", robust_crash, model, root, golden, card)
+        # (c) and (e) side by side: two workers' starts at once
+        finish_c = robust_poison(model, root, card)
+        finish_e = robust_elastic(model, root, golden, card)
+        poison, el = timed("c_e", lambda: (finish_c(), finish_e()))
+        hang = timed("d", robust_hang, model, root, card,
+                     golden["time_step_ms"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loader = timed("f", robust_loader, card)
+    launches = {k: golden["launches"][k] + sum(
+        r["launches"].get(k, 0) for r in (crash, poison, hang, el))
+        for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    check(all(v > 0 for v in launches.values()),
+          f"robustness: a kernel of the path never launched: {launches}")
+    log(phase="robustness", seconds=time.perf_counter() - t0,
+        seconds_by_part=seconds, card=card, launches=launches)
+    return {"golden": golden, "crash": crash, "poison": poison,
+            "hang": hang, "elastic": el, "loader": loader,
+            "launches": launches}
+
+
 def ptxas_serialized(build) -> list:
     """The kernels whose wgmma ptxas serialized (warning C7520: a wgmma
     under a branch it cannot prove warp-uniform), as the warning names
@@ -8536,6 +9086,11 @@ def main() -> int:
         print(f"chip_smoke: the repository is not beside {__file__}",
               file=sys.stderr)
         return 2
+    # bytecode cached under build/ (this card's environment writes none:
+    # PYTHONDONTWRITEBYTECODE), so phase 26's workers import torch's
+    # modules from bytecode as an installed package does
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(ROOT / "build" / "pycache")
     sys.path.insert(0, str(ROOT))
     from distributed_training_guide_tpu_torch.ops import _build
 
@@ -8565,29 +9120,38 @@ def main() -> int:
     check(not any("tgmm" in name for name in serialized),
           f"ptxas serialized K6's wgmma (C7520): {serialized}")
 
-    worst = phase_kernels(torch)
-    timing = phase_timing(torch)
-    flash_worst = phase_flash(torch)
-    flash_timing = phase_flash_timing(torch)
-    serve = phase_serve(torch, smi)
-    train = phase_train(torch, smi)
-    gmm_worst = phase_grouped(torch)
-    gmm_timing = phase_grouped_timing(torch)
-    moe_serve = phase_moe_serve(torch, smi)
-    moe_train = phase_moe_train(torch, smi)
-    qmm_worst = phase_qmm(torch)
-    qmm_timing = phase_qmm_timing(torch)
-    int8_serve = phase_int8_serve(torch, smi)
-    ch01 = phase_chapter01(torch, smi)
-    plans = phase_plans(torch, smi)
-    ch05 = phase_chapter05(torch, smi, plans)
-    dense = phase_dense(torch, smi, ch01)
-    cp_pp = phase_cp_pp(torch, smi, plans)
-    ch10 = phase_chapter10(torch, smi)
-    ovl = phase_overlap(torch, smi)
-    spec = phase_spec_horizon(torch, smi)
-    tp = phase_tenants_post(torch, smi)
-    fleet = phase_fleet(torch, smi)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return res
+
+    worst = timed("kernels", phase_kernels, torch)
+    timing = timed("timing", phase_timing, torch)
+    flash_worst = timed("flash", phase_flash, torch)
+    flash_timing = timed("flash_timing", phase_flash_timing, torch)
+    serve = timed("serve", phase_serve, torch, smi)
+    train = timed("train", phase_train, torch, smi)
+    gmm_worst = timed("grouped", phase_grouped, torch)
+    gmm_timing = timed("grouped_timing", phase_grouped_timing, torch)
+    moe_serve = timed("moe_serve", phase_moe_serve, torch, smi)
+    moe_train = timed("moe_train", phase_moe_train, torch, smi)
+    qmm_worst = timed("qmm", phase_qmm, torch)
+    qmm_timing = timed("qmm_timing", phase_qmm_timing, torch)
+    int8_serve = timed("int8_serve", phase_int8_serve, torch, smi)
+    ch01 = timed("chapter01", phase_chapter01, torch, smi)
+    plans = timed("plans", phase_plans, torch, smi)
+    ch05 = timed("chapter05", phase_chapter05, torch, smi, plans)
+    dense = timed("dense", phase_dense, torch, smi, ch01)
+    cp_pp = timed("cp_pp", phase_cp_pp, torch, smi, plans)
+    ch10 = timed("chapter10", phase_chapter10, torch, smi)
+    ovl = timed("overlap", phase_overlap, torch, smi)
+    spec = timed("spec_horizon", phase_spec_horizon, torch, smi)
+    tp = timed("tenants_post", phase_tenants_post, torch, smi)
+    fleet = timed("fleet", phase_fleet, torch, smi)
+    robust = timed("robustness", phase_robustness, torch, smi)
 
     # K4 is three kernels: each body at the shape it serves (decode, the
     # prefill chunk) and the combine at decode; "k4_ms" is the whole call
@@ -8668,8 +9232,10 @@ def main() -> int:
                          else "flash_bwd.cu"),
             "replaces": f"distributed_training_guide_tpu/ops/"
                         f"flash_attention.py:{line}",
-            "launches": train["launches"][name] + tp["launches"][name],
+            "launches": train["launches"][name] + tp["launches"][name]
+            + robust["launches"][name],
             "launches_tenants_post": tp["launches"][name],
+            "launches_robustness": robust["launches"][name],
             "launches_per_post_iteration": {
                 run: [i["launches"][name] for i in r["iterations"]]
                 for run, r in tp["post"].items()},
@@ -8859,7 +9425,8 @@ def main() -> int:
             "share_of_bound")}
             for k, v in qmm_timing.items()},
     })
-    log(phase="done", seconds=time.perf_counter() - t_start)
+    log(phase="done", seconds=time.perf_counter() - t_start,
+        seconds_by_phase=phase_s)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Data of the port: tokenizer, token pipeline, single-device loader."""
+"""Data of the port: tokenizer, token pipeline, the batch loader (Python
+or C++ assembly: ``native_loader.py``)."""
 from .loader import BatchLoader
 from .pipeline import load_and_preprocess_data, synthetic_dataset
 from .tokenizer import ByteTokenizer, get_tokenizer

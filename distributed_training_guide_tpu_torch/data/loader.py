@@ -16,14 +16,24 @@ Under context parallelism (``seq_size`` > 1) the targets are shifted over
 the whole sequence first (``shift_targets``: the last position ignored)
 and each rank gets its contiguous shard of both: ``{"input_ids",
 "targets"}``, so a shard's last row is scored against the next shard's
-first token.
+first token. With ``native=True`` the C++ loader of
+``data/native_loader.py`` assembles each global batch instead (its own
+shuffle, the JAX native path's batches), mmapping a ``--mmap-data`` file
+in place or a temporary token file it writes and removes on ``close``;
+without g++ it warns and keeps the Python assembly. ``backend`` says
+which one runs.
 """
 from __future__ import annotations
 
+import logging
+import os
+import tempfile
 from typing import Iterator
 
 import numpy as np
 import torch
+
+LOGGER = logging.getLogger(__name__)
 
 
 IGNORE_INDEX = -100
@@ -79,7 +89,8 @@ class BatchLoader:
     def __init__(self, dataset: np.ndarray, batch_size: int, *, device,
                  grad_accum: int = 1, seed: int = 0, data_rank: int = 0,
                  data_size: int = 1, microbatches: int = 1,
-                 seq_rank: int = 0, seq_size: int = 1):
+                 seq_rank: int = 0, seq_size: int = 1,
+                 native: bool = False):
         """``batch_size`` is the global batch (every rank's rows, every
         microbatch)."""
         if batch_size % max(grad_accum, 1) != 0:
@@ -101,6 +112,62 @@ class BatchLoader:
         self.grad_accum = grad_accum
         self.seed = seed
         self.epoch = 0
+        self._native = None
+        self._native_path = None      # a temp token file this loader owns
+        if native:
+            self._native = self._make_native()
+        self.backend = "python" if self._native is None else "native"
+
+    def _native_compatible_backing(self):
+        """Path of the dataset's own backing file when the C++ loader can
+        mmap it in place (a raw int32 token file that is the whole
+        dataset: ``--mmap-data``); None asks for a temp-file copy."""
+        ds = self.dataset
+        filename = getattr(ds, "filename", None)
+        if (isinstance(ds, np.memmap) and filename
+                and ds.dtype == np.int32 and ds.flags["C_CONTIGUOUS"]
+                and getattr(ds, "offset", 1) == 0
+                and ds.size * 4 == os.path.getsize(filename)):
+            return filename
+        return None
+
+    def _make_native(self):
+        """The C++ loader over the dataset's backing file, or over a temp
+        token file written here; None (with a warning) without g++."""
+        from .native_loader import (NativeTokenLoader, native_available,
+                                    write_token_file)
+
+        if not native_available():
+            LOGGER.warning("native loader unavailable (no g++); using "
+                           "python assembly")
+            return None
+        path = self._native_compatible_backing()
+        if path is None:
+            tmp = tempfile.NamedTemporaryFile(suffix=".tokens.bin",
+                                              delete=False)
+            tmp.close()   # the C++ side reopens it by path
+            self._native_path = tmp.name
+            write_token_file(self.dataset, tmp.name)
+            path = tmp.name
+        return NativeTokenLoader(path, seq_len=self.dataset.shape[1],
+                                 batch=self.batch_size, seed=self.seed)
+
+    def close(self) -> None:
+        if self._native is not None:
+            self._native.close()
+            self._native = None
+        if self._native_path is not None:
+            try:
+                os.unlink(self._native_path)
+            except OSError:
+                pass
+            self._native_path = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -118,8 +185,16 @@ class BatchLoader:
             return (self.grad_accum, self.batch_size // self.grad_accum)
         return (self.batch_size,)
 
-    def epoch_batches(self, start_step: int = 0) -> Iterator[dict]:
-        """Yields this epoch's batches from ``start_step`` on."""
+    def _host_batches(self, start_step: int) -> Iterator[np.ndarray]:
+        """This rank's rows of each batch from ``start_step`` on, [A, B,
+        S] or [B, S] int64 on the host."""
+        if self._native is not None:
+            rows = local_rows(np.arange(self.batch_size).reshape(
+                self._leading_shape()), self.data_rank, self.data_size,
+                self.microbatches)
+            for batch in self._native.epoch_batches(self.epoch, start_step):
+                yield batch.astype(np.int64)[rows]
+            return
         order = self._epoch_order()
         for step in range(start_step, len(self)):
             idx = np.sort(order[step * self.batch_size:
@@ -128,8 +203,12 @@ class BatchLoader:
                              self.data_rank, self.data_size,
                              self.microbatches)
             rows = np.asarray(self.dataset[idx.ravel()], dtype=np.int64)
-            ids = torch.from_numpy(rows.reshape(
-                idx.shape + rows.shape[-1:])).to(self.device)
+            yield rows.reshape(idx.shape + rows.shape[-1:])
+
+    def epoch_batches(self, start_step: int = 0) -> Iterator[dict]:
+        """Yields this epoch's batches from ``start_step`` on."""
+        for rows in self._host_batches(start_step):
+            ids = torch.from_numpy(rows).to(self.device)
             if self.seq_size == 1:
                 yield {"input_ids": ids, "labels": ids}
                 continue

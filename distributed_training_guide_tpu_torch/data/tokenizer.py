@@ -7,6 +7,8 @@ tokenizer.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 
 class ByteTokenizer:
     """UTF-8 byte tokenizer: vocab = 256 bytes + BOS/EOS/PAD."""
@@ -31,10 +33,22 @@ class ByteTokenizer:
                                                        errors="replace")
 
 
+# the files an HF tokenizer loads from: a local dir with none of them (an
+# ``hf:`` config written for random-weight training) has no tokenizer, and
+# asking transformers, which takes seconds to import, would only fail
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                    "tokenizer.model", "vocab.json", "vocab.txt",
+                    "merges.txt", "spiece.model", "sentencepiece.bpe.model")
+
+
 def get_tokenizer(model_name: str):
     """HF tokenizer if locally cached, else the byte tokenizer."""
     if model_name.startswith("hf:"):
         model_name = model_name[3:]
+    path = Path(model_name)
+    if path.is_dir() and not any((path / f).exists()
+                                 for f in _TOKENIZER_FILES):
+        return ByteTokenizer()
     try:
         from transformers import AutoTokenizer
 

@@ -136,6 +136,10 @@ def main():
     cmd = args.cmd[1:] if args.cmd and args.cmd[0] == "--" else args.cmd
     if not cmd:
         parser.error("no worker command given (use: local [opts] -- cmd ...)")
+    # a supervisor stops the gang with SIGTERM (a world renegotiation):
+    # exit through launch_gang's finally, which takes the ranks down too
+    signal.signal(signal.SIGTERM,
+                  lambda *_: sys.exit(128 + signal.SIGTERM))
     sys.exit(launch_gang(cmd, args.nproc, port=args.port,
                          log_dir=args.log_dir))
 

@@ -16,14 +16,14 @@ under ``--wandb``. ``--optimizer``, ``--precision-policy``,
 adapters on a frozen base, ``models/lora.py``), ``--context-impl`` and
 ``--cp-hop-loop`` (context parallelism's ring or Ulysses, chapter 08),
 ``--overlap-schedule`` (``ops/overlap.py``: the fsdp gathers issued a
-layer ahead, the fused hidden->loss, the expert ring) and ``--loss-chunks``
-(under a plan, the fused loss of ``ops/overlap.py:make_fused_loss``) are
-the JAX package's, and ``run_training(..., pp_microbatches=)`` sets the
-pipeline's microbatches (chapter 09). The fault drills of
-``utils/faults.py`` and the heartbeat of ``utils/heartbeat.py`` are wired
-in. A flag whose feature a later slice ports raises
-``NotImplementedError`` naming its ROADMAP.md item when it is set away
-from its default.
+layer ahead, the fused hidden->loss, the expert ring), ``--loss-chunks``
+(under a plan, the fused loss of ``ops/overlap.py:make_fused_loss``) and
+``--native-loader`` (the C++ batch assembly of ``data/native_loader.py``;
+without g++ the Python loader, with a warning; the info dict's ``loader``
+says which ran) are the JAX package's, and ``run_training(...,
+pp_microbatches=)`` sets the pipeline's microbatches (chapter 09). The
+fault drills of ``utils/faults.py`` and the heartbeat of
+``utils/heartbeat.py`` are wired in; ``launch/supervisor.py`` reads both.
 
 ``run_training(args, plan_factory)`` is what a chapter calls: the factory
 builds the sharding plan (``parallel/plans.py:make_plan``) once the
@@ -45,12 +45,6 @@ from pathlib import Path
 from typing import Optional
 
 LOGGER = logging.getLogger(__name__)
-
-# flag dest -> (its default, the ROADMAP.md queue 1 item that ports it)
-_UNPORTED_FLAGS = {
-    "native_loader": (False, "'Runtime robustness and tooling'"),
-}
-
 
 def _positive_int(s: str) -> int:
     v = int(s)
@@ -186,18 +180,6 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported_flags(args) -> None:
-    """Refuse, before any work, a flag whose feature is not ported."""
-    for dest, (default, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest, default) != default:
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md "
-                f"queue 1, {item})")
-    from .precision import resolve_policy
-
-    resolve_policy(args.precision_policy)
-
-
 def _profiler(device):
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,8 +198,9 @@ def run_training(args, plan_factory=None, *, device=None,
     """The training loop. ``plan_factory() -> ShardingPlan`` is the one
     thing chapters customize (None: one device). Returns the host state,
     the last info dict, the state, every logged info dict, whether the run
-    resumed, each checkpoint save's log (bytes, seconds) and the seconds
-    the ``--pretrained`` load took, for tests and the card's smoke run. ``model_overrides`` replaces config fields of the
+    resumed, each checkpoint save's log (bytes, seconds), the seconds
+    the ``--pretrained`` load took and the loader that assembled the
+    batches ("native" or "python"), for tests and the card's smoke run. ``model_overrides`` replaces config fields of the
     preset (e.g. ``num_layers`` to cut depth). ``offload_*``: the
     optimizer state / params in host memory between steps
     (``train/offload.py``). ``--pretrained DIR`` starts from a converted
@@ -229,7 +212,6 @@ def run_training(args, plan_factory=None, *, device=None,
     if getattr(args, "fence_every", 1) < 1:
         raise SystemExit(f"--fence-every must be >= 1, got "
                          f"{args.fence_every}")
-    check_ported_flags(args)
     import torch
 
     from .._device import resolve_device
@@ -245,8 +227,11 @@ def run_training(args, plan_factory=None, *, device=None,
     from ..utils.tracking import make_tracker
     from .guards import GuardMonitor
     from .optimizer import OPTIMIZERS, lr_at_step
+    from .precision import resolve_policy
     from .state import host_state_dict
     from .step import Trainer
+
+    resolve_policy(args.precision_policy)     # refuse before any work
 
     preflight = getattr(args, "preflight", False)
     device = resolve_device("meta" if preflight else
@@ -332,7 +317,9 @@ def run_training(args, plan_factory=None, *, device=None,
                          microbatches=1 if pipe is None else pipe.M,
                          seq_rank=(plan.mesh.get_local_rank("cp")
                                    if sizes.get("cp", 1) > 1 else 0),
-                         seq_size=sizes.get("cp", 1))
+                         seq_size=sizes.get("cp", 1),
+                         native=getattr(args, "native_loader", False))
+    LOGGER.info(f"batches assembled by the {loader.backend} loader")
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
@@ -415,6 +402,7 @@ def run_training(args, plan_factory=None, *, device=None,
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    launches0 = kernel_launches()
     try:
         for epoch in range(host_state["epoch"], args.num_epochs):
             host_state["epoch"] = epoch
@@ -480,6 +468,8 @@ def run_training(args, plan_factory=None, *, device=None,
                            for k, t in timers.items()},
                         **({"guard_skipped": guard.total_skipped}
                            if guard.enabled else {}),
+                        **{f"launches/{k}": v - launches0[k]
+                           for k, v in kernel_launches().items()},
                         **(extra_log or {}),
                     }
                     LOGGER.info(info)
@@ -515,11 +505,25 @@ def run_training(args, plan_factory=None, *, device=None,
             if io is not None:
                 io.close()     # finalize any in-flight async checkpoint
         finally:
+            loader.close()
             tracker.finish()
     return {"host_state": host_state, "last_info": last_info,
             "state": state, "infos": infos, "resumed": resumed,
             "checkpoint_saves": io.save_log if io is not None else [],
-            "pretrained_load_s": load_s}
+            "pretrained_load_s": load_s, "loader": loader.backend}
+
+
+def kernel_launches() -> dict:
+    """The launch counters of the kernels a training step can run (K1-K3,
+    K5, K6), as their wrappers keep them: each launch adds one, a plain
+    path on CPU or meta tensors none. The info dict logs their growth
+    over the run (``launches/<kernel>``)."""
+    from ..ops import flash_attention as fa
+    from ..ops import grouped_matmul as gm
+
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+            "flash_dkv": fa.DKV_LAUNCHES, "grouped_matmul": gm.GMM_LAUNCHES,
+            "tgmm": gm.TGMM_LAUNCHES}
 
 
 def _finish_profile(prof, profile_dir: str) -> None:

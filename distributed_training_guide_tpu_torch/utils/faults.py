@@ -3,8 +3,8 @@
 A copy of ``distributed_training_guide_tpu/utils/faults.py`` (standard
 library only): the same ``DTG_FAULT_*`` variables. The port's training loop
 consumes the training drills (crash, NaN loss, corrupt checkpoint, save
-latency); the serve-fleet and elastic drills stay inert until their modules
-are ported.
+latency), ``serve/`` the fleet drills and ``launch/elastic.py``'s member
+helper the slice loss.
 
 The reference teaches failure *diagnosis* (``diagnosing-errors/README.md``)
 but gives no way to rehearse a failure on purpose; every restart/resume path

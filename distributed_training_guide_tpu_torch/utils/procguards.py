@@ -2,11 +2,16 @@
 
 Counterpart of ``distributed_training_guide_tpu/utils/procguards.py``,
 which the checkpoint writer calls so that only process 0 writes the
-manifest and ``state.json``. A process here is a ``torch.distributed``
-rank when a process group is up; without one (every single-device run)
-``is_process0()`` is true and ``sync_processes`` does nothing.
+manifest and ``state.json``, and of the reference's ``rank0_first`` /
+``rank_ordered`` context managers (``process0_first`` /
+``process_ordered``: one rank downloads while the others wait, then read
+the warm cache). A process here is a ``torch.distributed`` rank when a
+process group is up; without one (every single-device run)
+``is_process0()`` is true and the barriers do nothing.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch.distributed as dist
 
@@ -33,3 +38,22 @@ def sync_processes(name: str = "barrier") -> None:
     none."""
     if process_count() > 1:
         dist.barrier()
+
+
+@contextmanager
+def process_ordered(should_go_first: bool):
+    """First the processes with ``should_go_first``, then the rest."""
+    if should_go_first:
+        yield
+        sync_processes("process_ordered_first")
+        sync_processes("process_ordered_second")
+    else:
+        sync_processes("process_ordered_first")
+        yield
+        sync_processes("process_ordered_second")
+
+
+@contextmanager
+def process0_first():
+    with process_ordered(is_process0()):
+        yield

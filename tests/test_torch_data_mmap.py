@@ -117,3 +117,36 @@ def test_hf_dataset_tokenizes_like_jax(tmp_path, monkeypatch):
     assert np.array_equal(np.asarray(tdata), np.asarray(jdata))
     assert os.path.basename(tdata.filename) == os.path.basename(
         jdata.filename)
+
+
+def test_tokenizer_of_a_config_only_dir_skips_transformers(tmp_path,
+                                                           monkeypatch):
+    """``hf:<dir>`` of a config without tokenizer files gets the byte
+    tokenizer, as the JAX package's lookup ends (transformers fails there),
+    without asking transformers; a dir with a tokenizer file still asks
+    it (a stub of the library in ``sys.modules``)."""
+    from distributed_training_guide_tpu.data.tokenizer import (
+        get_tokenizer as jget_tokenizer)
+    from distributed_training_guide_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+
+    (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+    asked = []
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(name, **kw):
+            asked.append(name)
+            return "hf-tokenizer"
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        AutoTokenizer=AutoTokenizer))
+    got = get_tokenizer(f"hf:{tmp_path}")
+    assert isinstance(got, ByteTokenizer) and asked == []
+    monkeypatch.delitem(sys.modules, "transformers")
+    assert type(jget_tokenizer(f"hf:{tmp_path}")).__name__ == "ByteTokenizer"
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        AutoTokenizer=AutoTokenizer))
+    (tmp_path / "tokenizer.json").write_text("{}")
+    assert get_tokenizer(f"hf:{tmp_path}") == "hf-tokenizer"
+    assert asked == [str(tmp_path)]

@@ -10,7 +10,8 @@ run on the same weights (carried across by ``models/from_jax.py``) and
 batch, at JAX's own tolerances: losses rtol 1e-4, params rtol 1e-2 / atol
 1e-4. The gang also checks what each rank holds, the global mean loss
 under uneven ``-100`` labels, and a restore across plans (fsdp 4 into
-tp_fsdp 2 x 2), and that the ``single`` plan is refused on 4 ranks. The
+tp_fsdp 2 x 2), that the ``single`` plan is refused on 4 ranks, and the
+order ``process0_first`` / ``process_ordered`` give the ranks. The
 same gang runs gpt2-debug under tp 4 (the fused QKV sharded on its heads),
 neox-debug under tp 2 x fsdp 2 and LoRA-only llama-debug under tp 4
 without sequence parallelism, each held to its JAX single-device run at
@@ -407,10 +408,22 @@ def test_checkpoint_saved_under_fsdp_restores_under_tp_fsdp(gang):
 
 def test_single_plan_on_many_ranks_is_refused(gang):
     """'single' on a mesh of 4 ranks would train each rank alone on its
-    quarter of the rows, with no grad all-reduce: the Trainer raises."""
+    quarter of the rows, with no grad all-reduce: the Trainer raises.
+    The gang's process guards, checked here too (the file's test count
+    sets its place in the tier-1 queue, see below): ``process0_first``
+    ends rank 0's block before any other rank's starts, and
+    ``process_ordered(rank % 2 == 1)`` runs both odd ranks before either
+    even one (the first group pauses inside its block)."""
     tmp, _ = gang
     err = json.loads((tmp / "refusal.json").read_text())["error"]
     assert err is not None and "'ddp'" in err and "4 ranks" in err
+    lines = (tmp / "guards.txt").read_text().split()
+    first = [ln for ln in lines if ln.startswith("p0first:")]
+    ordered = [ln for ln in lines if ln.startswith("odd_first:")]
+    assert first[0] == "p0first:0" and sorted(first[1:]) == [
+        "p0first:1", "p0first:2", "p0first:3"]
+    assert sorted(ordered[:2]) == ["odd_first:1", "odd_first:3"]
+    assert sorted(ordered[2:]) == ["odd_first:0", "odd_first:2"]
 
 
 def test_gang_of_chapter_02_trains(tmp_path):

@@ -2339,3 +2339,55 @@ def test_fleet_kill_replay_and_tier_on_card(cuda):
     assert tier.stats()["restore_hits"] > 0
     assert [r.token_ids for r in got] == \
         [generate_many(free, [r])[0].token_ids for r in small]
+
+
+def test_supervised_crash_resume_on_card(cuda, tmp_path):
+    """The train CLI on the card (a head_dim-64 llama-debug variant, K1-K3)
+    under the restart supervisor: ``DTG_FAULT_CRASH_STEP=4`` SIGKILLs the
+    worker after step 4's checkpoint, the restart resumes and runs steps
+    5-6, and the stitched losses are bitwise the uninterrupted run's."""
+    import ast
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from distributed_training_guide_tpu_torch.models.hf_export import (
+        _hf_config)
+    from distributed_training_guide_tpu_torch.train import cli
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = tmp_path / "cfg"
+    cfg.mkdir()
+    (cfg / "config.json").write_text(json.dumps(_hf_config(get_model(
+        "llama-debug", hidden_size=256, num_heads=4, num_kv_heads=2))))
+    train = ["-m", f"hf:{cfg}", "-d", "synthetic:20000", "-s", "128", "-b",
+             "2", "--max-steps", "6", "--log-freq", "1"]
+    golden = cli.run_training(cli.get_parser().parse_args(train))
+    want = {i["global_step"]: i["running_loss"] for i in golden["infos"]}
+    logs = tmp_path / "sup"
+    env = dict(os.environ, DTG_FAULT_CRASH_STEP="4",
+               PYTHONPATH=str(root) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "distributed_training_guide_tpu_torch.launch.supervisor",
+         "--max-restarts", "2", "--restart-backoff", "0.05", "--log-dir",
+         str(logs), "--", sys.executable, "-m",
+         "distributed_training_guide_tpu_torch.train", *train, "-e",
+         "drill", "--ckpt-freq", "2", "--save-dir", str(tmp_path)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+    assert "attempt 0 failed rc=-9" in proc.stdout
+    got, launched = {}, 0
+    for n in (0, 1):
+        text = (logs / f"attempt_{n}" / "stderr.log").read_text()
+        infos = [ast.literal_eval(line[line.index("INFO:{") + 5:])
+                 for line in text.splitlines() if "INFO:{" in line]
+        infos = [i for i in infos if "global_step" in i]
+        got.update({i["global_step"]: i["running_loss"] for i in infos})
+        launched += infos[-1]["launches/flash_fwd"]
+        assert ("Resumed=True" in text) == (n == 1)
+    assert got == want
+    assert launched == 6 * 2       # 2 layers, steps 1-4 then 5-6

@@ -1,7 +1,9 @@
 """The port's host utilities against the JAX package's: the fault drills
 (``active_faults`` field for field under the same environment, the crash,
 latency and corruption drills), the heartbeat (write, read, age), the
-process guards, the mesh descriptor of the single-device plan, and
+process guards (``process0_first`` / ``process_ordered`` without a
+process group; across ranks in ``tests/test_torch_dist.py``'s gang),
+``log_dict``, the mesh descriptor of the single-device plan, and
 ``make_tracker`` with a stub ``wandb`` in ``sys.modules`` (as
 ``tests/test_tracking.py`` stubs it), also through ``run_training``."""
 import dataclasses
@@ -96,6 +98,32 @@ def test_heartbeat_write_read_age(tmp_path, monkeypatch):
 def test_process_guards_without_a_process_group():
     assert procguards.is_process0() and procguards.process_count() == 1
     procguards.sync_processes("noop")
+    ran = []
+    with procguards.process0_first():
+        ran.append("first")
+    with procguards.process_ordered(False):
+        ran.append("second")
+    assert ran == ["first", "second"]
+
+
+def test_log_dict_logs_what_jax_s_logs(caplog):
+    """The same record as the JAX package's ``log_dict``: floats rounded to
+    6 places, other values as they are."""
+    import logging
+
+    from distributed_training_guide_tpu.utils import log_dict as jlog_dict
+    from distributed_training_guide_tpu_torch.utils import log_dict
+
+    info = {"running_loss": 6.2345678912, "global_step": 3, "lr": 3e-5,
+            "tag": "x", "tokens_per_s": 1234.56789123}
+    logger = logging.getLogger("log_dict_test")
+    with caplog.at_level(logging.INFO, logger="log_dict_test"):
+        log_dict(logger, info)
+        jlog_dict(logger, info)
+    port, jax_ = (r.getMessage() for r in caplog.records)
+    assert port == jax_ == str({"running_loss": 6.234568, "global_step": 3,
+                                "lr": 3e-05, "tag": "x",
+                                "tokens_per_s": 1234.567891})
 
 
 @pytest.mark.parametrize("policy", ["fp32", "adam8bit"])

@@ -91,7 +91,11 @@ def test_scan_sees_the_whole_package_and_catches_a_violation():
                    "post/loop.py", "post/rollout.py", "post/score.py",
                    "serve/transport.py", "serve/tiering.py",
                    "serve/disagg.py", "serve/router.py", "serve/elastic.py",
-                   "serve/controller.py", "serve/loadgen.py"):
+                   "serve/controller.py", "serve/loadgen.py",
+                   "launch/supervisor.py", "launch/elastic.py",
+                   "launch/errors.py", "data/native_loader.py",
+                   "monitor/__init__.py", "monitor/top_cluster.py",
+                   "utils/procguards.py", "utils/logging.py"):
         assert PORT / module in FILES, module
     assert _banned("jax.numpy") and _banned("distributed_training_guide_tpu")
     assert "ml_dtypes" in set(_imported_modules(ast.parse(

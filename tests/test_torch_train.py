@@ -310,16 +310,16 @@ def test_cli_runs_on_cpu_with_finite_losses():
     ["--native-loader"], ["--overlap-schedule"]],
     ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(flag):
-    """``--native-loader`` refuses, naming its ROADMAP item;
-    ``--overlap-schedule`` is ported and trains (the layer schedule and
-    the fused hidden->loss on one device)."""
-    if flag == ["--overlap-schedule"]:
-        out = tcli.run_training(_args(*flag))
-        assert out["state"].step > 0
-        assert all(np.isfinite(i["running_loss"]) for i in out["infos"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.run_training(_args(*flag))
+    """Both flags are ported and train: ``--native-loader`` through the C++
+    batch assembly (the run says so: ``loader`` "native"), and
+    ``--overlap-schedule`` through the layer schedule and the fused
+    hidden->loss on one device. ``--native-loader``'s batches against
+    JAX's: ``tests/test_torch_native_loader.py``."""
+    out = tcli.run_training(_args(*flag))
+    assert out["state"].step > 0
+    assert all(np.isfinite(i["running_loss"]) for i in out["infos"])
+    assert out["loader"] == ("native" if flag == ["--native-loader"]
+                             else "python")
 
 
 def test_cli_without_device_flag_needs_a_card():

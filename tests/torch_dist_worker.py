@@ -24,6 +24,8 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   2 x 2, take the next step; beside it the next step of the fsdp run;
 - ``refusal``: a ``Trainer`` under the ``single`` plan on the 4-rank
   mesh, which must raise rather than train each rank alone;
+- ``guards``: ``process0_first`` and ``process_ordered`` (odd ranks
+  first), each rank appending to ``guards.txt`` inside the block;
 - ``traj_gpt2_tp``: two steps of gpt2-debug under tp 4 (one head a rank,
   the fused QKV sharded on its trailing heads axis, the vocab-parallel
   tied head) from its own weights;
@@ -336,6 +338,31 @@ def refusal(out_dir, rank):
         msg = str(exc)
     if rank == 0:
         (out_dir / "refusal.json").write_text(json.dumps({"error": msg}))
+
+
+def guards(out_dir, rank):
+    """``process0_first`` and ``process_ordered`` on the gang: each rank
+    appends its name to one file inside the guarded block, the first group
+    after a pause, so a guard that let the rest in early shows."""
+    import time
+
+    from distributed_training_guide_tpu_torch.utils import (process0_first,
+                                                            process_ordered)
+
+    path = out_dir / "guards.txt"
+
+    def mark(tag):
+        with open(path, "a") as fp:
+            fp.write(f"{tag}{rank}\n")
+
+    with process0_first():
+        if rank == 0:
+            time.sleep(0.3)
+        mark("p0first:")
+    with process_ordered(rank % 2 == 1):
+        if rank % 2 == 1:
+            time.sleep(0.3)
+        mark("odd_first:")
 
 
 def _all(flag: bool) -> bool:
@@ -766,6 +793,7 @@ def main():
     uneven(params, batches, out_dir, rank)
     restore(params, batches, out_dir, rank)
     refusal(out_dir, rank)
+    guards(out_dir, rank)
     families(batches, out_dir, rank)
     moe(out_dir, rank)
     torch.distributed.destroy_process_group()
