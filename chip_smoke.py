@@ -72,10 +72,11 @@ phases, each of which raises on failure:
    fp32 one) and K6 at the training shape beside their plain versions,
    bounds and ``torch._grouped_mm`` (a yardstick the port never calls),
    device times as in phase 6;
-11. moe serve — ``ServeEngine`` on qwen3-30b-a3b at full width and depth
+11. moe serve — ``ServeEngine`` on qwen3-30b-a3b at full width cut to
+   ``MOE_SERVE_LAYERS`` layers
    in bf16 (random weights from a seed) with phase 7's traffic, bucketed
-   and chunked: exactly 144 K5 launches per forward (every one through the
-   Hopper body) and 48 K4 launches per decode step, every K1 launch of the
+   and chunked: exactly 3 K5 launches a layer per forward (every one
+   through the Hopper body) and one K4 launch a layer per decode step, every K1 launch of the
    bucketed prefill through the Hopper body with no operand copied,
    batch invariance of a greedy request, first-token logits
    against a plain prefill through the plain grouped matmul (bf16 full
@@ -101,8 +102,9 @@ phases, each of which raises on failure:
    ``torch.mm`` on the unquantized weight as a control the port never
    calls;
 15. int8 serve — ``ServeEngine(weight_dtype="int8")`` on llama-3.1-8b at
-   full width and depth (bf16 compute) with phase 7's traffic, bucketed
-   and chunked: exactly 225 K7 launches per forward, every one through the
+   full width cut to ``INT8_SERVE_LAYERS`` layers (bf16 compute) with phase 7's traffic, bucketed
+   and chunked: exactly 7 K7 launches a layer and one for the head per
+   forward, every one through the
    tensor-core body, and phase 7's K4 counts, batch invariance of a greedy request, the weight report
    against the resident bytes, first-token logits against the plain
    prefill over the snapped params (bf16 full depth; fp32 at 2 layers on
@@ -111,21 +113,23 @@ phases, each of which raises on failure:
    the bf16 params are dropped once the engines' shared int8 programs
    hold the stored tree, as the serve CLI does;
 16. chapter 01 — ``run_training`` through the CLI parser on llama-3.2-1b
-   (B 4, S 2048): (a) at full width cut to 2 layers, a straight 6-step run
+   (B 4, S 2048): (a) at full width cut to 2 layers, a straight 4-step run
    saving every 2 steps (``-e``, keep 2: exactly 2 retained, every manifest
    verifies), the same with ``--async-checkpoint`` (the same losses, its
-   checkpoints bitwise the synchronous ones, checkpoint-4 written while
-   steps 5 and 6 updated the state in place), the fallback past a
-   corrupted latest checkpoint, and a run crashed at step 4 by the
-   exception drill and resumed to step 6 with steps 5-6's losses bitwise
+   checkpoints bitwise the synchronous ones, checkpoint-2 written while
+   steps 3 and 4 updated the state in place), the fallback past a
+   corrupted latest checkpoint, and a run crashed at step 3 by the
+   exception drill and resumed to step 4 with steps 3-4's losses bitwise
    the straight run's; the bytes and seconds of every save; (b) 4 steps at
-   full depth under each precision policy (fp32, bf16-master, adam8bit,
-   bf16-master+adam8bit): finite falling loss, 16 launches of K1-K3 per
-   step, the peak falling by at least 80% of the state bytes the policy
-   saves; (c) 3 steps under each remat policy: K1 32 / 32 / 16 / 16 per
-   step (all / dots / attn / attn_mlp), K2 / K3 16, the step-1 loss
+   full width cut to 4 layers under each precision policy (fp32,
+   bf16-master, adam8bit, bf16-master+adam8bit): finite falling loss, a
+   launch of each of K1-K3 a layer and step, the peak falling by at least
+   80% of the state bytes the policy saves; (c) 3 steps at 4 layers under
+   each remat policy: K1 2 / 2 / 1 / 1 a layer and step
+   (all / dots / attn / attn_mlp), K2 / K3 1, the step-1 loss
    bitwise the run's without remat, peak(all) <= peak(attn) <=
-   peak(attn_mlp); (d) adafactor and lion, 4 steps: finite falling loss,
+   peak(attn_mlp); (d) adafactor and lion, 4 steps at 4 layers: finite
+   falling loss,
    their state bytes; (e) the NaN drill under ``--guard-policy skip``
    (one step skipped); and qwen3-30b-a3b cut to 2 layers (ragged) without
    remat and under "all" / "attn": K1, K5 and K6 per layer, the loss
@@ -141,9 +145,18 @@ phases, each of which raises on failure:
    weights and batch (each collective is a copy at one rank), exactly 16
    launches of each of K1-K3 per step (32 for zero2's two microbatches:
    the einsum attention never ran), the step ms, tokens/s and peak GB of
-   each beside the single plan's; and a run under chapter 04's plan at 2
-   layers saving at step 2 of 3, resumed under chapter 07's plan, whose
-   step-3 loss equals the fsdp run's;
+   each beside the single plan's, ``c07_tp_fsdp.py --zero1`` among them
+   (the optimizer's embed dim on (dp, fsdp) beside the params' shards);
+   a custom ``loss_fn`` (label smoothing) through the ``Trainer`` under
+   chapter 04's plan (B 2: the global logits gathered) against no plan,
+   2 steps, the losses within ``PLAN_LOSS_REL``; and a run under chapter
+   04's plan at 2 layers saving at step 2 of 3, resumed under chapter
+   07's plan, whose step-3 loss equals the fsdp run's; the same run with
+   ``--async-checkpoint``, its checkpoint restored bitwise the
+   synchronous one and its blocking seconds beside the synchronous
+   save's; and the fp32 checkpoint resumed into ``bf16-master+adam8bit``
+   under chapter 04's plan and without a plan (each re-encoding where it
+   restores), their step-3 losses within ``PLAN_LOSS_REL``;
 18. chapter 05 — through the chapter's entry points
    (``chapters/c05_convert_llama.py``, ``c05_llama405b.py``,
    ``engine_llm.py``, ``models/hf_export.py``'s CLI) on one-rank NCCL
@@ -158,12 +171,14 @@ phases, each of which raises on failure:
    llama-3.1-405b at 64 GPUs as fsdp 8 x tp 8 (B 1 a rank, S 4096) under
    fp32 AdamW, bf16-master + adam8bit and bf16 params + adafactor, and at
    one layer on one card, each within 2% of the recipe's bytes a
-   parameter, one layer of fp32 AdamW not fitting; (c) one full-width
+   parameter, one layer of fp32 AdamW not fitting, and phase 24's
+   post-training colocation priced under fsdp 8 (the policy's bytes an
+   eighth of fsdp 1's, the engine's whole); (c) one full-width
    405B layer trained 4 steps (bf16 params, adafactor, remat): finite
    losses, exactly 2 / 1 / 1 launches of K1 / K2 / K3 a step, the peak
    beside the preflight's prediction, and K1-K3 at its attention shape
    (a GQA group of 16) against their plain versions and timed beside
-   their bounds and SDPA; (d) llama-3.2-1b 3 steps without offload,
+   their bounds and SDPA; (d) llama-3.2-1b at 4 layers, 3 steps without offload,
    with the optimizer state and with both offloaded: bitwise losses and
    grad norms, the card holding less by exactly the offloaded bytes
    between steps; (e) the JSON engine at stage 3, bitwise phase 17's
@@ -185,7 +200,8 @@ phases, each of which raises on failure:
    saved, converted, loaded (fp32 loss within ``DENSE_HF_LOSS_REL`` of
    transformers'), exported and reloaded (logits within
    ``CH05_EXPORT_LOGIT_REL``); (f) ``--lora-rank 8 --lora-targets wq,wv``
-   on llama-3.2-1b with phase 8's batch, 4 steps: the step-1 loss bitwise
+   on llama-3.2-1b at phase 16's 4 layers with phase 8's batch, 4 steps:
+   the step-1 loss bitwise
    phase 16's fp32 run's, only the adapters in the optimizer, the peak;
    (g) gemma2-2b served at full depth in bf16 (chunked, phase 7's traffic
    plus a 6000-token prompt, so that the 4096 window binds inside K4 at
@@ -213,8 +229,12 @@ phases, each of which raises on failure:
    llama-3.2-1b at full width and depth (B 8, S 2048, M = 2 pp) against
    the single device's forward and backward of each microbatch: the loss,
    every grad, K1 2 L M and K2 / K3 L M launches, the step time and the
-   memory each held beyond the params beside the single device's; (e)
-   chapters 08 and 09 through their
+   memory each held beyond the params beside the single device's; and
+   ``--loss-chunks 8`` there: the pipeline at pp 2 with the fused loss
+   on its last stage against its whole loss (4 layers), and the fused
+   loss on 4 contiguous sequence shards of the model's hidden states
+   against their shifted targets (the cp plan's form) against the whole
+   sequence's loss and grads; (e) chapters 08 and 09 through their
    ``main`` at world 1 against phase 17's single plan; (f) K1-K3 timed at
    the ring's chunk-pair shapes (past, diagonal, banded) and the
    pipeline's microbatch beside their plain versions, bounds and SDPA;
@@ -229,7 +249,11 @@ phases, each of which raises on failure:
    the output and the grads of x, the router and the three expert stacks
    within 1e-2 relative L2, every member's launches through the bodies
    the plans name (12 K5 Hopper, 12 K5 split, 12 K6 split), the peak
-   memory of each; (c) the dense dispatch over the 4 members at capacity
+   memory of each; and ep 2 x fsdp 2 over the same 4 virtual members
+   (the experts' embed dim gathered over fsdp inside the exchange, its
+   ``embed`` a ``LocalExchange``): bitwise the ep 2 exchange on the
+   gathered weights, within 1e-2 of the single device, 24 K5 and 12 K6
+   launches; (c) the dense dispatch over the 4 members at capacity
    factor 0.75 against the single device's on the global batch: the same
    dropped fraction (at least 10%), the same tokens with no kept pair, y
    within 1e-2; (d) K5 (forward, fp32-dy d_lhs) and K6 on a member's
@@ -286,7 +310,10 @@ phases, each of which raises on failure:
    step gating the publish; per iteration the reward, loss, rollout
    tokens/s, update and publish ms and K1-K6 launches (K6 none), the peak
    beside ``price_post_colocation``'s bytes, and the llama-3.1-8b
-   colocation priced; (a) also times one PyTorch call on the fp32
+   colocation priced; one post update of that policy (REINFORCE, group
+   baseline, one packed batch) under chapter 04's fsdp plan at world 1
+   (``post_loss`` on the gathered logits) bitwise the same update without
+   a plan, 2 K5 launches each, no K6; (a) also times one PyTorch call on the fp32
    operands (``torch._grouped_mm`` where this torch takes fp32, else an
    fp32 ``torch.bmm`` over each row's gathered adapter matrix, the gather
    timed inside);
@@ -2337,6 +2364,10 @@ def recording_engine(logits: dict):
     return Recording
 
 
+MOE_SERVE_LAYERS = 24      # qwen3-30b-a3b cut to 24 of 48 layers (time)
+INT8_SERVE_LAYERS = 16     # llama-3.1-8b cut to 16 of 32 layers (time)
+
+
 def phase_moe_serve(torch, card: str) -> dict:
     import numpy as np
 
@@ -2349,7 +2380,8 @@ def phase_moe_serve(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     bundle = get_model("qwen3-30b-a3b", dtype=torch.bfloat16,
-                       param_dtype=torch.bfloat16)
+                       param_dtype=torch.bfloat16,
+                       num_layers=MOE_SERVE_LAYERS)
     cfg = bundle.config
     params = bundle.init(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
@@ -2886,7 +2918,8 @@ def phase_int8_serve(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     bundle = get_model("llama-3.1-8b", dtype=torch.bfloat16,
-                       param_dtype=torch.bfloat16)
+                       param_dtype=torch.bfloat16,
+                       num_layers=INT8_SERVE_LAYERS)
     cfg = bundle.config
     layers = cfg.num_layers
     params = bundle.init(cfg, SEED, device="cuda")
@@ -3102,6 +3135,8 @@ def check_int8_fp32_path(torch, model: str, prompt) -> None:
 # ---------------------------------------------------------------------------
 
 CH01_RESUME_LAYERS = 2      # llama-3.2-1b at full width cut to 2 layers
+CH01_RESUME_STEPS = 4       # saves at steps 2 and 4 (each 4.61 GB)
+CH01_POLICY_LAYERS = 4     # (b)-(d) at full width cut to 4 layers (time)
 CH01_PRECISION_STEPS = 4
 CH01_REMAT_STEPS = 3
 CH01_POLICIES = ("fp32", "bf16-master", "adam8bit", "bf16-master+adam8bit")
@@ -3193,9 +3228,9 @@ def ch01_same(torch, a: dict, b: dict) -> list:
 
 
 def ch01_resume(torch, root: Path, card: str) -> dict:
-    """(a): a straight 6-step run saving every 2 steps (keep 2) against an
-    async-saving run and a run killed at step 4 by the crash drill and
-    resumed to step 6, at 2 layers."""
+    """(a): a straight 4-step run saving every 2 steps (keep 2) against an
+    async-saving run and a run killed at step 3 by the crash drill and
+    resumed to step 4, at 2 layers."""
     import json
     import shutil
 
@@ -3203,17 +3238,17 @@ def ch01_resume(torch, root: Path, card: str) -> dict:
     from distributed_training_guide_tpu_torch.utils import faults
 
     layers = CH01_RESUME_LAYERS
-    exp = ["--save-dir", str(root), "--ckpt-freq", "2", "--max-steps", "6"]
+    exp = ["--save-dir", str(root), "--ckpt-freq", "2", "--max-steps", str(CH01_RESUME_STEPS)]
     straight, counts = ch01_run(torch, ["-e", "A", "--keep-checkpoints",
                                         "2", *exp], layers=layers)
     golden = ch01_losses(straight)
-    check(set(golden) == set(range(1, 7)) and all(
+    check(set(golden) == set(range(1, CH01_RESUME_STEPS + 1)) and all(
         map(math.isfinite, golden.values())), f"resume: losses {golden}")
-    check(counts["flash_fwd"] == layers * 6, f"resume: launches {counts}")
+    check(counts["flash_fwd"] == layers * CH01_RESUME_STEPS, f"resume: launches {counts}")
     chain = json.loads((root / "A" / "state.json").read_text())["retained"]
     kept = sorted(p.name for p in (root / "A").iterdir() if p.is_dir())
-    check(chain == ["checkpoint-6", "checkpoint-4"]
-          and kept == ["checkpoint-4", "checkpoint-6"],
+    check(chain == ["checkpoint-4", "checkpoint-2"]
+          and kept == ["checkpoint-2", "checkpoint-4"],
           f"retention: chain {chain}, dirs {kept}")
     for name in chain:
         m = manifest.load_manifest(root / "A", name)
@@ -3229,29 +3264,29 @@ def ch01_resume(torch, root: Path, card: str) -> dict:
           f"async saves moved the losses: {ch01_losses(run)} vs {golden}")
     async_saves = run["checkpoint_saves"]
     ch01_free(torch, run)
-    sync6, host = ch01_restored(torch, root / "A", layers)
-    async6, _ = ch01_restored(torch, root / "C", layers)
-    diff = ch01_same(torch, sync6, async6)
-    check(host["global_step"] == 6 and not diff,
-          f"async checkpoint-6 differs from the sync one: {diff[:4]}")
-    del sync6, async6
+    sync4, host = ch01_restored(torch, root / "A", layers)
+    async4, _ = ch01_restored(torch, root / "C", layers)
+    diff = ch01_same(torch, sync4, async4)
+    check(host["global_step"] == 4 and not diff,
+          f"async checkpoint-4 differs from the sync one: {diff[:4]}")
+    del sync4, async4
     # the fallback past a corrupted latest checkpoint, in both: A's
-    # checkpoint-4 was written synchronously, C's while steps 5 and 6
+    # checkpoint-2 was written synchronously, C's while steps 3 and 4
     # updated the state in place
-    victim = faults.corrupt_checkpoint_dir(root / "A" / "checkpoint-6")
-    faults.corrupt_checkpoint_dir(root / "C" / "checkpoint-6")
+    victim = faults.corrupt_checkpoint_dir(root / "A" / "checkpoint-4")
+    faults.corrupt_checkpoint_dir(root / "C" / "checkpoint-4")
     fallback, host = ch01_restored(torch, root / "A", layers)
-    async4, host_c = ch01_restored(torch, root / "C", layers)
-    diff = ch01_same(torch, fallback, async4)
-    check(host["global_step"] == 4 and host_c["global_step"] == 4
+    async2, host_c = ch01_restored(torch, root / "C", layers)
+    diff = ch01_same(torch, fallback, async2)
+    check(host["global_step"] == 2 and host_c["global_step"] == 2
           and not diff, f"fallback / async snapshot: step {host} / "
           f"{host_c}, differing {diff[:4]}")
-    del fallback, async4
+    del fallback, async2
     ch01_free(torch)
     shutil.rmtree(root / "A")
     shutil.rmtree(root / "C")
 
-    crash = {faults.ENV_CRASH_STEP: "4", faults.ENV_CRASH_MODE: "exc"}
+    crash = {faults.ENV_CRASH_STEP: "3", faults.ENV_CRASH_MODE: "exc"}
     try:
         ch01_run(torch, ["-e", "B", *exp], layers=layers, env=crash)
         check(False, "the crash drill did not crash")
@@ -3260,8 +3295,8 @@ def ch01_resume(torch, root: Path, card: str) -> dict:
     ch01_free(torch)
     resumed, _ = ch01_run(torch, ["-e", "B", *exp], layers=layers)
     got = ch01_losses(resumed)
-    check(resumed["resumed"] and got == {5: golden[5], 6: golden[6]},
-          f"resume: steps 5-6 {got}, straight {golden}")
+    check(resumed["resumed"] and got == {3: golden[3], 4: golden[4]},
+          f"resume: steps 3-4 {got}, straight {golden}")
     ch01_free(torch, resumed)
     shutil.rmtree(root / "B")
     out = {"losses": golden, "resumed_losses": got,
@@ -3285,16 +3320,18 @@ def ch01_state_bytes(out) -> int:
 
 
 def ch01_precision(torch, card: str) -> dict:
-    """(b): 4 steps at full depth under each policy: finite falling loss,
-    16 launches of K1-K3 per step, and the peak against the fp32 run."""
+    """(b): 4 steps at ``CH01_POLICY_LAYERS`` layers under each policy:
+    finite falling loss, a launch of each of K1-K3 a layer and step, and
+    the peak against the fp32 run."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
-    layers, steps = 16, CH01_PRECISION_STEPS
+    layers, steps = CH01_POLICY_LAYERS, CH01_PRECISION_STEPS
     res = {}
     for policy in CH01_POLICIES:
         copies = fa.ALIGN_COPIES
         out, counts = ch01_run(torch, ["--max-steps", str(steps),
-                                       "--precision-policy", policy])
+                                       "--precision-policy", policy],
+                               layers=layers)
         check_hopper_path(f"precision {policy}", copies)
         want = layers * steps
         check(counts["flash_fwd"] == counts["flash_dq"] == counts[
@@ -3326,17 +3363,19 @@ def ch01_precision(torch, card: str) -> dict:
 
 
 def ch01_remat(torch, card: str, no_remat_step1: float) -> dict:
-    """(c): 3 steps at full depth under each remat policy: K1 per step, the
-    step-1 loss bitwise the run's without remat, peaks in order."""
+    """(c): 3 steps at ``CH01_POLICY_LAYERS`` layers under each remat
+    policy: K1 per step, the step-1 loss bitwise the run's without remat,
+    peaks in order."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
 
-    layers, steps = 16, CH01_REMAT_STEPS
+    layers, steps = CH01_POLICY_LAYERS, CH01_REMAT_STEPS
     res = {}
     for policy, k1 in CH01_REMAT_K1.items():
         copies = fa.ALIGN_COPIES
         out, counts = ch01_run(torch, ["--max-steps", str(steps),
                                        "--checkpoint-activations",
-                                       "--remat-policy", policy])
+                                       "--remat-policy", policy],
+                               layers=layers)
         check_hopper_path(f"remat {policy}", copies)
         per_step = {k: counts[k] / steps for k in ("flash_fwd", "flash_dq",
                                                     "flash_dkv")}
@@ -3359,11 +3398,12 @@ def ch01_remat(torch, card: str, no_remat_step1: float) -> dict:
 
 
 def ch01_optimizers(torch, card: str) -> dict:
-    """(d): adafactor and lion, 4 steps at full depth."""
+    """(d): adafactor and lion, 4 steps at ``CH01_POLICY_LAYERS``
+    layers."""
     res = {}
     for name in ("adafactor", "lion"):
         out, counts = ch01_run(torch, ["--max-steps", "4", "--optimizer",
-                                       name])
+                                       name], layers=CH01_POLICY_LAYERS)
         losses = ch01_losses(out)
         vals = [losses[s] for s in sorted(losses)]
         check(all(map(math.isfinite, vals)) and vals[-1] < vals[0],
@@ -3464,7 +3504,10 @@ PLAN_RUNS = (("ddp", "c02_ddp", [], []),
              ("zero2", "c02_ddp", ["--zero2"], ["-b", "2", "--grad-accum", "2"]),
              ("fsdp", "c04_fsdp", [], []),
              ("tp", "c06_tp", [], []),
-             ("tp_fsdp", "c07_tp_fsdp", [], []))
+             ("tp_fsdp", "c07_tp_fsdp", [], []),
+             # ZeRO-1 beside tp / fsdp: the optimizer's embed dim on (dp,
+             # fsdp), each slot cut from the param's shards
+             ("tp_fsdp_zero1", "c07_tp_fsdp", ["--zero1"], []))
 # one rank: every collective is a copy on a one-rank NCCL group, and the
 # vocab-parallel loss of tp and tp_fsdp computes and differentiates the
 # logsumexp as torch.logsumexp does, so every plan runs the single plan's
@@ -3473,6 +3516,20 @@ PLAN_LOSS_REL = 1e-5
 PLAN_NORM_REL = 1e-4
 PLAN_RESUME_LAYERS = 2
 PLAN_LAUNCHES: dict = {}    # each kernel's launches over the strategies' runs
+PLAN_CUSTOM_BATCH = 2       # the custom loss's [B, S, V] fp32 logits: 2.1 GB
+PLAN_CUSTOM_STEPS = 2
+PLAN_POLICY = "bf16-master+adam8bit"    # the fp32 checkpoint re-encoded
+
+
+def plan_custom_loss_fn(logits, labels):
+    """A custom loss: label smoothing 0.1 over the next-token
+    log-probabilities, reading every vocab entry of every position."""
+    import torch
+
+    lp = torch.log_softmax(logits[:, :-1].float(), -1)
+    t = labels[:, 1:].long()
+    nll = -torch.gather(lp, -1, t[..., None])[..., 0]
+    return (0.9 * nll - 0.1 * lp.mean(-1)).mean()
 
 
 def plan_env() -> dict:
@@ -3596,7 +3653,8 @@ def plan_resume(torch, root: Path) -> dict:
             "rel": rel, "bitwise": got[PLAN_STEPS] == want[PLAN_STEPS],
             "layers": PLAN_RESUME_LAYERS,
             "saves": [{k: v for k, v in s.items()
-                       if k in ("step", "bytes", "write_s")} for s in saves]}
+                       if k in ("step", "bytes", "write_s", "blocking_s")}
+                      for s in saves]}
 
 
 def phase_plans(torch, card: str) -> dict:
@@ -3633,14 +3691,175 @@ def phase_plans(torch, card: str) -> dict:
         log(phase="plans", strategy=strategy, chapter=chapter, flags=flags,
             extra=extra, card=card, launches_per_step=per_step[strategy],
             **results[strategy])
+    custom = plan_custom(torch, card)
     root = Path(tempfile.mkdtemp(prefix="plans-"))
     try:
         resume = plan_resume(torch, root)
+        log(phase="plans", resume=resume, card=card)
+        ckpts = plan_async_reencode(torch, root, resume, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(phase="plans", resume=resume, card=card)
     return {"launches": dict(PLAN_LAUNCHES), "per_step": per_step,
-            "results": results, "single": refs[()], "resume": resume}
+            "results": results, "single": refs[()], "resume": resume,
+            "custom": custom, "checkpoints": ckpts}
+
+
+def plan_custom(torch, card: str) -> dict:
+    """A custom ``loss_fn`` on llama-3.2-1b at 16 layers (B 2 x S 2048),
+    two steps under chapter 04's fsdp plan at world 1 (the loss on the
+    global logits, gathered over the one-rank group) against two without
+    a plan: the losses within ``PLAN_LOSS_REL``, 16 launches of each of
+    K1-K3 a step on both."""
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train.optimizer import (
+        adamw_cosine)
+    from distributed_training_guide_tpu_torch.train.step import Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    ids = torch.randint(0, 128256, (PLAN_CUSTOM_BATCH, 2048), device="cuda",
+                        generator=gen)
+    batch = {"input_ids": ids, "labels": ids}
+
+    def run(plan):
+        t = Trainer(bundle=get_model("llama-3.2-1b"),
+                    optimizer=adamw_cosine(3e-4), plan=plan, device="cuda",
+                    loss_fn=plan_custom_loss_fn)
+        state = t.init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()                  # the run's path starts here
+        losses, ms = [], []
+        for _ in range(PLAN_CUSTOM_STEPS):
+            t0 = time.perf_counter()
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counts = flash_counts()               # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, t
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"losses": losses, "step_ms": ms, "peak_alloc_gb": peak,
+                "launches": counts}
+
+    single = run(None)
+
+    def under_fsdp():
+        maybe_initialize_distributed("cuda")
+        try:
+            return run(make_plan("fsdp", make_mesh(device="cuda")))
+        finally:
+            dist.destroy_process_group()
+
+    fsdp = with_env(plan_env(), under_fsdp)
+    want = {k: 16 * PLAN_CUSTOM_STEPS for k in fsdp["launches"]}
+    for name, r in (("single", single), ("fsdp", fsdp)):
+        check(r["launches"] == want, f"plans custom loss {name}: launches "
+              f"{r['launches']}, want {want}")
+        check(all(map(math.isfinite, r["losses"])),
+              f"plans custom loss {name}: losses {r['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fsdp["losses"],
+                                                   single["losses"]))
+    check(rel <= PLAN_LOSS_REL, f"plans custom loss: fsdp {fsdp['losses']} "
+          f"against no plan {single['losses']}: rel {rel}")
+    for k, v in fsdp["launches"].items():
+        PLAN_LAUNCHES[k] = PLAN_LAUNCHES.get(k, 0) + v
+    out = {"single": single, "fsdp": fsdp, "loss_max_rel": rel,
+           "bitwise": fsdp["losses"] == single["losses"],
+           "batch": PLAN_CUSTOM_BATCH}
+    log(phase="plans", part="custom loss", card=card, **out)
+    return out
+
+
+def plan_cli(torch, root: Path, strategy, exp: str, extra: list,
+             layers: int = PLAN_RESUME_LAYERS) -> dict:
+    """Chapter 01's CLI on phase 17's model at ``layers`` layers, under
+    ``strategy``'s plan at world 1 (None: no plan), ``PLAN_STEPS`` steps,
+    a checkpoint every 2 into ``root / exp``."""
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train import cli
+
+    args = cli.get_parser().parse_args(
+        TRAIN_ARGS + ["--log-freq", "1", "--max-steps", str(PLAN_STEPS),
+                      "-e", exp, "--save-dir", str(root), "--ckpt-freq",
+                      "2", *extra])
+    over = {"num_layers": layers}
+    if strategy is None:
+        return cli.run_training(args, model_overrides=over)
+
+    def go():
+        maybe_initialize_distributed("cuda")
+        try:
+            return cli.run_training(
+                args, lambda: make_plan(strategy, make_mesh()),
+                model_overrides=over)
+        finally:
+            dist.destroy_process_group()
+    return with_env(plan_env(), go)
+
+
+def plan_async_reencode(torch, root: Path, resume: dict,
+                        card: str) -> dict:
+    """(i) ``plan_resume``'s fsdp run again with ``--async-checkpoint``:
+    its step-2 checkpoint restores bitwise the synchronous one, and save()
+    blocks only for the staging (its seconds beside the synchronous
+    save's). (ii) the synchronous fp32 checkpoint resumed into
+    ``PLAN_POLICY`` under fsdp and without a plan (each re-encoded where
+    it restores): the step-3 losses agree within ``PLAN_LOSS_REL``."""
+    out = plan_cli(torch, root, "fsdp", "plans_async",
+                   ["--async-checkpoint"])
+    losses = {i["global_step"]: i["running_loss"] for i in out["infos"]}
+    saves = out["checkpoint_saves"]
+    ch01_free(torch, out)
+    check(losses == resume["fsdp_losses"], f"plans async: losses {losses} "
+          f"against the synchronous run's {resume['fsdp_losses']}")
+    sync, _ = ch01_restored(torch, root / "plans", PLAN_RESUME_LAYERS)
+    got, _ = ch01_restored(torch, root / "plans_async", PLAN_RESUME_LAYERS)
+    differ = ch01_same(torch, sync, got)
+    check(not differ, f"plans async: the restored tensors {differ[:5]} "
+          f"differ from the synchronous checkpoint's")
+    n_tensors = len(sync)
+    del sync, got
+    torch.cuda.empty_cache()
+    check(len(saves) == 1 and saves[0]["async"], f"plans async: saves "
+          f"{saves}")
+    async_save = {k: saves[0].get(k) for k in ("bytes", "blocking_s",
+                                               "write_s", "wait_s")}
+    encoded = {}
+    for name, strategy in (("fsdp", "fsdp"), ("none", None)):
+        run = plan_cli(torch, root, strategy, "plans",
+                       ["--precision-policy", PLAN_POLICY])
+        check(run["resumed"] and len(run["infos"]) == 1,
+              f"plans re-encode {name}: resumed={run['resumed']}, "
+              f"{len(run['infos'])} steps")
+        encoded[name] = run["infos"][0]["running_loss"]
+        ch01_free(torch, run)
+    rel = abs(encoded["fsdp"] - encoded["none"]) / abs(encoded["none"])
+    check(math.isfinite(encoded["fsdp"]) and rel <= PLAN_LOSS_REL,
+          f"plans re-encode: step {PLAN_STEPS} loss {encoded['fsdp']} under "
+          f"fsdp, {encoded['none']} without a plan: rel {rel}")
+    result = {"async": {"restored_bitwise": True, "tensors": n_tensors,
+                        **async_save},
+              "sync_save": resume["saves"][0],
+              "reencode": {"policy": PLAN_POLICY, "losses": encoded,
+                           "rel": rel,
+                           "bitwise": encoded["fsdp"] == encoded["none"]},
+              "layers": PLAN_RESUME_LAYERS}
+    log(phase="plans", part="async save and re-encode under fsdp",
+        card=card, **result)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -3659,6 +3878,7 @@ CH05_HF_CONFIG = dict(
                   "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                   "original_max_position_embeddings": 8192})
 CH05_STEPS = 3
+CH05_OFFLOAD_LAYERS = 4    # (d) at full width cut to 4 layers (time)
 CH05_ARGS = ["-d", "synthetic:400000", "-s", "2048", "-b", "2", "--lr",
              "3e-4", "--seed", str(SEED), "--log-freq", "1",
              "--no-checkpoint-activations"]
@@ -3704,6 +3924,21 @@ for name, flags, layers, _ in runs:
     kw = {"model_overrides": {"num_layers": layers}} if layers else {}
     out[name] = c05_llama405b.main(json.loads(sys.argv[3]) + flags
                                    + ["--preflight"], **kw)
+# the post-training colocation of phase 24's policy under fsdp 8
+from distributed_training_guide_tpu_torch.models import get_model
+from distributed_training_guide_tpu_torch.parallel import make_mesh, make_plan
+from distributed_training_guide_tpu_torch.train.optimizer import adamw_cosine
+from distributed_training_guide_tpu_torch.train.preflight import (
+    fake_group, price_post_colocation)
+from distributed_training_guide_tpu_torch.train.step import Trainer
+for world in (1, 8):
+    with fake_group(world):
+        t = Trainer(bundle=get_model("llama-3.2-1b"), device="meta",
+                    optimizer=adamw_cosine(1e-5),
+                    plan=make_plan("fsdp", make_mesh(device="cpu",
+                                                     fsdp=world)))
+        out[f"post_colocation_fsdp{world}"] = price_post_colocation(
+            t, n_slots=8, page_size=16, max_len=2048)
 print("PREFLIGHT:" + json.dumps(out))
 """
 
@@ -3760,6 +3995,27 @@ def ch05_preflight_finish(proc, card: str) -> dict:
                 "figures")}}
         log(phase="chapter05", part="preflight", run=name, card=card,
             **out[name])
+    # the post colocation under fsdp 8: the policy's per-device bytes an
+    # eighth of fsdp 1's (its norms, replicated, the difference), the
+    # engine's copy and pool whole
+    post = {w: reports[f"post_colocation_fsdp{w}"] for w in (1, 8)}
+    share = {k: post[8][k] / post[1][k] for k in (
+        "policy_param_bytes", "policy_opt_state_bytes")}
+    check(all(abs(v - 1 / 8) <= CH05_PREFLIGHT_REL / 8
+              for v in share.values())
+          and post[8]["engine_param_bytes"] == post[1]["engine_param_bytes"]
+          and post[8]["engine_pool_bytes"] == post[1]["engine_pool_bytes"],
+          f"preflight post colocation: fsdp 8 against fsdp 1 {share}, "
+          f"{post}")
+    out["post_colocation_fsdp8"] = {
+        "total_gb": post[8]["total_bytes"] / 1e9,
+        "policy_gb": (post[8]["policy_param_bytes"]
+                      + post[8]["policy_opt_state_bytes"]
+                      + post[8]["policy_grad_bytes_transient"]) / 1e9,
+        "fsdp1_total_gb": post[1]["total_bytes"] / 1e9,
+        "policy_share_of_fsdp1": share}
+    log(phase="chapter05", part="preflight", run="post-colocation-fsdp8",
+        card=card, **out["post_colocation_fsdp8"])
     check(not out["1gpu-1layer-fp32-adamw"]["fits"]
           and out["1gpu-1layer-bf16-adafactor"]["fits"],
           f"preflight: one 405B layer should not fit under fp32 AdamW and "
@@ -4004,8 +4260,9 @@ def ch05_flash(torch, card: str) -> dict:
 
 
 def ch05_offload(torch, card: str) -> dict:
-    """(d): llama-3.2-1b, 3 steps without offload, with the optimizer
-    state offloaded and with both, through chapter 05's flags."""
+    """(d): llama-3.2-1b at full width cut to ``CH05_OFFLOAD_LAYERS``, 3
+    steps without offload, with the optimizer state offloaded and with
+    both, through chapter 05's flags."""
     from distributed_training_guide_tpu_torch.chapters import c05_llama405b
 
     runs = {}
@@ -4015,10 +4272,12 @@ def ch05_offload(torch, card: str) -> dict:
         reset_flash_counts()                  # this path starts here
         out = with_env(plan_env(), lambda: c05_llama405b.main(
             ["-m", "llama-3.2-1b", "--max-steps", str(CH05_STEPS)]
-            + CH05_ARGS + flags))
+            + CH05_ARGS + flags,
+            model_overrides={"num_layers": CH05_OFFLOAD_LAYERS}))
         torch.cuda.synchronize()
         launches = flash_counts()             # ... and ends here
-        check(launches == {k: 16 * CH05_STEPS for k in launches},
+        check(launches == {k: CH05_OFFLOAD_LAYERS * CH05_STEPS
+                           for k in launches},
               f"chapter05 offload {name}: launches {launches}")
         state = out["state"]
         infos = out["infos"]
@@ -4158,10 +4417,11 @@ GEMMA2_LONG_PROMPT = 6000
 SAMPLER_PROMPTS, SAMPLER_STEPS = (20, 101), 32
 LORA_STEPS = 4
 LORA_ARGS = ["--lora-rank", "8", "--lora-targets", "wq,wv"]
-# JAX's num_trainable_params for llama-3.2-1b at rank 8 on wq, wv (16
-# layers: wq's A [2048, 8] and B [8, 2048], wv's A [2048, 8] and B [8, 512]);
+# JAX's num_trainable_params for llama-3.2-1b at rank 8 on wq, wv (a
+# layer: wq's A [2048, 8] and B [8, 2048], wv's A [2048, 8] and B [8, 512]);
 # tests/test_torch_lora.py holds the port's count to JAX's
-LORA_TRAINABLE = 16 * (2048 * 8 + 8 * 2048 + 2048 * 8 + 8 * 512)
+LORA_TRAINABLE = CH01_POLICY_LAYERS * (2048 * 8 + 8 * 2048 + 2048 * 8
+                                       + 8 * 512)
 # the port's fp32 loss through K1 (its FMA body) and converted weights
 # against transformers' fp32 loss on the same batch: the same fp32 math,
 # summed in another order
@@ -4842,11 +5102,12 @@ def dense_hf(torch, root: Path, card: str) -> dict:
 
 
 def dense_lora(torch, card: str, ch01: dict) -> dict:
-    """``--lora-rank 8 --lora-targets wq,wv`` on llama-3.2-1b with phase
-    8's batch, 4 steps: the step-1 loss bitwise phase 16's fp32 run's
-    (B starts at zero), the optimizer holding only the adapters (JAX's
-    ``num_trainable_params``), 16 launches of K1-K3 a step, the peak and
-    the optimizer-state bytes beside the full run's."""
+    """``--lora-rank 8 --lora-targets wq,wv`` on llama-3.2-1b at phase
+    16's ``CH01_POLICY_LAYERS`` layers with phase 8's batch, 4 steps: the
+    step-1 loss bitwise phase 16's fp32 run's (B starts at zero), the
+    optimizer holding only the adapters (JAX's ``num_trainable_params``),
+    a launch of each of K1-K3 a layer and step, the peak and the
+    optimizer-state bytes beside the full run's."""
     from distributed_training_guide_tpu_torch.ops import flash_attention as fa
     from distributed_training_guide_tpu_torch.train.optimizer import (
         state_slots)
@@ -4854,12 +5115,12 @@ def dense_lora(torch, card: str, ch01: dict) -> dict:
     copies = fa.ALIGN_COPIES
     before = flash_counts()                   # ch01_run resets the counts
     out, counts = ch01_run(torch, ["--max-steps", str(LORA_STEPS),
-                                   *LORA_ARGS])
+                                   *LORA_ARGS], layers=CH01_POLICY_LAYERS)
     check_hopper_path("lora", copies)
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = (
         before[k] + counts[k] for k in ("flash_fwd", "flash_dq",
                                         "flash_dkv"))
-    check(all(counts[k] == 16 * LORA_STEPS for k in (
+    check(all(counts[k] == CH01_POLICY_LAYERS * LORA_STEPS for k in (
         "flash_fwd", "flash_dq", "flash_dkv")), f"lora: launches {counts}")
     losses = ch01_losses(out)
     vals = [losses[s] for s in sorted(losses)]
@@ -5369,6 +5630,119 @@ def cp_pipeline(torch, card: str) -> dict:
     return out
 
 
+CHUNKS = 8                 # --loss-chunks under cp and pp
+CP_CHUNK_MEMBERS = 4
+# the fused loss's values against the whole loss: fp32 sums of the same
+# products in another order
+CHUNK_LOSS_REL = 1e-5
+# its grads: dh is bf16 (one ulp apart where a GEMM tiled otherwise rounds
+# a row another way), dW an fp32 sum over other chunks
+CHUNK_GRAD_REL_L2 = 1e-2
+
+
+def cp_pp_chunks(torch, card: str) -> dict:
+    """``--loss-chunks 8`` under pp 2 and the cp-4 shards, on
+    llama-3.2-1b at full width cut to ``PP_LAYERS`` (B 8, S 2048):
+    (i) the 1F1B pipeline over 2 virtual stages with the fused loss on its
+    last stage against the same pipeline's whole loss: the loss, every
+    grad, K1-K3's launches; (ii) the fused loss as the cp plan runs it on
+    4 contiguous sequence shards of the model's final hidden states, each
+    against its targets shifted before the sharding, the (nll, count)
+    pairs summed: the loss and the grads of the hidden states and the head
+    against the whole-sequence loss."""
+    from distributed_training_guide_tpu_torch.data.loader import (
+        seq_shard, shift_targets)
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.llama import (
+        output_weights)
+    from distributed_training_guide_tpu_torch.ops.cross_entropy import (
+        causal_lm_loss, fused_linear_cross_entropy)
+    from distributed_training_guide_tpu_torch.ops.matmul import (
+        matmul_f32_out)
+    from distributed_training_guide_tpu_torch.parallel.pipeline import (
+        make_pipeline_value_and_grad)
+    from distributed_training_guide_tpu_torch.train.state import named_leaves
+
+    bundle = get_model(PP_MODEL, num_layers=PP_LAYERS)
+    cfg = bundle.config
+    params = bundle.init(cfg, SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    ids = torch.randint(0, cfg.vocab_size, (PP_BATCH, PP_SEQ), generator=gen,
+                        device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    out = {"launches": {k: 0 for k in ("flash_fwd", "flash_dq",
+                                       "flash_dkv")}}
+    runs = {}
+    for chunks in (0, CHUNKS):
+        vag = make_pipeline_value_and_grad(bundle, pp=2, attn_impl="flash",
+                                           loss_chunks=chunks)
+        reset_flash_counts()                  # the pipeline's path starts
+        loss, grads = vag(params, batch)
+        torch.cuda.synchronize()
+        counts = flash_counts()               # ... and ends here
+        want = {"flash_fwd": 2 * PP_LAYERS * 4, "flash_dq": PP_LAYERS * 4,
+                "flash_dkv": PP_LAYERS * 4}
+        check(counts == want, f"pp 2 loss_chunks {chunks}: launches "
+              f"{counts}, want {want}")
+        if chunks:
+            for n, c in counts.items():
+                out["launches"][n] += c
+        runs[chunks] = (float(loss), dict(named_leaves(grads)))
+    (l0, g0), (l8, g8) = runs[0], runs[CHUNKS]
+    rel = abs(l8 - l0) / abs(l0)
+    grad_rel = {p: rel_l2(g8[p], g0[p]) for p in g0}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(rel <= CHUNK_LOSS_REL and grad_rel[worst] <= CHUNK_GRAD_REL_L2,
+          f"pp 2 loss_chunks {CHUNKS}: loss {l8} against {l0} (rel {rel}), "
+          f"{worst} grad rel L2 {grad_rel[worst]}")
+    out["pp2"] = {"loss": l8, "whole_loss": l0, "loss_rel": rel,
+                  "grad_max_rel_l2": grad_rel[worst], "grad_worst": worst,
+                  "launches": counts}
+    log(phase="cp_pp", part="loss chunks pp 2", chunks=CHUNKS,
+        layers=PP_LAYERS, card=card, **out["pp2"])
+    del runs, g0, g8, grads
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        hidden = bundle.apply(cfg, params, ids, attn_impl="flash",
+                              return_hidden=True)
+    w = output_weights(cfg, params).detach()
+    cp = CP_CHUNK_MEMBERS
+
+    def whole():
+        h = hidden.clone().requires_grad_()
+        wt = w.clone().requires_grad_()
+        loss = causal_lm_loss(matmul_f32_out(h, wt), ids)
+        return (float(loss), *torch.autograd.grad(loss, [h, wt]))
+
+    def shards():
+        h = hidden.clone().requires_grad_()
+        wt = w.clone().requires_grad_()
+        targets = shift_targets(ids)
+        nll = cnt = 0
+        for r in range(cp):
+            n, c = fused_linear_cross_entropy(
+                seq_shard(h.transpose(1, 2), r, cp).transpose(1, 2), wt,
+                seq_shard(targets, r, cp), num_chunks=CHUNKS, shifted=True)
+            nll, cnt = nll + n, cnt + c
+        loss = nll / cnt
+        return (float(loss), *torch.autograd.grad(loss, [h, wt]))
+
+    want, got = whole(), shards()
+    res = {"loss": got[0], "whole_loss": want[0],
+           "loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+           "dh_rel_l2": rel_l2(got[1], want[1]),
+           "dw_rel_l2": rel_l2(got[2], want[2]), "members": cp}
+    check(res["loss_rel"] <= CHUNK_LOSS_REL
+          and max(res["dh_rel_l2"], res["dw_rel_l2"]) <= CHUNK_GRAD_REL_L2,
+          f"cp {cp} loss_chunks {CHUNKS}: {res}")
+    out["cp4"] = res
+    log(phase="cp_pp", part="loss chunks on cp-4 shards", chunks=CHUNKS,
+        card=card, **res)
+    del params, hidden, w, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def cp_pp_chapters(torch, card: str, plans: dict) -> dict:
     """Chapters 08 and 09 through their ``main`` at world 1 (cp 1, pp 1)
     on phase 17's model and batch, against phase 17's single plan."""
@@ -5493,11 +5867,13 @@ def phase_cp_pp(torch, card: str, plans: dict) -> dict:
     ring = cp_ring(torch, card)
     ulysses = cp_ulysses(torch, card)
     pipeline = cp_pipeline(torch, card)
+    chunks = cp_pp_chunks(torch, card)
     chapters = cp_pp_chapters(torch, card, plans)
     timing = cp_pp_timing(torch, card)
     kinds = ring_pair_kinds(CP)
     launches = {k: ring["launches"][k] + ulysses["launches"][k]
-                + pipeline["launches"][k] for k in ring["launches"]}
+                + pipeline["launches"][k] + chunks["launches"][k]
+                for k in ring["launches"]}
     per_step = {
         "ring-past": {"per_layer": kinds["past"],
                       "llama-3.2-1b_step": kinds["past"] * 16},
@@ -5509,8 +5885,8 @@ def phase_cp_pp(torch, card: str, plans: dict) -> dict:
     log(phase="cp_pp", seconds=time.perf_counter() - t0, launches=launches,
         launches_per_step=per_step, card=card)
     return {"ring": ring, "ulysses": ulysses, "pipeline": pipeline,
-            "chapters": chapters, "timing": timing, "launches": launches,
-            "per_step": per_step}
+            "chunks": chunks, "chapters": chapters, "timing": timing,
+            "launches": launches, "per_step": per_step}
 
 
 # ---------------------------------------------------------------------------
@@ -5651,20 +6027,41 @@ def ep_exchange(torch, card: str, gen) -> dict:
     g, n = cfg.num_experts, EP_MEMBERS
     e_loc = g // n
 
-    def run(ep: bool):
+    def run(mode):
         leaves = [t.clone().requires_grad_() for t in (x, router, *w)]
         xv, rv, gate, up, down = leaves
         ti, tp = ep_route(torch, cfg, xv, rv)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        if ep:
+        if mode == "ep":
             disp = moe.make_ragged_ep_dispatch(LocalExchange(n), cfg)
             ws = [[t[m * e_loc:(m + 1) * e_loc] for m in range(n)]
                   for t in (gate, up, down)]
             y = torch.cat(disp(list(torch.chunk(xv, n)),
                                list(torch.chunk(ti, n)),
                                list(torch.chunk(tp, n)), *ws))
+        elif mode in ("ep_fsdp", "ep_rows"):
+            # ep 2 x fsdp 2: member (f, e) holds token block 2 f + e and
+            # expert block e, its embed dim's half f ("ep_fsdp": gathered
+            # over fsdp in the exchange); "ep_rows": the same exchange on
+            # the gathered weights, one ep group per fsdp row
+            half = g // 2
+            fsdp = mode == "ep_fsdp"
+            disp = moe.make_ragged_ep_dispatch(
+                LocalExchange(2), cfg,
+                embed=LocalExchange(2) if fsdp else None)
+            ws = [[(t[e * half:(e + 1) * half].chunk(2, dim)[f] if fsdp
+                    else t[e * half:(e + 1) * half])
+                   for f in range(2) for e in range(2)]
+                  for t, dim in ((gate, 1), (up, 1), (down, 2))]
+            args = [list(torch.chunk(a, n)) for a in (xv, ti, tp)]
+            if fsdp:
+                y = torch.cat(disp(*args, *ws))
+            else:
+                y = torch.cat(sum((disp(*[a[2 * f:2 * f + 2] for a in args],
+                                        *[wl[2 * f:2 * f + 2] for wl in ws])
+                                   for f in range(2)), []))
         else:
             ef = ti.T.reshape(-1)
             y = moe._ragged_dispatch(
@@ -5676,11 +6073,11 @@ def ep_exchange(torch, card: str, gen) -> dict:
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         return [y.detach(), *grads], peak
 
-    want, single_peak = run(False)
+    want, single_peak = run("single")
     gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
     gm.GMM_BODY_LAUNCHES.update({k: 0 for k in gm.GMM_BODY_LAUNCHES})
     gm.TGMM_BODY_LAUNCHES.update({k: 0 for k in gm.TGMM_BODY_LAUNCHES})
-    got, ep_peak = run(True)
+    got, ep_peak = run("ep")
     launches = {"grouped_matmul": gm.GMM_LAUNCHES, "tgmm": gm.TGMM_LAUNCHES,
                 "by_body": {"grouped_matmul": dict(gm.GMM_BODY_LAUNCHES),
                             "tgmm": dict(gm.TGMM_BODY_LAUNCHES)}}
@@ -5708,7 +6105,32 @@ def ep_exchange(torch, card: str, gen) -> dict:
             bound = EP_ROUTER_REL_L2 if key == "drouter" else EP_REL_L2
             check(errs[key]["rel_l2"] <= bound, f"ep exchange {key}: rel L2 "
                   f"{errs[key]['rel_l2']} > {bound}")
+    # ep 2 x fsdp 2 over the same 4 virtual members: the embed dim
+    # gathered over fsdp inside the exchange, against the ep 2 exchange on
+    # the gathered weights (bitwise) and the single device
+    rows, _ = run("ep_rows")
+    gm.GMM_LAUNCHES = gm.TGMM_LAUNCHES = 0
+    fsdp, fsdp_peak = run("ep_fsdp")
+    fsdp_launches = {"grouped_matmul": gm.GMM_LAUNCHES,
+                     "tgmm": gm.TGMM_LAUNCHES}
+    check(fsdp_launches == {"grouped_matmul": 6 * n, "tgmm": 3 * n},
+          f"ep 2 x fsdp 2: launches {fsdp_launches}")
+    fsdp_errs = {}
+    for key, a, b, r in zip(("y", "dx", "drouter", "dgate", "dup", "ddown"),
+                            fsdp, want, rows):
+        check(torch.equal(a, r), f"ep 2 x fsdp 2 {key}: not bitwise the "
+              f"ep 2 exchange on the gathered weights")
+        fsdp_errs[key] = rel_l2(a, b)
+        bound = EP_ROUTER_REL_L2 if key == "drouter" else EP_REL_L2
+        check(fsdp_errs[key] <= bound, f"ep 2 x fsdp 2 {key}: rel L2 "
+              f"{fsdp_errs[key]} > {bound}")
+    del rows, fsdp
+    out_fsdp = {"rel_l2": fsdp_errs, "bitwise_gathered_emulation": True,
+                "launches": fsdp_launches, "peak_gb": fsdp_peak}
+    log(phase="chapter10", part="ragged exchange ep 2 x fsdp 2 over 4 "
+        "virtual members, bf16", card=card, **out_fsdp)
     out = {"members": n, "tokens_per_member": EP_TOKENS, "E": g,
+           "ep_fsdp": out_fsdp,
            "k": cfg.experts_per_token, "D": cfg.hidden_size,
            "F": cfg.intermediate_size, "errors": errs,
            "bound": {"y": EP_REL_L2, "dx": EP_REL_L2,
@@ -7821,6 +8243,94 @@ def post_loop_run(torch, card: str, name: str, *, objective="reinforce",
     return out
 
 
+def post_plan_update(torch, card: str) -> dict:
+    """(c) one post-training update (REINFORCE, group baseline) of the
+    loop's LoRA policy on llama-3.2-1b at full depth, on one packed batch
+    of 8 rollouts (prompts of 16-64 tokens, 64 sampled from the seed),
+    under chapter 04's fsdp plan at world 1 (``post_loss`` on the
+    gathered logits) against the same update without a plan: the loss and
+    every updated leaf bitwise (one-rank collectives are copies), the
+    launches counted: K5 twice (its forward and d_lhs), K1-K3 once a
+    layer, no K6."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from distributed_training_guide_tpu_torch.launch import (
+        maybe_initialize_distributed)
+    from distributed_training_guide_tpu_torch.models import get_model
+    from distributed_training_guide_tpu_torch.models.lora import lora_bundle
+    from distributed_training_guide_tpu_torch.parallel import (make_mesh,
+                                                               make_plan)
+    from distributed_training_guide_tpu_torch.train.optimizer import \
+        adamw_cosine
+    from distributed_training_guide_tpu_torch.train.state import named_leaves
+    from distributed_training_guide_tpu_torch.train.step import (
+        Trainer, make_post_step)
+
+    base = get_model(POST_MODEL, dtype=torch.bfloat16)
+    cfg = base.config
+    prompts = post_prompts(np, cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 124)
+    width = POST_PROMPTS[1] + POST_NEW
+    tokens = np.zeros((POST_BATCH, width), np.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+        tokens[i, len(p):len(p) + POST_NEW] = rng.integers(3, cfg.vocab_size,
+                                                           POST_NEW)
+    batch = {"tokens": tokens,
+             "prompt_lens": np.array([len(p) for p in prompts]),
+             "total_lens": np.array([len(p) + POST_NEW for p in prompts]),
+             "rewards": rng.random(POST_BATCH).astype(np.float32),
+             "group_ids": np.arange(POST_BATCH) // 2}
+
+    def run(plan):
+        t = Trainer(bundle=lora_bundle(base, rank=8, alpha=16.0),
+                    optimizer=adamw_cosine(1e-2), lora_only=True,
+                    guard_policy="skip", device="cuda", plan=plan)
+        state = t.init_state(SEED)
+        step = make_post_step(t, objective="reinforce", baseline="group")
+        torch.cuda.synchronize()
+        before = kernel_counts()              # the update's path starts
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = counts_since(before)       # ... and ends here
+        leaves = {p: v.detach().clone() for p, v in
+                  named_leaves(state.params) if p.startswith("lora/")}
+        loss = float(m["loss"])
+        del state, t, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"loss": loss, "update_ms": ms, "launches": launches}, leaves
+
+    single, want = run(None)
+
+    def under_fsdp():
+        maybe_initialize_distributed("cuda")
+        try:
+            return run(make_plan("fsdp", make_mesh(device="cuda")))
+        finally:
+            dist.destroy_process_group()
+
+    fsdp, got = with_env(plan_env(), under_fsdp)
+    for name, r in (("single", single), ("fsdp", fsdp)):
+        k = r["launches"]
+        check(k["grouped_matmul"] == 2 and k["tgmm"] == 0
+              and k["flash_fwd"] == k["flash_dq"] == k["flash_dkv"]
+              == cfg.num_layers, f"post update {name}: launches {k}")
+        check(math.isfinite(r["loss"]), f"post update {name}: {r}")
+    differ = [p for p in want if not torch.equal(got[p], want[p])]
+    check(fsdp["loss"] == single["loss"] and not differ,
+          f"post update under fsdp: loss {fsdp['loss']} against "
+          f"{single['loss']}, leaves {differ[:4]} differ")
+    out = {"single": single, "fsdp": fsdp, "bitwise": True,
+           "leaves": len(want)}
+    log(phase="tenants_post", part="(c) post update under fsdp at world 1",
+        card=card, **out)
+    return out
+
+
 def post_colocation_8b(torch) -> dict:
     """The 8B colocation, priced on the meta device and not run: a LoRA
     policy of llama-3.1-8b, an int8 engine copy and an 8B teacher."""
@@ -7852,18 +8362,21 @@ def phase_tenants_post(torch, card: str) -> dict:
         ("reinforce-adapter", {"mode": "adapter"}),
         ("distill_kl", {"objective": "distill_kl"}),
         ("nan-gated", {"nan_step": 1}))}
+    plan_update = post_plan_update(torch, card)
     colo8b = post_colocation_8b(torch)
     log(phase="tenants_post", part="(c) llama-3.1-8b colocation, priced",
         card=card, gib=colo8b["total_bytes"] / 2 ** 30, **colo8b)
     launches = dict(serve["launches"])
-    for run in post.values():
+    for run in (*post.values(), plan_update["single"], plan_update["fsdp"]):
         for k, v in run["launches"].items():
             launches[k] += v
     log(phase="tenants_post", seconds=time.perf_counter() - t0, card=card,
         launches=launches)
     return {"gmm": gmm_rows, "serve": serve, "post": post,
-            "launches": launches,
+            "post_plan": plan_update, "launches": launches,
             "post_launches": {k: sum(r["launches"][k] for r in post.values())
+                              + plan_update["single"]["launches"][k]
+                              + plan_update["fsdp"]["launches"][k]
                               for k in launches}}
 
 
@@ -8481,6 +8994,7 @@ def phase_fleet(torch, card: str) -> dict:
 
 ROBUST_LAYERS = 2          # llama-3.2-1b at full width, phase 16's depth
 ROBUST_STEPS = 6
+ROBUST_CRASH_STEP = 4      # (b) saves once, at the step it is killed after
 ROBUST_ARGS = ["-d", "synthetic:400000", "-s", "2048", "--lr", "3e-4",
                "--seed", str(SEED), "--native-loader", "--log-freq", "1"]
 # the hang drill: attempt 0 trains HANG_TRAIN_S (by (a)'s step time) and
@@ -8664,7 +9178,8 @@ def robust_golden(torch, model: str, card: str) -> dict:
 
 def robust_crash(model: str, root: Path, golden: dict, card: str) -> dict:
     """(b) The crash drill under the supervisor: SIGKILL after step 4's
-    checkpoint, a restart that resumes, the stitched losses bitwise (a)'s;
+    checkpoint (the only one: ``--ckpt-freq 4``), a restart that resumes,
+    the stitched losses bitwise (a)'s;
     the time to recover is the ms from the supervisor seeing the death to
     the resumed worker logging its first step."""
     from distributed_training_guide_tpu_torch.utils import faults
@@ -8674,16 +9189,18 @@ def robust_crash(model: str, root: Path, golden: dict, card: str) -> dict:
         ["--max-restarts", "2", "--restart-backoff", "0.05", "--log-dir",
          str(logs)],
         [*robust_module("train"), "-m", model, *ROBUST_ARGS, "-b", "4",
-         "--max-steps", str(ROBUST_STEPS), "-e", "drill", "--ckpt-freq", "2",
-         "--save-dir", str(root / "work")],
-        robust_env(**{faults.ENV_CRASH_STEP: "4"}))
+         "--max-steps", str(ROBUST_STEPS), "-e", "drill", "--ckpt-freq",
+         str(ROBUST_CRASH_STEP), "--save-dir", str(root / "work")],
+        robust_env(**{faults.ENV_CRASH_STEP: str(ROBUST_CRASH_STEP)}))
     rc = sup.wait(600)
     out = sup.text()
     a0, a1 = attempt_summary(logs, 0), attempt_summary(logs, 1)
     check(rc == 0 and "attempt 0 failed rc=-9" in out
           and "attempt 1 exited cleanly" in out,
           f"robustness (b): rc {rc}: {out[-2000:]}")
-    check(set(a0["losses"]) == {1, 2, 3, 4} and set(a1["losses"]) == {5, 6}
+    check(set(a0["losses"]) == set(range(1, ROBUST_CRASH_STEP + 1))
+          and set(a1["losses"]) == set(range(ROBUST_CRASH_STEP + 1,
+                                             ROBUST_STEPS + 1))
           and a1["resumed"], f"robustness (b): attempt 0 steps "
           f"{sorted(a0['losses'])}, attempt 1 {sorted(a1['losses'])}, "
           f"resumed {a1['resumed']}")
@@ -8693,9 +9210,10 @@ def robust_crash(model: str, root: Path, golden: dict, card: str) -> dict:
     check(a0["loader"] == a1["loader"] == "native",
           f"robustness (b): loaders {a0['loader']} / {a1['loader']}")
     hb = json.loads((logs / "attempt_1" / "heartbeat.json").read_text())
-    check(hb["step"] >= 5, f"robustness (b): heartbeat {hb}")
+    check(hb["step"] >= ROBUST_CRASH_STEP + 1,
+          f"robustness (b): heartbeat {hb}")
     died = sup.first("attempt 0 failed rc=-9")
-    recover_ms = (a1["times"][5] - died) * 1e3
+    recover_ms = (a1["times"][ROBUST_CRASH_STEP + 1] - died) * 1e3
     launches = {k: a0["launches"][k] + a1["launches"][k]
                 for k in a0["launches"]}
     want = {k: ROBUST_LAYERS * ROBUST_STEPS for k in ("flash_fwd",

@@ -37,13 +37,18 @@ verifies the chain and broadcasts the one candidate every rank reads, and
 a read error fails the gang instead of falling back on one rank.
 
 The port's optimizer updates params and moments in place, so
-``async_save`` (one process, no sharding plan) first copies the state to
-host memory (pinned buffers,
+``async_save`` first copies the state to host memory (pinned buffers,
 reused across saves, then a device sync) before ``save()`` returns; only
-the file write overlaps the following steps, on one background thread. A
-write that fails raises at the next ``save()``, ``flush()`` or
-``close()``, with the previous checkpoint still the referenced one. Each
-save's bytes and seconds are logged and kept in ``save_log``.
+the file write overlaps the following steps, on one background thread.
+Under a process group (a sharding plan) each rank stages its local shards
+the same way, and the thread writes them with the metadata of the live
+``DTensor`` entries (global shape, offsets: what the synchronous save
+writes; ``_StagedPlanner`` hands DCP the staged copies for the data), its
+collectives over a gloo group of their own so that they never interleave
+with the training step's. A write that fails raises at the next
+``save()``, ``flush()`` or ``close()``, with the previous checkpoint still
+the referenced one. Each save's bytes and seconds are logged and kept in
+``save_log``.
 """
 from __future__ import annotations
 
@@ -93,6 +98,20 @@ def _dcp():
     return dcp
 
 
+def _staged_planner(staged: dict):
+    """A DCP save planner that plans from the live state dict (each
+    DTensor's global shape and this rank's offsets) and writes the staged
+    host copies: ``staged`` maps each key to its local tensor's copy."""
+    from torch.distributed.checkpoint.default_planner import (
+        DefaultSavePlanner)
+
+    class _StagedPlanner(DefaultSavePlanner):
+        def lookup_object(self, index):
+            return staged[index.fqn]
+
+    return _StagedPlanner()
+
+
 def _no_dist() -> bool:
     """DCP without collectives: no process group is up."""
     import torch.distributed as dist
@@ -119,6 +138,7 @@ class CheckpointIO:
         self._executor: Optional[ThreadPoolExecutor] = None
         self._pending = None     # (future, path, host_state, retained, log)
         self._pinned: dict = {}  # name -> reused pinned host buffer
+        self._write_group = None  # the async writes' own gloo group
         self._swept = False
         self.save_log: list = []
 
@@ -197,11 +217,15 @@ class CheckpointIO:
     def _stage(self, flat: dict) -> dict:
         """The state's tensors copied to host memory: device tensors into
         pinned buffers (reused across saves), then one device sync; host
-        tensors cloned. After this the training step may update the state
-        in place."""
+        tensors cloned; a ``DTensor``'s local shard is what is copied.
+        After this the training step may update the state in place."""
+        from torch.distributed.tensor import DTensor
+
         out = {}
         on_device = False
         for name, t in flat.items():
+            if isinstance(t, DTensor):
+                t = t.to_local()
             if t.is_cuda:
                 buf = self._pinned.get(name)
                 if (buf is None or buf.shape != t.shape
@@ -221,28 +245,50 @@ class CheckpointIO:
     def _write(self, path: Path, flat: dict) -> None:
         """DCP-write ``flat`` into ``<path>.tmp``, then rename it to
         ``path`` (the commit)."""
-        from torch.distributed.checkpoint import FileSystemWriter
+        tmp = self._clear_tmp(path)
+        self._dcp_save(tmp, flat, no_dist=_no_dist())
+        sync_processes("ckpt_written")
+        if is_process0():
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        sync_processes("ckpt_committed")
 
+    @staticmethod
+    def _clear_tmp(path: Path) -> Path:
         tmp = path.with_name(path.name + ".tmp")
         if is_process0():
             shutil.rmtree(tmp, ignore_errors=True)
         sync_processes("ckpt_tmp_clear")
+        return tmp
+
+    @staticmethod
+    def _dcp_save(tmp: Path, flat: dict, **kw) -> None:
+        from torch.distributed.checkpoint import FileSystemWriter
+
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
                 _dcp().save(flat, storage_writer=FileSystemWriter(
-                    tmp, thread_count=_WRITE_THREADS), no_dist=_no_dist())
+                    tmp, thread_count=_WRITE_THREADS), **kw)
         except Exception as exc:  # noqa: BLE001 — OSErrors become OSError
             cause = _oserror_in(exc)
             if cause is not None and cause is not exc:
                 raise OSError(cause.errno, f"checkpoint write failed: "
                               f"{cause}") from exc
             raise
-        sync_processes("ckpt_written")
+
+    def _write_sharded(self, path: Path, live: dict, staged: dict,
+                       tmp: Path) -> None:
+        """The background thread's write under a process group: DCP plans
+        from ``live`` (the DTensors' layout, read only) and writes
+        ``staged`` over the gloo group; process 0 commits the rename once
+        DCP's finish (which every rank's write precedes) has returned. The
+        barrier of the next ``_finalize`` orders it before the swing."""
+        self._dcp_save(tmp, live, planner=_staged_planner(staged),
+                       process_group=self._write_group)
         if is_process0():
             shutil.rmtree(path, ignore_errors=True)
             os.replace(tmp, path)
-        sync_processes("ckpt_committed")
 
     def _write_with_retry(self, path: Path, flat: dict) -> None:
         """Bounded-backoff retry around a synchronous write for transient
@@ -353,18 +399,24 @@ class CheckpointIO:
                "bytes": sum(t.numel() * t.element_size()
                             for t in flat.values())}
         if self.async_save:
-            if process_count() > 1 or train_state.sharding is not None:
-                raise NotImplementedError(
-                    "async checkpoints of a sharded state: ROADMAP.md "
-                    "queue 1, 'Distributed plans, the rest'")
+            sharded = not _no_dist()
             staged = self._stage(flat)
+            if sharded:
+                import torch.distributed as dist
+
+                if self._write_group is None:
+                    self._write_group = dist.new_group(backend="gloo")
+                tmp = self._clear_tmp(path)
             if self._executor is None:
                 self._executor = ThreadPoolExecutor(max_workers=1)
             log["blocking_s"] = time.perf_counter() - t0
 
             def write():
                 t1 = time.perf_counter()
-                self._write(path, staged)
+                if sharded:
+                    self._write_sharded(path, flat, staged, tmp)
+                else:
+                    self._write(path, staged)
                 log["write_s"] = time.perf_counter() - t1
 
             self._pending = (self._executor.submit(write), path,

@@ -15,8 +15,8 @@ microbatch's rows over the data ranks, as the JAX pipeline shards them.
 Under context parallelism (``seq_size`` > 1) the targets are shifted over
 the whole sequence first (``shift_targets``: the last position ignored)
 and each rank gets its contiguous shard of both: ``{"input_ids",
-"targets"}``, so a shard's last row is scored against the next shard's
-first token. With ``native=True`` the C++ loader of
+"targets", "labels"}`` (the labels unshifted, for a custom loss), so a
+shard's last row is scored against the next shard's first token. With ``native=True`` the C++ loader of
 ``data/native_loader.py`` assembles each global batch instead (its own
 shuffle, the JAX native path's batches), mmapping a ``--mmap-data`` file
 in place or a temporary token file it writes and removes on ``close``;
@@ -72,7 +72,8 @@ def local_batch(ids, labels, *, data_rank: int = 0, data_size: int = 1,
                 seq_size: int = 1) -> dict:
     """A global batch ``ids`` / ``labels`` ([..., B, S] arrays) as one rank
     holds it: its rows (``local_rows``), and under context parallelism
-    its sequence shard with the targets shifted first."""
+    its sequence shard with the targets shifted first, beside its shard of
+    the unshifted labels (what a custom loss reads, gathered)."""
     rows = local_rows(np.arange(ids.shape[-2]), data_rank, data_size,
                       microbatches)
     ids, labels = ids[..., rows, :], labels[..., rows, :]
@@ -82,7 +83,9 @@ def local_batch(ids, labels, *, data_rank: int = 0, data_size: int = 1,
     return {"input_ids": torch.as_tensor(np.ascontiguousarray(seq_shard(
                 ids, seq_rank, seq_size))).long(),
             "targets": torch.as_tensor(np.ascontiguousarray(seq_shard(
-                shift_targets(labels), seq_rank, seq_size))).long()}
+                shift_targets(labels), seq_rank, seq_size))).long(),
+            "labels": torch.as_tensor(np.ascontiguousarray(seq_shard(
+                labels, seq_rank, seq_size))).long()}
 
 
 class BatchLoader:
@@ -212,7 +215,8 @@ class BatchLoader:
             if self.seq_size == 1:
                 yield {"input_ids": ids, "labels": ids}
                 continue
-            yield {"input_ids": seq_shard(ids, self.seq_rank,
-                                          self.seq_size).contiguous(),
+            shard = seq_shard(ids, self.seq_rank, self.seq_size).contiguous()
+            yield {"input_ids": shard,
                    "targets": seq_shard(shift_targets(ids), self.seq_rank,
-                                        self.seq_size).contiguous()}
+                                        self.seq_size).contiguous(),
+                   "labels": shard}

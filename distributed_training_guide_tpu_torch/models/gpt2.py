@@ -225,13 +225,14 @@ def _block(config, x, layer, positions, attn_impl, standard_layout,
     None)."""
     cdt = config.dtype
     eps = config.layer_norm_eps
-    out = _attn_sublayer(config, layout.enter(layernorm(x, layer["ln1"], eps)),
+    out = _attn_sublayer(config, layout.enter(layernorm(x, layer["ln1"], eps),
+                                              "attn"),
                          layer, positions, attn_impl, standard_layout,
                          return_kv, attend_override)
     attn, kv = out if return_kv else (out, None)
-    x = x + layout.leave(attn) + layer["attn"]["bo"].to(cdt)
-    y = layout.enter(layernorm(x, layer["ln2"], eps))
-    mlp = layout.leave(_mlp_sublayer(config, y, layer))
+    x = x + layout.leave(attn, "attn") + layer["attn"]["bo"].to(cdt)
+    y = layout.enter(layernorm(x, layer["ln2"], eps), "mlp")
+    mlp = layout.leave(_mlp_sublayer(config, y, layer), "mlp")
     return x + mlp + layer["mlp"]["bo"].to(cdt), kv
 
 

@@ -448,10 +448,10 @@ class _Whole:
     def gather_layer(self, layer):
         return layer
 
-    def enter(self, h):
+    def enter(self, h, part=None):
         return h
 
-    def leave(self, out):
+    def leave(self, out, part=None):
         return out
 
     def kv_hook(self, config):
@@ -496,8 +496,8 @@ def _residuals(config, x, layer, attn, layout=_WHOLE, wmat=None):
              if out_norms else attn)
     scale = layer.get("post_attn_norm")      # None: post-norm wiring
     h = x if scale is None else _rmsnorm(x, scale, eps, plus_one)
-    mlp = layout.leave(mlp_sublayer(config, layout.enter(h), layer["mlp"],
-                                    wmat))
+    mlp = layout.leave(mlp_sublayer(config, layout.enter(h, "mlp"),
+                                    layer["mlp"], wmat), "mlp")
     return x + (_rmsnorm(mlp, layer["mlp_out_norm"], eps, plus_one)
                 if out_norms else mlp)
 
@@ -568,9 +568,9 @@ def block(config: LlamaConfig, x: torch.Tensor, layer: dict, *,
     h = (x if config.post_norm
          else _rmsnorm(x, layer["input_norm"], eps, plus_one))
     attn = layout.leave(attention_sublayer(
-        config, layout.enter(h), layer["attn"], None, positions,
+        config, layout.enter(h, "attn"), layer["attn"], None, positions,
         attn_impl, rope, window_override=window,
-        standard_layout=standard_layout, kv_hook=kv_hook))
+        standard_layout=standard_layout, kv_hook=kv_hook), "attn")
     return _residuals(config, x, layer, attn, layout)
 
 

@@ -326,16 +326,19 @@ def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
     gather / reduce-scatter pair; the int routing is gathered without.
 
     ``embed``: an exchange over the axis that shards the experts' embed
-    dim (fsdp under ``ep_fsdp``, one member per process), all-gathered
-    before compute; its backward reduce-scatters the weight grads. With
-    ep == 1 the body does no collective but that gather; where neither is
-    wider than one member this returns None (the local dispatch is the
-    program).
+    dim (fsdp under ``ep_fsdp``), all-gathered before compute; its
+    backward reduce-scatters the weight grads. With ep == 1 the body does
+    no collective but that gather; where neither is wider than one member
+    this returns None (the local dispatch is the program).
 
     Returns ``dispatch(xts, topk_idxs, topk_probs, gates, ups, downs)``
-    over one item per local member of ``ep`` (rows [t, D], routing
-    [t, k], the member's expert stacks [E / ep, ...]) -> the combined
-    outputs [t, D] per member.
+    over one item per local member (rows [t, D], routing [t, k], the
+    member's expert stacks [E / ep, ...]) -> the combined outputs [t, D]
+    per member. The local members are the grid of ``embed``'s local
+    members by ``ep``'s, ``embed``'s major: with one member of each per
+    process (a plan's ranks) one item; over a ``LocalExchange`` of each
+    (ep x fsdp virtual members on one device) item ``f * len(ep.local) +
+    e`` is member e of ep group f, whose weights are the (e, f) block.
 
     ``overlap=True`` (the overlap schedule, ``ops/overlap.py``) is the
     double-buffered ring in place of the bulk gather: each member's block
@@ -359,8 +362,6 @@ def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
             f"change the mesh or use moe_dispatch='dense'")
     if embed is not None and embed.size <= 1:
         embed = None
-    if embed is not None and len(embed.local) != 1:
-        raise ValueError("embed: an exchange with one member per process")
     if n_ep == 1 and embed is None:
         return None
     e_local, cdt = ex // n_ep, config.dtype
@@ -379,11 +380,32 @@ def make_ragged_ep_dispatch(ep, config: MoELlamaConfig, *, embed=None,
         return _ragged_combine(out, order, probs.T.reshape(k * t), k, t,
                                cdt)
 
+    n_emb = 1 if embed is None else len(embed.local)
+    n_loc = 1 if ep is None else len(ep.local)
+
+    def gathered(ws, dim):
+        """Each member's expert stack with its embed dim gathered over
+        ``embed``: for each ep member e, the stacks of (e, f) over f."""
+        out = list(ws)
+        for e in range(n_loc):
+            whole = embed.all_gather([ws[f * n_loc + e]
+                                      for f in range(n_emb)], dim)
+            for f in range(n_emb):
+                out[f * n_loc + e] = whole[f]
+        return out
+
     def dispatch(xts, topk_idxs, topk_probs, gates, ups, downs):
         if embed is not None:
-            gates, ups = ([embed.all_gather([w], 1)[0] for w in ws]
-                          for ws in (gates, ups))
-            downs = [embed.all_gather([w], 2)[0] for w in downs]
+            gates, ups = gathered(gates, 1), gathered(ups, 1)
+            downs = gathered(downs, 2)
+        ys = []
+        for f in range(n_emb):      # each ep group of local members
+            blk = slice(f * n_loc, (f + 1) * n_loc)
+            ys += exchange(xts[blk], topk_idxs[blk], topk_probs[blk],
+                           gates[blk], ups[blk], downs[blk])
+        return ys
+
+    def exchange(xts, topk_idxs, topk_probs, gates, ups, downs):
         if n_ep == 1:
             return [member(*a, 0) for a in zip(xts, topk_idxs, topk_probs,
                                                 gates, ups, downs)]
@@ -662,10 +684,10 @@ def block(config: MoELlamaConfig, x: torch.Tensor, layer: dict, *,
     eps = config.rms_norm_eps
     layer = layout.gather_layer(layer)
     attn = layout.leave(attention_sublayer(
-        config, layout.enter(_rmsnorm(x, layer["input_norm"], eps)),
+        config, layout.enter(_rmsnorm(x, layer["input_norm"], eps), "attn"),
         layer["attn"], None, positions, attn_impl, rope,
         window_override=window, standard_layout=standard_layout,
-        kv_hook=kv_hook))
+        kv_hook=kv_hook), "attn")
     x = x + attn
     h = layout.enter(_rmsnorm(x, layer["post_attn_norm"], eps))
     y, aux, dropped = _moe_ffn(config, h, layer["moe"], moe_ep=moe_ep,

@@ -221,23 +221,29 @@ def _block(config, x, layer, positions, rope, attn_impl, standard_layout,
     eps = config.layer_norm_eps
 
     def attn_branch(h):
-        return _attn_branch(config, layout.enter(h), layer, positions, rope,
-                            attn_impl, standard_layout, return_kv,
-                            attend_override)
+        return _attn_branch(config, layout.enter(h, "attn"), layer,
+                            positions, rope, attn_impl, standard_layout,
+                            return_kv, attend_override)
 
     if config.use_parallel_residual:
         out = attn_branch(layernorm(x, layer["ln1"], eps))
         attn, kv = out if return_kv else (out, None)
         mlp = _mlp_branch(config, layout.enter(
-            layernorm(x, layer["ln2"], eps)), layer)
+            layernorm(x, layer["ln2"], eps), "mlp"), layer)
         biases = layer["attn"]["bo"].to(cdt) + layer["mlp"]["bo"].to(cdt)
-        return x + layout.leave(attn + mlp) + biases, kv
+        if getattr(layout, "whole_parts", None):
+            # a whole part's output is not a partial sum: each reduced
+            # (or not) on its own
+            summed = layout.leave(attn, "attn") + layout.leave(mlp, "mlp")
+        else:
+            summed = layout.leave(attn + mlp)
+        return x + summed + biases, kv
     out = attn_branch(layernorm(x, layer["ln1"], eps))
     attn, kv = out if return_kv else (out, None)
-    x = x + layout.leave(attn) + layer["attn"]["bo"].to(cdt)
-    mlp = _mlp_branch(config, layout.enter(layernorm(x, layer["ln2"], eps)),
-                      layer)
-    return x + layout.leave(mlp) + layer["mlp"]["bo"].to(cdt), kv
+    x = x + layout.leave(attn, "attn") + layer["attn"]["bo"].to(cdt)
+    mlp = _mlp_branch(config, layout.enter(layernorm(x, layer["ln2"], eps),
+                                           "mlp"), layer)
+    return x + layout.leave(mlp, "mlp") + layer["mlp"]["bo"].to(cdt), kv
 
 
 def embed_tokens(config: NeoXConfig, params: dict,

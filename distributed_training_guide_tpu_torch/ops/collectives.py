@@ -19,6 +19,10 @@ of one global loss (Megatron's conjugate operators):
   the vocab shards' partial sums of the loss.
 - ``copy_to``: identity whose backward sums over the group: the input of
   column-parallel products that every rank of the group reads.
+- ``gather_replicated``: tiled gather along ``dim`` whose backward keeps
+  this rank's slice of the cotangent, which every rank holds whole: the
+  input of a computation every rank of the group runs alike (a custom
+  loss on the global logits, a sublayer run whole on every tp rank).
 
 A ``group`` of ``None`` means no group: each op is then the identity (the
 plain single-device form).
@@ -110,6 +114,24 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reduce(g, ctx.group), None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    if group is None:
+        return x
+    return _GatherReplicated.apply(x, dim % x.ndim, group)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

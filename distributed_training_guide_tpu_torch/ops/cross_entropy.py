@@ -147,17 +147,23 @@ class _FusedNLL(torch.autograd.Function):
 
 def fused_linear_cross_entropy(hidden: torch.Tensor, w_out: torch.Tensor,
                                labels: torch.Tensor, *, num_chunks: int = 8,
-                               vocab_group=None, vocab_rank: int = 0) -> tuple:
+                               vocab_group=None, vocab_rank: int = 0,
+                               shifted: bool = False) -> tuple:
     """The fused hidden->loss on this rank's rows: shift, flatten to rows,
     pad to the chunk grid with ignored rows, run ``_FusedNLL``. Returns
     ``(nll_sum, count)``, fp32 scalars and LOCAL sums: the caller owns the
     mean over ranks (``ops/overlap.py:make_fused_loss``,
     ``global_mean_loss``). hidden [B, S, E]; w_out [E, V_local] (the vocab
     shard of ``vocab_rank`` in ``vocab_group``, or the whole head); labels
-    [B, S], global ids, ``-100`` ignored."""
+    [B, S], global ids, ``-100`` ignored; ``shifted``: ``labels`` are
+    already the next-token targets of every row (a context-parallel
+    shard's), so nothing is dropped."""
     b, s, e = hidden.shape
-    h = hidden[:, :-1, :].reshape(b * (s - 1), e)
-    t = labels[:, 1:].reshape(b * (s - 1))
+    if shifted:
+        h, t = hidden.reshape(b * s, e), labels.reshape(b * s)
+    else:
+        h = hidden[:, :-1, :].reshape(b * (s - 1), e)
+        t = labels[:, 1:].reshape(b * (s - 1))
     pad = (-h.shape[0]) % num_chunks
     if pad:
         h = torch.cat([h, h.new_zeros(pad, e)])

@@ -306,9 +306,12 @@ def make_fused_loss(layout=None, *, num_chunks: int = 8, family_mod=None):
       fp32 reduce-scatter backward, each rank on its own rows;
     - unsharded: the local chunked kernel.
 
-    ``(nll, count)`` is summed over the data axes only (tp ranks hold the
-    same rows), as ``ops/cross_entropy.py:global_mean_loss``. ``layout``
-    None: one device, the head from ``family_mod.output_weights``."""
+    ``(nll, count)`` is summed over the data axes (tp ranks hold the same
+    rows) and cp, as ``ops/cross_entropy.py:global_mean_loss``. Under
+    context parallelism each rank runs its sequence shard against its
+    targets, shifted before the sequence was sharded (``labels`` are
+    then those targets). ``layout`` None: one device, the head from
+    ``family_mod.output_weights``."""
     from .cross_entropy import fused_linear_cross_entropy, global_mean_loss
 
     if layout is None:
@@ -321,6 +324,8 @@ def make_fused_loss(layout=None, *, num_chunks: int = 8, family_mod=None):
 
     plan = layout.plan
     groups = [plan.group(a) for a in plan.data_axes]
+    if layout.cp > 1:
+        groups.append(layout.cp_group)
     tp_vocab = layout.vocab_parallel
 
     def loss(config, params, hidden, labels):
@@ -330,7 +335,7 @@ def make_fused_loss(layout=None, *, num_chunks: int = 8, family_mod=None):
         nll, cnt = fused_linear_cross_entropy(
             hidden, w, labels, num_chunks=num_chunks,
             vocab_group=layout.tp_group if tp_vocab else None,
-            vocab_rank=layout.tp_rank)
+            vocab_rank=layout.tp_rank, shifted=layout.cp > 1)
         return global_mean_loss(nll, cnt, groups)
 
     return loss
@@ -352,8 +357,6 @@ def fused_loss_supported(plan, config, family_mod, loss_fn) -> Optional[str]:
     if plan is None:
         return None
     sizes = plan.sizes
-    if sizes["cp"] > 1:
-        return "cp-sharded sequence"
     vocab_rule = plan.rules.get("vocab")
     if vocab_rule not in (None, "tp", "fsdp"):
         return f"vocab sharded on unsupported axis {vocab_rule!r}"

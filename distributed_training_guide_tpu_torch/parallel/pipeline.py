@@ -87,12 +87,17 @@ class Pipeline:
     global-mean loss), or None for whole params on one device.
     ``attn_impl``: the attention (a context-parallel callable under cp).
     ``data_size``: the data ranks a microbatch's rows split over (for the
-    JAX package's refusal of a microbatch they do not divide)."""
+    JAX package's refusal of a microbatch they do not divide).
+    ``head_loss(nl, hidden, labels)``: the last stage's loss of one
+    microbatch in place of the plan's causal-LM loss (the fused loss under
+    ``loss_chunks``, a custom loss on the microbatch's gathered logits);
+    the JAX pipeline's ``head_loss_fn``."""
 
     def __init__(self, bundle, exchange: MemberExchange, *,
                  microbatches: Optional[int] = None, layout=None,
                  attn_impl="auto", remat: bool = False, remat_policy=None,
-                 run_all: bool = False, data_size: int = 1):
+                 run_all: bool = False, data_size: int = 1,
+                 head_loss=None):
         from ..models.registry import family_module
 
         self.pp = exchange.size
@@ -106,6 +111,7 @@ class Pipeline:
         self.remat, self.remat_policy = remat, remat_policy
         self.run_all = run_all
         self.data_size = data_size
+        self.head_loss = head_loss
         self.layers_per_stage = self.cfg.num_layers // self.pp
         # MoE stages return (y, aux summed over their layers)
         self.moe = getattr(bundle, "apply_with_aux", None) is not None
@@ -131,6 +137,8 @@ class Pipeline:
 
     def _head_loss(self, nl: dict, y, labels):
         hidden = self.fam.final_layer(self.cfg, nl, y, **self._kw())
+        if self.head_loss is not None:
+            return self.head_loss(nl, hidden, labels)
         if self.layout is not None:
             return self.layout.loss(self.cfg, nl, hidden, labels)
         return causal_lm_loss(self.fam.logits_of_hidden(self.cfg, nl, hidden),
@@ -341,15 +349,29 @@ def merge_virtual_grads(params: dict, grads: list) -> dict:
 def make_pipeline_value_and_grad(bundle, *, pp: int,
                                  microbatches: Optional[int] = None,
                                  remat: bool = False, remat_policy=None,
-                                 attn_impl="auto"):
+                                 attn_impl="auto", loss_chunks: int = 0):
     """f(params, batch) -> (loss, grads) running the 1F1B schedule over
     ``pp`` virtual stages in this process (the JAX package's
     ``make_pipeline_value_and_grad`` on one device): ``batch`` holds
     ``input_ids`` / ``labels`` [B, S]; ``grads`` is fp32 and shaped as
-    ``params``."""
+    ``params``. ``loss_chunks`` > 0: the last stage's loss is the fused
+    hidden->loss in that many chunks (``ops/overlap.py:make_fused_loss``),
+    as the JAX head's chunked loss."""
+    head_loss = None
+    if loss_chunks > 0:
+        from ..models.registry import family_module
+        from ..ops.cross_entropy import validate_chunked_loss_support
+        from ..ops.overlap import make_fused_loss
+
+        fam = family_module(bundle.family)
+        validate_chunked_loss_support(fam, bundle.family, causal_lm_loss)
+        fused = make_fused_loss(None, num_chunks=loss_chunks, family_mod=fam)
+
+        def head_loss(nl, hidden, labels):
+            return fused(bundle.config, nl, hidden, labels)
     pipe = Pipeline(bundle, LocalExchange(pp), microbatches=microbatches,
                     attn_impl=attn_impl, remat=remat,
-                    remat_policy=remat_policy)
+                    remat_policy=remat_policy, head_loss=head_loss)
 
     def value_and_grad(params: dict, batch: dict) -> tuple:
         stages = virtual_stages(params, pp)

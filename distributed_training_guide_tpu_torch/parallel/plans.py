@@ -309,7 +309,7 @@ class ShardingPlan:
     def grad_shardings(self, logical_axes_tree, shape_tree) -> Any:
         """Specs of *persistent* gradient buffers (ZeRO-2): grads follow the
         optimizer-state layout, so under zero2 the accumulation buffer is
-        reduce-scattered across the data axes (``PlanState._scatter``)."""
+        reduce-scattered across the data axes (``PlanState.scatter``)."""
         if self.zero2:
             return self.optimizer_state_specs(logical_axes_tree, shape_tree)
         return self.param_specs(logical_axes_tree, shape_tree)
@@ -350,6 +350,17 @@ class ShardingPlan:
             for a in reversed([a for a in entry_axes(e) if a not in skip]):
                 local = C.all_gather(local, self.group(a), d)
         return local
+
+    def reshard(self, local: torch.Tensor, spec_from: tuple,
+                spec_to: tuple) -> torch.Tensor:
+        """This rank's shard under ``spec_to`` of the tensor whose shard
+        under ``spec_from`` is ``local``: the shards gathered whole (none
+        where ``spec_from`` replicates), then cut. ZeRO beside fsdp or tp
+        (``ZERO1_RULES`` put the optimizer's embed dim on (dp, fsdp), dp
+        major, which no fsdp shard contains), outside autograd."""
+        if tuple(spec_from) == tuple(spec_to):
+            return local
+        return self.shard(spec_to, self.unshard(spec_from, local))
 
     def dtensor(self, local: torch.Tensor, spec: tuple, shape: tuple):
         """``local`` (this rank's shard, storage shared) as the DTensor of
@@ -516,8 +527,11 @@ class LocalLayout:
                           else None)
         self.vocab_parallel = "tp" in entry_axes(
             (model_specs[self.table_path] + (None,))[0])
-        if self.tp_on:
-            _check_tp(config, self.tp, model_specs, paths["mlp_in"])
+        # the layer parts ("attn", "mlp") that tp's shards cannot run on
+        # whole heads or columns: each runs whole on every tp rank
+        self.whole_parts = (_whole_parts(config, self.tp, model_specs,
+                                         paths["mlp_in"])
+                            if self.tp_on else frozenset())
 
     def scoped(self, prefix: str) -> "LocalLayout":
         """This layout over the subtree ``prefix`` of the params (a LoRA
@@ -544,10 +558,32 @@ class LocalLayout:
         """A param's compute form: its shards over the data axes (fsdp)
         all-gathered, its tp and ep shards kept. ``layer``: one layer's
         slice of a stacked leaf (the spec's layer dim dropped)."""
-        if path in self.gathered_by_dispatch or path in self.handed_gathered:
+        if path in self.gathered_by_dispatch:
             return local
         spec = self.specs[path][1:] if layer else self.specs[path]
-        return self.plan.unshard(spec, local, skip=("tp", "ep"))
+        if path not in self.handed_gathered:
+            local = self.plan.unshard(spec, local, skip=("tp", "ep"))
+        if self._part(path) in self.whole_parts:
+            local = self._gather_tp(spec, local)
+        return local
+
+    @staticmethod
+    def _part(path: str):
+        """The layer part a leaf belongs to ("attn", "mlp", "moe") or
+        None outside the layers."""
+        parts = path.split("/")
+        return parts[1] if parts[0] == "layers" and len(parts) > 2 else None
+
+    def _gather_tp(self, spec: tuple, local: torch.Tensor) -> torch.Tensor:
+        """A whole part's leaf gathered over tp along its tp dim: under
+        sequence parallelism each rank's grad of it is a partial sum (its
+        own rows' outputs), so the backward reduce-scatters; without,
+        every rank's grad is the whole one, so it keeps its slice."""
+        for d, e in enumerate(spec):
+            if "tp" in entry_axes(e):
+                gather = C.all_gather if self.sp else C.gather_replicated
+                return gather(local, self.tp_group, d)
+        return local
 
     def gather_layer(self, layer: dict, prefix: str = "layers") -> dict:
         return {k: (self.gather_layer(v, f"{prefix}/{k}")
@@ -556,19 +592,28 @@ class LocalLayout:
                 for k, v in layer.items()}
 
     # ---- the residual stream ----------------------------------------------
-    def enter(self, h: torch.Tensor) -> torch.Tensor:
-        """A sublayer's input: the full sequence, read by every tp rank."""
+    def enter(self, h: torch.Tensor, part=None) -> torch.Tensor:
+        """A sublayer's input: the full sequence, read by every tp rank.
+        A whole ``part`` (``whole_parts``) reads it as every rank runs it:
+        the gathered sequence under sequence parallelism (its backward sums
+        the ranks' partial input grads), else as it is."""
         if not self.tp_on:
             return h
+        if part in self.whole_parts:
+            return C.all_gather(h, self.tp_group, 1) if self.sp else h
         if self.sp:
             return C.all_gather(h, self.tp_group, 1)
         return C.copy_to(h, self.tp_group)
 
-    def leave(self, out: torch.Tensor) -> torch.Tensor:
+    def leave(self, out: torch.Tensor, part=None) -> torch.Tensor:
         """A row-parallel sublayer output summed over tp (reduce-scattered
-        onto the sequence shards under sequence parallelism)."""
+        onto the sequence shards under sequence parallelism). A whole
+        ``part``'s output is already the sum: this rank's sequence shard of
+        it under sequence parallelism, else all of it; no collective."""
         if not self.tp_on:
             return out
+        if part in self.whole_parts:
+            return self._seq_shard(out) if self.sp else out
         if self.sp:
             return C.reduce_scatter(out, self.tp_group, 1)
         return C.all_reduce(out, self.tp_group)
@@ -605,7 +650,7 @@ class LocalLayout:
         dim, even in half-heads, as the JAX layout does): gather the kv
         projection over tp and keep the kv heads this rank's q heads read.
         None where each rank holds whole heads of its own."""
-        if not self.tp_on:
+        if not self.tp_on or "attn" in self.whole_parts:
             return None
         hkv, d = config.num_kv_heads, config.head_size
         sharded = "tp" in entry_axes(
@@ -715,6 +760,31 @@ class LocalLayout:
             nll, count = nll_and_count(logits[:, :-1], labels[:, 1:])
         return global_mean_loss(nll, count, groups)
 
+    # ---- the global batch (a custom loss, the post-training loss) ---------
+    def global_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows [b, s, ...] of the global batch gathered whole:
+        the sequence over cp (dim 1: each rank holds a contiguous shard;
+        the ring's zigzag is internal to it), then the rows over the data
+        axes (dim 0, in ``data_rank`` order). Each rank's backward keeps
+        its own slice (``ops/collectives.py:gather_replicated``)."""
+        if self.cp > 1:
+            x = C.gather_replicated(x, self.cp_group, 1)
+        for a in reversed(self.plan.data_axes):
+            if self.plan.sizes[a] > 1:
+                x = C.gather_replicated(x, self.plan.group(a), 0)
+        return x
+
+    def global_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The global [B, S, V] logits from this rank's (``logits``):
+        its vocab shard gathered over tp (or its sequence shard under
+        sequence parallelism where the vocab is whole), then
+        ``global_rows``. B x S x V fp32 on every rank."""
+        if self.vocab_parallel:
+            logits = C.gather_replicated(logits, self.tp_group, -1)
+        elif self.sp:
+            logits = C.gather_replicated(logits, self.tp_group, 1)
+        return self.global_rows(logits)
+
     # ---- grads -------------------------------------------------------------
     def grad_axes(self, path: str) -> tuple:
         """The axes a param's grad is summed over after backward: the data
@@ -727,9 +797,13 @@ class LocalLayout:
         rest)."""
         sharded = {a for e in self.specs[path] for a in entry_axes(e)}
         axes = [a for a in self.plan.data_axes if a not in sharded]
+        # a whole part's replicated leaf: every rank's grad is the whole
+        # one without sequence parallelism, its own rows' share with
+        whole = self._part(path) in self.whole_parts
         if (self.tp_on and "tp" not in sharded
-                and (self.sp or path.rsplit("/", 1)[-1] in _PARTIAL_ON_TP
-                     or self._adapts_tp_leaf(path))):
+                and (self.sp or (not whole and (
+                    path.rsplit("/", 1)[-1] in _PARTIAL_ON_TP
+                    or self._adapts_tp_leaf(path))))):
             axes.append("tp")
         if self.cp > 1:
             axes.append("cp")
@@ -746,24 +820,34 @@ class LocalLayout:
             "tp" in entry_axes(e) for e in self.specs[base])
 
 
-def _check_tp(config, tp: int, specs: dict, mlp_in: str) -> None:
-    """What the local tp forward needs of the model's widths."""
-    problems = []
-    if config.num_heads % tp:
-        problems.append(f"num_heads {config.num_heads} % tp {tp}")
-    if (config.num_kv_heads % tp and tp % config.num_kv_heads):
-        problems.append(f"num_kv_heads {config.num_kv_heads} and tp {tp} "
-                        f"(neither divides the other)")
+# what the replicated fallback leaves for later, by ROADMAP.md item
+_MOE_TP_WHOLE = "ROADMAP.md queue 1, 'Experts whole under tp'"
+
+
+def _whole_parts(config, tp: int, specs: dict, mlp_in: str) -> frozenset:
+    """The layer parts tp cannot run on shards of whole heads or columns,
+    which then run whole on every tp rank (the JAX package runs the
+    replicated or resharded weight there): attention where tp divides the
+    q heads or the kv heads in neither direction, or under
+    ``qk_norm="flat"`` (a norm across every head); the MLP where tp does
+    not divide its width (``spec_for_leaf`` replicated it). A mixture of
+    experts' routed and shared experts sum partial outputs over tp, which
+    has no whole form here."""
+    parts = set()
+    hkv = getattr(config, "num_kv_heads", config.num_heads)
+    if (config.num_heads % tp or (hkv % tp and tp % hkv)
+            or getattr(config, "qk_norm", False) == "flat"):
+        parts.add("attn")
     if not any("tp" in entry_axes(e) for e in specs[mlp_in]):
-        problems.append(f"intermediate_size "
-                        f"{getattr(config, 'intermediate_size', None)} % "
-                        f"tp {tp}")
+        if mlp_in.startswith("layers/moe/"):
+            raise NotImplementedError(
+                f"tensor parallelism over experts whose width "
+                f"{getattr(config, 'intermediate_size', None)} tp {tp} "
+                f"does not divide: {_MOE_TP_WHOLE}")
+        parts.add("mlp")
     shared = getattr(config, "shared_expert_intermediate", None)
     if shared and shared % tp:
-        problems.append(f"shared_expert_intermediate {shared} % tp {tp}")
-    if getattr(config, "qk_norm", False) == "flat":
-        problems.append("qk_norm='flat' (a norm across every head)")
-    if problems:
         raise NotImplementedError(
-            "tensor parallelism here runs each rank on whole q heads and "
-            "MLP columns of its own: " + "; ".join(problems))
+            f"tensor parallelism with shared_expert_intermediate {shared} "
+            f"% tp {tp}: {_MOE_TP_WHOLE}")
+    return frozenset(parts)

@@ -219,17 +219,16 @@ def price_post_colocation(trainer, *, n_slots: int, page_size: int = 16,
     first allocation. The grads are priced as the JAX function prices
     them, at the params' bytes (under ``lora_only`` the port's backward
     holds the adapters' grads alone, so this bounds them from above);
-    the optimizer's 0-d step counters are the port's own."""
+    the optimizer's 0-d step counters are the port's own. Under a plan the
+    policy's bytes are one rank's, over the plan's shardings (build the
+    trainer under the target world's ``fake_group``), as the JAX function
+    prices them; the engine's copy and pool stay whole."""
     import dataclasses
 
     from ..serve.kv_pages import (kv_dtype_name, kv_page_bytes,
                                   pages_for_tokens)
     from ..serve.weights import weight_dtype_name, weight_tree_bytes
 
-    if trainer.plan is not None:
-        raise NotImplementedError(
-            f"post-training colocation under a sharding plan: ROADMAP.md "
-            f"queue 1, 'Distributed plans, the rest'")
     cfg = trainer.bundle.config
     meta = dataclasses.replace(trainer, device="meta",
                                optimizer=trainer.base_optimizer,

@@ -12,24 +12,29 @@ lays the params out by the plan's rules table: each rank holds its shards
 (``PlanState``), the forward runs on local tensors
 (``models/llama.apply(activation_sharding=...)``, K1-K3 on the rank's own
 heads), the loss is the global mean, and after backward every grad is
-summed over the ranks that hold partial sums of it. ddp / zero1 / zero2:
-params replicated, grads all-reduced over the data axes; zero1 shards the
-optimizer state by ``ZERO1_RULES`` (each rank updates its slice, then the
-params are all-gathered), zero2 also reduce-scatters the accumulation
-buffer. fsdp: params sharded on embed / vocab, each layer all-gathered just
-before it (again in the remat recompute), grads reduce-scattered. tp:
-column-parallel wq / wk / wv / gate / up, row-parallel wo / down, the
-residual's sequence on tp, the vocab-parallel embedding and loss. tp_fsdp:
-both, on orthogonal axes. cp > 1 (chapter 08): each rank holds a sequence
-shard (the loader's shifted ``targets`` beside it) and attention is the
-ring or Ulysses over the cp group (``context_impl``; window, Gemma-2's
-scale and softcap built in from the config), every grad summed over cp.
-pp > 1 (chapter 09): the 1F1B schedule of ``parallel/pipeline.py``
-(``pp_microbatches``, 2 pp by default) is the value-and-grad, each stage
-holding its slice of the layers. A mixture of experts (chapter 10) trains
-under every plan: ep / ep_fsdp put the experts on ep; the dense dispatch
-runs the global program over the ranks (``models/moe.py:
-dense_ep_dispatch``), the ragged one the expert exchange
+summed over the ranks that hold partial sums of it. One step loop
+(``Trainer._step``) runs with and without a plan: without one the layout
+is the identity. ddp / zero1 / zero2: params replicated, grads all-reduced
+over the data axes; zero1 shards the optimizer state by ``ZERO1_RULES``
+(each rank updates its slice, then the params are all-gathered), zero2
+also reduce-scatters the accumulation buffer; ``make_plan(...,
+zero1=True)`` beside fsdp / tp / tp_fsdp cuts each slot from the param's
+shards (``ShardingPlan.reshard``). fsdp: params sharded on embed / vocab,
+each layer all-gathered just before it (again in the remat recompute),
+grads reduce-scattered. tp: column-parallel wq / wk / wv / gate / up,
+row-parallel wo / down, the residual's sequence on tp, the vocab-parallel
+embedding and loss; where tp does not divide the heads or the MLP width,
+that sublayer runs whole on every tp rank (``LocalLayout.whole_parts``).
+tp_fsdp: both, on orthogonal axes. cp > 1 (chapter 08): each rank holds a
+sequence shard (the loader's shifted ``targets`` beside it) and attention
+is the ring or Ulysses over the cp group (``context_impl``; window,
+Gemma-2's scale and softcap built in from the config), every grad summed
+over cp. pp > 1 (chapter 09): the 1F1B schedule of
+``parallel/pipeline.py`` (``pp_microbatches``, 2 pp by default) is the
+value-and-grad, each stage holding its slice of the layers. A mixture of
+experts (chapter 10) trains under every plan: ep / ep_fsdp put the experts
+on ep; the dense dispatch runs the global program over the ranks
+(``models/moe.py:dense_ep_dispatch``), the ragged one the expert exchange
 (``make_ragged_ep_dispatch``, built once here where the JAX Trainer builds
 it: pp 1, the experts' embed dim gathered inside it under ep_fsdp), which,
 as in the JAX package, runs under neither cp, pp nor tp.
@@ -38,7 +43,15 @@ layers through a ``LayerSchedule`` (each layer's fsdp leaves gathered a
 layer ahead and again for the backward), the loss through the fused
 hidden->loss where ``fused_loss_supported`` allows it, and the ragged
 exchange as the double-buffered ring; ``loss_chunks`` runs that fused
-loss too, on one device and under a plan.
+loss too, on one device and under every plan (on each rank's sequence
+shard under cp, per microbatch on the last stage under pp).
+
+A custom ``loss_fn`` under a plan reads the global ``[B, S, V]`` logits,
+gathered on every rank over the axes that shard them (vocab over tp, rows
+over the data axes, the sequence over cp; ``LocalLayout.global_logits``),
+with the global labels: B x S x V fp32 on each rank (4.2 GB at B 4 x S 2048
+x 128256), which the causal-LM loss never pays. Each rank's backward keeps
+its own slice of the one cotangent, so the grad sums stay the plan's.
 
 ``offload_opt_state`` / ``offload_params`` keep the optimizer state /
 params in host memory between steps (``train/offload.py``: fetched to the
@@ -53,10 +66,9 @@ optimizer computes in fp32 (``train/optimizer.py``). ``base_optimizer`` is
 the spec without the policy: its fp32 layout is the restore target of a
 checkpoint written before a run adopted a policy (``encode_fp32_state``).
 
-Gradient accumulation sums the microbatch grads into the ``.grad``
-buffers (or, where the policy's ``accum_dtype`` differs from the params',
-into buffers of that dtype) and divides by ``grad_accum``, as the JAX scan
-does. ``lora_only`` (a ``models/lora.py`` bundle) trains the adapters alone:
+Gradient accumulation sums the microbatch grads into buffers of the
+policy's ``accum_dtype`` (each first microbatch's ``.grad`` itself where
+the dtypes match) and divides by ``grad_accum``, as the JAX scan does. ``lora_only`` (a ``models/lora.py`` bundle) trains the adapters alone:
 the optimizer holds only them, and the base leaves take no gradient. A
 model with ``apply_with_aux`` (MoE) trains on ``ce +
 router_aux_coef * aux`` and reports the router's ``moe_dropped_frac``,
@@ -84,8 +96,10 @@ from .state import TrainState, named_leaves
 __all__ = ["POST_BASELINES", "POST_OBJECTIVES", "REMAT_POLICIES",
            "PlanState", "Trainer", "make_post_step", "post_loss"]
 
-# what the sharded paths leave for later, by ROADMAP.md item
-_PLAN_REST = "ROADMAP.md queue 1, 'Distributed plans, the rest'"
+# the JAX package's chunked loss skips a final logit softcap, so its
+# ``--loss-chunks`` trains another model there; the port refuses the case
+_SOFTCAP_CHUNKS = ("ROADMAP.md queue 3, 'Found in the reference': the JAX "
+                   "chunked loss drops final_logit_softcap")
 
 CONTEXT_IMPLS = ("ring", "ulysses")
 
@@ -130,8 +144,10 @@ def _overlap_parts(trainer, layout=None, model_layout=None) -> tuple:
     fsdp leaves (None: one device, nothing gathered); the fused
     hidden->loss in ``loss_chunks`` chunks (8 by default) where
     ``fused_loss_supported`` allows it. Else the overlap schedule keeps
-    the standard loss, as in the JAX Trainer, and ``loss_chunks`` is
-    refused: the chunked loss cannot run there."""
+    the standard loss, as in the JAX Trainer. ``loss_chunks`` runs the
+    fused loss under any plan's vocab layout (its head gathers what the
+    spec shards), and refuses a final logit softcap: the JAX package's
+    chunked loss computes an uncapped loss there (``_SOFTCAP_CHUNKS``)."""
     from ..ops.overlap import (fused_loss_supported, make_fused_loss,
                                make_layer_schedule)
 
@@ -148,13 +164,12 @@ def _overlap_parts(trainer, layout=None, model_layout=None) -> tuple:
     if trainer.overlap_schedule or chunks > 0:
         why = fused_loss_supported(trainer.plan, cfg, family,
                                    trainer.loss_fn)
-        if why is None:
+        if chunks > 0 and getattr(cfg, "final_logit_softcap", None):
+            raise NotImplementedError(f"loss_chunks: {why} "
+                                      f"({_SOFTCAP_CHUNKS})")
+        if why is None or chunks > 0:
             fused = make_fused_loss(model_layout, num_chunks=chunks or 8,
                                     family_mod=family)
-        elif chunks > 0:
-            raise NotImplementedError(
-                f"loss_chunks: {why}" if trainer.plan is None else
-                f"loss_chunks under this plan: {why} ({_PLAN_REST})")
     return schedule, fused
 
 
@@ -341,21 +356,32 @@ class Trainer:
         """Re-encode an fp32-layout state into this trainer's policy: the
         params cast, each optimizer slot stored in the policy's form (Adam's
         moments quantized under adam8bit), the counts and generator
-        carried over."""
+        carried over. Under a plan ``state32`` is this rank's shards (the
+        plan's ``fp32_reference_state``), and each rank encodes its own:
+        the result is the unsharded re-encoding's shards."""
         if self.precision.is_noop:
             return state32
-        if self.plan_state is not None:
-            raise NotImplementedError(
-                f"re-encoding an fp32 checkpoint into a policy under a "
-                f"sharding plan: {_PLAN_REST}")
+        ps = self.plan_state
         state = self._fresh_state(
-            _map(state32.params, lambda t: t.detach()), 0)
+            _map(state32.params, lambda t: t.detach()), 0,
+            sharded=ps is not None)
         opt32 = state32.opt_state.optimizer
         opt = state.opt_state.optimizer
         policy = self.precision
-        for (_, p32), (_, p) in zip(named_leaves(state32.params),
-                                    named_leaves(state.params)):
-            opt.state[p] = {k: policy.store_moment(v.float(), opt.SLOTS[k])
+        sh32, sh = state32.sharding, state.sharding
+        for (path, p32), (_, p) in zip(named_leaves(state32.params),
+                                       named_leaves(state.params)):
+            if not self.trains(path):
+                continue
+            if ps is not None:
+                # each rank encodes its own shards; a quantized moment's
+                # block scales line up with them, or are the global
+                # leaf's where its shards split a block (JAX's ``.scale``
+                # rule: the block axis replicated)
+                p32, p = sh32.update_leaf(path, p32), sh.update_leaf(path, p)
+            layout = None if ps is None else ps.leaf_layouts[path]
+            opt.state[p] = {k: policy.store_moment(v.float(), opt.SLOTS[k],
+                                                   layout)
                             for k, v in opt32.state[p32].items()
                             if k != "step"}
         count = state32.opt_state.count
@@ -373,8 +399,11 @@ class Trainer:
 
     # ---- the step ----------------------------------------------------------
     def _loss(self, params, mb: dict) -> tuple:
-        """(loss, extra metrics) of one microbatch; the extras are
-        detached fp32 scalars."""
+        """(loss, extra metrics) of one microbatch, the step loop's default
+        hook; the extras are detached fp32 scalars. Under a plan the
+        plan's (``PlanState.loss``)."""
+        if self.plan_state is not None:
+            return self.plan_state.loss(params, mb)
         cfg = self.bundle.config
         fused = self.fused_loss
         kw = dict(positions=mb.get("positions"), remat=self.remat,
@@ -407,63 +436,112 @@ class Trainer:
         device first and copied back to the host after (``train/
         offload.py``); read it on the host only after
         ``state.offload.wait()``."""
+        return self._run(state, batch)
+
+    def _run(self, state: TrainState, batch: dict, loss_hook=None,
+             n_acc: int = None) -> tuple:
+        """``_step`` around an offloaded state's fetch and release."""
         off = state.offload
         if off is None:
-            return self._step(state, batch)
+            return self._step(state, batch, loss_hook, n_acc)
         off.fetch(state)
         try:
-            return self._step(state, batch)
+            return self._step(state, batch, loss_hook, n_acc)
         finally:
             off.release(state)
 
-    def _step(self, state: TrainState, batch: dict) -> tuple:
-        if self.plan_state is not None:
-            return self.plan_state.step(state, batch)
-        leaves = [t for path, t in named_leaves(state.params)
-                  if self.trains(path)]
-        state.opt_state.optimizer.zero_grad(set_to_none=True)
-        buffers = None      # the accumulation buffers, where not .grad
-        if self.grad_accum > 1:
-            accum = self.precision.accum_dtype
-            loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            extras = {}
-            for a in range(self.grad_accum):
-                mb_loss, mb_extras = self._loss(
-                    state.params, {k: v[a] for k, v in batch.items()})
-                mb_loss.backward()
-                if any(p.dtype != accum for p in leaves):
-                    mb = [p.grad.to(accum) for p in leaves]
-                    if buffers is None:
-                        buffers = mb
-                    else:
-                        torch._foreach_add_(buffers, mb)
-                    for p in leaves:
-                        p.grad = None
-                loss = loss + mb_loss.detach()
+    def _step(self, state: TrainState, batch: dict, loss_hook=None,
+              n_acc: int = None) -> tuple:
+        """The one step loop, with or without a plan: each of ``n_acc``
+        microbatches' loss (``loss_hook(params, mb) -> (loss, extras)``;
+        by default ``_loss``, the causal-LM or custom loss) and its
+        backward (under pp the pipeline's value-and-grad instead), the
+        grads popped into fp32 (``accum_dtype``) buffers between
+        microbatches (reduce-scattered onto the optimizer's shard per
+        microbatch under zero2), then each grad summed over its leaf's grad
+        axes and cut to the optimizer's shard, the global norm, the NaN
+        drill, the guard and one optimizer step. Without a plan the layout
+        is the identity: no collective, every leaf whole."""
+        ps = self.plan_state
+        n_acc = self.grad_accum if n_acc is None else n_acc
+        mb_loss = self._loss if loss_hook is None else loss_hook
+        sh = state.sharding
+        update = {} if sh is None else sh.update
+        leaves = {path: p for path, p in named_leaves(state.params)
+                  if self.trains(path)}
+        for p in list(leaves.values()) + list(update.values()):
+            p.grad = None
+        accum = self.precision.accum_dtype
+        zero2 = ps is not None and self.plan.zero2 and n_acc > 1
+        pipeline = None if ps is None else ps.pipeline
+        bufs: dict = {}
+        extras: dict = {}
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        for a in range(n_acc):
+            mb = batch if n_acc == 1 else {k: v[a] for k, v in batch.items()}
+            if pipeline is not None:
+                mb_l = ps.pipeline_backward(state.params, leaves, mb)
+            else:
+                mb_l, mb_extras = mb_loss(state.params, mb)
+                mb_l.backward()
                 for k, v in mb_extras.items():
-                    extras[k] = extras.get(k, 0.0) + v / self.grad_accum
-            loss = loss / self.grad_accum
-            grads = [p.grad for p in leaves] if buffers is None else buffers
-            torch._foreach_div_(grads, float(self.grad_accum))
+                    extras[k] = extras.get(k, 0.0) + v / n_acc
+            loss = loss + mb_l.detach()
+            if n_acc == 1:
+                continue
+            for path, p in leaves.items():
+                g = p.grad.to(accum)
+                p.grad = None
+                if zero2 and path in update:
+                    g = ps.scatter(path, g)
+                if path in bufs:
+                    bufs[path].add_(g)
+                else:
+                    bufs[path] = g
+        loss = loss / n_acc
+        paths = list(leaves)
+        grads = []
+        # without a plan each leaf keeps its grad after the step (in its
+        # own dtype), as a plain torch loop does; a plan's are transient
+        keep = ps is None
+        with torch.no_grad():
+            for path, p in leaves.items():
+                g = p.grad if n_acc == 1 else bufs.pop(path).div_(n_acc)
+                if ps is not None:
+                    g = ps.reduce_grad(path, g, zero2 and path in update)
+                grads.append(g)
+                p.grad = g if keep and g.dtype == p.dtype else None
+        if ps is None:
+            norm = _global_norm(grads)
         else:
-            loss, extras = self._loss(state.params, batch)
-            loss.backward()
-            loss = loss.detach()
-            grads = [p.grad for p in leaves]
+            from ..parallel.plans import global_norm
+
+            norm = global_norm(grads, [ps.leaf_layouts[p] for p in paths])
         if (self._nan_fault_step is not None
                 and state.step == self._nan_fault_step):
             loss = torch.full_like(loss, float("nan"))
-        metrics = {
-            "loss": loss.to(torch.float32),
-            "grad_norm": _global_norm(grads),
-            **{k: v.to(torch.float32) for k, v in extras.items()},
-        }
+        metrics = {"loss": loss.to(torch.float32), "grad_norm": norm,
+                   **{k: v.to(torch.float32) for k, v in extras.items()}}
         apply_update = True
         if self.guard_policy != "off":
             metrics, apply_update = apply_step_guard(self.guard_policy,
                                                      metrics)
         if apply_update:
-            state.opt_state.step(buffers)
+            # without a plan the clip takes the norm of the grads it is
+            # handed (as optax does); under a plan the global one
+            clip_norm = None if ps is None else metrics["grad_norm"]
+            opt = state.opt_state.optimizer
+            if isinstance(opt, torch.optim.AdamW):
+                for path, g in zip(paths, grads):
+                    update.get(path, leaves[path]).grad = g
+                state.opt_state.step(norm=clip_norm)
+                if not keep:
+                    for path in paths:
+                        update.get(path, leaves[path]).grad = None
+            else:
+                state.opt_state.step(grads, norm=clip_norm)
+            if sh is not None:
+                sh.gather_updates(state.params)
         state.step += 1
         return state, metrics
 
@@ -493,9 +571,11 @@ def _unflatten(flat: dict) -> dict:
 
 class StateShards:
     """What a ``TrainState`` under a plan carries beside its params: the
-    update shard of each param whose optimizer state is sharded where the
-    param is not (ZeRO: the optimizer steps the shard, then the params are
-    all-gathered), and the DTensor form of each tensor for checkpoints."""
+    update shard of each param whose optimizer state is laid out otherwise
+    than the param (ZeRO: the optimizer steps the shard, then the params
+    are gathered back; beside fsdp or tp the shard is cut from the
+    param's shards, ``ShardingPlan.reshard``), and the DTensor form of
+    each tensor for checkpoints."""
 
     def __init__(self, plan_state: "PlanState", update: dict):
         self.plan_state = plan_state
@@ -548,7 +628,8 @@ class StateShards:
         ps = self.plan_state
         flat = dict(named_leaves(params))
         for path, u in self.update.items():
-            flat[path].copy_(ps.plan.unshard(ps.opt_specs[path], u))
+            flat[path].copy_(ps.plan.reshard(u, ps.opt_specs[path],
+                                             ps.specs[path]))
 
     @torch.no_grad()
     def reshard_update_leaves(self, state: TrainState) -> None:
@@ -557,13 +638,16 @@ class StateShards:
         ps = self.plan_state
         flat = dict(named_leaves(state.params))
         for path, u in self.update.items():
-            u.copy_(ps.plan.shard(ps.opt_specs[path], flat[path]))
+            u.copy_(ps.plan.reshard(flat[path], ps.specs[path],
+                                    ps.opt_specs[path]))
 
 
 class PlanState:
     """A Trainer's layout under a sharding plan: every leaf's spec (the
     plan's rules) and that of its optimizer state, the ``LocalLayout`` the
-    forward runs on, and the sharded step."""
+    forward runs on, the microbatch loss, and the grad collectives the
+    Trainer's one step loop (``Trainer._step``) calls. It holds no
+    accumulation, guard or optimizer code of its own."""
 
     def __init__(self, trainer, specs: dict, opt_specs: dict, shapes: dict):
         from ..parallel.plans import LeafLayout, LocalLayout
@@ -589,11 +673,8 @@ class PlanState:
                              for p in specs}
         self.zero_paths = [p for p in specs if opt_specs[p] != specs[p]
                            and trainer.trains(p)]
-        for p in self.zero_paths:
-            if any(specs[p]):
-                raise NotImplementedError(
-                    f"{p}: optimizer state sharded further than its sharded "
-                    f"param ({specs[p]} -> {opt_specs[p]}): {_PLAN_REST}")
+        self.zero_set = frozenset(self.zero_paths)
+        self.custom_loss = trainer.loss_fn is not causal_lm_loss
         self.cp, self.pp = self.plan.sizes["cp"], self.plan.sizes["pp"]
         self.attn_impl = self._attention(trainer)
         self.moe_ep = self._moe_ep(trainer)
@@ -610,7 +691,8 @@ class PlanState:
                 microbatches=trainer.pp_microbatches, layout=self.layout,
                 attn_impl=self.attn_impl, remat=trainer.remat,
                 remat_policy=trainer.remat_policy, run_all=self.cp > 1,
-                data_size=self.plan.data_parallel_size)
+                data_size=self.plan.data_parallel_size,
+                head_loss=self._pipeline_head_loss())
 
     def _attention(self, trainer):
         """The attention the forward runs: the trainer's, or under cp > 1
@@ -672,14 +754,8 @@ class PlanState:
     @classmethod
     def build(cls, trainer) -> "PlanState":
         plan, bundle = trainer.plan, trainer.bundle
-        if trainer.loss_fn is not causal_lm_loss:
-            raise NotImplementedError(
-                f"a custom loss under a sharding plan: {_PLAN_REST}")
-        if trainer.loss_chunks > 0 and (plan.sizes["pp"] > 1
-                                        or plan.sizes["cp"] > 1):
-            raise NotImplementedError(
-                f"loss_chunks under pipeline or context parallelism: "
-                f"{_PLAN_REST}")
+        if plan.sizes["pp"] > 1 and plan.sizes["tp"] > 1:
+            _check_pp_tp(trainer)
         mesh_type = plan.mesh.device_type
         # a meta trainer runs on any mesh (the preflight's fake group)
         if mesh_type != trainer.device.type and trainer.device.type != "meta":
@@ -700,8 +776,14 @@ class PlanState:
         optimizer state around them."""
         plan = self.plan
         trains = self.trainer.trains
-        local = {}
+        local, update = {}, {}
         for path, full in named_leaves(params):
+            if path in self.zero_set:
+                # the optimizer's shard, from the whole leaf or (given
+                # shards) from the param's shards
+                update[path] = plan.reshard(
+                    full.detach(), self.specs[path] if sharded else (),
+                    self.opt_specs[path]).clone()
             if sharded:
                 want = plan.local_shape(self.specs[path], self.shapes[path])
                 if tuple(full.shape) != want:
@@ -715,8 +797,6 @@ class PlanState:
             else:   # the whole leaf, not a view of it: a view's base
                 t = full.detach()   # would keep the storage an offload moves
             local[path] = t.requires_grad_(trains(path))
-        update = {p: plan.shard(self.opt_specs[p], local[p].detach()).clone()
-                  for p in self.zero_paths}
         leaves = [update.get(p, t) for p, t in local.items() if trains(p)]
         layouts = {update.get(p, t): self.leaf_layouts[p]
                    for p, t in local.items() if trains(p)}
@@ -725,7 +805,7 @@ class PlanState:
                           opt_state=opt_state, rng=rng,
                           sharding=StateShards(self, update))
 
-    # ---- the step ----------------------------------------------------------
+    # ---- the microbatch loss -------------------------------------------
     def _labels(self, mb: dict) -> torch.Tensor:
         """The microbatch's labels, or under cp its shifted targets."""
         if self.cp == 1:
@@ -738,13 +818,34 @@ class PlanState:
                 "data/loader.py:local_batch, or the loader's seq_size)")
         return mb["targets"]
 
-    def _loss(self, params: dict, mb: dict) -> tuple:
-        """(the global loss, extra metrics) of one microbatch; an MoE
-        model's loss is ``ce + router_aux_coef * aux``, its aux and
-        ``moe_dropped_frac`` global over the ranks."""
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a global [B, S] batch: its rows (the data
+        ranks split B), and under cp its contiguous sequence shard."""
+        from ..data.loader import seq_shard
+
+        data = self.plan.data_parallel_size
+        if x.shape[0] % data:
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not "
+                             f"split over {data} data ranks")
+        n = x.shape[0] // data
+        x = x[self.plan.data_rank * n:(self.plan.data_rank + 1) * n]
+        if self.cp > 1:
+            x = seq_shard(x, self.layout.cp_rank, self.cp)
+        return x
+
+    def _global_labels(self, labels: torch.Tensor) -> torch.Tensor:
+        """The global [B, S] labels from this rank's rows (and under cp
+        its sequence shard of the unshifted labels)."""
+        with torch.no_grad():
+            return self.layout.global_rows(labels)
+
+    def forward(self, params: dict, ids: torch.Tensor,
+                with_aux: bool = True) -> tuple:
+        """(final hidden, the router aux loss or None, extras) of this
+        rank's ``ids``: the plan's forward on local tensors; an MoE model's
+        aux and ``moe_dropped_frac`` global over the ranks."""
         t = self.trainer
         cfg = t.bundle.config
-        ids = mb["input_ids"]
         if self.layout.sp and ids.shape[1] % self.layout.tp:
             raise ValueError(f"sequence parallelism needs the sequence "
                              f"({ids.shape[1]}) divisible by tp "
@@ -754,32 +855,75 @@ class PlanState:
                   return_hidden=True)
         if self.layer_schedule is not None:
             kw["layer_schedule"] = self.layer_schedule
-        extras, aux_loss = {}, None
-        if t.bundle.apply_with_aux is not None:
+        if with_aux and t.bundle.apply_with_aux is not None:
             hidden, aux, extras = t.bundle.apply_with_aux(
                 cfg, params, ids, return_metrics=True, moe_ep=self.moe_ep,
                 **kw)
-            aux_loss = getattr(cfg, "router_aux_coef", 0.0) * aux
-            extras = {k: v.detach() for k, v in extras.items()}
-        else:
-            hidden = t.bundle.apply(cfg, params, ids, **kw)
+            return (hidden, getattr(cfg, "router_aux_coef", 0.0) * aux,
+                    {k: v.detach() for k, v in extras.items()})
+        return t.bundle.apply(cfg, params, ids, **kw), None, {}
+
+    def global_logits(self, model: dict, hidden: torch.Tensor):
+        """The fp32 logits [B, S, V] of the global batch on every rank,
+        gathered from this rank's (``LocalLayout.global_logits``): what a
+        custom loss and the post-training loss read. Each rank's backward
+        keeps its own slice of the one cotangent."""
+        layout = self.model_layout
+        cfg = self.trainer.bundle.config
+        return layout.global_logits(layout.logits(cfg, model, hidden))
+
+    def loss(self, params: dict, mb: dict) -> tuple:
+        """(the global loss, extra metrics) of one microbatch: the
+        causal-LM loss (vocab-parallel, or fused under ``loss_chunks``), or
+        a custom ``loss_fn`` on the gathered global logits and labels; an
+        MoE model's loss is ``ce + router_aux_coef * aux``."""
+        t = self.trainer
+        cfg = t.bundle.config
+        hidden, aux_loss, extras = self.forward(params, mb["input_ids"])
         model = params["base"] if t.lora else params
         if self.fused_loss is not None:
-            loss = self.fused_loss(cfg, model, hidden, mb["labels"])
+            loss = self.fused_loss(cfg, model, hidden, self._labels(mb))
+        elif self.custom_loss:
+            loss = t.loss_fn(self.global_logits(model, hidden),
+                             self._global_labels(self._custom_labels(mb)))
         else:
             loss = self.model_layout.loss(cfg, model, hidden,
                                           self._labels(mb))
         return (loss if aux_loss is None else loss + aux_loss), extras
 
-    def _pipeline_backward(self, params: dict, leaves: dict,
-                           mb: dict) -> torch.Tensor:
+    def _custom_labels(self, mb: dict) -> torch.Tensor:
+        if "labels" not in mb:
+            raise ValueError(
+                "a custom loss_fn under context parallelism reads the "
+                "unshifted labels: the batch must hold each rank's sequence "
+                "shard of them beside the targets ('labels': "
+                "data/loader.py:local_batch)")
+        return mb["labels"]
+
+    def _pipeline_head_loss(self):
+        """The last stage's loss of one microbatch (``Pipeline``'s
+        ``head_loss``): the fused loss under ``loss_chunks`` (vocab not on
+        tp), a custom loss on the microbatch's gathered logits, or None for
+        the plan's causal-LM loss."""
+        cfg = self.trainer.bundle.config
+        if self.fused_loss is not None:
+            return lambda nl, h, labels: self.fused_loss(cfg, nl, h, labels)
+        if self.custom_loss:
+            return lambda nl, h, labels: self.trainer.loss_fn(
+                self.global_logits(nl, h), self._global_labels(labels))
+        return None
+
+    def pipeline_backward(self, params: dict, leaves: dict,
+                          mb: dict) -> torch.Tensor:
         """The pipeline's value-and-grad on one (accumulation) microbatch:
         its grads added into each leaf's ``.grad`` (as ``backward`` would),
         its loss summed over the stages (the last stage's)."""
         from ..ops import collectives as C
 
+        labels = (self._custom_labels(mb) if self.custom_loss
+                  else self._labels(mb))
         loss, (grads,) = self.pipeline.value_and_grad(
-            [params], mb["input_ids"], self._labels(mb))
+            [params], mb["input_ids"], labels)
         for path, p in leaves.items():
             g = grads.get(path)
             if g is None:
@@ -789,14 +933,19 @@ class PlanState:
             p.grad = g if p.grad is None else p.grad + g
         return C.all_reduce_(loss, self.plan.group("pp"))
 
+    # ---- the grad collectives ----------------------------------------------
     @torch.no_grad()
-    def _scatter(self, path: str, g: torch.Tensor) -> torch.Tensor:
-        """ZeRO-2: a replicated param's microbatch grad reduce-scattered
-        onto this rank's optimizer shard (outer axis first), and summed
-        over the other axes its grad needs."""
+    def scatter(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """ZeRO-2: a microbatch grad onto this rank's optimizer shard. A
+        replicated param's is reduce-scattered (outer axis first) and
+        summed over the other axes its grad needs; a sharded param's (fsdp
+        or tp beside ZeRO) is summed over its grad axes and cut to the
+        optimizer's shard."""
         from ..ops import collectives as C
         from ..parallel.plans import entry_axes
 
+        if any(self.specs[path]):
+            return self.reduce_grad(path, g, False)
         spec = self.opt_specs[path]
         done = set()
         for d, e in enumerate(spec):
@@ -808,79 +957,48 @@ class PlanState:
                 C.all_reduce_(g, self.plan.group(a))
         return g
 
-    def step(self, state: TrainState, batch: dict) -> tuple:
+    @torch.no_grad()
+    def reduce_grad(self, path: str, g: torch.Tensor,
+                    scattered: bool) -> torch.Tensor:
+        """A leaf's summed grad as the optimizer steps it: summed over the
+        leaf's grad axes, then cut to its optimizer shard under ZeRO
+        (``scattered``: zero2 did both per microbatch)."""
         from ..ops import collectives as C
-        from ..parallel.plans import global_norm
 
-        t = self.trainer
-        sh = state.sharding
-        leaves = {path: p for path, p in named_leaves(state.params)
-                  if t.trains(path)}
-        for p in list(leaves.values()) + list(sh.update.values()):
-            p.grad = None
-        accum, n_acc = t.precision.accum_dtype, t.grad_accum
-        zero2 = self.plan.zero2 and n_acc > 1
-        bufs: dict = {}
-        extras: dict = {}
-        loss = torch.zeros((), dtype=torch.float32, device=t.device)
-        for a in range(n_acc):
-            mb = batch if n_acc == 1 else {k: v[a] for k, v in batch.items()}
-            if self.pipeline is not None:
-                mb_loss = self._pipeline_backward(state.params, leaves, mb)
-            else:
-                mb_loss, mb_extras = self._loss(state.params, mb)
-                mb_loss.backward()
-                for k, v in mb_extras.items():
-                    extras[k] = extras.get(k, 0.0) + v / n_acc
-            loss = loss + mb_loss.detach()
-            if n_acc == 1:
-                continue
-            for path, p in leaves.items():
-                g = p.grad.to(accum)
-                p.grad = None
-                if zero2 and path in sh.update:
-                    g = self._scatter(path, g)
-                if path in bufs:
-                    bufs[path].add_(g)
-                else:
-                    bufs[path] = g
-        loss = loss / n_acc
-        grads = []
-        with torch.no_grad():
-            for path, p in leaves.items():
-                g = p.grad if n_acc == 1 else bufs.pop(path).div_(n_acc)
-                if not (zero2 and path in sh.update):
-                    for a in self.layout.grad_axes(path):
-                        C.all_reduce_(g, self.plan.group(a))
-                    if path in sh.update:
-                        g = self.plan.shard(self.opt_specs[path],
-                                            g).contiguous()
-                grads.append(g)
-                p.grad = None
-        paths = list(leaves)
-        if (t._nan_fault_step is not None
-                and state.step == t._nan_fault_step):
-            loss = torch.full_like(loss, float("nan"))
-        metrics = {"loss": loss,
-                   "grad_norm": global_norm(
-                       grads, [self.leaf_layouts[p] for p in paths]),
-                   **{k: v.to(torch.float32) for k, v in extras.items()}}
-        apply_update = True
-        if t.guard_policy != "off":
-            metrics, apply_update = apply_step_guard(t.guard_policy, metrics)
-        if apply_update:
-            opt = state.opt_state.optimizer
-            if isinstance(opt, torch.optim.AdamW):
-                for path, g in zip(paths, grads):
-                    sh.update_leaf(path, leaves[path]).grad = g
-                state.opt_state.step(norm=metrics["grad_norm"])
-                for path in paths:
-                    sh.update_leaf(path, leaves[path]).grad = None
-            else:
-                state.opt_state.step(grads, norm=metrics["grad_norm"])
-            sh.gather_updates(state.params)
-        state.step += 1
-        return state, metrics
+        if scattered:
+            return g
+        for a in self.layout.grad_axes(path):
+            C.all_reduce_(g, self.plan.group(a))
+        if path in self.zero_set:
+            g = self.plan.reshard(g, self.specs[path],
+                                  self.opt_specs[path]).contiguous()
+        return g
+
+
+def _check_pp_tp(trainer) -> None:
+    """The JAX pipeline's refusals under pp x tp
+    (``distributed_training_guide_tpu/parallel/pipeline.py``): a custom
+    loss, ``loss_chunks``, and heads or a vocab that tp does not divide."""
+    tp = trainer.plan.sizes["tp"]
+    cfg = trainer.bundle.config
+    if trainer.loss_fn is not causal_lm_loss:
+        raise NotImplementedError(
+            "pp x tp hardwires the vocab-parallel causal-LM loss; drop "
+            "the custom loss_fn or tp")
+    if trainer.loss_chunks > 0:
+        raise NotImplementedError(
+            "loss_chunks is redundant under pp x tp: the vocab-parallel "
+            "head already never materializes full logits")
+    n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    if n_kv % tp or cfg.num_heads % tp:
+        raise ValueError(f"num_heads={cfg.num_heads}/num_kv_heads="
+                         f"{n_kv} not divisible by tp={tp}")
+    if cfg.vocab_size % tp:
+        raise ValueError(
+            f"vocab_size={cfg.vocab_size} not divisible by tp={tp}: the "
+            f"manual vocab-parallel embed/head needs equal vocab shards "
+            f"(gpt2's 50257 never divides — pad the vocab, e.g. "
+            f"vocab_size=50304, or run pp with tp=1)")
 
 
 # ---------------------------------------------------------------------------
@@ -1016,10 +1134,16 @@ def make_post_step(trainer: Trainer, *, objective: str = "reinforce",
     ``lora_only``), precision policy, offload and guard (``notfinite``;
     under ``guard_policy="skip"`` a non-finite update is not applied, and
     ``post/loop.py`` gates the publish on the flag), and the
-    ``DTG_FAULT_NAN_LOSS_STEP`` drill. ``baseline`` is one of
-    ``POST_BASELINES`` (``_advantages``). Under pipeline parallelism or
-    with a callable ``attn_impl`` it refuses, as the JAX package does; the
-    port runs it on one device (a plan raises, naming its item)."""
+    ``DTG_FAULT_NAN_LOSS_STEP`` drill, through the Trainer's one step
+    loop with ``post_loss`` as its microbatch loss. ``baseline`` is one of
+    ``POST_BASELINES`` (``_advantages``). Under a plan the batch is the
+    global one: the advantages come from the whole ``rewards`` /
+    ``group_ids``, each rank runs the forward on its rows (its sequence
+    shard under cp), and ``post_loss`` reads the gathered global logits
+    (``PlanState.global_logits``: B x S x V fp32 on every rank), so its
+    token counts and means are global and K5 launches twice an update (its
+    forward and d_lhs). Under pipeline parallelism or with a callable
+    ``attn_impl`` it refuses, as the JAX package does."""
     if objective not in POST_OBJECTIVES:
         raise ValueError(f"unknown post objective {objective!r}; choose "
                          f"from {POST_OBJECTIVES}")
@@ -1037,65 +1161,44 @@ def make_post_step(trainer: Trainer, *, objective: str = "reinforce",
             "attn_impl — silently substituting 'auto' would optimize a "
             "different model function than the one generating the "
             "rollouts; use a named attn_impl on the Trainer")
-    if trainer.plan is not None:
-        raise NotImplementedError(
-            f"post-training steps under a sharding plan: {_PLAN_REST}")
     cfg = trainer.bundle.config
     apply = trainer.bundle.apply
     dev = trainer.device
+    ps = trainer.plan_state
 
     def as_tensor(x, dtype):
         return torch.as_tensor(x).to(device=dev, dtype=dtype)
 
-    def step(state: TrainState, batch: dict) -> tuple:
+    def post_step(state: TrainState, batch: dict) -> tuple:
         tokens = as_tensor(batch["tokens"], torch.int64)
         prompt_lens = as_tensor(batch["prompt_lens"], torch.int64)
         total_lens = as_tensor(batch["total_lens"], torch.int64)
         rewards = as_tensor(batch["rewards"], torch.float32)
         gids = batch.get("group_ids")
+        # from the whole [B] vectors: a group may span the data ranks
         adv = _advantages(rewards, None if gids is None
                           else as_tensor(gids, torch.int64), baseline)
         teacher = batch.get("teacher_logprobs")
         if teacher is not None:
             teacher = as_tensor(teacher, torch.float32)
-        leaves = [t for path, t in named_leaves(state.params)
-                  if trainer.trains(path)]
-        state.opt_state.optimizer.zero_grad(set_to_none=True)
-        logits = apply(cfg, state.params, tokens, remat=trainer.remat,
-                       remat_policy=trainer.remat_policy,
-                       attn_impl=trainer.attn_impl)
-        loss, extras = post_loss(
-            logits, tokens, prompt_lens, total_lens, objective=objective,
-            advantages=adv, teacher_logprobs=teacher, gmm_impl=gmm_impl)
-        loss.backward()
-        loss = loss.detach()
-        if (trainer._nan_fault_step is not None
-                and state.step == trainer._nan_fault_step):
-            loss = torch.full_like(loss, float("nan"))
-        metrics = {
-            "loss": loss.to(torch.float32),
-            "grad_norm": _global_norm([p.grad for p in leaves]),
-            "reward_mean": rewards.mean(),
-            "advantage_std": adv.std(correction=0),
-            **extras,
-        }
-        apply_update = True
-        if trainer.guard_policy != "off":
-            metrics, apply_update = apply_step_guard(trainer.guard_policy,
-                                                     metrics)
-        if apply_update:
-            state.opt_state.step(None)
-        state.step += 1
-        return state, metrics
 
-    def post_step(state: TrainState, batch: dict) -> tuple:
-        off = state.offload
-        if off is None:
-            return step(state, batch)
-        off.fetch(state)
-        try:
-            return step(state, batch)
-        finally:
-            off.release(state)
+        def loss_hook(params, mb):
+            if ps is None:
+                logits = apply(cfg, params, tokens, remat=trainer.remat,
+                               remat_policy=trainer.remat_policy,
+                               attn_impl=trainer.attn_impl)
+            else:
+                hidden, _, _ = ps.forward(params, ps.local_rows(tokens),
+                                          with_aux=False)
+                logits = ps.global_logits(
+                    params["base"] if trainer.lora else params, hidden)
+            loss, extras = post_loss(
+                logits, tokens, prompt_lens, total_lens,
+                objective=objective, advantages=adv,
+                teacher_logprobs=teacher, gmm_impl=gmm_impl)
+            return loss, {"reward_mean": rewards.mean(),
+                          "advantage_std": adv.std(correction=0), **extras}
+
+        return trainer._run(state, batch, loss_hook, n_acc=1)
 
     return post_step

@@ -386,23 +386,48 @@ def test_fused_loss_skipped_for_final_softcap():
                 device="cpu", loss_chunks=4)
 
 
-@pytest.mark.parametrize("strategy,mesh,kw,match", [
-    ("fsdp", {"fsdp": 2}, {"loss_fn": lambda logits, labels: logits.sum()},
-     "a custom loss"),
-    ("pp", {"pp": 2}, {"loss_chunks": 4}, "pipeline or context"),
-    ("ddp", {"cp": 2}, {"loss_chunks": 4}, "pipeline or context")],
-    ids=["custom-loss", "chunks-pp", "chunks-cp"])
-def test_what_stays_refused_under_a_plan(strategy, mesh, kw, match):
-    """``loss_chunks`` runs under a plan now (the fused loss); a custom
-    loss_fn, and ``loss_chunks`` under pp or cp, still refuse, naming
-    ROADMAP.md queue 1 item 7 ('Distributed plans, the rest')."""
+def _square_loss(logits, labels):
+    """A custom loss: the mean square logit over the labelled rows."""
+    return (logits.float().square().mean(-1)
+            * (labels != -100)).sum() / labels.numel()
+
+
+@pytest.mark.parametrize("strategy,mesh,kw", [
+    ("fsdp", {"fsdp": 2}, {"loss_fn": _square_loss}),
+    ("pp", {"pp": 2}, {"loss_chunks": 4}),
+    ("ddp", {"cp": 2}, {"loss_chunks": 4}),
+    ("pp_tp", {"pp": 2, "tp": 2}, {"loss_chunks": 4})],
+    ids=["custom-loss", "chunks-pp", "chunks-cp", "chunks-pp-tp"])
+def test_what_stays_refused_under_a_plan(strategy, mesh, kw):
+    """A custom loss_fn under fsdp, and ``loss_chunks`` under pp and cp,
+    build and step on meta on a fake 4-rank group; ``loss_chunks`` under
+    pp x tp stays refused with the JAX pipeline's own error."""
+    if strategy == "pp_tp":
+        jt = JTrainer(bundle=jget_model("llama-debug"),
+                      optimizer=jadamw(1e-3), donate=False,
+                      plan=jmake_plan("pp_tp", jmake_mesh(
+                          pp=2, tp=2, devices=jax.devices()[:4])), **kw)
+        with pytest.raises(NotImplementedError) as want:
+            jt.step_fn
     with fake_group(4):
         plan = make_plan(strategy, make_mesh(device="cpu", **mesh))
-        with pytest.raises(NotImplementedError,
-                           match=f"{match}.*Distributed plans, the rest"):
-            Trainer(bundle=get_model("llama-debug"),
+        if strategy == "pp_tp":
+            with pytest.raises(NotImplementedError) as got:
+                Trainer(bundle=get_model("llama-debug"),
+                        optimizer=topt.adamw_cosine(1e-3), plan=plan,
+                        device="meta", **kw)
+            assert str(got.value) == str(want.value)
+            return
+        t = Trainer(bundle=get_model("llama-debug"),
                     optimizer=topt.adamw_cosine(1e-3), plan=plan,
                     device="meta", **kw)
+        cp = mesh.get("cp", 1)
+        ids = torch.empty(4, 32 // cp, dtype=torch.long, device="meta")
+        batch = ({"input_ids": ids, "targets": ids, "labels": ids} if cp > 1
+                 else {"input_ids": ids, "labels": ids})
+        _, m = t.step_fn(t.init_state(0), batch)
+        assert m["loss"].shape == () and m["grad_norm"].shape == ()
+        assert (t.plan_state.fused_loss is not None) == ("loss_chunks" in kw)
 
 
 PRICED = [("llama-debug", "fsdp", {"fsdp": 8}, {}),

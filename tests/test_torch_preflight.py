@@ -9,7 +9,7 @@ grad bytes equal the JAX report's, byte for byte, once the optimizers'
 one per leaf). For llama-3.1-405b on the same mesh they equal the bytes of
 JAX's ``NamedSharding.shard_shape`` taken without lowering, and
 ``comm_roofline``'s per-collective rows equal JAX's. A tp that does not
-divide the heads raises in the preflight; the reference's 64-GPU shape
+divide the heads prices the leaves as JAX shards them; the reference's 64-GPU shape
 (fsdp 8 x tp 8) prices fp32 AdamW at 16 bytes a parameter, and one 405B
 layer's fp32 AdamW state does not fit a card of 80 GB."""
 import jax
@@ -116,12 +116,22 @@ def test_comm_roofline_rows_equal_jax():
 
 
 def test_tp_that_does_not_divide_the_heads_raises_in_preflight():
+    """llama-debug's 4 q heads under tp 8 no longer raise: attention runs
+    whole on every tp rank (the replicated fallback), and chapter 07's
+    preflight steps on meta and prices each leaf as JAX's shardings lay it
+    out (q and kv sharded in fractions of a head, the MLP on its columns),
+    byte for byte."""
     from distributed_training_guide_tpu_torch.chapters import c07_tp_fsdp
 
-    with pytest.raises(NotImplementedError, match="num_heads 4 % tp 8"):
-        c07_tp_fsdp.main(["-m", "llama-debug", "-s", "32", "--preflight",
-                          "--preflight-world", "8", "--tensor-parallel",
-                          "8"])
+    rep = c07_tp_fsdp.main(["-m", "llama-debug", "-s", "32", "--preflight",
+                            "--preflight-world", "8", "--tensor-parallel",
+                            "8"])
+    jt = JTrainer(bundle=jget_model("llama-debug"), optimizer=jadamw(1e-3),
+                  plan=jmake_plan("tp_fsdp", jmake_mesh(tp=8)),
+                  donate=False)
+    want = _jax_shard_bytes(jt)
+    assert rep["lowered"] and rep["n_devices"] == 8
+    assert rep["per_device_param_bytes"] == want["params"]
 
 
 def test_405b_at_the_reference_64_gpu_shape():

@@ -766,8 +766,165 @@ def cp_pp(out_dir, rank):
         (out_dir / "cp_pp.json").write_text(json.dumps(result))
 
 
+def rest_custom_loss(logits, labels):
+    """Label smoothing 0.1 over the next-token log-probs: a loss_fn that
+    reads the whole vocab and sequence (the test's JAX twin computes the
+    same)."""
+    lp = torch.log_softmax(logits[:, :-1].float(), -1)
+    t = labels[:, 1:].long()
+    nll = -torch.gather(lp, -1, t[..., None])[..., 0]
+    return (0.9 * nll - 0.1 * lp.mean(-1)).mean()
+
+
+# the config tp 4 does not divide: 6 q heads (in 4 shards of 12 columns,
+# half-heads), MLP width 90 (replicated)
+REST_ODD = dict(hidden_size=48, num_heads=6, num_kv_heads=2,
+                intermediate_size=90)
+# (name, init, strategy, mesh axes, Trainer keywords, plan keywords)
+REST_RUNS = [
+    ("custom_fsdp4", "init", "fsdp", {"fsdp": 4},
+     {"loss_fn": rest_custom_loss}, {}),
+    ("custom_tp4", "init", "tp", {"tp": 4}, {"loss_fn": rest_custom_loss},
+     {}),
+    ("custom_cp2_dp2", "init", "ddp", {"cp": 2},
+     {"loss_fn": rest_custom_loss}, {}),
+    ("custom_pp2_dp2", "init", "pp", {"pp": 2},
+     {"loss_fn": rest_custom_loss}, {}),
+    ("chunks_cp2_dp2", "init", "ddp", {"cp": 2}, {"loss_chunks": 4}, {}),
+    ("chunks_pp2_dp2", "init", "pp", {"pp": 2}, {"loss_chunks": 4}, {}),
+    ("chunks_pp2_cp2", "init", "pp", {"pp": 2, "cp": 2},
+     {"loss_chunks": 4}, {}),
+    ("zero1_fsdp2_dp2", "init", "fsdp", {"fsdp": 2}, {}, {"zero1": True}),
+    ("zero2_fsdp2_dp2", "init", "fsdp", {"fsdp": 2}, {"grad_accum": 2},
+     {"zero2": True}),
+    ("zero1_tp2_dp2", "init", "tp", {"tp": 2}, {}, {"zero1": True}),
+    ("odd_tp4_sp", "odd_init", "tp", {"tp": 4}, {}, {}),
+    ("odd_tp4", "odd_init", "tp", {"tp": 4}, {},
+     {"sequence_sharded": False}),
+]
+
+
+def _rest_trainer(init, strategy, mesh_kw, kw, plan_kw, precision="fp32"):
+    over = REST_ODD if init == "odd_init" else {}
+    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw),
+                     **plan_kw)
+    return Trainer(bundle=get_model("llama-debug", dtype=torch.float32,
+                                    **over),
+                   optimizer=topt.adamw_cosine(1e-3), plan=plan,
+                   device="cpu", precision=precision, **kw)
+
+
+def _full_state(state) -> dict:
+    """Every tensor of a state as the checkpoint writes it, gathered
+    whole (numpy)."""
+    from distributed_training_guide_tpu_torch.train.state import (
+        state_tensors)
+
+    out = {}
+    for k, v in state_tensors(state).items():
+        if hasattr(v, "full_tensor"):
+            v = v.full_tensor()
+        out[k] = v.detach().float().numpy() if v.is_floating_point() \
+            else v.detach().numpy()
+    return out
+
+
+def _save(t, state, exp, step, async_save=False):
+    io = CheckpointIO(exp, async_save=async_save)
+    host = stamp_host_state(host_state_dict(), t)
+    host["global_step"] = step
+    io.save(state, host)
+    return io
+
+
+def plans_rest(out_dir, rank):
+    from distributed_training_guide_tpu_torch.train.step import make_post_step
+
+    batches = dict(np.load(out_dir / "batches.npz"))
+    ids = batches["ids"]
+    params = {k: from_jax.params_from_numpy(
+        _unflatten(dict(np.load(out_dir / f"{k}.npz"))), device="cpu")
+        for k in ("init", "odd_init")}
+    facts = {}
+    for name, init, strategy, mesh_kw, kw, plan_kw in REST_RUNS:
+        t = _rest_trainer(init, strategy, mesh_kw, kw, plan_kw)
+        state = t.init_state_from_params(params[init])
+        grad_shapes = _record_grad_shapes(state)
+        accum = kw.get("grad_accum", 1)
+        glob = ids.reshape(accum, -1, ids.shape[-1]) if accum > 1 else ids
+        batch = _cp_pp_batch(t, glob)
+        losses = []
+        for _ in range(2):
+            state, m = t.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        full = _full_params(t, state)
+        if name.startswith("zero"):
+            facts[name] = _held(t, state, grad_shapes)
+        if rank == 0:
+            np.savez(out_dir / f"rest_{name}.npz", losses=losses,
+                     **{f"p/{k}": v for k, v in full.items()})
+    # one post-training step (REINFORCE, group baseline: groups span ranks)
+    post = dict(np.load(out_dir / "post.npz"))
+    for name, strategy, mesh_kw in (("post_fsdp4", "fsdp", {"fsdp": 4}),
+                                    ("post_tp4", "tp", {"tp": 4})):
+        t = _rest_trainer("init", strategy, mesh_kw, {}, {})
+        step = make_post_step(t, objective="reinforce", baseline="group")
+        state, m = step(t.init_state_from_params(params["init"]), post)
+        full = _full_params(t, state)
+        if rank == 0:
+            np.savez(out_dir / f"rest_{name}.npz", loss=float(m["loss"]),
+                     **{f"p/{k}": v for k, v in full.items()})
+    # async against synchronous saves of one fsdp 4 state, each restored
+    # under fsdp 4 and under tp_fsdp 2 x 2
+    t = _rest_trainer("init", "fsdp", {"fsdp": 4}, {}, {})
+    state = t.init_state_from_params(params["init"])
+    batch = _cp_pp_batch(t, ids)
+    state, _ = t.step_fn(state, batch)
+    _save(t, state, out_dir / "ck_sync", 1).close()
+    io = _save(t, state, out_dir / "ck_async", 1, async_save=True)
+    state, _ = t.step_fn(state, batch)      # steps while the write runs
+    io.close()
+    equal = {}
+    for key, strategy, mesh_kw in (("fsdp4", "fsdp", {"fsdp": 4}),
+                                   ("tp_fsdp", "tp_fsdp",
+                                    {"fsdp": 2, "tp": 2})):
+        got = [_full_state(restore_train_state(CheckpointIO(
+            out_dir / d), _rest_trainer("init", strategy, mesh_kw, {}, {}))[0])
+            for d in ("ck_sync", "ck_async")]
+        equal[key] = _all(got[0].keys() == got[1].keys() and all(
+            np.array_equal(got[0][k], got[1][k]) for k in got[0]))
+    facts["async"] = {"equal": equal, "blocking_s": io.save_log[0][
+        "blocking_s"], "async": io.save_log[0]["async"]}
+    # an fp32 fsdp 4 checkpoint re-encoded into bf16-master+adam8bit under
+    # fsdp 4, and without a plan (every rank the whole state)
+    enc = {}
+    for key, strategy in (("fsdp4", "fsdp"), ("none", None)):
+        if strategy is None:
+            t2 = Trainer(bundle=get_model("llama-debug", dtype=torch.float32),
+                         optimizer=topt.adamw_cosine(1e-3), device="cpu",
+                         precision="bf16-master+adam8bit")
+        else:
+            t2 = _rest_trainer("init", strategy, {"fsdp": 4}, {}, {},
+                               precision="bf16-master+adam8bit")
+        state2, _ = restore_train_state(CheckpointIO(out_dir / "ck_sync"),
+                                        t2)
+        enc[key] = _full_state(state2)
+        b2 = batch if strategy is not None else {
+            k: torch.from_numpy(ids) for k in ("input_ids", "labels")}
+        _, m2 = t2.step_fn(state2, b2)
+        enc[key]["loss"] = np.asarray(float(m2["loss"]))
+    facts["reencode"] = {
+        "keys_equal": enc["fsdp4"].keys() == enc["none"].keys(),
+        "bitwise": sorted(k for k in enc["none"] if k != "loss"
+                          and np.array_equal(enc["fsdp4"][k], enc["none"][k])),
+        "n_tensors": len(enc["none"]) - 1,
+        "losses": [float(enc["fsdp4"]["loss"]), float(enc["none"]["loss"])]}
+    if rank == 0:
+        (out_dir / "plans_rest.json").write_text(json.dumps(facts))
+
+
 SCENARIOS = {"sharded_load": sharded_load, "quantize": quantize,
-             "offload": offload, "cp_pp": cp_pp}
+             "offload": offload, "cp_pp": cp_pp, "plans_rest": plans_rest}
 
 
 def main():
