@@ -37,6 +37,7 @@ from ..ops.attention import multihead_attention
 from ..ops.remat import checkpoint_name, remat as remat_layer
 from ..ops.matmul import matmul_f32_out
 from .llama import (_WHOLE, _layer_pools, _num_layers, _unbind_layers,
+                    serve_head,
                     cache_attend, model_positions,
                     init_cache, init_target, layer_params, paged_logits_at,
                     paged_positions, step_positions)
@@ -363,23 +364,33 @@ def apply(config: GPT2Config, params: dict, input_ids: torch.Tensor,
 # ``init_cache`` is llama's ([L, B, max_len, H, D])
 # ---------------------------------------------------------------------------
 
+def _serve_embed(config, params, input_ids, positions, layout):
+    positions = _in_table(config, positions)
+    if layout is None:
+        return embed_tokens(config, params, input_ids, positions)
+    return tp_embed(config, params, input_ids, positions, layout)
+
+
 @torch.no_grad()
 def prefill(config: GPT2Config, params: dict, input_ids: torch.Tensor,
-            cache: dict, last_pos: Optional[int] = None):
+            cache: dict, last_pos: Optional[int] = None, layout=None):
     """Causal forward over the prompt through the einsum attention,
     writing each layer's k/v into ``cache[:, :, :prompt_len]`` in place.
-    Returns (logits [B, V] at ``last_pos``, default the final position,
-    and the cache)."""
+    ``layout``: serving under a plan (``llama.prefill``'s). Returns
+    (logits [B, V] at ``last_pos``, default the final position, and the
+    cache)."""
+    lay = _WHOLE if layout is None else layout
     b, p = input_ids.shape
     positions = torch.arange(p, device=input_ids.device)[None, :].expand(b, -1)
-    x = embed_tokens(config, params, input_ids, _in_table(config, positions))
+    x = _serve_embed(config, params, input_ids, positions, layout)
     for i in range(config.num_layers):
-        x, (k, v) = _block(config, x, layer_params(params, i), positions,
-                           "xla", False, return_kv=True)
+        x, (k, v) = _block(config, x, lay.gather_layer(layer_params(
+            params, i)), positions, "xla", False, layout=lay, return_kv=True)
         cache["k"][i, :, :p] = k.to(cache["k"].dtype)
         cache["v"][i, :, :p] = v.to(cache["v"].dtype)
     x_last = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
-    return lm_head_logits(config, params, x_last)[:, 0], cache
+    head = serve_head(layout, lm_head_logits, final_layer)
+    return head(config, params, x_last)[:, 0], cache
 
 
 @torch.no_grad()
@@ -400,15 +411,17 @@ def decode_step(config: GPT2Config, params: dict, token_ids: torch.Tensor,
 def paged_decode_step(config: GPT2Config, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
                       cache: dict, attend, last_index=None,
-                      all_logits=False):
+                      all_logits=False, layout=None):
     """One step over the paged multi-request cache, the
     ``llama.paged_decode_step`` contract: ``token_ids`` [S, T] from
     per-slot ``positions`` [S] (the learned rows read at embed time),
     ``attend`` scatters each layer's k/v into its pages and attends over
-    the block tables (K4 on the card). Returns (logits [S, V], or [S, T, V] under
-    ``all_logits``, and the cache)."""
+    the block tables (K4 on the card). ``layout`` as in ``prefill``.
+    Returns (logits [S, V], or [S, T, V] under ``all_logits``, and the
+    cache)."""
+    lay = _WHOLE if layout is None else layout
     pos2d = paged_positions(token_ids, positions)
-    x = embed_tokens(config, params, token_ids, _in_table(config, pos2d))
+    x = _serve_embed(config, params, token_ids, pos2d, layout)
     for i in range(config.num_layers):
         kp, vp = _layer_pools(cache["k"], i), _layer_pools(cache["v"], i)
 
@@ -416,9 +429,11 @@ def paged_decode_step(config: GPT2Config, params: dict,
             return attend(q, k, v, kp, vp, window=window, scale=scale,
                           softcap=softcap)
 
-        x, _ = _block(config, x, layer_params(params, i), pos2d, "xla",
-                      False, attend_override=override)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
+        x, _ = _block(config, x, lay.gather_layer(layer_params(params, i)),
+                      pos2d, "xla", False, layout=lay,
+                      attend_override=override)
+    head = serve_head(layout, lm_head_logits, final_layer)
+    return (paged_logits_at(head, config, params, x, last_index,
                             all_logits), cache)
 
 

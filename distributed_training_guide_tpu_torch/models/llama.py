@@ -698,13 +698,16 @@ def _lora_sort(lora: dict, t: int) -> tuple:
     return order, inv, sizes
 
 
-def _lora_wmat(config, lora: dict, i: int, sort: tuple):
+def _lora_wmat(config, lora: dict, i: int, sort: tuple, cut=None):
     """Layer ``i``'s projection hook: the base ``_wmat`` plus the
     grouped-GEMM adapter delta for the targets in ``lora["stacks"]``
     (their layer-``i`` slices, ``a [G, in, r]`` / ``b [G, r, out]``). Slot
     0's rows are zeros, so base-only requests add an exact +0: the cast
     order ``base + (scale * d).to(base.dtype)`` keeps the adapter-0 ==
-    base-engine bitwise identity."""
+    base-engine bitwise identity. ``cut`` (serving under a plan,
+    ``serve/sharding.py:ServeLayout.lora_cut``): ``cut(name)`` gives a
+    function taking (a, b) to the rows and columns the rank's shard of
+    the base product holds, or None."""
     from ..ops.grouped_matmul import grouped_matmul
 
     order, inv, sizes = sort
@@ -719,9 +722,13 @@ def _lora_wmat(config, lora: dict, i: int, sort: tuple):
         if pair is None:
             return base
         s, t, k = h.shape
+        a, b = pair["a"][i], pair["b"][i]
+        shard = None if cut is None else cut(name)
+        if shard is not None:
+            a, b = shard(a, b)
         hs = h[order].reshape(s * t, k).to(torch.float32)
-        d = grouped_matmul(hs, pair["a"][i], sizes, impl=impl)
-        d = grouped_matmul(d, pair["b"][i], sizes, impl=impl)
+        d = grouped_matmul(hs, a, sizes, impl=impl)
+        d = grouped_matmul(d, b, sizes, impl=impl)
         d = d.reshape(s, t, -1)[inv]
         return base + (scale * d).to(base.dtype)
 
@@ -738,9 +745,26 @@ def init_cache(config: LlamaConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=config.dtype, device=dev)}
 
 
+def serve_head(layout, lm_head=None, final=None):
+    """A family's ``lm_head`` (llama's by default) as a serving ``layout``
+    holds the params: its final norm (``final``, the family's
+    ``final_layer``) gathered, the whole vocabulary's logits on every rank
+    (``serve/sharding.py:ServeLayout``); ``lm_head`` itself without a
+    layout. Shared by every family's serve forwards."""
+    if layout is None:
+        return lm_head or lm_head_logits
+    final = final or final_layer
+
+    def head(config, params, x):
+        return layout.logits(config, params, final(config, params, x,
+                                                   layout))
+    return head
+
+
 @torch.no_grad()
 def prefill(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
-            cache: dict, last_pos: Optional[int] = None, lora=None):
+            cache: dict, last_pos: Optional[int] = None, lora=None,
+            layout=None):
     """Causal forward over the prompt through the plain einsum attention,
     writing each layer's rope'd k/v into ``cache[:, :, :prompt_len]`` in
     place. Returns (logits [B, V] at ``last_pos`` — default the final
@@ -750,27 +774,36 @@ def prefill(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     "stacks" {t: {"a" [L, G, in, r], "b" [L, G, r, out]}}, "impl"}``:
     each example's adapter delta is added per target projection through
     the grouped GEMM, as in ``paged_decode_step`` (rows = B x P, each
-    example's P rows contiguous after the sort)."""
+    example's P rows contiguous after the sort). ``layout`` (serving
+    under a plan, ``serve/sharding.py:ServeLayout``): ``params`` are this
+    rank's shards, the row-parallel outputs summed over tp, the cache
+    this rank's kv heads (every one where the pool is whole)."""
+    lay = _WHOLE if layout is None else layout
     b, p = input_ids.shape
     positions = torch.arange(p, device=input_ids.device)[None, :].expand(b, -1)
-    x = embed_tokens(config, params, input_ids)
+    x = lay.embed(config, params, input_ids)
     wins = layer_windows(config)
     rope = layer_rope(config, positions)
+    kv_hook = lay.kv_hook(config)
+    cut = getattr(lay, "lora_cut", None)
     sort = None if lora is None else _lora_sort(lora, p)
     for i in range(config.num_layers):
-        layer = layer_params(params, i)
-        wmat = None if lora is None else _lora_wmat(config, lora, i, sort)
+        layer = lay.gather_layer(layer_params(params, i))
+        wmat = (None if lora is None
+                else _lora_wmat(config, lora, i, sort, cut))
         attn, (k, v) = attention_sublayer(
             config, x, layer["attn"],
             None if config.post_norm else layer["input_norm"], positions,
             "xla", rope, return_kv=True,
-            window_override=None if wins is None else wins[i], wmat=wmat)
-        x = _residuals(config, x, layer, attn, wmat=wmat)
+            window_override=None if wins is None else wins[i], wmat=wmat,
+            kv_hook=kv_hook)
+        x = _residuals(config, x, layer, lay.leave(attn, "attn"), lay,
+                       wmat=wmat)
         cache["k"][i, :, :p] = k.to(cache["k"].dtype)
         cache["v"][i, :, :p] = v.to(cache["v"].dtype)
     # slice BEFORE the head: one row through the [E, V] projection
     x_last = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
-    return lm_head_logits(config, params, x_last)[:, 0], cache
+    return serve_head(layout)(config, params, x_last)[:, 0], cache
 
 
 def cache_attend(cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
@@ -860,7 +893,7 @@ def _layer_pools(pool, i):
 def paged_decode_step(config: LlamaConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
                       cache: dict, attend, last_index=None,
-                      all_logits=False, lora=None):
+                      all_logits=False, lora=None, layout=None):
     """One step over a PAGED multi-request cache: ``token_ids`` [S, T] are
     each slot's next T tokens starting at per-slot ``positions`` [S]
     (T == 1 the batched decode step, T > 1 a prefill chunk, where
@@ -872,16 +905,21 @@ def paged_decode_step(config: LlamaConfig, params: dict,
     the page pools ``{"k", "v"}: [L, n_pages, page, kvh, hd]`` and
     ``attend(q, k, v, kp, vp, *, window, scale, softcap)`` (built by
     ``serve/kv_pages.make_attend``) writes the new k/v into one layer's
-    pages IN PLACE and attends each slot over its block table. Returns
-    (logits [S, V] and the cache)."""
+    pages IN PLACE and attends each slot over its block table. ``layout``
+    as in ``prefill`` (the pages are this rank's). Returns (logits [S, V]
+    and the cache)."""
+    lay = _WHOLE if layout is None else layout
     pos2d = paged_positions(token_ids, positions)
-    x = embed_tokens(config, params, token_ids)
+    x = lay.embed(config, params, token_ids)
     wins = layer_windows(config)
     rope = layer_rope(config, pos2d)
+    kv_hook = lay.kv_hook(config)
+    cut = getattr(lay, "lora_cut", None)
     sort = None if lora is None else _lora_sort(lora, token_ids.shape[1])
     for i in range(config.num_layers):
-        layer = layer_params(params, i)
-        wmat = None if lora is None else _lora_wmat(config, lora, i, sort)
+        layer = lay.gather_layer(layer_params(params, i))
+        wmat = (None if lora is None
+                else _lora_wmat(config, lora, i, sort, cut))
         kp, vp = _layer_pools(cache["k"], i), _layer_pools(cache["v"], i)
 
         def override(q, k, v, *, window, scale, softcap, kp=kp, vp=vp):
@@ -892,10 +930,11 @@ def paged_decode_step(config: LlamaConfig, params: dict,
             config, x, layer["attn"],
             None if config.post_norm else layer["input_norm"], pos2d, "xla",
             rope, window_override=None if wins is None else wins[i],
-            attend_override=override, wmat=wmat)
-        x = _residuals(config, x, layer, attn, wmat=wmat)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
-                            all_logits), cache)
+            attend_override=override, wmat=wmat, kv_hook=kv_hook)
+        x = _residuals(config, x, layer, lay.leave(attn, "attn"), lay,
+                       wmat=wmat)
+    return (paged_logits_at(serve_head(layout), config, params, x,
+                            last_index, all_logits), cache)
 
 
 # ---------------------------------------------------------------------------

@@ -606,7 +606,9 @@ def _moe_ffn(config: MoELlamaConfig, x: torch.Tensor, moe: dict,
     (both summed over the ranks of ``split.route`` first). Under tp the
     experts' and the shared expert's mlp dims are sharded and ``y`` is a
     partial sum: the caller's ``layout.leave`` sums it once, routed and
-    shared outputs together (the JAX package's ``tp_axis``)."""
+    shared outputs together (the JAX package's ``tp_axis``); where tp
+    divides neither width, the layout hands the weights whole and ``y``
+    is the whole output ("moe" among ``LocalLayout.whole_parts``)."""
     b, s, d = x.shape
     t = b * s
     ex, k = config.num_experts, config.experts_per_token
@@ -689,11 +691,11 @@ def block(config: MoELlamaConfig, x: torch.Tensor, layer: dict, *,
         window_override=window, standard_layout=standard_layout,
         kv_hook=kv_hook), "attn")
     x = x + attn
-    h = layout.enter(_rmsnorm(x, layer["post_attn_norm"], eps))
+    h = layout.enter(_rmsnorm(x, layer["post_attn_norm"], eps), "moe")
     y, aux, dropped = _moe_ffn(config, h, layer["moe"], moe_ep=moe_ep,
                                gmm_impl=gmm_impl,
                                split=layout.token_split(h))
-    return x + layout.leave(y), aux, dropped
+    return x + layout.leave(y, "moe"), aux, dropped
 
 
 def run_blocks(config: MoELlamaConfig, layers: dict, x: torch.Tensor,
@@ -797,30 +799,36 @@ logits_of_hidden = llama.logits_of_hidden
 @torch.no_grad()
 def prefill(config: MoELlamaConfig, params: dict, input_ids: torch.Tensor,
             cache: dict, last_pos: Optional[int] = None, *,
-            gmm_impl: str = "auto"):
+            gmm_impl: str = "auto", layout=None):
     """Causal forward over the prompt (the engine's bucketed prefill),
     writing each layer's rope'd k/v into ``cache[:, :, :prompt_len]`` in
-    place; the routed FFN runs drop-free. Returns (logits [B, V] at
-    ``last_pos``, default the final position, and the cache)."""
+    place; the routed FFN runs drop-free. ``layout``: serving under a plan
+    (``llama.prefill``'s; the experts' columns are this rank's under tp,
+    their partial outputs summed with the shared expert's). Returns
+    (logits [B, V] at ``last_pos``, default the final position, and the
+    cache)."""
+    lay = llama._WHOLE if layout is None else layout
     b, p = input_ids.shape
     positions = torch.arange(p, device=input_ids.device)[None, :].expand(b, -1)
-    x = embed_tokens(config, params, input_ids)
+    x = lay.embed(config, params, input_ids)
     wins = llama.layer_windows(config)
     rope = llama.layer_rope(config, positions)
+    kv_hook = lay.kv_hook(config)
     for i in range(config.num_layers):
-        layer = llama.layer_params(params, i)
+        layer = lay.gather_layer(llama.layer_params(params, i))
         attn, (k, v) = attention_sublayer(
             config, x, layer["attn"], layer["input_norm"], positions, "xla",
             rope, return_kv=True,
-            window_override=None if wins is None else wins[i])
-        x = x + attn
+            window_override=None if wins is None else wins[i],
+            kv_hook=kv_hook)
+        x = x + lay.leave(attn, "attn")
         h = _rmsnorm(x, layer["post_attn_norm"], config.rms_norm_eps)
-        x = x + _moe_ffn(config, h, layer["moe"], no_drop=True,
-                         gmm_impl=gmm_impl)[0]
+        x = x + lay.leave(_moe_ffn(config, h, layer["moe"], no_drop=True,
+                                   gmm_impl=gmm_impl)[0], "moe")
         cache["k"][i, :, :p] = k.to(cache["k"].dtype)
         cache["v"][i, :, :p] = v.to(cache["v"].dtype)
     x_last = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
-    return lm_head_logits(config, params, x_last)[:, 0], cache
+    return llama.serve_head(layout)(config, params, x_last)[:, 0], cache
 
 
 @torch.no_grad()
@@ -852,18 +860,22 @@ def decode_step(config: MoELlamaConfig, params: dict,
 def paged_decode_step(config: MoELlamaConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
                       cache: dict, attend, last_index=None,
-                      all_logits=False, *, gmm_impl: str = "auto"):
+                      all_logits=False, *, gmm_impl: str = "auto",
+                      layout=None):
     """One step over a PAGED multi-request cache, the
     ``llama.paged_decode_step`` contract (decode steps at T = 1, prefill
     chunks at T > 1), with the routed FFN drop-free: per-token routing does
-    not depend on the co-resident slots. Returns (logits [S, V], or
-    [S, T, V] under ``all_logits``, and the cache)."""
+    not depend on the co-resident slots. ``layout`` as in ``prefill``.
+    Returns (logits [S, V], or [S, T, V] under ``all_logits``, and the
+    cache)."""
+    lay = llama._WHOLE if layout is None else layout
     pos2d = llama.paged_positions(token_ids, positions)
-    x = embed_tokens(config, params, token_ids)
+    x = lay.embed(config, params, token_ids)
     wins = llama.layer_windows(config)
     rope = llama.layer_rope(config, pos2d)
+    kv_hook = lay.kv_hook(config)
     for i in range(config.num_layers):
-        layer = llama.layer_params(params, i)
+        layer = lay.gather_layer(llama.layer_params(params, i))
         kp = llama._layer_pools(cache["k"], i)
         vp = llama._layer_pools(cache["v"], i)
 
@@ -874,13 +886,13 @@ def paged_decode_step(config: MoELlamaConfig, params: dict,
         attn = attention_sublayer(
             config, x, layer["attn"], layer["input_norm"], pos2d, "xla",
             rope, window_override=None if wins is None else wins[i],
-            attend_override=override)
-        x = x + attn
+            attend_override=override, kv_hook=kv_hook)
+        x = x + lay.leave(attn, "attn")
         h = _rmsnorm(x, layer["post_attn_norm"], config.rms_norm_eps)
-        x = x + _moe_ffn(config, h, layer["moe"], no_drop=True,
-                         gmm_impl=gmm_impl)[0]
-    return (llama.paged_logits_at(lm_head_logits, config, params, x,
-                                  last_index, all_logits), cache)
+        x = x + lay.leave(_moe_ffn(config, h, layer["moe"], no_drop=True,
+                                   gmm_impl=gmm_impl)[0], "moe")
+    return (llama.paged_logits_at(llama.serve_head(layout), config, params,
+                                  x, last_index, all_logits), cache)
 
 
 # ---------------------------------------------------------------------------

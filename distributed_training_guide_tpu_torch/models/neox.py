@@ -18,10 +18,9 @@ leaf (``models/from_jax.py``). What sets the family apart:
 
 q and k come out of the partial rope contiguous; v is a strided slice of
 the fused projection, which the flash kernels read through its strides.
-gpt-neox-20b's head_dim of 96 is not a kernel head_dim: its training
+gpt-neox-20b's head_dim of 96 is not a flash head_dim: its training
 attention takes the einsum path ("auto", as the JAX package's alignment
-rule picks), and the serving engine refuses it on the card
-(``serve/engine.py``).
+rule picks). The serving engine's paged attend takes it (K4 at D 96).
 """
 from __future__ import annotations
 
@@ -36,6 +35,7 @@ from ..ops.remat import checkpoint_name, remat as remat_layer
 from ..ops.rope import rope_tables, rotate
 from .gpt2 import attend_or_override, fused_qkv, layernorm
 from .llama import (_WHOLE, _layer_pools, _num_layers, _unbind_layers,
+                    serve_head,
                     cache_attend, model_positions,
                     init_cache, init_target, layer_params, paged_logits_at,
                     paged_positions, step_positions)
@@ -354,23 +354,33 @@ def apply(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
 # ``init_cache`` is llama's ([L, B, max_len, H, D])
 # ---------------------------------------------------------------------------
 
+def _serve_embed(config, params, input_ids, layout):
+    if layout is None:
+        return embed_tokens(config, params, input_ids)
+    return tp_embed(config, params, input_ids, layout)
+
+
 @torch.no_grad()
 def prefill(config: NeoXConfig, params: dict, input_ids: torch.Tensor,
-            cache: dict, last_pos: Optional[int] = None):
+            cache: dict, last_pos: Optional[int] = None, layout=None):
     """Causal forward over the prompt through the einsum attention,
     writing each layer's rope'd k/v into ``cache[:, :, :prompt_len]`` in
-    place. Returns (logits [B, V] at ``last_pos``, and the cache)."""
+    place. ``layout``: serving under a plan (``llama.prefill``'s). Returns
+    (logits [B, V] at ``last_pos``, and the cache)."""
+    lay = _WHOLE if layout is None else layout
     b, p = input_ids.shape
     positions = torch.arange(p, device=input_ids.device)[None, :].expand(b, -1)
-    x = embed_tokens(config, params, input_ids)
+    x = _serve_embed(config, params, input_ids, layout)
     rope = layer_rope(config, positions)
     for i in range(config.num_layers):
-        x, (k, v) = _block(config, x, layer_params(params, i), positions,
-                           rope, "xla", False, return_kv=True)
+        x, (k, v) = _block(config, x, lay.gather_layer(layer_params(
+            params, i)), positions, rope, "xla", False, layout=lay,
+            return_kv=True)
         cache["k"][i, :, :p] = k.to(cache["k"].dtype)
         cache["v"][i, :, :p] = v.to(cache["v"].dtype)
     x_last = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
-    return lm_head_logits(config, params, x_last)[:, 0], cache
+    head = serve_head(layout, lm_head_logits, final_layer)
+    return head(config, params, x_last)[:, 0], cache
 
 
 @torch.no_grad()
@@ -392,13 +402,14 @@ def decode_step(config: NeoXConfig, params: dict, token_ids: torch.Tensor,
 def paged_decode_step(config: NeoXConfig, params: dict,
                       token_ids: torch.Tensor, positions: torch.Tensor,
                       cache: dict, attend, last_index=None,
-                      all_logits=False):
+                      all_logits=False, layout=None):
     """One step over the paged multi-request cache, the
     ``llama.paged_decode_step`` contract, through the parallel-residual
-    block. Returns (logits [S, V], or [S, T, V] under
-    ``all_logits``, and the cache)."""
+    block. ``layout`` as in ``prefill``. Returns (logits [S, V], or
+    [S, T, V] under ``all_logits``, and the cache)."""
+    lay = _WHOLE if layout is None else layout
     pos2d = paged_positions(token_ids, positions)
-    x = embed_tokens(config, params, token_ids)
+    x = _serve_embed(config, params, token_ids, layout)
     rope = layer_rope(config, pos2d)
     for i in range(config.num_layers):
         kp, vp = _layer_pools(cache["k"], i), _layer_pools(cache["v"], i)
@@ -407,9 +418,11 @@ def paged_decode_step(config: NeoXConfig, params: dict,
             return attend(q, k, v, kp, vp, window=window, scale=scale,
                           softcap=softcap)
 
-        x, _ = _block(config, x, layer_params(params, i), pos2d, rope, "xla",
-                      False, attend_override=override)
-    return (paged_logits_at(lm_head_logits, config, params, x, last_index,
+        x, _ = _block(config, x, lay.gather_layer(layer_params(params, i)),
+                      pos2d, rope, "xla", False, layout=lay,
+                      attend_override=override)
+    head = serve_head(layout, lm_head_logits, final_layer)
+    return (paged_logits_at(head, config, params, x, last_index,
                             all_logits), cache)
 
 

@@ -19,8 +19,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# ``--split-compile 0``: each nvcc optimizes and assembles its kernels in
+# parallel over every core (the sources differ in size: one long source
+# would otherwise hold the whole build)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 _libs: dict = {}        # name -> loaded ctypes.CDLL
 build_logs: dict = {}   # name -> nvcc's stderr (ptxas registers and spills)

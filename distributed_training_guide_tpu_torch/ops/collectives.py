@@ -23,6 +23,8 @@ of one global loss (Megatron's conjugate operators):
   this rank's slice of the cotangent, which every rank holds whole: the
   input of a computation every rank of the group runs alike (a custom
   loss on the global logits, a sublayer run whole on every tp rank).
+- ``gather_tiled``: the tiled gather with no autograd, by c10d's
+  ``all_gather_into_tensor``: the serve forwards under a plan.
 
 A ``group`` of ``None`` means no group: each op is then the identity (the
 plain single-device form).
@@ -126,6 +128,20 @@ class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def gather_tiled(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over ``group`` (rank order), with
+    no autograd, by c10d's ``all_gather_into_tensor``: the serve forwards
+    (``serve/sharding.py``) run without grads, and gloo's functional
+    all-gather of CUDA tensors (two tp ranks on one card) crashes where
+    the c10d one does not."""
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
 
 
 def gather_replicated(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

@@ -68,6 +68,12 @@
 //   canonical swizzled shared-memory layout, which a key-by-key gather
 //   through the block table would have to produce by hand; mma.sync reads
 //   any padded layout through ldmatrix. wgmma is later work.
+//
+// Shapes: head_dim 64, 96, 128 or 256 (96 = 6 x 16 tiles the tensor-core
+// body's k steps and its 8-column fragments; the split body puts 16 lanes
+// on a key there, 6 elements each), and any page of 1 to 256 positions:
+// both bodies walk key positions, not pages, so a page's size enters only
+// through page_of and the staged page ids of a split.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,6 +89,7 @@ constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr int kThreads = 128;      // four warps, every kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPps = 64;        // pages per split, at most
+constexpr int kMaxPage = 256;      // positions per page, at most
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -121,9 +128,16 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// E contiguous elements, loaded as one aligned vector
+// the largest power of two, at most 16, that divides n bytes
+__host__ __device__ constexpr int vec_align(int n) {
+  return n % 16 == 0 ? 16 : n % 8 == 0 ? 8 : n % 4 == 0 ? 4 : n % 2 == 0 ? 2 : 1;
+}
+
+// E contiguous elements, loaded as aligned vectors (one of 16 bytes where
+// E elements fill it; head_dim 96 gives rows of 6 or 3 elements, loaded
+// 2 to 8 bytes at a time)
 template <typename T, int E>
-struct alignas(sizeof(T) * E) Vec {
+struct alignas(vec_align(sizeof(T) * E)) Vec {
   T v[E];
 };
 
@@ -132,12 +146,15 @@ __device__ __forceinline__ Vec<T, E> load_vec(const T* p) {
   return *reinterpret_cast<const Vec<T, E>*>(p);
 }
 
-// kpos / page for 0 <= kpos < 2**26: a multiply-high by ceil(2**32 / page)
-// is exact there (page <= 64), where an integer division costs ~20
-// instructions per key
+// kpos / page for 0 <= kpos < 2**32 / page (2**24 at page 256, far past
+// any slot's capacity): a multiply-high by ceil(2**32 / page) is exact
+// there, where an integer division costs ~20 instructions per key. A page
+// of one position has no 32-bit magic (page_magic 0): kpos is its page.
 __device__ __forceinline__ int page_of(const Params& p, int kpos) {
-  return static_cast<int>(__umulhi(static_cast<unsigned>(kpos),
-                                   p.page_magic));
+  return p.page_magic == 0u
+             ? kpos
+             : static_cast<int>(__umulhi(static_cast<unsigned>(kpos),
+                                         p.page_magic));
 }
 
 // The pages [lo, hi] of the table that query positions [qmin, qmax] can
@@ -185,11 +202,23 @@ __device__ __forceinline__ size_t out_row(const Params& p, int s, int h,
 // pages, the merge) hide behind the other blocks' loads. 8-row blocks hold
 // twice the q and acc registers and are left unbounded (bounded to three,
 // they spill ~450 bytes a thread).
+// Lanes that share a key: D / VE (VE elements of a 16-byte load) where
+// that is a power of two, at most 32; 16 at head_dim 96 (6 elements a lane,
+// loaded 4 bytes at a time for bf16, 8 for fp32), so the score's shuffle
+// reduction and the lane-group merge stay over powers of two. (8 lanes of
+// 12 elements spilled 0.8-1.1 KB a thread under the 4-row block's bound.)
+template <typename KV, int D>
+__host__ __device__ constexpr int lanes_per_key() {
+  constexpr int VE = std::is_same<KV, float>::value ? 4 : 8;
+  constexpr int n = D / VE;
+  return (n & (n - 1)) == 0 ? (n < 32 ? n : 32) : 16;
+}
+
 template <typename QT, typename KV, int D, int RT>
 __global__ void __launch_bounds__(kThreads, RT <= 4 ? 3 : 1)
 paged_attend_split_kernel(const Params p) {
-  constexpr int VE = std::is_same<KV, float>::value ? 4 : 8;
-  constexpr int LPK = D / VE < 32 ? D / VE : 32;  // lanes that share a key
+  constexpr int LPK = lanes_per_key<KV, D>();
+  static_assert(D % LPK == 0 && 32 % LPK == 0, "lanes must tile a row");
   constexpr int E = D / LPK;                      // elements per lane
   constexpr int KPW = 32 / LPK;                   // keys a warp takes at once
   constexpr int KC = RT <= 4 ? 4 : 2;             // keys per lane group/step
@@ -901,6 +930,7 @@ int launch_body_kv(const Params& p, int body, int rows, int D,
   if (body == kSplitBody) {
     switch (D) {
       case 64: return launch_split<QT, KV, 64>(p, rows, st);
+      case 96: return launch_split<QT, KV, 96>(p, rows, st);
       case 128: return launch_split<QT, KV, 128>(p, rows, st);
       case 256: return launch_split<QT, KV, 256>(p, rows, st);
       default: return -1;
@@ -911,6 +941,7 @@ int launch_body_kv(const Params& p, int body, int rows, int D,
     if (body == kMmaBody && rows == MmaCfg<KV, 64>::BR) {
       switch (D) {
         case 64: return launch_mma<KV, 64>(p, st);
+        case 96: return launch_mma<KV, 96>(p, st);
         case 128: return launch_mma<KV, 128>(p, st);
         case 256: return launch_mma<KV, 256>(p, st);
         default: return -1;
@@ -934,24 +965,29 @@ int launch_body(const Params& p, int kv_dtype, int body, int rows, int D,
 int combine(const Params& p, int q_dtype, int D, cudaStream_t st) {
   switch (q_dtype * 1000 + D) {
     case kF32 * 1000 + 64: return launch_combine<float, 64>(p, st);
+    case kF32 * 1000 + 96: return launch_combine<float, 96>(p, st);
     case kF32 * 1000 + 128: return launch_combine<float, 128>(p, st);
     case kF32 * 1000 + 256: return launch_combine<float, 256>(p, st);
     case kBF16 * 1000 + 64: return launch_combine<bf16, 64>(p, st);
+    case kBF16 * 1000 + 96: return launch_combine<bf16, 96>(p, st);
     case kBF16 * 1000 + 128: return launch_combine<bf16, 128>(p, st);
     case kBF16 * 1000 + 256: return launch_combine<bf16, 256>(p, st);
     default: return -1;
   }
 }
 
+// ceil(2**32 / page); 0 for a page of one position (page_of's case)
 unsigned page_magic(int page) {
-  return static_cast<unsigned>(((1ull << 32) + page - 1) / page);
+  return page == 1 ? 0u
+                   : static_cast<unsigned>(((1ull << 32) + page - 1) / page);
 }
 
 bool shape_ok(int S, int T, int Hq, int Hkv, int D, int P, int page, int M,
               int window, int pps, int splits) {
   return S >= 0 && T >= 0 && Hkv >= 1 && Hq % Hkv == 0 && P >= 1 && M >= 1 &&
-         page >= 8 && page <= 64 && page % 8 == 0 && window >= 1 &&
-         (D == 64 || D == 128 || D == 256) && pps >= 1 && pps <= kMaxPps &&
+         page >= 1 && page <= kMaxPage && window >= 1 &&
+         (D == 64 || D == 96 || D == 128 || D == 256) && pps >= 1 &&
+         pps <= kMaxPps &&
          splits == (M + pps - 1) / pps;
 }
 

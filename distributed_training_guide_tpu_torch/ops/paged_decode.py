@@ -46,7 +46,8 @@ MMA_LAUNCHES = 0       # launches of the tensor-core body
 COMBINE_LAUNCHES = 0   # launches of the combine pass
 NEG_INF = -1e30        # the kernel's mask constant (the plain path uses
                        # finfo(float32).min, as the JAX package does)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
+MAX_PAGE = 256        # positions per page, at most
 SPLIT_PAGES = 16       # pages per split of the split-context body
 MMA_SPLIT_PAGES = 32   # pages per split of the tensor-core body
 MMA_ROWS = 64          # folded query rows per tensor-core block
@@ -82,11 +83,10 @@ def _plan(t: int, groups: int, d: int, q_dtype: torch.dtype,
 
 def paged_decode_eligible(head_dim: int, page_size: int,
                           quantized: bool = False) -> bool:
-    """Shapes the CUDA kernels take: head_dim 64, 128 or 256 and a page
-    of 8 to 64 positions in steps of 8, for float and int8 pools alike."""
+    """Shapes the CUDA kernels take: head_dim 64, 96, 128 or 256 and a
+    page of 1 to ``MAX_PAGE`` positions, for float and int8 pools alike."""
     del quantized
-    return (head_dim in HEAD_DIMS and 8 <= page_size <= 64
-            and page_size % 8 == 0)
+    return head_dim in HEAD_DIMS and 1 <= page_size <= MAX_PAGE
 
 
 def _gathered(q, k_pages, v_pages, tables, k_scale, v_scale):
@@ -240,8 +240,8 @@ def _validate(q, k_pages, v_pages, tables, lengths, k_scale, v_scale):
            "k and v pools differ in shape")
     _check(d_kv == d and d in HEAD_DIMS, f"head_dim {d} (pool {d_kv}); the "
            f"kernels take {HEAD_DIMS}")
-    _check(paged_decode_eligible(d, page), f"page size {page} (8..64, a "
-           f"multiple of 8)")
+    _check(paged_decode_eligible(d, page), f"page size {page} (1.."
+           f"{MAX_PAGE})")
     _check(hkv >= 1 and hq % hkv == 0, f"query heads ({hq}) must be a "
            f"positive multiple of kv heads ({hkv})")
     _check(tables.dtype == torch.int32 and m >= 1 and tables.shape[0] == s,

@@ -631,7 +631,12 @@ class LocalLayout:
         from ..models.moe import TokenSplit
         from ..ops.collectives import AxesExchange
 
-        replicas = self.tp if self.tp_on else 1
+        # tp ranks that route the same tokens and then sum their aux
+        # gradients over tp: every one, but for experts run whole without
+        # sequence parallelism, whose router grads are not summed over tp
+        # (each rank's is the whole one)
+        replicas = (self.tp if self.tp_on and (
+            self.sp or "moe" not in self.whole_parts) else 1)
         if not self.route_groups and self.ep_exchange is None \
                 and replicas == 1:
             return None
@@ -820,34 +825,27 @@ class LocalLayout:
             "tp" in entry_axes(e) for e in self.specs[base])
 
 
-# what the replicated fallback leaves for later, by ROADMAP.md item
-_MOE_TP_WHOLE = "ROADMAP.md queue 1, 'Experts whole under tp'"
-
-
 def _whole_parts(config, tp: int, specs: dict, mlp_in: str) -> frozenset:
     """The layer parts tp cannot run on shards of whole heads or columns,
     which then run whole on every tp rank (the JAX package runs the
     replicated or resharded weight there): attention where tp divides the
     q heads or the kv heads in neither direction, or under
     ``qk_norm="flat"`` (a norm across every head); the MLP where tp does
-    not divide its width (``spec_for_leaf`` replicated it). A mixture of
-    experts' routed and shared experts sum partial outputs over tp, which
-    has no whole form here."""
+    not divide its width (``spec_for_leaf`` replicated it); a mixture of
+    experts ("moe") where tp divides neither the routed experts' width nor
+    ``shared_expert_intermediate``: its routed and shared experts' outputs
+    are summed over tp together, so both run whole (every tp rank all its
+    tokens through the whole expert weights, no tp sum)."""
     parts = set()
     hkv = getattr(config, "num_kv_heads", config.num_heads)
     if (config.num_heads % tp or (hkv % tp and tp % hkv)
             or getattr(config, "qk_norm", False) == "flat"):
         parts.add("attn")
-    if not any("tp" in entry_axes(e) for e in specs[mlp_in]):
-        if mlp_in.startswith("layers/moe/"):
-            raise NotImplementedError(
-                f"tensor parallelism over experts whose width "
-                f"{getattr(config, 'intermediate_size', None)} tp {tp} "
-                f"does not divide: {_MOE_TP_WHOLE}")
+    split = any("tp" in entry_axes(e) for e in specs[mlp_in])
+    if mlp_in.startswith("layers/moe/"):
+        shared = getattr(config, "shared_expert_intermediate", None)
+        if not split or (shared and shared % tp):
+            parts.add("moe")
+    elif not split:
         parts.add("mlp")
-    shared = getattr(config, "shared_expert_intermediate", None)
-    if shared and shared % tp:
-        raise NotImplementedError(
-            f"tensor parallelism with shared_expert_intermediate {shared} "
-            f"% tp {tp}: {_MOE_TP_WHOLE}")
     return frozenset(parts)

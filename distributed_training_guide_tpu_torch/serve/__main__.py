@@ -22,6 +22,10 @@ card by default.
                                                   # prefill / decode pair
     python -m distributed_training_guide_tpu_torch.serve -m llama-debug \\
         --prompt-ids 3,17,42 --device cpu --replicas 2    # a routed fleet
+    python -m distributed_training_guide_tpu_torch.launch.local --nproc 2 \\
+        -- python -m distributed_training_guide_tpu_torch.serve \\
+        -m llama-debug --prompt-ids 3,17,42 --device cpu --tp 2 --shard-kv
+                                                  # tp 2, the pool on kv heads
 
 The model is built from a random init of ``--seed``, in fp32 by default
 (as the JAX package's CLI does); ``--dtype bfloat16`` keeps params and
@@ -34,21 +38,47 @@ engine has stored the int8 one, so only the int8 weights stay resident.
 (``--prefill-slots`` concurrent prefills; ``--transport cross_host`` moves
 every handoff's pages over the CRC-framed wire between two pools), and
 ``--replicas N`` fronts N engines sharing one set of programs with the
-fleet router; the two do not combine. Not in this package yet (refused
-naming ROADMAP.md queue 1, 'Serve fleet, sharded pool'): ``--tp`` and
-``--shard-kv``.
+fleet router; the two do not combine.
+
+``--tp N`` serves under a tp plan of N ranks, one process each, started
+by ``launch.local --nproc N`` (or torchrun: the env contract's world size
+must be N); ``--shard-kv`` splits the page pool on its kv heads over
+them. Rank 0 builds the engine and prints what the single-device CLI
+prints (``--http-port`` serves from it); every other rank runs the
+engine's programs as rank 0 broadcasts them (``serve/sharding.py``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 import time
 
-# the JAX CLI's flags of the tp-sharded page pool, refused here
-_SHARD_FLAGS = (("--tp", {"type": int, "default": None}),
-                ("--shard-kv", {"action": "store_true"}))
-_SHARD_ITEM = "ROADMAP.md queue 1, 'Serve fleet, sharded pool'"
+
+def _tp_plan(args):
+    """The tp plan of ``--tp`` (None at 1), its process group started from
+    the env contract, whose world size must be ``--tp``."""
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.tp == 1:
+        if args.shard_kv:
+            raise SystemExit("--shard-kv needs a tp mesh: pass --tp > 1")
+        return None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != args.tp:
+        raise SystemExit(
+            f"--tp {args.tp} runs one process per rank and this process "
+            f"sees a world of {world}: start it as `python -m "
+            f"distributed_training_guide_tpu_torch.launch.local --nproc "
+            f"{args.tp} -- python -m distributed_training_guide_tpu_torch."
+            f"serve --tp {args.tp} ...` (or torchrun --nproc-per-node "
+            f"{args.tp})")
+    from ..launch import maybe_initialize_distributed
+    from ..parallel import make_mesh, make_plan
+
+    maybe_initialize_distributed(args.device)
+    return make_plan("tp", make_mesh(tp=args.tp, device=args.device))
 
 
 def main(argv=None) -> None:
@@ -158,15 +188,16 @@ def main(argv=None) -> None:
                         "router (prefix affinity, spillover, heartbeat "
                         "fencing, resubmission replay); replicas share "
                         "one set of programs")
-    for flag, kw in _SHARD_FLAGS:
-        parser.add_argument(flag, **kw, help=f"not in this package yet "
-                            f"({_SHARD_ITEM})")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel ranks (one process each, "
+                        "under launch.local --nproc N); params shard on "
+                        "heads / MLP columns / vocab")
+    parser.add_argument("--shard-kv", action="store_true",
+                        help="split the KV page pool on its kv-head axis "
+                        "over the --tp ranks (per-rank pool slices; "
+                        "requires --tp > 1)")
     args = parser.parse_args(argv)
-    used = [flag for flag, _ in _SHARD_FLAGS
-            if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
-    if used:
-        raise SystemExit(f"{', '.join(used)}: not ported to the PyTorch "
-                         f"package yet ({_SHARD_ITEM})")
+    plan = _tp_plan(args)
     if args.replicas > 1 and args.disagg:
         raise SystemExit("--replicas fronts ServeEngine replicas; combining "
                          "it with --disagg per replica is not supported")
@@ -174,9 +205,7 @@ def main(argv=None) -> None:
     import torch
 
     from ..models.registry import get_model
-    from .api import generate_many, serve_http, throughput_stats
-    from .engine import ServeEngine
-    from .scheduler import Request
+    from .engine import ModelPrograms
 
     dtype = getattr(torch, args.dtype)
 
@@ -190,6 +219,33 @@ def main(argv=None) -> None:
                                            device=args.device)
         return bundle, bundle.init(bundle.config, args.seed + seed,
                                    device=args.device)
+
+    shared = None
+    if plan is not None:
+        # every rank builds the programs over its shards; rank 0 drives
+        shared = ModelPrograms(
+            *load(args.model_name, args.pretrained, 0), device=args.device,
+            plan=plan, shard_kv=args.shard_kv, attend_impl=args.attend_impl,
+            kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
+        if not shared.leads:
+            shared.follow()
+            return
+    try:
+        _serve(args, load, shared)
+    finally:
+        if shared is not None:
+            shared.release()
+
+
+def _serve(args, load, shared) -> None:
+    """The CLI on rank 0 (or the only process): build the engine, over the
+    plan's ``shared`` programs or its own, and serve."""
+    import torch
+
+    from ..models.registry import get_model
+    from .api import generate_many, serve_http, throughput_stats
+    from .engine import ServeEngine
+    from .scheduler import Request
 
     tokenizer = None
     if args.prompt or args.http_port is not None:
@@ -223,24 +279,29 @@ def main(argv=None) -> None:
                   spec_k=args.spec_k, decode_horizon=args.decode_horizon)
     # the engine holds the params it serves; under --weight-dtype int8
     # that is the int8 tree alone, the full-precision one dies with load
+    # (under a plan the shared programs hold this rank's shards)
+    def model():
+        if shared is not None:
+            return shared.bundle, None
+        return load(args.model_name, args.pretrained, 0)
+
+    if shared is not None:
+        common["programs"] = shared
     if args.replicas > 1:
         from .router import local_fleet
 
-        engine = local_fleet(*load(args.model_name, args.pretrained, 0),
-                             args.replicas, **common)
+        engine = local_fleet(*model(), args.replicas, **common)
         first = engine.replicas["r0"].engine
         report = {"replicas": args.replicas, **first.kv_report()}
         programs = first.programs
     elif args.disagg:
         from .disagg import DisaggEngine
 
-        engine = DisaggEngine(*load(args.model_name, args.pretrained, 0),
-                              n_prefill_slots=args.prefill_slots,
+        engine = DisaggEngine(*model(), n_prefill_slots=args.prefill_slots,
                               transport=args.transport, **common)
         report, programs = engine.kv_report(), engine.programs
     else:
-        engine = ServeEngine(*load(args.model_name, args.pretrained, 0),
-                             **common)
+        engine = ServeEngine(*model(), **common)
         report, programs = engine.kv_report(), engine.programs
     out = {"kv_report": report}
     if args.weight_dtype is not None:

@@ -163,11 +163,15 @@ class CrossHostPageHandoff:
 
     def __init__(self, send_pool: PagePool, recv_pool: PagePool,
                  send_pages: dict, recv_pages: dict, *,
-                 kv_dtype: str, ack_timeout_s: float = 2.0):
+                 kv_dtype: str, ack_timeout_s: float = 2.0, scatter=None):
         from .transport import loopback_channel
 
         self.send_pool, self.recv_pool = send_pool, recv_pool
         self.send_pages, self.recv_pages = send_pages, recv_pages
+        # seats a received payload (the engine's programs: every rank's
+        # pool under a plan)
+        self.scatter = scatter or (lambda ids, payload: scatter_payload(
+            self.recv_pages, ids, payload))
         self.kv_dtype = kv_dtype
         # a card's receiver lands each leaf in pinned host memory, so the
         # scatter into the decode pool is a fast host-to-device copy
@@ -264,7 +268,7 @@ class CrossHostPageHandoff:
         if pages is None:
             return None
         self._received.pop(best)
-        scatter_payload(self.recv_pages, pages, h.payload)
+        self.scatter(pages, h.payload)
         h.pages, h.payload = pages, None
         return h
 
@@ -508,8 +512,10 @@ class DisaggEngine:
     with the crash-safe delivery protocol — ``handoff_ack_timeout_s``
     bounds how long a transfer waits before resolving to the
     drop-and-requeue outcome. ``device`` defaults to ``cuda``; ``plan=``
-    / ``shard_kv=`` are refused as the monolith refuses them (ROADMAP.md
-    queue 1, 'Serve fleet, sharded pool').
+    / ``shard_kv=`` serve under a plan as the monolith does (rank 0 builds
+    the pair, the other ranks follow its programs; same-host only with
+    ``shard_kv``: the handoff moves page ids, whatever heads a rank
+    holds).
     """
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int = 8,
@@ -547,6 +553,12 @@ class DisaggEngine:
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got "
                              f"{transport!r}")
+        if transport == "cross_host" and shard_kv:
+            raise ValueError(
+                "transport='cross_host' does not compose with shard_kv "
+                "yet: the wire gathers/scatters whole pool leaves, not "
+                "per-chip slices (the ICI/DCN path is the TPU rung of "
+                "this seam)")
         # a pre-built programs= shares one params layout (the monolith's
         # contract: engine-generation swaps run the old generation's own
         # programs, so replayed tokens are bitwise)
@@ -605,7 +617,9 @@ class DisaggEngine:
             self.handoff = CrossHostPageHandoff(
                 self.pool, self.decode_pool, self.pages, self.decode_pages,
                 kv_dtype=self.kv_dtype,
-                ack_timeout_s=handoff_ack_timeout_s)
+                ack_timeout_s=handoff_ack_timeout_s,
+                scatter=lambda ids, payload: self.programs.scatter_pages(
+                    self.decode_pages, ids, payload))
         else:
             if n_pages is None:
                 n_pages = 1 + (n_slots + n_prefill_slots) * self.max_pages
@@ -661,9 +675,10 @@ class DisaggEngine:
         if host_tier_bytes is not None:
             self.host_tier = HostTier(host_tier_bytes)
             gather_prefill = (
-                lambda ids: gather_payload(self.pages, list(ids)))
+                lambda ids: self.programs.gather_pages(self.pages, ids))
             gather_decode = (
-                lambda ids: gather_payload(self.decode_pages, list(ids)))
+                lambda ids: self.programs.gather_pages(self.decode_pages,
+                                                       ids))
             prefill_sched.attach_tier(self.host_tier, gather_prefill)
             decode_sched.attach_tier(self.host_tier, gather_decode)
             if prefill_sched.cache is not None:
@@ -931,7 +946,8 @@ class DisaggEngine:
                 d.pool.free(page_ids)
                 break
             entry, submitted_at = taken
-            scatter_payload(self.decode_pages, page_ids, rec.payload)
+            self.programs.scatter_pages(self.decode_pages, page_ids,
+                                        rec.payload)
             m = rec.meta
             d.adopt(request=entry.request, pages=page_ids,
                     cache_len=m["cache_len"],
@@ -967,7 +983,7 @@ class DisaggEngine:
                     p.cache, self.host_tier, list(head.prompt_ids),
                     ns=int(getattr(head, "adapter_id", 0) or 0),
                     alloc=self._tier_alloc_prefill,
-                    scatter=lambda ids, payload: scatter_payload(
+                    scatter=lambda ids, payload: self.programs.scatter_pages(
                         self.pages, ids, payload),
                     free=self.pool.free)
         finished = self.prefill.step()

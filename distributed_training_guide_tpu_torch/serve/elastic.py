@@ -43,7 +43,7 @@ from .disagg import DisaggEngine
 from .engine import ServeEngine
 from .kv_pages import pages_for_tokens
 from .scheduler import RequestResult, Scheduler
-from .transport import gather_payload, payload_nbytes, scatter_payload
+from .transport import payload_nbytes
 
 
 @dataclasses.dataclass
@@ -68,7 +68,8 @@ def _payload_compatible(old, new) -> bool:
             and old.kv_dtype == new.kv_dtype)
 
 
-def _export_residents(sched: Scheduler, pages: dict, *, with_payload: bool,
+def _export_residents(sched: Scheduler, pages: dict, programs, *,
+                      with_payload: bool,
                       start_index: int, stats: dict) -> list[_Exported]:
     """Release every ACTIVE (decoding) slot oldest-first, gathering its
     live pages' payload unless the sequence is mid-replay (its cache is
@@ -92,7 +93,7 @@ def _export_residents(sched: Scheduler, pages: dict, *, with_payload: bool,
             if faults.swap_fault(start_index + len(out)):
                 stats["payload_dropped"] += 1
             else:
-                payload = gather_payload(pages, live)
+                payload = programs.gather_pages(pages, live)
                 stats["pages_moved"] += len(live)
                 stats["bytes_moved"] += payload_nbytes(payload)
         sched.pool.free(slot_pages)
@@ -152,7 +153,7 @@ def _fits_generation(request, *, max_model_len: int, page_size: int,
     return all(need <= cap for cap in pool_capacities)
 
 
-def _seat_one(sched: Scheduler, pages: dict, exp: _Exported,
+def _seat_one(sched: Scheduler, pages: dict, programs, exp: _Exported,
               stats: dict) -> bool:
     """Try the payload seat: free slot + pages in the target pool +
     inside the per-slot table width. True when seated mid-stream."""
@@ -167,7 +168,7 @@ def _seat_one(sched: Scheduler, pages: dict, exp: _Exported,
     got = sched.pool.alloc(need)
     if got is None:
         return False
-    scatter_payload(pages, got, exp.payload)
+    programs.scatter_pages(pages, got, exp.payload)
     idx = sched.adopt(
         request=exp.request, pages=got, cache_len=exp.cache_len,
         generated=exp.generated, submitted_at=exp.submitted_at,
@@ -344,6 +345,7 @@ def _swap_generation_locked(old, new, force_replay: bool):
     # ---- export from the old generation ------------------------------------
     if disagg:
         residents = _export_residents(old.decode.sched, old.decode_pages,
+                                      old.programs,
                                       with_payload=with_payload,
                                       start_index=0, stats=stats)
         # in-transit handoffs: neither scheduler owns them — requeue (the
@@ -370,6 +372,7 @@ def _swap_generation_locked(old, new, force_replay: bool):
         stats["cache_dropped"] = _drain_cache(old.prefill.sched)
     else:
         residents = _export_residents(old.scheduler, old.pages,
+                                      old.programs,
                                       with_payload=with_payload,
                                       start_index=0, stats=stats)
         _preempt_prefilling(old.scheduler)
@@ -402,7 +405,7 @@ def _swap_generation_locked(old, new, force_replay: bool):
             results.append(_shrink_evicted(exp, now))
             stats["evicted"] += 1
             continue
-        if not _seat_one(seat_sched, seat_pages, exp, stats):
+        if not _seat_one(seat_sched, seat_pages, new.programs, exp, stats):
             _requeue(queue_sched, exp, stats)
     for entry, t in queued:
         max_id = max(max_id, entry.request.request_id)

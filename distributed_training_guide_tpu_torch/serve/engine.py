@@ -1,7 +1,7 @@
 """Continuous-batching decode engine over the paged KV cache, in PyTorch.
 
-Counterpart of ``distributed_training_guide_tpu/serve/engine.py`` for one
-device. The programs run eagerly where the JAX package jits them:
+Counterpart of ``distributed_training_guide_tpu/serve/engine.py``. The
+programs run eagerly where the JAX package jits them:
 
 - ONE batched decode step over the fixed ``[n_slots]`` slot array. Block
   tables, lengths and sampling knobs are tensors; idle slots compute into
@@ -41,6 +41,19 @@ target token at every position from the decode step's (seed, position)
 stream; a draft is accepted when it equals that draw, so the emitted
 tokens are always the target sampler's own.
 
+Serving under a plan (``plan=``, ``shard_kv=``; ``serve/sharding.py``):
+the JAX engine drives a tp (or fsdp) mesh from one process; here each
+rank of the plan is a process. Rank 0 builds the engine and owns every
+host decision; every other rank builds the same ``ModelPrograms`` and
+runs ``follow()`` until rank 0's ``release()``. Each program call is
+broadcast from rank 0 before it runs, so every rank runs it, in order, on
+its own params (its shards under the plan) and its own pools (its kv
+heads under ``shard_kv``). The device programs are the methods
+registered by ``@_program`` (``PROGRAMS``), the one list both sides read.
+A program that fails on any rank after its broadcast ends that rank
+(``sharding.abort_gang``): its peers may be inside one of its
+collectives, which no later message can match.
+
 Decode horizons (``decode_horizon=K``): K decode steps per host dispatch
 (``ModelPrograms.horizon_for``), with the live, budget and EOS masks kept
 on the device and ONE ``[n_slots, K]`` read per horizon, double-buffered
@@ -52,6 +65,7 @@ launches.
 from __future__ import annotations
 
 import contextlib
+import functools
 import weakref
 from typing import Optional
 
@@ -61,7 +75,7 @@ import torch
 from .._device import resolve_device
 from ..models.from_jax import _to_torch
 from ..models.registry import ModelBundle, family_module
-from ..ops.paged_decode import HEAD_DIMS, paged_decode_eligible
+from ..ops.paged_decode import HEAD_DIMS, MAX_PAGE, paged_decode_eligible
 from .adapters import (AdapterPool, DEFAULT_TARGETS, ZERO_ADAPTER,
                        adapter_nbytes, adapter_shapes, init_adapter_stacks,
                        validate_adapter_params)
@@ -69,6 +83,11 @@ from .kv_pages import (commit_prefill, copy_pages, init_pages, kv_dtype_name,
                        kv_page_bytes, make_attend, PagePool,
                        pages_for_tokens, pool_nbytes, TRASH_PAGE)
 from .scheduler import Admission, Request, RequestResult, Scheduler
+from .sharding import (Channel, ServeLayout, abort_gang,
+                       encode as sharding_encode,
+                       follow as sharding_follow, gather_sharded_payload,
+                       head_slice, kv_heads_here, shard_params,
+                       validate_kv_shard)
 from .spec import Drafter, NgramDrafter, new_spec_counters
 from .tiering import (HostTier, cache_prefix_keys, make_gather,
                       restore_prefixes, restore_queued)
@@ -363,7 +382,7 @@ def run_fork(programs: "ModelPrograms", pages: dict, adm: Admission) -> None:
     """Copy-on-write: the partially shared page is copied into the slot's
     private replacement before the remainder prefill writes into it."""
     src, dst = adm.fork
-    programs._copy_fn(pages["k"], pages["v"], int(src), int(dst))
+    programs.fork(pages, int(src), int(dst))
 
 
 def run_bucket_prefill(programs: "ModelPrograms", pages: dict,
@@ -380,12 +399,10 @@ def run_bucket_prefill(programs: "ModelPrograms", pages: dict,
     ids = np.zeros((1, bucket), np.int32)
     ids[0, :n] = tokens
     programs.prefill_calls += 1
-    logit, kd, vd = programs.prefill_for(bucket)(
-        programs.params, programs.to_device(ids), n - 1,
-        *programs.lora_call_args([adm.request.adapter_id]))
-    programs._commit_fn(pages["k"], pages["v"], kd, vd,
-                        programs.to_device(sched.table_row(adm.slot_idx)),
-                        n, adm.shared_len)
+    logit = programs.bucket_prefill(bucket)(
+        programs.params, pages, programs.to_device(ids), n - 1,
+        programs.to_device(sched.table_row(adm.slot_idx)), n,
+        adm.shared_len, *programs.lora_call_args([adm.request.adapter_id]))
     sched.commit_tokens(adm.slot_idx, n - adm.shared_len)
     return logit
 
@@ -654,6 +671,7 @@ def build_kv_report(programs: "ModelPrograms", *, page_size: int,
                              kv_dtype=kv_dtype)
     per_page_fp32 = kv_page_bytes(programs.config, page_size=page_size,
                                   kv_dtype="fp32")
+    shards = programs.kv_shards
     tier_rows = {} if tier is None else {
         "host_tier_budget_bytes": tier.budget_bytes,
         "host_tier_bytes": tier.bytes_used,
@@ -671,6 +689,8 @@ def build_kv_report(programs: "ModelPrograms", *, page_size: int,
         "bytes_per_page": per_page,
         "bytes_per_page_fp32": per_page_fp32,
         "bytes_vs_fp32": round(per_page / per_page_fp32, 4),
+        "kv_shards": shards,
+        "bytes_per_page_per_chip": per_page // shards,
         "pool_bytes": pool_bytes,
         "dense_equivalent_bytes": kv_page_bytes(
             programs.config, page_size=page_size,
@@ -689,7 +709,7 @@ def build_weight_report(programs: "ModelPrograms") -> dict:
     hand over."""
     by_dtype = weight_bytes_by_dtype(programs._fp_layout,
                                      getattr(programs.bundle, "family", None))
-    stored = params_nbytes(programs.params)
+    stored = params_nbytes(programs._stored_layout)
     return {
         "weight_dtype": programs.weight_dtype,
         "weight_bytes": stored,
@@ -782,25 +802,28 @@ def _fits(new_params, layout) -> bool:
 
 
 def fp_layout(params):
-    """The shapes and dtypes of an fp-layout param tree as meta tensors
-    (nothing allocated)."""
+    """The shapes and dtypes of a param tree as meta tensors (nothing
+    allocated); a quantized leaf as its payload's and scales'."""
     if isinstance(params, dict):
         return {k: fp_layout(v) for k, v in params.items()}
+    if hasattr(params, "q") and hasattr(params, "scale"):
+        return type(params)(q=fp_layout(params.q),
+                            scale=fp_layout(params.scale))
     return torch.empty(params.shape, dtype=params.dtype, device="meta")
 
 
 def check_page_geometry(programs: "ModelPrograms", page_size: int) -> None:
-    """On the card every paged attend is the kernel, so the model's
-    head_dim and the page size must be ones K4 takes (the JAX engine would
-    take the gather path for others, e.g. gpt-neox-20b's head_dim 96)."""
+    """On the card every paged attend is the kernel, never the gather path,
+    so the model's head_dim and the page size must be ones K4 takes: every
+    head_dim of an in-code preset (gpt-neox-20b's 96 too) and any page of
+    1 to ``MAX_PAGE`` positions."""
     head = programs.config.head_size
     if (programs.device.type == "cuda"
             and not paged_decode_eligible(head, page_size)):
         raise ValueError(
             f"head_dim {head} / page_size {page_size}: the paged kernel "
-            f"takes head_dim in {HEAD_DIMS} and pages of 8 to 64 positions "
-            f"in steps of 8 (other head_dims: ROADMAP.md queue 2, 'K4 at "
-            f"head_dim 96')")
+            f"takes head_dim in {HEAD_DIMS} and pages of 1 to {MAX_PAGE} "
+            f"positions")
 
 
 def drop_stale_kv(scheds, tier: Optional[HostTier],
@@ -826,17 +849,46 @@ def drop_stale_kv(scheds, tier: Optional[HostTier],
     return dropped
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: ROADMAP.md "
-        f"queue 1, {item}")
+# the device programs every rank of a plan runs: broadcast name -> the
+# ``ModelPrograms`` method, registered by ``_program``
+PROGRAMS: dict = {}
+
+
+def _program(name: str, *, factory: bool = False):
+    """Registers a ``ModelPrograms`` method as the device program
+    ``name``. On rank 0 of a plan over several ranks each call is
+    broadcast before it runs; a ``factory`` returns the program for its
+    key arguments (a bucket, a horizon), and each call of what it returns
+    is broadcast with that key. A follower's ``program(key)`` reads
+    ``PROGRAMS``."""
+    def register(method):
+        PROGRAMS[name] = method
+
+        @functools.wraps(method)
+        def call(self, *args, **kwargs):
+            if self._channel is None or not self._channel.leader:
+                return method(self, *args, **kwargs)
+            if factory:
+                return self._broadcasting((name, args, kwargs),
+                                          method(self, *args, **kwargs))
+            return self._broadcasting((name,), functools.partial(
+                method, self))(*args, **kwargs)
+        return call
+    return register
 
 
 class ModelPrograms:
     """The engine's programs for one (model, params, device): the batched
     decode step, the bucketed prefill, the chunk program, the commit and
     copy scatters and the batch-1 sampler — eager calls where the JAX
-    package compiles programs."""
+    package compiles programs.
+
+    Under a ``plan`` (``serve/sharding.py``) params are this rank's shards
+    and the forwards run through a ``ServeLayout``; ``shard_kv=True``
+    splits each pool on its kv heads over tp. Over more than one rank,
+    rank 0 broadcasts every program call before it runs it
+    (``@_program``), and the other ranks run ``follow()`` until rank 0's
+    ``release()``."""
 
     def __init__(self, bundle: ModelBundle, params, *, device=None,
                  attend_impl: str = "auto", kv_dtype=None, weight_dtype=None,
@@ -844,9 +896,10 @@ class ModelPrograms:
                  max_adapters: Optional[int] = None, adapter_rank: int = 8,
                  adapter_alpha: float = 16.0,
                  adapter_targets=DEFAULT_TARGETS):
-        if plan is not None or shard_kv:
-            _not_ported("plan= / shard_kv= (the tp-sharded page pool)",
-                        "'Serve fleet, sharded pool'")
+        if shard_kv:
+            validate_kv_shard(plan, bundle.config)
+        self.plan = plan
+        self.shard_kv = bool(shard_kv)
         self.mod = family_module(bundle.family)
         if max_adapters is not None and not hasattr(self.mod, "_lora_sort"):
             raise ValueError(
@@ -884,6 +937,28 @@ class ModelPrograms:
         if self._transforms:                # quantize on the device
             params = store_weights(params, self.weight_dtype,
                                    family=bundle.family)
+        # the whole stored layout, what a publish must match
+        self._stored_layout = fp_layout(params)
+        # under a plan: this rank's shards, the layout its forwards run
+        # through, and the channel rank 0 leads the other ranks over
+        self.layout = None
+        self._channel = None
+        self._specs = None
+        self._pools: list = []          # pool id -> pools dict
+        self._pool_ids: dict = {}       # id(pools dict) -> pool id
+        if plan is not None:
+            import torch.distributed as dist
+
+            from ..train.state import named_leaves
+
+            self._specs = dict(named_leaves(plan.param_specs(
+                bundle.logical_axes(), bundle.shapes())))
+            self.layout = ServeLayout(plan, self._specs, self.config,
+                                      self.mod.LAYOUT_PATHS,
+                                      shard_kv=self.shard_kv)
+            params = shard_params(plan, self._specs, params)
+            if dist.get_world_size() > 1:
+                self._channel = Channel()
         self.params = params
         # publish bookkeeping (post-training, post/loop.py): a publish
         # rebinds self.params to copies of the published leaves; every
@@ -913,8 +988,6 @@ class ModelPrograms:
             self.adapter_stacks = init_adapter_stacks(
                 self.config, max_adapters=max_adapters, rank=adapter_rank,
                 targets=adapter_targets, bundle=bundle, device=self.device)
-        self._commit_fn = commit_prefill
-        self._copy_fn = copy_pages
         # prefill FORWARD count: bucketed prefills and chunk forwards
         self.prefill_calls = 0
         # speculative verify forwards
@@ -922,6 +995,53 @@ class ModelPrograms:
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    # ---- ranks under a plan (serve/sharding.py) ----------------------------
+    @property
+    def kv_shards(self) -> int:
+        """The ranks a pool's kv heads split over (1 without shard_kv)."""
+        return int(self.plan.sizes["tp"]) if self.shard_kv else 1
+
+    @property
+    def leads(self) -> bool:
+        """True on the rank that drives the engine (every rank but the
+        followers of a plan over several ranks)."""
+        return self._channel is None or self._channel.leader
+
+    def _broadcasting(self, key: tuple, fn):
+        """``fn`` broadcast to the followers under ``key`` before each
+        call (rank 0). Once broadcast, a failure ends the gang
+        (``abort_gang``) rather than leave the followers in the program's
+        collectives."""
+        def call(*args, **kwargs):
+            self._channel.send((key, sharding_encode(self, args),
+                                sharding_encode(self, kwargs)))
+            try:
+                return fn(*args, **kwargs)
+            except BaseException:
+                abort_gang(f"rank 0 failed in program {key[0]!r} after "
+                           f"broadcasting it")
+        return call
+
+    def program(self, key: tuple):
+        """The program a broadcast ``key`` names (a follower's side):
+        ``(name,)`` for a method, ``(name, args, kwargs)`` for a
+        factory's program."""
+        method = PROGRAMS[key[0]]
+        if len(key) == 1:
+            return functools.partial(method, self)
+        return method(self, *key[1], **key[2])
+
+    def follow(self) -> int:
+        """A follower rank's loop (``serve/sharding.py:follow``)."""
+        return sharding_follow(self)
+
+    def release(self) -> None:
+        """Stop the followers (rank 0; a no-op elsewhere and without
+        followers). Idempotent."""
+        if self._channel is not None and self._channel.leader:
+            self._channel.send((("stop",), (), {}))
+            self._channel = None
 
     def drop_shared_kv(self, ns: Optional[int] = None) -> int:
         """``drop_cached_kv(ns)`` on every engine serving through these
@@ -984,27 +1104,39 @@ class ModelPrograms:
         while a generation swap is in flight (``swap_guard``). Returns the
         new publish count."""
         self._refuse_mid_swap("params")
-        with torch.no_grad():
-            try:
-                _check_layout(new_params, self.params, "engine's layout")
-            except ValueError:
-                if not (self._transforms
-                        and _fits(new_params, self._fp_layout)):
-                    raise
-                stored = store_weights(self._copy_tree(new_params),
-                                       self.weight_dtype,
-                                       family=self.bundle.family)
-            else:
-                stored = self._copy_tree(new_params)
-            self.params = stored
+        try:
+            _check_layout(new_params, self._stored_layout, "engine's layout")
+            as_stored = True
+        except ValueError:
+            if not (self._transforms and _fits(new_params, self._fp_layout)):
+                raise
+            as_stored = False
+        self._install_params(new_params, as_stored)
         self.publish_count += 1
         return self.publish_count
 
+    @_program("publish_params")
+    def _install_params(self, new_params, as_stored: bool) -> None:
+        """Copies of a checked publish as ``self.params``: stored again
+        through ``store_weights`` unless ``as_stored``, this rank's shards
+        under a plan."""
+        with torch.no_grad():
+            if as_stored:
+                stored = self._copy_tree(new_params)
+            else:
+                stored = store_weights(self._copy_tree(new_params),
+                                       self.weight_dtype,
+                                       family=self.bundle.family)
+            if self.plan is not None:
+                stored = shard_params(self.plan, self._specs, stored)
+            self.params = stored
+
     # ---- adapter publishing (the multi-tenant seam) ------------------------
+    @_program("adapter_insert")
     def _adapter_insert(self, payload: dict, slot: int) -> None:
         """One adapter's leaves into the stacked pool at ``slot``, in place
         (the stacks keep their storage), cast to the stacks' fp32. Copies:
-        the caller keeps its tree."""
+        the caller keeps its tree. Every rank keeps the whole stacks."""
         with torch.no_grad():
             for t, pair in self.adapter_stacks.items():
                 for leaf in ("a", "b"):
@@ -1120,14 +1252,66 @@ class ModelPrograms:
             adapters = self.to_device(np.asarray(adapters, np.int32))
         return (self.adapter_stacks, adapters)
 
+    @_program("init_pages")
     def init_device_pages(self, n_pages: int, page_size: int) -> dict:
-        return init_pages(self.config, n_pages, page_size,
-                          kv_dtype=self.kv_dtype, device=self.device)
+        """Zeroed pools on every rank: this rank's kv heads under
+        ``shard_kv``, every head otherwise."""
+        pages = init_pages(self.config, n_pages, page_size,
+                           kv_dtype=self.kv_dtype, device=self.device,
+                           kv_heads=kv_heads_here(self.config, self.plan,
+                                                  self.shard_kv))
+        if self._channel is not None:
+            self._pool_ids[id(pages)] = len(self._pools)
+            self._pools.append(pages)
+        return pages
 
     def make_attend(self, tables, lengths, *, n_valid=None):
-        return make_attend(tables, lengths, impl=self.attend_impl,
-                           n_valid=n_valid)
+        attend = make_attend(tables, lengths, impl=self.attend_impl,
+                             n_valid=n_valid)
+        return attend if self.layout is None else self.layout.attend(attend)
 
+    def _fwd_kw(self) -> dict:
+        """The family forwards' ``layout=`` under a plan (none without)."""
+        return {} if self.layout is None else {"layout": self.layout}
+
+    def _kv_cache(self, bucket: int) -> dict:
+        """The dense [L, 1, bucket, Hkv, D] prefill cache, of the kv heads
+        this rank's projections give it under a plan."""
+        cfg = self.config
+        heads = (getattr(cfg, "num_kv_heads", cfg.num_heads)
+                 if self.layout is None else self.layout.kv_heads_local())
+        shape = (cfg.num_layers, 1, bucket, heads, cfg.head_size)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+
+    @_program("fork")
+    def fork(self, pages: dict, src: int, dst: int) -> None:
+        """Copy-on-write: page ``src`` copied into ``dst`` (each rank its
+        pool's heads)."""
+        copy_pages(pages["k"], pages["v"], src, dst)
+
+    def gather_pages(self, pages: dict, page_ids) -> dict:
+        """Bitwise host copy of the given pages, every pool leaf and every
+        kv head: under ``shard_kv`` each rank's head slice gathered over tp
+        (every rank takes part)."""
+        if not self.shard_kv:
+            return gather_payload(pages, list(page_ids))
+        return self._gather_heads(pages, list(page_ids))
+
+    @_program("gather")
+    def _gather_heads(self, pages: dict, page_ids: list) -> dict:
+        return gather_sharded_payload(pages, page_ids, self.layout.tp_group)
+
+    @_program("scatter")
+    def scatter_pages(self, pages: dict, page_ids, payload: dict) -> None:
+        """Seat a whole payload (every kv head) into the given pages of
+        every rank's pool: its heads under ``shard_kv``."""
+        if self.shard_kv:
+            payload = head_slice(payload, self.layout.tp_rank,
+                                 kv_heads_here(self.config, self.plan, True))
+        scatter_payload(pages, list(page_ids), payload)
+
+    @_program("decode")
     def _decode(self, params, pages, tokens, lengths, tables, seeds, temps,
                 top_ks, top_ps, actives, *lora_args, stochastic: bool):
         """The batched decode step; the pools update in place. Returns the
@@ -1135,12 +1319,13 @@ class ModelPrograms:
         attend = self.make_attend(tables, lengths)
         logits, _ = self.mod.paged_decode_step(
             self.config, params, tokens[:, None], lengths, pages, attend,
-            **self._lora_kw(lora_args))
+            **self._lora_kw(lora_args), **self._fwd_kw())
         nxt = _sample_tokens(logits.float(), seeds, lengths + 1, temps,
                              top_ks, top_ps, stochastic=stochastic)
         nxt = torch.where(actives, nxt, 0)
         return nxt, torch.where(actives, lengths + 1, lengths)
 
+    @_program("horizon", factory=True)
     def horizon_for(self, k: int):
         """The K-step decode horizon: ``fn(params, pages, tokens, lengths,
         tables, seeds, temps, top_ks, top_ps, live, budgets, eos_ids, *,
@@ -1168,7 +1353,7 @@ class ModelPrograms:
                 attend = self.make_attend(eff_tables, lengths)
                 logits, _ = self.mod.paged_decode_step(
                     self.config, params, tokens[:, None], lengths, pages,
-                    attend, **lora)
+                    attend, **lora, **self._fwd_kw())
                 nxt = _sample_tokens(logits.float(), seeds, lengths + 1,
                                      temps, top_ks, top_ps,
                                      stochastic=stochastic)
@@ -1183,6 +1368,7 @@ class ModelPrograms:
 
         return fn
 
+    @_program("verify", factory=True)
     def verify_for(self, t: int, greedy: bool = False):
         """The speculative verify forward: ``fn(params, pages, ids [S, t],
         lengths, tables, seeds, temps, top_ks, top_ps, actives, n_valid)``.
@@ -1203,7 +1389,8 @@ class ModelPrograms:
             attend = self.make_attend(tables, lengths, n_valid=n_valid)
             logits, _ = self.mod.paged_decode_step(
                 self.config, params, ids, lengths, pages, attend,
-                all_logits=True, **self._lora_kw(lora_args))
+                all_logits=True, **self._lora_kw(lora_args),
+                **self._fwd_kw())
             logits = logits.float()
             s = ids.shape[0]
             steps = torch.arange(t, device=ids.device)
@@ -1227,20 +1414,48 @@ class ModelPrograms:
 
         return fn
 
+    def _prefill(self, params, ids, last_pos, lora_args, bucket: int):
+        cache = self._kv_cache(bucket)
+        logit, cache = self.mod.prefill(self.config, params, ids, cache,
+                                        last_pos=last_pos,
+                                        **self._lora_kw(lora_args),
+                                        **self._fwd_kw())
+        kd, vd = cache["k"][:, 0], cache["v"][:, 0]
+        if self.layout is not None and not self.shard_kv:
+            # the whole pool on every rank: every kv head of the prompt
+            hkv = self.layout.hkv
+            kd = self.layout.whole_heads(kd, hkv, 2)
+            vd = self.layout.whole_heads(vd, hkv, 2)
+        return logit[0], kd, vd
+
+    @_program("prefill", factory=True)
     def prefill_for(self, bucket: int):
         """The bucketed prefill: ``fn(params, ids [1, bucket], last_pos,
         *lora_args)`` -> (logits [V], k [L, bucket, Hkv, D], v [L, bucket,
-        Hkv, D])."""
+        Hkv, D]) (this rank's kv heads under ``shard_kv``)."""
         def fn(params, ids, last_pos, *lora_args):
-            cache = self.mod.init_cache(self.config, 1, bucket,
-                                        device=self.device)
-            logit, cache = self.mod.prefill(self.config, params, ids, cache,
-                                            last_pos=last_pos,
-                                            **self._lora_kw(lora_args))
-            return logit[0], cache["k"][:, 0], cache["v"][:, 0]
+            return self._prefill(params, ids, last_pos, lora_args, bucket)
 
         return fn
 
+    @_program("bucket_prefill", factory=True)
+    def bucket_prefill(self, bucket: int):
+        """The bucketed prefill and its commit scatter in one program:
+        ``fn(params, pages, ids [1, bucket], last_pos, table_row [M], n,
+        start, *lora_args)`` writes positions ``start .. n`` of the
+        prompt's k/v into the slot's pages (each rank its pool's heads)
+        and returns the real last token's logits."""
+        def fn(params, pages, ids, last_pos, table_row, n, start,
+               *lora_args):
+            logit, kd, vd = self._prefill(params, ids, last_pos, lora_args,
+                                          bucket)
+            commit_prefill(pages["k"], pages["v"], kd, vd, table_row, n,
+                           start)
+            return logit
+
+        return fn
+
+    @_program("chunk", factory=True)
     def chunk_for(self, t: int):
         """The chunk program: ``fn(params, pages, ids [1, t], start [1],
         table [1, M], last_index, n_valid [1], *lora_args)`` runs the paged
@@ -1252,7 +1467,8 @@ class ModelPrograms:
             attend = self.make_attend(table, start, n_valid=n_valid)
             logits, _ = self.mod.paged_decode_step(
                 self.config, params, ids, start, pages, attend,
-                last_index=last_index, **self._lora_kw(lora_args))
+                last_index=last_index, **self._lora_kw(lora_args),
+                **self._fwd_kw())
             return logits[0]
 
         return fn
@@ -1565,8 +1781,9 @@ class ServeEngine:
 
     def kv_cache_bytes(self) -> int:
         """Resident KV bytes (scales included): scales with the pool, not
-        with n_slots x max_len."""
-        return pool_nbytes(self.pages)
+        with n_slots x max_len. Global bytes: under shard_kv each rank
+        holds 1/tp of this."""
+        return pool_nbytes(self.pages) * self.programs.kv_shards
 
     def _on_prefill_complete(self, adm: Admission,
                              logit) -> Optional[RequestResult]:
@@ -1723,8 +1940,9 @@ class ServeEngine:
     # ---- host tier plumbing ------------------------------------------------
     def gather_pages(self, page_ids) -> dict:
         """Bitwise host copy of the given pages, every pool leaf (int8
-        payload AND scale rows): the tier's and the wire's unit."""
-        return gather_payload(self.pages, list(page_ids))
+        payload AND scale rows) and every kv head: the tier's and the
+        wire's unit."""
+        return self.programs.gather_pages(self.pages, page_ids)
 
     def scatter_pages(self, page_ids, payload) -> None:
         """Seat a gathered payload into this engine's pool at the given
@@ -1732,7 +1950,7 @@ class ServeEngine:
         lands after any horizon block already queued there. Called on the
         engine's own thread only (a receiver thread never touches a
         pool). The device decode tensors rebuild."""
-        scatter_payload(self.pages, list(page_ids), payload)
+        self.programs.scatter_pages(self.pages, page_ids, payload)
         self._dev = None
 
     def _tier_alloc(self, n: int):
@@ -1817,4 +2035,4 @@ class ServeEngine:
     def weight_bytes(self) -> int:
         """Resident param bytes (int8 payload and scales under
         weight_dtype='int8')."""
-        return params_nbytes(self.programs.params)
+        return params_nbytes(self.programs._stored_layout)

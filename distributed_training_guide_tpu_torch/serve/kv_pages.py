@@ -98,12 +98,15 @@ def kv_page_bytes(config, *, page_size: int, n_pages: int = 1,
 
 
 def init_pages(config, n_pages: int, page_size: int, kv_dtype=None,
-               device=None) -> dict:
+               device=None, kv_heads=None) -> dict:
     """Zeroed page pools {"k", "v"}: [L, n_pages, page_size, kvh, hd], or
-    :class:`Quantized` pools under ``kv_dtype="int8"``."""
+    :class:`Quantized` pools under ``kv_dtype="int8"``. ``kv_heads``: a
+    rank's share of the kv heads (the tp-sharded pool,
+    ``serve/sharding.py``); every one by default."""
     name = kv_dtype_name(config, kv_dtype)
     dev = resolve_device(device)
-    shape = (config.num_layers, n_pages, page_size, config.num_kv_heads,
+    shape = (config.num_layers, n_pages, page_size,
+             config.num_kv_heads if kv_heads is None else kv_heads,
              config.head_size)
     if name == "int8":
         def pool():

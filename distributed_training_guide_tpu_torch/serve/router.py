@@ -1027,8 +1027,8 @@ def local_fleet(bundle, params, n_replicas: int = 2, *,
     heartbeat FILES (the cross-process health signal)."""
     from .engine import ModelPrograms, ServeEngine
 
-    programs = None
-    if share_programs:
+    programs = engine_kw.pop("programs", None)
+    if share_programs and programs is None:
         adapter_kw = {k: engine_kw[k]
                       for k in ("max_adapters", "adapter_rank",
                                 "adapter_alpha", "adapter_targets")

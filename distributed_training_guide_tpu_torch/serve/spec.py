@@ -40,7 +40,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.registry import ModelBundle, family_module
-from ..ops.paged_decode import HEAD_DIMS, paged_decode_eligible
+from ..ops.paged_decode import HEAD_DIMS, MAX_PAGE, paged_decode_eligible
 from .kv_pages import PagePool, init_pages, make_attend, pages_for_tokens
 
 
@@ -161,7 +161,7 @@ class DraftModelDrafter(Drafter):
             raise ValueError(
                 f"draft model head_dim {self.config.head_size} / page_size "
                 f"{page_size}: the paged kernel takes head_dim in "
-                f"{HEAD_DIMS} and pages of 8 to 64 positions in steps of 8")
+                f"{HEAD_DIMS} and pages of 1 to {MAX_PAGE} positions")
         self.max_pages = pages_for_tokens(self.max_len, page_size)
         n_pages = 1 + n_slots * self.max_pages
         self.pool = PagePool(n_pages, page_size)

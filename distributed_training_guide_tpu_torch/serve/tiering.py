@@ -37,7 +37,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .transport import (encode_frame, gather_payload, loopback_channel,
+from .transport import (encode_frame, loopback_channel,
                         payload_nbytes)
 
 
@@ -374,4 +374,4 @@ def make_gather(engine) -> Callable[[list], dict]:
     """The gather callback the engine installs on its scheduler + cache:
     reads the CURRENT pool arrays at call time (the pages dict is
     reassigned on every scatter/decode)."""
-    return lambda page_ids: gather_payload(engine.pages, page_ids)
+    return lambda page_ids: engine.gather_pages(page_ids)

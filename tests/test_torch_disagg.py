@@ -76,8 +76,8 @@ def test_stats_and_kv_report_keys_match_jax(transport):
     generate_many(teng, [Request(**s) for s in specs])
     assert set(teng.stats()) == set(jeng.stats())
     jrep, trep = jeng.kv_report(), teng.kv_report()
-    # the port has no tp-sharded pool (no kv_shards rows)
-    assert set(trep) == set(jrep) - {"kv_shards", "bytes_per_page_per_chip"}
+    assert set(trep) == set(jrep)
+    assert trep["kv_shards"] == 1
     for key in ("pool_bytes", "bytes_per_page", "n_pages", "transport"):
         assert trep[key] == jrep[key], key
     teng.close()
@@ -187,9 +187,12 @@ def test_deadlines_drain_and_refusals():
         eng.submit(Request(prompt_ids=[3, 4], max_new_tokens=2))
     assert err.value.http_status == 503
     eng.close()
-    with pytest.raises(NotImplementedError,
-                       match="Serve fleet, sharded pool"):
+    # JAX's refusals: shard_kv without a tp plan, and across hosts
+    with pytest.raises(ValueError, match="needs a plan= with a tp mesh"):
         DisaggEngine(tb, tparams, device="cpu", shard_kv=True, **PAIR)
+    with pytest.raises(ValueError, match="cross_host.*shard_kv"):
+        DisaggEngine(tb, tparams, device="cpu", shard_kv=True,
+                     transport="cross_host", **PAIR)
     with pytest.raises(RuntimeError, match="cuda"):
         DisaggEngine(tb, tparams, **PAIR)       # default device: cuda
     eng = DisaggEngine(tb, tparams, device="cpu", **PAIR)

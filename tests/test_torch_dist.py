@@ -188,6 +188,9 @@ MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
                   shared_expert_intermediate=32)
 # tests/torch_dist_worker.py:MOE_CF05: the dense dispatch drops pairs
 MOE_CF05 = dict(capacity_factor=0.5)
+# tests/torch_dist_worker.py:MOE_WHOLE: widths tp 4 divides neither of
+MOE_WHOLE = dict(MOE_SHARED, intermediate_size=126,
+                 shared_expert_intermediate=30)
 
 
 def _moe_refs(tmp, ids, put):
@@ -206,7 +209,7 @@ def _moe_refs(tmp, ids, put):
 
     refs = {}
     for init, over in (("moe", {}), ("moe_shared", MOE_SHARED),
-                       ("moe_cf05", MOE_CF05)):
+                       ("moe_cf05", MOE_CF05), ("moe_whole", MOE_WHOLE)):
         bundle = get_model("moe-debug", dtype=jnp.float32, **over)
         params = bundle.init(bundle.config, jax.random.key(0))
         if init != "moe_cf05":        # moe's weights: init does not read cf
@@ -229,7 +232,7 @@ def _moe_refs(tmp, ids, put):
             refs[f"{init}/{dispatch}"] = (
                 losses, _flatten(jax.tree.map(np.asarray, state.params)),
                 dropped)
-        if init == "moe_cf05":
+        if init in ("moe_cf05", "moe_whole"):
             continue
         cfg = dataclasses.replace(bundle.config, router_aux_coef=1.0)
 
@@ -469,7 +472,8 @@ MOE_RUNS = [("ep4", "moe", "dense"), ("ep4_ragged", "moe", "ragged"),
             ("ep2_cp2", "moe", "dense"), ("ddp4_cf05", "moe_cf05", "dense"),
             ("ep2_cp2_cf05", "moe_cf05", "dense"),
             ("ep4_ragged_ring", "moe", "ragged"),
-            ("ep2_fsdp2_ragged_ring", "moe", "ragged")]
+            ("ep2_fsdp2_ragged_ring", "moe", "ragged"),
+            ("tp4_whole", "moe_whole", "dense")]
 MOE_LOSS_RTOL = {"dense": 2e-4, "ragged": 2e-5}
 # the ragged ring against the bulk exchange (tests/torch_dist_worker.py
 # ``*_ring`` runs): the same products per row, the owner's partials summed

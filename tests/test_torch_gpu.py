@@ -124,12 +124,17 @@ def _hold_call(out, parts, pool):
 
 # T 1 and 5 run the split-context body; T 16 and up with bf16 q the
 # tensor-core body (T * groups >= 64), with fp32 q the split-context one;
-# groups 4 (llama-3.1-8b) at every page, groups 8 (qwen3-30b-a3b) at 16
+# groups 4 (llama-3.1-8b) at every page, groups 8 (qwen3-30b-a3b) at 16;
+# head_dim 96 (gpt-neox-20b) on pages of 1, 24 and 128 positions
 GRID = (list(itertools.product([1, 5, 16, 64, 256], ["fp32", "bf16", "int8"],
                                [64, 128, 256], [8, 16, 64], [4]))
         + list(itertools.product([1, 5, 16, 64, 256],
                                  ["fp32", "bf16", "int8"], [64, 128, 256],
-                                 [16], [8])))
+                                 [16], [8]))
+        + [c for c in itertools.product([1, 5, 16, 64, 256],
+                                        ["fp32", "bf16", "int8"], [96],
+                                        [1, 24, 128], [4])
+           if c[3] * 70 > c[0]])      # T inside the 70-page table
 
 
 @pytest.mark.parametrize("t,pool,d,page,groups", GRID,
@@ -230,9 +235,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         pd.paged_flash_attend(q[..., :48].contiguous(),
                               kp[..., :48].contiguous(),
                               vp[..., :48].contiguous(), tables, lengths)
+    big = torch.zeros(kp.shape[0], 512, *kp.shape[2:], dtype=kp.dtype,
+                      device=cuda)                  # pages of 1 to 256 only
     with pytest.raises(ValueError, match="page size"):
-        pd.paged_flash_attend(q, kp[:, :4].contiguous(),
-                              vp[:, :4].contiguous(), tables, lengths)
+        pd.paged_flash_attend(q, big, big.clone(), tables, lengths)
     with pytest.raises(ValueError, match="q dtype"):
         pd.paged_flash_attend(q.half(), kp.half(), vp.half(), tables,
                               lengths)

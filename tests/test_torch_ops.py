@@ -212,7 +212,8 @@ def test_reference_fully_masked_rows_are_zero_and_wrapper_validates():
         tpd.paged_flash_attend(q, kp, kp, tables, lengths, window=0)
     assert tpd.paged_decode_eligible(128, 16)
     assert not tpd.paged_decode_eligible(16, 16)     # head_dim
-    assert not tpd.paged_decode_eligible(128, 4)     # page
+    assert tpd.paged_decode_eligible(128, 4)         # any page to 256
+    assert not tpd.paged_decode_eligible(128, 512)   # page
 
 
 def test_xla_impl_refused_for_cuda_tensors_is_a_device_rule():

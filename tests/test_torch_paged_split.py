@@ -47,7 +47,7 @@ def test_plan_reads_no_batch_and_sends_fp32_to_the_split_body():
     assert tpd._plan(256, 4, 128, BF16, F32, 100).body == "split"
     assert tpd._plan(15, 4, 128, BF16, BF16, 100).body == "split"
     with pytest.raises(ValueError, match="head_dim"):
-        tpd._plan(1, 4, 96, BF16, BF16, 100)
+        tpd._plan(1, 4, 80, BF16, BF16, 100)
 
 
 def _case(rng, *, t, groups, lengths, m, quantized, d=D):

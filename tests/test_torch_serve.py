@@ -195,9 +195,19 @@ def test_sampling_is_batch_and_order_invariant(models, chunk):
 
 def test_unported_features_and_bad_input_refused(models):
     _, _, tb, tparams = models
-    for kw in (dict(shard_kv=True), dict(plan="tp")):
-        with pytest.raises(NotImplementedError,
-                           match="Serve fleet, sharded pool"):
+    # the sharded pool refuses what the JAX engine refuses, in its words
+    # (plans over a mesh's shape: nothing is placed before the check)
+    from distributed_training_guide_tpu_torch.parallel.plans import make_plan
+
+    for kw, match in (
+            (dict(shard_kv=True), "needs a plan= with a tp mesh"),
+            (dict(shard_kv=True, plan=make_plan("tp", {"tp": 1})),
+             "needs mesh tp > 1"),
+            (dict(shard_kv=True, plan=make_plan("tp", {"tp": 2, "fsdp": 2})),
+             "tp-only meshes"),
+            (dict(shard_kv=True, plan=make_plan("tp", {"tp": 4})),
+             r"num_kv_heads \(2\) and num_heads \(4\) must both divide")):
+        with pytest.raises(ValueError, match=match):
             ServeEngine(tb, tparams, device="cpu", max_len=16, **kw)
     eng = ServeEngine(tb, tparams, device="cpu", max_len=16, n_slots=1)
     with pytest.raises(tsched.RefusalError, match="out of range"):

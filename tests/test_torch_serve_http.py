@@ -321,9 +321,13 @@ def test_cli_speculate_queue_priority_deadline():
         fleet = cli(base + flag)
         assert [line["token_ids"] for line in fleet
                 if "token_ids" in line] == tokens, flag
-    for flag in (["--tp", "2"], ["--shard-kv"]):
-        with pytest.raises(SystemExit, match="Serve fleet, sharded pool"):
-            cli(base + flag)
+    # --tp N runs one process per rank (tests/test_torch_serve_plan.py);
+    # alone it names the launch command, and --shard-kv needs --tp > 1
+    with pytest.raises(SystemExit, match="launch.local --nproc 2"):
+        cli(base + ["--tp", "2"])
+    with pytest.raises(SystemExit,
+                       match="--shard-kv needs a tp mesh: pass --tp > 1"):
+        cli(base + ["--shard-kv"])
     with pytest.raises(SystemExit, match="--replicas"):
         cli(base + ["--replicas", "2", "--disagg"])
     with pytest.raises(SystemExit, match="draft-model"):

@@ -40,7 +40,9 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   (ep 4, ep 2 x fsdp 2, ddp 4 and fsdp 4 under the dense and the ragged
   dispatch; pp 2 x dp 2 and ep 2 x cp 2 dense, and both again at capacity
   factor 0.5, where pairs drop; tp 2 x dp 2 dense on a variant with
-  qwen1.5-moe's wiring, its shared expert among them; ep 4 and ep 2 x
+  qwen1.5-moe's wiring, its shared expert among them; tp 4 dense on that
+  wiring at expert and shared widths tp 4 does not divide (the experts
+  whole on every tp rank); ep 4 and ep 2 x
   fsdp 2 ragged under the overlap schedule: the double-buffered ring),
   each
   rank fed ``data/loader.py:local_batch``: losses, ``moe_dropped_frac``,
@@ -70,7 +72,13 @@ Scenarios (each on the same llama-debug weights, fp32, AdamW 1e-3):
   pp 2 x tp 2, pp 2 x cp 2 under the ring and Ulysses), each rank fed
   ``data/loader.py:local_batch`` of the global batch; one ring step at cp
   4 on labels with -100 at shard edges; and a pp 2 x fsdp 2 state saved
-  after a step and restored under fsdp 4.
+  after a step and restored under fsdp 4;
+- ``serve_plan`` (2 ranks, ``tests/test_torch_serve_plan.py``): the serve
+  engine under a plan, rank 0 leading and rank 1 following its programs,
+  for each run of ``SERVE_RUNS`` and the compositions (CoW, ngram, the
+  disaggregated pair, a streaming trace, LoRA tenants and publishes),
+  rank 0's single-device engine beside each; the CLI at ``--tp 2
+  --shard-kv``; a decode step's record and one attend's collectives.
 """
 import argparse
 import json
@@ -617,6 +625,7 @@ MOE_RUNS = [
     ("ep4_ragged_ring", "moe", "ep", {"ep": 4}, "ragged"),
     ("ep2_fsdp2_ragged_ring", "moe", "ep_fsdp", {"ep": 2, "fsdp": 2},
      "ragged"),
+    ("tp4_whole", "moe_whole", "tp", {"tp": 4}, "dense"),
 ]
 # moe-debug with qwen1.5-moe's wiring (QKV biases, un-normalized top-k,
 # a shared expert) at widths tp 2 divides
@@ -624,11 +633,16 @@ MOE_SHARED = dict(attn_bias=True, norm_topk_prob=False,
                   shared_expert_intermediate=32)
 # moe-debug's weights at a capacity factor where the dense dispatch drops
 MOE_CF05 = dict(capacity_factor=0.5)
+# qwen1.5-moe's wiring at expert and shared widths tp 4 divides neither
+# of: the experts run whole on every tp rank
+MOE_WHOLE = dict(MOE_SHARED, intermediate_size=126,
+                 shared_expert_intermediate=30)
 
 
 def _moe_trainer(init, strategy, mesh_kw, dispatch, overlap=False, **over):
     plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
-    over = {**{"moe_shared": MOE_SHARED, "moe_cf05": MOE_CF05}.get(init, {}),
+    over = {**{"moe_shared": MOE_SHARED, "moe_cf05": MOE_CF05,
+               "moe_whole": MOE_WHOLE}.get(init, {}),
             **over}
     return Trainer(bundle=get_model("moe-debug", dtype=torch.float32,
                                     moe_dispatch=dispatch, **over),
@@ -660,7 +674,7 @@ def moe(out_dir, rank):
     ids = batches["accum1"]
     params = {k: from_jax.params_from_numpy(
         _unflatten(dict(np.load(out_dir / f"{k}_init.npz"))), device="cpu")
-        for k in ("moe", "moe_shared")}
+        for k in ("moe", "moe_shared", "moe_whole")}
     params["moe_cf05"] = params["moe"]
     facts = {}
     for name, init, strategy, mesh_kw, dispatch in MOE_RUNS:
@@ -923,8 +937,329 @@ def plans_rest(out_dir, rank):
         (out_dir / "plans_rest.json").write_text(json.dumps(facts))
 
 
+# ---------------------------------------------------------------------------
+# serving under a plan (tests/test_torch_serve_plan.py)
+# ---------------------------------------------------------------------------
+
+def serve_requests():
+    """The JAX sharded-pool test's requests: prompts of 1-3 tokens,
+    greedy and sampled in turn."""
+    from distributed_training_guide_tpu_torch.serve import Request
+
+    return [Request(prompt_ids=[3 + i, 17, 42][:(i % 3) + 1],
+                    max_new_tokens=3 + (i % 4),
+                    temperature=0.9 if i % 2 else 0.0, seed=i)
+            for i in range(6)]
+
+
+COW_PROMPTS = ([9, 8, 7, 6, 5, 4, 3, 2, 1], [9, 8, 7, 6, 5, 4, 99])
+SPEC_PROMPTS = ([1, 2, 3, 1, 2, 3, 1, 2], [5, 6, 5, 6, 5, 6, 5])
+
+
+def _trace_reqs() -> list:
+    """The streaming trace's requests (``Request`` keywords): prompts of
+    1-5 tokens, 6-11 new, one in three sampled."""
+    rng = np.random.default_rng(7)
+    return [dict(prompt_ids=[int(x) for x in rng.integers(
+        3, 500, 1 + i % 5)], max_new_tokens=6 + i % 6,
+                 temperature=0.0 if i % 3 else 0.7, seed=i)
+            for i in range(10)]
+
+
+TRACE_REQS = _trace_reqs()
+# (name, model, strategy, mesh axes, ModelPrograms kw, engine kw)
+SERVE_RUNS = [
+    ("tp2", "llama", "tp", {"tp": 2}, {}, {}),
+    ("tp2_kv", "llama", "tp", {"tp": 2}, {"shard_kv": True}, {}),
+    ("fsdp2", "llama", "fsdp", {"fsdp": 2}, {}, {}),
+    ("tp2_kv_horizon", "llama", "tp", {"tp": 2}, {"shard_kv": True},
+     {"decode_horizon": 4}),
+    ("tp2_kv_int8_pool", "llama", "tp", {"tp": 2},
+     {"shard_kv": True, "kv_dtype": "int8"}, {}),
+    ("tp2_kv_int8_weights", "llama", "tp", {"tp": 2},
+     {"shard_kv": True, "weight_dtype": "int8"}, {}),
+    ("tp2_int8_weights", "llama", "tp", {"tp": 2},
+     {"weight_dtype": "int8"}, {}),
+    ("moe_tp2", "moe", "tp", {"tp": 2}, {}, {}),
+    ("moe_tp2_kv", "moe", "tp", {"tp": 2}, {"shard_kv": True}, {}),
+]
+
+
+def _fresh(reqs):
+    import dataclasses
+
+    return [dataclasses.replace(r, request_id=None) for r in reqs]
+
+
+def _serve_programs(bundle, params, strategy, mesh_kw, prog_kw):
+    from distributed_training_guide_tpu_torch.serve.engine import (
+        ModelPrograms)
+
+    plan = make_plan(strategy, make_mesh(device="cpu", **mesh_kw))
+    return ModelPrograms(bundle, params, device="cpu", plan=plan, **prog_kw)
+
+
+def _pool_heads(programs) -> list:
+    return [int((p["k"].q if hasattr(p["k"], "q") else p["k"]).shape[3])
+            for p in programs._pools]
+
+
+def _lead_or_follow(programs, lead, facts, name):
+    """Rank 0 runs ``lead(programs)`` (its record goes to ``facts``), the
+    other rank follows; every rank records its pools' kv heads."""
+    if programs.leads:
+        try:
+            facts[name] = lead(programs)
+        finally:
+            programs.release()
+    else:
+        programs.follow()
+    facts.setdefault("pool_heads", {})[name] = _pool_heads(programs)
+
+
+def _adapter_payloads(config, n, seed=7):
+    from distributed_training_guide_tpu_torch.serve.adapters import (
+        adapter_shapes)
+
+    rng = np.random.default_rng(seed)
+    shapes = adapter_shapes(config, rank=4, targets=LORA_TARGETS)
+    return [{t: {leaf: torch.from_numpy(rng.normal(0, 0.4, shp).astype(
+        np.float32)) for leaf, shp in pair.items()}
+        for t, pair in shapes.items()} for _ in range(n)]
+
+
+def _serve_lora(bundle, params, programs):
+    """Two tenants published into the engine, requests under each and
+    the base; then a params publish (every weight x 1.1) and the same
+    requests again."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+
+    eng = ServeEngine(bundle, params, n_slots=3, page_size=4, max_len=16,
+                      device="cpu", programs=programs)
+    slots = [eng.publish_adapter(a, name=f"t{i}")
+             for i, a in enumerate(_adapter_payloads(bundle.config, 2))]
+    reqs = [Request(prompt_ids=[3 + i, 17, 42], max_new_tokens=5,
+                    adapter_id=(0, *slots)[i % 3], seed=i)
+            for i in range(6)]
+    before = [r.token_ids for r in generate_many(eng, _fresh(reqs))]
+    bumped = {k: v * 1.1 for k, v in named_leaves(params)}
+    eng.publish_params(_unflatten({k: v for k, v in bumped.items()}))
+    after = [r.token_ids for r in generate_many(eng, _fresh(reqs))]
+    return {"before": before, "after": after,
+            "publishes": eng.programs.publish_count}
+
+
+def _serve_cow(bundle, params, programs):
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+
+    eng = ServeEngine(bundle, params, n_slots=2, page_size=4, max_len=32,
+                      device="cpu", prefill_chunk=4, programs=programs)
+    out = [generate_many(eng, [Request(prompt_ids=list(p),
+                                       max_new_tokens=3 + 2 * i)])[0]
+           .token_ids for i, p in enumerate(COW_PROMPTS)]
+    pool = eng.scheduler.pool
+    return {"tokens": out, "cow_forks": eng.scheduler.stats["cow_forks"],
+            "pool_whole": pool.n_free + eng.scheduler.cache_pages_held()
+            == pool.capacity}
+
+
+def _serve_spec(bundle, params, programs):
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine, generate_many)
+
+    eng = ServeEngine(bundle, params, n_slots=2, page_size=4, max_len=32,
+                      device="cpu", speculate="ngram", spec_k=3,
+                      programs=programs)
+    reqs = [Request(prompt_ids=list(p), max_new_tokens=10,
+                    temperature=0.8 * i, seed=i)
+            for i, p in enumerate(SPEC_PROMPTS)]
+    res = generate_many(eng, reqs)
+    return {"tokens": [r.token_ids for r in res],
+            "drafted": eng.stats()["spec_tokens_drafted"]}
+
+
+def _serve_disagg(bundle, params, programs):
+    from distributed_training_guide_tpu_torch.serve import generate_many
+    from distributed_training_guide_tpu_torch.serve.disagg import (
+        DisaggEngine)
+
+    eng = DisaggEngine(bundle, params, n_slots=2, page_size=4, max_len=16,
+                       prefill_chunk=4, device="cpu", programs=programs)
+    res = generate_many(eng, _fresh(serve_requests()[:2]))
+    return {"tokens": [r.token_ids for r in res]}
+
+
+def _serve_trace(bundle, params, programs):
+    """Staggered submits under pool pressure (7 pages for 3 slots,
+    chunked prefill): the streaming tap read every iteration, its
+    prefixes never rewritten."""
+    from distributed_training_guide_tpu_torch.serve import (
+        Request, ServeEngine)
+
+    eng = ServeEngine(bundle, params, n_slots=3, page_size=4, max_len=16,
+                      n_pages=7, prefill_chunk=4, device="cpu",
+                      programs=programs)
+    reqs = [Request(**r) for r in TRACE_REQS]
+    done, streamed, rewritten, it, ids = {}, {}, 0, 0, []
+    while len(done) < len(reqs):
+        if it < len(reqs):
+            ids.append(eng.submit(reqs[it]))
+        for res in eng.step():
+            done[res.request_id] = res.token_ids
+        for rid, toks in eng.partial_tokens().items():
+            prev = streamed.get(rid, [])
+            rewritten += toks[:len(prev)] != prev
+            streamed[rid] = toks
+        it += 1
+    return {"tokens": [done[i] for i in ids],
+            "rewritten": rewritten,
+            "preempted": eng.scheduler.stats.get("preempted", 0)}
+
+
+def _serve_pin(bundle, programs):
+    """One shard_kv decode step recorded on rank 0 (whole pool avals or
+    not), and one layer's attend on every rank (its collectives)."""
+    from distributed_training_guide_tpu_torch.serve import ServeEngine
+    from distributed_training_guide_tpu_torch.utils import hlo
+
+    eng = ServeEngine(bundle, None, n_slots=2, page_size=4, max_len=16,
+                      n_pages=9, device="cpu", programs=programs)
+    arr = eng.scheduler.decode_arrays()
+    dev = {k: torch.as_tensor(arr[k]) for k in (
+        "tokens", "lengths", "tables", "seeds", "temps", "top_ks", "top_ps",
+        "actives")}
+    _, text = hlo.record_ops(
+        programs._decode, programs.params, eng.pages, dev["tokens"],
+        dev["lengths"], dev["tables"], dev["seeds"], dev["temps"],
+        dev["top_ks"], dev["top_ps"], dev["actives"], stochastic=False)
+    return text
+
+
+def _attend_collectives(programs, config) -> list:
+    """The collectives of one layer's attend over this rank's pool (run
+    on every rank alone: the shard_kv attend issues none)."""
+    from distributed_training_guide_tpu_torch.utils import hlo
+
+    pages = programs._pools[-1] if programs._pools else None
+    heads = programs.layout.kv_heads_local()
+    hq = config.num_heads // (programs.layout.tp if programs.layout.tp_on
+                              else 1)
+    s, d = 2, config.head_size
+    q = torch.randn(s, 1, hq, d)
+    k = torch.randn(s, 1, heads, d)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
+    attend = programs.make_attend(tables, lens)
+    _, text = hlo.record_ops(attend, q, k, k.clone(), pages["k"][0],
+                             pages["v"][0])
+    return [c.kind for c in hlo.find_collectives(text)]
+
+
+def serve_plan(out_dir, rank):
+    """Every run of ``SERVE_RUNS`` and the compositions, rank 0 leading,
+    with the port's single-device engine's tokens beside each (rank 0);
+    the CLI at --tp 2 --shard-kv; the decode step's record."""
+    import contextlib
+    import io
+
+    from distributed_training_guide_tpu_torch.serve import (
+        ServeEngine, generate_many)
+    from distributed_training_guide_tpu_torch.serve import (
+        __main__ as serve_cli)
+
+    models = {}
+    for key, name in (("llama", "llama-debug"), ("moe", "moe-debug")):
+        bundle = get_model(name, dtype=torch.float32)
+        params = from_jax.params_from_numpy(_unflatten(dict(np.load(
+            out_dir / f"serve_{key}.npz"))), device="cpu")
+        models[key] = (bundle, params)
+    facts = {"single": {}}
+    for name, key, strategy, mesh_kw, prog_kw, eng_kw in SERVE_RUNS:
+        bundle, params = models[key]
+        kw = dict(n_slots=3, page_size=4, max_len=16, **eng_kw)
+
+        def lead(programs, bundle=bundle, kw=kw):
+            eng = ServeEngine(bundle, None, programs=programs, **kw)
+            return [r.token_ids for r in generate_many(
+                eng, _fresh(serve_requests()))]
+        _lead_or_follow(_serve_programs(bundle, params, strategy, mesh_kw,
+                                        prog_kw), lead, facts, name)
+        if rank == 0:
+            single = ServeEngine(bundle, params, device="cpu", **{
+                k: v for k, v in prog_kw.items() if k != "shard_kv"}, **kw)
+            facts["single"][name] = [r.token_ids for r in generate_many(
+                single, _fresh(serve_requests()))]
+    bundle, params = models["llama"]
+    tp_kv = ("tp", {"tp": 2}, {"shard_kv": True})
+    for name, fn, extra in (
+            ("cow", _serve_cow, {}), ("spec", _serve_spec, {}),
+            ("disagg", _serve_disagg, {}), ("trace", _serve_trace, {}),
+            ("lora", _serve_lora, dict(max_adapters=3, adapter_rank=4,
+                                       adapter_targets=LORA_TARGETS))):
+        progs = _serve_programs(bundle, params, tp_kv[0], tp_kv[1],
+                                {**tp_kv[2], **extra})
+        _lead_or_follow(progs, lambda p, fn=fn: fn(bundle, params, p),
+                        facts, name)
+        if rank == 0:
+            from distributed_training_guide_tpu_torch.serve.engine import (
+                ModelPrograms)
+
+            single = ModelPrograms(bundle, params, device="cpu", **extra)
+            facts["single"][name] = fn(bundle, params, single)
+    # the decode step's record and one attend's collectives per rank
+    for name, prog_kw in (("pin_kv", {"shard_kv": True}), ("pin", {})):
+        progs = _serve_programs(bundle, params, "tp", {"tp": 2}, prog_kw)
+        _lead_or_follow(progs, lambda p: _serve_pin(bundle, p), facts, name)
+        facts.setdefault("attend_collectives", {})[
+            f"{name}/rank{rank}"] = _attend_collectives(progs,
+                                                        bundle.config)
+    # the CLI over the same world (rank 0 prints; the other rank follows)
+    argv = ["-m", "llama-debug", "--prompt-ids", "3,17,42",
+            "--prompt-ids", "5,6", "--steps", "6", "--device", "cpu"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(argv + ["--tp", "2", "--shard-kv"])
+    if rank == 0:
+        facts["cli_tp2"] = buf.getvalue()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_cli.main(argv)
+        facts["cli_tp1"] = buf.getvalue()
+    path = out_dir / f"serve_plan.rank{rank}.json"
+    path.write_text(json.dumps(facts))
+
+
+def serve_abort(out_dir, rank):
+    """A decode step that fails on one rank after rank 0 broadcast it
+    (``DTG_SERVE_FAIL_RANK``): the other rank is inside the step's
+    collectives. The failing rank ends itself (``sharding.abort_gang``)
+    and ``launch.local`` ends the gang; neither rank gets past serving
+    (no ``served.rank<r>`` file)."""
+    from distributed_training_guide_tpu_torch.serve import (
+        ServeEngine, generate_many)
+
+    bundle = get_model("llama-debug", dtype=torch.float32)
+    params = bundle.init(bundle.config, 0, device="cpu")
+    programs = _serve_programs(bundle, params, "tp", {"tp": 2},
+                               {"shard_kv": True})
+    if rank == int(os.environ["DTG_SERVE_FAIL_RANK"]):
+        def fail(*args, **kwargs):
+            raise RuntimeError(f"injected decode failure on rank {rank}")
+        programs.make_attend = fail
+
+    def lead(programs):
+        eng = ServeEngine(bundle, None, n_slots=2, page_size=4, max_len=16,
+                          programs=programs)
+        return generate_many(eng, _fresh(serve_requests()[:2]))
+    _lead_or_follow(programs, lead, {}, "abort")
+    (out_dir / f"served.rank{rank}").write_text("served")
+
+
 SCENARIOS = {"sharded_load": sharded_load, "quantize": quantize,
-             "offload": offload, "cp_pp": cp_pp, "plans_rest": plans_rest}
+             "offload": offload, "cp_pp": cp_pp, "plans_rest": plans_rest,
+             "serve_plan": serve_plan, "serve_abort": serve_abort}
 
 
 def main():
